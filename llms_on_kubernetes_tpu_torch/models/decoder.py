@@ -216,12 +216,20 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tens
 
 
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Final norm and LM head. Operands stay in the weight dtype and the
-    logits come back float32; for bf16 the product is rounded to bf16
-    before the cast (the JAX path keeps the f32 accumulation unrounded)."""
+    """Final norm and LM head: operands in the weight dtype, the float32
+    accumulation returned unrounded (the JAX path's
+    ``preferred_element_type=float32``). x is [B, D]."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
     head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
-    logits = torch.matmul(x, head.to(x.dtype)).float()
+    head = head.to(x.dtype)
+    if x.dtype == torch.float32:
+        logits = torch.mm(x, head)
+    elif x.is_cuda:
+        # bf16 operands, f32 output: the GEMM never rounds to bf16
+        logits = torch.mm(x, head, out_dtype=torch.float32)
+    else:
+        # the CPU has no mm.dtype; widening bf16 to f32 is exact
+        logits = torch.mm(x.float(), head.float())
     return softcap(logits, cfg.logit_softcap)
 
 

@@ -135,9 +135,9 @@ def paged_decode_attention_write(q: torch.Tensor, k_pages: torch.Tensor,
         return paged_decode_attention_write_plain(
             q, k_pages, v_pages, page_table, lengths, k_new, v_new, scale=scale,
             sliding_window=sliding_window, attn_softcap=attn_softcap)
-    # a fresh copy in the pool dtype: contiguous and 16-byte aligned
+    # in the pool dtype and contiguous, with no copy when it already is (the
+    # decoder's k[:, 0]); _launch raises on a view that starts off 16 bytes
     return _launch(KERNEL_WRITE, q, k_pages, v_pages, page_table, lengths,
-                   k_new.to(k_pages.dtype, copy=True, memory_format=torch.contiguous_format),
-                   v_new.to(v_pages.dtype, copy=True, memory_format=torch.contiguous_format),
-                   scale=scale,
-                   sliding_window=sliding_window, attn_softcap=attn_softcap)
+                   k_new.to(k_pages.dtype).contiguous(),
+                   v_new.to(v_pages.dtype).contiguous(),
+                   scale=scale, sliding_window=sliding_window, attn_softcap=attn_softcap)

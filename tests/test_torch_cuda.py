@@ -7,8 +7,11 @@ with a card and no JAX, run them without the repository's conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: float32, atol = rtol = 1e-4 (summation order); bfloat16,
-max |err| <= 2e-2 * max |plain| (rounding points). Pool bytes after the
-fused append are compared exactly.
+each row's (one query head's d values) max |err| <= 2e-2 * that row's own
+max |plain| (rounding points), so a long-context row with small values is
+held to its own scale. The float32 cases at lengths past one 256-key split
+hold the decode kernel's split merge at 1e-4. Pool bytes after the fused
+append are compared exactly.
 """
 
 import numpy as np
@@ -41,7 +44,10 @@ def _close(out, ref, dtype):
     if dtype == torch.float32:
         np.testing.assert_allclose(o.numpy(), r.numpy(), rtol=1e-4, atol=1e-4)
     else:
-        assert float((o - r).abs().max()) <= 2e-2 * float(r.abs().max())
+        n = o.shape[-1]
+        row_err = (o - r).abs().reshape(-1, n).amax(dim=1)
+        row_max = r.abs().reshape(-1, n).amax(dim=1)
+        assert bool((row_err <= 2e-2 * row_max).all())
 
 
 def _paged(rng, B, n_kv, d, page, pps, lengths, dtype, pool_pages=None):
@@ -109,6 +115,60 @@ def test_paged_decode_write_matches_plain(cuda, dtype, lengths):
     # bit-identical to write_tokens followed by the unfused kernel
     assert torch.equal(out[act], pa.paged_decode_attention(q, kr, vr, table, lens,
                                                            scale=0.1)[act])
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("window,softcap", [(None, None), (500, None), (None, 30.0)])
+def test_paged_decode_multi_split_f32(cuda, fused, window, softcap):
+    """llama-3-8b widths, page 64, 32 pages a slot (8 splits of 256 keys):
+    lengths 300, 700 and 2048 give the merge real partials in float32."""
+    lengths = np.asarray([300, 700, 2048, 0])
+    kp, vp, table = _paged(cuda, 4, 8, 128, 64, 32, lengths, torch.float32)
+    q, kn, vn = _t(cuda, 4, 32, 128), _t(cuda, 4, 8, 128), _t(cuda, 4, 8, 128)
+    lens = torch.from_numpy(lengths.astype(np.int32)).cuda()
+    kw = dict(scale=128 ** -0.5, sliding_window=window, attn_softcap=softcap)
+    act = torch.from_numpy(lengths > 0).cuda()
+    if fused:
+        kr, vr = kp.clone(), vp.clone()
+        ref = pa.paged_decode_attention_write_plain(q, kr, vr, table, lens, kn, vn, **kw)
+        out = pa.paged_decode_attention_write(q, kp, vp, table, lens, kn, vn, **kw)
+        assert torch.equal(kp[:, 1:], kr[:, 1:]) and torch.equal(vp[:, 1:], vr[:, 1:])
+    else:
+        ref = pa.paged_decode_attention_plain(q, kp, vp, table, lens, **kw)
+        out = pa.paged_decode_attention(q, kp, vp, table, lens, **kw)
+    _close(out[act], ref[act], torch.float32)
+
+
+def test_flash_prefill_long_f32(cuda):
+    """llama-3-8b widths in float32: rows of up to 900 keys, 29 K/V tiles."""
+    q, k, v = _t(cuda, 1, 1024, 32, 128), _t(cuda, 1, 1024, 8, 128), _t(cuda, 1, 1024, 8, 128)
+    lengths = torch.tensor([900], dtype=torch.int32, device="cuda")
+    out = fa.flash_prefill_attention(q, k, v, lengths, scale=128 ** -0.5)
+    ref = fa.prefill_attention_plain(q, k, v, lengths, scale=128 ** -0.5)
+    _close(out[0, :900], ref[0, :900], torch.float32)
+
+
+def test_bf16_logits_keep_the_f32_accumulation(cuda):
+    """The LM head on the card: bf16 operands, float32 logits not rounded to
+    bf16 (the JAX path's preferred_element_type=float32). Held to the f32
+    product of the same bf16 operands at 1e-5 of the logits' scale; a bf16
+    rounding of the result would be off by ~4e-3 of it."""
+    import dataclasses
+
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.models.decoder import _logits
+    from llms_on_kubernetes_tpu_torch.ops.norms import rms_norm
+
+    cfg = dataclasses.replace(get_config("debug-tiny"), vocab_size=4096)
+    params = {"final_norm": torch.ones(cfg.hidden_size, dtype=torch.bfloat16, device="cuda"),
+              "lm_head": _t(cuda, cfg.hidden_size, 4096, dtype=torch.bfloat16)}
+    x = _t(cuda, 8, cfg.hidden_size, dtype=torch.bfloat16)
+    logits = _logits(params, cfg, x)
+    assert logits.dtype == torch.float32
+    h = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
+    ref = h.double() @ params["lm_head"].double()
+    err = float((logits.double() - ref).abs().max())
+    assert err <= 1e-5 * float(ref.abs().max())
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -103,6 +103,28 @@ def test_decode_kv_write_fused_equals_dus(rng):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("name", ["debug-tiny", "debug-gemma"])
+def test_bf16_logits_keep_the_f32_accumulation(rng, name):
+    """bf16 operands, float32 logits never rounded to bf16 (the JAX path's
+    preferred_element_type=float32), tied head and logit softcap included.
+    Held to the float64 product of the same bf16 operands at 1e-5 of the
+    logits' scale; a bf16 rounding of the product is off by ~4e-3 of it."""
+    from llms_on_kubernetes_tpu_torch.ops.attention import softcap
+    from llms_on_kubernetes_tpu_torch.ops.norms import rms_norm
+
+    cfg = get_config(name)
+    params = tdec.init_params(cfg, seed=0, dtype="bfloat16", device="cpu")
+    x = torch.from_numpy(rng.normal(size=(4, cfg.hidden_size)).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    logits = tdec._logits(params, cfg, x)
+    assert logits.dtype == torch.float32
+    h = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
+    head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+    ref = softcap(h.double() @ head.double(), cfg.logit_softcap)
+    err = float((logits.double() - ref).abs().max())
+    assert err <= 1e-5 * float(ref.abs().max())
+
+
 def test_init_params_shapes_match_jax():
     """The port's own random init has the JAX layout, dtypes and scales."""
     jcfg = jget_config("debug-tiny")
