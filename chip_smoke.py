@@ -10,22 +10,26 @@ Phases, each fatal on failure:
    in parallel) and print the build seconds and the card's name and power
    limit;
 2. kernels: hold each kernel against its plain PyTorch version on the card
-   -- the small shapes of tests/test_pallas.py in float32 and full-width
-   llama-3-8b shapes in bfloat16 -- and time kernel, plain version, and
-   (for prefill) the ``scaled_dot_product_attention`` yardstick;
+   -- the small shapes of tests/test_pallas.py and tests/test_kv_int8.py in
+   float32 and full-width llama-3-8b shapes in bfloat16 (int8 pools for
+   the int8 kernels) -- and time kernel, plain version, and (for prefill)
+   the ``scaled_dot_product_attention`` yardstick;
 3. serve: start ``python -m llms_on_kubernetes_tpu_torch serve --model
    llama-3-8b --random-weights --device cuda`` (the default EngineConfig:
    8 slots, decode_steps 4, kv_write "dus", bf16) and send concurrent
    completions and a streamed chat with prompts in each prefill bucket;
    the kernel launch counters are zeroed just before and read just after;
+   then the same again with ``--kv-cache-dtype int8`` (the int8 decode
+   kernel, and never the float one, on every layer of every decode step).
    Before it, a reference check on a small input: debug-tiny in float32
    on the card against the same weights on the CPU (prefill logits within
-   1e-4, greedy streams identical);
+   1e-4, greedy streams identical, float and int8 KV);
 4. fused: in this process, the same random weights behind an Engine with
-   kv_write "fused": requests through it (counters zeroed before, read
-   after), the same greedy streams as kv_write "dus", and one decode step
-   both ways from copies of one pool (logits within the bf16 tolerance,
-   pools byte-equal outside the trash pages).
+   kv_write "fused", first with bf16 KV, then with int8 KV: requests
+   through it (counters zeroed before, read after), the same greedy
+   streams as kv_write "dus", and one decode step both ways from copies of
+   one pool (bf16 logits within the bf16 tolerance, int8 logits identical;
+   pools byte-equal outside the trash pages, int8 scales included).
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; before it, one ``{"kernels": [...]}`` JSON line. The last line
@@ -37,8 +41,9 @@ row (one query head's d values): float32, |err| <= 1e-4 (only the
 summation order differs); bfloat16, |err| <= 2e-2 * the row's own max
 |plain| (the rounding points differ). The float32 cases include lengths
 past one 256-key split, so the decode kernel's split merge is held at
-1e-4. Pool bytes after the fused kernel must equal those after
-write_tokens exactly.
+1e-4. Pool bytes after the fused kernels must equal those after
+write_tokens exactly (for int8, data and scales: the kernel quantizes as
+engine/cache.quantize_kv does).
 """
 
 from __future__ import annotations
@@ -137,19 +142,22 @@ def prefill_work(lengths, n_q: int, n_kv: int, d: int, elt: int, window=None):
     return flops, nbytes
 
 
-def decode_work(lengths, n_q: int, n_kv: int, d: int, elt: int, pps: int, write: bool):
+def decode_work(lengths, n_q: int, n_kv: int, d: int, elt: int, pps: int, write: bool,
+                int8: bool = False):
     """FLOPs and bytes one decode attention call needs: each active query
     row attends its slot's keys; q read, out written, each cached K/V row
-    read once; the fused kernel also reads k_new/v_new and writes one row
-    per side per active slot."""
+    read once (d * elt bytes a row and side, or d + 4 for an int8 row and
+    its scale); the fused kernel also reads k_new/v_new (q's dtype) and
+    writes one row per side per active slot."""
     B = len(lengths)
     keys = int(sum(lengths))
+    active = sum(1 for n in lengths if n > 0)
+    row = d + 4 if int8 else d * elt
     flops = 4.0 * d * n_q * keys
-    cached = keys - (sum(1 for n in lengths if n > 0) if write else 0)
-    nbytes = (2 * B * n_q * d * elt + 2 * cached * n_kv * d * elt
-              + 4 * B * (pps + 1))
+    cached = keys - (active if write else 0)
+    nbytes = 2 * B * n_q * d * elt + 2 * cached * n_kv * row + 4 * B * (pps + 1)
     if write:
-        nbytes += 2 * B * n_kv * d * elt + 2 * sum(1 for n in lengths if n > 0) * n_kv * d * elt
+        nbytes += 2 * B * n_kv * d * elt + 2 * active * n_kv * row
     return flops, nbytes
 
 
@@ -384,9 +392,132 @@ def phase_kernels(torch) -> dict:
         library_ms=None,
         shape="B8 n_q32 n_kv8 d128 page64 lengths 1,63,64,65,700,1500,2048,0 bf16",
         library_note="no single PyTorch call computes attention through a page table")
+    entries.update(int8_kernels(torch, rng, timer, dec_lens))
     for e in entries.values():
         say(f"  timing {e['name']}: ms={e['ms']:.4f} plain_ms={e['plain_ms']:.4f} "
             f"bound_ms={e['bound_ms']:.4f} ({e['bound_by']}) library_ms={e['library_ms']}")
+    return entries
+
+
+def int8_kernels(torch, rng, timer, dec_lens) -> dict:
+    """Phase 2 for the int8 pool's kernels: paged_decode_int8 and
+    paged_decode_write_int8 against their plain versions, then timed at
+    the full-width shape of the float kernels (bf16 q, int8 pool)."""
+    from llms_on_kubernetes_tpu_torch.engine.cache import quantize_kv
+    from llms_on_kubernetes_tpu_torch.ops import paged_attention as pa
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    entries = {}
+
+    def setup(B, n_kv, d, page, pps, lens, pool_pages=None):
+        """int8 pools holding quantize_kv's bytes of random K/V, quantized
+        on the card, and the tests' page tables."""
+        kp, vp, table = paged_setup(torch, rng, B, n_kv, d, page, pps, lens, f32, pool_pages)
+        return [*quantize_kv(kp), *quantize_kv(vp)], table
+
+    def mk(*shape, dtype=f32):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", dtype)
+
+    say("kernel paged_decode_int8 (replaces ops/pallas_paged.py::pallas_paged_attention_int8)")
+    # tests/test_kv_int8.py:77: 2 KV heads, page 4, d 128, lengths 12 and 7
+    lens = np.array([12, 7])
+    pools, table = setup(2, 2, 128, 4, 8, lens)
+    q = mk(2, 4, 128)
+    lengths = torch.from_numpy(lens.astype(np.int32)).cuda()
+    for window in (None, 6):
+        kw = dict(scale=0.3, sliding_window=window)
+        ref = pa.paged_decode_attention_int8_plain(q, *pools, table, lengths, **kw)
+        out = pa.paged_decode_attention_int8(q, *pools, table, lengths, **kw)
+        check_close(f"f32 B2 page4 d128 window={window}", out, ref, "float32")
+    long_lens = np.array([300, 700, 2048, 0])
+    act = torch.from_numpy(long_lens > 0).cuda()
+    for window, cap in [(None, None), (500, None), (None, 30.0)]:
+        pools, table = setup(4, 8, 128, 64, 32, long_lens)
+        q = mk(4, 32, 128)
+        lengths = torch.from_numpy(long_lens.astype(np.int32)).cuda()
+        kw = dict(scale=128 ** -0.5, sliding_window=window, attn_softcap=cap)
+        ref = pa.paged_decode_attention_int8_plain(q, *pools, table, lengths, **kw)
+        out = pa.paged_decode_attention_int8(q, *pools, table, lengths, **kw)
+        check_close(f"f32 llama-3-8b widths page64 lengths 300,700,2048,0 window={window} "
+                    f"softcap={cap}", out, ref, "float32", rows=act)
+        if out[3].abs().max() != 0:
+            fail("paged_decode_int8: an idle slot must give zeros")
+
+    def fused_case(label, lens, n_kv, group, d, page, pps, dtype, pool_pages=None,
+                   window=None, cap=None):
+        lens = np.asarray(lens)
+        B = len(lens)
+        pools, table = setup(B, n_kv, d, page, pps, lens, pool_pages)
+        q, kn, vn = mk(B, n_kv * group, d, dtype=dtype), mk(B, n_kv, d, dtype=dtype), \
+            mk(B, n_kv, d, dtype=dtype)
+        lengths = torch.from_numpy(lens.astype(np.int32)).cuda()
+        kw = dict(scale=d ** -0.5, sliding_window=window, attn_softcap=cap)
+        ref_pools = [t.clone() for t in pools]
+        ref = pa.paged_decode_attention_write_int8_plain(q, *ref_pools, table, lengths, kn, vn,
+                                                         **kw)
+        out = pa.paged_decode_attention_write_int8(q, *pools, table, lengths, kn, vn, **kw)
+        act = torch.from_numpy(lens > 0).cuda()
+        err = check_close(label, out, ref, "float32" if dtype == f32 else "bfloat16", rows=act)
+        # the plain path writes idle rows to the trash page 0; the kernel skips them
+        if not all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(pools, ref_pools)):
+            fail(f"{label}: int8 data or scale bytes differ from write_tokens'")
+        say(f"  {label}: pool data and scale bytes equal")
+        ref2 = pa.paged_decode_attention_int8(q, *ref_pools, table, lengths, **kw)
+        if not torch.equal(out[act], ref2[act]):
+            fail(f"{label}: fused output differs from write_tokens + paged_decode_int8")
+        return pools, table, q, kn, vn, lengths, err
+
+    say("kernel paged_decode_write_int8 (replaces "
+        "ops/pallas_paged.py::pallas_paged_attention_write_int8)")
+    # tests/test_kv_int8.py:104-165: history 13, 16, 1, 0, 31 at page 8
+    for window, cap in [(None, None), (9, None), (None, 40.0)]:
+        fused_case(f"f32 B5 d8 page8 window={window} softcap={cap}", [14, 17, 2, 0, 32], 2, 2,
+                   8, 8, 4, f32, window=window, cap=cap)
+    fused_case("f32 page boundary", [8, 9, 24, 25], 2, 2, 16, 8, 4, f32)
+    fused_case("f32 idle rows", [0, 0, 0], 1, 2, 8, 8, 2, f32)
+    for window in (None, 500):
+        fused_case(f"f32 llama-3-8b widths page64 lengths 300,700,2048,0 window={window}",
+                   [300, 700, 2048, 0], 8, 4, 128, 64, 32, f32, window=window)
+
+    # full-width llama-3-8b decode over an int8 pool: the float kernels' shape
+    pools, table = setup(8, 8, 128, 64, 32, dec_lens, pool_pages=512)
+    q = mk(8, 32, 128, dtype=bf16)
+    lengths = torch.from_numpy(dec_lens.astype(np.int32)).cuda()
+    kw = dict(scale=128 ** -0.5)
+    act = torch.from_numpy(dec_lens > 0).cuda()
+    ref = pa.paged_decode_attention_int8_plain(q, *pools, table, lengths, **kw)
+    out = pa.paged_decode_attention_int8(q, *pools, table, lengths, **kw)
+    err = check_close("bf16 q, int8 pool, llama-3-8b B8 page64 lengths 1..2048", out, ref,
+                      "bfloat16", rows=act)
+    ms = timer(lambda: pa.paged_decode_attention_int8(q, *pools, table, lengths, **kw))
+    plain = timer(lambda: pa.paged_decode_attention_int8_plain(q, *pools, table, lengths, **kw))
+    flops, nbytes = decode_work(dec_lens, 32, 8, 128, 2, 32, write=False, int8=True)
+    b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+    shape = "B8 n_q32 n_kv8 d128 page64 lengths 1,63,64,65,700,1500,2048,0 bf16 q, int8 pool"
+    entries["paged_decode_int8"] = dict(
+        name="paged_decode_int8", route="cuda",
+        source="llms_on_kubernetes_tpu_torch/csrc/paged_decode_int8.cu",
+        replaces="llms_on_kubernetes_tpu/ops/pallas_paged.py:264",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, shape=shape,
+        library_note="no single PyTorch call computes attention through a page table")
+
+    pools, table, q, kn, vn, lengths, err = fused_case(
+        "bf16 q, int8 pool, llama-3-8b B8 page64 lengths 1..2048", dec_lens, 8, 4, 128, 64,
+        32, bf16, pool_pages=512)
+    ms = timer(lambda: pa.paged_decode_attention_write_int8(q, *pools, table, lengths, kn, vn,
+                                                            **kw))
+    plain = timer(lambda: pa.paged_decode_attention_write_int8_plain(q, *pools, table, lengths,
+                                                                     kn, vn, **kw))
+    flops, nbytes = decode_work(dec_lens, 32, 8, 128, 2, 32, write=True, int8=True)
+    b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+    entries["paged_decode_write_int8"] = dict(
+        name="paged_decode_write_int8", route="cuda",
+        source="llms_on_kubernetes_tpu_torch/csrc/paged_decode_int8.cu",
+        replaces="llms_on_kubernetes_tpu/ops/pallas_paged.py:874",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, shape=shape,
+        library_note="no single PyTorch call computes attention through a page table")
     return entries
 
 
@@ -431,23 +562,26 @@ def check_stream(name: str, status: int, events, max_tokens: int) -> list[dict]:
     return chunks
 
 
-def phase_serve(model: str, num_layers: int) -> dict:
+def phase_serve(model: str, num_layers: int, kv_cache_dtype=None) -> dict:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     base = f"http://127.0.0.1:{port}"
     os.makedirs(OUT_DIR, exist_ok=True)
-    log_path = os.path.join(OUT_DIR, "chip_smoke_server.log")
+    suffix = f"_{kv_cache_dtype}" if kv_cache_dtype else ""
+    log_path = os.path.join(OUT_DIR, f"chip_smoke_server{suffix}.log")
     cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch", "serve", "--model", model,
            "--random-weights", "--device", "cuda", "--host", "127.0.0.1",
            "--port", str(port)]
+    if kv_cache_dtype:
+        cmd += ["--kv-cache-dtype", kv_cache_dtype]
     say(f"serve: {' '.join(cmd[1:])}")
     t_start = time.perf_counter()
     with open(log_path, "w") as logf:
         proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT,
                                 start_new_session=True)
         try:
-            return _drive_server(proc, base, model, num_layers, t_start)
+            return _drive_server(proc, base, model, num_layers, t_start, kv_cache_dtype)
         except SystemExit:
             logf.flush()
             with open(log_path) as f:
@@ -462,7 +596,8 @@ def phase_serve(model: str, num_layers: int) -> dict:
                 proc.wait(timeout=30)
 
 
-def _drive_server(proc, base: str, model: str, num_layers: int, t_start: float) -> dict:
+def _drive_server(proc, base: str, model: str, num_layers: int, t_start: float,
+                  kv_cache_dtype=None) -> dict:
     deadline = time.perf_counter() + 420
     while True:
         if proc.poll() is not None:
@@ -558,8 +693,11 @@ def _drive_server(proc, base: str, model: str, num_layers: int, t_start: float) 
         fail("the burst ran no prefill or no decode")
     if launches.get("flash_prefill", 0) < num_layers * counts["prefill_calls"]:
         fail("flash_prefill launched fewer than num_layers times per prefill call")
-    if launches.get("paged_decode", 0) < num_layers * counts["decode_forwards"]:
-        fail("paged_decode launched fewer than num_layers times per decode step")
+    decode_kernel = "paged_decode_int8" if kv_cache_dtype else "paged_decode"
+    if launches.get(decode_kernel, 0) < num_layers * counts["decode_forwards"]:
+        fail(f"{decode_kernel} launched fewer than num_layers times per decode step")
+    if kv_cache_dtype and launches.get("paged_decode", 0):
+        fail("the int8 KV server launched the float decode kernel")
 
     # TTFT and decode rate: 8 concurrent greedy streams (one per slot); TTFT
     # is the first token's chunk (the server sends one per first token even
@@ -591,9 +729,10 @@ def _drive_server(proc, base: str, model: str, num_layers: int, t_start: float) 
         toks += chunks[-1]["usage"]["completion_tokens"] - 1
     decode_tps = toks / (max(lasts) - min(firsts))
     card = card_line()
-    say(f"TTFT (8 concurrent 40-token prompts, median) ms: {1e3 * float(np.median(ttft)):.1f} "
-        f"[{card}]")
-    say(f"decode tokens/s (8 concurrent streams of {n_dec} tokens, {model} bf16): "
+    kv = f", {kv_cache_dtype} KV" if kv_cache_dtype else ""
+    say(f"TTFT (8 concurrent 40-token prompts, median{kv}) ms: "
+        f"{1e3 * float(np.median(ttft)):.1f} [{card}]")
+    say(f"decode tokens/s (8 concurrent streams of {n_dec} tokens, {model} bf16{kv}): "
         f"{decode_tps:.1f} [{card}]")
     return {"launches": launches, "ttft_ms": 1e3 * float(np.median(ttft)),
             "decode_tps": decode_tps}
@@ -603,18 +742,23 @@ def _drive_server(proc, base: str, model: str, num_layers: int, t_start: float) 
 # phase 4: kv_write="fused" in process
 # ---------------------------------------------------------------------------
 
-def phase_fused(torch, model: str) -> dict:
+def phase_fused(torch, model: str, params, kv_cache_dtype=None) -> dict:
+    """kv_write "fused" against "dus" on ``params``, with the KV pool in
+    bf16 (kv_cache_dtype None) or int8. Each engine is freed before the
+    next one starts."""
     from llms_on_kubernetes_tpu_torch import kernels
     from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.cache import KVPool
     from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
-    from llms_on_kubernetes_tpu_torch.models.decoder import forward_decode, init_params
+    from llms_on_kubernetes_tpu_torch.models.decoder import forward_decode
 
     cfg = get_config(model)
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, dtype="bfloat16", device="cuda")
-    torch.cuda.synchronize()
-    say(f"fused: {model} random weights (seed 0) in {time.perf_counter() - t0:.1f} s")
-    fused = Engine(EngineConfig(model=model, kv_write="fused", device="cuda"), params=params)
+    int8 = kv_cache_dtype == "int8"
+    write_kernel = "paged_decode_write_int8" if int8 else "paged_decode_write"
+    unfused = "paged_decode_int8" if int8 else "paged_decode"
+    tag = f"fused ({kv_cache_dtype or 'bf16'} KV)"
+    kw = dict(model=model, kv_cache_dtype=kv_cache_dtype, device="cuda")
+    fused = Engine(EngineConfig(kv_write="fused", **kw), params=params)
     prompts = [[1 + i % 200 for i in range(40)], [7 + i % 200 for i in range(200)], [5] * 900]
     sp = SamplingParams(max_tokens=16, temperature=0.0)
     kernels.reset_launches()
@@ -623,20 +767,24 @@ def phase_fused(torch, model: str) -> dict:
         fused.step()
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    say(f"  fused engine launches: {launches}; decode forwards {fused.decode_forwards}")
-    if launches.get("paged_decode_write", 0) < cfg.num_layers * fused.decode_forwards:
-        fail("paged_decode_write launched fewer than num_layers times per decode step")
-    if launches.get("paged_decode", 0):
-        fail("the fused engine launched the unfused decode kernel")
+    say(f"{tag}: engine launches: {launches}; decode forwards {fused.decode_forwards}")
+    if launches.get(write_kernel, 0) < cfg.num_layers * fused.decode_forwards:
+        fail(f"{write_kernel} launched fewer than num_layers times per decode step")
+    for other in ("paged_decode", "paged_decode_write", "paged_decode_int8",
+                  "paged_decode_write_int8"):
+        if other != write_kernel and launches.get(other, 0):
+            fail(f"the {tag} engine launched {other}")
     if any(r.finish_reason not in ("length", "stop") for r in reqs):
-        fail(f"fused engine finish reasons {[r.finish_reason for r in reqs]}")
+        fail(f"{tag} engine finish reasons {[r.finish_reason for r in reqs]}")
+    streams = [r.output for r in reqs]
+    del fused, reqs
+    torch.cuda.empty_cache()
 
-    dus = Engine(EngineConfig(model=model, kv_write="dus", device="cuda"), params=params)
+    dus = Engine(EngineConfig(kv_write="dus", **kw), params=params)
     ref = [dus.generate(p, sp) for p in prompts]
-    if [r.output for r in reqs] != ref:
-        fail(f"greedy streams differ between kv_write fused and dus: "
-             f"{[r.output for r in reqs]} vs {ref}")
-    say("  greedy streams equal under kv_write fused and dus")
+    if streams != ref:
+        fail(f"{tag}: greedy streams differ between kv_write fused and dus: {streams} vs {ref}")
+    say(f"  {tag}: greedy streams equal under kv_write fused and dus")
 
     # one decode step both ways from copies of one pool: prefill three
     # prompts, then decode their first tokens
@@ -651,23 +799,44 @@ def phase_fused(torch, model: str) -> dict:
     table = torch.from_numpy(dus.allocator.page_tables).cuda()
     pools, logits = {}, {}
     for mode in ("dus", "fused"):
-        kp, vp = dus.k_pages.data.clone(), dus.v_pages.data.clone()
+        kp, vp = (KVPool(p.data.clone(), None if p.scale is None else p.scale.clone())
+                  for p in (dus.k_pages, dus.v_pages))
         logits[mode], _, _ = forward_decode(params, cfg, tokens, lengths, kp, vp, table,
                                             kv_write=mode)
-        pools[mode] = (kp, vp)
-    check_close("one decode step, logits fused vs dus", logits["fused"], logits["dus"],
-                "bfloat16", rows=lengths > 0)
+        pools[mode] = [t for p in (kp, vp) for t in (p.data, p.scale) if t is not None]
+    check_close(f"{tag}: one decode step, logits fused vs dus", logits["fused"],
+                logits["dus"], "bfloat16", rows=lengths > 0)
+    if int8 and not torch.equal(logits["fused"], logits["dus"]):
+        fail(f"{tag}: logits of one decode step differ between fused and dus")
     P = dus.config.num_pages
     keep = torch.ones(cfg.num_layers * P, dtype=torch.bool, device="cuda")
     keep[::P] = False          # each layer's trash page; dus writes idle rows there
-    for side in (0, 1):
-        if not torch.equal(pools["dus"][side][:, keep], pools["fused"][side][:, keep]):
-            fail("pools differ between kv_write dus and fused after one decode step")
-    say("  pools byte-equal outside the trash pages")
+    for a, b in zip(pools["dus"], pools["fused"]):
+        if not torch.equal(a[:, keep], b[:, keep]):
+            fail(f"{tag}: pools differ between kv_write dus and fused after one decode step")
+    say(f"  {tag}: pools byte-equal outside the trash pages"
+        + (" (int8 data and scales); logits identical" if int8 else ""))
     for r in rows:
         dus.abort(r)
     dus.step()
+    del dus, pools
+    torch.cuda.empty_cache()
     return {"launches": launches}
+
+
+def phase_in_process(torch, model: str) -> dict:
+    """Phase 4 with bf16 and with int8 KV, on one set of random weights."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.models.decoder import init_params
+
+    t0 = time.perf_counter()
+    params = init_params(get_config(model), seed=0, dtype="bfloat16", device="cuda")
+    torch.cuda.synchronize()
+    say(f"fused: {model} random weights (seed 0) in {time.perf_counter() - t0:.1f} s")
+    out = {kv: phase_fused(torch, model, params, kv) for kv in (None, "int8")}
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_reference(torch) -> None:
@@ -707,16 +876,21 @@ def phase_reference(torch) -> None:
               num_pages=128, pages_per_slot=16, prefill_buckets=(16, 32))
     prompts = [[3, 17, 9], [40, 2] * 9, [7, 7, 7, 7], [11] * 30, [100, 42, 5, 1, 9]]
     sp = SamplingParams(max_tokens=12, temperature=0.0)
-    streams = {}
-    for dev, kv_write in (("cpu", "dus"), ("cuda", "dus"), ("cuda", "fused")):
-        eng = Engine(EngineConfig(**kw, device=dev, kv_write=kv_write), params=on(dev))
-        reqs = [eng.submit(p, sp) for p in prompts]
-        while eng.has_work():
-            eng.step()
-        streams[(dev, kv_write)] = [r.output for r in reqs]
-    if not streams[("cuda", "dus")] == streams[("cuda", "fused")] == streams[("cpu", "dus")]:
-        fail(f"debug-tiny greedy streams differ between the card and the CPU: {streams}")
-    say("reference: debug-tiny greedy streams equal on the card (dus, fused) and the CPU")
+    for kv_dtype in (None, "int8"):
+        streams = {}
+        for dev, kv_write in (("cpu", "dus"), ("cuda", "dus"), ("cuda", "fused")):
+            eng = Engine(EngineConfig(**kw, device=dev, kv_write=kv_write,
+                                      kv_cache_dtype=kv_dtype), params=on(dev))
+            reqs = [eng.submit(p, sp) for p in prompts]
+            while eng.has_work():
+                eng.step()
+            streams[(dev, kv_write)] = [r.output for r in reqs]
+        kv = f"{kv_dtype or 'f32'} KV"
+        if not streams[("cuda", "dus")] == streams[("cuda", "fused")] == streams[("cpu", "dus")]:
+            fail(f"debug-tiny {kv}: greedy streams differ between the card and the CPU: "
+                 f"{streams}")
+        say(f"reference: debug-tiny {kv} greedy streams equal on the card (dus, fused) and "
+            f"the CPU")
 
 
 def phase_profile(torch, model: str = MODEL) -> None:
@@ -795,11 +969,16 @@ def main(argv) -> int:
         say(json.dumps({"kernels": list(entries.values())}))
         fail("--kernels-only: phases 3 and 4 skipped, no result")
     phase_reference(torch)
-    served = phase_serve(MODEL, get_config(MODEL).num_layers)
-    fused = phase_fused(torch, MODEL)
+    num_layers = get_config(MODEL).num_layers
+    served = phase_serve(MODEL, num_layers)
+    served_int8 = phase_serve(MODEL, num_layers, kv_cache_dtype="int8")
+    fused = phase_in_process(torch, MODEL)
     entries["flash_prefill"]["launches"] = served["launches"].get("flash_prefill", 0)
     entries["paged_decode"]["launches"] = served["launches"].get("paged_decode", 0)
-    entries["paged_decode_write"]["launches"] = fused["launches"].get("paged_decode_write", 0)
+    entries["paged_decode_int8"]["launches"] = served_int8["launches"].get(
+        "paged_decode_int8", 0)
+    for kv, name in ((None, "paged_decode_write"), ("int8", "paged_decode_write_int8")):
+        entries[name]["launches"] = fused[kv]["launches"].get(name, 0)
     for e in entries.values():
         if not e["launches"]:
             fail(f"{e['name']} was never launched on its path")

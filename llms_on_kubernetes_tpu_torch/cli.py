@@ -1,7 +1,7 @@
 """Command-line entry point (counterpart of ``llms_on_kubernetes_tpu/cli.py``).
 
     python -m llms_on_kubernetes_tpu_torch serve --model llama-3-8b --random-weights \\
-        [--device cuda|cpu] [--port 8080]
+        [--device cuda|cpu] [--port 8080] [--kv-cache-dtype int8] [--kv-write dus|fused]
 
 The engine defaults are ``EngineConfig``'s. Checkpoint loading is not
 ported yet, so ``--random-weights`` is required: the model serves seeded
@@ -43,6 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default=",".join(str(b) for b in d.prefill_buckets))
     p.add_argument("--decode-steps", type=int, default=d.decode_steps)
     p.add_argument("--kv-write", choices=["dus", "fused"], default=d.kv_write)
+    p.add_argument("--kv-cache-dtype", choices=["int8"], default=None,
+                   help="KV cache storage dtype (default: the model dtype, or env "
+                        "LLMK_KV_DTYPE)")
     return ap
 
 
@@ -60,8 +63,8 @@ def main(argv=None) -> int:
             model=args.model, dtype=args.dtype, max_decode_slots=args.max_decode_slots,
             page_size=args.page_size, num_pages=args.num_pages,
             pages_per_slot=args.pages_per_slot, prefill_buckets=args.prefill_buckets,
-            decode_steps=args.decode_steps, kv_write=args.kv_write, seed=args.seed,
-            device=args.device)
+            decode_steps=args.decode_steps, kv_write=args.kv_write,
+            kv_cache_dtype=args.kv_cache_dtype, seed=args.seed, device=args.device)
         serve(args.model, host=args.host, port=args.port, device=args.device,
               random_weights=True, served_model_name=args.served_model_name,
               engine_config=cfg)

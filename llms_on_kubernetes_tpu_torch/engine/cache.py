@@ -15,13 +15,20 @@ The layout is the JAX package's, so the tests compare like with like:
   ``[1, P)``.
 
 JAX threads the pool functionally; here ``write_tokens`` and the fused
-decode kernel update the pool tensors IN PLACE. int8 KV (a per-token scale
-beside the data) waits for a later slice.
+decode kernels update the pool tensors IN PLACE.
+
+int8 KV (``CacheConfig.kv_dtype="int8"``): each pool side holds int8 data
+plus a per-token f32 ``scale [n_kv, L * P, page]``; ``quantize_kv`` is the
+JAX function's max/clamp/round/clip chain with true IEEE division, so its
+bytes equal those of the JAX ``quantize_kv`` run eagerly. (Under
+``jax.jit`` XLA-CPU rewrites the division by 127 as a multiply, and a
+scale can then differ by one ulp and a value by one.)
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,27 +55,79 @@ class CacheConfig:
     page_size: int = 64
     pages_per_slot: int = 32
     dtype: str = "bfloat16"
+    # "int8": per-token symmetric KV quantization, a f32 scale per (head,
+    # page, token) beside the data; None: KV stored in ``dtype``
+    kv_dtype: Optional[str] = None
+
+    @property
+    def bytes_per_page(self) -> int:
+        if self.kv_dtype == "int8":
+            per_tok = self.num_kv_heads * (self.head_dim + 4)   # data + scale
+        else:
+            per_tok = self.num_kv_heads * self.head_dim * torch_dtype(self.dtype).itemsize
+        return 2 * self.num_layers * self.page_size * per_tok
+
+    @property
+    def bytes_per_token(self) -> int:
+        """KV bytes per cached token across all layers, both sides."""
+        return self.bytes_per_page // self.page_size
 
 
 class KVPool:
     """One side (K or V) of the paged cache: flat head-major ``data``
-    [n_kv, L*P, page, d]. Updated in place."""
+    [n_kv, L*P, page, d] plus, when int8-quantized, a per-token ``scale``
+    [n_kv, L*P, page] float32. Updated in place."""
 
-    def __init__(self, data: torch.Tensor):
+    def __init__(self, data: torch.Tensor, scale: Optional[torch.Tensor] = None):
         self.data = data
+        self.scale = scale
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def quantized(self) -> bool:
+        return self.scale is not None
 
     def __repr__(self):
-        return f"KVPool(shape={tuple(self.data.shape)}, dtype={self.data.dtype})"
+        return (f"KVPool(shape={tuple(self.data.shape)}, dtype={self.data.dtype}, "
+                f"quantized={self.quantized})")
 
 
 def init_pages(cfg: CacheConfig, device="cuda") -> tuple[KVPool, KVPool]:
-    """Zeroed flat head-major pools [n_kv, L * P, page, d] on ``device``."""
+    """Zeroed flat head-major pools [n_kv, L * P, page, d] on ``device``
+    (int8 data and f32 scales [n_kv, L * P, page] for ``kv_dtype="int8"``)."""
     device = resolve_device(device)
     shape = (cfg.num_kv_heads, cfg.num_layers * cfg.num_pages,
              cfg.page_size, cfg.head_dim)
+    if cfg.kv_dtype == "int8":
+        def one():
+            return KVPool(torch.zeros(shape, dtype=torch.int8, device=device),
+                          torch.zeros(shape[:3], dtype=torch.float32, device=device))
+        return one(), one()
+    if cfg.kv_dtype is not None:
+        raise ValueError(f"unsupported kv_dtype {cfg.kv_dtype!r} (None or 'int8')")
     dt = torch_dtype(cfg.dtype)
     return (KVPool(torch.zeros(shape, dtype=dt, device=device)),
             KVPool(torch.zeros(shape, dtype=dt, device=device)))
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8: x [..., d] -> (int8 data, f32 scale [...]).
+    ``torch.round`` rounds half to even, like ``jnp.round``; both divisions
+    are true divisions (never a multiply by 1/s), as the CUDA kernel's.
+    The divisor 127 is a tensor: PyTorch's CUDA division by a Python
+    scalar multiplies by the scalar's reciprocal, one ulp off."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = amax.clamp(min=1e-8) / torch.full_like(amax, 127.0)
+    data = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return data, scale
 
 
 # The JAX write_tokens writes whole pages for a chunk spanning up to this
@@ -87,7 +146,9 @@ def write_tokens(k_pages, v_pages, k: torch.Tensor, v: torch.Tensor,
                      body has already added its l*P block offset)
     positions:       [B, T] int32 token positions; negative => trash page 0
 
-    One indexed store per side, with the bytes the JAX ``write_tokens``
+    A quantized pool takes ``quantize_kv``'s int8 rows and per-token scales,
+    the scales at the same (page, row) as their data. One indexed store per
+    side (and per scale), with the bytes the JAX ``write_tokens``
     leaves outside the trash pages:
 
     - T == 1 (decode): the row at each position; a negative position
@@ -105,6 +166,12 @@ def write_tokens(k_pages, v_pages, k: torch.Tensor, v: torch.Tensor,
     the store needs no host sync. Returns the (same, updated) pools."""
     kd = getattr(k_pages, "data", k_pages)
     vd = getattr(v_pages, "data", v_pages)
+    ksc = getattr(k_pages, "scale", None)
+    vsc = getattr(v_pages, "scale", None)
+    ks = vs = None
+    if ksc is not None:
+        k, ks = quantize_kv(k)         # int8 [B, T, n_kv, d], f32 [B, T, n_kv]
+        v, vs = quantize_kv(v)
     B, T, n_kv, d = k.shape
     page = kd.shape[2]
     pps = page_table.shape[1]
@@ -118,6 +185,9 @@ def write_tokens(k_pages, v_pages, k: torch.Tensor, v: torch.Tensor,
         off = torch.where(pos < 0, 0, safe % page).reshape(-1)
         kd[:, pid, off] = k.reshape(B * T, n_kv, d).transpose(0, 1).to(kd.dtype)
         vd[:, pid, off] = v.reshape(B * T, n_kv, d).transpose(0, 1).to(vd.dtype)
+        if ks is not None:
+            ksc[:, pid, off] = ks.reshape(B * T, n_kv).transpose(0, 1)
+            vsc[:, pid, off] = vs.reshape(B * T, n_kv).transpose(0, 1)
         return k_pages, v_pages
 
     dev = k.device
@@ -138,6 +208,9 @@ def write_tokens(k_pages, v_pages, k: torch.Tensor, v: torch.Tensor,
     rows = (torch.arange(B, device=dev)[:, None] * T + t_c.reshape(B, -1)).reshape(-1)
     kd[:, dst_pid, dst_off] = k.reshape(B * T, n_kv, d)[rows].transpose(0, 1).to(kd.dtype)
     vd[:, dst_pid, dst_off] = v.reshape(B * T, n_kv, d)[rows].transpose(0, 1).to(vd.dtype)
+    if ks is not None:
+        ksc[:, dst_pid, dst_off] = ks.reshape(B * T, n_kv)[rows].transpose(0, 1)
+        vsc[:, dst_pid, dst_off] = vs.reshape(B * T, n_kv)[rows].transpose(0, 1)
     return k_pages, v_pages
 
 

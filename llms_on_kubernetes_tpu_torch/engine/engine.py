@@ -22,6 +22,9 @@ One scheduler iteration (``step``):
    brings back the window's tokens. The host stays authoritative for
    finishes.
 
+``kv_cache_dtype="int8"`` (or env ``LLMK_KV_DTYPE=int8``) keeps the KV
+pool in int8 with per-token scales, as the JAX engine does.
+
 The scheduler is synchronous. The JAX engine's async harvester, pacing,
 prefix cache, host KV tier, QoS, ledger, grammar, LoRA, speculation,
 chunked prefill and preemption are not ported yet.
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import queue
 import threading
 from typing import Any, Optional
@@ -87,6 +91,11 @@ class EngineConfig:
     # "dus": write_tokens then the decode kernel; "fused": the decode
     # kernel that appends the current token as it attends
     kv_write: str = "dus"
+    # KV cache storage: None => the engine dtype; "int8" => per-token
+    # quantized KV (data + f32 scale; about half the pool bytes and half the
+    # bytes decode attention reads). None falls through to env
+    # LLMK_KV_DTYPE ("", "none" and "off" mean off), as in the JAX engine
+    kv_cache_dtype: Optional[str] = None
     decode_steps: int = 4
     seed: int = 0
     # "cuda" (the default) raises without a GPU; pass "cpu" for the CPU
@@ -96,6 +105,13 @@ class EngineConfig:
         if self.kv_write not in KV_WRITE_STRATEGIES:
             raise ValueError(f"kv_write must be one of {KV_WRITE_STRATEGIES}, "
                              f"got {self.kv_write!r}")
+        if self.kv_cache_dtype is None:
+            self.kv_cache_dtype = os.environ.get("LLMK_KV_DTYPE") or None
+        if self.kv_cache_dtype in ("off", "none", ""):
+            self.kv_cache_dtype = None
+        if self.kv_cache_dtype not in (None, "int8"):
+            raise ValueError(f"kv_cache_dtype must be None/'int8', got "
+                             f"{self.kv_cache_dtype!r}")
         if self.decode_steps < 1:
             raise ValueError(f"decode_steps must be >= 1, got {self.decode_steps}")
         self.prefill_buckets = tuple(sorted(int(b) for b in self.prefill_buckets))
@@ -153,7 +169,8 @@ class Engine:
             num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, num_pages=engine_config.num_pages,
             page_size=engine_config.page_size,
-            pages_per_slot=engine_config.pages_per_slot, dtype=engine_config.dtype)
+            pages_per_slot=engine_config.pages_per_slot, dtype=engine_config.dtype,
+            kv_dtype=engine_config.kv_cache_dtype)
         self.k_pages, self.v_pages = init_pages(self.cache_config, device=self.device)
         B = engine_config.max_decode_slots
         self.allocator = PageAllocator(engine_config.num_pages, engine_config.page_size,

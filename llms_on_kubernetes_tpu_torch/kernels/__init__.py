@@ -32,7 +32,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_prefill", "paged_decode")
+SOURCES = ("flash_prefill", "paged_decode", "paged_decode_int8")
+# no --use_fast_math: the int8 kernel's quantization needs IEEE division
+# to store the bytes engine/cache.quantize_kv stores
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +51,8 @@ _SIGNATURES = {
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P]),
     "paged_decode": ("llmk_paged_decode",
                      [_P] * 11 + [_I] * 8 + [_F, _I, _F, _I, _I, _P]),
+    "paged_decode_int8": ("llmk_paged_decode_int8",
+                          [_P] * 13 + [_I] * 8 + [_F, _I, _F, _I, _I, _P]),
 }
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()

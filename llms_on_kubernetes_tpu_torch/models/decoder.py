@@ -11,7 +11,10 @@ per-layer-local page table is offset by ``layer * P``.
 
 The projections are plain ``torch.matmul`` (the JAX package leaves them
 to XLA). Attention goes through ``ops/attention``'s dispatchers: the CUDA
-kernels for CUDA tensors, the plain versions for CPU tensors.
+kernels for CUDA tensors, the plain versions for CPU tensors. The pools
+pass through as ``KVPool``s; an int8 pool carries its per-token scales,
+prefill attends over the fresh, unquantized K/V and stores them quantized
+(as the JAX decoder does), and decode goes to the int8 kernels.
 
 Not ported yet: LoRA, MoE, vision, the chunk/verify/score passes.
 """

@@ -9,8 +9,10 @@ ops/paged_attention.py) are held against them.
 
 The dispatchers choose by the device of the tensors they are given: a CUDA
 tensor goes to the kernel, which raises on a shape it does not take; a CPU
-tensor goes to the plain version. The JAX dispatchers' Mosaic guards
-(``d % 128``, ``page % 8``) are TPU tiling rules and do not carry over.
+tensor goes to the plain version. A quantized (int8) ``KVPool`` goes to the
+int8 kernels. The JAX dispatchers' Mosaic guards (``d % 128``,
+``page % 8``, the int8 ``page % 128``) are TPU tiling rules and do not
+carry over.
 """
 
 from __future__ import annotations
@@ -36,10 +38,15 @@ def _softmax_masked(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def _gather_pool(pool, page_table: torch.Tensor, B: int, S: int, d: int) -> torch.Tensor:
-    """A pool's logical KV [n_kv, B, S, d] in f32, through the page table."""
+    """A pool's logical KV [n_kv, B, S, d] in f32, through the page table,
+    dequantized per token when the pool is int8 (engine/cache.py KVPool)."""
     data = getattr(pool, "data", pool)
     n_kv = data.shape[0]
-    return data[:, page_table.long()].reshape(n_kv, B, S, d).float()
+    pt = page_table.long()
+    x = data[:, pt].reshape(n_kv, B, S, d).float()
+    if getattr(pool, "quantized", False):
+        x = x * pool.scale[:, pt].reshape(n_kv, B, S)[..., None]
+    return x
 
 
 def prefill_attention(q, k, v, lengths, *, scale: float,
@@ -109,8 +116,15 @@ def dispatch_prefill_attention(q, k, v, lengths, *, scale, sliding_window=None,
 
 def dispatch_paged_attention(q, k_pages, v_pages, page_table, lengths, *,
                              scale, sliding_window=None, attn_softcap=None):
-    from llms_on_kubernetes_tpu_torch.ops.paged_attention import paged_decode_attention
+    from llms_on_kubernetes_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_int8,
+    )
 
+    if getattr(k_pages, "quantized", False):
+        return paged_decode_attention_int8(
+            q, k_pages.data, k_pages.scale, v_pages.data, v_pages.scale, page_table,
+            lengths, scale=scale, sliding_window=sliding_window,
+            attn_softcap=attn_softcap)
     return paged_decode_attention(
         q, getattr(k_pages, "data", k_pages), getattr(v_pages, "data", v_pages),
         page_table, lengths, scale=scale, sliding_window=sliding_window,
@@ -124,16 +138,23 @@ def dispatch_paged_attention_write(q, k_pages, v_pages, page_table, lengths,
     """Decode attention with the current token's KV append.
 
     ``kv_write="fused"`` folds the append into the attention kernel
-    (ops/paged_attention.paged_decode_attention_write); ``"dus"`` runs
+    (ops/paged_attention.paged_decode_attention_write, or its int8 twin
+    that quantizes the row as it stores it); ``"dus"`` runs
     ``write_tokens`` and then the decode kernel. Both update the pools IN
     PLACE. q [B, n_q, d]; k_new/v_new [B, n_kv, d] (post-rope);
     write_positions [B, 1] (negative => idle/trash).
     Returns (attn [B, n_q, d], k_pages, v_pages)."""
     if kv_write == "fused":
         from llms_on_kubernetes_tpu_torch.ops.paged_attention import (
-            paged_decode_attention_write,
+            paged_decode_attention_write, paged_decode_attention_write_int8,
         )
 
+        if getattr(k_pages, "quantized", False):
+            attn = paged_decode_attention_write_int8(
+                q, k_pages.data, k_pages.scale, v_pages.data, v_pages.scale, page_table,
+                lengths, k_new, v_new, scale=scale, sliding_window=sliding_window,
+                attn_softcap=attn_softcap)
+            return attn, k_pages, v_pages
         attn = paged_decode_attention_write(
             q, getattr(k_pages, "data", k_pages), getattr(v_pages, "data", v_pages),
             page_table, lengths, k_new, v_new, scale=scale,

@@ -3,7 +3,8 @@
 - Importing every module of ``llms_on_kubernetes_tpu_torch`` (and
   ``chip_smoke.py``) imports no JAX. This runs in a subprocess: this test
   process has JAX loaded by tests/conftest.py.
-- No source file of the port imports ``jax`` or the JAX package.
+- No source file of the port imports ``jax`` or the JAX package, and every
+  CUDA source under ``csrc/`` is one the port builds and binds.
 - Without a GPU, every entry point that defaults to ``device="cuda"``
   raises instead of carrying on on the CPU.
 """
@@ -30,6 +31,9 @@ def test_import_everything_without_jax():
         "import llms_on_kubernetes_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
+        "from llms_on_kubernetes_tpu_torch.ops.paged_attention import (\n"
+        "    paged_decode_attention_int8, paged_decode_attention_write_int8)\n"
+        "from llms_on_kubernetes_tpu_torch.engine.cache import quantize_kv\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'llms_on_kubernetes_tpu'\n"
@@ -47,6 +51,20 @@ def test_import_everything_without_jax():
 def test_source_imports_no_jax(path):
     hits = FORBIDDEN.findall(path.read_text())
     assert not hits, f"{path} imports {hits}"
+
+
+def test_every_kernel_source_is_built_and_bound():
+    """Each ``csrc/*.cu`` is a library ``kernels.build()`` compiles (in
+    parallel, one nvcc each) and has a C entry with its ctypes signature;
+    the headers it includes count in the build's source hash."""
+    from llms_on_kubernetes_tpu_torch import kernels
+
+    cu = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
+    assert sorted(kernels.SOURCES) == cu
+    assert set(kernels._SIGNATURES) == set(kernels.SOURCES)
+    hashed = {p.name for p in kernels.CSRC.glob("*.cu*")}
+    assert {"common.cuh", "paged_decode.cuh", "paged_decode_int8.cu"} <= hashed
+    assert "--use_fast_math" not in kernels.NVCC_FLAGS      # IEEE division
 
 
 def test_forbidden_pattern_catches_what_it_should():
@@ -72,17 +90,24 @@ def _entry_points():
     return {
         "resolve_device": lambda: resolve_device(),
         "Engine": lambda: Engine(EngineConfig(model="debug-tiny")),
+        "Engine int8 KV": lambda: Engine(EngineConfig(model="debug-tiny",
+                                                      kv_cache_dtype="int8")),
         "init_params": lambda: init_params(cfg),
         "init_pages": lambda: init_pages(CacheConfig(2, 2, 16, num_pages=4)),
+        "init_pages int8": lambda: init_pages(CacheConfig(2, 2, 16, num_pages=4,
+                                                          kv_dtype="int8")),
         "params_from_numpy": lambda: params_from_numpy({"w": __import__("numpy").ones(2)}),
         "serve": lambda: serve("debug-tiny", random_weights=True, port=0),
         "cli": lambda: cli.main(["serve", "--model", "debug-tiny", "--random-weights",
                                  "--port", "0"]),
+        "cli int8 KV": lambda: cli.main(["serve", "--model", "debug-tiny", "--random-weights",
+                                         "--port", "0", "--kv-cache-dtype", "int8"]),
     }
 
 
-@pytest.mark.parametrize("name", ["resolve_device", "Engine", "init_params", "init_pages",
-                                  "params_from_numpy", "serve", "cli"])
+@pytest.mark.parametrize("name", ["resolve_device", "Engine", "Engine int8 KV", "init_params",
+                                  "init_pages", "init_pages int8", "params_from_numpy",
+                                  "serve", "cli", "cli int8 KV"])
 def test_entry_points_refuse_a_missing_gpu(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: device='cuda' is valid here")
