@@ -12,24 +12,35 @@ Phases, each fatal on failure:
 2. kernels: hold each kernel against its plain PyTorch version on the card
    -- the small shapes of tests/test_pallas.py and tests/test_kv_int8.py in
    float32 and full-width llama-3-8b shapes in bfloat16 (int8 pools for
-   the int8 kernels) -- and time kernel, plain version, and (for prefill)
-   the ``scaled_dot_product_attention`` yardstick;
+   the int8 kernels) -- and time kernel, plain version, and the library
+   yardstick where one PyTorch call computes the same function (flash
+   prefill: ``scaled_dot_product_attention``; the float window append: two
+   ``index_put_`` stores). The window appends must leave the plain
+   version's pool bytes outside the trash page 0 and every byte outside
+   the written rows as it was;
 3. serve: start ``python -m llms_on_kubernetes_tpu_torch serve --model
    llama-3-8b --random-weights --device cuda`` (the default EngineConfig:
-   8 slots, decode_steps 4, kv_write "dus", bf16) and send concurrent
-   completions and a streamed chat with prompts in each prefill bucket;
-   the kernel launch counters are zeroed just before and read just after;
-   then the same again with ``--kv-cache-dtype int8`` (the int8 decode
-   kernel, and never the float one, on every layer of every decode step).
-   Before it, a reference check on a small input: debug-tiny in float32
-   on the card against the same weights on the CPU (prefill logits within
-   1e-4, greedy streams identical, float and int8 KV);
+   8 slots, decode_steps 4, kv_write "dus", bf16, prefix caching on) and
+   send concurrent completions and a streamed chat with prompts in each
+   prefill bucket and one of 1,500 tokens (two chunks), then the 900-token
+   prompt again with a tail (a prefix-cache hit of 896 tokens, prefilled
+   through the chunk path); the kernel launch counters are zeroed just
+   before and read just after. Held: every window-kernel launch count is
+   num_layers x the chunk calls (and >= 96), the re-sent prompt adopts
+   >= 896 tokens. Then the same again with ``--kv-cache-dtype int8`` (the
+   int8 decode and window kernels, and never the float ones, on every
+   layer). Before it, a reference check on a small input: debug-tiny in
+   float32 on the card against the same weights on the CPU (prefill logits
+   within 1e-4; greedy streams identical, float and int8 KV, with a
+   chunked prompt and a second pass of cache hits);
 4. fused: in this process, the same random weights behind an Engine with
    kv_write "fused", first with bf16 KV, then with int8 KV: requests
    through it (counters zeroed before, read after), the same greedy
    streams as kv_write "dus", and one decode step both ways from copies of
    one pool (bf16 logits within the bf16 tolerance, int8 logits identical;
-   pools byte-equal outside the trash pages, int8 scales included).
+   pools byte-equal outside the trash pages, int8 scales included). Last,
+   printed and not held: a 1,500-token prompt's first-token logits chunked
+   (bucket 1,024) against one-shot (bucket 2,048).
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; before it, one ``{"kernels": [...]}`` JSON line. The last line
@@ -393,6 +404,7 @@ def phase_kernels(torch) -> dict:
         shape="B8 n_q32 n_kv8 d128 page64 lengths 1,63,64,65,700,1500,2048,0 bf16",
         library_note="no single PyTorch call computes attention through a page table")
     entries.update(int8_kernels(torch, rng, timer, dec_lens))
+    entries.update(window_kernels(torch, rng, timer))
     for e in entries.values():
         say(f"  timing {e['name']}: ms={e['ms']:.4f} plain_ms={e['plain_ms']:.4f} "
             f"bound_ms={e['bound_ms']:.4f} ({e['bound_by']}) library_ms={e['library_ms']}")
@@ -521,6 +533,138 @@ def int8_kernels(torch, rng, timer, dec_lens) -> dict:
     return entries
 
 
+def window_work(widths, n_kv: int, d: int, new_elt: int, int8: bool) -> float:
+    """Bytes one windowed append needs: each written row of k_new/v_new
+    read once (d * new_elt a KV head and side) and each pool row written
+    once (d * new_elt for a float pool, d + 4 for an int8 row and its
+    scale). Only rows t < widths[b] count: the rest are neither read nor
+    written. No arithmetic to speak of: the bound is bytes."""
+    rows = int(sum(widths)) * n_kv * 2
+    return rows * (d * new_elt + (d + 4 if int8 else d * new_elt))
+
+
+def window_kernels(torch, rng, timer) -> dict:
+    """Phase 2 for the windowed KV append (the chunk path's write):
+    paged_write_window (float pools) and paged_write_window_int8 against
+    their plain versions. Held: the pool bytes (data and scales) equal the
+    plain version's outside the trash page 0, and every byte outside the
+    written rows equals the pre-call copy. Timed at the chunk path's
+    full-width shapes."""
+    from llms_on_kubernetes_tpu_torch.ops import paged_write as pw
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    entries = {}
+
+    def pools(n_kv, P, page, d, int8, dtype):
+        if int8:
+            mk_d = lambda: torch.from_numpy(
+                rng.integers(-127, 128, size=(n_kv, P, page, d)).astype(np.int8)).cuda()
+            mk_s = lambda: torch.from_numpy(
+                (rng.random(size=(n_kv, P, page)) + 0.1).astype(np.float32)).cuda()
+            return [mk_d(), mk_s(), mk_d(), mk_s()]
+        mk = lambda: torch.from_numpy(
+            rng.normal(size=(n_kv, P, page, d)).astype(np.float32)).to("cuda", dtype)
+        return [mk(), mk()]
+
+    def case(label, base, widths, W, n_kv, d, page, pps, int8, pool_dtype, new_dtype,
+             pool_pages=None):
+        """Run kernel and plain version on copies of one pool; return the
+        arguments for timing."""
+        base, widths = np.asarray(base), np.asarray(widths)
+        B = len(base)
+        P = pool_pages or B * pps + 1
+        table = np.zeros((B, pps), np.int32)
+        perm = rng.permutation(P - 1) + 1
+        for b in range(B):
+            used = min(pps, -(-int(base[b] + W) // page))
+            table[b, :used] = perm[b * pps:b * pps + used]
+        written = np.zeros((P, page), bool)
+        for b in range(B):
+            for t in range(int(widths[b])):
+                pos = int(base[b]) + t
+                written[table[b, pos // page], pos % page] = True
+        pool = pools(n_kv, P, page, d, int8, pool_dtype)
+        mk = lambda: torch.from_numpy(
+            rng.normal(size=(B, W, n_kv, d)).astype(np.float32)).to("cuda", new_dtype)
+        kn, vn = mk(), mk()
+        args = [torch.from_numpy(a.astype(np.int32)).cuda() for a in (table, base, widths)]
+        before = [t.clone() for t in pool]
+        ref = [t.clone() for t in pool]
+        kernel = pw.paged_write_window_int8 if int8 else pw.paged_write_window
+        plain = pw.paged_write_window_int8_plain if int8 else pw.paged_write_window_plain
+        plain(*ref, *args, kn, vn)
+        kernel(*pool, *args, kn, vn)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(pool, ref)):
+            fail(f"{label}: pool bytes differ from the plain version's outside page 0")
+        keep = torch.from_numpy(~written).cuda()
+        if not all(torch.equal(a[:, keep], b[:, keep]) for a, b in zip(pool, before)):
+            fail(f"{label}: the kernel changed pool bytes outside the written rows")
+        say(f"  {label}: pool bytes equal the plain version's outside page 0; "
+            f"{int(written.sum())} rows a KV head written, every other byte untouched")
+        return pool, args, kn, vn
+
+    say("kernel paged_write_window (replaces ops/pallas_paged.py::pallas_paged_write_window)")
+    say("kernel paged_write_window_int8 (replaces "
+        "ops/pallas_paged.py::pallas_paged_write_window_int8)")
+    # tests/test_pallas.py:261 and tests/test_kv_int8.py:168, float32 rows
+    small = dict(base=[7, 8, 0, 15, 3], widths=[4, 3, 4, 2, 0], W=4, n_kv=2, d=8, page=8,
+                 pps=4)
+    case("f32 pool, test_pallas shape", int8=False, pool_dtype=f32, new_dtype=f32, **small)
+    case("bf16 pool, test_pallas shape", int8=False, pool_dtype=bf16, new_dtype=bf16, **small)
+    case("int8 pool, f32 rows, test_kv_int8 shape", int8=True, pool_dtype=None,
+         new_dtype=f32, **small)
+    case("int8 pool, bf16 rows, d 128 page 16", base=[0, 16, 5, 40], widths=[20, 16, 1, 0],
+         W=20, n_kv=2, d=128, page=16, pps=4, int8=True, pool_dtype=None, new_dtype=bf16)
+    # llama-3-8b widths: the second chunk of a 1,500-token prompt (bucket
+    # 1,024), and four slots starting at 0, a page boundary (896), mid-page
+    # (900) and one idle row
+    full = {"B1 W1024 base 1024 width 476": dict(base=[1024], widths=[476]),
+            "B4 W1024 bases 0,896,900,0 widths 1024,1024,1000,0":
+                dict(base=[0, 896, 900, 0], widths=[1024, 1024, 1000, 0])}
+    for int8, name in ((False, "paged_write_window"), (True, "paged_write_window_int8")):
+        times = {}
+        for shape, kw in full.items():
+            pool, args, kn, vn = case(f"{'int8' if int8 else 'bf16'} pool, bf16 rows, {shape}",
+                                      W=1024, n_kv=8, d=128, page=64, pps=32, int8=int8,
+                                      pool_dtype=bf16, new_dtype=bf16, pool_pages=512, **kw)
+            kernel = pw.paged_write_window_int8 if int8 else pw.paged_write_window
+            plain = pw.paged_write_window_int8_plain if int8 else pw.paged_write_window_plain
+            # a few microseconds a launch: more launches than the default
+            ms = timer(lambda: kernel(*pool, *args, kn, vn), reps=100)
+            plain_ms = timer(lambda: plain(*pool, *args, kn, vn), reps=100)
+            lib = None
+            if not int8:
+                # the library yardstick: the same rows' two index_put_ stores
+                pid, off = pw._window_index(args[0], args[1], args[2], 1024, 64)
+                sel = (args[2].long()[:, None] > torch.arange(1024, device="cuda")).reshape(-1)
+                pid, off = pid[sel], off[sel]
+                kr = kn.reshape(-1, 8, 128)[sel].transpose(0, 1).contiguous()
+                vr = vn.reshape(-1, 8, 128)[sel].transpose(0, 1).contiguous()
+                hix = torch.arange(8, device="cuda")[:, None]
+                lib = timer(lambda: (pool[0].index_put_((hix, pid, off), kr),
+                                     pool[1].index_put_((hix, pid, off), vr)), reps=100)
+            b_ms, b_by = bound_ms(0.0, window_work(kw["widths"], 8, 128, 2, int8), "bfloat16")
+            times[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                                bound_by=b_by)
+            say(f"  timing {name} {shape}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"bound_ms={b_ms:.5f} library_ms={lib}")
+        main_shape = next(iter(full))
+        entries[name] = dict(
+            name=name, route="cuda",
+            source="llms_on_kubernetes_tpu_torch/csrc/paged_write_window.cu",
+            replaces=("llms_on_kubernetes_tpu/ops/pallas_paged.py:1045" if int8
+                      else "llms_on_kubernetes_tpu/ops/pallas_paged.py:612"),
+            max_abs_err=0.0, **times[main_shape],
+            shape=f"{main_shape} n_kv8 d128 page64 bf16 rows, "
+                  f"{'int8' if int8 else 'bf16'} pool",
+            other_shapes={s: t for s, t in times.items() if s != main_shape})
+        if int8:
+            entries[name]["library_note"] = ("no single PyTorch call quantizes and stores: "
+                                             "quantize_kv alone is several calls")
+    return entries
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the server, through its normal entry point
 # ---------------------------------------------------------------------------
@@ -619,6 +763,10 @@ def _drive_server(proc, base: str, model: str, num_layers: int, t_start: float,
     max_tokens = 32
     text = ("The quick brown fox jumps over the lazy dog while the engine serves "
             "requests on the card. ") * 12
+    # a text that shares no page with the others: its 1,500 tokens take the
+    # chunk path in two chunks (largest bucket 1,024), never a cache hit
+    long_text = ("Paged attention reads the cache through a table of pages, and "
+                 "chunked prefill fills it one bucket at a time. ") * 20
     jobs = {
         "completion greedy 40-token prompt": ("/v1/completions", {
             "model": model, "prompt": text[:40], "max_tokens": max_tokens, "temperature": 0}),
@@ -628,6 +776,9 @@ def _drive_server(proc, base: str, model: str, num_layers: int, t_start: float,
         "completion greedy 900-token prompt": ("/v1/completions", {
             "model": model, "prompt": (text * 2)[:900], "max_tokens": max_tokens,
             "temperature": 0}),
+        "completion greedy 1500-token prompt (2 chunks)": ("/v1/completions", {
+            "model": model, "prompt": long_text[:1500], "max_tokens": max_tokens,
+            "temperature": 0}),
         "chat streamed": ("/v1/chat/completions", {
             "model": model, "messages": [{"role": "user", "content": text[:150]}],
             "max_tokens": max_tokens, "temperature": 0, "stream": True,
@@ -636,6 +787,7 @@ def _drive_server(proc, base: str, model: str, num_layers: int, t_start: float,
     status, _ = http("POST", base + "/debug/kernels/reset", {})
     if status != 200:
         fail("/debug/kernels/reset failed")
+    counts0 = json.loads(http("GET", base + "/debug/kernels")[1])
     results: dict = {}
 
     def run(name, path, body):
@@ -654,9 +806,16 @@ def _drive_server(proc, base: str, model: str, num_layers: int, t_start: float,
     for t in threads:
         t.join(timeout=600)
     burst_s = time.perf_counter() - t0
+    # the 900-token prompt again with a 100-character tail: a cache hit of
+    # its first 14 pages (896 tokens), the rest through the chunk path
+    resend = "completion greedy 900-token prompt again + 100-character tail"
+    counts_burst = json.loads(http("GET", base + "/debug/kernels")[1])
+    results[resend] = ("full",) + http("POST", base + "/v1/completions", {
+        "model": model, "prompt": (text * 2)[:900] + long_text[:100],
+        "max_tokens": max_tokens, "temperature": 0})
     status, body = http("GET", base + "/debug/kernels")
     counts = json.loads(body)
-    for name in jobs:
+    for name in [*jobs, resend]:
         res = results.get(name)
         if res is None or res[0] == "error":
             fail(f"{name}: {res}")
@@ -671,7 +830,8 @@ def _drive_server(proc, base: str, model: str, num_layers: int, t_start: float,
             n = data["usage"]["completion_tokens"]
             if not (n == max_tokens or (ch["finish_reason"] == "stop" and 0 < n <= max_tokens)):
                 fail(f"{name}: completion_tokens={n}, finish_reason={ch['finish_reason']}")
-            say(f"  {name}: 200, {n} tokens, finish_reason={ch['finish_reason']}")
+            say(f"  {name}: 200, {data['usage']['prompt_tokens']} prompt tokens, {n} "
+                f"tokens, finish_reason={ch['finish_reason']}")
         else:
             _, status, events, _t0 = res
             chunks = check_stream(name, status, events, max_tokens)
@@ -698,6 +858,22 @@ def _drive_server(proc, base: str, model: str, num_layers: int, t_start: float,
         fail(f"{decode_kernel} launched fewer than num_layers times per decode step")
     if kv_cache_dtype and launches.get("paged_decode", 0):
         fail("the int8 KV server launched the float decode kernel")
+    # the chunk path: one window append a layer per chunk call, by pool kind
+    chunk_calls = counts["chunk_calls"] - counts0["chunk_calls"]
+    hits = counts["prefix_hit_tokens"] - counts0["prefix_hit_tokens"]
+    resend_hit = counts["prefix_hit_tokens"] - counts_burst["prefix_hit_tokens"]
+    window, other = (("paged_write_window_int8", "paged_write_window") if kv_cache_dtype
+                     else ("paged_write_window", "paged_write_window_int8"))
+    say(f"  chunk path: {chunk_calls} chunk calls, {launches.get(window, 0)} {window} "
+        f"launches, {hits} prompt tokens from the prefix cache ({resend_hit} by the "
+        f"re-sent prompt)")
+    if launches.get(window, 0) != num_layers * chunk_calls or launches.get(window, 0) < 96:
+        fail(f"{window} launched {launches.get(window, 0)} times for {chunk_calls} chunk "
+             f"calls: expected num_layers per call, and at least 96")
+    if launches.get(other, 0):
+        fail(f"the {kv_cache_dtype or 'bf16'} KV server launched {other}")
+    if resend_hit < 896:
+        fail(f"the re-sent 900-token prompt adopted {resend_hit} < 896 cached tokens")
 
     # TTFT and decode rate: 8 concurrent greedy streams (one per slot); TTFT
     # is the first token's chunk (the server sends one per first token even
@@ -824,6 +1000,59 @@ def phase_fused(torch, model: str, params, kv_cache_dtype=None) -> dict:
     return {"launches": launches}
 
 
+def phase_chunk_vs_one_shot(torch, model: str, params) -> None:
+    """Printed, not held: a 1,500-token prompt's first-token logits through
+    the chunk path (bucket 1,024: two forward_chunk calls, the window
+    kernels and the plain chunk attention) against one-shot prefill (bucket
+    2,048: flash prefill). The two round differently, so this reports how
+    far apart they land and whether the top-1 token agrees."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.cache import CacheConfig, init_pages
+    from llms_on_kubernetes_tpu_torch.models.decoder import forward_chunk, forward_prefill
+
+    cfg = get_config(model)
+    n = 1500
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, size=n).astype(np.int32)
+    cc = CacheConfig(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, num_pages=33,
+                     page_size=64, pages_per_slot=32, dtype="bfloat16")
+    table = torch.arange(1, 33, dtype=torch.int32, device="cuda")[None]
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device="cuda")
+    tokens = torch.zeros((1, 2048), dtype=torch.int32, device="cuda")
+    tokens[0, :n] = torch.from_numpy(prompt)
+
+    def one_shot():
+        k, v = init_pages(cc, device="cuda")
+        return forward_prefill(params, cfg, tokens, i32(n), k, v, table)[0]
+
+    def chunked():
+        k, v = init_pages(cc, device="cuda")
+        for pos in range(0, n, 1024):
+            m = min(1024, n - pos)
+            chunk = torch.zeros((1, 1024), dtype=torch.int32, device="cuda")
+            chunk[0, :m] = tokens[0, pos:pos + m]
+            logits = forward_chunk(params, cfg, chunk, i32(pos), i32(m), k, v, table)[0]
+        return logits
+
+    wall = {}
+    for name, fn in (("one-shot", one_shot), ("chunked", chunked)) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[name] = (1e3 * (time.perf_counter() - t0), out)     # the second run stays
+    (ms1, ref), (ms2, got) = wall["one-shot"], wall["chunked"]
+    err = float((got - ref).abs().max())
+    top2 = ref[0].topk(2).values
+    same = int(got.argmax()) == int(ref.argmax())
+    say(f"chunk vs one-shot ({model} bf16, 1,500-token prompt, buckets 1,024 / 2,048): "
+        f"first-token logits max |diff| {err:.4e} (logit scale {float(ref.abs().max()):.3f}), "
+        f"top-1 {'equal' if same else 'different'} (one-shot top-1/top-2 gap "
+        f"{float(top2[0] - top2[1]):.4e}); wall {ms1:.1f} ms one-shot, {ms2:.1f} ms in two "
+        f"chunks [{card_line()}]")
+    del wall, ref, got, out
+    torch.cuda.empty_cache()
+
+
 def phase_in_process(torch, model: str) -> dict:
     """Phase 4 with bf16 and with int8 KV, on one set of random weights."""
     from llms_on_kubernetes_tpu_torch.configs import get_config
@@ -834,6 +1063,7 @@ def phase_in_process(torch, model: str) -> dict:
     torch.cuda.synchronize()
     say(f"fused: {model} random weights (seed 0) in {time.perf_counter() - t0:.1f} s")
     out = {kv: phase_fused(torch, model, params, kv) for kv in (None, "int8")}
+    phase_chunk_vs_one_shot(torch, model, params)
     del params
     torch.cuda.empty_cache()
     return out
@@ -874,23 +1104,32 @@ def phase_reference(torch) -> None:
         fail("debug-tiny prefill logits on the card differ from the CPU reference")
     kw = dict(model="debug-tiny", dtype="float32", max_decode_slots=4, page_size=4,
               num_pages=128, pages_per_slot=16, prefill_buckets=(16, 32))
-    prompts = [[3, 17, 9], [40, 2] * 9, [7, 7, 7, 7], [11] * 30, [100, 42, 5, 1, 9]]
+    # the last prompt passes the largest bucket (two chunks); the second
+    # pass over the same engine adopts every prompt's cached full pages
+    prompts = [[3, 17, 9], [40, 2] * 9, [7, 7, 7, 7], [11] * 30, [100, 42, 5, 1, 9],
+               [(7 * i) % 251 for i in range(45)]]
     sp = SamplingParams(max_tokens=12, temperature=0.0)
     for kv_dtype in (None, "int8"):
         streams = {}
         for dev, kv_write in (("cpu", "dus"), ("cuda", "dus"), ("cuda", "fused")):
             eng = Engine(EngineConfig(**kw, device=dev, kv_write=kv_write,
                                       kv_cache_dtype=kv_dtype), params=on(dev))
-            reqs = [eng.submit(p, sp) for p in prompts]
-            while eng.has_work():
-                eng.step()
-            streams[(dev, kv_write)] = [r.output for r in reqs]
+            for rnd in ("cold", "hit"):
+                reqs = [eng.submit(p, sp) for p in prompts]
+                while eng.has_work():
+                    eng.step()
+                streams[(dev, kv_write, rnd)] = [r.output for r in reqs]
+            if eng.chunk_calls < 2 + 4 or eng.allocator.hit_tokens_total < 4 * 20:
+                fail(f"debug-tiny {dev}: {eng.chunk_calls} chunk calls and "
+                     f"{eng.allocator.hit_tokens_total} cached tokens: the chunk path or the "
+                     f"prefix cache did not run")
         kv = f"{kv_dtype or 'f32'} KV"
-        if not streams[("cuda", "dus")] == streams[("cuda", "fused")] == streams[("cpu", "dus")]:
-            fail(f"debug-tiny {kv}: greedy streams differ between the card and the CPU: "
-                 f"{streams}")
+        ref = streams[("cpu", "dus", "cold")]
+        if any(out != ref for out in streams.values()):
+            fail(f"debug-tiny {kv}: greedy streams differ between the card and the CPU, or "
+                 f"between cold and cache-hit runs: {streams}")
         say(f"reference: debug-tiny {kv} greedy streams equal on the card (dus, fused) and "
-            f"the CPU")
+            f"the CPU, cold, chunked (45 tokens, bucket 32) and on cache hits")
 
 
 def phase_profile(torch, model: str = MODEL) -> None:
@@ -979,6 +1218,9 @@ def main(argv) -> int:
         "paged_decode_int8", 0)
     for kv, name in ((None, "paged_decode_write"), ("int8", "paged_decode_write_int8")):
         entries[name]["launches"] = fused[kv]["launches"].get(name, 0)
+    entries["paged_write_window"]["launches"] = served["launches"].get("paged_write_window", 0)
+    entries["paged_write_window_int8"]["launches"] = served_int8["launches"].get(
+        "paged_write_window_int8", 0)
     for e in entries.values():
         if not e["launches"]:
             fail(f"{e['name']} was never launched on its path")

@@ -1,7 +1,8 @@
 """Command-line entry point (counterpart of ``llms_on_kubernetes_tpu/cli.py``).
 
     python -m llms_on_kubernetes_tpu_torch serve --model llama-3-8b --random-weights \\
-        [--device cuda|cpu] [--port 8080] [--kv-cache-dtype int8] [--kv-write dus|fused]
+        [--device cuda|cpu] [--port 8080] [--kv-cache-dtype int8] [--kv-write dus|fused] \\
+        [--no-prefix-caching]
 
 The engine defaults are ``EngineConfig``'s. Checkpoint loading is not
 ported yet, so ``--random-weights`` is required: the model serves seeded
@@ -46,6 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-cache-dtype", choices=["int8"], default=None,
                    help="KV cache storage dtype (default: the model dtype, or env "
                         "LLMK_KV_DTYPE)")
+    p.add_argument("--no-prefix-caching", dest="prefix_caching", action="store_false",
+                   help="disable hash-chained prefix reuse (cached prompt pages)")
     return ap
 
 
@@ -64,7 +67,8 @@ def main(argv=None) -> int:
             page_size=args.page_size, num_pages=args.num_pages,
             pages_per_slot=args.pages_per_slot, prefill_buckets=args.prefill_buckets,
             decode_steps=args.decode_steps, kv_write=args.kv_write,
-            kv_cache_dtype=args.kv_cache_dtype, seed=args.seed, device=args.device)
+            kv_cache_dtype=args.kv_cache_dtype, prefix_caching=args.prefix_caching,
+            seed=args.seed, device=args.device)
         serve(args.model, host=args.host, port=args.port, device=args.device,
               random_weights=True, served_model_name=args.served_model_name,
               engine_config=cfg)

@@ -16,6 +16,7 @@
 // dtype codes shared with kernels/__init__.py
 #define LLMK_F32 0
 #define LLMK_BF16 1
+#define LLMK_I8 2  // pool storage only (paged_write_window.cu)
 
 namespace llmk {
 

@@ -48,9 +48,9 @@
 // Mosaic tiling artefacts; here the append is one direct row store per
 // side (plus one scale store), made by one block: key split 0 (float), or
 // the split that holds position length - 1 (int8), which quantizes the row
-// once -- amax by warp shuffles (exact), s = max(amax, 1e-8) / 127 and
-// rint(x / s) with IEEE division (no fast math), clamped to +-127 -- and
-// uses those bytes both for the store and for its own tile.
+// once with quantize.cuh's quantize_row (the function the windowed append
+// of paged_write_window.cu uses) and uses those bytes both for the store
+// and for its own tile.
 #pragma once
 
 #include <stdint.h>
@@ -58,6 +58,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "quantize.cuh"
 
 namespace llmk {
 
@@ -166,28 +167,20 @@ paged_decode_kernel(const T* __restrict__ q, KV* __restrict__ k_pool,
     }
   }
   if constexpr (WRITE && QUANT) {
-    // warp 0 quantizes the K row, warp 1 the V row (quantize_kv's chain)
+    // warp 0 quantizes the K row, warp 1 the V row (quantize.cuh)
     if (length > 0 && split == cur / kSplitKeys && warp < 2) {
       const T* src = warp == 0 ? k_new : v_new;
       KV* dst = warp == 0 ? k_pool : v_pool;
       float* dst_scale = warp == 0 ? k_scale : v_scale;
-      float x[DPL];
-      float amax = 0.f;
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) {
-        const int i = lane + 32 * c;
-        x[c] = i < D ? to_float(src[new_row + i]) : 0.f;
-        amax = fmaxf(amax, fabsf(x[c]));
-      }
-      const float s = fmaxf(warp_max(amax), 1e-8f) / 127.0f;
+      int8_t qv[DPL];
+      const float s = quantize_row<T, D>(src + new_row, lane, qv);
       const size_t r = ((size_t)kvh * pool_pages + pt[cur / page]) * page + cur % page;
 #pragma unroll
       for (int c = 0; c < DPL; ++c) {
         const int i = lane + 32 * c;
         if (i < D) {
-          const int8_t v = (int8_t)fminf(fmaxf(rintf(x[c] / s), -127.f), 127.f);
-          sNew[warp * L::kRowBytes + i] = v;
-          dst[r * D + i] = v;
+          sNew[warp * L::kRowBytes + i] = qv[c];
+          dst[r * D + i] = qv[c];
         }
       }
       if (lane == 0) {

@@ -28,6 +28,7 @@ scale can then differ by one ulp and a value by one.)
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional
 
 import numpy as np
@@ -215,32 +216,75 @@ def write_tokens(k_pages, v_pages, k: torch.Tensor, v: torch.Tensor,
 
 
 class PageAllocator:
-    """Host-side refcounting allocator over the physical page pool (the JAX
-    allocator with prefix caching off). Page 0 is reserved (trash).
-    ``allocate`` grows a slot's page list to cover ``num_tokens``; ``free``
-    releases it."""
+    """Host-side refcounting allocator over the physical page pool, with
+    optional hash-chained prefix caching (the JAX allocator). Page 0 is
+    reserved (trash). ``allocate`` grows a slot's page list to cover
+    ``num_tokens``; ``free`` releases the slot's references.
+
+    Prefix caching: each FULL page of a prompt gets a sha256 digest chained
+    over every token up to and including that page (int64 token bytes,
+    seeded with a salt: empty for text). The digests are byte-equal to the
+    JAX allocator's, which makes them a wire contract between replicas.
+    ``match_prefix`` finds the longest cached chain; ``adopt_prefix`` maps
+    those pages into a slot's table read-only (the adopter writes only past
+    the cached prefix, in later pages); ``register_prefix`` publishes a
+    slot's freshly written prompt pages. A cached page keeps its content
+    after its last reference drops: it moves to an LRU of evictable pages,
+    reclaimed only when the free list runs dry.
+    """
 
     def __init__(self, num_pages: int, page_size: int, num_slots: int,
-                 pages_per_slot: int):
+                 pages_per_slot: int, prefix_caching: bool = False):
         self.page_size = page_size
         self.pages_per_slot = pages_per_slot
+        self.prefix_caching = prefix_caching
         self.free_pages: list[int] = list(range(num_pages - 1, 0, -1))
         # unused entries point at the trash page 0 (never read)
         self.page_tables = np.zeros((num_slots, pages_per_slot), dtype=np.int32)
         self.slot_pages: list[list[int]] = [[] for _ in range(num_slots)]
         self.refcount: dict[int, int] = {}
+        self._prefix_map: dict[bytes, int] = {}   # digest -> page id
+        self._page_digest: dict[int, bytes] = {}  # page id -> digest
+        # refcount-0 pages that still hold a cached prefix, oldest first
+        self._lru: dict[int, None] = {}
+        self.hit_tokens_total = 0                 # prompt tokens served from cache
+        # the LRU order before a provisional adoption, until commit/rollback:
+        # a blocked admission retries every step and must neither count the
+        # hit nor refresh the adopted pages' recency
+        self._adopt_snapshot: dict[int, list[int]] = {}
 
     @property
     def num_free_pages(self) -> int:
         return len(self.free_pages)
+
+    @property
+    def num_evictable_pages(self) -> int:
+        return len(self._lru)
 
     def pages_needed(self, num_tokens: int) -> int:
         return -(-num_tokens // self.page_size)
 
     def can_allocate(self, slot: int, num_tokens: int) -> bool:
         need = self.pages_needed(num_tokens) - len(self.slot_pages[slot])
-        return (need <= len(self.free_pages)
+        return (need <= len(self.free_pages) + len(self._lru)
                 and self.pages_needed(num_tokens) <= self.pages_per_slot)
+
+    def _take_page(self) -> int:
+        if self.free_pages:
+            return self.free_pages.pop()
+        if self._lru:                               # evict the oldest cached page
+            p = next(iter(self._lru))
+            if p in self.refcount:
+                # the LRU holds only refcount-0 pages; evicting a page a slot
+                # still reads would corrupt its KV
+                raise RuntimeError(f"evictable page {p} is still referenced "
+                                   f"(refcount={self.refcount[p]})")
+            del self._lru[p]
+            d = self._page_digest.pop(p, None)
+            if d is not None and self._prefix_map.get(d) == p:
+                del self._prefix_map[d]
+            return p
+        raise MemoryError("KV page pool exhausted")
 
     def allocate(self, slot: int, num_tokens: int) -> None:
         """Ensure the slot holds enough pages to cover num_tokens tokens."""
@@ -250,9 +294,7 @@ class PageAllocator:
                 f"sequence of {num_tokens} tokens needs {need} pages > "
                 f"pages_per_slot={self.pages_per_slot}")
         for i in range(len(self.slot_pages[slot]), need):
-            if not self.free_pages:
-                raise MemoryError("KV page pool exhausted")
-            p = self.free_pages.pop()
+            p = self._take_page()
             self.refcount[p] = 1
             self.slot_pages[slot].append(p)
             self.page_tables[slot, i] = p
@@ -266,6 +308,108 @@ class PageAllocator:
             self.refcount[p] -= 1
             if self.refcount[p] == 0:
                 del self.refcount[p]
-                self.free_pages.append(p)
+                if p in self._page_digest:
+                    self._lru[p] = None         # cached: evictable, content kept
+                else:
+                    self.free_pages.append(p)
         self.slot_pages[slot] = []
         self.page_tables[slot, :] = 0
+
+    # -- prefix caching ----------------------------------------------------
+
+    def _chain(self, tokens, salt: bytes, num_pages: int):
+        """Yield the chained digest of each of the first ``num_pages`` full
+        pages of ``tokens``."""
+        prev = salt
+        for i in range(num_pages):
+            chunk = tokens[i * self.page_size:(i + 1) * self.page_size]
+            h = hashlib.sha256(prev)
+            h.update(np.asarray(chunk, np.int64).tobytes())
+            prev = h.digest()
+            yield prev
+
+    def _digests(self, tokens, salt: bytes = b"") -> list[bytes]:
+        """Chained digest per FULL page of ``tokens``."""
+        return list(self._chain(tokens, salt, len(tokens) // self.page_size))
+
+    def _match_digests(self, tokens, salt: bytes = b"") -> list[int]:
+        """Page ids of the longest cached prefix, stopping at the first
+        miss. Capped so at least one token is left to prefill: its logits
+        seed sampling."""
+        if not self.prefix_caching or len(tokens) <= self.page_size:
+            return []
+        pages: list[int] = []
+        for d in self._chain(tokens, salt, (len(tokens) - 1) // self.page_size):
+            p = self._prefix_map.get(d)
+            if p is None:
+                break
+            pages.append(p)
+        return pages
+
+    def match_prefix(self, tokens, salt: bytes = b"") -> int:
+        """Longest cached prefix of ``tokens`` in TOKENS."""
+        return len(self._match_digests(tokens, salt)) * self.page_size
+
+    def adopt_prefix(self, slot: int, tokens, salt: bytes = b"") -> int:
+        """Map the longest cached prefix into the empty ``slot``'s table
+        (increfs the shared pages); returns the tokens adopted. The adoption
+        is provisional until ``commit_adopt`` (which counts the hit) or
+        ``rollback_adopt``."""
+        pages = self._match_digests(tokens, salt)
+        if not pages:
+            return 0
+        if self.slot_pages[slot]:
+            raise RuntimeError(f"adopt_prefix on slot {slot}, which holds pages")
+        self._adopt_snapshot[slot] = list(self._lru)
+        for i, p in enumerate(pages):
+            self.refcount[p] = self.refcount.get(p, 0) + 1
+            self._lru.pop(p, None)                  # referenced again: not evictable
+            self.slot_pages[slot].append(p)
+            self.page_tables[slot, i] = p
+        return len(pages) * self.page_size
+
+    def commit_adopt(self, slot: int, hit_tokens: int) -> None:
+        """The adoption's admission went through: count the cache hit."""
+        self._adopt_snapshot.pop(slot, None)
+        self.hit_tokens_total += hit_tokens
+
+    def rollback_adopt(self, slot: int) -> None:
+        """Undo a provisional ``adopt_prefix``: decref the pages and restore
+        the LRU order from before it (a plain ``free`` would make them the
+        newest)."""
+        snap = self._adopt_snapshot.pop(slot, None)
+        self.free(slot)
+        if snap is not None:
+            restored = {p: None for p in snap if p in self._lru}
+            for p in self._lru:                     # newer pages keep their order
+                restored.setdefault(p, None)
+            self._lru = restored
+
+    def register_prefix(self, slot: int, tokens, salt: bytes = b"") -> None:
+        """Publish ``slot``'s pages that hold full pages of ``tokens`` so
+        later prompts with the same prefix can adopt them."""
+        if not self.prefix_caching:
+            return
+        for i, d in enumerate(self._digests(tokens, salt)):
+            if i >= len(self.slot_pages[slot]):
+                break
+            if d in self._prefix_map:
+                continue                            # already cached (dedup)
+            p = self.slot_pages[slot][i]
+            old = self._page_digest.get(p)
+            if old is not None and old != d:
+                continue                            # published under another digest
+            self._prefix_map[d] = p
+            self._page_digest[p] = d
+
+    def prefix_digests(self) -> list[bytes]:
+        """Snapshot of the published digests. Other threads may call this
+        while the engine thread mutates the map: a resize during the copy is
+        retried, and a stale or empty snapshot is harmless (a routing
+        hint)."""
+        for _ in range(4):
+            try:
+                return list(self._prefix_map)
+            except RuntimeError:
+                continue
+        return []

@@ -9,12 +9,20 @@ field names and defaults for the fields it keeps, plus ``device``),
 One scheduler iteration (``step``):
 
 1. reap aborted requests;
-2. admit waiting requests into free slots, reserving pages for
-   ``prompt + max_tokens`` up front (so decode never runs out of pages and
-   never preempts), and prefill them: one ``forward_prefill`` call per
-   prefill bucket, the rows padded to the smallest bucket that fits, the
-   first token sampled on the device;
-3. run one decode window over every active slot: ``decode_steps`` chained
+2. admit waiting requests into free slots: adopt the longest cached prefix
+   of the prompt (prefix caching, on by default), then reserve pages for
+   ``prompt + max_tokens`` up front, counting only the pages past the
+   adopted ones (so decode never runs out of pages and never preempts); an
+   admission whose pages do not fit yet rolls its adoption back and waits;
+3. prefill them: one ``forward_prefill`` call per prefill bucket, the rows
+   padded to the smallest bucket that fits; a prompt with a cache hit, or
+   longer than the largest bucket, takes the chunk path instead
+   (``_chunked_prefill``: ``forward_chunk`` over chunks of the largest
+   bucket, from the end of the adopted prefix). The first token is sampled
+   on the device from the last prefill's logits, keyed on (seed, prompt
+   length), so a seeded stream is the same cold, on a hit and chunked. The
+   prompt's full pages are then published to the prefix cache;
+4. run one decode window over every active slot: ``decode_steps`` chained
    ``forward_decode`` + ``sample`` iterations with no host sync between
    them. Per-row budgets and stop ids mask a row on the device the moment
    it finishes (its length drops to 0, so its KV write goes to the trash
@@ -26,8 +34,8 @@ One scheduler iteration (``step``):
 pool in int8 with per-token scales, as the JAX engine does.
 
 The scheduler is synchronous. The JAX engine's async harvester, pacing,
-prefix cache, host KV tier, QoS, ledger, grammar, LoRA, speculation,
-chunked prefill and preemption are not ported yet.
+host KV tier and handoff, QoS, ledger, grammar, LoRA, multimodal salts,
+speculation and preemption are not ported yet.
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ from llms_on_kubernetes_tpu_torch.engine.sampling import (
     MAX_CANDIDATES, gumbel_noise, sample,
 )
 from llms_on_kubernetes_tpu_torch.models.decoder import (
-    forward_decode, forward_prefill, init_params,
+    forward_chunk, forward_decode, forward_prefill, init_params,
 )
 
 Params = dict[str, Any]
@@ -96,6 +104,9 @@ class EngineConfig:
     # bytes decode attention reads). None falls through to env
     # LLMK_KV_DTYPE ("", "none" and "off" mean off), as in the JAX engine
     kv_cache_dtype: Optional[str] = None
+    # hash-chained reuse of cached prompt pages (engine/cache.PageAllocator);
+    # a hit prefills only the remainder, through the chunk path
+    prefix_caching: bool = True
     decode_steps: int = 4
     seed: int = 0
     # "cuda" (the default) raises without a GPU; pass "cpu" for the CPU
@@ -131,6 +142,9 @@ class Request:
     # resolved sampling seed: the sampled stream is a function of
     # (engine seed, this seed, position) only
     seed: int = 0
+    # prefix-cache digest salt: the empty salt for text (the JAX engine's),
+    # so the page digests equal the JAX allocator's
+    cache_salt: bytes = b""
     output: list[int] = dataclasses.field(default_factory=list)
     # per output token: (logprob, top_ids, top_logprobs)
     output_logprobs: list = dataclasses.field(default_factory=list)
@@ -174,7 +188,8 @@ class Engine:
         self.k_pages, self.v_pages = init_pages(self.cache_config, device=self.device)
         B = engine_config.max_decode_slots
         self.allocator = PageAllocator(engine_config.num_pages, engine_config.page_size,
-                                       B, engine_config.pages_per_slot)
+                                       B, engine_config.pages_per_slot,
+                                       prefix_caching=engine_config.prefix_caching)
         self.slots: list[Optional[Request]] = [None] * B
         self.slot_len = np.zeros((B,), np.int64)   # tokens whose KV is cached
         self.waiting: "collections.deque[Request]" = collections.deque()
@@ -184,7 +199,8 @@ class Engine:
         # per-slot OUTPUT-token counts for presence/frequency penalties
         self.token_counts = torch.zeros((B, cfg.vocab_size), dtype=torch.int32,
                                         device=self.device)
-        self.prefill_calls = 0
+        self.prefill_calls = 0       # forward_prefill calls (one per bucket batch)
+        self.chunk_calls = 0         # forward_chunk calls (one per chunk)
         self.decode_forwards = 0     # forward_decode calls (K per window)
 
     # ------------------------------------------------------------------
@@ -209,10 +225,6 @@ class Engine:
                              f"got {len(params.stop_token_ids)}")
         if params.max_tokens < 1:
             raise ValueError(f"max_tokens must be >= 1, got {params.max_tokens}")
-        if len(prompt) > max(self.config.prefill_buckets):
-            raise ValueError(f"prompt of {len(prompt)} tokens exceeds the largest prefill "
-                             f"bucket ({max(self.config.prefill_buckets)}); chunked "
-                             f"prefill is not ported yet")
         if len(prompt) + 1 > max_len:
             raise ValueError(f"prompt of {len(prompt)} tokens cannot fit max_model_len="
                              f"{max_len} (page_size*pages_per_slot) with room to generate")
@@ -331,68 +343,121 @@ class Engine:
 
     def _admit(self) -> list[StepEvent]:
         """Admit waiting requests in order while a slot and their pages are
-        free, then prefill them, one call per bucket."""
-        admitted: list[Request] = []
+        free, then prefill them: one call per bucket, and the chunk path
+        for each request with a cache hit or a prompt past the largest
+        bucket."""
+        admitted: list[tuple[Request, int]] = []
+        alloc = self.allocator
         with self._lock:
             while self.waiting:
                 slot = next((i for i, r in enumerate(self.slots) if r is None), None)
                 if slot is None:
                     break
                 req = self.waiting[0]
+                # adopt the cached prefix FIRST, so the page check counts
+                # only the pages past it; roll back if they do not fit yet
+                hit = alloc.adopt_prefix(slot, req.prompt, salt=req.cache_salt)
                 need = len(req.prompt) + req.params.max_tokens
-                if not self.allocator.can_allocate(slot, need):
+                if not alloc.can_allocate(slot, need):
+                    if hit:
+                        alloc.rollback_adopt(slot)
                     break   # wait for pages to free up (FIFO: no overtaking)
                 self.waiting.popleft()
-                self.allocator.allocate(slot, need)
+                alloc.allocate(slot, need)
+                if hit:
+                    alloc.commit_adopt(slot, hit)
                 self.slots[slot] = req
                 req.slot = slot
-                admitted.append(req)
+                admitted.append((req, hit))
         by_bucket: dict[int, list[Request]] = {}
-        for req in admitted:
-            by_bucket.setdefault(self._bucket_for(len(req.prompt)), []).append(req)
+        chunked: list[tuple[Request, int]] = []
+        for req, hit in admitted:
+            if hit > 0 or len(req.prompt) > max(self.config.prefill_buckets):
+                chunked.append((req, hit))
+            else:
+                by_bucket.setdefault(self._bucket_for(len(req.prompt)), []).append(req)
         events: list[StepEvent] = []
         for bucket, reqs in sorted(by_bucket.items()):
             events += self._prefill(bucket, reqs)
+        for req, hit in chunked:
+            events += self._chunked_prefill(req, start=hit)
         return events
 
-    def _prefill(self, bucket: int, reqs: list[Request]) -> list[StepEvent]:
-        R, dev = len(reqs), self.device
-        tokens = np.zeros((R, bucket), np.int32)
+    def _rows(self, reqs: list[Request], lengths: list[int]):
+        """One host-to-device copy of the rows' sampling parameters and page
+        tables: (lengths, top_k, seeds, floats [R, 4] = temperature, top_p,
+        presence, frequency; page_table [R, pages_per_slot])."""
+        R = len(reqs)
         ints = np.zeros((R, 3), np.int32)               # lengths, top_k, seed
-        floats = np.zeros((R, 4), np.float32)           # temp, top_p, presence, freq
+        floats = np.zeros((R, 4), np.float32)
         for r, req in enumerate(reqs):
-            n = len(req.prompt)
-            tokens[r, :n] = req.prompt
             p = req.params
-            ints[r] = (n, p.top_k, req.seed)
+            ints[r] = (lengths[r], p.top_k, req.seed)
             floats[r] = (p.temperature, p.top_p, p.presence_penalty, p.frequency_penalty)
-        slots = [req.slot for req in reqs]
-        table = self.allocator.page_tables[slots]
+        table = self.allocator.page_tables[[req.slot for req in reqs]]
         host = np.concatenate([ints, floats.view(np.int32), table], axis=1)
-        dev_host = torch.from_numpy(host).to(dev)
-        dev_tokens = torch.from_numpy(tokens).to(dev)
-        lengths, top_k, seeds = (dev_host[:, c].contiguous() for c in range(3))
-        fl = dev_host[:, 3:7].view(torch.float32)
-        page_table = dev_host[:, 7:]
-        slot_idx = torch.as_tensor(slots, device=dev)
+        d = torch.from_numpy(host).to(self.device)
+        return (*(d[:, c].contiguous() for c in range(3)), d[:, 3:7].view(torch.float32),
+                d[:, 7:])
 
-        logits, _, _ = forward_prefill(self.params, self.model_config, dev_tokens,
-                                       lengths, self.k_pages, self.v_pages, page_table)
+    def _first_tokens(self, reqs: list[Request], logits, lengths, top_k, seeds,
+                      fl) -> list[StepEvent]:
+        """Sample each row's first token from its prompt's last logits (the
+        noise keyed on the prompt length), publish the prompt's full pages
+        to the prefix cache, and emit the tokens."""
+        slot_idx = torch.as_tensor([req.slot for req in reqs], device=self.device)
         # fresh requests: no output tokens yet, so the penalty counts reset
         self.token_counts[slot_idx] = 0
         noise = gumbel_noise(self.config.seed, seeds, lengths,
                              min(MAX_CANDIDATES, logits.shape[1]))
         res = sample(logits, noise, fl[:, 0], top_k, fl[:, 1],
                      penalties=(fl[:, 2], fl[:, 3], self.token_counts[slot_idx]))
-        self.prefill_calls += 1
         out = _to_host(res)
         events: list[StepEvent] = []
         for r, req in enumerate(reqs):
             self.slot_len[req.slot] = len(req.prompt)
+            # before _emit, which frees the slot of a request that finishes
+            self.allocator.register_prefix(req.slot, req.prompt, salt=req.cache_salt)
             tok = int(out[0][r])
             req.pending_token = tok
             events += self._emit(req, tok, _lp_entry(out, r))
         return events
+
+    def _prefill(self, bucket: int, reqs: list[Request]) -> list[StepEvent]:
+        tokens = np.zeros((len(reqs), bucket), np.int32)
+        for r, req in enumerate(reqs):
+            tokens[r, :len(req.prompt)] = req.prompt
+        lengths, top_k, seeds, fl, page_table = self._rows(
+            reqs, [len(req.prompt) for req in reqs])
+        logits, _, _ = forward_prefill(self.params, self.model_config,
+                                       torch.from_numpy(tokens).to(self.device), lengths,
+                                       self.k_pages, self.v_pages, page_table)
+        self.prefill_calls += 1
+        return self._first_tokens(reqs, logits, lengths, top_k, seeds, fl)
+
+    def _chunked_prefill(self, req: Request, start: int = 0) -> list[StepEvent]:
+        """Prefill ``req``'s prompt from position ``start`` (> 0 when a
+        cached prefix was adopted: those positions' KV is already in the
+        slot's pages) in chunks of the largest bucket, each padded to the
+        smallest bucket that fits, one ``forward_chunk`` call per chunk
+        with history = the position it starts at. Only the final chunk's
+        logits are sampled, exactly as a one-shot prefill of the prompt
+        would sample them."""
+        n = len(req.prompt)
+        step = max(self.config.prefill_buckets)
+        lengths, top_k, seeds, fl, page_table = self._rows([req], [n])
+        pos, logits = start, None
+        while pos < n:
+            m = min(step, n - pos)
+            host = np.zeros((1, 2 + self._bucket_for(m)), np.int32)   # m, pos, tokens
+            host[0, :2] = (m, pos)
+            host[0, 2:2 + m] = req.prompt[pos:pos + m]
+            d = torch.from_numpy(host).to(self.device)
+            logits, _, _ = forward_chunk(self.params, self.model_config, d[:, 2:], d[:, 1],
+                                         d[:, 0], self.k_pages, self.v_pages, page_table)
+            self.chunk_calls += 1
+            pos += m
+        return self._first_tokens([req], logits, lengths, top_k, seeds, fl)
 
     # ------------------------------------------------------------------
     # decode

@@ -32,14 +32,16 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_prefill", "paged_decode", "paged_decode_int8")
-# no --use_fast_math: the int8 kernel's quantization needs IEEE division
-# to store the bytes engine/cache.quantize_kv stores
+SOURCES = ("flash_prefill", "paged_decode", "paged_decode_int8", "paged_write_window")
+# no --use_fast_math: the int8 kernels' quantization (csrc/quantize.cuh)
+# needs IEEE division to store the bytes engine/cache.quantize_kv stores
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# pool storage codes: the float codes plus int8 (LLMK_I8)
+POOL_CODES = {**DTYPE_CODES, torch.int8: 2}
 # head dims the kernels are instantiated for (LLMK_DISPATCH_D)
 HEAD_DIMS = (8, 16, 32, 64, 128)
 
@@ -53,6 +55,7 @@ _SIGNATURES = {
                      [_P] * 11 + [_I] * 8 + [_F, _I, _F, _I, _I, _P]),
     "paged_decode_int8": ("llmk_paged_decode_int8",
                           [_P] * 13 + [_I] * 8 + [_F, _I, _F, _I, _I, _P]),
+    "paged_write_window": ("llmk_paged_write_window", [_P] * 9 + [_I] * 9 + [_P]),
 }
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()

@@ -14,9 +14,12 @@ to XLA). Attention goes through ``ops/attention``'s dispatchers: the CUDA
 kernels for CUDA tensors, the plain versions for CPU tensors. The pools
 pass through as ``KVPool``s; an int8 pool carries its per-token scales,
 prefill attends over the fresh, unquantized K/V and stores them quantized
-(as the JAX decoder does), and decode goes to the int8 kernels.
+(as the JAX decoder does), and decode goes to the int8 kernels. The chunk
+pass (``forward_chunk``) appends with the window kernels
+(ops/paged_write.py) and attends to the pool, so it reads an int8 chunk's
+own keys back quantized, as the JAX chunk pass does.
 
-Not ported yet: LoRA, MoE, vision, the chunk/verify/score passes.
+Not ported yet: LoRA, MoE, vision, the verify and score passes.
 """
 
 from __future__ import annotations
@@ -32,9 +35,11 @@ from llms_on_kubernetes_tpu_torch import resolve_device
 from llms_on_kubernetes_tpu_torch.configs import ModelConfig
 from llms_on_kubernetes_tpu_torch.engine.cache import torch_dtype, write_tokens
 from llms_on_kubernetes_tpu_torch.ops.attention import (
-    dispatch_paged_attention_write, dispatch_prefill_attention, softcap,
+    dispatch_chunk_attention, dispatch_paged_attention_write, dispatch_prefill_attention,
+    softcap,
 )
 from llms_on_kubernetes_tpu_torch.ops.norms import rms_norm
+from llms_on_kubernetes_tpu_torch.ops.paged_write import dispatch_write_window
 from llms_on_kubernetes_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 Params = dict[str, Any]
@@ -170,6 +175,15 @@ def _layer_step(cfg: ModelConfig, inv_freq, page_table, positions, write_positio
             q[:, 0], k_pages, v_pages, page_table, lengths, k[:, 0], v[:, 0],
             write_positions, scale=scale, sliding_window=window,
             attn_softcap=cfg.attn_softcap, kv_write=kv_write)[0][:, None]
+    elif mode == "chunk":
+        # the chunk's rows t < lengths go to positions history + t (the
+        # window kernels write no filler), then its queries attend to the
+        # pool: earlier chunks' keys and this chunk's, as stored
+        history = positions[:, 0].contiguous()
+        dispatch_write_window(k_pages, v_pages, page_table, history, lengths, k, v)
+        attn = dispatch_chunk_attention(q, k_pages, v_pages, page_table, history, lengths,
+                                        scale=scale, sliding_window=window,
+                                        attn_softcap=cfg.attn_softcap)
     else:
         write_tokens(k_pages, v_pages, k, v, page_table, write_positions)
         attn = dispatch_prefill_attention(q, k, v, lengths, scale=scale,
@@ -271,3 +285,26 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions,
                     write_positions, lengths, "decode", kv_write=kv_write)
     return _logits(params, cfg, x[:, 0]), k_pages, v_pages
+
+
+def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  history: torch.Tensor, lengths: torch.Tensor, k_pages, v_pages,
+                  page_table: torch.Tensor):
+    """Chunked prefill: one chunk of a prompt whose earlier tokens are
+    already in the paged cache (earlier chunks, or an adopted cached
+    prefix). tokens [B, T] (a padded chunk); history [B] int32, the tokens
+    cached before this chunk; lengths [B] int32, the valid tokens in THIS
+    chunk (0 => idle row). Each layer appends the chunk's rows at
+    ``history + t`` with the window kernels and attends through the page
+    table (``chunk_attention``). Returns (the chunk's last-token logits
+    [B, V] float32, k_pages, v_pages)."""
+    B, T = tokens.shape
+    offs = torch.arange(T, device=tokens.device, dtype=torch.int32).expand(B, T)
+    positions = history[:, None] + offs
+    x = _embed(params, cfg, tokens)
+    # the window write takes (history, lengths), not per-row write positions
+    x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions, None,
+                    lengths, "chunk")
+    last = (lengths.long() - 1).clamp(0, T - 1)
+    x_last = x[torch.arange(B, device=x.device), last]
+    return _logits(params, cfg, x_last), k_pages, v_pages

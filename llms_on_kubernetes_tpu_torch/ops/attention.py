@@ -1,11 +1,12 @@
 """Plain attention ops over the paged KV cache, and the dispatchers the
 decoder calls (counterpart of ``llms_on_kubernetes_tpu/ops/attention.py``).
 
-``prefill_attention`` and ``paged_attention`` are the semantically
-authoritative gather-and-einsum versions: f32 softmax, masking by
-where-substitution with the finite ``NEG_INF`` so a row whose keys are all
-masked stays finite. The hand-written CUDA kernels (ops/flash_attention.py,
-ops/paged_attention.py) are held against them.
+``prefill_attention``, ``paged_attention`` and ``chunk_attention`` are the
+semantically authoritative gather-and-einsum versions: f32 softmax, masking
+by where-substitution with the finite ``NEG_INF`` so a row whose keys are
+all masked stays finite. The hand-written CUDA kernels
+(ops/flash_attention.py, ops/paged_attention.py) are held against the first
+two; ``chunk_attention`` has no kernel (the JAX package leaves it to XLA).
 
 The dispatchers choose by the device of the tensors they are given: a CUDA
 tensor goes to the kernel, which raises on a shape it does not take; a CPU
@@ -101,6 +102,43 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *, scale: float,
     return out.reshape(B, n_q, d).to(q.dtype)
 
 
+def chunk_attention(q, k_pages, v_pages, page_table, history, chunk_lengths, *,
+                    scale: float, sliding_window: Optional[int] = None,
+                    attn_softcap: Optional[float] = None) -> torch.Tensor:
+    """Prefill-with-history attention: a prompt CHUNK against the paged pool.
+
+    The chunk's KV is already in the pages, so each query at global
+    position ``history + t`` attends causally to every cached key (earlier
+    chunks' and this chunk's) through the page table, read back as stored
+    (dequantized for an int8 pool).
+
+    q [B, T, n_q, d]; k/v_pages [n_kv, P, page, d] (or KVPools);
+    page_table [B, pages_per_seq] int32; history [B] int32, the tokens
+    cached before this chunk; chunk_lengths [B] int32, the valid tokens in
+    this chunk (0 => idle row). Returns [B, T, n_q, d]."""
+    B, T, n_q, d = q.shape
+    data = getattr(k_pages, "data", k_pages)
+    n_kv, _P, page, _ = data.shape
+    S = page_table.shape[1] * page
+    group = n_q // n_kv
+    k = _gather_pool(k_pages, page_table, B, S, d)
+    v = _gather_pool(v_pages, page_table, B, S, d)
+    qg = q.reshape(B, T, n_kv, group, d).float()
+    logits = torch.einsum("btkgd,kbsd->bkgts", qg, k) * scale        # [B, n_kv, g, T, S]
+    logits = softcap(logits, attn_softcap)
+    hist = history.long()
+    q_pos = hist[:, None] + torch.arange(T, device=q.device)[None]     # [B, T]
+    k_pos = torch.arange(S, device=q.device)[None, None]               # [1, 1, S]
+    mask = k_pos <= q_pos[:, :, None]                                  # causal
+    # bound reads to the written region (garbage beyond history + chunk)
+    mask = mask & (k_pos < (hist + chunk_lengths.long())[:, None, None])
+    if sliding_window is not None:
+        mask = mask & (k_pos > q_pos[:, :, None] - sliding_window)
+    probs = _softmax_masked(logits, mask[:, None, None])
+    out = torch.einsum("bkgts,kbsd->btkgd", probs, v)
+    return out.reshape(B, T, n_q, d).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Dispatchers (what the decoder calls)
 # ---------------------------------------------------------------------------
@@ -112,6 +150,17 @@ def dispatch_prefill_attention(q, k, v, lengths, *, scale, sliding_window=None,
     return flash_prefill_attention(q, k, v, lengths, scale=scale,
                                    sliding_window=sliding_window,
                                    attn_softcap=attn_softcap)
+
+
+def dispatch_chunk_attention(q, k_pages, v_pages, page_table, history, chunk_lengths, *,
+                             scale, sliding_window=None, attn_softcap=None):
+    """The chunk path's attention: ``chunk_attention`` on every device. The
+    JAX package computes it in XLA, outside any Pallas kernel, so the
+    gather and einsum here are its faithful port (a hand-written chunk
+    kernel is later work)."""
+    return chunk_attention(q, k_pages, v_pages, page_table, history, chunk_lengths,
+                           scale=scale, sliding_window=sliding_window,
+                           attn_softcap=attn_softcap)
 
 
 def dispatch_paged_attention(q, k_pages, v_pages, page_table, lengths, *,

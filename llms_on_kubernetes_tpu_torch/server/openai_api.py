@@ -10,7 +10,9 @@ on an HTTP/1.0 response that ends when the connection closes.
 Endpoints: ``GET /health``, ``GET /v1/models``, ``POST /v1/completions``,
 ``POST /v1/chat/completions`` (each with ``"stream": true``), and
 ``GET /debug/kernels`` / ``POST /debug/kernels/reset``, which read and
-zero the kernel launch counters of ``kernels.LAUNCHES``. Response and chunk
+zero the kernel launch counters of ``kernels.LAUNCHES`` (the read also
+gives the engine's prefill, chunk and decode call counts and the prompt
+tokens served from the prefix cache, so launches can be held to calls). Response and chunk
 shapes follow the JAX server's. Request options that change what is
 generated and are not ported yet (``n`` > 1, ``best_of``, ``echo``,
 ``logprobs``, ``logit_bias``, ``stop`` strings, tools, ``response_format``)
@@ -249,7 +251,9 @@ class _Handler(BaseHTTPRequestHandler):
                              "device": str(eng.device),
                              "num_layers": eng.model_config.num_layers,
                              "prefill_calls": eng.prefill_calls,
-                             "decode_forwards": eng.decode_forwards})
+                             "chunk_calls": eng.chunk_calls,
+                             "decode_forwards": eng.decode_forwards,
+                             "prefix_hit_tokens": eng.allocator.hit_tokens_total})
         else:
             self._error(404, f"no route {self.path}", "not_found")
 

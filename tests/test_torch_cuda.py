@@ -372,3 +372,119 @@ def test_engine_on_cuda_matches_engine_on_cpu(cuda):
             outs[(dev, kv_write)] = [r.output for r in reqs]
         assert outs[("cuda", "dus")] == outs[("cpu", "dus")], kv_dtype
         assert outs[("cuda", "fused")] == outs[("cuda", "dus")], kv_dtype
+
+
+def _window_case(rng, B, W, n_kv, d, page, pps, base, widths, int8, dtype):
+    """Pools (float in ``dtype``, or int8 data + scales) over random pages
+    covering each slot's window, rows k_new/v_new, and the mask of the
+    (page, row) slots the window writes."""
+    P = B * pps + 1
+    table = np.zeros((B, pps), np.int32)
+    perm = rng.permutation(P - 1) + 1
+    written = np.zeros((P, page), bool)
+    for b in range(B):
+        used = min(pps, -(-(base[b] + W) // page))
+        table[b, :used] = perm[b * pps:b * pps + used]
+        for t in range(widths[b]):
+            written[table[b, (base[b] + t) // page], (base[b] + t) % page] = True
+    if int8:
+        pools = [torch.from_numpy(rng.integers(-127, 128, size=(n_kv, P, page, d))
+                                  .astype(np.int8)).cuda() if i % 2 == 0 else
+                 torch.from_numpy((rng.random(size=(n_kv, P, page)) + 0.1)
+                                  .astype(np.float32)).cuda() for i in range(4)]
+    else:
+        pools = [_t(rng, n_kv, P, page, d, dtype=dtype) for _ in range(2)]
+    args = [torch.from_numpy(np.asarray(a, np.int32)).cuda() for a in (table, base, widths)]
+    return pools, args, _t(rng, B, W, n_kv, d, dtype=dtype), _t(rng, B, W, n_kv, d, dtype=dtype), \
+        torch.from_numpy(~written).cuda()
+
+
+WINDOW_SHAPES = {
+    "test_pallas": dict(B=5, W=4, n_kv=2, d=8, page=8, pps=4, base=[7, 8, 0, 15, 3],
+                        widths=[4, 3, 4, 2, 0]),
+    "d128_page16": dict(B=4, W=20, n_kv=2, d=128, page=16, pps=4, base=[0, 16, 5, 40],
+                        widths=[20, 16, 1, 0]),
+    "llama_b4": dict(B=4, W=256, n_kv=8, d=128, page=64, pps=32, base=[0, 896, 900, 0],
+                     widths=[256, 256, 200, 0]),
+}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float_pool", "int8_pool"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(WINDOW_SHAPES))
+def test_paged_write_window_matches_plain(cuda, int8, dtype, shape):
+    """Kernels 6 and 7: pool bytes (data and scales) equal the plain
+    version's outside the trash page 0, and every byte outside the written
+    rows (page 0 included) is the pool's own."""
+    from llms_on_kubernetes_tpu_torch.ops import paged_write as pw
+
+    pools, args, kn, vn, keep = _window_case(cuda, int8=int8, dtype=dtype,
+                                             **WINDOW_SHAPES[shape])
+    before = [t.clone() for t in pools]
+    ref = [t.clone() for t in pools]
+    name = "paged_write_window_int8" if int8 else "paged_write_window"
+    kernel = pw.paged_write_window_int8 if int8 else pw.paged_write_window
+    plain = pw.paged_write_window_int8_plain if int8 else pw.paged_write_window_plain
+    plain(*ref, *args, kn, vn)
+    launches = kernels.LAUNCHES[name]
+    kernel(*pools, *args, kn, vn)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == launches + 1
+    for got, want, old in zip(pools, ref, before):
+        assert torch.equal(got[:, 1:], want[:, 1:])
+        assert torch.equal(got[:, keep], old[:, keep])
+
+
+def test_window_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from llms_on_kubernetes_tpu_torch.ops import paged_write as pw
+
+    pools, args, kn, vn, _ = _window_case(cuda, int8=False, dtype=torch.float32,
+                                          **WINDOW_SHAPES["test_pallas"])
+    with pytest.raises(ValueError, match="int32"):
+        pw.paged_write_window(*pools, args[0], args[1].long(), args[2], kn, vn)
+    with pytest.raises(ValueError, match="one entry per slot"):
+        pw.paged_write_window(*pools, args[0], args[1][:2], args[2], kn, vn)
+    with pytest.raises(ValueError, match="head_dim"):
+        pw.paged_write_window(pools[0][..., :6].contiguous(), pools[1][..., :6].contiguous(),
+                              *args, kn[..., :6].contiguous(), vn[..., :6].contiguous())
+    q8, args8, kn8, vn8, _ = _window_case(cuda, int8=True, dtype=torch.float32,
+                                          **WINDOW_SHAPES["test_pallas"])
+    with pytest.raises(ValueError, match="k_new"):
+        pw.paged_write_window_int8(*q8, *args8, kn8.half(), vn8.half())
+    with pytest.raises(ValueError, match="int8"):
+        pw.paged_write_window_int8(pools[0], q8[1], pools[1], q8[3], *args8, kn8, vn8)
+
+
+def test_engine_chunk_path_and_cache_hits_on_the_card(cuda):
+    """debug-tiny in float32, float and int8 KV: a prompt past the largest
+    bucket (chunked) and a second pass of cache hits give the CPU's greedy
+    streams, and the window kernel runs once a layer per chunk call."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
+    from llms_on_kubernetes_tpu_torch.models.decoder import init_params
+
+    cfg = get_config("debug-tiny")
+    params = init_params(cfg, seed=0, dtype="float32", device="cpu")
+    kw = dict(model="debug-tiny", dtype="float32", max_decode_slots=4, page_size=4,
+              num_pages=128, pages_per_slot=16, prefill_buckets=(8, 16))
+    prompts = [[3, 17, 9, 4, 4, 1], [40, 2] * 9, [(7 * i) % 251 for i in range(37)]]
+    sp = SamplingParams(max_tokens=8, temperature=0.0)
+    for kv_dtype in (None, "int8"):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            p = {k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict)
+                     else v.to(dev)) for k, v in params.items()}
+            eng = Engine(EngineConfig(**kw, device=dev, kv_cache_dtype=kv_dtype), params=p)
+            window = "paged_write_window_int8" if kv_dtype else "paged_write_window"
+            launches = kernels.LAUNCHES[window]
+            for rnd in ("cold", "hit"):
+                reqs = [eng.submit(pr, sp) for pr in prompts]
+                while eng.has_work():
+                    eng.step()
+                outs[(dev, rnd)] = [r.output for r in reqs]
+            assert eng.allocator.hit_tokens_total == 4 + 16 + 36
+            assert eng.chunk_calls == 5 + 3
+            if dev == "cuda":
+                assert kernels.LAUNCHES[window] - launches == cfg.num_layers * eng.chunk_calls
+        assert outs[("cuda", "cold")] == outs[("cpu", "cold")], kv_dtype
+        assert outs[("cuda", "hit")] == outs[("cpu", "hit")] == outs[("cpu", "cold")], kv_dtype

@@ -125,7 +125,8 @@ def test_waiting_requests_admit_when_slots_free(tparams):
     eng = _port(tparams, max_decode_slots=2)
     outs = _run(eng, PROMPTS, SamplingParams(max_tokens=4, temperature=0.0))
     assert [len(o) for o in outs] == [4] * len(PROMPTS)
-    assert eng.allocator.num_free_pages == 127
+    # every page is released: free, or cached for prefix reuse (evictable)
+    assert eng.allocator.num_free_pages + eng.allocator.num_evictable_pages == 127
 
 
 def test_shed_finishes_everything(tparams):
@@ -135,7 +136,8 @@ def test_shed_finishes_everything(tparams):
     events = eng.shed("error")
     assert len(events) == len(PROMPTS)
     assert all(r.finished and r.finish_reason == "error" for r in reqs)
-    assert not eng.has_work() and eng.allocator.num_free_pages == 127
+    assert not eng.has_work()
+    assert eng.allocator.num_free_pages + eng.allocator.num_evictable_pages == 127
 
 
 def test_submit_validation(tparams):
@@ -148,8 +150,10 @@ def test_submit_validation(tparams):
         eng.submit([1], SamplingParams(presence_penalty=3.0))
     with pytest.raises(ValueError, match="stop_token_ids"):
         eng.submit([1], SamplingParams(stop_token_ids=tuple(range(9))))
-    with pytest.raises(ValueError, match="bucket"):
-        eng.submit([1] * 33)
+    # past the largest bucket is fine (the chunk path); past max_model_len
+    # (64 here) with room for one token is refused
+    with pytest.raises(ValueError, match="max_model_len"):
+        eng.submit([1] * 64)
     with pytest.raises(ValueError, match="pages than the pool"):
         _port(tparams, num_pages=8).submit([1] * 20, SamplingParams(max_tokens=20))
     eng.submit([1])
@@ -166,6 +170,6 @@ def test_engine_config_defaults_match_jax():
     port, jax_cfg = EngineConfig(), JEngineConfig()
     for field in ("model", "dtype", "max_decode_slots", "page_size", "num_pages",
                   "pages_per_slot", "prefill_buckets", "max_waiting", "decode_steps",
-                  "seed", "kv_write"):
+                  "seed", "kv_write", "prefix_caching"):
         assert getattr(port, field) == getattr(jax_cfg, field), field
     assert port.device == "cuda"

@@ -34,6 +34,9 @@ def test_import_everything_without_jax():
         "from llms_on_kubernetes_tpu_torch.ops.paged_attention import (\n"
         "    paged_decode_attention_int8, paged_decode_attention_write_int8)\n"
         "from llms_on_kubernetes_tpu_torch.engine.cache import quantize_kv\n"
+        "from llms_on_kubernetes_tpu_torch.ops.paged_write import (\n"
+        "    dispatch_write_window, paged_write_window, paged_write_window_int8)\n"
+        "from llms_on_kubernetes_tpu_torch.models.decoder import forward_chunk\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'llms_on_kubernetes_tpu'\n"
@@ -63,7 +66,12 @@ def test_every_kernel_source_is_built_and_bound():
     assert sorted(kernels.SOURCES) == cu
     assert set(kernels._SIGNATURES) == set(kernels.SOURCES)
     hashed = {p.name for p in kernels.CSRC.glob("*.cu*")}
-    assert {"common.cuh", "paged_decode.cuh", "paged_decode_int8.cu"} <= hashed
+    assert {"common.cuh", "paged_decode.cuh", "paged_decode_int8.cu", "quantize.cuh",
+            "paged_write_window.cu"} <= hashed
+    # kernels 5 and 7 quantize with one device function
+    for src in ("paged_decode.cuh", "paged_write_window.cu"):
+        text = (PKG / "csrc" / src).read_text()
+        assert '#include "quantize.cuh"' in text and "quantize_row<" in text, src
     assert "--use_fast_math" not in kernels.NVCC_FLAGS      # IEEE division
 
 

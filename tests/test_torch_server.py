@@ -147,6 +147,29 @@ def test_bad_requests_get_400(base, path, kw):
     assert "message" in json.loads(body)["error"]
 
 
+def test_prompt_past_the_largest_bucket_is_served(base):
+    """A prompt longer than the largest bucket (64) takes the chunk path and
+    answers 200; the next request with the same prefix adopts its cached
+    pages. /debug/kernels reports both counters."""
+    def counters():
+        return json.loads(call(base, "/debug/kernels")[2])
+
+    before = counters()
+    body = {"prompt": "The chunk path serves this prompt. " * 3, "max_tokens": 4,
+            "temperature": 0}
+    status, _, raw = call(base, "/v1/completions", body)
+    data = json.loads(raw)
+    assert status == 200 and data["usage"]["prompt_tokens"] > 64
+    assert data["usage"]["completion_tokens"] == 4
+    mid = counters()
+    assert mid["chunk_calls"] - before["chunk_calls"] == 2      # 64 + the rest
+    status, _, raw2 = call(base, "/v1/completions", body)
+    assert status == 200 and json.loads(raw2)["choices"] == data["choices"]
+    after = counters()
+    assert after["prefix_hit_tokens"] - mid["prefix_hit_tokens"] >= 64
+    assert after["chunk_calls"] - mid["chunk_calls"] == 1
+
+
 def test_unknown_route_404(base):
     assert call(base, "/v2/nothing")[0] == 404
     assert call(base, "/v2/nothing", {})[0] == 404
