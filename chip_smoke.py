@@ -8,16 +8,21 @@ Phases, each fatal on failure:
 
 1. build: compile every CUDA kernel from ``csrc/`` (one nvcc per source,
    in parallel) and print the build seconds and the card's name and power
-   limit;
+   limit; count the HMMA (tensor-core) instructions in the SASS of the
+   bf16 flash prefill body (``cuobjdump -sass``) and fail if it has none;
 2. kernels: hold each kernel against its plain PyTorch version on the card
    -- the small shapes of tests/test_pallas.py and tests/test_kv_int8.py in
    float32 and full-width llama-3-8b shapes in bfloat16 (int8 pools for
    the int8 kernels) -- and time kernel, plain version, and the library
    yardstick where one PyTorch call computes the same function (flash
    prefill: ``scaled_dot_product_attention``; the float window append: two
-   ``index_put_`` stores). The window appends must leave the plain
-   version's pool bytes outside the trash page 0 and every byte outside
-   the written rows as it was;
+   ``index_put_`` stores), beside the timer's floor (a kernel that does
+   nothing). Flash prefill is timed at buckets 1,024 (length 900), 2,048
+   (length 1,500: phase 4's one-shot prompt) and 256 (length 200); the
+   decode kernels at lengths 1..2,048 and at the serve shape (8 slots of
+   40-47 keys). The window appends must leave the plain version's pool
+   bytes outside the trash page 0 and every byte outside the written rows
+   as it was;
 3. serve: start ``python -m llms_on_kubernetes_tpu_torch serve --model
    llama-3-8b --random-weights --device cuda`` (the default EngineConfig:
    8 slots, decode_steps 4, kv_write "dus", bf16, prefix caching on) and
@@ -172,6 +177,53 @@ def decode_work(lengths, n_q: int, n_kv: int, d: int, elt: int, pps: int, write:
     return flops, nbytes
 
 
+# the decode kernels' two timed shapes: 8 slots of llama-3-8b (32 query / 8
+# KV heads, d 128, page 64, 32 pages a slot) at lengths over 1..2,048, and
+# the serve shape: 8 slots ~40 tokens in, the decode window that
+# --profile traces
+DEC_SHAPE = "B8 n_q32 n_kv8 d128 page64 lengths 1,63,64,65,700,1500,2048,0 bf16"
+SERVE_SHAPE = "B8 n_q32 n_kv8 d128 page64 lengths 40..47 bf16"
+SERVE_LENS = np.arange(40, 48)
+INT8 = " q, int8 pool"
+
+
+def decode_timing(timer, kernel, plain, lens, write: bool, int8: bool = False) -> dict:
+    """Time a decode kernel (50 launches: ~0.01 ms each) and its plain
+    version; bound_ms from these lengths."""
+    ms = timer(kernel, reps=50)
+    plain_ms = timer(plain)
+    b_ms, b_by = bound_ms(*decode_work(lens, 32, 8, 128, 2, 32, write=write, int8=int8),
+                          "bfloat16")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def sass_mma_count(path) -> tuple[int, int]:
+    """(mma instructions, functions) in the SASS of the tensor-core flash
+    body (kernel names containing flash_prefill_tc) of a built library,
+    read with cuobjdump from the CUDA toolkit or Triton's bundled copy."""
+    import shutil
+    tools = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    try:
+        import triton
+        tools.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia",
+                                  "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((t for t in tools if t and os.path.exists(t)), None)
+    if tool is None:
+        fail("cuobjdump not found: cannot check the flash prefill SASS for tensor-core ops")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          timeout=120).stdout
+    count, funcs, inside = 0, 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "flash_prefill_tc" in line
+            funcs += inside
+        elif inside and ("HMMA" in line or "HGMMA" in line):
+            count += 1
+    return count, funcs
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -228,6 +280,10 @@ def phase_kernels(torch) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
     timer = Timer(torch)
+    # the timer's floor: launch and events around a kernel that does nothing
+    tiny = torch.zeros(8, device="cuda")
+    say(f"timer floor (one add_ on 8 floats): {timer(lambda: tiny.add_(1), reps=50):.4f} ms "
+        f"[{card_line()}]")
     f32, bf16 = torch.float32, torch.bfloat16
     entries = {}
 
@@ -259,8 +315,18 @@ def phase_kernels(torch) -> dict:
     out = fa.flash_prefill_attention(q, k, v, lengths, scale=128 ** -0.5)
     check_close("f32 llama-3-8b widths B1 T1024 length 900", out[0, :900], ref[0, :900],
                 "float32")
-    main = None
-    for T, n in [(64, 40), (1024, 1024), (1024, 900)]:
+    for T, n in [(64, 40), (1024, 1024), (77, 77)]:
+        q, k, v = qkv(1, T, 32, 8, 128, bf16)
+        lengths = torch.tensor([n], dtype=torch.int32, device="cuda")
+        kw = dict(scale=128 ** -0.5)
+        ref = fa.prefill_attention_plain(q, k, v, lengths, **kw)
+        out = fa.flash_prefill_attention(q, k, v, lengths, **kw)
+        check_close(f"bf16 llama-3-8b B1 T{T} length {n}", out[0, :n], ref[0, :n], "bfloat16")
+
+    def flash_shape(T, n):
+        """Check and time bf16 flash prefill at llama-3-8b widths, bucket T,
+        one prompt of n tokens, beside its plain version and sdpa over the
+        n valid tokens."""
         q, k, v = qkv(1, T, 32, 8, 128, bf16)
         lengths = torch.tensor([n], dtype=torch.int32, device="cuda")
         kw = dict(scale=128 ** -0.5)
@@ -268,28 +334,36 @@ def phase_kernels(torch) -> dict:
         out = fa.flash_prefill_attention(q, k, v, lengths, **kw)
         err = check_close(f"bf16 llama-3-8b B1 T{T} length {n}", out[0, :n], ref[0, :n],
                           "bfloat16")
-        if (T, n) == (1024, 900):
-            main = (q, k, v, lengths, err)
-    q, k, v, lengths, err = main
-    kw = dict(scale=128 ** -0.5)
-    ms = timer(lambda: fa.flash_prefill_attention(q, k, v, lengths, **kw))
-    plain = timer(lambda: fa.prefill_attention_plain(q, k, v, lengths, **kw))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qh, kh, vh = (t[:, :900].transpose(1, 2) for t in (q, k, v))
-    try:
-        sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
-        lib = timer(lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True))
-    except TypeError:   # a torch without enable_gqa: expand the KV heads first
-        kx, vx = kh.repeat_interleave(4, dim=1), vh.repeat_interleave(4, dim=1)
-        lib = timer(lambda: sdpa(qh, kx, vx, is_causal=True))
-    flops, nbytes = prefill_work([900], 32, 8, 128, 2)
-    b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+        ms = timer(lambda: fa.flash_prefill_attention(q, k, v, lengths, **kw))
+        plain = timer(lambda: fa.prefill_attention_plain(q, k, v, lengths, **kw))
+        del ref, out
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qh, kh, vh = (t[:, :n].transpose(1, 2) for t in (q, k, v))
+        try:
+            sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+            lib = timer(lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True))
+        except TypeError:   # a torch without enable_gqa: expand the KV heads first
+            kx, vx = kh.repeat_interleave(4, dim=1), vh.repeat_interleave(4, dim=1)
+            lib = timer(lambda: sdpa(qh, kx, vx, is_causal=True))
+        flops, nbytes = prefill_work([n], 32, 8, 128, 2)
+        b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+        say(f"  timing flash_prefill T{T} length {n}: ms={ms:.4f} plain_ms={plain:.4f} "
+            f"bound_ms={b_ms:.4f} library_ms={lib:.4f}")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib)
+
+    # the timed shape (a 900-token prompt in bucket 1,024), then phase 4's
+    # one-shot 1,500-token prompt (bucket 2,048) and a 200-token prompt
+    # (bucket 256)
+    main = flash_shape(1024, 900)
+    others = {f"B1 T{T} length {n}": flash_shape(T, n) for T, n in [(2048, 1500), (256, 200)]}
     entries["flash_prefill"] = dict(
         name="flash_prefill", route="cuda",
         source="llms_on_kubernetes_tpu_torch/csrc/flash_prefill.cu",
-        replaces="llms_on_kubernetes_tpu/ops/pallas_flash.py:89",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib, shape="B1 T1024 length 900 n_q32 n_kv8 d128 bf16")
+        replaces="llms_on_kubernetes_tpu/ops/pallas_flash.py:89", **main,
+        shape="B1 T1024 length 900 n_q32 n_kv8 d128 bf16",
+        other_shapes={s: {k: v for k, v in e.items() if k != "max_abs_err"}
+                      for s, e in others.items()})
 
     # -- paged decode, plain and fused ----------------------------------------
     say("kernel paged_decode (replaces ops/pallas_paged.py::pallas_paged_attention)")
@@ -373,41 +447,54 @@ def phase_kernels(torch) -> dict:
     out = pa.paged_decode_attention(q, kp, vp, table, lengths, **kw)
     err_dec = check_close("bf16 llama-3-8b B8 page64 lengths 1..2048", out, ref, "bfloat16",
                           rows=act)
-    ms = timer(lambda: pa.paged_decode_attention(q, kp, vp, table, lengths, **kw))
-    plain = timer(lambda: pa.paged_decode_attention_plain(q, kp, vp, table, lengths, **kw))
-    flops, nbytes = decode_work(dec_lens, 32, 8, 128, 2, 32, write=False)
-    b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+    timed = decode_timing(timer, lambda: pa.paged_decode_attention(
+        q, kp, vp, table, lengths, **kw), lambda: pa.paged_decode_attention_plain(
+        q, kp, vp, table, lengths, **kw), dec_lens, write=False)
+    # the serve shape: the decode window chip_smoke.py --profile traces
+    kp, vp, table = paged_setup(torch, rng, 8, 8, 128, 64, 32, SERVE_LENS, bf16, pool_pages=512)
+    q = torch.from_numpy(rng.normal(size=(8, 32, 128)).astype(np.float32)).to("cuda", bf16)
+    lengths = torch.from_numpy(SERVE_LENS.astype(np.int32)).cuda()
+    check_close("bf16 llama-3-8b B8 page64 lengths 40..47", pa.paged_decode_attention(
+        q, kp, vp, table, lengths, **kw), pa.paged_decode_attention_plain(
+        q, kp, vp, table, lengths, **kw), "bfloat16")
+    serve = decode_timing(timer, lambda: pa.paged_decode_attention(
+        q, kp, vp, table, lengths, **kw), lambda: pa.paged_decode_attention_plain(
+        q, kp, vp, table, lengths, **kw), SERVE_LENS, write=False)
     entries["paged_decode"] = dict(
         name="paged_decode", route="cuda",
         source="llms_on_kubernetes_tpu_torch/csrc/paged_decode.cu",
         replaces="llms_on_kubernetes_tpu/ops/pallas_paged.py:1118",
-        max_abs_err=err_dec, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None,
-        shape="B8 n_q32 n_kv8 d128 page64 lengths 1,63,64,65,700,1500,2048,0 bf16",
+        max_abs_err=err_dec, **timed, library_ms=None, shape=DEC_SHAPE,
+        other_shapes={SERVE_SHAPE: serve},
         library_note="no single PyTorch call computes attention through a page table")
 
     kp, vp, table, q, kn, vn, lengths, err_w = fused_case(
         "bf16 llama-3-8b B8 page64 lengths 1..2048", dec_lens, 8, 4, 128, 64, 32, bf16,
         pool_pages=512)
-    ms = timer(lambda: pa.paged_decode_attention_write(q, kp, vp, table, lengths, kn, vn,
-                                                       **kw))
-    plain = timer(lambda: pa.paged_decode_attention_write_plain(q, kp, vp, table, lengths,
-                                                                kn, vn, **kw))
-    flops, nbytes = decode_work(dec_lens, 32, 8, 128, 2, 32, write=True)
-    b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+    timings = {}
+    for shape, lens in ((DEC_SHAPE, dec_lens), (SERVE_SHAPE, SERVE_LENS)):
+        if shape == SERVE_SHAPE:
+            kp, vp, table, q, kn, vn, lengths, _ = fused_case(
+                "bf16 llama-3-8b B8 page64 lengths 40..47", lens, 8, 4, 128, 64, 32, bf16,
+                pool_pages=512)
+        timings[shape] = decode_timing(timer, lambda: pa.paged_decode_attention_write(
+            q, kp, vp, table, lengths, kn, vn, **kw), lambda: pa.paged_decode_attention_write_plain(
+            q, kp, vp, table, lengths, kn, vn, **kw), lens, write=True)
     entries["paged_decode_write"] = dict(
         name="paged_decode_write", route="cuda",
         source="llms_on_kubernetes_tpu_torch/csrc/paged_decode.cu",
         replaces="llms_on_kubernetes_tpu/ops/pallas_paged.py:476",
-        max_abs_err=err_w, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None,
-        shape="B8 n_q32 n_kv8 d128 page64 lengths 1,63,64,65,700,1500,2048,0 bf16",
+        max_abs_err=err_w, **timings[DEC_SHAPE], library_ms=None, shape=DEC_SHAPE,
+        other_shapes={SERVE_SHAPE: timings[SERVE_SHAPE]},
         library_note="no single PyTorch call computes attention through a page table")
     entries.update(int8_kernels(torch, rng, timer, dec_lens))
     entries.update(window_kernels(torch, rng, timer))
     for e in entries.values():
         say(f"  timing {e['name']}: ms={e['ms']:.4f} plain_ms={e['plain_ms']:.4f} "
             f"bound_ms={e['bound_ms']:.4f} ({e['bound_by']}) library_ms={e['library_ms']}")
+        for shape, o in e.get("other_shapes", {}).items():
+            say(f"    at {shape}: ms={o['ms']:.4f} plain_ms={o['plain_ms']:.4f} "
+                f"bound_ms={o['bound_ms']:.4f} library_ms={o.get('library_ms')}")
     return entries
 
 
@@ -501,34 +588,42 @@ def int8_kernels(torch, rng, timer, dec_lens) -> dict:
     out = pa.paged_decode_attention_int8(q, *pools, table, lengths, **kw)
     err = check_close("bf16 q, int8 pool, llama-3-8b B8 page64 lengths 1..2048", out, ref,
                       "bfloat16", rows=act)
-    ms = timer(lambda: pa.paged_decode_attention_int8(q, *pools, table, lengths, **kw))
-    plain = timer(lambda: pa.paged_decode_attention_int8_plain(q, *pools, table, lengths, **kw))
-    flops, nbytes = decode_work(dec_lens, 32, 8, 128, 2, 32, write=False, int8=True)
-    b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
-    shape = "B8 n_q32 n_kv8 d128 page64 lengths 1,63,64,65,700,1500,2048,0 bf16 q, int8 pool"
+    timings = {}
+    for shape, lens in ((DEC_SHAPE, dec_lens), (SERVE_SHAPE, SERVE_LENS)):
+        if shape == SERVE_SHAPE:
+            pools, table = setup(8, 8, 128, 64, 32, lens, pool_pages=512)
+            lengths = torch.from_numpy(lens.astype(np.int32)).cuda()
+            check_close("bf16 q, int8 pool, llama-3-8b B8 page64 lengths 40..47",
+                        pa.paged_decode_attention_int8(q, *pools, table, lengths, **kw),
+                        pa.paged_decode_attention_int8_plain(q, *pools, table, lengths, **kw),
+                        "bfloat16")
+        timings[shape] = decode_timing(timer, lambda: pa.paged_decode_attention_int8(
+            q, *pools, table, lengths, **kw), lambda: pa.paged_decode_attention_int8_plain(
+            q, *pools, table, lengths, **kw), lens, write=False, int8=True)
     entries["paged_decode_int8"] = dict(
         name="paged_decode_int8", route="cuda",
         source="llms_on_kubernetes_tpu_torch/csrc/paged_decode_int8.cu",
         replaces="llms_on_kubernetes_tpu/ops/pallas_paged.py:264",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, shape=shape,
+        max_abs_err=err, **timings[DEC_SHAPE], library_ms=None, shape=DEC_SHAPE + INT8,
+        other_shapes={SERVE_SHAPE + INT8: timings[SERVE_SHAPE]},
         library_note="no single PyTorch call computes attention through a page table")
 
-    pools, table, q, kn, vn, lengths, err = fused_case(
-        "bf16 q, int8 pool, llama-3-8b B8 page64 lengths 1..2048", dec_lens, 8, 4, 128, 64,
-        32, bf16, pool_pages=512)
-    ms = timer(lambda: pa.paged_decode_attention_write_int8(q, *pools, table, lengths, kn, vn,
-                                                            **kw))
-    plain = timer(lambda: pa.paged_decode_attention_write_int8_plain(q, *pools, table, lengths,
-                                                                     kn, vn, **kw))
-    flops, nbytes = decode_work(dec_lens, 32, 8, 128, 2, 32, write=True, int8=True)
-    b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+    timings = {}
+    for shape, lens in ((DEC_SHAPE, dec_lens), (SERVE_SHAPE, SERVE_LENS)):
+        pools, table, q, kn, vn, lengths, e = fused_case(
+            f"bf16 q, int8 pool, llama-3-8b B8 page64 lengths {shape.split('lengths ')[1]}",
+            lens, 8, 4, 128, 64, 32, bf16, pool_pages=512)
+        err = e if shape == DEC_SHAPE else err
+        timings[shape] = decode_timing(timer, lambda: pa.paged_decode_attention_write_int8(
+            q, *pools, table, lengths, kn, vn, **kw),
+            lambda: pa.paged_decode_attention_write_int8_plain(
+                q, *pools, table, lengths, kn, vn, **kw), lens, write=True, int8=True)
     entries["paged_decode_write_int8"] = dict(
         name="paged_decode_write_int8", route="cuda",
         source="llms_on_kubernetes_tpu_torch/csrc/paged_decode_int8.cu",
         replaces="llms_on_kubernetes_tpu/ops/pallas_paged.py:874",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, shape=shape,
+        max_abs_err=err, **timings[DEC_SHAPE], library_ms=None, shape=DEC_SHAPE + INT8,
+        other_shapes={SERVE_SHAPE + INT8: timings[SERVE_SHAPE]},
         library_note="no single PyTorch call computes attention through a page table")
     return entries
 
@@ -1197,6 +1292,11 @@ def main(argv) -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {name}: {line.strip()}")
+    hmma, funcs = sass_mma_count(kernels.library_path("flash_prefill"))
+    say(f"sass flash_prefill: {hmma} HMMA instructions in {funcs} tensor-core "
+        f"(bf16) functions")
+    if not funcs or not hmma:
+        fail("the bf16 flash prefill body has no tensor-core (HMMA) instruction")
 
     entries = phase_kernels(torch)
     torch.cuda.synchronize()

@@ -52,9 +52,9 @@ _SIGNATURES = {
     "flash_prefill": ("llmk_flash_prefill",
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P]),
     "paged_decode": ("llmk_paged_decode",
-                     [_P] * 11 + [_I] * 8 + [_F, _I, _F, _I, _I, _P]),
+                     [_P] * 10 + [_I] * 8 + [_F, _I, _F, _I, _I, _P]),
     "paged_decode_int8": ("llmk_paged_decode_int8",
-                          [_P] * 13 + [_I] * 8 + [_F, _I, _F, _I, _I, _P]),
+                          [_P] * 12 + [_I] * 8 + [_F, _I, _F, _I, _I, _P]),
     "paged_write_window": ("llmk_paged_write_window", [_P] * 9 + [_I] * 9 + [_P]),
 }
 

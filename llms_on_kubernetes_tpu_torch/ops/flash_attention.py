@@ -7,8 +7,12 @@ tensors and runs ``prefill_attention_plain`` (the gather-and-einsum of
 takes the plain version: a shape or dtype the kernel does not take raises.
 
 Rows ``t >= lengths[b]`` of the output are padding. The kernel keeps them
-finite, but their values are don't-care and differ from the plain
-version's.
+finite (a query tile whose rows all lie there is zeros), but their values
+are don't-care and differ from the plain version's.
+
+The kernel has two bodies: bfloat16 with head_dim >= 16 runs on the tensor
+cores (mma.sync, P rounded to bf16 for the P.V product); float32, and
+bfloat16 with head_dim 8, run the f32 CUDA-core body.
 """
 
 from __future__ import annotations
@@ -53,9 +57,10 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash prefill kernel takes head_dim in {kernels.HEAD_DIMS}, got {d}")
     if n_kv == 0 or n_q % n_kv:
         raise ValueError(f"n_q={n_q} is not a multiple of n_kv={n_kv}")
-    kernels.check_tensor("q", q, ndim=4)
+    # 16-byte aligned: the kernel copies rows in 16-byte vectors
+    kernels.check_tensor("q", q, ndim=4, align=16)
     for name, t in (("k", k), ("v", v)):
-        kernels.check_tensor(name, t, dtype=q.dtype, ndim=4, device=q.device)
+        kernels.check_tensor(name, t, dtype=q.dtype, ndim=4, device=q.device, align=16)
         if tuple(t.shape) != (B, T, n_kv, d):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(B, T, n_kv, d)}")
     kernels.check_tensor("lengths", lengths, dtype=torch.int32, ndim=1, device=q.device)

@@ -47,6 +47,41 @@ MAX_GROUP = 8       # query heads per KV head the kernel serves (kMaxGroup)
 SPLIT_KEYS = 256    # key positions per block of the kernel (kSplitKeys)
 
 
+def workspace_sizes(B: int, n_q: int, n_kv: int, n_split: int, d: int) -> tuple:
+    """(float32 partials, int32 counters) one decode launch needs: each
+    key split's max, sum and d accumulators per query row, and one arrival
+    counter per (slot, KV head)."""
+    return B * n_q * n_split * (d + 2), B * n_kv
+
+
+class DecodeWorkspace:
+    """The decode kernels' scratch on each device: the splits' partials and
+    the arrival counters by which the last split of a (slot, KV head) knows
+    to merge. The counters are zeros when made, and every launch leaves
+    them zero, so no call clears them (that would be a second launch).
+    Both buffers grow on demand and never shrink. Launches on one device
+    share them, so they must be ordered: one stream a device, as the
+    engine runs."""
+
+    def __init__(self):
+        self._bufs: dict = {}
+
+    def get(self, device: torch.device, B: int, n_q: int, n_kv: int, n_split: int,
+            d: int) -> tuple:
+        """(part, counters) for a launch of this shape on ``device``."""
+        n_part, n_count = workspace_sizes(B, n_q, n_kv, n_split, d)
+        part, counters = self._bufs.get(device, (None, None))
+        if part is None or part.numel() < n_part:
+            part = torch.empty(n_part, dtype=torch.float32, device=device)
+        if counters is None or counters.numel() < n_count:
+            counters = torch.zeros(n_count, dtype=torch.int32, device=device)
+        self._bufs[device] = (part, counters)
+        return part, counters
+
+
+WORKSPACE = DecodeWorkspace()
+
+
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths, *,
                                  scale: float, sliding_window: Optional[int] = None,
                                  attn_softcap: Optional[float] = None) -> torch.Tensor:
@@ -108,7 +143,7 @@ def _launch(name: str, q, k_pages, v_pages, page_table, lengths, k_new, v_new, *
     if n_kv == 0 or n_q % n_kv or n_q // n_kv > MAX_GROUP:
         raise ValueError(f"paged decode kernel takes n_q a multiple of n_kv with at "
                          f"most {MAX_GROUP} per KV head, got {n_q}/{n_kv}")
-    kernels.check_tensor("q", q, ndim=3)
+    kernels.check_tensor("q", q, ndim=3, align=16)
     for nm, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         kernels.check_tensor(nm, t, dtype=pool_dtype, ndim=4, device=q.device, align=16)
     if v_pages.shape != k_pages.shape:
@@ -136,8 +171,7 @@ def _launch(name: str, q, k_pages, v_pages, page_table, lengths, k_new, v_new, *
     pps = page_table.shape[1]
     n_split = -(-pps * page // SPLIT_KEYS)
     out = torch.empty_like(q)
-    part_ml = torch.empty((2, B, n_q, n_split), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((B, n_q, n_split, d), dtype=torch.float32, device=q.device)
+    part, counters = WORKSPACE.get(q.device, B, n_q, n_kv, n_split, d)
     pools = (k_pages.data_ptr(), v_pages.data_ptr())
     if quant:
         fn = kernels.function(KERNEL_INT8)
@@ -147,7 +181,7 @@ def _launch(name: str, q, k_pages, v_pages, page_table, lengths, k_new, v_new, *
         fn = kernels.function(KERNEL)
     err = fn(q.data_ptr(), *pools, page_table.data_ptr(), lengths.data_ptr(),
              k_new.data_ptr() if write else None, v_new.data_ptr() if write else None,
-             part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
+             part.data_ptr(), counters.data_ptr(),
              out.data_ptr(), B, n_q, n_kv, pool_pages, page, pps, n_split, d,
              float(scale), int(sliding_window or 0), float(attn_softcap or 0.0),
              int(write), kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q))

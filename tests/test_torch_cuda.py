@@ -488,3 +488,168 @@ def test_engine_chunk_path_and_cache_hits_on_the_card(cuda):
                 assert kernels.LAUNCHES[window] - launches == cfg.num_layers * eng.chunk_calls
         assert outs[("cuda", "cold")] == outs[("cpu", "cold")], kv_dtype
         assert outs[("cuda", "hit")] == outs[("cpu", "hit")] == outs[("cpu", "cold")], kv_dtype
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (37, None), (None, 30.0)])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("T", [77, 1000])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_prefill_tensor_cores_bf16(cuda, d, T, group, window, softcap):
+    """The bf16 tensor-core body: T not a multiple of the 64-row tile,
+    lengths 0, 1 and T in one batch, every group the decoder uses; rows
+    below each length match the plain version, and every row is finite
+    (a query tile past its length is zeros)."""
+    n_kv = 2
+    q = _t(cuda, 3, T, n_kv * group, d, dtype=torch.bfloat16)
+    k, v = (_t(cuda, 3, T, n_kv, d, dtype=torch.bfloat16) for _ in range(2))
+    lengths = torch.tensor([0, 1, T], dtype=torch.int32, device="cuda")
+    kw = dict(scale=d ** -0.5, sliding_window=window, attn_softcap=softcap)
+    out = fa.flash_prefill_attention(q, k, v, lengths, **kw)
+    ref = fa.prefill_attention_plain(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert float(out[0].float().abs().max()) == 0.0       # length 0: one padding tile
+    _close(out[1, :1], ref[1, :1], torch.bfloat16)
+    _close(out[2], ref[2], torch.bfloat16)
+
+
+def _decode_case(rng, lengths, int8, dtype, n_kv=8, group=4, d=128, page=64, pps=32):
+    if int8:
+        pools, table = _paged_int8(rng, len(lengths), n_kv, d, page, pps, lengths)
+    else:
+        kp, vp, table = _paged(rng, len(lengths), n_kv, d, page, pps, lengths, dtype)
+        pools = [kp, vp]
+    q = _t(rng, len(lengths), n_kv * group, d, dtype=dtype)
+    return pools, table, q, torch.from_numpy(np.asarray(lengths, np.int32)).cuda()
+
+
+def _decode(int8, q, pools, table, lens, **kw):
+    if int8:
+        return pa.paged_decode_attention_int8(q, *pools, table, lens, **kw)
+    return pa.paged_decode_attention(q, pools[0], pools[1], table, lens, **kw)
+
+
+def _decode_plain(int8, q, pools, table, lens, **kw):
+    if int8:
+        return pa.paged_decode_attention_int8_plain(q, *pools, table, lens, **kw)
+    return pa.paged_decode_attention_plain(q, pools[0], pools[1], table, lens, **kw)
+
+
+def _counters_clear(device):
+    return not bool(pa.WORKSPACE.get(device, 1, 1, 1, 1, 8)[1].any())
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float_pool", "int8_pool"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_two_calls_bit_identical(cuda, int8, dtype):
+    """One launch merges the splits: the last block to arrive merges in
+    split order and puts its counter back to 0, so a second call gives the
+    same bits and every counter is 0 after each call."""
+    lengths = [300, 700, 2048, 0, 256, 512, 45, 1]
+    pools, table, q, lens = _decode_case(cuda, lengths, int8, dtype)
+    kw = dict(scale=128 ** -0.5)
+    first = _decode(int8, q, pools, table, lens, **kw)
+    torch.cuda.synchronize()
+    assert _counters_clear(q.device)
+    second = _decode(int8, q, pools, table, lens, **kw)
+    torch.cuda.synchronize()
+    assert _counters_clear(q.device)
+    assert torch.equal(first, second)
+    act = lens > 0
+    _close(first[act], _decode_plain(int8, q, pools, table, lens, **kw)[act], dtype)
+    assert float(first[3].float().abs().max()) == 0.0       # idle slot: zeros
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float_pool", "int8_pool"])
+def test_paged_decode_workspace_grows(cuda, int8):
+    """A launch with more (slot, KV head) pairs than any before it grows the
+    workspace, and the new counters work from the first call."""
+    small = _decode_case(cuda, [300, 20], int8, torch.bfloat16, n_kv=2)
+    lengths = [600 + 37 * i for i in range(24)]
+    big = _decode_case(cuda, lengths, int8, torch.bfloat16, n_kv=16, group=2, pps=24)
+    kw = dict(scale=128 ** -0.5)
+    for pools, table, q, lens in (small, big, small):
+        out = _decode(int8, q, pools, table, lens, **kw)
+        _close(out, _decode_plain(int8, q, pools, table, lens, **kw), torch.bfloat16)
+        torch.cuda.synchronize()
+        assert _counters_clear(q.device)
+    assert pa.WORKSPACE.get(q.device, 1, 1, 1, 1, 8)[1].numel() >= 24 * 16
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("int8", [False, True], ids=["float_pool", "int8_pool"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 300, 260])
+def test_paged_decode_split_boundaries(cuda, fused, int8, dtype, window):
+    """Lengths that end exactly on a 256-key split boundary (256, 512, 768)
+    or one past it, and windows that start inside a split (700 - 300 = 400,
+    inside split 1; 512 - 260 = 252, inside split 0): only the splits that
+    hold keys work, and the merge of their partials matches the plain
+    version (float32 at 1e-4). The fused append stores write_tokens' bytes
+    and attends like write_tokens + the unfused kernel, bit for bit."""
+    lengths = [256, 512, 768, 257, 700, 0]
+    pools, table, q, lens = _decode_case(cuda, lengths, int8, dtype)
+    kw = dict(scale=128 ** -0.5, sliding_window=window)
+    act = lens > 0
+    if not fused:
+        out = _decode(int8, q, pools, table, lens, **kw)
+        _close(out[act], _decode_plain(int8, q, pools, table, lens, **kw)[act], dtype)
+        return
+    kn, vn = _t(cuda, len(lengths), 8, 128, dtype=dtype), _t(cuda, len(lengths), 8, 128,
+                                                           dtype=dtype)
+    ref_pools = [t.clone() for t in pools]
+    if int8:
+        ref = pa.paged_decode_attention_write_int8_plain(q, *ref_pools, table, lens, kn, vn,
+                                                         **kw)
+        out = pa.paged_decode_attention_write_int8(q, *pools, table, lens, kn, vn, **kw)
+    else:
+        ref = pa.paged_decode_attention_write_plain(q, *ref_pools, table, lens, kn, vn, **kw)
+        out = pa.paged_decode_attention_write(q, *pools, table, lens, kn, vn, **kw)
+    _close(out[act], ref[act], dtype)
+    for got, want in zip(pools, ref_pools):
+        assert torch.equal(got[:, 1:], want[:, 1:])
+    assert torch.equal(out[act], _decode(int8, q, ref_pools, table, lens, **kw)[act])
+
+
+def test_wrappers_refuse_misaligned_rows(cuda):
+    """The kernels copy rows in 16-byte vectors: a view that starts off a
+    16-byte boundary is refused, not read wrongly."""
+    buf = _t(cuda, 1 * 16 * 4 * 64 + 8, dtype=torch.bfloat16)
+    q = buf[4:4 + 16 * 4 * 64].view(1, 16, 4, 64)          # 8 bytes in
+    k, v = _t(cuda, 1, 16, 2, 64, dtype=torch.bfloat16), _t(cuda, 1, 16, 2, 64,
+                                                            dtype=torch.bfloat16)
+    lens = torch.tensor([16], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_prefill_attention(q, k, v, lens, scale=0.1)
+    kp, vp, table = _paged(cuda, 1, 1, 64, 8, 2, [5], torch.bfloat16)
+    qd = buf[4:4 + 2 * 64].view(1, 2, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_decode_attention(qd, kp, vp, table, torch.tensor([5], dtype=torch.int32,
+                                                                  device="cuda"), scale=0.1)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 16, 32])
+def test_paged_decode_small_head_dims(cuda, fused, dtype, d):
+    """Float pools at head dims whose rows are one or two 16-byte copies
+    (bf16 d 8 and 16 take the CUDA-core and the tensor-core body), past one
+    16-key tile and one 256-key split."""
+    lengths = np.asarray([13, 40, 1, 0, 300])
+    kp, vp, table = _paged(cuda, 5, 2, d, 16, 20, lengths, dtype)
+    q, kn, vn = _t(cuda, 5, 8, d, dtype=dtype), _t(cuda, 5, 2, d, dtype=dtype), \
+        _t(cuda, 5, 2, d, dtype=dtype)
+    lens = torch.from_numpy(lengths.astype(np.int32)).cuda()
+    act = torch.from_numpy(lengths > 0).cuda()
+    kw = dict(scale=d ** -0.5)
+    if fused:
+        kr, vr = kp.clone(), vp.clone()
+        ref = pa.paged_decode_attention_write_plain(q, kr, vr, table, lens, kn, vn, **kw)
+        out = pa.paged_decode_attention_write(q, kp, vp, table, lens, kn, vn, **kw)
+        assert torch.equal(kp[:, 1:], kr[:, 1:]) and torch.equal(vp[:, 1:], vr[:, 1:])
+        assert torch.equal(out[act], pa.paged_decode_attention(q, kr, vr, table, lens,
+                                                               **kw)[act])
+    else:
+        ref = pa.paged_decode_attention_plain(q, kp, vp, table, lens, **kw)
+        out = pa.paged_decode_attention(q, kp, vp, table, lens, **kw)
+    _close(out[act], ref[act], dtype)

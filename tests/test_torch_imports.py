@@ -75,6 +75,23 @@ def test_every_kernel_source_is_built_and_bound():
     assert "--use_fast_math" not in kernels.NVCC_FLAGS      # IEEE division
 
 
+_C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p", "int": "c_int", "float": "c_float"}
+
+
+def test_ctypes_signatures_match_the_c_entries():
+    """Each C entry's parameter list, read from its source, is the ctypes
+    signature the wrapper binds: a pointer passed as a 32-bit int, or a
+    missing argument, would corrupt a launch without an error."""
+    from llms_on_kubernetes_tpu_torch import kernels
+
+    for name, (symbol, argtypes) in kernels._SIGNATURES.items():
+        text = (PKG / "csrc" / f"{name}.cu").read_text()
+        m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", text)
+        assert m, symbol
+        params = [re.sub(r"\s+\w+$", "", p.strip()) for p in m.group(1).split(",")]
+        assert [_C_TYPES[p] for p in params] == [a.__name__ for a in argtypes], symbol
+
+
 def test_forbidden_pattern_catches_what_it_should():
     for bad in ("import jax", "from jax import numpy", "import jax.numpy as jnp",
                 "from llms_on_kubernetes_tpu.ops import attention",

@@ -250,3 +250,35 @@ def test_softcap_is_identity_without_cap():
     assert torch.equal(tatt.softcap(x, None), x)
     np.testing.assert_allclose(tatt.softcap(x, 2.0).numpy(),
                                np.asarray(jatt.softcap(jnp.asarray(x.numpy()), 2.0)), **TOL)
+
+
+@pytest.mark.parametrize("B,n_q,n_kv,n_split,d", [(8, 32, 8, 8, 128), (3, 4, 2, 1, 8),
+                                                  (1, 8, 1, 16, 64)])
+def test_decode_workspace_sizes(B, n_q, n_kv, n_split, d):
+    """One launch needs each split's max, sum and d accumulators per query
+    row, and one arrival counter per (slot, KV head)."""
+    n_part, n_count = tpaged.workspace_sizes(B, n_q, n_kv, n_split, d)
+    assert n_part == B * n_q * n_split * (d + 2)
+    assert n_count == B * n_kv
+
+
+def test_decode_workspace_grows_and_is_reused():
+    """The workspace grows to the largest launch seen and never shrinks; a
+    smaller launch reuses the same storage, and new counters start at 0
+    (the kernel leaves them 0, so no call clears them)."""
+    ws = tpaged.DecodeWorkspace()
+    dev = torch.device("cpu")
+    part, counters = ws.get(dev, 2, 8, 2, 4, 64)
+    assert part.dtype == torch.float32 and counters.dtype == torch.int32
+    assert part.numel() == 2 * 8 * 4 * 66 and counters.numel() == 4
+    assert not counters.any()
+    big_part, big_counters = ws.get(dev, 8, 32, 8, 8, 128)
+    assert big_part.numel() == 8 * 32 * 8 * 130 and big_counters.numel() == 64
+    assert not big_counters.any()
+    again = ws.get(dev, 2, 8, 2, 4, 64)
+    assert again[0].data_ptr() == big_part.data_ptr()
+    assert again[1].data_ptr() == big_counters.data_ptr()
+    # more counters but fewer partials: only the counters grow
+    part3, counters3 = ws.get(dev, 16, 16, 16, 1, 8)
+    assert part3.data_ptr() == big_part.data_ptr() and counters3.numel() == 256
+    assert not counters3.any()
