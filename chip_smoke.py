@@ -20,9 +20,12 @@ Phases, each fatal on failure:
    nothing). Flash prefill is timed at buckets 1,024 (length 900), 2,048
    (length 1,500: phase 4's one-shot prompt) and 256 (length 200); the
    decode kernels at lengths 1..2,048 and at the serve shape (8 slots of
-   40-47 keys). The window appends must leave the plain version's pool
-   bytes outside the trash page 0 and every byte outside the written rows
-   as it was;
+   40-47 keys); the window appends at the chunk path's shapes (the
+   engine's own chunk calls for phase 3's prompts, and four slots). The
+   window appends must leave the plain version's pool bytes outside the
+   trash page 0 and every byte outside the written rows as it was, at the
+   span edge cases too (bases mid-page and on a boundary, rows past the
+   page table, pages of 16, 64 and 128);
 3. serve: start ``python -m llms_on_kubernetes_tpu_torch serve --model
    llama-3-8b --random-weights --device cuda`` (the default EngineConfig:
    8 slots, decode_steps 4, kv_write "dus", bf16, prefix caching on) and
@@ -46,6 +49,11 @@ Phases, each fatal on failure:
    pools byte-equal outside the trash pages, int8 scales included). Last,
    printed and not held: a 1,500-token prompt's first-token logits chunked
    (bucket 1,024) against one-shot (bucket 2,048).
+
+``--profile`` stops after phase 2 and traces, under torch.profiler, one
+decode window of eight requests and one chunk call (the second chunk of a
+1,500-token prompt, padded to its bucket and unpadded), with the pool of
+``LLMK_KV_DTYPE`` (bf16 or int8); ``--kernels-only`` stops after phase 2.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; before it, one ``{"kernels": [...]}`` JSON line. The last line
@@ -83,6 +91,16 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 REPS = 20
 OUT_DIR = "smoke_out"      # logs: nvcc build report, the server's output
+# phase 3's prompt texts (the byte tokenizer: one token a character)
+SERVE_TEXT = ("The quick brown fox jumps over the lazy dog while the engine serves "
+              "requests on the card. ") * 12
+# a text that shares no page with the others: its 1,500 tokens take the
+# chunk path in two chunks (largest bucket 1,024), never a cache hit
+LONG_TEXT = ("Paged attention reads the cache through a table of pages, and "
+             "chunked prefill fills it one bucket at a time. ") * 20
+PROMPT_900 = (SERVE_TEXT * 2)[:900]
+PROMPT_1500 = LONG_TEXT[:1500]
+TAIL_100 = LONG_TEXT[:100]
 
 
 def fail(msg: str) -> None:
@@ -638,66 +656,145 @@ def window_work(widths, n_kv: int, d: int, new_elt: int, int8: bool) -> float:
     return rows * (d * new_elt + (d + 4 if int8 else d * new_elt))
 
 
+def window_case(torch, rng, label, base, widths, W, n_kv, d, page, pps, int8, pool_dtype,
+                new_dtype, pool_pages=None):
+    """Run the window kernel and its plain version on copies of one random
+    pool; fail unless the pool bytes (data and scales) equal the plain
+    version's outside the trash page 0 and every byte outside the written
+    rows equals the pre-call copy. Returns the arguments for timing:
+    (pool tensors, [page_table, base, widths], k_new, v_new)."""
+    from llms_on_kubernetes_tpu_torch.ops import paged_write as pw
+
+    base, widths = np.asarray(base), np.asarray(widths)
+    B = len(base)
+    P = pool_pages or B * pps + 1
+    table = np.zeros((B, pps), np.int32)
+    perm = rng.permutation(P - 1) + 1
+    for b in range(B):
+        used = min(pps, -(-int(base[b] + W) // page))
+        table[b, :used] = perm[b * pps:b * pps + used]
+    written = np.zeros((P, page), bool)
+    for b in range(B):
+        for t in range(int(widths[b])):
+            pos = int(base[b]) + t
+            if 0 <= pos < pps * page:
+                written[table[b, pos // page], pos % page] = True
+    if int8:
+        mk_d = lambda: torch.from_numpy(
+            rng.integers(-127, 128, size=(n_kv, P, page, d)).astype(np.int8)).cuda()
+        mk_s = lambda: torch.from_numpy(
+            (rng.random(size=(n_kv, P, page)) + 0.1).astype(np.float32)).cuda()
+        pool = [mk_d(), mk_s(), mk_d(), mk_s()]
+    else:
+        mk_p = lambda: torch.from_numpy(
+            rng.normal(size=(n_kv, P, page, d)).astype(np.float32)).to("cuda", pool_dtype)
+        pool = [mk_p(), mk_p()]
+    mk = lambda: torch.from_numpy(
+        rng.normal(size=(B, W, n_kv, d)).astype(np.float32)).to("cuda", new_dtype)
+    kn, vn = mk(), mk()
+    args = [torch.from_numpy(a.astype(np.int32)).cuda() for a in (table, base, widths)]
+    before = [t.clone() for t in pool]
+    ref = [t.clone() for t in pool]
+    kernel = pw.paged_write_window_int8 if int8 else pw.paged_write_window
+    plain = pw.paged_write_window_int8_plain if int8 else pw.paged_write_window_plain
+    plain(*ref, *args, kn, vn)
+    kernel(*pool, *args, kn, vn)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(pool, ref)):
+        fail(f"{label}: pool bytes differ from the plain version's outside page 0")
+    keep = torch.from_numpy(~written).cuda()
+    if not all(torch.equal(a[:, keep], b[:, keep]) for a, b in zip(pool, before)):
+        fail(f"{label}: the kernel changed pool bytes outside the written rows")
+    say(f"  {label}: pool bytes equal the plain version's outside page 0; "
+        f"{int(written.sum())} rows a KV head written, every other byte untouched")
+    return pool, args, kn, vn
+
+
+def engine_chunk_shapes() -> list[tuple[int, int, int]]:
+    """(base, width, bucket W) of every forward_chunk call the default
+    EngineConfig (page 64, buckets 64/256/1,024, prefix caching on) makes
+    for phase 3's chunked requests, in order: the 1,500-token prompt (two
+    chunks), then the 900-token prompt and its re-send with the
+    100-character tail (a cache hit; the tail is one chunk). Read from the
+    engine itself -- its tokenizer, admission, prefix cache and bucket
+    choice -- run on the CPU with debug-tiny weights: the scheduling
+    depends on the config and the prompts, not on the model's widths."""
+    from llms_on_kubernetes_tpu_torch.engine import engine as em
+    from llms_on_kubernetes_tpu_torch.engine.tokenizer import load_tokenizer
+
+    calls = []
+    real = em.forward_chunk
+
+    def spy(params, cfg, tokens, history, lengths, *rest):
+        calls.append((int(history[0]), int(lengths[0]), int(tokens.shape[1])))
+        return real(params, cfg, tokens, history, lengths, *rest)
+
+    tok = load_tokenizer(MODEL)
+    eng = em.Engine(em.EngineConfig(model="debug-tiny", dtype="float32", device="cpu"))
+    em.forward_chunk = spy
+    try:
+        for text in (PROMPT_1500, PROMPT_900, PROMPT_900 + TAIL_100):
+            eng.generate(tok.encode(text), em.SamplingParams(max_tokens=1, temperature=0.0))
+    finally:
+        em.forward_chunk = real
+    return calls
+
+
+def window_shapes() -> dict:
+    """The windowed append's timed shapes, llama-3-8b widths, the main one
+    first: the second chunk of phase 3's 1,500-token prompt; four slots
+    starting at 0, a page boundary (896), mid-page (900) and one idle; the
+    first chunk of that prompt; the re-sent prompt's tail after its cache
+    hit. The single-slot shapes are the engine's own chunk calls."""
+    calls = engine_chunk_shapes()
+    if len(calls) != 3:
+        fail(f"expected the engine to make 3 chunk calls for phase 3's prompts, got {calls}")
+    (b0, w0, W0), (b1, w1, W1), (b2, w2, W2) = calls
+    one = lambda b, w, W: (f"B1 W{W} base {b} width {w}", dict(base=[b], widths=[w], W=W))
+    return dict([one(b1, w1, W1),
+                 ("B4 W1024 bases 0,896,900,0 widths 1024,1024,1000,0",
+                  dict(base=[0, 896, 900, 0], widths=[1024, 1024, 1000, 0], W=1024)),
+                 one(b0, w0, W0), one(b2, w2, W2)])
+
+
+# the timed window shapes' fixed widths: llama-3-8b (8 KV heads, d 128),
+# the default page and a 512-page pool, bf16 rows
+WINDOW_FIXED = dict(n_kv=8, d=128, page=64, pps=32, pool_pages=512)
+
+
+def window_timing(torch, timer, int8: bool, pool, args, kn, vn, W: int, widths) -> dict:
+    """Time the window kernel (100 launches: a few microseconds each), its
+    plain version and (float pool) the library yardstick, two index_put_
+    stores of the same rows; bound_ms from the written rows."""
+    from llms_on_kubernetes_tpu_torch.ops import paged_write as pw
+
+    kernel = pw.paged_write_window_int8 if int8 else pw.paged_write_window
+    plain = pw.paged_write_window_int8_plain if int8 else pw.paged_write_window_plain
+    ms = timer(lambda: kernel(*pool, *args, kn, vn), reps=100)
+    plain_ms = timer(lambda: plain(*pool, *args, kn, vn), reps=100)
+    lib = None
+    n_kv, d, page = WINDOW_FIXED["n_kv"], WINDOW_FIXED["d"], WINDOW_FIXED["page"]
+    if not int8:
+        pid, off = pw._window_index(args[0], args[1], args[2], W, page)
+        sel = (args[2].long()[:, None] > torch.arange(W, device="cuda")).reshape(-1)
+        pid, off = pid[sel], off[sel]
+        kr = kn.reshape(-1, n_kv, d)[sel].transpose(0, 1).contiguous()
+        vr = vn.reshape(-1, n_kv, d)[sel].transpose(0, 1).contiguous()
+        hix = torch.arange(n_kv, device="cuda")[:, None]
+        lib = timer(lambda: (pool[0].index_put_((hix, pid, off), kr),
+                             pool[1].index_put_((hix, pid, off), vr)), reps=100)
+    b_ms, b_by = bound_ms(0.0, window_work(widths, n_kv, d, 2, int8), "bfloat16")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+
+
 def window_kernels(torch, rng, timer) -> dict:
     """Phase 2 for the windowed KV append (the chunk path's write):
     paged_write_window (float pools) and paged_write_window_int8 against
-    their plain versions. Held: the pool bytes (data and scales) equal the
-    plain version's outside the trash page 0, and every byte outside the
-    written rows equals the pre-call copy. Timed at the chunk path's
-    full-width shapes."""
-    from llms_on_kubernetes_tpu_torch.ops import paged_write as pw
-
+    their plain versions (``window_case``) at the tests' small shapes, the
+    span edge cases and the full-width shapes, then timed at the latter."""
     f32, bf16 = torch.float32, torch.bfloat16
     entries = {}
-
-    def pools(n_kv, P, page, d, int8, dtype):
-        if int8:
-            mk_d = lambda: torch.from_numpy(
-                rng.integers(-127, 128, size=(n_kv, P, page, d)).astype(np.int8)).cuda()
-            mk_s = lambda: torch.from_numpy(
-                (rng.random(size=(n_kv, P, page)) + 0.1).astype(np.float32)).cuda()
-            return [mk_d(), mk_s(), mk_d(), mk_s()]
-        mk = lambda: torch.from_numpy(
-            rng.normal(size=(n_kv, P, page, d)).astype(np.float32)).to("cuda", dtype)
-        return [mk(), mk()]
-
-    def case(label, base, widths, W, n_kv, d, page, pps, int8, pool_dtype, new_dtype,
-             pool_pages=None):
-        """Run kernel and plain version on copies of one pool; return the
-        arguments for timing."""
-        base, widths = np.asarray(base), np.asarray(widths)
-        B = len(base)
-        P = pool_pages or B * pps + 1
-        table = np.zeros((B, pps), np.int32)
-        perm = rng.permutation(P - 1) + 1
-        for b in range(B):
-            used = min(pps, -(-int(base[b] + W) // page))
-            table[b, :used] = perm[b * pps:b * pps + used]
-        written = np.zeros((P, page), bool)
-        for b in range(B):
-            for t in range(int(widths[b])):
-                pos = int(base[b]) + t
-                written[table[b, pos // page], pos % page] = True
-        pool = pools(n_kv, P, page, d, int8, pool_dtype)
-        mk = lambda: torch.from_numpy(
-            rng.normal(size=(B, W, n_kv, d)).astype(np.float32)).to("cuda", new_dtype)
-        kn, vn = mk(), mk()
-        args = [torch.from_numpy(a.astype(np.int32)).cuda() for a in (table, base, widths)]
-        before = [t.clone() for t in pool]
-        ref = [t.clone() for t in pool]
-        kernel = pw.paged_write_window_int8 if int8 else pw.paged_write_window
-        plain = pw.paged_write_window_int8_plain if int8 else pw.paged_write_window_plain
-        plain(*ref, *args, kn, vn)
-        kernel(*pool, *args, kn, vn)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(pool, ref)):
-            fail(f"{label}: pool bytes differ from the plain version's outside page 0")
-        keep = torch.from_numpy(~written).cuda()
-        if not all(torch.equal(a[:, keep], b[:, keep]) for a, b in zip(pool, before)):
-            fail(f"{label}: the kernel changed pool bytes outside the written rows")
-        say(f"  {label}: pool bytes equal the plain version's outside page 0; "
-            f"{int(written.sum())} rows a KV head written, every other byte untouched")
-        return pool, args, kn, vn
+    case = lambda label, **kw: window_case(torch, rng, label, **kw)
 
     say("kernel paged_write_window (replaces ops/pallas_paged.py::pallas_paged_write_window)")
     say("kernel paged_write_window_int8 (replaces "
@@ -711,40 +808,28 @@ def window_kernels(torch, rng, timer) -> dict:
          new_dtype=f32, **small)
     case("int8 pool, bf16 rows, d 128 page 16", base=[0, 16, 5, 40], widths=[20, 16, 1, 0],
          W=20, n_kv=2, d=128, page=16, pps=4, int8=True, pool_dtype=None, new_dtype=bf16)
-    # llama-3-8b widths: the second chunk of a 1,500-token prompt (bucket
-    # 1,024), and four slots starting at 0, a page boundary (896), mid-page
-    # (900) and one idle row
-    full = {"B1 W1024 base 1024 width 476": dict(base=[1024], widths=[476]),
-            "B4 W1024 bases 0,896,900,0 widths 1024,1024,1000,0":
-                dict(base=[0, 896, 900, 0], widths=[1024, 1024, 1000, 0])}
+    # spans: a base mid-page and on a boundary, W below a page, rows past
+    # the page table, and a page of 128 (two spans a page)
+    for page, W in ((16, 40), (64, 50), (128, 200)):
+        edge = dict(base=[page // 2 + 1, page, 0, 3 * page - 5], widths=[W, W - 1, 0, W],
+                    W=W, n_kv=2, d=64, page=page, pps=3)
+        for int8, pool_dtype, new_dtype in ((False, f32, f32), (False, bf16, bf16),
+                                            (True, None, f32), (True, None, bf16)):
+            case(f"{'int8' if int8 else pool_dtype} pool, {new_dtype} rows, span edges "
+                 f"page {page} W {W}", int8=int8, pool_dtype=pool_dtype, new_dtype=new_dtype,
+                 **edge)
+    shapes = window_shapes()
     for int8, name in ((False, "paged_write_window"), (True, "paged_write_window_int8")):
         times = {}
-        for shape, kw in full.items():
+        for shape, kw in shapes.items():
             pool, args, kn, vn = case(f"{'int8' if int8 else 'bf16'} pool, bf16 rows, {shape}",
-                                      W=1024, n_kv=8, d=128, page=64, pps=32, int8=int8,
-                                      pool_dtype=bf16, new_dtype=bf16, pool_pages=512, **kw)
-            kernel = pw.paged_write_window_int8 if int8 else pw.paged_write_window
-            plain = pw.paged_write_window_int8_plain if int8 else pw.paged_write_window_plain
-            # a few microseconds a launch: more launches than the default
-            ms = timer(lambda: kernel(*pool, *args, kn, vn), reps=100)
-            plain_ms = timer(lambda: plain(*pool, *args, kn, vn), reps=100)
-            lib = None
-            if not int8:
-                # the library yardstick: the same rows' two index_put_ stores
-                pid, off = pw._window_index(args[0], args[1], args[2], 1024, 64)
-                sel = (args[2].long()[:, None] > torch.arange(1024, device="cuda")).reshape(-1)
-                pid, off = pid[sel], off[sel]
-                kr = kn.reshape(-1, 8, 128)[sel].transpose(0, 1).contiguous()
-                vr = vn.reshape(-1, 8, 128)[sel].transpose(0, 1).contiguous()
-                hix = torch.arange(8, device="cuda")[:, None]
-                lib = timer(lambda: (pool[0].index_put_((hix, pid, off), kr),
-                                     pool[1].index_put_((hix, pid, off), vr)), reps=100)
-            b_ms, b_by = bound_ms(0.0, window_work(kw["widths"], 8, 128, 2, int8), "bfloat16")
-            times[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
-                                bound_by=b_by)
-            say(f"  timing {name} {shape}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"bound_ms={b_ms:.5f} library_ms={lib}")
-        main_shape = next(iter(full))
+                                      int8=int8, pool_dtype=bf16, new_dtype=bf16, **kw,
+                                      **WINDOW_FIXED)
+            t = window_timing(torch, timer, int8, pool, args, kn, vn, kw["W"], kw["widths"])
+            times[shape] = t
+            say(f"  timing {name} {shape}: ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+                f"bound_ms={t['bound_ms']:.5f} library_ms={t['library_ms']}")
+        main_shape = next(iter(shapes))
         entries[name] = dict(
             name=name, route="cuda",
             source="llms_on_kubernetes_tpu_torch/csrc/paged_write_window.cu",
@@ -856,12 +941,7 @@ def _drive_server(proc, base: str, model: str, num_layers: int, t_start: float,
         fail(f"/v1/models: {status} {body[:200]!r}")
 
     max_tokens = 32
-    text = ("The quick brown fox jumps over the lazy dog while the engine serves "
-            "requests on the card. ") * 12
-    # a text that shares no page with the others: its 1,500 tokens take the
-    # chunk path in two chunks (largest bucket 1,024), never a cache hit
-    long_text = ("Paged attention reads the cache through a table of pages, and "
-                 "chunked prefill fills it one bucket at a time. ") * 20
+    text = SERVE_TEXT
     jobs = {
         "completion greedy 40-token prompt": ("/v1/completions", {
             "model": model, "prompt": text[:40], "max_tokens": max_tokens, "temperature": 0}),
@@ -869,10 +949,10 @@ def _drive_server(proc, base: str, model: str, num_layers: int, t_start: float,
             "model": model, "prompt": text[:200], "max_tokens": max_tokens,
             "temperature": 0.8, "seed": 1234}),
         "completion greedy 900-token prompt": ("/v1/completions", {
-            "model": model, "prompt": (text * 2)[:900], "max_tokens": max_tokens,
+            "model": model, "prompt": PROMPT_900, "max_tokens": max_tokens,
             "temperature": 0}),
         "completion greedy 1500-token prompt (2 chunks)": ("/v1/completions", {
-            "model": model, "prompt": long_text[:1500], "max_tokens": max_tokens,
+            "model": model, "prompt": PROMPT_1500, "max_tokens": max_tokens,
             "temperature": 0}),
         "chat streamed": ("/v1/chat/completions", {
             "model": model, "messages": [{"role": "user", "content": text[:150]}],
@@ -906,7 +986,7 @@ def _drive_server(proc, base: str, model: str, num_layers: int, t_start: float,
     resend = "completion greedy 900-token prompt again + 100-character tail"
     counts_burst = json.loads(http("GET", base + "/debug/kernels")[1])
     results[resend] = ("full",) + http("POST", base + "/v1/completions", {
-        "model": model, "prompt": (text * 2)[:900] + long_text[:100],
+        "model": model, "prompt": PROMPT_900 + TAIL_100,
         "max_tokens": max_tokens, "temperature": 0})
     status, body = http("GET", base + "/debug/kernels")
     counts = json.loads(body)
@@ -1251,14 +1331,81 @@ def phase_profile(torch, model: str = MODEL) -> None:
         eng._decode()
         torch.cuda.synchronize()
     ka = prof.key_averages()
-    # the device's own events only, as the table's "Self CUDA time total"
-    # sums them: a CPU operator's entry repeats its kernels' time
-    dev_total = sum(e.self_device_time_total for e in ka
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False))
-    say(f"profile: device time in the window {dev_total / 1e3:.2f} ms")
+    say(f"profile: device time in the window {device_ms(torch, prof):.2f} ms")
     say(ka.table(sort_by="self_cuda_time_total", row_limit=18))
     say(ka.table(sort_by="self_cpu_time_total", row_limit=12))
+    profile_chunk(torch, eng)
+
+
+def device_ms(torch, prof) -> float:
+    """The device's own kernel time in a trace (what the table's "Self
+    CUDA time total" sums: a CPU operator's entry repeats its kernels)."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+
+
+def profile_chunk(torch, eng) -> None:
+    """One chunk call under torch.profiler: the second chunk of a
+    1,500-token prompt (base 1,024, 476 tokens in bucket 1,024, as the
+    engine runs it), over the engine's pool kind (bf16, or int8 under
+    LLMK_KV_DTYPE=int8), in pool pages the decode requests do not use.
+    Prints device time by op name, the window appends' kernel time and the
+    plain chunk attention's (its calls run inside a record_function
+    range), then the same chunk unpadded (W 476): the difference is what
+    the padding costs."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from llms_on_kubernetes_tpu_torch.models import decoder
+
+    n, base, bucket = 1500, 1024, 1024
+    cfg, dev = eng.model_config, "cuda"
+    prompt = np.random.default_rng(1).integers(0, 256, size=n).astype(np.int32)
+    free = eng.cache_config.num_pages - 33     # the top 32 pages of each layer's pool
+    table = torch.arange(free, free + 32, dtype=torch.int32, device=dev)[None]
+    i32 = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)
+    attention = decoder.dispatch_chunk_attention
+
+    def ranged(*a, **k):
+        with record_function("chunk_attention"):
+            return attention(*a, **k)
+
+    def chunk(pos, m, W):
+        tokens = torch.zeros((1, W), dtype=torch.int32, device=dev)
+        tokens[0, :m] = torch.from_numpy(prompt[pos:pos + m])
+        return decoder.forward_chunk(eng.params, cfg, tokens, i32(pos), i32(m), eng.k_pages,
+                                     eng.v_pages, table)[0]
+
+    kv = "int8" if eng.cache_config.kv_dtype == "int8" else "bf16"
+    chunk(0, base, bucket)                                  # the first chunk fills the pages
+    for label, W in ((f"bucket {bucket}", bucket), ("unpadded W 476", n - base)):
+        for _ in range(2):
+            chunk(base, n - base, W)                        # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk(base, n - base, W)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        decoder.dispatch_chunk_attention = ranged
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                chunk(base, n - base, W)
+                torch.cuda.synchronize()
+        finally:
+            decoder.dispatch_chunk_attention = attention
+        cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+        # the window kernels are launched through ctypes, outside any host
+        # op: count them by kernel name; the attention by its host ranges
+        appends = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == cuda and "write_window" in e.key) / 1e3
+        attn = sum(e.device_time_total for e in prof.events()
+                   if e.name == "chunk_attention" and e.device_type == cpu) / 1e3
+        say(f"profile: chunk call ({cfg.name} {kv} KV, base {base}, {n - base} tokens, "
+            f"{label}): wall {wall:.1f} ms, device {device_ms(torch, prof):.2f} ms, of which "
+            f"window append kernels {appends:.3f} ms ({cfg.num_layers} calls) and chunk "
+            f"attention {attn:.2f} ms [{card_line()}]")
+        if label.startswith("bucket"):
+            say(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=18))
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,32 @@ from llms_on_kubernetes_tpu_torch.engine.cache import quantize_kv
 SOURCE = "paged_write_window"
 KERNEL = "paged_write_window"
 KERNEL_INT8 = "paged_write_window_int8"
+# rows a span of the kernels holds at most (kSpanRows in the source)
+SPAN_ROWS = 16
+
+
+def _window_spans(base, widths, W: int, page: int, pps: int,
+                  R: int = SPAN_ROWS) -> list[tuple[int, int, int, int, int]]:
+    """The kernels' span decomposition, in plain Python (the same formulas
+    as ``window_span`` in ``csrc/paged_write_window.cu``): one entry
+    ``(slot, span, first row t0, rows r, page slot)`` for each of the
+    grid's ``ceil((W - 1) / rp) + 1`` spans a slot, rp = min(page, R).
+    Span s of slot b is the aligned piece ``floor(base / rp) + s`` of rp
+    positions, clipped to rows ``t < min(widths[b], W)`` and positions in
+    ``[0, pps * page)``; ``r <= 0`` means the span writes nothing (its
+    block returns at once). A written span's rows lie on page slot
+    ``page slot`` of the table, at rows ``pos % page`` onwards."""
+    rp = min(page, R)
+    n_spans = (W + rp - 2) // rp + 1
+    out = []
+    for b, (b0, w) in enumerate(zip(base, widths)):
+        b0, w = int(b0), int(w)
+        for s in range(n_spans):
+            k = b0 // rp + s
+            lo = max(b0, k * rp, 0)
+            hi = min(b0 + min(w, W), (k + 1) * rp, pps * page)
+            out.append((b, s, lo - b0, hi - lo, lo // page))
+    return out
 
 
 def _window_index(page_table: torch.Tensor, base: torch.Tensor, widths: torch.Tensor,
@@ -111,6 +137,15 @@ def _launch(name: str, k_pool, v_pool, page_table, base, widths, k_new, v_new,
             raise ValueError(f"{nm} needs one entry per slot, got {t.shape[0]} for {B}")
     if page_table.shape[0] != B:
         raise ValueError("page_table needs one row per slot")
+    # what the grid and the kernels' 32-bit index math take
+    if page > SPAN_ROWS and page % SPAN_ROWS:
+        raise ValueError(f"window write kernel takes a page of at most {SPAN_ROWS} rows or a "
+                         f"multiple of {SPAN_ROWS}, got {page}")
+    if B > 65535:
+        raise ValueError(f"window write kernel takes at most 65535 slots, got {B}")
+    for nm, t in (("k_new", k_new), ("page_table", page_table)):
+        if t.numel() >= 2 ** 31:
+            raise ValueError(f"{nm} has {t.numel()} elements; the kernel indexes under 2^31")
     if B * W == 0:
         return
     fn = kernels.function(SOURCE)

@@ -385,8 +385,10 @@ def _window_case(rng, B, W, n_kv, d, page, pps, base, widths, int8, dtype):
     for b in range(B):
         used = min(pps, -(-(base[b] + W) // page))
         table[b, :used] = perm[b * pps:b * pps + used]
-        for t in range(widths[b]):
-            written[table[b, (base[b] + t) // page], (base[b] + t) % page] = True
+        for t in range(min(widths[b], W)):
+            pos = base[b] + t
+            if pos < pps * page:
+                written[table[b, pos // page], pos % page] = True
     if int8:
         pools = [torch.from_numpy(rng.integers(-127, 128, size=(n_kv, P, page, d))
                                   .astype(np.int8)).cuda() if i % 2 == 0 else
@@ -435,6 +437,41 @@ def test_paged_write_window_matches_plain(cuda, int8, dtype, shape):
         assert torch.equal(got[:, keep], old[:, keep])
 
 
+# span edges a slot each: a base mid-page, one on a page boundary, width 0,
+# width = page, and a window whose rows run past the page table (pps pages)
+def _span_edges(W, page, pps=3):
+    return dict(B=5, W=W, pps=pps, base=[page // 2 + 1, page, 5, 0, pps * page - 7],
+                widths=[W, W - 1, 0, min(page, W), W])
+
+
+@pytest.mark.parametrize("page", [16, 64, 128])
+@pytest.mark.parametrize("d", kernels.HEAD_DIMS)
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8_f32_rows", "int8_bf16_rows"])
+def test_paged_write_window_span_edges(cuda, pool, d, page):
+    """Kernels 6 and 7 at the span edge cases, every head dim, pages of 16,
+    64 and 128 rows (two spans a page), W below a page and W not a multiple
+    of it: pool bytes (int8 data and scales bit for bit, quantize_kv's)
+    equal the plain version's outside page 0, and page 0 and every other
+    unwritten byte keep the pool's own."""
+    from llms_on_kubernetes_tpu_torch.ops import paged_write as pw
+
+    int8 = pool.startswith("int8")
+    dtype = torch.bfloat16 if "bf16" in pool else torch.float32
+    kernel = pw.paged_write_window_int8 if int8 else pw.paged_write_window
+    plain = pw.paged_write_window_int8_plain if int8 else pw.paged_write_window_plain
+    for W in (page - 3, 2 * page + 5):
+        pools, args, kn, vn, keep = _window_case(cuda, n_kv=2, d=d, page=page, int8=int8,
+                                                 dtype=dtype, **_span_edges(W, page))
+        before = [t.clone() for t in pools]
+        ref = [t.clone() for t in pools]
+        plain(*ref, *args, kn, vn)
+        kernel(*pools, *args, kn, vn)
+        torch.cuda.synchronize()
+        for got, want, old in zip(pools, ref, before):
+            assert torch.equal(got[:, 1:], want[:, 1:]), W
+            assert torch.equal(got[:, keep], old[:, keep]), W
+
+
 def test_window_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from llms_on_kubernetes_tpu_torch.ops import paged_write as pw
 
@@ -453,6 +490,11 @@ def test_window_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         pw.paged_write_window_int8(*q8, *args8, kn8.half(), vn8.half())
     with pytest.raises(ValueError, match="int8"):
         pw.paged_write_window_int8(pools[0], q8[1], pools[1], q8[3], *args8, kn8, vn8)
+    # a page the spans do not cut: over SPAN_ROWS rows and not a multiple
+    p100, args100, kn100, vn100, _ = _window_case(cuda, int8=False, dtype=torch.float32,
+                                                  **dict(WINDOW_SHAPES["test_pallas"], page=100))
+    with pytest.raises(ValueError, match="page of at most"):
+        pw.paged_write_window(*p100, *args100, kn100, vn100)
 
 
 def test_engine_chunk_path_and_cache_hits_on_the_card(cuda):

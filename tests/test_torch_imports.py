@@ -68,10 +68,14 @@ def test_every_kernel_source_is_built_and_bound():
     hashed = {p.name for p in kernels.CSRC.glob("*.cu*")}
     assert {"common.cuh", "paged_decode.cuh", "paged_decode_int8.cu", "quantize.cuh",
             "paged_write_window.cu"} <= hashed
-    # kernels 5 and 7 quantize with one device function
-    for src in ("paged_decode.cuh", "paged_write_window.cu"):
+    # kernels 5 and 7 quantize with quantize.cuh's device functions: the
+    # warp-a-row quantize_row and its 16-bytes-a-lane twin quantize_vec
+    quant = (PKG / "csrc" / "quantize.cuh").read_text()
+    assert "float quantize_row(" in quant and "float quantize_vec(" in quant
+    for src, fn in (("paged_decode.cuh", "quantize_row<"), ("paged_write_window.cu",
+                                                          "quantize_vec<")):
         text = (PKG / "csrc" / src).read_text()
-        assert '#include "quantize.cuh"' in text and "quantize_row<" in text, src
+        assert '#include "quantize.cuh"' in text and fn in text, src
     assert "--use_fast_math" not in kernels.NVCC_FLAGS      # IEEE division
 
 
