@@ -25,7 +25,14 @@ Phases, each fatal on failure:
    window appends must leave the plain version's pool bytes outside the
    trash page 0 and every byte outside the written rows as it was, at the
    span edge cases too (bases mid-page and on a boundary, rows past the
-   page table, pages of 16, 64 and 128);
+   page table, pages of 16, 64 and 128). Then every kernel again at
+   head_dim 96 and 256 (``wide_kernels``): float32 at small shapes (group 1
+   and 2, a window, a softcap, pages 64 and 24) and bfloat16 at phi-3-mini's
+   widths (32 query heads on 32 KV heads, d 96, window 2,047) and
+   gemma-2-9b's (16 on 8, d 256, softcap 50), timed there beside the bound
+   (decode at lengths 1..2,500, 48 pages a slot; flash at bucket 1,024,
+   length 900, beside sdpa); the window appends also at pages 24 and 100,
+   span edges and timed;
 3. serve: start ``python -m llms_on_kubernetes_tpu_torch serve --model
    llama-3-8b --random-weights --device cuda`` (the default EngineConfig:
    8 slots, decode_steps 4, kv_write "dus", bf16, prefix caching on) and
@@ -40,7 +47,9 @@ Phases, each fatal on failure:
    layer). Before it, a reference check on a small input: debug-tiny in
    float32 on the card against the same weights on the CPU (prefill logits
    within 1e-4; greedy streams identical, float and int8 KV, with a
-   chunked prompt and a second pass of cache hits);
+   chunked prompt and a second pass of cache hits), then the same at page
+   24 for debug-tiny cut to head_dim 96 and debug-gemma cut to 256 (made
+   here with dataclasses.replace, not registered);
 4. fused: in this process, the same random weights behind an Engine with
    kv_write "fused", first with bf16 KV, then with int8 KV: requests
    through it (counters zeroed before, read after), the same greedy
@@ -48,7 +57,23 @@ Phases, each fatal on failure:
    one pool (bf16 logits within the bf16 tolerance, int8 logits identical;
    pools byte-equal outside the trash pages, int8 scales included). Last,
    printed and not held: a 1,500-token prompt's first-token logits chunked
-   (bucket 1,024) against one-shot (bucket 2,048).
+   (bucket 1,024) against one-shot (bucket 2,048);
+5. checkpoint: write full-width phi-3-mini (head_dim 96, 3.82 B
+   parameters, 7.64 GB in bf16) as a HuggingFace safetensors checkpoint
+   under ``smoke_out/`` with ``testing/synth_checkpoint.py`` (failing when
+   the disk lacks the room), drop it from the page cache, load it in this
+   process and hold layers 0 and 31 (the fused qkv_proj and gate_up_proj
+   split), the embedding, the final norm and the head bit for bit to what
+   was written; then serve it as a user would, ``python -m
+   llms_on_kubernetes_tpu_torch serve --model <dir> --pages-per-slot 48``,
+   with prompts in each bucket, a 1,500-token prompt (chunked) and its
+   cache hit, a 2,500-token prompt past the 2,047-token sliding window and
+   a chat, counters zeroed before and read after: flash prefill, the
+   decode kernel and the window kernel each launch num_layers times their
+   calls, and no other kernel runs; then the same with
+   ``--kv-cache-dtype int8`` (kernels 1, 4 and 7). Prints the load
+   seconds, cold (in process) and warm (in the server), the time to
+   /health and the phase's seconds.
 
 ``--profile`` stops after phase 2 and traces, under torch.profiler, one
 decode window of eight requests and one chunk call (the second chunk of a
@@ -56,7 +81,9 @@ decode window of eight requests and one chunk call (the second chunk of a
 ``LLMK_KV_DTYPE`` (bf16 or int8); ``--kernels-only`` stops after phase 2.
 
 The line before the last is the card's name and power limit as nvidia-smi
-gives them; before it, one ``{"kernels": [...]}`` JSON line. The last line
+gives them; before it, one ``{"kernels": [...]}`` JSON line, whose
+``launches`` come from phase 5's servers (kernels 1, 2, 4, 6, 7) and
+phase 4's fused engines (3, 5), and ``launches_by_path`` from every path. The last line
 is ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device, or outside a checkout, it exits non-zero first.
 
@@ -74,6 +101,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -177,14 +205,15 @@ def prefill_work(lengths, n_q: int, n_kv: int, d: int, elt: int, window=None):
 
 
 def decode_work(lengths, n_q: int, n_kv: int, d: int, elt: int, pps: int, write: bool,
-                int8: bool = False):
+                int8: bool = False, window=None):
     """FLOPs and bytes one decode attention call needs: each active query
-    row attends its slot's keys; q read, out written, each cached K/V row
-    read once (d * elt bytes a row and side, or d + 4 for an int8 row and
-    its scale); the fused kernel also reads k_new/v_new (q's dtype) and
-    writes one row per side per active slot."""
+    row attends its slot's keys (the last ``window`` of them under a
+    sliding window); q read, out written, each attended K/V row read once
+    (d * elt bytes a row and side, or d + 4 for an int8 row and its
+    scale); the fused kernel also reads k_new/v_new (q's dtype) and writes
+    one row per side per active slot."""
     B = len(lengths)
-    keys = int(sum(lengths))
+    keys = int(sum(min(int(n), window) if window else int(n) for n in lengths))
     active = sum(1 for n in lengths if n > 0)
     row = d + 4 if int8 else d * elt
     flops = 4.0 * d * n_q * keys
@@ -205,13 +234,16 @@ SERVE_LENS = np.arange(40, 48)
 INT8 = " q, int8 pool"
 
 
-def decode_timing(timer, kernel, plain, lens, write: bool, int8: bool = False) -> dict:
+def decode_timing(timer, kernel, plain, lens, write: bool, int8: bool = False,
+                  widths=(32, 8, 128, 32), window=None) -> dict:
     """Time a decode kernel (50 launches: ~0.01 ms each) and its plain
-    version; bound_ms from these lengths."""
+    version; bound_ms from these lengths at ``widths`` (n_q, n_kv, d,
+    pages a slot; llama-3-8b's by default)."""
     ms = timer(kernel, reps=50)
     plain_ms = timer(plain)
-    b_ms, b_by = bound_ms(*decode_work(lens, 32, 8, 128, 2, 32, write=write, int8=int8),
-                          "bfloat16")
+    n_q, n_kv, d, pps = widths
+    b_ms, b_by = bound_ms(*decode_work(lens, n_q, n_kv, d, 2, pps, write=write, int8=int8,
+                                       window=window), "bfloat16")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -762,7 +794,9 @@ def window_shapes() -> dict:
 WINDOW_FIXED = dict(n_kv=8, d=128, page=64, pps=32, pool_pages=512)
 
 
-def window_timing(torch, timer, int8: bool, pool, args, kn, vn, W: int, widths) -> dict:
+def window_timing(torch, timer, int8: bool, pool, args, kn, vn, W: int, widths,
+                  n_kv: int = WINDOW_FIXED["n_kv"], d: int = WINDOW_FIXED["d"],
+                  page: int = WINDOW_FIXED["page"]) -> dict:
     """Time the window kernel (100 launches: a few microseconds each), its
     plain version and (float pool) the library yardstick, two index_put_
     stores of the same rows; bound_ms from the written rows."""
@@ -773,7 +807,6 @@ def window_timing(torch, timer, int8: bool, pool, args, kn, vn, W: int, widths) 
     ms = timer(lambda: kernel(*pool, *args, kn, vn), reps=100)
     plain_ms = timer(lambda: plain(*pool, *args, kn, vn), reps=100)
     lib = None
-    n_kv, d, page = WINDOW_FIXED["n_kv"], WINDOW_FIXED["d"], WINDOW_FIXED["page"]
     if not int8:
         pid, off = pw._window_index(args[0], args[1], args[2], W, page)
         sel = (args[2].long()[:, None] > torch.arange(W, device="cuda")).reshape(-1)
@@ -846,6 +879,161 @@ def window_kernels(torch, rng, timer) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2, head_dim 96 and 256: every kernel at phi-3-mini's and gemma-2-9b's
+# widths
+# ---------------------------------------------------------------------------
+
+# phi-3-mini: 32 query heads on 32 KV heads (group 1), d 96, window 2047;
+# gemma-2-9b: 16 on 8, d 256, attention softcap 50 (its window, 4096, lies
+# past every length here). Pages a slot: 48 (3,072 tokens: phase 5's
+# --pages-per-slot), lengths past phi-3's window.
+WIDE = {96: dict(model="phi-3-mini", n_q=32, n_kv=32, window=2047, cap=None),
+        256: dict(model="gemma-2-9b", n_q=16, n_kv=8, window=4096, cap=50.0)}
+WIDE_LENS = np.array([1, 63, 64, 65, 700, 1500, 2500, 0])
+WIDE_PPS = 48
+
+
+def wide_kernels(torch, rng, timer) -> dict:
+    """Phase 2 at head_dim 96 and 256: each of the seven kernels against
+    its plain version, float32 at small shapes (1e-4, group 1 and 2, a
+    window, a softcap) and bfloat16 at the two models' full widths (the row
+    tolerance), then timed at the full widths beside its bound (and
+    scaled_dot_product_attention for kernel 1); the window kernels also at
+    pages 24 and 100, which their spans cut by in-page offset. Returns
+    {kernel name: {shape: timing}} for the kernel table's other shapes."""
+    from llms_on_kubernetes_tpu_torch.engine.cache import quantize_kv
+    from llms_on_kubernetes_tpu_torch.ops import flash_attention as fa
+    from llms_on_kubernetes_tpu_torch.ops import paged_attention as pa
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    out: dict = {}
+
+    def mk(*shape, dtype=f32):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", dtype)
+
+    for d, w in WIDE.items():
+        n_q, n_kv, window, cap = w["n_q"], w["n_kv"], w["window"], w["cap"]
+        group = n_q // n_kv
+        tag = f"{w['model']} n_q{n_q} n_kv{n_kv} d{d}"
+        say(f"head_dim {d} ({tag}): every kernel against its plain version")
+        # -- kernel 1 ----------------------------------------------------------
+        for win, c in [(None, None), (37, None), (None, cap or 30.0)]:
+            q, k, v = mk(2, 200, 2 * group, d), mk(2, 200, 2, d), mk(2, 200, 2, d)
+            lengths = torch.tensor([200, 77], dtype=torch.int32, device="cuda")
+            kw = dict(scale=d ** -0.5, sliding_window=win, attn_softcap=c)
+            ref = fa.prefill_attention_plain(q, k, v, lengths, **kw)
+            got = fa.flash_prefill_attention(q, k, v, lengths, **kw)
+            check_close(f"flash f32 d{d} group {group} T200 window={win} softcap={c}",
+                        got[0], ref[0], "float32")
+            check_close(f"flash f32 d{d} group {group} T200 row1", got[1, :77], ref[1, :77],
+                        "float32")
+        T, n = 1024, 900
+        q, k, v = mk(1, T, n_q, d, dtype=bf16), mk(1, T, n_kv, d, dtype=bf16), \
+            mk(1, T, n_kv, d, dtype=bf16)
+        lengths = torch.tensor([n], dtype=torch.int32, device="cuda")
+        kw = dict(scale=d ** -0.5, sliding_window=window, attn_softcap=cap)
+        ref = fa.prefill_attention_plain(q, k, v, lengths, **kw)
+        err = check_close(f"flash bf16 {tag} B1 T{T} length {n}", fa.flash_prefill_attention(
+            q, k, v, lengths, **kw)[0, :n], ref[0, :n], "bfloat16")
+        del ref
+        ms = timer(lambda: fa.flash_prefill_attention(q, k, v, lengths, **kw))
+        plain = timer(lambda: fa.prefill_attention_plain(q, k, v, lengths, **kw))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qh, kh, vh = (t[:, :n].transpose(1, 2) for t in (q, k, v))
+        kx, vx = (kh, vh) if group == 1 else (kh.repeat_interleave(group, 1),
+                                               vh.repeat_interleave(group, 1))
+        lib = timer(lambda: sdpa(qh, kx, vx, is_causal=True, scale=d ** -0.5))
+        b_ms, b_by = bound_ms(*prefill_work([n], n_q, n_kv, d, 2, window), "bfloat16")
+        out.setdefault("flash_prefill", {})[f"{tag} B1 T{T} length {n} bf16"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib, library_note="sdpa causal over the valid tokens"
+            + (" without the softcap (sdpa has none)" if cap else ""))
+        # -- kernels 2-5 ---------------------------------------------------------
+        for lens, nkv, page, pps, dtype, win, c, label in (
+                ([300, 37, 0, 700], 2, 64, 12, f32, 300, None, "f32 window 300"),
+                ([300, 37, 0, 700], 2, 24, 30, f32, None, cap or 30.0, "f32 page 24"),
+                (WIDE_LENS, n_kv, 64, WIDE_PPS, bf16, window, cap, f"bf16 {tag} B8")):
+            lens = np.asarray(lens)
+            B = len(lens)
+            kp, vp, table = paged_setup(torch, rng, B, nkv, d, page, pps, lens, f32,
+                                        pool_pages=B * pps + 1)
+            q = mk(B, nkv * group, d, dtype=dtype)
+            kn, vn = mk(B, nkv, d, dtype=dtype), mk(B, nkv, d, dtype=dtype)
+            lengths = torch.from_numpy(lens.astype(np.int32)).cuda()
+            kw = dict(scale=d ** -0.5, sliding_window=win, attn_softcap=c)
+            act = torch.from_numpy(lens > 0).cuda()
+            for int8 in (False, True):
+                base_pools = [*quantize_kv(kp), *quantize_kv(vp)] if int8 else \
+                    [kp.to(dtype), vp.to(dtype)]
+                for fused in (False, True):
+                    name = "paged_decode" + ("_write" if fused else "") + ("_int8" if int8 else "")
+                    pools = [t.clone() for t in base_pools]
+                    if fused:
+                        kern = (pa.paged_decode_attention_write_int8 if int8
+                                else pa.paged_decode_attention_write)
+                        plain_fn = (pa.paged_decode_attention_write_int8_plain if int8
+                                    else pa.paged_decode_attention_write_plain)
+                        ref_pools = [t.clone() for t in pools]
+                        ref = plain_fn(q, *ref_pools, table, lengths, kn, vn, **kw)
+                        got = kern(q, *pools, table, lengths, kn, vn, **kw)
+                        if not all(torch.equal(a[:, 1:], b[:, 1:])
+                                   for a, b in zip(pools, ref_pools)):
+                            fail(f"{name} {label}: pool bytes differ from write_tokens'")
+                        del ref_pools
+                        run = lambda: kern(q, *pools, table, lengths, kn, vn, **kw)
+                        run_plain = lambda: plain_fn(q, *pools, table, lengths, kn, vn, **kw)
+                    else:
+                        kern = pa.paged_decode_attention_int8 if int8 else pa.paged_decode_attention
+                        plain_fn = (pa.paged_decode_attention_int8_plain if int8
+                                    else pa.paged_decode_attention_plain)
+                        ref = plain_fn(q, *pools, table, lengths, **kw)
+                        got = kern(q, *pools, table, lengths, **kw)
+                        run = lambda: kern(q, *pools, table, lengths, **kw)
+                        run_plain = lambda: plain_fn(q, *pools, table, lengths, **kw)
+                    err = check_close(f"{name} {label}" + (" int8 pool" if int8 else ""),
+                                      got, ref, "float32" if dtype == f32 else "bfloat16",
+                                      rows=act)
+                    if dtype == bf16:
+                        t = decode_timing(timer, run, run_plain, lens, write=fused, int8=int8,
+                                          widths=(n_q, n_kv, d, pps), window=win)
+                        out.setdefault(name, {})[
+                            f"{label} page64 lengths 1..2500" + (INT8 if int8 else "")] = dict(
+                            max_abs_err=err, **t, library_ms=None)
+                    del pools, ref, got
+                del base_pools
+            del kp, vp
+        # -- kernels 6-7 -------------------------------------------------------
+        for int8, name in ((False, "paged_write_window"), (True, "paged_write_window_int8")):
+            for page in (24, 100):
+                for W in (page - 3, 2 * page + 5):
+                    edge = dict(base=[page // 2 + 1, page, 0, 3 * page - 5],
+                                widths=[W, W - 1, 0, W], W=W, n_kv=2, d=d, page=page, pps=4)
+                    for pool_dtype, new_dtype in ((None, f32), (None, bf16)) if int8 else \
+                            ((f32, f32), (bf16, bf16)):
+                        window_case(torch, rng, f"{name} d{d} page {page} W {W} "
+                                    f"{new_dtype} rows", int8=int8, pool_dtype=pool_dtype,
+                                    new_dtype=new_dtype, **edge)
+            for page, pps in ((64, WIDE_PPS), (24, 128), (100, 31)):
+                shape = dict(base=[1024], widths=[476], W=1024)
+                pool, args, kn, vn = window_case(
+                    torch, rng, f"{name} {tag} page {page} B1 W1024 base 1024 width 476",
+                    int8=int8, pool_dtype=bf16, new_dtype=bf16, n_kv=n_kv, d=d, page=page,
+                    pps=pps, pool_pages=pps + 1, **shape)
+                t = window_timing(torch, timer, int8, pool, args, kn, vn, 1024, [476],
+                                  n_kv=n_kv, d=d, page=page)
+                out.setdefault(name, {})[
+                    f"{tag} page {page} B1 W1024 base 1024 width 476 bf16 rows"] = dict(
+                    max_abs_err=0.0, **t)
+                del pool, args, kn, vn
+        torch.cuda.empty_cache()
+    for name, shapes in out.items():
+        for shape, t in shapes.items():
+            say(f"  timing {name} {shape}: ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+                f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}) library_ms={t['library_ms']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the server, through its normal entry point
 # ---------------------------------------------------------------------------
 
@@ -886,26 +1074,42 @@ def check_stream(name: str, status: int, events, max_tokens: int) -> list[dict]:
     return chunks
 
 
-def phase_serve(model: str, num_layers: int, kv_cache_dtype=None) -> dict:
+def with_server(args: list, log_name: str, drive) -> dict:
+    """Start ``python -m llms_on_kubernetes_tpu_torch serve ARGS`` on the
+    card and a free port, its output in ``OUT_DIR/log_name``; wait for
+    /health (at most 420 s), then return ``drive(base URL)`` with
+    ``health_s``, the seconds to /health, added. The server is stopped
+    however this ends; a failure prints the tail of its log."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     base = f"http://127.0.0.1:{port}"
     os.makedirs(OUT_DIR, exist_ok=True)
-    suffix = f"_{kv_cache_dtype}" if kv_cache_dtype else ""
-    log_path = os.path.join(OUT_DIR, f"chip_smoke_server{suffix}.log")
-    cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch", "serve", "--model", model,
-           "--random-weights", "--device", "cuda", "--host", "127.0.0.1",
-           "--port", str(port)]
-    if kv_cache_dtype:
-        cmd += ["--kv-cache-dtype", kv_cache_dtype]
+    log_path = os.path.join(OUT_DIR, log_name)
+    cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch", "serve", *args,
+           "--device", "cuda", "--host", "127.0.0.1", "--port", str(port)]
     say(f"serve: {' '.join(cmd[1:])}")
     t_start = time.perf_counter()
     with open(log_path, "w") as logf:
         proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT,
                                 start_new_session=True)
         try:
-            return _drive_server(proc, base, model, num_layers, t_start, kv_cache_dtype)
+            deadline = t_start + 420
+            while True:
+                if proc.poll() is not None:
+                    fail(f"server exited with {proc.returncode} before /health answered")
+                try:
+                    status, body = http("GET", base + "/health", timeout=5)
+                    if status == 200 and body == b"OK":
+                        break
+                except OSError:
+                    pass
+                if time.perf_counter() > deadline:
+                    fail("server did not answer /health within 420 s")
+                time.sleep(0.5)
+            health_s = time.perf_counter() - t_start
+            say(f"  /health OK after {health_s:.1f} s")
+            return {**drive(base), "health_s": health_s}
         except SystemExit:
             logf.flush()
             with open(log_path) as f:
@@ -920,22 +1124,14 @@ def phase_serve(model: str, num_layers: int, kv_cache_dtype=None) -> dict:
                 proc.wait(timeout=30)
 
 
-def _drive_server(proc, base: str, model: str, num_layers: int, t_start: float,
-                  kv_cache_dtype=None) -> dict:
-    deadline = time.perf_counter() + 420
-    while True:
-        if proc.poll() is not None:
-            fail(f"server exited with {proc.returncode} before /health answered")
-        try:
-            status, body = http("GET", base + "/health", timeout=5)
-            if status == 200 and body == b"OK":
-                break
-        except OSError:
-            pass
-        if time.perf_counter() > deadline:
-            fail("server did not answer /health within 420 s")
-        time.sleep(1.0)
-    say(f"  /health OK after {time.perf_counter() - t_start:.1f} s")
+def phase_serve(model: str, num_layers: int, kv_cache_dtype=None) -> dict:
+    kv = ["--kv-cache-dtype", kv_cache_dtype] if kv_cache_dtype else []
+    return with_server(["--model", model, "--random-weights", *kv],
+                       f"chip_smoke_server{'_' + kv_cache_dtype if kv_cache_dtype else ''}.log",
+                       lambda base: _drive_server(base, model, num_layers, kv_cache_dtype))
+
+
+def _drive_server(base: str, model: str, num_layers: int, kv_cache_dtype=None) -> dict:
     status, body = http("GET", base + "/v1/models")
     if status != 200 or json.loads(body)["data"][0]["id"] != model:
         fail(f"/v1/models: {status} {body[:200]!r}")
@@ -1244,17 +1440,34 @@ def phase_in_process(torch, model: str) -> dict:
     return out
 
 
-def phase_reference(torch) -> None:
-    """The model on a small input against a reference: debug-tiny in
-    float32, the same weights on the card (kernels) and on the CPU (plain
-    versions). Prefill logits within 1e-4 (summation order only), and the
-    engines' greedy streams identical, kv_write dus and fused."""
+def wide_debug_configs() -> list:
+    """debug-tiny cut to head_dim 96 (phi-3 style: one query head a KV
+    head, a sliding window) and debug-gemma to 256 (gemma-2 style:
+    softcaps, alternating windows), made here and not registered."""
+    import dataclasses
+
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+
+    return [dataclasses.replace(get_config("debug-tiny"), name="debug-d96", head_dim=96,
+                                num_heads=2, num_kv_heads=2, sliding_window=30),
+            dataclasses.replace(get_config("debug-gemma"), name="debug-d256", head_dim=256,
+                                num_heads=2, num_kv_heads=1, logit_softcap=30.0,
+                                attn_softcap=50.0, query_pre_attn_scalar=256.0)]
+
+
+def phase_reference(torch, cfg=None, page: int = 4) -> None:
+    """The model on a small input against a reference: ``cfg`` (debug-tiny
+    by default) in float32, the same weights on the card (kernels) and on
+    the CPU (plain versions), at a page of ``page`` rows. Prefill logits
+    within 1e-4 (summation order only), and the engines' greedy streams
+    identical, kv_write dus and fused, float and int8 KV, with a chunked
+    prompt and a second pass of cache hits."""
     from llms_on_kubernetes_tpu_torch.configs import get_config
     from llms_on_kubernetes_tpu_torch.engine.cache import CacheConfig, init_pages
     from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
     from llms_on_kubernetes_tpu_torch.models.decoder import forward_prefill, init_params
 
-    cfg = get_config("debug-tiny")
+    cfg = cfg or get_config("debug-tiny")
     cpu_params = init_params(cfg, seed=0, dtype="float32", device="cpu")
 
     def on(dev):
@@ -1264,20 +1477,22 @@ def phase_reference(torch) -> None:
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(3, 32)).astype(np.int32))
     lengths = torch.tensor([32, 17, 5], dtype=torch.int32)
-    table = torch.arange(1, 3 * 8 + 1, dtype=torch.int32).reshape(3, 8)
     logits = {}
+    pps = -(-32 // page)
+    table = torch.arange(1, 3 * pps + 1, dtype=torch.int32).reshape(3, pps)
     for dev in ("cpu", "cuda"):
-        cc = CacheConfig(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, num_pages=32,
-                         page_size=4, pages_per_slot=8, dtype="float32")
+        cc = CacheConfig(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
+                         num_pages=3 * pps + 1, page_size=page, pages_per_slot=pps,
+                         dtype="float32")
         k, v = init_pages(cc, device=dev)
         logits[dev] = forward_prefill(on(dev), cfg, tokens.to(dev), lengths.to(dev), k, v,
                                       table.to(dev))[0].cpu()
     err = float((logits["cuda"] - logits["cpu"]).abs().max())
-    say(f"reference: debug-tiny f32 prefill logits, card vs CPU: max_abs_err={err:.3e} "
-        f"tol={F32_TOL:.0e}")
+    say(f"reference: {cfg.name} f32 prefill logits (page {page}), card vs CPU: "
+        f"max_abs_err={err:.3e} tol={F32_TOL:.0e}")
     if not err <= F32_TOL:
-        fail("debug-tiny prefill logits on the card differ from the CPU reference")
-    kw = dict(model="debug-tiny", dtype="float32", max_decode_slots=4, page_size=4,
+        fail(f"{cfg.name} prefill logits on the card differ from the CPU reference")
+    kw = dict(model=cfg.name, dtype="float32", max_decode_slots=4, page_size=page,
               num_pages=128, pages_per_slot=16, prefill_buckets=(16, 32))
     # the last prompt passes the largest bucket (two chunks); the second
     # pass over the same engine adopts every prompt's cached full pages
@@ -1288,23 +1503,28 @@ def phase_reference(torch) -> None:
         streams = {}
         for dev, kv_write in (("cpu", "dus"), ("cuda", "dus"), ("cuda", "fused")):
             eng = Engine(EngineConfig(**kw, device=dev, kv_write=kv_write,
-                                      kv_cache_dtype=kv_dtype), params=on(dev))
+                                      kv_cache_dtype=kv_dtype), model_config=cfg,
+                         params=on(dev))
             for rnd in ("cold", "hit"):
                 reqs = [eng.submit(p, sp) for p in prompts]
                 while eng.has_work():
                     eng.step()
                 streams[(dev, kv_write, rnd)] = [r.output for r in reqs]
-            if eng.chunk_calls < 2 + 4 or eng.allocator.hit_tokens_total < 4 * 20:
-                fail(f"debug-tiny {dev}: {eng.chunk_calls} chunk calls and "
+            # cold: the 45-token prompt in two chunks; then cache hits (page
+            # 4: 80 tokens and 4 chunk calls; page 24: 48 tokens, the 30- and
+            # 45-token prompts' first pages, and 2 chunk calls)
+            min_chunks, min_hits = (2 + 4, 80) if page == 4 else (2 + 2, 48)
+            if eng.chunk_calls < min_chunks or eng.allocator.hit_tokens_total < min_hits:
+                fail(f"{cfg.name} {dev}: {eng.chunk_calls} chunk calls and "
                      f"{eng.allocator.hit_tokens_total} cached tokens: the chunk path or the "
                      f"prefix cache did not run")
         kv = f"{kv_dtype or 'f32'} KV"
         ref = streams[("cpu", "dus", "cold")]
         if any(out != ref for out in streams.values()):
-            fail(f"debug-tiny {kv}: greedy streams differ between the card and the CPU, or "
+            fail(f"{cfg.name} {kv}: greedy streams differ between the card and the CPU, or "
                  f"between cold and cache-hit runs: {streams}")
-        say(f"reference: debug-tiny {kv} greedy streams equal on the card (dus, fused) and "
-            f"the CPU, cold, chunked (45 tokens, bucket 32) and on cache hits")
+        say(f"reference: {cfg.name} {kv} greedy streams equal on the card (dus, fused) and "
+            f"the CPU at page {page}, cold, chunked (45 tokens, bucket 32) and on cache hits")
 
 
 def phase_profile(torch, model: str = MODEL) -> None:
@@ -1409,6 +1629,218 @@ def profile_chunk(torch, eng) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: a safetensors checkpoint, written, loaded and served
+# ---------------------------------------------------------------------------
+
+CKPT_MODEL = "phi-3-mini"
+CKPT_DIR = os.path.join(OUT_DIR, "phi-3-mini-synth")
+CKPT_PPS = 48          # 3,072 tokens a slot: room for the 2,500-token prompt
+# a 2,500-token text past phi-3's 2,047-token window, sharing no page with
+# phase 3's prompts (the byte tokenizer: one token a character)
+PROMPT_2500 = ("A sliding window keeps the last two thousand and forty seven keys in "
+               "view, and the page table still holds every one of them. " * 25)[:2500]
+
+
+def drop_page_cache(path: str) -> None:
+    """Ask the kernel to drop a written file's cached pages (clean pages
+    only, so after an fsync), so the next read comes from the disk."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+
+
+def expected_layer(cfg, i: int, spec: dict) -> dict:
+    """Layer i of the decoder's parameters as the writer wrote its HF
+    tensors (bfloat16 bits), moved to the decoder's layouts here with
+    numpy, independently of the loader: phi-3's fused qkv_proj and
+    gate_up_proj split, linears transposed, heads made explicit."""
+    from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import tensor_value
+
+    H, KV, hd, D, F = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size,
+                       cfg.intermediate_size)
+    p = f"model.layers.{i}."
+    hf = lambda name: tensor_value(cfg, p + name, *spec[p + name])
+    qkv = hf("self_attn.qkv_proj.weight")
+    gate_up = hf("mlp.gate_up_proj.weight")
+    return {
+        "wq": qkv[:H * hd].T.reshape(D, H, hd),
+        "wk": qkv[H * hd:(H + KV) * hd].T.reshape(D, KV, hd),
+        "wv": qkv[(H + KV) * hd:].T.reshape(D, KV, hd),
+        "wo": hf("self_attn.o_proj.weight").T.reshape(H, hd, D),
+        "w_gate": gate_up[:F].T, "w_up": gate_up[F:].T,
+        "w_down": hf("mlp.down_proj.weight").T,
+        "attn_norm": hf("input_layernorm.weight"),
+        "mlp_norm": hf("post_attention_layernorm.weight"),
+    }
+
+
+def bits(t) -> np.ndarray:
+    """A bfloat16 tensor's bits as uint16, on the host."""
+    import torch
+    return t.view(torch.int16).cpu().numpy().view(np.uint16)
+
+
+def phase_checkpoint(torch) -> dict:
+    """Write full-width phi-3-mini as a bf16 safetensors checkpoint
+    (testing/synth_checkpoint.py: the family's names, shapes and layouts,
+    pattern values), drop it from the page cache, load it in this process
+    (cold) and hold layers 0 and 31 (the fused tensors split), the
+    embedding, the final norm and the head bit for bit to what was
+    written; then serve it through the CLI with bf16 and with int8 KV."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.weights import load_hf_params
+    from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import (
+        tensor_specs, tensor_value, write_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = get_config(CKPT_MODEL)
+    specs = tensor_specs(cfg)
+    need = sum(int(np.prod(shape)) * 2 for _, shape, _ in specs)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    free = shutil.disk_usage(OUT_DIR).free
+    if free < need + (1 << 30):
+        fail(f"{free} bytes free under {OUT_DIR}: the {CKPT_MODEL} checkpoint needs {need} "
+             f"and 1 GiB of room")
+    t0 = time.perf_counter()
+    index = write_checkpoint(cfg, CKPT_DIR)
+    shards = sorted(set(index["weight_map"].values()))
+    for shard in shards:
+        drop_page_cache(os.path.join(CKPT_DIR, shard))
+    write_s = time.perf_counter() - t0
+    say(f"checkpoint: {CKPT_MODEL} written, {index['metadata']['total_size']} bytes in "
+        f"{len(shards)} shards, {len(index['weight_map'])} tensors, {write_s:.1f} s")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = load_hf_params(cfg, CKPT_DIR, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    say(f"checkpoint: loaded in process from a dropped page cache in {load_s:.2f} s "
+        f"({need / load_s / 1e9:.2f} GB/s) [{card_line()}]")
+    spec = {name: (shape, kind) for name, shape, kind in specs}
+    for i in (0, cfg.num_layers - 1):
+        for name, want in expected_layer(cfg, i, spec).items():
+            got = params["layers"][name][i]
+            if got.dtype != torch.bfloat16 or not np.array_equal(bits(got), want):
+                fail(f"checkpoint: layer {i} {name} differs from what was written")
+    for name, hf_name in (("embed", "model.embed_tokens.weight"),
+                          ("final_norm", "model.norm.weight"), ("lm_head", "lm_head.weight")):
+        want = tensor_value(cfg, hf_name, *spec[hf_name])
+        if not np.array_equal(bits(params[name]), want.T if name == "lm_head" else want):
+            fail(f"checkpoint: {name} differs from what was written")
+    say(f"checkpoint: layers 0 and {cfg.num_layers - 1} (qkv_proj and gate_up_proj split), "
+        f"embed, final_norm and lm_head equal what was written, bit for bit")
+    del params
+    torch.cuda.empty_cache()
+    served = {kv: serve_checkpoint(cfg, kv) for kv in (None, "int8")}
+    say(f"checkpoint phase: {time.perf_counter() - t_phase:.1f} s (write {write_s:.1f}, "
+        f"cold load {load_s:.2f}, to /health bf16 {served[None]['health_s']:.1f} / int8 "
+        f"{served['int8']['health_s']:.1f}, warm load in the server bf16 "
+        f"{served[None]['load_s']} / int8 {served['int8']['load_s']})")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return served
+
+
+def serve_checkpoint(cfg, kv_cache_dtype=None) -> dict:
+    """``serve --model <checkpoint dir>`` as a user runs it, and a request
+    mix through HTTP: prompts in each bucket, a 1,500-token prompt (two
+    chunks) and the same again with a tail (a cache hit), a 2,500-token
+    prompt past the sliding window (three chunks). The launch counters are
+    zeroed just before and read just after."""
+    kv = ["--kv-cache-dtype", kv_cache_dtype] if kv_cache_dtype else []
+    log_name = f"chip_smoke_checkpoint_server{'_' + kv_cache_dtype if kv_cache_dtype else ''}.log"
+    res = with_server(["--model", CKPT_DIR, "--pages-per-slot", str(CKPT_PPS), *kv], log_name,
+                      lambda base: _drive_checkpoint_server(base, cfg, kv_cache_dtype))
+    with open(os.path.join(OUT_DIR, log_name)) as f:
+        loaded = [line for line in f if "weights from" in line]
+    res["load_s"] = loaded[-1].rsplit(" in ", 1)[-1].strip() if loaded else "not printed"
+    return res
+
+
+def _drive_checkpoint_server(base: str, cfg, kv_cache_dtype) -> dict:
+    model = CKPT_DIR
+    status, body = http("GET", base + "/v1/models")
+    if status != 200 or json.loads(body)["data"][0]["id"] != model:
+        fail(f"/v1/models: {status} {body[:200]!r}")
+    status, _ = http("POST", base + "/debug/kernels/reset", {})
+    if status != 200:
+        fail("/debug/kernels/reset failed")
+    counts0 = json.loads(http("GET", base + "/debug/kernels")[1])
+    max_tokens = 16
+    burst = {
+        "40-token prompt (bucket 64)": SERVE_TEXT[:40],
+        "200-token prompt (bucket 256)": SERVE_TEXT[:200],
+        "900-token prompt (bucket 1,024)": PROMPT_900,
+        "1,500-token prompt (two chunks)": PROMPT_1500,
+        "2,500-token prompt past the 2,047-token window (three chunks)": PROMPT_2500,
+    }
+    results: dict = {}
+
+    def run(name, prompt):
+        try:
+            results[name] = http("POST", base + "/v1/completions", {
+                "model": model, "prompt": prompt, "max_tokens": max_tokens, "temperature": 0})
+        except Exception as e:  # reported below as this request's failure
+            results[name] = ("error", repr(e))
+
+    threads = [threading.Thread(target=run, args=item) for item in burst.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    counts_burst = json.loads(http("GET", base + "/debug/kernels")[1])
+    hit = "1,500-token prompt again + 100-character tail (a cache hit)"
+    run(hit, PROMPT_1500 + TAIL_100)
+    status, chat = http("POST", base + "/v1/chat/completions", {
+        "model": model, "messages": [{"role": "user", "content": SERVE_TEXT[:120]}],
+        "max_tokens": max_tokens, "temperature": 0})
+    results["chat"] = (status, chat)
+    counts = json.loads(http("GET", base + "/debug/kernels")[1])
+    for name, res in results.items():
+        if res[0] == "error" or res[0] != 200:
+            fail(f"checkpoint server, {name}: {res[0]} {res[1][:300]!r}")
+        data = json.loads(res[1])
+        ch = data["choices"][0]
+        text = ch["message"]["content"] if name == "chat" else ch["text"]
+        n = data["usage"]["completion_tokens"]
+        if ch["finish_reason"] not in ("length", "stop") or not isinstance(text, str) or not (
+                n == max_tokens or (ch["finish_reason"] == "stop" and 0 < n <= max_tokens)):
+            fail(f"checkpoint server, {name}: {ch['finish_reason']}, {n} tokens")
+        say(f"  {name}: 200, {data['usage']['prompt_tokens']} prompt tokens, {n} tokens, "
+            f"finish_reason={ch['finish_reason']}")
+    delta = {k: counts[k] - counts0[k] for k in ("prefill_calls", "chunk_calls",
+                                                "decode_forwards", "prefix_hit_tokens")}
+    hit_tokens = counts["prefix_hit_tokens"] - counts_burst["prefix_hit_tokens"]
+    launches = counts["launches"]
+    L = cfg.num_layers
+    int8 = kv_cache_dtype == "int8"
+    decode = "paged_decode_int8" if int8 else "paged_decode"
+    window = "paged_write_window_int8" if int8 else "paged_write_window"
+    say(f"  kernel launches: {launches}; calls {delta}; layers {L}; the re-sent prompt "
+        f"adopted {hit_tokens} cached tokens")
+    expect = {"flash_prefill": L * delta["prefill_calls"], decode: L * delta["decode_forwards"],
+              window: L * delta["chunk_calls"]}
+    for name, n in expect.items():
+        if not n or launches.get(name, 0) != n:
+            fail(f"{name} launched {launches.get(name, 0)} times, expected num_layers x its "
+                 f"calls = {n}")
+    others = set(launches) - set(expect)
+    if any(launches[k] for k in others):
+        fail(f"the {'int8' if int8 else 'bf16'} KV checkpoint server launched "
+             f"{ {k: launches[k] for k in others} }")
+    # 1,500 tokens: 2 chunks; the hit's rest: 1; 2,500 tokens: 3
+    if delta["chunk_calls"] < 6 or hit_tokens < 1472:
+        fail(f"{delta['chunk_calls']} chunk calls and a hit of {hit_tokens} tokens: the chunk "
+             f"path or the prefix cache did not run")
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv) -> int:
     try:
@@ -1445,29 +1877,48 @@ def main(argv) -> int:
     if not funcs or not hmma:
         fail("the bf16 flash prefill body has no tensor-core (HMMA) instruction")
 
+    t0 = time.perf_counter()
     entries = phase_kernels(torch)
+    for name, shapes in wide_kernels(torch, np.random.default_rng(1), Timer(torch)).items():
+        entries[name]["other_shapes"].update(shapes)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    say(f"phase 2 (kernels): {time.perf_counter() - t0:.1f} s")
     if "--profile" in argv:
         phase_profile(torch)
         fail("--profile: profile only, no result")
     if "--kernels-only" in argv:
         say(json.dumps({"kernels": list(entries.values())}))
-        fail("--kernels-only: phases 3 and 4 skipped, no result")
+        fail("--kernels-only: phases 3 to 5 skipped, no result")
+    t0 = time.perf_counter()
     phase_reference(torch)
+    for cfg in wide_debug_configs():
+        phase_reference(torch, cfg, page=24)
     num_layers = get_config(MODEL).num_layers
     served = phase_serve(MODEL, num_layers)
     served_int8 = phase_serve(MODEL, num_layers, kv_cache_dtype="int8")
+    say(f"phase 3 (reference, serve): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     fused = phase_in_process(torch, MODEL)
-    entries["flash_prefill"]["launches"] = served["launches"].get("flash_prefill", 0)
-    entries["paged_decode"]["launches"] = served["launches"].get("paged_decode", 0)
-    entries["paged_decode_int8"]["launches"] = served_int8["launches"].get(
-        "paged_decode_int8", 0)
-    for kv, name in ((None, "paged_decode_write"), ("int8", "paged_decode_write_int8")):
-        entries[name]["launches"] = fused[kv]["launches"].get(name, 0)
-    entries["paged_write_window"]["launches"] = served["launches"].get("paged_write_window", 0)
-    entries["paged_write_window_int8"]["launches"] = served_int8["launches"].get(
-        "paged_write_window_int8", 0)
+    say(f"phase 4 (fused): {time.perf_counter() - t0:.1f} s")
+    ckpt = phase_checkpoint(torch)
+    # launches on each path, counted from 0 just before it and read just
+    # after; the line's "launches" is this slice's path (the checkpoint
+    # server) where the kernel runs there, else phase 4's fused engines
+    ckpt_bf16, ckpt_int8 = (f"{CKPT_MODEL} checkpoint serve {kv} KV" for kv in ("bf16", "int8"))
+    fused_bf16, fused_int8 = (f"{MODEL} kv_write fused {kv} KV" for kv in ("bf16", "int8"))
+    paths = {f"{MODEL} serve bf16 KV": served["launches"],
+             f"{MODEL} serve int8 KV": served_int8["launches"],
+             fused_bf16: fused[None]["launches"], fused_int8: fused["int8"]["launches"],
+             ckpt_bf16: ckpt[None]["launches"], ckpt_int8: ckpt["int8"]["launches"]}
+    main_path = {"flash_prefill": ckpt_bf16, "paged_decode": ckpt_bf16,
+                 "paged_write_window": ckpt_bf16, "paged_decode_int8": ckpt_int8,
+                 "paged_write_window_int8": ckpt_int8, "paged_decode_write": fused_bf16,
+                 "paged_decode_write_int8": fused_int8}
+    for name, e in entries.items():
+        e["launches"] = paths[main_path[name]].get(name, 0)
+        e["launches_path"] = main_path[name]
+        e["launches_by_path"] = {p: c.get(name, 0) for p, c in paths.items() if c.get(name)}
     for e in entries.values():
         if not e["launches"]:
             fail(f"{e['name']} was never launched on its path")

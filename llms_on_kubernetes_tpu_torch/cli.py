@@ -1,12 +1,17 @@
 """Command-line entry point (counterpart of ``llms_on_kubernetes_tpu/cli.py``).
 
-    python -m llms_on_kubernetes_tpu_torch serve --model llama-3-8b --random-weights \\
+    python -m llms_on_kubernetes_tpu_torch serve --model MODEL [--random-weights] \\
         [--device cuda|cpu] [--port 8080] [--kv-cache-dtype int8] [--kv-write dus|fused] \\
         [--no-prefix-caching]
 
-The engine defaults are ``EngineConfig``'s. Checkpoint loading is not
-ported yet, so ``--random-weights`` is required: the model serves seeded
-random weights at its full width.
+``MODEL`` is a registry name (``configs.py``), a local checkpoint directory
+(``config.json`` and ``*.safetensors``: the model config comes from the
+registry for a registry name, else from that ``config.json``), or a
+HuggingFace repo id or registry name whose snapshot is in the local HF
+cache. Nothing is downloaded. Missing weights are a startup failure: the
+process exits 1 and names ``--random-weights``, which serves seeded random
+weights at the model's full width instead. The engine defaults are
+``EngineConfig``'s.
 """
 
 from __future__ import annotations
@@ -26,15 +31,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m llms_on_kubernetes_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("serve", help="run the OpenAI-compatible engine server")
-    p.add_argument("--model", required=True, help="registry name (configs.py)")
+    p.add_argument("--model", required=True,
+                   help="registry name, checkpoint directory, or HF id in the local cache")
     p.add_argument("--served-model-name", default=None)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--dtype", default=d.dtype)
     p.add_argument("--random-weights", action="store_true",
-                   help="serve seeded random weights (required until the "
-                        "checkpoint loader is ported)")
+                   help="serve seeded random weights instead of a checkpoint")
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--max-decode-slots", type=int, default=d.max_decode_slots)
     p.add_argument("--num-pages", type=int, default=d.num_pages)
@@ -56,12 +61,18 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "serve":
         from llms_on_kubernetes_tpu_torch.engine.engine import EngineConfig
+        from llms_on_kubernetes_tpu_torch.engine.weights import resolve_model_dir
         from llms_on_kubernetes_tpu_torch.server.openai_api import serve
 
+        model_dir = None
         if not args.random_weights:
-            print("error: checkpoint loading is not ported yet; pass --random-weights",
-                  file=sys.stderr)
-            return 1
+            try:
+                model_dir = resolve_model_dir(args.model)
+            except FileNotFoundError as e:
+                print(f"error: cannot obtain weights for {args.model!r}: {e}\n"
+                      f"(pass --random-weights to serve seeded random weights)",
+                      file=sys.stderr)
+                return 1
         cfg = EngineConfig(
             model=args.model, dtype=args.dtype, max_decode_slots=args.max_decode_slots,
             page_size=args.page_size, num_pages=args.num_pages,
@@ -70,6 +81,6 @@ def main(argv=None) -> int:
             kv_cache_dtype=args.kv_cache_dtype, prefix_caching=args.prefix_caching,
             seed=args.seed, device=args.device)
         serve(args.model, host=args.host, port=args.port, device=args.device,
-              random_weights=True, served_model_name=args.served_model_name,
-              engine_config=cfg)
+              random_weights=args.random_weights, served_model_name=args.served_model_name,
+              engine_config=cfg, model_dir=model_dir)
     return 0

@@ -109,6 +109,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// the least power of two >= n (n >= 1)
+__host__ __device__ constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
+
 // two floats as bf16x2, round to nearest even; lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -118,13 +121,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }  // namespace llmk
 
 // Expand the statement once per supported head_dim, with D bound as a
-// constant (the head dims kernels/__init__.py accepts: 8, 16, 32, 64, 128).
+// constant (the head dims kernels/__init__.py accepts: 8, 16, 32, 64, 96,
+// 128, 256; 96 is phi-3's, 256 gemma-2's).
 #define LLMK_DISPATCH_D(d, ...)                                 \
   switch (d) {                                                  \
     case 8: { constexpr int D = 8; __VA_ARGS__; break; }        \
     case 16: { constexpr int D = 16; __VA_ARGS__; break; }      \
     case 32: { constexpr int D = 32; __VA_ARGS__; break; }      \
     case 64: { constexpr int D = 64; __VA_ARGS__; break; }      \
+    case 96: { constexpr int D = 96; __VA_ARGS__; break; }      \
     case 128: { constexpr int D = 128; __VA_ARGS__; break; }    \
+    case 256: { constexpr int D = 256; __VA_ARGS__; break; }    \
     default: return (int)cudaErrorInvalidValue;                 \
   }

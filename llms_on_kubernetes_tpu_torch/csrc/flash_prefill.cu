@@ -30,8 +30,15 @@
 //   lie at or past lengths[b] write zeros without a key loop (those rows are
 //   padding: the decoder sends their K/V to the trash page and never reads
 //   their output). The longest query tiles of every head are dispatched first.
+//   Head dims 16 to 256 (96 is phi-3's: six 16-deep steps; 256 gemma-2's).
+//   Up to 128 a warp keeps Q's mma fragments in registers; at 256 they
+//   would take 64 registers beside the 128 output accumulators, so Q is
+//   re-read from shared memory at each K tile. At 256 the tiles take 165 KB
+//   of shared memory (one block an SM) and ptxas still spills 240 bytes
+//   (PERF.md kernel table).
 // - float32, and bf16 with head_dim 8: the f32 CUDA-core body of the first
-//   port (16 query rows a block, 4 warps, 32-key tiles, lane j scores key j).
+//   port (16 query rows a block, 4 warps, 32-key tiles, lane j scores key j),
+//   its tiles in dynamic shared memory (82 KB at head_dim 256).
 //   The float32 checks (1e-4 against the plain version, the debug-tiny
 //   reference on the card) need full f32 products, which TF32 tensor cores
 //   would not give; head_dim 8 is below one 16-deep mma step.
@@ -47,6 +54,14 @@ constexpr int kBQ = 16;       // query rows per block
 constexpr int kBK = 32;       // keys per tile: one per lane
 constexpr int kWarps = 4;
 constexpr int kRows = kBQ / kWarps;  // query rows per warp
+
+// shared bytes of the f32 body: Q [kBQ][D], K [kBK][D + 1], V [kBK][D] as
+// f32 (82 KB at D 256: past the 48 KB a static array may take, so the
+// body uses dynamic shared memory with the attribute set at launch)
+template <int D>
+constexpr size_t simt_smem() {
+  return sizeof(float) * ((size_t)kBQ * D + (size_t)kBK * (D + 1) + (size_t)kBK * D);
+}
 
 // zeros in rows [q0, q0 + rows) of a (batch row, head) slice: query rows at or
 // past the length, which are padding
@@ -65,9 +80,10 @@ flash_prefill_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __
                    const int* __restrict__ lengths, T* __restrict__ out, int T_len, int n_q,
                    int n_kv, float scale, int window, float cap) {
   constexpr int DPL = (D + 31) / 32;  // output columns per lane
-  __shared__ float sQ[kBQ][D];
-  __shared__ float sK[kBK][D + 1];
-  __shared__ float sV[kBK][D];
+  extern __shared__ __align__(16) unsigned char smem[];
+  float (*sQ)[D] = reinterpret_cast<float (*)[D]>(smem);
+  float (*sK)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem + sizeof(float) * kBQ * D);
+  float (*sV)[D] = reinterpret_cast<float (*)[D]>(smem + sizeof(float) * (kBQ * D + kBK * (D + 1)));
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -238,7 +254,11 @@ flash_prefill_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   // this warp's rows: row0 + g and row0 + g + 8 (fragment row g = lane / 4)
   const int row0 = q0 + warp * 16;
   const int g = lane >> 2, tq = lane & 3;
-  uint32_t qf[D / 16][4];           // Q as mma A fragments, one per 16-deep step
+  // Q as mma A fragments, one per 16-deep step, kept in registers up to
+  // head_dim 128; past it (256: 64 registers) they are re-read from sQ by
+  // ldmatrix at each K tile, which leaves room for the 128 accumulators
+  constexpr bool kQRegs = D <= 128;
+  uint32_t qf[kQRegs ? D / 16 : 1][4];
   float o[D / 8][4];                // O accumulators: D / 8 column tiles of 8
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
@@ -259,11 +279,12 @@ flash_prefill_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (j == 0) {
+    const __nv_bfloat16* q_row = sQ + (warp * 16 + (lane & 15)) * L::kStride + (lane >> 4) * 8;
+    if constexpr (kQRegs) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * L::kStride + kk * 16 +
-                                (lane >> 4) * 8);
+        for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qf[kk], q_row + kk * 16);
+      }
     }
     const __nv_bfloat16* tK = sK + (j & 1) * L::kTile;
     const __nv_bfloat16* tV = sV + (j & 1) * L::kTile;
@@ -275,13 +296,19 @@ flash_prefill_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       for (int n = 0; n < kTcKeys / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qa[4];
+        if constexpr (kQRegs) {
+          qa[0] = qf[kk][0], qa[1] = qf[kk][1], qa[2] = qf[kk][2], qa[3] = qf[kk][3];
+        } else {
+          ldmatrix_x4(qa, q_row + kk * 16);
+        }
 #pragma unroll
         for (int np = 0; np < kTcKeys / 16; ++np) {
           uint32_t kb[4];
           ldmatrix_x4(kb, tK + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * L::kStride +
                               kk * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+          mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
         }
       }
       // scale, softcap, then the masks; only tiles that cut a mask test each key
@@ -350,8 +377,8 @@ flash_prefill_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
 
-  // normalise, stage this warp's 16 rows in its part of sQ (read only at
-  // j == 0), then store 16-byte vectors
+  // normalise, stage this warp's 16 rows in its part of sQ (which no other
+  // warp reads, and this one no longer), then store 16-byte vectors
   float inv[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -381,8 +408,16 @@ template <typename T, int D>
 int launch_simt(const void* q, const void* k, const void* v, const void* lengths, void* out,
                 int B, int T_len, int n_q, int n_kv, float scale, int window, float cap,
                 cudaStream_t stream) {
+  constexpr size_t smem = simt_smem<D>();
+  static bool smem_set = false;  // per instantiation; one card per process
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_prefill_simt<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
   const dim3 grid((T_len + kBQ - 1) / kBQ, n_q, B);
-  flash_prefill_simt<T, D><<<grid, kWarps * 32, 0, stream>>>(
+  flash_prefill_simt<T, D><<<grid, kWarps * 32, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int*)lengths, (T*)out, T_len, n_q, n_kv,
       scale, window, cap);
   return (int)cudaGetLastError();

@@ -35,8 +35,11 @@
 //   for an int8 row of 8; int8 scales 4-byte) are issued before tile i is
 //   scored.
 //   Rows are stored in the pool's own type, 16-byte chunks XOR-swizzled by
-//   row so that both ldmatrix and lane-per-row reads are conflict-free.
-//   Keys outside the split's range are zero-filled and masked.
+//   row so that both ldmatrix and lane-per-row reads are conflict-free
+//   (a permutation within the row at any chunk count: a bf16 row of
+//   head_dim 96 has 12). Keys outside the split's range are zero-filled
+//   and masked. A float32 pool at head_dim 256 (64 KB a warp's two stages)
+//   keeps one stage: the next tile is issued after this one is read.
 // - bf16 q (head_dim >= 16): the scores and p.v are mma.sync.m16n8k16 (bf16
 //   in, f32 accumulate) with the group's query rows padded to 16; q's
 //   fragments come straight from global memory into registers. An int8
@@ -95,26 +98,39 @@ struct Layout {
   static constexpr int kStageBytes = 2 * kTileBytes + (kQuant ? 2 * kTile * 4 : 0);
   // int8 under mma: the warp's tile widened to bf16, K then V
   static constexpr int kWideBytes = kQuant && kMma ? 2 * kTile * D * 2 : 0;
-  static constexpr int kWarpBytes = 2 * kStageBytes + kWideBytes;
   // int8 WRITE: the quantized current K and V rows and their two scales
   static constexpr int kNewBytes = kQuant ? 2 * kRowBytes + 16 : 0;
   // f32 query rows for the CUDA-core scores
   static constexpr int kQBytes = kMma ? 0 : (int)sizeof(float) * kMaxGroup * D;
   // after the key loop: the warps' (max, sum, accumulator) per query row
   static constexpr int kMergeBytes = (int)sizeof(float) * kWarps * kMaxGroup * (D + 2);
+  // two ring stages a warp, so tile i + 1 loads while tile i is scored;
+  // one where two would pass the 227 KB a block may hold (f32 at head_dim
+  // 256: 64 KB a warp), and the next tile then loads after this one
+  static constexpr int kStages =
+      kNewBytes + kQBytes + kWarps * (2 * kStageBytes + kWideBytes) <= 232448 ? 2 : 1;
+  static constexpr int kWarpBytes = kStages * kStageBytes + kWideBytes;
   static constexpr int kLoopBytes =
       kWarps * kWarpBytes > kMergeBytes ? kWarps * kWarpBytes : kMergeBytes;
   static constexpr size_t kSmem = (size_t)kNewBytes + kQBytes + kLoopBytes;
+  static_assert(kSmem <= 232448, "a block holds at most 227 KB of shared memory");
 };
 
 // position of 16-byte (or 8-byte) chunk c of row r of a tile: XOR-swizzled so
-// that 8 consecutive rows' chunk c lie in 8 distinct 16-byte bank groups
+// that 8 consecutive rows' chunk c lie in 8 distinct 16-byte bank groups.
+// A permutation of [0, CHUNKS) for any CHUNKS: a row of 12 chunks (bf16 at
+// head_dim 96) swizzles chunks 0-7 as a row of 8 and 8-11 as a row of 4,
+// one of 6 (int8 at 96) as 4 then 2, so no chunk leaves its row.
 template <int CHUNKS>
 __device__ __forceinline__ int swz(int r, int c) {
-  if constexpr (CHUNKS >= 8)
+  if constexpr (CHUNKS % 8 == 0) {
     return c ^ (r & 7);
-  else
+  } else if constexpr ((CHUNKS & (CHUNKS - 1)) == 0) {
     return c ^ ((r / (8 / CHUNKS)) & (CHUNKS - 1));
+  } else {
+    constexpr int HEAD = CHUNKS > 8 ? CHUNKS / 8 * 8 : (CHUNKS > 4 ? 4 : 2);
+    return c < HEAD ? swz<HEAD>(r, c) : HEAD + swz<CHUNKS - HEAD>(r, c - HEAD);
+  }
 }
 
 // element i of row r of a tile of KV rows (CUDA-core path)
@@ -233,13 +249,13 @@ paged_decode_kernel(const T* __restrict__ q, KV* __restrict__ k_pool,
   const int t_first = (lo - base) / kTile, t_last = (hi - 1 - base) / kTile;
   const int my_first = t_first + (warp - t_first % kWarps + kWarps) % kWarps;
   const int n_mine = my_first <= t_last ? (t_last - my_first) / kWarps + 1 : 0;
-  unsigned char* ring = sLoop + warp * L::kWarpBytes;  // [2] stages
-  unsigned char* wide = ring + 2 * L::kStageBytes;      // int8 under mma: [2][kTile][D] bf16
+  unsigned char* ring = sLoop + warp * L::kWarpBytes;        // [kStages] stages
+  unsigned char* wide = ring + L::kStages * L::kStageBytes;  // int8 under mma: [2][kTile][D] bf16
 
-  // tile i of this warp into stage i & 1: lanes j and j + 16 look up key j's
-  // row; the warp copies the 16 K and 16 V rows (and int8 scales)
+  // tile i of this warp into stage i % kStages: lanes j and j + 16 look up
+  // key j's row; the warp copies the 16 K and 16 V rows (and int8 scales)
   auto issue = [&](int i) {
-    unsigned char* st = ring + (i & 1) * L::kStageBytes;
+    unsigned char* st = ring + (i % L::kStages) * L::kStageBytes;
     const int key = base + (my_first + i * kWarps) * kTile + (lane & 15);
     const bool in = key >= lo && key < hi;
     size_t r = 0;
@@ -314,14 +330,14 @@ paged_decode_kernel(const T* __restrict__ q, KV* __restrict__ k_pool,
 
   if (n_mine > 0) issue(0);
   for (int i = 0; i < n_mine; ++i) {
-    if (i + 1 < n_mine) {
+    if (L::kStages == 2 && i + 1 < n_mine) {
       issue(i + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncwarp();
-    unsigned char* st = ring + (i & 1) * L::kStageBytes;
+    unsigned char* st = ring + (i % L::kStages) * L::kStageBytes;
     const int t0 = base + (my_first + i * kWarps) * kTile;
     const float* ksc = reinterpret_cast<const float*>(st + 2 * L::kTileBytes);
     const float* vsc = ksc + kTile;
@@ -469,6 +485,7 @@ paged_decode_kernel(const T* __restrict__ q, KV* __restrict__ k_pool,
       }
     }
     __syncwarp();  // the stage is read before issue() refills it
+    if (L::kStages == 1 && i + 1 < n_mine) issue(i + 1);
   }
 
   // merge the warps' softmax states into this split's (max, sum, accumulator)

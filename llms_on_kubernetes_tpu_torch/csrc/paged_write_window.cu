@@ -28,14 +28,17 @@
 // of the 8-row block the token lands in, because Mosaic's DMA copies whole
 // (8, d) tiles. Here one block takes one (span, KV head, slot): a span is
 // the run of window rows that land on one pool page, at most kSpanRows
-// (R = 16) of them -- a page of more than R rows (a multiple of R) takes
-// several spans. Positions are cut into aligned pieces of rp = min(page,
-// R) rows; span s of slot b is piece floor(base / rp) + s, clipped to the
-// rows t < min(widths[b], W) and to positions in [0, pps * page), so its
-// rows are ONE contiguous run of the pool and a slot has at most
-// ceil((W - 1) / rp) + 1 spans: the grid is fixed on the host from W and
-// the page alone, with no sync. ops/paged_write._window_spans is these
-// formulas in plain Python, and the CPU tests hold them. The chain is two
+// (R = 16) of them -- a page of more than R rows takes several spans, any
+// page size. Each page is cut into pieces by in-page offset, rows
+// [16 j, min(16 j + 16, page)); span s of slot b is the piece of
+// position base[b], plus s, clipped to the rows t < min(widths[b], W) and
+// to positions in [0, pps * page), so its rows are ONE contiguous run of
+// the pool, and a slot has at most window_span_count(W, page) spans: the
+// grid is fixed on the host from W and the page alone, with no sync. (At
+// a page of at most 16 rows or a multiple of 16 the pieces are the aligned
+// runs of min(page, 16) positions this kernel used before it took any
+// page.) ops/paged_write._window_spans is these formulas in plain Python,
+// and the CPU tests hold them. The chain is two
 // round trips to device memory: thread 0 reads base[b] and widths[b] and
 // publishes the span in shared memory (a block whose span holds no
 // written row returns at once); then every thread loads its 16-byte
@@ -45,9 +48,10 @@
 //   float pool: 128 threads move the span's vectors (two each at bf16
 //     d 128), loads before stores; the destination run is contiguous, so
 //     the stores coalesce.
-//   int8 pool: a row is spread over the L = d * elt / 16 lanes of an
-//     aligned group of a warp (16 at bf16 d 128), each quantizing its
-//     vector in registers with quantize.cuh's quantize_vec (the chain of
+//   int8 pool: a row is spread over an aligned group of a warp, 16-byte
+//     vectors a lane (16 lanes at bf16 d 128; at d 96 its 12 vectors take
+//     16 lanes, 4 idle; f32 at d 256 is 32 lanes of 2 vectors), each lane
+//     quantizing its vectors in registers with quantize.cuh's quantize_vec (the chain of
 //     quantize_row, which the fused decode append uses, so both store the
 //     same bytes; amax by shuffles within the group) and storing its int8
 //     values directly; the group's first lane stores the row's scale.
@@ -75,12 +79,35 @@ struct Span {
   int t0, r, pos0;
 };
 
+__device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
+  return a >= 0 ? a / b : -((b - 1 - a) / b);
+}
+
+// Positions are cut into pieces by their offset IN THE PAGE: piece j of
+// page p is rows [16 j, min(16 j + 16, page)) of it, ceil(page / 16) pieces
+// a page, numbered page by page. Span s of a slot is piece
+// piece(base) + s clipped to the window, so it never crosses a page, at
+// any page size. At a page of at most 16 rows or a multiple of 16 the
+// pieces are the aligned runs of rp = min(page, 16) positions, and the
+// span is found with one division instead of two: thread 0 computes it
+// while every other thread of the block waits, and the second division
+// cost kernel 7 0.8 us at four slots on the H100 (PERF.md, kernel table).
 __device__ __forceinline__ Span window_span(int base, int width, int W, int s, int page,
                                             int pps) {
-  const int rp = min(page, kSpanRows);
-  const int k = (base >= 0 ? base / rp : -((rp - 1 - base) / rp)) + s;  // floor(base / rp) + s
-  const int lo = max(max(base, k * rp), 0);
-  const int hi = min(min(base + min(width, W), (k + 1) * rp), pps * page);
+  const int end = base + min(width, W);
+  if (page <= kSpanRows || page % kSpanRows == 0) {
+    const int rp = min(page, kSpanRows);
+    const int k = floor_div(base, rp) + s;
+    const int lo = max(max(base, k * rp), 0);
+    const int hi = min(min(end, (k + 1) * rp), pps * page);
+    return {lo - base, hi - lo, lo};
+  }
+  const int per = (page + kSpanRows - 1) / kSpanRows;  // pieces a page
+  const int pg0 = floor_div(base, page);
+  const int k = pg0 * per + (base - pg0 * page) / kSpanRows + s;
+  const int pg = floor_div(k, per), j = k - pg * per;
+  const int lo = max(max(base, pg * page + j * kSpanRows), 0);
+  const int hi = min(min(end, pg * page + min((j + 1) * kSpanRows, page)), pps * page);
   return {lo - base, hi - lo, lo};
 }
 
@@ -158,23 +185,25 @@ write_window_kernel(KV* __restrict__ k_pool, KV* __restrict__ v_pool,
   }
 }
 
-// a 16-byte vector of source row elements, widened to f32
-__device__ __forceinline__ void widen(const uint4& v, float (&x)[4]) {
-  x[0] = __uint_as_float(v.x), x[1] = __uint_as_float(v.y);
-  x[2] = __uint_as_float(v.z), x[3] = __uint_as_float(v.w);
-}
-__device__ __forceinline__ void widen(const uint4& v, float (&x)[8]) {
+// a 16-byte vector of source row elements (T = float: 4, bf16: 8), widened
+// to f32 into x[0 .. 16 / sizeof(T))
+template <typename T>
+__device__ __forceinline__ void widen(const uint4& v, float* x) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    x[2 * c] = __uint_as_float(w[c] << 16);  // bf16 -> f32 is exact
-    x[2 * c + 1] = __uint_as_float(w[c] & 0xffff0000u);
+    if constexpr (sizeof(T) == 4) {
+      x[c] = __uint_as_float(w[c]);
+    } else {
+      x[2 * c] = __uint_as_float(w[c] << 16);  // bf16 -> f32 is exact
+      x[2 * c + 1] = __uint_as_float(w[c] & 0xffff0000u);
+    }
   }
 }
 
-// V int8 values as one 4- or 8-byte store
+// V int8 values q[0 .. V) as one 4- or 8-byte store
 template <int V>
-__device__ __forceinline__ void store_int8(int8_t* p, const int8_t (&q)[V]) {
+__device__ __forceinline__ void store_int8(int8_t* p, const int8_t* q) {
   uint32_t w[V / 4];
 #pragma unroll
   for (int c = 0; c < V / 4; ++c)
@@ -186,46 +215,85 @@ __device__ __forceinline__ void store_int8(int8_t* p, const int8_t (&q)[V]) {
     *reinterpret_cast<uint32_t*>(p) = w[0];
 }
 
-// int8 pool (k_new/v_new in T = float or bf16): row i of the span is
-// spread over L = row_vecs lanes (an aligned group of a warp), lane c
-// holding its vector c: elements [c * V, c * V + V).
+// How an int8-pool block spreads a source row of D elements of T over
+// lanes: kVecs 16-byte vectors a row go to an aligned group of kLanes lanes
+// (a power of two, at most a warp, so quantize_vec's butterfly closes), a
+// lane holding vectors c, c + kLanes, ... (kPer of them). bf16 at head_dim
+// 96 has 12 vectors: a group of 16 lanes, 4 of them padding, which load
+// nothing, feed amax with zeros and store nothing; f32 at 256 has 64: 32
+// lanes of 2.
 template <typename T, int D>
-__global__ void __launch_bounds__((kSpanRows * row_vecs<T, D>()))
+struct RowLanes {
+  static constexpr int kVecs = row_vecs<T, D>();
+  static constexpr int kLanes = kVecs >= 32 ? 32 : pow2_ceil(kVecs);
+  static constexpr int kPer = (kVecs + kLanes - 1) / kLanes;
+  static constexpr int kThreads = kSpanRows * kLanes;
+};
+
+// int8 pool (k_new/v_new in T = float or bf16): row i of the span is
+// spread over a group of RowLanes::kLanes lanes, lane c holding vectors
+// c + p * kLanes (elements [v * V, v * V + V) of vector v).
+template <typename T, int D>
+__global__ void __launch_bounds__(RowLanes<T, D>::kThreads)
 write_window_int8_kernel(int8_t* __restrict__ k_pool, float* __restrict__ k_scale,
                          int8_t* __restrict__ v_pool, float* __restrict__ v_scale,
                          const int* __restrict__ page_table, const int* __restrict__ base,
                          const int* __restrict__ widths, const T* __restrict__ k_new,
                          const T* __restrict__ v_new, int W, int n_kv, int pool_pages, int page,
                          int pps) {
-  constexpr int L = row_vecs<T, D>();  // lanes a row: a power of two, 1-32
-  constexpr int V = 16 / sizeof(T);    // elements a lane
+  using RL = RowLanes<T, D>;
+  constexpr int L = RL::kLanes, P = RL::kPer;
+  constexpr int V = 16 / sizeof(T);    // elements a vector
   __shared__ int sh[4];
   const int i = threadIdx.x / L, c = threadIdx.x % L;
   const Span sp = block_span(base, widths, W, page, pps, sh);
   if (sp.r <= 0) return;
-  uint4 raw[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
-  if (i < sp.r) {
-    raw[0] = source_row<T, D>(k_new, W, n_kv, sp, i)[c];
-    raw[1] = source_row<T, D>(v_new, W, n_kv, sp, i)[c];
+  uint4 raw[2][P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int v = c + p * L;
+    const bool in = i < sp.r && v < RL::kVecs;
+    raw[0][p] = in ? source_row<T, D>(k_new, W, n_kv, sp, i)[v] : make_uint4(0, 0, 0, 0);
+    raw[1][p] = in ? source_row<T, D>(v_new, W, n_kv, sp, i)[v] : make_uint4(0, 0, 0, 0);
   }
   const long long dst = block_pool_row(page_table, pps, pool_pages, page, sp, sh) + i;
 #pragma unroll
   for (int side = 0; side < 2; ++side) {  // every lane quantizes: the shuffles stay full
-    float x[V];
-    widen(raw[side], x);
-    int8_t q[V];
-    const float s = quantize_vec<L, V>(x, q);
+    float x[P * V];
+#pragma unroll
+    for (int p = 0; p < P; ++p) widen<T>(raw[side][p], x + p * V);
+    int8_t q[P * V];
+    const float s = quantize_vec<L, P * V>(x, q);
     if (i < sp.r) {
-      store_int8<V>((side ? v_pool : k_pool) + dst * D + c * V, q);
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        if (c + p * L < RL::kVecs)
+          store_int8<V>((side ? v_pool : k_pool) + dst * D + (c + p * L) * V, q + p * V);
       if (c == 0) (side ? v_scale : k_scale)[dst] = s;
     }
   }
 }
 
+// The most pieces (window_span) W consecutive positions can touch, fixed
+// by W and the page alone: W - 1 = q * page + r positions past the first
+// cross q whole pages (q * per piece starts) and r more rows, which hold
+// the most starts when they begin at the start of a page's last piece, of
+// rem = page - 16 (per - 1) rows: one start there, then one each 16 rows
+// past it. Tight (some base reaches it); at a page of at most 16 rows or a
+// multiple of 16 it is ceil((W - 1) / min(page, 16)) + 1.
+// ops/paged_write.window_span_count is the same formula.
+inline int window_span_count(int W, int page) {
+  const int per = (page + kSpanRows - 1) / kSpanRows;
+  const int rem = page - (per - 1) * kSpanRows;
+  const int q = (W - 1) / page, r = (W - 1) % page;
+  int n = 1 + q * per;
+  if (r > 0) n += 1 + (r - 1 >= rem ? 1 + (r - 1 - rem) / kSpanRows : 0);
+  return n;
+}
+
 // the grid: (spans a slot, KV heads, slots)
 inline dim3 span_grid(int B, int W, int n_kv, int page) {
-  const int rp = page < kSpanRows ? page : kSpanRows;
-  return dim3((W + rp - 2) / rp + 1, n_kv, B);
+  return dim3(window_span_count(W, page), n_kv, B);
 }
 
 template <typename KV>
@@ -246,7 +314,7 @@ int launch_int8(void* k_pool, void* k_scale, void* v_pool, void* v_scale, const 
                 int W, int n_kv, int pool_pages, int page, int pps, int d, cudaStream_t stream) {
   LLMK_DISPATCH_D(d, {
     write_window_int8_kernel<T, D><<<span_grid(B, W, n_kv, page),
-                                     kSpanRows * row_vecs<T, D>(), 0, stream>>>(
+                                     RowLanes<T, D>::kThreads, 0, stream>>>(
         (int8_t*)k_pool, (float*)k_scale, (int8_t*)v_pool, (float*)v_scale, page_table, base,
         widths, (const T*)k_new, (const T*)v_new, W, n_kv, pool_pages, page, pps);
   });
@@ -261,8 +329,8 @@ int launch_int8(void* k_pool, void* k_scale, void* v_pool, void* v_scale, const 
 // page ids); base/widths [B] int32; k_new/v_new [B, W, n_kv, d] in
 // new_dtype: the pool's own for a float pool, LLMK_F32 or LLMK_BF16 for an
 // int8 pool. All contiguous, pools and rows 16-byte aligned, k_new and the
-// page table under 2^31 elements, B <= 65535, and page <= 16 or a multiple
-// of 16. B * W > 0. Returns cudaGetLastError() after the launch.
+// page table under 2^31 elements, B <= 65535, any page size. B * W > 0.
+// Returns cudaGetLastError() after the launch.
 extern "C" int llmk_paged_write_window(void* k_pool, void* k_scale, void* v_pool, void* v_scale,
                                        const void* page_table, const void* base,
                                        const void* widths, const void* k_new, const void* v_new,
@@ -272,8 +340,7 @@ extern "C" int llmk_paged_write_window(void* k_pool, void* k_scale, void* v_pool
   const int* pt = (const int*)page_table;
   const int* bs = (const int*)base;
   const int* ws = (const int*)widths;
-  if (B <= 0 || B > 65535 || W <= 0 || n_kv <= 0 || n_kv > 65535 || page <= 0 || pps <= 0 ||
-      (page > kSpanRows && page % kSpanRows))
+  if (B <= 0 || B > 65535 || W <= 0 || n_kv <= 0 || n_kv > 65535 || page <= 0 || pps <= 0)
     return (int)cudaErrorInvalidValue;
   if (pool_dtype == LLMK_I8) {
     if (new_dtype == LLMK_F32)

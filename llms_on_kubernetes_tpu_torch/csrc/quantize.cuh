@@ -1,7 +1,7 @@
 // Per-token symmetric int8 quantization of one KV row, shared by the
 // kernels that store into an int8 pool: quantize_row (a warp a row) for
-// the fused decode append (paged_decode.cuh, kernel 5), quantize_vec (16
-// bytes a lane) for the windowed append (paged_write_window.cu, kernel 7).
+// the fused decode append (paged_decode.cuh, kernel 5), quantize_vec
+// (16-byte vectors a lane) for the windowed append (paged_write_window.cu, kernel 7).
 // Both run the same chain element for element, so both kernels store the
 // same bytes.
 //
@@ -41,11 +41,13 @@ __device__ __forceinline__ float quantize_row(const T* __restrict__ src, int lan
 }
 
 // The same chain for a row spread over an aligned group of L lanes (L a
-// power of two), each holding V consecutive elements (one 16-byte vector
-// of the source row) in x. Every lane of the warp calls it; q gets this
-// lane's V values and every lane of the group the row's scale.
+// power of two, at most 32), each holding V of its elements in x (one or
+// more 16-byte vectors of the source row; a lane past the row's end holds
+// zeros, which leave amax as it is). Every lane of the warp calls it; q
+// gets this lane's V values and every lane of the group the row's scale.
 template <int L, int V>
 __device__ __forceinline__ float quantize_vec(const float (&x)[V], int8_t (&q)[V]) {
+  static_assert(L >= 1 && L <= 32 && (L & (L - 1)) == 0, "a power-of-two group of a warp");
   float amax = 0.f;
 #pragma unroll
   for (int c = 0; c < V; ++c) amax = fmaxf(amax, fabsf(x[c]));

@@ -6,6 +6,11 @@ field names and defaults for the fields it keeps, plus ``device``),
 ``SamplingParams``, ``Request``, ``StepEvent`` and
 ``Engine.submit/step/abort/has_work/generate``.
 
+The weights come from ``params``, else from a checkpoint directory
+(``model_dir``: ``engine/weights.load_hf_params``, the model config from
+the registry or, for a name the registry lacks, from the directory's
+``config.json``), else they are drawn at random from the engine seed.
+
 One scheduler iteration (``step``):
 
 1. reap aborted requests;
@@ -51,7 +56,9 @@ import numpy as np
 import torch
 
 from llms_on_kubernetes_tpu_torch import resolve_device
-from llms_on_kubernetes_tpu_torch.configs import ModelConfig, get_config
+from llms_on_kubernetes_tpu_torch.configs import (
+    ALIASES, REGISTRY, ModelConfig, from_hf_config, get_config,
+)
 from llms_on_kubernetes_tpu_torch.engine.cache import (
     CacheConfig, PageAllocator, init_pages,
 )
@@ -167,18 +174,36 @@ class StepEvent:
     finish_reason: Optional[str]
 
 
+def model_config_for(model: str, model_dir: Optional[str] = None) -> ModelConfig:
+    """The model's config: the registry's entry for a registry name or HF
+    alias, else (a checkpoint directory) ``from_hf_config`` of its
+    config.json, named ``model``, as the JAX ``cli serve`` resolves it."""
+    if model in REGISTRY or model.lower() in ALIASES or model_dir is None:
+        return get_config(model)
+    return from_hf_config(os.path.join(model_dir, "config.json"), name=model)
+
+
 class Engine:
     """Multi-request continuous-batching engine for one model on one device."""
 
     def __init__(self, engine_config: EngineConfig,
                  model_config: Optional[ModelConfig] = None,
-                 params: Optional[Params] = None):
+                 params: Optional[Params] = None,
+                 model_dir: Optional[str] = None):
         self.config = engine_config
         self.device = resolve_device(engine_config.device)
-        self.model_config = model_config or get_config(engine_config.model)
+        self.model_config = model_config or model_config_for(engine_config.model, model_dir)
         cfg = self.model_config
-        self.params = params if params is not None else init_params(
-            cfg, seed=engine_config.seed, dtype=engine_config.dtype, device=self.device)
+        if params is not None:
+            self.params = params
+        elif model_dir is not None:
+            from llms_on_kubernetes_tpu_torch.engine.weights import load_hf_params
+
+            self.params = load_hf_params(cfg, model_dir, device=self.device,
+                                         dtype=engine_config.dtype)
+        else:   # random weights (tests, smoke runs)
+            self.params = init_params(cfg, seed=engine_config.seed,
+                                      dtype=engine_config.dtype, device=self.device)
         self.cache_config = CacheConfig(
             num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, num_pages=engine_config.num_pages,

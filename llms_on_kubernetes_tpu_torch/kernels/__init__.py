@@ -42,8 +42,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # pool storage codes: the float codes plus int8 (LLMK_I8)
 POOL_CODES = {**DTYPE_CODES, torch.int8: 2}
-# head dims the kernels are instantiated for (LLMK_DISPATCH_D)
-HEAD_DIMS = (8, 16, 32, 64, 128)
+# head dims the kernels are instantiated for (LLMK_DISPATCH_D): 96 is
+# phi-3's, 256 gemma-2's
+HEAD_DIMS = (8, 16, 32, 64, 96, 128, 256)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -12,7 +12,9 @@ are don't-care and differ from the plain version's.
 
 The kernel has two bodies: bfloat16 with head_dim >= 16 runs on the tensor
 cores (mma.sync, P rounded to bf16 for the P.V product); float32, and
-bfloat16 with head_dim 8, run the f32 CUDA-core body.
+bfloat16 with head_dim 8, run the f32 CUDA-core body. It is built for the
+head dims of ``kernels.HEAD_DIMS`` (8 to 256, 96 among them); a CUDA
+tensor of another head_dim raises.
 """
 
 from __future__ import annotations

@@ -14,7 +14,10 @@ version.
   head) quantized as ``engine/cache.quantize_kv`` quantizes it (data and
   per-token f32 scale).
 
-The kernels write those rows and no other pool byte. The plain versions are
+The kernels take any page size: each block writes one span, the rows of
+the window that land in one run of at most ``SPAN_ROWS`` rows of one page,
+the runs cut by in-page offset (``_window_spans``). They write those rows
+and no other pool byte. The plain versions are
 one indexed store a side (and a scale store for int8): the rows that must
 not be written (past the width, or outside the page table) are redirected
 to row 0 of trash page 0, so the store needs no host sync and leaves the
@@ -36,26 +39,53 @@ KERNEL_INT8 = "paged_write_window_int8"
 SPAN_ROWS = 16
 
 
+def window_span_count(W: int, page: int, R: int = SPAN_ROWS) -> int:
+    """The spans a slot the kernels' grid holds (``window_span_count`` in
+    the source): the most pieces W consecutive positions can touch, where
+    each page is cut into pieces of R rows by in-page offset (the last
+    piece of a page holds the ``page % R`` rest, or R). ``W - 1 = q * page
+    + r`` positions past the first cross q whole pages and r more rows,
+    which hold the most piece starts when they begin at a page's last
+    piece. Tight: some base reaches it."""
+    per = -(-page // R)
+    rem = page - (per - 1) * R
+    q, r = divmod(W - 1, page)
+    n = 1 + q * per
+    if r > 0:
+        n += 1 + (1 + (r - 1 - rem) // R if r - 1 >= rem else 0)
+    return n
+
+
 def _window_spans(base, widths, W: int, page: int, pps: int,
                   R: int = SPAN_ROWS) -> list[tuple[int, int, int, int, int]]:
     """The kernels' span decomposition, in plain Python (the same formulas
     as ``window_span`` in ``csrc/paged_write_window.cu``): one entry
     ``(slot, span, first row t0, rows r, page slot)`` for each of the
-    grid's ``ceil((W - 1) / rp) + 1`` spans a slot, rp = min(page, R).
-    Span s of slot b is the aligned piece ``floor(base / rp) + s`` of rp
-    positions, clipped to rows ``t < min(widths[b], W)`` and positions in
-    ``[0, pps * page)``; ``r <= 0`` means the span writes nothing (its
-    block returns at once). A written span's rows lie on page slot
-    ``page slot`` of the table, at rows ``pos % page`` onwards."""
-    rp = min(page, R)
-    n_spans = (W + rp - 2) // rp + 1
+    grid's ``window_span_count(W, page)`` spans a slot. Each page is cut
+    into pieces by in-page offset, rows ``[R j, min(R j + R, page))``,
+    numbered page by page; span s of slot b is the piece of position
+    ``base[b]``, plus s, clipped to rows ``t < min(widths[b], W)`` and
+    positions in ``[0, pps * page)``; ``r <= 0`` means the span writes
+    nothing (its block returns at once). A written span's rows lie on page
+    slot ``page slot`` of the table, at rows ``pos % page`` onwards. At a
+    page of at most R rows or a multiple of R the pieces are the aligned
+    runs of ``min(page, R)`` positions, found as the source finds them."""
+    per = -(-page // R)
+    n_spans = window_span_count(W, page, R)
     out = []
     for b, (b0, w) in enumerate(zip(base, widths)):
         b0, w = int(b0), int(w)
+        pg0 = b0 // page
         for s in range(n_spans):
-            k = b0 // rp + s
-            lo = max(b0, k * rp, 0)
-            hi = min(b0 + min(w, W), (k + 1) * rp, pps * page)
+            if page <= R or page % R == 0:
+                rp = min(page, R)
+                k = b0 // rp + s
+                start, stop = k * rp, (k + 1) * rp
+            else:
+                pg, j = divmod(pg0 * per + (b0 - pg0 * page) // R + s, per)
+                start, stop = pg * page + j * R, pg * page + min((j + 1) * R, page)
+            lo = max(b0, start, 0)
+            hi = min(b0 + min(w, W), stop, pps * page)
             out.append((b, s, lo - b0, hi - lo, lo // page))
     return out
 
@@ -138,9 +168,6 @@ def _launch(name: str, k_pool, v_pool, page_table, base, widths, k_new, v_new,
     if page_table.shape[0] != B:
         raise ValueError("page_table needs one row per slot")
     # what the grid and the kernels' 32-bit index math take
-    if page > SPAN_ROWS and page % SPAN_ROWS:
-        raise ValueError(f"window write kernel takes a page of at most {SPAN_ROWS} rows or a "
-                         f"multiple of {SPAN_ROWS}, got {page}")
     if B > 65535:
         raise ValueError(f"window write kernel takes at most 65535 slots, got {B}")
     for nm, t in (("k_new", k_new), ("page_table", page_table)):

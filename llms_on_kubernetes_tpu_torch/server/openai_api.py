@@ -23,7 +23,9 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import queue
+import sys
 import threading
 import time
 import traceback
@@ -31,11 +33,14 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+import torch
+
 from llms_on_kubernetes_tpu_torch import kernels, resolve_device
 from llms_on_kubernetes_tpu_torch.engine.engine import (
-    Engine, EngineConfig, QueueFullError, SamplingParams,
+    Engine, EngineConfig, QueueFullError, SamplingParams, model_config_for,
 )
 from llms_on_kubernetes_tpu_torch.engine.tokenizer import load_tokenizer
+from llms_on_kubernetes_tpu_torch.engine.weights import resolve_model_dir
 
 log = logging.getLogger(__name__)
 
@@ -367,17 +372,33 @@ class _Handler(BaseHTTPRequestHandler):
 def serve(model: str = "debug-tiny", *, host: str = "0.0.0.0", port: int = 8080,
           device: str = "cuda", random_weights: bool = False,
           served_model_name: Optional[str] = None,
-          engine_config: Optional[EngineConfig] = None) -> None:
-    """Build the engine and serve until interrupted. ``device`` "cuda" (the
-    default) raises without a GPU; the CUDA kernels are built before the
-    server binds, so ``/health`` answers only once they are loadable."""
+          engine_config: Optional[EngineConfig] = None,
+          model_dir: Optional[str] = None) -> None:
+    """Build the engine and serve until interrupted. ``model`` is a
+    registry name, a checkpoint directory or a HF id found in the local
+    cache; the weights come from ``model_dir`` (default: ``model``
+    resolved by ``engine/weights.resolve_model_dir``, which raises
+    FileNotFoundError on a miss), or are seeded random with
+    ``random_weights``. ``device`` "cuda" (the default) raises without a
+    GPU. The tokenizer is read first, then the CUDA kernels are built and
+    the weights loaded onto the device, all before the server binds, so
+    ``/health`` answers only once the model can serve."""
     dev = resolve_device(device)
-    if not random_weights:
-        raise ValueError("checkpoint loading is not ported yet; pass --random-weights")
+    if not random_weights and model_dir is None:
+        model_dir = resolve_model_dir(model)
+    config_dir = model_dir or (model if os.path.isdir(model) else None)
     cfg = engine_config or EngineConfig(model=model)
     cfg.model, cfg.device = model, dev.type
+    model_config = model_config_for(model, config_dir)
+    tokenizer = load_tokenizer(config_dir or model)
     if dev.type == "cuda":
         kernels.build()
-    engine = Engine(cfg)
-    tokenizer = load_tokenizer(model)
+    t0 = time.perf_counter()
+    engine = Engine(cfg, model_config=model_config,
+                    model_dir=None if random_weights else model_dir)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    source = "seeded random weights" if random_weights else f"weights from {model_dir}"
+    print(f"[serve] {model_config.name}: {source} on {dev.type} in "
+          f"{time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
     OpenAIServer(engine, tokenizer, served_model_name or model).serve_forever(host, port)

@@ -125,7 +125,15 @@ WINDOW_CASES = {
                         widths=[4, 3, 4, 2, 0]),
     "d128_page16": dict(n_kv=2, d=128, page=16, pps=4, W=20, base=[0, 16, 5, 40],
                         widths=[20, 16, 1, 0]),
+    # a page of 24 rows: windows that start mid-page, on a boundary and in a
+    # page's last 8 rows, and cross pages
+    "page24": dict(n_kv=2, d=8, page=24, pps=3, W=32, base=[5, 24, 17, 0],
+                   widths=[32, 20, 31, 0]),
 }
+# a page of 100 rows, past the Pallas kernels' domain (their 8-row blocks
+# need a page that is a multiple of 8): held to the eager JAX splice only
+PAGE100 = {"page100": dict(n_kv=2, d=8, page=100, pps=3, W=150, base=[95, 0, 190, 40],
+                           widths=[150, 100, 10, 0])}
 
 
 def _window_setup(rng, n_kv, d, page, pps, W, base, widths):
@@ -185,11 +193,11 @@ def _int8_pools(rng, n_kv, P, page, d):
             (rng.random(size=(n_kv, P, page)) + 0.1).astype(np.float32)]
 
 
-@pytest.mark.parametrize("case", list(WINDOW_CASES))
+@pytest.mark.parametrize("case", list(WINDOW_CASES) + list(PAGE100))
 def test_int8_window_writer_equals_eager_jax_splice(rng, case):
     """Written rows hold the eager JAX quantize_kv bytes exactly; every
     other byte (data and scale) is the pool's own, page 0 included."""
-    c = WINDOW_CASES[case]
+    c = {**WINDOW_CASES, **PAGE100}[case]
     P, table, base, widths, k_new, v_new = _window_setup(rng, **c)
     pools = _int8_pools(rng, c["n_kv"], P, c["page"], c["d"])
     want = [a.copy() for a in pools]
@@ -349,8 +357,9 @@ LONG = np.random.default_rng(7).integers(0, 256, size=33).tolist()   # 4 x 8 + 1
 
 
 @pytest.mark.parametrize("kw", [{}, dict(kv_cache_dtype="int8"), dict(kv_write="fused"),
-                                dict(kv_cache_dtype="int8", kv_write="fused")],
-                         ids=["f32", "int8", "fused", "int8_fused"])
+                                dict(kv_cache_dtype="int8", kv_write="fused"),
+                                dict(page_size=24), dict(page_size=24, kv_cache_dtype="int8")],
+                         ids=["f32", "int8", "fused", "int8_fused", "page24", "page24_int8"])
 def test_long_prompt_greedy_stream_equals_jax(jparams, tparams, kw):
     """tests/test_chunked_prefill.py:95: a prompt 4x the largest bucket."""
     jkw = {k: v for k, v in kw.items() if k != "kv_write"}

@@ -284,7 +284,8 @@ def test_bf16_logits_keep_the_f32_accumulation(cuda):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    q, k, v = _t(cuda, 1, 16, 4, 96), _t(cuda, 1, 16, 2, 96), _t(cuda, 1, 16, 2, 96)
+    # a head_dim no kernel is instantiated for (96 is, since phi-3)
+    q, k, v = _t(cuda, 1, 16, 4, 80), _t(cuda, 1, 16, 2, 80), _t(cuda, 1, 16, 2, 80)
     lens = torch.tensor([16], dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_prefill_attention(q, k, v, lens, scale=0.1)
@@ -490,11 +491,17 @@ def test_window_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         pw.paged_write_window_int8(*q8, *args8, kn8.half(), vn8.half())
     with pytest.raises(ValueError, match="int8"):
         pw.paged_write_window_int8(pools[0], q8[1], pools[1], q8[3], *args8, kn8, vn8)
-    # a page the spans do not cut: over SPAN_ROWS rows and not a multiple
-    p100, args100, kn100, vn100, _ = _window_case(cuda, int8=False, dtype=torch.float32,
-                                                  **dict(WINDOW_SHAPES["test_pallas"], page=100))
-    with pytest.raises(ValueError, match="page of at most"):
-        pw.paged_write_window(*p100, *args100, kn100, vn100)
+    # a page over SPAN_ROWS rows and not a multiple of it: the spans are cut
+    # by in-page offset, so it writes what the plain version writes
+    p100, args100, kn100, vn100, keep = _window_case(
+        cuda, int8=False, dtype=torch.float32, **dict(WINDOW_SHAPES["test_pallas"], page=100))
+    ref, before = [t.clone() for t in p100], [t.clone() for t in p100]
+    pw.paged_write_window_plain(*ref, *args100, kn100, vn100)
+    pw.paged_write_window(*p100, *args100, kn100, vn100)
+    torch.cuda.synchronize()
+    for got, want, old in zip(p100, ref, before):
+        assert torch.equal(got[:, 1:], want[:, 1:])
+        assert torch.equal(got[:, keep], old[:, keep])
 
 
 def test_engine_chunk_path_and_cache_hits_on_the_card(cuda):
@@ -695,3 +702,168 @@ def test_paged_decode_small_head_dims(cuda, fused, dtype, d):
         ref = pa.paged_decode_attention_plain(q, kp, vp, table, lens, **kw)
         out = pa.paged_decode_attention(q, kp, vp, table, lens, **kw)
     _close(out[act], ref[act], dtype)
+
+
+# -- head_dim 96 (phi-3: 32 query heads on 32 KV heads) and 256 (gemma-2:
+# 16 on 8), every kernel against its plain version ------------------------
+
+WIDE = {96: dict(n_kv=32, group=1), 256: dict(n_kv=8, group=2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,softcap", [(None, None), (37, None), (None, 50.0)])
+@pytest.mark.parametrize("d", [96, 256])
+def test_flash_prefill_wide_head_dims(cuda, d, window, softcap, dtype):
+    """Kernel 1 at head_dim 96 and 256: rows past several 64-key tiles (T
+    200), a second row cut short, phi-3's and gemma-2's head counts."""
+    n_kv, group = WIDE[d]["n_kv"], WIDE[d]["group"]
+    T = 200
+    q, k, v = _t(cuda, 2, T, n_kv * group, d, dtype=dtype), \
+        _t(cuda, 2, T, n_kv, d, dtype=dtype), _t(cuda, 2, T, n_kv, d, dtype=dtype)
+    lengths = torch.tensor([T, 77], dtype=torch.int32, device="cuda")
+    kw = dict(scale=d ** -0.5, sliding_window=window, attn_softcap=softcap)
+    before = kernels.LAUNCHES["flash_prefill"]
+    out = fa.flash_prefill_attention(q, k, v, lengths, **kw)
+    ref = fa.prefill_attention_plain(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_prefill"] == before + 1
+    _close(out[0], ref[0], dtype)
+    _close(out[1, :77], ref[1, :77], dtype)
+
+
+@pytest.mark.parametrize("page", [24, 64])
+@pytest.mark.parametrize("window,softcap", [(None, None), (300, None), (None, 30.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [96, 256])
+@pytest.mark.parametrize("int8", [False, True], ids=["float_pool", "int8_pool"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_paged_decode_wide_head_dims(cuda, fused, int8, d, dtype, window, softcap, page):
+    """Kernels 2-5 at head_dim 96 (group 1) and 256 (group 2), lengths
+    past one 256-key split, an idle slot, pages of 24 and 64: output as
+    the plain version's; the fused kernels' pool bytes (int8: data and
+    scales) as write_tokens' outside the trash page, and their output bit
+    for bit that of write_tokens then the unfused kernel."""
+    n_kv, group = WIDE[d]["n_kv"], WIDE[d]["group"]
+    lengths = np.asarray([300, 37, 0, 700])
+    B, pps = len(lengths), -(-700 // page)
+    if int8:
+        pools, table = _paged_int8(cuda, B, n_kv, d, page, pps, lengths)
+    else:
+        kp, vp, table = _paged(cuda, B, n_kv, d, page, pps, lengths, dtype)
+        pools = [kp, vp]
+    q = _t(cuda, B, n_kv * group, d, dtype=dtype)
+    kn, vn = _t(cuda, B, n_kv, d, dtype=dtype), _t(cuda, B, n_kv, d, dtype=dtype)
+    lens = torch.from_numpy(lengths.astype(np.int32)).cuda()
+    kw = dict(scale=d ** -0.5, sliding_window=window, attn_softcap=softcap)
+    act = torch.from_numpy(lengths > 0).cuda()
+    name = "paged_decode" + ("_write" if fused else "") + ("_int8" if int8 else "")
+    before = kernels.LAUNCHES[name]
+    if fused:
+        ref_pools = [t.clone() for t in pools]
+        plain = (pa.paged_decode_attention_write_int8_plain if int8
+                 else pa.paged_decode_attention_write_plain)
+        kernel = (pa.paged_decode_attention_write_int8 if int8
+                  else pa.paged_decode_attention_write)
+        ref = plain(q, *ref_pools, table, lens, kn, vn, **kw)
+        out = kernel(q, *pools, table, lens, kn, vn, **kw)
+        for got, want in zip(pools, ref_pools):
+            assert torch.equal(got[:, 1:], want[:, 1:])
+        unfused = (pa.paged_decode_attention_int8 if int8 else pa.paged_decode_attention)(
+            q, *ref_pools, table, lens, **kw)
+        assert torch.equal(out[act], unfused[act])
+    else:
+        plain = pa.paged_decode_attention_int8_plain if int8 else pa.paged_decode_attention_plain
+        kernel = pa.paged_decode_attention_int8 if int8 else pa.paged_decode_attention
+        ref = plain(q, *pools, table, lens, **kw)
+        out = kernel(q, *pools, table, lens, **kw)
+        assert float(out[2].abs().max()) == 0.0        # idle slot: zeros
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    _close(out[act], ref[act], dtype)
+
+
+@pytest.mark.parametrize("page", [1, 5, 24, 100, 130])
+@pytest.mark.parametrize("d", [96, 128, 256])
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8_f32_rows", "int8_bf16_rows"])
+def test_paged_write_window_any_page(cuda, pool, d, page):
+    """Kernels 6 and 7 at pages that are neither at most 16 rows nor a
+    multiple of 16 (24, 100, 130) and small ones (1, 5), at the span edge
+    cases, head_dim 96, 128 and 256: pool bytes (int8 data and scales, bit
+    for bit quantize_kv's) equal the plain version's outside page 0, and
+    every unwritten byte keeps the pool's own."""
+    from llms_on_kubernetes_tpu_torch.ops import paged_write as pw
+
+    int8 = pool.startswith("int8")
+    dtype = torch.bfloat16 if "bf16" in pool else torch.float32
+    kernel = pw.paged_write_window_int8 if int8 else pw.paged_write_window
+    plain = pw.paged_write_window_int8_plain if int8 else pw.paged_write_window_plain
+    name = "paged_write_window_int8" if int8 else "paged_write_window"
+    for W in sorted({max(1, page - 3), 2 * page + 5, 40}):
+        pools, args, kn, vn, keep = _window_case(cuda, n_kv=2, d=d, page=page, int8=int8,
+                                                 dtype=dtype,
+                                                 **_span_edges(W, page, pps=max(4, -(-8 // page))))
+        before = [t.clone() for t in pools]
+        ref = [t.clone() for t in pools]
+        plain(*ref, *args, kn, vn)
+        launches = kernels.LAUNCHES[name]
+        kernel(*pools, *args, kn, vn)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == launches + 1
+        for got, want, old in zip(pools, ref, before):
+            assert torch.equal(got[:, 1:], want[:, 1:]), W
+            assert torch.equal(got[:, keep], old[:, keep]), W
+
+
+def _wide_debug_config(d: int):
+    """debug-tiny cut to head_dim 96 (phi-3 style: one query head a KV head,
+    a sliding window) or 256 (gemma-2 style: softcaps, alternating
+    windows), made here and not registered."""
+    import dataclasses
+
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+
+    if d == 96:
+        return dataclasses.replace(get_config("debug-tiny"), name="debug-d96", head_dim=96,
+                                   num_heads=2, num_kv_heads=2, sliding_window=30)
+    return dataclasses.replace(get_config("debug-gemma"), name="debug-d256", head_dim=256,
+                               num_heads=2, num_kv_heads=1, logit_softcap=30.0,
+                               attn_softcap=50.0, query_pre_attn_scalar=256.0)
+
+
+@pytest.mark.parametrize("d", [96, 256])
+def test_engine_wide_head_dims_page_24_on_the_card(cuda, d):
+    """An engine at head_dim 96 or 256 and page 24 on the card, float32,
+    float and int8 KV: a prompt past the largest bucket (chunked), cache
+    hits on a second pass and the decode windows give the CPU's greedy
+    streams, through the kernels (the window kernel once a layer per chunk
+    call)."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
+    from llms_on_kubernetes_tpu_torch.models.decoder import init_params
+
+    cfg = _wide_debug_config(d)
+    params = init_params(cfg, seed=0, dtype="float32", device="cpu")
+    kw = dict(model=cfg.name, dtype="float32", max_decode_slots=4, page_size=24,
+              num_pages=64, pages_per_slot=6, prefill_buckets=(16, 32))
+    prompts = [[3, 17, 9, 4, 4, 1], [40, 2] * 20, [(7 * i) % 251 for i in range(75)]]
+    sp = SamplingParams(max_tokens=8, temperature=0.0)
+    for kv_dtype in (None, "int8"):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            p = {k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict)
+                     else v.to(dev)) for k, v in params.items()}
+            eng = Engine(EngineConfig(**kw, device=dev, kv_cache_dtype=kv_dtype),
+                         model_config=cfg, params=p)
+            window = "paged_write_window_int8" if kv_dtype else "paged_write_window"
+            launches = dict(kernels.LAUNCHES)
+            for rnd in ("cold", "hit"):
+                reqs = [eng.submit(pr, sp) for pr in prompts]
+                while eng.has_work():
+                    eng.step()
+                outs[(dev, rnd)] = [r.output for r in reqs]
+            assert eng.chunk_calls >= 3 and eng.allocator.hit_tokens_total >= 24 + 72
+            if dev == "cuda":
+                assert (kernels.LAUNCHES[window] - launches.get(window, 0)
+                        == cfg.num_layers * eng.chunk_calls)
+                assert kernels.LAUNCHES["flash_prefill"] > launches.get("flash_prefill", 0)
+        assert outs[("cuda", "cold")] == outs[("cpu", "cold")], kv_dtype
+        assert outs[("cuda", "hit")] == outs[("cpu", "hit")] == outs[("cpu", "cold")], kv_dtype

@@ -145,6 +145,49 @@ def test_paged_plain_matches_reference_and_pallas(rng, window, softcap):
           jatt.paged_attention(*jargs, **kw))
 
 
+@pytest.mark.parametrize("window,softcap", [(None, None), (37, None), (None, 50.0)])
+@pytest.mark.parametrize("d,n_q,n_kv", [(96, 4, 4), (256, 4, 2)])
+def test_prefill_plain_wide_head_dims_match_jax_dispatch(rng, d, n_q, n_kv, window, softcap):
+    """head_dim 96 (phi-3: one query head a KV head) and 256 (gemma-2): the
+    port's prefill dispatcher against the JAX one (which takes the Pallas
+    kernel in interpret mode at 256 and its XLA path at 96)."""
+    q, k, v = _qkv(rng, 2, 128, n_q, n_kv, d)
+    lengths = np.asarray([128, 77], np.int32)
+    kw = dict(scale=d ** -0.5, sliding_window=window, attn_softcap=softcap)
+    want = np.asarray(jatt.dispatch_prefill_attention(
+        *(jnp.asarray(a) for a in (q, k, v, lengths)), **kw))
+    got = tatt.dispatch_prefill_attention(*(T(a) for a in (q, k, v, lengths)), **kw).numpy()
+    for b, n in enumerate(lengths):
+        np.testing.assert_allclose(got[b, :n], want[b, :n], **TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float_pool", "int8_pool"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (30, None), (None, 50.0)])
+@pytest.mark.parametrize("d,n_q,n_kv", [(96, 4, 4), (256, 4, 2)])
+def test_paged_plain_wide_head_dims_match_jax_dispatch(rng, d, n_q, n_kv, window, softcap,
+                                                       int8):
+    """The port's decode dispatcher against the JAX one at head_dim 96 and
+    256, page 24, float and int8 pools (data and scales given to both)."""
+    from llms_on_kubernetes_tpu_torch.engine.cache import KVPool, quantize_kv
+
+    lengths = np.asarray([100, 37, 0, 1], np.int32)
+    kp, vp, table = _paged_setup(rng, 4, n_kv, d, 24, 6, lengths)
+    q = rng.normal(size=(4, n_q, d)).astype(np.float32)
+    if int8:
+        (kq, ks), (vq, vs) = quantize_kv(T(kp)), quantize_kv(T(vp))
+        tk, tv = KVPool(kq, ks), KVPool(vq, vs)
+        jk = JKVPool(jnp.asarray(kq.numpy()), jnp.asarray(ks.numpy()))
+        jv = JKVPool(jnp.asarray(vq.numpy()), jnp.asarray(vs.numpy()))
+    else:
+        tk, tv, jk, jv = T(kp), T(vp), JKVPool(jnp.asarray(kp)), JKVPool(jnp.asarray(vp))
+    kw = dict(scale=d ** -0.5, sliding_window=window, attn_softcap=softcap)
+    want = np.asarray(jatt.dispatch_paged_attention(
+        jnp.asarray(q), jk, jv, jnp.asarray(table), jnp.asarray(lengths), **kw))
+    got = tatt.dispatch_paged_attention(T(q), tk, tv, T(table), T(lengths), **kw).numpy()
+    act = lengths > 0
+    np.testing.assert_allclose(got[act], want[act], **TOL)
+
+
 def test_paged_plain_idle_slot_is_finite(rng):
     """test_pallas.py:89: a length-0 (idle) slot must not NaN."""
     lengths = np.asarray([6, 0], np.int32)

@@ -2,12 +2,16 @@
 the formulas of ``csrc/paged_write_window.cu``'s grid) on the CPU.
 
 Each block of the kernels writes one span: a run of window rows that lands
-on one pool page, at most ``SPAN_ROWS`` rows. The decomposition must cover
-every row the plain version writes exactly once and no other row, at any
-base, width, window, page and table size. A writer that copies each span
-as one run (what a block does) must then leave the JAX Pallas kernel's
-pool bytes (interpret mode) and the plain versions' outside page 0, and
-page 0 as it was.
+on one pool page, at most ``SPAN_ROWS`` rows, the runs cut by in-page
+offset. The decomposition must cover every row the plain version writes
+exactly once and no other row, at any base, width, window, page (1 to 130
+rows, 24 and 100 among them) and table size, in no more spans than the
+grid's ``window_span_count(W, page)``, a bound some base reaches. A writer
+that copies each span as one run (what a block does) must then leave the
+JAX Pallas kernel's pool bytes (interpret mode; its 8-row blocks need a
+page that is a multiple of 8, the JAX dispatcher's own gate,
+``ops/attention.py:333``, so page 24 and not 100) and the plain versions'
+outside page 0 (pages 24 and 100 among them), and page 0 as it was.
 """
 
 from __future__ import annotations
@@ -40,13 +44,17 @@ SPAN_CASES = {
     "chunk_path_four_slots": ([0, 896, 900, 0], [1024, 1024, 1000, 0], 1024, 64, 32),
     "cache_hit_tail": ([896], [104], 256, 64, 32),
     "negative_base": ([-5, -70], [10, 100], 100, 16, 8),
+    # pages neither at most R rows nor a multiple of R: pieces of 16 and 8
+    # rows (page 24), of 16 and 4 (page 100), of 16 and 2 (page 130)
+    "page_24": ([5, 24, 17, 0], [32, 20, 31, 0], 32, 24, 3),
+    "page_100": ([95, 0, 190, 40], [150, 100, 10, 0], 150, 100, 3),
+    "page_130": ([125, 0, 260], [200, 130, 70], 200, 130, 3),
 }
 
 
 def _check_spans(base, widths, W, page, pps):
     spans = pw._window_spans(base, widths, W, page, pps)
-    rp = min(page, R)
-    n_spans = -(-(W - 1) // rp) + 1
+    n_spans = pw.window_span_count(W, page)
     assert len(spans) == len(base) * n_spans                    # the grid, fixed by W and page
     want = {(b, t) for b, (b0, w) in enumerate(zip(base, widths))
             for t in range(min(w, W)) if 0 <= b0 + t < pps * page}
@@ -54,7 +62,7 @@ def _check_spans(base, widths, W, page, pps):
     for b, s, t0, r, slot in spans:
         if r <= 0:
             continue
-        assert r <= rp
+        assert r <= R
         pos0 = base[b] + t0
         # one contiguous run of rows on one page of the table
         assert (pos0 + r - 1) // page == pos0 // page == slot < pps
@@ -71,14 +79,36 @@ def test_spans_cover_each_written_row_once(case):
 @settings(max_examples=300, deadline=None)
 @given(st.data())
 def test_spans_cover_each_written_row_once_drawn(data):
-    # the pages the kernels take: at most R rows, or a multiple of R
-    page = data.draw(st.sampled_from([1, 3, 4, 8, 12, R, 2 * R, 3 * R, 64, 128, 256]))
+    # any page up to 130 rows, and the aligned pages up to 256
+    page = data.draw(st.one_of(st.integers(1, 130),
+                               st.sampled_from([1, 3, 4, 8, 12, R, 2 * R, 3 * R, 64, 128, 256,
+                                                24, 100])))
     pps = data.draw(st.integers(1, 6))
     W = data.draw(st.integers(1, 3 * max(page, R)))
     B = data.draw(st.integers(1, 4))
     base = data.draw(st.lists(st.integers(-page, pps * page + 2), min_size=B, max_size=B))
     widths = data.draw(st.lists(st.integers(0, W + 2), min_size=B, max_size=B))
     _check_spans(base, widths, W, page, pps)
+
+
+@settings(max_examples=150, deadline=None)
+@given(page=st.one_of(st.integers(1, 130), st.sampled_from([24, 100])),
+       W=st.integers(1, 300))
+def test_span_count_is_tight(page, W):
+    """Some base needs every span of the grid: the bound wastes no block."""
+    pps = (W + 2 * page) // page + 2
+    used = max(sum(r > 0 for *_, r, _ in pw._window_spans([b], [W], W, page, pps))
+               for b in range(page))
+    assert used == pw.window_span_count(W, page)
+
+
+@pytest.mark.parametrize("page", list(range(1, 17)) + [32, 48, 64, 128, 256])
+def test_span_count_keeps_the_aligned_grid(page):
+    """At a page of at most R rows or a multiple of R the grid is the one
+    the kernels had before they took any page: ceil((W - 1) / rp) + 1."""
+    rp = min(page, R)
+    for W in (1, 2, 15, 16, 17, 64, 476, 1024):
+        assert pw.window_span_count(W, page) == -(-(W - 1) // rp) + 1
 
 
 def _span_write(pools, table, base, widths, k_new, v_new, int8: bool):
@@ -115,7 +145,7 @@ def _setup(rng, base, widths, W, page, pps, n_kv=2, d=8):
 # table (it does not drop the rows past it, the port's writers do) and the
 # small pages and windows its interpret mode runs quickly
 PALLAS_CASES = ["mid_page_and_boundary", "width_0", "width_eq_page", "W_below_page",
-                "W_not_a_page_multiple", "page_128_several_spans_a_page"]
+                "W_not_a_page_multiple", "page_128_several_spans_a_page", "page_24"]
 
 
 @pytest.mark.parametrize("case", PALLAS_CASES)

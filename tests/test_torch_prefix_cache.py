@@ -268,6 +268,22 @@ def test_prefix_cache_with_chunked_prefill_remainder(jparams, tparams, kw):
 
 
 @pytest.mark.parametrize("kw", [{}, dict(kv_cache_dtype="int8")], ids=["f32", "int8"])
+def test_cache_hits_at_page_24_equal_jax(jparams, tparams, kw):
+    """A page of 24 rows, which the window kernels' spans cut by in-page
+    offset: a 60-token prompt (two chunks of 32, the second starting
+    mid-page), then again with a new tail: it adopts both full pages (48
+    tokens) and prefills the rest through the chunk path mid-page."""
+    kw = dict(kw, page_size=24)
+    long_prompt = list(range(1, 61))
+    jeng, eng = _jax(jparams, **kw), _port(tparams, **kw)
+    for prompt, hits in ((long_prompt, 0), (long_prompt[:50] + [7, 8, 9], 48)):
+        want = _run(jeng, JSamplingParams, prompt)
+        assert _run(eng, SamplingParams, prompt) == want
+        assert eng.allocator.hit_tokens_total == jeng.allocator.hit_tokens_total == hits
+    assert eng.chunk_calls == 3
+
+
+@pytest.mark.parametrize("kw", [{}, dict(kv_cache_dtype="int8")], ids=["f32", "int8"])
 def test_penalties_correct_on_cache_hit(jparams, tparams, kw):
     """tests/test_prefix_cache.py:203: penalty counts reset on a cache-hit
     admission (the chunk path with history > 0)."""
