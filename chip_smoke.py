@@ -35,14 +35,19 @@ Phases, each fatal on failure:
    span edges and timed;
 3. serve: start ``python -m llms_on_kubernetes_tpu_torch serve --model
    llama-3-8b --random-weights --device cuda`` (the default EngineConfig:
-   8 slots, decode_steps 4, kv_write "dus", bf16, prefix caching on) and
+   8 slots, decode_steps 4, kv_write "dus", bf16, prefix caching on, async
+   scheduling at depth 2, each decode window one CUDA graph replay) and
    send concurrent completions and a streamed chat with prompts in each
    prefill bucket and one of 1,500 tokens (two chunks), then the 900-token
    prompt again with a tail (a prefix-cache hit of 896 tokens, prefilled
    through the chunk path); the kernel launch counters are zeroed just
    before and read just after. Held: every window-kernel launch count is
    num_layers x the chunk calls (and >= 96), the re-sent prompt adopts
-   >= 896 tokens. Then the same again with ``--kv-cache-dtype int8`` (the
+   >= 896 tokens; over the burst and over the decode-rate streams every
+   window ran as a graph replay (``/debug/kernels``: graph_replays >= 1,
+   graph_replays x decode_steps == decode_forwards, and every decode-kernel
+   launch was one a replay added, none eager). Then the same again
+   with ``--kv-cache-dtype int8`` (the
    int8 decode and window kernels, and never the float ones, on every
    layer). Before it, a reference check on a small input: debug-tiny in
    float32 on the card against the same weights on the CPU (prefill logits
@@ -50,14 +55,28 @@ Phases, each fatal on failure:
    chunked prompt and a second pass of cache hits), then the same at page
    24 for debug-tiny cut to head_dim 96 and debug-gemma cut to 256 (made
    here with dataclasses.replace, not registered);
-4. fused: in this process, the same random weights behind an Engine with
-   kv_write "fused", first with bf16 KV, then with int8 KV: requests
-   through it (counters zeroed before, read after), the same greedy
-   streams as kv_write "dus", and one decode step both ways from copies of
-   one pool (bf16 logits within the bf16 tolerance, int8 logits identical;
-   pools byte-equal outside the trash pages, int8 scales included). Last,
-   printed and not held: a 1,500-token prompt's first-token logits chunked
-   (bucket 1,024) against one-shot (bucket 2,048);
+4. in process: the same random weights behind the default Engine (async,
+   graphed windows), first with bf16 KV, then with int8 KV. kv_write
+   "fused": requests through it (counters zeroed before, read after: the
+   fused kernel exactly num_layers times a decode step, every launch of
+   it by a graph replay, no other decode kernel, graph_replays x
+   decode_steps == decode_forwards), the same
+   greedy streams as kv_write "dus". Graph against eager, "fused" and
+   "dus": one window replayed and one run eagerly from copies of one pool
+   and one penalty-count table, on seeded rows with penalties: sampled
+   tokens, logprobs and top alternatives identical, pools (outside each
+   layer's trash page) and counts byte-equal. Async against sync: the
+   same greedy streams from an engine with async_scheduling off. One
+   decode step both ways from copies of one pool (bf16 logits within the
+   bf16 tolerance, int8 logits identical; pools byte-equal outside the
+   trash pages, int8 scales included). Preemption: eight distinct
+   900-token prompts of 64 tokens each in 122 pages (admission takes 120,
+   growth needs 128): at least one preemption, and every stream equals
+   the one a pool with room gives; then four 63-token prompts in 4 pages,
+   so that requests are preempted holding only their first token (they
+   resume re-prefilling their prompt alone): streams equal again. Last, printed and not held: a
+   1,500-token prompt's first-token logits chunked (bucket 1,024) against
+   one-shot (bucket 2,048);
 5. checkpoint: write full-width phi-3-mini (head_dim 96, 3.82 B
    parameters, 7.64 GB in bf16) as a HuggingFace safetensors checkpoint
    under ``smoke_out/`` with ``testing/synth_checkpoint.py`` (failing when
@@ -70,15 +89,19 @@ Phases, each fatal on failure:
    cache hit, a 2,500-token prompt past the 2,047-token sliding window and
    a chat, counters zeroed before and read after: flash prefill, the
    decode kernel and the window kernel each launch num_layers times their
-   calls, and no other kernel runs; then the same with
+   calls, no other kernel runs, and every decode window was a graph
+   replay; then the same with
    ``--kv-cache-dtype int8`` (kernels 1, 4 and 7). Prints the load
    seconds, cold (in process) and warm (in the server), the time to
    /health and the phase's seconds.
 
 ``--profile`` stops after phase 2 and traces, under torch.profiler, one
-decode window of eight requests and one chunk call (the second chunk of a
-1,500-token prompt, padded to its bucket and unpadded), with the pool of
-``LLMK_KV_DTYPE`` (bf16 or int8); ``--kernels-only`` stops after phase 2.
+decode window of eight requests as the engine runs it (one CUDA graph
+replay) and the same window run eagerly (op by op), each with its wall
+time, host enqueue time, device busy time and kernel count, and one chunk
+call (the second chunk of a 1,500-token prompt, padded to its bucket and
+unpadded), with the pool of ``LLMK_KV_DTYPE`` (bf16 or int8);
+``--kernels-only`` stops after phase 2.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; before it, one ``{"kernels": [...]}`` JSON line, whose
@@ -1074,6 +1097,32 @@ def check_stream(name: str, status: int, events, max_tokens: int) -> list[dict]:
     return chunks
 
 
+def check_graphed(name: str, counts: dict, counts0: dict) -> int:
+    """Every decode window between two ``/debug/kernels`` reads ran as one
+    CUDA graph replay: replays >= 1, replays x decode_steps == the decode
+    forwards, and every decode-kernel launch in that time was added by a
+    replay (``replayed_launches``; a wrapper run eagerly counts only in
+    ``launches``), with at least one such launch. Returns the replays."""
+    replays = counts["graph_replays"] - counts0["graph_replays"]
+    forwards = counts["decode_forwards"] - counts0["decode_forwards"]
+
+    def decode_delta(key):
+        return {k: n - counts0[key].get(k, 0) for k, n in counts[key].items()
+                if k.startswith("paged_decode") and n != counts0[key].get(k, 0)}
+
+    launched, replayed = decode_delta("launches"), decode_delta("replayed_launches")
+    say(f"  {name}: {replays} decode windows, each one CUDA graph replay of "
+        f"{counts['decode_steps']} steps ({forwards} decode forwards); decode kernel "
+        f"launches {launched}, of them by replays {replayed}")
+    if replays < 1 or replays * counts["decode_steps"] != forwards:
+        fail(f"{name}: {replays} graph replays x {counts['decode_steps']} steps != "
+             f"{forwards} decode forwards: a window ran outside the graph")
+    if not launched or launched != replayed:
+        fail(f"{name}: decode kernel launches {launched} != those of graph replays "
+             f"{replayed}: a decode kernel ran eagerly")
+    return replays
+
+
 def with_server(args: list, log_name: str, drive) -> dict:
     """Start ``python -m llms_on_kubernetes_tpu_torch serve ARGS`` on the
     card and a free port, its output in ``OUT_DIR/log_name``; wait for
@@ -1245,6 +1294,7 @@ def _drive_server(base: str, model: str, num_layers: int, kv_cache_dtype=None) -
         fail(f"the {kv_cache_dtype or 'bf16'} KV server launched {other}")
     if resend_hit < 896:
         fail(f"the re-sent 900-token prompt adopted {resend_hit} < 896 cached tokens")
+    check_graphed("burst", counts, counts0)
 
     # TTFT and decode rate: 8 concurrent greedy streams (one per slot); TTFT
     # is the first token's chunk (the server sends one per first token even
@@ -1258,6 +1308,7 @@ def _drive_server(base: str, model: str, num_layers: int, kv_cache_dtype=None) -
                 "temperature": 0, "stream": True, "stream_options": {"include_usage": True}}
         per.append(stream(base + "/v1/completions", body))
 
+    counts_rate = json.loads(http("GET", base + "/debug/kernels")[1])
     ths = [threading.Thread(target=one, args=(i,)) for i in range(8)]
     for t in ths:
         t.start()
@@ -1265,6 +1316,8 @@ def _drive_server(base: str, model: str, num_layers: int, kv_cache_dtype=None) -
         t.join(timeout=600)
     if len(per) != 8:
         fail("decode-rate streams did not all finish")
+    check_graphed("decode-rate streams", json.loads(http("GET", base + "/debug/kernels")[1]),
+                  counts_rate)
     ttft, firsts, lasts, toks = [], [], [], 0
     for status, events, t0 in per:
         chunks = check_stream("decode-rate stream", status, events, n_dec)
@@ -1289,10 +1342,74 @@ def _drive_server(base: str, model: str, num_layers: int, kv_cache_dtype=None) -
 # phase 4: kv_write="fused" in process
 # ---------------------------------------------------------------------------
 
+def window_vs_eager(torch, eng, tag: str, prompts) -> None:
+    """One decode window replayed (the engine's CUDA graph) and one run
+    eagerly (``DecodeWindow._eager``, the same function), from copies of
+    one pool and one penalty-count table, on seeded sampled rows with
+    penalties: sampled tokens identical, pools (outside each layer's trash
+    page 0, which idle rows write) and counts byte-equal, and the packed
+    results (logprobs and top alternatives included) identical. The rows'
+    requests are aborted after."""
+    from llms_on_kubernetes_tpu_torch.engine.cache import KVPool
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+    from llms_on_kubernetes_tpu_torch.ops.paged_attention import DecodeWorkspace
+
+    sp = SamplingParams(max_tokens=64, temperature=0.7, seed=5, presence_penalty=0.4,
+                        frequency_penalty=0.3)
+    reqs = [eng.submit(p, sp) for p in prompts]
+    eng._admit()                   # sync admission: first tokens read
+    K = eng.config.decode_steps
+    active = [(i, r) for i, r in enumerate(eng.slots) if r is not None]
+    base = {i: int(eng.slot_len[i]) + 1 for i, _r in active}
+    for i, _r in active:
+        eng.allocator.allocate(i, base[i] + K - 1)
+    packed = eng._window_rows(active, {i: K for i, _r in active}, base)
+    pools = [KVPool(p.data.clone(), None if p.scale is None else p.scale.clone())
+             for p in (eng.k_pages, eng.v_pages)]
+    counts = eng.token_counts.clone()
+    zeros = torch.zeros(eng.config.max_decode_slots, dtype=torch.int32, device="cuda")
+    eager_pack, eager_toks = eng._window._eager(
+        torch.from_numpy(packed).cuda(), zeros, zeros[:1], *pools, counts,
+        workspace=DecodeWorkspace())
+    pack, toks = eng._window.run(packed, None, None)
+    torch.cuda.synchronize()
+    if not (torch.equal(pack[:, 0], eager_pack[:, 0]) and torch.equal(toks, eager_toks)):
+        fail(f"{tag}: sampled tokens differ between the graph replay and the eager window")
+    if not torch.equal(eng.token_counts, counts):
+        fail(f"{tag}: penalty counts differ between the graph replay and the eager window")
+    P = eng.config.num_pages
+    keep = torch.ones(eng.model_config.num_layers * P, dtype=torch.bool, device="cuda")
+    keep[::P] = False
+    for got, want in zip((eng.k_pages, eng.v_pages), pools):
+        if not torch.equal(got.data[:, keep], want.data[:, keep]) or (
+                want.scale is not None
+                and not torch.equal(got.scale[:, keep], want.scale[:, keep])):
+            fail(f"{tag}: pools differ between the graph replay and the eager window")
+    if not torch.equal(pack, eager_pack):
+        fail(f"{tag}: logprobs or top alternatives differ between the graph replay and the "
+             f"eager window")
+    say(f"  {tag}: one window ({K} steps, {len(prompts)} sampled rows with penalties) "
+        f"replayed equals the eager window: tokens, logprobs, pools and counts byte-equal")
+    for r in reqs:
+        eng.abort(r)
+    eng.step()
+
+
+def run_engine(eng, prompts, sp) -> list:
+    """Every prompt through ``eng`` at once, stepped until it drains;
+    returns (output, finish reason) per prompt."""
+    reqs = [eng.submit(p, sp) for p in prompts]
+    while eng.has_work():
+        eng.step()
+    return [(r.output, r.finish_reason) for r in reqs]
+
+
 def phase_fused(torch, model: str, params, kv_cache_dtype=None) -> dict:
-    """kv_write "fused" against "dus" on ``params``, with the KV pool in
-    bf16 (kv_cache_dtype None) or int8. Each engine is freed before the
-    next one starts."""
+    """The default engine (async, graphed windows) in process on
+    ``params``, with the KV pool in bf16 (kv_cache_dtype None) or int8:
+    kv_write "fused" against "dus", graph against eager (both), async
+    against sync, one decode step fused against dus from copies of one
+    pool, and preemption. Each engine is freed before the next starts."""
     from llms_on_kubernetes_tpu_torch import kernels
     from llms_on_kubernetes_tpu_torch.configs import get_config
     from llms_on_kubernetes_tpu_torch.engine.cache import KVPool
@@ -1302,36 +1419,45 @@ def phase_fused(torch, model: str, params, kv_cache_dtype=None) -> dict:
     cfg = get_config(model)
     int8 = kv_cache_dtype == "int8"
     write_kernel = "paged_decode_write_int8" if int8 else "paged_decode_write"
-    unfused = "paged_decode_int8" if int8 else "paged_decode"
     tag = f"fused ({kv_cache_dtype or 'bf16'} KV)"
     kw = dict(model=model, kv_cache_dtype=kv_cache_dtype, device="cuda")
     fused = Engine(EngineConfig(kv_write="fused", **kw), params=params)
     prompts = [[1 + i % 200 for i in range(40)], [7 + i % 200 for i in range(200)], [5] * 900]
     sp = SamplingParams(max_tokens=16, temperature=0.0)
     kernels.reset_launches()
-    reqs = [fused.submit(p, sp) for p in prompts]
-    while fused.has_work():
-        fused.step()
+    streams = run_engine(fused, prompts, sp)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    say(f"{tag}: engine launches: {launches}; decode forwards {fused.decode_forwards}")
-    if launches.get(write_kernel, 0) < cfg.num_layers * fused.decode_forwards:
-        fail(f"{write_kernel} launched fewer than num_layers times per decode step")
+    replayed = kernels.replayed_counts()
+    say(f"{tag}: engine launches: {launches}, of them by graph replays {replayed}; decode "
+        f"forwards {fused.decode_forwards}, graph replays {fused.graph_replays}")
+    if replayed.get(write_kernel, 0) != launches.get(write_kernel, 0):
+        fail(f"{tag}: {write_kernel} launched {launches.get(write_kernel, 0)} times, "
+             f"{replayed.get(write_kernel, 0)} of them by graph replays: some ran eagerly")
+    if launches.get(write_kernel, 0) != cfg.num_layers * fused.decode_forwards:
+        fail(f"{write_kernel} launched {launches.get(write_kernel, 0)} times, expected "
+             f"num_layers x decode steps = {cfg.num_layers * fused.decode_forwards}")
+    if not fused.graph_replays or (fused.graph_replays * fused.config.decode_steps
+                                   != fused.decode_forwards):
+        fail(f"{tag}: {fused.graph_replays} graph replays for {fused.decode_forwards} "
+             f"decode forwards")
     for other in ("paged_decode", "paged_decode_write", "paged_decode_int8",
                   "paged_decode_write_int8"):
         if other != write_kernel and launches.get(other, 0):
             fail(f"the {tag} engine launched {other}")
-    if any(r.finish_reason not in ("length", "stop") for r in reqs):
-        fail(f"{tag} engine finish reasons {[r.finish_reason for r in reqs]}")
-    streams = [r.output for r in reqs]
-    del fused, reqs
+    if any(reason not in ("length", "stop") for _out, reason in streams):
+        fail(f"{tag} engine finish reasons {streams}")
+    window_vs_eager(torch, fused, f"{tag}, graph vs eager", prompts)
+    del fused
     torch.cuda.empty_cache()
 
     dus = Engine(EngineConfig(kv_write="dus", **kw), params=params)
-    ref = [dus.generate(p, sp) for p in prompts]
+    ref = run_engine(dus, prompts, sp)
     if streams != ref:
         fail(f"{tag}: greedy streams differ between kv_write fused and dus: {streams} vs {ref}")
     say(f"  {tag}: greedy streams equal under kv_write fused and dus")
+    window_vs_eager(torch, dus, f"dus ({kv_cache_dtype or 'bf16'} KV), graph vs eager",
+                    prompts)
 
     # one decode step both ways from copies of one pool: prefill three
     # prompts, then decode their first tokens
@@ -1366,9 +1492,76 @@ def phase_fused(torch, model: str, params, kv_cache_dtype=None) -> dict:
     for r in rows:
         dus.abort(r)
     dus.step()
-    del dus, pools
+    del pools
+
+    # the preemption check's reference: 8 distinct 900-token prompts in a
+    # pool with room for all of them
+    long_prompts = [[1 + (7 * i + 13 * j + j // 64) % 250 for j in range(900)] for i in range(8)]
+    sp64 = SamplingParams(max_tokens=64, temperature=0.0)
+    roomy = run_engine(dus, long_prompts, sp64)
+    # and of the preemption right after the first token: four 63-token
+    # prompts (prompt + 1 fills a page)
+    short_prompts = [[3 + (11 * i + j) % 250 for j in range(63)] for i in range(4)]
+    sp32 = SamplingParams(max_tokens=32, temperature=0.0)
+    short_roomy = run_engine(dus, short_prompts, sp32)
+    del dus
+    torch.cuda.empty_cache()
+
+    sync = Engine(EngineConfig(kv_write="dus", async_scheduling=False, **kw), params=params)
+    if run_engine(sync, prompts, sp) != ref:
+        fail(f"{tag}: greedy streams differ between the async (depth 2) and sync engines")
+    say(f"  {tag}: greedy streams equal async (depth {EngineConfig().async_depth}) and sync")
+    del sync
+    torch.cuda.empty_cache()
+
+    # preemption at full width: 8 slots of 900-token prompts, max_tokens 64,
+    # in 122 usable pages of 64 rows: admission takes 15 pages each (120),
+    # growth needs 16 each (128)
+    tight = Engine(EngineConfig(kv_write="dus", num_pages=123, **kw), params=params)
+    got = run_engine(tight, long_prompts, sp64)
+    say(f"  {tag}: 8 x 900-token prompts, 64 tokens each, in 122 pages: "
+        f"{tight.preemptions} preemptions, {tight.graph_replays} graph replays")
+    if tight.preemptions < 1:
+        fail(f"{tag}: the tight pool preempted nothing")
+    if got != roomy:
+        fail(f"{tag}: greedy streams changed under preemption")
+    say(f"  {tag}: every stream under preemption equals the roomy engine's")
+    del tight
+    torch.cuda.empty_cache()
+
+    # preemption right after the first token: the four 63-token prompts in
+    # 4 usable pages; admission takes all four, the first window's growth
+    # needs 8, so the youngest rows are preempted holding one output token
+    # and resume with their prompt alone to re-prefill
+    first = Engine(EngineConfig(kv_write="dus", num_pages=5, **kw), params=params)
+    outputs_at = preempted_output_lengths(first)
+    got = run_engine(first, short_prompts, sp32)
+    say(f"  {tag}: four 63-token prompts in 4 pages: {first.preemptions} preemptions, the "
+        f"victims holding {outputs_at} output tokens")
+    if 1 not in outputs_at:
+        fail(f"{tag}: no request was preempted holding exactly its first token")
+    if got != short_roomy:
+        fail(f"{tag}: greedy streams changed under preemption after the first token")
+    say(f"  {tag}: every stream equals the roomy engine's")
+    del first._preempt_youngest     # the recorder holds the engine: free it now
+    del first
     torch.cuda.empty_cache()
     return {"launches": launches}
+
+
+def preempted_output_lengths(eng) -> list:
+    """Record, in the list returned, how many output tokens each request
+    that ``eng`` preempts holds at that moment."""
+    seen: list = []
+    preempt = eng._preempt_youngest
+
+    def recording():
+        victim = max((r for r in eng.slots if r is not None), key=lambda r: r.submitted_at)
+        seen.append(len(victim.output))
+        preempt()
+
+    eng._preempt_youngest = recording
+    return seen
 
 
 def phase_chunk_vs_one_shot(torch, model: str, params) -> None:
@@ -1528,32 +1721,63 @@ def phase_reference(torch, cfg=None, page: int = 4) -> None:
 
 
 def phase_profile(torch, model: str = MODEL) -> None:
-    """Where a decode window's time goes: eight greedy requests in decode,
-    one window timed on the host clock, then one under torch.profiler;
-    prints the top operators by device time and by host time."""
+    """Where a decode window's time goes: eight greedy requests in decode
+    (the sync engine, so nothing else is in flight), then one window as the
+    engine runs it (one CUDA graph replay) and one run eagerly (the same
+    function, op by op, as the engine ran it before the graph), each timed
+    on the host clock and then traced under torch.profiler. Prints each
+    window's wall time, the host time to enqueue it, the device busy time
+    and the kernels it runs, and the top operators by device and host
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
 
-    eng = Engine(EngineConfig(model=model, device="cuda"))
+    eng = Engine(EngineConfig(model=model, device="cuda", async_scheduling=False))
     for i in range(eng.config.max_decode_slots):
         eng.submit([1 + (i * 7 + j) % 200 for j in range(40)],
                    SamplingParams(max_tokens=64, temperature=0.0))
     eng.step()                                   # prefill + first window
-    torch.cuda.synchronize()
-    for _ in range(2):
-        t0 = time.perf_counter()
-        eng._decode()
+    K, B = eng.config.decode_steps, eng.config.max_decode_slots
+    active = [(i, r) for i, r in enumerate(eng.slots) if r is not None]
+    base = {i: int(eng.slot_len[i]) + 1 for i, _r in active}
+    for i, _r in active:
+        eng.allocator.allocate(i, base[i] + K - 1)
+    packed = eng._window_rows(active, {i: K for i, _r in active}, base)
+    dev_packed = torch.from_numpy(packed).cuda()
+    zeros = torch.zeros(B, dtype=torch.int32, device="cuda")
+    windows = {
+        "graphed": lambda: eng._window.run(packed, None, None),
+        "eager": lambda: eng._window._eager(dev_packed, zeros, zeros[:1], eng.k_pages,
+                                            eng.v_pages, eng.token_counts),
+    }
+    kv = "int8" if eng.cache_config.kv_dtype == "int8" else "bf16"
+    card = card_line()
+    cuda = torch.autograd.DeviceType.CUDA
+    launch_api = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                  "cuLaunchKernelEx", "cudaGraphLaunch")
+    for name, window in windows.items():
         torch.cuda.synchronize()
-        say(f"profile: decode window ({eng.config.decode_steps} steps, "
-            f"{eng.config.max_decode_slots} slots) wall {1e3 * (time.perf_counter() - t0):.1f} ms")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng._decode()
-        torch.cuda.synchronize()
-    ka = prof.key_averages()
-    say(f"profile: device time in the window {device_ms(torch, prof):.2f} ms")
-    say(ka.table(sort_by="self_cuda_time_total", row_limit=18))
-    say(ka.table(sort_by="self_cpu_time_total", row_limit=12))
+        for _ in range(3):
+            t0 = time.perf_counter()
+            window()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            say(f"profile: {name} decode window ({model} {kv} KV, {K} steps, {B} slots): "
+                f"wall {1e3 * (t2 - t0):.1f} ms, host enqueue {1e3 * (t1 - t0):.1f} ms "
+                f"[{card}]")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            window()
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        kernels_run = sum(e.count for e in ka if e.device_type == cuda)
+        launches = sum(e.count for e in ka if e.key in launch_api)
+        say(f"profile: {name} window: device busy {device_ms(torch, prof):.2f} ms, "
+            f"{kernels_run} kernels on the device, {launches} launch calls on the host "
+            f"[{card}]")
+        say(ka.table(sort_by="self_cuda_time_total", row_limit=18))
+        say(ka.table(sort_by="self_cpu_time_total", row_limit=12))
     profile_chunk(torch, eng)
 
 
@@ -1833,6 +2057,7 @@ def _drive_checkpoint_server(base: str, cfg, kv_cache_dtype) -> dict:
     if any(launches[k] for k in others):
         fail(f"the {'int8' if int8 else 'bf16'} KV checkpoint server launched "
              f"{ {k: launches[k] for k in others} }")
+    check_graphed("checkpoint server", counts, counts0)
     # 1,500 tokens: 2 chunks; the hit's rest: 1; 2,500 tokens: 3
     if delta["chunk_calls"] < 6 or hit_tokens < 1472:
         fail(f"{delta['chunk_calls']} chunk calls and a hit of {hit_tokens} tokens: the chunk "

@@ -4,43 +4,53 @@ multi-step decode (counterpart of ``llms_on_kubernetes_tpu/engine/engine.py``).
 The public surface keeps the JAX engine's names: ``EngineConfig`` (same
 field names and defaults for the fields it keeps, plus ``device``),
 ``SamplingParams``, ``Request``, ``StepEvent`` and
-``Engine.submit/step/abort/has_work/generate``.
+``Engine.submit/step/abort/has_work/generate``, and ``preemptions``.
 
 The weights come from ``params``, else from a checkpoint directory
 (``model_dir``: ``engine/weights.load_hf_params``, the model config from
 the registry or, for a name the registry lacks, from the directory's
 ``config.json``), else they are drawn at random from the engine seed.
 
-One scheduler iteration (``step``):
+Memory: pages are allocated on demand. Admission allocates pages for the
+prompt and one token (after adopting the longest cached prefix of the
+prompt: prefix caching, on by default); each decode window grows each row
+to the positions it plans. When the pool runs out, the youngest request
+is preempted: its pages are freed and it goes back to the front of the
+queue, to re-prefill its prompt and every token it emitted but the last
+(the prefill's sample is thrown away, the penalty counts are rebuilt
+from the replayed tokens), so its stream is the one it would have been.
 
-1. reap aborted requests;
-2. admit waiting requests into free slots: adopt the longest cached prefix
-   of the prompt (prefix caching, on by default), then reserve pages for
-   ``prompt + max_tokens`` up front, counting only the pages past the
-   adopted ones (so decode never runs out of pages and never preempts); an
-   admission whose pages do not fit yet rolls its adoption back and waits;
-3. prefill them: one ``forward_prefill`` call per prefill bucket, the rows
-   padded to the smallest bucket that fits; a prompt with a cache hit, or
-   longer than the largest bucket, takes the chunk path instead
-   (``_chunked_prefill``: ``forward_chunk`` over chunks of the largest
-   bucket, from the end of the adopted prefix). The first token is sampled
-   on the device from the last prefill's logits, keyed on (seed, prompt
-   length), so a seeded stream is the same cold, on a hit and chunked. The
-   prompt's full pages are then published to the prefix cache;
-4. run one decode window over every active slot: ``decode_steps`` chained
-   ``forward_decode`` + ``sample`` iterations with no host sync between
-   them. Per-row budgets and stop ids mask a row on the device the moment
-   it finishes (its length drops to 0, so its KV write goes to the trash
-   page and its counts stop), and one device-to-host copy at the end
-   brings back the window's tokens. The host stays authoritative for
-   finishes.
+Prefill: one ``forward_prefill`` call per prefill bucket, the rows padded
+to the smallest bucket that fits; a prompt with a cache hit, or longer
+than the largest bucket, takes the chunk path (``forward_chunk`` over
+chunks of the largest bucket, from the end of the adopted prefix). The
+first token is sampled on the device from the last prefill's logits,
+keyed on (seed, prompt length), so a seeded stream is the same cold, on a
+hit and chunked.
+
+Decode: windows of up to ``decode_steps`` tokens per slot
+(``engine/graphs.decode_window``), each one CUDA graph replay on a card.
+Per-row budgets and stop ids mask a row on the device the moment it
+finishes; the host stays authoritative for finishes.
+
+Scheduling (``async_scheduling``, on by default, as in the JAX engine):
+up to ``async_depth`` windows are in flight, each fed on the device by
+the newest in-flight window's tokens, a host value or this step's prefill
+sample (the token merge). Each window's results, and each prefill's first
+tokens, go to the host in one non-blocking copy followed by an event,
+which a harvester thread waits on; the engine thread consumes them in
+dispatch order and blocks only for backpressure (``async_depth`` windows
+unread) or a drain, so a new submission is admitted and prefilled while
+the device works. ``async_scheduling=False`` runs the synchronous loop:
+admit and prefill, then one window, read at once.
 
 ``kv_cache_dtype="int8"`` (or env ``LLMK_KV_DTYPE=int8``) keeps the KV
 pool in int8 with per-token scales, as the JAX engine does.
 
-The scheduler is synchronous. The JAX engine's async harvester, pacing,
-host KV tier and handoff, QoS, ledger, grammar, LoRA, multimodal salts,
-speculation and preemption are not ported yet.
+Not ported yet: device-queue pacing (``pace_target_steps`` takes only
+its default, 0), the stall watchdog, priority classes (QoS), the host KV
+tier and handoff, the ledger, grammar, LoRA, multimodal salts and
+speculation.
 """
 
 from __future__ import annotations
@@ -50,6 +60,8 @@ import dataclasses
 import os
 import queue
 import threading
+import time
+import weakref
 from typing import Any, Optional
 
 import numpy as np
@@ -62,18 +74,29 @@ from llms_on_kubernetes_tpu_torch.configs import (
 from llms_on_kubernetes_tpu_torch.engine.cache import (
     CacheConfig, PageAllocator, init_pages,
 )
+from llms_on_kubernetes_tpu_torch.engine.graphs import (
+    BUD, DEC_COLS, FLOATS, LEN, PRE_ROW, SEED, SRC, SRC_HOST, SRC_INFLIGHT, SRC_PREFILL,
+    STOP, STOP_SLOTS, TOP_K, VAL, DecodeWindow, idle_rows, pack_results, unpack_results,
+    upload,
+)
 from llms_on_kubernetes_tpu_torch.engine.sampling import (
     MAX_CANDIDATES, gumbel_noise, sample,
 )
 from llms_on_kubernetes_tpu_torch.models.decoder import (
-    forward_chunk, forward_decode, forward_prefill, init_params,
+    forward_chunk, forward_prefill, init_params,
 )
+from llms_on_kubernetes_tpu_torch.ops.paged_attention import DecodeWorkspace
 
 Params = dict[str, Any]
 
-# stop ids a request may carry into the decode window's on-device mask
-STOP_SLOTS = 8
 KV_WRITE_STRATEGIES = ("dus", "fused")
+
+# packed prefill/chunk row columns: tokens in this call, history (tokens
+# cached before it), top_k, seed, slot, prompt length (the output-token
+# counting boundary), reset (the request's first call: its penalty counts
+# restart), four float32 columns viewed as int32 (temperature, top_p,
+# presence, frequency), then the page table and the tokens
+_PRE_COLS = 11
 
 
 class QueueFullError(RuntimeError):
@@ -102,6 +125,18 @@ class EngineConfig:
     num_pages: int = 512
     pages_per_slot: int = 32
     prefill_buckets: tuple[int, ...] = (64, 256, 1024)
+    # pipelined scheduling: keep up to async_depth decode windows in flight,
+    # each window's input tokens merged on the device from the newest
+    # in-flight window; a harvester thread reads the results, so the engine
+    # thread waits on the device only for backpressure at full depth
+    async_scheduling: bool = True
+    async_depth: int = 2
+    # device-queue pacing, the JAX engine's field: 0 = off, the only value
+    # taken (pacing is not ported; its cost and gain are unmeasured here)
+    pace_target_steps: float = 0.0
+    # async admission: up to this many same-bucket waiting requests prefill
+    # together in one call
+    admit_batch: int = 4
     max_waiting: int = 256
     # "dus": write_tokens then the decode kernel; "fused": the decode
     # kernel that appends the current token as it attends
@@ -132,6 +167,12 @@ class EngineConfig:
                              f"{self.kv_cache_dtype!r}")
         if self.decode_steps < 1:
             raise ValueError(f"decode_steps must be >= 1, got {self.decode_steps}")
+        for name in ("async_depth", "admit_batch"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
+        if self.pace_target_steps != 0:
+            raise ValueError(f"pace_target_steps: device-queue pacing is not ported, only 0 "
+                             f"(off) is taken, got {self.pace_target_steps}")
         self.prefill_buckets = tuple(sorted(int(b) for b in self.prefill_buckets))
         if not self.prefill_buckets or self.prefill_buckets[0] < 1:
             raise ValueError(f"bad prefill_buckets {self.prefill_buckets!r}")
@@ -160,6 +201,8 @@ class Request:
     finished: bool = False
     finish_reason: Optional[str] = None
     abort_reason: Optional[str] = None  # set by any thread; reaped by step()
+    # monotonic submission time: the youngest request is preempted first
+    submitted_at: float = 0.0
     events: "queue.SimpleQueue[tuple[list[int], bool, Optional[str]]]" = dataclasses.field(
         default_factory=queue.SimpleQueue)
     # optional push delivery, called on the engine thread with each payload
@@ -172,6 +215,175 @@ class StepEvent:
     new_tokens: list[int]
     finished: bool
     finish_reason: Optional[str]
+
+
+class _HostCopy:
+    """A device result on its way to the host. On a card: one non-blocking
+    copy into pinned memory that this object owns, then an event recorded
+    after it on the stream; ``read`` waits on the event (the wait releases
+    the interpreter lock). On the CPU the tensor is already computed."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = t
+
+    def read(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy().copy()
+
+
+@dataclasses.dataclass
+class InflightStep:
+    """A launched-but-unharvested decode window (async scheduling)."""
+    pack: _HostCopy                        # the window's packed results
+    toks: torch.Tensor                     # device [B] tokens after the window (merge)
+    active: list[tuple[int, Request]]      # (slot, request) snapshot at launch
+    seq: int = -1                          # harvester sequence number
+    planned: dict = dataclasses.field(default_factory=dict)  # slot -> tokens planned
+
+
+class _Harvester(threading.Thread):
+    """Off-thread device-to-host reader for async scheduling.
+
+    The engine thread pushes ``_HostCopy``s: decode windows under dense
+    non-negative sequence numbers, in dispatch order, and prefills' first
+    tokens under negative PRIORITY keys, which jump the queue (a new
+    request's time to first token must not wait behind window reads it does
+    not depend on). This thread waits on each copy's event and marks it
+    done; done-ness of windows is a dense prefix (``is_done(s)`` implies
+    every earlier window is done). The engine thread polls ``is_done`` /
+    ``key_done`` / ``get`` and blocks only in ``wait_done`` / ``wait_key``.
+    A failed read is kept and re-raised, the original exception, on every
+    later query from the engine thread. All engine state stays on the
+    engine thread; this thread touches only the copies and its dicts."""
+
+    def __init__(self):
+        super().__init__(daemon=True, name="engine-harvester")
+        self._cv = threading.Condition()
+        self._pending: "collections.deque[tuple[int, _HostCopy]]" = collections.deque()
+        self._prio: "collections.deque[tuple[int, _HostCopy]]" = collections.deque()
+        self._done: dict[int, np.ndarray] = {}
+        self._done_upto = -1
+        self._stopping = False
+        self._error: Optional[BaseException] = None
+
+    def push(self, key: int, copy: _HostCopy, priority: bool = False) -> None:
+        with self._cv:
+            (self._prio if priority else self._pending).append((key, copy))
+            self._cv.notify_all()
+
+    def run(self) -> None:
+        while True:
+            with self._cv:
+                while not (self._pending or self._prio) and not self._stopping:
+                    self._cv.wait()
+                if self._stopping and not (self._pending or self._prio):
+                    return
+                priority = bool(self._prio)
+                key, copy = (self._prio if priority else self._pending).popleft()
+            try:
+                host = copy.read()
+            except Exception as e:  # surfaces on the engine thread, never silently
+                with self._cv:
+                    if self._error is None:
+                        self._error = e
+                    self._cv.notify_all()
+                return
+            with self._cv:
+                self._done[key] = host
+                if not priority:
+                    self._done_upto = key
+                self._cv.notify_all()
+
+    def _check_error(self) -> None:
+        if self._error is not None:
+            raise self._error
+
+    def is_done(self, seq: int) -> bool:
+        self._check_error()
+        return seq <= self._done_upto
+
+    def key_done(self, key: int) -> bool:
+        self._check_error()
+        return key in self._done
+
+    def get(self, key: int) -> np.ndarray:
+        with self._cv:
+            return self._done[key]
+
+    def wait_done(self, seq: int, wake: Optional[threading.Event] = None) -> None:
+        """Block until window ``seq`` is done, or ``wake`` is set (a new
+        submission wants admission now: submit() sets it and pokes)."""
+        with self._cv:
+            while self._done_upto < seq:
+                self._check_error()
+                if wake is not None and wake.is_set():
+                    return
+                self._cv.wait()
+
+    def wait_key(self, key: int) -> None:
+        with self._cv:
+            while key not in self._done:
+                self._check_error()
+                self._cv.wait()
+
+    def poke(self) -> None:
+        """Wake any wait_done(wake=...) waiter (called from submit())."""
+        with self._cv:
+            self._cv.notify_all()
+
+    def discard_upto(self, seq: int) -> None:
+        with self._cv:
+            for s in [s for s in self._done if 0 <= s <= seq]:
+                del self._done[s]
+
+    def discard_key(self, key: int) -> None:
+        with self._cv:
+            self._done.pop(key, None)
+
+    def stop(self) -> None:
+        with self._cv:
+            self._stopping = True
+            self._cv.notify_all()
+
+    def close(self) -> None:
+        """Stop, and wait for the thread to finish what it holds: an
+        engine's finalizer, run at interpreter exit too, where a harvester
+        thread still running aborts the process on a card."""
+        self.stop()
+        if self.is_alive() and self is not threading.current_thread():
+            self.join(timeout=30)
+
+
+def _rebuild_count_rows(counts: torch.Tensor, tokens: torch.Tensor, slots: torch.Tensor,
+                        history: torch.Tensor, prompt_len: torch.Tensor,
+                        lengths: torch.Tensor, reset: torch.Tensor) -> None:
+    """Rebuild per-slot output-token counts from a prefill/chunk batch, in
+    place (the JAX ``_rebuild_count_rows``). A request's first call
+    (``reset`` != 0; history may be > 0 after an adopted prefix) restarts
+    its slot's counts, a later chunk adds to them. Only tokens at positions
+    >= the prompt length count (penalties cover OUTPUT tokens): that is
+    non-empty only for a resumed (preempted) request, whose prompt and
+    output replay through this path. Rows with length 0 keep their slot's
+    counts; the rows' slots are distinct."""
+    T = tokens.shape[1]
+    V = counts.shape[1]
+    t = torch.arange(T, device=tokens.device)
+    out = ((history[:, None] + t >= prompt_len[:, None]) & (t < lengths[:, None])
+           & (tokens >= 0) & (tokens < V))
+    rows = slots.long()
+    existing = counts[rows]
+    contrib = torch.zeros_like(existing).scatter_add_(
+        1, torch.where(out, tokens, 0).long(), out.to(counts.dtype))
+    row = torch.where((reset != 0)[:, None], 0, existing) + contrib
+    counts[rows] = torch.where((lengths > 0)[:, None], row, existing)
 
 
 def model_config_for(model: str, model_dir: Optional[str] = None) -> ModelConfig:
@@ -224,9 +436,40 @@ class Engine:
         # per-slot OUTPUT-token counts for presence/frequency penalties
         self.token_counts = torch.zeros((B, cfg.vocab_size), dtype=torch.int32,
                                         device=self.device)
+        # the decode kernels' scratch, this engine's own: its captured
+        # window holds the buffers' addresses
+        self.workspace = DecodeWorkspace()
         self.prefill_calls = 0       # forward_prefill calls (one per bucket batch)
         self.chunk_calls = 0         # forward_chunk calls (one per chunk)
         self.decode_forwards = 0     # forward_decode calls (K per window)
+        self.preemptions = 0         # KV-pressure preemptions
+        # the window, captured on a card before the harvester starts
+        self._window = DecodeWindow(
+            self.params, cfg, self.k_pages, self.v_pages, self.token_counts, self.workspace,
+            decode_steps=engine_config.decode_steps, slots=B,
+            pages_per_slot=engine_config.pages_per_slot,
+            admit_rows=engine_config.admit_batch, seed=engine_config.seed,
+            kv_write=engine_config.kv_write, device=self.device)
+        # async scheduling state (EngineConfig.async_scheduling)
+        self._async = bool(engine_config.async_scheduling)
+        self._inflight: "collections.deque[InflightStep]" = collections.deque()
+        # (request, priority key, row) awaiting a first-token read
+        self._pending_first: list[tuple[Request, int, int]] = []
+        self._seq_counter = iter(range(2 ** 62))     # decode windows (dense)
+        self._first_counter = iter(range(2 ** 62))   # priority prefill reads
+        # set by submit(): breaks the backpressure wait so admission (and
+        # the new request's prefill) never waits out a read
+        self._admit_wake = threading.Event()
+        self._harvester: Optional[_Harvester] = None
+        if self._async:
+            self._harvester = _Harvester()
+            self._harvester.start()
+            self._close = weakref.finalize(self, self._harvester.close)
+
+    @property
+    def graph_replays(self) -> int:
+        """Decode windows run as one CUDA graph replay (0 on the CPU)."""
+        return self._window.replays
 
     # ------------------------------------------------------------------
     # submission
@@ -257,8 +500,8 @@ class Engine:
             params = dataclasses.replace(params, max_tokens=max(1, max_len - len(prompt)))
         if (self.allocator.pages_needed(len(prompt) + params.max_tokens)
                 > self.config.num_pages - 1):
-            # admission reserves these pages; more than the pool holds would
-            # block the queue forever
+            # a request that cannot fit the pool alone would preempt itself
+            # forever
             raise ValueError(f"prompt + max_tokens ({len(prompt) + params.max_tokens} "
                              f"tokens) needs more pages than the pool holds "
                              f"({self.config.num_pages - 1})")
@@ -267,15 +510,19 @@ class Engine:
                     else int(self._seed_rng.integers(0, 2 ** 31 - 1))) & 0x7FFFFFFF
             req = Request(id=request_id or f"req-{next(self._id_counter)}",
                           prompt=[int(t) for t in prompt], params=params, seed=seed,
-                          on_event=on_event)
+                          submitted_at=time.monotonic(), on_event=on_event)
             if len(self.waiting) >= self.config.max_waiting:
                 raise QueueFullError(f"waiting queue is full ({self.config.max_waiting} "
                                      f"requests); retry later")
             self.waiting.append(req)
+        if self._harvester is not None:
+            self._admit_wake.set()
+            self._harvester.poke()      # break any backpressure wait: admit now
         return req
 
     def has_work(self) -> bool:
-        return bool(self.waiting) or any(r is not None for r in self.slots)
+        return (bool(self.waiting) or any(r is not None for r in self.slots)
+                or bool(self._inflight) or bool(self._pending_first))
 
     def abort(self, req: Request, reason: str = "abort") -> None:
         """Cancel from any thread; the next step() releases the slot."""
@@ -286,23 +533,39 @@ class Engine:
     # ------------------------------------------------------------------
 
     def step(self) -> list[StepEvent]:
+        events = self._reap_aborted()
+        if self._async:
+            admitted = self._admit_async(events)
+            status = self._launch_decode_multi(admitted, events)
+            events += self._harvest(drain=status == "idle")
+            self._deliver(events)
+            if status == "paced" and not events and not self.waiting:
+                # every row's budget is in flight: nothing to do until device
+                # work completes; a bounded nap keeps the loop from burning
+                # the lock the harvester needs
+                time.sleep(0.001)
+            return events
         # first tokens go out before the decode window runs, so a new
         # request's time to first token does not include the window
-        events = self._reap_aborted() + self._admit()
+        events += self._admit()
         self._deliver(events)
         window = self._decode()
         self._deliver(window)
         return events + window
 
     def shed(self, reason: str) -> list[StepEvent]:
-        """Finish every waiting and running request with ``reason`` (the
-        serving loop's answer to a failed step: clients get a terminal
-        event instead of a hang)."""
+        """Finish every waiting, running and in-flight request with
+        ``reason`` (the serving loop's answer to a failed step: clients get
+        a terminal event instead of a hang). Windows still on the device
+        complete and are discarded unread."""
         with self._lock:
             doomed = list(self.waiting)
             self.waiting.clear()
         doomed += [r for r in self.slots if r is not None]
+        doomed += [r for r, _key, _row in self._pending_first]
         events = [self._finish(r, reason) for r in doomed if not r.finished]
+        self._inflight.clear()
+        self._pending_first = []
         self._deliver(events)
         return events
 
@@ -330,6 +593,9 @@ class Engine:
         doomed += [r for r in self.slots
                    if r is not None and r.abort_reason and not r.finished]
         return [self._finish(r, r.abort_reason) for r in doomed]
+
+    def _free_slot(self) -> Optional[int]:
+        return next((i for i, r in enumerate(self.slots) if r is None), None)
 
     def _bucket_for(self, n: int) -> int:
         for b in self.config.prefill_buckets:
@@ -362,214 +628,501 @@ class Engine:
             req.slot = -1
         return StepEvent(req, [], True, reason)
 
+    def _preempt_youngest(self) -> None:
+        """Free the youngest running request's pages and requeue it at the
+        front, to re-prefill (prompt + output so far) when pages free up.
+        There are no priority classes yet: the victim is the youngest
+        submission."""
+        victims = [r for r in self.slots if r is not None]
+        if not victims:
+            raise MemoryError("KV pool exhausted with no preemptable request")
+        victim = max(victims, key=lambda r: r.submitted_at)
+        self.preemptions += 1
+        slot = victim.slot
+        self.allocator.free(slot)
+        self.slot_len[slot] = 0
+        self.slots[slot] = None
+        victim.slot = -1
+        victim.pending_token = -1
+        with self._lock:
+            self.waiting.appendleft(victim)
+
     # ------------------------------------------------------------------
-    # prefill
+    # admission and prefill
     # ------------------------------------------------------------------
+
+    def _seat_next(self, events: list[StepEvent], accept=None) -> Optional[tuple]:
+        """Seat the queue's head (the caller holds ``_lock``): a slot, the
+        longest cached prefix of its prompt, and pages for its prefill
+        tokens and one more. A fresh request prefills its prompt; a resumed
+        (preempted: it has output) one its prompt and every output token
+        but the pending last one, and finishes with "length" here when that
+        no longer fits a slot. Returns (slot, request, prefill tokens,
+        adopted prefix tokens, resumed), or None to stop admitting: no free
+        slot, no pages yet (FIFO: no overtaking), or ``accept(tokens,
+        hit)`` false (the caller's batch cannot take it now)."""
+        alloc = self.allocator
+        while self.waiting:
+            slot = self._free_slot()
+            if slot is None:
+                return None
+            req = self.waiting[0]
+            resumed = bool(req.output)
+            ptoks = req.prompt + req.output[:-1] if resumed else req.prompt
+            n = len(ptoks)
+            if alloc.pages_needed(n + 1) > alloc.pages_per_slot:
+                self.waiting.popleft()
+                events.append(self._finish(req, "length"))
+                continue
+            # adopt the cached prefix FIRST, so the page check counts only
+            # the pages past it; roll back if the request is not taken now
+            hit = alloc.adopt_prefix(slot, req.prompt, salt=req.cache_salt)
+            if ((accept is not None and not accept(ptoks, hit))
+                    or not alloc.can_allocate(slot, n + 1)):
+                if hit:
+                    alloc.rollback_adopt(slot)
+                return None
+            self.waiting.popleft()
+            alloc.allocate(slot, n + 1)
+            if hit:
+                alloc.commit_adopt(slot, hit)
+            self.slots[slot] = req
+            req.slot = slot
+            return slot, req, ptoks, hit, resumed
+        return None
+
+    def _runs_alone(self, ptoks: list[int], hit: int) -> bool:
+        """A cache hit or a prompt past the largest bucket takes the chunk
+        path, alone."""
+        return hit > 0 or len(ptoks) > max(self.config.prefill_buckets)
 
     def _admit(self) -> list[StepEvent]:
-        """Admit waiting requests in order while a slot and their pages are
-        free, then prefill them: one call per bucket, and the chunk path
-        for each request with a cache hit or a prompt past the largest
-        bucket."""
-        admitted: list[tuple[Request, int]] = []
-        alloc = self.allocator
-        with self._lock:
-            while self.waiting:
-                slot = next((i for i, r in enumerate(self.slots) if r is None), None)
-                if slot is None:
-                    break
-                req = self.waiting[0]
-                # adopt the cached prefix FIRST, so the page check counts
-                # only the pages past it; roll back if they do not fit yet
-                hit = alloc.adopt_prefix(slot, req.prompt, salt=req.cache_salt)
-                need = len(req.prompt) + req.params.max_tokens
-                if not alloc.can_allocate(slot, need):
-                    if hit:
-                        alloc.rollback_adopt(slot)
-                    break   # wait for pages to free up (FIFO: no overtaking)
-                self.waiting.popleft()
-                alloc.allocate(slot, need)
-                if hit:
-                    alloc.commit_adopt(slot, hit)
-                self.slots[slot] = req
-                req.slot = slot
-                admitted.append((req, hit))
-        by_bucket: dict[int, list[Request]] = {}
-        chunked: list[tuple[Request, int]] = []
-        for req, hit in admitted:
-            if hit > 0 or len(req.prompt) > max(self.config.prefill_buckets):
-                chunked.append((req, hit))
-            else:
-                by_bucket.setdefault(self._bucket_for(len(req.prompt)), []).append(req)
+        """Sync admission: seat waiting requests in order while a slot and
+        their pages are free, then prefill them: one call per bucket, and
+        the chunk path for each request with a cache hit or past the
+        largest bucket."""
         events: list[StepEvent] = []
-        for bucket, reqs in sorted(by_bucket.items()):
-            events += self._prefill(bucket, reqs)
-        for req, hit in chunked:
-            events += self._chunked_prefill(req, start=hit)
+        seats = []
+        with self._lock:
+            while (seat := self._seat_next(events)) is not None:
+                seats.append(seat)
+        by_bucket: dict[int, list[tuple]] = {}
+        chunked = []
+        for seat in seats:
+            _slot, _req, ptoks, hit, _resumed = seat
+            if self._runs_alone(ptoks, hit):
+                chunked.append(seat)
+            else:
+                by_bucket.setdefault(self._bucket_for(len(ptoks)), []).append(seat)
+        for bucket, rows in sorted(by_bucket.items()):
+            pack, _ = self._prefill(bucket, [(req, ptoks) for _s, req, ptoks, _h, _r in rows])
+            events += self._first_tokens(rows, pack)
+        for seat in chunked:
+            pack, _ = self._chunked_prefill(seat[1], seat[2], start=seat[3])
+            events += self._first_tokens([seat], pack)
         return events
 
-    def _rows(self, reqs: list[Request], lengths: list[int]):
-        """One host-to-device copy of the rows' sampling parameters and page
-        tables: (lengths, top_k, seeds, floats [R, 4] = temperature, top_p,
-        presence, frequency; page_table [R, pages_per_slot])."""
-        R = len(reqs)
-        ints = np.zeros((R, 3), np.int32)               # lengths, top_k, seed
-        floats = np.zeros((R, 4), np.float32)
-        for r, req in enumerate(reqs):
-            p = req.params
-            ints[r] = (lengths[r], p.top_k, req.seed)
-            floats[r] = (p.temperature, p.top_p, p.presence_penalty, p.frequency_penalty)
-        table = self.allocator.page_tables[[req.slot for req in reqs]]
-        host = np.concatenate([ints, floats.view(np.int32), table], axis=1)
-        d = torch.from_numpy(host).to(self.device)
-        return (*(d[:, c].contiguous() for c in range(3)), d[:, 3:7].view(torch.float32),
-                d[:, 7:])
-
-    def _first_tokens(self, reqs: list[Request], logits, lengths, top_k, seeds,
-                      fl) -> list[StepEvent]:
-        """Sample each row's first token from its prompt's last logits (the
-        noise keyed on the prompt length), publish the prompt's full pages
-        to the prefix cache, and emit the tokens."""
-        slot_idx = torch.as_tensor([req.slot for req in reqs], device=self.device)
-        # fresh requests: no output tokens yet, so the penalty counts reset
-        self.token_counts[slot_idx] = 0
-        noise = gumbel_noise(self.config.seed, seeds, lengths,
-                             min(MAX_CANDIDATES, logits.shape[1]))
-        res = sample(logits, noise, fl[:, 0], top_k, fl[:, 1],
-                     penalties=(fl[:, 2], fl[:, 3], self.token_counts[slot_idx]))
-        out = _to_host(res)
+    def _first_tokens(self, seats: list[tuple], pack: torch.Tensor) -> list[StepEvent]:
+        """Sync: read a prefill's samples, publish each prompt's full pages
+        to the prefix cache, and emit each fresh request's first token (a
+        resumed request restores its pending token instead)."""
+        out = unpack_results(pack.cpu().numpy())
         events: list[StepEvent] = []
-        for r, req in enumerate(reqs):
-            self.slot_len[req.slot] = len(req.prompt)
+        for r, (slot, req, ptoks, _hit, resumed) in enumerate(seats):
+            self.slot_len[slot] = len(ptoks)
             # before _emit, which frees the slot of a request that finishes
-            self.allocator.register_prefix(req.slot, req.prompt, salt=req.cache_salt)
+            self.allocator.register_prefix(slot, req.prompt, salt=req.cache_salt)
+            if resumed:
+                req.pending_token = req.output[-1]
+                continue
             tok = int(out[0][r])
             req.pending_token = tok
             events += self._emit(req, tok, _lp_entry(out, r))
         return events
 
-    def _prefill(self, bucket: int, reqs: list[Request]) -> list[StepEvent]:
-        tokens = np.zeros((len(reqs), bucket), np.int32)
-        for r, req in enumerate(reqs):
-            tokens[r, :len(req.prompt)] = req.prompt
-        lengths, top_k, seeds, fl, page_table = self._rows(
-            reqs, [len(req.prompt) for req in reqs])
-        logits, _, _ = forward_prefill(self.params, self.model_config,
-                                       torch.from_numpy(tokens).to(self.device), lengths,
+    def _pack_row(self, host: np.ndarray, r: int, req: Request, m: int, history: int,
+                  reset: bool) -> None:
+        p = req.params
+        host[r, :7] = (m, history, p.top_k, req.seed, req.slot, len(req.prompt), int(reset))
+        host[r, 7:11] = np.array([p.temperature, p.top_p, p.presence_penalty,
+                                  p.frequency_penalty], np.float32).view(np.int32)
+        host[r, _PRE_COLS:_PRE_COLS + self.config.pages_per_slot] = \
+            self.allocator.page_tables[req.slot]
+
+    def _device_rows(self, host: np.ndarray) -> tuple:
+        """One host-to-device copy of packed prefill rows: (lengths, history,
+        top_k, seeds, slots, prompt_len, reset, floats [R, 4], page_table,
+        tokens)."""
+        d = upload(host, self.device)
+        pt_end = _PRE_COLS + self.config.pages_per_slot
+        return (*(d[:, c].contiguous() for c in range(7)), d[:, 7:11].view(torch.float32),
+                d[:, _PRE_COLS:pt_end].contiguous(), d[:, pt_end:].contiguous())
+
+    def _sample_first(self, logits, positions, top_k, seeds, fl, slots):
+        """Sample each row's first token from its prompt's last logits, the
+        noise keyed on the prompt length. Returns (packed results, tokens),
+        on the device."""
+        noise = gumbel_noise(self.config.seed, seeds, positions,
+                             min(MAX_CANDIDATES, logits.shape[1]))
+        res = sample(logits, noise, fl[:, 0], top_k, fl[:, 1],
+                     penalties=(fl[:, 2], fl[:, 3], self.token_counts[slots.long()]))
+        return pack_results([res]), res.tokens
+
+    def _prefill(self, bucket: int, rows: list[tuple[Request, list[int]]]):
+        """One ``forward_prefill`` call over ``rows`` (request, tokens to
+        prefill), padded to ``bucket``; the rows' penalty counts are rebuilt
+        first. Returns (packed samples, sampled tokens), on the device.
+
+        Two or more rows are padded to ``admit_batch`` rows (at most one a
+        slot), as the JAX engine pads them: the matmuls then see one row
+        count a bucket besides 1, so a request's KV and first token do not
+        depend on how many requests shared its prefill (a resumed request
+        re-prefills in other company than its first prefill had). A padded
+        row has length 0: it writes only the trash page, and its slot (one
+        no real row uses) keeps its counts."""
+        pps, B = self.config.pages_per_slot, self.config.max_decode_slots
+        n = len(rows)
+        R = n if n == 1 else max(n, min(self.config.admit_batch, B))
+        host = np.zeros((R, _PRE_COLS + pps + bucket), np.int32)
+        for r, (req, ptoks) in enumerate(rows):
+            self._pack_row(host, r, req, len(ptoks), 0, True)
+            host[r, _PRE_COLS + pps:_PRE_COLS + pps + len(ptoks)] = ptoks
+        used = {req.slot for req, _ in rows}
+        host[n:, 4] = [s for s in range(B) if s not in used][:R - n]
+        host[n:, 8] = np.float32(1.0).view(np.int32)      # top_p off
+        (lengths, history, top_k, seeds, slots, prompt_len, reset, fl, page_table,
+         tokens) = self._device_rows(host)
+        _rebuild_count_rows(self.token_counts, tokens, slots, history, prompt_len, lengths,
+                            reset)
+        logits, _, _ = forward_prefill(self.params, self.model_config, tokens, lengths,
                                        self.k_pages, self.v_pages, page_table)
         self.prefill_calls += 1
-        return self._first_tokens(reqs, logits, lengths, top_k, seeds, fl)
+        return self._sample_first(logits, lengths, top_k, seeds, fl, slots)
 
-    def _chunked_prefill(self, req: Request, start: int = 0) -> list[StepEvent]:
-        """Prefill ``req``'s prompt from position ``start`` (> 0 when a
-        cached prefix was adopted: those positions' KV is already in the
-        slot's pages) in chunks of the largest bucket, each padded to the
-        smallest bucket that fits, one ``forward_chunk`` call per chunk
-        with history = the position it starts at. Only the final chunk's
-        logits are sampled, exactly as a one-shot prefill of the prompt
-        would sample them."""
-        n = len(req.prompt)
+    def _chunked_prefill(self, req: Request, ptoks: list[int], start: int = 0):
+        """Prefill ``ptoks`` from position ``start`` (> 0 when a cached
+        prefix was adopted: those positions' KV is already in the slot's
+        pages) in chunks of the largest bucket, each padded to the smallest
+        bucket that fits, one ``forward_chunk`` call per chunk with history
+        = the position it starts at. Only the final chunk's logits are
+        sampled, exactly as a one-shot prefill would sample them. Returns
+        (packed samples, sampled tokens), on the device."""
+        n = len(ptoks)
         step = max(self.config.prefill_buckets)
-        lengths, top_k, seeds, fl, page_table = self._rows([req], [n])
-        pos, logits = start, None
+        pps = self.config.pages_per_slot
+        pos = start
         while pos < n:
             m = min(step, n - pos)
-            host = np.zeros((1, 2 + self._bucket_for(m)), np.int32)   # m, pos, tokens
-            host[0, :2] = (m, pos)
-            host[0, 2:2 + m] = req.prompt[pos:pos + m]
-            d = torch.from_numpy(host).to(self.device)
-            logits, _, _ = forward_chunk(self.params, self.model_config, d[:, 2:], d[:, 1],
-                                         d[:, 0], self.k_pages, self.v_pages, page_table)
+            host = np.zeros((1, _PRE_COLS + pps + self._bucket_for(m)), np.int32)
+            self._pack_row(host, 0, req, m, pos, pos == start)
+            host[0, _PRE_COLS + pps:_PRE_COLS + pps + m] = ptoks[pos:pos + m]
+            (lengths, history, top_k, seeds, slots, prompt_len, reset, fl, page_table,
+             tokens) = self._device_rows(host)
+            _rebuild_count_rows(self.token_counts, tokens, slots, history, prompt_len,
+                                lengths, reset)
+            logits, _, _ = forward_chunk(self.params, self.model_config, tokens, history,
+                                         lengths, self.k_pages, self.v_pages, page_table)
             self.chunk_calls += 1
             pos += m
-        return self._first_tokens([req], logits, lengths, top_k, seeds, fl)
+        return self._sample_first(logits, history + lengths, top_k, seeds, fl, slots)
 
     # ------------------------------------------------------------------
-    # decode
+    # decode windows
     # ------------------------------------------------------------------
 
-    def _decode(self) -> list[StepEvent]:
-        """One fused window of up to ``decode_steps`` tokens per slot."""
-        B, K, dev = self.config.max_decode_slots, self.config.decode_steps, self.device
-        max_len = self.config.max_model_len
-        active = [(i, r) for i, r in enumerate(self.slots) if r is not None]
-        if not active:
-            return []
-        ints = np.zeros((B, 5 + STOP_SLOTS), np.int32)  # len0, budget, cur, top_k, seed, stops
-        ints[:, 5:] = -1
-        floats = np.zeros((B, 4), np.float32)
-        floats[:, 1] = 1.0
-        plan: dict[int, int] = {}
+    def _window_rows(self, active: list[tuple[int, Request]], plan: dict,
+                     base: dict) -> np.ndarray:
+        """The packed window rows: each active row's sampling parameters,
+        stop ids, budget ``plan[i]`` and first length ``base[i]`` (0 when
+        it plans nothing: it rides along idle), every slot's page table.
+        Token sources are the caller's (host values by default)."""
+        packed = idle_rows(self.config.max_decode_slots, self.config.pages_per_slot)
+        packed[:, DEC_COLS:] = self.allocator.page_tables
         for i, r in active:
-            base0 = int(self.slot_len[i]) + 1
-            p = max(0, min(K, r.params.max_tokens - len(r.output), max_len - base0 + 1))
+            p = plan.get(i, 0)
+            prm = r.params
+            packed[i, LEN] = base[i] if p > 0 else 0
+            packed[i, BUD] = p
+            packed[i, VAL] = r.pending_token
+            packed[i, TOP_K] = prm.top_k
+            packed[i, SEED] = r.seed
+            packed[i, STOP:STOP + len(prm.stop_token_ids)] = prm.stop_token_ids
+            packed[i, FLOATS:FLOATS + 4] = np.array(
+                [prm.temperature, prm.top_p, prm.presence_penalty, prm.frequency_penalty],
+                np.float32).view(np.int32)
+        return packed
+
+    def _plan_window(self, events: list[StepEvent]) -> tuple[dict, dict]:
+        """Plan the next window: per row p <= K tokens from slot_len plus
+        the tokens in flight, clipped by the request's remaining budget
+        (less a first token still being read) and max_model_len, and grow
+        the row's pages to cover them. On exhaustion drain the pipeline
+        (finishes may hide in unread windows), and only then preempt the
+        youngest request. Returns (tokens in flight per slot, plan)."""
+        B, K = self.config.max_decode_slots, self.config.decode_steps
+        max_len = self.config.max_model_len
+        # slot_len + in-flight tokens and the remaining budget are invariant
+        # under a harvest (tokens move from in flight to slot_len one for
+        # one), so a plan made before a drain stays right after it
+        infl = self._inflight_tokens()
+        first_pending = {id(r) for r, _k, _row in self._pending_first}
+        plan: dict[int, int] = {}
+        i = 0
+        while i < B:
+            r = self.slots[i]
+            if r is None:
+                i += 1
+                continue
+            prior = infl.get(i, 0)
+            base0 = int(self.slot_len[i]) + prior + 1
+            # a first token still being read is emitted before any of this
+            # window's tokens: budget for it
+            extra = 1 if id(r) in first_pending else 0
+            budget = r.params.max_tokens - len(r.output) - prior - extra
+            p = max(0, min(K, budget, max_len - base0 + 1))
             plan[i] = p
             if p == 0:
+                i += 1
                 continue
-            prm = r.params
-            ints[i, :4] = (base0, p, r.pending_token, prm.top_k)
-            ints[i, 4] = r.seed
-            ints[i, 5:5 + len(prm.stop_token_ids)] = prm.stop_token_ids
-            floats[i] = (prm.temperature, prm.top_p, prm.presence_penalty,
-                         prm.frequency_penalty)
-        if not any(plan.values()):
-            return []
-        host = np.concatenate([ints, floats.view(np.int32), self.allocator.page_tables],
-                              axis=1)
-        d = torch.from_numpy(host).to(dev)
-        lengths0, budget, cur, top_k, seeds = (d[:, c] for c in range(5))
-        stop_ids = d[:, 5:5 + STOP_SLOTS]
-        fl = d[:, 5 + STOP_SLOTS:9 + STOP_SLOTS].view(torch.float32)
-        page_table = d[:, 9 + STOP_SLOTS:]
-        rows = torch.arange(B, device=dev)
-        alive = lengths0 > 0
-        C = min(MAX_CANDIDATES, self.model_config.vocab_size)
-        results = []
-        for j in range(K):
-            lengths = torch.where(alive, lengths0 + j, 0)
-            # the input token is an OUTPUT token: count it before sampling
-            self.token_counts.index_put_((rows, cur.long()), alive.to(torch.int32),
-                                         accumulate=True)
-            logits, _, _ = forward_decode(self.params, self.model_config, cur, lengths,
-                                          self.k_pages, self.v_pages, page_table,
-                                          kv_write=self.config.kv_write)
-            noise = gumbel_noise(self.config.seed, seeds, lengths, C)
-            res = sample(logits, noise, fl[:, 0], top_k, fl[:, 1],
-                         penalties=(fl[:, 2], fl[:, 3], self.token_counts))
-            results.append(res)
-            stopped = ((stop_ids >= 0) & (stop_ids == res.tokens[:, None])).any(dim=1)
-            cur = torch.where(alive, res.tokens, cur)
-            alive = alive & ~stopped & (j + 1 < budget)
-        self.decode_forwards += K
-        out = _to_host(*results)
+            try:
+                self.allocator.allocate(i, base0 + p - 1)
+                i += 1
+            except MemoryError:
+                if self._inflight or self._pending_first:
+                    events += self._harvest(drain=True)
+                    infl = self._inflight_tokens()
+                    first_pending = {id(r) for r, _k, _row in self._pending_first}
+                    continue
+                self._preempt_youngest()
+                infl = self._inflight_tokens()
+        return infl, plan
 
+    def _emit_window(self, active: list[tuple[int, Request]], planned: dict,
+                     out: tuple) -> list[StepEvent]:
+        """Emit a window's tokens (``unpack_results`` of it), up to each
+        row's plan, in order, until the request finishes. A request that
+        finished, was aborted or preempted after the launch is skipped:
+        its row's tokens are wasted speculation."""
+        B = self.config.max_decode_slots
         events: list[StepEvent] = []
-        for i, r in active:
-            for j in range(plan[i]):
-                self.slot_len[i] += 1          # the pending token's KV is cached
-                tok = int(out[0][j * B + i])
-                r.pending_token = tok
-                events += self._emit(r, tok, _lp_entry(out, j * B + i))
-                if r.finished:
+        for slot, req in active:
+            if req.finished or req.slot != slot:
+                continue
+            for j in range(planned.get(slot, 0)):
+                self.slot_len[slot] += 1        # the pending token's KV is cached
+                tok = int(out[0][j * B + slot])
+                req.pending_token = tok
+                events += self._emit(req, tok, _lp_entry(out, j * B + slot))
+                if req.finished:
+                    break                       # the device masked the row here too
+        return events
+
+    def _decode(self) -> list[StepEvent]:
+        """Sync: one window of up to ``decode_steps`` tokens per slot, read
+        at once."""
+        events: list[StepEvent] = []
+        _infl, plan = self._plan_window(events)
+        active = [(i, r) for i, r in enumerate(self.slots) if r is not None]
+        if not any(plan.get(i, 0) for i, _r in active):
+            return events
+        packed = self._window_rows(active, plan,
+                                   {i: int(self.slot_len[i]) + 1 for i, _r in active})
+        pack, _ = self._window.run(packed, None, None)
+        self.decode_forwards += self.config.decode_steps
+        return events + self._emit_window(active, plan, unpack_results(pack.cpu().numpy()))
+
+    # ------------------------------------------------------------------
+    # async (pipelined) scheduling
+    # ------------------------------------------------------------------
+
+    def _inflight_tokens(self) -> dict:
+        """Per-slot tokens planned by in-flight windows for the slot's
+        CURRENT request (a window's entry for a previous occupant does not
+        count: the harvest skips it)."""
+        counts: dict[int, int] = {}
+        for s in self._inflight:
+            for j, r in s.active:
+                if self.slots[j] is r:
+                    counts[j] = counts.get(j, 0) + s.planned.get(j, 0)
+        return counts
+
+    def _admit_async(self, events: list[StepEvent]):
+        """Admission without a host sync: prefill up to ``admit_batch``
+        waiting same-bucket requests in one call (a cache hit or a prompt
+        past the largest bucket runs alone, through the chunk path); the
+        first tokens are read by the harvester. Returns None or the
+        admissions for the window's on-device token merge: {"toks": the
+        prefill's sampled tokens, "slots": {slot: (resumed, host value,
+        prefill row)}}."""
+        # clear BEFORE scanning: a submit after this point sets it again
+        self._admit_wake.clear()
+        picked: list[tuple] = []
+
+        def accept(ptoks: list[int], hit: int) -> bool:
+            # the first pick sets the batch: one that runs alone, or the
+            # bucket every later pick must share
+            return not picked or (not self._runs_alone(ptoks, hit) and self._bucket_for(
+                len(ptoks)) == self._bucket_for(len(picked[0][2])))
+
+        long_pick = None
+        with self._lock:
+            while len(picked) < self.config.admit_batch:
+                seat = self._seat_next(events, accept)
+                if seat is None:
                     break
+                if self._runs_alone(seat[2], seat[3]):
+                    long_pick = seat
+                    break
+                picked.append(seat)
+        merge: dict = {"slots": {}}
+        if long_pick is not None:
+            _slot, req, ptoks, hit, _resumed = long_pick
+            pack, merge["toks"] = self._chunked_prefill(req, ptoks, start=hit)
+            rows = [long_pick]
+        elif picked:
+            pack, merge["toks"] = self._prefill(self._bucket_for(len(picked[0][2])),
+                                                [(req, ptoks) for _s, req, ptoks, _h, _r in picked])
+            rows = picked
+        else:
+            return None
+        key = None
+        for row, (slot, req, ptoks, _hit, resumed) in enumerate(rows):
+            self.slot_len[slot] = len(ptoks)
+            # the dispatched prefill writes these pages; device order makes
+            # them valid for any later adopter
+            self.allocator.register_prefix(slot, req.prompt, salt=req.cache_salt)
+            if resumed:
+                # the prefill's sample is discarded; the pending token is
+                # host-known
+                req.pending_token = req.output[-1]
+                merge["slots"][slot] = (True, req.output[-1], row)
+                continue
+            if key is None:
+                # priority read: first tokens jump the window-read queue
+                key = -1 - next(self._first_counter)
+                self._harvester.push(key, _HostCopy(pack), priority=True)
+            merge["slots"][slot] = (False, 0, row)
+            self._pending_first.append((req, key, row))
+        return merge
+
+    def _launch_decode_multi(self, admitted, events: list[StepEvent]) -> str:
+        """Launch one window whose input tokens are merged ON THE DEVICE
+        from the newest in-flight window (continuing rows), host values
+        (rows with nothing in flight, resumed rows) and this step's prefill
+        (just-admitted rows); each row's plan (``_plan_window``) is its
+        on-device budget. Returns "launched", "paced" (every row's budget is
+        in flight) or "idle"."""
+        infl, plan = self._plan_window(events)
+        active = [(i, r) for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return "idle"
+        if not any(plan.get(i, 0) for i, _r in active):
+            # every row's budget is in flight; harvesting makes progress
+            return "paced"
+        packed = self._window_rows(
+            active, plan, {i: int(self.slot_len[i]) + infl.get(i, 0) + 1 for i, _r in active})
+        for i, r in active:
+            if admitted is not None and i in admitted["slots"]:
+                resumed, host_val, row = admitted["slots"][i]
+                if resumed:
+                    packed[i, SRC], packed[i, VAL] = SRC_HOST, host_val
+                else:
+                    packed[i, SRC], packed[i, PRE_ROW] = SRC_PREFILL, row
+            elif infl.get(i, 0) > 0:
+                packed[i, SRC] = SRC_INFLIGHT
+        last = self._inflight[-1].toks if self._inflight else None
+        pack, toks = self._window.run(packed, last,
+                                      admitted["toks"] if admitted is not None else None)
+        self.decode_forwards += self.config.decode_steps
+        seq = next(self._seq_counter)
+        step = InflightStep(_HostCopy(pack), toks, active, seq,
+                            planned={i: plan.get(i, 0) for i, _r in active})
+        self._inflight.append(step)
+        self._harvester.push(seq, step.pack)
+        return "launched"
+
+    def _harvest(self, drain: bool) -> list[StepEvent]:
+        """Consume completed results in dispatch order without blocking on
+        the device, except to drain (``drain``: memory pressure, an idle
+        launch) or for backpressure (``async_depth`` windows unread). A
+        submission breaks the backpressure wait, so its admission never
+        waits out a read."""
+        events: list[StepEvent] = []
+        if not self._inflight and not self._pending_first:
+            return events
+        depth = self.config.async_depth
+        while True:
+            self._collect_ready(events)
+            if drain:
+                if not self._inflight and not self._pending_first:
+                    break
+            elif len(self._inflight) < depth:
+                break
+            # the oldest window's request may still await its FIRST token:
+            # consuming the window first would let the late first token
+            # rewind pending_token
+            key = self._head_blocking_first()
+            if key is not None:
+                self._harvester.wait_key(key)
+                continue
+            if self._inflight:
+                k = len(self._inflight) if drain else len(self._inflight) - (depth - 1)
+                self._harvester.wait_done(self._inflight[k - 1].seq,
+                                          wake=None if drain else self._admit_wake)
+                if not drain and self._admit_wake.is_set():
+                    # a submission wants admission now: take what is done
+                    # and go back to the loop
+                    self._collect_ready(events)
+                    break
+                continue
+            self._harvester.wait_key(self._pending_first[0][1])
+        return events
+
+    def _head_blocking_first(self) -> Optional[int]:
+        """The pending-first key gating the OLDEST in-flight window, or None."""
+        if not self._inflight or not self._harvester.is_done(self._inflight[0].seq):
+            return None
+        waiting = {id(r): k for r, k, _row in self._pending_first}
+        for slot, req in self._inflight[0].active:
+            if not req.finished and req.slot == slot and id(req) in waiting:
+                return waiting[id(req)]
+        return None
+
+    def _collect_ready(self, events: list[StepEvent]) -> None:
+        """Non-blocking: consume every completed first token, then windows
+        in dispatch order while no pending first gates them."""
+        done_entries, still = [], []
+        for entry in self._pending_first:
+            (done_entries if self._harvester.key_done(entry[1]) else still).append(entry)
+        for req, key, row in done_entries:
+            if req.finished:
+                continue
+            out = unpack_results(self._harvester.get(key))
+            tok = int(out[0][row])
+            req.pending_token = tok
+            events += self._emit(req, tok, _lp_entry(out, row))
+        if done_entries:
+            self._pending_first = still
+            for k in {k for _r, k, _row in done_entries} - {k for _r, k, _row in still}:
+                self._harvester.discard_key(k)
+        processed = -1
+        while self._inflight and self._harvester.is_done(self._inflight[0].seq):
+            if self._head_blocking_first() is not None:
+                break
+            step = self._inflight.popleft()
+            processed = step.seq
+            events += self._emit_window(step.active, step.planned,
+                                        unpack_results(self._harvester.get(step.seq)))
+        if processed >= 0:
+            self._harvester.discard_upto(processed)
+
+    def _drain_async(self) -> list[StepEvent]:
+        """Synchronize: harvest everything in flight and deliver it."""
+        events = self._harvest(drain=True)
+        self._deliver(events)
         return events
 
 
-def _to_host(*results) -> tuple:
-    """One device-to-host copy for the sampled tokens, logprobs and top
-    alternatives of one or more SampleResults (rows concatenated)."""
-    toks = torch.cat([r.tokens for r in results])
-    ids = torch.cat([r.top_ids for r in results])
-    lps = torch.cat([r.logprobs[:, None] for r in results])
-    tlps = torch.cat([r.top_logprobs for r in results])
-    packed = torch.cat([toks[:, None], ids, lps.view(torch.int32),
-                        tlps.view(torch.int32)], dim=1).cpu().numpy()
-    K = ids.shape[1]
-    return (packed[:, 0], packed[:, 1:1 + K],
-            np.ascontiguousarray(packed[:, 1 + K]).view(np.float32),
-            np.ascontiguousarray(packed[:, 2 + K:]).view(np.float32))
-
-
 def _lp_entry(out: tuple, row: int) -> tuple:
-    """(logprob, top_ids, top_logprobs) of one row of ``_to_host``."""
+    """(logprob, top_ids, top_logprobs) of one row of ``unpack_results``."""
     return (float(out[2][row]), out[1][row].tolist(), out[3][row].tolist())

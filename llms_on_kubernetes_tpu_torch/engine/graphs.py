@@ -1,0 +1,242 @@
+"""The K-step decode window as one function over static tensors, and its
+capture as one CUDA graph (counterpart of the JAX engine's jitted
+``_decode_multi_packed_step``, ``llms_on_kubernetes_tpu/engine/engine.py``).
+
+``decode_window`` is the window: the on-device token merge, then K x
+(count the input token -> ``forward_decode`` -> ``gumbel_noise`` ->
+``sample`` -> stop and budget mask), and the packed results of all K
+steps. Every row's inputs come in one packed int32 array (``DEC_COLS``
+below plus the page table), so a window is one host-to-device copy.
+
+``DecodeWindow`` runs the windows of one engine. On a card it captures
+``decode_window`` once, at construction, as a CUDA graph over static
+buffers (the packed inputs, the prefill tokens, the output tokens and
+packed results) and the engine's pools, penalty counts, weights and
+decode workspace, and each window is one replay: the counterpart of XLA
+dispatching the compiled window once. On the CPU the same function runs
+eagerly; it is the plain version the tests hold the JAX engine against.
+There is no switch between the two: a CUDA engine always replays, and a
+capture or replay error raises.
+
+Launch counts: a replay runs no Python, so the kernel wrappers' counts
+made while capturing are recorded apart (``kernels.counting_apart``) and
+added on every replay; the eager warm-up before the capture counts
+nowhere.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from llms_on_kubernetes_tpu_torch import kernels
+from llms_on_kubernetes_tpu_torch.engine.sampling import (
+    MAX_CANDIDATES, gumbel_noise, sample,
+)
+from llms_on_kubernetes_tpu_torch.models.decoder import forward_decode
+
+# stop ids a request may carry into the window's on-device mask
+STOP_SLOTS = 8
+
+# packed decode columns: lengths0 (the first step's length including its
+# input token; 0 => the row rides along idle), the row's budget (tokens
+# planned this window), the input token's source (0: the newest in-flight
+# window's output, 1: the host value, 2: this step's prefill sample at
+# the prefill row), the host value, the prefill row, top_k, seed, the
+# stop ids (-1 pads), then four float32 columns viewed as int32
+# (temperature, top_p, presence, frequency), then the page table
+LEN, BUD, SRC, VAL, PRE_ROW, TOP_K, SEED = range(7)
+STOP = 7
+FLOATS = STOP + STOP_SLOTS
+DEC_COLS = FLOATS + 4
+SRC_INFLIGHT, SRC_HOST, SRC_PREFILL = 0, 1, 2
+
+
+def idle_rows(B: int, pages_per_slot: int) -> np.ndarray:
+    """A packed window whose rows are all idle (top_p off, no stops)."""
+    packed = np.zeros((B, DEC_COLS + pages_per_slot), np.int32)
+    packed[:, SRC] = SRC_HOST
+    packed[:, STOP:STOP + STOP_SLOTS] = -1
+    packed[:, FLOATS + 1] = np.float32(1.0).view(np.int32)
+    return packed
+
+
+def pack_results(results: list) -> torch.Tensor:
+    """The sampled tokens, top ids, logprobs and top logprobs of one or
+    more SampleResults as one int32 array [rows, 2 + 2 * topk] (floats
+    viewed as int32; rows concatenated): one device-to-host copy."""
+    toks = torch.cat([r.tokens[:, None] for r in results])
+    ids = torch.cat([r.top_ids for r in results])
+    lps = torch.cat([r.logprobs[:, None] for r in results])
+    tlps = torch.cat([r.top_logprobs for r in results])
+    return torch.cat([toks, ids, lps.view(torch.int32), tlps.view(torch.int32)], dim=1)
+
+
+def unpack_results(packed: np.ndarray) -> tuple:
+    """(tokens, top_ids, logprobs, top_logprobs) of a ``pack_results``
+    array copied to the host."""
+    k = (packed.shape[1] - 2) // 2
+    return (packed[:, 0], packed[:, 1:1 + k],
+            np.ascontiguousarray(packed[:, 1 + k]).view(np.float32),
+            np.ascontiguousarray(packed[:, 2 + k:]).view(np.float32))
+
+
+def decode_window(params: dict, cfg, K: int, packed: torch.Tensor,
+                  last_toks: torch.Tensor, prefill_toks: torch.Tensor, k_pages, v_pages,
+                  counts: torch.Tensor, *, seed: int, kv_write: str = "dus",
+                  workspace=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One fused window of up to K tokens per row.
+
+    ``packed`` [B, DEC_COLS + pages_per_slot] int32 (see the columns
+    above); ``last_toks`` [B] the newest in-flight window's output tokens;
+    ``prefill_toks`` [R] this step's prefill samples; the pools and
+    ``counts`` [B, V] (per-row output-token counts for the penalties) are
+    updated in place. Iteration j samples at sequence position lengths0 +
+    j, counting its input token before it samples. A row whose sampled
+    token is one of its stop ids, or whose budget runs out, is masked
+    (length 0) for the rest of the window: its KV write goes to the trash
+    page, its counts stop and its input token freezes. Returns (the K
+    steps' packed results [K * B, 2 + 2 * topk] int32, row j * B + b for
+    step j of row b; the tokens after the window [B] int32)."""
+    B = packed.shape[0]
+    V = counts.shape[1]
+    lengths0, budget = packed[:, LEN], packed[:, BUD]
+    src, top_k, seeds = packed[:, SRC], packed[:, TOP_K], packed[:, SEED]
+    stop_ids = packed[:, STOP:STOP + STOP_SLOTS]
+    fl = packed[:, FLOATS:FLOATS + 4].view(torch.float32)
+    page_table = packed[:, DEC_COLS:]
+    cur = torch.where(src == SRC_INFLIGHT, last_toks,
+                      torch.where(src == SRC_HOST, packed[:, VAL],
+                                  prefill_toks[packed[:, PRE_ROW].long()]))
+    alive = (lengths0 > 0) & (budget > 0)
+    row_base = torch.arange(B, device=packed.device) * V
+    flat_counts = counts.view(-1)
+    C = min(MAX_CANDIDATES, cfg.vocab_size)
+    results = []
+    for j in range(K):
+        lengths = torch.where(alive, lengths0 + j, 0)
+        # the input token is an OUTPUT token: count it before sampling (an
+        # idle row adds 0; its token may be a placeholder)
+        flat_counts.scatter_add_(0, row_base + cur.long().clamp(0, V - 1),
+                                 alive.to(counts.dtype))
+        logits, _, _ = forward_decode(params, cfg, cur, lengths, k_pages, v_pages, page_table,
+                                      kv_write=kv_write, workspace=workspace)
+        noise = gumbel_noise(seed, seeds, lengths, C)
+        res = sample(logits, noise, fl[:, 0], top_k, fl[:, 1],
+                     penalties=(fl[:, 2], fl[:, 3], counts))
+        results.append(res)
+        stopped = ((stop_ids >= 0) & (stop_ids == res.tokens[:, None])).any(dim=1)
+        cur = torch.where(alive, res.tokens, cur)
+        alive = alive & ~stopped & (j + 1 < budget)
+    return pack_results(results), cur
+
+
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``arr`` on ``device``. On a card: a non-blocking copy from pinned
+    memory, so the host never waits for the work queued before it (a copy
+    from pageable memory synchronizes the stream); the pinned block is not
+    reused before the copy has run (PyTorch's caching host allocator
+    records the copy)."""
+    t = torch.from_numpy(arr)
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class DecodeWindow:
+    """The decode windows of one engine: captured once as a CUDA graph and
+    replayed on a card, run eagerly on the CPU.
+
+    It holds the engine's weights, pools (``k_pages``, ``v_pages``),
+    penalty ``counts`` and decode ``workspace``; none of these may be
+    reassigned after the capture, only updated in place. ``replays``
+    counts the graph's replays (0 on the CPU), ``launches`` one replay's
+    kernel launches."""
+
+    def __init__(self, params: dict, model_config, k_pages, v_pages, counts: torch.Tensor,
+                 workspace, *, decode_steps: int, slots: int, pages_per_slot: int,
+                 admit_rows: int, seed: int, kv_write: str, device: torch.device):
+        self.params, self.model_config = params, model_config
+        self.k_pages, self.v_pages, self.counts = k_pages, v_pages, counts
+        self.workspace = workspace
+        self.K, self.B, self.pages_per_slot = decode_steps, slots, pages_per_slot
+        self.seed, self.kv_write, self.device = seed, kv_write, device
+        self.replays = 0
+        self.launches: dict = {}
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        if device.type == "cuda":
+            self._capture(admit_rows)
+
+    def _call(self, packed, last_toks, prefill_toks, k_pages=None, v_pages=None,
+              counts=None, workspace=None):
+        return decode_window(
+            self.params, self.model_config, self.K, packed, last_toks, prefill_toks,
+            self.k_pages if k_pages is None else k_pages,
+            self.v_pages if v_pages is None else v_pages,
+            self.counts if counts is None else counts,
+            seed=self.seed, kv_write=self.kv_write,
+            workspace=self.workspace if workspace is None else workspace)
+
+    def _capture(self, admit_rows: int) -> None:
+        """Warm up K eager steps with every row idle on a side stream (the
+        kernels' lazy builds and first-launch attributes, cuBLAS's handles,
+        the decode workspace and the rope tables are made there; idle rows
+        write only the trash page and add no counts), then capture one
+        window over static buffers. The warm-up's launches count nowhere;
+        the capture's are kept to add on every replay."""
+        dev = self.device
+        self.packed = upload(idle_rows(self.B, self.pages_per_slot), dev)
+        self.prefill_toks = torch.zeros((admit_rows,), dtype=torch.int32, device=dev)
+        self.toks = torch.zeros((self.B,), dtype=torch.int32, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with kernels.counting_apart(), torch.cuda.stream(side):
+            self._call(self.packed, self.toks, self.prefill_toks)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        # "thread_local": another engine's harvester may be waiting on an
+        # event of its own while this thread captures
+        with kernels.counting_apart() as counted, \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.pack, toks = self._call(self.packed, self.toks, self.prefill_toks)
+            self.toks.copy_(toks)
+        self.workspace.frozen = True
+        self.launches = dict(counted)
+        self.graph = graph
+
+    def run(self, packed: np.ndarray, last_toks: Optional[torch.Tensor],
+            prefill_toks: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+        """One window over the host rows ``packed``. ``last_toks``: the
+        newest in-flight window's tokens (what this method returned for
+        it), or None; ``prefill_toks``: this step's prefill samples, or
+        None. Returns (packed results, tokens after the window), both on
+        the device. On a card they are the graph's static outputs, which
+        the next replay overwrites: the caller copies them out (stream-
+        ordered) before it runs the next window."""
+        if self.graph is None:
+            zeros = torch.zeros((self.B,), dtype=torch.int32)
+            return self._call(torch.from_numpy(packed),
+                              zeros if last_toks is None else last_toks,
+                              zeros[:1] if prefill_toks is None else prefill_toks)
+        if last_toks is not None and last_toks is not self.toks:
+            raise ValueError("a replayed window reads the previous window's tokens "
+                             "from its own static output")
+        self.packed.copy_(torch.from_numpy(packed).pin_memory(), non_blocking=True)
+        if prefill_toks is not None:
+            self.prefill_toks[:prefill_toks.shape[0]].copy_(prefill_toks)
+        self.graph.replay()
+        kernels.add_launches(self.launches)
+        self.replays += 1
+        return self.pack, self.toks
+
+    def _eager(self, packed: torch.Tensor, last_toks: torch.Tensor,
+               prefill_toks: torch.Tensor, k_pages, v_pages, counts,
+               workspace=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """The same window eagerly, on the given pools and counts: what
+        ``chip_smoke.py`` and the card tests hold a replay against (and
+        profile beside it). The engine never calls it."""
+        return self._call(packed, last_toks, prefill_toks, k_pages, v_pages, counts,
+                          workspace)

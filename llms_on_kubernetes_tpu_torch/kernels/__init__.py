@@ -12,13 +12,18 @@ Nothing here runs at import time: a machine without ``nvcc`` or a card
 imports the package and runs the plain versions on CPU tensors.
 
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+(``count``) where it launches its kernel and nowhere else, so a run can
+show that its main path went through the kernels. A CUDA graph replay runs
+no Python, so whoever captures one counts the capture's launches apart
+(``counting_apart``, in the capturing thread only) and adds them on every
+replay (``add_launches``), in ``LAUNCHES`` and in ``REPLAYED``: a kernel's
+launches less its replayed ones are the launches it made eagerly.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -60,18 +65,55 @@ _SIGNATURES = {
 }
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
+# the part of LAUNCHES that graph replays added
+REPLAYED: "collections.Counter[str]" = collections.Counter()
+# the Counter of this thread's open counting_apart block, if any
+_apart = threading.local()
 
 _lock = threading.Lock()
 _funcs: dict = {}
 build_log: dict = {}        # source name -> nvcc output (ptxas register report)
 
 
+def count(name: str) -> None:
+    """Count one launch of kernel ``name``: in the calling thread's open
+    ``counting_apart`` Counter, else in ``LAUNCHES``."""
+    counter = getattr(_apart, "counter", None)
+    (LAUNCHES if counter is None else counter)[name] += 1
+
+
 def reset_launches() -> None:
     LAUNCHES.clear()
+    REPLAYED.clear()
 
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def replayed_counts() -> dict:
+    return dict(REPLAYED)
+
+
+@contextlib.contextmanager
+def counting_apart():
+    """Count the calling thread's launches in the block in the Counter it
+    yields instead of in ``LAUNCHES`` (for a warm-up, whose launches count
+    nowhere, and a graph capture, whose launches count once per replay).
+    Other threads' launches go on counting in ``LAUNCHES``."""
+    outer = getattr(_apart, "counter", None)
+    counted: "collections.Counter[str]" = collections.Counter()
+    _apart.counter = counted
+    try:
+        yield counted
+    finally:
+        _apart.counter = outer
+
+
+def add_launches(counts) -> None:
+    """Count ``counts`` (one replay of a captured graph's launches)."""
+    LAUNCHES.update(counts)
+    REPLAYED.update(counts)
 
 
 def _digest() -> str:

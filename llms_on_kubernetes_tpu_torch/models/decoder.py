@@ -120,10 +120,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype: Optional[str] = None,
 # Layer
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=16)
+@functools.cache
 def _inv_freq(cfg: ModelConfig, device: torch.device, local: bool) -> torch.Tensor:
     """Rotary inverse frequencies, uploaded once per (config, device): a
-    host-to-device copy inside the step would stall the stream."""
+    host-to-device copy inside the step would stall the stream. Never
+    evicted: a captured decode window (engine/graphs.py) reads this
+    tensor's address on every replay."""
     if local:
         freqs = rope_frequencies(cfg.head_dim, cfg.rope_local_theta)
     else:
@@ -162,7 +164,7 @@ def _mlp(lp: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 def _layer_step(cfg: ModelConfig, inv_freq, page_table, positions, write_positions,
                 lengths, mode: str, x, lp: Params, k_pages, v_pages,
-                window: Optional[int], kv_write: str = "dus"):
+                window: Optional[int], kv_write: str = "dus", workspace=None):
     """One transformer layer. ``page_table`` holds GLOBAL page ids (the
     caller added this layer's block offset); the pools are updated in
     place. Returns the new residual stream."""
@@ -174,7 +176,8 @@ def _layer_step(cfg: ModelConfig, inv_freq, page_table, positions, write_positio
         attn = dispatch_paged_attention_write(
             q[:, 0], k_pages, v_pages, page_table, lengths, k[:, 0], v[:, 0],
             write_positions, scale=scale, sliding_window=window,
-            attn_softcap=cfg.attn_softcap, kv_write=kv_write)[0][:, None]
+            attn_softcap=cfg.attn_softcap, kv_write=kv_write,
+            workspace=workspace)[0][:, None]
     elif mode == "chunk":
         # the chunk's rows t < lengths go to positions history + t (the
         # window kernels write no filler), then its queries attend to the
@@ -201,7 +204,8 @@ def _layer_step(cfg: ModelConfig, inv_freq, page_table, positions, write_positio
 
 
 def _run_layers(cfg: ModelConfig, params: Params, x, k_pages, v_pages, page_table,
-                positions, write_positions, lengths, mode: str, kv_write: str = "dus"):
+                positions, write_positions, lengths, mode: str, kv_write: str = "dus",
+                workspace=None):
     kd = getattr(k_pages, "data", k_pages)
     pages_per_layer = kd.shape[1] // cfg.num_layers
     inv_freq = _inv_freq(cfg, x.device, False)
@@ -219,7 +223,7 @@ def _run_layers(cfg: ModelConfig, params: Params, x, k_pages, v_pages, page_tabl
         lp = {name: w[idx] for name, w in layers.items()}
         x = _layer_step(cfg, freqs, page_table + idx * pages_per_layer, positions,
                         write_positions, lengths, mode, x, lp, k_pages, v_pages,
-                        window, kv_write)
+                        window, kv_write, workspace)
     return x
 
 
@@ -273,17 +277,19 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    lengths: torch.Tensor, k_pages, v_pages, page_table: torch.Tensor,
-                   kv_write: str = "dus"):
+                   kv_write: str = "dus", workspace=None):
     """One decode step for every slot: tokens [B], lengths [B] int32
     INCLUDING the new token (0 => idle slot). Appends each active slot's KV
     in place (``kv_write`` "dus": ``write_tokens`` then the decode kernel;
-    "fused": the kernel that appends as it attends) and returns
+    "fused": the kernel that appends as it attends; ``workspace``: the
+    decode kernels' scratch, None => the process-wide one) and returns
     (logits [B, V] float32, k_pages, v_pages)."""
     positions = (lengths - 1).clamp(min=0)[:, None]
     write_positions = torch.where(lengths[:, None] > 0, positions, -1)
     x = _embed(params, cfg, tokens[:, None])
     x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions,
-                    write_positions, lengths, "decode", kv_write=kv_write)
+                    write_positions, lengths, "decode", kv_write=kv_write,
+                    workspace=workspace)
     return _logits(params, cfg, x[:, 0]), k_pages, v_pages
 
 

@@ -164,7 +164,7 @@ def dispatch_chunk_attention(q, k_pages, v_pages, page_table, history, chunk_len
 
 
 def dispatch_paged_attention(q, k_pages, v_pages, page_table, lengths, *,
-                             scale, sliding_window=None, attn_softcap=None):
+                             scale, sliding_window=None, attn_softcap=None, workspace=None):
     from llms_on_kubernetes_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_int8,
     )
@@ -173,17 +173,17 @@ def dispatch_paged_attention(q, k_pages, v_pages, page_table, lengths, *,
         return paged_decode_attention_int8(
             q, k_pages.data, k_pages.scale, v_pages.data, v_pages.scale, page_table,
             lengths, scale=scale, sliding_window=sliding_window,
-            attn_softcap=attn_softcap)
+            attn_softcap=attn_softcap, workspace=workspace)
     return paged_decode_attention(
         q, getattr(k_pages, "data", k_pages), getattr(v_pages, "data", v_pages),
         page_table, lengths, scale=scale, sliding_window=sliding_window,
-        attn_softcap=attn_softcap)
+        attn_softcap=attn_softcap, workspace=workspace)
 
 
 def dispatch_paged_attention_write(q, k_pages, v_pages, page_table, lengths,
                                    k_new, v_new, write_positions, *, scale,
                                    sliding_window=None, attn_softcap=None,
-                                   kv_write: str = "dus"):
+                                   kv_write: str = "dus", workspace=None):
     """Decode attention with the current token's KV append.
 
     ``kv_write="fused"`` folds the append into the attention kernel
@@ -191,7 +191,9 @@ def dispatch_paged_attention_write(q, k_pages, v_pages, page_table, lengths,
     that quantizes the row as it stores it); ``"dus"`` runs
     ``write_tokens`` and then the decode kernel. Both update the pools IN
     PLACE. q [B, n_q, d]; k_new/v_new [B, n_kv, d] (post-rope);
-    write_positions [B, 1] (negative => idle/trash).
+    write_positions [B, 1] (negative => idle/trash). ``workspace``: the
+    decode kernels' scratch (ops/paged_attention.DecodeWorkspace; None =>
+    the process-wide one).
     Returns (attn [B, n_q, d], k_pages, v_pages)."""
     if kv_write == "fused":
         from llms_on_kubernetes_tpu_torch.ops.paged_attention import (
@@ -202,12 +204,12 @@ def dispatch_paged_attention_write(q, k_pages, v_pages, page_table, lengths,
             attn = paged_decode_attention_write_int8(
                 q, k_pages.data, k_pages.scale, v_pages.data, v_pages.scale, page_table,
                 lengths, k_new, v_new, scale=scale, sliding_window=sliding_window,
-                attn_softcap=attn_softcap)
+                attn_softcap=attn_softcap, workspace=workspace)
             return attn, k_pages, v_pages
         attn = paged_decode_attention_write(
             q, getattr(k_pages, "data", k_pages), getattr(v_pages, "data", v_pages),
             page_table, lengths, k_new, v_new, scale=scale,
-            sliding_window=sliding_window, attn_softcap=attn_softcap)
+            sliding_window=sliding_window, attn_softcap=attn_softcap, workspace=workspace)
         return attn, k_pages, v_pages
     if kv_write != "dus":
         raise ValueError(f"kv_write must be 'dus' or 'fused', got {kv_write!r}")
@@ -217,5 +219,5 @@ def dispatch_paged_attention_write(q, k_pages, v_pages, page_table, lengths,
                  write_positions)
     attn = dispatch_paged_attention(
         q, k_pages, v_pages, page_table, lengths, scale=scale,
-        sliding_window=sliding_window, attn_softcap=attn_softcap)
+        sliding_window=sliding_window, attn_softcap=attn_softcap, workspace=workspace)
     return attn, k_pages, v_pages

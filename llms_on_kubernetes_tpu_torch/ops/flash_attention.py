@@ -75,5 +75,5 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              int(sliding_window or 0), float(attn_softcap or 0.0),
              kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q))
     kernels.check(KERNEL, err)
-    kernels.LAUNCHES[KERNEL] += 1
+    kernels.count(KERNEL)
     return out

@@ -55,25 +55,36 @@ def workspace_sizes(B: int, n_q: int, n_kv: int, n_split: int, d: int) -> tuple:
 
 
 class DecodeWorkspace:
-    """The decode kernels' scratch on each device: the splits' partials and
-    the arrival counters by which the last split of a (slot, KV head) knows
-    to merge. The counters are zeros when made, and every launch leaves
-    them zero, so no call clears them (that would be a second launch).
-    Both buffers grow on demand and never shrink. Launches on one device
-    share them, so they must be ordered: one stream a device, as the
-    engine runs."""
+    """The decode kernels' scratch: the splits' partials and the arrival
+    counters by which the last split of a (slot, KV head) knows to merge.
+    The counters are zeros when made, and every launch leaves them zero,
+    so no call clears them (that would be a second launch). Launches that
+    share a workspace must be ordered: one stream, as an engine runs.
+
+    Each engine owns one (``Engine.workspace``), sized by its first decode
+    window and then frozen when the window is captured as a CUDA graph: a
+    graph holds the buffers' addresses, so a later call that needs more
+    room raises instead of replacing them under the graph. ``WORKSPACE``
+    is the process-wide one that a direct caller (a test, a kernel check)
+    gets when it passes none; it grows on demand, one pair a device."""
 
     def __init__(self):
         self._bufs: dict = {}
+        self.frozen = False
 
     def get(self, device: torch.device, B: int, n_q: int, n_kv: int, n_split: int,
             d: int) -> tuple:
         """(part, counters) for a launch of this shape on ``device``."""
         n_part, n_count = workspace_sizes(B, n_q, n_kv, n_split, d)
         part, counters = self._bufs.get(device, (None, None))
-        if part is None or part.numel() < n_part:
+        grow_part = part is None or part.numel() < n_part
+        grow_count = counters is None or counters.numel() < n_count
+        if (grow_part or grow_count) and self.frozen:
+            raise RuntimeError(f"decode workspace on {device} is held by a captured graph "
+                               f"and cannot grow to {n_part} partials, {n_count} counters")
+        if grow_part:
             part = torch.empty(n_part, dtype=torch.float32, device=device)
-        if counters is None or counters.numel() < n_count:
+        if grow_count:
             counters = torch.zeros(n_count, dtype=torch.int32, device=device)
         self._bufs[device] = (part, counters)
         return part, counters
@@ -128,7 +139,8 @@ def paged_decode_attention_write_int8_plain(q, k_data, k_scale, v_data, v_scale,
 
 
 def _launch(name: str, q, k_pages, v_pages, page_table, lengths, k_new, v_new, *,
-            scale, sliding_window, attn_softcap, k_scale=None, v_scale=None) -> torch.Tensor:
+            scale, sliding_window, attn_softcap, k_scale=None, v_scale=None,
+            workspace: Optional[DecodeWorkspace] = None) -> torch.Tensor:
     """Check the arguments and launch the decode kernel (``k_scale`` given:
     the int8 one). ``k_new``/``v_new`` given: the fused append."""
     B, n_q, d = q.shape
@@ -171,7 +183,8 @@ def _launch(name: str, q, k_pages, v_pages, page_table, lengths, k_new, v_new, *
     pps = page_table.shape[1]
     n_split = -(-pps * page // SPLIT_KEYS)
     out = torch.empty_like(q)
-    part, counters = WORKSPACE.get(q.device, B, n_q, n_kv, n_split, d)
+    ws = WORKSPACE if workspace is None else workspace
+    part, counters = ws.get(q.device, B, n_q, n_kv, n_split, d)
     pools = (k_pages.data_ptr(), v_pages.data_ptr())
     if quant:
         fn = kernels.function(KERNEL_INT8)
@@ -186,7 +199,7 @@ def _launch(name: str, q, k_pages, v_pages, page_table, lengths, k_new, v_new, *
              float(scale), int(sliding_window or 0), float(attn_softcap or 0.0),
              int(write), kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q))
     kernels.check(name, err)
-    kernels.LAUNCHES[name] += 1
+    kernels.count(name)
     return out
 
 
@@ -194,7 +207,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, page_table: torch.Tensor,
                            lengths: torch.Tensor, *, scale: float,
                            sliding_window: Optional[int] = None,
-                           attn_softcap: Optional[float] = None) -> torch.Tensor:
+                           attn_softcap: Optional[float] = None,
+                           workspace: Optional[DecodeWorkspace] = None) -> torch.Tensor:
     """q [B, n_q, d]; k/v_pages [n_kv, P, page, d] (head-major pool);
     page_table [B, pages_per_seq] int32 global page ids; lengths [B] int32
     counting the keys INCLUDING the current token. Returns [B, n_q, d]."""
@@ -204,7 +218,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
             sliding_window=sliding_window, attn_softcap=attn_softcap)
     return _launch(KERNEL, q, k_pages, v_pages, page_table, lengths, None, None,
                    scale=scale, sliding_window=sliding_window,
-                   attn_softcap=attn_softcap)
+                   attn_softcap=attn_softcap, workspace=workspace)
 
 
 def paged_decode_attention_write(q: torch.Tensor, k_pages: torch.Tensor,
@@ -212,7 +226,8 @@ def paged_decode_attention_write(q: torch.Tensor, k_pages: torch.Tensor,
                                  lengths: torch.Tensor, k_new: torch.Tensor,
                                  v_new: torch.Tensor, *, scale: float,
                                  sliding_window: Optional[int] = None,
-                                 attn_softcap: Optional[float] = None) -> torch.Tensor:
+                                 attn_softcap: Optional[float] = None,
+                                 workspace: Optional[DecodeWorkspace] = None) -> torch.Tensor:
     """Decode attention with the in-place append of the current token.
 
     As ``paged_decode_attention``, plus k_new/v_new [B, n_kv, d] (post-rope;
@@ -228,7 +243,8 @@ def paged_decode_attention_write(q: torch.Tensor, k_pages: torch.Tensor,
     return _launch(KERNEL_WRITE, q, k_pages, v_pages, page_table, lengths,
                    k_new.to(k_pages.dtype).contiguous(),
                    v_new.to(v_pages.dtype).contiguous(),
-                   scale=scale, sliding_window=sliding_window, attn_softcap=attn_softcap)
+                   scale=scale, sliding_window=sliding_window, attn_softcap=attn_softcap,
+                   workspace=workspace)
 
 
 def paged_decode_attention_int8(q: torch.Tensor, k_data: torch.Tensor,
@@ -236,7 +252,8 @@ def paged_decode_attention_int8(q: torch.Tensor, k_data: torch.Tensor,
                                 v_scale: torch.Tensor, page_table: torch.Tensor,
                                 lengths: torch.Tensor, *, scale: float,
                                 sliding_window: Optional[int] = None,
-                                attn_softcap: Optional[float] = None) -> torch.Tensor:
+                                attn_softcap: Optional[float] = None,
+                                workspace: Optional[DecodeWorkspace] = None) -> torch.Tensor:
     """Decode attention over an int8 pool: as ``paged_decode_attention``,
     with k/v_data [n_kv, P, page, d] int8 and k/v_scale [n_kv, P, page]
     float32 (one scale per cached token). Returns [B, n_q, d] in q's dtype."""
@@ -246,7 +263,7 @@ def paged_decode_attention_int8(q: torch.Tensor, k_data: torch.Tensor,
             sliding_window=sliding_window, attn_softcap=attn_softcap)
     return _launch(KERNEL_INT8, q, k_data, v_data, page_table, lengths, None, None,
                    scale=scale, sliding_window=sliding_window, attn_softcap=attn_softcap,
-                   k_scale=k_scale, v_scale=v_scale)
+                   k_scale=k_scale, v_scale=v_scale, workspace=workspace)
 
 
 def paged_decode_attention_write_int8(q: torch.Tensor, k_data: torch.Tensor,
@@ -255,7 +272,9 @@ def paged_decode_attention_write_int8(q: torch.Tensor, k_data: torch.Tensor,
                                       lengths: torch.Tensor, k_new: torch.Tensor,
                                       v_new: torch.Tensor, *, scale: float,
                                       sliding_window: Optional[int] = None,
-                                      attn_softcap: Optional[float] = None) -> torch.Tensor:
+                                      attn_softcap: Optional[float] = None,
+                                      workspace: Optional[DecodeWorkspace] = None
+                                      ) -> torch.Tensor:
     """int8 decode attention with the quantize-at-write append.
 
     As ``paged_decode_attention_int8``, plus k_new/v_new [B, n_kv, d]
@@ -272,4 +291,4 @@ def paged_decode_attention_write_int8(q: torch.Tensor, k_data: torch.Tensor,
     return _launch(KERNEL_WRITE_INT8, q, k_data, v_data, page_table, lengths,
                    k_new.contiguous(), v_new.contiguous(), scale=scale,
                    sliding_window=sliding_window, attn_softcap=attn_softcap,
-                   k_scale=k_scale, v_scale=v_scale)
+                   k_scale=k_scale, v_scale=v_scale, workspace=workspace)

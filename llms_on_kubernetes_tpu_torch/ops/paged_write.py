@@ -182,7 +182,7 @@ def _launch(name: str, k_pool, v_pool, page_table, base, widths, k_new, v_new,
              page, page_table.shape[1], d, kernels.POOL_CODES[pool_dtype],
              kernels.POOL_CODES[k_new.dtype], kernels.stream_ptr(k_new))
     kernels.check(name, err)
-    kernels.LAUNCHES[name] += 1
+    kernels.count(name)
 
 
 def paged_write_window(k_pages: torch.Tensor, v_pages: torch.Tensor, page_table: torch.Tensor,

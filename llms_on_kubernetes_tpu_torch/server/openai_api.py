@@ -11,8 +11,10 @@ Endpoints: ``GET /health``, ``GET /v1/models``, ``POST /v1/completions``,
 ``POST /v1/chat/completions`` (each with ``"stream": true``), and
 ``GET /debug/kernels`` / ``POST /debug/kernels/reset``, which read and
 zero the kernel launch counters of ``kernels.LAUNCHES`` (the read also
-gives the engine's prefill, chunk and decode call counts and the prompt
-tokens served from the prefix cache, so launches can be held to calls). Response and chunk
+gives the part of them that graph replays added, the engine's prefill,
+chunk and decode call counts, its decode window length and the windows
+run as CUDA graph replays, its preemptions and the prompt tokens served
+from the prefix cache, so launches can be held to calls). Response and chunk
 shapes follow the JAX server's. Request options that change what is
 generated and are not ported yet (``n`` > 1, ``best_of``, ``echo``,
 ``logprobs``, ``logit_bias``, ``stop`` strings, tools, ``response_format``)
@@ -73,7 +75,11 @@ class IncrementalDetokenizer:
 
 class EngineLoop(threading.Thread):
     """Drives ``Engine.step`` while there is work; sleeps on an event
-    otherwise. A failed step sheds every request with reason "error" so no
+    otherwise. With async scheduling (the default) the loop does not spin
+    while windows are in flight: ``step`` blocks in the engine's harvest
+    once ``async_depth`` windows are unread, and ``Engine.submit`` wakes
+    that wait, so a new request is admitted and prefilled while the device
+    works. A failed step sheds every request with reason "error" so no
     client waits forever, and the loop carries on."""
 
     def __init__(self, engine: Engine):
@@ -253,11 +259,15 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/debug/kernels":
             eng = self.app.engine
             self._json(200, {"launches": kernels.launch_counts(),
+                             "replayed_launches": kernels.replayed_counts(),
                              "device": str(eng.device),
                              "num_layers": eng.model_config.num_layers,
                              "prefill_calls": eng.prefill_calls,
                              "chunk_calls": eng.chunk_calls,
                              "decode_forwards": eng.decode_forwards,
+                             "decode_steps": eng.config.decode_steps,
+                             "graph_replays": eng.graph_replays,
+                             "preemptions": eng.preemptions,
                              "prefix_hit_tokens": eng.allocator.hit_tokens_total})
         else:
             self._error(404, f"no route {self.path}", "not_found")

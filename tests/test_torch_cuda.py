@@ -867,3 +867,240 @@ def test_engine_wide_head_dims_page_24_on_the_card(cuda, d):
                 assert kernels.LAUNCHES["flash_prefill"] > launches.get("flash_prefill", 0)
         assert outs[("cuda", "cold")] == outs[("cpu", "cold")], kv_dtype
         assert outs[("cuda", "hit")] == outs[("cpu", "hit")] == outs[("cpu", "cold")], kv_dtype
+
+
+# ---------------------------------------------------------------------------
+# the decode window as one CUDA graph (engine/graphs.py)
+# ---------------------------------------------------------------------------
+
+def _tiny_engine(dev, **kw):
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig
+    from llms_on_kubernetes_tpu_torch.models.decoder import init_params
+
+    # drawn on the CPU and moved, so every device gets the same weights
+    params = init_params(get_config("debug-tiny"), seed=0, dtype="float32", device="cpu")
+    params = {k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict) else v.to(dev))
+              for k, v in params.items()}
+    base = dict(model="debug-tiny", dtype="float32", max_decode_slots=4, page_size=4,
+                num_pages=128, pages_per_slot=16, prefill_buckets=(16, 32), device=dev)
+    return Engine(EngineConfig(**{**base, **kw}), params=params)
+
+
+def _window_inputs(eng, prompts, penalties=False):
+    """Admit ``prompts`` (sync admission: first tokens read), grow each row
+    for a full window and return its packed rows (host values)."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    sp = SamplingParams(max_tokens=64, temperature=0.7 if penalties else 0.0, seed=5,
+                        presence_penalty=0.4 if penalties else 0.0,
+                        frequency_penalty=0.3 if penalties else 0.0)
+    for p in prompts:
+        eng.submit(p, sp)
+    eng._admit()
+    K = eng.config.decode_steps
+    active = [(i, r) for i, r in enumerate(eng.slots) if r is not None]
+    base = {i: int(eng.slot_len[i]) + 1 for i, _r in active}
+    for i, _r in active:
+        eng.allocator.allocate(i, base[i] + K - 1)
+    return eng._window_rows(active, {i: K for i, _r in active}, base)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["f32_kv", "int8_kv"])
+@pytest.mark.parametrize("kv_write", ["dus", "fused"])
+def test_window_graph_replay_equals_the_eager_window(cuda, kv_write, kv_dtype):
+    """One window replayed and one run eagerly from copies of one pool and
+    one penalty-count table: the same packed results (tokens, logprobs,
+    top alternatives), and pools (outside each layer's trash page) and
+    counts byte-equal."""
+    from llms_on_kubernetes_tpu_torch.engine.cache import KVPool
+
+    eng = _tiny_engine("cuda", kv_write=kv_write, kv_cache_dtype=kv_dtype,
+                       async_scheduling=False)
+    packed = _window_inputs(eng, [[3, 17, 9], [40, 2] * 9, [7] * 30], penalties=True)
+    pools = [KVPool(p.data.clone(), None if p.scale is None else p.scale.clone())
+             for p in (eng.k_pages, eng.v_pages)]
+    counts = eng.token_counts.clone()
+    zeros = torch.zeros(eng.config.max_decode_slots, dtype=torch.int32, device="cuda")
+    eager_pack, eager_toks = eng._window._eager(
+        torch.from_numpy(packed).cuda(), zeros, zeros[:1], *pools, counts,
+        workspace=pa.DecodeWorkspace())
+    pack, toks = eng._window.run(packed, None, None)
+    torch.cuda.synchronize()
+    assert eng.graph_replays == 1
+    assert torch.equal(pack, eager_pack) and torch.equal(toks, eager_toks)
+    assert torch.equal(eng.token_counts, counts) and int(counts.sum()) > 0
+    P = eng.config.num_pages
+    keep = torch.ones(eng.model_config.num_layers * P, dtype=torch.bool, device="cuda")
+    keep[::P] = False
+    for got, want in zip((eng.k_pages, eng.v_pages), pools):
+        assert torch.equal(got.data[:, keep], want.data[:, keep])
+        if want.scale is not None:
+            assert torch.equal(got.scale[:, keep], want.scale[:, keep])
+
+
+def test_two_engines_of_different_shapes_replay_in_turn(cuda):
+    """Each engine owns its decode workspace: two engines of different
+    shapes, alive in one process with their graphs replayed in turn (and
+    the process-wide workspace grown by a direct call between them), give
+    the streams each gives alone."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    shapes = [dict(), dict(max_decode_slots=2, page_size=8, num_pages=96, pages_per_slot=12)]
+    prompts = [[3, 17, 9], [40, 2] * 9, [7] * 30, [5, 6]]
+    sp = SamplingParams(max_tokens=24, temperature=0.0)
+
+    def streams(eng, reqs):
+        return [r.output for r in reqs]
+
+    alone = []
+    for kw in shapes:
+        eng = _tiny_engine("cuda", **kw)
+        reqs = [eng.submit(p, sp) for p in prompts]
+        while eng.has_work():
+            eng.step()
+        alone.append(streams(eng, reqs))
+        del eng
+    engines = [_tiny_engine("cuda", **kw) for kw in shapes]
+    assert engines[0].workspace is not engines[1].workspace
+    assert all(e.workspace.frozen for e in engines)
+    rng = np.random.default_rng(1)
+    q = _t(rng, 16, 8, 32)
+    kp, vp, table = _paged(rng, 16, 8, 32, 64, 32, [2048] * 16, torch.float32)
+    lens = torch.full((16,), 2048, dtype=torch.int32, device="cuda")
+    pa.paged_decode_attention(q, kp, vp, table, lens, scale=0.2)   # grows WORKSPACE
+    reqs = [[e.submit(p, sp) for p in prompts] for e in engines]
+    while any(e.has_work() for e in engines):
+        for e in engines:
+            if e.has_work():
+                e.step()
+    assert [streams(e, r) for e, r in zip(engines, reqs)] == alone
+    assert all(e.graph_replays > 0 for e in engines)
+
+
+def test_launches_after_n_replays_are_n_times_the_captured_counts(cuda):
+    """Building an engine (warm-up and capture) counts no launch; every
+    replay adds the captured window's launches: num_layers x K decode
+    kernel launches, nothing else."""
+    before = kernels.launch_counts()
+    eng = _tiny_engine("cuda", async_scheduling=False)
+    assert kernels.launch_counts() == before
+    L, K = eng.model_config.num_layers, eng.config.decode_steps
+    assert eng._window.launches == {"paged_decode": L * K}
+    packed = _window_inputs(eng, [[3, 17, 9], [7] * 30])
+    kernels.reset_launches()
+    for _ in range(5):
+        eng._window.run(packed, None, None)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"paged_decode": 5 * L * K}
+    assert kernels.replayed_counts() == {"paged_decode": 5 * L * K}
+    assert eng.graph_replays == 5
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(async_depth=1), dict(kv_cache_dtype="int8"),
+                                dict(num_pages=11, page_size=8, pages_per_slot=8)],
+                         ids=["depth2", "depth1", "int8_kv", "tight_pool"])
+def test_async_graphed_engine_equals_sync_and_the_cpu(cuda, kw):
+    """The default engine on the card (async, graphed windows) gives the
+    greedy streams of the sync engine on the card and of the CPU engine,
+    with every window a replay; in a tight pool it preempts and its
+    streams stay the same."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    prompts = [[1, 2, 3]] * 4 + [[40, 2] * 9, [7] * 30]
+    sp = SamplingParams(max_tokens=20, temperature=0.0)
+    outs = {}
+    for name, dev, extra in (("async", "cuda", {}), ("sync", "cuda",
+                                                     dict(async_scheduling=False)),
+                             ("cpu", "cpu", {})):
+        eng = _tiny_engine(dev, **{**kw, **extra})
+        reqs = [eng.submit(p, sp) for p in prompts]
+        while eng.has_work():
+            eng.step()
+        outs[name] = [(r.output, r.finish_reason) for r in reqs]
+        if dev == "cuda":
+            assert eng.graph_replays * eng.config.decode_steps == eng.decode_forwards > 0
+        if "num_pages" in kw:
+            assert eng.preemptions > 0, name
+    assert outs["async"] == outs["sync"] == outs["cpu"]
+
+
+@pytest.mark.parametrize("async_scheduling", [True, False], ids=["async", "sync"])
+def test_graphed_preemption_right_after_the_first_token(cuda, async_scheduling):
+    """Four 3-token prompts (prompt + 1 fills a 4-row page) in 4 usable
+    pages: the first window's growth preempts the youngest holding one
+    output token; they resume with their first token restored, and the
+    streams equal the CPU engine's with room."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    prompts = [[1 + i, 5, 9 + i] for i in range(4)]
+    sp = SamplingParams(max_tokens=12, temperature=0.0)
+    outs = {}
+    for name, dev, kw in (("tight", "cuda", dict(num_pages=5)), ("roomy", "cpu", {})):
+        eng = _tiny_engine(dev, async_scheduling=async_scheduling, **kw)
+        seen = []
+        preempt = eng._preempt_youngest
+
+        def recording(eng=eng, preempt=preempt, seen=seen):
+            victim = max((r for r in eng.slots if r is not None), key=lambda r: r.submitted_at)
+            seen.append(len(victim.output))
+            preempt()
+
+        eng._preempt_youngest = recording
+        reqs = [eng.submit(p, sp) for p in prompts]
+        while eng.has_work():
+            eng.step()
+        outs[name] = [(r.output, r.finish_reason) for r in reqs]
+        if name == "tight":
+            assert eng.preemptions > 0 and 1 in seen, seen
+            assert eng.graph_replays * eng.config.decode_steps == eng.decode_forwards
+    assert outs["tight"] == outs["roomy"]
+
+
+def test_a_script_that_leaves_its_engine_alive_exits_cleanly(cuda):
+    """An engine still referenced when the interpreter exits (its harvester
+    thread running) must not abort the process."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = ("from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, "
+              "SamplingParams\n"
+              "eng = Engine(EngineConfig(model='debug-tiny', dtype='float32', device='cuda'))\n"
+              "print(eng.generate([1, 2, 3], SamplingParams(max_tokens=8, temperature=0.0)))\n")
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          cwd=Path(__file__).resolve().parent.parent, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "terminate called" not in proc.stderr
+
+
+def test_harvester_wait_releases_the_interpreter_lock(cuda):
+    """The harvester's event wait must let the engine thread run: while it
+    waits on a copy queued behind ~0.2 s of device work, this thread keeps
+    executing Python."""
+    import threading
+    import time
+
+    from llms_on_kubernetes_tpu_torch.engine.engine import _HostCopy
+
+    t = torch.zeros(4, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    copy = _HostCopy(t)
+    done = threading.Event()
+    waited = []
+
+    def reader():
+        t0 = time.perf_counter()
+        copy.read()
+        waited.append(time.perf_counter() - t0)
+        done.set()
+
+    th = threading.Thread(target=reader)
+    th.start()
+    spins = 0
+    while not done.is_set():
+        spins += 1
+    th.join(timeout=30)
+    assert not th.is_alive() and waited[0] > 0.02
+    assert spins > 10_000, spins

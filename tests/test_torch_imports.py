@@ -37,6 +37,7 @@ def test_import_everything_without_jax():
         "from llms_on_kubernetes_tpu_torch.ops.paged_write import (\n"
         "    dispatch_write_window, paged_write_window, paged_write_window_int8)\n"
         "from llms_on_kubernetes_tpu_torch.models.decoder import forward_chunk\n"
+        "from llms_on_kubernetes_tpu_torch.engine.graphs import DecodeWindow, decode_window\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'llms_on_kubernetes_tpu'\n"

@@ -313,11 +313,15 @@ def test_seeded_stream_same_cold_on_a_hit_and_one_shot(tparams):
 
 def test_blocked_admission_rolls_back_and_waits(tparams):
     """A cache-hit admission whose private pages do not fit yet rolls its
-    adoption back (no hit counted), waits, and runs once pages free up."""
-    eng = _port(tparams, num_pages=9, max_decode_slots=2)        # 8 usable pages
+    adoption back (no hit counted), waits, and runs once pages free up.
+    Pages are allocated on demand (the prompt and one token at admission),
+    so the hog's prompt takes every free page; the sync loop with one-token
+    windows keeps it running for the steps this checks."""
+    eng = _port(tparams, num_pages=9, max_decode_slots=2,        # 8 usable pages
+                async_scheduling=False, decode_steps=1)
     _run(eng, SamplingParams, SYSTEM)                            # caches 2 pages
-    hog = eng.submit(list(range(100, 120)), SamplingParams(temperature=0.0, max_tokens=28))
-    eng.step()                                                   # 6 pages reserved
+    hog = eng.submit(list(range(100, 144)), SamplingParams(temperature=0.0, max_tokens=4))
+    eng.step()                                                   # 6 pages: 45 tokens
     req = eng.submit(SYSTEM + [1, 2], SamplingParams(temperature=0.0, max_tokens=20))
     eng.step()
     assert req.slot < 0 and eng.allocator.hit_tokens_total == 0

@@ -180,6 +180,8 @@ def test_debug_kernels_endpoint(base):
     data = json.loads(body)
     assert status == 200 and data["device"] == "cpu" and data["num_layers"] == 2
     assert data["launches"] == {}          # CPU tensors take the plain versions
+    assert data["replayed_launches"] == {}
+    assert data["graph_replays"] == 0 and data["preemptions"] == 0   # eager on the CPU
     kernels.LAUNCHES["flash_prefill"] += 2
     assert json.loads(call(base, "/debug/kernels")[2])["launches"] == {"flash_prefill": 2}
     status, _, body = call(base, "/debug/kernels/reset", {})
@@ -229,7 +231,7 @@ def test_engine_loop_sheds_on_a_failed_step():
 
     eng = Engine(EngineConfig(model="debug-tiny", dtype="float32", max_decode_slots=2,
                               page_size=4, num_pages=64, pages_per_slot=8,
-                              prefill_buckets=(16,), device="cpu"))
+                              prefill_buckets=(16,), device="cpu", async_scheduling=False))
     real = eng._decode
 
     def broken():
@@ -265,3 +267,43 @@ def test_incremental_detokenizer_holds_partial_utf8():
     assert d.push([snowman[1]]) == ""
     assert d.push([snowman[2]]) == "☃"
     assert d.push(list("ok".encode()), final=True) == "ok"
+
+
+def test_engine_loop_sheds_on_a_failed_async_step():
+    """The default (async) engine: a window launch that raises ends the
+    in-flight and waiting streams with "error", and the loop serves on."""
+    import queue
+
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+    from llms_on_kubernetes_tpu_torch.server.openai_api import EngineLoop
+
+    eng = Engine(EngineConfig(model="debug-tiny", dtype="float32", max_decode_slots=2,
+                              page_size=4, num_pages=64, pages_per_slot=8,
+                              prefill_buckets=(16,), device="cpu"))
+    real = eng._launch_decode_multi
+
+    def broken(*args):
+        eng._launch_decode_multi = real          # fail once
+        raise RuntimeError("device fault")
+
+    eng._launch_decode_multi = broken
+    loop = EngineLoop(eng)
+    loop.start()
+    try:
+        got: "queue.SimpleQueue" = queue.SimpleQueue()
+        loop.submit([1, 2, 3], SamplingParams(max_tokens=4, temperature=0.0), got.put)
+        payloads = [got.get(timeout=30)]
+        while not payloads[-1][1]:
+            payloads.append(got.get(timeout=30))
+        assert payloads[-1][2] == "error"
+        again: "queue.SimpleQueue" = queue.SimpleQueue()
+        loop.submit([1, 2, 3], SamplingParams(max_tokens=6, temperature=0.0), again.put)
+        toks, last = [], again.get(timeout=30)
+        while not last[1]:
+            toks += last[0]
+            last = again.get(timeout=30)
+        assert last[2] == "length" and len(toks + last[0]) == 6
+    finally:
+        loop.stop()
+        loop.join(timeout=10)
+    assert not loop.is_alive() and not eng.has_work()
