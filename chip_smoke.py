@@ -7,9 +7,10 @@ NVIDIA GPU and check it end to end. Run from the root of a checkout:
 Phases, each fatal on failure:
 
 1. build: compile every CUDA kernel from ``csrc/`` (one nvcc per source,
-   in parallel) and print the build seconds and the card's name and power
-   limit; count the HMMA (tensor-core) instructions in the SASS of the
-   bf16 flash prefill body (``cuobjdump -sass``) and fail if it has none;
+   in parallel) and print the build seconds, ptxas's register report and
+   the card's name and power limit; count the HMMA (tensor-core)
+   instructions in the SASS of the bf16 flash prefill body and of the bf16
+   W8A16 body (``cuobjdump -sass``) and fail if either has none;
 2. kernels: hold each kernel against its plain PyTorch version on the card
    -- the small shapes of tests/test_pallas.py and tests/test_kv_int8.py in
    float32 and full-width llama-3-8b shapes in bfloat16 (int8 pools for
@@ -32,7 +33,14 @@ Phases, each fatal on failure:
    gemma-2-9b's (16 on 8, d 256, softcap 50), timed there beside the bound
    (decode at lengths 1..2,500, 48 pages a slot; flash at bucket 1,024,
    length 900, beside sdpa); the window appends also at pages 24 and 100,
-   span edges and timed;
+   span edges and timed. Then the W8A16 kernel (``w8_kernels``): float32
+   at small shapes (1e-4), bfloat16 at llama-3-8b's seven projections at M
+   1, 8, 64, 256 and 4,096 (the row tolerance), rows 0, 37 and 63 alone bit
+   for bit equal to them in calls of 64, 256 and 4,096 rows (batch
+   invariance), refusals of a CPU weight, a strided view and K % 16 != 0;
+   timed at the four distinct shapes and every M beside the bound and
+   bf16 ``torch.matmul`` with a bf16 copy of the weight made outside the
+   timed region (the yardstick: what bf16 serving pays);
 3. serve: start ``python -m llms_on_kubernetes_tpu_torch serve --model
    llama-3-8b --random-weights --device cuda`` (the default EngineConfig:
    8 slots, decode_steps 4, kv_write "dus", bf16, prefix caching on, async
@@ -54,7 +62,10 @@ Phases, each fatal on failure:
    within 1e-4; greedy streams identical, float and int8 KV, with a
    chunked prompt and a second pass of cache hits), then the same at page
    24 for debug-tiny cut to head_dim 96 and debug-gemma cut to 256 (made
-   here with dataclasses.replace, not registered);
+   here with dataclasses.replace, not registered); debug-tiny again with
+   int8 weights (the W8A16 kernel's f32 body against the plain version),
+   and a debug-tiny fp8 checkpoint from synth_checkpoint served on the card
+   and the CPU with the same streams;
 4. in process: the same random weights behind the default Engine (async,
    graphed windows), first with bf16 KV, then with int8 KV. kv_write
    "fused": requests through it (counters zeroed before, read after: the
@@ -91,22 +102,42 @@ Phases, each fatal on failure:
    decode kernel and the window kernel each launch num_layers times their
    calls, no other kernel runs, and every decode window was a graph
    replay; then the same with
-   ``--kv-cache-dtype int8`` (kernels 1, 4 and 7). Prints the load
-   seconds, cold (in process) and warm (in the server), the time to
-   /health and the phase's seconds.
+   ``--kv-cache-dtype int8`` (kernels 1, 4 and 7); then loaded in process
+   with ``quantization="int8"`` (load seconds, weight bytes on the card, a
+   16-token greedy stream). Prints the load seconds, cold (in process) and
+   warm (in the server), the time to /health and the phase's seconds;
+6. headline: the JAX bench's headline configuration (bench.py:2998-3037)
+   in process, ``Engine(EngineConfig(model="llama-3-8b",
+   quantization="int8", max_decode_slots=64, page_size=32,
+   pages_per_slot=16, num_pages=1025, prefill_buckets=(64,),
+   async_depth=8, pace_target_steps=3.0))`` with random weights: 56
+   concurrent 32-token prompts of 128 greedy tokens and, once they decode,
+   8 more arriving 100 ms apart, an engine thread stepping as the server's
+   does; counters zeroed before each run and read after. Held: every
+   request ends with its 128 tokens, every decode window is one graph
+   replay and every decode-kernel launch a replay's, and every quantized
+   projection one W8A16 launch (7 x num_layers a forward). Printed: decode
+   tokens/s, the late arrivals' TTFT p50 and max, the pacing deferrals. In
+   turns on one engine at pace 3, 0, 0, 3, then bf16 weights at pace 3;
+   the streams equal between pace 0 and 3 are counted, not held. One
+   int8-weight window replayed and one run eagerly from copies of one pool
+   and one count table: tokens, logprobs, pools and counts byte-equal.
 
 ``--profile`` stops after phase 2 and traces, under torch.profiler, one
 decode window of eight requests as the engine runs it (one CUDA graph
 replay) and the same window run eagerly (op by op), each with its wall
-time, host enqueue time, device busy time and kernel count, and one chunk
-call (the second chunk of a 1,500-token prompt, padded to its bucket and
-unpadded), with the pool of ``LLMK_KV_DTYPE`` (bf16 or int8);
+time, host enqueue time, device busy time, kernel count and the W8A16
+kernel's share of the device time, and one chunk call (the second chunk
+of a 1,500-token prompt, padded to its bucket and unpadded), with the pool
+of ``LLMK_KV_DTYPE`` (bf16 or int8); then the two windows again with int8
+weights;
 ``--kernels-only`` stops after phase 2.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; before it, one ``{"kernels": [...]}`` JSON line, whose
-``launches`` come from phase 5's servers (kernels 1, 2, 4, 6, 7) and
-phase 4's fused engines (3, 5), and ``launches_by_path`` from every path. The last line
+``launches`` come from phase 5's servers (kernels 1, 2, 4, 6, 7), phase
+4's fused engines (3, 5) and phase 6's first int8 run at pace 3 (the
+W8A16 kernel), and ``launches_by_path`` from every path. The last line
 is ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device, or outside a checkout, it exits non-zero first.
 
@@ -270,10 +301,10 @@ def decode_timing(timer, kernel, plain, lens, write: bool, int8: bool = False,
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def sass_mma_count(path) -> tuple[int, int]:
-    """(mma instructions, functions) in the SASS of the tensor-core flash
-    body (kernel names containing flash_prefill_tc) of a built library,
-    read with cuobjdump from the CUDA toolkit or Triton's bundled copy."""
+def sass_mma_count(path, func: str = "flash_prefill_tc") -> tuple[int, int]:
+    """(mma instructions, functions) in the SASS of a built library's
+    tensor-core body (kernel names containing ``func``), read with
+    cuobjdump from the CUDA toolkit or Triton's bundled copy."""
     import shutil
     tools = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
     try:
@@ -290,7 +321,7 @@ def sass_mma_count(path) -> tuple[int, int]:
     count, funcs, inside = 0, 0, False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = "flash_prefill_tc" in line
+            inside = func in line
             funcs += inside
         elif inside and ("HMMA" in line or "HGMMA" in line):
             count += 1
@@ -1057,6 +1088,118 @@ def wide_kernels(torch, rng, timer) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2, the W8A16 kernel: int8 weights at llama-3-8b's projections
+# ---------------------------------------------------------------------------
+
+# llama-3-8b's seven projections, name -> (K, N)
+W8_PROJ = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024), "wo": (4096, 4096),
+           "w_gate": (4096, 14336), "w_up": (4096, 14336), "w_down": (14336, 4096)}
+# rows: one decode row, decode at 8 and 64 slots, the headline prefill
+# (4 x 64) and the default one (4 x 1,024)
+W8_ROWS = (1, 8, 64, 256, 4096)
+W8_MAIN = "w_gate/w_up 4096x14336 M64"
+
+
+def w8_work(M: int, K: int, N: int) -> tuple[float, float]:
+    """FLOPs and bytes of one W8A16 call: the int8 weight and the f32
+    scale read once, bf16 x read once and bf16 out written once."""
+    return 2.0 * M * K * N, K * N + 4 * N + 2 * M * K + 2 * M * N
+
+
+def w8_kernels(torch, rng, timer) -> dict:
+    """Phase 2 for the W8A16 kernel: float32 at small shapes (1e-4);
+    bfloat16 at llama-3-8b's seven projections at M 1, 8, 64, 256 and
+    4,096 (the row tolerance); each row bit-equal alone and in calls of
+    64, 256 and 4,096 rows (batch invariance, across both block shapes);
+    the refusals; then kernel, plain version and bf16 ``torch.matmul`` with
+    a bf16 copy of the weight made outside the timed region (what bf16
+    serving pays for the same product) timed at the four distinct shapes
+    and every M, beside the bound."""
+    from llms_on_kubernetes_tpu_torch.ops import quant as q
+
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def inputs(M, K, N, dtype):
+        x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to("cuda", dtype)
+        w = torch.from_numpy(rng.integers(-127, 128, size=(K, N)).astype(np.int8)).cuda()
+        s = torch.from_numpy(rng.uniform(1e-3, 2e-2, size=N).astype(np.float32)).cuda()
+        return x, w, s
+
+    say("kernel w8_matmul (the port's own: the product JAX ops/quant.py::qeinsum leaves to XLA)")
+    # float32 at small K: 1e-4 is the summation order's error there
+    for M, K, N in [(1, 64, 32), (5, 64, 32), (17, 128, 48), (70, 320, 96), (300, 256, 160)]:
+        x, w, s = inputs(M, K, N, f32)
+        check_close(f"f32 M{M} K{K} N{N}", q.w8_matmul(x, w, s), q.w8_matmul_plain(x, w, s),
+                    "float32")
+    xs = {K: torch.from_numpy(rng.normal(size=(max(W8_ROWS), K)).astype(np.float32)).to(
+        "cuda", bf16) for K in (4096, 14336)}
+    weights, err = {}, 0.0
+    for name, (K, N) in W8_PROJ.items():
+        _, w, s = inputs(1, K, N, bf16)
+        weights[name] = (w, s)
+        outs = {}
+        for M in W8_ROWS:
+            x = xs[K][:M]
+            outs[M] = q.w8_matmul(x, w, s)
+            err = max(err, check_close(f"bf16 {name} {K}->{N} M{M}", outs[M],
+                                       q.w8_matmul_plain(x, w, s), "bfloat16"))
+        for r in (0, 37, 63):
+            one = q.w8_matmul(xs[K][r:r + 1], w, s)[0]
+            for M in (64, 256, 4096):
+                if not torch.equal(one, outs[M][r]):
+                    fail(f"w8_matmul {name}: row {r} alone differs from row {r} of a call of "
+                         f"{M} rows (batch invariance)")
+        del outs
+    say("  batch invariance: rows 0, 37, 63 alone equal them in calls of 64, 256 and 4,096 "
+        "rows, bit for bit, at all seven projections")
+    x, w, s = inputs(8, 64, 32, bf16)
+    x40, w40, s40 = inputs(8, 40, 32, bf16)
+    for label, args in (("a CPU tensor", (x, w.cpu(), s)), ("a strided view", (x[:, ::2], w, s)),
+                        ("K % 16 != 0", (x40, w40, s40))):
+        try:
+            q.w8_matmul(*args)
+        except ValueError as e:
+            say(f"  refuses {label}: {e}")
+        else:
+            fail(f"w8_matmul took {label}")
+    torch.cuda.synchronize()
+
+    timings = {}
+    shapes = {"wq/wo": "wq", "wk/wv": "wk", "w_gate/w_up": "w_gate", "w_down": "w_down"}
+    for label, name in shapes.items():
+        K, N = W8_PROJ[name]
+        w, s = weights[name]
+        wb = w.to(bf16)        # the bf16 weight bf16 serving holds (exact)
+        for M in W8_ROWS:
+            x = xs[K][:M]
+            ms = timer(lambda: q.w8_matmul(x, w, s), reps=50)
+            plain = timer(lambda: q.w8_matmul_plain(x, w, s))
+            lib = timer(lambda: torch.matmul(x, wb))
+            b_ms, b_by = bound_ms(*w8_work(M, K, N), "bfloat16")
+            key = f"{label} {K}x{N} M{M}"
+            timings[key] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=lib)
+            say(f"  timing w8_matmul {key}: ms={ms:.4f} plain_ms={plain:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}) library_ms={lib:.4f}")
+        del wb
+    for M in (8, 64):
+        per = {k: sum(timings[f"{lbl} {W8_PROJ[n][0]}x{W8_PROJ[n][1]} M{M}"][k]
+                      * (2 if "/" in lbl else 1) for lbl, n in shapes.items())
+               for k in ("ms", "bound_ms", "library_ms")}
+        say(f"  w8_matmul, a llama-3-8b forward's projections at M {M} (32 layers x 7): "
+            f"ms={32 * per['ms']:.3f} bound_ms={32 * per['bound_ms']:.3f} bf16 "
+            f"torch.matmul={32 * per['library_ms']:.3f} [{card_line()}]")
+    main = timings[W8_MAIN]
+    return {"w8_matmul": dict(
+        name="w8_matmul", route="cuda", source="llms_on_kubernetes_tpu_torch/csrc/w8_matmul.cu",
+        replaces="llms_on_kubernetes_tpu/ops/quant.py:311", max_abs_err=err, **main,
+        shape=f"{W8_MAIN} bf16 x, int8 w", other_shapes={k: v for k, v in timings.items()
+                                                         if k != W8_MAIN},
+        library_note="torch.matmul of x with a bf16 copy of the weight made outside the "
+                     "timed region: what bf16 serving pays for the same product")}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the server, through its normal entry point
 # ---------------------------------------------------------------------------
 
@@ -1648,20 +1791,25 @@ def wide_debug_configs() -> list:
                                 attn_softcap=50.0, query_pre_attn_scalar=256.0)]
 
 
-def phase_reference(torch, cfg=None, page: int = 4) -> None:
+def phase_reference(torch, cfg=None, page: int = 4, quantized: bool = False) -> None:
     """The model on a small input against a reference: ``cfg`` (debug-tiny
     by default) in float32, the same weights on the card (kernels) and on
-    the CPU (plain versions), at a page of ``page`` rows. Prefill logits
-    within 1e-4 (summation order only), and the engines' greedy streams
-    identical, kv_write dus and fused, float and int8 KV, with a chunked
-    prompt and a second pass of cache hits."""
+    the CPU (plain versions), at a page of ``page`` rows; ``quantized``:
+    the weights int8 (quantized on the CPU; the W8A16 kernel on the card).
+    Prefill logits within 1e-4 (summation order only), and the engines'
+    greedy streams identical, kv_write dus and fused, float and int8 KV,
+    with a chunked prompt and a second pass of cache hits."""
     from llms_on_kubernetes_tpu_torch.configs import get_config
     from llms_on_kubernetes_tpu_torch.engine.cache import CacheConfig, init_pages
     from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
     from llms_on_kubernetes_tpu_torch.models.decoder import forward_prefill, init_params
+    from llms_on_kubernetes_tpu_torch.ops.quant import quantize_params
 
     cfg = cfg or get_config("debug-tiny")
     cpu_params = init_params(cfg, seed=0, dtype="float32", device="cpu")
+    if quantized:
+        cpu_params = quantize_params(cpu_params)
+    weights = "int8 weights" if quantized else "f32"
 
     def on(dev):
         return {k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict)
@@ -1681,7 +1829,7 @@ def phase_reference(torch, cfg=None, page: int = 4) -> None:
         logits[dev] = forward_prefill(on(dev), cfg, tokens.to(dev), lengths.to(dev), k, v,
                                       table.to(dev))[0].cpu()
     err = float((logits["cuda"] - logits["cpu"]).abs().max())
-    say(f"reference: {cfg.name} f32 prefill logits (page {page}), card vs CPU: "
+    say(f"reference: {cfg.name} {weights} prefill logits (page {page}), card vs CPU: "
         f"max_abs_err={err:.3e} tol={F32_TOL:.0e}")
     if not err <= F32_TOL:
         fail(f"{cfg.name} prefill logits on the card differ from the CPU reference")
@@ -1716,24 +1864,63 @@ def phase_reference(torch, cfg=None, page: int = 4) -> None:
         if any(out != ref for out in streams.values()):
             fail(f"{cfg.name} {kv}: greedy streams differ between the card and the CPU, or "
                  f"between cold and cache-hit runs: {streams}")
-        say(f"reference: {cfg.name} {kv} greedy streams equal on the card (dus, fused) and "
-            f"the CPU at page {page}, cold, chunked (45 tokens, bucket 32) and on cache hits")
+        say(f"reference: {cfg.name} {weights}, {kv}: greedy streams equal on the card (dus, "
+            f"fused) and the CPU at page {page}, cold, chunked (45 tokens, bucket 32) and on "
+            f"cache hits")
 
 
-def phase_profile(torch, model: str = MODEL) -> None:
+def phase_fp8_reference(torch) -> None:
+    """A debug-width compressed-tensors fp8 checkpoint (synth_checkpoint:
+    debug-tiny, float32 besides the fp8 linears) loaded as int8 QTensors
+    and served on the card and on the CPU: the same greedy streams."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
+    from llms_on_kubernetes_tpu_torch.ops.quant import QTensor
+    from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import write_checkpoint
+
+    cfg = get_config("debug-tiny")
+    path = os.path.join(OUT_DIR, "debug-tiny-fp8")
+    shutil.rmtree(path, ignore_errors=True)
+    write_checkpoint(cfg, path, dtype="float32", quantization="fp8")
+    prompts = [[3, 17, 9], [40, 2] * 9, [7, 7, 7, 7], [11] * 30, [(7 * i) % 251 for i in range(45)]]
+    sp = SamplingParams(max_tokens=12, temperature=0.0)
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(EngineConfig(model=cfg.name, dtype="float32", max_decode_slots=4,
+                                  page_size=4, num_pages=128, pages_per_slot=16,
+                                  prefill_buckets=(16, 32), quantization="fp8", device=dev),
+                     model_config=cfg, model_dir=path)
+        if not isinstance(eng.params["layers"]["w_down"], QTensor):
+            fail("the fp8 checkpoint did not load as int8 QTensors")
+        reqs = [eng.submit(p, sp) for p in prompts]
+        while eng.has_work():
+            eng.step()
+        streams[dev] = [r.output for r in reqs]
+        del eng
+    if streams["cuda"] != streams["cpu"]:
+        fail(f"fp8 checkpoint: greedy streams differ between the card and the CPU: {streams}")
+    say("reference: a debug-tiny fp8 checkpoint (compressed-tensors, per-channel scales) "
+        "serves the CPU's greedy streams on the card (int8 weights, W8A16 kernel)")
+    shutil.rmtree(path, ignore_errors=True)
+
+
+def phase_profile(torch, model: str = MODEL, quantization=None) -> None:
     """Where a decode window's time goes: eight greedy requests in decode
     (the sync engine, so nothing else is in flight), then one window as the
     engine runs it (one CUDA graph replay) and one run eagerly (the same
     function, op by op, as the engine ran it before the graph), each timed
     on the host clock and then traced under torch.profiler. Prints each
     window's wall time, the host time to enqueue it, the device busy time
-    and the kernels it runs, and the top operators by device and host
-    time."""
+    and the kernels it runs, the W8A16 kernel's share of the device time,
+    and the top operators by device and host time. ``quantization="int8"``:
+    int8 weights (random, quantized); the chunk call is profiled with bf16
+    weights only."""
     from torch.profiler import ProfilerActivity, profile
 
     from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
 
-    eng = Engine(EngineConfig(model=model, device="cuda", async_scheduling=False))
+    eng = Engine(EngineConfig(model=model, device="cuda", async_scheduling=False,
+                              quantization=quantization))
     for i in range(eng.config.max_decode_slots):
         eng.submit([1 + (i * 7 + j) % 200 for j in range(40)],
                    SamplingParams(max_tokens=64, temperature=0.0))
@@ -1752,6 +1939,7 @@ def phase_profile(torch, model: str = MODEL) -> None:
                                             eng.v_pages, eng.token_counts),
     }
     kv = "int8" if eng.cache_config.kv_dtype == "int8" else "bf16"
+    kv = f"{quantization or 'bf16'} weights, {kv}"
     card = card_line()
     cuda = torch.autograd.DeviceType.CUDA
     launch_api = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -1773,12 +1961,19 @@ def phase_profile(torch, model: str = MODEL) -> None:
         ka = prof.key_averages()
         kernels_run = sum(e.count for e in ka if e.device_type == cuda)
         launches = sum(e.count for e in ka if e.key in launch_api)
-        say(f"profile: {name} window: device busy {device_ms(torch, prof):.2f} ms, "
-            f"{kernels_run} kernels on the device, {launches} launch calls on the host "
-            f"[{card}]")
+        busy = device_ms(torch, prof)
+        w8 = sum(e.self_device_time_total for e in ka
+                 if e.device_type == cuda and "w8_matmul" in e.key) / 1e3
+        say(f"profile: {name} window ({kv} KV): device busy {busy:.2f} ms, "
+            f"{kernels_run} kernels on the device, {launches} launch calls on the host; "
+            f"W8A16 kernels {w8:.2f} ms ({100 * w8 / max(busy, 1e-9):.1f}% of the device "
+            f"time) [{card}]")
         say(ka.table(sort_by="self_cuda_time_total", row_limit=18))
         say(ka.table(sort_by="self_cpu_time_total", row_limit=12))
-    profile_chunk(torch, eng)
+    if quantization is None:
+        profile_chunk(torch, eng)
+    del eng
+    torch.cuda.empty_cache()
 
 
 def device_ms(torch, prof) -> float:
@@ -1962,6 +2157,7 @@ def phase_checkpoint(torch) -> dict:
     del params
     torch.cuda.empty_cache()
     served = {kv: serve_checkpoint(cfg, kv) for kv in (None, "int8")}
+    phase_checkpoint_int8(torch, cfg)
     say(f"checkpoint phase: {time.perf_counter() - t_phase:.1f} s (write {write_s:.1f}, "
         f"cold load {load_s:.2f}, to /health bf16 {served[None]['health_s']:.1f} / int8 "
         f"{served['int8']['health_s']:.1f}, warm load in the server bf16 "
@@ -2066,6 +2262,235 @@ def _drive_checkpoint_server(base: str, cfg, kv_cache_dtype) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the JAX bench's headline configuration, in process
+# ---------------------------------------------------------------------------
+
+# bench.py's headline engine (int8 weights; quantization and pace are set
+# per run)
+HEADLINE = dict(model=MODEL, dtype="bfloat16", max_decode_slots=64, page_size=32,
+                pages_per_slot=16, num_pages=1025, prefill_buckets=(64,), async_depth=8)
+HEADLINE_EARLY, HEADLINE_LATE, HEADLINE_PROMPT, HEADLINE_NEW = 56, 8, 32, 128
+HEADLINE_GAP_S = 0.1
+PACE = 3.0
+HEADLINE_PATH = f"{MODEL} headline int8 weights pace {PACE:g}"
+
+
+def param_bytes(params) -> int:
+    """Bytes of a parameter tree on its device (a QTensor's data and scale)."""
+    if isinstance(params, dict):
+        return sum(param_bytes(v) for v in params.values())
+    if hasattr(params, "scale"):
+        return params.nbytes()
+    return params.numel() * params.element_size()
+
+
+def headline_prompts() -> list:
+    """64 distinct 32-token prompts (a 32-token prompt fills one page and
+    leaves no token to prefill after a hit, so none is ever a cache hit)."""
+    return [[1 + (37 * i + 11 * j + (i * j) % 7) % 250 for j in range(HEADLINE_PROMPT)]
+            for i in range(HEADLINE_EARLY + HEADLINE_LATE)]
+
+
+def run_headline(torch, eng, pace: float, tag: str) -> dict:
+    """One run of the headline traffic through ``eng`` at ``pace``: 56
+    concurrent 32-token prompts of 128 greedy tokens, an engine thread
+    stepping as the server's does; once every one has its first token, 8
+    more arrive 100 ms apart. The launch counters are zeroed just before
+    and read just after. Held: every request finishes with its 128 tokens,
+    every decode window is one graph replay, every decode-kernel launch a
+    replay's, and every quantized projection one W8A16 launch (7 x
+    num_layers a forward, the replays' for decode). Returns the streams,
+    the launches and the numbers printed."""
+    from llms_on_kubernetes_tpu_torch import kernels
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+    from llms_on_kubernetes_tpu_torch.ops.quant import QTensor
+
+    eng.config.pace_target_steps = pace       # read at every launch
+    prompts = headline_prompts()
+    sp = SamplingParams(max_tokens=HEADLINE_NEW, temperature=0.0)
+    # "paced" returns, and of them the deferrals: a return before the
+    # window is planned (after planning it means every row's budget is in
+    # flight, which happens at pace 0 too)
+    launch, plan = eng._launch_decode_multi, eng._plan_window
+    statuses, planned = {"paced": 0, "deferred": 0}, []
+
+    def counted(admitted, events):
+        planned.clear()
+        status = launch(admitted, events)
+        if status == "paced":
+            statuses["paced"] += 1
+            statuses["deferred"] += not planned
+        return status
+
+    def planning(events):
+        planned.append(1)
+        return plan(events)
+
+    eng._launch_decode_multi, eng._plan_window = counted, planning
+    stop, failed = threading.Event(), []
+
+    def loop():
+        try:
+            while not stop.is_set():
+                if eng.has_work():
+                    eng.step()
+                else:
+                    time.sleep(0.0005)
+        except BaseException as e:  # reported on the main thread
+            failed.append(e)
+
+    def submit(prompt) -> dict:
+        rec = {"t_sub": time.perf_counter(), "t_first": None, "t_last": None}
+
+        def on_event(payload, rec=rec):
+            toks = payload[0]
+            if toks:
+                now = time.perf_counter()
+                rec["t_first"] = rec["t_first"] or now
+                rec["t_last"] = now
+
+        rec["req"] = eng.submit(prompt, sp, on_event=on_event)
+        return rec
+
+    def wait(cond, what):
+        deadline = time.perf_counter() + 300
+        while not cond():
+            if failed:
+                fail(f"{tag}: the engine thread failed: {failed[0]!r}")
+            if time.perf_counter() > deadline:
+                fail(f"{tag}: {what} did not happen within 300 s")
+            time.sleep(0.002)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    calls0 = (eng.prefill_calls, eng.chunk_calls, eng.decode_forwards, eng.graph_replays)
+    th = threading.Thread(target=loop, daemon=True)
+    th.start()
+    try:
+        early = [submit(p) for p in prompts[:HEADLINE_EARLY]]
+        wait(lambda: all(r["t_first"] for r in early), "the first tokens of 56 prompts")
+        late = []
+        for p in prompts[HEADLINE_EARLY:]:
+            late.append(submit(p))
+            time.sleep(HEADLINE_GAP_S)
+        wait(lambda: all(r["req"].finished for r in early + late), "every request's end")
+    finally:
+        stop.set()
+        th.join(timeout=60)
+        del eng._launch_decode_multi, eng._plan_window
+    torch.cuda.synchronize()
+    launches, replayed = kernels.launch_counts(), kernels.replayed_counts()
+    prefill, chunk, forwards, replays = (now - then for now, then in zip(
+        (eng.prefill_calls, eng.chunk_calls, eng.decode_forwards, eng.graph_replays), calls0))
+    recs = early + late
+    for r in recs:
+        req = r["req"]
+        if req.finish_reason != "length" or len(req.output) != HEADLINE_NEW:
+            fail(f"{tag}: a request finished {req.finish_reason!r} with {len(req.output)} "
+                 f"tokens, expected {HEADLINE_NEW}")
+    if replays < 1 or replays * eng.config.decode_steps != forwards:
+        fail(f"{tag}: {replays} graph replays for {forwards} decode forwards")
+    dec = {k: n for k, n in launches.items() if k.startswith("paged_decode")}
+    if not dec or dec != {k: replayed.get(k, 0) for k in dec}:
+        fail(f"{tag}: decode kernel launches {dec}, by replays {replayed}: some ran eagerly")
+    L = eng.model_config.num_layers
+    quantized = isinstance(eng.params["layers"]["wq"], QTensor)
+    want_w8 = 7 * L * (prefill + chunk + forwards) if quantized else 0
+    if launches.get("w8_matmul", 0) != want_w8 or (
+            quantized and replayed.get("w8_matmul", 0) != 7 * L * forwards):
+        fail(f"{tag}: w8_matmul launched {launches.get('w8_matmul', 0)} times "
+             f"({replayed.get('w8_matmul', 0)} by replays), expected 7 x {L} layers x "
+             f"{prefill + chunk + forwards} forwards = {want_w8}")
+    tokens = sum(len(r["req"].output) - 1 for r in recs)
+    span = max(r["t_last"] for r in recs) - min(r["t_first"] for r in recs)
+    ttft = [1e3 * (r["t_first"] - r["t_sub"]) for r in late]
+    out = dict(decode_tps=tokens / span, ttft_p50_ms=float(np.median(ttft)),
+               ttft_max_ms=max(ttft), paced=statuses["paced"],
+               deferred=statuses["deferred"], launches=launches,
+               streams=[r["req"].output for r in recs], prefill_calls=prefill,
+               decode_forwards=forwards, graph_replays=replays,
+               est_step_ms=1e3 * eng._est_step)
+    say(f"headline {tag}: decode {out['decode_tps']:.1f} tok/s; late-arrival TTFT p50 "
+        f"{out['ttft_p50_ms']:.1f} ms, max {out['ttft_max_ms']:.1f} ms; {statuses['paced']} "
+        f"paced returns, {statuses['deferred']} of them pacing deferrals; {prefill} prefill "
+        f"calls, {forwards} decode forwards in {replays} graph replays; est step "
+        f"{out['est_step_ms']:.2f} ms; w8_matmul launches "
+        f"{launches.get('w8_matmul', 0)} [{card_line()}]")
+    return out
+
+
+def phase_headline(torch) -> dict:
+    """The JAX bench's headline configuration (bench.py:2998-3037):
+    llama-3-8b, int8 weights, 64 slots, page 32, bucket 64, async depth 8,
+    pace 3, random weights; runs in turns at pace 3, 0, 0, 3 on one engine,
+    then bf16 weights at pace 3; and one int8-weight window replayed
+    against the eager window (``window_vs_eager``). Returns the first int8
+    pace-3 run (the W8A16 kernel's path) and the numbers."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    eng = Engine(EngineConfig(**HEADLINE, quantization="int8", pace_target_steps=PACE))
+    torch.cuda.synchronize()
+    wbytes = param_bytes(eng.params)
+    say(f"headline: {MODEL} int8 weights ({wbytes / 1e9:.2f} GB on the card), engine built "
+        f"in {time.perf_counter() - t0:.1f} s (random weights, quantization, pool, capture)")
+    runs = {}
+    for i, pace in enumerate((PACE, 0.0, 0.0, PACE)):
+        runs[(pace, i)] = run_headline(torch, eng, pace, f"int8 pace {pace:g} (run {i + 1})")
+    window_vs_eager(torch, eng, "headline int8 weights (64 slots, page 32), graph vs eager",
+                    headline_prompts()[:3])
+    del eng
+    torch.cuda.empty_cache()
+    bf16 = Engine(EngineConfig(**HEADLINE, pace_target_steps=PACE))
+    runs["bf16"] = run_headline(torch, bf16, PACE, f"bf16 weights pace {PACE:g}")
+    del bf16
+    torch.cuda.empty_cache()
+    p3, p0 = runs[(PACE, 0)], runs[(0.0, 1)]
+    same = sum(a == b for a, b in zip(p3["streams"], p0["streams"]))
+    say(f"headline: int8 streams equal between pace 3 and pace 0: {same} of "
+        f"{len(p3['streams'])} (reported, not held: the bf16 attention and LM head follow "
+        f"the batch shape)")
+    say(f"headline phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": p3["launches"], "runs": runs}
+
+
+def phase_checkpoint_int8(torch, cfg) -> None:
+    """The phase-5 phi-3-mini checkpoint loaded with ``quantization="int8"``
+    in process: load seconds, weight bytes on the card, a short greedy
+    stream through an engine (every projection a W8A16 launch)."""
+    from llms_on_kubernetes_tpu_torch import kernels
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
+    from llms_on_kubernetes_tpu_torch.engine.weights import load_hf_params
+    from llms_on_kubernetes_tpu_torch.ops.quant import QTensor
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = load_hf_params(cfg, CKPT_DIR, device="cuda", quantization="int8")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    layers = params["layers"]
+    if not all(isinstance(layers[n], QTensor) for n in ("wq", "wk", "wv", "wo", "w_gate",
+                                                         "w_up", "w_down")):
+        fail("checkpoint int8: the projections did not load as QTensors")
+    wbytes = param_bytes(params)
+    eng = Engine(EngineConfig(model=CKPT_MODEL, pages_per_slot=CKPT_PPS, quantization="int8",
+                              device="cuda"), model_config=cfg, params=params)
+    kernels.reset_launches()
+    out = eng.generate([1 + (7 * i) % 200 for i in range(40)],
+                       SamplingParams(max_tokens=16, temperature=0.0))
+    torch.cuda.synchronize()
+    w8 = kernels.launch_counts().get("w8_matmul", 0)
+    if len(out) != 16 or not w8:
+        fail(f"checkpoint int8: {len(out)} tokens, {w8} w8_matmul launches")
+    say(f"checkpoint int8: {CKPT_MODEL} loaded with quantization=int8 in {load_s:.2f} s, "
+        f"{wbytes / 1e9:.2f} GB of weights on the card; greedy stream of 16 tokens "
+        f"{out[:8]}..., {w8} w8_matmul launches [{card_line()}]")
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv) -> int:
     try:
@@ -2101,22 +2526,30 @@ def main(argv) -> int:
         f"(bf16) functions")
     if not funcs or not hmma:
         fail("the bf16 flash prefill body has no tensor-core (HMMA) instruction")
+    hmma, funcs = sass_mma_count(kernels.library_path("w8_matmul"), "w8_matmul_tc")
+    say(f"sass w8_matmul: {hmma} HMMA instructions in {funcs} tensor-core (bf16) functions")
+    if not funcs or not hmma:
+        fail("the bf16 W8A16 body has no tensor-core (HMMA) instruction")
 
     t0 = time.perf_counter()
     entries = phase_kernels(torch)
     for name, shapes in wide_kernels(torch, np.random.default_rng(1), Timer(torch)).items():
         entries[name]["other_shapes"].update(shapes)
+    entries.update(w8_kernels(torch, np.random.default_rng(2), Timer(torch)))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     say(f"phase 2 (kernels): {time.perf_counter() - t0:.1f} s")
     if "--profile" in argv:
         phase_profile(torch)
+        phase_profile(torch, quantization="int8")
         fail("--profile: profile only, no result")
     if "--kernels-only" in argv:
         say(json.dumps({"kernels": list(entries.values())}))
         fail("--kernels-only: phases 3 to 5 skipped, no result")
     t0 = time.perf_counter()
     phase_reference(torch)
+    phase_reference(torch, quantized=True)
+    phase_fp8_reference(torch)
     for cfg in wide_debug_configs():
         phase_reference(torch, cfg, page=24)
     num_layers = get_config(MODEL).num_layers
@@ -2127,19 +2560,22 @@ def main(argv) -> int:
     fused = phase_in_process(torch, MODEL)
     say(f"phase 4 (fused): {time.perf_counter() - t0:.1f} s")
     ckpt = phase_checkpoint(torch)
+    headline = phase_headline(torch)
     # launches on each path, counted from 0 just before it and read just
-    # after; the line's "launches" is this slice's path (the checkpoint
-    # server) where the kernel runs there, else phase 4's fused engines
+    # after; the line's "launches" is the checkpoint server's where the
+    # kernel runs there, else phase 4's fused engines, and the W8A16
+    # kernel's the headline configuration's (int8 weights, pace 3)
     ckpt_bf16, ckpt_int8 = (f"{CKPT_MODEL} checkpoint serve {kv} KV" for kv in ("bf16", "int8"))
     fused_bf16, fused_int8 = (f"{MODEL} kv_write fused {kv} KV" for kv in ("bf16", "int8"))
     paths = {f"{MODEL} serve bf16 KV": served["launches"],
              f"{MODEL} serve int8 KV": served_int8["launches"],
              fused_bf16: fused[None]["launches"], fused_int8: fused["int8"]["launches"],
-             ckpt_bf16: ckpt[None]["launches"], ckpt_int8: ckpt["int8"]["launches"]}
+             ckpt_bf16: ckpt[None]["launches"], ckpt_int8: ckpt["int8"]["launches"],
+             HEADLINE_PATH: headline["launches"]}
     main_path = {"flash_prefill": ckpt_bf16, "paged_decode": ckpt_bf16,
                  "paged_write_window": ckpt_bf16, "paged_decode_int8": ckpt_int8,
                  "paged_write_window_int8": ckpt_int8, "paged_decode_write": fused_bf16,
-                 "paged_decode_write_int8": fused_int8}
+                 "paged_decode_write_int8": fused_int8, "w8_matmul": HEADLINE_PATH}
     for name, e in entries.items():
         e["launches"] = paths[main_path[name]].get(name, 0)
         e["launches_path"] = main_path[name]

@@ -2,7 +2,7 @@
 
     python -m llms_on_kubernetes_tpu_torch serve --model MODEL [--random-weights] \\
         [--device cuda|cpu] [--port 8080] [--kv-cache-dtype int8] [--kv-write dus|fused] \\
-        [--no-prefix-caching]
+        [--quantization int8|fp8|awq] [--no-prefix-caching]
 
 ``MODEL`` is a registry name (``configs.py``), a local checkpoint directory
 (``config.json`` and ``*.safetensors``: the model config comes from the
@@ -52,6 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-cache-dtype", choices=["int8"], default=None,
                    help="KV cache storage dtype (default: the model dtype, or env "
                         "LLMK_KV_DTYPE)")
+    p.add_argument("--quantization", choices=["int8", "fp8", "awq"], default=None,
+                   help="int8: weight-only quantize the checkpoint (or the random "
+                        "weights); fp8/awq: assert the checkpoint is that pre-quantized "
+                        "format (auto-detected otherwise)")
     p.add_argument("--no-prefix-caching", dest="prefix_caching", action="store_false",
                    help="disable hash-chained prefix reuse (cached prompt pages)")
     return ap
@@ -78,7 +82,8 @@ def main(argv=None) -> int:
             page_size=args.page_size, num_pages=args.num_pages,
             pages_per_slot=args.pages_per_slot, prefill_buckets=args.prefill_buckets,
             decode_steps=args.decode_steps, kv_write=args.kv_write,
-            kv_cache_dtype=args.kv_cache_dtype, prefix_caching=args.prefix_caching,
+            kv_cache_dtype=args.kv_cache_dtype, quantization=args.quantization,
+            prefix_caching=args.prefix_caching,
             seed=args.seed, device=args.device)
         serve(args.model, host=args.host, port=args.port, device=args.device,
               random_weights=args.random_weights, served_model_name=args.served_model_name,

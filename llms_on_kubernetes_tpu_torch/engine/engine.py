@@ -10,6 +10,10 @@ The weights come from ``params``, else from a checkpoint directory
 (``model_dir``: ``engine/weights.load_hf_params``, the model config from
 the registry or, for a name the registry lacks, from the directory's
 ``config.json``), else they are drawn at random from the engine seed.
+``quantization`` (JAX's field): "int8" serves weight-only int8 QTensors
+(``ops/quant.py``; each projection one W8A16 kernel launch on a card);
+"fp8" / "awq" assert a checkpoint's format. Random weights are quantized
+whatever the mode names, and an fp8 checkpoint always serves int8.
 
 Memory: pages are allocated on demand. Admission allocates pages for the
 prompt and one token (after adopting the longest cached prefix of the
@@ -44,11 +48,19 @@ unread) or a drain, so a new submission is admitted and prefilled while
 the device works. ``async_scheduling=False`` runs the synchronous loop:
 admit and prefill, then one window, read at once.
 
+Device-queue pacing (``pace_target_steps`` > 0, as in the JAX engine):
+the engine keeps an estimate of when the work it dispatched will be done
+(``_busy_until``: one step time per window, two per prefill call) and,
+when nothing was admitted this step, defers a window while that is more
+than ``pace_target_steps`` step times away, so a new request's prefill
+queues behind fewer windows. The step time (``_est_step``) is calibrated
+from the spacing of harvested windows: the least seen, drifting up 2%.
+A "step" is one dispatch, a whole K-step window, as in JAX.
+
 ``kv_cache_dtype="int8"`` (or env ``LLMK_KV_DTYPE=int8``) keeps the KV
 pool in int8 with per-token scales, as the JAX engine does.
 
-Not ported yet: device-queue pacing (``pace_target_steps`` takes only
-its default, 0), the stall watchdog, priority classes (QoS), the host KV
+Not ported yet: the stall watchdog, priority classes (QoS), the host KV
 tier and handoff, the ledger, grammar, LoRA, multimodal salts and
 speculation.
 """
@@ -86,6 +98,7 @@ from llms_on_kubernetes_tpu_torch.models.decoder import (
     forward_chunk, forward_prefill, init_params,
 )
 from llms_on_kubernetes_tpu_torch.ops.paged_attention import DecodeWorkspace
+from llms_on_kubernetes_tpu_torch.ops.quant import SUPPORTED_QUANTIZATIONS, quantize_params
 
 Params = dict[str, Any]
 
@@ -125,14 +138,16 @@ class EngineConfig:
     num_pages: int = 512
     pages_per_slot: int = 32
     prefill_buckets: tuple[int, ...] = (64, 256, 1024)
+    quantization: Optional[str] = None  # None | "int8" (weight-only) | "fp8" | "awq"
     # pipelined scheduling: keep up to async_depth decode windows in flight,
     # each window's input tokens merged on the device from the newest
     # in-flight window; a harvester thread reads the results, so the engine
     # thread waits on the device only for backpressure at full depth
     async_scheduling: bool = True
     async_depth: int = 2
-    # device-queue pacing, the JAX engine's field: 0 = off, the only value
-    # taken (pacing is not ported; its cost and gain are unmeasured here)
+    # device-queue pacing (<= 0: off): no window is dispatched while the
+    # estimated undone device work exceeds this many step times, unless the
+    # step admitted a request (the JAX engine's field and mechanics)
     pace_target_steps: float = 0.0
     # async admission: up to this many same-bucket waiting requests prefill
     # together in one call
@@ -170,9 +185,6 @@ class EngineConfig:
         for name in ("async_depth", "admit_batch"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
-        if self.pace_target_steps != 0:
-            raise ValueError(f"pace_target_steps: device-queue pacing is not ported, only 0 "
-                             f"(off) is taken, got {self.pace_target_steps}")
         self.prefill_buckets = tuple(sorted(int(b) for b in self.prefill_buckets))
         if not self.prefill_buckets or self.prefill_buckets[0] < 1:
             raise ValueError(f"bad prefill_buckets {self.prefill_buckets!r}")
@@ -403,6 +415,9 @@ class Engine:
                  params: Optional[Params] = None,
                  model_dir: Optional[str] = None):
         self.config = engine_config
+        if engine_config.quantization not in SUPPORTED_QUANTIZATIONS:
+            raise ValueError(f"unknown quantization {engine_config.quantization!r} "
+                             f"(supported: {[q for q in SUPPORTED_QUANTIZATIONS if q]})")
         self.device = resolve_device(engine_config.device)
         self.model_config = model_config or model_config_for(engine_config.model, model_dir)
         cfg = self.model_config
@@ -412,10 +427,15 @@ class Engine:
             from llms_on_kubernetes_tpu_torch.engine.weights import load_hf_params
 
             self.params = load_hf_params(cfg, model_dir, device=self.device,
-                                         dtype=engine_config.dtype)
+                                         dtype=engine_config.dtype,
+                                         quantization=engine_config.quantization)
         else:   # random weights (tests, smoke runs)
             self.params = init_params(cfg, seed=engine_config.seed,
                                       dtype=engine_config.dtype, device=self.device)
+            if engine_config.quantization is not None:
+                # random weights have no checkpoint format: every mode
+                # serves weight-only int8, as in the JAX engine
+                self.params = quantize_params(self.params)
         self.cache_config = CacheConfig(
             num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, num_pages=engine_config.num_pages,
@@ -460,6 +480,12 @@ class Engine:
         # set by submit(): breaks the backpressure wait so admission (and
         # the new request's prefill) never waits out a read
         self._admit_wake = threading.Event()
+        # pacing: the device step time (a window's), calibrated from the
+        # spacing of harvested windows, and the estimated wall time when all
+        # dispatched work completes (the JAX engine's _est_step, _busy_until)
+        self._est_step = 0.02
+        self._busy_until = 0.0
+        self._last_harvest_t: Optional[float] = None
         self._harvester: Optional[_Harvester] = None
         if self._async:
             self._harvester = _Harvester()
@@ -540,9 +566,10 @@ class Engine:
             events += self._harvest(drain=status == "idle")
             self._deliver(events)
             if status == "paced" and not events and not self.waiting:
-                # every row's budget is in flight: nothing to do until device
-                # work completes; a bounded nap keeps the loop from burning
-                # the lock the harvester needs
+                # paced, or every row's budget is in flight: nothing to do
+                # until device work completes; a bounded nap keeps the loop
+                # from burning the lock the harvester needs (an admission
+                # arriving mid-nap waits at most 1 ms)
                 time.sleep(0.001)
             return events
         # first tokens go out before the decode window runs, so a new
@@ -978,10 +1005,16 @@ class Engine:
         if long_pick is not None:
             _slot, req, ptoks, hit, _resumed = long_pick
             pack, merge["toks"] = self._chunked_prefill(req, ptoks, start=hit)
+            n_chunks = -(-(len(ptoks) - hit) // max(self.config.prefill_buckets))
+            self._busy_until = (max(time.monotonic(), self._busy_until)
+                                + 2.0 * n_chunks * self._est_step)
             rows = [long_pick]
         elif picked:
             pack, merge["toks"] = self._prefill(self._bucket_for(len(picked[0][2])),
                                                 [(req, ptoks) for _s, req, ptoks, _h, _r in picked])
+            # a prefill call counts as two steps
+            self._busy_until = (max(time.monotonic(), self._busy_until)
+                                + 2.0 * self._est_step)
             rows = picked
         else:
             return None
@@ -1010,8 +1043,16 @@ class Engine:
         from the newest in-flight window (continuing rows), host values
         (rows with nothing in flight, resumed rows) and this step's prefill
         (just-admitted rows); each row's plan (``_plan_window``) is its
-        on-device budget. Returns "launched", "paced" (every row's budget is
-        in flight) or "idle"."""
+        on-device budget. Returns "launched", "paced" (deferred: the device
+        queue is deep enough, or every row's budget is in flight) or
+        "idle"."""
+        pace = self.config.pace_target_steps
+        if pace > 0 and admitted is None and self._inflight:
+            # dispatching now would only deepen the queue a new request's
+            # prefill waits behind; a step that admitted always launches (its
+            # window merges the prefill's tokens)
+            if self._busy_until - time.monotonic() > pace * self._est_step:
+                return "paced"
         infl, plan = self._plan_window(events)
         active = [(i, r) for i, r in enumerate(self.slots) if r is not None]
         if not active:
@@ -1039,6 +1080,8 @@ class Engine:
                             planned={i: plan.get(i, 0) for i, _r in active})
         self._inflight.append(step)
         self._harvester.push(seq, step.pack)
+        now = time.monotonic()
+        self._busy_until = max(now, self._busy_until) + self._est_step
         return "launched"
 
     def _harvest(self, drain: bool) -> list[StepEvent]:
@@ -1051,8 +1094,9 @@ class Engine:
         if not self._inflight and not self._pending_first:
             return events
         depth = self.config.async_depth
+        n_windows = 0
         while True:
-            self._collect_ready(events)
+            n_windows += self._collect_ready(events)
             if drain:
                 if not self._inflight and not self._pending_first:
                     break
@@ -1072,10 +1116,26 @@ class Engine:
                 if not drain and self._admit_wake.is_set():
                     # a submission wants admission now: take what is done
                     # and go back to the loop
-                    self._collect_ready(events)
+                    n_windows += self._collect_ready(events)
                     break
                 continue
             self._harvester.wait_key(self._pending_first[0][1])
+        # pacing calibration: the spacing of completions per window bounds
+        # the device's window time from above (reads add latency, never
+        # remove it), so keep the least seen with a slow upward drift (a
+        # mean would follow a slow read path up and starve the pipeline)
+        if n_windows > 0:
+            now = time.monotonic()
+            if self._last_harvest_t is not None:
+                gap = (now - self._last_harvest_t) / n_windows
+                if 0.0 < gap < 0.5:
+                    if gap < self._est_step:
+                        self._est_step = gap
+                    else:
+                        self._est_step = min(self._est_step * 1.02, gap)
+            self._last_harvest_t = now
+        elif not self._inflight:
+            self._last_harvest_t = None     # idle: the next spacing is no sample
         return events
 
     def _head_blocking_first(self) -> Optional[int]:
@@ -1088,9 +1148,10 @@ class Engine:
                 return waiting[id(req)]
         return None
 
-    def _collect_ready(self, events: list[StepEvent]) -> None:
+    def _collect_ready(self, events: list[StepEvent]) -> int:
         """Non-blocking: consume every completed first token, then windows
-        in dispatch order while no pending first gates them."""
+        in dispatch order while no pending first gates them. Returns the
+        windows consumed (pacing calibration)."""
         done_entries, still = [], []
         for entry in self._pending_first:
             (done_entries if self._harvester.key_done(entry[1]) else still).append(entry)
@@ -1106,15 +1167,18 @@ class Engine:
             for k in {k for _r, k, _row in done_entries} - {k for _r, k, _row in still}:
                 self._harvester.discard_key(k)
         processed = -1
+        n_windows = 0
         while self._inflight and self._harvester.is_done(self._inflight[0].seq):
             if self._head_blocking_first() is not None:
                 break
             step = self._inflight.popleft()
             processed = step.seq
+            n_windows += 1
             events += self._emit_window(step.active, step.planned,
                                         unpack_results(self._harvester.get(step.seq)))
         if processed >= 0:
             self._harvester.discard_upto(processed)
+        return n_windows
 
     def _drain_async(self) -> list[StepEvent]:
         """Synchronize: harvest everything in flight and deliver it."""

@@ -13,8 +13,10 @@ below plus the page table), so a window is one host-to-device copy.
 buffers (the packed inputs, the prefill tokens, the output tokens and
 packed results) and the engine's pools, penalty counts, weights and
 decode workspace, and each window is one replay: the counterpart of XLA
-dispatching the compiled window once. On the CPU the same function runs
-eagerly; it is the plain version the tests hold the JAX engine against.
+dispatching the compiled window once. With int8 weights the graph holds
+each layer's QTensor views (data and scale) and their W8A16 launches. On
+the CPU the same function runs eagerly; it is the plain version the tests
+hold the JAX engine against.
 There is no switch between the two: a CUDA engine always replays, and a
 capture or replay error raises.
 

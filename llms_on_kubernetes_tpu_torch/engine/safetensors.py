@@ -10,9 +10,10 @@ once with ``numpy.memmap`` and a tensor is a view of its range: nothing is
 read from disk until a tensor's bytes are used, and nothing is copied
 before the caller copies (to the card, or to a transposed layout).
 
-dtypes: F64, F32, F16, BF16, I64, I32, I16, I8, U8 and BOOL. A BF16
-tensor is read as ``uint16`` and viewed as ``torch.bfloat16``: the card's
-machine has no ``ml_dtypes`` either.
+dtypes: F64, F32, F16, BF16, F8_E4M3, I64, I32, I16, I8, U8 and BOOL. A
+BF16 tensor is read as ``uint16`` and viewed as ``torch.bfloat16``, an
+F8_E4M3 one (compressed-tensors fp8 weights) as ``uint8`` viewed as
+``torch.float8_e4m3fn``: the card's machine has no ``ml_dtypes`` either.
 
 The header is checked before any tensor is handed out: ranges must tile
 the data exactly (sorted by start, no overlap, no gap, ending where the
@@ -35,6 +36,7 @@ DTYPES = {
     "F32": (np.float32, torch.float32),
     "F16": (np.float16, torch.float16),
     "BF16": (np.uint16, torch.bfloat16),
+    "F8_E4M3": (np.uint8, torch.float8_e4m3fn),
     "I64": (np.int64, torch.int64),
     "I32": (np.int32, torch.int32),
     "I16": (np.int16, torch.int16),
@@ -127,7 +129,8 @@ class SafetensorsFile:
             # torch warns that the mapping is read-only; nothing writes to it
             warnings.simplefilter("ignore", UserWarning)
             t = torch.from_numpy(arr)
-        return t.view(torch.bfloat16) if dtype == "BF16" else t
+        want = DTYPES[dtype][1]
+        return t if t.dtype == want else t.view(want)
 
 
 def open_dir(model_dir) -> dict[str, Callable[[], torch.Tensor]]:

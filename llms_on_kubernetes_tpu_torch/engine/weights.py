@@ -10,8 +10,18 @@ one's dense families: llama, mistral and tinyllama (one key schema), qwen2
 (attention biases), qwen3 (q/k norms), phi3 (fused ``qkv_proj`` and
 ``gate_up_proj``, split here) and gemma2/3 (four norms a layer), with the
 ``model.language_model.*`` nesting of gemma-3's multimodal checkpoints
-seen through. MoE, vision towers and pre-quantized checkpoints (fp8, AWQ)
-raise NotImplementedError.
+seen through. MoE and vision towers raise NotImplementedError.
+
+Quantized weights (``ops/quant.py``), as the JAX loader makes them:
+``quantization="int8"`` quantizes the matmul weights layer by layer from
+each tensor's value as fetched, in float32, before any cast to the serving
+dtype; a compressed-tensors fp8 checkpoint (``checkpoint_quantization``)
+is dequantized with its ``weight_scale`` and requantized to the same int8
+QTensors whatever ``quantization`` says; ``quantization="fp8"|"awq"``
+asserts the checkpoint's format. An AWQ checkpoint raises
+NotImplementedError: the JAX package serves it natively as grouped int4
+(``GroupQTensor``, ``group_qeinsum``), which needs a grouped W4A16 kernel
+the port does not have yet.
 
 The load goes layer by layer: each stacked ``[L, ...]`` tensor is
 allocated once on the device, and each HF tensor goes to the device as it
@@ -25,7 +35,8 @@ cache snapshot, as the JAX one does; it downloads nothing.
 
 ``params_from_numpy`` turns a parameter tree of numpy arrays, laid out as
 the JAX ``init_params`` lays it out, into tensors with identical layouts
-(a caller holding JAX arrays converts them to numpy first).
+(a caller holding JAX arrays converts them to numpy first; a JAX
+``QTensor`` leaf comes as its ``(data, scale)`` pair).
 """
 
 from __future__ import annotations
@@ -43,6 +54,10 @@ from llms_on_kubernetes_tpu_torch import resolve_device
 from llms_on_kubernetes_tpu_torch.configs import ModelConfig, hf_repo_for
 from llms_on_kubernetes_tpu_torch.engine.cache import torch_dtype
 from llms_on_kubernetes_tpu_torch.engine.safetensors import open_dir
+from llms_on_kubernetes_tpu_torch.ops.quant import (
+    _LAYER_REDUCE_AXES, SUPPORTED_QUANTIZATIONS, QTensor, fp8_dequantize, quantize,
+    reduce_axes_for,
+)
 
 Params = dict[str, Any]
 
@@ -56,11 +71,16 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 def params_from_numpy(tree: Any, device="cuda", dtype: Optional[str] = None) -> Any:
     """Nested dicts of numpy arrays -> the same nesting of tensors on
-    ``device``, cast to ``dtype`` when given (else kept as they are)."""
+    ``device``, cast to ``dtype`` when given (else kept as they are). A
+    ``(data, scale)`` pair is a quantized weight: a ``QTensor`` whose
+    int8 data and float32 scale keep their dtypes."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype) if dtype is not None else None
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev, dtype) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        data, scale = tree
+        return QTensor(_tensor(data).to(dev), _tensor(scale).to(dev))
     t = _tensor(tree)
     return t.to(device=dev, dtype=dt) if dt is not None else t.to(dev)
 
@@ -71,11 +91,15 @@ def params_from_numpy(tree: Any, device="cuda", dtype: Optional[str] = None) -> 
 
 class _Fetch:
     """Reads HF tensors by name, onto ``device``, seeing through the
-    multimodal wrappers' nesting of the text model."""
+    multimodal wrappers' nesting of the text model. In an fp8 checkpoint
+    (``quant``), a ``.weight`` stored with a ``.weight_scale`` comes back
+    dequantized to float32, as the JAX ``_Fetch`` returns it."""
 
-    def __init__(self, loaders: dict[str, Callable[[], torch.Tensor]], device: torch.device):
+    def __init__(self, loaders: dict[str, Callable[[], torch.Tensor]], device: torch.device,
+                 quant: Optional[dict] = None):
         self.loaders = loaders
         self.device = device
+        self.quant = quant
 
     def _resolve(self, name: str) -> str:
         """A gemma-3 multimodal checkpoint stores ``model.language_model.*``
@@ -99,6 +123,11 @@ class _Fetch:
         if key not in self.loaders:
             raise KeyError(f"checkpoint is missing tensor {name!r} "
                            f"(have {len(self.loaders)} tensors)")
+        scale_key = key[:-len("weight")] + "weight_scale"
+        if (self.quant is not None and self.quant["method"] == "fp8"
+                and key.endswith(".weight") and scale_key in self.loaders):
+            return fp8_dequantize(self.loaders[key]().to(self.device),
+                                  self.loaders[scale_key]().to(self.device))
         return self.loaders[key]().to(self.device)
 
     def linear(self, name: str, out_reshape=None) -> torch.Tensor:
@@ -159,22 +188,52 @@ def hf_layer_maps(cfg: ModelConfig, fetch: _Fetch, i: int) -> Params:
 
 
 def checkpoint_quantization(model_dir) -> Optional[dict]:
-    """``quantization_config`` of the checkpoint's config.json, or None."""
+    """The format of a pre-quantized checkpoint from ``quantization_config``
+    in its config.json, as the JAX ``checkpoint_quantization`` reads it:
+    None (full precision), {"method": "fp8"} (compressed-tensors with float
+    8-bit weights) or {"method": "awq", "bits", "group_size"} ("gemm"
+    packing). Any other scheme raises ValueError: loading it as weight x
+    scale would serve wrong weights."""
     path = os.path.join(model_dir, "config.json")
     if not os.path.isfile(path):
         return None
     with open(path) as f:
-        return json.load(f).get("quantization_config") or None
+        qc = json.load(f).get("quantization_config")
+    if not qc:
+        return None
+    method = qc.get("quant_method")
+    if method == "compressed-tensors":
+        for group in (qc.get("config_groups") or {}).values():
+            w = (group or {}).get("weights") or {}
+            if w.get("type", "float") != "float" or int(w.get("num_bits", 8)) != 8:
+                raise ValueError(f"unsupported compressed-tensors weight scheme "
+                                 f"{w.get('type')}/{w.get('num_bits')}-bit (only FP8 float "
+                                 f"weights)")
+        return {"method": "fp8"}
+    if method == "awq":
+        version = qc.get("version", "gemm")
+        if version != "gemm":
+            raise ValueError(f"unsupported AWQ version {version!r} (only 'gemm' packing)")
+        return {"method": "awq", "bits": int(qc.get("bits", 4)),
+                "group_size": int(qc.get("group_size", 128))}
+    raise ValueError(f"unsupported quant_method {method!r} "
+                     f"(supported: compressed-tensors fp8, awq)")
 
 
-def load_hf_params(cfg: ModelConfig, model_dir, device="cuda",
-                   dtype: Optional[str] = None) -> Params:
+def load_hf_params(cfg: ModelConfig, model_dir, device="cuda", dtype: Optional[str] = None,
+                   quantization: Optional[str] = None) -> Params:
     """Load a HF checkpoint directory into the decoder's parameters on
     ``device``, cast to ``dtype`` (default ``cfg.dtype``): the tree and
     layouts of ``params_from_numpy`` of the JAX ``init_params``, the values
-    of the JAX ``load_hf_params`` bit for bit. Raises NotImplementedError
-    for MoE, vision and pre-quantized checkpoints, FileNotFoundError for a
+    of the JAX ``load_hf_params`` bit for bit. With ``quantization="int8"``,
+    or from an fp8 checkpoint, the matmul weights are int8 ``QTensor``s
+    with the JAX loader's bytes and scales. Raises NotImplementedError for
+    MoE, vision and AWQ checkpoints, ValueError for an unknown
+    ``quantization`` or one the checkpoint is not, FileNotFoundError for a
     directory without ``*.safetensors``, KeyError for a missing tensor."""
+    if quantization not in SUPPORTED_QUANTIZATIONS:
+        raise ValueError(f"unknown quantization {quantization!r} "
+                         f"(supported: {[q for q in SUPPORTED_QUANTIZATIONS if q]})")
     if cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.name}: MoE checkpoints are not loaded yet (the port has no MoE block)")
@@ -182,17 +241,36 @@ def load_hf_params(cfg: ModelConfig, model_dir, device="cuda",
         raise NotImplementedError(
             f"{cfg.name}: the checkpoint has a vision tower, which the port does not load yet")
     quant = checkpoint_quantization(model_dir)
-    if quant is not None:
+    if quantization in ("fp8", "awq"):
+        found = quant["method"] if quant else None
+        if found != quantization:
+            raise ValueError(f"quantization={quantization!r} requested but the checkpoint at "
+                             f"{model_dir} is {found or 'full-precision'}")
+    if quant is not None and quant["method"] == "awq":
         raise NotImplementedError(
-            f"{model_dir}: pre-quantized checkpoints ({quant.get('quant_method')}) are not "
-            f"loaded yet; the port serves full-precision weights only")
+            f"{model_dir}: pre-quantized AWQ checkpoints are served natively as grouped int4 "
+            f"(GroupQTensor, group_qeinsum), which needs a grouped W4A16 kernel the port "
+            f"does not have yet")
+    # an fp8 checkpoint always serves int8 (its weights are 8-bit already)
+    quantize_now = quantization == "int8" or quant is not None
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
-    fetch = _Fetch(open_dir(model_dir), dev)
+    fetch = _Fetch(open_dir(model_dir), dev, quant)
     L = cfg.num_layers
     layers: Params = {}
     for i in range(L):
         for name, w in hf_layer_maps(cfg, fetch, i).items():
+            if quantize_now and name in _LAYER_REDUCE_AXES:
+                # from the value as fetched (f32 for fp8), before any cast
+                axes = tuple(a - 1 for a in reduce_axes_for(name, w.dim() + 1))
+                q = quantize(w, axes)
+                if name not in layers:
+                    layers[name] = QTensor(
+                        torch.empty((L, *q.data.shape), dtype=torch.int8, device=dev),
+                        torch.empty((L, *q.scale.shape), dtype=torch.float32, device=dev))
+                layers[name].data[i].copy_(q.data)
+                layers[name].scale[i].copy_(q.scale)
+                continue
             if name not in layers:     # allocated once, filled a layer at a time
                 layers[name] = torch.empty((L, *w.shape), dtype=dt, device=dev)
             layers[name][i].copy_(w)

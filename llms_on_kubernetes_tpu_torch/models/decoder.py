@@ -10,7 +10,9 @@ the KV cache is the flat head-major pool ``[n_kv, L * P, page, hd]`` of
 per-layer-local page table is offset by ``layer * P``.
 
 The projections are plain ``torch.matmul`` (the JAX package leaves them
-to XLA). Attention goes through ``ops/attention``'s dispatchers: the CUDA
+to XLA); an int8 ``QTensor`` weight (``ops/quant.py``) goes through the
+W8A16 kernel instead, and the embedding and LM head stay unquantized, as
+in the JAX decoder. Attention goes through ``ops/attention``'s dispatchers: the CUDA
 kernels for CUDA tensors, the plain versions for CPU tensors. The pools
 pass through as ``KVPool``s; an int8 pool carries its per-token scales,
 prefill attends over the fresh, unquantized K/V and stores them quantized
@@ -40,6 +42,7 @@ from llms_on_kubernetes_tpu_torch.ops.attention import (
 )
 from llms_on_kubernetes_tpu_torch.ops.norms import rms_norm
 from llms_on_kubernetes_tpu_torch.ops.paged_write import dispatch_write_window
+from llms_on_kubernetes_tpu_torch.ops.quant import QTensor, w8_matmul
 from llms_on_kubernetes_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 Params = dict[str, Any]
@@ -133,12 +136,18 @@ def _inv_freq(cfg: ModelConfig, device: torch.device, local: bool) -> torch.Tens
     return torch.from_numpy(freqs).to(device)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor, n_in: int) -> torch.Tensor:
+def _proj(x: torch.Tensor, w, n_in: int) -> torch.Tensor:
     """``x [..., in]`` times a weight whose first ``n_in`` axes are the
-    input (flattened) and the rest the output (kept)."""
+    input (flattened) and the rest the output (kept). An int8 ``QTensor``
+    goes through ``ops/quant.w8_matmul`` (the W8A16 kernel on a card)."""
     in_shape, out_shape = w.shape[:n_in], w.shape[n_in:]
-    y = torch.matmul(x.reshape(*x.shape[:x.dim() - n_in], math.prod(in_shape)),
-                     w.reshape(math.prod(in_shape), math.prod(out_shape)))
+    K, N = math.prod(in_shape), math.prod(out_shape)
+    lead = x.shape[:x.dim() - n_in]
+    if isinstance(w, QTensor):
+        y = w8_matmul(x.reshape(-1, K), w.data.reshape(K, N), w.scale.reshape(N))
+        y = y.reshape(*lead, N)
+    else:
+        y = torch.matmul(x.reshape(*lead, K), w.reshape(K, N))
     return y.reshape(*y.shape[:-1], *out_shape)
 
 

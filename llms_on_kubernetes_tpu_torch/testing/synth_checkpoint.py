@@ -1,7 +1,7 @@
 """Write a HuggingFace-format safetensors checkpoint of a dense registry
 model, at its full width, with cheap deterministic values.
 
-    python -m llms_on_kubernetes_tpu_torch.testing.synth_checkpoint phi-3-mini OUT_DIR
+    python -m llms_on_kubernetes_tpu_torch.testing.synth_checkpoint phi-3-mini OUT_DIR [--fp8]
 
 Neither machine this repository runs on can download the published
 weights, so the card's run serves a checkpoint this module writes: the
@@ -10,9 +10,16 @@ back to the registry entry), the family's own tensor names and HF layouts
 (phi-3's fused ``qkv_proj`` and ``gate_up_proj``, gemma's four norms a
 layer, qwen2's attention biases, qwen3's q/k norms), sharded
 ``*.safetensors`` files with a ``model.safetensors.index.json``, in
-bfloat16 (or float32/float16). It uses numpy alone: each file is a JSON
-header and raw bytes, written tensor by tensor, so memory holds one tensor
-at a time.
+bfloat16 (or float32/float16). Each file is a JSON header and raw bytes,
+written tensor by tensor with numpy, so memory holds one tensor at a time.
+
+``quantization="fp8"`` writes a compressed-tensors FP8 checkpoint, as
+FP8-Dynamic models ship: each decoder-layer linear as ``F8_E4M3`` codes
+with a float32 ``weight_scale`` per output channel (``[out, 1]``, amax /
+448) or per tensor (a scalar), the embedding, norms and LM head in the
+checkpoint dtype, and a ``quantization_config`` in ``config.json``. The
+fp8 codes are PyTorch's float8_e4m3fn rounding of the pattern over its
+scale (``fp8_value``).
 
 Values are a pattern, not draws: 65,536 normal values from ``seed``,
 rotated by a hash of the tensor's name, tiled over its shape and scaled by
@@ -144,11 +151,7 @@ def _base(seed: int) -> np.ndarray:
     return np.random.default_rng(seed).standard_normal(PATTERN).astype(np.float32)
 
 
-def tensor_value(cfg: ModelConfig, name: str, shape: tuple, kind: str, dtype: str = "bfloat16",
-                 seed: int = 0, base: np.ndarray = None) -> np.ndarray:
-    """The tensor ``write_checkpoint`` writes under ``name``, in the
-    checkpoint dtype (bfloat16 as uint16 bits)."""
-    base = _base(seed) if base is None else base
+def _pattern(cfg: ModelConfig, name: str, shape: tuple, kind: str, base: np.ndarray):
     pat = np.roll(base, -(zlib.crc32(name.encode()) % PATTERN))
     if kind == "norm":
         pat = 0.05 * pat + (0.0 if cfg.norm_style == "gemma" else 1.0)
@@ -156,12 +159,59 @@ def tensor_value(cfg: ModelConfig, name: str, shape: tuple, kind: str, dtype: st
         pat = 0.02 * pat
     elif kind == "linear":
         pat = pat / np.sqrt(shape[-1])
-    return np.resize(_bits(pat, dtype), shape)
+    return pat
 
 
-def _header(entries: list[tuple[str, tuple]], st_dtype: str, elt: int) -> bytes:
+def tensor_value(cfg: ModelConfig, name: str, shape: tuple, kind: str, dtype: str = "bfloat16",
+                 seed: int = 0, base: np.ndarray = None) -> np.ndarray:
+    """The tensor ``write_checkpoint`` writes under ``name``, in the
+    checkpoint dtype (bfloat16 as uint16 bits)."""
+    base = _base(seed) if base is None else base
+    return np.resize(_bits(_pattern(cfg, name, shape, kind, base), dtype), shape)
+
+
+FP8_STRATEGIES = ("channel", "tensor")
+FP8_MAX = 448.0     # the largest float8_e4m3fn
+
+
+def fp8_value(cfg: ModelConfig, name: str, shape: tuple, kind: str, seed: int = 0,
+              base: np.ndarray = None, strategy: str = "channel") -> tuple:
+    """(float8_e4m3fn codes as uint8 ``shape``, float32 ``weight_scale``)
+    that an fp8 checkpoint holds for linear ``name``: the float32 pattern
+    over its scale (amax / 448 per output row, ``[out, 1]``, or over the
+    whole tensor, a scalar), rounded to e4m3."""
+    import torch
+
+    base = _base(seed) if base is None else base
+    w = np.resize(_pattern(cfg, name, shape, kind, base).astype(np.float32), shape)
+    amax = np.abs(w).max(axis=1, keepdims=True) if strategy == "channel" else np.abs(w).max()
+    scale = np.where(amax > 0, amax / np.float32(FP8_MAX), np.float32(1.0)).astype(np.float32)
+    codes = torch.from_numpy(w / scale).to(torch.float8_e4m3fn).view(torch.uint8).numpy()
+    return codes, scale
+
+
+def fp8_quantization_config(strategy: str = "channel") -> dict:
+    """The ``quantization_config`` of a compressed-tensors FP8 checkpoint."""
+    return {"quant_method": "compressed-tensors", "format": "float-quantized",
+            "config_groups": {"group_0": {
+                "targets": ["Linear"],
+                "weights": {"type": "float", "num_bits": 8, "symmetric": True,
+                            "strategy": strategy, "dynamic": False},
+                "input_activations": {"type": "float", "num_bits": 8, "symmetric": True,
+                                      "strategy": "token", "dynamic": True}}},
+            "ignore": ["lm_head"]}
+
+
+def _fp8_linear(name: str, kind: str) -> bool:
+    """A tensor an fp8 checkpoint stores as fp8: the decoder layers' linears."""
+    return kind == "linear" and name.startswith("model.layers.")
+
+
+def _header(entries: list[tuple[str, tuple, str, int]]) -> bytes:
+    """The file header over (name, shape, safetensors dtype, bytes an
+    element) entries, in order."""
     header, pos = {"__metadata__": {"format": "pt"}}, 0
-    for name, shape in entries:
+    for name, shape, st_dtype, elt in entries:
         n = int(np.prod(shape)) * elt
         header[name] = {"dtype": st_dtype, "shape": list(shape), "data_offsets": [pos, pos + n]}
         pos += n
@@ -171,49 +221,76 @@ def _header(entries: list[tuple[str, tuple]], st_dtype: str, elt: int) -> bytes:
 
 
 def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16", seed: int = 0,
-                     max_shard_bytes: int = 4 << 30) -> dict:
+                     max_shard_bytes: int = 4 << 30, quantization: str = None,
+                     fp8_strategy: str = "channel") -> dict:
     """Write ``cfg`` as a HF checkpoint into ``out_dir`` (made if missing):
     ``config.json``, ``model-0000k-of-0000n.safetensors`` shards of at most
     ``max_shard_bytes`` (a tensor is never split) and
-    ``model.safetensors.index.json``. Returns the index."""
+    ``model.safetensors.index.json``. ``quantization="fp8"``: the layers'
+    linears as fp8 with ``fp8_strategy`` scales (``fp8_value``). Returns
+    the index."""
+    if quantization not in (None, "fp8"):
+        raise ValueError(f"quantization must be None or 'fp8', got {quantization!r}")
+    if fp8_strategy not in FP8_STRATEGIES:
+        raise ValueError(f"fp8_strategy must be one of {FP8_STRATEGIES}, got {fp8_strategy!r}")
     st_dtype, elt = DTYPES[dtype]
-    specs = tensor_specs(cfg)
+    # (name, shape, kind, safetensors dtype, bytes an element); a linear of
+    # an fp8 checkpoint is its codes, then its scale
+    entries = []
+    for name, shape, kind in tensor_specs(cfg):
+        if quantization == "fp8" and _fp8_linear(name, kind):
+            sshape = (shape[0], 1) if fp8_strategy == "channel" else ()
+            entries += [(name, shape, kind, "F8_E4M3", 1),
+                        (name + "_scale", sshape, "fp8_scale", "F32", 4)]
+        else:
+            entries.append((name, shape, kind, st_dtype, elt))
     shards, cur, size = [], [], 0
-    for spec in specs:
-        n = int(np.prod(spec[1])) * elt
-        if cur and size + n > max_shard_bytes:
+    for e in entries:
+        n = int(np.prod(e[1])) * e[4]
+        if cur and size + n > max_shard_bytes and e[2] != "fp8_scale":
             shards.append(cur)
             cur, size = [], 0
-        cur.append(spec)
+        cur.append(e)
         size += n
     shards.append(cur)
     os.makedirs(out_dir, exist_ok=True)
     base = _base(seed)
-    weight_map, total = {}, 0
+    weight_map, total, scale = {}, 0, None
     for k, shard in enumerate(shards):
         fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
         with open(os.path.join(out_dir, fname), "wb") as f:
-            f.write(_header([(name, shape) for name, shape, _ in shard], st_dtype, elt))
-            for name, shape, kind in shard:
-                arr = tensor_value(cfg, name, shape, kind, dtype, seed, base)
+            f.write(_header([(name, shape, st, n) for name, shape, _, st, n in shard]))
+            for name, shape, kind, st, _n in shard:
+                if kind == "fp8_scale":
+                    arr = scale                  # computed with its codes, just before
+                elif st == "F8_E4M3":
+                    arr, scale = fp8_value(cfg, name, shape, kind, seed, base, fp8_strategy)
+                else:
+                    arr = tensor_value(cfg, name, shape, kind, dtype, seed, base)
                 f.write(memoryview(np.ascontiguousarray(arr)).cast("B"))
                 weight_map[name] = fname
                 total += arr.nbytes
     index = {"metadata": {"total_size": total}, "weight_map": weight_map}
     with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
         json.dump(index, f, indent=1)
+    hf = hf_config(cfg, dtype)
+    if quantization == "fp8":
+        hf["quantization_config"] = fp8_quantization_config(fp8_strategy)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
-        json.dump(hf_config(cfg, dtype), f, indent=1)
+        json.dump(hf, f, indent=1)
     return index
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    quantization = None
+    if argv[2:] == ["--fp8"]:
+        quantization, argv = "fp8", argv[:2]
     if len(argv) != 2:
         print("usage: python -m llms_on_kubernetes_tpu_torch.testing.synth_checkpoint "
-              "MODEL OUT_DIR", file=sys.stderr)
+              "MODEL OUT_DIR [--fp8]", file=sys.stderr)
         return 2
-    index = write_checkpoint(get_config(argv[0]), argv[1])
+    index = write_checkpoint(get_config(argv[0]), argv[1], quantization=quantization)
     print(f"{argv[1]}: {len(index['weight_map'])} tensors, "
           f"{index['metadata']['total_size']} bytes")
     return 0

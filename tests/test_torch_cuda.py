@@ -23,6 +23,7 @@ from llms_on_kubernetes_tpu_torch import kernels
 from llms_on_kubernetes_tpu_torch.engine.cache import quantize_kv
 from llms_on_kubernetes_tpu_torch.ops import flash_attention as fa
 from llms_on_kubernetes_tpu_torch.ops import paged_attention as pa
+from llms_on_kubernetes_tpu_torch.ops import quant as tquant
 
 pytestmark = pytest.mark.cuda
 
@@ -873,13 +874,15 @@ def test_engine_wide_head_dims_page_24_on_the_card(cuda, d):
 # the decode window as one CUDA graph (engine/graphs.py)
 # ---------------------------------------------------------------------------
 
-def _tiny_engine(dev, **kw):
+def _tiny_engine(dev, quantized=False, **kw):
     from llms_on_kubernetes_tpu_torch.configs import get_config
     from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig
     from llms_on_kubernetes_tpu_torch.models.decoder import init_params
 
     # drawn on the CPU and moved, so every device gets the same weights
     params = init_params(get_config("debug-tiny"), seed=0, dtype="float32", device="cpu")
+    if quantized:       # int8 weights, quantized on the CPU
+        params = tquant.quantize_params(params)
     params = {k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict) else v.to(dev))
               for k, v in params.items()}
     base = dict(model="debug-tiny", dtype="float32", max_decode_slots=4, page_size=4,
@@ -1104,3 +1107,122 @@ def test_harvester_wait_releases_the_interpreter_lock(cuda):
     th.join(timeout=30)
     assert not th.is_alive() and waited[0] > 0.02
     assert spins > 10_000, spins
+
+
+# ---------------------------------------------------------------------------
+# the W8A16 kernel (csrc/w8_matmul.cu) and int8 weights on the card
+# ---------------------------------------------------------------------------
+
+def _w8_inputs(rng, M, K, N, dtype):
+    x = _t(rng, M, K, dtype=dtype)
+    w = torch.from_numpy(rng.integers(-127, 128, size=(K, N)).astype(np.int8)).cuda()
+    s = torch.from_numpy(rng.uniform(1e-3, 2e-2, size=N).astype(np.float32)).cuda()
+    return x, w, s
+
+
+# M on both block shapes (<= 64 rows: one warp of 16; above: 128-row
+# blocks), K past and short of a whole K tile, N not a multiple of a block;
+# float32 at small K only: 1e-4 is the summation order's error there (at
+# K 4,096 two f32 orders of sums near 40 differ by ~1.5e-4)
+W8_SHAPES = [(dt, *shape) for shape in [(1, 64, 32), (3, 64, 32), (17, 128, 48),
+                                        (64, 320, 96), (65, 64, 32), (200, 320, 160)]
+             for dt in (torch.float32, torch.bfloat16)]
+W8_SHAPES += [(torch.bfloat16, 8, 4096, 1024), (torch.bfloat16, 300, 1024, 4096)]
+
+
+@pytest.mark.parametrize("dtype,M,K,N", W8_SHAPES)
+def test_w8_matmul_matches_plain(cuda, dtype, M, K, N):
+    x, w, s = _w8_inputs(cuda, M, K, N, dtype)
+    before = kernels.LAUNCHES["w8_matmul"]
+    out = tquant.w8_matmul(x, w, s)
+    ref = tquant.w8_matmul_plain(x, w, s)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["w8_matmul"] == before + 1
+    assert out.dtype == dtype and tuple(out.shape) == (M, N)
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8_matmul_rows_do_not_depend_on_m(cuda, dtype):
+    """Batch invariance: a row's output is bit for bit the same at any M
+    (both block shapes) and at any place in the call."""
+    x, w, s = _w8_inputs(cuda, 4096, 320, 96, dtype)
+    full = tquant.w8_matmul(x, w, s)
+    for M in (1, 5, 64, 65, 256):
+        assert torch.equal(tquant.w8_matmul(x[:M], w, s), full[:M]), M
+    for r in (37, 1000, 4095):
+        assert torch.equal(tquant.w8_matmul(x[r:r + 1], w, s), full[r:r + 1]), r
+        assert torch.equal(tquant.w8_matmul(x[r - 30:r + 1], w, s)[-1], full[r]), r
+
+
+def test_w8_matmul_refuses_what_the_kernel_does_not_take(cuda):
+    x, w, s = _w8_inputs(cuda, 8, 64, 32, torch.bfloat16)
+    for args, match in (((x, w.cpu(), s), "CUDA"), ((x, w, s.cpu()), "CUDA"),
+                        ((x[:, ::2], w[::2], s), "contiguous"),
+                        ((x.half(), w, s), "float32/bfloat16"),
+                        ((x, w.float(), s), "int8"), ((x[:0], w, s), "M >= 1")):
+        with pytest.raises(ValueError, match=match):
+            tquant.w8_matmul(*args)
+    x40, w40, s40 = _w8_inputs(cuda, 8, 40, 32, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tquant.w8_matmul(x40, w40, s40)
+    x2, w2, s2 = _w8_inputs(cuda, 8, 64, 40, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tquant.w8_matmul(x2, w2, s2)
+
+
+def test_quantize_on_the_card_equals_the_cpu(cuda):
+    """``quantize`` divides by tensors: the card gives the CPU's bytes."""
+    w = _t(cuda, 4, 256, 512) * 0.05
+    w[1, :, 7] = 0.0
+    for axes in ((1,), (1, 2)):
+        a, b = tquant.quantize(w, axes), tquant.quantize(w.cpu(), axes)
+        assert torch.equal(a.data.cpu(), b.data) and torch.equal(a.scale.cpu(), b.scale)
+
+
+@pytest.mark.parametrize("kv_write", ["dus", "fused"])
+def test_int8_weight_window_graph_replay_equals_the_eager_window(cuda, kv_write):
+    """The window captured with int8-weight params (QTensor layer views and
+    scales are captured addresses): every projection a W8A16 launch, and
+    one replay byte-equal to the eager window (tokens, logprobs, pools,
+    counts)."""
+    from llms_on_kubernetes_tpu_torch.engine.cache import KVPool
+
+    eng = _tiny_engine("cuda", quantized=True, kv_write=kv_write, async_scheduling=False)
+    L, K = eng.model_config.num_layers, eng.config.decode_steps
+    decode = "paged_decode_write" if kv_write == "fused" else "paged_decode"
+    assert eng._window.launches == {decode: L * K, "w8_matmul": 7 * L * K}
+    packed = _window_inputs(eng, [[3, 17, 9], [40, 2] * 9, [7] * 30], penalties=True)
+    pools = [KVPool(p.data.clone(), None) for p in (eng.k_pages, eng.v_pages)]
+    counts = eng.token_counts.clone()
+    zeros = torch.zeros(eng.config.max_decode_slots, dtype=torch.int32, device="cuda")
+    eager_pack, eager_toks = eng._window._eager(
+        torch.from_numpy(packed).cuda(), zeros, zeros[:1], *pools, counts,
+        workspace=pa.DecodeWorkspace())
+    pack, toks = eng._window.run(packed, None, None)
+    torch.cuda.synchronize()
+    assert torch.equal(pack, eager_pack) and torch.equal(toks, eager_toks)
+    assert torch.equal(eng.token_counts, counts)
+    P = eng.config.num_pages
+    keep = torch.ones(L * P, dtype=torch.bool, device="cuda")
+    keep[::P] = False
+    for got, want in zip((eng.k_pages, eng.v_pages), pools):
+        assert torch.equal(got.data[:, keep], want.data[:, keep])
+
+
+@pytest.mark.parametrize("async_scheduling", [True, False], ids=["async", "sync"])
+def test_int8_weight_engine_equals_the_cpu(cuda, async_scheduling):
+    """debug-tiny with int8 weights in float32: the card's greedy streams
+    (W8A16 kernel, graphed windows) equal the CPU's (plain version)."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    prompts = [[3, 17, 9], [40, 2] * 9, [7] * 30, [5, 6], [(7 * i) % 251 for i in range(45)]]
+    sp = SamplingParams(max_tokens=16, temperature=0.0)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        eng = _tiny_engine(dev, quantized=True, async_scheduling=async_scheduling)
+        reqs = [eng.submit(p, sp) for p in prompts]
+        while eng.has_work():
+            eng.step()
+        outs[dev] = [(r.output, r.finish_reason) for r in reqs]
+    assert outs["cuda"] == outs["cpu"]

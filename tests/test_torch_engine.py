@@ -171,7 +171,7 @@ def test_engine_config_defaults_match_jax():
     for field in ("model", "dtype", "max_decode_slots", "page_size", "num_pages",
                   "pages_per_slot", "prefill_buckets", "max_waiting", "decode_steps",
                   "seed", "kv_write", "prefix_caching", "async_scheduling", "async_depth",
-                  "pace_target_steps", "admit_batch"):
+                  "pace_target_steps", "admit_batch", "quantization"):
         assert getattr(port, field) == getattr(jax_cfg, field), field
     assert port.device == "cuda"
     assert (port.async_scheduling, port.async_depth, port.pace_target_steps,

@@ -379,10 +379,11 @@ def test_engine_config_async_fields_validated():
     for field in ("async_depth", "admit_batch"):
         with pytest.raises(ValueError, match=field):
             EngineConfig(**{field: 0})
-    # pacing is not ported: the JAX field and default, and only the default
-    for pace in (-1.0, 1.0):
-        with pytest.raises(ValueError, match="pace_target_steps"):
-            EngineConfig(pace_target_steps=pace)
+    # pacing takes what the JAX field takes: > 0 paces, <= 0 is off
+    for pace in (1.0, 3.0, -1.0, 0.0):
+        assert EngineConfig(pace_target_steps=pace).pace_target_steps == pace
+        eng = Engine(EngineConfig(**{**SMALL, "device": "cpu", "pace_target_steps": pace}))
+        assert eng.config.pace_target_steps == pace and eng._est_step == 0.02
 
 
 def test_launch_accounting_apart_from_the_counters():

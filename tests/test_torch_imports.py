@@ -38,6 +38,7 @@ def test_import_everything_without_jax():
         "    dispatch_write_window, paged_write_window, paged_write_window_int8)\n"
         "from llms_on_kubernetes_tpu_torch.models.decoder import forward_chunk\n"
         "from llms_on_kubernetes_tpu_torch.engine.graphs import DecodeWindow, decode_window\n"
+        "from llms_on_kubernetes_tpu_torch.ops.quant import QTensor, quantize_params, w8_matmul\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'llms_on_kubernetes_tpu'\n"
@@ -68,7 +69,7 @@ def test_every_kernel_source_is_built_and_bound():
     assert set(kernels._SIGNATURES) == set(kernels.SOURCES)
     hashed = {p.name for p in kernels.CSRC.glob("*.cu*")}
     assert {"common.cuh", "paged_decode.cuh", "paged_decode_int8.cu", "quantize.cuh",
-            "paged_write_window.cu"} <= hashed
+            "paged_write_window.cu", "w8_matmul.cu"} <= hashed
     # kernels 5 and 7 quantize with quantize.cuh's device functions: the
     # warp-a-row quantize_row and its 16-bytes-a-lane twin quantize_vec
     quant = (PKG / "csrc" / "quantize.cuh").read_text()

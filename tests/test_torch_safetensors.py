@@ -112,7 +112,7 @@ MALFORMED = {
     "past_the_file": (GOOD, 10, "end at byte"),
     "trailing_bytes": (GOOD, 16, "end at byte"),
     "wrong_size": ({"a": {"dtype": "F32", "shape": [3], "data_offsets": [0, 8]}}, 8, "needs 12"),
-    "unknown_dtype": ({"a": {"dtype": "F8_E4M3", "shape": [8], "data_offsets": [0, 8]}}, 8,
+    "unknown_dtype": ({"a": {"dtype": "F8_E5M2", "shape": [8], "data_offsets": [0, 8]}}, 8,
                       "dtype"),
     "bad_offsets": ({"a": {"dtype": "U8", "shape": [8], "data_offsets": [8, 0]}}, 8,
                     "data_offsets"),
