@@ -8,9 +8,12 @@ Phases, each fatal on failure:
 
 1. build: compile every CUDA kernel from ``csrc/`` (one nvcc per source,
    in parallel) and print the build seconds, ptxas's register report and
-   the card's name and power limit; count the HMMA (tensor-core)
-   instructions in the SASS of the bf16 flash prefill body and of the bf16
-   W8A16 body (``cuobjdump -sass``) and fail if either has none;
+   the card's name and power limit; count the HMMA/HGMMA (tensor-core)
+   instructions in the SASS of the bf16 flash prefill body and of the two
+   bf16 W8A16 bodies, w8_matmul_decode and w8_matmul_prefill (``cuobjdump
+   -sass``) and fail if any has none. The W8A16 kernel before its K split
+   (``scripts/w8_matmul_unsplit.cu``, a timing variant nothing else calls)
+   is built beside them;
 2. kernels: hold each kernel against its plain PyTorch version on the card
    -- the small shapes of tests/test_pallas.py and tests/test_kv_int8.py in
    float32 and full-width llama-3-8b shapes in bfloat16 (int8 pools for
@@ -33,14 +36,18 @@ Phases, each fatal on failure:
    gemma-2-9b's (16 on 8, d 256, softcap 50), timed there beside the bound
    (decode at lengths 1..2,500, 48 pages a slot; flash at bucket 1,024,
    length 900, beside sdpa); the window appends also at pages 24 and 100,
-   span edges and timed. Then the W8A16 kernel (``w8_kernels``): float32
-   at small shapes (1e-4), bfloat16 at llama-3-8b's seven projections at M
-   1, 8, 64, 256 and 4,096 (the row tolerance), rows 0, 37 and 63 alone bit
-   for bit equal to them in calls of 64, 256 and 4,096 rows (batch
-   invariance), refusals of a CPU weight, a strided view and K % 16 != 0;
-   timed at the four distinct shapes and every M beside the bound and
-   bf16 ``torch.matmul`` with a bf16 copy of the weight made outside the
-   timed region (the yardstick: what bf16 serving pays);
+   span edges and timed. Then the W8A16 kernel (``w8_kernels``): its K
+   split against ``ops/quant.w8_splits``; float32 at small shapes (1e-4),
+   bfloat16 at llama-3-8b's seven projections, phi-3-mini's and a K of
+   16-row units (4,112 x 4,096) at M 1, 8, 64, 256 and 4,096 (the row
+   tolerance), rows 0, 5, 37 and 63 alone bit for bit equal to them in
+   calls of 8, 64, 65, 256 and 4,096 rows (batch invariance across both
+   bodies), refusals of a CPU weight, a strided view and K % 16 != 0;
+   timed at every distinct shape and M, in turns with the unsplit kernel
+   (new, unsplit, unsplit, new), beside the bound and bf16
+   ``torch.matmul`` with a bf16 copy of the weight made outside the timed
+   region (the yardstick: what bf16 serving pays), and a forward's 224
+   projections of each model at M 8 and 64;
 3. serve: start ``python -m llms_on_kubernetes_tpu_torch serve --model
    llama-3-8b --random-weights --device cuda`` (the default EngineConfig:
    8 slots, decode_steps 4, kv_write "dus", bf16, prefix caching on, async
@@ -1088,16 +1095,32 @@ def wide_kernels(torch, rng, timer) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 2, the W8A16 kernel: int8 weights at llama-3-8b's projections
+# phase 2, the W8A16 kernel: int8 weights at llama-3-8b's and phi-3-mini's
+# projections
 # ---------------------------------------------------------------------------
 
-# llama-3-8b's seven projections, name -> (K, N)
+# the projections, name -> (K, N): llama-3-8b's seven, phi-3-mini's (its
+# fused qkv and gate_up split as the port holds them)
 W8_PROJ = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024), "wo": (4096, 4096),
            "w_gate": (4096, 14336), "w_up": (4096, 14336), "w_down": (14336, 4096)}
+W8_PHI3 = {"phi3 wq": (3072, 3072), "phi3 wk": (3072, 3072), "phi3 wv": (3072, 3072),
+           "phi3 wo": (3072, 3072), "phi3 w_gate": (3072, 8192), "phi3 w_up": (3072, 8192),
+           "phi3 w_down": (8192, 3072)}
+# a K that no 64-row unit divides (16-row units, slices of unequal length)
+W8_ODD = {"odd K": (4112, 4096)}
+# the timed shapes: label -> one projection of that shape, and how many a
+# layer has
+W8_TIMED = {"wq/wo": ("wq", 2), "wk/wv": ("wk", 2), "w_gate/w_up": ("w_gate", 2),
+            "w_down": ("w_down", 1), "phi3 wqkvo": ("phi3 wq", 4),
+            "phi3 w_gate/w_up": ("phi3 w_gate", 2), "phi3 w_down": ("phi3 w_down", 1)}
 # rows: one decode row, decode at 8 and 64 slots, the headline prefill
 # (4 x 64) and the default one (4 x 1,024)
 W8_ROWS = (1, 8, 64, 256, 4096)
+# rows held alone against calls of more rows (batch invariance)
+W8_SAME_ROWS = (0, 5, 37, 63)
+W8_SAME_CALLS = (8, 64, 65, 256, 4096)
 W8_MAIN = "w_gate/w_up 4096x14336 M64"
+W8_VARIANT = os.path.join("scripts", "w8_matmul_unsplit.cu")
 
 
 def w8_work(M: int, K: int, N: int) -> tuple[float, float]:
@@ -1106,15 +1129,46 @@ def w8_work(M: int, K: int, N: int) -> tuple[float, float]:
     return 2.0 * M * K * N, K * N + 4 * N + 2 * M * K + 2 * M * N
 
 
-def w8_kernels(torch, rng, timer) -> dict:
-    """Phase 2 for the W8A16 kernel: float32 at small shapes (1e-4);
-    bfloat16 at llama-3-8b's seven projections at M 1, 8, 64, 256 and
-    4,096 (the row tolerance); each row bit-equal alone and in calls of
-    64, 256 and 4,096 rows (batch invariance, across both block shapes);
-    the refusals; then kernel, plain version and bf16 ``torch.matmul`` with
-    a bf16 copy of the weight made outside the timed region (what bf16
-    serving pays for the same product) timed at the four distinct shapes
-    and every M, beside the bound."""
+def start_variant_build():
+    """Start nvcc on the unsplit W8A16 timing variant (scripts/), beside
+    the package's own builds; ``finish_variant_build`` loads it."""
+    from llms_on_kubernetes_tpu_torch import kernels
+
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = kernels.BUILD_DIR / "w8_matmul_unsplit.so"
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(path), W8_VARIANT]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), path
+
+
+def finish_variant_build(proc_path):
+    import ctypes
+
+    proc, path = proc_path
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc {W8_VARIANT} exited {proc.returncode}:\n{out}")
+    for line in out.splitlines():
+        if "registers" in line or "spill" in line:
+            say(f"  ptxas w8_matmul_unsplit (timing variant): {line.strip()}")
+    fn = ctypes.CDLL(str(path)).llmk_w8_matmul_unsplit
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def w8_kernels(torch, rng, timer, unsplit) -> dict:
+    """Phase 2 for the W8A16 kernel: the K split against its Python mirror;
+    float32 at small shapes (1e-4); bfloat16 at llama-3-8b's and
+    phi-3-mini's projections and at a K of 16-row units, at M 1, 8, 64,
+    256 and 4,096 (the row tolerance); rows alone bit-equal to them in
+    calls of 8, 64, 65, 256 and 4,096 rows (batch invariance, across both
+    bodies); the refusals; then the kernel, the unsplit timing variant
+    (``unsplit``, in turns: kernel, variant, variant, kernel), the plain
+    version and bf16 ``torch.matmul`` with a bf16 copy of the weight made
+    outside the timed region (what bf16 serving pays for the same product)
+    timed at every distinct shape and M, beside the bound."""
+    from llms_on_kubernetes_tpu_torch import kernels
     from llms_on_kubernetes_tpu_torch.ops import quant as q
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1125,33 +1179,50 @@ def w8_kernels(torch, rng, timer) -> dict:
         s = torch.from_numpy(rng.uniform(1e-3, 2e-2, size=N).astype(np.float32)).cuda()
         return x, w, s
 
+    def old(x, w, s):
+        out = torch.empty((x.shape[0], w.shape[1]), dtype=bf16, device="cuda")
+        kernels.check("w8_matmul_unsplit", unsplit(
+            x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+            w.shape[1], torch.cuda.current_stream().cuda_stream))
+        return out
+
     say("kernel w8_matmul (the port's own: the product JAX ops/quant.py::qeinsum leaves to XLA)")
+    shapes = {**W8_PROJ, **W8_PHI3, **W8_ODD}
+    splits = kernels.function("w8_splits")
+    for K, N in sorted({*shapes.values(), (64, 32), (64, 64), (128, 64), (64, 128), (80, 48),
+                        (320, 96), (1024, 4096), (28672, 8192)}):
+        if splits(K, N) != len(q.w8_splits(K, N)):
+            fail(f"w8_splits({K}, {N}): the kernel cuts {splits(K, N)} slices, "
+                 f"ops/quant.py {len(q.w8_splits(K, N))}")
+    say("  K slices (kernel = ops/quant.w8_splits): " + ", ".join(
+        f"{K}x{N}: {len(q.w8_splits(K, N))}" for K, N in sorted(set(shapes.values()))))
     # float32 at small K: 1e-4 is the summation order's error there
     for M, K, N in [(1, 64, 32), (5, 64, 32), (17, 128, 48), (70, 320, 96), (300, 256, 160)]:
         x, w, s = inputs(M, K, N, f32)
         check_close(f"f32 M{M} K{K} N{N}", q.w8_matmul(x, w, s), q.w8_matmul_plain(x, w, s),
                     "float32")
     xs = {K: torch.from_numpy(rng.normal(size=(max(W8_ROWS), K)).astype(np.float32)).to(
-        "cuda", bf16) for K in (4096, 14336)}
+        "cuda", bf16) for K in sorted({K for K, _ in shapes.values()})}
     weights, err = {}, 0.0
-    for name, (K, N) in W8_PROJ.items():
+    for name, (K, N) in shapes.items():
         _, w, s = inputs(1, K, N, bf16)
         weights[name] = (w, s)
         outs = {}
-        for M in W8_ROWS:
+        for M in sorted({*W8_ROWS, *W8_SAME_CALLS}):
             x = xs[K][:M]
             outs[M] = q.w8_matmul(x, w, s)
-            err = max(err, check_close(f"bf16 {name} {K}->{N} M{M}", outs[M],
-                                       q.w8_matmul_plain(x, w, s), "bfloat16"))
-        for r in (0, 37, 63):
+            if M in W8_ROWS:
+                err = max(err, check_close(f"bf16 {name} {K}->{N} M{M}", outs[M],
+                                           q.w8_matmul_plain(x, w, s), "bfloat16"))
+        for r in W8_SAME_ROWS:
             one = q.w8_matmul(xs[K][r:r + 1], w, s)[0]
-            for M in (64, 256, 4096):
-                if not torch.equal(one, outs[M][r]):
+            for M in W8_SAME_CALLS:
+                if r < M and not torch.equal(one, outs[M][r]):
                     fail(f"w8_matmul {name}: row {r} alone differs from row {r} of a call of "
                          f"{M} rows (batch invariance)")
         del outs
-    say("  batch invariance: rows 0, 37, 63 alone equal them in calls of 64, 256 and 4,096 "
-        "rows, bit for bit, at all seven projections")
+    say(f"  batch invariance: rows {W8_SAME_ROWS} alone equal them in calls of "
+        f"{W8_SAME_CALLS} rows, bit for bit, at every projection (both bodies)")
     x, w, s = inputs(8, 64, 32, bf16)
     x40, w40, s40 = inputs(8, 40, 32, bf16)
     for label, args in (("a CPU tensor", (x, w.cpu(), s)), ("a strided view", (x[:, ::2], w, s)),
@@ -1165,30 +1236,37 @@ def w8_kernels(torch, rng, timer) -> dict:
     torch.cuda.synchronize()
 
     timings = {}
-    shapes = {"wq/wo": "wq", "wk/wv": "wk", "w_gate/w_up": "w_gate", "w_down": "w_down"}
-    for label, name in shapes.items():
-        K, N = W8_PROJ[name]
+    for label, (name, _per_layer) in W8_TIMED.items():
+        K, N = shapes[name]
         w, s = weights[name]
         wb = w.to(bf16)        # the bf16 weight bf16 serving holds (exact)
         for M in W8_ROWS:
             x = xs[K][:M]
-            ms = timer(lambda: q.w8_matmul(x, w, s), reps=50)
+            t1 = timer(lambda: q.w8_matmul(x, w, s), reps=50)
+            o1 = timer(lambda: old(x, w, s), reps=50)
+            o2 = timer(lambda: old(x, w, s), reps=50)
+            t2 = timer(lambda: q.w8_matmul(x, w, s), reps=50)
             plain = timer(lambda: q.w8_matmul_plain(x, w, s))
             lib = timer(lambda: torch.matmul(x, wb))
             b_ms, b_by = bound_ms(*w8_work(M, K, N), "bfloat16")
             key = f"{label} {K}x{N} M{M}"
-            timings[key] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                                library_ms=lib)
-            say(f"  timing w8_matmul {key}: ms={ms:.4f} plain_ms={plain:.4f} "
-                f"bound_ms={b_ms:.4f} ({b_by}) library_ms={lib:.4f}")
+            timings[key] = dict(ms=(t1 + t2) / 2, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=lib, unsplit_ms=(o1 + o2) / 2)
+            say(f"  timing w8_matmul {key}: ms={t1:.4f},{t2:.4f} unsplit_ms={o1:.4f},{o2:.4f} "
+                f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms={lib:.4f}")
         del wb
-    for M in (8, 64):
-        per = {k: sum(timings[f"{lbl} {W8_PROJ[n][0]}x{W8_PROJ[n][1]} M{M}"][k]
-                      * (2 if "/" in lbl else 1) for lbl, n in shapes.items())
-               for k in ("ms", "bound_ms", "library_ms")}
-        say(f"  w8_matmul, a llama-3-8b forward's projections at M {M} (32 layers x 7): "
-            f"ms={32 * per['ms']:.3f} bound_ms={32 * per['bound_ms']:.3f} bf16 "
-            f"torch.matmul={32 * per['library_ms']:.3f} [{card_line()}]")
+    for model, labels in (("llama-3-8b", ("wq/wo", "wk/wv", "w_gate/w_up", "w_down")),
+                          ("phi-3-mini", ("phi3 wqkvo", "phi3 w_gate/w_up", "phi3 w_down"))):
+        for M in (8, 64):
+            per = {}
+            for k in ("ms", "unsplit_ms", "bound_ms", "library_ms"):
+                per[k] = 32 * sum(timings[f"{lbl} {shapes[W8_TIMED[lbl][0]][0]}x"
+                                          f"{shapes[W8_TIMED[lbl][0]][1]} M{M}"][k]
+                                  * W8_TIMED[lbl][1] for lbl in labels)
+            say(f"  w8_matmul, a {model} forward's projections at M {M} (32 layers x 7): "
+                f"ms={per['ms']:.3f} unsplit_ms={per['unsplit_ms']:.3f} "
+                f"bound_ms={per['bound_ms']:.3f} bf16 torch.matmul={per['library_ms']:.3f} "
+                f"[{card_line()}]")
     main = timings[W8_MAIN]
     return {"w8_matmul": dict(
         name="w8_matmul", route="cuda", source="llms_on_kubernetes_tpu_torch/csrc/w8_matmul.cu",
@@ -1196,7 +1274,9 @@ def w8_kernels(torch, rng, timer) -> dict:
         shape=f"{W8_MAIN} bf16 x, int8 w", other_shapes={k: v for k, v in timings.items()
                                                          if k != W8_MAIN},
         library_note="torch.matmul of x with a bf16 copy of the weight made outside the "
-                     "timed region: what bf16 serving pays for the same product")}
+                     "timed region: what bf16 serving pays for the same product",
+        unsplit_note=f"unsplit_ms: the kernel before the K split ({W8_VARIANT}), timed in "
+                     "turns with this one in the same run")}
 
 
 # ---------------------------------------------------------------------------
@@ -2511,8 +2591,11 @@ def main(argv) -> int:
     say(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
+    variant = start_variant_build()
     kernels.build()
-    say(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(kernels.SOURCES)}")
+    unsplit = finish_variant_build(variant)
+    say(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(kernels.SOURCES)} and "
+        f"{W8_VARIANT}")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         for name, out in kernels.build_log.items():
@@ -2526,16 +2609,17 @@ def main(argv) -> int:
         f"(bf16) functions")
     if not funcs or not hmma:
         fail("the bf16 flash prefill body has no tensor-core (HMMA) instruction")
-    hmma, funcs = sass_mma_count(kernels.library_path("w8_matmul"), "w8_matmul_tc")
-    say(f"sass w8_matmul: {hmma} HMMA instructions in {funcs} tensor-core (bf16) functions")
-    if not funcs or not hmma:
-        fail("the bf16 W8A16 body has no tensor-core (HMMA) instruction")
+    for body in ("w8_matmul_decode", "w8_matmul_prefill"):
+        hmma, funcs = sass_mma_count(kernels.library_path("w8_matmul"), body)
+        say(f"sass {body}: {hmma} HMMA instructions in {funcs} tensor-core (bf16) functions")
+        if not funcs or not hmma:
+            fail(f"the bf16 W8A16 body {body} has no tensor-core (HMMA) instruction")
 
     t0 = time.perf_counter()
     entries = phase_kernels(torch)
     for name, shapes in wide_kernels(torch, np.random.default_rng(1), Timer(torch)).items():
         entries[name]["other_shapes"].update(shapes)
-    entries.update(w8_kernels(torch, np.random.default_rng(2), Timer(torch)))
+    entries.update(w8_kernels(torch, np.random.default_rng(2), Timer(torch), unsplit))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     say(f"phase 2 (kernels): {time.perf_counter() - t0:.1f} s")

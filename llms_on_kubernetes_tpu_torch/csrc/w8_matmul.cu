@@ -5,9 +5,9 @@
 // which fuses the int8 -> bf16 convert into the matrix unit's operand load,
 // so the bf16 weight never reaches device memory. In PyTorch,
 // matmul(x, w.to(bf16)) writes and re-reads a bf16 copy of every weight on
-// every call; this kernel converts the int8 tile on its way from shared
-// memory to the tensor cores instead. Semantics are those of the plain
-// version, ops/quant.py::w8_matmul_plain:
+// every call; this kernel converts the int8 tile on its way to the tensor
+// cores instead. Semantics are those of the plain version,
+// ops/quant.py::w8_matmul_plain:
 //
 //   out[m, n] = round_x(round_x(sum_k x[m, k] * w[k, n]) * round_x(scale[n]))
 //
@@ -19,213 +19,735 @@
 // What bounds it on the H100: at decode (M = 8 or 64 rows) the weight's
 // bytes, K * N at 1 byte each (a llama-3-8b layer moves 218 MB, 65 us at
 // 3.35 TB/s); at prefill (M in the thousands) the bf16 tensor-core rate,
-// 2 M K N operations at 989 TFLOP/s. The design streams the weight once per
-// block of rows in 16-byte cp.async copies, several tiles in flight, and
-// does the products on mma.sync; it is simple and right first, and is not
-// yet at either bound (PERF.md kernel table): wgmma, TMA and split-K for
-// the small-N shapes are later work (ROADMAP.md queue 2).
+// 2 M K N operations at 989 TFLOP/s, which only wgmma reaches.
 //
-// Two bodies:
-//
-// - bf16: tensor cores. A warp owns 16 * MT rows by 32 columns: four
-//   mma.sync.m16n8k16 column tiles, bf16 in, f32 accumulators. x tiles are
-//   staged by 16-byte cp.async into shared rows padded by 16 bytes (ldmatrix
-//   reads them without bank conflicts); w tiles are staged as int8 by
-//   16-byte cp.async into rows padded by 16 bytes, a ring of STAGES tiles.
-//   ldmatrix moves 16-bit elements only, so B fragments are built in
-//   registers: mma column c of column tile j is the warp's column 4c + j,
-//   so one 32-bit shared load gives a lane its column in all four tiles;
-//   each int8 byte becomes f32 and then bf16, both exact (|w| <= 127). The
-//   same mapping puts a lane's eight output columns side by side: one
-//   16-byte store a row. Two shapes of block: for M <= 64, one warp of 16
-//   rows by 32 columns and 128-deep K tiles in a 4-deep ring (many blocks,
-//   many bytes in flight: decode moves the weight and little else); above
-//   it, four warps of 64 rows by 32 columns (128 by 64 a block), 32-deep K
-//   tiles in a 3-deep ring (each B fragment serves four row tiles).
-// - float32: the CUDA cores, 32 rows by 64 columns a block, each thread
-//   4 by 4 outputs, one fmaf a product. The float32 checks (1e-4 against
-//   the plain version, the debug-tiny reference on the card) need full f32
-//   products, which TF32 tensor cores would not give.
-//
-// Batch invariance: every output is one chain of f32 accumulations over K
-// in increasing order, 16 deep a step on the tensor cores and one product a
-// step on the CUDA cores, never split; the block shape only chooses which
-// outputs a warp owns. A row's result is therefore the same at any M and at
-// any place in the call (held bit for bit on the card: chip_smoke.py phase 2
-// and tests/test_torch_cuda.py), so a request's logits do not depend on how
+// The K split (w8_split, mirrored by ops/quant.py::w8_splits). K is cut
+// into S contiguous slices, each a whole number of units (64 rows when 64
+// divides K, else 16); S and the edges follow from K and N alone, never
+// from M. Every bf16 output is
+//   1. each slice's f32 chain, one wgmma step of 16 k at a time in
+//      increasing k, starting from zero;
+//   2. the slice chains summed in slice order, ((p0 + p1) + p2) + ..., f32;
+//   3. the two roundings above.
+// Both bf16 bodies below compute exactly this, from the same fragments on
+// the same instruction, so a row's result is the same at any M and at any
+// place in the call (held bit for bit on the card: chip_smoke.py phase 2
+// and tests/test_torch_cuda.py), and a request's logits do not depend on how
 // many rows shared its prefill.
+//
+// int8 -> bf16 without I2F (s8_pair): with l a byte's low 7 bits and h its
+// sign bit, the bf16 bit patterns 0x4300 | l and 0x4300 | h << 7 are 128 + l
+// and 128 + 128 h, and their difference l - 128 h is the byte's value,
+// exact in bf16: one byte_perm, two lop3 and one fma.bf16x2 a pair.
+//
+// The bf16 bodies compute out^T = w^T x^T on wgmma: the converted weight
+// is the A operand, in registers, and x the B operand, in shared memory. A
+// warp reads its 16 weight bytes of a 16-deep step with four 32-bit shared
+// loads and converts them in registers (step_words, step_frags: column
+// 4c + j of the warp's 32 is A row c of wgmma tile j / 2, or c + 8 for odd
+// j), so both bodies feed the same fragments to the same instruction, and
+// every weight byte is converted once a block. Thread 0 brings each 64-deep
+// tile, x [rows, 64] and w [64, 128], into a ring of STAGES by TMA (128-byte
+// swizzle, completion on an mbarrier).
+//
+// - w8_matmul_decode (M <= 64): a block holds NX rows of x (M rounded up
+//   to 8, 16, 32 or 64: the wgmma width) and a slab of 128 columns; its WK
+//   warpgroups are slice groups, and warpgroup g of cluster block r runs
+//   slice r * WK + g over the slab, as two 64-column wgmma tiles. The
+//   blocks of one slab form a thread-block cluster (KB = S / WK of them, at
+//   most 8, so the small-N projections still fill the 132 SMs); the slice
+//   chains go to shared memory, and after a cluster barrier each block sums
+//   its share of the slab's outputs over all S slices in slice order,
+//   reading the other blocks' chains through distributed shared memory. No
+//   workspace, no counter and no float atomics, so a captured CUDA graph
+//   holds nothing but the operands.
+// - w8_matmul_prefill (M > 64): a block holds 128 rows of x and 128
+//   columns; warpgroup T computes wgmma tile T (64 columns) at width 128
+//   and runs every slice in order: one register set holds the current
+//   slice's chain, a second the running sum. The next tile's fragments are
+//   converted while the current tile's wgmma steps run.
+//
+// The float32 body: the CUDA cores, 32 rows by 64 columns a block, each
+// thread 4 by 4 outputs, one fmaf a product, one chain over K (never
+// split). The float32 checks (1e-4 against the plain version, the
+// debug-tiny reference on the card) need full f32 products, which TF32
+// tensor cores would not give.
+#include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 
 using namespace llmk;
+namespace cg = cooperative_groups;
 
 namespace {
 
-// -- bf16 tensor-core body ----------------------------------------------------
+// -- the K split --------------------------------------------------------------
 
-constexpr int kNT = 4;  // mma column tiles a warp: 32 columns
+constexpr int kSlab = 128;       // columns a decode block
+constexpr int kMinBlocks = 128;  // decode blocks to aim for (132 SMs)
+constexpr int kMaxCluster = 8;   // the portable cluster size
+constexpr int kSliceGroups = 2;  // slice groups a decode block (WK)
+constexpr int kMaxSlice = 1024;  // K rows a slice stays within where S allows
+constexpr int kBK = 64;          // K rows a staged tile, both bodies
 
-template <int MT, int WM, int WN, int BK, int STAGES>
-struct TcCfg {
-  static constexpr int kThreads = 32 * WM * WN;
-  static constexpr int kBM = 16 * MT * WM;       // rows a block
-  static constexpr int kBN = 8 * kNT * WN;       // columns a block
-  static constexpr int kAStride = BK + 8;        // bf16 a staged x row
-  static constexpr int kBStride = kBN + 16;      // bytes a staged w row
-  static constexpr int kATile = kBM * kAStride;  // elements a stage
-  static constexpr int kBTile = BK * kBStride;   // bytes a stage
-  static constexpr int kAChunks = kBM * BK / 8;  // 16-byte copies a stage
-  static constexpr int kBChunks = BK * kBN / 16;
-  static_assert(BK % 16 == 0 && kAChunks % kThreads == 0 && kBChunks % kThreads == 0,
-                "whole copies per thread");
-  static_assert(sizeof(__nv_bfloat16) * STAGES * kATile + STAGES * kBTile <= 48 * 1024,
-                "static shared memory");
+struct Split {
+  int S;      // slices
+  int unit;   // K rows a unit: every slice edge is a multiple of it
+  int units;  // K / unit
 };
 
-// Stage K tile kt of the block's rows of x and columns of w; rows past M and
-// columns past N are zero-filled (K and N are multiples of 16, so a 16-byte
-// copy is wholly in or out).
-template <typename C, int BK>
-__device__ __forceinline__ void load_stage(__nv_bfloat16* a, int8_t* b,
-                                           const __nv_bfloat16* __restrict__ x,
-                                           const int8_t* __restrict__ w, int m0, int n0,
-                                           int kt, int M, int K, int N) {
-  const int k0 = kt * BK;
-#pragma unroll
-  for (int n = 0; n < C::kAChunks / C::kThreads; ++n) {
-    const int idx = threadIdx.x + n * C::kThreads;
-    const int r = idx / (BK / 8), c = idx % (BK / 8);
-    const int row = m0 + r, col = k0 + c * 8;
-    const bool in = row < M && col < K;
-    cp_async<16>(a + r * C::kAStride + c * 8, x + (in ? (size_t)row * K + col : 0), in);
-  }
-#pragma unroll
-  for (int n = 0; n < C::kBChunks / C::kThreads; ++n) {
-    const int idx = threadIdx.x + n * C::kThreads;
-    const int r = idx / (C::kBN / 16), c = idx % (C::kBN / 16);
-    const int kr = k0 + r, col = n0 + c * 16;
-    const bool in = kr < K && col < N;
-    cp_async<16>(b + r * C::kBStride + c * 16, w + (in ? (size_t)kr * N + col : 0), in);
-  }
+// S is a power of two: enough decode blocks (slabs x S / kSliceGroups) for
+// the card and slices of at most kMaxSlice rows, within kSliceGroups x
+// kMaxCluster slices and at least one unit a slice
+__host__ __device__ inline Split w8_split(int K, int N) {
+  Split sp;
+  sp.unit = K % 64 == 0 ? 64 : 16;
+  sp.units = K / sp.unit;
+  const int slabs = (N + kSlab - 1) / kSlab;
+  int kb = 1;
+  while (slabs * kb < kMinBlocks && kb < kMaxCluster) kb *= 2;
+  int s = kSliceGroups * kb;
+  while (s < kSliceGroups * kMaxCluster && s * kMaxSlice < K) s *= 2;
+  while (s > sp.units) s /= 2;
+  sp.S = s;
+  return sp;
 }
 
-// byte j of two words as one bf16 pair, lo in the low half: int8 -> f32 ->
-// bf16, both exact
-__device__ __forceinline__ uint32_t s8_pair(uint32_t lo, uint32_t hi, int j) {
-  return pack_bf16((float)(int8_t)(lo >> (8 * j)), (float)(int8_t)(hi >> (8 * j)));
+// first K row of slice s (s = S gives K)
+__host__ __device__ __forceinline__ int slice_edge(const Split& sp, int s) {
+  return sp.unit * (s * sp.units / sp.S);
+}
+
+// -- shared pieces of the bf16 bodies ----------------------------------------
+
+// bytes J of two words as one bf16 pair, lo in the low half, exactly (see
+// the note at the top): byte_perm puts the two bytes at bits 0 and 16
+template <int J>
+__device__ __forceinline__ uint32_t s8_pair(uint32_t lo, uint32_t hi) {
+  constexpr uint32_t kSel = J | (J << 4) | ((4 + J) << 8) | ((4 + J) << 12);
+  const uint32_t p = __byte_perm(lo, hi, kSel);
+  const uint32_t v = (p & 0x007F007Fu) | 0x43004300u;  // 128 + l
+  const uint32_t s = (p & 0x00800080u) | 0x43004300u;  // 128 + 128 h
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(s), "r"(0xBF80BF80u), "r"(v));
+  return r;  // v - s
 }
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <int MT, int WM, int WN, int BK, int STAGES>
-__global__ void __launch_bounds__(32 * WM * WN)
-w8_matmul_tc(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-             const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int M, int K,
-             int N) {
-  using C = TcCfg<MT, WM, WN, BK, STAGES>;
-  __shared__ __align__(16) __nv_bfloat16 sA[STAGES * C::kATile];
-  __shared__ __align__(16) int8_t sB[STAGES * C::kBTile];
-
-  // grid (row block, column block): blocks that share a weight slab run
-  // side by side, so the slab is read from device memory about once
-  const int m0 = blockIdx.x * C::kBM, n0 = blockIdx.y * C::kBN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / WN, wn = warp % WN;
-  const int g = lane >> 2, tq = lane & 3;
-  const int n_tiles = (K + BK - 1) / BK;
-
-  float acc[MT][kNT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_tiles)
-      load_stage<C, BK>(sA + s * C::kATile, sB + s * C::kBTile, x, w, m0, n0, s, M, K, N);
-    cp_async_commit();
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t bytes, bool& done) {
+  if (!done) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    done = true;
   }
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
-    const int pf = kt + STAGES - 1;
-    if (pf < n_tiles)
-      load_stage<C, BK>(sA + (pf % STAGES) * C::kATile, sB + (pf % STAGES) * C::kBTile, x, w,
-                        m0, n0, pf, M, K, N);
-    cp_async_commit();
-    const __nv_bfloat16* a = sA + (kt % STAGES) * C::kATile;
-    const int8_t* b = sB + (kt % STAGES) * C::kBTile;
-    // 16-deep steps in this tile: the chain over K is the same at every M
-    const int steps = min(BK, K - kt * BK) / 16;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      if (kk < steps) {
-        // k rows 2tq, 2tq + 1, 2tq + 8, 2tq + 9 of this step, columns
-        // 4g .. 4g + 3 of the warp's 32: byte j is column tile j's
-        const int8_t* bp = b + (kk * 16 + 2 * tq) * C::kBStride + wn * 32 + g * 4;
-        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(bp);
-        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(bp + C::kBStride);
-        const uint32_t w2 = *reinterpret_cast<const uint32_t*>(bp + 8 * C::kBStride);
-        const uint32_t w3 = *reinterpret_cast<const uint32_t*>(bp + 9 * C::kBStride);
-        uint32_t b0[kNT], b1[kNT];
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          b0[j] = s8_pair(w0, w1, j);
-          b1[j] = s8_pair(w2, w3, j);
-        }
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          uint32_t af[4];
-          ldmatrix_x4(af, a + (wm * 16 * MT + i * 16 + (lane & 15)) * C::kAStride + kk * 16 +
-                              (lane >> 4) * 8);
-#pragma unroll
-          for (int j = 0; j < kNT; ++j) mma_bf16(acc[i][j], af, b0[j], b1[j]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
+  return 0;
+}
 
-  // this lane's columns col .. col + 7: mma columns 2tq (acc[.][j][0|2]) and
-  // 2tq + 1 (acc[.][j][1|3]) of tile j are columns 8tq + j and 8tq + 4 + j
-  const int col = n0 + wn * 32 + tq * 8;
-  if (col >= N) return;
-  float sc[8];
-  const float4 s_lo = *reinterpret_cast<const float4*>(scale + col);
-  const float4 s_hi = *reinterpret_cast<const float4*>(scale + col + 4);
-  sc[0] = s_lo.x, sc[1] = s_lo.y, sc[2] = s_lo.z, sc[3] = s_lo.w;
-  sc[4] = s_hi.x, sc[5] = s_hi.y, sc[6] = s_hi.z, sc[7] = s_hi.w;
+// -- TMA: 2D tiles into shared memory, completion on an mbarrier --------------
+
+// a tensor map over a row-major [rows, cols] array of elt-byte elements,
+// boxes of box_rows x box_cols, 128-byte swizzle (the box's rows are 128
+// bytes: 16-byte chunk c of row r lands at chunk c ^ (r % 8)); elements past
+// the array read as zeros. The driver entry point comes through the
+// runtime, so the library links against nothing but cudart.
+int make_map(CUtensorMap* tm, const void* base, CUtensorMapDataType type, int elt, int rows,
+             int cols, int box_rows, int box_cols) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorNotSupported;
+    encode = (PFN_cuTensorMapEncodeTiled_v12000)fn;
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elt};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = encode(tm, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// the one arrival of this phase, expecting `bytes` of TMA writes
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the box at (column c0, row c1) of tm into dst (1024-byte aligned)
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* tm, int c0, int c1,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// byte offset of (row r, byte b) in a tile of 128-byte rows, 128-byte swizzle
+__device__ __forceinline__ int swz(int r, int b) {
+  return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// -- wgmma: out^T tiles, the weight as register A, x as shared-memory B ----------
+
+template <int NX>
+__device__ __forceinline__ void wgmma_rs(float (&d)[NX / 2], const uint32_t (&a)[4],
+                                         uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<8>(float (&d)[4], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %9, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// descriptor of a K-major B operand: rows of 128 bytes (64 bf16), 128-byte
+// swizzle, 8-row groups 1024 bytes apart, from a 1024-aligned tile (plus
+// 32 bytes a 16-deep step)
+__device__ __forceinline__ uint64_t desc_b(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// registers an asynchronous wgmma reads or writes: the compiler must keep
+// them where they are until wg_wait (a use after it pins them)
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) sc[i] = round_bf16(sc[i]);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// the four words a lane needs for 16-deep step kk of a staged w tile [64,
+// 128] (128-byte swizzle): k rows 2tq, 2tq + 1, 2tq + 8, 2tq + 9, columns
+// 4g .. 4g + 3 of the warp's 32; byte j of each is A row g (j even) or g + 8
+// (j odd) of wgmma tile j / 2
+__device__ __forceinline__ void step_words(uint32_t (&wd)[4], const uint8_t* b, int kk, int wn,
+                                           int g, int tq) {
+  const int r = kk * 16 + 2 * tq, c = wn * 32 + g * 4;
+  wd[0] = *reinterpret_cast<const uint32_t*>(b + swz(r, c));
+  wd[1] = *reinterpret_cast<const uint32_t*>(b + swz(r + 1, c));
+  wd[2] = *reinterpret_cast<const uint32_t*>(b + swz(r + 8, c));
+  wd[3] = *reinterpret_cast<const uint32_t*>(b + swz(r + 9, c));
+}
+
+// A fragments of wgmma tile T for one step from its words
+template <int T>
+__device__ __forceinline__ void step_frags(uint32_t (&f)[4], const uint32_t (&wd)[4]) {
+  f[0] = s8_pair<2 * T>(wd[0], wd[1]), f[1] = s8_pair<2 * T + 1>(wd[0], wd[1]);
+  f[2] = s8_pair<2 * T>(wd[2], wd[3]), f[3] = s8_pair<2 * T + 1>(wd[2], wd[3]);
+}
+
+// A fragments of every step of a staged tile for both wgmma tiles (the
+// decode body's warpgroups compute both)
+__device__ __forceinline__ void tile_frags(uint32_t (&af)[kBK / 16][2][4], const uint8_t* b,
+                                           int wn, int g, int tq) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 16 * MT + i * 16 + g + half * 8;
-      if (row >= M) continue;
-      float v[8];
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        v[j] = round_bf16(acc[i][j][2 * half]) * sc[j];
-        v[4 + j] = round_bf16(acc[i][j][2 * half + 1]) * sc[4 + j];
-      }
-      *reinterpret_cast<uint4*>(out + (size_t)row * N + col) =
-          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
-                     pack_bf16(v[6], v[7]));
-    }
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    uint32_t wd[4];
+    step_words(wd, b, kk, wn, g, tq);
+    step_frags<0>(af[kk][0], wd);
+    step_frags<1>(af[kk][1], wd);
   }
 }
 
-template <int MT, int WM, int WN, int BK, int STAGES>
-int launch_tc(const void* x, const void* w, const void* scale, void* out, int M, int K, int N,
-              cudaStream_t stream) {
-  using C = TcCfg<MT, WM, WN, BK, STAGES>;
-  const dim3 grid((M + C::kBM - 1) / C::kBM, (N + C::kBN - 1) / C::kBN);
-  w8_matmul_tc<MT, WM, WN, BK, STAGES><<<grid, C::kThreads, 0, stream>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)w, (const float*)scale, (__nv_bfloat16*)out, M,
-      K, N);
+// one staged tile's wgmma steps (the first `steps` of four) on both of the
+// warpgroup's 64-column tiles, waited for
+template <int NX>
+__device__ __forceinline__ void tile_mma(float (&acc)[2][NX / 2],
+                                         uint32_t (&af)[kBK / 16][2][4], const uint8_t* a,
+                                         int steps) {
+  auto step = [&](int kk) {
+    const uint64_t d = desc_b(a + kk * 32);
+    wgmma_rs<NX>(acc[0], af[kk][0], d);
+    wgmma_rs<NX>(acc[1], af[kk][1], d);
+  };
+  pin(acc[0]), pin(acc[1]);
+  wg_fence();
+  // a whole tile (every tile when 64 divides K) issues its steps with no
+  // branch between them: a branch around each wgmma measured slower
+  if (steps == kBK / 16) {
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) step(kk);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      if (kk < steps) step(kk);
+  }
+  wg_commit();
+  wg_wait();
+  pin(acc[0]), pin(acc[1]);
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) pin(af[kk][0]), pin(af[kk][1]);
+}
+
+// -- decode body: M <= 64 -----------------------------------------------------
+
+template <int NX, int WK>
+struct DecCfg {
+  static constexpr int kThreads = 128 * WK;          // WK slice groups (warpgroups)
+  // fewer stages as x's tile grows, so that three blocks fit on an SM
+  static constexpr int kStages = NX <= 16 ? 4 : NX <= 32 ? 3 : 2;
+  static_assert(NX <= 64, "the decode body holds at most 64 rows");
+  static constexpr int kATile = NX * kBK * 2;        // bytes: NX x rows of 64 bf16
+  static constexpr int kBTile = kBK * kSlab;         // bytes: 64 int8 rows of 128
+  static constexpr int kStage = WK * (kATile + kBTile);
+  static constexpr int kPStride = kSlab + 4;         // floats a chain row
+  static constexpr int kPart = NX * kPStride;        // floats, one slice group
+  static constexpr int kSmem =
+      (kStages * kStage > WK * kPart * 4 ? kStages * kStage : WK * kPart * 4) + 1024;
+  static_assert(kATile % 1024 == 0 && kBTile % 1024 == 0, "swizzled tiles 1024-aligned");
+};
+
+template <int NX, int WK>
+__global__ void __launch_bounds__(128 * WK)
+w8_matmul_decode(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+                 const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int M, int K,
+                 int N) {
+  using C = DecCfg<NX, WK>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[C::kStages];
+  uint8_t* smem = align1024(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int KB = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const Split sp = w8_split(K, N);  // sp.S == KB * WK (the host launched it so)
+  const int n0 = blockIdx.y * kSlab, m0 = blockIdx.z * NX;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wk = warp / 4, wn = warp % 4;  // slice group, warp of its warpgroup
+  const int g = lane >> 2, tq = lane & 3;
+
+  int kb[WK], ke[WK], tiles = 0;
+#pragma unroll
+  for (int i = 0; i < WK; ++i) {
+    kb[i] = slice_edge(sp, rank * WK + i);
+    ke[i] = slice_edge(sp, rank * WK + i + 1);
+    tiles = max(tiles, (ke[i] - kb[i] + kBK - 1) / kBK);
+  }
+  const int my_kb = wk ? kb[WK - 1] : kb[0], my_ke = wk ? ke[WK - 1] : ke[0];
+
+  // thread 0 loads tile t of every slice group of the block: x [NX, 64] at
+  // (k, m0), w [64, 128] at (n0, k); rows past M or K and columns past N
+  // arrive as zeros (a tile of a short slice may run into the next one:
+  // its steps are skipped)
+  auto load = [&](int t) {
+    uint8_t* st = smem + (t % C::kStages) * C::kStage;
+    uint64_t* bar = &bars[t % C::kStages];
+    mbar_expect(bar, C::kStage);
+#pragma unroll
+    for (int i = 0; i < WK; ++i) {
+      tma_load(st + i * C::kATile, &tmx, kb[i] + t * kBK, m0, bar);
+      tma_load(st + WK * C::kATile + i * C::kBTile, &tmw, n0, kb[i] + t * kBK, bar);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) mbar_init(&bars[s]);
+    mbar_init_fence();
+    for (int s = 0; s < C::kStages - 1 && s < tiles; ++s) load(s);
+  }
+  __syncthreads();
+
+  // acc[T]: wgmma tile T's chain (A rows: the slab's 64-column halves as
+  // mapped above; B columns: the block's NX rows of x)
+  float acc[2][NX / 2];
+#pragma unroll
+  for (int T = 0; T < 2; ++T)
+#pragma unroll
+    for (int i = 0; i < NX / 2; ++i) acc[T][i] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    if (t) __syncthreads();  // every warp is done with tile t - 1: its stage is free
+    if (threadIdx.x == 0 && t + C::kStages - 1 < tiles) load(t + C::kStages - 1);
+    mbar_wait(&bars[t % C::kStages], (t / C::kStages) & 1);
+    const uint8_t* stage = smem + (t % C::kStages) * C::kStage;
+    const uint8_t* a = stage + wk * C::kATile;
+    const uint8_t* b = stage + WK * C::kATile + wk * C::kBTile;
+    // 16-deep steps of this warpgroup's slice in this tile
+    const int steps = max(0, min(kBK, my_ke - (my_kb + t * kBK))) / 16;
+    uint32_t af[kBK / 16][2][4];
+    tile_frags(af, b, wn, g, tq);
+    tile_mma<NX>(acc, af, a, steps);
+  }
+  __syncthreads();  // the ring is free: it holds the slice chains now
+
+  // this thread's chain values: tile T, element 4i + e is x row 8i + 2tq +
+  // (e & 1) and the slab's column 32 wn + 4g + 2T + (e >> 1), so a row's
+  // four columns 32 wn + 4g .. + 3 go out in one 16-byte store
+  float* part = reinterpret_cast<float*>(smem);
+  float* mine = part + wk * C::kPart + wn * 32 + g * 4;
+#pragma unroll
+  for (int i = 0; i < NX / 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(mine + (8 * i + 2 * tq + h) * C::kPStride) =
+          make_float4(acc[0][4 * i + h], acc[0][4 * i + h + 2], acc[1][4 * i + h],
+                      acc[1][4 * i + h + 2]);
+  cluster.sync();  // every block's chains are in place
+
+  // this block sums columns [rank, rank + 1) * kSlab / KB of the slab over
+  // all S slices, in slice order; slice s is slice group s % WK of block
+  // s / WK
+  const int rows = min(NX, M - m0), cols = kSlab / KB, quads = cols / 4;
+  for (int q = threadIdx.x; q < rows * quads; q += C::kThreads) {
+    const int m = q / quads, c = rank * cols + (q % quads) * 4, n = n0 + c;
+    if (n >= N) continue;
+    const int off = m * C::kPStride + c;
+    // every slice's chain first (the loads overlap), then the sums in order
+    constexpr int kMaxS = kSliceGroups * kMaxCluster;
+    float4 v[kMaxS];
+#pragma unroll
+    for (int s = 0; s < kMaxS; ++s)
+      if (s < sp.S)
+        v[s] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, s / WK) +
+                                                (s % WK) * C::kPart + off);
+    float4 tot = v[0];
+#pragma unroll
+    for (int s = 1; s < kMaxS; ++s)
+      if (s < sp.S)
+        tot.x = tot.x + v[s].x, tot.y = tot.y + v[s].y, tot.z = tot.z + v[s].z,
+        tot.w = tot.w + v[s].w;
+    const float4 s4 = *reinterpret_cast<const float4*>(scale + n);
+    const float r0 = round_bf16(tot.x) * round_bf16(s4.x);
+    const float r1 = round_bf16(tot.y) * round_bf16(s4.y);
+    const float r2 = round_bf16(tot.z) * round_bf16(s4.z);
+    const float r3 = round_bf16(tot.w) * round_bf16(s4.w);
+    *reinterpret_cast<uint2*>(out + (size_t)(m0 + m) * N + n) =
+        make_uint2(pack_bf16(r0, r1), pack_bf16(r2, r3));
+  }
+  cluster.sync();  // no block leaves while another still reads its chains
+}
+
+template <int NX, int WK>
+int launch_decode(const void* x, const void* w, const void* scale, void* out, int M, int K,
+                  int N, int S, cudaStream_t stream) {
+  using C = DecCfg<NX, WK>;
+  constexpr auto kernel = w8_matmul_decode<NX, WK>;
+  static bool smem_set = false;  // per instantiation; one card per process
+  if (int e = set_smem(kernel, C::kSmem, smem_set)) return e;
+  CUtensorMap tmx, tmw;
+  if (int e = make_map(&tmx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, NX, kBK)) return e;
+  if (int e = make_map(&tmw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, kBK, kSlab)) return e;
+  const int KB = S / WK;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(KB, (N + kSlab - 1) / kSlab, (M + NX - 1) / NX);
+  cfg.blockDim = dim3(C::kThreads);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = KB;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, tmx, tmw, (const float*)scale,
+                                           (__nv_bfloat16*)out, M, K, N);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+template <int NX>
+int launch_nx(const void* x, const void* w, const void* scale, void* out, int M, int K, int N,
+              int S, cudaStream_t stream) {
+  if (S == 1) return launch_decode<NX, 1>(x, w, scale, out, M, K, N, S, stream);
+  return launch_decode<NX, kSliceGroups>(x, w, scale, out, M, K, N, S, stream);
+}
+
+// -- prefill body: M > 64 -----------------------------------------------------
+
+struct PreCfg {
+  static constexpr int kRows = 128;                  // x rows a block: the wgmma width
+  static constexpr int kThreads = 256;               // warpgroup T: wgmma tile T of the slab
+  static constexpr int kStages = 4;
+  static constexpr int kATile = kRows * kBK * 2;     // bytes: 128 x rows of 64 bf16
+  static constexpr int kBTile = kBK * kSlab;         // bytes: 64 int8 rows of 128
+  static constexpr int kStage = kATile + kBTile;
+  static constexpr int kOStride = kSlab + 8;         // bf16 a staged output row
+  static constexpr int kSmem = kStages * kStage + 1024;
+  static_assert(kRows * kOStride * 2 <= kStages * kStage, "the output tile fits the ring");
+};
+
+// a walk over the slices' tiles in order: tile [k0, min(k0 + kBK, ke)) of
+// slice s
+struct TileCursor {
+  int s, k0, ke;
+  __device__ __forceinline__ void start(const Split& sp) {
+    s = 0, k0 = 0, ke = slice_edge(sp, 1);
+  }
+  __device__ __forceinline__ bool last() const { return k0 + kBK >= ke; }
+  __device__ __forceinline__ void next(const Split& sp) {
+    k0 += kBK;
+    if (k0 >= ke) {
+      ++s;
+      k0 = ke;
+      ke = slice_edge(sp, s + 1);
+    }
+  }
+};
+
+// warpgroup T's A fragments of every step of a staged tile (the prefill
+// body's warpgroups compute one wgmma tile each)
+template <int T>
+__device__ __forceinline__ void pre_frags(uint32_t (&af)[kBK / 16][4], const uint8_t* b, int wn,
+                                          int g, int tq) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    uint32_t wd[4];
+    step_words(wd, b, kk, wn, g, tq);
+    step_frags<T>(af[kk], wd);
+  }
+}
+
+__global__ void __launch_bounds__(PreCfg::kThreads, 1)
+w8_matmul_prefill(const __grid_constant__ CUtensorMap tmx,
+                  const __grid_constant__ CUtensorMap tmw, const float* __restrict__ scale,
+                  __nv_bfloat16* __restrict__ out, int M, int K, int N) {
+  using C = PreCfg;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[C::kStages];
+  uint8_t* smem = align1024(smem_raw);
+  const Split sp = w8_split(K, N);
+  // grid (row block, slab): blocks that share a weight slab run side by
+  // side, so the slab is read from device memory about once
+  const int m0 = blockIdx.x * C::kRows, n0 = blockIdx.y * kSlab;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int T = warp / 4, wn = warp % 4;
+  const int g = lane >> 2, tq = lane & 3;
+  int tiles = 0;
+  for (int s = 0; s < sp.S; ++s)
+    tiles += (slice_edge(sp, s + 1) - slice_edge(sp, s) + kBK - 1) / kBK;
+
+  TileCursor ld;  // thread 0's: the next tile to load
+  auto load = [&](int t) {
+    uint8_t* st = smem + (t % C::kStages) * C::kStage;
+    uint64_t* bar = &bars[t % C::kStages];
+    mbar_expect(bar, C::kStage);
+    tma_load(st, &tmx, ld.k0, m0, bar);
+    tma_load(st + C::kATile, &tmw, n0, ld.k0, bar);
+    ld.next(sp);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) mbar_init(&bars[s]);
+    mbar_init_fence();
+    ld.start(sp);
+    for (int s = 0; s < C::kStages && s < tiles; ++s) load(s);
+  }
+  __syncthreads();
+
+  // acc: the current slice's chain, tot: the slices before it summed in
+  // order (element 4i + e: x row 8i + 2tq + (e & 1), column 32 wn + 4g + 2T
+  // + (e >> 1) of the slab)
+  float acc[C::kRows / 2], tot[C::kRows / 2];
+#pragma unroll
+  for (int i = 0; i < C::kRows / 2; ++i) acc[i] = tot[i] = 0.f;
+  uint32_t af[2][kBK / 16][4];
+  auto frags = [&](uint32_t(&f)[kBK / 16][4], int t) {
+    const uint8_t* b = smem + (t % C::kStages) * C::kStage + C::kATile;
+    if (T == 0)
+      pre_frags<0>(f, b, wn, g, tq);
+    else
+      pre_frags<1>(f, b, wn, g, tq);
+  };
+  TileCursor cur;
+  cur.start(sp);
+  // tile t: its wgmma steps on af[P], then tile t + 1's fragments into
+  // af[1 - P] while they run, then the fold when the slice ends
+  auto step = [&](auto parity, int t) {
+    constexpr int P = decltype(parity)::value;
+    const uint8_t* a = smem + (t % C::kStages) * C::kStage;
+    const int steps = min(kBK, cur.ke - cur.k0) / 16;
+    pin(acc);
+    wg_fence();
+    if (steps == kBK / 16) {  // no branch between a whole tile's steps
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_rs<C::kRows>(acc, af[P][kk], desc_b(a + kk * 32));
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        if (kk < steps) wgmma_rs<C::kRows>(acc, af[P][kk], desc_b(a + kk * 32));
+    }
+    wg_commit();
+    if (t + 1 < tiles) {
+      mbar_wait(&bars[(t + 1) % C::kStages], ((t + 1) / C::kStages) & 1);
+      frags(af[1 - P], t + 1);
+    }
+    wg_wait();
+    pin(acc);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) pin(af[P][kk]);
+    if (cur.last()) {  // the slice's chain is whole: fold it in, slice order
+#pragma unroll
+      for (int i = 0; i < C::kRows / 2; ++i) {
+        tot[i] = cur.s == 0 ? acc[i] : tot[i] + acc[i];
+        acc[i] = 0.f;
+      }
+    }
+    cur.next(sp);
+    __syncthreads();  // both warpgroups are done with tile t: its stage is free
+    if (threadIdx.x == 0 && t + C::kStages < tiles) load(t + C::kStages);
+  };
+  mbar_wait(&bars[0], 0);
+  frags(af[0], 0);
+  for (int t = 0; t < tiles; t += 2) {
+    step(std::integral_constant<int, 0>(), t);
+    if (t + 1 < tiles) step(std::integral_constant<int, 1>(), t + 1);
+  }
+
+  // the two roundings, staged in shared memory (the ring is free), then
+  // 16-byte stores of whole rows
+  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int c = wn * 32 + 4 * g + 2 * T;
+  const float sc0 = n0 + c < N ? round_bf16(scale[n0 + c]) : 0.f;
+  const float sc1 = n0 + c < N ? round_bf16(scale[n0 + c + 1]) : 0.f;
+#pragma unroll
+  for (int i = 0; i < C::kRows / 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(o + (8 * i + 2 * tq + h) * C::kOStride + c) =
+          pack_bf16(round_bf16(tot[4 * i + h]) * sc0, round_bf16(tot[4 * i + h + 2]) * sc1);
+  __syncthreads();
+  for (int q = threadIdx.x; q < C::kRows * kSlab / 8; q += C::kThreads) {
+    const int r = q / (kSlab / 8), ch = (q % (kSlab / 8)) * 8;
+    if (m0 + r < M && n0 + ch < N)
+      *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * N + n0 + ch) =
+          *reinterpret_cast<const uint4*>(o + r * C::kOStride + ch);
+  }
+}
+
+int launch_prefill(const void* x, const void* w, const void* scale, void* out, int M, int K,
+                   int N, cudaStream_t stream) {
+  using C = PreCfg;
+  static bool smem_set = false;
+  if (int e = set_smem(w8_matmul_prefill, C::kSmem, smem_set)) return e;
+  CUtensorMap tmx, tmw;
+  if (int e = make_map(&tmx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, C::kRows, kBK))
+    return e;
+  if (int e = make_map(&tmw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, kBK, kSlab)) return e;
+  const dim3 grid((M + C::kRows - 1) / C::kRows, (N + kSlab - 1) / kSlab);
+  w8_matmul_prefill<<<grid, C::kThreads, C::kSmem, stream>>>(
+      tmx, tmw, (const float*)scale, (__nv_bfloat16*)out, M, K, N);
   return (int)cudaGetLastError();
 }
 
@@ -285,9 +807,13 @@ w8_matmul_simt(const float* __restrict__ x, const int8_t* __restrict__ w,
 
 }  // namespace
 
+// The number of K slices of the bf16 bodies for K x N (ops/quant.py
+// w8_splits mirrors it; its slice s starts at row unit * (s * units / S)).
+extern "C" int llmk_w8_splits(int K, int N) { return w8_split(K, N).S; }
+
 // x [M, K] (dtype: LLMK_F32 or LLMK_BF16), w int8 [K, N], scale f32 [N],
 // out [M, N] in x's dtype; all contiguous and 16-byte aligned, M >= 1, K and N
-// multiples of 16. Returns cudaGetLastError() after the launch.
+// multiples of 16. Returns the launch's CUDA error, else cudaGetLastError().
 extern "C" int llmk_w8_matmul(const void* x, const void* w, const void* scale, void* out,
                               int M, int K, int N, int dtype, void* stream) {
   if (M < 1 || K < 16 || N < 16 || K % 16 || N % 16) return (int)cudaErrorInvalidValue;
@@ -299,8 +825,12 @@ extern "C" int llmk_w8_matmul(const void* x, const void* w, const void* scale, v
     return (int)cudaGetLastError();
   }
   if (dtype == LLMK_BF16) {
-    if (M <= 64) return launch_tc<1, 1, 1, 128, 4>(x, w, scale, out, M, K, N, s);
-    return launch_tc<4, 2, 2, 32, 3>(x, w, scale, out, M, K, N, s);
+    const int S = w8_split(K, N).S;
+    if (M <= 8) return launch_nx<8>(x, w, scale, out, M, K, N, S, s);
+    if (M <= 16) return launch_nx<16>(x, w, scale, out, M, K, N, S, s);
+    if (M <= 32) return launch_nx<32>(x, w, scale, out, M, K, N, S, s);
+    if (M <= 64) return launch_nx<64>(x, w, scale, out, M, K, N, S, s);
+    return launch_prefill(x, w, scale, out, M, K, N, s);
   }
   return (int)cudaErrorInvalidValue;
 }

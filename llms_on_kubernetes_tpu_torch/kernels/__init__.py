@@ -65,6 +65,10 @@ _SIGNATURES = {
     "paged_write_window": ("llmk_paged_write_window", [_P] * 9 + [_I] * 9 + [_P]),
     "w8_matmul": ("llmk_w8_matmul", [_P] * 4 + [_I] * 4 + [_P]),
 }
+# further C entries of a kernel library: name -> (library, symbol, argtypes)
+_EXTRA_ENTRIES = {
+    "w8_splits": ("w8_matmul", "llmk_w8_splits", [_I, _I]),   # the K split's slice count
+}
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 # the part of LAUNCHES that graph replays added
@@ -172,12 +176,16 @@ def build(names=SOURCES) -> dict:
 
 
 def function(name: str):
-    """The C entry of kernel library ``name``, building it if needed."""
+    """The C entry ``name``: a kernel library's launch entry, or one of
+    ``_EXTRA_ENTRIES``; builds its library if needed."""
     with _lock:
         fn = _funcs.get(name)
         if fn is None:
-            path = build([name])[name]
-            symbol, argtypes = _SIGNATURES[name]
+            if name in _SIGNATURES:
+                lib, (symbol, argtypes) = name, _SIGNATURES[name]
+            else:
+                lib, symbol, argtypes = _EXTRA_ENTRIES[name]
+            path = build([lib])[lib]
             fn = getattr(ctypes.CDLL(str(path)), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

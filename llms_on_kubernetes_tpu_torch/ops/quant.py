@@ -14,7 +14,9 @@ hand-written W8A16 kernel (``csrc/w8_matmul.cu``), which converts the
 int8 weight tile on its way to the tensor cores, so no bf16 copy of the
 weight is ever written; on a CPU tensor it runs ``w8_matmul_plain``, the
 JAX ``qeinsum`` formula. A CUDA tensor never takes the plain version: a
-shape, dtype or layout the kernel does not take raises.
+shape, dtype or layout the kernel does not take raises. ``w8_splits``
+gives the kernel's K slices (its bf16 bodies sum each slice's chain, then
+the slices in order), so the split can be known and tested without a card.
 
 Pre-quantized checkpoints declare their format in ``config.json``
 (``checkpoint_quantization``): compressed-tensors fp8 is dequantized with
@@ -151,6 +153,37 @@ def fp8_dequantize(weight: torch.Tensor, weight_scale: torch.Tensor) -> torch.Te
 # The projection: the W8A16 kernel's wrapper and its plain version
 # ---------------------------------------------------------------------------
 
+# the K split of the kernel's bf16 bodies (csrc/w8_matmul.cu w8_split)
+W8_SLAB = 128          # columns a decode block (kSlab)
+W8_MIN_BLOCKS = 128    # decode blocks to aim for (kMinBlocks)
+W8_MAX_CLUSTER = 8     # blocks a cluster at most (kMaxCluster)
+W8_SLICE_GROUPS = 2    # slices a decode block (kSliceGroups)
+W8_MAX_SLICE = 1024    # K rows a slice stays within where S allows (kMaxSlice)
+
+
+def w8_splits(K: int, N: int) -> list[tuple[int, int]]:
+    """The K slices ``[(k0, k1), ...]`` of the kernel's bf16 bodies for a
+    K x N weight: contiguous, in order, covering ``[0, K)``, each a whole
+    number of units (64 rows when 64 divides K, else 16). Their number S is
+    a power of two chosen from K and N alone (enough decode blocks for the
+    card, slices of at most ``W8_MAX_SLICE`` rows where S allows), so a
+    row's result never depends on M: each output is each slice's f32
+    chain, the chains summed in slice order, then ``qeinsum``'s two
+    roundings."""
+    unit = 64 if K % 64 == 0 else 16
+    units = K // unit
+    slabs = -(-N // W8_SLAB)
+    kb = 1
+    while slabs * kb < W8_MIN_BLOCKS and kb < W8_MAX_CLUSTER:
+        kb *= 2
+    s = W8_SLICE_GROUPS * kb
+    while s < W8_SLICE_GROUPS * W8_MAX_CLUSTER and s * W8_MAX_SLICE < K:
+        s *= 2
+    while s > units:
+        s //= 2
+    return [(unit * (i * units // s), unit * ((i + 1) * units // s)) for i in range(s)]
+
+
 def w8_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """The JAX ``qeinsum`` formula: the product with the int8 weight
     converted to x's dtype, rounded to x's dtype, then times the scale in
@@ -165,7 +198,9 @@ def w8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Te
     output column times ``scale[N]`` (float32): ``w8_matmul_plain``'s
     function. A CPU tensor takes the plain version; a CUDA tensor launches
     ``csrc/w8_matmul.cu`` (M >= 1, K and N multiples of 16, all contiguous
-    and 16-byte aligned) or raises."""
+    and 16-byte aligned) or raises. bfloat16 rows come out bit for bit the
+    same at any M (the split of ``w8_splits``); float32 runs one chain over
+    K on the CUDA cores."""
     if x.device.type == "cpu":
         return w8_matmul_plain(x, w, scale)
     if x.dtype not in kernels.DTYPE_CODES:

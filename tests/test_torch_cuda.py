@@ -1120,14 +1120,17 @@ def _w8_inputs(rng, M, K, N, dtype):
     return x, w, s
 
 
-# M on both block shapes (<= 64 rows: one warp of 16; above: 128-row
-# blocks), K past and short of a whole K tile, N not a multiple of a block;
-# float32 at small K only: 1e-4 is the summation order's error there (at
-# K 4,096 two f32 orders of sums near 40 differ by ~1.5e-4)
+# M on both bodies (<= 64 rows: the decode body at 8, 16, 32 and 64 rows;
+# above: 128-row prefill blocks), K past and short of a whole K tile and of
+# a 64-row unit, N not a multiple of a slab; float32 at small K only: 1e-4
+# is the summation order's error there (at K 4,096 two f32 orders of sums
+# near 40 differ by ~1.5e-4)
 W8_SHAPES = [(dt, *shape) for shape in [(1, 64, 32), (3, 64, 32), (17, 128, 48),
                                         (64, 320, 96), (65, 64, 32), (200, 320, 160)]
              for dt in (torch.float32, torch.bfloat16)]
-W8_SHAPES += [(torch.bfloat16, 8, 4096, 1024), (torch.bfloat16, 300, 1024, 4096)]
+W8_SHAPES += [(torch.bfloat16, 8, 4096, 1024), (torch.bfloat16, 300, 1024, 4096),
+              (torch.bfloat16, 33, 80, 48), (torch.bfloat16, 8, 4112, 256),
+              (torch.bfloat16, 64, 3072, 8192), (torch.bfloat16, 130, 8192, 3072)]
 
 
 @pytest.mark.parametrize("dtype,M,K,N", W8_SHAPES)
@@ -1153,6 +1156,97 @@ def test_w8_matmul_rows_do_not_depend_on_m(cuda, dtype):
     for r in (37, 1000, 4095):
         assert torch.equal(tquant.w8_matmul(x[r:r + 1], w, s), full[r:r + 1]), r
         assert torch.equal(tquant.w8_matmul(x[r - 30:r + 1], w, s)[-1], full[r]), r
+
+
+# llama-3-8b's and phi-3-mini's projections (K, N), and a K of 16-row units
+W8_SERVED = {"llama wq/wo": (4096, 4096), "llama wk/wv": (4096, 1024),
+             "llama w_gate/w_up": (4096, 14336), "llama w_down": (14336, 4096),
+             "phi3 wqkvo": (3072, 3072), "phi3 w_gate/w_up": (3072, 8192),
+             "phi3 w_down": (8192, 3072), "odd K": (4112, 4096)}
+
+
+@pytest.mark.parametrize("K,N", list(W8_SERVED.values()), ids=list(W8_SERVED))
+def test_w8_matmul_rows_bit_equal_across_bodies(cuda, K, N):
+    """bfloat16 at the served widths: rows alone are bit for bit the rows of
+    calls of 8, 64, 65, 256 and 4,096 rows (decode body at 8 and 64 rows,
+    prefill body above), each call within the row tolerance of the plain
+    version."""
+    x, w, s = _w8_inputs(cuda, 4096, K, N, torch.bfloat16)
+    calls = {M: tquant.w8_matmul(x[:M], w, s) for M in (8, 64, 65, 256, 4096)}
+    _close(calls[4096], tquant.w8_matmul_plain(x, w, s), torch.bfloat16)
+    for r in (0, 5, 37, 63):
+        one = tquant.w8_matmul(x[r:r + 1], w, s)[0]
+        for M, out in calls.items():
+            if r < M:
+                assert torch.equal(one, out[r]), (r, M)
+
+
+def test_w8_splits_kernel_equals_the_mirror(cuda):
+    """The kernel's slice count is ``ops/quant.w8_splits``' at the served
+    widths and at random multiples of 16."""
+    fn = kernels.function("w8_splits")
+    shapes = list(W8_SERVED.values()) + [(64, 32), (64, 128), (128, 64), (80, 48)]
+    rng = np.random.default_rng(3)
+    shapes += [(16 * int(k), 16 * int(n)) for k, n in rng.integers(1, 1200, size=(200, 2))]
+    for K, N in shapes:
+        assert fn(K, N) == len(tquant.w8_splits(K, N)), (K, N)
+
+
+def _tiny_bf16_int8_engine(cfg, **kw):
+    """An engine of ``cfg`` with bf16 activations and int8 weights (the
+    W8A16 kernel's bf16 decode body in every captured window), weights
+    drawn on the CPU."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig
+    from llms_on_kubernetes_tpu_torch.models.decoder import init_params
+
+    params = tquant.quantize_params(init_params(cfg, seed=0, dtype="bfloat16", device="cpu"))
+    params = {k: ({n: w.to("cuda") for n, w in v.items()} if isinstance(v, dict)
+                  else v.to("cuda")) for k, v in params.items()}
+    base = dict(model="debug-tiny", dtype="bfloat16", max_decode_slots=4, page_size=4,
+                num_pages=128, pages_per_slot=16, prefill_buckets=(16, 32), device="cuda")
+    return Engine(EngineConfig(**{**base, **kw}), params=params, model_config=cfg)
+
+
+def test_int8_weight_engines_of_two_widths_replay_in_turn(cuda):
+    """Two int8-weight bf16 engines of different widths (so different W8A16
+    shapes and slice counts), alive in one process, their windows replayed
+    in turn with eager W8A16 calls of other shapes between steps, give the
+    greedy streams each gives alone: a captured window holds nothing that a
+    later call replaces."""
+    import dataclasses
+
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    tiny = get_config("debug-tiny")
+    wide = dataclasses.replace(tiny, name="debug-wide", hidden_size=128,
+                               intermediate_size=384, num_heads=4, num_kv_heads=2,
+                               head_dim=32)
+    prompts = [[3, 17, 9], [40, 2] * 9, [7] * 30, [5, 6]]
+    sp = SamplingParams(max_tokens=24, temperature=0.0)
+    alone = []
+    for cfg in (tiny, wide):
+        eng = _tiny_bf16_int8_engine(cfg)
+        reqs = [eng.submit(p, sp) for p in prompts]
+        while eng.has_work():
+            eng.step()
+        alone.append([r.output for r in reqs])
+        del eng
+    engines = [_tiny_bf16_int8_engine(cfg) for cfg in (tiny, wide)]
+    others = [_w8_inputs(cuda, M, K, N, torch.bfloat16)
+              for M, K, N in ((5, 320, 96), (64, 4112, 256), (300, 1024, 512))]
+    before = kernels.LAUNCHES["w8_matmul"]
+    reqs = [[e.submit(p, sp) for p in prompts] for e in engines]
+    i = 0
+    while any(e.has_work() for e in engines):
+        for e in engines:
+            if e.has_work():
+                e.step()
+                tquant.w8_matmul(*others[i % len(others)])
+                i += 1
+    assert [[r.output for r in rs] for rs in reqs] == alone
+    assert all(e.graph_replays > 0 for e in engines)
+    assert kernels.LAUNCHES["w8_matmul"] > before + i
 
 
 def test_w8_matmul_refuses_what_the_kernel_does_not_take(cuda):
