@@ -7,8 +7,10 @@ NVIDIA GPU and check it end to end. Run from the root of a checkout:
 Phases, each fatal on failure:
 
 1. build: compile every CUDA kernel from ``csrc/`` (one nvcc per source,
-   in parallel) and print the build seconds, ptxas's register report and
-   the card's name and power limit; count the HMMA/HGMMA (tensor-core)
+   in parallel, beside g++ of ``native/router/router.cpp`` into
+   ``llms_on_kubernetes_tpu_torch/_build/llkt-router``) and print the
+   build seconds, ptxas's register report and the card's name and power
+   limit; count the HMMA/HGMMA (tensor-core)
    instructions in the SASS of the bf16 flash prefill body and of the two
    bf16 W8A16 bodies, w8_matmul_decode and w8_matmul_prefill (``cuobjdump
    -sass``) and fail if any has none. The W8A16 kernel before its K split
@@ -56,13 +58,30 @@ Phases, each fatal on failure:
    prefill bucket and one of 1,500 tokens (two chunks), then the 900-token
    prompt again with a tail (a prefix-cache hit of 896 tokens, prefilled
    through the chunk path); the kernel launch counters are zeroed just
-   before and read just after. Held: every window-kernel launch count is
+   before and read just after; the bf16-KV server runs behind
+   ``llkt-router`` (``--probe-interval 0.5``) and every completion goes
+   through the router. Held: every window-kernel launch count is
    num_layers x the chunk calls (and >= 96), the re-sent prompt adopts
    >= 896 tokens; over the burst and over the decode-rate streams every
    window ran as a graph replay (``/debug/kernels``: graph_replays >= 1,
    graph_replays x decode_steps == decode_forwards, and every decode-kernel
-   launch was one a replay added, none eager). Then the same again
-   with ``--kv-cache-dtype int8`` (the
+   launch was one a replay added, none eager). Then, still through the
+   router, the request surface (counters zeroed before, read after): stop
+   strings, streamed and not (the text ends before the stop, finish_reason
+   "stop"); logprobs on chat (top 5) and completions (top 3): shapes,
+   chosen logprob <= 0, top lists sorted; logit_bias (+100 on 'Q' gives
+   only 'Q'; -100 bans the reference's most common letter); n 4 with a
+   seed, the same on a repeat; echo + logprobs on the 900-token prompt
+   (wall ms printed; its logprobs held in phase 4 to a plain
+   ``forward_score`` on the same weights, within BF16_REL_TOL x the
+   largest |logprob|); flash prefill launched num_layers times per
+   prefill call plus once a layer for the scoring, every decode window a
+   graph replay; ``/metrics`` linted by ``scripts/metrics_lint.py``,
+   ``/ready`` with its prefix filter. Last, the drain: SIGTERM while a
+   256-token stream runs through the router: /ready 503 and new requests
+   503 at once, the router's ``llm_replica_healthy`` 0 within two probe
+   periods, the stream ends whole, the server exits 0. Then the same again
+   (directly, no router) with ``--kv-cache-dtype int8`` (the
    int8 decode and window kernels, and never the float ones, on every
    layer). Before it, a reference check on a small input: debug-tiny in
    float32 on the card against the same weights on the CPU (prefill logits
@@ -73,6 +92,10 @@ Phases, each fatal on failure:
    int8 weights (the W8A16 kernel's f32 body against the plain version),
    and a debug-tiny fp8 checkpoint from synth_checkpoint served on the card
    and the CPU with the same streams;
+   Then the watchdog: a debug-tiny engine on the card with a 0.5 s
+   ``watchdog_stall_s`` behind a ~3 s ``torch.cuda._sleep`` spin on its
+   stream: every request finishes "stalled" before the spin ends, the
+   engine is wedged and refuses submissions, and the run goes on;
 4. in process: the same random weights behind the default Engine (async,
    graphed windows), first with bf16 KV, then with int8 KV. kv_write
    "fused": requests through it (counters zeroed before, read after: the
@@ -144,7 +167,8 @@ The line before the last is the card's name and power limit as nvidia-smi
 gives them; before it, one ``{"kernels": [...]}`` JSON line, whose
 ``launches`` come from phase 5's servers (kernels 1, 2, 4, 6, 7), phase
 4's fused engines (3, 5) and phase 6's first int8 run at pace 3 (the
-W8A16 kernel), and ``launches_by_path`` from every path. The last line
+W8A16 kernel), and ``launches_by_path`` from every path (phase 3's request
+surface among them). The last line
 is ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device, or outside a checkout, it exits non-zero first.
 
@@ -163,6 +187,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -1346,15 +1371,19 @@ def check_graphed(name: str, counts: dict, counts0: dict) -> int:
     return replays
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def with_server(args: list, log_name: str, drive) -> dict:
     """Start ``python -m llms_on_kubernetes_tpu_torch serve ARGS`` on the
     card and a free port, its output in ``OUT_DIR/log_name``; wait for
-    /health (at most 420 s), then return ``drive(base URL)`` with
+    /health (at most 420 s), then return ``drive(base URL, process)`` with
     ``health_s``, the seconds to /health, added. The server is stopped
     however this ends; a failure prints the tail of its log."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port = free_port()
     base = f"http://127.0.0.1:{port}"
     os.makedirs(OUT_DIR, exist_ok=True)
     log_path = os.path.join(OUT_DIR, log_name)
@@ -1381,7 +1410,7 @@ def with_server(args: list, log_name: str, drive) -> dict:
                 time.sleep(0.5)
             health_s = time.perf_counter() - t_start
             say(f"  /health OK after {health_s:.1f} s")
-            return {**drive(base), "health_s": health_s}
+            return {**drive(base, proc), "health_s": health_s}
         except SystemExit:
             logf.flush()
             with open(log_path) as f:
@@ -1397,13 +1426,24 @@ def with_server(args: list, log_name: str, drive) -> dict:
 
 
 def phase_serve(model: str, num_layers: int, kv_cache_dtype=None) -> dict:
+    """The server with bf16 KV runs behind ``llkt-router`` (every completion
+    through it) and then serves the request surface and the drain; the
+    int8-KV server is driven directly."""
     kv = ["--kv-cache-dtype", kv_cache_dtype] if kv_cache_dtype else []
-    return with_server(["--model", model, "--random-weights", *kv],
-                       f"chip_smoke_server{'_' + kv_cache_dtype if kv_cache_dtype else ''}.log",
-                       lambda base: _drive_server(base, model, num_layers, kv_cache_dtype))
+    log = f"chip_smoke_server{'_' + kv_cache_dtype if kv_cache_dtype else ''}.log"
+    if kv_cache_dtype:
+        return with_server(["--model", model, "--random-weights", *kv], log,
+                           lambda base, _proc: _drive_server(base, model, num_layers,
+                                                             kv_cache_dtype))
+    return with_server(["--model", model, "--random-weights"], log,
+                       lambda base, proc: _drive_replica(base, proc, model, num_layers))
 
 
-def _drive_server(base: str, model: str, num_layers: int, kv_cache_dtype=None) -> dict:
+def _drive_server(base: str, model: str, num_layers: int, kv_cache_dtype=None,
+                  api: str = None) -> dict:
+    """The burst, the cache hit and the decode-rate streams; completions go
+    to ``api`` (the router in front of the server, or the server)."""
+    api = api or base
     status, body = http("GET", base + "/v1/models")
     if status != 200 or json.loads(body)["data"][0]["id"] != model:
         fail(f"/v1/models: {status} {body[:200]!r}")
@@ -1436,9 +1476,9 @@ def _drive_server(base: str, model: str, num_layers: int, kv_cache_dtype=None) -
     def run(name, path, body):
         try:
             if body.get("stream"):
-                results[name] = ("stream",) + stream(base + path, body)
+                results[name] = ("stream",) + stream(api + path, body)
             else:
-                results[name] = ("full",) + http("POST", base + path, body)
+                results[name] = ("full",) + http("POST", api + path, body)
         except Exception as e:  # reported below as this request's failure
             results[name] = ("error", repr(e))
 
@@ -1453,7 +1493,7 @@ def _drive_server(base: str, model: str, num_layers: int, kv_cache_dtype=None) -
     # its first 14 pages (896 tokens), the rest through the chunk path
     resend = "completion greedy 900-token prompt again + 100-character tail"
     counts_burst = json.loads(http("GET", base + "/debug/kernels")[1])
-    results[resend] = ("full",) + http("POST", base + "/v1/completions", {
+    results[resend] = ("full",) + http("POST", api + "/v1/completions", {
         "model": model, "prompt": PROMPT_900 + TAIL_100,
         "max_tokens": max_tokens, "temperature": 0})
     status, body = http("GET", base + "/debug/kernels")
@@ -1529,7 +1569,7 @@ def _drive_server(base: str, model: str, num_layers: int, kv_cache_dtype=None) -
     def one(i):
         body = {"model": model, "prompt": text[i:i + 40], "max_tokens": n_dec,
                 "temperature": 0, "stream": True, "stream_options": {"include_usage": True}}
-        per.append(stream(base + "/v1/completions", body))
+        per.append(stream(api + "/v1/completions", body))
 
     counts_rate = json.loads(http("GET", base + "/debug/kernels")[1])
     ths = [threading.Thread(target=one, args=(i,)) for i in range(8)]
@@ -1553,12 +1593,386 @@ def _drive_server(base: str, model: str, num_layers: int, kv_cache_dtype=None) -
     decode_tps = toks / (max(lasts) - min(firsts))
     card = card_line()
     kv = f", {kv_cache_dtype} KV" if kv_cache_dtype else ""
-    say(f"TTFT (8 concurrent 40-token prompts, median{kv}) ms: "
+    via = ", through llkt-router" if api != base else ""
+    say(f"TTFT (8 concurrent 40-token prompts, median{kv}{via}) ms: "
         f"{1e3 * float(np.median(ttft)):.1f} [{card}]")
-    say(f"decode tokens/s (8 concurrent streams of {n_dec} tokens, {model} bf16{kv}): "
+    say(f"decode tokens/s (8 concurrent streams of {n_dec} tokens, {model} bf16{kv}{via}): "
         f"{decode_tps:.1f} [{card}]")
     return {"launches": launches, "ttft_ms": 1e3 * float(np.median(ttft)),
             "decode_tps": decode_tps}
+
+
+# ---------------------------------------------------------------------------
+# phase 3, the replica contract: behind llkt-router, the request surface,
+# /metrics, /ready and the drain
+# ---------------------------------------------------------------------------
+
+ROUTER_BIN = os.path.join("llms_on_kubernetes_tpu_torch", "_build", "llkt-router")
+PROBE_S = 0.5           # the router's /ready probe period
+# the byte tokenizer decodes ids < 256 only, which a random-weights
+# llama-3-8b (128,256 ids) almost never samples: requests whose text is
+# held carry +100 on these 29 letters (the map's limit is 32 entries)
+BYTE_BIAS = {str(ord(c)): 100 for c in "abcdefghijklmnopqrstuvwxyz .,"}
+
+
+def start_router_build():
+    """g++ native/router/router.cpp into the port's build directory, in
+    the background (``make -C native/router`` writes the path the native
+    router's tests use)."""
+    if shutil.which("g++") is None:
+        fail("no g++ to build native/router/router.cpp")
+    os.makedirs(os.path.dirname(ROUTER_BIN), exist_ok=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log = open(os.path.join(OUT_DIR, "router_build.log"), "w")
+    return subprocess.Popen(["g++", "-O2", "-std=c++17", "-pthread", "-o", ROUTER_BIN,
+                             os.path.join("native", "router", "router.cpp")],
+                            stdout=log, stderr=subprocess.STDOUT)
+
+
+def finish_router_build(proc) -> None:
+    if proc.wait(timeout=900) != 0:
+        with open(os.path.join(OUT_DIR, "router_build.log")) as f:
+            say(f.read()[-3000:])
+        fail(f"g++ of native/router/router.cpp exited with {proc.returncode}")
+
+
+def replica_healthy(router: str, replica: str):
+    """The router's llm_replica_healthy for ``replica``, or None (no such
+    series yet, or the router not listening yet)."""
+    try:
+        status, raw = http("GET", router + "/metrics", timeout=10)
+    except OSError:
+        return None
+    if status != 200:
+        fail(f"router /metrics: HTTP {status}")
+    for line in raw.decode().splitlines():
+        if line.startswith("llm_replica_healthy{") and f'replica="{replica}"' in line:
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def _drive_replica(base: str, proc, model: str, num_layers: int) -> dict:
+    """Start ``llkt-router`` in front of the server, drive phase 3's
+    requests through it, then the request surface, then the drain (which
+    ends the server)."""
+    port = free_port()
+    router = f"http://127.0.0.1:{port}"
+    cmd = [ROUTER_BIN, "--models", f"{model}={base}", "--port", str(port),
+           "--probe-interval", str(PROBE_S), "--quiet"]
+    say(f"router: {' '.join(cmd)}")
+    with open(os.path.join(OUT_DIR, "chip_smoke_router.log"), "w") as logf:
+        rproc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT,
+                                 start_new_session=True)
+        try:
+            t0 = time.perf_counter()
+            while replica_healthy(router, base) != 1.0:
+                if rproc.poll() is not None:
+                    fail(f"llkt-router exited with {rproc.returncode}")
+                if time.perf_counter() - t0 > 30:
+                    fail("llkt-router did not admit the replica within 30 s")
+                time.sleep(0.1)
+            out = _drive_server(base, model, num_layers, api=router)
+            out["surface"] = _drive_surface(base, router, model, num_layers)
+            out["drain"] = _drive_drain(base, router, proc, model)
+            return out
+        finally:
+            rproc.terminate()
+            try:
+                rproc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                rproc.kill()
+                rproc.wait(timeout=30)
+
+
+def _post_ok(url: str, body: dict) -> dict:
+    status, raw = http("POST", url, body)
+    if status != 200:
+        fail(f"POST {url} {json.dumps(body)[:200]}: HTTP {status} {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def _streamed_text(name: str, status: int, events) -> tuple[str, str, dict]:
+    """(text, finish reason, usage or None) of a streamed completion."""
+    chunks = check_stream(name, status, events, 0)
+    text = "".join(c["choices"][0]["text"] for c in chunks if c["choices"])
+    reason = [c for c in chunks if c["choices"] and
+              c["choices"][0]["finish_reason"]][0]["choices"][0]["finish_reason"]
+    return text, reason, chunks[-1].get("usage")
+
+
+def _drive_surface(base: str, router: str, model: str, num_layers: int) -> dict:
+    """Stop strings, logprobs, logit_bias, n and echo through the router,
+    /metrics linted, /ready with its filter. The launch counters are zeroed
+    just before and read just after: flash prefill ran num_layers times a
+    prefill call plus once a layer for the echo's scoring, and every decode
+    window of these requests was a graph replay."""
+    comp, chat = router + "/v1/completions", router + "/v1/chat/completions"
+    prompt = SERVE_TEXT[:40]
+    card = card_line()
+    http("POST", base + "/debug/kernels/reset", {})
+    counts0 = json.loads(http("GET", base + "/debug/kernels")[1])
+    greedy = {"model": model, "prompt": prompt, "temperature": 0}
+
+    # the reference text: greedy over the 29 biased letters
+    ref = _post_ok(comp, {**greedy, "max_tokens": 32, "logit_bias": BYTE_BIAS})
+    text = ref["choices"][0]["text"]
+    if len(text) != 32 or ref["usage"]["completion_tokens"] != 32:
+        fail(f"biased reference: {len(text)} characters {text!r}, usage {ref['usage']}")
+    stop = text[10:12]
+    cut = text.find(stop)
+    body = {**greedy, "max_tokens": 32, "logit_bias": BYTE_BIAS, "stop": [stop]}
+    ch = _post_ok(comp, body)["choices"][0]
+    if ch["text"] != text[:cut] or ch["finish_reason"] != "stop":
+        fail(f"stop {stop!r}: {ch['text']!r} / {ch['finish_reason']}, expected "
+             f"{text[:cut]!r} / stop")
+    status, events, _t0 = stream(comp, {**body, "stop": stop, "stream": True})
+    s_text, s_reason, _ = _streamed_text("stop streamed", status, events)
+    if s_text != text[:cut] or s_reason != "stop":
+        fail(f"streamed stop {stop!r}: {s_text!r} / {s_reason}")
+    say(f"  stop {stop!r}: {len(text[:cut])} of 32 characters, finish_reason stop "
+        f"(streamed and not)")
+
+    # logprobs: chat top 5, completions top 3
+    d = _post_ok(chat, {"model": model, "messages": [{"role": "user", "content": prompt}],
+                        "max_tokens": 8, "temperature": 0, "logprobs": True,
+                        "top_logprobs": 5})
+    content = d["choices"][0]["logprobs"]["content"]
+    if len(content) != d["usage"]["completion_tokens"]:
+        fail(f"chat logprobs: {len(content)} entries for {d['usage']} tokens")
+    for e in content:
+        tops = [t["logprob"] for t in e["top_logprobs"]]
+        if (set(e) != {"token", "logprob", "bytes", "top_logprobs"} or e["logprob"] > 0
+                or len(tops) != 5 or tops != sorted(tops, reverse=True)
+                or tops[0] != e["logprob"]):
+            fail(f"chat logprobs entry {e}")
+    # the completions map is keyed by token text, so the letters' bias keeps
+    # its three keys distinct (every id past 255 decodes to "")
+    d = _post_ok(comp, {**greedy, "max_tokens": 8, "logprobs": 3, "logit_bias": BYTE_BIAS})
+    lp = d["choices"][0]["logprobs"]
+    n = d["usage"]["completion_tokens"]
+    if (set(lp) != {"tokens", "token_logprobs", "top_logprobs", "text_offset"}
+            or not len(lp["tokens"]) == len(lp["token_logprobs"]) == len(lp["top_logprobs"])
+            == n == 8 or any(v > 0 for v in lp["token_logprobs"])
+            or any(list(t.values()) != sorted(t.values(), reverse=True) or len(t) != 3
+                   or max(t.values()) != v for t, v in zip(lp["top_logprobs"],
+                                                          lp["token_logprobs"]))):
+        fail(f"completion logprobs: {lp}")
+    say(f"  logprobs: chat {len(content)} entries of top 5, completions {n} of top 3; "
+        f"every chosen logprob <= 0 and the top of its sorted list")
+
+    # logit_bias: +100 forces, -100 bans the reference's most common letter
+    forced = _post_ok(comp, {**greedy, "max_tokens": 16, "logit_bias": {"81": 100}})
+    if forced["choices"][0]["text"] != "Q" * 16:
+        fail(f"logit_bias {{Q: 100}}: {forced['choices'][0]['text']!r}")
+    common = max(set(text), key=text.count)
+    ban = {**BYTE_BIAS, str(ord(common)): -100}
+    banned = _post_ok(comp, {**greedy, "max_tokens": 32, "logit_bias": ban})
+    b_text = banned["choices"][0]["text"]
+    if common in b_text or len(b_text) != 32:
+        fail(f"logit_bias {{{common!r}: -100}}: {b_text!r}")
+    say(f"  logit_bias: +100 on 'Q' gave 16 x 'Q'; -100 on {common!r} (x{text.count(common)} "
+        f"in the reference) never sampled")
+
+    # n = 4 with a seed, twice
+    body = {**greedy, "max_tokens": 16, "temperature": 0.8, "seed": 99, "n": 4,
+            "logit_bias": BYTE_BIAS}
+    a, b = _post_ok(comp, body), _post_ok(comp, body)
+    texts = [c["text"] for c in a["choices"]]
+    if ([c["index"] for c in a["choices"]] != [0, 1, 2, 3]
+            or texts != [c["text"] for c in b["choices"]]
+            or a["usage"]["completion_tokens"] != 64 or len(set(texts)) < 2):
+        fail(f"n 4: {a['choices']} / {b['choices']}")
+    say(f"  n 4 (seed 99, t 0.8): four choices, {len(set(texts))} distinct, the same on a "
+        f"repeat")
+
+    # echo with logprobs: the 900-token prompt scored on the engine thread
+    t0 = time.perf_counter()
+    e = _post_ok(comp, {"model": model, "prompt": PROMPT_900, "max_tokens": 1,
+                        "temperature": 0, "echo": True, "logprobs": 1})
+    echo_ms = 1e3 * (time.perf_counter() - t0)
+    ch = e["choices"][0]
+    elp = ch["logprobs"]["token_logprobs"]
+    if (not ch["text"].startswith(PROMPT_900) or len(elp) != len(PROMPT_900) + 1
+            or elp[0] is not None
+            or any(v is None or v > 0 for v in elp[1:])):
+        fail(f"echo: {len(elp)} entries, first {elp[:3]}")
+    say(f"echo + logprobs (900-token prompt, max_tokens 1) wall ms: {echo_ms:.1f} [{card}]")
+
+    counts = json.loads(http("GET", base + "/debug/kernels")[1])
+    launches = counts["launches"]
+    prefills = counts["prefill_calls"] - counts0["prefill_calls"]
+    if launches.get("flash_prefill", 0) != num_layers * (prefills + 1):
+        fail(f"flash_prefill launched {launches.get('flash_prefill', 0)} times: expected "
+             f"num_layers x ({prefills} prefill calls + 1 scoring)")
+    say(f"  request surface: flash_prefill launched {launches['flash_prefill']} times = "
+        f"{num_layers} layers x ({prefills} prefill calls + 1 scoring forward)")
+    check_graphed("request surface", counts, counts0)
+
+    # /metrics, linted as a scrape; /ready with its prefix filter
+    status, raw = http("GET", base + "/metrics")
+    path = os.path.join(OUT_DIR, "metrics_llama.txt")
+    with open(path, "wb") as f:
+        f.write(raw)
+    lint = subprocess.run([sys.executable, os.path.join("scripts", "metrics_lint.py"), path],
+                          capture_output=True, text=True, timeout=60)
+    if status != 200 or lint.returncode != 0:
+        fail(f"/metrics: HTTP {status}; metrics_lint: {lint.stdout[-2000:]}")
+    text_m = raw.decode()
+    for series in ("llm_requests_total", "llm_ttft_seconds_bucket", "llm_queue_depth",
+                   "llm_kv_pages_used", "llm_engine_state 1", "llm_decode_step_seconds_count"):
+        if series not in text_m:
+            fail(f"/metrics lacks {series}")
+    status, raw = http("GET", base + "/ready")
+    doc = json.loads(raw) if status == 200 else {}
+    pf = doc.get("prefix_filter") or {}
+    if status != 200 or doc.get("state") != "serving" or pf.get("bits") != 8192 \
+            or not pf.get("count"):
+        fail(f"/ready: HTTP {status} {raw[:300]!r}")
+    say(f"  /metrics: {len(text_m.splitlines())} lines, {lint.stdout.strip()}; /ready: "
+        f"serving, prefix filter of {pf['count']} digests")
+    # entries 1..899 score the prompt; the last is the generated token's
+    return {"launches": launches, "echo_ms": echo_ms,
+            "echo_logprobs": elp[1:len(PROMPT_900)]}
+
+
+def _drive_drain(base: str, router: str, proc, model: str) -> dict:
+    """SIGTERM the server while a stream runs through the router: /ready
+    answers 503 at once, the router's llm_replica_healthy turns 0 within two
+    probe periods, the stream ends whole and the server exits 0."""
+    n = 256
+    req = urllib.request.Request(
+        router + "/v1/completions", method="POST", headers={"Content-Type": "application/json"},
+        data=json.dumps({"model": model, "prompt": SERVE_TEXT[:40], "max_tokens": n,
+                         "temperature": 0, "stream": True, "logit_bias": BYTE_BIAS,
+                         "stream_options": {"include_usage": True}}).encode())
+    resp = urllib.request.urlopen(req, timeout=600)
+    first = resp.readline()
+    if not first.startswith(b"data: "):
+        fail(f"drain stream: first line {first[:200]!r}")
+    proc.send_signal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    status, raw = http("GET", base + "/ready", timeout=10)
+    if status != 503 or json.loads(raw).get("state") != "draining":
+        fail(f"/ready while draining: HTTP {status} {raw[:200]!r}")
+    status, raw = http("POST", base + "/v1/completions", {"model": model, "prompt": "x"})
+    if status != 503:
+        fail(f"a new request while draining: HTTP {status} {raw[:200]!r}")
+    while replica_healthy(router, base) != 0.0:
+        if time.perf_counter() - t0 > 2 * PROBE_S:
+            fail(f"the router still routes to the draining replica after 2 probe periods")
+        time.sleep(0.02)
+    eject_s = time.perf_counter() - t0
+    events, t_read = [], time.perf_counter()
+    for raw_line in [first] + list(resp):
+        line = raw_line.decode().strip()
+        if line.startswith("data: "):
+            events.append((t_read, line[6:]))
+    text, reason, usage = _streamed_text("drain stream", 200, events)
+    if reason != "length" or (usage or {}).get("completion_tokens") != n or len(text) != n:
+        fail(f"the stream in flight at SIGTERM ended with {reason}, {usage}, "
+             f"{len(text)} characters")
+    try:
+        rc = proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        fail("the drained server did not exit within 120 s")
+    exit_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"the drained server exited with {rc}")
+    card = card_line()
+    say(f"drain: SIGTERM -> /ready 503 at once; router ejection s: {eject_s:.3f} (probe "
+        f"{PROBE_S} s); the stream in flight ended whole ({n} tokens); exit 0 after "
+        f"{exit_s:.2f} s [{card}]")
+    return {"eject_s": eject_s, "exit_s": exit_s}
+
+
+def check_echo_reference(torch, params, echo_logprobs) -> None:
+    """The server's echo prompt logprobs (forward_score, flash prefill)
+    against a plain forward_score (plain prefill attention) on the same
+    weights on the card: |diff| <= BF16_REL_TOL x the largest |logprob|
+    (the bf16 row tolerance, the whole prompt one row)."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llms_on_kubernetes_tpu_torch.models import decoder
+    from llms_on_kubernetes_tpu_torch.ops.flash_attention import prefill_attention_plain
+
+    ids = ByteTokenizer().encode(PROMPT_900)
+    tokens = torch.zeros((1, 1024), dtype=torch.int32)
+    tokens[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+    real = decoder.dispatch_prefill_attention
+    decoder.dispatch_prefill_attention = prefill_attention_plain
+    try:
+        nxt, _ids, _lps = decoder.forward_score(
+            params, get_config(MODEL), tokens.cuda(),
+            torch.tensor([len(ids)], dtype=torch.int32, device="cuda"), top_k=8)
+    finally:
+        decoder.dispatch_prefill_attention = real
+    ref = nxt[0, :len(ids) - 1].float().cpu().numpy()
+    got = np.asarray(echo_logprobs, np.float32)
+    err = float(np.abs(got - ref).max())
+    tol = BF16_REL_TOL * float(np.abs(ref).max())
+    say(f"echo logprobs against a plain forward_score: max |diff| {err:.4f}, mean "
+        f"{float(np.abs(got - ref).mean()):.4f} (tolerance {tol:.4f}) over {len(ref)} tokens")
+    if err > tol:
+        fail(f"echo logprobs differ from the plain forward_score by {err} > {tol}")
+
+
+# ---------------------------------------------------------------------------
+# the stall watchdog on the card
+# ---------------------------------------------------------------------------
+
+def phase_watchdog(torch) -> dict:
+    """A small engine on the card (debug-tiny, float32) with a 0.5 s
+    watchdog and a step estimate of 1 ms, behind a ``torch.cuda._sleep``
+    spin of ~3 s on its stream: every request must finish "stalled" well
+    before the spin ends, the engine must be wedged and refuse, and the
+    process goes on once the spin is over."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import (
+        Engine, EngineConfig, EngineStallError, SamplingParams,
+    )
+
+    if not hasattr(torch.cuda, "_sleep"):
+        fail(f"torch.cuda._sleep is missing from torch {torch.__version__}: the watchdog "
+             f"check has no way to stall the card")
+    # cycles a millisecond, from a timed 50 M-cycle spin
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(50_000_000)
+    e.record()
+    torch.cuda.synchronize()
+    per_ms = 50_000_000 / s.elapsed_time(e)
+    eng = Engine(EngineConfig(model="debug-tiny", dtype="float32", device="cuda",
+                              watchdog_stall_s=0.5))
+    eng._est_step = 1e-3
+    budget = eng._stall_budget()
+    reqs = [eng.submit(p, SamplingParams(max_tokens=32, temperature=0.0))
+            for p in ([1, 2, 3], [4, 5, 6, 7] * 5, list(range(10, 90)))]
+    spin_ms = 3000.0
+    done = torch.cuda.Event()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(int(spin_ms * per_ms))
+    done.record()
+    while not all(r.finished for r in reqs):
+        if time.perf_counter() - t0 > 60:
+            fail("watchdog: the requests did not finish within 60 s")
+        eng.step()
+    shed_s = time.perf_counter() - t0
+    reasons = [r.finish_reason for r in reqs]
+    if reasons != ["stalled"] * 3 or not eng.wedged:
+        fail(f"watchdog: reasons {reasons}, wedged {eng.wedged}")
+    if done.query():
+        fail(f"watchdog: the spin ended before the shed ({shed_s:.2f} s): nothing stalled")
+    try:
+        eng.submit([1, 2], SamplingParams(max_tokens=2))
+        fail("watchdog: a wedged engine took a submission")
+    except EngineStallError:
+        pass
+    torch.cuda.synchronize()
+    over_s = time.perf_counter() - t0
+    del eng
+    say(f"watchdog: 3 requests finished 'stalled' {shed_s:.2f} s into a {spin_ms / 1e3:.1f} s "
+        f"spin (budget {budget:.2f} s); wedged, submit refused; the spin ended at "
+        f"{over_s:.2f} s and the process goes on [{card_line()}]")
+    return {"shed_s": shed_s, "budget_s": budget}
 
 
 # ---------------------------------------------------------------------------
@@ -1840,8 +2254,10 @@ def phase_chunk_vs_one_shot(torch, model: str, params) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_in_process(torch, model: str) -> dict:
-    """Phase 4 with bf16 and with int8 KV, on one set of random weights."""
+def phase_in_process(torch, model: str, echo_logprobs) -> dict:
+    """Phase 4 with bf16 and with int8 KV, on one set of random weights (the
+    phase-3 server's); first the server's echo logprobs against a plain
+    forward_score on them."""
     from llms_on_kubernetes_tpu_torch.configs import get_config
     from llms_on_kubernetes_tpu_torch.models.decoder import init_params
 
@@ -1849,6 +2265,7 @@ def phase_in_process(torch, model: str) -> dict:
     params = init_params(get_config(model), seed=0, dtype="bfloat16", device="cuda")
     torch.cuda.synchronize()
     say(f"fused: {model} random weights (seed 0) in {time.perf_counter() - t0:.1f} s")
+    check_echo_reference(torch, params, echo_logprobs)
     out = {kv: phase_fused(torch, model, params, kv) for kv in (None, "int8")}
     phase_chunk_vs_one_shot(torch, model, params)
     del params
@@ -2255,7 +2672,7 @@ def serve_checkpoint(cfg, kv_cache_dtype=None) -> dict:
     kv = ["--kv-cache-dtype", kv_cache_dtype] if kv_cache_dtype else []
     log_name = f"chip_smoke_checkpoint_server{'_' + kv_cache_dtype if kv_cache_dtype else ''}.log"
     res = with_server(["--model", CKPT_DIR, "--pages-per-slot", str(CKPT_PPS), *kv], log_name,
-                      lambda base: _drive_checkpoint_server(base, cfg, kv_cache_dtype))
+                      lambda base, _proc: _drive_checkpoint_server(base, cfg, kv_cache_dtype))
     with open(os.path.join(OUT_DIR, log_name)) as f:
         loaded = [line for line in f if "weights from" in line]
     res["load_s"] = loaded[-1].rsplit(" in ", 1)[-1].strip() if loaded else "not printed"
@@ -2591,6 +3008,7 @@ def main(argv) -> int:
     say(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
+    router_build = start_router_build()
     variant = start_variant_build()
     kernels.build()
     unsplit = finish_variant_build(variant)
@@ -2637,11 +3055,13 @@ def main(argv) -> int:
     for cfg in wide_debug_configs():
         phase_reference(torch, cfg, page=24)
     num_layers = get_config(MODEL).num_layers
+    finish_router_build(router_build)
     served = phase_serve(MODEL, num_layers)
     served_int8 = phase_serve(MODEL, num_layers, kv_cache_dtype="int8")
     say(f"phase 3 (reference, serve): {time.perf_counter() - t0:.1f} s")
+    phase_watchdog(torch)
     t0 = time.perf_counter()
-    fused = phase_in_process(torch, MODEL)
+    fused = phase_in_process(torch, MODEL, echo_logprobs=served["surface"]["echo_logprobs"])
     say(f"phase 4 (fused): {time.perf_counter() - t0:.1f} s")
     ckpt = phase_checkpoint(torch)
     headline = phase_headline(torch)
@@ -2652,6 +3072,7 @@ def main(argv) -> int:
     ckpt_bf16, ckpt_int8 = (f"{CKPT_MODEL} checkpoint serve {kv} KV" for kv in ("bf16", "int8"))
     fused_bf16, fused_int8 = (f"{MODEL} kv_write fused {kv} KV" for kv in ("bf16", "int8"))
     paths = {f"{MODEL} serve bf16 KV": served["launches"],
+             f"{MODEL} serve request surface": served["surface"]["launches"],
              f"{MODEL} serve int8 KV": served_int8["launches"],
              fused_bf16: fused[None]["launches"], fused_int8: fused["int8"]["launches"],
              ckpt_bf16: ckpt[None]["launches"], ckpt_int8: ckpt["int8"]["launches"],

@@ -2,7 +2,7 @@
 
     python -m llms_on_kubernetes_tpu_torch serve --model MODEL [--random-weights] \\
         [--device cuda|cpu] [--port 8080] [--kv-cache-dtype int8] [--kv-write dus|fused] \\
-        [--quantization int8|fp8|awq] [--no-prefix-caching]
+        [--quantization int8|fp8|awq] [--no-prefix-caching] [--watchdog-stall-s S]
 
 ``MODEL`` is a registry name (``configs.py``), a local checkpoint directory
 (``config.json`` and ``*.safetensors``: the model config comes from the
@@ -12,6 +12,10 @@ cache. Nothing is downloaded. Missing weights are a startup failure: the
 process exits 1 and names ``--random-weights``, which serves seeded random
 weights at the model's full width instead. The engine defaults are
 ``EngineConfig``'s.
+
+SIGTERM drains the server: ``/ready`` answers 503 (routers eject the
+replica), new requests get 503, and the process exits 0 once the requests
+in flight are done, at most 55 s later (``EngineLoop.drain_timeout_s``).
 """
 
 from __future__ import annotations
@@ -58,6 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "format (auto-detected otherwise)")
     p.add_argument("--no-prefix-caching", dest="prefix_caching", action="store_false",
                    help="disable hash-chained prefix reuse (cached prompt pages)")
+    p.add_argument("--watchdog-stall-s", type=float, default=d.watchdog_stall_s,
+                   help="seconds a device step may go without completing before the "
+                        "engine sheds all work as 'stalled' and /health turns 503 "
+                        "(the budget is max(this, 50 x the step estimate); <= 0 "
+                        "disables; default: env LLMK_WATCHDOG_S, else 120)")
     return ap
 
 
@@ -83,7 +92,7 @@ def main(argv=None) -> int:
             pages_per_slot=args.pages_per_slot, prefill_buckets=args.prefill_buckets,
             decode_steps=args.decode_steps, kv_write=args.kv_write,
             kv_cache_dtype=args.kv_cache_dtype, quantization=args.quantization,
-            prefix_caching=args.prefix_caching,
+            prefix_caching=args.prefix_caching, watchdog_stall_s=args.watchdog_stall_s,
             seed=args.seed, device=args.device)
         serve(args.model, host=args.host, port=args.port, device=args.device,
               random_weights=args.random_weights, served_model_name=args.served_model_name,

@@ -60,9 +60,22 @@ A "step" is one dispatch, a whole K-step window, as in JAX.
 ``kv_cache_dtype="int8"`` (or env ``LLMK_KV_DTYPE=int8``) keeps the KV
 pool in int8 with per-token scales, as the JAX engine does.
 
-Not ported yet: the stall watchdog, priority classes (QoS), the host KV
-tier and handoff, the ledger, grammar, LoRA, multimodal salts and
-speculation.
+``SamplingParams.logit_bias`` rides every prefill, chunk and decode row as
+``LOGIT_BIAS_SLOTS`` id and value columns (``engine/graphs.py``), so the
+captured window applies it on every replay, padding for rows without one.
+
+The stall watchdog (``watchdog_stall_s``, as in the JAX engine): a
+blocking harvest wait gives up after ``_stall_budget()`` seconds; the
+engine then finishes every request with reason "stalled", marks itself
+``wedged`` and refuses submissions. A step the card never completes cannot
+be cancelled: the engine only stops waiting for it (a restart recovers).
+
+``score_prompt`` scores a prompt cache-free (``forward_score``): the
+``echo`` + ``logprobs`` surface. ``prefix_filter_digests`` lists the
+prefix cache's page digests for the server's ``/ready`` advertisement.
+
+Not ported yet: priority classes (QoS), the host KV tier and handoff,
+deadlines, the ledger, grammar, LoRA, multimodal salts and speculation.
 """
 
 from __future__ import annotations
@@ -71,6 +84,7 @@ import collections
 import dataclasses
 import os
 import queue
+import sys
 import threading
 import time
 import weakref
@@ -87,15 +101,15 @@ from llms_on_kubernetes_tpu_torch.engine.cache import (
     CacheConfig, PageAllocator, init_pages,
 )
 from llms_on_kubernetes_tpu_torch.engine.graphs import (
-    BUD, DEC_COLS, FLOATS, LEN, PRE_ROW, SEED, SRC, SRC_HOST, SRC_INFLIGHT, SRC_PREFILL,
-    STOP, STOP_SLOTS, TOP_K, VAL, DecodeWindow, idle_rows, pack_results, unpack_results,
-    upload,
+    BIAS, BUD, DEC_COLS, FLOATS, LEN, LOGIT_BIAS_SLOTS, PRE_ROW, SEED, SRC, SRC_HOST,
+    SRC_INFLIGHT, SRC_PREFILL, STOP, STOP_SLOTS, TOP_K, VAL, DecodeWindow, idle_rows,
+    pack_bias, pack_results, unpack_bias, unpack_results, upload,
 )
 from llms_on_kubernetes_tpu_torch.engine.sampling import (
-    MAX_CANDIDATES, gumbel_noise, sample,
+    LOGPROB_TOPK, MAX_CANDIDATES, gumbel_noise, sample,
 )
 from llms_on_kubernetes_tpu_torch.models.decoder import (
-    forward_chunk, forward_prefill, init_params,
+    forward_chunk, forward_prefill, forward_score, init_params,
 )
 from llms_on_kubernetes_tpu_torch.ops.paged_attention import DecodeWorkspace
 from llms_on_kubernetes_tpu_torch.ops.quant import SUPPORTED_QUANTIZATIONS, quantize_params
@@ -108,8 +122,17 @@ KV_WRITE_STRATEGIES = ("dus", "fused")
 # cached before it), top_k, seed, slot, prompt length (the output-token
 # counting boundary), reset (the request's first call: its penalty counts
 # restart), four float32 columns viewed as int32 (temperature, top_p,
-# presence, frequency), then the page table and the tokens
-_PRE_COLS = 11
+# presence, frequency), the logit_bias ids and values, then the page table
+# and the tokens
+_BIAS_PRE = 11
+_PRE_COLS = _BIAS_PRE + 2 * LOGIT_BIAS_SLOTS
+
+
+class EngineStallError(RuntimeError):
+    """The device completed no step within the watchdog budget. Raised on
+    the engine thread; ``Engine.step`` turns it into a shed: every request
+    finishes with reason "stalled", the engine is ``wedged`` and submit()
+    refuses (HTTP 503 upstream)."""
 
 
 class QueueFullError(RuntimeError):
@@ -127,6 +150,12 @@ class SamplingParams:
     seed: Optional[int] = None
     presence_penalty: float = 0.0
     frequency_penalty: float = 0.0
+    # top alternatives the client asked to see per token (response shaping
+    # only: the engine always records LOGPROB_TOPK)
+    logprobs: int = 0
+    # OpenAI logit_bias: ((token id, bias), ...) added to the raw logits on
+    # the device at every sample; at most LOGIT_BIAS_SLOTS entries
+    logit_bias: tuple = ()
 
 
 @dataclasses.dataclass
@@ -168,11 +197,18 @@ class EngineConfig:
     seed: int = 0
     # "cuda" (the default) raises without a GPU; pass "cpu" for the CPU
     device: str = "cuda"
+    # watchdog: a blocking harvest wait that sees no completion within
+    # max(watchdog_stall_s, 50 x the step estimate) sheds all work as
+    # "stalled" and wedges the engine. None => env LLMK_WATCHDOG_S (default
+    # 120); <= 0 disables
+    watchdog_stall_s: Optional[float] = None
 
     def __post_init__(self):
         if self.kv_write not in KV_WRITE_STRATEGIES:
             raise ValueError(f"kv_write must be one of {KV_WRITE_STRATEGIES}, "
                              f"got {self.kv_write!r}")
+        if self.watchdog_stall_s is None:
+            self.watchdog_stall_s = float(os.environ.get("LLMK_WATCHDOG_S", "120"))
         if self.kv_cache_dtype is None:
             self.kv_cache_dtype = os.environ.get("LLMK_KV_DTYPE") or None
         if self.kv_cache_dtype in ("off", "none", ""):
@@ -215,6 +251,8 @@ class Request:
     abort_reason: Optional[str] = None  # set by any thread; reaped by step()
     # monotonic submission time: the youngest request is preempted first
     submitted_at: float = 0.0
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None     # terminal event recorded (_finish)
     events: "queue.SimpleQueue[tuple[list[int], bool, Optional[str]]]" = dataclasses.field(
         default_factory=queue.SimpleQueue)
     # optional push delivery, called on the engine thread with each payload
@@ -330,21 +368,36 @@ class _Harvester(threading.Thread):
         with self._cv:
             return self._done[key]
 
-    def wait_done(self, seq: int, wake: Optional[threading.Event] = None) -> None:
+    def wait_done(self, seq: int, wake: Optional[threading.Event] = None,
+                  timeout_s: Optional[float] = None) -> None:
         """Block until window ``seq`` is done, or ``wake`` is set (a new
-        submission wants admission now: submit() sets it and pokes)."""
+        submission wants admission now: submit() sets it and pokes). With
+        ``timeout_s`` (the watchdog budget) raise EngineStallError when the
+        window is still not done at the deadline."""
+        self._wait(lambda: self._done_upto >= seq, wake, timeout_s,
+                   f"decode window {seq} produced no completion")
+
+    def wait_key(self, key: int, timeout_s: Optional[float] = None) -> None:
+        self._wait(lambda: key in self._done, None, timeout_s,
+                   f"prefill result {-1 - key} did not arrive")
+
+    def _wait(self, ready, wake, timeout_s, what: str) -> None:
+        """Sleep on the condition (a device wait holds no core) until
+        ``ready()``, ``wake`` is set or the deadline passes."""
+        deadline = None if timeout_s is None else time.monotonic() + timeout_s
         with self._cv:
-            while self._done_upto < seq:
+            while not ready():
                 self._check_error()
                 if wake is not None and wake.is_set():
                     return
-                self._cv.wait()
-
-    def wait_key(self, key: int) -> None:
-        with self._cv:
-            while key not in self._done:
-                self._check_error()
-                self._cv.wait()
+                if deadline is None:
+                    self._cv.wait()
+                    continue
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise EngineStallError(f"{what} within the {timeout_s:.1f} s "
+                                           f"watchdog budget")
+                self._cv.wait(timeout=min(remaining, 1.0))
 
     def poke(self) -> None:
         """Wake any wait_done(wake=...) waiter (called from submit())."""
@@ -463,6 +516,10 @@ class Engine:
         self.chunk_calls = 0         # forward_chunk calls (one per chunk)
         self.decode_forwards = 0     # forward_decode calls (K per window)
         self.preemptions = 0         # KV-pressure preemptions
+        # set by _shed_wedged() when a device step outlasted the watchdog
+        # budget: submit() refuses from then on and the server turns /health
+        # and /ready to 503; a process restart is the only recovery
+        self.wedged = False
         # the window, captured on a card before the harvester starts
         self._window = DecodeWindow(
             self.params, cfg, self.k_pages, self.v_pages, self.token_counts, self.workspace,
@@ -503,6 +560,9 @@ class Engine:
 
     def submit(self, prompt: list[int], params: Optional[SamplingParams] = None,
                request_id: Optional[str] = None, on_event=None) -> Request:
+        if self.wedged:
+            raise EngineStallError("engine wedged: a device step stalled past the watchdog "
+                                   "budget; restart the server to recover")
         params = params or SamplingParams()
         max_len = self.config.max_model_len
         if len(prompt) == 0:
@@ -514,9 +574,21 @@ class Engine:
             val = getattr(params, name)
             if not -2.0 <= val <= 2.0:
                 raise ValueError(f"{name} must be in [-2, 2], got {val}")
+        if len(params.logit_bias) > LOGIT_BIAS_SLOTS:
+            raise ValueError(f"logit_bias supports at most {LOGIT_BIAS_SLOTS} entries, "
+                             f"got {len(params.logit_bias)}")
         if len(params.stop_token_ids) > STOP_SLOTS:
             raise ValueError(f"stop_token_ids supports at most {STOP_SLOTS} entries, "
                              f"got {len(params.stop_token_ids)}")
+        seen_bias: set[int] = set()
+        for tid, _value in params.logit_bias:
+            if not 0 <= tid < self.model_config.vocab_size:
+                raise ValueError(f"logit_bias token id {tid} outside the vocabulary "
+                                 f"(size {self.model_config.vocab_size})")
+            if tid in seen_bias:
+                # the scatter adds duplicates up, unlike a map
+                raise ValueError(f"logit_bias has duplicate token id {tid}")
+            seen_bias.add(tid)
         if params.max_tokens < 1:
             raise ValueError(f"max_tokens must be >= 1, got {params.max_tokens}")
         if len(prompt) + 1 > max_len:
@@ -560,10 +632,18 @@ class Engine:
 
     def step(self) -> list[StepEvent]:
         events = self._reap_aborted()
+        if self.wedged:
+            # nothing left to drive; reap what slipped in before the wedge
+            self._deliver(events)
+            return events
         if self._async:
-            admitted = self._admit_async(events)
-            status = self._launch_decode_multi(admitted, events)
-            events += self._harvest(drain=status == "idle")
+            try:
+                admitted = self._admit_async(events)
+                status = self._launch_decode_multi(admitted, events)
+                events += self._harvest(drain=status == "idle")
+            except EngineStallError as e:
+                events += self._shed_wedged(str(e))
+                status = "idle"
             self._deliver(events)
             if status == "paced" and not events and not self.waiting:
                 # paced, or every row's budget is in flight: nothing to do
@@ -585,6 +665,11 @@ class Engine:
         ``reason`` (the serving loop's answer to a failed step: clients get
         a terminal event instead of a hang). Windows still on the device
         complete and are discarded unread."""
+        events = self._finish_all(reason)
+        self._deliver(events)
+        return events
+
+    def _finish_all(self, reason: str) -> list[StepEvent]:
         with self._lock:
             doomed = list(self.waiting)
             self.waiting.clear()
@@ -593,8 +678,60 @@ class Engine:
         events = [self._finish(r, reason) for r in doomed if not r.finished]
         self._inflight.clear()
         self._pending_first = []
-        self._deliver(events)
         return events
+
+    def _stall_budget(self) -> Optional[float]:
+        """The longest a blocking harvest wait may go without a completion:
+        max(watchdog_stall_s, 50 x the step estimate), so a slow but live
+        card is not shed; None when the watchdog is off."""
+        limit = self.config.watchdog_stall_s
+        if not limit or limit <= 0:
+            return None
+        return max(float(limit), 50.0 * self._est_step)
+
+    def _shed_wedged(self, why: str) -> list[StepEvent]:
+        """A device step outlasted the watchdog budget: finish every
+        waiting, slotted and pending-first request with "stalled" and mark
+        the engine wedged. The windows still on the device are forgotten;
+        the harvester may go on waiting for them."""
+        print(f"[engine] wedged: {why}; waiting {len(self.waiting)}, active "
+              f"{sum(r is not None for r in self.slots)}", file=sys.stderr, flush=True)
+        self.wedged = True
+        return self._finish_all("stalled")
+
+    def prefix_filter_digests(self) -> list[bytes]:
+        """Every chained page digest the device prefix cache holds now (the
+        port has no host tier): what the server's /ready bloom filter
+        advertises to the routers. A snapshot, safe from server threads."""
+        return self.allocator.prefix_digests()
+
+    def score_prompt(self, prompt: list[int]) -> tuple[list, list, list]:
+        """Per-position prompt logprobs (the OpenAI ``echo`` + ``logprobs``
+        surface), as the JAX ``score_prompt``: (token_logprobs [len - 1],
+        entry i scoring prompt[i + 1]; top_ids [len, LOGPROB_TOPK];
+        top_logprobs [len, LOGPROB_TOPK]). The prompt is padded to the
+        smallest prefill bucket that fits, or past the largest to a multiple
+        of it, and scored by ``forward_score``: cache-free, its KV writes go
+        to a private one-page pool, never the serving pool. Call it between
+        steps, on the thread that steps the engine (the server's loop does):
+        it reads the result back, so it waits for the work queued before it."""
+        n = len(prompt)
+        if n == 0:
+            raise ValueError("empty prompt")
+        if n > self.config.max_model_len:
+            raise ValueError(f"prompt of {n} tokens exceeds max_model_len="
+                             f"{self.config.max_model_len}")
+        bucket = next((b for b in self.config.prefill_buckets if n <= b), None)
+        if bucket is None:
+            big = max(self.config.prefill_buckets)
+            bucket = -(-n // big) * big
+        tokens = np.zeros((1, bucket), np.int32)
+        tokens[0, :n] = prompt
+        nxt_lp, top_ids, top_lp = forward_score(
+            self.params, self.model_config, upload(tokens, self.device),
+            upload(np.array([n], np.int32), self.device), top_k=LOGPROB_TOPK)
+        return (nxt_lp[0, :n - 1].cpu().tolist(), top_ids[0, :n].cpu().tolist(),
+                top_lp[0, :n].cpu().tolist())
 
     def generate(self, prompt: list[int],
                  params: Optional[SamplingParams] = None) -> list[int]:
@@ -632,6 +769,8 @@ class Engine:
 
     def _emit(self, req: Request, token: int, lp: Optional[tuple]) -> list[StepEvent]:
         """Record a sampled token and decide whether the request finishes."""
+        if not req.output:
+            req.first_token_at = time.monotonic()
         req.output.append(token)
         req.output_logprobs.append(lp)
         reason = None
@@ -648,6 +787,7 @@ class Engine:
     def _finish(self, req: Request, reason: str) -> StepEvent:
         req.finished = True
         req.finish_reason = reason
+        req.finished_at = time.monotonic()
         if req.slot >= 0:
             self.allocator.free(req.slot)
             self.slot_len[req.slot] = 0
@@ -773,26 +913,29 @@ class Engine:
         host[r, :7] = (m, history, p.top_k, req.seed, req.slot, len(req.prompt), int(reset))
         host[r, 7:11] = np.array([p.temperature, p.top_p, p.presence_penalty,
                                   p.frequency_penalty], np.float32).view(np.int32)
+        pack_bias(host, r, _BIAS_PRE, p.logit_bias)
         host[r, _PRE_COLS:_PRE_COLS + self.config.pages_per_slot] = \
             self.allocator.page_tables[req.slot]
 
     def _device_rows(self, host: np.ndarray) -> tuple:
         """One host-to-device copy of packed prefill rows: (lengths, history,
-        top_k, seeds, slots, prompt_len, reset, floats [R, 4], page_table,
-        tokens)."""
+        top_k, seeds, slots, prompt_len, reset, floats [R, 4], bias (ids,
+        values), page_table, tokens)."""
         d = upload(host, self.device)
         pt_end = _PRE_COLS + self.config.pages_per_slot
         return (*(d[:, c].contiguous() for c in range(7)), d[:, 7:11].view(torch.float32),
-                d[:, _PRE_COLS:pt_end].contiguous(), d[:, pt_end:].contiguous())
+                unpack_bias(d, _BIAS_PRE), d[:, _PRE_COLS:pt_end].contiguous(),
+                d[:, pt_end:].contiguous())
 
-    def _sample_first(self, logits, positions, top_k, seeds, fl, slots):
+    def _sample_first(self, logits, positions, top_k, seeds, fl, bias, slots):
         """Sample each row's first token from its prompt's last logits, the
         noise keyed on the prompt length. Returns (packed results, tokens),
         on the device."""
         noise = gumbel_noise(self.config.seed, seeds, positions,
                              min(MAX_CANDIDATES, logits.shape[1]))
         res = sample(logits, noise, fl[:, 0], top_k, fl[:, 1],
-                     penalties=(fl[:, 2], fl[:, 3], self.token_counts[slots.long()]))
+                     penalties=(fl[:, 2], fl[:, 3], self.token_counts[slots.long()]),
+                     bias=bias)
         return pack_results([res]), res.tokens
 
     def _prefill(self, bucket: int, rows: list[tuple[Request, list[int]]]):
@@ -817,14 +960,14 @@ class Engine:
         used = {req.slot for req, _ in rows}
         host[n:, 4] = [s for s in range(B) if s not in used][:R - n]
         host[n:, 8] = np.float32(1.0).view(np.int32)      # top_p off
-        (lengths, history, top_k, seeds, slots, prompt_len, reset, fl, page_table,
+        (lengths, history, top_k, seeds, slots, prompt_len, reset, fl, bias, page_table,
          tokens) = self._device_rows(host)
         _rebuild_count_rows(self.token_counts, tokens, slots, history, prompt_len, lengths,
                             reset)
         logits, _, _ = forward_prefill(self.params, self.model_config, tokens, lengths,
                                        self.k_pages, self.v_pages, page_table)
         self.prefill_calls += 1
-        return self._sample_first(logits, lengths, top_k, seeds, fl, slots)
+        return self._sample_first(logits, lengths, top_k, seeds, fl, bias, slots)
 
     def _chunked_prefill(self, req: Request, ptoks: list[int], start: int = 0):
         """Prefill ``ptoks`` from position ``start`` (> 0 when a cached
@@ -843,15 +986,15 @@ class Engine:
             host = np.zeros((1, _PRE_COLS + pps + self._bucket_for(m)), np.int32)
             self._pack_row(host, 0, req, m, pos, pos == start)
             host[0, _PRE_COLS + pps:_PRE_COLS + pps + m] = ptoks[pos:pos + m]
-            (lengths, history, top_k, seeds, slots, prompt_len, reset, fl, page_table,
-             tokens) = self._device_rows(host)
+            (lengths, history, top_k, seeds, slots, prompt_len, reset, fl, bias,
+             page_table, tokens) = self._device_rows(host)
             _rebuild_count_rows(self.token_counts, tokens, slots, history, prompt_len,
                                 lengths, reset)
             logits, _, _ = forward_chunk(self.params, self.model_config, tokens, history,
                                          lengths, self.k_pages, self.v_pages, page_table)
             self.chunk_calls += 1
             pos += m
-        return self._sample_first(logits, history + lengths, top_k, seeds, fl, slots)
+        return self._sample_first(logits, history + lengths, top_k, seeds, fl, bias, slots)
 
     # ------------------------------------------------------------------
     # decode windows
@@ -860,8 +1003,9 @@ class Engine:
     def _window_rows(self, active: list[tuple[int, Request]], plan: dict,
                      base: dict) -> np.ndarray:
         """The packed window rows: each active row's sampling parameters,
-        stop ids, budget ``plan[i]`` and first length ``base[i]`` (0 when
-        it plans nothing: it rides along idle), every slot's page table.
+        stop ids, logit_bias, budget ``plan[i]`` and first length
+        ``base[i]`` (0 when it plans nothing: it rides along idle), every
+        slot's page table.
         Token sources are the caller's (host values by default)."""
         packed = idle_rows(self.config.max_decode_slots, self.config.pages_per_slot)
         packed[:, DEC_COLS:] = self.allocator.page_tables
@@ -877,6 +1021,7 @@ class Engine:
             packed[i, FLOATS:FLOATS + 4] = np.array(
                 [prm.temperature, prm.top_p, prm.presence_penalty, prm.frequency_penalty],
                 np.float32).view(np.int32)
+            pack_bias(packed, i, BIAS, prm.logit_bias)
         return packed
 
     def _plan_window(self, events: list[StepEvent]) -> tuple[dict, dict]:
@@ -1094,6 +1239,7 @@ class Engine:
         if not self._inflight and not self._pending_first:
             return events
         depth = self.config.async_depth
+        budget = self._stall_budget()
         n_windows = 0
         while True:
             n_windows += self._collect_ready(events)
@@ -1107,19 +1253,20 @@ class Engine:
             # rewind pending_token
             key = self._head_blocking_first()
             if key is not None:
-                self._harvester.wait_key(key)
+                self._harvester.wait_key(key, timeout_s=budget)
                 continue
             if self._inflight:
                 k = len(self._inflight) if drain else len(self._inflight) - (depth - 1)
                 self._harvester.wait_done(self._inflight[k - 1].seq,
-                                          wake=None if drain else self._admit_wake)
+                                          wake=None if drain else self._admit_wake,
+                                          timeout_s=budget)
                 if not drain and self._admit_wake.is_set():
                     # a submission wants admission now: take what is done
                     # and go back to the loop
                     n_windows += self._collect_ready(events)
                     break
                 continue
-            self._harvester.wait_key(self._pending_first[0][1])
+            self._harvester.wait_key(self._pending_first[0][1], timeout_s=budget)
         # pacing calibration: the spacing of completions per window bounds
         # the device's window time from above (reads add latency, never
         # remove it), so keep the least seen with a slow upward drift (a

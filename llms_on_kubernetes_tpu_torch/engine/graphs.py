@@ -4,9 +4,10 @@ capture as one CUDA graph (counterpart of the JAX engine's jitted
 
 ``decode_window`` is the window: the on-device token merge, then K x
 (count the input token -> ``forward_decode`` -> ``gumbel_noise`` ->
-``sample`` -> stop and budget mask), and the packed results of all K
-steps. Every row's inputs come in one packed int32 array (``DEC_COLS``
-below plus the page table), so a window is one host-to-device copy.
+``sample`` with the rows' penalties and logit_bias -> stop and budget
+mask), and the packed results of all K steps. Every row's inputs come in
+one packed int32 array (``DEC_COLS`` below plus the page table), so a
+window is one host-to-device copy.
 
 ``DecodeWindow`` runs the windows of one engine. On a card it captures
 ``decode_window`` once, at construction, as a CUDA graph over static
@@ -41,27 +42,49 @@ from llms_on_kubernetes_tpu_torch.models.decoder import forward_decode
 
 # stop ids a request may carry into the window's on-device mask
 STOP_SLOTS = 8
+# OpenAI logit_bias entries a request may carry (the JAX engine's
+# LOGIT_BIAS_SLOTS): id columns, then the values' float32 bits; id -1 pads
+LOGIT_BIAS_SLOTS = 32
 
 # packed decode columns: lengths0 (the first step's length including its
 # input token; 0 => the row rides along idle), the row's budget (tokens
 # planned this window), the input token's source (0: the newest in-flight
 # window's output, 1: the host value, 2: this step's prefill sample at
 # the prefill row), the host value, the prefill row, top_k, seed, the
-# stop ids (-1 pads), then four float32 columns viewed as int32
-# (temperature, top_p, presence, frequency), then the page table
+# stop ids (-1 pads), four float32 columns viewed as int32 (temperature,
+# top_p, presence, frequency), the logit_bias ids and values, then the
+# page table
 LEN, BUD, SRC, VAL, PRE_ROW, TOP_K, SEED = range(7)
 STOP = 7
 FLOATS = STOP + STOP_SLOTS
-DEC_COLS = FLOATS + 4
+BIAS = FLOATS + 4
+DEC_COLS = BIAS + 2 * LOGIT_BIAS_SLOTS
 SRC_INFLIGHT, SRC_HOST, SRC_PREFILL = 0, 1, 2
 
 
+def pack_bias(packed: np.ndarray, row: int, base: int, logit_bias) -> None:
+    """Row ``row``'s logit_bias pairs into the columns from ``base`` (the
+    JAX ``_pack_bias``): ids padded with -1, values as float32 bits."""
+    packed[row, base:base + LOGIT_BIAS_SLOTS] = -1
+    for j, (tid, value) in enumerate(logit_bias):
+        packed[row, base + j] = tid
+        packed[row, base + LOGIT_BIAS_SLOTS + j] = np.float32(value).view(np.int32)
+
+
+def unpack_bias(packed: torch.Tensor, base: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ids [R, LOGIT_BIAS_SLOTS] int32, values float32) of packed rows."""
+    return (packed[:, base:base + LOGIT_BIAS_SLOTS],
+            packed[:, base + LOGIT_BIAS_SLOTS:base + 2 * LOGIT_BIAS_SLOTS].view(torch.float32))
+
+
 def idle_rows(B: int, pages_per_slot: int) -> np.ndarray:
-    """A packed window whose rows are all idle (top_p off, no stops)."""
+    """A packed window whose rows are all idle (top_p off, no stops, no
+    bias)."""
     packed = np.zeros((B, DEC_COLS + pages_per_slot), np.int32)
     packed[:, SRC] = SRC_HOST
     packed[:, STOP:STOP + STOP_SLOTS] = -1
     packed[:, FLOATS + 1] = np.float32(1.0).view(np.int32)
+    packed[:, BIAS:BIAS + LOGIT_BIAS_SLOTS] = -1
     return packed
 
 
@@ -108,6 +131,10 @@ def decode_window(params: dict, cfg, K: int, packed: torch.Tensor,
     src, top_k, seeds = packed[:, SRC], packed[:, TOP_K], packed[:, SEED]
     stop_ids = packed[:, STOP:STOP + STOP_SLOTS]
     fl = packed[:, FLOATS:FLOATS + 4].view(torch.float32)
+    # every window applies the bias columns, all padding (-1) for a row
+    # without a bias: a captured window must not depend on whether any
+    # request had one when it was captured
+    bias = unpack_bias(packed, BIAS)
     page_table = packed[:, DEC_COLS:]
     cur = torch.where(src == SRC_INFLIGHT, last_toks,
                       torch.where(src == SRC_HOST, packed[:, VAL],
@@ -127,7 +154,7 @@ def decode_window(params: dict, cfg, K: int, packed: torch.Tensor,
                                       kv_write=kv_write, workspace=workspace)
         noise = gumbel_noise(seed, seeds, lengths, C)
         res = sample(logits, noise, fl[:, 0], top_k, fl[:, 1],
-                     penalties=(fl[:, 2], fl[:, 3], counts))
+                     penalties=(fl[:, 2], fl[:, 3], counts), bias=bias)
         results.append(res)
         stopped = ((stop_ids >= 0) & (stop_ids == res.tokens[:, None])).any(dim=1)
         cur = torch.where(alive, res.tokens, cur)

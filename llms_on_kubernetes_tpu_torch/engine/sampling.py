@@ -5,8 +5,9 @@ One function handles the whole batch with per-row parameters: temperature
 (0 => greedy), top-k and top-p over a fixed candidate set of the
 ``MAX_CANDIDATES`` highest logits (exact ``torch.topk``; the TPU path's
 ``approx_max_k`` has no counterpart here), OpenAI presence/frequency
-penalties, and the Gumbel-max draw. It also returns the chosen token's
-logprob and the ``LOGPROB_TOPK`` best alternatives.
+penalties, the OpenAI ``logit_bias`` map, and the Gumbel-max draw. It
+also returns the chosen token's logprob and the ``LOGPROB_TOPK`` best
+alternatives.
 
 Random numbers: each row's Gumbel noise comes from a counter-based
 generator keyed only by (engine seed, request seed, sequence position), so
@@ -65,19 +66,30 @@ class SampleResult:
 
 def sample(logits: torch.Tensor, noise: torch.Tensor, temperature: torch.Tensor,
            top_k: torch.Tensor, top_p: torch.Tensor,
-           penalties: "tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None" = None
-           ) -> SampleResult:
+           penalties: "tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None" = None,
+           bias: "tuple[torch.Tensor, torch.Tensor] | None" = None) -> SampleResult:
     """logits [B, V]; noise [B, min(MAX_CANDIDATES, V)] Gumbel noise
     (``gumbel_noise``); temperature [B] (0 => greedy); top_k [B] (0 =>
     off); top_p [B] (1.0 => off); penalties = (presence [B], frequency [B],
     counts [B, V]) over the OUTPUT tokens so far, applied to the raw logits
-    before candidate extraction."""
+    before candidate extraction; bias = (ids [B, N] int32, values [B, N]
+    float32), the OpenAI ``logit_bias`` map, added after the penalties (so
+    +100 forces a token and -100 bans it; the logprobs are the biased
+    ones). A bias entry whose id is negative (padding, -1) or >= V is
+    dropped, as the JAX scatter's ``mode="drop"`` drops it: its value is
+    zeroed and its id clamped into the row, because a negative index would
+    wrap and an out-of-range one is a device-side assert on a card."""
     B, V = logits.shape
     logits = logits.float()
     if penalties is not None:
         presence, frequency, counts = penalties
         c = counts.float()
         logits = logits - presence[:, None] * (c > 0) - frequency[:, None] * c
+    if bias is not None:
+        b_ids, b_vals = bias
+        keep = (b_ids >= 0) & (b_ids < V)
+        logits = logits.scatter_add(1, b_ids.long().clamp(0, V - 1),
+                                    torch.where(keep, b_vals.float(), 0.0))
     C = min(MAX_CANDIDATES, V)
     cand_logits, cand_idx = torch.topk(logits, C, dim=-1)         # sorted desc
 

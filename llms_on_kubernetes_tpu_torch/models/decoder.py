@@ -19,9 +19,11 @@ prefill attends over the fresh, unquantized K/V and stores them quantized
 (as the JAX decoder does), and decode goes to the int8 kernels. The chunk
 pass (``forward_chunk``) appends with the window kernels
 (ops/paged_write.py) and attends to the pool, so it reads an int8 chunk's
-own keys back quantized, as the JAX chunk pass does.
+own keys back quantized, as the JAX chunk pass does. The score pass
+(``forward_score``) runs the prefill layers cache-free and reduces every
+position's logits to the next token's logprob and the top-k.
 
-Not ported yet: LoRA, MoE, vision, the verify and score passes.
+Not ported yet: LoRA, MoE, vision, the verify pass.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import torch.nn.functional as F
 
 from llms_on_kubernetes_tpu_torch import resolve_device
 from llms_on_kubernetes_tpu_torch.configs import ModelConfig
-from llms_on_kubernetes_tpu_torch.engine.cache import torch_dtype, write_tokens
+from llms_on_kubernetes_tpu_torch.engine.cache import KVPool, torch_dtype, write_tokens
 from llms_on_kubernetes_tpu_torch.ops.attention import (
     dispatch_chunk_attention, dispatch_paged_attention_write, dispatch_prefill_attention,
     softcap,
@@ -245,11 +247,13 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tens
     return x
 
 
-def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Final norm and LM head: operands in the weight dtype, the float32
-    accumulation returned unrounded (the JAX path's
+def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
+            normed: bool = False) -> torch.Tensor:
+    """Final norm (unless ``normed``) and LM head: operands in the weight
+    dtype, the float32 accumulation returned unrounded (the JAX path's
     ``preferred_element_type=float32``). x is [B, D]."""
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
+    if not normed:
+        x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
     head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
     head = head.to(x.dtype)
     if x.dtype == torch.float32:
@@ -282,6 +286,64 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     last = (lengths.long() - 1).clamp(0, T - 1)
     x_last = x[torch.arange(B, device=x.device), last]
     return _logits(params, cfg, x_last), k_pages, v_pages
+
+
+# rows of the [T, V] float32 logits forward_score holds at once
+SCORE_SLAB = 512
+
+
+def forward_score(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  lengths: torch.Tensor, top_k: int = 8):
+    """Score a prompt (the JAX ``forward_score``): per position, the logprob
+    of the NEXT prompt token and the top-k alternatives, which the serving
+    prefill cannot give (it keeps the last position's logits only).
+    tokens [1, T] (a padded bucket), lengths [1].
+
+    Cache-free: attention runs causally over the in-flight K/V through the
+    prefill dispatcher (the flash kernel on a card), and every KV write goes
+    to a private one-page float32 pool (each write position -1, the trash
+    page), never a serving pool. The [T, V] float32 logits are reduced on
+    the device in slabs of ``SCORE_SLAB`` rows, each to [t] + [t, k] before
+    the next is computed (at llama-3-8b's vocabulary 1,024 rows would be
+    525 MB).
+
+    Returns (next_logprob [1, T] float32: entry t scores tokens[t + 1], the
+    last valid entry and the padding are 0; top_ids [1, T, k] int32;
+    top_logprobs [1, T, k] float32)."""
+    B, T = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(T, device=dev, dtype=torch.int32).expand(B, T)
+    write_positions = torch.full((B, T), -1, dtype=torch.int32, device=dev)
+    dummy = (cfg.num_kv_heads, cfg.num_layers, 1, cfg.head_dim)
+    k_pages = KVPool(torch.zeros(dummy, dtype=torch.float32, device=dev))
+    v_pages = KVPool(torch.zeros(dummy, dtype=torch.float32, device=dev))
+    page_table = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    x = _embed(params, cfg, tokens)
+    x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions,
+                    write_positions, lengths, "prefill")
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
+    V = cfg.vocab_size
+    nxt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
+    # a next token outside the vocabulary scores NaN (the JAX gather's
+    # fill); its index is clamped, as an out-of-range one asserts on a card
+    in_vocab = (nxt >= 0) & (nxt < V)
+    nxt = nxt.clamp(0, V - 1)
+    nxt_lps, tids, tlps = [], [], []
+    for s in range(0, T, SCORE_SLAB):
+        rows = x[:, s:s + SCORE_SLAB]
+        t = rows.shape[1]
+        logits = _logits(params, cfg, rows.reshape(B * t, -1), normed=True)
+        lse = torch.logsumexp(logits, dim=-1)
+        lp = logits.gather(1, nxt[:, s:s + t].reshape(-1, 1))[:, 0] - lse
+        nxt_lps.append(torch.where(in_vocab[:, s:s + t].reshape(-1), lp, float("nan"))
+                       .reshape(B, t))
+        lp, ids = torch.topk(logits, top_k, dim=-1)
+        tids.append(ids.to(torch.int32).reshape(B, t, top_k))
+        tlps.append((lp - lse[:, None]).reshape(B, t, top_k))
+    nxt_lp = torch.cat(nxt_lps, dim=1)
+    valid = positions < (lengths[:, None] - 1)
+    nxt_lp = torch.where(valid, nxt_lp, 0.0)
+    return nxt_lp, torch.cat(tids, dim=1), torch.cat(tlps, dim=1)
 
 
 def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

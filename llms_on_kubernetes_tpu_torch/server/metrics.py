@@ -1,0 +1,264 @@
+"""Prometheus text-format metrics (the port's copy of
+``llms_on_kubernetes_tpu/server/metrics.py``).
+
+The registry, the metric kinds and the serving series keep the JAX
+module's names, help strings, label names and buckets, so the charts'
+scrape, alerts, dashboards and autoscalers read a port replica as they
+read a JAX one. Only the series the port feeds are here: the adapter,
+host-KV, handoff, speculation, tenant, deadline, ledger and trace families
+come with the slices that port those parts.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Optional
+
+# stamped once at import: every exposition of this process reports the same
+# start time, and the uptime is derived from it at scrape time
+_PROCESS_START_WALL = time.time()
+
+
+def escape_label_value(v: str) -> str:
+    """Exposition escaping of a label VALUE: backslash, double quote and
+    newline (model names are operator input)."""
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _label_str(names: tuple, values: tuple) -> str:
+    return ",".join(f'{n}="{escape_label_value(v)}"' for n, v in zip(names, values))
+
+
+class _LabeledValue:
+    """One child series of a labeled Counter or Gauge."""
+
+    def __init__(self) -> None:
+        self.value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        self.value += n
+
+    def set(self, v: float) -> None:
+        self.value = v
+
+
+class _Metric:
+    """A scalar series, or with ``label_names`` a parent whose children are
+    keyed by label values (``labels(**kv)`` makes one on first use)."""
+
+    kind = "untyped"
+
+    def __init__(self, name: str, help_: str, registry: "Registry",
+                 label_names: tuple[str, ...] = ()):
+        self.name, self.help = name, help_
+        self.value = 0.0
+        self.label_names = tuple(label_names)
+        self._children: dict[tuple[str, ...], _LabeledValue] = {}
+        registry._add(self)
+
+    def labels(self, **kv: str) -> _LabeledValue:
+        key = tuple(str(kv[n]) for n in self.label_names)
+        child = self._children.get(key)
+        if child is None:
+            child = self._children[key] = _LabeledValue()
+        return child
+
+    def render(self) -> str:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} {self.kind}"]
+        if not self.label_names:
+            out.append(f"{self.name} {self.value}")
+        else:
+            for key in sorted(self._children):
+                lbl = _label_str(self.label_names, key)
+                out.append(f"{self.name}{{{lbl}}} {self._children[key].value}")
+        return "\n".join(out) + "\n"
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def inc(self, n: float = 1.0) -> None:
+        self.value += n
+
+
+class Gauge(_Metric):
+    kind = "gauge"
+
+    def set(self, v: float) -> None:
+        self.value = v
+
+
+class CallbackGauge(Gauge):
+    """A gauge recomputed by ``fn()`` at every render; a failing callback
+    keeps the previous value (a scrape must not fail on it)."""
+
+    def __init__(self, name: str, help_: str, registry: "Registry",
+                 fn: Callable[[], float]):
+        super().__init__(name, help_, registry)
+        self._fn = fn
+
+    def render(self) -> str:
+        try:
+            self.value = float(self._fn())
+        except Exception:  # keep the last value: a scrape never fails on it
+            pass
+        return super().render()
+
+
+class _HistogramSeries:
+    """One histogram series: bucket counts, sum and count."""
+
+    def __init__(self, buckets: tuple[float, ...]):
+        self.buckets = buckets
+        self.counts = [0] * (len(buckets) + 1)
+        self.total = 0.0
+        self.n = 0
+
+    def observe(self, v: float) -> None:
+        self.total += v
+        self.n += 1
+        for i, b in enumerate(self.buckets):
+            if v <= b:
+                self.counts[i] += 1
+                return
+        self.counts[-1] += 1
+
+    def _render_series(self, name: str, labels: str) -> list[str]:
+        pre = labels + "," if labels else ""
+        out = []
+        acc = 0
+        for i, b in enumerate(self.buckets):
+            acc += self.counts[i]
+            out.append(f'{name}_bucket{{{pre}le="{b}"}} {acc}')
+        acc += self.counts[-1]
+        out.append(f'{name}_bucket{{{pre}le="+Inf"}} {acc}')
+        suffix = f"{{{labels}}}" if labels else ""
+        out.append(f"{name}_sum{suffix} {self.total}")
+        out.append(f"{name}_count{suffix} {self.n}")
+        return out
+
+
+class Histogram(_HistogramSeries):
+    """A scalar or labeled histogram (``labels(**kv)`` as in _Metric)."""
+
+    def __init__(self, name: str, help_: str, buckets: tuple[float, ...],
+                 registry: "Registry", label_names: tuple[str, ...] = ()):
+        super().__init__(tuple(sorted(buckets)))
+        self.name, self.help = name, help_
+        self.label_names = tuple(label_names)
+        self._children: dict[tuple[str, ...], _HistogramSeries] = {}
+        registry._add(self)
+
+    def labels(self, **kv: str) -> _HistogramSeries:
+        key = tuple(str(kv[n]) for n in self.label_names)
+        child = self._children.get(key)
+        if child is None:
+            child = self._children[key] = _HistogramSeries(self.buckets)
+        return child
+
+    def render(self) -> str:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} histogram"]
+        if not self.label_names:
+            out += self._render_series(self.name, "")
+        else:
+            for key in sorted(self._children):
+                out += self._children[key]._render_series(
+                    self.name, _label_str(self.label_names, key))
+        return "\n".join(out) + "\n"
+
+
+class Registry:
+    def __init__(self) -> None:
+        self._metrics: list = []
+        self._lock = threading.Lock()
+
+    def _add(self, m) -> None:
+        with self._lock:
+            self._metrics.append(m)
+
+    def render(self) -> str:
+        with self._lock:
+            return "".join(m.render() for m in self._metrics)
+
+
+def build_info_metrics(registry: Registry, backend: str, role: str = "both") -> dict:
+    """The identity and lifetime series every exposition carries:
+    ``llm_build_info`` (the JAX labels; ``jax`` is "none" here, the port
+    runs no JAX, and ``backend`` names the card: "gpu", or "cpu"),
+    ``llm_process_start_time_seconds`` and ``llm_process_uptime_seconds``."""
+    from llms_on_kubernetes_tpu_torch import __version__
+
+    info = Gauge("llm_build_info",
+                 "Build/runtime identity of this process (value is always 1)",
+                 registry, label_names=("version", "jax", "backend", "role"))
+    info.labels(version=__version__, jax="none", backend=backend, role=role).set(1)
+    start = Gauge("llm_process_start_time_seconds", "Unix time this process started",
+                  registry)
+    start.set(round(_PROCESS_START_WALL, 3))
+    uptime = CallbackGauge(
+        "llm_process_uptime_seconds", "Seconds since process start (recomputed at scrape)",
+        registry, lambda: round(time.time() - _PROCESS_START_WALL, 3))
+    return {"build_info": info, "start_time": start, "uptime": uptime}
+
+
+def process_age_s() -> float:
+    """Seconds since this process imported the module (cold-start "ready")."""
+    return time.time() - _PROCESS_START_WALL
+
+
+def engine_metrics(registry: Registry) -> dict:
+    """The serving series the port's server feeds (the JAX set's names)."""
+    return {
+        "requests_total": Counter("llm_requests_total", "Requests received", registry),
+        "requests_finished": Counter(
+            "llm_requests_finished_total", "Requests finished", registry),
+        "tokens_generated": Counter(
+            "llm_tokens_generated_total", "Output tokens sampled", registry),
+        "prompt_tokens": Counter(
+            "llm_prompt_tokens_total", "Prompt tokens prefilled", registry),
+        "preemptions": Counter(
+            "llm_preemptions_total", "Requests preempted for KV memory", registry),
+        "ttft": Histogram(
+            "llm_ttft_seconds", "Time to first token",
+            (0.01, 0.025, 0.05, 0.1, 0.2, 0.5, 1.0, 2.0, 5.0, 10.0), registry,
+            label_names=("model",)),
+        "e2e_latency": Histogram(
+            "llm_e2e_latency_seconds", "Request latency, submit to finish",
+            (0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0),
+            registry, label_names=("model",)),
+        "decode_step": Histogram(
+            "llm_decode_step_seconds", "Per-decode-step latency",
+            (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.5), registry,
+            label_names=("model",)),
+        "batch_occupancy": Gauge(
+            "llm_decode_batch_occupancy", "Active decode slots", registry),
+        "kv_pages_used": Gauge("llm_kv_pages_used", "KV pages allocated", registry),
+        "waiting": Gauge(
+            "llm_waiting_requests", "Requests queued for admission", registry),
+        "queue_depth": Gauge(
+            "llm_queue_depth",
+            "Requests queued for admission, per served model and serving "
+            "role (the replica-autoscaling signal; the prefill pool "
+            "scales on its own role's series)",
+            registry, label_names=("model", "role")),
+        "cold_start": Histogram(
+            "llm_cold_start_seconds",
+            "Startup phase durations: compile=warmup executable builds, "
+            "load=checkpoint load + engine init, mesh=distributed init + "
+            "device mesh, ready=process start to serving",
+            (0.5, 1.0, 2.0, 5.0, 10.0, 20.0, 30.0, 60.0, 120.0, 180.0, 300.0, 600.0),
+            registry, label_names=("phase",)),
+        "prefix_hit_tokens": Gauge(
+            "llm_prefix_cache_hit_tokens_total",
+            "Prompt tokens served from the prefix cache", registry),
+        "engine_state": Gauge(
+            "llm_engine_state",
+            "Serving lifecycle: 0=loading 1=serving 2=draining 3=wedged", registry),
+        "kv_bytes_per_token": Gauge(
+            "llm_kv_bytes_per_token",
+            "Device KV-cache bytes per cached token across all layers, "
+            "both K and V, scales included (int8 pages roughly halve "
+            "this vs bf16)", registry),
+    }

@@ -7,26 +7,49 @@ requests and block on a per-HTTP-request queue that the engine thread
 feeds through ``Request.on_event``. Server-sent events are written by hand
 on an HTTP/1.0 response that ends when the connection closes.
 
-Endpoints: ``GET /health``, ``GET /v1/models``, ``POST /v1/completions``,
-``POST /v1/chat/completions`` (each with ``"stream": true``), and
-``GET /debug/kernels`` / ``POST /debug/kernels/reset``, which read and
-zero the kernel launch counters of ``kernels.LAUNCHES`` (the read also
-gives the part of them that graph replays added, the engine's prefill,
-chunk and decode call counts, its decode window length and the windows
-run as CUDA graph replays, its preemptions and the prompt tokens served
-from the prefix cache, so launches can be held to calls). Response and chunk
-shapes follow the JAX server's. Request options that change what is
-generated and are not ported yet (``n`` > 1, ``best_of``, ``echo``,
-``logprobs``, ``logit_bias``, ``stop`` strings, tools, ``response_format``)
-are refused with 400 rather than ignored.
+Endpoints, with the JAX server's shapes:
+
+- ``POST /v1/completions`` (a prompt string, token ids, or a list of
+  either: one choice group each) and ``POST /v1/chat/completions``, each
+  with ``"stream": true``. Options: sampling (temperature, top_p, top_k,
+  seed, penalties, max_tokens), ``stop`` strings (matched on the text,
+  held back across deltas; a hit aborts the engine request),
+  ``logprobs`` / ``top_logprobs`` (at most ``LOGPROB_TOPK``),
+  ``logit_bias`` (token id -> [-100, 100]), ``n`` and ``best_of`` (at most
+  16; choice j > 0 of a seeded request samples with seed + j), ``echo``
+  (with ``logprobs``: the prompt's own logprobs, scored by
+  ``Engine.score_prompt`` on the engine thread). Refused with 400: tools,
+  ``response_format`` and ``suffix`` (they come with guided decoding).
+- ``GET /health``: 503 only when the engine is wedged (its watchdog shed
+  a step the card never finished); ``GET /ready``: 200 with the state and
+  the prefix-cache bloom filter while serving, else 503 (loading,
+  draining, wedged), as the routers and the charts probe it;
+  ``GET /metrics`` (Prometheus text, fed from the engine loop);
+  ``POST /tokenize``, ``POST /detokenize``, ``GET /version``,
+  ``GET /v1/models``.
+- ``GET /debug/kernels`` / ``POST /debug/kernels/reset``: the kernel
+  launch counters of ``kernels.LAUNCHES`` (and the part of them graph
+  replays added), the engine's prefill, chunk and decode call counts, its
+  decode window length and graph replays, its preemptions and the prompt
+  tokens served from the prefix cache, so launches can be held to calls.
+
+Lifecycle: loading -> serving -> draining, with wedged overriding all.
+``begin_drain`` (SIGTERM in ``cli.py``) turns /ready to 503, refuses new
+requests with 503 and lets in-flight work finish, at most
+``EngineLoop.drain_timeout_s``.
+
+Not ported yet: request deadlines, tracing, QoS and tenants, the cache
+digest header and the disaggregated handoff, embeddings, LoRA routing.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
 import queue
+import signal
 import sys
 import threading
 import time
@@ -37,17 +60,23 @@ from typing import Optional
 
 import torch
 
-from llms_on_kubernetes_tpu_torch import kernels, resolve_device
+from llms_on_kubernetes_tpu_torch import __version__, kernels, resolve_device
 from llms_on_kubernetes_tpu_torch.engine.engine import (
-    Engine, EngineConfig, QueueFullError, SamplingParams, model_config_for,
+    Engine, EngineConfig, EngineStallError, QueueFullError, SamplingParams, model_config_for,
 )
+from llms_on_kubernetes_tpu_torch.engine.sampling import LOGPROB_TOPK
 from llms_on_kubernetes_tpu_torch.engine.tokenizer import load_tokenizer
 from llms_on_kubernetes_tpu_torch.engine.weights import resolve_model_dir
+from llms_on_kubernetes_tpu_torch.server.affinity import BloomFilter
+from llms_on_kubernetes_tpu_torch.server.metrics import (
+    Registry, build_info_metrics, engine_metrics, process_age_s,
+)
 
 log = logging.getLogger(__name__)
 
-_UNSUPPORTED = ("best_of", "echo", "logprobs", "top_logprobs", "logit_bias", "stop",
-                "tools", "tool_choice", "response_format", "suffix")
+# options refused until guided decoding is ported
+_UNSUPPORTED = ("tools", "tool_choice")
+MAX_CHOICES = 16
 
 
 class BadRequest(ValueError):
@@ -56,72 +85,303 @@ class BadRequest(ValueError):
 
 class IncrementalDetokenizer:
     """Text deltas from a growing token list, holding back a trailing
-    incomplete UTF-8 sequence until its bytes arrive."""
+    replacement character (a UTF-8 sequence still incomplete) until its
+    bytes arrive; the final push releases everything."""
 
     def __init__(self, tokenizer):
         self.tokenizer = tokenizer
         self.ids: list[int] = []
-        self.emitted = 0
+        self.sent = 0
 
     def push(self, ids: list[int], final: bool = False) -> str:
         self.ids += ids
         text = self.tokenizer.decode(self.ids)
-        if not final:
-            text = text.rstrip("\ufffd")
-        delta = text[self.emitted:]
-        self.emitted = max(self.emitted, len(text))
+        if not final and text and text[-1] == "�":
+            text = text[:-1]
+        delta = text[self.sent:]
+        self.sent += len(delta)
         return delta
+
+
+class StopChecker:
+    """Stop-STRING matching on the detokenized stream (the OpenAI ``stop``
+    parameter; stop token ids stay in the engine). ``push`` returns (text
+    safe to emit, hit): while streaming, the last max(len(stop)) - 1
+    characters are held back, so a stop split across deltas is never
+    partly emitted. The earliest match in the text wins, and a longer stop
+    that started before a match and may still complete defers it."""
+
+    def __init__(self, stops: list[str]):
+        self.stops = [s for s in stops if s]
+        self.holdback = max((len(s) for s in self.stops), default=1) - 1
+        self.text = ""
+        self.emitted = 0
+
+    def push(self, delta: str, final: bool = False) -> tuple[str, bool]:
+        self.text += delta
+        best = -1
+        for s in self.stops:
+            idx = self.text.find(s, self.emitted)
+            if idx != -1 and (best == -1 or idx < best):
+                best = idx
+        if best != -1 and not final:
+            pend = self._pending_start_before(best)
+            if pend is not None:
+                cut = max(self.emitted, pend)
+                out = self.text[self.emitted:cut]
+                self.emitted = cut
+                return out, False
+        if best != -1:
+            out = self.text[self.emitted:best]
+            self.emitted = best
+            return out, True
+        cut = len(self.text) if final or not self.stops else max(
+            self.emitted, len(self.text) - self.holdback)
+        out = self.text[self.emitted:cut]
+        self.emitted = cut
+        return out, False
+
+    def _pending_start_before(self, limit: int) -> Optional[int]:
+        """The earliest position < ``limit`` where a stop matches a proper
+        prefix that runs off the end of the text (it may still complete)."""
+        n = len(self.text)
+        earliest = None
+        for s in self.stops:
+            for i in range(max(self.emitted, n - len(s) + 1), min(limit, n)):
+                if s.startswith(self.text[i:]):
+                    if earliest is None or i < earliest:
+                        earliest = i
+                    break
+        return earliest
+
+
+def _parse_stops(body: dict) -> list[str]:
+    stop = body.get("stop")
+    if isinstance(stop, str):
+        return [stop]
+    if isinstance(stop, list):
+        return [s for s in stop if isinstance(s, str)]
+    return []
+
+
+class _Choice:
+    """One engine request's events turned into response text (the JAX
+    server's ``_drain``): stop-token filtering, incremental detokenizing,
+    stop strings and, with logprobs, the entries (token id, logprob entry,
+    emitted piece) of the tokens whose text has been emitted."""
+
+    def __init__(self, app: "OpenAIServer", req, stops: list[str]):
+        self.app, self.req = app, req
+        self.detok = IncrementalDetokenizer(app.tokenizer)
+        self.stopper = StopChecker(stops)
+        self.stop_ids = set(req.params.stop_token_ids)
+        self.nlp = req.params.logprobs
+        self.total = 0            # event tokens so far (the usage count)
+        self.pending: list = []   # entries whose text the stopper holds back
+        self.released_chars = 0
+        self.done = False
+
+    def feed(self, toks: list[int], done: bool, reason: Optional[str]) -> tuple:
+        """One engine event -> (text delta, done, finish reason, released
+        logprob entries)."""
+        req = self.req
+        start = self.total
+        self.total += len(toks)
+        raw = [(t, req.output_logprobs[start + i] if start + i < len(req.output_logprobs)
+                else None)
+               for i, t in enumerate(toks)
+               if not (done and reason == "stop" and t in self.stop_ids)]
+        if self.nlp == 0:
+            text, hit = self.stopper.push(self.detok.push([t for t, _ in raw], final=done),
+                                          final=done)
+            released = []
+        else:
+            # per-token pieces are the detokenizer's own deltas; an entry is
+            # released once the stopper has emitted its text
+            parts = []
+            for i, (t, lp) in enumerate(raw):
+                piece = self.detok.push([t], final=done and i == len(raw) - 1)
+                parts.append(piece)
+                self.pending.append((t, lp, piece))
+            if done and not raw:
+                parts.append(self.detok.push([], final=True))
+            text, hit = self.stopper.push("".join(parts), final=done)
+            released = []
+            while self.pending:
+                piece = self.pending[0][2]
+                if self.released_chars + len(piece) > self.stopper.emitted:
+                    break
+                released.append(self.pending.pop(0))
+                self.released_chars += len(piece)
+            if hit and self.pending and self.released_chars < self.stopper.emitted:
+                # the cut lands inside this token: it shows, so its entry does
+                released.append(self.pending.pop(0))
+        if hit:
+            self.app.loop.abort(req)
+            done, reason = True, "stop"
+        self.done = done
+        return text, done, reason, released
 
 
 class EngineLoop(threading.Thread):
     """Drives ``Engine.step`` while there is work; sleeps on an event
-    otherwise. With async scheduling (the default) the loop does not spin
-    while windows are in flight: ``step`` blocks in the engine's harvest
-    once ``async_depth`` windows are unread, and ``Engine.submit`` wakes
-    that wait, so a new request is admitted and prefilled while the device
-    works. A failed step sheds every request with reason "error" so no
-    client waits forever, and the loop carries on."""
+    otherwise. With async scheduling (the default) ``step`` blocks in the
+    engine's harvest once ``async_depth`` windows are unread, and
+    ``Engine.submit`` wakes that wait. A failed step sheds every request
+    with reason "error" and the loop carries on. Between steps it runs the
+    callables handed to ``call`` (prompt scoring) and feeds ``metrics``.
 
-    def __init__(self, engine: Engine):
+    ``stop()`` drains: the loop steps until no work is left, the engine is
+    wedged or ``drain_timeout_s`` has passed, then ends."""
+
+    # under the JAX server's 60 s join, as there
+    drain_timeout_s = 55.0
+
+    def __init__(self, engine: Engine, metrics: Optional[dict] = None, model_name: str = ""):
         super().__init__(name="engine-loop", daemon=True)
         self.engine = engine
+        self.metrics = metrics
+        self.model_name = model_name
         self._wake = threading.Event()
-        self._halt = threading.Event()
+        self._stop_evt = threading.Event()
+        self._calls: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._ttft_seen: set[str] = set()
+        self._preempt_seen = 0
 
     def submit(self, prompt, params, on_event):
         req = self.engine.submit(prompt, params, on_event=on_event)
+        if self.metrics:
+            self.metrics["requests_total"].inc()
+            self.metrics["prompt_tokens"].inc(len(req.prompt))
         self._wake.set()
         return req
 
+    def abort(self, req, reason: str = "abort") -> None:
+        self.engine.abort(req, reason)
+        self._wake.set()
+
+    def call(self, fn, *args):
+        """Run ``fn(*args)`` on the loop's thread between two steps and
+        return its value (or raise its exception)."""
+        done = threading.Event()
+        box: dict = {}
+        self._calls.put((fn, args, done, box))
+        self._wake.set()
+        while not done.wait(1.0):
+            if not self.is_alive():
+                raise RuntimeError("the engine loop has stopped")
+        if "error" in box:
+            raise box["error"]
+        return box["value"]
+
+    def stop(self) -> None:
+        self._stop_evt.set()
+        self._wake.set()
+
+    def _run_calls(self) -> None:
+        while True:
+            try:
+                fn, args, done, box = self._calls.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                box["value"] = fn(*args)
+            except Exception as e:  # handed back to the caller's thread
+                box["error"] = e
+            done.set()
+
     def run(self) -> None:
-        while not self._halt.is_set():
-            if not self.engine.has_work():
+        eng = self.engine
+        drain_deadline = None
+        while True:
+            self._run_calls()
+            if self._stop_evt.is_set():
+                if drain_deadline is None:
+                    drain_deadline = time.monotonic() + self.drain_timeout_s
+                if (not eng.has_work() or eng.wedged
+                        or time.monotonic() >= drain_deadline):
+                    return
+            elif not eng.has_work():
                 self._wake.wait(0.05)
                 self._wake.clear()
                 continue
+            t0 = time.monotonic()
             try:
-                self.engine.step()
+                events = eng.step()
             except Exception:  # boundary: keep serving, fail the in-flight work
                 log.error("engine step failed:\n%s", traceback.format_exc())
-                self.engine.shed("error")
+                events = eng.shed("error")
+            self._observe(events, time.monotonic() - t0)
 
-    def stop(self) -> None:
-        self._halt.set()
-        self._wake.set()
+    def _observe(self, events, dt: float) -> None:
+        """Feed the step's numbers to the metrics (the JAX EngineLoop's)."""
+        m, eng = self.metrics, self.engine
+        if not m:
+            return
+        m["decode_step"].labels(model=self.model_name).observe(dt)
+        if eng.preemptions > self._preempt_seen:
+            m["preemptions"].inc(eng.preemptions - self._preempt_seen)
+            self._preempt_seen = eng.preemptions
+        m["batch_occupancy"].set(sum(r is not None for r in eng.slots))
+        m["kv_pages_used"].set(eng.config.num_pages - 1 - eng.allocator.num_free_pages)
+        m["waiting"].set(len(eng.waiting))
+        m["queue_depth"].labels(model=self.model_name, role="both").set(len(eng.waiting))
+        m["prefix_hit_tokens"].set(eng.allocator.hit_tokens_total)
+        for ev in events:
+            m["tokens_generated"].inc(len(ev.new_tokens))
+            r = ev.request
+            if ev.finished:
+                m["requests_finished"].inc()
+                m["e2e_latency"].labels(model=self.model_name).observe(
+                    (r.finished_at or time.monotonic()) - r.submitted_at)
+            if r.first_token_at and r.id not in self._ttft_seen:
+                self._ttft_seen.add(r.id)
+                m["ttft"].labels(model=self.model_name).observe(
+                    r.first_token_at - r.submitted_at)
+            if ev.finished:
+                self._ttft_seen.discard(r.id)
 
 
 class OpenAIServer:
     """The HTTP front end of one engine serving one model."""
 
-    def __init__(self, engine: Engine, tokenizer, model_name: str):
+    STATE_CODES = {"loading": 0, "serving": 1, "draining": 2, "wedged": 3}
+
+    def __init__(self, engine: Engine, tokenizer, model_name: str,
+                 cold_start: Optional[dict] = None):
         self.engine = engine
         self.tokenizer = tokenizer
         self.model_name = model_name
-        self.loop = EngineLoop(engine)
+        self.registry = Registry()
+        self.metrics = engine_metrics(self.registry)
+        build_info_metrics(self.registry,
+                           backend="gpu" if engine.device.type == "cuda" else "cpu")
+        self.metrics["kv_bytes_per_token"].set(engine.cache_config.bytes_per_token)
+        for phase, seconds in (cold_start or {}).items():
+            self.metrics["cold_start"].labels(phase=phase).observe(seconds)
+        self.loop = EngineLoop(engine, self.metrics, model_name)
         self.httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        # loading -> serving -> draining; "wedged" (the engine watchdog)
+        # overrides all: /health fails only then, /ready passes only serving
+        self._state = "loading"
+        # in-flight completion handlers: a drained process waits for their
+        # last writes before it stops serving
+        self._active = 0
+        self._active_lock = threading.Lock()
+        # the /ready bloom filter over the prefix cache's digests, rebuilt
+        # at most every LLMK_PREFIX_FILTER_INTERVAL_S (the JAX knobs)
+        self._pf_doc: Optional[dict] = None
+        self._pf_built = 0.0
+        self._pf_bits = int(os.environ.get("LLMK_PREFIX_FILTER_BITS", "8192"))
+        self._pf_hashes = int(os.environ.get("LLMK_PREFIX_FILTER_HASHES", "4"))
+        self._pf_interval = float(os.environ.get("LLMK_PREFIX_FILTER_INTERVAL_S", "2.0"))
 
     # -- lifecycle ---------------------------------------------------------
+
+    @property
+    def state(self) -> str:
+        return "wedged" if self.engine.wedged else self._state
 
     def bind(self, host: str = "0.0.0.0", port: int = 8080) -> ThreadingHTTPServer:
         server = self
@@ -129,25 +389,57 @@ class OpenAIServer:
         class Handler(_Handler):
             app = server
 
-        self.httpd = ThreadingHTTPServer((host, port), Handler)
-        self.httpd.daemon_threads = True
+        self.httpd = _HTTPServer((host, port), Handler)
         return self.httpd
+
+    def _start_serving(self) -> None:
+        self.loop.start()
+        self._state = "serving"
+        self.metrics["cold_start"].labels(phase="ready").observe(process_age_s())
 
     def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
         """Serve on a background thread (tests); returns the bound port."""
         httpd = self.bind(host, port)
-        self.loop.start()
+        self._start_serving()
         self._thread = threading.Thread(target=httpd.serve_forever, daemon=True)
         self._thread.start()
         return httpd.server_address[1]
 
     def serve_forever(self, host: str, port: int) -> None:
         httpd = self.bind(host, port)
-        self.loop.start()
+        self._start_serving()
         try:
             httpd.serve_forever()
         finally:
             self.close()
+
+    def begin_drain(self) -> bool:
+        """Refuse new requests (503) and turn /ready to 503 so routers eject
+        this replica, while the engine loop finishes the work in flight
+        (at most ``EngineLoop.drain_timeout_s``). Callable from any thread
+        or a signal handler; returns False when already draining."""
+        if self._state == "draining":
+            return False
+        self._state = "draining"
+        self.metrics["engine_state"].set(self.STATE_CODES["draining"])
+        self.loop.stop()
+        return True
+
+    def shutdown_when_drained(self) -> threading.Thread:
+        """After ``begin_drain``: wait for the engine loop to end and the
+        handlers in flight to write their last bytes, then stop serving, so
+        ``serve_forever`` returns."""
+        def finish():
+            self.loop.join(self.loop.drain_timeout_s + 5.0)
+            deadline = time.monotonic() + 10.0
+            while self._active and time.monotonic() < deadline:
+                time.sleep(0.05)
+            if self.httpd is not None:
+                self.httpd.shutdown()
+
+        t = threading.Thread(target=finish, name="drain", daemon=True)
+        t.start()
+        return t
 
     def close(self) -> None:
         if self.httpd is not None:
@@ -160,14 +452,33 @@ class OpenAIServer:
         if self.loop.is_alive():
             self.loop.join(timeout=10)
 
-    # -- request handling --------------------------------------------------
+    def prefix_filter_doc(self) -> Optional[dict]:
+        """The serialized bloom filter of the prefix cache's page digests
+        for the /ready body, rebuilt at most every ``_pf_interval`` s; None
+        when LLMK_PREFIX_FILTER_BITS is 0."""
+        if self._pf_bits <= 0:
+            return None
+        now = time.monotonic()
+        if self._pf_doc is not None and now - self._pf_built < self._pf_interval:
+            return self._pf_doc
+        f = BloomFilter(self._pf_bits, self._pf_hashes)
+        for d in self.engine.prefix_filter_digests():
+            f.add(d)
+        self._pf_doc = f.serialize()
+        self._pf_built = now
+        return self._pf_doc
 
-    def sampling_from_body(self, body: dict) -> SamplingParams:
+    # -- request parsing ---------------------------------------------------
+
+    def sampling_from_body(self, body: dict, chat: bool) -> SamplingParams:
         for key in _UNSUPPORTED:
             if body.get(key) not in (None, False, [], ""):
                 raise BadRequest(f"{key!r} is not supported by this server yet")
-        if body.get("n", 1) != 1:
-            raise BadRequest("only n=1 is supported by this server yet")
+        rf = body.get("response_format")
+        if rf is not None and not (isinstance(rf, dict) and rf.get("type") in (None, "text")):
+            raise BadRequest("'response_format' is not supported by this server yet")
+        if not chat and body.get("suffix"):
+            raise BadRequest("suffix (fill-in-middle) is not supported by this model server")
         seed = body.get("seed")
         if seed is not None:
             if not isinstance(seed, int) or isinstance(seed, bool):
@@ -175,6 +486,43 @@ class OpenAIServer:
             seed &= 0x7FFFFFFF
         max_tokens = body.get("max_tokens") or body.get("max_completion_tokens") or 256
         try:
+            # completions take an int (top-N a token); chat a bool plus
+            # top_logprobs; at most LOGPROB_TOPK either way
+            if chat:
+                want = bool(body.get("logprobs", False))
+                nlp = int(body.get("top_logprobs", 0) or 0) if want else 0
+                if want and nlp == 0:
+                    nlp = 1         # logprobs: true alone still gives the chosen
+            else:
+                raw = body.get("logprobs")
+                if raw is not None and (not isinstance(raw, int) or isinstance(raw, bool)):
+                    raise BadRequest("logprobs must be an integer")
+                if raw is not None and raw < 0:
+                    raise BadRequest("logprobs must be non-negative")
+                nlp = int(raw or 0)
+                if raw is not None:
+                    nlp = max(nlp, 1)   # logprobs: 0 still gives token_logprobs
+            if nlp < 0:
+                raise BadRequest("logprobs/top_logprobs must be non-negative")
+            if nlp > LOGPROB_TOPK:
+                raise BadRequest(f"logprobs/top_logprobs supports at most {LOGPROB_TOPK} "
+                                 f"alternatives, got {nlp}")
+            bias: list = []
+            lb = body.get("logit_bias")
+            if lb is not None:
+                if not isinstance(lb, dict):
+                    raise BadRequest("logit_bias must be an object mapping token ids to "
+                                     "bias values")
+                for k, v in lb.items():
+                    try:
+                        tid = int(k)
+                    except (TypeError, ValueError):
+                        raise BadRequest(f"logit_bias key {k!r} is not a token id")
+                    if not isinstance(v, (int, float)) or isinstance(v, bool):
+                        raise BadRequest(f"logit_bias value for {k} must be a number")
+                    if not -100.0 <= float(v) <= 100.0:
+                        raise BadRequest("logit_bias values must be in [-100, 100]")
+                    bias.append((tid, float(v)))
             return SamplingParams(
                 temperature=float(body.get("temperature", 1.0)),
                 top_p=float(body.get("top_p", 1.0)),
@@ -184,11 +532,18 @@ class OpenAIServer:
                 seed=seed,
                 presence_penalty=float(body.get("presence_penalty", 0.0)),
                 frequency_penalty=float(body.get("frequency_penalty", 0.0)),
+                logprobs=nlp,
+                logit_bias=tuple(bias),
             )
+        except BadRequest:
+            raise
         except (TypeError, ValueError) as e:
             raise BadRequest(f"bad sampling parameter: {e}")
 
-    def prompt_from_body(self, body: dict, chat: bool) -> list[int]:
+    def prompts_from_body(self, body: dict, chat: bool) -> list[list[int]]:
+        """The request's prompts: chat messages through the chat template;
+        a completions prompt as a string, token ids, or a list of either
+        (one choice group each)."""
         if chat:
             messages = body.get("messages")
             if not isinstance(messages, list) or not messages:
@@ -196,21 +551,100 @@ class OpenAIServer:
             if any(not isinstance(m, dict) or not isinstance(m.get("content", ""), str)
                    for m in messages):
                 raise BadRequest("each message must be an object with string content")
-            return self.tokenizer.apply_chat_template(messages)
+            return [self.tokenizer.apply_chat_template(messages)]
         prompt = body.get("prompt", "")
+
+        def is_ids(p):
+            return isinstance(p, list) and all(
+                isinstance(t, int) and not isinstance(t, bool) for t in p)
+
         if isinstance(prompt, str):
-            ids = self.tokenizer.encode(prompt)
-        elif isinstance(prompt, list) and all(
-                isinstance(t, int) and not isinstance(t, bool) for t in prompt):
-            ids = list(prompt)
-        elif isinstance(prompt, list) and len(prompt) == 1 and isinstance(prompt[0], str):
-            ids = self.tokenizer.encode(prompt[0])
+            prompts = [self.tokenizer.encode(prompt)]
+        elif is_ids(prompt) and prompt:
+            prompts = [list(prompt)]
+        elif isinstance(prompt, list):
+            prompts = []
+            for p in prompt:
+                if isinstance(p, str):
+                    prompts.append(self.tokenizer.encode(p))
+                elif is_ids(p):
+                    prompts.append(list(p))
+                else:
+                    raise BadRequest("prompt list items must be strings or token-id lists")
         else:
-            raise BadRequest("prompt must be a string or a list of token ids "
-                             "(one prompt per request)")
-        if not ids:
+            raise BadRequest("prompt must be a string or a list")
+        if not prompts or any(not p for p in prompts):
             raise BadRequest("empty prompt")
-        return ids
+        return prompts
+
+    # -- response shaping --------------------------------------------------
+
+    def _tok_str(self, tid: int) -> str:
+        return self.tokenizer.decode([tid])
+
+    def chat_logprobs(self, entries, nlp: int) -> dict:
+        content = []
+        for _tid, lp, piece in entries:
+            if lp is None:
+                continue
+            chosen, top_ids, top_lps = lp
+            content.append({
+                "token": piece, "logprob": chosen, "bytes": list(piece.encode("utf-8")),
+                "top_logprobs": [
+                    {"token": self._tok_str(i), "logprob": v,
+                     "bytes": list(self._tok_str(i).encode("utf-8"))}
+                    for i, v in zip(top_ids[:nlp], top_lps[:nlp])],
+            })
+        return {"content": content}
+
+    def completion_logprobs(self, entries, nlp: int, base_offset: int) -> dict:
+        """Token strings and offsets from each token's emitted piece, so
+        text[text_offset[i]:][:len(tokens[i])] == tokens[i]."""
+        tokens, token_logprobs, top_logprobs, text_offset = [], [], [], []
+        offset = base_offset
+        for _tid, lp, piece in entries:
+            if lp is None:
+                offset += len(piece)
+                continue
+            chosen, top_ids, top_lps = lp
+            tokens.append(piece)
+            token_logprobs.append(chosen)
+            top_logprobs.append({self._tok_str(i): v
+                                 for i, v in zip(top_ids[:nlp], top_lps[:nlp])})
+            text_offset.append(offset)
+            offset += len(piece)
+        return {"tokens": tokens, "token_logprobs": token_logprobs,
+                "top_logprobs": top_logprobs, "text_offset": text_offset}
+
+    def prompt_logprob_block(self, prompt_ids, score, nlp: int) -> dict:
+        """The ``echo`` block: entry i scores prompt token i (null for the
+        first: nothing conditions it)."""
+        lps, top_ids, top_lps = score
+        detok = IncrementalDetokenizer(self.tokenizer)
+        tokens, token_logprobs, top_logprobs, text_offset = [], [], [], []
+        offset = 0
+        for i, tid in enumerate(prompt_ids):
+            piece = detok.push([tid], final=i == len(prompt_ids) - 1)
+            tokens.append(piece)
+            if i == 0:
+                token_logprobs.append(None)
+                top_logprobs.append(None)
+            else:
+                token_logprobs.append(float(lps[i - 1]))
+                top_logprobs.append({self._tok_str(t): float(v) for t, v in
+                                     zip(top_ids[i - 1][:nlp], top_lps[i - 1][:nlp])})
+            text_offset.append(offset)
+            offset += len(piece)
+        return {"tokens": tokens, "token_logprobs": token_logprobs,
+                "top_logprobs": top_logprobs, "text_offset": text_offset}
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    # a replica takes bursts of connections from routers and clients: the
+    # socketserver default backlog of 5 resets some of them (aiohttp's, the
+    # JAX server's, is 128)
+    request_queue_size = 128
+    daemon_threads = True
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -222,18 +656,25 @@ class _Handler(BaseHTTPRequestHandler):
 
     # -- plumbing ----------------------------------------------------------
 
-    def _send(self, status: int, body: bytes, ctype: str) -> None:
+    def _send(self, status: int, body: bytes, ctype: str, headers: Optional[dict] = None
+              ) -> None:
         self.send_response(status)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(body)
 
-    def _json(self, status: int, obj) -> None:
-        self._send(status, json.dumps(obj).encode(), "application/json")
+    def _json(self, status: int, obj, headers: Optional[dict] = None) -> None:
+        self._send(status, json.dumps(obj).encode(), "application/json", headers)
 
-    def _error(self, status: int, message: str, kind: str = "invalid_request_error") -> None:
-        self._json(status, {"error": {"message": message, "type": kind}})
+    def _error(self, status: int, message: str, kind: str = "invalid_request_error",
+               code: Optional[str] = None, headers: Optional[dict] = None) -> None:
+        err = {"message": message, "type": kind}
+        if code is not None:
+            err["code"] = code
+        self._json(status, {"error": err}, headers)
 
     def _read_json(self) -> dict:
         n = int(self.headers.get("Content-Length") or 0)
@@ -249,15 +690,36 @@ class _Handler(BaseHTTPRequestHandler):
     # -- routes ------------------------------------------------------------
 
     def do_GET(self):
+        app = self.app
         if self.path == "/health":
-            self._send(200, b"OK", "text/plain; charset=utf-8")
+            if app.state == "wedged":
+                self._error(503, "engine wedged", "service_unavailable")
+            else:
+                self._send(200, b"OK", "text/plain; charset=utf-8")
+        elif self.path == "/ready":
+            state = app.state
+            app.metrics["engine_state"].set(app.STATE_CODES[state])
+            if state == "serving":
+                doc = {"state": state}
+                pf = app.prefix_filter_doc()
+                if pf is not None:
+                    doc["prefix_filter"] = pf
+                self._json(200, doc)
+            else:
+                self._json(503, {"state": state, "error": {
+                    "message": f"not ready: {state}", "type": "service_unavailable"}})
+        elif self.path == "/metrics":
+            app.metrics["engine_state"].set(app.STATE_CODES[app.state])
+            self._send(200, app.registry.render().encode(), "text/plain; charset=utf-8")
+        elif self.path == "/version":
+            self._json(200, {"version": __version__})
         elif self.path == "/v1/models":
             self._json(200, {"object": "list", "data": [{
-                "id": self.app.model_name, "object": "model",
+                "id": app.model_name, "object": "model",
                 "created": int(time.time()),
                 "owned_by": "llms-on-kubernetes-tpu-torch"}]})
         elif self.path == "/debug/kernels":
-            eng = self.app.engine
+            eng = app.engine
             self._json(200, {"launches": kernels.launch_counts(),
                              "replayed_launches": kernels.replayed_counts(),
                              "device": str(eng.device),
@@ -276,64 +738,211 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path == "/debug/kernels/reset":
             kernels.reset_launches()
             self._json(200, {"launches": kernels.launch_counts()})
-            return
-        if self.path not in ("/v1/completions", "/v1/chat/completions"):
+        elif self.path in ("/tokenize", "/detokenize"):
+            try:
+                body = self._read_json()
+                self._json(200, (self._tokenize if self.path == "/tokenize"
+                                 else self._detokenize)(body))
+            except BadRequest as e:
+                self._error(400, str(e))
+        elif self.path in ("/v1/completions", "/v1/chat/completions"):
+            with self.app._active_lock:
+                self.app._active += 1
+            try:
+                self._completion(self.path == "/v1/chat/completions")
+            finally:
+                with self.app._active_lock:
+                    self.app._active -= 1
+        else:
             self._error(404, f"no route {self.path}", "not_found")
-            return
-        chat = self.path == "/v1/chat/completions"
+
+    def _tokenize(self, body: dict) -> dict:
+        """{"prompt": str} or {"messages": [...]} -> {"tokens", "count",
+        "max_model_len"} (vllm-openai's surface)."""
+        tok = self.app.tokenizer
+        prompt, messages = body.get("prompt"), body.get("messages")
+        try:
+            if isinstance(prompt, str):
+                ids = tok.encode(prompt)
+            elif isinstance(messages, list) and messages:
+                ids = tok.apply_chat_template(messages)
+            else:
+                raise BadRequest("provide prompt (string) or messages (list)")
+        except BadRequest:
+            raise
+        except Exception as e:  # bad roles or content: the client's input
+            raise BadRequest(f"bad input: {e}")
+        return {"tokens": list(ids), "count": len(ids),
+                "max_model_len": self.app.engine.config.max_model_len}
+
+    def _detokenize(self, body: dict) -> dict:
+        toks = body.get("tokens")
+        if not isinstance(toks, list) or any(
+                not isinstance(t, int) or isinstance(t, bool) for t in toks):
+            raise BadRequest("tokens must be a list of token ids")
+        vocab = self.app.engine.model_config.vocab_size
+        if any(not 0 <= t < vocab for t in toks):
+            raise BadRequest(f"token id outside the vocabulary (size {vocab})")
+        return {"prompt": self.app.tokenizer.decode(toks)}
+
+    def _completion(self, chat: bool) -> None:
         app = self.app
+        if app.state == "draining":
+            # in-flight streams finish; new work goes to a live replica
+            self._error(503, "server is draining; not accepting new requests",
+                        "service_unavailable", "shutting_down", {"Retry-After": "5"})
+            return
         try:
             body = self._read_json()
-            params = app.sampling_from_body(body)
-            prompt = app.prompt_from_body(body, chat)
-            events: "queue.SimpleQueue" = queue.SimpleQueue()
-            req = app.loop.submit(prompt, params, events.put)
+            params = app.sampling_from_body(body, chat)
+            prompts = app.prompts_from_body(body, chat)
+            stream = bool(body.get("stream"))
+            want_scores = bool(not chat and body.get("echo") and params.logprobs)
+            if want_scores and stream:
+                raise BadRequest("echo with logprobs cannot be streamed; use stream=false")
+            n = body.get("n", 1)
+            if not isinstance(n, int) or isinstance(n, bool) or not 1 <= n <= MAX_CHOICES:
+                raise BadRequest(f"n must be an integer in [1, {MAX_CHOICES}]")
+            # best_of: that many candidates a prompt, the n of highest mean
+            # logprob returned (not streamed)
+            best_of = body.get("best_of", n) if not chat else n
+            if not isinstance(best_of, int) or isinstance(best_of, bool) or best_of < n:
+                raise BadRequest("best_of must be an integer >= n")
+            if best_of > MAX_CHOICES:
+                raise BadRequest(f"best_of must be <= {MAX_CHOICES}")
+            if best_of > n and stream:
+                raise BadRequest("best_of > n cannot be streamed")
         except BadRequest as e:
             self._error(400, str(e))
             return
-        except QueueFullError as e:
-            self._error(429, str(e), "rate_limit_exceeded")
+        stops = _parse_stops(body)
+        events: "queue.SimpleQueue" = queue.SimpleQueue()
+        reqs: list = []
+        try:
+            # prompt-major choice order; choice j > 0 of a seeded request
+            # gets seed + j (a fixed seed would repeat the choice)
+            for prompt in prompts:
+                for j in range(best_of):
+                    p = params
+                    if best_of > 1 and params.seed is not None and j > 0:
+                        p = dataclasses.replace(params, seed=(params.seed + j) & 0x7FFFFFFF)
+                    idx = len(reqs)
+                    reqs.append(app.loop.submit(
+                        prompt, p, lambda payload, idx=idx: events.put((idx, payload))))
+        except EngineStallError as e:
+            self._abort_all(reqs)
+            self._error(503, str(e), "service_unavailable", "engine_stalled",
+                        {"Retry-After": "30"})
             return
-        except ValueError as e:          # engine validation (length, top_k, ...)
+        except QueueFullError as e:
+            self._abort_all(reqs)
+            self._error(429, str(e), "rate_limit_exceeded", "overloaded")
+            return
+        except ValueError as e:          # engine validation (length, top_k, bias, ...)
+            self._abort_all(reqs)
             self._error(400, str(e))
             return
         rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex
         created = int(time.time())
+        choices = [_Choice(app, r, stops) for r in reqs]
         try:
-            if body.get("stream"):
+            if stream:
                 include_usage = bool((body.get("stream_options") or {}).get("include_usage"))
-                self._stream(req, events, rid, created, chat, len(prompt), include_usage)
-            else:
-                self._full(req, events, rid, created, chat, len(prompt))
-        except (BrokenPipeError, ConnectionResetError):
-            app.engine.abort(req, "disconnect")
-
-    def _drain(self, req, events):
-        """Yield (text delta, finished, finish_reason) per engine event."""
-        detok = IncrementalDetokenizer(self.app.tokenizer)
-        while True:
-            toks, done, reason = events.get()
-            yield detok.push(toks, final=done), done, reason
-            if done:
+                self._stream(choices, events, rid, created, chat, prompts, params.logprobs,
+                             include_usage)
                 return
+            scores = None
+            if want_scores:
+                try:
+                    scores = [app.loop.call(app.engine.score_prompt, p) for p in prompts]
+                except ValueError as e:
+                    self._abort_all(reqs)
+                    self._error(400, str(e))
+                    return
+            self._full(choices, events, rid, created, chat, prompts, params.logprobs, n,
+                       best_of, bool(body.get("echo")) and not chat, scores)
+        except (BrokenPipeError, ConnectionResetError):
+            self._abort_all(reqs, "disconnect")
+        except BaseException:
+            self._abort_all(reqs)
+            raise
 
-    def _full(self, req, events, rid, created, chat, n_prompt) -> None:
-        text, reason = "", None
-        for delta, done, reason in self._drain(req, events):
-            text += delta
-        choice = {"index": 0, "finish_reason": reason}
-        if chat:
-            choice["message"] = {"role": "assistant", "content": text}
-        else:
-            choice["text"] = text
-        n_out = len(req.output)
+    def _abort_all(self, reqs, reason: str = "abort") -> None:
+        for r in reqs:
+            self.app.loop.abort(r, reason)
+
+    @staticmethod
+    def _events(choices, events):
+        """Yield (choice index, text, done, reason, released entries) per
+        engine event, until every choice is done; events for a choice
+        already done (after a stop string aborted it) are dropped."""
+        while not all(c.done for c in choices):
+            i, (toks, done, reason) = events.get()
+            if not choices[i].done:
+                yield (i, *choices[i].feed(toks, done, reason))
+
+    def _full(self, choices, events, rid, created, chat, prompts, nlp, n, best_of, echo,
+              scores) -> None:
+        app = self.app
+        texts = [""] * len(choices)
+        reasons: list = [None] * len(choices)
+        entries: list = [[] for _ in choices]
+        for i, text, done, reason, released in self._events(choices, events):
+            texts[i] += text
+            entries[i] += released
+            if done:
+                reasons[i] = reason
+        if "stalled" in reasons:
+            # the watchdog shed the step this request rode: a clean 503 (a
+            # retry may land on a healthy replica), not a truncated answer
+            self._error(503, "engine stalled while generating; request was aborted",
+                        "service_unavailable", "engine_stalled", {"Retry-After": "30"})
+            return
+        results = [(i // best_of, texts[i], reasons[i], entries[i])
+                   for i in range(len(choices))]
+        if best_of > n:
+            # keep each prompt's n best by mean token logprob; an empty
+            # completion never wins
+            def score(ents):
+                lps = [lp[0] for _, lp, _ in ents if lp is not None]
+                return sum(lps) / len(lps) if lps else float("-inf")
+
+            kept = []
+            for g in range(len(prompts)):
+                group = [r for r in results if r[0] == g]
+                group.sort(key=lambda r: score(r[3]), reverse=True)
+                kept += group[:n]
+            results = kept
+        out = []
+        blocks: dict = {}
+        for i, (g, text, reason, ents) in enumerate(results):
+            if chat:
+                choice = {"index": i, "message": {"role": "assistant", "content": text},
+                          "finish_reason": reason}
+                if nlp:
+                    choice["logprobs"] = app.chat_logprobs(ents, nlp)
+            else:
+                echo_text = app.tokenizer.decode(prompts[g]) if echo else ""
+                choice = {"index": i, "text": echo_text + text, "finish_reason": reason}
+                if nlp:
+                    lp = app.completion_logprobs(ents, nlp, len(echo_text))
+                    if scores is not None:
+                        if g not in blocks:
+                            blocks[g] = app.prompt_logprob_block(prompts[g], scores[g], nlp)
+                        lp = {k: blocks[g][k] + lp[k] for k in lp}
+                    choice["logprobs"] = lp
+            out.append(choice)
+        n_prompt = sum(len(p) for p in prompts)
+        n_out = sum(c.total for c in choices)
         self._json(200, {
             "id": rid, "object": "chat.completion" if chat else "text_completion",
-            "created": created, "model": self.app.model_name, "choices": [choice],
+            "created": created, "model": app.model_name, "choices": out,
             "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_out,
                       "total_tokens": n_prompt + n_out}})
 
-    def _stream(self, req, events, rid, created, chat, n_prompt, include_usage) -> None:
+    def _stream(self, choices, events, rid, created, chat, prompts, nlp, include_usage
+                ) -> None:
+        app = self.app
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
         self.send_header("Cache-Control", "no-cache")
@@ -346,33 +955,46 @@ class _Handler(BaseHTTPRequestHandler):
             self.wfile.write(f"data: {data}\n\n".encode())
             self.wfile.flush()
 
-        def chunk(text: Optional[str], reason: Optional[str], role: bool = False) -> dict:
+        def chunk(index: int, text: Optional[str], reason: Optional[str],
+                  role: bool = False, ents=None, base_offset: int = 0) -> dict:
             if chat:
                 delta: dict = {"role": "assistant"} if role else {}
                 if text is not None:
                     delta["content"] = text
-                choice = {"index": 0, "delta": delta, "finish_reason": reason}
+                choice = {"index": index, "delta": delta, "finish_reason": reason}
+                if nlp and ents:
+                    choice["logprobs"] = app.chat_logprobs(ents, nlp)
             else:
-                choice = {"index": 0, "text": text or "", "finish_reason": reason}
+                choice = {"index": index, "text": text or "", "finish_reason": reason}
+                if nlp and ents:
+                    choice["logprobs"] = app.completion_logprobs(ents, nlp, base_offset)
             return {"id": rid, "object": obj, "created": created,
-                    "model": self.app.model_name, "choices": [choice]}
+                    "model": app.model_name, "choices": [choice]}
 
         if chat:
-            write(chunk(None, None, role=True))
-        signalled = False
-        for delta, done, reason in self._drain(req, events):
-            if delta or not signalled:
-                # the first token always gets a chunk, even when its text is
-                # held back or empty, so time-to-first-chunk tracks the
-                # engine's first token
-                write(chunk(delta, None))
-                signalled = True
+            for i in range(len(choices)):
+                write(chunk(i, None, None, role=True))
+        signalled = [False] * len(choices)
+        chars = [0] * len(choices)      # each choice's offsets run over its stream
+        for i, text, done, reason, ents in self._events(choices, events):
+            # a chunk is due for text or logprob entries; the first token
+            # always gets one, even when its text is held back, so the
+            # time to the first chunk tracks the engine's first token
+            if text or (nlp and ents):
+                write(chunk(i, text or None, None, ents=ents, base_offset=chars[i]))
+                signalled[i] = True
+                if nlp:
+                    chars[i] += sum(len(p) for _, _, p in ents)
+            elif not signalled[i] and not done:
+                write(chunk(i, "", None))
+                signalled[i] = True
             if done:
-                write(chunk(None, reason))
+                write(chunk(i, None, reason))
         if include_usage:
-            n_out = len(req.output)
+            n_prompt = sum(len(p) for p in prompts)
+            n_out = sum(c.total for c in choices)
             write({"id": rid, "object": obj, "created": created,
-                   "model": self.app.model_name, "choices": [],
+                   "model": app.model_name, "choices": [],
                    "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_out,
                              "total_tokens": n_prompt + n_out}})
         write("[DONE]")
@@ -384,15 +1006,19 @@ def serve(model: str = "debug-tiny", *, host: str = "0.0.0.0", port: int = 8080,
           served_model_name: Optional[str] = None,
           engine_config: Optional[EngineConfig] = None,
           model_dir: Optional[str] = None) -> None:
-    """Build the engine and serve until interrupted. ``model`` is a
-    registry name, a checkpoint directory or a HF id found in the local
-    cache; the weights come from ``model_dir`` (default: ``model``
-    resolved by ``engine/weights.resolve_model_dir``, which raises
-    FileNotFoundError on a miss), or are seeded random with
+    """Build the engine and serve until SIGTERM or SIGINT drains it.
+    ``model`` is a registry name, a checkpoint directory or a HF id found
+    in the local cache; the weights come from ``model_dir`` (default:
+    ``model`` resolved by ``engine/weights.resolve_model_dir``, which
+    raises FileNotFoundError on a miss), or are seeded random with
     ``random_weights``. ``device`` "cuda" (the default) raises without a
     GPU. The tokenizer is read first, then the CUDA kernels are built and
     the weights loaded onto the device, all before the server binds, so
-    ``/health`` answers only once the model can serve."""
+    ``/health`` answers only once the model can serve.
+
+    SIGTERM (and SIGINT) begins the drain: /ready answers 503, new requests
+    get 503, and the process returns once the work in flight is done (at
+    most ``EngineLoop.drain_timeout_s``) and its last bytes are written."""
     dev = resolve_device(device)
     if not random_weights and model_dir is None:
         model_dir = resolve_model_dir(model)
@@ -408,7 +1034,19 @@ def serve(model: str = "debug-tiny", *, host: str = "0.0.0.0", port: int = 8080,
                     model_dir=None if random_weights else model_dir)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
     source = "seeded random weights" if random_weights else f"weights from {model_dir}"
-    print(f"[serve] {model_config.name}: {source} on {dev.type} in "
-          f"{time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
-    OpenAIServer(engine, tokenizer, served_model_name or model).serve_forever(host, port)
+    print(f"[serve] {model_config.name}: {source} on {dev.type} in {load_s:.1f} s",
+          file=sys.stderr, flush=True)
+    server = OpenAIServer(engine, tokenizer, served_model_name or model,
+                          cold_start={"load": load_s})
+
+    def on_signal(signum, _frame):
+        if server.begin_drain():
+            print(f"[serve] signal {signum}: draining", file=sys.stderr, flush=True)
+            server.shutdown_when_drained()
+
+    signal.signal(signal.SIGTERM, on_signal)
+    signal.signal(signal.SIGINT, on_signal)
+    server.serve_forever(host, port)
+    print("[serve] drained, exiting", file=sys.stderr, flush=True)

@@ -15,6 +15,8 @@ append are compared exactly, for int8 pools data and scale both: the
 kernel's quantization must store engine/cache.quantize_kv's bytes.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1320,3 +1322,124 @@ def test_int8_weight_engine_equals_the_cpu(cuda, async_scheduling):
             eng.step()
         outs[dev] = [(r.output, r.finish_reason) for r in reqs]
     assert outs["cuda"] == outs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# logit_bias in the graphed window, prompt scoring and the watchdog
+# ---------------------------------------------------------------------------
+
+BIASES = [((5, 100.0),), (), ((9, -100.0), (11, 3.0), (200, -2.5)),
+          tuple((t, 0.25 * (t % 7) - 0.75) for t in range(100, 132))]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["f32_kv", "int8_kv"])
+def test_biased_window_graph_replay_equals_the_eager_window(cuda, kv_dtype):
+    """Requests whose logit_bias arrives after the window was captured (with
+    every row idle): the replay applies each row's bias, byte for byte as
+    the eager window does, and +100 forces its token."""
+    from llms_on_kubernetes_tpu_torch.engine.cache import KVPool
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+    from llms_on_kubernetes_tpu_torch.engine.graphs import unpack_results
+
+    eng = _tiny_engine("cuda", kv_cache_dtype=kv_dtype, async_scheduling=False)
+    prompts = [[3, 17, 9], [40, 2] * 9, [7] * 30, [5, 6]]
+    for p, b in zip(prompts, BIASES):
+        eng.submit(p, SamplingParams(max_tokens=64, temperature=0.7, seed=5,
+                                     presence_penalty=0.4, logit_bias=b))
+    eng._admit()
+    K = eng.config.decode_steps
+    active = [(i, r) for i, r in enumerate(eng.slots) if r is not None]
+    base = {i: int(eng.slot_len[i]) + 1 for i, _r in active}
+    for i, _r in active:
+        eng.allocator.allocate(i, base[i] + K - 1)
+    packed = eng._window_rows(active, {i: K for i, _r in active}, base)
+    pools = [KVPool(p.data.clone(), None if p.scale is None else p.scale.clone())
+             for p in (eng.k_pages, eng.v_pages)]
+    counts = eng.token_counts.clone()
+    zeros = torch.zeros(eng.config.max_decode_slots, dtype=torch.int32, device="cuda")
+    eager_pack, eager_toks = eng._window._eager(
+        torch.from_numpy(packed).cuda(), zeros, zeros[:1], *pools, counts,
+        workspace=pa.DecodeWorkspace())
+    pack, toks = eng._window.run(packed, None, None)
+    torch.cuda.synchronize()
+    assert eng.graph_replays == 1
+    assert torch.equal(pack, eager_pack) and torch.equal(toks, eager_toks)
+    assert torch.equal(eng.token_counts, counts)
+    tokens = unpack_results(pack.cpu().numpy())[0].reshape(K, -1)
+    assert (tokens[:, 0] == 5).all()                     # forced in every step
+    assert not (tokens[:, 2] == 9).any()                  # banned
+
+
+@pytest.mark.parametrize("async_scheduling", [True, False], ids=["async", "sync"])
+def test_biased_graphed_engine_equals_the_cpu(cuda, async_scheduling):
+    """Greedy streams with per-request biases, submitted after the capture
+    and joining a decoding batch: the card's (graph replays) equal the
+    CPU's (eager)."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    prompts = [[3, 17, 9], [40, 2] * 9, [7] * 30, [5, 6], [(7 * i) % 251 for i in range(45)]]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        eng = _tiny_engine(dev, async_scheduling=async_scheduling)
+        reqs = [eng.submit(prompts[0], SamplingParams(max_tokens=24, temperature=0.0))]
+        for _ in range(3):
+            eng.step()
+        reqs += [eng.submit(p, SamplingParams(max_tokens=16, temperature=0.0, logit_bias=b))
+                 for p, b in zip(prompts[1:], BIASES)]
+        while eng.has_work():
+            eng.step()
+        outs[dev] = [(r.output, r.finish_reason) for r in reqs]
+        if dev == "cuda":
+            assert eng.graph_replays * eng.config.decode_steps == eng.decode_forwards > 0
+    assert outs["cuda"] == outs["cpu"]
+    assert outs["cuda"][1][0] == [5] * 16
+
+
+def test_forward_score_through_the_flash_kernel(cuda):
+    """forward_score on the card (flash prefill, kernel 1, once a layer)
+    equals the plain version on the CPU: logprobs within 1e-4, top ids
+    exact; Engine.score_prompt on the card equals the CPU engine's."""
+    from llms_on_kubernetes_tpu_torch.models.decoder import forward_score
+
+    rng = np.random.default_rng(3)
+    cpu = _tiny_engine("cpu")
+    eng = _tiny_engine("cuda")
+    toks = torch.from_numpy(rng.integers(0, 256, (1, 32)).astype(np.int32))
+    n = torch.tensor([29], dtype=torch.int32)
+    want = forward_score(cpu.params, cpu.model_config, toks, n, 8)
+    before = kernels.launch_counts().get("flash_prefill", 0)
+    got = forward_score(eng.params, eng.model_config, toks.cuda(), n.cuda(), 8)
+    torch.cuda.synchronize()
+    assert (kernels.launch_counts()["flash_prefill"] - before
+            == eng.model_config.num_layers)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-4, atol=1e-4)
+    prompt = rng.integers(0, 256, 40).tolist()
+    a, b = eng.score_prompt(prompt), cpu.score_prompt(prompt)
+    np.testing.assert_allclose(a[0], b[0], rtol=1e-4, atol=1e-4)
+    assert a[1] == b[1]
+
+
+def test_watchdog_sheds_a_spinning_card(cuda):
+    """A spin kernel on the engine's stream outlasts the watchdog budget:
+    every request finishes "stalled", the engine wedges and refuses, and the
+    process goes on once the spin ends."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import (
+        EngineStallError, SamplingParams,
+    )
+
+    eng = _tiny_engine("cuda", watchdog_stall_s=0.2)
+    eng._est_step = 1e-3
+    reqs = [eng.submit(p, SamplingParams(max_tokens=32, temperature=0.0))
+            for p in ([3, 17, 9], [40, 2] * 9)]
+    torch.cuda._sleep(4_000_000_000)          # ~2 s at the H100's clock
+    t0 = time.monotonic()
+    while not all(r.finished for r in reqs):
+        assert time.monotonic() - t0 < 30
+        eng.step()
+    assert [r.finish_reason for r in reqs] == ["stalled", "stalled"]
+    assert eng.wedged and time.monotonic() - t0 < 2.0
+    with pytest.raises(EngineStallError):
+        eng.submit([1, 2], SamplingParams(max_tokens=2))
+    torch.cuda.synchronize()

@@ -39,6 +39,10 @@ def test_import_everything_without_jax():
         "from llms_on_kubernetes_tpu_torch.models.decoder import forward_chunk\n"
         "from llms_on_kubernetes_tpu_torch.engine.graphs import DecodeWindow, decode_window\n"
         "from llms_on_kubernetes_tpu_torch.ops.quant import QTensor, quantize_params, w8_matmul\n"
+        "from llms_on_kubernetes_tpu_torch.server.metrics import (\n"
+        "    Registry, build_info_metrics, engine_metrics)\n"
+        "from llms_on_kubernetes_tpu_torch.server.affinity import BloomFilter\n"
+        "from llms_on_kubernetes_tpu_torch.models.decoder import forward_score\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'llms_on_kubernetes_tpu'\n"
@@ -50,6 +54,12 @@ def test_import_everything_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
+
+
+def test_the_framework_free_copies_are_scanned():
+    """The port keeps its own copies of the JAX package's framework-free
+    server modules; the scan below covers them."""
+    assert {PKG / "server" / "metrics.py", PKG / "server" / "affinity.py"} <= set(SOURCES)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))

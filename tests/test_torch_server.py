@@ -135,9 +135,9 @@ def test_seeded_sampling_is_reproducible(base):
     ("/v1/completions", dict(body={"prompt": ""})),
     ("/v1/completions", dict(body={"prompt": "x" * 500})),
     ("/v1/completions", dict(body={"prompt": "abc", "top_k": 1000})),
-    ("/v1/completions", dict(body={"prompt": "abc", "logprobs": 2})),
-    ("/v1/completions", dict(body={"prompt": "abc", "stop": ["x"]})),
-    ("/v1/completions", dict(body={"prompt": "abc", "n": 2})),
+    ("/v1/completions", dict(body={"prompt": "abc", "logprobs": 9})),
+    ("/v1/completions", dict(body={"prompt": "abc", "logit_bias": {"5": 101}})),
+    ("/v1/completions", dict(body={"prompt": "abc", "n": 2, "best_of": 3, "stream": True})),
     ("/v1/completions", dict(body={"prompt": "abc", "temperature": "hot"})),
     ("/v1/completions", dict(raw=b"[1, 2]")),
 ])
