@@ -77,7 +77,17 @@ Phases, each fatal on failure:
    largest |logprob|); flash prefill launched num_layers times per
    prefill call plus once a layer for the scoring, every decode window a
    graph replay; ``/metrics`` linted by ``scripts/metrics_lint.py``,
-   ``/ready`` with its prefix filter. Last, the drain: SIGTERM while a
+   ``/ready`` with its prefix filter. Then the rest of the replica contract
+   (``_drive_contract``, counters zeroed before, read after): a stream with
+   ``X-LLMK-Deadline-Ms: 400`` and max_tokens 4,096 through the router ends
+   with finish_reason "timeout" (the ms from the deadline to its final
+   chunk printed), the pool's free plus evictable pages return to idle,
+   every window of it was a graph replay,
+   ``llm_deadline_exceeded_total{phase="decode"}`` reads one more, the
+   ``X-LLMK-Request-Id`` comes back through the router and
+   ``/debug/traces`` holds the request with its queue, prefill and decode
+   spans; ``/v1/embeddings`` answers 501 and a body declared at 64 MiB 413.
+   Last, the drain: SIGTERM while a
    256-token stream runs through the router: /ready 503 and new requests
    503 at once, the router's ``llm_replica_healthy`` 0 within two probe
    periods, the stream ends whole, the server exits 0. Then the same again
@@ -92,12 +102,26 @@ Phases, each fatal on failure:
    int8 weights (the W8A16 kernel's f32 body against the plain version),
    and a debug-tiny fp8 checkpoint from synth_checkpoint served on the card
    and the CPU with the same streams;
+   Then three short-lived debug-tiny servers (``phase_contract_servers``):
+   one in this process with ``LLMK_FAULT=queue_stall``,
+   max_waiting 1 and ``LLMK_SSE_KEEPALIVE_S=0.2`` (a held stream gets
+   ``: ping`` before any data and is shed "timeout" at its deadline, a
+   request past max_waiting 429 with Retry-After in [1, 60], a held
+   completion 504, the queue-phase counter +2), and two behind
+   ``llkt-router``, one with ``LLMK_FAULT=kill_mid_stream:8``: streams go
+   through the router until the victim resets one, each equal to the
+   uninterrupted stream with no error event, the router's resume count 1.
    Then the watchdog: a debug-tiny engine on the card with a 0.5 s
    ``watchdog_stall_s`` behind a ~3 s ``torch.cuda._sleep`` spin on its
    stream: every request finishes "stalled" before the spin ends, the
-   engine is wedged and refuses submissions, and the run goes on;
+   engine is wedged and refuses submissions, and the run goes on; then the
+   same under ``LLMK_FAULT=engine_stall`` (a harvester read that never
+   completes), both shed seconds printed;
 4. in process: the same random weights behind the default Engine (async,
-   graphed windows), first with bf16 KV, then with int8 KV. kv_write
+   graphed windows). First stream resume (``phase_resume``): greedy and
+   seeded streams cut after 1, 5 and 11 tokens and resumed with that prefix
+   equal the uninterrupted ones, in float32 (held) and bfloat16 (greedy
+   held, seeded counted). Then with bf16 KV, then with int8 KV. kv_write
    "fused": requests through it (counters zeroed before, read after: the
    fused kernel exactly num_layers times a decode step, every launch of
    it by a graph replay, no other decode kernel, graph_replays x
@@ -132,10 +156,21 @@ Phases, each fatal on failure:
    decode kernel and the window kernel each launch num_layers times their
    calls, no other kernel runs, and every decode window was a graph
    replay; then the same with
-   ``--kv-cache-dtype int8`` (kernels 1, 4 and 7); then loaded in process
+   ``--kv-cache-dtype int8`` (kernels 1, 4 and 7), the int8-KV server first
+   from the weights-only directory and the bf16-KV one after
+   ``write_tokenizer`` put the phi3 ``tokenizer.json`` and
+   ``tokenizer_config.json`` beside the weights (the request mix is sent
+   as token ids, the byte tokenizer's, so the chunk and window checks see
+   the same lengths); with the tokenizer, ``/tokenize`` of the probe
+   strings and chat equals ``TOKENIZER_PROBES``, a chat's prompt_tokens
+   the templated count, and +100 on ``<|end|>`` (32007) stops a chat at
+   once with no text; then loaded in process
    with ``quantization="int8"`` (load seconds, weight bytes on the card, a
    16-token greedy stream). Prints the load seconds, cold (in process) and
-   warm (in the server), the time to /health and the phase's seconds;
+   warm (in the server), the time to /health with the tokenizer beside the
+   weights-only run's, and the phase's seconds. Then llama-3-8b cut to 2
+   layers, written with the llama3 tokenizer files and served: the same
+   tokenizer checks (+100 on ``<|eot_id|>``, 128009);
 6. headline: the JAX bench's headline configuration (bench.py:2998-3037)
    in process, ``Engine(EngineConfig(model="llama-3-8b",
    quantization="int8", max_decode_slots=64, page_size=32,
@@ -1308,15 +1343,79 @@ def w8_kernels(torch, rng, timer, unsplit) -> dict:
 # phase 3: the server, through its normal entry point
 # ---------------------------------------------------------------------------
 
-def http(method: str, url: str, body=None, timeout: float = 600.0):
+def http(method: str, url: str, body=None, timeout: float = 600.0, headers=None):
+    """(status, body bytes)."""
+    status, _headers, raw = http_full(method, url, body, timeout, headers)
+    return status, raw
+
+
+def http_full(method: str, url: str, body=None, timeout: float = 600.0, headers=None):
+    """(status, response headers, body bytes)."""
     data = json.dumps(body).encode() if body is not None else None
     req = urllib.request.Request(url, data=data, method=method,
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json", **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
-            return r.status, r.read()
+            return r.status, r.headers, r.read()
     except urllib.error.HTTPError as e:
-        return e.code, e.read()
+        return e.code, e.headers, e.read()
+
+
+def stream_lines(url: str, body: dict, headers=None, timeout: float = 600.0):
+    """POST a streaming request; (status, response headers, [(t, line)] of
+    every non-blank line, SSE comments included, t0)."""
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.perf_counter()
+    lines = []
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if line:
+                lines.append((time.perf_counter(), line))
+        return r.status, r.headers, lines, t0
+
+
+def sse_finish(name: str, status: int, lines) -> tuple:
+    """(text, finish reason, the final chunk's time) of a streamed
+    completion's lines; fails unless it ends in one final chunk and
+    [DONE]."""
+    if status != 200 or not lines or lines[-1][1] != "data: [DONE]":
+        fail(f"{name}: HTTP {status}, last line {lines[-1:]!r}")
+    frames = [(t, json.loads(ln[6:])) for t, ln in lines[:-1] if ln.startswith("data: ")]
+    finals = [(t, f) for t, f in frames if f["choices"] and f["choices"][0]["finish_reason"]]
+    if len(finals) != 1:
+        fail(f"{name}: {len(finals)} final chunks")
+    text = "".join(f["choices"][0]["text"] for _, f in frames if f["choices"])
+    return text, finals[0][1]["choices"][0]["finish_reason"], finals[0][0]
+
+
+def metric(base: str, name: str, label: str = "") -> float:
+    """A series of ``base``'s /metrics: ``name`` (with ``label`` among its
+    labels), 0 when absent."""
+    status, raw = http("GET", base + "/metrics", timeout=30)
+    if status != 200:
+        fail(f"{base}/metrics: HTTP {status}")
+    for line in raw.decode().splitlines():
+        head = line.split(" ", 1)[0]
+        if (head == name or head.startswith(name + "{")) and label in head:
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def metric_reaches(base: str, name: str, label: str, want: float, within_s: float = 5.0):
+    """Poll a series until it reads ``want`` (the engine loop counts a
+    step's finishes after it delivered them); fail past ``within_s``."""
+    t0 = time.perf_counter()
+    while (got := metric(base, name, label)) != want:
+        if time.perf_counter() - t0 > within_s:
+            fail(f"{name}{{{label}}} reads {got}, expected {want}")
+        time.sleep(0.05)
+    return got
+
+
+def kernel_counts(base: str) -> dict:
+    return json.loads(http("GET", base + "/debug/kernels")[1])
 
 
 def stream(url: str, body: dict, timeout: float = 600.0):
@@ -1377,52 +1476,78 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def with_server(args: list, log_name: str, drive) -> dict:
-    """Start ``python -m llms_on_kubernetes_tpu_torch serve ARGS`` on the
-    card and a free port, its output in ``OUT_DIR/log_name``; wait for
-    /health (at most 420 s), then return ``drive(base URL, process)`` with
-    ``health_s``, the seconds to /health, added. The server is stopped
-    however this ends; a failure prints the tail of its log."""
-    port = free_port()
-    base = f"http://127.0.0.1:{port}"
-    os.makedirs(OUT_DIR, exist_ok=True)
-    log_path = os.path.join(OUT_DIR, log_name)
-    cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch", "serve", *args,
-           "--device", "cuda", "--host", "127.0.0.1", "--port", str(port)]
-    say(f"serve: {' '.join(cmd[1:])}")
-    t_start = time.perf_counter()
-    with open(log_path, "w") as logf:
-        proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT,
-                                start_new_session=True)
-        try:
-            deadline = t_start + 420
-            while True:
-                if proc.poll() is not None:
-                    fail(f"server exited with {proc.returncode} before /health answered")
-                try:
-                    status, body = http("GET", base + "/health", timeout=5)
-                    if status == 200 and body == b"OK":
-                        break
-                except OSError:
-                    pass
-                if time.perf_counter() > deadline:
-                    fail("server did not answer /health within 420 s")
-                time.sleep(0.5)
-            health_s = time.perf_counter() - t_start
-            say(f"  /health OK after {health_s:.1f} s")
-            return {**drive(base, proc), "health_s": health_s}
-        except SystemExit:
-            logf.flush()
-            with open(log_path) as f:
-                say("server log (tail):\n" + "".join(f.readlines()[-40:]))
-            raise
-        finally:
-            proc.terminate()
+class Server:
+    """``python -m llms_on_kubernetes_tpu_torch serve ARGS`` on the card
+    and a free port, its output in ``OUT_DIR/log_name`` and ``env`` added
+    to its environment; started at once, waited for by ``wait_health``,
+    stopped by ``stop`` (a failure prints the tail of its log)."""
+
+    def __init__(self, args: list, log_name: str, env=None):
+        port = free_port()
+        self.base = f"http://127.0.0.1:{port}"
+        os.makedirs(OUT_DIR, exist_ok=True)
+        self.log_path = os.path.join(OUT_DIR, log_name)
+        cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch", "serve", *args,
+               "--device", "cuda", "--host", "127.0.0.1", "--port", str(port)]
+        say(f"serve: {' '.join(cmd[1:])}" + (f" ({env})" if env else ""))
+        self.t_start = time.perf_counter()
+        self.logf = open(self.log_path, "w")
+        self.proc = subprocess.Popen(cmd, stdout=self.logf, stderr=subprocess.STDOUT,
+                                     start_new_session=True, env={**os.environ, **(env or {})})
+        self.health_s = None
+
+    def wait_health(self, within_s: float = 420.0) -> float:
+        deadline = self.t_start + within_s
+        while True:
+            if self.proc.poll() is not None:
+                self.fail(f"server exited with {self.proc.returncode} before /health answered")
             try:
-                proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=30)
+                status, body = http("GET", self.base + "/health", timeout=5)
+                if status == 200 and body == b"OK":
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() > deadline:
+                self.fail(f"server did not answer /health within {within_s:.0f} s")
+            time.sleep(0.25)
+        self.health_s = time.perf_counter() - self.t_start
+        say(f"  /health OK after {self.health_s:.1f} s ({self.base})")
+        return self.health_s
+
+    def tail(self) -> str:
+        self.logf.flush()
+        with open(self.log_path) as f:
+            return "".join(f.readlines()[-40:])
+
+    def fail(self, msg: str) -> None:
+        say("server log (tail):\n" + self.tail())
+        fail(msg)
+
+    def stop(self) -> None:
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self.logf.close()
+
+
+def with_server(args: list, log_name: str, drive, env=None) -> dict:
+    """Start a ``Server``, wait for /health (at most 420 s), then return
+    ``drive(base URL, process)`` with ``health_s``, the seconds to
+    /health, added. The server is stopped however this ends; a failure
+    prints the tail of its log."""
+    srv = Server(args, log_name, env)
+    try:
+        srv.wait_health()
+        return {**drive(srv.base, srv.proc), "health_s": srv.health_s}
+    except SystemExit:
+        if srv.health_s is not None:        # wait_health printed it already
+            say("server log (tail):\n" + srv.tail())
+        raise
+    finally:
+        srv.stop()
 
 
 def phase_serve(model: str, num_layers: int, kv_cache_dtype=None) -> dict:
@@ -1673,6 +1798,7 @@ def _drive_replica(base: str, proc, model: str, num_layers: int) -> dict:
                 time.sleep(0.1)
             out = _drive_server(base, model, num_layers, api=router)
             out["surface"] = _drive_surface(base, router, model, num_layers)
+            out["contract"] = _drive_contract(base, router, model)
             out["drain"] = _drive_drain(base, router, proc, model)
             return out
         finally:
@@ -1885,6 +2011,244 @@ def _drive_drain(base: str, router: str, proc, model: str) -> dict:
     return {"eject_s": eject_s, "exit_s": exit_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 3, the rest of the replica contract: deadlines, request ids and
+# traces, embeddings, the body cap; a short-lived server with admission held
+# (the queue shed, the 429's Retry-After, the keepalive); the stream journal
+# behind llkt-router with a replica killed mid-stream
+# ---------------------------------------------------------------------------
+
+DEADLINE_MS = 400
+
+
+def _drive_contract(base: str, router: str, model: str) -> dict:
+    """Through the router: a stream with ``X-LLMK-Deadline-Ms: 400`` and
+    max_tokens 4,096 ends "timeout" (the ms from the deadline to its final
+    chunk printed), the pool's pages come back to idle, every window of it
+    was a graph replay (counters zeroed just before, read just after), the
+    decode-phase deadline counter reads one more, the request id comes back
+    through the router and /debug/traces holds the request with its queue,
+    prefill and decode spans. Directly: /v1/embeddings answers 501 and a
+    body declared over 32 MiB 413."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    http("POST", base + "/debug/kernels/reset", {})
+    counts0 = kernel_counts(base)
+    dec0 = metric(base, "llm_deadline_exceeded_total", 'phase="decode"')
+    rid = "chip-smoke-deadline-1"
+    status, headers, lines, t0 = stream_lines(
+        router + "/v1/completions",
+        {"model": model, "prompt": SERVE_TEXT[:40], "max_tokens": 4096, "temperature": 0,
+         "stream": True, "logit_bias": BYTE_BIAS},
+        {"X-LLMK-Deadline-Ms": str(DEADLINE_MS), "X-LLMK-Request-Id": rid})
+    text, reason, t_final = sse_finish("deadline stream", status, lines)
+    after_ms = 1e3 * (t_final - t0) - DEADLINE_MS
+    if reason != "timeout" or not text:
+        fail(f"the {DEADLINE_MS} ms deadline stream ended {reason!r} after {len(text)} "
+             f"characters, expected timeout mid-decode")
+    if headers.get("X-LLMK-Request-Id") != rid:
+        fail(f"the router answered request id {headers.get('X-LLMK-Request-Id')!r}, sent {rid}")
+    t1 = time.perf_counter()
+    while True:
+        k = kernel_counts(base)
+        if k["free_pages"] + k["evictable_pages"] == k["num_pages"] - 1:
+            break
+        if time.perf_counter() - t1 > 10:
+            fail(f"pages after the deadline abort: {k['free_pages']} free + "
+                 f"{k['evictable_pages']} evictable of {k['num_pages'] - 1}")
+        time.sleep(0.05)
+    idle_s = time.perf_counter() - t1
+    counts = kernel_counts(base)
+    check_graphed("deadline abort", counts, counts0)
+    metric_reaches(base, "llm_deadline_exceeded_total", 'phase="decode"', dec0 + 1)
+    say(f"deadline mid-stream ({DEADLINE_MS} ms, max_tokens 4096, through llkt-router): "
+        f"finish_reason timeout after {len(text)} characters; deadline to final chunk ms: "
+        f"{after_ms:.1f}; pages back to idle {idle_s:.3f} s later; "
+        f"llm_deadline_exceeded_total{{phase=\"decode\"}} +1 [{card}]")
+    status, raw = http("GET", base + f"/debug/traces?id={rid}")
+    traces = json.loads(raw)["traces"] if status == 200 else []
+    if len(traces) != 1:
+        fail(f"/debug/traces?id={rid}: HTTP {status}, {len(traces)} traces")
+    tr = traces[0]
+    spans = {sp["name"]: sp for sp in tr["spans"]}
+    if not {"queue", "prefill", "decode"} <= set(spans) or tr["status"] != "ok" \
+            or len(tr["trace_id"]) != 32 or len(tr["parent_span_id"]) != 16:
+        fail(f"the trace of {rid}: {json.dumps(tr)[:600]}")
+    say(f"  request id {rid} echoed through the router; /debug/traces: trace "
+        f"{tr['trace_id']} under the router's span {tr['parent_span_id']}, spans "
+        + ", ".join(f"{n} {spans[n]['duration_ms']:.1f} ms" for n in ("queue", "prefill",
+                                                                       "decode"))
+        + f", events {[e['name'] + ':' + str(e.get('reason')) for e in tr['events']]}")
+    status, raw = http("POST", base + "/v1/embeddings", {"input": "x", "model": model})
+    if status != 501 or json.loads(raw)["error"]["type"] != "not_implemented":
+        fail(f"/v1/embeddings: HTTP {status} {raw[:200]!r}")
+    with socket.create_connection(("127.0.0.1", int(base.rsplit(":", 1)[1])), timeout=30) as so:
+        so.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: smoke\r\n"
+                   b"Content-Type: application/json\r\nContent-Length: %d\r\n\r\n" % (64 << 20))
+        head = so.recv(4096).decode(errors="replace")
+    if " 413 " not in head.split("\r\n", 1)[0]:
+        fail(f"a body declared at 64 MiB: {head[:200]!r}")
+    say(f"  /v1/embeddings 501; a body declared at 64 MiB 413 before any of it was read; "
+        f"contract checks {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": counts["launches"], "deadline_after_ms": after_ms}
+
+
+def _drive_queue_server(base: str, _proc) -> dict:
+    """Admission held (``LLMK_FAULT=queue_stall``), max_waiting 1,
+    ``LLMK_SSE_KEEPALIVE_S=0.2``: a waiting stream gets ``: ping`` before
+    any data and is shed at its 1,500 ms deadline with finish_reason
+    "timeout"; meanwhile a second request gets 429 with Retry-After in
+    [1, 60]; then a completion with a 500 ms deadline gets 504; the
+    queue-phase deadline counter reads 2."""
+    t_phase = time.perf_counter()
+    q0 = metric(base, "llm_deadline_exceeded_total", 'phase="queue"')
+    req = urllib.request.Request(
+        base + "/v1/completions", method="POST",
+        data=json.dumps({"prompt": "held", "max_tokens": 8, "stream": True}).encode(),
+        headers={"Content-Type": "application/json", "X-LLMK-Deadline-Ms": "1500"})
+    t0 = time.perf_counter()
+    resp = urllib.request.urlopen(req, timeout=60)
+    first = ""
+    while not first:
+        first = resp.readline().decode().strip()
+    ping_s = time.perf_counter() - t0
+    if first != ": ping":
+        fail(f"the held stream's first line is {first[:200]!r}, expected ': ping'")
+    status, headers, raw = http_full("POST", base + "/v1/completions",
+                                     {"prompt": "full", "max_tokens": 4})
+    retry = headers.get("Retry-After") if headers is not None else None
+    if status != 429 or not retry or not 1 <= int(retry) <= 60:
+        fail(f"a request past max_waiting: HTTP {status}, Retry-After {retry!r}")
+    rest = [(time.perf_counter(), ln) for ln in resp.read().decode().splitlines() if ln.strip()]
+    text, reason, t_final = sse_finish("held stream", 200, [(ping_s, first)] + rest)
+    if reason != "timeout" or text:
+        fail(f"the held stream ended {reason!r} with {text!r}, expected a queue shed")
+    t1 = time.perf_counter()
+    status, raw = http("POST", base + "/v1/completions", {"prompt": "shed", "max_tokens": 4},
+                       headers={"X-LLMK-Deadline-Ms": "500"})
+    shed_s = time.perf_counter() - t1
+    if status != 504 or json.loads(raw)["error"]["code"] != "deadline_exceeded":
+        fail(f"a held completion with a 500 ms deadline: HTTP {status} {raw[:200]!r}")
+    metric_reaches(base, "llm_deadline_exceeded_total", 'phase="queue"', q0 + 2)
+    say(f"queue server (debug-tiny, admission held): first ': ping' after {ping_s:.3f} s at a "
+        f"0.2 s keepalive; a request past max_waiting 429 with Retry-After {retry}; the held "
+        f"stream shed 'timeout' at its 1,500 ms deadline; a held completion 504 after "
+        f"{shed_s:.3f} s (500 ms deadline); llm_deadline_exceeded_total{{phase=\"queue\"}} +2; "
+        f"{time.perf_counter() - t_phase:.1f} s [{card_line()}]")
+    return {"ping_s": ping_s, "shed_s": shed_s}
+
+
+DRILL_ARGS = ["--model", "debug-tiny", "--random-weights", "--dtype", "float32"]
+DRILL_KILL_AT = 8
+DRILL_BODY = {"model": "debug-tiny", "prompt": "Resume me, router.", "max_tokens": 32,
+              "temperature": 0, "stream": True}
+
+
+def _stream_text(lines) -> str:
+    return "".join(json.loads(ln[6:])["choices"][0]["text"] for _, ln in lines
+                   if ln.startswith("data: ") and ln != "data: [DONE]"
+                   and json.loads(ln[6:])["choices"])
+
+
+def phase_queue_server() -> dict:
+    """A short-lived debug-tiny server in this process (float32,
+    max_waiting 1) under ``LLMK_FAULT=queue_stall`` and
+    ``LLMK_SSE_KEEPALIVE_S=0.2`` (``_drive_queue_server``)."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig
+    from llms_on_kubernetes_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llms_on_kubernetes_tpu_torch.server.openai_api import OpenAIServer
+
+    os.environ.update(LLMK_FAULT="queue_stall", LLMK_SSE_KEEPALIVE_S="0.2")
+    srv = None
+    try:
+        srv = OpenAIServer(Engine(EngineConfig(model="debug-tiny", dtype="float32",
+                                               max_waiting=1, device="cuda")),
+                           ByteTokenizer(), "debug-tiny")
+        return _drive_queue_server(f"http://127.0.0.1:{srv.start()}", None)
+    finally:
+        for key in ("LLMK_FAULT", "LLMK_SSE_KEEPALIVE_S"):
+            os.environ.pop(key, None)
+        if srv is not None:
+            srv.close()
+
+
+def phase_contract_servers() -> dict:
+    """The queue server (``phase_queue_server``, in this process) while two
+    debug-tiny replicas (float32, the same seeded weights) start for
+    ``llkt-router``, one with ``LLMK_FAULT=kill_mid_stream:8``. Streams go
+    through the router until the victim has been killed once: each equals
+    the healthy replica's uninterrupted stream, with no error event, and
+    the router counts one resume. The replicas' launch counters are zeroed
+    just before and read just after."""
+    t_phase = time.perf_counter()
+    healthy = Server(DRILL_ARGS, "chip_smoke_drill_healthy.log")
+    victim = Server(DRILL_ARGS, "chip_smoke_drill_victim.log",
+                    {"LLMK_FAULT": f"kill_mid_stream:{DRILL_KILL_AT}"})
+    rproc = None
+    try:
+        out = {"queue": phase_queue_server()}
+        for srv in (healthy, victim):
+            srv.wait_health()
+        port = free_port()
+        router = f"http://127.0.0.1:{port}"
+        rlog = open(os.path.join(OUT_DIR, "chip_smoke_drill_router.log"), "w")
+        rproc = subprocess.Popen([ROUTER_BIN, "--models",
+                                  f"debug-tiny={healthy.base}|{victim.base}", "--port", str(port),
+                                  "--probe-interval", str(PROBE_S), "--breaker-threshold", "100",
+                                  "--quiet"], stdout=rlog, stderr=subprocess.STDOUT,
+                                 start_new_session=True)
+        t0 = time.perf_counter()
+        while (replica_healthy(router, healthy.base) != 1.0
+               or replica_healthy(router, victim.base) != 1.0):
+            if rproc.poll() is not None or time.perf_counter() - t0 > 30:
+                fail("llkt-router did not admit both drill replicas within 30 s")
+            time.sleep(0.1)
+        for srv in (healthy, victim):
+            http("POST", srv.base + "/debug/kernels/reset", {})
+        status, _h, ref_lines, _t = stream_lines(healthy.base + "/v1/completions", DRILL_BODY)
+        ref_text, ref_reason, _ = sse_finish("drill reference", status, ref_lines)
+        resumes, streams = 0.0, 0
+        while resumes < 1.0:
+            if streams == 24:
+                fail("24 streams through the router and none reached the killed replica")
+            status, _h, lines, _t = stream_lines(router + "/v1/completions", DRILL_BODY)
+            text, reason, _ = sse_finish("drill stream", status, lines)
+            streams += 1
+            if (text, reason) != (ref_text, ref_reason) or any(
+                    "error" in ln or "llmk-tok" in ln for _, ln in lines):
+                fail(f"drill stream {streams}: {text!r} / {reason}, expected {ref_text!r} / "
+                     f"{ref_reason}, or an error event came through")
+            resumes = metric(router, "llm_stream_resume_total", 'outcome="ok"')
+        gave_up = metric(router, "llm_stream_resume_total", 'outcome="gave_up"')
+        if resumes != 1.0 or gave_up:
+            fail(f"router resumes ok {resumes}, gave up {gave_up}")
+        launches: dict = {}
+        for srv in (healthy, victim):
+            for k, n in kernel_counts(srv.base)["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        say(f"resume drill: {streams} streams through llkt-router, the victim replica reset "
+            f"one at {DRILL_KILL_AT} tokens; every client stream equal to the uninterrupted "
+            f"one ({len(ref_text)} characters, {ref_reason}), no error event; router resume "
+            f"count {resumes:g}; {time.perf_counter() - t_phase:.1f} s [{card_line()}]")
+        out["drill"] = {"launches": launches, "resumes": resumes, "streams": streams}
+        return out
+    except SystemExit:
+        for srv in (healthy, victim):
+            say(f"{srv.log_path} (tail):\n{srv.tail()}")
+        raise
+    finally:
+        if rproc is not None:
+            rproc.terminate()
+            try:
+                rproc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                rproc.kill()
+                rproc.wait(timeout=30)
+        for srv in (healthy, victim):
+            if srv.proc.poll() is None:
+                srv.stop()
+
+
 def check_echo_reference(torch, params, echo_logprobs) -> None:
     """The server's echo prompt logprobs (forward_score, flash prefill)
     against a plain forward_score (plain prefill attention) on the same
@@ -1972,7 +2336,30 @@ def phase_watchdog(torch) -> dict:
     say(f"watchdog: 3 requests finished 'stalled' {shed_s:.2f} s into a {spin_ms / 1e3:.1f} s "
         f"spin (budget {budget:.2f} s); wedged, submit refused; the spin ended at "
         f"{over_s:.2f} s and the process goes on [{card_line()}]")
-    return {"shed_s": shed_s, "budget_s": budget}
+    # the second stall: LLMK_FAULT=engine_stall, a harvester read that never
+    # completes (the hook re-reads the environment every second)
+    os.environ["LLMK_FAULT"] = "engine_stall"
+    try:
+        eng = Engine(EngineConfig(model="debug-tiny", dtype="float32", device="cuda",
+                                  watchdog_stall_s=0.5))
+        eng._est_step = 1e-3
+        reqs = [eng.submit(p, SamplingParams(max_tokens=32, temperature=0.0))
+                for p in ([1, 2, 3], [4, 5, 6, 7] * 5)]
+        t0 = time.perf_counter()
+        while not all(r.finished for r in reqs):
+            if time.perf_counter() - t0 > 60:
+                fail("engine_stall: the requests did not finish within 60 s")
+            eng.step()
+        fault_shed_s = time.perf_counter() - t0
+    finally:
+        del os.environ["LLMK_FAULT"]
+    if [r.finish_reason for r in reqs] != ["stalled"] * 2 or not eng.wedged:
+        fail(f"engine_stall: reasons {[r.finish_reason for r in reqs]}, wedged {eng.wedged}")
+    eng._harvester.close()
+    del eng
+    say(f"watchdog, LLMK_FAULT=engine_stall: 2 requests finished 'stalled' "
+        f"{fault_shed_s:.2f} s after submission (budget 0.50 s); wedged [{card_line()}]")
+    return {"shed_s": shed_s, "budget_s": budget, "fault_shed_s": fault_shed_s}
 
 
 # ---------------------------------------------------------------------------
@@ -2266,11 +2653,72 @@ def phase_in_process(torch, model: str, echo_logprobs) -> dict:
     torch.cuda.synchronize()
     say(f"fused: {model} random weights (seed 0) in {time.perf_counter() - t0:.1f} s")
     check_echo_reference(torch, params, echo_logprobs)
+    phase_resume(torch, model, params)
     out = {kv: phase_fused(torch, model, params, kv) for kv in (None, "int8")}
     phase_chunk_vs_one_shot(torch, model, params)
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def resume_streams(torch, eng, prompt, sp) -> list:
+    """The uninterrupted stream of ``prompt`` and, for cuts 1, 5 and 11,
+    the stream resumed with that prefix (SamplingParams.prefix_tokens):
+    [(cut, resumed stream)] and the full stream."""
+    import dataclasses
+
+    full = eng.generate(prompt, sp)
+    out = [(cut, eng.generate(prompt, dataclasses.replace(sp, prefix_tokens=tuple(full[:cut]))))
+           for cut in (1, 5, 11)]
+    while eng.has_work():
+        eng.step()
+    torch.cuda.synchronize()
+    return full, out
+
+
+def phase_resume(torch, model: str, params) -> None:
+    """Stream resume at full width: the default engine (async, K 4, each
+    window a graph replay), a greedy and a seeded stream (top-k 40,
+    penalties) of 16 tokens, each cut after 1, 5 and 11 tokens and resumed
+    with that prefix. In float32 every resumed stream must equal the
+    uninterrupted one token for token, greedy and seeded; in bfloat16 (on
+    ``params``) the greedy ones must, and the seeded ones are counted, not
+    held: the resumed request's prefix K/V comes from the prefill kernels,
+    the uninterrupted one's from decode steps, and in bf16 their rounding
+    differs enough to move a sampled token."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
+    from llms_on_kubernetes_tpu_torch.models.decoder import init_params
+
+    t0 = time.perf_counter()
+    prompt = [1 + (13 * i) % 200 for i in range(40)]
+    samplers = (("greedy", SamplingParams(max_tokens=16, temperature=0.0)),
+                ("seeded", SamplingParams(max_tokens=16, temperature=0.8, top_k=40, seed=77,
+                                          presence_penalty=0.3, frequency_penalty=0.2)))
+    for dtype in ("float32", "bfloat16"):
+        p = (params if dtype == "bfloat16"
+             else init_params(get_config(model), seed=0, dtype="float32", device="cuda"))
+        eng = Engine(EngineConfig(model=model, dtype=dtype, num_pages=64, device="cuda"),
+                     params=p)
+        for name, sp in samplers:
+            full, resumed = resume_streams(torch, eng, prompt, sp)
+            same = [(cut, next((i for i, (a, b) in enumerate(zip(got, full)) if a != b), None))
+                    for cut, got in resumed]
+            held = dtype == "float32" or name == "greedy"
+            if held and any(at is not None for _cut, at in same):
+                fail(f"resume ({dtype}, {name}): resumed streams differ from the "
+                     f"uninterrupted one (cut, first differing token): {same}")
+            say(f"resume in process ({model} {dtype}, K {eng.config.decode_steps}, graphed "
+                f"windows), {name}: cuts 1, 5, 11 -> "
+                + ", ".join(f"cut {c}: " + ("equal" if at is None else f"differs at token {at}")
+                            for c, at in same)
+                + ("" if held else " (counted, not held)"))
+        if not eng.graph_replays or (eng.graph_replays * eng.config.decode_steps
+                                     != eng.decode_forwards):
+            fail(f"resume: {eng.graph_replays} graph replays for {eng.decode_forwards} forwards")
+        del eng, p
+        torch.cuda.empty_cache()
+    say(f"resume in process: {time.perf_counter() - t0:.1f} s [{card_line()}]")
 
 
 def wide_debug_configs() -> list:
@@ -2609,7 +3057,7 @@ def phase_checkpoint(torch) -> dict:
     from llms_on_kubernetes_tpu_torch.configs import get_config
     from llms_on_kubernetes_tpu_torch.engine.weights import load_hf_params
     from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import (
-        tensor_specs, tensor_value, write_checkpoint,
+        tensor_specs, tensor_value, write_checkpoint, write_tokenizer,
     )
 
     t_phase = time.perf_counter()
@@ -2653,26 +3101,43 @@ def phase_checkpoint(torch) -> dict:
         f"embed, final_norm and lm_head equal what was written, bit for bit")
     del params
     torch.cuda.empty_cache()
-    served = {kv: serve_checkpoint(cfg, kv) for kv in (None, "int8")}
+    # int8 KV from the weights-only directory (the byte tokenizer), then the
+    # phi3 tokenizer files written beside the weights and bf16 KV through them
+    served = {"int8": serve_checkpoint(cfg, "int8")}
+    t0 = time.perf_counter()
+    write_tokenizer(CKPT_DIR, "phi3")
+    tok_s = time.perf_counter() - t0
+    served[None] = serve_checkpoint(cfg, None, tokenizer="phi3")
     phase_checkpoint_int8(torch, cfg)
     say(f"checkpoint phase: {time.perf_counter() - t_phase:.1f} s (write {write_s:.1f}, "
-        f"cold load {load_s:.2f}, to /health bf16 {served[None]['health_s']:.1f} / int8 "
+        f"tokenizer files {tok_s:.2f}, cold load {load_s:.2f}, to /health with the phi3 "
+        f"tokenizer (bf16 KV) {served[None]['health_s']:.1f} / weights only (int8 KV) "
         f"{served['int8']['health_s']:.1f}, warm load in the server bf16 "
-        f"{served[None]['load_s']} / int8 {served['int8']['load_s']})")
+        f"{served[None]['load_s']} / int8 {served['int8']['load_s']}) [{card_line()}]")
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     return served
 
 
-def serve_checkpoint(cfg, kv_cache_dtype=None) -> dict:
+def serve_checkpoint(cfg, kv_cache_dtype=None, tokenizer=None) -> dict:
     """``serve --model <checkpoint dir>`` as a user runs it, and a request
     mix through HTTP: prompts in each bucket, a 1,500-token prompt (two
     chunks) and the same again with a tail (a cache hit), a 2,500-token
-    prompt past the sliding window (three chunks). The launch counters are
-    zeroed just before and read just after."""
+    prompt past the sliding window (three chunks), sent as token ids (the
+    byte tokenizer's, one a character, whatever tokenizer the directory
+    has). The launch counters are zeroed just before and read just after.
+    With ``tokenizer`` (the directory holds that family's files) the
+    tokenizer checks follow (``_drive_tokenizer``)."""
     kv = ["--kv-cache-dtype", kv_cache_dtype] if kv_cache_dtype else []
     log_name = f"chip_smoke_checkpoint_server{'_' + kv_cache_dtype if kv_cache_dtype else ''}.log"
+
+    def drive(base, _proc):
+        out = _drive_checkpoint_server(base, cfg, kv_cache_dtype)
+        if tokenizer is not None:
+            out["tokenizer"] = _drive_tokenizer(base, CKPT_DIR, tokenizer)
+        return out
+
     res = with_server(["--model", CKPT_DIR, "--pages-per-slot", str(CKPT_PPS), *kv], log_name,
-                      lambda base, _proc: _drive_checkpoint_server(base, cfg, kv_cache_dtype))
+                      drive)
     with open(os.path.join(OUT_DIR, log_name)) as f:
         loaded = [line for line in f if "weights from" in line]
     res["load_s"] = loaded[-1].rsplit(" in ", 1)[-1].strip() if loaded else "not printed"
@@ -2701,7 +3166,8 @@ def _drive_checkpoint_server(base: str, cfg, kv_cache_dtype) -> dict:
     def run(name, prompt):
         try:
             results[name] = http("POST", base + "/v1/completions", {
-                "model": model, "prompt": prompt, "max_tokens": max_tokens, "temperature": 0})
+                "model": model, "prompt": list(prompt.encode("utf-8")),
+                "max_tokens": max_tokens, "temperature": 0})
         except Exception as e:  # reported below as this request's failure
             results[name] = ("error", repr(e))
 
@@ -2756,6 +3222,80 @@ def _drive_checkpoint_server(base: str, cfg, kv_cache_dtype) -> dict:
         fail(f"{delta['chunk_calls']} chunk calls and a hit of {hit_tokens} tokens: the chunk "
              f"path or the prefix cache did not run")
     return {"launches": launches}
+
+
+def _drive_tokenizer(base: str, model: str, family: str) -> dict:
+    """A checkpoint directory served with its own tokenizer files (the
+    port's tokenizer.json reader): /tokenize of the probe strings and chat
+    equals ``TOKENIZER_PROBES`` (the ids transformers gives over the same
+    files), a chat's usage.prompt_tokens is the templated count, and a chat
+    with +100 on the end-of-turn token stops at once with no text (the
+    tokenizer's eos_ids reach the engine)."""
+    from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import (
+        PROBE_CHAT, PROBE_TEXTS, TOKENIZER_PROBES,
+    )
+
+    t0 = time.perf_counter()
+    want = TOKENIZER_PROBES[family]
+    for text, ids in zip(PROBE_TEXTS, want["texts"]):
+        got = _post_ok(base + "/tokenize", {"prompt": text})["tokens"]
+        if got != ids:
+            fail(f"{family} /tokenize {text!r}: {got} != {ids}")
+    chat = [dict(m) for m in PROBE_CHAT]
+    got = _post_ok(base + "/tokenize", {"messages": chat})["tokens"]
+    if got != want["chat"]:
+        fail(f"{family} /tokenize of the probe chat: {got} != {want['chat']}")
+    d = _post_ok(base + "/v1/chat/completions", {"model": model, "messages": chat,
+                                                  "max_tokens": 4, "temperature": 0})
+    if d["usage"]["prompt_tokens"] != len(want["chat"]):
+        fail(f"{family} chat prompt_tokens {d['usage']['prompt_tokens']} != "
+             f"{len(want['chat'])}")
+    eos = {"llama3": 128009, "phi3": 32007}[family]
+    d = _post_ok(base + "/v1/chat/completions", {"model": model, "messages": chat,
+                                                  "max_tokens": 8, "temperature": 0,
+                                                  "logit_bias": {str(eos): 100}})
+    ch = d["choices"][0]
+    if ch["finish_reason"] != "stop" or ch["message"]["content"] or \
+            d["usage"]["completion_tokens"] != 1:
+        fail(f"{family} chat with +100 on {eos}: {ch}, usage {d['usage']}")
+    say(f"  {family} tokenizer served: /tokenize of {len(PROBE_TEXTS)} probe strings and the "
+        f"probe chat equal TOKENIZER_PROBES; chat prompt_tokens {len(want['chat'])}; +100 on "
+        f"{eos} stops at once with no text; {time.perf_counter() - t0:.2f} s")
+    return {"prompt_tokens": len(want["chat"])}
+
+
+LLAMA3_TOK_DIR = os.path.join(OUT_DIR, "llama-3-8b-2-layers-llama3-tokenizer")
+LLAMA3_TOK_LAYERS = 2
+
+
+def phase_tokenizer_llama3() -> dict:
+    """llama-3-8b's widths cut to 2 layers, written with the llama3
+    tokenizer files, served through the CLI: the tokenizer checks, the
+    launch counters zeroed just before and read just after."""
+    import dataclasses
+
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import write_checkpoint
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MODEL), num_layers=LLAMA3_TOK_LAYERS)
+    shutil.rmtree(LLAMA3_TOK_DIR, ignore_errors=True)
+    write_checkpoint(cfg, LLAMA3_TOK_DIR, tokenizer="llama3")
+    write_s = time.perf_counter() - t0
+
+    def drive(base, _proc):
+        http("POST", base + "/debug/kernels/reset", {})
+        out = _drive_tokenizer(base, LLAMA3_TOK_DIR, "llama3")
+        out["launches"] = kernel_counts(base)["launches"]
+        return out
+
+    try:
+        res = with_server(["--model", LLAMA3_TOK_DIR], "chip_smoke_llama3_tokenizer.log", drive)
+    finally:
+        shutil.rmtree(LLAMA3_TOK_DIR, ignore_errors=True)
+    say(f"llama3 tokenizer: {MODEL} cut to {LLAMA3_TOK_LAYERS} layers written in {write_s:.1f} s; "
+        f"to /health {res['health_s']:.1f} s; {time.perf_counter() - t0:.1f} s [{card_line()}]")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3058,12 +3598,14 @@ def main(argv) -> int:
     finish_router_build(router_build)
     served = phase_serve(MODEL, num_layers)
     served_int8 = phase_serve(MODEL, num_layers, kv_cache_dtype="int8")
+    contract = phase_contract_servers()
     say(f"phase 3 (reference, serve): {time.perf_counter() - t0:.1f} s")
     phase_watchdog(torch)
     t0 = time.perf_counter()
     fused = phase_in_process(torch, MODEL, echo_logprobs=served["surface"]["echo_logprobs"])
     say(f"phase 4 (fused): {time.perf_counter() - t0:.1f} s")
     ckpt = phase_checkpoint(torch)
+    tok_llama3 = phase_tokenizer_llama3()
     headline = phase_headline(torch)
     # launches on each path, counted from 0 just before it and read just
     # after; the line's "launches" is the checkpoint server's where the
@@ -3073,6 +3615,10 @@ def main(argv) -> int:
     fused_bf16, fused_int8 = (f"{MODEL} kv_write fused {kv} KV" for kv in ("bf16", "int8"))
     paths = {f"{MODEL} serve bf16 KV": served["launches"],
              f"{MODEL} serve request surface": served["surface"]["launches"],
+             f"{MODEL} serve deadline abort": served["contract"]["launches"],
+             "debug-tiny resume drill behind llkt-router": contract["drill"]["launches"],
+             f"{MODEL} {LLAMA3_TOK_LAYERS} layers llama3 tokenizer serve":
+                 tok_llama3["launches"],
              f"{MODEL} serve int8 KV": served_int8["launches"],
              fused_bf16: fused[None]["launches"], fused_int8: fused["int8"]["launches"],
              ckpt_bf16: ckpt[None]["launches"], ckpt_int8: ckpt["int8"]["launches"],

@@ -2,7 +2,13 @@
 
     python -m llms_on_kubernetes_tpu_torch serve --model MODEL [--random-weights] \\
         [--device cuda|cpu] [--port 8080] [--kv-cache-dtype int8] [--kv-write dus|fused] \\
-        [--quantization int8|fp8|awq] [--no-prefix-caching] [--watchdog-stall-s S]
+        [--quantization int8|fp8|awq] [--no-prefix-caching] [--watchdog-stall-s S] \\
+        [--decode-steps K]
+
+``--decode-steps`` and ``--kv-write`` default to the environment
+(``LLMK_DECODE_STEPS``, ``LLMK_KV_WRITE``), as the JAX engine's config
+does; a flag wins over the environment. ``LLMK_FAULT`` arms the fault
+hooks of ``faults.py``.
 
 ``MODEL`` is a registry name (``configs.py``), a local checkpoint directory
 (``config.json`` and ``*.safetensors``: the model config comes from the
@@ -51,8 +57,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pages-per-slot", type=int, default=d.pages_per_slot)
     p.add_argument("--prefill-buckets", type=_buckets,
                    default=",".join(str(b) for b in d.prefill_buckets))
-    p.add_argument("--decode-steps", type=int, default=d.decode_steps)
-    p.add_argument("--kv-write", choices=["dus", "fused"], default=d.kv_write)
+    p.add_argument("--decode-steps", type=int, default=None,
+                   help="tokens a decode window runs (default: env LLMK_DECODE_STEPS, "
+                        "else 4)")
+    p.add_argument("--kv-write", choices=["dus", "fused"], default=None,
+                   help="KV append strategy (default: env LLMK_KV_WRITE, else dus)")
     p.add_argument("--kv-cache-dtype", choices=["int8"], default=None,
                    help="KV cache storage dtype (default: the model dtype, or env "
                         "LLMK_KV_DTYPE)")
@@ -70,10 +79,25 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def engine_config_from_args(args):
+    """The ``serve`` flags as an ``EngineConfig``; a flag left unset (None)
+    falls through to the config's own default, the environment's where
+    the config reads one."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import EngineConfig
+
+    return EngineConfig(
+        model=args.model, dtype=args.dtype, max_decode_slots=args.max_decode_slots,
+        page_size=args.page_size, num_pages=args.num_pages,
+        pages_per_slot=args.pages_per_slot, prefill_buckets=args.prefill_buckets,
+        decode_steps=args.decode_steps, kv_write=args.kv_write,
+        kv_cache_dtype=args.kv_cache_dtype, quantization=args.quantization,
+        prefix_caching=args.prefix_caching, watchdog_stall_s=args.watchdog_stall_s,
+        seed=args.seed, device=args.device)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "serve":
-        from llms_on_kubernetes_tpu_torch.engine.engine import EngineConfig
         from llms_on_kubernetes_tpu_torch.engine.weights import resolve_model_dir
         from llms_on_kubernetes_tpu_torch.server.openai_api import serve
 
@@ -86,14 +110,7 @@ def main(argv=None) -> int:
                       f"(pass --random-weights to serve seeded random weights)",
                       file=sys.stderr)
                 return 1
-        cfg = EngineConfig(
-            model=args.model, dtype=args.dtype, max_decode_slots=args.max_decode_slots,
-            page_size=args.page_size, num_pages=args.num_pages,
-            pages_per_slot=args.pages_per_slot, prefill_buckets=args.prefill_buckets,
-            decode_steps=args.decode_steps, kv_write=args.kv_write,
-            kv_cache_dtype=args.kv_cache_dtype, quantization=args.quantization,
-            prefix_caching=args.prefix_caching, watchdog_stall_s=args.watchdog_stall_s,
-            seed=args.seed, device=args.device)
+        cfg = engine_config_from_args(args)
         serve(args.model, host=args.host, port=args.port, device=args.device,
               random_weights=args.random_weights, served_model_name=args.served_model_name,
               engine_config=cfg, model_dir=model_dir)

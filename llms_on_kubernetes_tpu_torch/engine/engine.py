@@ -74,8 +74,26 @@ be cancelled: the engine only stops waiting for it (a restart recovers).
 ``echo`` + ``logprobs`` surface. ``prefix_filter_digests`` lists the
 prefix cache's page digests for the server's ``/ready`` advertisement.
 
+Deadlines (``submit(deadline=)``, an absolute ``time.monotonic()``, as in
+the JAX engine): the head of every step turns an expired request into an
+abort with reason "timeout". A waiting one is shed without a prefill; a
+seated one takes the path a client disconnect takes (its slot and pages
+come back at once; a window in flight drops the row at harvest).
+
+Resume (``SamplingParams.prefix_tokens``, the JAX field): the tokens a
+stream already delivered become the request's output at submit, so
+admission re-prefills prompt + prefix as a preempted request's, they count
+toward ``max_tokens`` and the penalties, and the stream continues with the
+token the uninterrupted one would have sampled next (the noise is keyed on
+the position, and the prompt length stays the original prompt's).
+
+Fault hooks (``faults.py``, ``LLMK_FAULT``): ``queue_stall`` holds
+admission; ``engine_stall`` and ``slow_step`` act at the harvester's
+completion. ``Request.trace`` (the server's per-request trace) gets the
+"preempted" and "finish" events.
+
 Not ported yet: priority classes (QoS), the host KV tier and handoff,
-deadlines, the ledger, grammar, LoRA, multimodal salts and speculation.
+the ledger, grammar, LoRA, multimodal salts and speculation.
 """
 
 from __future__ import annotations
@@ -93,7 +111,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from llms_on_kubernetes_tpu_torch import resolve_device
+from llms_on_kubernetes_tpu_torch import faults, resolve_device
 from llms_on_kubernetes_tpu_torch.configs import (
     ALIASES, REGISTRY, ModelConfig, from_hf_config, get_config,
 )
@@ -117,6 +135,17 @@ from llms_on_kubernetes_tpu_torch.ops.quant import SUPPORTED_QUANTIZATIONS, quan
 Params = dict[str, Any]
 
 KV_WRITE_STRATEGIES = ("dus", "fused")
+
+
+def default_kv_write_strategy() -> str:
+    """The env default (``LLMK_KV_WRITE``, resolved at EngineConfig
+    construction), as the JAX ``cache.default_kv_write_strategy`` resolves
+    it: the legacy ``scatter`` + ``LLMK_SCATTER_VARIANT=linear`` spelling
+    included, and anything this engine does not implement means "dus"."""
+    s = os.environ.get("LLMK_KV_WRITE", "dus")
+    if s == "scatter" and os.environ.get("LLMK_SCATTER_VARIANT") == "linear":
+        s = "scatter-linear"
+    return s if s in KV_WRITE_STRATEGIES else "dus"
 
 # packed prefill/chunk row columns: tokens in this call, history (tokens
 # cached before it), top_k, seed, slot, prompt length (the output-token
@@ -156,6 +185,9 @@ class SamplingParams:
     # OpenAI logit_bias: ((token id, bias), ...) added to the raw logits on
     # the device at every sample; at most LOGIT_BIAS_SLOTS entries
     logit_bias: tuple = ()
+    # stream resume: tokens a previous replica already delivered; they are
+    # prefilled after the prompt and count as output (max_tokens, penalties)
+    prefix_tokens: tuple[int, ...] = ()
 
 
 @dataclasses.dataclass
@@ -183,8 +215,9 @@ class EngineConfig:
     admit_batch: int = 4
     max_waiting: int = 256
     # "dus": write_tokens then the decode kernel; "fused": the decode
-    # kernel that appends the current token as it attends
-    kv_write: str = "dus"
+    # kernel that appends the current token as it attends. None => env
+    # LLMK_KV_WRITE (default_kv_write_strategy), as in the JAX engine
+    kv_write: Optional[str] = None
     # KV cache storage: None => the engine dtype; "int8" => per-token
     # quantized KV (data + f32 scale; about half the pool bytes and half the
     # bytes decode attention reads). None falls through to env
@@ -193,7 +226,8 @@ class EngineConfig:
     # hash-chained reuse of cached prompt pages (engine/cache.PageAllocator);
     # a hit prefills only the remainder, through the chunk path
     prefix_caching: bool = True
-    decode_steps: int = 4
+    # tokens a decode window runs. None => env LLMK_DECODE_STEPS (default 4)
+    decode_steps: Optional[int] = None
     seed: int = 0
     # "cuda" (the default) raises without a GPU; pass "cpu" for the CPU
     device: str = "cuda"
@@ -204,6 +238,10 @@ class EngineConfig:
     watchdog_stall_s: Optional[float] = None
 
     def __post_init__(self):
+        if self.kv_write is None:
+            self.kv_write = default_kv_write_strategy()
+        if self.decode_steps is None:
+            self.decode_steps = int(os.environ.get("LLMK_DECODE_STEPS", "4"))
         if self.kv_write not in KV_WRITE_STRATEGIES:
             raise ValueError(f"kv_write must be one of {KV_WRITE_STRATEGIES}, "
                              f"got {self.kv_write!r}")
@@ -251,12 +289,20 @@ class Request:
     abort_reason: Optional[str] = None  # set by any thread; reaped by step()
     # monotonic submission time: the youngest request is preempted first
     submitted_at: float = 0.0
+    # absolute time.monotonic() deadline (None: no budget); past it a
+    # waiting request is shed unadmitted and a seated one aborted, both
+    # finishing "timeout"
+    deadline: Optional[float] = None
+    admitted_at: Optional[float] = None     # first seated (prefill dispatched)
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None     # terminal event recorded (_finish)
     events: "queue.SimpleQueue[tuple[list[int], bool, Optional[str]]]" = dataclasses.field(
         default_factory=queue.SimpleQueue)
     # optional push delivery, called on the engine thread with each payload
     on_event: Optional[Any] = None
+    # the server's trace of this request (anything with .event(name, **kv)):
+    # preemption and the finish, with its reason, land on its timeline
+    trace: Optional[Any] = None
 
 
 @dataclasses.dataclass
@@ -339,6 +385,11 @@ class _Harvester(threading.Thread):
                 priority = bool(self._prio)
                 key, copy = (self._prio if priority else self._pending).popleft()
             try:
+                # fault hooks (LLMK_FAULT): a read that never completes
+                # (engine_stall: the engine thread's watchdog wait must
+                # fire) or a slow but live one (slow_step, per read)
+                faults.inject_hang("engine_stall")
+                faults.inject_delay("slow_step", 0.2)
                 host = copy.read()
             except Exception as e:  # surfaces on the engine thread, never silently
                 with self._cv:
@@ -559,7 +610,8 @@ class Engine:
     # ------------------------------------------------------------------
 
     def submit(self, prompt: list[int], params: Optional[SamplingParams] = None,
-               request_id: Optional[str] = None, on_event=None) -> Request:
+               request_id: Optional[str] = None, on_event=None,
+               deadline: Optional[float] = None) -> Request:
         if self.wedged:
             raise EngineStallError("engine wedged: a device step stalled past the watchdog "
                                    "budget; restart the server to recover")
@@ -596,6 +648,19 @@ class Engine:
                              f"{max_len} (page_size*pages_per_slot) with room to generate")
         if len(prompt) + params.max_tokens > max_len:
             params = dataclasses.replace(params, max_tokens=max(1, max_len - len(prompt)))
+        prefix = list(params.prefix_tokens or ())
+        if prefix:
+            vocab = self.model_config.vocab_size
+            for t in prefix:
+                if not isinstance(t, int) or not 0 <= t < vocab:
+                    raise ValueError(f"prefix_tokens contains id {t!r} outside the "
+                                     f"vocabulary (size {vocab})")
+            if len(prompt) + len(prefix) + 1 > max_len:
+                raise ValueError(f"prompt ({len(prompt)}) + prefix_tokens ({len(prefix)}) "
+                                 f"cannot fit max_model_len={max_len} with room to generate")
+            if len(prefix) >= params.max_tokens:
+                raise ValueError(f"prefix_tokens ({len(prefix)}) already meets max_tokens "
+                                 f"({params.max_tokens}); nothing left to generate")
         if (self.allocator.pages_needed(len(prompt) + params.max_tokens)
                 > self.config.num_pages - 1):
             # a request that cannot fit the pool alone would preempt itself
@@ -606,9 +671,14 @@ class Engine:
         with self._lock:
             seed = (params.seed if params.seed is not None
                     else int(self._seed_rng.integers(0, 2 ** 31 - 1))) & 0x7FFFFFFF
+            # a prefix is output already delivered: admission takes the
+            # resumed re-prefill path (prompt + output), as after a
+            # preemption; its logprobs were computed elsewhere
             req = Request(id=request_id or f"req-{next(self._id_counter)}",
                           prompt=[int(t) for t in prompt], params=params, seed=seed,
-                          submitted_at=time.monotonic(), on_event=on_event)
+                          submitted_at=time.monotonic(), deadline=deadline,
+                          output=prefix, output_logprobs=[None] * len(prefix),
+                          on_event=on_event)
             if len(self.waiting) >= self.config.max_waiting:
                 raise QueueFullError(f"waiting queue is full ({self.config.max_waiting} "
                                      f"requests); retry later")
@@ -750,6 +820,20 @@ class Engine:
                 ev.request.on_event(payload)
 
     def _reap_aborted(self) -> list[StepEvent]:
+        """Finish every aborted request. First the deadline sweep (the JAX
+        engine's): an expired request becomes an abort with reason
+        "timeout", so it rides the path a client disconnect takes; a
+        waiting one is shed without a prefill."""
+        now = time.monotonic()
+        with self._lock:
+            for r in self.waiting:
+                if (r.deadline is not None and now >= r.deadline
+                        and not r.abort_reason and not r.finished):
+                    r.abort_reason = "timeout"
+        for r in self.slots:
+            if (r is not None and r.deadline is not None and now >= r.deadline
+                    and not r.abort_reason and not r.finished):
+                r.abort_reason = "timeout"
         with self._lock:
             doomed = [r for r in self.waiting if r.abort_reason and not r.finished]
             for r in doomed:
@@ -788,6 +872,8 @@ class Engine:
         req.finished = True
         req.finish_reason = reason
         req.finished_at = time.monotonic()
+        if req.trace is not None:
+            req.trace.event("finish", request=req.id, reason=reason, tokens=len(req.output))
         if req.slot >= 0:
             self.allocator.free(req.slot)
             self.slot_len[req.slot] = 0
@@ -805,6 +891,8 @@ class Engine:
             raise MemoryError("KV pool exhausted with no preemptable request")
         victim = max(victims, key=lambda r: r.submitted_at)
         self.preemptions += 1
+        if victim.trace is not None:
+            victim.trace.event("preempted", request=victim.id, tokens=len(victim.output))
         slot = victim.slot
         self.allocator.free(slot)
         self.slot_len[slot] = 0
@@ -855,6 +943,8 @@ class Engine:
                 alloc.commit_adopt(slot, hit)
             self.slots[slot] = req
             req.slot = slot
+            if req.admitted_at is None:
+                req.admitted_at = time.monotonic()
             return slot, req, ptoks, hit, resumed
         return None
 
@@ -869,6 +959,11 @@ class Engine:
         the chunk path for each request with a cache hit or past the
         largest bucket."""
         events: list[StepEvent] = []
+        if faults.is_active("queue_stall"):
+            # LLMK_FAULT=queue_stall: admission refuses while the flag is
+            # set; waiting requests age (deadline sheds, the 429's
+            # Retry-After)
+            return events
         seats = []
         with self._lock:
             while (seat := self._seat_next(events)) is not None:
@@ -1128,6 +1223,8 @@ class Engine:
         prefill row)}}."""
         # clear BEFORE scanning: a submit after this point sets it again
         self._admit_wake.clear()
+        if faults.is_active("queue_stall"):
+            return None         # LLMK_FAULT=queue_stall (see _admit)
         picked: list[tuple] = []
 
         def accept(ptoks: list[int], hit: int) -> bool:

@@ -208,9 +208,36 @@ def process_age_s() -> float:
     return time.time() - _PROCESS_START_WALL
 
 
+def trace_export_metrics(registry: Registry) -> dict:
+    """Tail-sampled OTLP span-export accounting (the JAX
+    ``trace_export_metrics``): a trace that is not exported is counted
+    dropped, by reason, never silently discarded."""
+    exported = Counter(
+        "llm_trace_spans_exported_total",
+        "Spans handed to the OTLP exporter by outcome (ok = accepted by "
+        "the collector, error = POST failed after the trace was already "
+        "sampled in)", registry, label_names=("outcome",))
+    dropped = Counter(
+        "llm_trace_dropped_total",
+        "Finished traces not exported, by reason (sampled_out = tail "
+        "sampler's probabilistic drop of a boring trace, queue_full = "
+        "exporter backpressure, disabled = no LLMK_OTLP_ENDPOINT)",
+        registry, label_names=("reason",))
+    # pre-seeded, so the series exist before the first drop or export
+    exported.labels(outcome="ok")
+    dropped.labels(reason="sampled_out")
+    return {"trace_spans_exported": exported, "trace_dropped": dropped}
+
+
 def engine_metrics(registry: Registry) -> dict:
     """The serving series the port's server feeds (the JAX set's names)."""
-    return {
+    m = {
+        "deadline_exceeded": Counter(
+            "llm_deadline_exceeded_total",
+            "Requests shed at their end-to-end deadline, by phase: "
+            "queue=expired while waiting (never admitted), "
+            "decode=aborted in flight",
+            registry, label_names=("phase",)),
         "requests_total": Counter("llm_requests_total", "Requests received", registry),
         "requests_finished": Counter(
             "llm_requests_finished_total", "Requests finished", registry),
@@ -262,3 +289,5 @@ def engine_metrics(registry: Registry) -> dict:
             "both K and V, scales included (int8 pages roughly halve "
             "this vs bf16)", registry),
     }
+    m.update(trace_export_metrics(registry))
+    return m

@@ -30,16 +30,50 @@ Endpoints, with the JAX server's shapes:
 - ``GET /debug/kernels`` / ``POST /debug/kernels/reset``: the kernel
   launch counters of ``kernels.LAUNCHES`` (and the part of them graph
   replays added), the engine's prefill, chunk and decode call counts, its
-  decode window length and graph replays, its preemptions and the prompt
-  tokens served from the prefix cache, so launches can be held to calls.
+  decode window length and graph replays, its preemptions, the prompt
+  tokens served from the prefix cache and the pool's free and evictable
+  pages, so launches can be held to calls and pages to their idle count.
+- ``GET /debug/traces`` (recent request traces, ``?id=``, ``?model=``,
+  ``?limit=``) and ``GET /debug/engine`` (the flight recorder: the last
+  engine steps); ``POST /v1/embeddings`` answers 501.
+
+The replica contract with the routers, as the JAX server keeps it:
+
+- Request ids and tracing (``server/tracing.py``): ``traceparent``,
+  ``tracestate`` and ``X-LLMK-Request-Id`` are reconciled on every request
+  and the id is echoed on every response, errors included; each completion
+  leaves a trace (admission, queue, prefill, decode and stream spans, the
+  engine's preemption and finish events) in the ``/debug/traces`` ring,
+  one JSON access-log line, and is tail-sampled to OTLP when
+  ``LLMK_OTLP_ENDPOINT`` is set (off otherwise: nothing is sent).
+- Deadlines: ``X-LLMK-Deadline-Ms`` (milliseconds left, the router's
+  decremented budget; malformed means none) or the body's ``timeout``
+  (seconds). Expired on arrival: 504 before admission. The engine sheds a
+  waiting request and aborts a running one at its deadline: a choice with
+  no output answers 504, a stream ends with finish_reason "timeout", and
+  ``llm_deadline_exceeded_total{phase}`` counts queue or decode.
+- Stream journal and resume: a single-choice stream asked with
+  ``X-LLMK-Journal`` follows each event's ``data:`` lines with a
+  ``: llmk-tok <ids>`` comment (the event's raw ids); a request with
+  ``X-LLMK-Resume-Tokens`` continues a stream another replica started
+  (``SamplingParams.prefix_tokens``, the detokenizer and stop checker
+  warmed with the prefix, the original id and ``created`` reused).
+- ``Retry-After`` on the queue-full 429 (the backlog's estimated drain
+  time, clamped to [1, 60] s); a request body over ``MAX_BODY_BYTES`` is
+  refused with 413 before it is read; a stream writes ``: ping`` every
+  ``LLMK_SSE_KEEPALIVE_S`` seconds (default 15, <= 0 off) while it waits.
+- Fault hooks (``faults.py``): ``flappy_replica``, ``slow_cold_start``,
+  ``preempt_replica``, ``degraded_replica``, ``net_jitter`` and
+  ``kill_mid_stream`` (a one-shot TCP reset of the first stream to
+  deliver N tokens).
 
 Lifecycle: loading -> serving -> draining, with wedged overriding all.
 ``begin_drain`` (SIGTERM in ``cli.py``) turns /ready to 503, refuses new
 requests with 503 and lets in-flight work finish, at most
 ``EngineLoop.drain_timeout_s``.
 
-Not ported yet: request deadlines, tracing, QoS and tenants, the cache
-digest header and the disaggregated handoff, embeddings, LoRA routing.
+Not ported yet: QoS and tenants, the cache digest header, the
+disaggregated handoff and its hop headers, LoRA routing.
 """
 
 from __future__ import annotations
@@ -47,26 +81,32 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import math
 import os
 import queue
+import random
 import signal
+import socket
+import struct
 import sys
 import threading
 import time
 import traceback
+import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import torch
 
-from llms_on_kubernetes_tpu_torch import __version__, kernels, resolve_device
+from llms_on_kubernetes_tpu_torch import __version__, faults, kernels, resolve_device
 from llms_on_kubernetes_tpu_torch.engine.engine import (
     Engine, EngineConfig, EngineStallError, QueueFullError, SamplingParams, model_config_for,
 )
 from llms_on_kubernetes_tpu_torch.engine.sampling import LOGPROB_TOPK
 from llms_on_kubernetes_tpu_torch.engine.tokenizer import load_tokenizer
 from llms_on_kubernetes_tpu_torch.engine.weights import resolve_model_dir
+from llms_on_kubernetes_tpu_torch.server import tracing
 from llms_on_kubernetes_tpu_torch.server.affinity import BloomFilter
 from llms_on_kubernetes_tpu_torch.server.metrics import (
     Registry, build_info_metrics, engine_metrics, process_age_s,
@@ -77,10 +117,59 @@ log = logging.getLogger(__name__)
 # options refused until guided decoding is ported
 _UNSUPPORTED = ("tools", "tool_choice")
 MAX_CHOICES = 16
+# the request body cap (the JAX server's aiohttp client_max_size)
+MAX_BODY_BYTES = 32 * 1024 * 1024
+
+# the router <-> replica headers (the JAX server/router.py constants): the
+# deadline budget left, and the stream journal and resume protocol (a
+# journaled token's text was delivered before its comment)
+DEADLINE_HEADER = "X-LLMK-Deadline-Ms"
+JOURNAL_HEADER = "X-LLMK-Journal"
+RESUME_TOKENS_HEADER = "X-LLMK-Resume-Tokens"
+RESUME_STREAM_ID_HEADER = "X-LLMK-Resume-Stream-Id"
+RESUME_CREATED_HEADER = "X-LLMK-Resume-Created"
+REQUEST_ID_HEADER = tracing.REQUEST_ID_HEADER
 
 
 class BadRequest(ValueError):
     pass
+
+
+class BodyTooLarge(BadRequest):
+    pass
+
+
+def retry_after_s(seconds: float) -> int:
+    """Retry-After in whole seconds, never below 1 (clients would hot-loop)
+    nor above 60 (the JAX ``server/qos.retry_after_s``)."""
+    return max(1, min(60, int(math.ceil(seconds))))
+
+
+def deadline_from(headers, body: dict) -> Optional[float]:
+    """The request's absolute ``time.monotonic()`` deadline, or None (the
+    JAX ``_deadline_from``): ``X-LLMK-Deadline-Ms`` (milliseconds of
+    budget left) wins over the body's ``timeout`` (seconds); a malformed
+    header means no deadline, not a 400."""
+    raw = headers.get(DEADLINE_HEADER)
+    if raw is not None:
+        try:
+            return time.monotonic() + float(raw) / 1000.0
+        except ValueError:
+            return None
+    t = body.get("timeout")
+    if isinstance(t, (int, float)) and not isinstance(t, bool) and t > 0:
+        return time.monotonic() + float(t)
+    return None
+
+
+def keepalive_interval_s() -> float:
+    """The SSE keepalive period: ``LLMK_SSE_KEEPALIVE_S`` (default 15;
+    <= 0 disables), read per stream."""
+    raw = os.environ.get("LLMK_SSE_KEEPALIVE_S", "")
+    try:
+        return float(raw) if raw else 15.0
+    except ValueError:
+        return 15.0
 
 
 class IncrementalDetokenizer:
@@ -180,11 +269,26 @@ class _Choice:
         self.pending: list = []   # entries whose text the stopper holds back
         self.released_chars = 0
         self.done = False
+        self.warm_hit = False
+        prefix = list(req.params.prefix_tokens or ())
+        if prefix:
+            # a resumed stream: the prefix's text reached the client from
+            # the replica that died. Warm the detokenizer and the stop
+            # checker with it, so the continuation's deltas splice byte for
+            # byte after it (emitted characters are a function of the ids)
+            _text, self.warm_hit = self.stopper.push(self.detok.push(prefix))
+            self.total = len(prefix)
+            self.released_chars = self.stopper.emitted
 
     def feed(self, toks: list[int], done: bool, reason: Optional[str]) -> tuple:
         """One engine event -> (text delta, done, finish reason, released
         logprob entries)."""
         req = self.req
+        if self.warm_hit:
+            # the prefix itself completes a stop string: the stream was
+            # ending anyway
+            self.done = True
+            return "", True, "stop", []
         start = self.total
         self.total += len(toks)
         raw = [(t, req.output_logprobs[start + i] if start + i < len(req.output_logprobs)
@@ -237,19 +341,23 @@ class EngineLoop(threading.Thread):
     # under the JAX server's 60 s join, as there
     drain_timeout_s = 55.0
 
-    def __init__(self, engine: Engine, metrics: Optional[dict] = None, model_name: str = ""):
+    def __init__(self, engine: Engine, metrics: Optional[dict] = None, model_name: str = "",
+                 flight: Optional[tracing.FlightRecorder] = None):
         super().__init__(name="engine-loop", daemon=True)
         self.engine = engine
         self.metrics = metrics
         self.model_name = model_name
+        self.flight = flight
         self._wake = threading.Event()
         self._stop_evt = threading.Event()
         self._calls: "queue.SimpleQueue" = queue.SimpleQueue()
         self._ttft_seen: set[str] = set()
         self._preempt_seen = 0
 
-    def submit(self, prompt, params, on_event):
-        req = self.engine.submit(prompt, params, on_event=on_event)
+    def submit(self, prompt, params, on_event, deadline: Optional[float] = None,
+               request_id: Optional[str] = None):
+        req = self.engine.submit(prompt, params, request_id=request_id, on_event=on_event,
+                                 deadline=deadline)
         if self.metrics:
             self.metrics["requests_total"].inc()
             self.metrics["prompt_tokens"].inc(len(req.prompt))
@@ -314,8 +422,19 @@ class EngineLoop(threading.Thread):
             self._observe(events, time.monotonic() - t0)
 
     def _observe(self, events, dt: float) -> None:
-        """Feed the step's numbers to the metrics (the JAX EngineLoop's)."""
+        """Feed the step's numbers to the metrics and one frame to the
+        flight recorder (the JAX EngineLoop's)."""
         m, eng = self.metrics, self.engine
+        if self.flight is not None:
+            tokens = sum(len(ev.new_tokens) for ev in events)
+            self.flight.record(
+                step_ms=round(dt * 1000.0, 3),
+                occupancy=sum(r is not None for r in eng.slots),
+                kv_pages_used=eng.config.num_pages - 1 - eng.allocator.num_free_pages,
+                waiting=len(eng.waiting), tokens=tokens,
+                tokens_per_s=round(tokens / dt, 1) if dt > 0 else 0.0,
+                finished=sum(ev.finished for ev in events), preemptions=eng.preemptions,
+                wedged=bool(eng.wedged))
         if not m:
             return
         m["decode_step"].labels(model=self.model_name).observe(dt)
@@ -334,6 +453,10 @@ class EngineLoop(threading.Thread):
                 m["requests_finished"].inc()
                 m["e2e_latency"].labels(model=self.model_name).observe(
                     (r.finished_at or time.monotonic()) - r.submitted_at)
+            if ev.finished and ev.finish_reason == "timeout":
+                # queue: shed before it was ever seated; decode: aborted
+                m["deadline_exceeded"].labels(
+                    phase="queue" if r.admitted_at is None else "decode").inc()
             if r.first_token_at and r.id not in self._ttft_seen:
                 self._ttft_seen.add(r.id)
                 m["ttft"].labels(model=self.model_name).observe(
@@ -359,7 +482,18 @@ class OpenAIServer:
         self.metrics["kv_bytes_per_token"].set(engine.cache_config.bytes_per_token)
         for phase, seconds in (cold_start or {}).items():
             self.metrics["cold_start"].labels(phase=phase).observe(seconds)
-        self.loop = EngineLoop(engine, self.metrics, model_name)
+        # recent completed traces (/debug/traces), the engine flight
+        # recorder (/debug/engine), and the tail-sampled OTLP export
+        # (dormant without LLMK_OTLP_ENDPOINT; a skipped trace is counted)
+        self.traces = tracing.TraceStore(int(os.environ.get("LLMK_TRACE_RING", "256")))
+        self.flight = tracing.FlightRecorder(int(os.environ.get("LLMK_FLIGHT_STEPS", "512")))
+        self.tail_sampler = tracing.TailSampler()
+        self.exporter = tracing.exporter_from_env(
+            "llmk-engine", self.metrics["trace_spans_exported"], self.metrics["trace_dropped"])
+        self.loop = EngineLoop(engine, self.metrics, model_name, flight=self.flight)
+        # the degraded_replica gray failure: > 1 stretches this replica's
+        # event pacing while its probes stay green
+        self._degraded_factor = 1.0
         self.httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         # loading -> serving -> draining; "wedged" (the engine watchdog)
@@ -393,9 +527,39 @@ class OpenAIServer:
         return self.httpd
 
     def _start_serving(self) -> None:
+        """Start the engine loop and turn "serving". Under the
+        ``slow_cold_start`` fault the replica stays "loading" (/ready 503,
+        HTTP already answering) that many seconds first."""
+        delay = faults.get_float("slow_cold_start", 2.0)
+        if delay is not None and delay > 0:
+            t = threading.Timer(delay, self._go_serving)
+            t.daemon = True
+            t.start()
+        else:
+            self._go_serving()
+
+    def _go_serving(self) -> None:
         self.loop.start()
         self._state = "serving"
         self.metrics["cold_start"].labels(phase="ready").observe(process_age_s())
+        # preempt_replica: a spot preemption notice lands DELAY seconds
+        # from now and begins the drain; one-shot across the process
+        notice = faults.get_float("preempt_replica", 1.0)
+        if notice is not None and faults.claim("preempt_replica"):
+            t = threading.Timer(max(notice, 0.0), self.begin_drain)
+            t.daemon = True
+            t.start()
+        self.maybe_claim_degraded()
+
+    def maybe_claim_degraded(self) -> None:
+        """Arm ``degraded_replica`` on this replica if the fault is active
+        and still unclaimed; checked at startup and at every stream, so a
+        fault set later still finds one victim."""
+        if self._degraded_factor > 1.0:
+            return
+        factor = faults.get_float("degraded_replica", 8.0)
+        if factor is not None and factor > 1.0 and faults.claim("degraded_replica"):
+            self._degraded_factor = float(factor)
 
     def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
         """Serve on a background thread (tests); returns the bound port."""
@@ -451,6 +615,8 @@ class OpenAIServer:
         self.loop.stop()
         if self.loop.is_alive():
             self.loop.join(timeout=10)
+        if self.exporter is not None:
+            self.exporter.close()
 
     def prefix_filter_doc(self) -> Optional[dict]:
         """The serialized bloom filter of the prefix cache's page digests
@@ -467,6 +633,55 @@ class OpenAIServer:
         self._pf_doc = f.serialize()
         self._pf_built = now
         return self._pf_doc
+
+    # -- tracing -----------------------------------------------------------
+
+    def finalize_trace(self, trace: tracing.Trace, status: str, http_status) -> None:
+        """The request's span timeline from its engine requests' stamps
+        (admission, queue, prefill, decode, stream; the JAX
+        ``_finalize_trace``), into the ring, one access-log line, the slow
+        dump and the tail-sampled export. Never raises."""
+        try:
+            now = time.monotonic()
+            many = len(trace.engine_reqs) > 1
+
+            def eng_span(name, start, end, **meta):
+                trace.add_span(name, start, end, span_id=tracing.new_span_id(),
+                               parent_span_id=trace.span_id, **meta)
+
+            for i, req in enumerate(trace.engine_reqs):
+                meta = {"choice": i} if many else {}
+                adm, ft = req.admitted_at, req.first_token_at
+                fin = now if req.finished_at is None else min(req.finished_at, now)
+                eng_span("admission", trace.t0, req.submitted_at, **meta)
+                eng_span("queue", req.submitted_at, adm if adm is not None else fin, **meta)
+                if adm is not None:
+                    eng_span("prefill", adm, ft if ft is not None else fin, **meta)
+                if ft is not None:
+                    eng_span("decode", ft, fin, **meta, tokens=len(req.output))
+                if fin < now:
+                    eng_span("stream", fin, now, **meta)
+            trace.finish(status)
+            self.traces.add(trace)
+            tracing.jlog("request", request_id=trace.request_id, component="api",
+                         model=trace.model, status=status, http_status=http_status,
+                         e2e_ms=round(trace.e2e_ms() or 0.0, 3),
+                         tokens=sum(len(r.output) for r in trace.engine_reqs))
+            tracing.maybe_log_slow(trace, "api")
+            d = trace.to_dict()
+            if self.exporter is None:
+                self.metrics["trace_dropped"].labels(reason="disabled").inc()
+                return
+            st = d.get("status") or ""
+            keep, reason = self.tail_sampler.decide(
+                st == "error" or st.startswith("http_5"), d.get("e2e_ms"),
+                tracing.is_multi_hop(d))
+            if not keep:
+                self.metrics["trace_dropped"].labels(reason=reason).inc()
+                return
+            self.exporter.export(d)
+        except Exception:  # observability must not fail serving
+            log.debug("trace finalize failed:\n%s", traceback.format_exc())
 
     # -- request parsing ---------------------------------------------------
 
@@ -650,11 +865,33 @@ class _HTTPServer(ThreadingHTTPServer):
 class _Handler(BaseHTTPRequestHandler):
     app: OpenAIServer
     server_version = "llms-on-kubernetes-tpu-torch"
+    request_id: Optional[str] = None
+    status_code: Optional[int] = None
 
     def log_message(self, fmt, *args):  # keep request logs off stderr
         log.debug("%s " + fmt, self.address_string(), *args)
 
     # -- plumbing ----------------------------------------------------------
+
+    def _begin(self) -> None:
+        """Reconcile the correlation headers (the JAX request-id
+        middleware): a valid ``traceparent`` is adopted, and a safe
+        ``X-LLMK-Request-Id``; otherwise an id is minted. Every response to
+        this request echoes the id (``end_headers``)."""
+        self.trace_ctx = tracing.reconcile(self.headers.get(tracing.TRACEPARENT_HEADER),
+                                           self.headers.get(tracing.TRACESTATE_HEADER),
+                                           self.headers.get(REQUEST_ID_HEADER))
+        self.request_id = self.trace_ctx["request_id"] or tracing.new_request_id()
+        self.status_code = None
+
+    def send_response(self, code, message=None):
+        self.status_code = code
+        super().send_response(code, message)
+
+    def end_headers(self):
+        if self.request_id:
+            self.send_header(REQUEST_ID_HEADER, self.request_id)
+        super().end_headers()
 
     def _send(self, status: int, body: bytes, ctype: str, headers: Optional[dict] = None
               ) -> None:
@@ -676,8 +913,28 @@ class _Handler(BaseHTTPRequestHandler):
             err["code"] = code
         self._json(status, {"error": err}, headers)
 
+    def _bad_request(self, e: BadRequest) -> None:
+        if isinstance(e, BodyTooLarge):
+            self._error(413, str(e), "invalid_request_error", "request_too_large")
+        else:
+            self._error(400, str(e))
+
+    def _body_length(self) -> int:
+        """The declared body length; over ``MAX_BODY_BYTES`` the request is
+        refused before a byte of the body is read (and the connection
+        closes after the answer)."""
+        try:
+            n = int(self.headers.get("Content-Length") or 0)
+        except ValueError:
+            raise BadRequest("malformed Content-Length")
+        if n > MAX_BODY_BYTES:
+            self.close_connection = True
+            raise BodyTooLarge(f"request body of {n} bytes exceeds the {MAX_BODY_BYTES}-byte "
+                               f"limit")
+        return max(n, 0)
+
     def _read_json(self) -> dict:
-        n = int(self.headers.get("Content-Length") or 0)
+        n = self._body_length()
         raw = self.rfile.read(n) if n > 0 else b""
         try:
             body = json.loads(raw or b"{}")
@@ -687,17 +944,43 @@ class _Handler(BaseHTTPRequestHandler):
             raise BadRequest("the request body must be a JSON object")
         return body
 
+    def _reset_connection(self) -> None:
+        """Sever the client's socket with a TCP reset (SO_LINGER 0, then
+        close): a replica dying mid-stream, as the router sees it."""
+        self.close_connection = True
+        try:
+            self.connection.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                                       struct.pack("ii", 1, 0))
+            self.rfile.close()          # the socket closes with its last file
+            self.connection.close()
+        except OSError:
+            pass
+
     # -- routes ------------------------------------------------------------
 
     def do_GET(self):
+        self._begin()
         app = self.app
-        if self.path == "/health":
+        path, _, query = self.path.partition("?")
+        args = urllib.parse.parse_qs(query)
+
+        def arg_int(key: str, default: int) -> int:
+            try:
+                return int(args.get(key, [default])[0])
+            except (TypeError, ValueError):
+                return default
+
+        if path == "/health":
             if app.state == "wedged":
                 self._error(503, "engine wedged", "service_unavailable")
             else:
                 self._send(200, b"OK", "text/plain; charset=utf-8")
-        elif self.path == "/ready":
+        elif path == "/ready":
             state = app.state
+            flap = faults.get_float("flappy_replica", 1.0)
+            if flap and state == "serving" and int(time.monotonic() / flap) % 2:
+                # injected fault: readiness flaps while the engine serves
+                state = "draining"
             app.metrics["engine_state"].set(app.STATE_CODES[state])
             if state == "serving":
                 doc = {"state": state}
@@ -708,17 +991,26 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._json(503, {"state": state, "error": {
                     "message": f"not ready: {state}", "type": "service_unavailable"}})
-        elif self.path == "/metrics":
+        elif path == "/metrics":
             app.metrics["engine_state"].set(app.STATE_CODES[app.state])
             self._send(200, app.registry.render().encode(), "text/plain; charset=utf-8")
-        elif self.path == "/version":
+        elif path == "/version":
             self._json(200, {"version": __version__})
-        elif self.path == "/v1/models":
+        elif path == "/v1/models":
             self._json(200, {"object": "list", "data": [{
                 "id": app.model_name, "object": "model",
                 "created": int(time.time()),
                 "owned_by": "llms-on-kubernetes-tpu-torch"}]})
-        elif self.path == "/debug/kernels":
+        elif path == "/debug/traces":
+            # newest first; span times in ms from the request's arrival
+            self._json(200, {"traces": app.traces.snapshot(
+                request_id=args.get("id", [None])[0], model=args.get("model", [None])[0],
+                limit=arg_int("limit", 50))})
+        elif path == "/debug/engine":
+            snap = app.flight.snapshot(limit=arg_int("limit", 0) or None)
+            snap.update(state=app.state, model=app.model_name, role="both")
+            self._json(200, snap)
+        elif path == "/debug/kernels":
             eng = app.engine
             self._json(200, {"launches": kernels.launch_counts(),
                              "replayed_launches": kernels.replayed_counts(),
@@ -730,11 +1022,15 @@ class _Handler(BaseHTTPRequestHandler):
                              "decode_steps": eng.config.decode_steps,
                              "graph_replays": eng.graph_replays,
                              "preemptions": eng.preemptions,
-                             "prefix_hit_tokens": eng.allocator.hit_tokens_total})
+                             "prefix_hit_tokens": eng.allocator.hit_tokens_total,
+                             "num_pages": eng.config.num_pages,
+                             "free_pages": eng.allocator.num_free_pages,
+                             "evictable_pages": eng.allocator.num_evictable_pages})
         else:
             self._error(404, f"no route {self.path}", "not_found")
 
     def do_POST(self):
+        self._begin()
         if self.path == "/debug/kernels/reset":
             kernels.reset_launches()
             self._json(200, {"launches": kernels.launch_counts()})
@@ -744,7 +1040,20 @@ class _Handler(BaseHTTPRequestHandler):
                 self._json(200, (self._tokenize if self.path == "/tokenize"
                                  else self._detokenize)(body))
             except BadRequest as e:
-                self._error(400, str(e))
+                self._bad_request(e)
+        elif self.path == "/v1/embeddings":
+            # an explicit 501, not a 404: the route is in the OpenAI surface,
+            # this server hosts a generative model
+            try:
+                n = self._body_length()
+                if n:
+                    self.rfile.read(n)
+            except BadRequest as e:
+                self._bad_request(e)
+                return
+            self._json(501, {"error": {
+                "message": "this server hosts a generative model; /v1/embeddings is not "
+                           "supported", "type": "not_implemented"}})
         elif self.path in ("/v1/completions", "/v1/chat/completions"):
             with self.app._active_lock:
                 self.app._active += 1
@@ -786,6 +1095,24 @@ class _Handler(BaseHTTPRequestHandler):
         return {"prompt": self.app.tokenizer.decode(toks)}
 
     def _completion(self, chat: bool) -> None:
+        """One completion under its trace: whatever it answers, it leaves
+        a finished trace in the ring and one access-log line."""
+        app = self.app
+        ctx = self.trace_ctx
+        trace = tracing.Trace(self.request_id, model=app.model_name,
+                              trace_id=ctx.get("trace_id", ""),
+                              parent_span_id=ctx.get("parent_span_id", ""),
+                              component="api", sampled=bool(ctx.get("sampled", True)))
+        trace.engine_reqs = []
+        status = "error"
+        try:
+            self._serve_completion(chat, trace)
+            code = self.status_code or 0
+            status = "ok" if code < 400 else f"http_{code}"
+        finally:
+            app.finalize_trace(trace, status, self.status_code)
+
+    def _serve_completion(self, chat: bool, trace: tracing.Trace) -> None:
         app = self.app
         if app.state == "draining":
             # in-flight streams finish; new work goes to a live replica
@@ -794,6 +1121,18 @@ class _Handler(BaseHTTPRequestHandler):
             return
         try:
             body = self._read_json()
+        except BadRequest as e:
+            self._bad_request(e)
+            return
+        deadline = deadline_from(self.headers, body)
+        if deadline is not None and deadline <= time.monotonic():
+            # expired before the engine saw it: a queue-phase shed
+            app.metrics["deadline_exceeded"].labels(phase="queue").inc()
+            self._error(504, "deadline expired before processing", "timeout",
+                        "deadline_exceeded")
+            return
+        raw_resume = self.headers.get(RESUME_TOKENS_HEADER)
+        try:
             params = app.sampling_from_body(body, chat)
             prompts = app.prompts_from_body(body, chat)
             stream = bool(body.get("stream"))
@@ -812,8 +1151,21 @@ class _Handler(BaseHTTPRequestHandler):
                 raise BadRequest(f"best_of must be <= {MAX_CHOICES}")
             if best_of > n and stream:
                 raise BadRequest("best_of > n cannot be streamed")
+            if raw_resume is not None:
+                # the router's splice: continue a stream a dead replica
+                # started. Only single-choice streams are journaled, and the
+                # replay is idempotent (the same prefix and seed give the
+                # same continuation)
+                if not stream or n != 1 or best_of != 1 or len(prompts) != 1:
+                    raise BadRequest("stream resume requires a single-choice streaming request")
+                try:
+                    prefix = tuple(int(t) for t in raw_resume.split(",") if t.strip())
+                except ValueError:
+                    raise BadRequest(f"malformed {RESUME_TOKENS_HEADER} header")
+                if prefix:
+                    params = dataclasses.replace(params, prefix_tokens=prefix)
         except BadRequest as e:
-            self._error(400, str(e))
+            self._bad_request(e)
             return
         stops = _parse_stops(body)
         events: "queue.SimpleQueue" = queue.SimpleQueue()
@@ -827,8 +1179,16 @@ class _Handler(BaseHTTPRequestHandler):
                     if best_of > 1 and params.seed is not None and j > 0:
                         p = dataclasses.replace(params, seed=(params.seed + j) & 0x7FFFFFFF)
                     idx = len(reqs)
-                    reqs.append(app.loop.submit(
-                        prompt, p, lambda payload, idx=idx: events.put((idx, payload))))
+                    # the engine request carries the request id (suffixed
+                    # per choice, so engine ids stay unique)
+                    eng_id = (self.request_id if len(prompts) * best_of == 1
+                              else f"{self.request_id}/{idx}")
+                    req = app.loop.submit(
+                        prompt, p, lambda payload, idx=idx: events.put((idx, payload)),
+                        deadline=deadline, request_id=eng_id)
+                    req.trace = trace
+                    trace.engine_reqs.append(req)
+                    reqs.append(req)
         except EngineStallError as e:
             self._abort_all(reqs)
             self._error(503, str(e), "service_unavailable", "engine_stalled",
@@ -836,7 +1196,10 @@ class _Handler(BaseHTTPRequestHandler):
             return
         except QueueFullError as e:
             self._abort_all(reqs)
-            self._error(429, str(e), "rate_limit_exceeded", "overloaded")
+            # the backlog's drain time: queue depth x the step estimate
+            est = len(app.engine.waiting) * max(app.engine._est_step, 1e-3)
+            self._error(429, str(e), "rate_limit_exceeded", "overloaded",
+                        {"Retry-After": str(retry_after_s(est))})
             return
         except ValueError as e:          # engine validation (length, top_k, bias, ...)
             self._abort_all(reqs)
@@ -844,12 +1207,26 @@ class _Handler(BaseHTTPRequestHandler):
             return
         rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex
         created = int(time.time())
+        if raw_resume is not None:
+            # the spliced continuation keeps the original stream's id and
+            # created stamp
+            sid = self.headers.get(RESUME_STREAM_ID_HEADER, "")
+            if sid and len(sid) <= 128 and sid.isprintable():
+                rid = sid
+            raw_created = self.headers.get(RESUME_CREATED_HEADER, "")
+            if raw_created.isdigit():
+                created = int(raw_created)
         choices = [_Choice(app, r, stops) for r in reqs]
+        for i, c in enumerate(choices):
+            if c.warm_hit:
+                app.loop.abort(c.req)
+                events.put((i, ([], True, "stop")))
         try:
             if stream:
                 include_usage = bool((body.get("stream_options") or {}).get("include_usage"))
                 self._stream(choices, events, rid, created, chat, prompts, params.logprobs,
-                             include_usage)
+                             include_usage, journal=JOURNAL_HEADER in self.headers
+                             and len(reqs) == 1, resumed=raw_resume is not None)
                 return
             scores = None
             if want_scores:
@@ -871,15 +1248,26 @@ class _Handler(BaseHTTPRequestHandler):
         for r in reqs:
             self.app.loop.abort(r, reason)
 
-    @staticmethod
-    def _events(choices, events):
-        """Yield (choice index, text, done, reason, released entries) per
-        engine event, until every choice is done; events for a choice
-        already done (after a stop string aborted it) are dropped."""
+    def _events(self, choices, events):
+        """Yield (choice index, text, done, reason, released entries, raw
+        token ids) per engine event, until every choice is done; events for
+        a choice already done (after a stop string aborted it) are dropped.
+        The gray-failure faults act between an event and its delivery:
+        ``degraded_replica`` stretches the pacing by (factor - 1) x the
+        time since the last event, ``net_jitter`` adds 0..MS ms."""
+        app = self.app
+        jitter_ms = faults.get_float("net_jitter", 25.0)
+        app.maybe_claim_degraded()
+        t_last = time.monotonic()
         while not all(c.done for c in choices):
             i, (toks, done, reason) = events.get()
+            if app._degraded_factor > 1.0:
+                time.sleep((time.monotonic() - t_last) * (app._degraded_factor - 1.0))
+            if jitter_ms is not None and jitter_ms > 0:
+                time.sleep(random.uniform(0.0, jitter_ms / 1000.0))
+            t_last = time.monotonic()
             if not choices[i].done:
-                yield (i, *choices[i].feed(toks, done, reason))
+                yield (i, *choices[i].feed(toks, done, reason), toks)
 
     def _full(self, choices, events, rid, created, chat, prompts, nlp, n, best_of, echo,
               scores) -> None:
@@ -887,7 +1275,7 @@ class _Handler(BaseHTTPRequestHandler):
         texts = [""] * len(choices)
         reasons: list = [None] * len(choices)
         entries: list = [[] for _ in choices]
-        for i, text, done, reason, released in self._events(choices, events):
+        for i, text, done, reason, released, _raw in self._events(choices, events):
             texts[i] += text
             entries[i] += released
             if done:
@@ -897,6 +1285,12 @@ class _Handler(BaseHTTPRequestHandler):
             # retry may land on a healthy replica), not a truncated answer
             self._error(503, "engine stalled while generating; request was aborted",
                         "service_unavailable", "engine_stalled", {"Retry-After": "30"})
+            return
+        if all(reasons[i] == "timeout" and not texts[i] for i in range(len(choices))):
+            # no choice produced anything inside its deadline: the 504 the
+            # router would give (a choice with text answers 200, "timeout")
+            self._error(504, "deadline exceeded before any output was generated",
+                        "timeout", "deadline_exceeded")
             return
         results = [(i // best_of, texts[i], reasons[i], entries[i])
                    for i in range(len(choices))]
@@ -940,20 +1334,33 @@ class _Handler(BaseHTTPRequestHandler):
             "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_out,
                       "total_tokens": n_prompt + n_out}})
 
-    def _stream(self, choices, events, rid, created, chat, prompts, nlp, include_usage
-                ) -> None:
+    def _stream(self, choices, events, rid, created, chat, prompts, nlp, include_usage,
+                journal: bool = False, resumed: bool = False) -> None:
+        """Server-sent events. Writes hold one lock, shared with the
+        keepalive thread (``: ping`` every ``keepalive_interval_s()``
+        seconds, stopped before the final chunk). With ``journal`` each
+        event's data lines are followed by ``: llmk-tok <raw ids>``; a
+        ``resumed`` chat stream sends no role delta (the original did)."""
         app = self.app
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
         self.send_header("Cache-Control", "no-cache")
+        self.send_header("X-Accel-Buffering", "no")
         self.send_header("Connection", "close")
         self.end_headers()
+        self.close_connection = True
         obj = "chat.completion.chunk" if chat else "text_completion"
+        lock = threading.Lock()
+        # LLMK_FAULT=kill_mid_stream[:N]: the first stream of the process
+        # to deliver N tokens dies with a TCP reset
+        kill_after = faults.get_float("kill_mid_stream", 8.0)
+
+        def send(line: str) -> None:      # the caller holds ``lock``
+            self.wfile.write(line.encode())
+            self.wfile.flush()
 
         def write(payload) -> None:
-            data = payload if isinstance(payload, str) else json.dumps(payload)
-            self.wfile.write(f"data: {data}\n\n".encode())
-            self.wfile.flush()
+            send(f"data: {payload if isinstance(payload, str) else json.dumps(payload)}\n\n")
 
         def chunk(index: int, text: Optional[str], reason: Optional[str],
                   role: bool = False, ents=None, base_offset: int = 0) -> dict:
@@ -971,34 +1378,68 @@ class _Handler(BaseHTTPRequestHandler):
             return {"id": rid, "object": obj, "created": created,
                     "model": app.model_name, "choices": [choice]}
 
-        if chat:
-            for i in range(len(choices)):
-                write(chunk(i, None, None, role=True))
-        signalled = [False] * len(choices)
-        chars = [0] * len(choices)      # each choice's offsets run over its stream
-        for i, text, done, reason, ents in self._events(choices, events):
-            # a chunk is due for text or logprob entries; the first token
-            # always gets one, even when its text is held back, so the
-            # time to the first chunk tracks the engine's first token
-            if text or (nlp and ents):
-                write(chunk(i, text or None, None, ents=ents, base_offset=chars[i]))
-                signalled[i] = True
-                if nlp:
-                    chars[i] += sum(len(p) for _, _, p in ents)
-            elif not signalled[i] and not done:
-                write(chunk(i, "", None))
-                signalled[i] = True
-            if done:
-                write(chunk(i, None, reason))
-        if include_usage:
-            n_prompt = sum(len(p) for p in prompts)
-            n_out = sum(c.total for c in choices)
-            write({"id": rid, "object": obj, "created": created,
-                   "model": app.model_name, "choices": [],
-                   "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_out,
-                             "total_tokens": n_prompt + n_out}})
-        write("[DONE]")
-        self.close_connection = True
+        ka_stop = threading.Event()
+        keep_s = keepalive_interval_s()
+        if keep_s > 0:
+            # idle-timeout balancers reap a quiet stream; clients and the
+            # routers pass SSE comments over
+            def keepalive() -> None:
+                while not ka_stop.wait(keep_s):
+                    with lock:
+                        if ka_stop.is_set():
+                            return
+                        try:
+                            send(": ping\n\n")
+                        except OSError:
+                            return
+
+            threading.Thread(target=keepalive, name="sse-keepalive", daemon=True).start()
+        try:
+            with lock:
+                if chat and not resumed:
+                    for i in range(len(choices)):
+                        write(chunk(i, None, None, role=True))
+            signalled = [False] * len(choices)
+            chars = [0] * len(choices)      # each choice's offsets run over its stream
+            for i, text, done, reason, ents, raw in self._events(choices, events):
+                with lock:
+                    if done and all(c.done for c in choices):
+                        ka_stop.set()       # no ping after the final chunk
+                    # a chunk is due for text or logprob entries; the first
+                    # token always gets one, even when its text is held
+                    # back, so the time to the first chunk tracks the
+                    # engine's first token
+                    if text or (nlp and ents):
+                        write(chunk(i, text or None, None, ents=ents, base_offset=chars[i]))
+                        signalled[i] = True
+                        if nlp:
+                            chars[i] += sum(len(p) for _, _, p in ents)
+                    elif not signalled[i] and not done:
+                        write(chunk(i, "", None))
+                        signalled[i] = True
+                    if done:
+                        write(chunk(i, None, reason))
+                    if journal and raw:
+                        # after the event's data: a journaled token's text
+                        # has been delivered (the splice invariant)
+                        send(f": llmk-tok {','.join(str(t) for t in raw)}\n\n")
+                if (kill_after is not None and choices[i].total >= kill_after
+                        and faults.claim("kill_mid_stream")):
+                    self._abort_all([c.req for c in choices], "kill_mid_stream")
+                    self._reset_connection()
+                    return
+            ka_stop.set()
+            with lock:
+                if include_usage:
+                    n_prompt = sum(len(p) for p in prompts)
+                    n_out = sum(c.total for c in choices)
+                    write({"id": rid, "object": obj, "created": created,
+                           "model": app.model_name, "choices": [],
+                           "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_out,
+                                     "total_tokens": n_prompt + n_out}})
+                write("[DONE]")
+        finally:
+            ka_stop.set()
 
 
 def serve(model: str = "debug-tiny", *, host: str = "0.0.0.0", port: int = 8080,

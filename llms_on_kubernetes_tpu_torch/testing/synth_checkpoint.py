@@ -1,7 +1,8 @@
 """Write a HuggingFace-format safetensors checkpoint of a dense registry
 model, at its full width, with cheap deterministic values.
 
-    python -m llms_on_kubernetes_tpu_torch.testing.synth_checkpoint phi-3-mini OUT_DIR [--fp8]
+    python -m llms_on_kubernetes_tpu_torch.testing.synth_checkpoint phi-3-mini OUT_DIR \
+        [--fp8] [--tokenizer llama3|phi3]
 
 Neither machine this repository runs on can download the published
 weights, so the card's run serves a checkpoint this module writes: the
@@ -27,13 +28,25 @@ rotated by a hash of the tensor's name, tiled over its shape and scaled by
 norms; biases small). Billions of random draws would cost minutes and
 change nothing a load or a serve measures. ``tensor_value`` recomputes any
 tensor, so a reader can be held to exactly what was written.
+
+``tokenizer="llama3"`` or ``"phi3"`` also writes ``tokenizer.json`` and
+``tokenizer_config.json`` in that family's published format (see
+``tokenizer_files``): a byte vocabulary and a few thousand merges that a
+small pure-Python BPE trainer learns from the repository's ``SURVEY.md``,
+the special tokens at their published ids and the published chat
+template, with no ``tokenizers`` needed. ``TOKENIZER_PROBES`` holds the
+ids ``transformers`` gives over those files for ``PROBE_TEXTS`` and
+``PROBE_CHAT``.
 """
 
 from __future__ import annotations
 
+import collections
+import heapq
 import json
 import os
 import sys
+import unicodedata
 import zlib
 
 import numpy as np
@@ -222,13 +235,21 @@ def _header(entries: list[tuple[str, tuple, str, int]]) -> bytes:
 
 def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16", seed: int = 0,
                      max_shard_bytes: int = 4 << 30, quantization: str = None,
-                     fp8_strategy: str = "channel") -> dict:
+                     fp8_strategy: str = "channel", tokenizer: str = None) -> dict:
     """Write ``cfg`` as a HF checkpoint into ``out_dir`` (made if missing):
     ``config.json``, ``model-0000k-of-0000n.safetensors`` shards of at most
     ``max_shard_bytes`` (a tensor is never split) and
     ``model.safetensors.index.json``. ``quantization="fp8"``: the layers'
-    linears as fp8 with ``fp8_strategy`` scales (``fp8_value``). Returns
+    linears as fp8 with ``fp8_strategy`` scales (``fp8_value``).
+    ``tokenizer`` ("llama3" or "phi3"): also that family's tokenizer files
+    (``write_tokenizer``), whose ids must fit ``cfg.vocab_size``. Returns
     the index."""
+    if tokenizer is not None:
+        top = max((LLAMA3_SPECIAL if tokenizer == "llama3" else PHI3_SPECIAL))
+        if top >= cfg.vocab_size:
+            raise ValueError(f"the {tokenizer} tokenizer's ids reach {top}, past "
+                             f"{cfg.name}'s vocabulary of {cfg.vocab_size}")
+        write_tokenizer(out_dir, tokenizer)
     if quantization not in (None, "fp8"):
         raise ValueError(f"quantization must be None or 'fp8', got {quantization!r}")
     if fp8_strategy not in FP8_STRATEGIES:
@@ -281,17 +302,298 @@ def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16",
     return index
 
 
+# ---------------------------------------------------------------------------
+# tokenizer files: tokenizer.json and tokenizer_config.json in the published
+# llama-3 and phi-3 formats, over a vocabulary trained here
+# ---------------------------------------------------------------------------
+
+TOKENIZER_FAMILIES = ("llama3", "phi3")
+# the training text: the repository's SURVEY.md, pinned, so the files (and
+# TOKENIZER_PROBES) are the same on every machine
+CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "SURVEY.md")
+CORPUS_SHA256 = "27a1e9c597d9b0ac0c3f4a6df74dd308d95e77a66d67c9a18eebefb4406df17c"
+TOKENIZER_MERGES = 3000
+# the published special tokens at their published ids. ``tokenizers``
+# numbers added tokens on from the model's vocabulary, so that vocabulary
+# is filled up to the first of them (the published sizes) and the added
+# tokens run on without a gap, placeholders included
+LLAMA3_BASE_VOCAB = 128000
+LLAMA3_SPECIAL = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>",
+                  **{128002 + i: f"<|reserved_special_token_{i}|>" for i in range(4)},
+                  128006: "<|start_header_id|>", 128007: "<|end_header_id|>",
+                  128008: "<|reserved_special_token_4|>", 128009: "<|eot_id|>"}
+PHI3_BASE_VOCAB = 32000
+PHI3_SPECIAL = {0: "<unk>", 1: "<s>", 2: "</s>", 32000: "<|endoftext|>",
+                32001: "<|assistant|>",
+                **{32002 + i: f"<|placeholder{i + 1}|>" for i in range(4)},
+                32006: "<|system|>", 32007: "<|end|>", 32008: "<|placeholder5|>",
+                32009: "<|placeholder6|>", 32010: "<|user|>"}
+# phi-3's chat-role tokens strip the whitespace after them
+PHI3_RSTRIP = {32001, 32006, 32007, 32010}
+LLAMA3_CHAT_TEMPLATE = (
+    "{% set loop_messages = messages %}{% for message in loop_messages %}"
+    "{% set content = '<|start_header_id|>' + message['role'] + '<|end_header_id|>\n\n'"
+    "+ message['content'] | trim + '<|eot_id|>' %}{% if loop.index0 == 0 %}"
+    "{% set content = bos_token + content %}{% endif %}{{ content }}{% endfor %}"
+    "{% if add_generation_prompt %}{{ '<|start_header_id|>assistant<|end_header_id|>\n\n' }}"
+    "{% endif %}")
+PHI3_CHAT_TEMPLATE = (
+    "{% for message in messages %}{% if message['role'] == 'system' %}"
+    "{{'<|system|>\n' + message['content'] + '<|end|>\n'}}"
+    "{% elif message['role'] == 'user' %}{{'<|user|>\n' + message['content'] + '<|end|>\n'}}"
+    "{% elif message['role'] == 'assistant' %}"
+    "{{'<|assistant|>\n' + message['content'] + '<|end|>\n'}}{% endif %}{% endfor %}"
+    "{% if add_generation_prompt %}{{ '<|assistant|>\n' }}{% else %}{{ eos_token }}{% endif %}")
+
+
+# probes of the written files: strings and a chat, with the ids that
+# ``transformers`` (AutoTokenizer over the files ``write_tokenizer`` writes)
+# gives for them: ``encode`` (special tokens added) and
+# ``apply_chat_template(tokenize=True, add_generation_prompt=True)``
+PROBE_TEXTS = ("Hello, world! The engine serves 1,234,567 tokens on the card.",
+               "naïve café — 東京 🚀\n\n  indented\r\nline's end",
+               "<|eot_id|> and <|end|> as text")
+PROBE_CHAT = ({"role": "system", "content": "You are a terse assistant."},
+              {"role": "user", "content": "What is 2 + 2? Answer in one word."})
+TOKENIZER_PROBES = {
+    "llama3": {
+        "texts": [
+            [128000, 72, 284, 328, 44, 317, 279, 564, 33, 765, 671, 477, 276, 32, 49, 44,
+             50, 778, 44, 1293, 55, 1108, 360, 297, 280, 541, 46],
+            [128000, 110, 97, 195, 175, 1657, 280, 1322, 195, 169, 371, 32, 230, 157, 177,
+             228, 186, 172, 32, 240, 159, 154, 128, 340, 32, 318, 258, 1050, 296, 13, 10,
+             866, 648, 1723],
+            [128000, 128009, 463, 761, 124, 559, 124, 62, 813, 306, 794],
+        ],
+        "chat": [128000, 128006, 2179, 128007, 340, 89, 111, 117, 883, 277, 306, 257, 519,
+                 277, 692, 545, 748, 46, 128009, 128006, 615, 257, 128007, 340, 1150, 425,
+                 32, 50, 332, 32, 50, 63, 368, 1370, 1661, 318, 768, 317, 279, 100, 46,
+                 128009, 128006, 390, 115, 545, 748, 128007, 340],
+    },
+    "phi3": {
+        "texts": [
+            [2769, 430, 290, 416, 384, 263, 271, 36, 813, 759, 582, 379, 535, 290, 294,
+             1781, 290, 304, 312, 309, 542, 296, 654, 463, 397, 383, 652, 279],
+            [413, 261, 198, 178, 1946, 383, 1506, 198, 172, 469, 259, 233, 160, 180, 231,
+             189, 175, 259, 243, 162, 157, 131, 13, 13, 259, 420, 362, 1195, 398, 16, 13,
+             987, 763, 2057],
+            [1092, 281, 260, 578, 322, 709, 281, 336, 541, 259, 32007, 1016, 407, 974],
+        ],
+        "chat": [32006, 259, 341, 264, 274, 1015, 380, 407, 361, 634, 380, 805, 656, 869,
+                 279, 32007, 32010, 1609, 522, 636, 435, 636, 66, 466, 1577, 291, 361,
+                 420, 893, 416, 384, 271, 279, 32007, 32001],
+    },
+}
+
+
+def train_bpe(word_counts: dict, n_merges: int) -> list[tuple[str, str]]:
+    """Byte-pair merges learned over ``word_counts`` (a tuple of symbols ->
+    its count): the most frequent adjacent pair first, ties to the
+    smaller pair, until ``n_merges`` or no pair occurs twice. Pair counts
+    are kept up to date word by word, so this takes about a second in
+    pure Python."""
+    words = [list(w) for w in word_counts]
+    freqs = list(word_counts.values())
+    pairs: dict = collections.Counter()
+    where: dict = collections.defaultdict(set)
+    for wi, w in enumerate(words):
+        for p in zip(w, w[1:]):
+            pairs[p] += freqs[wi]
+            where[p].add(wi)
+    heap = [(-c, p) for p, c in pairs.items()]
+    heapq.heapify(heap)
+    merges: list[tuple[str, str]] = []
+    while heap and len(merges) < n_merges:
+        neg, pair = heapq.heappop(heap)
+        if pairs.get(pair, 0) != -neg:
+            continue                    # a stale count
+        if -neg < 2:
+            break
+        merges.append(pair)
+        a, b = pair
+        touched = set()
+        for wi in where.pop(pair):
+            w, f = words[wi], freqs[wi]
+            old = list(zip(w, w[1:]))
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and w[i] == a and w[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            if len(out) == len(w):
+                continue
+            words[wi] = out
+            for p in old:
+                pairs[p] -= f
+            for p in zip(out, out[1:]):
+                pairs[p] += f
+                where[p].add(wi)
+            touched.update(old)
+            touched.update(zip(out, out[1:]))
+        pairs.pop(pair, None)
+        for p in touched:
+            if pairs.get(p, 0) > 0 and p != pair:
+                heapq.heappush(heap, (-pairs[p], p))
+    return merges
+
+
+def _corpus() -> str:
+    import hashlib
+
+    with open(CORPUS, "rb") as f:
+        raw = f.read()
+    if hashlib.sha256(raw).hexdigest() != CORPUS_SHA256:
+        raise RuntimeError(f"{CORPUS} changed: the synthetic tokenizers (and "
+                           f"TOKENIZER_PROBES) are trained on its pinned content")
+    return raw.decode("utf-8")
+
+
+def _vocab_with_merges(vocab: dict, merges: list, size: int) -> dict:
+    """``vocab``, the merges' tokens, then fillers no merge makes, up to
+    ``size`` ids."""
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    while len(vocab) < size:
+        vocab[f"<|synthetic_{len(vocab)}|>"] = len(vocab)
+    return vocab
+
+
+def _added(special: dict, rstrip=frozenset()) -> list[dict]:
+    return [{"id": i, "content": t, "single_word": False, "lstrip": False,
+             "rstrip": i in rstrip, "normalized": False, "special": True}
+            for i, t in sorted(special.items())]
+
+
+def _template_processing(token: str, tid: int) -> dict:
+    one = {"SpecialToken": {"id": token, "type_id": 0}}
+    return {"type": "TemplateProcessing",
+            "single": [one, {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [one, {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": token, "type_id": 1}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {token: {"id": token, "ids": [tid], "tokens": [token]}}}
+
+
+def tokenizer_files(family_name: str) -> tuple[dict, dict]:
+    """(tokenizer.json, tokenizer_config.json) of ``family_name``: llama-3's
+    byte-level BPE or phi-3's SentencePiece BPE with byte fallback, in the
+    published layouts (pre-tokenizer, normalizer, decoder, post-processor,
+    special tokens at their published ids, the chat template), over a
+    vocabulary of the 256 bytes and ``TOKENIZER_MERGES`` merges learned
+    from the corpus. No ``tokenizers`` needed."""
+    from llms_on_kubernetes_tpu_torch.engine.tokenizer import (
+        BYTE_ENCODER, LLAMA3_SPLIT, _split_llama3,
+    )
+
+    text = _corpus()
+    if family_name == "llama3":
+        counts = collections.Counter(
+            tuple(BYTE_ENCODER[b] for b in piece.encode("utf-8"))
+            for piece in _split_llama3(text))
+        merges = train_bpe(counts, TOKENIZER_MERGES)
+        vocab = _vocab_with_merges({BYTE_ENCODER[b]: b for b in range(256)}, merges,
+                                   LLAMA3_BASE_VOCAB)
+        tok = {
+            "version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": _added(LLAMA3_SPECIAL), "normalizer": None,
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT}, "behavior": "Isolated",
+                 "invert": False},
+                {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                 "use_regex": False}]},
+            "post_processor": {"type": "Sequence", "processors": [
+                {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False,
+                 "use_regex": True},
+                _template_processing("<|begin_of_text|>", 128000)]},
+            "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                        "use_regex": True},
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                      "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                      "vocab": vocab, "merges": [f"{a} {b}" for a, b in merges]}}
+        cfg = {"bos_token": "<|begin_of_text|>", "eos_token": "<|eot_id|>",
+               "chat_template": LLAMA3_CHAT_TEMPLATE, "clean_up_tokenization_spaces": True,
+               "model_input_names": ["input_ids", "attention_mask"],
+               "model_max_length": 1000000000000000019884624838656,
+               "tokenizer_class": "PreTrainedTokenizerFast"}
+        special, rstrip = LLAMA3_SPECIAL, frozenset()
+    elif family_name == "phi3":
+        words: dict = collections.Counter()
+        for line in text.split("\n"):
+            norm = "▁" + line.replace(" ", "▁")
+            i = 0
+            while i < len(norm):
+                j = norm.find("▁", i + 1)
+                j = len(norm) if j < 0 else j
+                words[norm[i:j]] += 1
+                i = j
+        chars = collections.Counter(c for w, n in words.items() for c in w for _ in range(n))
+        pieces = sorted((c for c in chars if unicodedata.category(c)[0] != "C"),
+                        key=lambda c: (-chars[c], c))
+        counts = {tuple(w): n for w, n in words.items() if all(c in pieces for c in w)}
+        merges = train_bpe(counts, TOKENIZER_MERGES)
+        vocab = {"<unk>": 0, "<s>": 1, "</s>": 2,
+                 **{f"<0x{b:02X}>": 3 + b for b in range(256)}}
+        for c in pieces:
+            vocab.setdefault(c, len(vocab))
+        vocab = _vocab_with_merges(vocab, merges, PHI3_BASE_VOCAB)
+        tok = {
+            "version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": _added(PHI3_SPECIAL, PHI3_RSTRIP),
+            "normalizer": {"type": "Sequence", "normalizers": [
+                {"type": "Prepend", "prepend": "▁"},
+                {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]},
+            "pre_tokenizer": None,
+            "post_processor": _template_processing("<s>", 1),
+            "decoder": {"type": "Sequence", "decoders": [
+                {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+                {"type": "ByteFallback"}, {"type": "Fuse"},
+                {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+            "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                      "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                      "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                      "vocab": vocab, "merges": [f"{a} {b}" for a, b in merges]}}
+        cfg = {"add_bos_token": False, "add_eos_token": False, "bos_token": "<s>",
+               "chat_template": PHI3_CHAT_TEMPLATE, "clean_up_tokenization_spaces": False,
+               "eos_token": "<|end|>", "legacy": False, "model_max_length": 4096,
+               "pad_token": "<|endoftext|>", "padding_side": "left", "sp_model_kwargs": {},
+               "tokenizer_class": "LlamaTokenizer", "unk_token": "<unk>",
+               "use_default_system_prompt": False}
+        special, rstrip = PHI3_SPECIAL, PHI3_RSTRIP
+    else:
+        raise ValueError(f"tokenizer must be one of {TOKENIZER_FAMILIES}, got {family_name!r}")
+    cfg["added_tokens_decoder"] = {str(a["id"]): {k: v for k, v in a.items() if k != "id"}
+                                   for a in _added(special, rstrip)}
+    return tok, cfg
+
+
+def write_tokenizer(out_dir: str, family_name: str) -> None:
+    """Write ``tokenizer_files(family_name)`` into ``out_dir``."""
+    tok, cfg = tokenizer_files(family_name)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(tok, f, ensure_ascii=False)
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump(cfg, f, ensure_ascii=False, indent=1)
+
+
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    quantization = None
-    if argv[2:] == ["--fp8"]:
-        quantization, argv = "fp8", argv[:2]
-    if len(argv) != 2:
-        print("usage: python -m llms_on_kubernetes_tpu_torch.testing.synth_checkpoint "
-              "MODEL OUT_DIR [--fp8]", file=sys.stderr)
-        return 2
-    index = write_checkpoint(get_config(argv[0]), argv[1], quantization=quantization)
-    print(f"{argv[1]}: {len(index['weight_map'])} tensors, "
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="python -m llms_on_kubernetes_tpu_torch.testing."
+                                      "synth_checkpoint")
+    ap.add_argument("model", help="a dense registry model")
+    ap.add_argument("out_dir")
+    ap.add_argument("--fp8", action="store_true", help="a compressed-tensors fp8 checkpoint")
+    ap.add_argument("--tokenizer", choices=TOKENIZER_FAMILIES, default=None,
+                    help="also write this family's tokenizer.json and tokenizer_config.json")
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    index = write_checkpoint(get_config(args.model), args.out_dir, quantization="fp8" if args.fp8 else None,
+                             tokenizer=args.tokenizer)
+    print(f"{args.out_dir}: {len(index['weight_map'])} tensors, "
           f"{index['metadata']['total_size']} bytes")
     return 0
 

@@ -8,9 +8,11 @@
   cpu`` loads the directory before it binds and answers
   ``/v1/chat/completions`` over HTTP; a missing directory, or no weights
   without ``--random-weights``, exits non-zero naming the flag.
-- A directory with tokenizer files gets the HF tokenizer (the JAX
-  ``load_tokenizer``'s choice); without ``transformers`` that raises and
-  never falls back to the byte tokenizer.
+- A directory with tokenizer.json gets the port's reader of it, which
+  answers as the JAX ``load_tokenizer``'s HF tokenizer does, with or
+  without ``transformers``; a directory with only tokenizer.model needs
+  ``transformers``, raises without it and never falls back to the byte
+  tokenizer.
 """
 
 import json
@@ -35,7 +37,7 @@ from llms_on_kubernetes_tpu_torch import cli
 from llms_on_kubernetes_tpu_torch.configs import get_config
 from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
 from llms_on_kubernetes_tpu_torch.engine.tokenizer import (
-    ByteTokenizer, HFTokenizer, load_tokenizer,
+    ByteTokenizer, JsonTokenizer, load_tokenizer,
 )
 from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import write_checkpoint
 
@@ -183,8 +185,10 @@ def tokenizer_dir(tmp_path_factory):
 
 
 def test_a_tokenizer_dir_gets_the_hf_tokenizer(tokenizer_dir, tiny_dir):
+    """A directory with tokenizer.json gets the port's reader of it
+    (``JsonTokenizer``), which answers as the JAX ``HFTokenizer`` does."""
     got, want = load_tokenizer(str(tokenizer_dir)), j_load_tokenizer(str(tokenizer_dir))
-    assert isinstance(got, HFTokenizer) and type(want).__name__ == "HFTokenizer"
+    assert isinstance(got, JsonTokenizer) and type(want).__name__ == "HFTokenizer"
     text = "hello world the card serves a model"
     assert got.encode(text) == want.encode(text)
     ids = got.encode(text)
@@ -198,7 +202,13 @@ def test_a_tokenizer_dir_gets_the_hf_tokenizer(tokenizer_dir, tiny_dir):
     assert isinstance(load_tokenizer("phi-3-mini"), ByteTokenizer)
 
 
-def test_a_tokenizer_dir_without_transformers_raises(tokenizer_dir, monkeypatch):
+def test_a_tokenizer_dir_without_transformers_raises(tokenizer_dir, tmp_path, monkeypatch):
+    """Without transformers (as on the card's machine) a tokenizer.json
+    directory is still read, by the port's reader; a directory with only
+    tokenizer.model needs transformers and raises, never falling back to
+    the byte tokenizer."""
     monkeypatch.setitem(sys.modules, "transformers", None)   # import fails, as on the card
+    assert isinstance(load_tokenizer(str(tokenizer_dir)), JsonTokenizer)
+    (tmp_path / "tokenizer.model").write_bytes(b"\x00")
     with pytest.raises(RuntimeError, match="transformers"):
-        load_tokenizer(str(tokenizer_dir))
+        load_tokenizer(str(tmp_path))

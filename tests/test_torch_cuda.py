@@ -1443,3 +1443,53 @@ def test_watchdog_sheds_a_spinning_card(cuda):
     with pytest.raises(EngineStallError):
         eng.submit([1, 2], SamplingParams(max_tokens=2))
     torch.cuda.synchronize()
+
+
+def test_deadline_abort_inside_a_captured_window_leaves_the_survivor_equal(cuda):
+    """Two requests decode in graphed windows; one passes its deadline with
+    windows in flight and is aborted "timeout". The survivor's stream is
+    the one it gets alone on the card and on the CPU, every window stayed a
+    replay, and every page came back."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    sp = SamplingParams(max_tokens=24, temperature=0.0)
+    alone = {}
+    for dev in ("cuda", "cpu"):
+        eng = _tiny_engine(dev)
+        alone[dev] = eng.generate([40, 2] * 9, sp)
+    assert alone["cuda"] == alone["cpu"]
+    eng = _tiny_engine("cuda")
+    doomed = eng.submit([3, 17, 9], SamplingParams(max_tokens=200, temperature=0.0),
+                        deadline=time.monotonic() + 3600)
+    survivor = eng.submit([40, 2] * 9, sp)
+    while len(doomed.output) < 5:
+        eng.step()
+    assert eng._inflight or eng.config.async_depth == 1
+    doomed.deadline = time.monotonic() - 1.0
+    eng.step()
+    assert doomed.finished and doomed.finish_reason == "timeout" and doomed.slot == -1
+    while eng.has_work():
+        eng.step()
+    assert survivor.output == alone["cuda"]
+    assert eng.graph_replays * eng.config.decode_steps == eng.decode_forwards > 0
+    alloc = eng.allocator
+    assert alloc.num_free_pages + alloc.num_evictable_pages == eng.config.num_pages - 1
+
+
+@pytest.mark.parametrize("cut", [1, 5, 11])
+def test_seeded_resume_under_graphs_equals_the_uninterrupted_stream(cuda, cut):
+    """A seeded stream with penalties, cut after ``cut`` tokens and resumed
+    with that prefix (SamplingParams.prefix_tokens) in graphed windows, is
+    the uninterrupted stream on the card token for token."""
+    import dataclasses
+
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    sp = SamplingParams(max_tokens=16, temperature=0.9, top_k=20, seed=1234,
+                        presence_penalty=0.5, frequency_penalty=0.3)
+    prompt = [3, 17, 9, 5]
+    full = _tiny_engine("cuda").generate(prompt, sp)
+    eng = _tiny_engine("cuda")
+    got = eng.generate(prompt, dataclasses.replace(sp, prefix_tokens=tuple(full[:cut])))
+    assert got == full and len(full) == 16
+    assert eng.graph_replays * eng.config.decode_steps == eng.decode_forwards > 0

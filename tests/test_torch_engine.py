@@ -176,3 +176,49 @@ def test_engine_config_defaults_match_jax():
     assert port.device == "cuda"
     assert (port.async_scheduling, port.async_depth, port.pace_target_steps,
             port.admit_batch) == (True, 2, 0.0, 4)
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"LLMK_DECODE_STEPS": "1"}, {"LLMK_DECODE_STEPS": "7"}, {"LLMK_KV_WRITE": "fused"},
+    {"LLMK_KV_WRITE": "dus"}, {"LLMK_KV_WRITE": "no-such-strategy"},
+    {"LLMK_DECODE_STEPS": "2", "LLMK_KV_WRITE": "fused"}],
+    ids=["unset", "k1", "k7", "fused", "dus", "unknown", "both"])
+def test_engine_config_reads_the_environment_as_jax(monkeypatch, env):
+    """EngineConfig's decode_steps and kv_write, left unset, resolve from
+    LLMK_DECODE_STEPS and LLMK_KV_WRITE as the JAX EngineConfig's do (an
+    unknown strategy means "dus"); a field that is set wins."""
+    for k in ("LLMK_DECODE_STEPS", "LLMK_KV_WRITE", "LLMK_SCATTER_VARIANT"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    port, jax_cfg = EngineConfig(), JEngineConfig()
+    assert (port.decode_steps, port.kv_write) == (jax_cfg.decode_steps, jax_cfg.kv_write)
+    pinned = EngineConfig(decode_steps=3, kv_write="dus")
+    assert (pinned.decode_steps, pinned.kv_write) == (3, "dus")
+
+
+def test_legacy_scatter_spelling_resolves_to_a_strategy_the_port_runs(monkeypatch):
+    """``scatter`` + ``LLMK_SCATTER_VARIANT=linear`` is the JAX engine's
+    legacy spelling of "scatter-linear"; the port, which runs "dus" and
+    "fused" only, resolves it (and plain "scatter") to "dus"."""
+    from llms_on_kubernetes_tpu.engine.cache import default_kv_write_strategy as jdefault
+
+    monkeypatch.setenv("LLMK_KV_WRITE", "scatter")
+    monkeypatch.setenv("LLMK_SCATTER_VARIANT", "linear")
+    assert jdefault() == "scatter-linear"
+    assert EngineConfig().kv_write == "dus"
+
+
+def test_serve_flags_win_over_the_environment(monkeypatch):
+    """``serve`` passes None for --decode-steps and --kv-write when they
+    are not given, so the environment reaches the engine; a flag wins."""
+    from llms_on_kubernetes_tpu_torch.cli import build_parser, engine_config_from_args
+
+    monkeypatch.setenv("LLMK_DECODE_STEPS", "1")
+    monkeypatch.setenv("LLMK_KV_WRITE", "fused")
+    base = ["serve", "--model", "debug-tiny", "--random-weights", "--device", "cpu"]
+    cfg = engine_config_from_args(build_parser().parse_args(base))
+    assert (cfg.decode_steps, cfg.kv_write) == (1, "fused")
+    cfg = engine_config_from_args(build_parser().parse_args(
+        base + ["--decode-steps", "2", "--kv-write", "dus"]))
+    assert (cfg.decode_steps, cfg.kv_write) == (2, "dus")

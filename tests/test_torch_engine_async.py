@@ -10,6 +10,8 @@ seeded sampled stream with penalties must not change under preemption
 either (its penalty counts are rebuilt from the replayed output).
 """
 
+import threading
+
 import jax
 import numpy as np
 import pytest
@@ -209,26 +211,77 @@ def test_resumed_request_that_no_longer_fits_finishes_with_length(tparams):
     assert any(ev.request is req and ev.finished for ev in events)
 
 
+class DemandGate:
+    """Holds each decode window's completion until the engine thread blocks
+    for it. On the CPU a window is computed inside its launch, so the
+    harvester could mark it done at any moment and whether a window is
+    still in flight after a step would depend on thread scheduling. Behind
+    the gate the harvester reads window ``s`` only once the engine thread
+    has called ``wait_done(t)`` with t >= s (backpressure or a drain), or
+    after ``release()``; the non-blocking ``_collect_ready`` sees nothing
+    else done. Prefill reads pass freely."""
+
+    def __init__(self, harvester):
+        self._cv = threading.Condition()
+        self._demand = -1
+        self._open = False
+        push, wait_done = harvester.push, harvester.wait_done
+        gate = self
+
+        class Gated:
+            def __init__(self, key, copy):
+                self.key, self.copy = key, copy
+
+            def read(self):
+                with gate._cv:
+                    gate._cv.wait_for(lambda: gate._open or gate._demand >= self.key)
+                return self.copy.read()
+
+        def gated_push(key, copy, priority=False):
+            push(key, copy if priority else Gated(key, copy), priority)
+
+        def demanding_wait(seq, *args, **kwargs):
+            with self._cv:
+                self._demand = max(self._demand, seq)
+                self._cv.notify_all()
+            wait_done(seq, *args, **kwargs)
+
+        harvester.push, harvester.wait_done = gated_push, demanding_wait
+
+    def release(self) -> None:
+        with self._cv:
+            self._open = True
+            self._cv.notify_all()
+
+
 @pytest.mark.parametrize("depth", [1, 2])
 def test_async_abort_mid_stream_frees_slot_and_pages(tparams, depth):
     """tests/test_engine_async.py:82, and the pages: an abort with windows
     in flight finishes the request at once; the other request runs to its
-    end; once drained every slot is empty and every page is back."""
+    end; once drained every slot is empty and every page is back. The
+    windows' completions are held by a ``DemandGate``, so the windows in
+    flight after three steps do not depend on the harvester thread's
+    timing."""
     eng = _port(tparams, async_depth=depth)
-    req = eng.submit([1, 2, 3], SamplingParams(temperature=0.0, max_tokens=60))
-    other = eng.submit([4, 5], SamplingParams(temperature=0.0, max_tokens=10))
-    for _ in range(3):
+    gate = DemandGate(eng._harvester)
+    try:
+        req = eng.submit([1, 2, 3], SamplingParams(temperature=0.0, max_tokens=60))
+        other = eng.submit([4, 5], SamplingParams(temperature=0.0, max_tokens=10))
+        for _ in range(3):
+            eng.step()
+        # below full depth a step returns with windows still in flight
+        assert bool(eng._inflight) == (depth > 1)
+        eng.abort(req, "client_disconnect")
+        gate.release()
         eng.step()
-    # below full depth a step returns with windows still in flight
-    assert bool(eng._inflight) == (depth > 1)
-    eng.abort(req, "client_disconnect")
-    eng.step()
-    assert req.finished and req.finish_reason == "client_disconnect" and req.slot == -1
-    for _ in range(1_000):
-        if other.finished:
-            break
-        eng.step()
-    eng._drain_async()
+        assert req.finished and req.finish_reason == "client_disconnect" and req.slot == -1
+        for _ in range(1_000):
+            if other.finished:
+                break
+            eng.step()
+        eng._drain_async()
+    finally:
+        gate.release()
     assert not eng.has_work()
     assert other.finished and other.finish_reason == "length" and len(other.output) == 10
     assert all(s is None for s in eng.slots) and not eng._inflight
@@ -238,17 +291,25 @@ def test_async_abort_mid_stream_frees_slot_and_pages(tparams, depth):
 
 def test_async_continuous_admission(jparams, tparams):
     """tests/test_engine_async.py:99: a request submitted while another is
-    mid-decode joins the batch; both streams are what a fresh engine gives."""
+    mid-decode joins the batch; both streams are what a fresh engine gives.
+    The windows' completions are held by a ``DemandGate`` for the first
+    four steps, so the first request is mid-decode then whatever the
+    harvester thread's timing."""
     eng = _port(tparams)
-    first = eng.submit([1, 2, 3], SamplingParams(temperature=0.0, max_tokens=15))
-    for _ in range(4):
-        eng.step()
-    assert first.output and not first.finished
-    second = eng.submit([9, 10], SamplingParams(temperature=0.0, max_tokens=15))
-    for _ in range(1_000):
-        if first.finished and second.finished:
-            break
-        eng.step()
+    gate = DemandGate(eng._harvester)
+    try:
+        first = eng.submit([1, 2, 3], SamplingParams(temperature=0.0, max_tokens=15))
+        for _ in range(4):
+            eng.step()
+        assert first.output and not first.finished
+        gate.release()
+        second = eng.submit([9, 10], SamplingParams(temperature=0.0, max_tokens=15))
+        for _ in range(1_000):
+            if first.finished and second.finished:
+                break
+            eng.step()
+    finally:
+        gate.release()
     ref = _run(_jax(jparams), [[1, 2, 3], [9, 10]], JSamplingParams(temperature=0.0,
                                                                     max_tokens=15))
     assert [first.output, second.output] == [r.output for r in ref]

@@ -1,8 +1,9 @@
 """The port stands apart from the JAX package and from the CPU.
 
 - Importing every module of ``llms_on_kubernetes_tpu_torch`` (and
-  ``chip_smoke.py``) imports no JAX. This runs in a subprocess: this test
-  process has JAX loaded by tests/conftest.py.
+  ``chip_smoke.py``) imports no JAX, and neither ``transformers`` nor
+  ``tokenizers``. This runs in a subprocess: this test process has JAX
+  loaded by tests/conftest.py.
 - No source file of the port imports ``jax`` or the JAX package, and every
   CUDA source under ``csrc/`` is one the port builds and binds.
 - Without a GPU, every entry point that defaults to ``device="cuda"``
@@ -43,11 +44,18 @@ def test_import_everything_without_jax():
         "    Registry, build_info_metrics, engine_metrics)\n"
         "from llms_on_kubernetes_tpu_torch.server.affinity import BloomFilter\n"
         "from llms_on_kubernetes_tpu_torch.models.decoder import forward_score\n"
+        "from llms_on_kubernetes_tpu_torch import faults\n"
+        "from llms_on_kubernetes_tpu_torch.server.tracing import TraceStore, reconcile\n"
+        "from llms_on_kubernetes_tpu_torch.engine.tokenizer import JsonTokenizer\n"
+        "from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import (\n"
+        "    TOKENIZER_PROBES, write_tokenizer)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'llms_on_kubernetes_tpu'\n"
         "             or m.startswith('llms_on_kubernetes_tpu.'))\n"
         "assert not bad, bad\n"
+        "heavy = sorted(m for m in ('transformers', 'tokenizers') if m in sys.modules)\n"
+        "assert not heavy, heavy\n"
         "assert len(mods) >= 15, mods\n"
         "print(len(mods))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -58,8 +66,10 @@ def test_import_everything_without_jax():
 
 def test_the_framework_free_copies_are_scanned():
     """The port keeps its own copies of the JAX package's framework-free
-    server modules; the scan below covers them."""
-    assert {PKG / "server" / "metrics.py", PKG / "server" / "affinity.py"} <= set(SOURCES)
+    modules (the server's metrics, affinity and tracing, ``faults.py``);
+    the scan below covers them."""
+    assert {PKG / "server" / "metrics.py", PKG / "server" / "affinity.py",
+            PKG / "server" / "tracing.py", PKG / "faults.py"} <= set(SOURCES)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))

@@ -519,3 +519,161 @@ def test_the_cli_server_behind_llkt_router_drains_on_sigterm(router_binary, tmp_
             if p.poll() is None:
                 p.kill()
             p.wait(timeout=30)
+
+
+# ---------------------------------------------------------------------------
+# the queue-full 429's Retry-After, the body cap and the SSE keepalive,
+# against the JAX server (admission held by LLMK_FAULT=queue_stall)
+# ---------------------------------------------------------------------------
+
+def _port_server(params, **kw):
+    srv = OpenAIServer(Engine(EngineConfig(**{**SMALL, **kw}, device="cpu"), params=params[1]),
+                       ByteTokenizer(), "debug-tiny")
+    return srv, f"http://127.0.0.1:{srv.start()}"
+
+
+def _jax_run(params, fn, **kw):
+    """``fn(client)`` against a JAX server over the same weights."""
+    async def go():
+        srv = JOpenAIServer(JEngine(JEngineConfig(**{**SMALL, **kw}), params=params[0]),
+                            JByteTokenizer(), "debug-tiny")
+        client = TestClient(TestServer(srv.make_app()))
+        await client.start_server()
+        try:
+            return await fn(client)
+        finally:
+            await client.close()
+    return asyncio.run(go())
+
+
+def test_queue_full_429_carries_retry_after_as_jax(params, monkeypatch):
+    """max_waiting 1, admission held: the first request waits, the second
+    gets 429 "overloaded" with Retry-After in [1, 60] s from both servers."""
+    monkeypatch.setenv("LLMK_FAULT", "queue_stall")
+    body = {"prompt": "abc", "max_tokens": 2, "temperature": 0}
+    srv, base = _port_server(params, max_waiting=1)
+    try:
+        first = threading.Thread(target=http, args=(base, "/v1/completions", body))
+        first.start()
+        t0 = time.monotonic()
+        while not srv.engine.waiting:
+            assert time.monotonic() - t0 < 30
+            time.sleep(0.01)
+        req = urllib.request.Request(base + "/v1/completions", data=json.dumps(body).encode(),
+                                     method="POST", headers={"Content-Type": "application/json"})
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            urllib.request.urlopen(req, timeout=60)
+        port = (exc.value.code, exc.value.headers.get("Retry-After"),
+                json.loads(exc.value.read())["error"]["code"])
+        monkeypatch.delenv("LLMK_FAULT")
+        first.join(timeout=60)
+    finally:
+        srv.close()
+
+    async def two(client):
+        task = asyncio.ensure_future(client.post("/v1/completions", json=body))
+        for _ in range(300):
+            await asyncio.sleep(0.01)
+            if task.done():
+                break
+        r = await client.post("/v1/completions", json=body)
+        out = (r.status, r.headers.get("Retry-After"), (await r.json())["error"]["code"])
+        task.cancel()
+        return out
+
+    monkeypatch.setenv("LLMK_FAULT", "queue_stall")
+    want = _jax_run(params, two, max_waiting=1)
+    assert port[0] == want[0] == 429 and port[2] == want[2] == "overloaded"
+    assert 1 <= int(port[1]) <= 60 and 1 <= int(want[1]) <= 60
+
+
+def test_a_body_over_the_cap_gets_413_as_jax(params):
+    """A POST declaring 64 MiB is refused with 413 before the port reads a
+    byte of its body; the JAX server (aiohttp's client_max_size) answers a
+    body over 32 MiB with 413 too."""
+    from llms_on_kubernetes_tpu_torch.server.openai_api import MAX_BODY_BYTES
+
+    srv, base = _port_server(params)
+    body_reads: list = []
+    handler = srv.httpd.RequestHandlerClass
+
+    class Counting(handler):
+        def setup(self):
+            super().setup()
+            raw = self.rfile
+
+            class Reader:
+                def read(self, n=-1):
+                    data = raw.read(n)
+                    body_reads.append(len(data))
+                    return data
+
+                def __getattr__(self, name):
+                    return getattr(raw, name)
+
+            self.rfile = Reader()
+
+    srv.httpd.RequestHandlerClass = Counting
+    try:
+        with socket.create_connection(("127.0.0.1", srv.httpd.server_address[1]),
+                                      timeout=30) as s:
+            s.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: test\r\n"
+                      b"Content-Type: application/json\r\n"
+                      b"Content-Length: %d\r\n\r\n" % (64 << 20))
+            head = s.recv(4096).decode()
+        assert head.startswith("HTTP/1.0 413") or head.startswith("HTTP/1.1 413"), head
+        assert sum(body_reads) <= MAX_BODY_BYTES and sum(body_reads) == 0
+        # the server goes on serving
+        assert http(base, "/v1/completions", {"prompt": "a", "max_tokens": 1})[0] == 200
+    finally:
+        srv.close()
+
+    async def big(client):
+        r = await client.post("/v1/completions", data=b" " * (MAX_BODY_BYTES + 1024),
+                              headers={"Content-Type": "application/json"})
+        return r.status
+
+    assert _jax_run(params, big) == 413
+
+
+def _first_lines(lines, n=1):
+    """The first ``n`` non-blank lines of an SSE byte-line iterator."""
+    out = []
+    for raw in lines:
+        line = raw.decode().strip()
+        if line:
+            out.append(line)
+            if len(out) == n:
+                return out
+    return out
+
+
+def test_sse_keepalive_pings_before_the_first_data_as_jax(params, monkeypatch):
+    """LLMK_SSE_KEEPALIVE_S=0.2 with admission held: both servers send a
+    ``: ping`` comment before any ``data:`` line, and the stream ends whole
+    once admission resumes."""
+    monkeypatch.setenv("LLMK_FAULT", "queue_stall")
+    monkeypatch.setenv("LLMK_SSE_KEEPALIVE_S", "0.2")
+    body = {"prompt": "abc", "max_tokens": 3, "temperature": 0, "stream": True}
+    srv, base = _port_server(params)
+    try:
+        resp = _stream_lines(base, body)
+        first = _first_lines(resp)
+        monkeypatch.delenv("LLMK_FAULT")
+        rest = resp.read().decode()
+        assert first == [": ping"] and rest.rstrip().endswith("data: [DONE]")
+    finally:
+        srv.close()
+    monkeypatch.setenv("LLMK_FAULT", "queue_stall")
+
+    async def ping(client):
+        r = await client.post("/v1/completions", json=body)
+        lines = []
+        while not lines:
+            line = (await r.content.readline()).decode().strip()
+            if line:
+                lines.append(line)
+        r.close()
+        return lines
+
+    assert _jax_run(params, ping) == [": ping"]
