@@ -141,7 +141,32 @@ Phases, each fatal on failure:
    so that requests are preempted holding only their first token (they
    resume re-prefilling their prompt alone): streams equal again. Last, printed and not held: a
    1,500-token prompt's first-token logits chunked (bucket 1,024) against
-   one-shot (bucket 2,048);
+   one-shot (bucket 2,048). Then the goodput ledger and guided decoding
+   (``phase_ledger_guided``): the same model behind the port's server in
+   this process with the llama3 tokenizer files (128,256 ids), counters
+   zeroed before and read after. First, on the fresh engine, one replay
+   of the grammar-free window graph with every row idle under
+   torch.profiler: it launches the port's kernels as the parent's did
+   (``paged_decode`` K x L) and runs the parent's ``FREE_WINDOW_KERNELS``
+   kernels. Then 8 greedy journaled streams (admission held until all 8
+   wait, so they prefill in the same batches each time) with the
+   ledger on and off in turns (on, off, off, on; the ledger is read per
+   step): the streams' ids equal, decode tokens/s printed, and for the
+   "on" turns the ledger's conservation error (held under 1% of its
+   window), device-idle share, MFU and MBU. One ``/debug/profile`` capture
+   (300 ms) while 8 streams decode: its archive's trace holds CUDA kernel
+   events and the streams end whole; a second capture after it. Guided
+   decoding: the token byte map and three grammars (json_object, a bounded
+   schema with an enum, an integer and maxLength strings, a forced tool
+   call) compiled cold and from the cache, timed; 8 free streams, then 8
+   mixed (two of each kind, two free; the constrained ones greedy, steered
+   to finish by logit_bias on the end of turn and the closing characters:
+   the bias ranks only what the grammar allows): every constrained answer
+   parses and validates; the device time of each window by graph (CUDA
+   events around the replay), the FSM graph's capture seconds; every
+   window a graph replay, at least one of the FSM graph. Last, one replay
+   of each graph, counted alike: the FSM graph's kernels beside the
+   grammar-free one's;
 5. checkpoint: write full-width phi-3-mini (head_dim 96, 3.82 B
    parameters, 7.64 GB in bf16) as a HuggingFace safetensors checkpoint
    under ``smoke_out/`` with ``testing/synth_checkpoint.py`` (failing when
@@ -170,7 +195,9 @@ Phases, each fatal on failure:
    warm (in the server), the time to /health with the tokenizer beside the
    weights-only run's, and the phase's seconds. Then llama-3-8b cut to 2
    layers, written with the llama3 tokenizer files and served: the same
-   tokenizer checks (+100 on ``<|eot_id|>``, 128009);
+   tokenizer checks (+100 on ``<|eot_id|>``, 128009), then one json_object
+   chat and one streamed forced tool call through it, parsed and
+   validated;
 6. headline: the JAX bench's headline configuration (bench.py:2998-3037)
    in process, ``Engine(EngineConfig(model="llama-3-8b",
    quantization="int8", max_decode_slots=64, page_size=32,
@@ -184,7 +211,8 @@ Phases, each fatal on failure:
    projection one W8A16 launch (7 x num_layers a forward). Printed: decode
    tokens/s, the late arrivals' TTFT p50 and max, the pacing deferrals. In
    turns on one engine at pace 3, 0, 0, 3, then bf16 weights at pace 3;
-   the streams equal between pace 0 and 3 are counted, not held. One
+   the streams equal between pace 0 and 3 are counted, not held; each run's
+   goodput ledger (reset before it): device-idle share, MFU and MBU. One
    int8-weight window replayed and one run eagerly from copies of one pool
    and one count table: tokens, logprobs, pools and counts byte-equal.
 
@@ -3268,6 +3296,23 @@ LLAMA3_TOK_DIR = os.path.join(OUT_DIR, "llama-3-8b-2-layers-llama3-tokenizer")
 LLAMA3_TOK_LAYERS = 2
 
 
+def _drive_guided_cli(base: str, model: str) -> None:
+    """Guided decoding through the CLI server with the llama3 tokenizer:
+    one json_object chat and one streamed forced tool call, each parsed and
+    validated."""
+    from llms_on_kubernetes_tpu_torch.engine.tokenizer import JsonTokenizer
+
+    t0 = time.perf_counter()
+    reqs = guided_requests(JsonTokenizer(model))
+    kind, body = reqs["json_object"]
+    guided_answer("CLI json_object", _post_ok(base + "/v1/chat/completions",
+                                              {**body, "model": model}), kind)
+    kind, body = reqs["forced tool"]
+    guided_answer("CLI streamed tool call", chat_stream(base, {**body, "model": model}), kind)
+    say(f"  llama3 tokenizer server: a json_object answer and a streamed forced tool call "
+        f"parse and validate ({time.perf_counter() - t0:.2f} s with the FSM graph's capture)")
+
+
 def phase_tokenizer_llama3() -> dict:
     """llama-3-8b's widths cut to 2 layers, written with the llama3
     tokenizer files, served through the CLI: the tokenizer checks, the
@@ -3286,6 +3331,7 @@ def phase_tokenizer_llama3() -> dict:
     def drive(base, _proc):
         http("POST", base + "/debug/kernels/reset", {})
         out = _drive_tokenizer(base, LLAMA3_TOK_DIR, "llama3")
+        _drive_guided_cli(base, LLAMA3_TOK_DIR)
         out["launches"] = kernel_counts(base)["launches"]
         return out
 
@@ -3296,6 +3342,475 @@ def phase_tokenizer_llama3() -> dict:
     say(f"llama3 tokenizer: {MODEL} cut to {LLAMA3_TOK_LAYERS} layers written in {write_s:.1f} s; "
         f"to /health {res['health_s']:.1f} s; {time.perf_counter() - t0:.1f} s [{card_line()}]")
     return res
+
+
+# ---------------------------------------------------------------------------
+# the goodput ledger, /debug/profile and guided decoding, in process
+# ---------------------------------------------------------------------------
+
+LEDGER_PATH = f"{MODEL} ledger and guided server"
+LLAMA3_FILES_DIR = os.path.join(OUT_DIR, "llama3-tokenizer-files")
+# the grammar-free window's kernels on the card: one replay of the 8-slot
+# llama-3-8b bf16 window (K 4, "dus", every row idle), as the parent tree's
+# graph ran them under torch 2.11 (PERF.md §6)
+FREE_WINDOW_KERNELS = 10_038
+GUIDED_SCHEMA = {"type": "object",
+                 "properties": {"color": {"enum": ["red", "green", "blue"]},
+                                "count": {"type": "integer"},
+                                "name": {"type": "string", "maxLength": 8},
+                                "code": {"type": "string", "minLength": 1, "maxLength": 3}},
+                 "required": ["color", "count", "name", "code"]}
+GUIDED_TOOLS = [{"type": "function", "function": {
+    "name": "get_weather",
+    "parameters": {"type": "object",
+                   "properties": {"city": {"type": "string", "maxLength": 12},
+                                  "days": {"type": "integer"}},
+                   "required": ["city", "days"]}}}]
+
+
+def ledger_report(led, tag: str) -> dict:
+    """The ledger's conservation error, device-idle share and MFU / MBU
+    over its window (unclipped, from the raw FLOPs and bytes; the
+    ``utilization()`` gauges clip at 1.0), printed with the card."""
+    snap = led.snapshot()
+    window = snap["window_ms"]
+    if window <= 0:
+        fail(f"{tag}: the ledger booked no dispatch")
+    total = snap["attributed_ms"] + snap["wasted_ms"] + snap["idle_ms"]
+    err = abs(total - window) / window
+    secs = window / 1e3
+    out = dict(conservation_err=err, idle_share=snap["idle_ms"] / window,
+               mfu=snap["flops"] / (led.peak_flops * secs),
+               mbu=snap["hbm_bytes"] / (led.peak_bytes_s * secs),
+               window_ms=window, dispatches=snap["dispatches"],
+               wasted_share=snap["wasted_ms"] / window)
+    say(f"ledger {tag}: window {window:.1f} ms over {snap['dispatches']} dispatches, "
+        f"conservation error {100 * err:.2e}% of the window, device idle "
+        f"{100 * out['idle_share']:.1f}%, wasted {100 * out['wasted_share']:.1f}%, "
+        f"MFU {100 * out['mfu']:.2f}%, MBU {100 * out['mbu']:.2f}% (peaks "
+        f"{led.peak_flops / 1e12:.0f} TFLOP/s, {led.peak_bytes_s / 1e12:.2f} TB/s) "
+        f"[{card_line()}]")
+    if err > 0.01:
+        fail(f"{tag}: the ledger's phases miss its window by {100 * err:.3f}%")
+    return out
+
+
+def journaled_stream(base: str, body: dict) -> tuple:
+    """A streamed completion with ``X-LLMK-Journal``: (token ids, time of
+    the first and last chunk, t0)."""
+    status, _h, lines, t0 = stream_lines(base + "/v1/completions", body,
+                                         headers={"X-LLMK-Journal": "1"})
+    sse_finish("journaled stream", status, [x for x in lines
+                                            if not x[1].startswith(":")])
+    ids = [int(t) for _t, ln in lines if ln.startswith(": llmk-tok ")
+           for t in ln[len(": llmk-tok "):].split(",")]
+    data = [t for t, ln in lines if ln.startswith("data: {")]
+    return ids, data[0], data[-1], t0
+
+
+def eight_streams(base: str, n_tokens: int, tag: str, eng=None) -> tuple:
+    """8 concurrent greedy journaled streams (one a slot): their ids, and
+    the decode rate (tokens after the first over the span from the first
+    first-chunk to the last chunk). With ``eng`` (the server's engine, in
+    this process) admission is held (``LLMK_FAULT=queue_stall``) until all
+    8 wait, so they prefill in the same two batches of admit_batch every
+    time: a bf16 prefill of one row and of four differ in the last bits,
+    and so would the greedy streams."""
+    out: dict = {}
+
+    def one(i):
+        out[i] = journaled_stream(base, {"model": MODEL, "prompt": SERVE_TEXT[i:i + 40],
+                                         "max_tokens": n_tokens, "temperature": 0,
+                                         "stream": True})
+
+    ths = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+    if eng is not None:
+        os.environ["LLMK_FAULT"] = "queue_stall"
+    try:
+        for t in ths:
+            t.start()
+        deadline = time.perf_counter() + 60
+        while eng is not None and len(eng.waiting) < 8:
+            if time.perf_counter() > deadline:
+                fail(f"{tag}: {len(eng.waiting)} of 8 requests reached the queue")
+            time.sleep(0.005)
+    finally:
+        os.environ.pop("LLMK_FAULT", None)
+    for t in ths:
+        t.join(timeout=600)
+    if len(out) != 8:
+        fail(f"{tag}: the streams did not all finish")
+    ids = [out[i][0] for i in range(8)]
+    if any(len(x) != n_tokens for x in ids):
+        fail(f"{tag}: stream lengths {[len(x) for x in ids]}, expected {n_tokens}")
+    span = max(o[2] for o in out.values()) - min(o[1] for o in out.values())
+    return ids, sum(len(x) - 1 for x in ids) / span
+
+
+class WindowTimer:
+    """CUDA events around each replay of the engine's two window graphs:
+    the device time of windows with constrained rows and without."""
+
+    def __init__(self, torch, win):
+        self.torch, self.win = torch, win
+        self.events = {"free": [], "fsm": []}
+        self._run = win.run
+
+        def run(packed, last, pre, use_fsm=False):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = self._run(packed, last, pre, use_fsm=use_fsm)
+            e1.record()
+            self.events["fsm" if use_fsm else "free"].append((e0, e1))
+            return out
+
+        win.run = run
+
+    def close(self) -> dict:
+        self.torch.cuda.synchronize()
+        del self.win.run
+        return {k: [a.elapsed_time(b) for a, b in v] for k, v in self.events.items()}
+
+
+def graph_kernel_count(torch, win, use_fsm: bool) -> tuple[int, float]:
+    """(kernels on the device, device busy ms) of one replay of a window
+    graph with every row idle (a replay runs the same kernels whatever its
+    rows hold; idle rows write the trash page and change no state), under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from llms_on_kubernetes_tpu_torch.engine.graphs import idle_rows
+
+    packed = idle_rows(win.B, win.pages_per_slot)
+    win.run(packed, None, None, use_fsm=use_fsm)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        win.run(packed, None, None, use_fsm=use_fsm)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return (sum(e.count for e in prof.key_averages() if e.device_type == cuda),
+            device_ms(torch, prof))
+
+
+def steer_bias(tok) -> dict:
+    """logit_bias that makes a random-weights model finish a constrained
+    answer: the end of turn, then the closing and separating characters,
+    outrank whatever else the grammar allows (the bias is applied before
+    the grammar's mask, so it only ranks allowed tokens)."""
+    from llms_on_kubernetes_tpu_torch.engine.tokenizer import BYTE_ENCODER
+
+    out = {"128009": 100}
+    for ch, v in (("}", 60), (",", 40), ('"', 30), (":", 28), ("{", 25), ("<", 22),
+                  ("1", 20)):
+        tid = tok.token_to_id(BYTE_ENCODER[ord(ch)])
+        if tid is None:
+            fail(f"the llama3 tokenizer has no token for {ch!r}")
+        out[str(tid)] = v
+    return out
+
+
+def guided_answer(name: str, d: dict, kind: str) -> None:
+    """A constrained chat answer parses and validates (the tool call's
+    arguments against its parameters), or fail."""
+    ch = d["choices"][0]
+    msg = ch["message"]
+    if kind == "tool":
+        calls = msg.get("tool_calls") or []
+        if ch["finish_reason"] != "tool_calls" or len(calls) != 1 or \
+                calls[0]["function"]["name"] != "get_weather" or (msg.get("content") or "").strip():
+            fail(f"{name}: not one get_weather call: {ch}")
+        args = json.loads(calls[0]["function"]["arguments"])
+        if not (isinstance(args.get("city"), str) and len(args["city"]) <= 12
+                and isinstance(args.get("days"), int)):
+            fail(f"{name}: arguments {args} do not validate")
+        return
+    if ch["finish_reason"] != "stop":
+        fail(f"{name}: finish_reason {ch['finish_reason']}: {msg.get('content')!r}")
+    obj = json.loads(msg["content"])
+    if not isinstance(obj, dict):
+        fail(f"{name}: {obj!r} is not an object")
+    if kind == "schema":
+        s = GUIDED_SCHEMA["properties"]
+        if not (set(obj) == set(s) and obj["color"] in s["color"]["enum"]
+                and isinstance(obj["count"], int) and not isinstance(obj["count"], bool)
+                and isinstance(obj["name"], str) and len(obj["name"]) <= 8
+                and isinstance(obj["code"], str) and 1 <= len(obj["code"]) <= 3):
+            fail(f"{name}: {obj} does not validate against the schema")
+
+
+def phase_ledger_guided(torch) -> dict:
+    """llama-3-8b at full width and depth, bf16, random weights, behind the
+    port's server in this process with the 128,256-id llama3 tokenizer
+    (the synthetic files): first the goodput ledger (8 greedy streams,
+    ledger on and off in turns, one /debug/profile capture), then guided
+    decoding (grammar compiles, constrained and free streams mixed, the two
+    window graphs timed and counted). The launch counters are zeroed just
+    before and read just after."""
+    from llms_on_kubernetes_tpu_torch import kernels
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig
+    from llms_on_kubernetes_tpu_torch.engine.tokenizer import JsonTokenizer
+    from llms_on_kubernetes_tpu_torch.server.openai_api import OpenAIServer
+    from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import write_tokenizer
+
+    t0 = time.perf_counter()
+    shutil.rmtree(LLAMA3_FILES_DIR, ignore_errors=True)
+    write_tokenizer(LLAMA3_FILES_DIR, "llama3")
+    tok = JsonTokenizer(LLAMA3_FILES_DIR)
+    eng = Engine(EngineConfig(model=MODEL, device="cuda"))
+    if eng.ledger is None:
+        fail("the ledger is off by default")
+    led = eng.ledger
+    srv = OpenAIServer(eng, tok, MODEL)
+    os.environ["LLMK_PROFILE_DIR"] = os.path.abspath(os.path.join(OUT_DIR, "profiles"))
+    srv.profiles.base_dir = os.environ["LLMK_PROFILE_DIR"]
+    base = f"http://127.0.0.1:{srv.start()}"
+    K, L = eng.config.decode_steps, eng.model_config.num_layers
+    out: dict = {}
+    try:
+        # the grammar-free graph is the parent's: its hand-written kernel
+        # launches, and its kernels on the device counted as the parent's
+        # were (a fresh engine, before any traffic or other profiler
+        # session in the process)
+        win = eng._window
+        if win.launches != {"paged_decode": K * L}:
+            fail(f"the grammar-free window launches {win.launches}, expected "
+                 f"{{'paged_decode': {K * L}}}")
+        fresh_k, fresh_ms = graph_kernel_count(torch, win, False)
+        say(f"grammar-free window graph, fresh engine ({MODEL} bf16, {K} steps, 8 slots, "
+            f"every row idle): {fresh_k} kernels, {fresh_ms:.2f} ms device busy; the parent's "
+            f"{FREE_WINDOW_KERNELS} [{card_line()}]")
+        if fresh_k != FREE_WINDOW_KERNELS:
+            fail(f"the grammar-free window runs {fresh_k} kernels; the parent's ran "
+                 f"{FREE_WINDOW_KERNELS}")
+        eight_streams(base, 16, "warm-up")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        counts0 = kernel_counts(base)
+        # ledger on and off in turns on one engine (the ledger is read per
+        # step): the same greedy streams, the decode rates side by side
+        rates, streams = {"on": [], "off": []}, {}
+        for turn in ("on", "off", "off", "on"):
+            eng.ledger = led if turn == "on" else None
+            if turn == "on":
+                led.reset()
+            ids, tps = eight_streams(base, 64, f"ledger {turn}", eng)
+            rates[turn].append(tps)
+            if streams.setdefault(turn, ids) != ids:
+                fail(f"ledger {turn}: greedy streams differ between turns")
+            if turn == "on":
+                out["ledger"] = ledger_report(led, "8 streams, 8-slot window")
+        eng.ledger = led
+        if streams["on"] != streams["off"]:
+            fail("greedy streams differ with the ledger on and off")
+        say(f"ledger on/off: decode tokens/s (8 concurrent streams of 64 tokens, {MODEL} "
+            f"bf16, in turns on/off/off/on): on {rates['on'][0]:.1f} / {rates['on'][1]:.1f}, "
+            f"off {rates['off'][0]:.1f} / {rates['off'][1]:.1f}; greedy streams equal "
+            f"[{card_line()}]")
+        out["ledger_tps"] = rates
+        out["profile"] = profile_round_trip(base)
+        out["guided"] = drive_guided(torch, eng, base, tok)
+        torch.cuda.synchronize()
+        counts = kernel_counts(base)
+        out["launches"] = counts["launches"]
+        check_graphed("ledger and guided server", counts, counts0)
+        fsm_replays = counts["fsm_graph_replays"] - counts0["fsm_graph_replays"]
+        say(f"  of them FSM window replays: {fsm_replays}")
+        if fsm_replays < 1:
+            fail("no window with a constrained row replayed the FSM graph")
+        # the FSM graph beside the grammar-free one, counted alike
+        if win.fsm_launches != win.launches:
+            fail(f"the FSM window launches {win.fsm_launches} of the port's kernels, the "
+                 f"grammar-free one {win.launches}")
+        free_k, free_ms = graph_kernel_count(torch, win, False)
+        fsm_k, fsm_ms = graph_kernel_count(torch, win, True)
+        say(f"window graphs after the traffic ({MODEL} bf16, {K} steps, 8 slots, every row "
+            f"idle): grammar-free {free_k} kernels, {free_ms:.2f} ms device busy; FSM "
+            f"{fsm_k} kernels (+{fsm_k - free_k}), {fsm_ms:.2f} ms; port kernels a replay "
+            f"{win.launches} [{card_line()}]")
+        out["window_kernels"] = {"fresh": fresh_k, "free": free_k, "fsm": fsm_k,
+                                 "free_ms": free_ms, "fsm_ms": fsm_ms}
+    finally:
+        srv.close()
+        shutil.rmtree(LLAMA3_FILES_DIR, ignore_errors=True)
+        del srv, eng
+        torch.cuda.empty_cache()
+    say(f"phase ledger and guided: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def profile_round_trip(base: str) -> dict:
+    """One ``/debug/profile`` capture (300 ms) while 8 streams decode, its
+    archive downloaded: it must hold CUDA kernel events, and every stream
+    must end whole (the capture started and stopped between steps, never
+    inside a graph replay); then a second capture with no traffic."""
+    import io
+    import tarfile
+
+    done: dict = {}
+
+    def traffic():
+        done["ids"] = eight_streams(base, 128, "streams under the profiler")[0]
+
+    th = threading.Thread(target=traffic)
+    th.start()
+    time.sleep(0.5)
+    t0 = time.perf_counter()
+    status, raw = http("POST", base + "/debug/profile", {"duration_ms": 300})
+    cap_s = time.perf_counter() - t0
+    th.join(timeout=600)
+    if status != 200:
+        fail(f"/debug/profile: HTTP {status} {raw[:300]!r}")
+    meta = json.loads(raw)
+    if meta["source"] != "torch-profiler" or "ids" not in done:
+        fail(f"/debug/profile: {meta}, streams finished: {'ids' in done}")
+    status, data = http("GET", base + f"/debug/profile/{meta['id']}")
+    if status != 200:
+        fail(f"/debug/profile/{meta['id']}: HTTP {status}")
+    with tarfile.open(fileobj=io.BytesIO(data), mode="r:gz") as tar:
+        member = next(m for m in tar.getmembers() if m.name.endswith("trace.json"))
+        trace = json.load(tar.extractfile(member))
+    events = trace.get("traceEvents", [])
+    kernels_seen = sum(1 for e in events if e.get("cat") == "kernel")
+    say(f"/debug/profile: {meta['id']} ({meta['source']}), 300 ms capture answered in "
+        f"{cap_s:.2f} s, archive {len(data) / 1e6:.1f} MB, {len(events)} trace events, "
+        f"{kernels_seen} CUDA kernel events; the 8 streams under it ended whole "
+        f"[{card_line()}]")
+    if not kernels_seen:
+        fail("the profile archive holds no CUDA kernel event")
+    status, raw = http("POST", base + "/debug/profile", {"duration_ms": 100})
+    if status != 200:
+        fail(f"a second /debug/profile: HTTP {status} {raw[:300]!r}")
+    shutil.rmtree(os.environ["LLMK_PROFILE_DIR"], ignore_errors=True)
+    return {"kernel_events": kernels_seen, "archive_mb": len(data) / 1e6, "answer_s": cap_s}
+
+
+def chat_stream(base: str, body: dict) -> dict:
+    """A streamed chat completion assembled into the non-streaming shape
+    (content, tool_calls from their deltas, finish_reason)."""
+    status, _h, lines, _t0 = stream_lines(base + "/v1/chat/completions",
+                                          {**body, "stream": True})
+    if status != 200 or not lines or lines[-1][1] != "data: [DONE]":
+        fail(f"chat stream: HTTP {status}, last line {lines[-1:]!r}")
+    content, calls, finish = "", [], None
+    for _t, ln in lines:
+        if ln.startswith("data: {"):
+            for ch in json.loads(ln[6:])["choices"]:
+                content += ch["delta"].get("content") or ""
+                calls += ch["delta"].get("tool_calls", [])
+                finish = ch["finish_reason"] or finish
+    return {"choices": [{"message": {"content": content, "tool_calls": calls},
+                         "finish_reason": finish}]}
+
+
+def guided_requests(tok) -> dict:
+    """name -> (kind, chat body): json_object, the bounded schema and a
+    forced tool call, steered to finish, and free rows."""
+    chat = [{"role": "user", "content": "Report the weather as JSON."}]
+    steer = steer_bias(tok)
+    return {
+        "json_object": ("json", {"model": MODEL, "messages": chat, "max_tokens": 64,
+                                 "temperature": 0, "logit_bias": steer,
+                                 "response_format": {"type": "json_object"}}),
+        "schema": ("schema", {"model": MODEL, "messages": chat, "max_tokens": 96,
+                              "temperature": 0, "logit_bias": steer,
+                              "response_format": {"type": "json_schema", "json_schema": {
+                                  "name": "report", "schema": GUIDED_SCHEMA}}}),
+        "forced tool": ("tool", {"model": MODEL, "messages": chat, "max_tokens": 128,
+                                 "temperature": 0, "logit_bias": steer, "tools": GUIDED_TOOLS,
+                                 "tool_choice": {"type": "function",
+                                                 "function": {"name": "get_weather"}}}),
+        "free": ("free", {"model": MODEL, "messages": chat, "max_tokens": 48,
+                          "temperature": 0}),
+    }
+
+
+def drive_guided(torch, eng, base: str, tok) -> dict:
+    """Grammar compile times (cold, then from the cache) at the 128,256-id
+    vocabulary; 8 free streams, then 8 mixed (two of each guided kind, two
+    free), every constrained answer parsed and validated; each window's
+    device time by graph (CUDA events around the replays)."""
+    from llms_on_kubernetes_tpu_torch import kernels
+    from llms_on_kubernetes_tpu_torch.engine.grammar import (
+        compile_response_format, compile_tool_choice, token_bytes_of,
+    )
+
+    card = card_line()
+    t0 = time.perf_counter()
+    tb = token_bytes_of(tok)
+    tb_s = time.perf_counter() - t0
+    eos = sorted(tok.eos_ids)
+    builds = {
+        "json_object": lambda: compile_response_format({"type": "json_object"}, tb, eos),
+        "schema": lambda: compile_response_format(
+            {"type": "json_schema", "json_schema": {"schema": GUIDED_SCHEMA}}, tb, eos),
+        "forced tool": lambda: compile_tool_choice(GUIDED_TOOLS, "get_weather", tb, eos),
+    }
+    compile_s = {}
+    for name, build in builds.items():
+        t0 = time.perf_counter()
+        g = build()
+        cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if build() is not g:
+            fail(f"grammar {name}: the cache missed")
+        compile_s[name] = (cold, time.perf_counter() - t0, g.n_states, g.n_classes)
+        say(f"grammar {name}: compiled in {1e3 * cold:.1f} ms cold, {1e3 * compile_s[name][1]:.3f} "
+            f"ms from the cache; {g.n_states} states, {g.n_classes} token classes "
+            f"({len(tb)}-id vocabulary; host CPU, {card})")
+    say(f"grammar: token byte map of the {len(tb)}-id llama3 vocabulary in {1e3 * tb_s:.1f} ms")
+    reqs = guided_requests(tok)
+    timer = WindowTimer(torch, eng._window)
+    mem0 = torch.cuda.memory_reserved()
+    results: dict = {}
+
+    def run(key, name):
+        kind, body = reqs[name]
+        try:
+            results[key] = chat_stream(base, body)
+        except Exception as e:  # reported below
+            results[key] = e
+
+    try:
+        for batch in ("free", "mixed"):
+            names = ["free"] * 8 if batch == "free" else [
+                "json_object", "schema", "forced tool", "free"] * 2
+            ths = [threading.Thread(target=run, args=((batch, i), n))
+                   for i, n in enumerate(names)]
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(timeout=600)
+            for i, name in enumerate(names):
+                d = results.get((batch, i))
+                if not isinstance(d, dict):
+                    fail(f"guided {batch} {name}: {d!r}")
+                kind = reqs[name][0]
+                if kind == "free":
+                    if d["choices"][0]["finish_reason"] not in ("length", "stop"):
+                        fail(f"free row: {d}")
+                else:
+                    guided_answer(f"guided {name}", d, kind)
+            if batch == "free":
+                free_only = len(timer.events["free"])
+    finally:
+        times = timer.close()
+    mem = torch.cuda.memory_reserved() - mem0
+    capture = [s for k, s in kernels.COMPILES if k == "graph:window_fsm"]
+    free_ms = times["free"][:free_only]
+    fsm_ms = times["fsm"]
+    if not fsm_ms or not free_ms:
+        fail(f"window device times: {len(free_ms)} grammar-free, {len(fsm_ms)} FSM")
+    f_med, g_med = float(np.median(free_ms)), float(np.median(fsm_ms))
+    say(f"guided: 8 free streams, then 8 mixed (2 json_object, 2 schema, 2 forced tool "
+        f"calls, 2 free) -- every constrained answer parses and validates; window device "
+        f"time, median (CUDA events around the replay): grammar-free {f_med:.2f} ms over "
+        f"{len(free_ms)} windows, with constrained rows {g_med:.2f} ms over {len(fsm_ms)} "
+        f"(+{100 * (g_med / f_med - 1):.1f}%); the FSM graph captured in "
+        f"{capture[0] if capture else float('nan'):.2f} s; reserved memory +{mem / 2**20:.1f} MiB "
+        f"over the guided traffic [{card}]")
+    return {"compile_s": compile_s, "token_bytes_s": tb_s, "free_window_ms": f_med,
+            "fsm_window_ms": g_med, "n_free": len(free_ms), "n_fsm": len(fsm_ms),
+            "fsm_capture_s": capture[0] if capture else None, "reserved_mib": mem / 2**20}
 
 
 # ---------------------------------------------------------------------------
@@ -3400,6 +3915,8 @@ def run_headline(torch, eng, pace: float, tag: str) -> dict:
 
     torch.cuda.synchronize()
     kernels.reset_launches()
+    if eng.ledger is not None:
+        eng.ledger.reset()
     calls0 = (eng.prefill_calls, eng.chunk_calls, eng.decode_forwards, eng.graph_replays)
     th = threading.Thread(target=loop, daemon=True)
     th.start()
@@ -3453,6 +3970,8 @@ def run_headline(torch, eng, pace: float, tag: str) -> dict:
         f"calls, {forwards} decode forwards in {replays} graph replays; est step "
         f"{out['est_step_ms']:.2f} ms; w8_matmul launches "
         f"{launches.get('w8_matmul', 0)} [{card_line()}]")
+    if eng.ledger is not None:
+        out["ledger"] = ledger_report(eng.ledger, f"headline {tag}")
     return out
 
 
@@ -3604,6 +4123,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     fused = phase_in_process(torch, MODEL, echo_logprobs=served["surface"]["echo_logprobs"])
     say(f"phase 4 (fused): {time.perf_counter() - t0:.1f} s")
+    ledger = phase_ledger_guided(torch)
     ckpt = phase_checkpoint(torch)
     tok_llama3 = phase_tokenizer_llama3()
     headline = phase_headline(torch)
@@ -3620,6 +4140,7 @@ def main(argv) -> int:
              f"{MODEL} {LLAMA3_TOK_LAYERS} layers llama3 tokenizer serve":
                  tok_llama3["launches"],
              f"{MODEL} serve int8 KV": served_int8["launches"],
+             LEDGER_PATH: ledger["launches"],
              fused_bf16: fused[None]["launches"], fused_int8: fused["int8"]["launches"],
              ckpt_bf16: ckpt[None]["launches"], ckpt_int8: ckpt["int8"]["launches"],
              HEADLINE_PATH: headline["launches"]}

@@ -92,14 +92,37 @@ admission; ``engine_stall`` and ``slow_step`` act at the harvester's
 completion. ``Request.trace`` (the server's per-request trace) gets the
 "preempted" and "finish" events.
 
+The goodput ledger (``engine/ledger.py``, ``EngineConfig.ledger``, env
+``LLMK_LEDGER``, on by default, as in the JAX engine): every prefill call
+and window is booked with its launch time and the time the harvester saw
+its results land (on the engine thread, no device sync): decode rows by
+the tokens consumed, planned-but-unconsumed tokens as ``early_exit``,
+padded prefill rows as nothing; ``Request.chip_ms`` gets each request's
+share. Its anomaly detector (``anomaly_profile`` / ``anomaly_z`` /
+``anomaly_cooldown_s``) flags a sustained slowdown for the server's one
+rate-limited profile.
+
+Grammar-constrained decoding (``SamplingParams.grammar``, an
+``engine/grammar.CompiledGrammar``, as in the JAX engine): up to
+``max_grammars`` grammars are resident in device tables allocated once at
+capacity (``class_of [max_grammars, V]``, ``trans [grammar_states,
+grammar_classes]`` int16, the per-slot state [B] int32; uploads copy into
+them). A request whose grammar finds no free row waits, as under page
+pressure; an oversized grammar is refused at submit. The prefill masks and
+scatters a fresh request's start state; a window with any constrained row
+replays the FSM window graph (``engine/graphs.py``), a grammar-free window
+the grammar-free graph. A preempted or resumed request replays its state
+on the host over its output and its first window sets it (``fsm_set``).
+
 Not ported yet: priority classes (QoS), the host KV tier and handoff,
-the ledger, grammar, LoRA, multimodal salts and speculation.
+LoRA, multimodal salts and speculation.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import os
 import queue
 import sys
@@ -119,10 +142,11 @@ from llms_on_kubernetes_tpu_torch.engine.cache import (
     CacheConfig, PageAllocator, init_pages,
 )
 from llms_on_kubernetes_tpu_torch.engine.graphs import (
-    BIAS, BUD, DEC_COLS, FLOATS, LEN, LOGIT_BIAS_SLOTS, PRE_ROW, SEED, SRC, SRC_HOST,
-    SRC_INFLIGHT, SRC_PREFILL, STOP, STOP_SLOTS, TOP_K, VAL, DecodeWindow, idle_rows,
-    pack_bias, pack_results, unpack_bias, unpack_results, upload,
+    BIAS, BUD, DEC_COLS, FLOATS, FSM, LEN, LOGIT_BIAS_SLOTS, PRE_ROW, SEED, SRC, SRC_HOST,
+    SRC_INFLIGHT, SRC_PREFILL, STOP, STOP_SLOTS, TOP_K, VAL, DecodeWindow, fsm_apply,
+    fsm_scatter, idle_rows, pack_bias, pack_results, unpack_bias, unpack_results, upload,
 )
+from llms_on_kubernetes_tpu_torch.engine.ledger import GoodputLedger, StepAnomalyDetector
 from llms_on_kubernetes_tpu_torch.engine.sampling import (
     LOGPROB_TOPK, MAX_CANDIDATES, gumbel_noise, sample,
 )
@@ -147,14 +171,21 @@ def default_kv_write_strategy() -> str:
         s = "scatter-linear"
     return s if s in KV_WRITE_STRATEGIES else "dus"
 
+log = logging.getLogger(__name__)
+
 # packed prefill/chunk row columns: tokens in this call, history (tokens
 # cached before it), top_k, seed, slot, prompt length (the output-token
 # counting boundary), reset (the request's first call: its penalty counts
 # restart), four float32 columns viewed as int32 (temperature, top_p,
-# presence, frequency), the logit_bias ids and values, then the page table
-# and the tokens
-_BIAS_PRE = 11
+# presence, frequency), the FSM columns (the row's grammar row, -1 =
+# unconstrained, and the absolute start state to assume before sampling:
+# set for a fresh constrained request, -1 for a resumed one, whose first
+# window sets its replayed state), the logit_bias ids and values, then the
+# page table and the tokens
+_FSM_PRE = 11
+_BIAS_PRE = 13
 _PRE_COLS = _BIAS_PRE + 2 * LOGIT_BIAS_SLOTS
+_OFF = ("0", "false", "off", "no")
 
 
 class EngineStallError(RuntimeError):
@@ -188,6 +219,10 @@ class SamplingParams:
     # stream resume: tokens a previous replica already delivered; they are
     # prefilled after the prompt and count as output (max_tokens, penalties)
     prefix_tokens: tuple[int, ...] = ()
+    # grammar-constrained decoding: an engine/grammar.CompiledGrammar (the
+    # OpenAI response_format / forced tool_choice); every sampled token is
+    # masked to the grammar's allowed set and the FSM advances on the device
+    grammar: Optional[Any] = None
 
 
 @dataclasses.dataclass
@@ -236,6 +271,23 @@ class EngineConfig:
     # "stalled" and wedges the engine. None => env LLMK_WATCHDOG_S (default
     # 120); <= 0 disables
     watchdog_stall_s: Optional[float] = None
+    # goodput ledger (engine/ledger.py): per-request chip-time attribution
+    # and MFU/MBU accounting. None => env LLMK_LEDGER (default on). Off:
+    # no booking at all
+    ledger: Optional[bool] = None
+    # the ledger's step-time anomaly detector, which the server turns into
+    # one bounded, rate-limited profile. None => env LLMK_ANOMALY_PROFILE
+    # (default on) / LLMK_ANOMALY_Z (z-score threshold, 4.0) /
+    # LLMK_ANOMALY_COOLDOWN_S (600)
+    anomaly_profile: Optional[bool] = None
+    anomaly_z: Optional[float] = None
+    anomaly_cooldown_s: Optional[float] = None
+    # grammar device-table capacities (the JAX engine's): a grammar whose
+    # tables exceed states/classes is refused at submit; resident grammars
+    # beyond max_grammars wait for a row, as under page pressure
+    max_grammars: int = 4
+    grammar_states: int = 4096
+    grammar_classes: int = 512
 
     def __post_init__(self):
         if self.kv_write is None:
@@ -247,6 +299,27 @@ class EngineConfig:
                              f"got {self.kv_write!r}")
         if self.watchdog_stall_s is None:
             self.watchdog_stall_s = float(os.environ.get("LLMK_WATCHDOG_S", "120"))
+        if self.ledger is None:
+            self.ledger = os.environ.get("LLMK_LEDGER", "1").strip().lower() not in _OFF
+        if self.anomaly_profile is None:
+            self.anomaly_profile = (os.environ.get("LLMK_ANOMALY_PROFILE", "1")
+                                    .strip().lower() not in _OFF)
+        if self.anomaly_z is None:
+            self.anomaly_z = float(os.environ.get("LLMK_ANOMALY_Z", "4.0"))
+        if self.anomaly_z <= 0:
+            raise ValueError(f"anomaly_z must be > 0, got {self.anomaly_z}")
+        if self.anomaly_cooldown_s is None:
+            self.anomaly_cooldown_s = float(os.environ.get("LLMK_ANOMALY_COOLDOWN_S", "600"))
+        if self.anomaly_cooldown_s < 0:
+            self.anomaly_cooldown_s = 0.0
+        # the tables are int16 on the device: absolute (rebased) state and
+        # class ids must fit
+        if not 0 < self.grammar_states <= 32767:
+            raise ValueError(f"grammar_states must be in (0, 32767], got "
+                             f"{self.grammar_states}")
+        if not 0 < self.grammar_classes <= 32767:
+            raise ValueError(f"grammar_classes must be in (0, 32767], got "
+                             f"{self.grammar_classes}")
         if self.kv_cache_dtype is None:
             self.kv_cache_dtype = os.environ.get("LLMK_KV_DTYPE") or None
         if self.kv_cache_dtype in ("off", "none", ""):
@@ -303,6 +376,15 @@ class Request:
     # the server's trace of this request (anything with .event(name, **kv)):
     # preemption and the finish, with its reason, land on its timeline
     trace: Optional[Any] = None
+    # goodput ledger: device milliseconds attributed to this request per
+    # phase (prefill / decode / early_exit), written on the engine thread
+    chip_ms: dict = dataclasses.field(default_factory=dict)
+    # grammar-constrained decoding: the request's row in the device class
+    # table and its absolute start state (-1: none resident);
+    # pending_fsm_state carries a host-replayed state the next window sets
+    fsm_row: int = -1
+    fsm_start: int = -1
+    pending_fsm_state: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -343,6 +425,7 @@ class InflightStep:
     active: list[tuple[int, Request]]      # (slot, request) snapshot at launch
     seq: int = -1                          # harvester sequence number
     planned: dict = dataclasses.field(default_factory=dict)  # slot -> tokens planned
+    launched_at: float = 0.0               # dispatch time (goodput ledger)
 
 
 class _Harvester(threading.Thread):
@@ -358,7 +441,10 @@ class _Harvester(threading.Thread):
     ``key_done`` / ``get`` and blocks only in ``wait_done`` / ``wait_key``.
     A failed read is kept and re-raised, the original exception, on every
     later query from the engine thread. All engine state stays on the
-    engine thread; this thread touches only the copies and its dicts."""
+    engine thread; this thread touches only the copies and its dicts. It
+    stamps each result with the monotonic time its read completed
+    (``done_time``: the goodput ledger segments busy time on these) and
+    sums the seconds it waited on the device (``device_time_s``)."""
 
     def __init__(self):
         super().__init__(daemon=True, name="engine-harvester")
@@ -366,7 +452,10 @@ class _Harvester(threading.Thread):
         self._pending: "collections.deque[tuple[int, _HostCopy]]" = collections.deque()
         self._prio: "collections.deque[tuple[int, _HostCopy]]" = collections.deque()
         self._done: dict[int, np.ndarray] = {}
+        self._done_t: dict[int, float] = {}
         self._done_upto = -1
+        # only this thread writes it; readers tolerate a stale value
+        self.device_time_s = 0.0
         self._stopping = False
         self._error: Optional[BaseException] = None
 
@@ -390,7 +479,10 @@ class _Harvester(threading.Thread):
                 # fire) or a slow but live one (slow_step, per read)
                 faults.inject_hang("engine_stall")
                 faults.inject_delay("slow_step", 0.2)
+                t0 = time.perf_counter()
                 host = copy.read()
+                self.device_time_s += time.perf_counter() - t0
+                t_read = time.monotonic()
             except Exception as e:  # surfaces on the engine thread, never silently
                 with self._cv:
                     if self._error is None:
@@ -399,6 +491,7 @@ class _Harvester(threading.Thread):
                 return
             with self._cv:
                 self._done[key] = host
+                self._done_t[key] = t_read
                 if not priority:
                     self._done_upto = key
                 self._cv.notify_all()
@@ -418,6 +511,12 @@ class _Harvester(threading.Thread):
     def get(self, key: int) -> np.ndarray:
         with self._cv:
             return self._done[key]
+
+    def done_time(self, key: int) -> float:
+        """Monotonic time ``key``'s read completed (ledger segmenting); now
+        for a key whose stamp was already discarded."""
+        with self._cv:
+            return self._done_t.get(key, time.monotonic())
 
     def wait_done(self, seq: int, wake: Optional[threading.Event] = None,
                   timeout_s: Optional[float] = None) -> None:
@@ -459,10 +558,12 @@ class _Harvester(threading.Thread):
         with self._cv:
             for s in [s for s in self._done if 0 <= s <= seq]:
                 del self._done[s]
+                self._done_t.pop(s, None)
 
     def discard_key(self, key: int) -> None:
         with self._cv:
             self._done.pop(key, None)
+            self._done_t.pop(key, None)
 
     def stop(self) -> None:
         with self._cv:
@@ -594,6 +695,30 @@ class Engine:
         self._est_step = 0.02
         self._busy_until = 0.0
         self._last_harvest_t: Optional[float] = None
+        # goodput ledger (None: accounting off): in-flight prefill calls
+        # awaiting their priority read, key -> (launch time, [(request,
+        # tokens)]); seconds the engine thread waited on device reads
+        self.ledger: Optional[GoodputLedger] = None
+        if engine_config.ledger:
+            det = None
+            if engine_config.anomaly_profile:
+                det = StepAnomalyDetector(
+                    threshold=engine_config.anomaly_z,
+                    cooldown_s=engine_config.anomaly_cooldown_s,
+                    sustain=int(os.environ.get("LLMK_ANOMALY_SUSTAIN", "3")),
+                    warmup=int(os.environ.get("LLMK_ANOMALY_WARMUP", "12")))
+            self.ledger = GoodputLedger(cfg, detector=det, device=self.device)
+        self._ledger_prefills: dict[int, tuple[float, list]] = {}
+        self._device_time_s = 0.0
+        # grammar residency (_ensure_grammar): key -> [row, base, states,
+        # refs, grammar]; host mirrors of the device tables; the device
+        # (state, class_of, trans), all made at the first constrained
+        # admission, at capacity
+        self._g_resident: dict = {}
+        self._g_class_h: Optional[np.ndarray] = None
+        self._g_trans_h: Optional[np.ndarray] = None
+        self._fsm_state: Optional[torch.Tensor] = None
+        self._g_dev: Optional[tuple] = None
         self._harvester: Optional[_Harvester] = None
         if self._async:
             self._harvester = _Harvester()
@@ -604,6 +729,18 @@ class Engine:
     def graph_replays(self) -> int:
         """Decode windows run as one CUDA graph replay (0 on the CPU)."""
         return self._window.replays
+
+    @property
+    def fsm_graph_replays(self) -> int:
+        """The part of ``graph_replays`` that replayed the FSM window."""
+        return self._window.fsm_replays
+
+    def device_wait_s(self) -> float:
+        """Cumulative seconds spent waiting on device reads: the
+        harvester's and the engine thread's own (sync path), the runtime
+        telemetry's device share of a step."""
+        h = self._harvester.device_time_s if self._harvester is not None else 0.0
+        return self._device_time_s + h
 
     # ------------------------------------------------------------------
     # submission
@@ -622,6 +759,20 @@ class Engine:
         if params.top_k > MAX_CANDIDATES:
             raise ValueError(f"top_k={params.top_k} exceeds the sampling candidate pool "
                              f"({MAX_CANDIDATES}); values above it are not supported")
+        if params.grammar is not None:
+            g = params.grammar
+            if (g.n_states > self.config.grammar_states
+                    or g.n_classes > self.config.grammar_classes):
+                raise ValueError(
+                    f"grammar needs {g.n_states} states / {g.n_classes} "
+                    f"token classes; this engine's device-table caps are "
+                    f"{self.config.grammar_states} / "
+                    f"{self.config.grammar_classes}")
+            if len(g.class_of) > self.model_config.vocab_size:
+                raise ValueError(
+                    f"grammar was compiled for a {len(g.class_of)}-token "
+                    f"vocabulary; the model's is "
+                    f"{self.model_config.vocab_size}")
         for name in ("presence_penalty", "frequency_penalty"):
             val = getattr(params, name)
             if not -2.0 <= val <= 2.0:
@@ -748,6 +899,7 @@ class Engine:
         events = [self._finish(r, reason) for r in doomed if not r.finished]
         self._inflight.clear()
         self._pending_first = []
+        self._ledger_prefills.clear()
         return events
 
     def _stall_budget(self) -> Optional[float]:
@@ -874,6 +1026,7 @@ class Engine:
         req.finished_at = time.monotonic()
         if req.trace is not None:
             req.trace.event("finish", request=req.id, reason=reason, tokens=len(req.output))
+        self._g_release(req)
         if req.slot >= 0:
             self.allocator.free(req.slot)
             self.slot_len[req.slot] = 0
@@ -899,6 +1052,8 @@ class Engine:
         self.slots[slot] = None
         victim.slot = -1
         victim.pending_token = -1
+        # a resumed admission re-ensures residency and replays its state
+        self._g_release(victim)
         with self._lock:
             self.waiting.appendleft(victim)
 
@@ -922,6 +1077,8 @@ class Engine:
             if slot is None:
                 return None
             req = self.waiting[0]
+            if req.params.grammar is not None and not self._ensure_grammar(req):
+                return None     # every grammar row pinned: wait, as for pages
             resumed = bool(req.output)
             ptoks = req.prompt + req.output[:-1] if resumed else req.prompt
             n = len(ptoks)
@@ -945,6 +1102,8 @@ class Engine:
             req.slot = slot
             if req.admitted_at is None:
                 req.admitted_at = time.monotonic()
+            if resumed and req.fsm_row >= 0:
+                self._fsm_replay(req)      # stages fsm_set for the next window
             return slot, req, ptoks, hit, resumed
         return None
 
@@ -977,18 +1136,31 @@ class Engine:
             else:
                 by_bucket.setdefault(self._bucket_for(len(ptoks)), []).append(seat)
         for bucket, rows in sorted(by_bucket.items()):
+            t_launch = time.monotonic()
             pack, _ = self._prefill(bucket, [(req, ptoks) for _s, req, ptoks, _h, _r in rows])
             events += self._first_tokens(rows, pack)
+            self._book(t_launch, time.monotonic(),
+                       [(req, "prefill", max(1, len(ptoks))) for _s, req, ptoks, _h, _r in rows])
         for seat in chunked:
+            t_launch = time.monotonic()
             pack, _ = self._chunked_prefill(seat[1], seat[2], start=seat[3])
             events += self._first_tokens([seat], pack)
+            self._book(t_launch, time.monotonic(),
+                       [(seat[1], "prefill", max(1, len(seat[2]) - seat[3]))])
         return events
+
+    def _book(self, t_launch: float, t_done: float, rows: list, window: int = 1) -> None:
+        """One dispatch into the goodput ledger, if it is on."""
+        if self.ledger is not None:
+            self.ledger.record(t_launch, t_done, rows, window=window)
 
     def _first_tokens(self, seats: list[tuple], pack: torch.Tensor) -> list[StepEvent]:
         """Sync: read a prefill's samples, publish each prompt's full pages
         to the prefix cache, and emit each fresh request's first token (a
         resumed request restores its pending token instead)."""
+        t0 = time.perf_counter()
         out = unpack_results(pack.cpu().numpy())
+        self._device_time_s += time.perf_counter() - t0
         events: list[StepEvent] = []
         for r, (slot, req, ptoks, _hit, resumed) in enumerate(seats):
             self.slot_len[slot] = len(ptoks)
@@ -1008,6 +1180,12 @@ class Engine:
         host[r, :7] = (m, history, p.top_k, req.seed, req.slot, len(req.prompt), int(reset))
         host[r, 7:11] = np.array([p.temperature, p.top_p, p.presence_penalty,
                                   p.frequency_penalty], np.float32).view(np.int32)
+        # a fresh constrained request starts at its grammar's start state; a
+        # resumed one samples a discarded token unconstrained
+        if req.fsm_row >= 0 and not req.output:
+            host[r, _FSM_PRE:_FSM_PRE + 2] = (req.fsm_row, req.fsm_start)
+        else:
+            host[r, _FSM_PRE:_FSM_PRE + 2] = -1
         pack_bias(host, r, _BIAS_PRE, p.logit_bias)
         host[r, _PRE_COLS:_PRE_COLS + self.config.pages_per_slot] = \
             self.allocator.page_tables[req.slot]
@@ -1015,22 +1193,35 @@ class Engine:
     def _device_rows(self, host: np.ndarray) -> tuple:
         """One host-to-device copy of packed prefill rows: (lengths, history,
         top_k, seeds, slots, prompt_len, reset, floats [R, 4], bias (ids,
-        values), page_table, tokens)."""
+        values), page_table, tokens, FSM (rows, start states) or None when
+        no row is constrained)."""
         d = upload(host, self.device)
         pt_end = _PRE_COLS + self.config.pages_per_slot
+        fsm = None
+        if (host[:, _FSM_PRE] >= 0).any():
+            fsm = (d[:, _FSM_PRE].contiguous(), d[:, _FSM_PRE + 1].contiguous())
         return (*(d[:, c].contiguous() for c in range(7)), d[:, 7:11].view(torch.float32),
                 unpack_bias(d, _BIAS_PRE), d[:, _PRE_COLS:pt_end].contiguous(),
-                d[:, pt_end:].contiguous())
+                d[:, pt_end:].contiguous(), fsm)
 
-    def _sample_first(self, logits, positions, top_k, seeds, fl, bias, slots):
+    def _sample_first(self, logits, positions, top_k, seeds, fl, bias, slots, fsm=None,
+                      lengths=None):
         """Sample each row's first token from its prompt's last logits, the
-        noise keyed on the prompt length. Returns (packed results, tokens),
+        noise keyed on the prompt length. With ``fsm`` (the rows' grammar
+        rows and start states) constrained rows sample from their start
+        state's allowed tokens and a real fresh row writes its slot's next
+        state (the JAX ``_fsm_scatter``). Returns (packed results, tokens),
         on the device."""
         noise = gumbel_noise(self.config.seed, seeds, positions,
                              min(MAX_CANDIDATES, logits.shape[1]))
+        allowed = None
+        if fsm is not None:
+            allowed, nxt_all, _ = fsm_apply(*self._g_dev, fsm[0], fsm[1])
         res = sample(logits, noise, fl[:, 0], top_k, fl[:, 1],
                      penalties=(fl[:, 2], fl[:, 3], self.token_counts[slots.long()]),
-                     bias=bias)
+                     bias=bias, allowed=allowed)
+        if fsm is not None:
+            fsm_scatter(self._fsm_state, fsm[0], fsm[1], nxt_all, res.tokens, lengths, slots)
         return pack_results([res]), res.tokens
 
     def _prefill(self, bucket: int, rows: list[tuple[Request, list[int]]]):
@@ -1055,14 +1246,15 @@ class Engine:
         used = {req.slot for req, _ in rows}
         host[n:, 4] = [s for s in range(B) if s not in used][:R - n]
         host[n:, 8] = np.float32(1.0).view(np.int32)      # top_p off
+        host[n:, _FSM_PRE:_FSM_PRE + 2] = -1               # padded rows: none
         (lengths, history, top_k, seeds, slots, prompt_len, reset, fl, bias, page_table,
-         tokens) = self._device_rows(host)
+         tokens, fsm) = self._device_rows(host)
         _rebuild_count_rows(self.token_counts, tokens, slots, history, prompt_len, lengths,
                             reset)
         logits, _, _ = forward_prefill(self.params, self.model_config, tokens, lengths,
                                        self.k_pages, self.v_pages, page_table)
         self.prefill_calls += 1
-        return self._sample_first(logits, lengths, top_k, seeds, fl, bias, slots)
+        return self._sample_first(logits, lengths, top_k, seeds, fl, bias, slots, fsm, lengths)
 
     def _chunked_prefill(self, req: Request, ptoks: list[int], start: int = 0):
         """Prefill ``ptoks`` from position ``start`` (> 0 when a cached
@@ -1082,14 +1274,15 @@ class Engine:
             self._pack_row(host, 0, req, m, pos, pos == start)
             host[0, _PRE_COLS + pps:_PRE_COLS + pps + m] = ptoks[pos:pos + m]
             (lengths, history, top_k, seeds, slots, prompt_len, reset, fl, bias,
-             page_table, tokens) = self._device_rows(host)
+             page_table, tokens, fsm) = self._device_rows(host)
             _rebuild_count_rows(self.token_counts, tokens, slots, history, prompt_len,
                                 lengths, reset)
             logits, _, _ = forward_chunk(self.params, self.model_config, tokens, history,
                                          lengths, self.k_pages, self.v_pages, page_table)
             self.chunk_calls += 1
             pos += m
-        return self._sample_first(logits, history + lengths, top_k, seeds, fl, bias, slots)
+        return self._sample_first(logits, history + lengths, top_k, seeds, fl, bias, slots,
+                                  fsm, lengths)
 
     # ------------------------------------------------------------------
     # decode windows
@@ -1098,10 +1291,10 @@ class Engine:
     def _window_rows(self, active: list[tuple[int, Request]], plan: dict,
                      base: dict) -> np.ndarray:
         """The packed window rows: each active row's sampling parameters,
-        stop ids, logit_bias, budget ``plan[i]`` and first length
-        ``base[i]`` (0 when it plans nothing: it rides along idle), every
-        slot's page table.
-        Token sources are the caller's (host values by default)."""
+        stop ids, logit_bias, grammar row (and a replayed FSM state to set,
+        consumed here), budget ``plan[i]`` and first length ``base[i]`` (0
+        when it plans nothing: it rides along idle), every slot's page
+        table. Token sources are the caller's (host values by default)."""
         packed = idle_rows(self.config.max_decode_slots, self.config.pages_per_slot)
         packed[:, DEC_COLS:] = self.allocator.page_tables
         for i, r in active:
@@ -1117,6 +1310,10 @@ class Engine:
                 [prm.temperature, prm.top_p, prm.presence_penalty, prm.frequency_penalty],
                 np.float32).view(np.int32)
             pack_bias(packed, i, BIAS, prm.logit_bias)
+            packed[i, FSM] = r.fsm_row
+            if r.fsm_row >= 0 and r.pending_fsm_state is not None:
+                packed[i, FSM + 1], packed[i, FSM + 2] = 1, r.pending_fsm_state
+                r.pending_fsm_state = None
         return packed
 
     def _plan_window(self, events: list[StepEvent]) -> tuple[dict, dict]:
@@ -1165,24 +1362,36 @@ class Engine:
         return infl, plan
 
     def _emit_window(self, active: list[tuple[int, Request]], planned: dict,
-                     out: tuple) -> list[StepEvent]:
+                     out: tuple) -> tuple[list[StepEvent], list]:
         """Emit a window's tokens (``unpack_results`` of it), up to each
         row's plan, in order, until the request finishes. A request that
         finished, was aborted or preempted after the launch is skipped:
-        its row's tokens are wasted speculation."""
+        its row's tokens are wasted speculation. Returns (events, the
+        window's ledger rows: each row's consumed tokens as "decode", its
+        planned-but-unconsumed ones as "early_exit")."""
         B = self.config.max_decode_slots
         events: list[StepEvent] = []
+        led: list = []
         for slot, req in active:
-            if req.finished or req.slot != slot:
+            p = planned.get(slot, 0)
+            if p <= 0:
                 continue
-            for j in range(planned.get(slot, 0)):
+            if req.finished or req.slot != slot:
+                led.append((req, "early_exit", p))
+                continue
+            consumed = 0
+            for j in range(p):
                 self.slot_len[slot] += 1        # the pending token's KV is cached
                 tok = int(out[0][j * B + slot])
                 req.pending_token = tok
                 events += self._emit(req, tok, _lp_entry(out, j * B + slot))
+                consumed += 1
                 if req.finished:
                     break                       # the device masked the row here too
-        return events
+            led.append((req, "decode", consumed))
+            if p > consumed:
+                led.append((req, "early_exit", p - consumed))
+        return events, led
 
     def _decode(self) -> list[StepEvent]:
         """Sync: one window of up to ``decode_steps`` tokens per slot, read
@@ -1194,9 +1403,15 @@ class Engine:
             return events
         packed = self._window_rows(active, plan,
                                    {i: int(self.slot_len[i]) + 1 for i, _r in active})
-        pack, _ = self._window.run(packed, None, None)
+        t_launch = time.monotonic()
+        pack, _ = self._window.run(packed, None, None, use_fsm=self._fsm_any_active())
         self.decode_forwards += self.config.decode_steps
-        return events + self._emit_window(active, plan, unpack_results(pack.cpu().numpy()))
+        t0 = time.perf_counter()
+        out = unpack_results(pack.cpu().numpy())
+        self._device_time_s += time.perf_counter() - t0
+        emitted, led = self._emit_window(active, plan, out)
+        self._book(t_launch, time.monotonic(), led, window=self.config.decode_steps)
+        return events + emitted
 
     # ------------------------------------------------------------------
     # async (pipelined) scheduling
@@ -1244,6 +1459,7 @@ class Engine:
                     break
                 picked.append(seat)
         merge: dict = {"slots": {}}
+        t_launch = time.monotonic()
         if long_pick is not None:
             _slot, req, ptoks, hit, _resumed = long_pick
             pack, merge["toks"] = self._chunked_prefill(req, ptoks, start=hit)
@@ -1276,6 +1492,12 @@ class Engine:
                 # priority read: first tokens jump the window-read queue
                 key = -1 - next(self._first_counter)
                 self._harvester.push(key, _HostCopy(pack), priority=True)
+                if self.ledger is not None:
+                    # booked when the read lands; a batch's resumed rows
+                    # rode the call too, a resumed chunk-path request's
+                    # re-prefill folds into the next window's segment
+                    self._ledger_prefills[key] = (t_launch, [
+                        (r, max(1, len(pt) - h)) for _s, r, pt, h, _res in rows])
             merge["slots"][slot] = (False, 0, row)
             self._pending_first.append((req, key, row))
         return merge
@@ -1314,12 +1536,15 @@ class Engine:
             elif infl.get(i, 0) > 0:
                 packed[i, SRC] = SRC_INFLIGHT
         last = self._inflight[-1].toks if self._inflight else None
+        t_launch = time.monotonic()
         pack, toks = self._window.run(packed, last,
-                                      admitted["toks"] if admitted is not None else None)
+                                      admitted["toks"] if admitted is not None else None,
+                                      use_fsm=self._fsm_any_active())
         self.decode_forwards += self.config.decode_steps
         seq = next(self._seq_counter)
         step = InflightStep(_HostCopy(pack), toks, active, seq,
-                            planned={i: plan.get(i, 0) for i, _r in active})
+                            planned={i: plan.get(i, 0) for i, _r in active},
+                            launched_at=t_launch)
         self._inflight.append(step)
         self._harvester.push(seq, step.pack)
         now = time.monotonic()
@@ -1409,6 +1634,11 @@ class Engine:
         if done_entries:
             self._pending_first = still
             for k in {k for _r, k, _row in done_entries} - {k for _r, k, _row in still}:
+                led = self._ledger_prefills.pop(k, None)
+                if led is not None:
+                    t_launch, rows = led
+                    self._book(t_launch, self._harvester.done_time(k),
+                               [(r, "prefill", n) for r, n in rows])
                 self._harvester.discard_key(k)
         processed = -1
         n_windows = 0
@@ -1418,8 +1648,11 @@ class Engine:
             step = self._inflight.popleft()
             processed = step.seq
             n_windows += 1
-            events += self._emit_window(step.active, step.planned,
-                                        unpack_results(self._harvester.get(step.seq)))
+            emitted, led = self._emit_window(step.active, step.planned,
+                                             unpack_results(self._harvester.get(step.seq)))
+            events += emitted
+            self._book(step.launched_at, self._harvester.done_time(step.seq), led,
+                       window=self.config.decode_steps)
         if processed >= 0:
             self._harvester.discard_upto(processed)
         return n_windows
@@ -1429,6 +1662,112 @@ class Engine:
         events = self._harvest(drain=True)
         self._deliver(events)
         return events
+
+    # ------------------------------------------------------------------
+    # grammar-constrained decoding: device-table residency
+    # ------------------------------------------------------------------
+
+    def _fsm_any_active(self) -> bool:
+        return any(r is not None and r.fsm_row >= 0 for r in self.slots)
+
+    def _g_first_fit(self, size: int) -> Optional[int]:
+        occ = sorted((e[1], e[1] + e[2]) for e in self._g_resident.values())
+        base = 0
+        for lo, hi in occ:
+            if lo - base >= size:
+                return base
+            base = max(base, hi)
+        return base if self.config.grammar_states - base >= size else None
+
+    def _ensure_grammar(self, req: Request) -> bool:
+        """Make the request's grammar resident in the device tables and
+        point req.fsm_row / fsm_start at it (refcounted; the JAX
+        ``_ensure_grammar``). False when every table row or state range is
+        pinned by running requests: the admission waits, as under page
+        pressure. Idempotent per request. The first call allocates the
+        tables at capacity and hands them to the window, which captures its
+        FSM graph over them on a card."""
+        if req.fsm_row >= 0:
+            return True
+        g = req.params.grammar
+        ent = self._g_resident.get(g.key)
+        if ent is None:
+            cfg = self.config
+            V = self.model_config.vocab_size
+            if self._g_class_h is None:
+                self._g_class_h = np.zeros((cfg.max_grammars, V), np.int16)
+                self._g_trans_h = np.full((cfg.grammar_states, cfg.grammar_classes), -1,
+                                          np.int16)
+                dev = self.device
+                self._fsm_state = torch.full((cfg.max_decode_slots,), -1, dtype=torch.int32,
+                                             device=dev)
+                self._g_dev = (torch.zeros((cfg.max_grammars, V), dtype=torch.int16,
+                                           device=dev),
+                               torch.full((cfg.grammar_states, cfg.grammar_classes), -1,
+                                          dtype=torch.int16, device=dev))
+                self._window.enable_fsm((self._fsm_state, *self._g_dev))
+            while True:
+                used = {e[0] for e in self._g_resident.values()}
+                row = next((r for r in range(cfg.max_grammars) if r not in used), None)
+                base = self._g_first_fit(g.n_states)
+                if row is not None and base is not None:
+                    break
+                victim = next((k for k, e in self._g_resident.items() if e[3] == 0), None)
+                if victim is None:
+                    return False      # all pinned by running requests; wait
+                del self._g_resident[victim]
+            co = np.full((V,), g.n_classes - 2, np.int16)    # pad: the reject class
+            co[:len(g.class_of)] = g.class_of
+            self._g_class_h[row] = co
+            tr = g.trans.astype(np.int32)
+            self._g_trans_h[base:base + g.n_states, :] = -1
+            self._g_trans_h[base:base + g.n_states, :g.n_classes] = np.where(
+                tr >= 0, tr + base, -1).astype(np.int16)
+            ent = [row, base, g.n_states, 0, g]
+            self._g_resident[g.key] = ent
+            self._upload_grammars()
+        ent[3] += 1
+        req.fsm_row = ent[0]
+        req.fsm_start = ent[1] + g.start
+        return True
+
+    def _upload_grammars(self) -> None:
+        """Copy the host tables into the device ones (never reassigned: the
+        FSM graph holds their addresses); stream-ordered after every window
+        already launched."""
+        for dev, host in zip(self._g_dev, (self._g_class_h, self._g_trans_h)):
+            src = torch.from_numpy(host)
+            if dev.device.type == "cuda":
+                dev.copy_(src.pin_memory(), non_blocking=True)
+            else:
+                dev.copy_(src)
+
+    def _g_release(self, req: Request) -> None:
+        """Drop the request's hold on its resident grammar (finish, abort,
+        preemption: a resumed admission re-ensures residency)."""
+        if req.fsm_row < 0 or req.params.grammar is None:
+            return
+        ent = self._g_resident.get(req.params.grammar.key)
+        if ent is not None and ent[3] > 0:
+            ent[3] -= 1
+        req.fsm_row = -1
+        req.fsm_start = -1
+        req.pending_fsm_state = None
+
+    def _fsm_replay(self, req: Request) -> None:
+        """Resume after a preemption or a journal resume: recompute the FSM
+        state after every token of the output on the host (the device state
+        went with the slot) and stage it for the next window's fsm_set."""
+        g = req.params.grammar
+        st = g.start
+        for t in req.output:
+            st = g.next_state(st, t)
+            if st < 0:
+                log.warning("request %s: emitted token %d not reachable in its own "
+                            "grammar; continuing unconstrained", req.id, t)
+                self._g_release(req)
+                return
+        req.pending_fsm_state = (req.fsm_start - g.start) + st   # base + replayed
 
 
 def _lp_entry(out: tuple, row: int) -> tuple:

@@ -9,12 +9,27 @@ mask), and the packed results of all K steps. Every row's inputs come in
 one packed int32 array (``DEC_COLS`` below plus the page table), so a
 window is one host-to-device copy.
 
+Grammar-constrained rows (``engine/grammar.py``): with ``fsm`` (the
+per-slot state [B] int32 and the resident tables ``class_of [G, V]`` and
+``trans [S, C]`` int16) each step masks a constrained row's logits to the
+tokens its FSM state allows and advances the state by the sampled token
+(``fsm_apply`` / ``fsm_next``, the JAX ``_fsm_apply`` / ``_fsm_next``);
+the state is written back in place at the end of the window. Without it
+the window is exactly the grammar-free one (the JAX engine's ``fsm=None``
+executables).
+
 ``DecodeWindow`` runs the windows of one engine. On a card it captures
 ``decode_window`` once, at construction, as a CUDA graph over static
 buffers (the packed inputs, the prefill tokens, the output tokens and
 packed results) and the engine's pools, penalty counts, weights and
 decode workspace, and each window is one replay: the counterpart of XLA
-dispatching the compiled window once. With int8 weights the graph holds
+dispatching the compiled window once. A second graph, the window with the
+FSM, is captured at the engine's first grammar admission
+(``enable_fsm``), in the first graph's memory pool, over the same static
+buffers and the engine's FSM tables; it copies its results into the first
+graph's outputs, so a window of either kind reads the newest in-flight
+tokens wherever they came from. The engine picks the FSM graph for a
+window in which any row is constrained. With int8 weights the graph holds
 each layer's QTensor views (data and scale) and their W8A16 launches. On
 the CPU the same function runs eagerly; it is the plain version the tests
 hold the JAX engine against.
@@ -29,6 +44,7 @@ nowhere.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -52,13 +68,16 @@ LOGIT_BIAS_SLOTS = 32
 # window's output, 1: the host value, 2: this step's prefill sample at
 # the prefill row), the host value, the prefill row, top_k, seed, the
 # stop ids (-1 pads), four float32 columns viewed as int32 (temperature,
-# top_p, presence, frequency), the logit_bias ids and values, then the
-# page table
+# top_p, presence, frequency), the logit_bias ids and values, the FSM
+# columns (the row's grammar row in class_of, -1: unconstrained; fsm_set
+# 1: start from fsm_val instead of the slot's device state, a resumed
+# request's host-replayed state), then the page table
 LEN, BUD, SRC, VAL, PRE_ROW, TOP_K, SEED = range(7)
 STOP = 7
 FLOATS = STOP + STOP_SLOTS
 BIAS = FLOATS + 4
-DEC_COLS = BIAS + 2 * LOGIT_BIAS_SLOTS
+FSM = BIAS + 2 * LOGIT_BIAS_SLOTS
+DEC_COLS = FSM + 3
 SRC_INFLIGHT, SRC_HOST, SRC_PREFILL = 0, 1, 2
 
 
@@ -85,7 +104,50 @@ def idle_rows(B: int, pages_per_slot: int) -> np.ndarray:
     packed[:, STOP:STOP + STOP_SLOTS] = -1
     packed[:, FLOATS + 1] = np.float32(1.0).view(np.int32)
     packed[:, BIAS:BIAS + LOGIT_BIAS_SLOTS] = -1
+    packed[:, FSM] = -1
     return packed
+
+
+def fsm_apply(class_of: torch.Tensor, trans: torch.Tensor, g_rows: torch.Tensor,
+              states: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-row mask and transition lookup, one [R, V] lookup for both (the
+    JAX ``_fsm_apply``): (allowed [R, V] bool, nxt_all [R, V] int16, the
+    state each token leads to, -1 = not allowed; constrained [R] bool).
+    Rows with ``g_rows`` < 0 or a state < 0 are unconstrained (all True).
+    The lookup indexes ``trans`` flat with an int32 index (state * C +
+    class; ``index_select`` takes int32): ``torch.gather`` would need an
+    int64 [R, V] index, 8 bytes a row and token (8.2 MB at 8 rows and V
+    128,256, 65.7 MB at 64); this one is 4 (4.1 / 32.8 MB), beside the
+    int16 classes and result and the bool mask."""
+    classes = class_of[g_rows.clamp(min=0).long()]                  # [R, V] int16
+    idx = states.clamp(min=0)[:, None] * trans.shape[1] + classes   # int32
+    nxt_all = trans.view(-1).index_select(0, idx.view(-1)).view(idx.shape)
+    constrained = (g_rows >= 0) & (states >= 0)
+    allowed = torch.where(constrained[:, None], nxt_all >= 0, True)
+    return allowed, nxt_all, constrained
+
+
+def fsm_next(nxt_all: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The state after emitting each row's sampled token ([R] int32; the
+    JAX ``_fsm_next``)."""
+    return nxt_all.gather(1, tokens.long()[:, None])[:, 0].to(torch.int32)
+
+
+def fsm_scatter(state: torch.Tensor, g_rows: torch.Tensor, init: torch.Tensor,
+                nxt_all: torch.Tensor, tokens: torch.Tensor, lengths: torch.Tensor,
+                slots: torch.Tensor) -> torch.Tensor:
+    """A prefill's per-slot state write, in place (the JAX
+    ``_fsm_scatter``): a row writes its slot's state only when it is a
+    constrained fresh start (fsm_row >= 0 and fsm_init >= 0) and real
+    (length > 0); every other slot keeps its state. No data-dependent
+    shape, so no host sync: a [R, B] match of writing rows to slots."""
+    nxt = fsm_next(nxt_all, tokens)
+    write = (g_rows >= 0) & (init >= 0) & (lengths > 0)
+    hit = write[:, None] & (slots[:, None].long()
+                            == torch.arange(state.shape[0], device=state.device)[None, :])
+    val = (hit.to(torch.int32) * nxt[:, None]).sum(dim=0).to(state.dtype)
+    state.copy_(torch.where(hit.any(dim=0), val, state))
+    return state
 
 
 def pack_results(results: list) -> torch.Tensor:
@@ -111,7 +173,7 @@ def unpack_results(packed: np.ndarray) -> tuple:
 def decode_window(params: dict, cfg, K: int, packed: torch.Tensor,
                   last_toks: torch.Tensor, prefill_toks: torch.Tensor, k_pages, v_pages,
                   counts: torch.Tensor, *, seed: int, kv_write: str = "dus",
-                  workspace=None) -> tuple[torch.Tensor, torch.Tensor]:
+                  workspace=None, fsm=None) -> tuple[torch.Tensor, torch.Tensor]:
     """One fused window of up to K tokens per row.
 
     ``packed`` [B, DEC_COLS + pages_per_slot] int32 (see the columns
@@ -140,6 +202,10 @@ def decode_window(params: dict, cfg, K: int, packed: torch.Tensor,
                       torch.where(src == SRC_HOST, packed[:, VAL],
                                   prefill_toks[packed[:, PRE_ROW].long()]))
     alive = (lengths0 > 0) & (budget > 0)
+    if fsm is not None:
+        fsm_state, class_of, trans = fsm
+        g_rows = packed[:, FSM]
+        state = torch.where(packed[:, FSM + 1] == 1, packed[:, FSM + 2], fsm_state)
     row_base = torch.arange(B, device=packed.device) * V
     flat_counts = counts.view(-1)
     C = min(MAX_CANDIDATES, cfg.vocab_size)
@@ -153,12 +219,19 @@ def decode_window(params: dict, cfg, K: int, packed: torch.Tensor,
         logits, _, _ = forward_decode(params, cfg, cur, lengths, k_pages, v_pages, page_table,
                                       kv_write=kv_write, workspace=workspace)
         noise = gumbel_noise(seed, seeds, lengths, C)
+        allowed = None
+        if fsm is not None:
+            allowed, nxt_all, constrained = fsm_apply(class_of, trans, g_rows, state)
         res = sample(logits, noise, fl[:, 0], top_k, fl[:, 1],
-                     penalties=(fl[:, 2], fl[:, 3], counts), bias=bias)
+                     penalties=(fl[:, 2], fl[:, 3], counts), bias=bias, allowed=allowed)
         results.append(res)
+        if fsm is not None:
+            state = torch.where(constrained & alive, fsm_next(nxt_all, res.tokens), state)
         stopped = ((stop_ids >= 0) & (stop_ids == res.tokens[:, None])).any(dim=1)
         cur = torch.where(alive, res.tokens, cur)
         alive = alive & ~stopped & (j + 1 < budget)
+    if fsm is not None:
+        fsm_state.copy_(state)
     return pack_results(results), cur
 
 
@@ -179,10 +252,11 @@ class DecodeWindow:
     replayed on a card, run eagerly on the CPU.
 
     It holds the engine's weights, pools (``k_pages``, ``v_pages``),
-    penalty ``counts`` and decode ``workspace``; none of these may be
-    reassigned after the capture, only updated in place. ``replays``
-    counts the graph's replays (0 on the CPU), ``launches`` one replay's
-    kernel launches."""
+    penalty ``counts`` and decode ``workspace``, and after ``enable_fsm``
+    its FSM state and tables; none of these may be reassigned after the
+    capture, only updated in place. ``replays`` counts the graph replays
+    of either kind (0 on the CPU) and ``fsm_replays`` the FSM graph's;
+    ``launches`` / ``fsm_launches`` are one replay's kernel launches."""
 
     def __init__(self, params: dict, model_config, k_pages, v_pages, counts: torch.Tensor,
                  workspace, *, decode_steps: int, slots: int, pages_per_slot: int,
@@ -192,80 +266,130 @@ class DecodeWindow:
         self.workspace = workspace
         self.K, self.B, self.pages_per_slot = decode_steps, slots, pages_per_slot
         self.seed, self.kv_write, self.device = seed, kv_write, device
+        self.admit_rows = admit_rows
         self.replays = 0
+        self.fsm_replays = 0
         self.launches: dict = {}
+        self.fsm_launches: dict = {}
+        self.fsm = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.fsm_graph: Optional[torch.cuda.CUDAGraph] = None
         if device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
             self._capture(admit_rows)
 
     def _call(self, packed, last_toks, prefill_toks, k_pages=None, v_pages=None,
-              counts=None, workspace=None):
+              counts=None, workspace=None, fsm=None):
         return decode_window(
             self.params, self.model_config, self.K, packed, last_toks, prefill_toks,
             self.k_pages if k_pages is None else k_pages,
             self.v_pages if v_pages is None else v_pages,
             self.counts if counts is None else counts,
             seed=self.seed, kv_write=self.kv_write,
-            workspace=self.workspace if workspace is None else workspace)
+            workspace=self.workspace if workspace is None else workspace, fsm=fsm)
 
-    def _capture(self, admit_rows: int) -> None:
-        """Warm up K eager steps with every row idle on a side stream (the
+    def _warm_up(self, fsm=None) -> None:
+        """K eager steps with every row idle on a side stream (the
         kernels' lazy builds and first-launch attributes, cuBLAS's handles,
         the decode workspace and the rope tables are made there; idle rows
-        write only the trash page and add no counts), then capture one
-        window over static buffers. The warm-up's launches count nowhere;
-        the capture's are kept to add on every replay."""
+        write only the trash page, add no counts and leave every FSM state
+        as it was). Its launches count nowhere."""
+        dev = self.device
+        idle = upload(idle_rows(self.B, self.pages_per_slot), dev)
+        toks = torch.zeros((self.B,), dtype=torch.int32, device=dev)
+        pre = torch.zeros((self.admit_rows,), dtype=torch.int32, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with kernels.counting_apart(), torch.cuda.stream(side):
+            self._call(idle, toks, pre, fsm=fsm)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+
+    def _capture(self, admit_rows: int) -> None:
+        """Warm up, then capture one window over static buffers. The
+        capture's launches are kept to add on every replay."""
+        t0 = time.perf_counter()
         dev = self.device
         self.packed = upload(idle_rows(self.B, self.pages_per_slot), dev)
         self.prefill_toks = torch.zeros((admit_rows,), dtype=torch.int32, device=dev)
         self.toks = torch.zeros((self.B,), dtype=torch.int32, device=dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with kernels.counting_apart(), torch.cuda.stream(side):
-            self._call(self.packed, self.toks, self.prefill_toks)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
+        self._warm_up()
         graph = torch.cuda.CUDAGraph()
         # "thread_local": another engine's harvester may be waiting on an
         # event of its own while this thread captures
         with kernels.counting_apart() as counted, \
-                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
             self.pack, toks = self._call(self.packed, self.toks, self.prefill_toks)
             self.toks.copy_(toks)
         self.workspace.frozen = True
         self.launches = dict(counted)
         self.graph = graph
+        kernels.note_compile("graph:window", time.perf_counter() - t0)
+
+    def enable_fsm(self, fsm: tuple) -> None:
+        """Take the engine's FSM state and tables (allocated once, at
+        capacity: only ever written in place) and, on a card, capture the
+        FSM window in the first graph's pool. It reads the same static
+        inputs and writes the first graph's ``pack`` and ``toks``. The
+        capture synchronizes the device once (``torch.cuda.graph`` does)."""
+        if self.fsm is not None:
+            return
+        self.fsm = fsm
+        if self.graph is None:
+            return
+        t0 = time.perf_counter()
+        self._warm_up(fsm)
+        graph = torch.cuda.CUDAGraph()
+        with kernels.counting_apart() as counted, \
+                torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            pack, toks = self._call(self.packed, self.toks, self.prefill_toks, fsm=fsm)
+            self.pack.copy_(pack)
+            self.toks.copy_(toks)
+        self.fsm_launches = dict(counted)
+        self.fsm_graph = graph
+        kernels.note_compile("graph:window_fsm", time.perf_counter() - t0)
 
     def run(self, packed: np.ndarray, last_toks: Optional[torch.Tensor],
-            prefill_toks: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
-        """One window over the host rows ``packed``. ``last_toks``: the
-        newest in-flight window's tokens (what this method returned for
-        it), or None; ``prefill_toks``: this step's prefill samples, or
-        None. Returns (packed results, tokens after the window), both on
-        the device. On a card they are the graph's static outputs, which
-        the next replay overwrites: the caller copies them out (stream-
-        ordered) before it runs the next window."""
+            prefill_toks: Optional[torch.Tensor],
+            use_fsm: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """One window over the host rows ``packed``, with the FSM when
+        ``use_fsm`` (a row is constrained; ``enable_fsm`` first).
+        ``last_toks``: the newest in-flight window's tokens (what this
+        method returned for it), or None; ``prefill_toks``: this step's
+        prefill samples, or None. Returns (packed results, tokens after the
+        window), both on the device. On a card they are the graphs' shared
+        static outputs, which the next replay of either graph overwrites:
+        the caller copies them out (stream-ordered) before it runs the
+        next window."""
+        if use_fsm and self.fsm is None:
+            raise RuntimeError("a window with constrained rows needs enable_fsm() first")
+        fsm = self.fsm if use_fsm else None
         if self.graph is None:
             zeros = torch.zeros((self.B,), dtype=torch.int32)
             return self._call(torch.from_numpy(packed),
                               zeros if last_toks is None else last_toks,
-                              zeros[:1] if prefill_toks is None else prefill_toks)
+                              zeros[:1] if prefill_toks is None else prefill_toks, fsm=fsm)
         if last_toks is not None and last_toks is not self.toks:
             raise ValueError("a replayed window reads the previous window's tokens "
-                             "from its own static output")
+                             "from the graphs' shared static output")
         self.packed.copy_(torch.from_numpy(packed).pin_memory(), non_blocking=True)
         if prefill_toks is not None:
             self.prefill_toks[:prefill_toks.shape[0]].copy_(prefill_toks)
-        self.graph.replay()
-        kernels.add_launches(self.launches)
+        if use_fsm:
+            self.fsm_graph.replay()
+            kernels.add_launches(self.fsm_launches)
+            self.fsm_replays += 1
+        else:
+            self.graph.replay()
+            kernels.add_launches(self.launches)
         self.replays += 1
         return self.pack, self.toks
 
     def _eager(self, packed: torch.Tensor, last_toks: torch.Tensor,
                prefill_toks: torch.Tensor, k_pages, v_pages, counts,
-               workspace=None) -> tuple[torch.Tensor, torch.Tensor]:
-        """The same window eagerly, on the given pools and counts: what
-        ``chip_smoke.py`` and the card tests hold a replay against (and
-        profile beside it). The engine never calls it."""
+               workspace=None, fsm=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """The same window eagerly, on the given pools and counts (and FSM
+        state and tables): what ``chip_smoke.py`` and the card tests hold a
+        replay against (and profile beside it). The engine never calls it."""
         return self._call(packed, last_toks, prefill_toks, k_pages, v_pages, counts,
-                          workspace)
+                          workspace, fsm)

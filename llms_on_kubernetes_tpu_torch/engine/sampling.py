@@ -67,7 +67,8 @@ class SampleResult:
 def sample(logits: torch.Tensor, noise: torch.Tensor, temperature: torch.Tensor,
            top_k: torch.Tensor, top_p: torch.Tensor,
            penalties: "tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None" = None,
-           bias: "tuple[torch.Tensor, torch.Tensor] | None" = None) -> SampleResult:
+           bias: "tuple[torch.Tensor, torch.Tensor] | None" = None,
+           allowed: "torch.Tensor | None" = None) -> SampleResult:
     """logits [B, V]; noise [B, min(MAX_CANDIDATES, V)] Gumbel noise
     (``gumbel_noise``); temperature [B] (0 => greedy); top_k [B] (0 =>
     off); top_p [B] (1.0 => off); penalties = (presence [B], frequency [B],
@@ -78,7 +79,11 @@ def sample(logits: torch.Tensor, noise: torch.Tensor, temperature: torch.Tensor,
     ones). A bias entry whose id is negative (padding, -1) or >= V is
     dropped, as the JAX scatter's ``mode="drop"`` drops it: its value is
     zeroed and its id clamped into the row, because a negative index would
-    wrap and an out-of-range one is a device-side assert on a card."""
+    wrap and an out-of-range one is a device-side assert on a card.
+    ``allowed`` [B, V] bool: grammar-constrained decoding's per-step token
+    mask (``engine/grammar.py``), applied AFTER the bias (a +100 bias must
+    not defeat a grammar) and before candidate extraction, so the logprobs
+    renormalize over the allowed set, as the JAX ``sample`` applies it."""
     B, V = logits.shape
     logits = logits.float()
     if penalties is not None:
@@ -90,6 +95,8 @@ def sample(logits: torch.Tensor, noise: torch.Tensor, temperature: torch.Tensor,
         keep = (b_ids >= 0) & (b_ids < V)
         logits = logits.scatter_add(1, b_ids.long().clamp(0, V - 1),
                                     torch.where(keep, b_vals.float(), 0.0))
+    if allowed is not None:
+        logits = torch.where(allowed, logits, NEG_INF)
     C = min(MAX_CANDIDATES, V)
     cand_logits, cand_idx = torch.topk(logits, C, dim=-1)         # sorted desc
 

@@ -18,6 +18,11 @@ no Python, so whoever captures one counts the capture's launches apart
 (``counting_apart``, in the capturing thread only) and adds them on every
 replay (``add_launches``), in ``LAUNCHES`` and in ``REPLAYED``: a kernel's
 launches less its replayed ones are the launches it made eagerly.
+
+``COMPILES`` records the port's compile events, (kind, seconds): each
+``nvcc`` build of a source ("nvcc:<source>") and each CUDA graph capture
+("graph:<name>", ``note_compile`` from ``engine/graphs.py``). The server's
+runtime telemetry counts them under the JAX server's compile series.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -78,6 +84,7 @@ _apart = threading.local()
 
 _lock = threading.Lock()
 _funcs: dict = {}
+COMPILES: list = []         # (kind, seconds), in the order they happened
 build_log: dict = {}        # source name -> nvcc output (ptxas register report)
 
 
@@ -86,6 +93,11 @@ def count(name: str) -> None:
     ``counting_apart`` Counter, else in ``LAUNCHES``."""
     counter = getattr(_apart, "counter", None)
     (LAUNCHES if counter is None else counter)[name] += 1
+
+
+def note_compile(kind: str, seconds: float) -> None:
+    """Record one compile event (an nvcc build, a graph capture)."""
+    COMPILES.append((kind, float(seconds)))
 
 
 def reset_launches() -> None:
@@ -155,6 +167,7 @@ def build(names=SOURCES) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n) for n in names}
     procs = {}
+    t0 = time.perf_counter()
     for n, path in paths.items():
         if path.exists():
             continue
@@ -166,6 +179,7 @@ def build(names=SOURCES) -> dict:
     for n, (proc, tmp) in procs.items():
         out, _ = proc.communicate()
         build_log[n] = out
+        note_compile(f"nvcc:{n}", time.perf_counter() - t0)
         if proc.returncode != 0:
             failed.append(f"nvcc {n}.cu exited {proc.returncode}:\n{out}")
         else:

@@ -5,8 +5,9 @@ The registry, the metric kinds and the serving series keep the JAX
 module's names, help strings, label names and buckets, so the charts'
 scrape, alerts, dashboards and autoscalers read a port replica as they
 read a JAX one. Only the series the port feeds are here: the adapter,
-host-KV, handoff, speculation, tenant, deadline, ledger and trace families
-come with the slices that port those parts.
+host-KV, handoff, speculation and fair-queue tenant families come with the
+slices that port those parts (the goodput ledger's per-tenant chip time is
+fed under the tenant "default").
 """
 
 from __future__ import annotations
@@ -288,6 +289,46 @@ def engine_metrics(registry: Registry) -> dict:
             "Device KV-cache bytes per cached token across all layers, "
             "both K and V, scales included (int8 pages roughly halve "
             "this vs bf16)", registry),
+        "mfu": Gauge(
+            "llm_mfu_ratio",
+            "Model FLOPs utilization over the trailing minute: achieved "
+            "FLOP/s (2 * active params per planned token, wasted rows "
+            "included) over the accelerator's nominal dense peak "
+            "(PaLM-style MFU; on CPU smoke runs the peak is a nominal "
+            "fallback, so treat the ratio as plumbing, not hardware "
+            "truth)", registry),
+        "mbu": Gauge(
+            "llm_mbu_ratio",
+            "Memory-bandwidth utilization over the trailing minute: "
+            "achieved HBM traffic (weight streaming per fused window + "
+            "KV page writes) over the accelerator's nominal peak "
+            "bytes/s — the decode-side twin of llm_mfu_ratio", registry),
+        "chip_seconds": Counter(
+            "llm_chip_seconds_total",
+            "Goodput-ledger chip time by outcome: prefill/decode = "
+            "attributed to live streams, spec_waste = rejected "
+            "speculative tails, early_exit = masked/abandoned fused-"
+            "window rows, idle = device gaps between dispatches; the "
+            "phases sum to the ledger's wall-clock window "
+            "(conservation is CI-gated)",
+            registry, label_names=("phase",)),
+        "tenant_chip_seconds": Counter(
+            "llm_tenant_chip_seconds_total",
+            "Chip time attributed per fair-queue tenant and ledger "
+            "phase — the chargeback / capacity-planning series (waste "
+            "phases bill the tenant whose speculation or early exit "
+            "burned the window)",
+            registry, label_names=("tenant", "phase")),
+        "auto_profile": Counter(
+            "llm_auto_profile_total",
+            "Automatic bounded profiler captures triggered by the "
+            "step-time anomaly watchdog (EWMA + z-score over per-"
+            "dispatch device time; rate-limited by anomalyProfile "
+            "cooldown)",
+            registry, label_names=("reason",)),
     }
     m.update(trace_export_metrics(registry))
+    # the auto-profile counter's only reason, seeded at zero: a labeled
+    # counter with no children exports no samples
+    m["auto_profile"].labels(reason="step_anomaly")
     return m

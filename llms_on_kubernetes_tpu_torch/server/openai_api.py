@@ -18,8 +18,21 @@ Endpoints, with the JAX server's shapes:
   ``logit_bias`` (token id -> [-100, 100]), ``n`` and ``best_of`` (at most
   16; choice j > 0 of a seeded request samples with seed + j), ``echo``
   (with ``logprobs``: the prompt's own logprobs, scored by
-  ``Engine.score_prompt`` on the engine thread). Refused with 400: tools,
-  ``response_format`` and ``suffix`` (they come with guided decoding).
+  ``Engine.score_prompt`` on the engine thread). Guided decoding:
+  ``response_format`` ``json_object`` / ``json_schema`` (``{"type":
+  "text"}`` is a no-op) and, on chat, ``tools`` / ``tool_choice``
+  (``server/tools.py``: the tools render through the chat template, a
+  forced or "required" choice is grammar-guaranteed, and tool-call blocks
+  in the output come back as ``message.tool_calls`` with finish_reason
+  "tool_calls", streamed as one ``tool_calls`` delta a call). The grammar
+  (``engine/grammar.py``) is compiled on the request's own thread, off the
+  engine thread, and cached; a ``GrammarError`` answers 400, and so does a
+  forced tool choice with a JSON ``response_format``. ``suffix`` is
+  refused with 400, as by the JAX server.
+- Chip time (the goodput ledger, ``engine/ledger.py``): a response's
+  ``usage.chip_ms`` holds the device milliseconds its requests were
+  attributed by phase and ``X-LLMK-Chip-Ms`` their total (non-streaming);
+  the trace's prefill and decode spans carry them too.
 - ``GET /health``: 503 only when the engine is wedged (its watchdog shed
   a step the card never finished); ``GET /ready``: 200 with the state and
   the prefix-cache bloom filter while serving, else 503 (loading,
@@ -35,7 +48,17 @@ Endpoints, with the JAX server's shapes:
   pages, so launches can be held to calls and pages to their idle count.
 - ``GET /debug/traces`` (recent request traces, ``?id=``, ``?model=``,
   ``?limit=``) and ``GET /debug/engine`` (the flight recorder: the last
-  engine steps); ``POST /v1/embeddings`` answers 501.
+  engine steps, with the ledger's chip time and MFU a step); ``POST
+  /v1/embeddings`` answers 501.
+- ``POST /debug/profile`` (``{"duration_ms"}``: one bounded capture of the
+  live engine, ``server/profiling.py``; 409 while one runs), ``GET
+  /debug/profile`` (the captures) and ``GET /debug/profile/{id}`` (one as
+  .tar.gz). When the ledger's anomaly detector fires, the loop takes one
+  capture itself (``llm_auto_profile_total``, rate-limited by the
+  detector's cooldown). ``/metrics`` adds the ledger's ``llm_mfu_ratio``,
+  ``llm_mbu_ratio``, ``llm_chip_seconds_total{phase}`` and
+  ``llm_tenant_chip_seconds_total`` (tenant "default") and the runtime
+  telemetry (``server/runtime_telemetry.py``).
 
 The replica contract with the routers, as the JAX server keeps it:
 
@@ -73,7 +96,8 @@ requests with 503 and lets in-flight work finish, at most
 ``EngineLoop.drain_timeout_s``.
 
 Not ported yet: QoS and tenants, the cache digest header, the
-disaggregated handoff and its hop headers, LoRA routing.
+disaggregated handoff and its hop headers, LoRA routing, the manual
+``/debug/profile/start`` and ``/stop`` pair.
 """
 
 from __future__ import annotations
@@ -103,6 +127,9 @@ from llms_on_kubernetes_tpu_torch import __version__, faults, kernels, resolve_d
 from llms_on_kubernetes_tpu_torch.engine.engine import (
     Engine, EngineConfig, EngineStallError, QueueFullError, SamplingParams, model_config_for,
 )
+from llms_on_kubernetes_tpu_torch.engine.grammar import (
+    GrammarError, compile_response_format, compile_tool_choice, token_bytes_of,
+)
 from llms_on_kubernetes_tpu_torch.engine.sampling import LOGPROB_TOPK
 from llms_on_kubernetes_tpu_torch.engine.tokenizer import load_tokenizer
 from llms_on_kubernetes_tpu_torch.engine.weights import resolve_model_dir
@@ -111,11 +138,14 @@ from llms_on_kubernetes_tpu_torch.server.affinity import BloomFilter
 from llms_on_kubernetes_tpu_torch.server.metrics import (
     Registry, build_info_metrics, engine_metrics, process_age_s,
 )
+from llms_on_kubernetes_tpu_torch.server.profiling import ProfileError, ProfileManager
+from llms_on_kubernetes_tpu_torch.server.runtime_telemetry import RuntimeTelemetry
+from llms_on_kubernetes_tpu_torch.server.tools import (
+    ToolStreamParser, inject_tool_messages, validate_tool_choice, validate_tools,
+)
 
 log = logging.getLogger(__name__)
 
-# options refused until guided decoding is ported
-_UNSUPPORTED = ("tools", "tool_choice")
 MAX_CHOICES = 16
 # the request body cap (the JAX server's aiohttp client_max_size)
 MAX_BODY_BYTES = 32 * 1024 * 1024
@@ -129,6 +159,20 @@ RESUME_TOKENS_HEADER = "X-LLMK-Resume-Tokens"
 RESUME_STREAM_ID_HEADER = "X-LLMK-Resume-Stream-Id"
 RESUME_CREATED_HEADER = "X-LLMK-Resume-Created"
 REQUEST_ID_HEADER = tracing.REQUEST_ID_HEADER
+# the goodput ledger's per-request attribution: the device milliseconds the
+# request's engine requests consumed (all phases, waste included); the
+# phase split rides the body's usage.chip_ms
+CHIP_MS_HEADER = "X-LLMK-Chip-Ms"
+
+
+def chip_ms_total(reqs) -> dict:
+    """Summed per-phase chip time across a request group (n > 1 / best_of
+    serve one HTTP request with many engine requests)."""
+    chip: dict = {}
+    for r in reqs:
+        for ph, v in r.chip_ms.items():
+            chip[ph] = chip.get(ph, 0.0) + v
+    return chip
 
 
 class BadRequest(ValueError):
@@ -336,18 +380,31 @@ class EngineLoop(threading.Thread):
     callables handed to ``call`` (prompt scoring) and feeds ``metrics``.
 
     ``stop()`` drains: the loop steps until no work is left, the engine is
-    wedged or ``drain_timeout_s`` has passed, then ends."""
+    wedged or ``drain_timeout_s`` has passed, then ends.
+
+    After each step it drains the goodput ledger's snapshot deltas into
+    ``/metrics`` (the JAX loop's), folds the step's device/host split into
+    the runtime telemetry, and, when the ledger's anomaly detector fired,
+    starts one bounded profile capture on a thread of its own
+    (``_trigger_auto_profile``)."""
 
     # under the JAX server's 60 s join, as there
     drain_timeout_s = 55.0
 
     def __init__(self, engine: Engine, metrics: Optional[dict] = None, model_name: str = "",
-                 flight: Optional[tracing.FlightRecorder] = None):
+                 flight: Optional[tracing.FlightRecorder] = None,
+                 telemetry: Optional[RuntimeTelemetry] = None, profiles=None):
         super().__init__(name="engine-loop", daemon=True)
         self.engine = engine
         self.metrics = metrics
         self.model_name = model_name
         self.flight = flight
+        self.telemetry = telemetry
+        self.profiles = profiles        # ProfileManager for the anomaly capture
+        self.auto_profiles = 0
+        self._led_phase_seen: dict = {}
+        self._led_tenant_seen: dict = {}
+        self._led_frame_seen = (0.0, 0.0)
         self._wake = threading.Event()
         self._stop_evt = threading.Event()
         self._calls: "queue.SimpleQueue" = queue.SimpleQueue()
@@ -413,28 +470,67 @@ class EngineLoop(threading.Thread):
                 self._wake.wait(0.05)
                 self._wake.clear()
                 continue
+            dw0 = eng.device_wait_s()
             t0 = time.monotonic()
             try:
                 events = eng.step()
             except Exception:  # boundary: keep serving, fail the in-flight work
                 log.error("engine step failed:\n%s", traceback.format_exc())
                 events = eng.shed("error")
-            self._observe(events, time.monotonic() - t0)
+            dt = time.monotonic() - t0
+            # the harvester waits concurrently, so its delta can exceed the
+            # step's own wall time: clamp
+            self._observe(events, dt, max(0.0, min(eng.device_wait_s() - dw0, dt)))
 
-    def _observe(self, events, dt: float) -> None:
-        """Feed the step's numbers to the metrics and one frame to the
-        flight recorder (the JAX EngineLoop's)."""
+    def _observe(self, events, dt: float, device_s: float = 0.0) -> None:
+        """Feed the step's numbers to the metrics, the runtime telemetry
+        and one frame to the flight recorder, drain the ledger, and answer
+        an anomaly with one capture (the JAX EngineLoop's)."""
         m, eng = self.metrics, self.engine
+        if self.telemetry is not None:
+            self.telemetry.record_step_split(dt, device_s)
+        led = eng.ledger
+        led_snap = led.snapshot() if led is not None else None
+        led_util = led.utilization() if led is not None else None
         if self.flight is not None:
             tokens = sum(len(ev.new_tokens) for ev in events)
-            self.flight.record(
+            frame = dict(
                 step_ms=round(dt * 1000.0, 3),
+                device_ms=round(device_s * 1000.0, 3),
+                host_ms=round((dt - device_s) * 1000.0, 3),
                 occupancy=sum(r is not None for r in eng.slots),
                 kv_pages_used=eng.config.num_pages - 1 - eng.allocator.num_free_pages,
                 waiting=len(eng.waiting), tokens=tokens,
                 tokens_per_s=round(tokens / dt, 1) if dt > 0 else 0.0,
                 finished=sum(ev.finished for ev in events), preemptions=eng.preemptions,
                 wedged=bool(eng.wedged))
+            if led_snap is not None:
+                attr, waste = led_snap["attributed_ms"], led_snap["wasted_ms"]
+                pa, pw = self._led_frame_seen
+                self._led_frame_seen = (attr, waste)
+                frame.update(chip_attr_ms=round(attr - pa, 3),
+                             chip_waste_ms=round(waste - pw, 3),
+                             mfu=round(led_util[0], 5))
+            self.flight.record(**frame)
+        if m and led_snap is not None:
+            series = dict(led_snap["phase_ms"])
+            series["idle"] = led_snap["idle_ms"]
+            for ph, ms in series.items():
+                seen = self._led_phase_seen.get(ph, 0.0)
+                if ms > seen:
+                    m["chip_seconds"].labels(phase=ph).inc((ms - seen) / 1000.0)
+                    self._led_phase_seen[ph] = ms
+            for (tenant, ph), ms in led_snap["tenant_ms"].items():
+                seen = self._led_tenant_seen.get((tenant, ph), 0.0)
+                if ms > seen:
+                    # one tenant until QoS is ported
+                    m["tenant_chip_seconds"].labels(tenant=tenant or "default", phase=ph).inc(
+                        (ms - seen) / 1000.0)
+                    self._led_tenant_seen[(tenant, ph)] = ms
+            m["mfu"].set(led_util[0])
+            m["mbu"].set(led_util[1])
+        if led is not None and led.take_anomaly():
+            self._trigger_auto_profile()
         if not m:
             return
         m["decode_step"].labels(model=self.model_name).observe(dt)
@@ -464,6 +560,31 @@ class EngineLoop(threading.Thread):
             if ev.finished:
                 self._ttft_seen.discard(r.id)
 
+    def _trigger_auto_profile(self) -> None:
+        """One bounded, rate-limited capture while the step-time anomaly is
+        live (the detector's cooldown is the rate limit; a capture already
+        running is skipped, not queued). The capture's thread hands the
+        profiler's start and stop to this loop, between steps."""
+        self.auto_profiles += 1
+        if self.metrics:
+            self.metrics["auto_profile"].labels(reason="step_anomaly").inc()
+        if self.flight is not None:
+            self.flight.record(marker="auto_profile", reason="step_anomaly")
+        prof = self.profiles
+        if prof is None:
+            return
+        duration_ms = float(os.environ.get("LLMK_ANOMALY_CAPTURE_MS", "2000"))
+
+        def cap():
+            try:
+                prof.capture(duration_ms=duration_ms)
+            except RuntimeError as e:      # busy, or the profiler failed
+                log.warning("auto profile skipped: %s", e)
+            except Exception:              # profiling must never stop serving
+                log.warning("auto profile failed:\n%s", traceback.format_exc())
+
+        threading.Thread(target=cap, daemon=True, name="auto-profile").start()
+
 
 class OpenAIServer:
     """The HTTP front end of one engine serving one model."""
@@ -490,7 +611,17 @@ class OpenAIServer:
         self.tail_sampler = tracing.TailSampler()
         self.exporter = tracing.exporter_from_env(
             "llmk-engine", self.metrics["trace_spans_exported"], self.metrics["trace_dropped"])
-        self.loop = EngineLoop(engine, self.metrics, model_name, flight=self.flight)
+        # runtime telemetry (device memory, compile events, step split) and
+        # the bounded profile captures (/debug/profile, the anomaly capture)
+        self.telemetry = RuntimeTelemetry(self.registry, engine.device,
+                                          live_bytes=self._engine_bytes)
+        self.loop = EngineLoop(engine, self.metrics, model_name, flight=self.flight,
+                               telemetry=self.telemetry)
+        self.profiles = ProfileManager(device=engine.device.type, runner=self.loop.call)
+        self.loop.profiles = self.profiles
+        # the tokenizer's id -> bytes map for grammars, derived at first use
+        self._token_bytes = None
+        self._token_bytes_lock = threading.Lock()
         # the degraded_replica gray failure: > 1 stretches this replica's
         # event pacing while its probes stay green
         self._degraded_factor = 1.0
@@ -510,6 +641,34 @@ class OpenAIServer:
         self._pf_bits = int(os.environ.get("LLMK_PREFIX_FILTER_BITS", "8192"))
         self._pf_hashes = int(os.environ.get("LLMK_PREFIX_FILTER_HASHES", "4"))
         self._pf_interval = float(os.environ.get("LLMK_PREFIX_FILTER_INTERVAL_S", "2.0"))
+
+    def _engine_bytes(self) -> float:
+        """The engine's own tensors' bytes (weights, pools, penalty
+        counts): the live-bytes figure on the CPU, which has no allocator
+        statistics."""
+        eng = self.engine
+        seen: set = set()
+        total = 0
+
+        def add(x):
+            nonlocal total
+            if isinstance(x, torch.Tensor):
+                if x.data_ptr() not in seen:
+                    seen.add(x.data_ptr())
+                    total += x.numel() * x.element_size()
+            elif isinstance(x, dict):
+                for v in x.values():
+                    add(v)
+            elif isinstance(x, (list, tuple)):
+                for v in x:
+                    add(v)
+            elif hasattr(x, "data") and hasattr(x, "scale"):     # an int8 QTensor
+                add(x.data)
+                add(x.scale)
+
+        add(eng.params)
+        add((eng.k_pages, eng.v_pages, eng.token_counts))
+        return float(total)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -656,9 +815,20 @@ class OpenAIServer:
                 eng_span("admission", trace.t0, req.submitted_at, **meta)
                 eng_span("queue", req.submitted_at, adm if adm is not None else fin, **meta)
                 if adm is not None:
-                    eng_span("prefill", adm, ft if ft is not None else fin, **meta)
+                    pre_kw = dict(meta)
+                    if req.chip_ms:
+                        # the ledger's device time inside the wall span
+                        pre_kw["chip_ms"] = round(req.chip_ms.get("prefill", 0.0), 3)
+                    eng_span("prefill", adm, ft if ft is not None else fin, **pre_kw)
                 if ft is not None:
-                    eng_span("decode", ft, fin, **meta, tokens=len(req.output))
+                    dec_kw = dict(meta, tokens=len(req.output))
+                    if req.chip_ms:
+                        dec_kw["chip_ms"] = round(req.chip_ms.get("decode", 0.0), 3)
+                        waste = (req.chip_ms.get("spec_waste", 0.0)
+                                 + req.chip_ms.get("early_exit", 0.0))
+                        if waste:
+                            dec_kw["chip_waste_ms"] = round(waste, 3)
+                    eng_span("decode", ft, fin, **dec_kw)
                 if fin < now:
                     eng_span("stream", fin, now, **meta)
             trace.finish(status)
@@ -686,12 +856,6 @@ class OpenAIServer:
     # -- request parsing ---------------------------------------------------
 
     def sampling_from_body(self, body: dict, chat: bool) -> SamplingParams:
-        for key in _UNSUPPORTED:
-            if body.get(key) not in (None, False, [], ""):
-                raise BadRequest(f"{key!r} is not supported by this server yet")
-        rf = body.get("response_format")
-        if rf is not None and not (isinstance(rf, dict) and rf.get("type") in (None, "text")):
-            raise BadRequest("'response_format' is not supported by this server yet")
         if not chat and body.get("suffix"):
             raise BadRequest("suffix (fill-in-middle) is not supported by this model server")
         seed = body.get("seed")
@@ -755,18 +919,76 @@ class OpenAIServer:
         except (TypeError, ValueError) as e:
             raise BadRequest(f"bad sampling parameter: {e}")
 
+    def chat_prompt(self, body: dict) -> tuple[list[int], bool, Optional[tuple]]:
+        """A chat request's prompt, as the JAX server builds it: ``tools``
+        and ``tool_choice`` validated, the tool instruction injected into
+        the last user message for a "required" or named choice, the tools
+        rendered by the chat template. Returns (prompt ids, whether tool
+        calls are parsed from the output, the tool grammar (tools, forced
+        name or None) for a "required" or named choice, else None)."""
+        messages = body.get("messages")
+        if not isinstance(messages, list) or not messages:
+            raise BadRequest("messages must be a non-empty list")
+        if any(not isinstance(m, dict) or not isinstance(m.get("content", ""), (str, type(None)))
+               for m in messages):
+            raise BadRequest("each message must be an object with string content")
+        tools = body.get("tools")
+        try:
+            if tools is not None:
+                tools = validate_tools(tools)
+            tool_mode = validate_tool_choice(body.get("tool_choice"), tools)
+        except ValueError as e:
+            raise BadRequest(str(e))
+        if tool_mode is not None:
+            messages = inject_tool_messages(messages, tool_mode)
+        try:
+            # tools go to the template only when active
+            if tool_mode is not None and tools:
+                ids = self.tokenizer.apply_chat_template(messages, tools=tools)
+            else:
+                ids = self.tokenizer.apply_chat_template(messages)
+        except Exception as e:  # bad roles or content: the client's input
+            raise BadRequest(f"bad messages: {e}")
+        # a "required" or named choice is grammar-guaranteed; "auto" is
+        # parsed only. A named function is told by the body's shape, so a
+        # tool literally called "required" is not taken for the mode
+        tool_grammar = None
+        named = isinstance(body.get("tool_choice"), dict)
+        if tool_mode is not None and (named or tool_mode == "required"):
+            tool_grammar = (tools, tool_mode if named else None)
+        return list(ids), tool_mode is not None, tool_grammar
+
+    def grammar_for_request(self, body: dict, tool_grammar):
+        """The request's decoding constraint (an engine/grammar
+        CompiledGrammar), or None: the JAX ``_grammar_for_request``. CPU
+        work (about a second for generic JSON at a 128K vocabulary, cached
+        per grammar and vocabulary after that), run on the request's own
+        thread. ``tool_grammar`` (tools, forced name or None) excludes a
+        JSON response_format. Raises GrammarError (400)."""
+        rf = body.get("response_format")
+        rf_active = isinstance(rf, dict) and rf.get("type") not in (None, "text")
+        if tool_grammar is not None and rf_active:
+            raise GrammarError(
+                "response_format json_object/json_schema cannot be combined "
+                "with a forced tool_choice — the constrained token stream "
+                "can only satisfy one")
+        if tool_grammar is None and rf is None:
+            return None
+        with self._token_bytes_lock:
+            if self._token_bytes is None:
+                self._token_bytes = token_bytes_of(self.tokenizer)
+        eos = sorted(self.tokenizer.eos_ids)
+        if tool_grammar is not None:
+            tools, force = tool_grammar
+            return compile_tool_choice(tools, force, self._token_bytes, eos)
+        return compile_response_format(rf, self._token_bytes, eos)
+
     def prompts_from_body(self, body: dict, chat: bool) -> list[list[int]]:
-        """The request's prompts: chat messages through the chat template;
-        a completions prompt as a string, token ids, or a list of either
-        (one choice group each)."""
+        """The request's prompts: chat messages through the chat template
+        (``chat_prompt``); a completions prompt as a string, token ids, or a
+        list of either (one choice group each)."""
         if chat:
-            messages = body.get("messages")
-            if not isinstance(messages, list) or not messages:
-                raise BadRequest("messages must be a non-empty list")
-            if any(not isinstance(m, dict) or not isinstance(m.get("content", ""), str)
-                   for m in messages):
-                raise BadRequest("each message must be an object with string content")
-            return [self.tokenizer.apply_chat_template(messages)]
+            return [self.chat_prompt(body)[0]]
         prompt = body.get("prompt", "")
 
         def is_ids(p):
@@ -993,6 +1215,7 @@ class _Handler(BaseHTTPRequestHandler):
                     "message": f"not ready: {state}", "type": "service_unavailable"}})
         elif path == "/metrics":
             app.metrics["engine_state"].set(app.STATE_CODES[app.state])
+            app.telemetry.refresh()
             self._send(200, app.registry.render().encode(), "text/plain; charset=utf-8")
         elif path == "/version":
             self._json(200, {"version": __version__})
@@ -1010,6 +1233,17 @@ class _Handler(BaseHTTPRequestHandler):
             snap = app.flight.snapshot(limit=arg_int("limit", 0) or None)
             snap.update(state=app.state, model=app.model_name, role="both")
             self._json(200, snap)
+        elif path == "/debug/profile":
+            self._json(200, {"dir": app.profiles.base_dir, "busy": app.profiles.busy,
+                             "captures": app.profiles.list_captures()})
+        elif path.startswith("/debug/profile/"):
+            cap_id = path[len("/debug/profile/"):]
+            data = app.profiles.open_archive(cap_id)
+            if data is None:
+                self._json(404, {"error": {"message": f"no such capture: {cap_id}"}})
+            else:
+                self._send(200, data, "application/gzip",
+                           {"Content-Disposition": f'attachment; filename="{cap_id}.tar.gz"'})
         elif path == "/debug/kernels":
             eng = app.engine
             self._json(200, {"launches": kernels.launch_counts(),
@@ -1021,6 +1255,7 @@ class _Handler(BaseHTTPRequestHandler):
                              "decode_forwards": eng.decode_forwards,
                              "decode_steps": eng.config.decode_steps,
                              "graph_replays": eng.graph_replays,
+                             "fsm_graph_replays": eng.fsm_graph_replays,
                              "preemptions": eng.preemptions,
                              "prefix_hit_tokens": eng.allocator.hit_tokens_total,
                              "num_pages": eng.config.num_pages,
@@ -1034,6 +1269,8 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path == "/debug/kernels/reset":
             kernels.reset_launches()
             self._json(200, {"launches": kernels.launch_counts()})
+        elif self.path == "/debug/profile":
+            self._profile_capture()
         elif self.path in ("/tokenize", "/detokenize"):
             try:
                 body = self._read_json()
@@ -1064,6 +1301,30 @@ class _Handler(BaseHTTPRequestHandler):
                     self.app._active -= 1
         else:
             self._error(404, f"no route {self.path}", "not_found")
+
+    def _profile_capture(self) -> None:
+        """POST /debug/profile: one bounded capture of the live engine, run
+        on this handler's thread (the profiler starts and stops between
+        engine steps), answered with its id and files; 409 while another
+        runs; 500 naming the cause when the profiler cannot capture."""
+        try:
+            body = self._read_json()
+        except BadRequest:
+            body = {}
+        duration_ms = body.get("duration_ms", 500)
+        if (not isinstance(duration_ms, (int, float)) or isinstance(duration_ms, bool)
+                or duration_ms <= 0):
+            self._json(400, {"error": {"message": "duration_ms must be a positive number"}})
+            return
+        try:
+            meta = self.app.profiles.capture(float(duration_ms))
+        except ProfileError as e:
+            self._error(500, str(e), "profiler_error")
+            return
+        except RuntimeError:
+            self._json(409, {"error": {"message": "capture already in progress"}})
+            return
+        self._json(200, meta)
 
     def _tokenize(self, body: dict) -> dict:
         """{"prompt": str} or {"messages": [...]} -> {"tokens", "count",
@@ -1132,9 +1393,25 @@ class _Handler(BaseHTTPRequestHandler):
                         "deadline_exceeded")
             return
         raw_resume = self.headers.get(RESUME_TOKENS_HEADER)
+        tools_on, tool_grammar = False, None
         try:
+            if chat:
+                prompt, tools_on, tool_grammar = app.chat_prompt(body)
+                prompts = [prompt]
             params = app.sampling_from_body(body, chat)
-            prompts = app.prompts_from_body(body, chat)
+            if not chat:
+                prompts = app.prompts_from_body(body, chat)
+            rf = body.get("response_format")
+            if tool_grammar is not None or (rf is not None and not (
+                    isinstance(rf, dict) and rf.get("type") in (None, "text"))):
+                # guided decoding; an explicit {"type": "text"} skips the
+                # compile (and the first-use vocabulary byte map)
+                try:
+                    grammar = app.grammar_for_request(body, tool_grammar)
+                except GrammarError as e:
+                    raise BadRequest(str(e))
+                if grammar is not None:
+                    params = dataclasses.replace(params, grammar=grammar)
             stream = bool(body.get("stream"))
             want_scores = bool(not chat and body.get("echo") and params.logprobs)
             if want_scores and stream:
@@ -1226,7 +1503,8 @@ class _Handler(BaseHTTPRequestHandler):
                 include_usage = bool((body.get("stream_options") or {}).get("include_usage"))
                 self._stream(choices, events, rid, created, chat, prompts, params.logprobs,
                              include_usage, journal=JOURNAL_HEADER in self.headers
-                             and len(reqs) == 1, resumed=raw_resume is not None)
+                             and len(reqs) == 1, resumed=raw_resume is not None,
+                             tools_on=tools_on)
                 return
             scores = None
             if want_scores:
@@ -1237,7 +1515,7 @@ class _Handler(BaseHTTPRequestHandler):
                     self._error(400, str(e))
                     return
             self._full(choices, events, rid, created, chat, prompts, params.logprobs, n,
-                       best_of, bool(body.get("echo")) and not chat, scores)
+                       best_of, bool(body.get("echo")) and not chat, scores, tools_on)
         except (BrokenPipeError, ConnectionResetError):
             self._abort_all(reqs, "disconnect")
         except BaseException:
@@ -1270,7 +1548,7 @@ class _Handler(BaseHTTPRequestHandler):
                 yield (i, *choices[i].feed(toks, done, reason), toks)
 
     def _full(self, choices, events, rid, created, chat, prompts, nlp, n, best_of, echo,
-              scores) -> None:
+              scores, tools_on: bool = False) -> None:
         app = self.app
         texts = [""] * len(choices)
         reasons: list = [None] * len(choices)
@@ -1311,8 +1589,17 @@ class _Handler(BaseHTTPRequestHandler):
         blocks: dict = {}
         for i, (g, text, reason, ents) in enumerate(results):
             if chat:
-                choice = {"index": i, "message": {"role": "assistant", "content": text},
-                          "finish_reason": reason}
+                message = {"role": "assistant", "content": text}
+                if tools_on:
+                    # tool-call blocks become message.tool_calls
+                    parser = ToolStreamParser()
+                    content, _ = parser.push(text, final=True)
+                    if parser.calls:
+                        message["content"] = content or None
+                        message["tool_calls"] = parser.calls
+                        if reason == "stop":
+                            reason = "tool_calls"
+                choice = {"index": i, "message": message, "finish_reason": reason}
                 if nlp:
                     choice["logprobs"] = app.chat_logprobs(ents, nlp)
             else:
@@ -1328,19 +1615,29 @@ class _Handler(BaseHTTPRequestHandler):
             out.append(choice)
         n_prompt = sum(len(p) for p in prompts)
         n_out = sum(c.total for c in choices)
+        usage = {"prompt_tokens": n_prompt, "completion_tokens": n_out,
+                 "total_tokens": n_prompt + n_out}
+        chip = chip_ms_total([c.req for c in choices])
+        headers = None
+        if chip:
+            usage["chip_ms"] = {ph: round(v, 3) for ph, v in chip.items()}
+            headers = {CHIP_MS_HEADER: str(round(sum(chip.values()), 3))}
         self._json(200, {
             "id": rid, "object": "chat.completion" if chat else "text_completion",
             "created": created, "model": app.model_name, "choices": out,
-            "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_out,
-                      "total_tokens": n_prompt + n_out}})
+            "usage": usage}, headers)
 
     def _stream(self, choices, events, rid, created, chat, prompts, nlp, include_usage,
-                journal: bool = False, resumed: bool = False) -> None:
+                journal: bool = False, resumed: bool = False, tools_on: bool = False) -> None:
         """Server-sent events. Writes hold one lock, shared with the
         keepalive thread (``: ping`` every ``keepalive_interval_s()``
         seconds, stopped before the final chunk). With ``journal`` each
         event's data lines are followed by ``: llmk-tok <raw ids>``; a
-        ``resumed`` chat stream sends no role delta (the original did)."""
+        ``resumed`` chat stream sends no role delta (the original did).
+        With ``tools_on`` (chat) tool-call blocks are cut out of the content
+        and each completed one is sent as one ``tool_calls`` delta with its
+        id, name and arguments; a choice that made a call finishes
+        "tool_calls"."""
         app = self.app
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
@@ -1363,11 +1660,14 @@ class _Handler(BaseHTTPRequestHandler):
             send(f"data: {payload if isinstance(payload, str) else json.dumps(payload)}\n\n")
 
         def chunk(index: int, text: Optional[str], reason: Optional[str],
-                  role: bool = False, ents=None, base_offset: int = 0) -> dict:
+                  role: bool = False, ents=None, base_offset: int = 0,
+                  tool_deltas=None) -> dict:
             if chat:
                 delta: dict = {"role": "assistant"} if role else {}
                 if text is not None:
                     delta["content"] = text
+                if tool_deltas:
+                    delta["tool_calls"] = tool_deltas
                 choice = {"index": index, "delta": delta, "finish_reason": reason}
                 if nlp and ents:
                     choice["logprobs"] = app.chat_logprobs(ents, nlp)
@@ -1401,16 +1701,28 @@ class _Handler(BaseHTTPRequestHandler):
                         write(chunk(i, None, None, role=True))
             signalled = [False] * len(choices)
             chars = [0] * len(choices)      # each choice's offsets run over its stream
+            parsers = [ToolStreamParser() if tools_on and chat else None for _ in choices]
+            n_calls = [0] * len(choices)
             for i, text, done, reason, ents, raw in self._events(choices, events):
+                tool_deltas = None
+                if parsers[i] is not None:
+                    text, new_calls = parsers[i].push(text, final=done)
+                    if new_calls:
+                        tool_deltas = []
+                        for c in new_calls:
+                            tool_deltas.append({"index": n_calls[i], "id": c["id"],
+                                                "type": c["type"], "function": c["function"]})
+                            n_calls[i] += 1
                 with lock:
                     if done and all(c.done for c in choices):
                         ka_stop.set()       # no ping after the final chunk
-                    # a chunk is due for text or logprob entries; the first
-                    # token always gets one, even when its text is held
-                    # back, so the time to the first chunk tracks the
-                    # engine's first token
-                    if text or (nlp and ents):
-                        write(chunk(i, text or None, None, ents=ents, base_offset=chars[i]))
+                    # a chunk is due for text, a tool call or logprob
+                    # entries; the first token always gets one, even when
+                    # its text is held back, so the time to the first chunk
+                    # tracks the engine's first token
+                    if text or tool_deltas or (nlp and ents):
+                        write(chunk(i, text or None, None, ents=ents, base_offset=chars[i],
+                                    tool_deltas=tool_deltas))
                         signalled[i] = True
                         if nlp:
                             chars[i] += sum(len(p) for _, _, p in ents)
@@ -1418,6 +1730,8 @@ class _Handler(BaseHTTPRequestHandler):
                         write(chunk(i, "", None))
                         signalled[i] = True
                     if done:
+                        if parsers[i] is not None and parsers[i].calls and reason == "stop":
+                            reason = "tool_calls"
                         write(chunk(i, None, reason))
                     if journal and raw:
                         # after the event's data: a journaled token's text
@@ -1433,10 +1747,13 @@ class _Handler(BaseHTTPRequestHandler):
                 if include_usage:
                     n_prompt = sum(len(p) for p in prompts)
                     n_out = sum(c.total for c in choices)
+                    usage = {"prompt_tokens": n_prompt, "completion_tokens": n_out,
+                             "total_tokens": n_prompt + n_out}
+                    chip = chip_ms_total([c.req for c in choices])
+                    if chip:
+                        usage["chip_ms"] = {ph: round(v, 3) for ph, v in chip.items()}
                     write({"id": rid, "object": obj, "created": created,
-                           "model": app.model_name, "choices": [],
-                           "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_out,
-                                     "total_tokens": n_prompt + n_out}})
+                           "model": app.model_name, "choices": [], "usage": usage})
                 write("[DONE]")
         finally:
             ka_stop.set()

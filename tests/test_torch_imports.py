@@ -47,6 +47,13 @@ def test_import_everything_without_jax():
         "from llms_on_kubernetes_tpu_torch import faults\n"
         "from llms_on_kubernetes_tpu_torch.server.tracing import TraceStore, reconcile\n"
         "from llms_on_kubernetes_tpu_torch.engine.tokenizer import JsonTokenizer\n"
+        "from llms_on_kubernetes_tpu_torch.engine.ledger import GoodputLedger, detect_peak\n"
+        "from llms_on_kubernetes_tpu_torch.engine.grammar import (\n"
+        "    compile_response_format, compile_tool_choice, token_bytes_of)\n"
+        "from llms_on_kubernetes_tpu_torch.engine.graphs import fsm_apply, fsm_scatter\n"
+        "from llms_on_kubernetes_tpu_torch.server.tools import ToolStreamParser\n"
+        "from llms_on_kubernetes_tpu_torch.server.profiling import ProfileManager\n"
+        "from llms_on_kubernetes_tpu_torch.server.runtime_telemetry import RuntimeTelemetry\n"
         "from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import (\n"
         "    TOKENIZER_PROBES, write_tokenizer)\n"
         "import chip_smoke\n"
@@ -66,10 +73,14 @@ def test_import_everything_without_jax():
 
 def test_the_framework_free_copies_are_scanned():
     """The port keeps its own copies of the JAX package's framework-free
-    modules (the server's metrics, affinity and tracing, ``faults.py``);
-    the scan below covers them."""
+    modules (the server's metrics, affinity, tracing and tools, the
+    engine's ledger and grammar, ``faults.py``) and ports profiling and
+    runtime telemetry; the scan below covers them."""
     assert {PKG / "server" / "metrics.py", PKG / "server" / "affinity.py",
-            PKG / "server" / "tracing.py", PKG / "faults.py"} <= set(SOURCES)
+            PKG / "server" / "tracing.py", PKG / "faults.py", PKG / "server" / "tools.py",
+            PKG / "engine" / "ledger.py", PKG / "engine" / "grammar.py",
+            PKG / "server" / "profiling.py",
+            PKG / "server" / "runtime_telemetry.py"} <= set(SOURCES)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))

@@ -73,6 +73,8 @@ def test_completions_endpoint(base):
     data = json.loads(body)
     assert status == 200 and data["object"] == "text_completion"
     assert isinstance(data["choices"][0]["text"], str)
+    chip = data["usage"].pop("chip_ms")     # the goodput ledger's split, by phase
+    assert {"prefill", "decode"} <= set(chip) and all(v >= 0 for v in chip.values())
     assert data["usage"] == {"prompt_tokens": 3, "completion_tokens": 4, "total_tokens": 7}
 
 

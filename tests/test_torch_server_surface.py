@@ -284,7 +284,8 @@ def test_answers_equal_the_jax_server(answers, cases, name):
         want_c, want_u = _by_choice(wf, chat)
         _close(got_c, want_c, name)
         if want_u is not None:
-            want_u.pop("chip_ms", None)
+            # chip time is the ledger's measure of each side's own device
+            _same_chip_phases(got_u.pop("chip_ms"), want_u.pop("chip_ms"))
         assert got_u == want_u
         if chat:
             assert all(f["choices"][0]["delta"] == {"role": "assistant"}
@@ -297,8 +298,21 @@ def test_answers_equal_the_jax_server(answers, cases, name):
     if "choices" in w:
         for d in (g, w):
             d.pop("id"), d.pop("created")
-        w["usage"].pop("chip_ms", None)     # the JAX ledger's, not ported yet
+        # chip time is the ledger's measure of each side's own device
+        _same_chip_phases(g["usage"].pop("chip_ms"), w["usage"].pop("chip_ms"))
     _close(g, w, name)
+
+
+def _same_chip_phases(got: dict, want: dict) -> None:
+    """Both sides book the prefill (and the decode windows) of what they
+    served, in the ledger's phases (the milliseconds are each device's own;
+    a window wasted behind a stop string is booked "early_exit" where the
+    timing left one in flight)."""
+    phases = {"prefill", "decode", "spec_waste", "early_exit"}
+    assert ("decode" in got) == ("decode" in want), (got, want)
+    for chip in (got, want):
+        assert {"prefill"} <= set(chip) <= phases, chip
+        assert all(v >= 0 for v in chip.values()), chip
 
 
 def test_the_stops_cut_the_text(answers, cases):
