@@ -142,31 +142,42 @@ Phases, each fatal on failure:
    resume re-prefilling their prompt alone): streams equal again. Last, printed and not held: a
    1,500-token prompt's first-token logits chunked (bucket 1,024) against
    one-shot (bucket 2,048). Then the goodput ledger and guided decoding
-   (``phase_ledger_guided``): the same model behind the port's server in
-   this process with the llama3 tokenizer files (128,256 ids), counters
-   zeroed before and read after. First, on the fresh engine, one replay
-   of the grammar-free window graph with every row idle under
-   torch.profiler: it launches the port's kernels as the parent's did
-   (``paged_decode`` K x L) and runs the parent's ``FREE_WINDOW_KERNELS``
-   kernels. Then 8 greedy journaled streams (admission held until all 8
-   wait, so they prefill in the same batches each time) with the
-   ledger on and off in turns (on, off, off, on; the ledger is read per
-   step): the streams' ids equal, decode tokens/s printed, and for the
-   "on" turns the ledger's conservation error (held under 1% of its
-   window), device-idle share, MFU and MBU. One ``/debug/profile`` capture
-   (300 ms) while 8 streams decode: its archive's trace holds CUDA kernel
-   events and the streams end whole; a second capture after it. Guided
-   decoding: the token byte map and three grammars (json_object, a bounded
-   schema with an enum, an integer and maxLength strings, a forced tool
-   call) compiled cold and from the cache, timed; 8 free streams, then 8
-   mixed (two of each kind, two free; the constrained ones greedy, steered
-   to finish by logit_bias on the end of turn and the closing characters:
-   the bias ranks only what the grammar allows): every constrained answer
-   parses and validates; the device time of each window by graph (CUDA
-   events around the replay), the FSM graph's capture seconds; every
-   window a graph replay, at least one of the FSM graph. Last, one replay
-   of each graph, counted alike: the FSM graph's kernels beside the
-   grammar-free one's;
+   (``phase_ledger_guided``): the same model with the llama3 tokenizer
+   files (128,256 ids). First in process, on the fresh engine: the
+   grammar-free window graph launches the port's kernels as the parent's
+   did (``paged_decode`` K x L), holds the parent's nodes
+   (``FREE_WINDOW_NODES``, read with ``cuGraphGetNodes``) and, at most,
+   shows the parent's ``FREE_WINDOW_KERNELS`` device events over six idle
+   replays under torch.profiler. The token byte map and three grammars
+   (json_object, a bounded schema with an enum, an integer and maxLength
+   strings, a forced tool call) compiled cold and from the cache, timed.
+   The FSM graph (captured at the first constrained admission) held
+   against the eager window on copies of one pool, count table and FSM
+   state (8 sampled rows with penalties, 4 constrained): tokens, logprobs,
+   pools, counts and states byte-equal. Then against the grammar-free
+   graph, greedy: a batch of 8 with every other row constrained gives its
+   free rows the streams of 8 free rows; 4 free rows joined mid-stream by
+   4 constrained ones give the streams of the 4 alone, over windows that
+   go grammar-free, FSM, grammar-free, each reading the other graph's
+   in-flight tokens; every constrained output walks its grammar on the
+   host. Both graphs' nodes and device events printed. Then behind the
+   port's server in this process, counters zeroed before and read after:
+   8 greedy journaled streams (admission held until all 8 wait, so they
+   prefill in the same batches each time) with the ledger on and off in
+   turns (on, off, off, on; the ledger is read per step; the profiler is
+   held, so an anomaly capture answers busy): the streams' ids equal,
+   decode tokens/s printed, and for the "on" turns the ledger's
+   conservation error (held under 1% of its window), device-idle share,
+   MFU and MBU. One ``/debug/profile`` capture (300 ms) while 8 streams
+   decode: its archive's trace holds CUDA kernel events and the streams
+   end whole; a second capture after it. Guided traffic: 8 free streams,
+   then 8 mixed (two of each kind, two free; the constrained ones greedy,
+   steered to finish by logit_bias on the end of turn and the closing
+   characters: the bias ranks only what the grammar allows): every
+   constrained answer parses and validates; the device time of each
+   window by graph (CUDA events around the replay), the FSM graph's
+   capture seconds; every window a graph replay, at least one of the FSM
+   graph. Last, the graphs' device events again, their nodes unchanged;
 5. checkpoint: write full-width phi-3-mini (head_dim 96, 3.82 B
    parameters, 7.64 GB in bf16) as a HuggingFace safetensors checkpoint
    under ``smoke_out/`` with ``testing/synth_checkpoint.py`` (failing when
@@ -247,6 +258,8 @@ engine/cache.quantize_kv does).
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -2394,24 +2407,31 @@ def phase_watchdog(torch) -> dict:
 # phase 4: kv_write="fused" in process
 # ---------------------------------------------------------------------------
 
-def window_vs_eager(torch, eng, tag: str, prompts) -> None:
+def window_vs_eager(torch, eng, tag: str, prompts, grammars=()) -> None:
     """One decode window replayed (the engine's CUDA graph) and one run
     eagerly (``DecodeWindow._eager``, the same function), from copies of
     one pool and one penalty-count table, on seeded sampled rows with
     penalties: sampled tokens identical, pools (outside each layer's trash
     page 0, which idle rows write) and counts byte-equal, and the packed
-    results (logprobs and top alternatives included) identical. The rows'
-    requests are aborted after."""
+    results (logprobs and top alternatives included) identical. With
+    ``grammars`` every other row is constrained by the next of them, the
+    replay is the FSM graph's and the eager window runs the FSM on a copy
+    of the slots' FSM state, which must equal the replay's after. The
+    rows' requests are aborted after."""
     from llms_on_kubernetes_tpu_torch.engine.cache import KVPool
     from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
     from llms_on_kubernetes_tpu_torch.ops.paged_attention import DecodeWorkspace
 
-    sp = SamplingParams(max_tokens=64, temperature=0.7, seed=5, presence_penalty=0.4,
-                        frequency_penalty=0.3)
-    reqs = [eng.submit(p, sp) for p in prompts]
+    sp = dict(max_tokens=64, temperature=0.7, seed=5, presence_penalty=0.4,
+              frequency_penalty=0.3)
+    reqs = [eng.submit(p, SamplingParams(**sp, grammar=grammars[(i // 2) % len(grammars)]
+                                         if grammars and i % 2 == 0 else None))
+            for i, p in enumerate(prompts)]
     eng._admit()                   # sync admission: first tokens read
     K = eng.config.decode_steps
     active = [(i, r) for i, r in enumerate(eng.slots) if r is not None]
+    if grammars and sum(r.fsm_row >= 0 for _i, r in active) != (len(prompts) + 1) // 2:
+        fail(f"{tag}: the constrained rows were not admitted with their grammars")
     base = {i: int(eng.slot_len[i]) + 1 for i, _r in active}
     for i, _r in active:
         eng.allocator.allocate(i, base[i] + K - 1)
@@ -2419,16 +2439,23 @@ def window_vs_eager(torch, eng, tag: str, prompts) -> None:
     pools = [KVPool(p.data.clone(), None if p.scale is None else p.scale.clone())
              for p in (eng.k_pages, eng.v_pages)]
     counts = eng.token_counts.clone()
+    fsm = (eng._fsm_state.clone(), *eng._g_dev) if grammars else None
     zeros = torch.zeros(eng.config.max_decode_slots, dtype=torch.int32, device="cuda")
     eager_pack, eager_toks = eng._window._eager(
         torch.from_numpy(packed).cuda(), zeros, zeros[:1], *pools, counts,
-        workspace=DecodeWorkspace())
-    pack, toks = eng._window.run(packed, None, None)
+        workspace=DecodeWorkspace(), fsm=fsm)
+    replays = eng._window.fsm_replays
+    pack, toks = eng._window.run(packed, None, None, use_fsm=bool(grammars))
     torch.cuda.synchronize()
+    if eng._window.fsm_replays - replays != int(bool(grammars)):
+        fail(f"{tag}: the window did not replay the graph it was asked for")
     if not (torch.equal(pack[:, 0], eager_pack[:, 0]) and torch.equal(toks, eager_toks)):
         fail(f"{tag}: sampled tokens differ between the graph replay and the eager window")
     if not torch.equal(eng.token_counts, counts):
         fail(f"{tag}: penalty counts differ between the graph replay and the eager window")
+    if grammars and not torch.equal(eng._fsm_state, fsm[0]):
+        fail(f"{tag}: FSM states differ between the graph replay and the eager window: "
+             f"{eng._fsm_state.tolist()} against {fsm[0].tolist()}")
     P = eng.config.num_pages
     keep = torch.ones(eng.model_config.num_layers * P, dtype=torch.bool, device="cuda")
     keep[::P] = False
@@ -2440,11 +2467,15 @@ def window_vs_eager(torch, eng, tag: str, prompts) -> None:
     if not torch.equal(pack, eager_pack):
         fail(f"{tag}: logprobs or top alternatives differ between the graph replay and the "
              f"eager window")
-    say(f"  {tag}: one window ({K} steps, {len(prompts)} sampled rows with penalties) "
-        f"replayed equals the eager window: tokens, logprobs, pools and counts byte-equal")
+    rows = f"{len(prompts)} sampled rows with penalties"
+    if grammars:
+        rows += f", {(len(prompts) + 1) // 2} of them constrained"
+    say(f"  {tag}: one window ({K} steps, {rows}) replayed equals the eager window: tokens, "
+        f"logprobs, pools and counts{', FSM states' if grammars else ''} byte-equal")
     for r in reqs:
         eng.abort(r)
-    eng.step()
+    while eng.has_work():
+        eng.step()
 
 
 def run_engine(eng, prompts, sp) -> list:
@@ -3354,6 +3385,11 @@ LLAMA3_FILES_DIR = os.path.join(OUT_DIR, "llama3-tokenizer-files")
 # llama-3-8b bf16 window (K 4, "dus", every row idle), as the parent tree's
 # graph ran them under torch 2.11 (PERF.md §6)
 FREE_WINDOW_KERNELS = 10_038
+# the same graph's nodes (cuGraphGetNodes): what every replay runs. Their
+# sum and the rows' upload (one memcpy outside the graph) are the 10,038
+# device events above; torch.profiler's count of one replay can come out
+# lower (PERF.md §6), the nodes cannot
+FREE_WINDOW_NODES = {"kernel": 10_020, "memset": 12, "memcpy": 5}
 GUIDED_SCHEMA = {"type": "object",
                  "properties": {"color": {"enum": ["red", "green", "blue"]},
                                 "count": {"type": "integer"},
@@ -3472,24 +3508,95 @@ class WindowTimer:
         return {k: [a.elapsed_time(b) for a, b in v] for k, v in self.events.items()}
 
 
-def graph_kernel_count(torch, win, use_fsm: bool) -> tuple[int, float]:
-    """(kernels on the device, device busy ms) of one replay of a window
-    graph with every row idle (a replay runs the same kernels whatever its
-    rows hold; idle rows write the trash page and change no state), under
-    torch.profiler."""
+def graph_kernel_count(torch, win, use_fsm: bool, times: int = 3,
+                       hold=None) -> tuple[list, float]:
+    """(device events of each of ``times`` consecutive replays of a window
+    graph, the first one's device busy ms), every row idle (a replay runs
+    the same kernels whatever its rows hold; idle rows write the trash page
+    and change no state), each under its own torch.profiler session (the
+    events are kernels, memsets and memcpys, the rows' upload included).
+    These replays are the count's own: the launch counters and the
+    window's replay counts are put back after. ``hold``: a running
+    server's ProfileManager, reserved for the count (the profiler is
+    process-global: a capture meanwhile answers busy)."""
+    with hold.reserve() if hold is not None else contextlib.nullcontext():
+        return _graph_kernel_count(torch, win, use_fsm, times)
+
+
+def _graph_kernel_count(torch, win, use_fsm: bool, times: int) -> tuple[list, float]:
     from torch.profiler import ProfilerActivity, profile
 
+    from llms_on_kubernetes_tpu_torch import kernels
     from llms_on_kubernetes_tpu_torch.engine.graphs import idle_rows
 
+    saved = (kernels.LAUNCHES.copy(), kernels.REPLAYED.copy(), win.replays, win.fsm_replays)
     packed = idle_rows(win.B, win.pages_per_slot)
     win.run(packed, None, None, use_fsm=use_fsm)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        win.run(packed, None, None, use_fsm=use_fsm)
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return (sum(e.count for e in prof.key_averages() if e.device_type == cuda),
-            device_ms(torch, prof))
+    counts, busy, names = [], None, None
+    for _ in range(times):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            win.run(packed, None, None, use_fsm=use_fsm)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == cuda]
+        counts.append(sum(e.count for e in events))
+        if busy is None:
+            busy, names = device_ms(torch, prof), {e.key: e.count for e in events}
+    for live, old in zip((kernels.LAUNCHES, kernels.REPLAYED), saved[:2]):
+        live.clear()
+        live.update(old)
+    win.replays, win.fsm_replays = saved[2:]
+    GRAPH_EVENT_NAMES.append((use_fsm, names))
+    return counts, busy
+
+
+# the device events of each graph_kernel_count point by name, in order:
+# (FSM graph, {name: count})
+GRAPH_EVENT_NAMES: list = []
+
+
+def event_name_drift() -> str:
+    """The names whose device-event counts differ from the first count of
+    the same graph, per later point."""
+    first: dict = {}
+    out = []
+    for j, (use_fsm, names) in enumerate(GRAPH_EVENT_NAMES):
+        base = first.setdefault(use_fsm, names)
+        diff = {k[:60]: names.get(k, 0) - base.get(k, 0)
+                for k in set(base) | set(names) if names.get(k, 0) != base.get(k, 0)}
+        if diff:
+            out.append(f"point {j} ({'FSM' if use_fsm else 'free'}): {diff}")
+    return "; ".join(out) or "none"
+
+
+# CUgraphNodeType (cuda.h) of the nodes a window graph holds
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+               6: "wait_event", 7: "event_record", 10: "mem_alloc", 11: "mem_free"}
+
+
+def graph_nodes(graph) -> dict:
+    """The captured graph's nodes by type, read from the graph itself
+    (``cuGraphGetNodes`` / ``cuGraphNodeGetType`` on ``raw_cuda_graph``):
+    what every replay runs, independent of any profiler."""
+    import collections
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(g, None, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed")
+    out: collections.Counter = collections.Counter()
+    t = ctypes.c_int()
+    for node in nodes:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) != 0:
+            fail("cuGraphNodeGetType failed")
+        out[_NODE_TYPES.get(t.value, str(t.value))] += 1
+    return dict(out)
 
 
 def steer_bias(tok) -> dict:
@@ -3539,13 +3646,16 @@ def guided_answer(name: str, d: dict, kind: str) -> None:
 
 
 def phase_ledger_guided(torch) -> dict:
-    """llama-3-8b at full width and depth, bf16, random weights, behind the
-    port's server in this process with the 128,256-id llama3 tokenizer
-    (the synthetic files): first the goodput ledger (8 greedy streams,
-    ledger on and off in turns, one /debug/profile capture), then guided
-    decoding (grammar compiles, constrained and free streams mixed, the two
-    window graphs timed and counted). The launch counters are zeroed just
-    before and read just after."""
+    """llama-3-8b at full width and depth, bf16, random weights, with the
+    128,256-id llama3 tokenizer (the synthetic files). In process on the
+    fresh engine: the grammar-free window graph counted twice against the
+    parent's, the grammars compiled, the FSM graph held against the eager
+    window and against the grammar-free graph, and both graphs counted.
+    Then behind the port's server in this process: the goodput ledger (8
+    greedy streams, ledger on and off in turns, one /debug/profile
+    capture) and guided traffic (constrained and free streams mixed, the
+    two graphs timed and counted again). The launch counters are zeroed
+    just before the server's traffic and read just after."""
     from llms_on_kubernetes_tpu_torch import kernels
     from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig
     from llms_on_kubernetes_tpu_torch.engine.tokenizer import JsonTokenizer
@@ -3560,55 +3670,96 @@ def phase_ledger_guided(torch) -> dict:
     if eng.ledger is None:
         fail("the ledger is off by default")
     led = eng.ledger
-    srv = OpenAIServer(eng, tok, MODEL)
-    os.environ["LLMK_PROFILE_DIR"] = os.path.abspath(os.path.join(OUT_DIR, "profiles"))
-    srv.profiles.base_dir = os.environ["LLMK_PROFILE_DIR"]
-    base = f"http://127.0.0.1:{srv.start()}"
     K, L = eng.config.decode_steps, eng.model_config.num_layers
+    win = eng._window
+    card = card_line()
     out: dict = {}
+    counted: dict = {}
+    srv = None
     try:
         # the grammar-free graph is the parent's: its hand-written kernel
-        # launches, and its kernels on the device counted as the parent's
-        # were (a fresh engine, before any traffic or other profiler
-        # session in the process)
-        win = eng._window
+        # launches, its nodes, and the most device events its replays show
+        # under torch.profiler on a fresh engine (before any traffic), as
+        # the parent's one showed them
         if win.launches != {"paged_decode": K * L}:
             fail(f"the grammar-free window launches {win.launches}, expected "
                  f"{{'paged_decode': {K * L}}}")
-        fresh_k, fresh_ms = graph_kernel_count(torch, win, False)
+        counted["fresh"], fresh_ms = graph_kernel_count(torch, win, False)
+        counted["fresh again"] = graph_kernel_count(torch, win, False)[0]
+        nodes = {"free": graph_nodes(win.graph)}
         say(f"grammar-free window graph, fresh engine ({MODEL} bf16, {K} steps, 8 slots, "
-            f"every row idle): {fresh_k} kernels, {fresh_ms:.2f} ms device busy; the parent's "
-            f"{FREE_WINDOW_KERNELS} [{card_line()}]")
-        if fresh_k != FREE_WINDOW_KERNELS:
-            fail(f"the grammar-free window runs {fresh_k} kernels; the parent's ran "
-                 f"{FREE_WINDOW_KERNELS}")
+            f"every row idle): device events of consecutive replays under torch.profiler "
+            f"{counted['fresh']}, then {counted['fresh again']}; {fresh_ms:.2f} ms device busy; "
+            f"the parent's {FREE_WINDOW_KERNELS}; the graph's nodes {nodes['free']} [{card}]")
+        if nodes["free"] != FREE_WINDOW_NODES or \
+                max(counted["fresh"] + counted["fresh again"]) != FREE_WINDOW_KERNELS:
+            fail(f"the grammar-free window graph holds {nodes['free']} and its replays showed "
+                 f"at most {max(counted['fresh'] + counted['fresh again'])} device events; the "
+                 f"parent's: {FREE_WINDOW_NODES}, {FREE_WINDOW_KERNELS}")
+        grammars, out["compile"] = compile_grammars(tok)
+        # the FSM graph (captured at the first constrained admission) held
+        # against the eager window, then against the grammar-free graph
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved()
+        window_vs_eager(torch, eng, f"{MODEL} bf16 FSM window, graph vs eager",
+                        [tok.encode(SERVE_TEXT[i:i + 40]) for i in range(8)],
+                        grammars=list(grammars.values()))
+        if win.fsm_launches != win.launches:
+            fail(f"the FSM window launches {win.fsm_launches} of the port's kernels, the "
+                 f"grammar-free one {win.launches}")
+        out["two_graphs"] = guided_rows_vs_free(torch, eng, tok, grammars)
+        torch.cuda.empty_cache()
+        out["fsm_reserved_mib"] = (torch.cuda.memory_reserved() - mem0) / 2**20
+        say(f"  reserved memory, cache emptied before and after: +{out['fsm_reserved_mib']:.1f} "
+            f"MiB over the FSM tables, the FSM graph's capture and the in-process runs "
+            f"[{card}]")
+        counted["free, FSM captured"], free_ms = graph_kernel_count(torch, win, False)
+        counted["FSM"], fsm_ms = graph_kernel_count(torch, win, True)
+        nodes["FSM"] = graph_nodes(win.fsm_graph)
+        fsm_plus = nodes["FSM"].get("kernel", 0) - nodes["free"].get("kernel", 0)
+        say(f"window graphs after the FSM capture, before the server ({MODEL} bf16, {K} "
+            f"steps, 8 slots, every row idle): grammar-free {counted['free, FSM captured']} "
+            f"device events, {free_ms:.2f} ms device busy; FSM {counted['FSM']}, "
+            f"{fsm_ms:.2f} ms; the FSM graph's nodes {nodes['FSM']}, {fsm_plus:+d} kernels; "
+            f"port kernels a replay {win.launches} [{card}]")
+        out["window_ms"] = {"fresh": fresh_ms, "free": free_ms, "fsm": fsm_ms}
+        srv = OpenAIServer(eng, tok, MODEL)
+        base = f"http://127.0.0.1:{srv.start()}"
         eight_streams(base, 16, "warm-up")
         torch.cuda.synchronize()
         kernels.reset_launches()
         counts0 = kernel_counts(base)
         # ledger on and off in turns on one engine (the ledger is read per
-        # step): the same greedy streams, the decode rates side by side
+        # step): the same greedy streams, the decode rates side by side;
+        # what they time is the ledger's booking, not a profile capture:
+        # the turns hold the profiler, so an anomaly capture asked for
+        # meanwhile answers busy
         rates, streams = {"on": [], "off": []}, {}
-        for turn in ("on", "off", "off", "on"):
-            eng.ledger = led if turn == "on" else None
-            if turn == "on":
-                led.reset()
-            ids, tps = eight_streams(base, 64, f"ledger {turn}", eng)
-            rates[turn].append(tps)
-            if streams.setdefault(turn, ids) != ids:
-                fail(f"ledger {turn}: greedy streams differ between turns")
-            if turn == "on":
-                out["ledger"] = ledger_report(led, "8 streams, 8-slot window")
+        with srv.profiles.reserve():
+            for turn in ("on", "off", "off", "on"):
+                eng.ledger = led if turn == "on" else None
+                if turn == "on":
+                    led.reset()
+                ids, tps = eight_streams(base, 64, f"ledger {turn}", eng)
+                rates[turn].append(tps)
+                if streams.setdefault(turn, ids) != ids:
+                    fail(f"ledger {turn}: greedy streams differ between turns")
+                if turn == "on":
+                    out["ledger"] = ledger_report(led, "8 streams, 8-slot window")
         eng.ledger = led
         if streams["on"] != streams["off"]:
             fail("greedy streams differ with the ledger on and off")
         say(f"ledger on/off: decode tokens/s (8 concurrent streams of 64 tokens, {MODEL} "
             f"bf16, in turns on/off/off/on): on {rates['on'][0]:.1f} / {rates['on'][1]:.1f}, "
-            f"off {rates['off'][0]:.1f} / {rates['off'][1]:.1f}; greedy streams equal "
-            f"[{card_line()}]")
+            f"off {rates['off'][0]:.1f} / {rates['off'][1]:.1f}; greedy streams equal; "
+            f"anomaly triggers so far {srv.loop.auto_profiles} (held: no capture) [{card}]")
+        out["auto_profiles"] = srv.loop.auto_profiles
         out["ledger_tps"] = rates
-        out["profile"] = profile_round_trip(base)
-        out["guided"] = drive_guided(torch, eng, base, tok)
+        out["profile"] = profile_round_trip(base, srv.profiles)
+        counted["free, after /debug/profile"] = graph_kernel_count(
+            torch, win, False, hold=srv.profiles)[0]
+        with srv.profiles.reserve():     # the window times are the FSM's, not a capture's
+            out["guided"] = drive_guided(torch, eng, base, tok)
         torch.cuda.synchronize()
         counts = kernel_counts(base)
         out["launches"] = counts["launches"]
@@ -3617,47 +3768,71 @@ def phase_ledger_guided(torch) -> dict:
         say(f"  of them FSM window replays: {fsm_replays}")
         if fsm_replays < 1:
             fail("no window with a constrained row replayed the FSM graph")
-        # the FSM graph beside the grammar-free one, counted alike
-        if win.fsm_launches != win.launches:
-            fail(f"the FSM window launches {win.fsm_launches} of the port's kernels, the "
-                 f"grammar-free one {win.launches}")
-        free_k, free_ms = graph_kernel_count(torch, win, False)
-        fsm_k, fsm_ms = graph_kernel_count(torch, win, True)
-        say(f"window graphs after the traffic ({MODEL} bf16, {K} steps, 8 slots, every row "
-            f"idle): grammar-free {free_k} kernels, {free_ms:.2f} ms device busy; FSM "
-            f"{fsm_k} kernels (+{fsm_k - free_k}), {fsm_ms:.2f} ms; port kernels a replay "
-            f"{win.launches} [{card_line()}]")
-        out["window_kernels"] = {"fresh": fresh_k, "free": free_k, "fsm": fsm_k,
-                                 "free_ms": free_ms, "fsm_ms": fsm_ms}
+        counted["free, after the traffic"] = graph_kernel_count(
+            torch, win, False, hold=srv.profiles)[0]
+        counted["FSM, after the traffic"] = graph_kernel_count(
+            torch, win, True, hold=srv.profiles)[0]
+        if graph_nodes(win.graph) != nodes["free"] or graph_nodes(win.fsm_graph) != nodes["FSM"]:
+            fail("a window graph's nodes changed")
+        say(f"  device events by name that differ from the graph's first count: "
+            f"{event_name_drift()}")
+        say(f"window graphs' device events under torch.profiler, consecutive idle replays, "
+            f"in order: " + "; ".join(f"{k} {v}" for k, v in counted.items())
+            + f"; their nodes, unchanged throughout: {nodes} [{card}]")
+        out["window_kernels"] = {**counted, "nodes": nodes, "fsm_plus_kernels": fsm_plus}
     finally:
-        srv.close()
+        if srv is not None:
+            srv.close()
         shutil.rmtree(LLAMA3_FILES_DIR, ignore_errors=True)
-        del srv, eng
+        del srv, eng, win
         torch.cuda.empty_cache()
     say(f"phase ledger and guided: {time.perf_counter() - t0:.1f} s")
     return out
 
 
-def profile_round_trip(base: str) -> dict:
+def post_profile(base: str, duration_ms: int) -> tuple:
+    """``POST /debug/profile``, asked again while it answers 409 (an
+    anomaly capture of the server's own is running), for up to 60 s."""
+    deadline = time.perf_counter() + 60
+    while True:
+        status, raw = http("POST", base + "/debug/profile", {"duration_ms": duration_ms})
+        if status != 409 or time.perf_counter() > deadline:
+            return status, raw
+        time.sleep(0.2)
+
+
+def profile_round_trip(base: str, pm) -> dict:
     """One ``/debug/profile`` capture (300 ms) while 8 streams decode, its
     archive downloaded: it must hold CUDA kernel events, and every stream
     must end whole (the capture started and stopped between steps, never
-    inside a graph replay); then a second capture with no traffic."""
+    inside a graph replay); then a second capture with no traffic. The
+    server's own anomaly capture may hold the profiler (``pm``, its
+    ProfileManager): the streams start once it is free, and start again
+    when the POST still meets one (409), so the capture sees them."""
     import io
     import tarfile
 
     done: dict = {}
 
     def traffic():
-        done["ids"] = eight_streams(base, 128, "streams under the profiler")[0]
+        done["ids"], done["tps"] = eight_streams(base, 128, "streams under the profiler")
 
-    th = threading.Thread(target=traffic)
-    th.start()
-    time.sleep(0.5)
-    t0 = time.perf_counter()
-    status, raw = http("POST", base + "/debug/profile", {"duration_ms": 300})
-    cap_s = time.perf_counter() - t0
-    th.join(timeout=600)
+    for attempt in range(4):
+        deadline = time.perf_counter() + 60
+        while pm.busy and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        done.clear()
+        th = threading.Thread(target=traffic)
+        th.start()
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        status, raw = http("POST", base + "/debug/profile", {"duration_ms": 300})
+        cap_s = time.perf_counter() - t0
+        th.join(timeout=600)
+        if status != 409:
+            break
+        say(f"/debug/profile: 409, an anomaly capture of the server's own held the profiler; "
+            f"streams and capture again (attempt {attempt + 2})")
     if status != 200:
         fail(f"/debug/profile: HTTP {status} {raw[:300]!r}")
     meta = json.loads(raw)
@@ -3673,15 +3848,15 @@ def profile_round_trip(base: str) -> dict:
     kernels_seen = sum(1 for e in events if e.get("cat") == "kernel")
     say(f"/debug/profile: {meta['id']} ({meta['source']}), 300 ms capture answered in "
         f"{cap_s:.2f} s, archive {len(data) / 1e6:.1f} MB, {len(events)} trace events, "
-        f"{kernels_seen} CUDA kernel events; the 8 streams under it ended whole "
-        f"[{card_line()}]")
+        f"{kernels_seen} CUDA kernel events; the 8 streams under it ended whole, decoding "
+        f"{done['tps']:.1f} tokens/s [{card_line()}]")
     if not kernels_seen:
         fail("the profile archive holds no CUDA kernel event")
-    status, raw = http("POST", base + "/debug/profile", {"duration_ms": 100})
+    status, raw = post_profile(base, 100)
     if status != 200:
         fail(f"a second /debug/profile: HTTP {status} {raw[:300]!r}")
-    shutil.rmtree(os.environ["LLMK_PROFILE_DIR"], ignore_errors=True)
-    return {"kernel_events": kernels_seen, "archive_mb": len(data) / 1e6, "answer_s": cap_s}
+    return {"kernel_events": kernels_seen, "archive_mb": len(data) / 1e6, "answer_s": cap_s,
+            "tps_under_capture": done["tps"]}
 
 
 def chat_stream(base: str, body: dict) -> dict:
@@ -3724,12 +3899,10 @@ def guided_requests(tok) -> dict:
     }
 
 
-def drive_guided(torch, eng, base: str, tok) -> dict:
-    """Grammar compile times (cold, then from the cache) at the 128,256-id
-    vocabulary; 8 free streams, then 8 mixed (two of each guided kind, two
-    free), every constrained answer parsed and validated; each window's
-    device time by graph (CUDA events around the replays)."""
-    from llms_on_kubernetes_tpu_torch import kernels
+def compile_grammars(tok) -> tuple[dict, dict]:
+    """The three guided kinds' grammars at the 128,256-id vocabulary, each
+    compiled cold and then from the cache, timed: (name -> grammar, the
+    times)."""
     from llms_on_kubernetes_tpu_torch.engine.grammar import (
         compile_response_format, compile_tool_choice, token_bytes_of,
     )
@@ -3745,7 +3918,7 @@ def drive_guided(torch, eng, base: str, tok) -> dict:
             {"type": "json_schema", "json_schema": {"schema": GUIDED_SCHEMA}}, tb, eos),
         "forced tool": lambda: compile_tool_choice(GUIDED_TOOLS, "get_weather", tb, eos),
     }
-    compile_s = {}
+    grammars, compile_s = {}, {}
     for name, build in builds.items():
         t0 = time.perf_counter()
         g = build()
@@ -3753,11 +3926,147 @@ def drive_guided(torch, eng, base: str, tok) -> dict:
         t0 = time.perf_counter()
         if build() is not g:
             fail(f"grammar {name}: the cache missed")
+        grammars[name] = g
         compile_s[name] = (cold, time.perf_counter() - t0, g.n_states, g.n_classes)
         say(f"grammar {name}: compiled in {1e3 * cold:.1f} ms cold, {1e3 * compile_s[name][1]:.3f} "
             f"ms from the cache; {g.n_states} states, {g.n_classes} token classes "
             f"({len(tb)}-id vocabulary; host CPU, {card})")
     say(f"grammar: token byte map of the {len(tb)}-id llama3 vocabulary in {1e3 * tb_s:.1f} ms")
+    return grammars, {"compile_s": compile_s, "token_bytes_s": tb_s}
+
+
+class WindowLog:
+    """Each window the engine launches, in order: whether it replayed the
+    FSM graph, and whether a row of it read its input token from the
+    newest in-flight window (the other graph's, when the kind changed)."""
+
+    def __init__(self, win):
+        from llms_on_kubernetes_tpu_torch.engine.graphs import BUD, SRC, SRC_INFLIGHT
+
+        self.win, self.kinds = win, []
+        run = win.run
+
+        def logged(packed, last, pre, use_fsm=False):
+            chained = last is not None and bool(
+                ((packed[:, SRC] == SRC_INFLIGHT) & (packed[:, BUD] > 0)).any())
+            self.kinds.append(("fsm" if use_fsm else "free", chained))
+            return run(packed, last, pre, use_fsm=use_fsm)
+
+        win.run = logged
+
+    def close(self) -> list:
+        del self.win.run
+        return self.kinds
+
+
+def walk_grammar(name: str, tok, req, g) -> None:
+    """Every token of a constrained request's output is allowed by its
+    grammar from the state the tokens before it reached (host tables),
+    and an answer that stopped parses as JSON."""
+    st = g.start
+    for j, t in enumerate(req.output):
+        nxt = g.next_state(st, t)
+        if nxt < 0:
+            fail(f"{name}: token {j} ({t}) of {req.output} is not allowed by its grammar")
+        st = nxt
+    if req.finish_reason == "stop" and name.split()[-1] != "tool":
+        text = tok.decode([t for t in req.output if t not in tok.eos_ids])
+        try:
+            json.loads(text)
+        except ValueError:
+            fail(f"{name}: stopped on {text!r}, which does not parse")
+
+
+def guided_rows_vs_free(torch, eng, tok, grammars: dict) -> dict:
+    """The two window graphs against each other, in process on the fresh
+    engine (greedy, the 8 prompts always submitted together so they
+    prefill in the same batches): 8 free rows, then the same 8 with every
+    other row constrained (the free rows' streams must equal the first
+    run's); 4 free rows alone, then the same 4 with 4 constrained rows
+    submitted while their windows are in flight, so the windows go
+    grammar-free, FSM, grammar-free, each reading the other graph's
+    in-flight tokens (the free streams must equal the run alone). Every
+    constrained output walks its grammar on the host."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    eos = tuple(sorted(tok.eos_ids))
+    steer = tuple((int(k), float(v)) for k, v in steer_bias(tok).items())
+    kinds = list(grammars.items())
+    prompts = [tok.encode(SERVE_TEXT[i:i + 40]) for i in range(8)]
+    free = SamplingParams(max_tokens=32, temperature=0.0, stop_token_ids=eos)
+    # the joined free rows outlast the constrained ones that join them
+    longer = dataclasses.replace(free, max_tokens=64)
+
+    def guided(j):
+        return SamplingParams(max_tokens=16, temperature=0.0, stop_token_ids=eos,
+                              logit_bias=steer, grammar=kinds[j % len(kinds)][1])
+
+    def drain(reqs):
+        while eng.has_work():
+            eng.step()
+        return reqs
+
+    t0 = time.perf_counter()
+    log = WindowLog(eng._window)
+    try:
+        alone8 = [r.output for r in drain([eng.submit(p, free) for p in prompts])]
+        n_alone8 = len(log.kinds)
+        mixed = drain([eng.submit(p, guided(i // 2) if i % 2 == 0 else free)
+                       for i, p in enumerate(prompts)])
+        n_mixed = len(log.kinds)
+        alone4 = [r.output for r in drain([eng.submit(p, longer) for p in prompts[:4]])]
+        n_alone4 = len(log.kinds)
+        joined = [eng.submit(p, longer) for p in prompts[:4]]
+        for _ in range(3):
+            eng.step()
+        late = [eng.submit(p, guided(j)) for j, p in enumerate(prompts[4:])]
+        drain(joined + late)
+    finally:
+        windows = log.close()
+    for i in range(1, 8, 2):
+        if mixed[i].output != alone8[i]:
+            fail(f"mixed batch: free row {i} differs from the free batch's "
+                 f"({mixed[i].output} against {alone8[i]})")
+    for i in range(4):
+        if joined[i].output != alone4[i]:
+            fail(f"free rows joined by constrained ones: row {i} differs from the run "
+                 f"alone ({joined[i].output} against {alone4[i]})")
+    for i in range(0, 8, 2):
+        walk_grammar(f"mixed row {i} {kinds[(i // 2) % len(kinds)][0]}", tok, mixed[i],
+                     kinds[(i // 2) % len(kinds)][1])
+    for j, r in enumerate(late):
+        walk_grammar(f"late row {j} {kinds[j % len(kinds)][0]}", tok, r, kinds[j % len(kinds)][1])
+    def letters(ws):
+        return "".join("G" if k == "fsm" else "f" for k, _c in ws)
+
+    if "G" in letters(windows[:n_alone8]) or "G" not in letters(windows[n_alone8:n_mixed]):
+        fail(f"free batch windows {letters(windows[:n_alone8])}, mixed batch windows "
+             f"{letters(windows[n_alone8:n_mixed])}")
+    seq = windows[n_alone4:]
+    kinds_seq = letters(seq)
+    into = any(a[0] == "free" and b == ("fsm", True) for a, b in zip(seq, seq[1:]))
+    out_of = any(a[0] == "fsm" and b == ("free", True) for a, b in zip(seq, seq[1:]))
+    if not (into and out_of):
+        fail(f"the windows never chained grammar-free -> FSM -> grammar-free through "
+             f"in-flight tokens: {kinds_seq}")
+    say(f"  two window graphs ({MODEL} bf16, greedy): a mixed batch's 4 free rows equal the "
+        f"free batch's; 4 free rows joined mid-stream by 4 constrained ones equal the run "
+        f"alone, over windows {kinds_seq} (f grammar-free, G FSM; each switch read the "
+        f"other graph's in-flight tokens); every constrained output walks its grammar "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"mixed_windows": letters(windows[n_alone8:n_mixed]), "joined_windows": kinds_seq,
+            "mixed_outputs": [len(mixed[i].output) for i in range(0, 8, 2)],
+            "late_outputs": [len(r.output) for r in late]}
+
+
+def drive_guided(torch, eng, base: str, tok) -> dict:
+    """8 free streams, then 8 mixed (two of each guided kind, two free)
+    through the server, every constrained answer parsed and validated;
+    each window's device time by graph (CUDA events around the
+    replays)."""
+    from llms_on_kubernetes_tpu_torch import kernels
+
+    card = card_line()
     reqs = guided_requests(tok)
     timer = WindowTimer(torch, eng._window)
     mem0 = torch.cuda.memory_reserved()
@@ -3808,8 +4117,7 @@ def drive_guided(torch, eng, base: str, tok) -> dict:
         f"(+{100 * (g_med / f_med - 1):.1f}%); the FSM graph captured in "
         f"{capture[0] if capture else float('nan'):.2f} s; reserved memory +{mem / 2**20:.1f} MiB "
         f"over the guided traffic [{card}]")
-    return {"compile_s": compile_s, "token_bytes_s": tb_s, "free_window_ms": f_med,
-            "fsm_window_ms": g_med, "n_free": len(free_ms), "n_fsm": len(fsm_ms),
+    return {"free_window_ms": f_med, "fsm_window_ms": g_med, "n_free": len(free_ms), "n_fsm": len(fsm_ms),
             "fsm_capture_s": capture[0] if capture else None, "reserved_mib": mem / 2**20}
 
 
@@ -4074,6 +4382,9 @@ def main(argv) -> int:
     say(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(kernels.SOURCES)} and "
         f"{W8_VARIANT}")
     os.makedirs(OUT_DIR, exist_ok=True)
+    # every server this run starts (the CLI servers inherit it) captures
+    # its profiles, the anomaly detector's too, inside the checkout
+    os.environ["LLMK_PROFILE_DIR"] = os.path.abspath(os.path.join(OUT_DIR, "profiles"))
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         for name, out in kernels.build_log.items():
             f.write(f"== {name}\n{out}\n")
@@ -4155,6 +4466,11 @@ def main(argv) -> int:
     for e in entries.values():
         if not e["launches"]:
             fail(f"{e['name']} was never launched on its path")
+    auto = sorted(os.listdir(os.environ["LLMK_PROFILE_DIR"])) \
+        if os.path.isdir(os.environ["LLMK_PROFILE_DIR"]) else []
+    say(f"profile captures the servers took (the ledger phase's /debug/profile two, the "
+        f"anomaly detector's any others): {auto or 'none'}")
+    shutil.rmtree(os.environ["LLMK_PROFILE_DIR"], ignore_errors=True)
     say(f"total: {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": list(entries.values())}))
     say(card_line())

@@ -314,13 +314,16 @@ class DecodeWindow:
         self.prefill_toks = torch.zeros((admit_rows,), dtype=torch.int32, device=dev)
         self.toks = torch.zeros((self.B,), dtype=torch.int32, device=dev)
         self._warm_up()
-        graph = torch.cuda.CUDAGraph()
+        # keep_graph: the captured cudaGraph_t stays readable after the
+        # instantiation (``raw_cuda_graph``), so its nodes can be counted
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         # "thread_local": another engine's harvester may be waiting on an
         # event of its own while this thread captures
         with kernels.counting_apart() as counted, \
                 torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
             self.pack, toks = self._call(self.packed, self.toks, self.prefill_toks)
             self.toks.copy_(toks)
+        graph.instantiate()
         self.workspace.frozen = True
         self.launches = dict(counted)
         self.graph = graph
@@ -339,12 +342,13 @@ class DecodeWindow:
             return
         t0 = time.perf_counter()
         self._warm_up(fsm)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with kernels.counting_apart() as counted, \
                 torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
             pack, toks = self._call(self.packed, self.toks, self.prefill_toks, fsm=fsm)
             self.pack.copy_(pack)
             self.toks.copy_(toks)
+        graph.instantiate()
         self.fsm_launches = dict(counted)
         self.fsm_graph = graph
         kernels.note_compile("graph:window_fsm", time.perf_counter() - t0)

@@ -66,8 +66,8 @@ _PEAK_TABLE = (
     ("v4", (275e12, 1228e9)),
     ("v3", (123e12, 900e9)),
 )
-# CPU / unknown accelerator: a deliberately small nominal peak so smoke
-# MFU is a sane nonzero ratio instead of ~0 against an accelerator's peak.
+# CPU: a deliberately small nominal peak so smoke MFU is a sane nonzero
+# ratio instead of ~0 against an accelerator's peak. Never a card's.
 _PEAK_FALLBACK = (5e11, 5e10)
 
 
@@ -76,8 +76,9 @@ def detect_peak(device=None) -> tuple[float, float]:
     there is one, else the CPU).
 
     Env overrides win; else the card's name (``torch.cuda.
-    get_device_name``) maps through the table; else the nominal CPU
-    fallback. Never raises: the ledger must work wherever the engine does."""
+    get_device_name``) maps through the table; the CPU takes the nominal
+    fallback. A card the table does not name raises, naming it: its MFU
+    and MBU against the CPU's peaks would be off by orders of magnitude."""
     flops = os.environ.get("LLMK_PEAK_TFLOPS")
     gbps = os.environ.get("LLMK_PEAK_GBPS")
     if flops and gbps:
@@ -85,19 +86,20 @@ def detect_peak(device=None) -> tuple[float, float]:
             return float(flops) * 1e12, float(gbps) * 1e9
         except ValueError:
             pass
-    try:
-        import torch
+    import torch
 
-        dev = torch.device(device) if device is not None else (
-            torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu"))
-        if dev.type == "cuda":
-            kind = torch.cuda.get_device_name(dev).lower().replace(" ", "")
-            for key, peaks in _PEAK_TABLE:
-                if key in kind:
-                    return peaks
-    except Exception:
-        pass
-    return _PEAK_FALLBACK
+    dev = torch.device(device) if device is not None else (
+        torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu"))
+    if dev.type != "cuda":
+        return _PEAK_FALLBACK
+    name = torch.cuda.get_device_name(dev)
+    kind = name.lower().replace(" ", "")
+    for key, peaks in _PEAK_TABLE:
+        if key in kind:
+            return peaks
+    raise RuntimeError(
+        f"no peak FLOP/s and bytes/s known for {name!r}: set LLMK_PEAK_TFLOPS and "
+        f"LLMK_PEAK_GBPS to its dense bf16 rate and memory rate, or LLMK_LEDGER=0")
 
 
 def _active_params(cfg: Any) -> int:

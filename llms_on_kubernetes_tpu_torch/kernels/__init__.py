@@ -20,7 +20,8 @@ replay (``add_launches``), in ``LAUNCHES`` and in ``REPLAYED``: a kernel's
 launches less its replayed ones are the launches it made eagerly.
 
 ``COMPILES`` records the port's compile events, (kind, seconds): each
-``nvcc`` build of a source ("nvcc:<source>") and each CUDA graph capture
+parallel ``nvcc`` build ("nvcc:<source>,...", its wall time) and each CUDA
+graph capture
 ("graph:<name>", ``note_compile`` from ``engine/graphs.py``). The server's
 runtime telemetry counts them under the JAX server's compile series.
 """
@@ -179,11 +180,14 @@ def build(names=SOURCES) -> dict:
     for n, (proc, tmp) in procs.items():
         out, _ = proc.communicate()
         build_log[n] = out
-        note_compile(f"nvcc:{n}", time.perf_counter() - t0)
         if proc.returncode != 0:
             failed.append(f"nvcc {n}.cu exited {proc.returncode}:\n{out}")
         else:
             os.replace(tmp, paths[n])
+    if procs:
+        # one event for the parallel build: its wall time, not the sum of
+        # the overlapping nvcc processes'
+        note_compile("nvcc:" + ",".join(procs), time.perf_counter() - t0)
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths

@@ -7,12 +7,14 @@ profile. This module owns the capture lifecycle, so the API layer stays a
 thin HTTP shim:
 
 - One capture at a time per process (the profiler is process-global): a
-  second POST while one runs gets a 409 from the server.
+  second POST while one runs gets a 409 from the server, and so does one
+  while an in-process caller holds the profiler (``reserve``).
 - Durations are clamped to ``[0.05s, LLMK_PROFILE_MAX_S]`` (default 30 s).
-- Captures land in ``LLMK_PROFILE_DIR`` (default ``/tmp/llmk-profile``)
-  under an opaque ``cap-<n>-<stamp>`` directory; ``list_captures()``
-  enumerates them and ``open_archive()`` streams one back as a .tar.gz
-  built with stdlib tarfile.
+- Captures land in ``LLMK_PROFILE_DIR`` (default ``llmk-profile`` under
+  ``tempfile.gettempdir()``, which honours ``TMPDIR``) under an opaque
+  ``cap-<n>-<stamp>`` directory; ``list_captures()`` enumerates them and
+  ``open_archive()`` streams one back as a .tar.gz built with stdlib
+  tarfile.
 - On a card the capture is ``torch.profiler`` with CPU and CUDA activity
   (``trace.json``, a Chrome trace). It is started and stopped only between engine steps, on the
   engine thread (``runner``: the serving loop's ``call``), so a capture
@@ -27,12 +29,14 @@ thin HTTP shim:
 from __future__ import annotations
 
 import collections
+import contextlib
 import io
 import json
 import os
 import re
 import sys
 import tarfile
+import tempfile
 import threading
 import time
 import traceback
@@ -48,7 +52,8 @@ class ProfileError(RuntimeError):
 
 
 def _base_dir() -> str:
-    return os.environ.get("LLMK_PROFILE_DIR", "/tmp/llmk-profile")
+    return os.environ.get("LLMK_PROFILE_DIR",
+                          os.path.join(tempfile.gettempdir(), "llmk-profile"))
 
 
 def _max_duration_s() -> float:
@@ -167,6 +172,28 @@ class ProfileManager:
             with open(os.path.join(out_dir, "capture.json"), "w") as f:
                 json.dump(meta, f, indent=1)
             return dict(meta, files=_dir_listing(out_dir))
+        finally:
+            with self._lock:
+                self._busy = False
+
+    @contextlib.contextmanager
+    def reserve(self, timeout_s: float = 60.0):
+        """Hold the process-global profiler for the caller's own session
+        (a script that profiles the engine in process): a capture asked
+        for meanwhile, on demand or by the anomaly detector, answers busy.
+        Waits up to ``timeout_s`` for a running capture to end, else
+        raises RuntimeError("busy")."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            with self._lock:
+                if not self._busy:
+                    self._busy = True
+                    break
+            if time.monotonic() > deadline:
+                raise RuntimeError("busy")
+            time.sleep(0.01)
+        try:
+            yield
         finally:
             with self._lock:
                 self._busy = False

@@ -9,7 +9,8 @@ and the server's chip-time surface, against the JAX package on the CPU.
   under fuzz, the clip at 1.0, reset) run on the port's.
 - ``detect_peak``: the env overrides win, the H100 table is read from the
   card's name (``torch.cuda.get_device_name``, stubbed here), the CPU takes
-  the JAX fallback.
+  the JAX fallback, and a card the table does not name raises (it never
+  takes the CPU's peaks).
 - ``StepAnomalyDetector``: the JAX cases with an injected clock (never the
   wall clock), and the same random durations trigger the JAX detector and
   the port's at the same samples.
@@ -222,7 +223,6 @@ def test_detect_peak_env_overrides(monkeypatch):
 @pytest.mark.parametrize("name,peaks", [
     ("NVIDIA H100 80GB HBM3", (989e12, 3.35e12)),
     ("NVIDIA H100 PCIe", (756e12, 2.0e12)),
-    ("NVIDIA A10G", tledger._PEAK_FALLBACK),
 ])
 def test_detect_peak_reads_the_cards_name(monkeypatch, name, peaks):
     monkeypatch.delenv("LLMK_PEAK_TFLOPS", raising=False)
@@ -230,6 +230,33 @@ def test_detect_peak_reads_the_cards_name(monkeypatch, name, peaks):
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev=None: name)
     assert detect_peak("cuda") == peaks
     assert GoodputLedger(get_config("debug-tiny"), device="cuda").peak_flops == peaks[0]
+
+
+@pytest.mark.parametrize("name", ["NVIDIA A10G", "NVIDIA H200", "NVIDIA GH200 480GB"])
+def test_detect_peak_refuses_a_card_the_table_does_not_name(monkeypatch, name):
+    monkeypatch.delenv("LLMK_PEAK_TFLOPS", raising=False)
+    monkeypatch.delenv("LLMK_PEAK_GBPS", raising=False)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev=None: name)
+    with pytest.raises(RuntimeError, match=name):
+        detect_peak("cuda")
+    with pytest.raises(RuntimeError, match="LLMK_PEAK_TFLOPS"):
+        GoodputLedger(get_config("debug-tiny"), device="cuda")
+    # the overrides still name its peaks
+    monkeypatch.setenv("LLMK_PEAK_TFLOPS", "1979")
+    monkeypatch.setenv("LLMK_PEAK_GBPS", "4800")
+    assert detect_peak("cuda") == (1979e12, 4800e9)
+
+
+def test_detect_peak_lets_a_failed_name_lookup_raise(monkeypatch):
+    monkeypatch.delenv("LLMK_PEAK_TFLOPS", raising=False)
+    monkeypatch.delenv("LLMK_PEAK_GBPS", raising=False)
+
+    def lookup(dev=None):
+        raise AssertionError("no card")
+
+    monkeypatch.setattr(torch.cuda, "get_device_name", lookup)
+    with pytest.raises(AssertionError, match="no card"):
+        detect_peak("cuda")
 
 
 def test_detect_peak_on_the_cpu_is_the_jax_fallback(monkeypatch):

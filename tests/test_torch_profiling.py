@@ -2,8 +2,10 @@
 
 - ``ProfileManager``: a CPU engine's capture is the sampling profiler's
   (``stacks.json``); captures are listed newest first and downloaded as
-  .tar.gz; a malformed or unknown id gives nothing; one capture at a time.
-  A card's capture is ``torch.profiler`` (stubbed here: no card) started
+  .tar.gz; a malformed or unknown id gives nothing; one capture at a time,
+  and none while an in-process caller holds the profiler (``reserve``);
+  with no ``LLMK_PROFILE_DIR`` captures go under the process's temporary
+  directory (``TMPDIR``), never a fixed path. A card's capture is ``torch.profiler`` (stubbed here: no card) started
   and stopped through the runner (the serving loop's ``call``, between
   engine steps), writing ``trace.json``; a profiler
   that cannot start raises ``ProfileError`` naming the cause, with no
@@ -146,6 +148,45 @@ def test_a_profiler_that_cannot_start_names_the_cause(tmp_path, monkeypatch):
 # the server's routes
 # ---------------------------------------------------------------------------
 
+def test_reserve_holds_the_profiler_against_captures(tmp_path, monkeypatch):
+    monkeypatch.setenv("LLMK_PROFILE_MAX_S", "0.3")
+    pm = ProfileManager(base_dir=str(tmp_path), device="cpu")
+    with pm.reserve():
+        assert pm.busy
+        with pytest.raises(RuntimeError, match="busy"):
+            pm.capture(60)
+    assert not pm.busy and pm.capture(60)["source"] == "py-sampler"
+    # a reservation waits for a running capture to end, and gives up after
+    # its timeout
+    th = threading.Thread(target=pm.capture, args=(300,))
+    th.start()
+    while not pm.busy:
+        time.sleep(0.005)
+    with pytest.raises(RuntimeError, match="busy"):
+        with pm.reserve(timeout_s=0.01):
+            pass
+    t0 = time.monotonic()
+    with pm.reserve(timeout_s=30):
+        assert not th.is_alive() and time.monotonic() - t0 < 30
+    th.join()
+    assert len(pm.list_captures()) == 2
+
+
+def test_default_capture_dir_is_under_the_temporary_directory(tmp_path, monkeypatch):
+    import tempfile
+
+    monkeypatch.delenv("LLMK_PROFILE_DIR", raising=False)
+    monkeypatch.setenv("LLMK_PROFILE_MAX_S", "0.2")
+    monkeypatch.setattr(tempfile, "tempdir", None)    # re-read TMPDIR
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    pm = ProfileManager(device="cpu")
+    assert pm.base_dir == str(tmp_path / "llmk-profile")
+    meta = pm.capture(60)
+    assert (tmp_path / "llmk-profile" / meta["id"] / "stacks.json").is_file()
+    monkeypatch.setenv("LLMK_PROFILE_DIR", str(tmp_path / "set"))
+    assert ProfileManager(device="cpu").base_dir == str(tmp_path / "set")
+
+
 def _req(base, path, body=None, method=None):
     data = json.dumps(body).encode() if body is not None else None
     r = urllib.request.Request(base + path, data=data, method=method or (
@@ -254,6 +295,27 @@ def test_metrics_carry_the_runtime_telemetry(server):
     # a compile event counts once
     again = _values(_req(base, "/metrics")[2].decode())
     assert again["llm_jit_compiles_total"] == values["llm_jit_compiles_total"]
+
+
+def test_a_parallel_nvcc_build_is_one_compile_event_of_its_wall_time(tmp_path, monkeypatch):
+    # a stand-in nvcc: 0.5 s, then the library it was asked for
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nsleep 0.5\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'touch "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    n0 = len(kernels.COMPILES)
+    t0 = time.perf_counter()
+    paths = kernels.build(("a", "b", "c"))
+    wall = time.perf_counter() - t0
+    assert all(p.exists() for p in paths.values())
+    events = kernels.COMPILES[n0:]
+    # the three builds overlap: one event of the build's wall time, not
+    # three spans that each start at the first launch
+    assert [k for k, _s in events] == ["nvcc:a,b,c"]
+    assert 0.5 <= events[0][1] <= wall
+    assert kernels.build(("a", "b", "c")) == paths and len(kernels.COMPILES) == n0 + 1
 
 
 def test_card_memory_comes_from_the_allocator(monkeypatch):
