@@ -177,7 +177,48 @@ Phases, each fatal on failure:
    constrained answer parses and validates; the device time of each
    window by graph (CUDA events around the replay), the FSM graph's
    capture seconds; every window a graph replay, at least one of the FSM
-   graph. Last, the graphs' device events again, their nodes unchanged;
+   graph. Last, the graphs' device events again, their nodes unchanged.
+   Then the host KV tier, the disaggregated handoff and QoS
+   (``phase_tier_handoff_qos``, "4b"). A: the same random weights in
+   process, the JAX session_bench shape at full width (12 sessions x 3
+   turns, round-robin, ~500-token first turns, 32 greedy tokens a turn,
+   each round submitted at once) in 96 usable pages, with the tier on (4
+   GiB) and off, bf16 KV then int8 KV: host hits and uploaded tokens > 0,
+   every decode window a graph replay, and every stream equal to the
+   tier-off engine's or, where the tier-off engine prefilled the history
+   another way (one shot, or from its device hit), differing first at a
+   near-tie (within 2 x BF16_REL_TOL x |logprob| by the tier-off run's
+   own logprobs, ``flip_margin``); printed,
+   the returning turns' TTFT p50 on and off and the spill and upload ms a
+   page. Phase 4's roomy traffic with the requests alternately batch and
+   interactive: admitted interactive first, every greedy stream equal to
+   phase 4's without classes. Then its preemption case with the tier on and the requests
+   alternately batch and interactive: every victim of the lowest class
+   seated, resumes adopting host pages and prefilling fewer tokens than a
+   re-prefill, every stream equal to phase 4's roomy pool's or differing
+   first at a near-tie (the same rule). B: a
+   colocated replica (an in-process server on the same weights) streams
+   each of four prompts of 200-900 tokens cold and warm (a prefix hit:
+   the remainder through the chunk path); the weights are freed; then an
+   ``LLMK_ROLE=prefill`` and an ``LLMK_ROLE=decode`` llama-3-8b server
+   (``--kv-host-cache-gb 4``) behind ``llkt-router`` with a roles config
+   stream them one at a time: each equal to the warm colocated stream
+   (printed: how many equal the cold one), outcome "ok" each, the decode
+   replica's flash prefill never launched and its window kernel num_layers
+   x one remainder chunk a request, its host hits every offered page,
+   every window a graph replay; printed llm_handoff_seconds and each
+   pull's wire bytes and ms. C: llama-3-8b cut to 2 layers, in-process
+   prefill, decode and "both" servers behind ``llkt-router``:
+   ``drop_handoff:2`` gives "reprefill" twice then "ok", a fresh prefill
+   replica under ``kill_prefill_replica`` gives "fallback_colocated"
+   twice, every stream whole and equal to the "both" replica's cold or
+   warm one. D: the "both" server, built through ``serve``'s parser
+   under ``LLMK_QOS``: 20 batch streams fill the slots and the queue, 4
+   interactive ones sent after are seated before every batch request
+   still waiting, and get their first tokens (the engine's stamps) no
+   later than those;
+   ``llm_tenant_admitted_total`` counts 20 batch and 4 interactive, every
+   window a graph replay, /metrics lints;
 5. checkpoint: write full-width phi-3-mini (head_dim 96, 3.82 B
    parameters, 7.64 GB in bf16) as a HuggingFace safetensors checkpoint
    under ``smoke_out/`` with ``testing/synth_checkpoint.py`` (failing when
@@ -242,7 +283,8 @@ gives them; before it, one ``{"kernels": [...]}`` JSON line, whose
 ``launches`` come from phase 5's servers (kernels 1, 2, 4, 6, 7), phase
 4's fused engines (3, 5) and phase 6's first int8 run at pace 3 (the
 W8A16 kernel), and ``launches_by_path`` from every path (phase 3's request
-surface among them). The last line
+surface and phase 4b's tier sessions, prefill and decode replicas and
+drills among them). The last line
 is ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device, or outside a checkout, it exits non-zero first.
 
@@ -260,6 +302,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -2478,13 +2521,15 @@ def window_vs_eager(torch, eng, tag: str, prompts, grammars=()) -> None:
         eng.step()
 
 
-def run_engine(eng, prompts, sp) -> list:
+def run_engine(eng, prompts, sp, logprobs: bool = False):
     """Every prompt through ``eng`` at once, stepped until it drains;
-    returns (output, finish reason) per prompt."""
+    returns (output, finish reason) per prompt (and, with ``logprobs``,
+    each output's logprob entries beside that list)."""
     reqs = [eng.submit(p, sp) for p in prompts]
     while eng.has_work():
         eng.step()
-    return [(r.output, r.finish_reason) for r in reqs]
+    out = [(r.output, r.finish_reason) for r in reqs]
+    return (out, [r.output_logprobs for r in reqs]) if logprobs else out
 
 
 def phase_fused(torch, model: str, params, kv_cache_dtype=None) -> dict:
@@ -2581,7 +2626,7 @@ def phase_fused(torch, model: str, params, kv_cache_dtype=None) -> dict:
     # pool with room for all of them
     long_prompts = [[1 + (7 * i + 13 * j + j // 64) % 250 for j in range(900)] for i in range(8)]
     sp64 = SamplingParams(max_tokens=64, temperature=0.0)
-    roomy = run_engine(dus, long_prompts, sp64)
+    roomy, roomy_lps = run_engine(dus, long_prompts, sp64, logprobs=True)
     # and of the preemption right after the first token: four 63-token
     # prompts (prompt + 1 fills a page)
     short_prompts = [[3 + (11 * i + j) % 250 for j in range(63)] for i in range(4)]
@@ -2629,7 +2674,7 @@ def phase_fused(torch, model: str, params, kv_cache_dtype=None) -> dict:
     del first._preempt_youngest     # the recorder holds the engine: free it now
     del first
     torch.cuda.empty_cache()
-    return {"launches": launches}
+    return {"launches": launches, "roomy": (roomy, roomy_lps)}
 
 
 def preempted_output_lengths(eng) -> list:
@@ -4122,6 +4167,691 @@ def drive_guided(torch, eng, base: str, tok) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the host KV tier, the disaggregated handoff and QoS
+# ---------------------------------------------------------------------------
+
+TIER_GB = 4.0
+# the JAX session_bench shape (bench.py:2191) at full width: sessions x
+# turns, round-robin, ~500-token first turns, greedy tokens a turn, in a
+# pool below the sessions' combined state
+SESSIONS, TURNS, FIRST_TURN, TURN_NEW, USER_NEW = 12, 3, 500, 32, 16
+SESSION_PAGES = 97          # 96 usable pages of 64 rows (+ the trash page)
+DISAGG_LENS = (200, 450, 700, 900)
+DISAGG_NEW = 32
+TIER_PATH = f"{MODEL} host tier sessions bf16 KV"
+DECODE_PATH = f"{MODEL} disaggregated decode replica"
+PREFILL_PATH = f"{MODEL} disaggregated prefill replica"
+DRILL_LAYERS = 2
+QOS_BATCH_TOKENS = 256
+QOS_ENV = {"priorities": {"bulk": "batch", "fe": "interactive"},
+           "weights": {"bulk": 1, "fe": 1}, "starvation_s": 60}
+
+
+def flip_margin(ref, ref_lps, got):
+    """None when ``got`` equals ``ref``; else (position, nats between the
+    reference's token and ``got``'s at the first difference by the
+    reference's own top logprobs (inf when ``got``'s is not among them),
+    the bound a near-tie may reach: 2 x BF16_REL_TOL x |the reference
+    token's logprob|, the bf16 logprob tolerance on each side). A greedy
+    flip between two bf16 prefill paths of the same history (the chunk
+    path after an adoption, a one-shot or differently chunked prefill
+    without it) is accepted only within that bound: a near-tie, the margin
+    rule the port's parity checks use for greedy flips."""
+    if got == ref:
+        return None
+    i = next((k for k, (a, b) in enumerate(zip(ref, got)) if a != b), min(len(ref), len(got)))
+    if i >= len(ref) or i >= len(got) or ref_lps[i] is None:
+        return i, float("inf"), 0.0
+    lp, top_ids, top_lps = ref_lps[i]
+    alt = dict(zip(top_ids, top_lps)).get(got[i])
+    return (i, float("inf") if alt is None else round(float(lp - alt), 4),
+            round(2 * BF16_REL_TOL * abs(lp), 4))
+
+
+def session_traffic(eng, sp) -> tuple[list, list]:
+    """SESSIONS x TURNS multi-turn sessions through ``eng``: each round
+    submits every session's next turn (its history: the last prompt, the
+    answer and USER_NEW new tokens), round-robin, and steps until all
+    finish. Returns (every (output, its logprobs), the returning turns'
+    TTFT in ms)."""
+    rng = np.random.default_rng(14)
+    hist = [[int(t) for t in rng.integers(1, 128_000, FIRST_TURN + 8 * s)]
+            for s in range(SESSIONS)]
+    outs, ttft = [], []
+    for turn in range(TURNS):
+        reqs = [eng.submit(h, sp) for h in hist]
+        while eng.has_work():
+            eng.step()
+        for s, r in enumerate(reqs):
+            if r.finish_reason not in ("length", "stop"):
+                fail(f"session {s} turn {turn}: finished {r.finish_reason}")
+            outs.append((list(r.output), list(r.output_logprobs)))
+            if turn:
+                ttft.append((r.first_token_at - r.submitted_at) * 1000.0)
+            hist[s] = hist[s] + list(r.output) + [int(t) for t in
+                                                  rng.integers(1, 128_000, USER_NEW)]
+    return outs, ttft
+
+
+def spill_upload_ms(torch, eng, n_tokens: int = 900, reps: int = 5) -> tuple:
+    """Per-page wall ms of a spill's enqueue (the gather and the copy into
+    the pinned ring), of its drain (the wait and one host copy a page into
+    the tier) and of an upload (one host copy a page into pinned staging,
+    the copy to the card, index_copy_ into the pools), each between two
+    device syncs, on a slot seated by hand with ``n_tokens`` committed,
+    after every earlier spill has landed; the medians of ``reps``."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    page = eng.allocator.page_size
+    eng._drain_spills()
+    gather, drain, up = [], [], []
+    for rep in range(reps):
+        prompt = [1 + (13 * rep + 7 * j) % 127_000 for j in range(n_tokens)]
+        req = eng.submit(prompt, SamplingParams(max_tokens=4, temperature=0.0))
+        with eng._lock:
+            slot = eng._seat_next([])[0]
+        eng._host_adopt.pop(slot, None)
+        eng.slot_len[slot] = n_tokens
+        m = n_tokens // page
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._spill_slot(req)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng._drain_spills()
+        gather.append((t1 - t0) * 1000.0 / m)
+        drain.append((time.perf_counter() - t1) * 1000.0 / m)
+        digests = eng.allocator._digests(prompt[:m * page])
+        matched, payloads = eng.host_kv.match_chain("", digests, 0)
+        if len(matched) != m:
+            fail(f"spill timing: {len(matched)} of {m} pages in the tier")
+        eng._host_adopt[slot] = (0, matched, payloads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._host_kv_commit(slot, req)
+        torch.cuda.synchronize()
+        up.append((time.perf_counter() - t0) * 1000.0 / m)
+        eng.slot_len[slot] = 0          # nothing to spill again: no prefill ran
+        eng.abort(req)
+        while eng.has_work():
+            eng.step()
+    return (float(np.median(gather)), float(np.median(drain)), float(np.median(up)),
+            n_tokens // page)
+
+
+def phase_host_tier(torch, params, roomy) -> dict:
+    """A. The host tier in process on ``params`` (llama-3-8b, 32 layers):
+    the session traffic with the tier on (``TIER_GB``) and off, bf16 KV
+    then int8 KV, in SESSION_PAGES pages. Held: streams equal on and off,
+    host hits and uploaded tokens > 0, every decode window a graph replay.
+    Printed: the returning turns' TTFT p50 on and off, spill and upload ms
+    a page. Then phase 4's preemption case (eight 900-token prompts of 64
+    tokens in 122 pages) with the tier on and the requests alternately
+    batch and interactive: every victim is of the lowest class running,
+    resumed requests upload pages and prefill fewer tokens than their
+    re-prefill would, every stream equals phase 4's roomy pool's or first
+    differs at a near-tie (``flip_margin``; ``roomy``: its streams and
+    their logprobs)."""
+    from llms_on_kubernetes_tpu_torch import kernels
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
+    from llms_on_kubernetes_tpu_torch.engine.qos import priority_rank
+
+    t_phase = time.perf_counter()
+    sp = SamplingParams(max_tokens=TURN_NEW, temperature=0.0)
+    out: dict = {"timing": {}}
+    for kv in (None, "int8"):
+        tag = f"{'int8' if kv else 'bf16'} KV"
+        runs = {}
+        for gb in (TIER_GB, 0.0):
+            eng = Engine(EngineConfig(model=MODEL, num_pages=SESSION_PAGES, kv_cache_dtype=kv,
+                                      kv_host_cache_gb=gb), params=params)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            outs, ttft = session_traffic(eng, sp)
+            wall = time.perf_counter() - t0
+            if kv is None and gb:
+                out["launches"] = kernels.launch_counts()
+            if eng.graph_replays < 1 or (eng.graph_replays * eng.config.decode_steps
+                                         != eng.decode_forwards):
+                fail(f"host tier {tag}: a decode window ran outside the graph")
+            hk = eng.host_kv
+            runs[gb] = (outs, ttft)
+            say(f"  host tier {tag}, tier {'on ' + str(gb) + ' GiB' if gb else 'off'}: "
+                f"{SESSIONS} sessions x {TURNS} turns in {SESSION_PAGES - 1} pages, "
+                f"{wall:.2f} s; returning turns' TTFT p50 {np.median(ttft):.1f} ms, max "
+                f"{max(ttft):.1f} ms; prefix hit tokens {eng.allocator.hit_tokens_total}; "
+                + (f"host hits {hk.hits} pages, misses {hk.misses}, evictions "
+                   f"{hk.evictions}, spilled {hk.spilled_pages}, uploaded "
+                   f"{eng.kv_uploaded_tokens} tokens in {len(eng.kv_upload_obs)} uploads, "
+                   f"{hk.used_bytes / 2**20:.0f} MiB held; " if hk else "")
+                + f"{eng.graph_replays} graph replays")
+            if gb:
+                if hk.hits <= 0 or eng.kv_uploaded_tokens <= 0:
+                    fail(f"host tier {tag}: no host hit ({hk.hits}) or upload")
+                g_ms, d_ms, u_ms, m = spill_upload_ms(torch, eng)
+                out["timing"][tag] = (g_ms, d_ms, u_ms)
+                say(f"  host tier {tag}: spill {g_ms + d_ms:.3f} ms a page (gather + copy "
+                    f"into the pinned ring {g_ms:.3f}, drain into the tier {d_ms:.3f}), "
+                    f"upload {u_ms:.3f} ms a page ({m} pages, medians of 5; "
+                    f"{eng.cache_config.bytes_per_page / 2**20:.2f} MiB a page) "
+                    f"[{card_line()}]")
+            del eng
+            torch.cuda.empty_cache()
+        # the tier-off engine prefills an evicted history one shot (or from
+        # its device hit); the tier-on one adopts host pages and prefills
+        # the rest through the chunk path: near-tie flips are triaged
+        flips = [(k, m) for k, ((ref, lps), (got, _)) in
+                 enumerate(zip(runs[0.0][0], runs[TIER_GB][0]))
+                 if (m := flip_margin(ref, lps, got)) is not None]
+        # the bf16 noise between the two paths: the first token's logprob
+        # in both runs, where they chose the same token
+        noise = [abs(a[1][0][0] - b[1][0][0]) for a, b in
+                 zip(runs[0.0][0][SESSIONS:], runs[TIER_GB][0][SESSIONS:])
+                 if a[0][:1] == b[0][:1] and a[1][0] is not None and b[1][0] is not None]
+        out.setdefault("ttft", {})[tag] = (float(np.median(runs[TIER_GB][1])),
+                                           float(np.median(runs[0.0][1])))
+        out.setdefault("flips", {})[tag] = flips
+        say(f"  host tier {tag}: {len(runs[0.0][0]) - len(flips)} of {len(runs[0.0][0])} "
+            f"streams equal the tier-off engine's; flips (stream, (token, nats, bound)) "
+            f"{flips}; the returning turns' first-token logprob on and off differs by "
+            f"median {np.median(noise) if noise else 0:.4f}, max "
+            f"{max(noise) if noise else 0:.4f} nats over {len(noise)} equal first tokens")
+        if any(m[1] > m[2] for _k, m in flips):
+            fail(f"host tier {tag}: a stream differs from the tier-off engine's past a "
+                 f"near-tie")
+
+    # QoS changes which rows share a prefill call and a window, never a
+    # row's result: phase 4's roomy traffic in two classes, no preemption,
+    # gives its streams exactly (every prefill call still pads to 4 rows)
+    long_prompts = [[1 + (7 * i + 13 * j + j // 64) % 250 for j in range(900)] for i in range(8)]
+    sp64 = SamplingParams(max_tokens=64, temperature=0.0)
+    classed = Engine(EngineConfig(model=MODEL, kv_write="dus", qos_starvation_s=0),
+                     params=params)
+    creqs = [classed.submit(p, sp64, priority="batch" if i % 2 else "interactive")
+             for i, p in enumerate(long_prompts)]
+    while classed.has_work():
+        classed.step()
+    order = sorted(range(8), key=lambda k: creqs[k].admitted_at)
+    if [(r.output, r.finish_reason) for r in creqs] != roomy[0]:
+        fail("QoS: greedy streams with two classes differ from phase 4's without them")
+    if sorted(order[:4]) != [0, 2, 4, 6]:
+        fail(f"QoS: admission order {order}, the interactive requests not first")
+    say(f"  QoS on the card: 8 x 900-token prompts in two classes, admitted in the order "
+        f"{order} (interactive first): every greedy stream equals phase 4's without classes")
+    del classed, creqs
+    torch.cuda.empty_cache()
+
+    # phase 4's preemption case with the tier on and two classes
+    tight = Engine(EngineConfig(model=MODEL, kv_write="dus", num_pages=123,
+                                kv_host_cache_gb=TIER_GB, qos_starvation_s=0), params=params)
+    victims, resumed = [], []
+    preempt, chunked = tight._preempt_youngest, tight._chunked_prefill
+
+    def spy_preempt():
+        seated = [r for r in tight.slots if r is not None]
+        lowest = max(priority_rank(r.priority) for r in seated)
+        before = {id(r) for r in seated}
+        preempt()
+        (gone,) = [r for r in seated if id(r) in before - {id(x) for x in tight.slots
+                                                             if x is not None}]
+        victims.append((gone.priority, priority_rank(gone.priority) == lowest))
+
+    def spy_chunk(req, ptoks, start=0):
+        if req.output:
+            resumed.append((len(ptoks), start))
+        return chunked(req, ptoks, start=start)
+
+    tight._preempt_youngest, tight._chunked_prefill = spy_preempt, spy_chunk
+    reqs = [tight.submit(p, sp64, priority="batch" if i % 2 else "interactive")
+            for i, p in enumerate(long_prompts)]
+    while tight.has_work():
+        tight.step()
+    flips = [(k, m) for k, (r, (ref, _reason), lps) in enumerate(zip(reqs, *roomy))
+             if (m := flip_margin(ref, lps, r.output)) is not None]
+    say(f"  tier + QoS preemption: 8 x 900-token prompts (batch and interactive in turns), 64 "
+        f"tokens each, in 122 pages: {tight.preemptions} preemptions, victims "
+        f"{[p for p, _ in victims]}; resumes (prefill tokens, adopted) {resumed}; uploaded "
+        f"{tight.kv_uploaded_tokens} tokens, host hits {tight.host_kv.hits}")
+    if tight.preemptions < 1 or not all(ok for _, ok in victims):
+        fail("tier + QoS preemption: no preemption, or a victim above the lowest class seated")
+    if not resumed or not any(start > 0 for _, start in resumed) or \
+            tight.kv_uploaded_tokens <= 0:
+        fail("tier + QoS preemption: no resume adopted pages from the host tier")
+    if any(r.finish_reason != reason for r, (_o, reason) in zip(reqs, roomy[0])) or \
+            any(m[1] > m[2] for _k, m in flips):
+        fail(f"tier + QoS preemption: a stream differs from the roomy pool's past a near-tie "
+             f"{flips}")
+    say(f"  tier + QoS preemption: {8 - len(flips)} of 8 streams equal phase 4's roomy pool's, "
+        f"flips (stream, (token, nats, bound)) {flips} (a resume prefills its remainder "
+        f"through the chunk path, the roomy run wrote it one shot and by decode); resumes "
+        f"prefilled {sum(n - s for n, s in resumed)} tokens, a re-prefill "
+        f"{sum(n for n, _ in resumed)}; {time.perf_counter() - t_phase:.1f} s")
+    del tight._preempt_youngest, tight._chunked_prefill, tight
+    torch.cuda.empty_cache()
+    return out
+
+
+def free_card(torch, tag: str) -> None:
+    """Collect what is unreachable (a server and its engine loop hold each
+    other: only the cycle collector frees their weights and pools) and
+    return the cached blocks; print what this process still holds."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"  {tag}: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"({torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved); the card has "
+        f"{torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB free")
+
+
+def phase_tier_handoff_qos(torch, roomy) -> dict:
+    """Phase 4b: A (``phase_host_tier``) and the colocated reference on one
+    set of random llama-3-8b weights (seed 0, the servers' own), freed
+    before B (``phase_disagg``) starts its two full-width servers; then C
+    and D (``phase_drills_qos``)."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.models.decoder import init_params
+
+    t0 = time.perf_counter()
+    free_card(torch, "phase 4b starts")
+    params = init_params(get_config(MODEL), seed=0, dtype="bfloat16", device="cuda")
+    tier = phase_host_tier(torch, params, roomy)
+    refs = colocated_refs(torch, params)
+    del params
+    free_card(torch, "before the two full-width servers")
+    say(f"phase 4b A (host tier): {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    disagg = phase_disagg(refs)
+    say(f"phase 4b B (disaggregated): {time.perf_counter() - t1:.1f} s")
+    drills = phase_drills_qos(torch)
+    free_card(torch, "after the drills")
+    say(f"phase 4b (host tier, handoff, drills, QoS): {time.perf_counter() - t0:.1f} s")
+    return {"tier": tier, "disagg": disagg, "drills": drills}
+
+
+def disagg_prompts() -> list:
+    """DISAGG_LENS-token prompts that share no page (byte-tokenizer ids)."""
+    return [[1 + (19 * i + 7 * j + (i * j) % 5) % 250 for j in range(n)]
+            for i, n in enumerate(DISAGG_LENS)]
+
+
+def disagg_body(prompt, model: str = MODEL, **over) -> dict:
+    return {"model": model, "prompt": prompt, "max_tokens": DISAGG_NEW, "temperature": 0,
+            "stream": True, "logit_bias": BYTE_BIAS, **over}
+
+
+def streamed(name: str, url: str, body: dict) -> str:
+    status, _h, lines, _t = stream_lines(url + "/v1/completions", body)
+    if any("error" in ln for _, ln in lines):
+        fail(f"{name}: an error event in the stream")
+    text, reason, _ = sse_finish(name, status, lines)
+    if reason != "length" or not text:
+        fail(f"{name}: finished {reason} with {len(text)} characters")
+    return text
+
+
+def colocated_refs(torch, params) -> list:
+    """The colocated replica's streams of ``disagg_prompts`` (an in-process
+    server on ``params``, the default EngineConfig, each prompt alone):
+    (cold, warm) per prompt, the warm one a prefix-cache hit whose
+    remainder prefills through the chunk path, as after an adoption."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig
+    from llms_on_kubernetes_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llms_on_kubernetes_tpu_torch.server.openai_api import OpenAIServer
+
+    srv = OpenAIServer(Engine(EngineConfig(model=MODEL), params=params), ByteTokenizer(), MODEL)
+    try:
+        base = f"http://127.0.0.1:{srv.start()}"
+        refs = [(streamed(f"colocated {len(p)} cold", base, disagg_body(p)),
+                 streamed(f"colocated {len(p)} warm", base, disagg_body(p)))
+                for p in disagg_prompts()]
+    finally:
+        srv.close()
+        del srv
+    say(f"  colocated reference (in-process server): {sum(c == w for c, w in refs)} of "
+        f"{len(refs)} prompts give the same stream cold and warm")
+    return refs
+
+
+def start_router(args: list, log_name: str, replicas: list):
+    """``llkt-router ARGS`` on a free port; waits until it finds every
+    replica healthy. Returns (process, URL)."""
+    port = free_port()
+    router = f"http://127.0.0.1:{port}"
+    logf = open(os.path.join(OUT_DIR, log_name), "w")
+    proc = subprocess.Popen([ROUTER_BIN, *args, "--port", str(port), "--quiet"], stdout=logf,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    t0 = time.perf_counter()
+    while any(replica_healthy(router, r) != 1.0 for r in replicas):
+        if proc.poll() is not None or time.perf_counter() - t0 > 30:
+            fail(f"llkt-router ({log_name}) did not admit {replicas} within 30 s")
+        time.sleep(0.1)
+    return proc, router
+
+
+def stop_proc(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def roles_config(path: str, model: str, roles: dict) -> str:
+    with open(path, "w") as f:
+        json.dump({"models": {model: list(roles)}, "roles": roles, "handoff_retries": 2,
+                   "probe_interval_s": PROBE_S, "breaker_threshold": 100}, f)
+    return path
+
+
+def handoff_outcomes(router: str) -> dict:
+    return {oc: metric(router, "llm_handoff_total", f'outcome="{oc}"')
+            for oc in ("ok", "retried", "reprefill", "fallback_colocated")}
+
+
+def phase_disagg(refs) -> dict:
+    """B. Disaggregated at full width: an LLMK_ROLE=prefill and an
+    LLMK_ROLE=decode llama-3-8b server (``--kv-host-cache-gb``) behind
+    ``llkt-router`` with a roles config; streamed greedy completions of
+    DISAGG_LENS-token prompts, one at a time. Held: each stream equals the
+    colocated replica's warm stream (``refs``: the same pages, the same
+    remainder chunk), the router's ok count rises by one each, the decode
+    replica launches no flash prefill and the window kernel num_layers
+    times per remainder chunk, its pulled pages all adopted, every decode
+    window a graph replay. Printed: the streams equal to the cold ones,
+    llm_handoff_seconds, and each pull's bytes and seconds (its kv_pull
+    span)."""
+    t_phase = time.perf_counter()
+    num_layers = 32
+    args = ["--model", MODEL, "--random-weights", "--kv-host-cache-gb", str(TIER_GB)]
+    pre = Server(args, "chip_smoke_prefill.log", {"LLMK_ROLE": "prefill"})
+    dec = Server(args, "chip_smoke_decode.log", {"LLMK_ROLE": "decode"})
+    rproc = None
+    try:
+        for srv in (pre, dec):
+            srv.wait_health()
+        cfg = roles_config(os.path.join(OUT_DIR, "router_roles.json"), MODEL,
+                           {pre.base: "prefill", dec.base: "decode"})
+        rproc, router = start_router(["--config", cfg], "chip_smoke_disagg_router.log",
+                                     [pre.base, dec.base])
+        for srv in (pre, dec):
+            http("POST", srv.base + "/debug/kernels/reset", {})
+        c_pre0, c_dec0 = kernel_counts(pre.base), kernel_counts(dec.base)
+        warm_eq = cold_eq = 0
+        for i, (p, (cold, warm)) in enumerate(zip(disagg_prompts(), refs)):
+            text = streamed(f"handoff {len(p)}", router, disagg_body(p))
+            if text != warm:
+                fail(f"handoff {len(p)}: {text[:60]!r} differs from the colocated warm stream "
+                     f"{warm[:60]!r}")
+            warm_eq += 1
+            cold_eq += text == cold
+            metric_reaches(router, "llm_handoff_total", 'outcome="ok"', i + 1.0)
+        oc = handoff_outcomes(router)
+        if oc != {"ok": len(refs), "retried": 0, "reprefill": 0, "fallback_colocated": 0}:
+            fail(f"handoff outcomes {oc}")
+        c_pre, c_dec = kernel_counts(pre.base), kernel_counts(dec.base)
+        pages = sum((n - 1) // 64 for n in DISAGG_LENS)
+        chunks = c_dec["chunk_calls"] - c_dec0["chunk_calls"]
+        l_dec, l_pre = c_dec["launches"], c_pre["launches"]
+        hits = metric_reaches(dec.base, "llm_kv_host_cache_hits_total", "", float(pages))
+        say(f"  decode replica: launches {l_dec}, chunk calls {chunks}, prefill calls "
+            f"{c_dec['prefill_calls'] - c_dec0['prefill_calls']}, host hits {hits:g} of "
+            f"{pages} pages offered; prefill replica: launches {l_pre}, prefill calls "
+            f"{c_pre['prefill_calls'] - c_pre0['prefill_calls']}")
+        if (l_dec.get("flash_prefill", 0) or chunks != len(refs)
+                or l_dec.get("paged_write_window", 0) != num_layers * chunks or hits != pages):
+            fail("the decode replica prefilled more than the remainder after adoption")
+        if l_pre.get("flash_prefill", 0) != num_layers * len(refs):
+            fail(f"the prefill replica launched flash prefill {l_pre.get('flash_prefill')} "
+                 f"times, expected {num_layers * len(refs)}")
+        check_graphed("decode replica", c_dec, c_dec0)
+        n_h = metric(router, "llm_handoff_seconds_count")
+        s_h = metric(router, "llm_handoff_seconds_sum")
+        traces = json.loads(http("GET", dec.base + f"/debug/traces?limit={len(refs)}")[1])
+        pulls = [(s["duration_ms"], s.get("bytes", 0)) for t in traces["traces"]
+                 for s in t["spans"] if s["name"] == "kv_pull"]
+        say(f"  handoff: {len(refs)} streams of {DISAGG_LENS} tokens through llkt-router, each "
+            f"equal to the colocated warm stream ({cold_eq} equal to the cold one too); "
+            f"outcomes {oc}; llm_handoff_seconds mean {s_h / max(n_h, 1) * 1000:.1f} ms over "
+            f"{n_h:g}; kv_pull (ms, wire bytes) {sorted(pulls, key=lambda x: x[1])}; "
+            f"{(n_h and s_h / n_h) or 0:.3f} s; {time.perf_counter() - t_phase:.1f} s "
+            f"[{card_line()}]")
+        return {"launches": l_dec, "prefill_launches": l_pre, "outcomes": oc,
+                "pulls": pulls, "handoff_s": s_h / max(n_h, 1)}
+    except SystemExit:
+        for srv in (pre, dec):
+            say(f"{srv.log_path} (tail):\n{srv.tail()}")
+        raise
+    finally:
+        if rproc is not None:
+            stop_proc(rproc)
+        for srv in (pre, dec):
+            if srv.proc.poll() is None:
+                srv.stop()
+
+
+def drill_server(torch, cfg, role: str, env_qos: bool = False):
+    """An in-process server of ``cfg`` (llama-3-8b cut to DRILL_LAYERS) in
+    ``role`` with the tier on; ``env_qos`` builds its EngineConfig through
+    the CLI's parser, so LLMK_QOS is read as ``serve`` reads it."""
+    from llms_on_kubernetes_tpu_torch.cli import build_parser, engine_config_from_args
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine
+    from llms_on_kubernetes_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llms_on_kubernetes_tpu_torch.models.decoder import init_params
+    from llms_on_kubernetes_tpu_torch.server.openai_api import OpenAIServer
+
+    os.environ["LLMK_ROLE"] = role
+    try:
+        ecfg = engine_config_from_args(build_parser().parse_args(
+            ["serve", "--model", MODEL, "--kv-host-cache-gb", "1"]))
+    finally:
+        os.environ.pop("LLMK_ROLE", None)
+    if not env_qos and ecfg.qos_priorities:
+        fail("LLMK_QOS leaked into a drill replica")
+    params = init_params(cfg, seed=0, dtype="bfloat16", device="cuda")
+    srv = OpenAIServer(Engine(ecfg, model_config=cfg, params=params), ByteTokenizer(), MODEL)
+    return srv, f"http://127.0.0.1:{srv.start()}"
+
+
+def phase_drills_qos(torch) -> dict:
+    """C. Drills on llama-3-8b cut to DRILL_LAYERS layers, in-process
+    servers behind ``llkt-router``: ``LLMK_FAULT=drop_handoff:2`` (the
+    decode replica's first two pulls skipped: outcome "reprefill" twice,
+    then "ok"), then ``kill_prefill_replica`` on a fresh prefill replica
+    with a decode and a "both" replica beside it ("fallback_colocated").
+    Every stream whole and equal to the "both" replica's cold or warm
+    stream of its prompt, no error event. D. QoS through the "both"
+    server (EngineConfig from ``serve``'s parser under ``LLMK_QOS``): a
+    batch flood (tenant "bulk") fills the slots and the queue, then four
+    interactive requests (tenant "fe"): each gets its first token before
+    any batch request still waiting when they were sent (seated before
+    them, first tokens no later);
+    ``llm_tenant_admitted_total`` counts both classes, every window a
+    graph replay, /metrics lints."""
+    from llms_on_kubernetes_tpu_torch import faults, kernels
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MODEL), num_layers=DRILL_LAYERS)
+    servers, procs = [], []
+    os.environ["LLMK_QOS"] = json.dumps(QOS_ENV)
+    try:
+        both, u_both = drill_server(torch, cfg, "both", env_qos=True)
+        os.environ.pop("LLMK_QOS")
+        servers.append(both)
+        dec, u_dec = drill_server(torch, cfg, "decode")
+        servers.append(dec)
+        pre, u_pre = drill_server(torch, cfg, "prefill")
+        servers.append(pre)
+        prompts = [[1 + (23 * i + 5 * j + (i * j) % 3) % 250 for j in range(300 + 97 * i)]
+                   for i in range(5)]
+        refs = [(streamed(f"drill ref {i} cold", u_both, disagg_body(p)),
+                 streamed(f"drill ref {i} warm", u_both, disagg_body(p)))
+                for i, p in enumerate(prompts)]
+        roles = {u_pre: "prefill", u_dec: "decode", u_both: "both"}
+        rproc, router = start_router(
+            ["--config", roles_config(os.path.join(OUT_DIR, "router_drill.json"), MODEL,
+                                      roles)], "chip_smoke_drill_roles_router.log", list(roles))
+        procs.append(rproc)
+
+        def drill_stream(i):
+            text = streamed(f"drill {i}", router, disagg_body(prompts[i]))
+            if text not in refs[i]:
+                fail(f"drill {i}: the stream differs from the colocated ones")
+            return "warm" if text == refs[i][1] else "cold"
+
+        kernels.reset_launches()
+        faults.reset_claims()
+        os.environ["LLMK_FAULT"] = "drop_handoff:2"
+        try:
+            paths = [drill_stream(i) for i in range(3)]
+        finally:
+            os.environ.pop("LLMK_FAULT", None)
+        oc = handoff_outcomes(router)
+        if (oc["reprefill"], oc["ok"], oc["fallback_colocated"]) != (2, 1, 0):
+            fail(f"drop_handoff:2: outcomes {oc}")
+        say(f"  drill drop_handoff:2: 3 streams whole ({paths}), outcomes {oc}")
+        stop_proc(rproc)
+        procs.remove(rproc)
+
+        faults.reset_claims()
+        os.environ["LLMK_FAULT"] = "kill_prefill_replica:0"
+        try:
+            killed, u_killed = drill_server(torch, cfg, "prefill")
+            servers.append(killed)
+            t0 = time.perf_counter()
+            while killed.state != "killed":
+                if time.perf_counter() - t0 > 10:
+                    fail("kill_prefill_replica never fired")
+                time.sleep(0.02)
+        finally:
+            os.environ.pop("LLMK_FAULT", None)
+        if http("GET", u_killed + "/health")[0] != 503:
+            fail("a killed prefill replica answers /health 200")
+        roles = {u_killed: "prefill", u_dec: "decode", u_both: "both"}
+        # the killed replica answers /ready 503: wait for the other two
+        rproc, router = start_router(
+            ["--config", roles_config(os.path.join(OUT_DIR, "router_kill.json"), MODEL,
+                                      roles)], "chip_smoke_kill_router.log", [u_dec, u_both])
+        procs.append(rproc)
+        paths = [drill_stream(i) for i in (3, 4)]
+        oc = handoff_outcomes(router)
+        if oc["fallback_colocated"] != 2 or oc["ok"]:
+            fail(f"kill_prefill_replica: outcomes {oc}")
+        drill_launches = kernels.launch_counts()
+        say(f"  drill kill_prefill_replica: the prefill replica killed (/health 503), 2 "
+            f"streams whole ({paths}), outcomes {oc}; no client-visible drop in either drill; "
+            f"{time.perf_counter() - t_phase:.1f} s")
+
+        qos = drive_qos(both)
+        say(f"phase 4b C+D (drills, QoS): {time.perf_counter() - t_phase:.1f} s "
+            f"[{card_line()}]")
+        return {"launches": drill_launches, "qos": qos}
+    finally:
+        os.environ.pop("LLMK_QOS", None)
+        os.environ.pop("LLMK_FAULT", None)
+        faults.reset_claims()
+        for p in procs:
+            stop_proc(p)
+        for s in servers:
+            s.close()
+
+
+def drive_qos(srv) -> dict:
+    """D (``phase_drills_qos``): the batch flood and the interactive
+    requests against the in-process server ``srv``, each stream on a
+    thread of its own; admissions recorded on the engine (its first-token
+    stamps are what is held, the clients' are printed)."""
+    base = f"http://127.0.0.1:{srv.httpd.server_address[1]}"
+    eng = srv.engine
+    counts0 = kernel_counts(base)
+    first: dict = {}
+    errors: list = []
+    admitted_reqs: list = []
+    note = eng._note_admission
+
+    def spy(req):
+        if req.admitted_at is None:
+            admitted_reqs.append(req)
+        note(req)
+
+    def client(i, user, max_tokens):
+        name = f"{user}{i}"
+        try:
+            body = {"model": MODEL, "max_tokens": max_tokens, "temperature": 0, "stream": True,
+                    "user": user, "prompt": [1 + (3 * j + 17 * i + 101 * len(user)) % 250
+                                             for j in range(96)]}
+            req = urllib.request.Request(base + "/v1/completions", json.dumps(body).encode(),
+                                         {"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                for raw in r:
+                    if raw.startswith(b"data: {") and name not in first:
+                        first[name] = time.perf_counter()
+                if r.status != 200:
+                    errors.append(f"{name}: HTTP {r.status}")
+        except Exception as e:        # reported on the main thread
+            errors.append(f"{name}: {e!r}")
+
+    eng._note_admission = spy
+    try:
+        flood = [threading.Thread(target=client, args=(i, "bulk", QOS_BATCH_TOKENS),
+                                  daemon=True) for i in range(20)]
+        for t in flood:
+            t.start()
+        t0 = time.perf_counter()
+        while metric(base, "llm_waiting_requests") < 8 or len(first) < 8:
+            if time.perf_counter() - t0 > 60:
+                fail("the batch flood did not fill the slots and the queue")
+            time.sleep(0.01)
+        t_sent, t_mono = time.perf_counter(), time.monotonic()
+        inter = [threading.Thread(target=client, args=(i, "fe", 16), daemon=True)
+                 for i in range(4)]
+        for t in inter:
+            t.start()
+        for t in flood + inter:
+            t.join(timeout=600)
+    finally:
+        del eng._note_admission
+    if errors:
+        fail(f"QoS drive: {errors[:3]}")
+    waiting = [r for r in admitted_reqs if r.tenant == "bulk" and r.admitted_at > t_mono]
+    fe = [r for r in admitted_reqs if r.tenant == "fe"]
+    if len(fe) != 4 or len(admitted_reqs) != 24 or not waiting:
+        fail(f"QoS drive: {len(fe)} interactive, {len(admitted_reqs)} admitted, "
+             f"{len(waiting)} batch requests waiting when they were sent")
+    # admission order (the spy's list) and the engine's first-token stamps:
+    # an interactive request may share a prefill call with a batch one, so
+    # its first token is no later than theirs, and seated before them
+    order = {id(r): k for k, r in enumerate(admitted_reqs)}
+    seated_first = max(order[id(r)] for r in fe) < min(order[id(r)] for r in waiting)
+    i_first = max(r.first_token_at for r in fe)
+    w_first = min(r.first_token_at for r in waiting)
+    admitted = {p: metric(base, "llm_tenant_admitted_total", f'priority="{p}"')
+                for p in ("batch", "interactive")}
+    say(f"  QoS: 20 batch streams (tenant 'bulk', {QOS_BATCH_TOKENS} tokens) then 4 "
+        f"interactive ('fe', 16) "
+        f"sent while {len(waiting)} batch requests waited: interactive first tokens "
+        f"{sorted(round((r.first_token_at - t_mono) * 1000, 1) for r in fe)} ms after sending "
+        f"(clients {sorted(round((first[f'fe{i}'] - t_sent) * 1000, 1) for i in range(4))}), "
+        f"the first waiting batch request's {(w_first - t_mono) * 1000:.1f} ms; admitted "
+        f"{admitted}")
+    if not seated_first or i_first > w_first:
+        fail("an interactive request was seated, or got its first token, after a batch "
+             "request that was waiting when it was sent")
+    if admitted != {"batch": 20.0, "interactive": 4.0}:
+        fail(f"llm_tenant_admitted_total {admitted}")
+    check_graphed("QoS server", kernel_counts(base), counts0)
+    status, raw = http("GET", base + "/metrics")
+    path = os.path.join(OUT_DIR, "metrics_qos.txt")
+    with open(path, "wb") as f:
+        f.write(raw)
+    lint = subprocess.run([sys.executable, os.path.join("scripts", "metrics_lint.py"), path],
+                          capture_output=True, text=True, timeout=60)
+    if status != 200 or lint.returncode != 0:
+        fail(f"QoS /metrics: HTTP {status}; metrics_lint: {lint.stdout[-2000:]}")
+    return {"waiting": len(waiting), "admitted": admitted}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the JAX bench's headline configuration, in process
 # ---------------------------------------------------------------------------
 
@@ -4435,6 +5165,7 @@ def main(argv) -> int:
     fused = phase_in_process(torch, MODEL, echo_logprobs=served["surface"]["echo_logprobs"])
     say(f"phase 4 (fused): {time.perf_counter() - t0:.1f} s")
     ledger = phase_ledger_guided(torch)
+    tier = phase_tier_handoff_qos(torch, fused[None]["roomy"])
     ckpt = phase_checkpoint(torch)
     tok_llama3 = phase_tokenizer_llama3()
     headline = phase_headline(torch)
@@ -4454,7 +5185,11 @@ def main(argv) -> int:
              LEDGER_PATH: ledger["launches"],
              fused_bf16: fused[None]["launches"], fused_int8: fused["int8"]["launches"],
              ckpt_bf16: ckpt[None]["launches"], ckpt_int8: ckpt["int8"]["launches"],
-             HEADLINE_PATH: headline["launches"]}
+             HEADLINE_PATH: headline["launches"], TIER_PATH: tier["tier"]["launches"],
+             PREFILL_PATH: tier["disagg"]["prefill_launches"],
+             DECODE_PATH: tier["disagg"]["launches"],
+             f"{MODEL} {DRILL_LAYERS} layers handoff drills and QoS server":
+                 tier["drills"]["launches"]}
     main_path = {"flash_prefill": ckpt_bf16, "paged_decode": ckpt_bf16,
                  "paged_write_window": ckpt_bf16, "paged_decode_int8": ckpt_int8,
                  "paged_write_window_int8": ckpt_int8, "paged_decode_write": fused_bf16,

@@ -3,11 +3,16 @@
     python -m llms_on_kubernetes_tpu_torch serve --model MODEL [--random-weights] \\
         [--device cuda|cpu] [--port 8080] [--kv-cache-dtype int8] [--kv-write dus|fused] \\
         [--quantization int8|fp8|awq] [--no-prefix-caching] [--watchdog-stall-s S] \\
-        [--decode-steps K]
+        [--decode-steps K] [--kv-host-cache-gb GB]
 
-``--decode-steps`` and ``--kv-write`` default to the environment
-(``LLMK_DECODE_STEPS``, ``LLMK_KV_WRITE``), as the JAX engine's config
-does; a flag wins over the environment. ``LLMK_FAULT`` arms the fault
+``--decode-steps``, ``--kv-write`` and ``--kv-host-cache-gb`` default to
+the environment (``LLMK_DECODE_STEPS``, ``LLMK_KV_WRITE``,
+``LLMK_KV_HOST_CACHE_GB``), as the JAX engine's config does; a flag wins
+over the environment. The serving role (prefill, decode or both) comes
+from ``LLMK_ROLE`` alone, and the engine's fair-queue config from
+``LLMK_QOS``, JSON as the JAX CLI reads it: ``{"weights": {"alice": 4},
+"priorities": {"bulk": "batch"}, "default_priority": "normal",
+"default_weight": 1, "starvation_s": 5}``. ``LLMK_FAULT`` arms the fault
 hooks of ``faults.py``.
 
 ``MODEL`` is a registry name (``configs.py``), a local checkpoint directory
@@ -27,6 +32,9 @@ in flight are done, at most 55 s later (``EngineLoop.drain_timeout_s``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import os
 import sys
 
 
@@ -37,7 +45,9 @@ def _buckets(v: str) -> tuple[int, ...]:
 def build_parser() -> argparse.ArgumentParser:
     from llms_on_kubernetes_tpu_torch.engine.engine import EngineConfig
 
-    d = EngineConfig()
+    # the fields' own defaults: EngineConfig() would validate the
+    # environment (LLMK_ROLE=prefill needs the tier a flag may give)
+    d = argparse.Namespace(**{f.name: f.default for f in dataclasses.fields(EngineConfig)})
     ap = argparse.ArgumentParser(prog="python -m llms_on_kubernetes_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("serve", help="run the OpenAI-compatible engine server")
@@ -71,6 +81,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "format (auto-detected otherwise)")
     p.add_argument("--no-prefix-caching", dest="prefix_caching", action="store_false",
                    help="disable hash-chained prefix reuse (cached prompt pages)")
+    p.add_argument("--kv-host-cache-gb", type=float, default=None,
+                   help="host-RAM KV tier in GiB: finished and preempted sessions park "
+                        "their pages in host memory and a returning one uploads them "
+                        "instead of prefilling (default: env LLMK_KV_HOST_CACHE_GB, else "
+                        "off; needs prefix caching)")
     p.add_argument("--watchdog-stall-s", type=float, default=d.watchdog_stall_s,
                    help="seconds a device step may go without completing before the "
                         "engine sheds all work as 'stalled' and /health turns 503 "
@@ -79,10 +94,26 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def qos_from_env() -> dict:
+    """``LLMK_QOS`` (the engine's fair-queue config, JSON) as EngineConfig
+    keywords, as the JAX CLI reads it; unset or empty: none."""
+    raw = os.environ.get("LLMK_QOS", "").strip()
+    if not raw:
+        return {}
+    try:
+        q = json.loads(raw)
+    except ValueError as e:
+        raise SystemExit(f"[serve] LLMK_QOS is not valid JSON: {e}")
+    return dict(qos_weights=q.get("weights", ()), qos_priorities=q.get("priorities", ()),
+                qos_default_weight=float(q.get("default_weight", 1.0)),
+                qos_default_priority=str(q.get("default_priority", "normal")),
+                qos_starvation_s=float(q.get("starvation_s", 5.0)))
+
+
 def engine_config_from_args(args):
     """The ``serve`` flags as an ``EngineConfig``; a flag left unset (None)
     falls through to the config's own default, the environment's where
-    the config reads one."""
+    the config reads one. ``LLMK_QOS`` adds the fair-queue fields."""
     from llms_on_kubernetes_tpu_torch.engine.engine import EngineConfig
 
     return EngineConfig(
@@ -92,7 +123,8 @@ def engine_config_from_args(args):
         decode_steps=args.decode_steps, kv_write=args.kv_write,
         kv_cache_dtype=args.kv_cache_dtype, quantization=args.quantization,
         prefix_caching=args.prefix_caching, watchdog_stall_s=args.watchdog_stall_s,
-        seed=args.seed, device=args.device)
+        kv_host_cache_gb=args.kv_host_cache_gb, seed=args.seed, device=args.device,
+        **qos_from_env())
 
 
 def main(argv=None) -> int:

@@ -1,5 +1,6 @@
 """Paged KV cache: device-side page pool + host-side page allocator
-(counterpart of ``llms_on_kubernetes_tpu/engine/cache.py``).
+(counterpart of ``llms_on_kubernetes_tpu/engine/cache.py``), and the
+host-RAM tier the finished and preempted slots' pages spill into.
 
 The layout is the JAX package's, so the tests compare like with like:
 
@@ -23,6 +24,13 @@ JAX function's max/clamp/round/clip chain with true IEEE division, so its
 bytes equal those of the JAX ``quantize_kv`` run eagerly. (Under
 ``jax.jit`` XLA-CPU rewrites the division by 127 as a multiply, and a
 scale can then differ by one ulp and a value by one.)
+
+The host tier (``HostKVCache``, the JAX class): one entry per spilled page,
+keyed by (tenant, chained prefix digest), the payload the raw pool bytes of
+that page over all layers. numpy has no bfloat16 without ml_dtypes, which
+the port does not use: a bf16 pool's payload holds the same bytes as
+``uint16`` (``BF16_VIEW``), and ``payload_shape_ok`` also takes the JAX
+payload's ``bfloat16`` arrays, which ``as_pool_view`` turns into that view.
 """
 
 from __future__ import annotations
@@ -413,3 +421,177 @@ class PageAllocator:
             except RuntimeError:
                 continue
         return []
+
+
+# numpy holds a bf16 pool's bytes as this dtype (same width, no arithmetic)
+BF16_VIEW = np.dtype(np.uint16)
+
+
+def payload_data_dtype(cfg: CacheConfig) -> np.dtype:
+    """The numpy dtype of a host-tier payload's ``k`` / ``v`` for pools of
+    ``cfg``: int8, float32, or ``BF16_VIEW`` for bfloat16."""
+    if cfg.kv_dtype == "int8":
+        return np.dtype(np.int8)
+    if torch_dtype(cfg.dtype) == torch.bfloat16:
+        return BF16_VIEW
+    return np.dtype(np.float32)
+
+
+def _is_bf16_array(a) -> bool:
+    """A numpy array of ml_dtypes' bfloat16 (a JAX payload), recognized by
+    its dtype's name and width so ml_dtypes need not be imported."""
+    return isinstance(a, np.ndarray) and a.dtype.name == "bfloat16" and a.dtype.itemsize == 2
+
+
+def as_pool_view(payload: dict) -> dict:
+    """``payload`` with any ml_dtypes bfloat16 array viewed as
+    ``BF16_VIEW`` (the same bytes); other arrays unchanged."""
+    return {k: (a.view(BF16_VIEW) if _is_bf16_array(a) else a) for k, a in payload.items()}
+
+
+class HostKVCache:
+    """Host-RAM offload tier for inactive sessions' KV pages (the JAX
+    ``HostKVCache``).
+
+    When a slot is freed (finish) or preempted, its full pages spill here:
+    one entry per page, keyed by (tenant, chained prefix digest), the same
+    digest the ``PageAllocator``'s device prefix cache chains (salt
+    included), so a returning session's tokens address both tiers with one
+    hash pass. On a matching admission the engine uploads the pages and
+    prefills only past them.
+
+    Payloads are raw pool bytes per page, all layers stacked: ``{"k":
+    [n_kv, L, page, d], "v": ..., "ks": [n_kv, L, page] | None, "vs": ...}``
+    (int8 data and f32 scales for int8 pools, else the pool's bytes, bf16
+    as ``BF16_VIEW``), so a reuse round-trips the exact bytes the device
+    wrote and greedy streams are the same with the tier on or off.
+
+    Keyed by tenant so one tenant's sessions are never served another's KV
+    and per-tenant flushes stay possible. Plain LRU over bytes. The engine
+    thread owns the hot paths; the disaggregated handoff reads and writes
+    the tier from server threads, so every touch of the entry map holds
+    ``_lock``.
+    """
+
+    def __init__(self, capacity_bytes: int, page_size: int):
+        import threading
+
+        self.capacity_bytes = int(capacity_bytes)
+        self.page_size = page_size
+        self._entries: "dict[tuple[str, bytes], dict]" = {}
+        self._bytes = 0
+        self._lock = threading.RLock()
+        self.hits = 0        # pages served to a resuming session
+        self.misses = 0      # landed admissions whose chain had no page here
+        self.evictions = 0   # pages dropped by LRU pressure
+        self.spilled_pages = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    @property
+    def used_bytes(self) -> int:
+        return self._bytes
+
+    @staticmethod
+    def _nbytes(payload: dict) -> int:
+        return sum(int(a.nbytes) for a in payload.values() if a is not None)
+
+    def put(self, tenant: str, digest: bytes, payload: dict) -> None:
+        with self._lock:
+            key = (tenant, digest)
+            old = self._entries.pop(key, None)
+            if old is not None:          # the same prefix spilled again: refresh
+                self._bytes -= self._nbytes(old)
+            nb = self._nbytes(payload)
+            if nb > self.capacity_bytes:
+                return                   # one page larger than the whole tier
+            self._entries[key] = payload
+            self._bytes += nb
+            self.spilled_pages += 1
+            while self._bytes > self.capacity_bytes and self._entries:
+                k, v = next(iter(self._entries.items()))
+                if k == key:             # never evict the page just stored
+                    break
+                del self._entries[k]
+                self._bytes -= self._nbytes(v)
+                self.evictions += 1
+
+    def match_chain(self, tenant: str, digests: "list[bytes]",
+                    start: int) -> "tuple[list[bytes], list[dict]]":
+        """(matched digests, payloads) of the longest run of consecutive
+        pages present, walking ``digests[start:]``. A pure peek (no counts,
+        no recency): a blocked admission probes again every step. Call
+        ``commit`` once the admission lands."""
+        matched: "list[bytes]" = []
+        out: "list[dict]" = []
+        with self._lock:
+            for d in digests[start:]:
+                e = self._entries.get((tenant, d))
+                if e is None:
+                    break
+                matched.append(d)
+                out.append(e)
+        return matched, out
+
+    def digests(self) -> "list[bytes]":
+        """The digest of every resident entry (all tenants), for the
+        replica's /ready filter. A peek; tenancy is enforced at adoption."""
+        with self._lock:
+            return [d for (_t, d) in self._entries]
+
+    def export(self, tenant: str, digests: "list[bytes]") -> "list[Optional[dict]]":
+        """Payloads for a pulling decode replica, one per digest (None
+        where the page is gone). A peek, like ``match_chain``."""
+        with self._lock:
+            return [self._entries.get((tenant, d)) for d in digests]
+
+    def commit(self, tenant: str, digests: "list[bytes]") -> None:
+        """A landed admission's outcome: one hit per page served
+        (refreshing its recency), or one miss for an empty match. Entries
+        evicted between probe and commit are skipped: the engine uploads
+        the payloads it captured at the probe."""
+        served = 0
+        with self._lock:
+            for d in digests:
+                key = (tenant, d)
+                e = self._entries.pop(key, None)
+                if e is None:
+                    continue
+                self._entries[key] = e   # move to the end: LRU recency
+                served += 1
+            if served:
+                self.hits += served
+            else:
+                self.misses += 1
+
+
+def payload_shape_ok(payload, cache_config: CacheConfig) -> bool:
+    """True iff a host-tier payload has exactly the per-page shapes and
+    dtypes this engine's pools expect (the JAX ``payload_shape_ok``): the
+    guard of the handoff ingest, whose payloads crossed a network from a
+    replica that may run another model or were corrupted on the way. A
+    bf16 pool takes its own ``BF16_VIEW`` and the JAX payload's
+    ``bfloat16``; everything the JAX check refuses is refused."""
+    cc = cache_config
+    if not isinstance(payload, dict):
+        return False
+    k, v = payload.get("k"), payload.get("v")
+    ks, vs = payload.get("ks"), payload.get("vs")
+    want = (cc.num_kv_heads, cc.num_layers, cc.page_size, cc.head_dim)
+    data_dtype = payload_data_dtype(cc)
+    for side in (k, v):
+        if not isinstance(side, np.ndarray) or side.shape != want:
+            return False
+        if side.dtype != data_dtype and not (data_dtype == BF16_VIEW and _is_bf16_array(side)):
+            return False
+    if cc.kv_dtype == "int8":
+        want_s = (cc.num_kv_heads, cc.num_layers, cc.page_size)
+        for scale in (ks, vs):
+            if (not isinstance(scale, np.ndarray) or scale.shape != want_s
+                    or scale.dtype != np.dtype(np.float32)):
+                return False
+    elif ks is not None or vs is not None:
+        return False
+    return True

@@ -19,7 +19,8 @@ Memory: pages are allocated on demand. Admission allocates pages for the
 prompt and one token (after adopting the longest cached prefix of the
 prompt: prefix caching, on by default); each decode window grows each row
 to the positions it plans. When the pool runs out, the youngest request
-is preempted: its pages are freed and it goes back to the front of the
+of the lowest priority class is preempted: its pages are freed (spilled to
+the host tier first, when it is on) and it goes back to the front of the
 queue, to re-prefill its prompt and every token it emitted but the last
 (the prefill's sample is thrown away, the penalty counts are rebuilt
 from the replayed tokens), so its stream is the one it would have been.
@@ -114,8 +115,36 @@ replays the FSM window graph (``engine/graphs.py``), a grammar-free window
 the grammar-free graph. A preempted or resumed request replays its state
 on the host over its output and its first window sets it (``fsm_set``).
 
-Not ported yet: priority classes (QoS), the host KV tier and handoff,
-LoRA, multimodal salts and speculation.
+Tenants and priority classes (``engine/qos.py``, as in the JAX engine):
+``waiting`` is a ``TenantFairQueue``, deficit round robin across tenants
+inside strict classes (interactive > normal > batch) with starvation
+aging; a request's ``tenant`` and ``priority`` are fixed at submit (the
+``qos_*`` fields map tenants to weights and classes). The preemption
+victim is the lowest class's youngest request. ``tenant_admitted`` and
+``tenant_wait_obs`` count first admissions for the server's series.
+
+The host KV tier (``kv_host_cache_gb`` > 0, env ``LLMK_KV_HOST_CACHE_GB``,
+with prefix caching; ``engine/cache.HostKVCache``): a finishing or
+preempted request's full pages, whose KV is committed, spill to host RAM
+keyed by (tenant, digest). The gather is enqueued on the compute stream
+before ``allocator.free`` hands the pages on, and its device-to-host copy
+lands in a reusable pinned ring, waited for later through the harvester's
+condition with the watchdog budget (``_drain_spills``: at the next
+admission probe, when the ring is full, or at once for a handoff). An
+admission walks the same digest chain through the tier past the device
+hit and uploads the matched pages into its fresh pages in place (the
+window graphs hold the pools' addresses), on the stream before the chunk
+prefill that reads them. The gather and the upload are ``index_select``
+and ``index_copy_`` on the flat page axis (XLA ``take`` / ``.at[].set``
+in JAX, not Pallas).
+
+The disaggregated handoff (``role``, env ``LLMK_ROLE``: prefill, decode or
+both; prefill needs the tier): ``submit(handoff=True)`` is a one-token
+prefill whose spills land in the tier before its finish is delivered;
+``handoff_digests``, ``host_kv_export`` and ``host_kv_ingest`` serve the
+server's ticket, ``/internal/kv/fetch`` and pull, from server threads.
+
+Not ported yet: LoRA, multimodal salts and speculation.
 """
 
 from __future__ import annotations
@@ -139,7 +168,7 @@ from llms_on_kubernetes_tpu_torch.configs import (
     ALIASES, REGISTRY, ModelConfig, from_hf_config, get_config,
 )
 from llms_on_kubernetes_tpu_torch.engine.cache import (
-    CacheConfig, PageAllocator, init_pages,
+    CacheConfig, HostKVCache, PageAllocator, as_pool_view, init_pages, payload_shape_ok,
 )
 from llms_on_kubernetes_tpu_torch.engine.graphs import (
     BIAS, BUD, DEC_COLS, FLOATS, FSM, LEN, LOGIT_BIAS_SLOTS, PRE_ROW, SEED, SRC, SRC_HOST,
@@ -147,6 +176,9 @@ from llms_on_kubernetes_tpu_torch.engine.graphs import (
     fsm_scatter, idle_rows, pack_bias, pack_results, unpack_bias, unpack_results, upload,
 )
 from llms_on_kubernetes_tpu_torch.engine.ledger import GoodputLedger, StepAnomalyDetector
+from llms_on_kubernetes_tpu_torch.engine.qos import (
+    MIN_WEIGHT, PRIORITIES, TenantFairQueue, normalize_priority, priority_rank,
+)
 from llms_on_kubernetes_tpu_torch.engine.sampling import (
     LOGPROB_TOPK, MAX_CANDIDATES, gumbel_noise, sample,
 )
@@ -186,6 +218,11 @@ _FSM_PRE = 11
 _BIAS_PRE = 13
 _PRE_COLS = _BIAS_PRE + 2 * LOGIT_BIAS_SLOTS
 _OFF = ("0", "false", "off", "no")
+ROLES = ("prefill", "decode", "both")
+# spills queued before a drain (the JAX engine's threshold), and the
+# least pages the pinned spill ring holds
+_SPILL_DRAIN_AT = 32
+_SPILL_RING_MIN_PAGES = 32
 
 
 class EngineStallError(RuntimeError):
@@ -288,6 +325,27 @@ class EngineConfig:
     max_grammars: int = 4
     grammar_states: int = 4096
     grammar_classes: int = 512
+    # the host-RAM KV tier (engine/cache.HostKVCache) in GiB: finished and
+    # preempted slots spill their full pages there, a returning session
+    # uploads them instead of prefilling them. Needs prefix_caching (the
+    # digest chain addresses both tiers). None => env
+    # LLMK_KV_HOST_CACHE_GB; <= 0: off
+    kv_host_cache_gb: Optional[float] = None
+    # disaggregated serving role: "both" serves prefill and decode;
+    # "prefill" answers generation requests with a handoff ticket (its
+    # pages spilled to the tier); "decode" adopts handed-off pages. The
+    # engine stays fully capable under every role: the role shapes the
+    # server. None => env LLMK_ROLE (default "both")
+    role: Optional[str] = None
+    # per-tenant QoS (engine/qos.py): deficit-weighted fair queuing across
+    # tenants inside strict priority classes; (tenant, value) pairs (dicts
+    # normalize); unlisted tenants get the defaults. Starvation aging: a
+    # lower-class head waiting > qos_starvation_s goes first (<= 0: off)
+    qos_weights: tuple = ()
+    qos_priorities: tuple = ()
+    qos_default_weight: float = 1.0
+    qos_default_priority: str = "normal"
+    qos_starvation_s: float = 5.0
 
     def __post_init__(self):
         if self.kv_write is None:
@@ -335,6 +393,37 @@ class EngineConfig:
         self.prefill_buckets = tuple(sorted(int(b) for b in self.prefill_buckets))
         if not self.prefill_buckets or self.prefill_buckets[0] < 1:
             raise ValueError(f"bad prefill_buckets {self.prefill_buckets!r}")
+        if self.kv_host_cache_gb is None:
+            self.kv_host_cache_gb = float(os.environ.get("LLMK_KV_HOST_CACHE_GB", "0"))
+        if self.kv_host_cache_gb < 0:
+            self.kv_host_cache_gb = 0.0
+        if self.role is None:
+            self.role = os.environ.get("LLMK_ROLE", "both").strip() or "both"
+        if self.role not in ROLES:
+            raise ValueError(f"role must be 'prefill', 'decode', or 'both', got {self.role!r}")
+        if self.role == "prefill" and self.kv_host_cache_gb <= 0:
+            raise ValueError("role='prefill' requires kv_host_cache_gb > 0: handoff tickets "
+                             "point decode replicas at pages spilled into the host tier")
+        if isinstance(self.qos_weights, dict):
+            self.qos_weights = tuple(sorted(self.qos_weights.items()))
+        self.qos_weights = tuple((str(t), float(w)) for t, w in self.qos_weights)
+        for tenant, w in self.qos_weights:
+            if w < MIN_WEIGHT:
+                raise ValueError(f"qos weight for tenant {tenant!r} must be >= {MIN_WEIGHT}, "
+                                 f"got {w}")
+        if isinstance(self.qos_priorities, dict):
+            self.qos_priorities = tuple(sorted(self.qos_priorities.items()))
+        self.qos_priorities = tuple((str(t), str(p)) for t, p in self.qos_priorities)
+        for tenant, p in self.qos_priorities:
+            if p not in PRIORITIES:
+                raise ValueError(f"qos priority for tenant {tenant!r} must be one of "
+                                 f"{PRIORITIES}, got {p!r}")
+        if self.qos_default_priority not in PRIORITIES:
+            raise ValueError(f"qos_default_priority must be one of {PRIORITIES}, got "
+                             f"{self.qos_default_priority!r}")
+        if self.qos_default_weight < MIN_WEIGHT:
+            raise ValueError(f"qos_default_weight must be >= {MIN_WEIGHT}, got "
+                             f"{self.qos_default_weight}")
 
     @property
     def max_model_len(self) -> int:
@@ -385,6 +474,13 @@ class Request:
     fsm_row: int = -1
     fsm_start: int = -1
     pending_fsm_state: Optional[int] = None
+    # per-tenant QoS: the fair-queue bucket ("" = the shared default) and
+    # the resolved priority class, fixed at submit
+    tenant: str = ""
+    priority: str = "normal"
+    # a prefill-only handoff request (the server answers with a ticket):
+    # its spilled pages land in the host tier before its finish event
+    handoff: bool = False
 
 
 @dataclasses.dataclass
@@ -654,7 +750,34 @@ class Engine:
                                        prefix_caching=engine_config.prefix_caching)
         self.slots: list[Optional[Request]] = [None] * B
         self.slot_len = np.zeros((B,), np.int64)   # tokens whose KV is cached
-        self.waiting: "collections.deque[Request]" = collections.deque()
+        # per-tenant fair admission: priority classes and deficit round
+        # robin keyed by Request.tenant; the deque surface the scheduler
+        # uses ([0], popleft, appendleft, remove, clear, iteration)
+        self.waiting: TenantFairQueue = TenantFairQueue(
+            weights=dict(engine_config.qos_weights),
+            default_weight=engine_config.qos_default_weight,
+            starvation_s=engine_config.qos_starvation_s)
+        # first admissions per (tenant, priority), and (tenant, queue-wait
+        # seconds, priority) observations, drained by the server's loop
+        self.tenant_admitted: "collections.Counter" = collections.Counter()
+        self.tenant_wait_obs: "collections.deque" = collections.deque(maxlen=4096)
+        # the host KV tier (None: off): spills queued (tenant, digests,
+        # payload source) until _drain_spills lands them; per-slot staged
+        # host adoptions (first device page, digests, payloads) between the
+        # admission probe and its commit; seconds per upload batch; tokens
+        # whose prefill an upload replaced
+        self.host_kv: Optional[HostKVCache] = None
+        if engine_config.kv_host_cache_gb > 0 and engine_config.prefix_caching:
+            self.host_kv = HostKVCache(int(engine_config.kv_host_cache_gb * (1 << 30)),
+                                       engine_config.page_size)
+        self._pending_spills: list = []
+        self._spill_ring: Optional[tuple] = None
+        self._spill_ring_used = 0
+        self._host_adopt: dict = {}
+        self._upload_stage: Optional[tuple] = None
+        self._upload_event = None
+        self.kv_upload_obs: "collections.deque[float]" = collections.deque(maxlen=4096)
+        self.kv_uploaded_tokens = 0
         self._lock = threading.Lock()
         self._id_counter = iter(range(2 ** 62))
         self._seed_rng = np.random.default_rng(engine_config.seed)
@@ -748,7 +871,8 @@ class Engine:
 
     def submit(self, prompt: list[int], params: Optional[SamplingParams] = None,
                request_id: Optional[str] = None, on_event=None,
-               deadline: Optional[float] = None) -> Request:
+               deadline: Optional[float] = None, tenant: Optional[str] = None,
+               priority: Optional[str] = None, handoff: bool = False) -> Request:
         if self.wedged:
             raise EngineStallError("engine wedged: a device step stalled past the watchdog "
                                    "budget; restart the server to recover")
@@ -819,6 +943,13 @@ class Engine:
             raise ValueError(f"prompt + max_tokens ({len(prompt) + params.max_tokens} "
                              f"tokens) needs more pages than the pool holds "
                              f"({self.config.num_pages - 1})")
+        # QoS identity: the fair-queue bucket ("" = the shared default) and
+        # the class, resolved submit argument > per-tenant config > default
+        tenant = str(tenant) if tenant else ""
+        if priority is None:
+            priority = dict(self.config.qos_priorities).get(
+                tenant, self.config.qos_default_priority)
+        priority = normalize_priority(priority, self.config.qos_default_priority)
         with self._lock:
             seed = (params.seed if params.seed is not None
                     else int(self._seed_rng.integers(0, 2 ** 31 - 1))) & 0x7FFFFFFF
@@ -829,7 +960,8 @@ class Engine:
                           prompt=[int(t) for t in prompt], params=params, seed=seed,
                           submitted_at=time.monotonic(), deadline=deadline,
                           output=prefix, output_logprobs=[None] * len(prefix),
-                          on_event=on_event)
+                          on_event=on_event, tenant=tenant, priority=priority,
+                          handoff=handoff)
             if len(self.waiting) >= self.config.max_waiting:
                 raise QueueFullError(f"waiting queue is full ({self.config.max_waiting} "
                                      f"requests); retry later")
@@ -900,6 +1032,7 @@ class Engine:
         self._inflight.clear()
         self._pending_first = []
         self._ledger_prefills.clear()
+        self._host_adopt.clear()
         return events
 
     def _stall_budget(self) -> Optional[float]:
@@ -919,13 +1052,52 @@ class Engine:
         print(f"[engine] wedged: {why}; waiting {len(self.waiting)}, active "
               f"{sum(r is not None for r in self.slots)}", file=sys.stderr, flush=True)
         self.wedged = True
+        # spill copies queued behind the stalled work never land
+        self._pending_spills.clear()
+        self._spill_ring_used = 0
         return self._finish_all("stalled")
 
     def prefix_filter_digests(self) -> list[bytes]:
-        """Every chained page digest the device prefix cache holds now (the
-        port has no host tier): what the server's /ready bloom filter
-        advertises to the routers. A snapshot, safe from server threads."""
-        return self.allocator.prefix_digests()
+        """Every chained page digest this replica can serve as cache now,
+        the device prefix cache's and the host tier's: what the server's
+        /ready bloom filter advertises to the routers. A snapshot, safe
+        from server threads."""
+        out = self.allocator.prefix_digests()
+        if self.host_kv is not None:
+            seen = set(out)
+            out.extend(d for d in self.host_kv.digests() if d not in seen)
+        return out
+
+    # ------------------------------------------------------------------
+    # disaggregated prefill/decode handoff (the server drives these from
+    # its threads; HostKVCache is locked for that)
+    # ------------------------------------------------------------------
+
+    def handoff_digests(self, tokens, salt: bytes = b"") -> list[bytes]:
+        """Chained digests of the FULL pages of ``tokens``: the handoff
+        ticket's address of what ``_finish`` spilled. Pure hashing, safe
+        from any thread."""
+        page = self.allocator.page_size
+        if len(tokens) // page <= 0:
+            return []
+        return self.allocator._digests(tokens[:len(tokens) // page * page], salt=salt)
+
+    def host_kv_export(self, tenant: str, digests: list[bytes]) -> list[Optional[dict]]:
+        """Host-tier payloads for a pulling decode replica (None per missing
+        page; all None when the tier is off)."""
+        if self.host_kv is None:
+            return [None] * len(digests)
+        return self.host_kv.export(tenant, digests)
+
+    def host_kv_ingest(self, tenant: str, digest: bytes, payload: dict) -> bool:
+        """Land one pulled handoff page in this replica's host tier, so the
+        next admission's chain walk finds it. A payload whose shapes or
+        dtypes do not fit this engine's pools is refused (False): that
+        page re-prefills, degraded, never wrong bytes."""
+        if self.host_kv is None or not payload_shape_ok(payload, self.cache_config):
+            return False
+        self.host_kv.put(tenant, digest, as_pool_view(payload))
+        return True
 
     def score_prompt(self, prompt: list[int]) -> tuple[list, list, list]:
         """Per-position prompt logprobs (the OpenAI ``echo`` + ``logprobs``
@@ -1028,25 +1200,46 @@ class Engine:
             req.trace.event("finish", request=req.id, reason=reason, tokens=len(req.output))
         self._g_release(req)
         if req.slot >= 0:
+            # spill the full pages to the host tier BEFORE the allocator can
+            # hand them on (not on a wedged card: the gather would never run)
+            if reason != "stalled" and not self.wedged:
+                self._spill_slot(req)
+                # a handoff's whole product is its spilled pages: they land
+                # in the tier before the finish event reaches the server,
+                # so the decode replica's pull never races the drain
+                if (self.config.role == "prefill" or req.handoff) and self.host_kv is not None:
+                    self._drain_spills()
             self.allocator.free(req.slot)
             self.slot_len[req.slot] = 0
             self.slots[req.slot] = None
             req.slot = -1
         return StepEvent(req, [], True, reason)
 
+    def _note_admission(self, req: Request) -> None:
+        """Per-tenant admission accounting at a request's FIRST seating (a
+        preemption round trip is not new tenant throughput)."""
+        if req.admitted_at is not None:
+            return
+        self.tenant_admitted[(req.tenant, req.priority)] += 1
+        self.tenant_wait_obs.append((req.tenant, time.monotonic() - req.submitted_at,
+                                     req.priority))
+
     def _preempt_youngest(self) -> None:
-        """Free the youngest running request's pages and requeue it at the
-        front, to re-prefill (prompt + output so far) when pages free up.
-        There are no priority classes yet: the victim is the youngest
-        submission."""
+        """Free a victim's pages and requeue it at the front, to resume
+        (prompt + output so far) when pages free up. The victim is the
+        lowest class's youngest submission (batch before normal before
+        interactive), so KV pressure lands on preemptible traffic first.
+        With the host tier on, its full pages spill there first and its
+        admission uploads them instead of prefilling them."""
         victims = [r for r in self.slots if r is not None]
         if not victims:
             raise MemoryError("KV pool exhausted with no preemptable request")
-        victim = max(victims, key=lambda r: r.submitted_at)
+        victim = max(victims, key=lambda r: (priority_rank(r.priority), r.submitted_at))
         self.preemptions += 1
         if victim.trace is not None:
             victim.trace.event("preempted", request=victim.id, tokens=len(victim.output))
         slot = victim.slot
+        self._spill_slot(victim)
         self.allocator.free(slot)
         self.slot_len[slot] = 0
         self.slots[slot] = None
@@ -1063,7 +1256,8 @@ class Engine:
 
     def _seat_next(self, events: list[StepEvent], accept=None) -> Optional[tuple]:
         """Seat the queue's head (the caller holds ``_lock``): a slot, the
-        longest cached prefix of its prompt, and pages for its prefill
+        longest cached prefix of its prompt (device pages, then host-tier
+        pages staged for ``_host_kv_commit``), and pages for its prefill
         tokens and one more. A fresh request prefills its prompt; a resumed
         (preempted: it has output) one its prompt and every output token
         but the pending last one, and finishes with "length" here when that
@@ -1088,11 +1282,12 @@ class Engine:
                 continue
             # adopt the cached prefix FIRST, so the page check counts only
             # the pages past it; roll back if the request is not taken now
-            hit = alloc.adopt_prefix(slot, req.prompt, salt=req.cache_salt)
+            hit = self._adopt_cached_prefix(slot, req, ptoks)
             if ((accept is not None and not accept(ptoks, hit))
                     or not alloc.can_allocate(slot, n + 1)):
                 if hit:
                     alloc.rollback_adopt(slot)
+                self._host_adopt.pop(slot, None)
                 return None
             self.waiting.popleft()
             alloc.allocate(slot, n + 1)
@@ -1100,6 +1295,7 @@ class Engine:
                 alloc.commit_adopt(slot, hit)
             self.slots[slot] = req
             req.slot = slot
+            self._note_admission(req)
             if req.admitted_at is None:
                 req.admitted_at = time.monotonic()
             if resumed and req.fsm_row >= 0:
@@ -1127,6 +1323,9 @@ class Engine:
         with self._lock:
             while (seat := self._seat_next(events)) is not None:
                 seats.append(seat)
+        for seat in seats:
+            # host-tier pages upload before any prefill below is dispatched
+            self._host_kv_commit(seat[0], seat[1])
         by_bucket: dict[int, list[tuple]] = {}
         chunked = []
         for seat in seats:
@@ -1458,6 +1657,11 @@ class Engine:
                     long_pick = seat
                     break
                 picked.append(seat)
+        for seat in picked + ([long_pick] if long_pick is not None else []):
+            # host-tier pages upload before the prefill that reads them is
+            # dispatched (outside the lock: the stacking must not block
+            # submit())
+            self._host_kv_commit(seat[0], seat[1])
         merge: dict = {"slots": {}}
         t_launch = time.monotonic()
         if long_pick is not None:
@@ -1664,6 +1868,206 @@ class Engine:
         return events
 
     # ------------------------------------------------------------------
+    # the host KV tier
+    # ------------------------------------------------------------------
+
+    def _adopt_cached_prefix(self, slot: int, req: Request, ptoks: list[int]) -> int:
+        """Adopt the longest cached prefix for an admission attempt (the
+        JAX ``_adopt_cached_prefix``): the device prefix cache's pages of
+        the prompt, then, with the host tier on, the same digest chain
+        walked through the tier from where the device stopped, over the
+        whole prefill stream (a resume's replayed output too), leaving at
+        least one token to prefill. Returns the tokens covered by both.
+        The host part is a peek, staged in ``_host_adopt[slot]``; only
+        ``_host_kv_commit`` uploads and counts."""
+        hit = self.allocator.adopt_prefix(slot, req.prompt, salt=req.cache_salt)
+        if self.host_kv is None:
+            return hit
+        self._drain_spills()
+        page = self.allocator.page_size
+        cap_pages = (len(ptoks) - 1) // page
+        start = hit // page
+        if cap_pages <= start:
+            return hit
+        digests = self.allocator._digests(ptoks[:cap_pages * page], salt=req.cache_salt)
+        matched, payloads = self.host_kv.match_chain(req.tenant, digests, start)
+        # pulled payloads crossed a network: a page that does not fit the
+        # pools stops the chain (the rest prefills), never lands
+        for i, pl in enumerate(payloads):
+            if not payload_shape_ok(pl, self.cache_config):
+                matched, payloads = matched[:i], payloads[:i]
+                break
+        self._host_adopt[slot] = (start, matched, payloads)
+        return hit + len(matched) * page
+
+    def _host_kv_commit(self, slot: int, req: Request) -> None:
+        """An admission with a staged host-tier probe landed: count the hit
+        or miss, refresh recency, and upload the matched pages into the
+        slot's fresh pages, in place, on the stream before the prefill
+        that reads them. No-op without a staged probe."""
+        staged = self._host_adopt.pop(slot, None)
+        if staged is None or self.host_kv is None:
+            return
+        first, matched, payloads = staged
+        self.host_kv.commit(req.tenant, matched)
+        if not payloads:
+            return
+        t0 = time.perf_counter()
+        m = len(payloads)
+        pages = self.allocator.slot_pages[slot][first:first + m]
+        idx = upload(self._flat_pages(pages), self.device)
+        for dst, stage, key in zip(self._pool_sides(), self._upload_staging(m),
+                                   ("k", "v", "ks", "vs")):
+            # one host copy a page into the staging [m, n_kv, L, ...], one
+            # copy to the card, then [n_kv, m * L, ...] there: page-major,
+            # layer-minor, as _flat_pages orders the pool indices
+            for j, pl in enumerate(payloads):
+                _as_int16(stage[j]).copy_(_as_int16(_torch_bytes(as_pool_view(pl)[key])))
+            src = stage[:m].to(self.device, non_blocking=True)
+            dst.index_copy_(1, idx, src.transpose(0, 1).reshape(dst.shape[0], -1,
+                                                               *dst.shape[2:]))
+        if self.device.type == "cuda":
+            # the staging is written again only once these copies have run
+            self._upload_event = torch.cuda.Event()
+            self._upload_event.record()
+        self.kv_upload_obs.append(time.perf_counter() - t0)
+        self.kv_uploaded_tokens += m * self.allocator.page_size
+
+    def _upload_staging(self, m: int) -> tuple:
+        """The upload staging, one tensor per pool side, [R, n_kv, L, page,
+        (d)]: on a card pinned, made once (R at least
+        ``_SPILL_RING_MIN_PAGES`` and a slot's pages, grown only for a
+        larger upload) and reused once the last upload's copies ran; on the
+        CPU, fresh memory."""
+        L = self.cache_config.num_layers
+        shapes = [(m, t.shape[0], L, *t.shape[2:]) for t in self._pool_sides()]
+        if self.device.type != "cuda":
+            return tuple(torch.empty(sh, dtype=t.dtype)
+                         for sh, t in zip(shapes, self._pool_sides()))
+        if self._upload_event is not None:
+            self._wait_event(self._upload_event, "a KV upload's host-to-device copy did not run")
+            self._upload_event = None
+        if self._upload_stage is None or self._upload_stage[0].shape[0] < m:
+            rows = max(_SPILL_RING_MIN_PAGES, self.config.pages_per_slot, m)
+            self._upload_stage = tuple(
+                torch.empty((rows, *sh[1:]), dtype=t.dtype, pin_memory=True)
+                for sh, t in zip(shapes, self._pool_sides()))
+        return self._upload_stage
+
+    def _flat_pages(self, pages: list[int]) -> np.ndarray:
+        """The flat pool index (l * P + page) of each page's every layer,
+        page-major: [m * L] int64."""
+        L, P = self.cache_config.num_layers, self.cache_config.num_pages
+        return (np.asarray(pages, np.int64)[:, None] + P * np.arange(L)[None, :]).reshape(-1)
+
+    def _pool_sides(self) -> list:
+        """The pool tensors a page spans: K and V data, and their scales for
+        an int8 pool, in payload order (k, v, ks, vs)."""
+        sides = [self.k_pages.data, self.v_pages.data]
+        if self.k_pages.scale is not None:
+            sides += [self.k_pages.scale, self.v_pages.scale]
+        return sides
+
+    def _spill_slot(self, req: Request) -> None:
+        """Queue a finishing or preempted slot's full, committed pages for
+        the host tier. Runs BEFORE ``allocator.free`` can hand the pages
+        on: the gather is enqueued now (stream order: after every write of
+        this request, before any of a successor), only the landing in the
+        tier waits for ``_drain_spills``. A full page holds positions below
+        ``slot_len`` only, so a window still in flight for this row (it
+        writes at ``slot_len`` and past) never touches it. Page 0, the
+        trash page, is never spilled."""
+        if self.host_kv is None or req.slot < 0:
+            return
+        slot = req.slot
+        page = self.allocator.page_size
+        tokens = req.prompt + req.output
+        n_full = min(len(tokens), int(self.slot_len[slot])) // page
+        if n_full <= 0:
+            return
+        digests = self.allocator._digests(tokens[:n_full * page], salt=req.cache_salt)
+        keep = [(d, p) for d, p in zip(digests, self.allocator.slot_pages[slot][:n_full])
+                if p != 0]
+        if not keep:
+            return
+        m, L = len(keep), self.cache_config.num_layers
+        idx = upload(self._flat_pages([p for _d, p in keep]), self.device)
+        # [n_kv, m * L, ...] -> [m, n_kv, L, ...]: each page's payload one
+        # contiguous block, so landing it in the tier is one plain copy
+        gathered = [t.index_select(1, idx).unflatten(1, (m, L)).transpose(0, 1).contiguous()
+                    for t in self._pool_sides()]
+        digests = [d for d, _p in keep]
+        if self.device.type != "cuda":
+            self._pending_spills.append((req.tenant, digests, gathered, None))
+        else:
+            if self._spill_ring is None or \
+                    self._spill_ring_used + m > self._spill_ring[0].shape[0]:
+                self._drain_spills()        # the ring's copies landed: reuse it
+            ring = self._spill_ring_for(m)
+            lo, hi = self._spill_ring_used, self._spill_ring_used + m
+            for dst, g in zip(ring, gathered):
+                dst[lo:hi].copy_(g, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            self._spill_ring_used = hi
+            self._pending_spills.append((req.tenant, digests, [dst[lo:hi] for dst in ring],
+                                         ev))
+        if len(self._pending_spills) > _SPILL_DRAIN_AT:
+            self._drain_spills()
+
+    def _spill_ring_for(self, m: int) -> tuple:
+        """The pinned spill ring, one tensor per pool side (K, V, and the
+        scales of an int8 pool), [R, n_kv, L, page, (d)] with R at least
+        ``_SPILL_RING_MIN_PAGES`` and a slot's pages; made once, grown only
+        for a spill larger than it."""
+        if self._spill_ring is not None and self._spill_ring[0].shape[0] >= m:
+            return self._spill_ring
+        rows = max(_SPILL_RING_MIN_PAGES, self.config.pages_per_slot, m)
+        L = self.cache_config.num_layers
+        self._spill_ring = tuple(
+            torch.empty((rows, t.shape[0], L, *t.shape[2:]), dtype=t.dtype, pin_memory=True)
+            for t in self._pool_sides())
+        self._spill_ring_used = 0
+        return self._spill_ring
+
+    def _drain_spills(self) -> None:
+        """Land the queued spills in the host tier (the JAX
+        ``_drain_spills``). On a card the engine thread waits for the last
+        spill's copy through the harvester's condition with the watchdog
+        budget (EngineStallError past it), never in an unbounded wait;
+        then each page is copied out of the pinned ring into memory of its
+        own (a torch copy: it releases the interpreter lock)."""
+        if not self._pending_spills:
+            return
+        last = self._pending_spills[-1][3]
+        if last is not None:
+            self._wait_event(last, "a KV spill's device-to-host copy did not land")
+        for tenant, digests, sides, _ev in self._pending_spills:
+            for j, d in enumerate(digests):
+                one = [_host_bytes(_host_copy(t[j])) for t in sides]
+                self.host_kv.put(tenant, d, {"k": one[0], "v": one[1],
+                                             "ks": one[2] if len(one) == 4 else None,
+                                             "vs": one[3] if len(one) == 4 else None})
+        self._pending_spills.clear()
+        self._spill_ring_used = 0
+
+    def _wait_event(self, ev, what: str) -> None:
+        """Wait for a CUDA event with the watchdog budget: through the
+        harvester's condition (async scheduling), else by polling."""
+        budget = self._stall_budget()
+        if self._harvester is not None:
+            key = -1 - next(self._first_counter)
+            self._harvester.push(key, _EventWait(ev), priority=True)
+            self._harvester.wait_key(key, timeout_s=budget)
+            self._harvester.discard_key(key)
+            return
+        deadline = None if budget is None else time.monotonic() + budget
+        while not ev.query():
+            if deadline is not None and time.monotonic() > deadline:
+                raise EngineStallError(f"{what} within the {budget:.1f} s watchdog budget")
+            time.sleep(0.0002)
+
+    # ------------------------------------------------------------------
     # grammar-constrained decoding: device-table residency
     # ------------------------------------------------------------------
 
@@ -1768,6 +2172,50 @@ class Engine:
                 self._g_release(req)
                 return
         req.pending_fsm_state = (req.fsm_start - g.start) + st   # base + replayed
+
+
+class _EventWait:
+    """A harvester item that only waits for a CUDA event (a spill's copy):
+    the harvester thread blocks on it, the engine thread on the harvester's
+    condition, with a deadline."""
+
+    def __init__(self, ev):
+        self.event = ev
+
+    def read(self) -> np.ndarray:
+        self.event.synchronize()
+        return np.zeros(0, np.int32)
+
+
+def _as_int16(t: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 host tensor viewed as int16 (a host copy of it is then a
+    plain memory copy: a bfloat16 one measured ~7x slower a byte on the
+    card's host); others unchanged."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of a host tensor (a ring slot) in fresh pageable memory of
+    its own, which the tier keeps (the ring is reused)."""
+    src = _as_int16(t)
+    return torch.empty(src.shape, dtype=src.dtype).copy_(src)
+
+
+def _host_bytes(t: torch.Tensor) -> np.ndarray:
+    """A host tensor's bytes as numpy, sharing its memory (bfloat16, or
+    its int16 view, as ``BF16_VIEW``)."""
+    t = _as_int16(t)
+    if t.dtype == torch.int16:
+        return t.numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _torch_bytes(a: np.ndarray) -> torch.Tensor:
+    """A payload array as a host tensor of the pool's dtype, sharing its
+    memory (``BF16_VIEW`` as bfloat16)."""
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _lp_entry(out: tuple, row: int) -> tuple:

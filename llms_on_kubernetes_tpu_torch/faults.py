@@ -7,11 +7,12 @@ The port wires the faults that apply to one replica on one card:
 ``engine_stall`` and ``slow_step`` at the harvester's completion
 (``engine/engine.py``), ``queue_stall`` at admission, and
 ``flappy_replica``, ``slow_cold_start``, ``preempt_replica``,
-``degraded_replica``, ``net_jitter`` and ``kill_mid_stream`` in the server
-(``server/openai_api.py``). ``kill_prefill_replica`` and ``drop_handoff``
-wait for the disaggregated roles, ``overload_spike`` belongs to the Python
-router and ``backend_hang`` to ``bench.py``; their entries below describe
-the reference.
+``degraded_replica``, ``net_jitter``, ``kill_mid_stream``,
+``kill_prefill_replica`` (armed at the serving transition of a
+prefill-role server) and ``drop_handoff`` (claimed per pull on the decode
+side) in the server (``server/openai_api.py``). ``overload_spike`` belongs
+to the Python router and ``backend_hang`` to ``bench.py``; their entries
+below describe the reference.
 
 Every fault-tolerance path in this repo — entry-point timeouts, router
 retries/breakers, the engine watchdog — is testable on CPU by flipping an

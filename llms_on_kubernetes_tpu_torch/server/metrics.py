@@ -4,10 +4,8 @@
 The registry, the metric kinds and the serving series keep the JAX
 module's names, help strings, label names and buckets, so the charts'
 scrape, alerts, dashboards and autoscalers read a port replica as they
-read a JAX one. Only the series the port feeds are here: the adapter,
-host-KV, handoff, speculation and fair-queue tenant families come with the
-slices that port those parts (the goodput ledger's per-tenant chip time is
-fed under the tenant "default").
+read a JAX one. Only the series the port feeds are here: the adapter and
+speculation families come with the slices that port those parts.
 """
 
 from __future__ import annotations
@@ -284,6 +282,46 @@ def engine_metrics(registry: Registry) -> dict:
         "engine_state": Gauge(
             "llm_engine_state",
             "Serving lifecycle: 0=loading 1=serving 2=draining 3=wedged", registry),
+        "tenant_admitted": Counter(
+            "llm_tenant_admitted_total",
+            "Requests admitted into a decode slot, by fair-queue tenant "
+            "and priority class (first admissions only; a preemption "
+            "round trip is not new throughput)",
+            registry, label_names=("tenant", "priority")),
+        "tenant_queue_wait": Histogram(
+            "llm_tenant_queue_wait_seconds",
+            "Submit-to-admission wait per fair-queue tenant — the "
+            "fairness signal (one tenant's p99 diverging from the rest "
+            "means its weight/priority is starving it)",
+            (0.005, 0.025, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0),
+            registry, label_names=("tenant",)),
+        "tenant_shed": Counter(
+            "llm_tenant_shed_total",
+            "Requests refused with 429 by tenant, priority, and reason "
+            "(overloaded = queue-depth backpressure / brownout, "
+            "rate_limited = the tenant's own token-bucket limits)",
+            registry, label_names=("tenant", "priority", "reason")),
+        "kv_host_cache_hits": Counter(
+            "llm_kv_host_cache_hits_total",
+            "KV pages served from the host-RAM offload tier to a "
+            "resuming/returning session (each page skips page_size "
+            "tokens of re-prefill)", registry),
+        "kv_host_cache_misses": Counter(
+            "llm_kv_host_cache_misses_total",
+            "Admissions whose prefix found no host-tier pages beyond "
+            "the device cache", registry),
+        "kv_host_cache_evictions": Counter(
+            "llm_kv_host_cache_evictions_total",
+            "Host-tier KV pages dropped by LRU capacity pressure "
+            "(sustained high rate vs hits = thrash; grow "
+            "kvHostCacheGB)", registry),
+        "kv_upload": Histogram(
+            "llm_kv_upload_seconds",
+            "Host->device KV page upload latency per resuming "
+            "admission (stage + dispatch of the re-upload that replaces "
+            "re-prefill)",
+            (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 1.0),
+            registry),
         "kv_bytes_per_token": Gauge(
             "llm_kv_bytes_per_token",
             "Device KV-cache bytes per cached token across all layers, "

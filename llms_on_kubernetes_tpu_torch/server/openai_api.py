@@ -90,22 +90,52 @@ The replica contract with the routers, as the JAX server keeps it:
   ``kill_mid_stream`` (a one-shot TCP reset of the first stream to
   deliver N tokens).
 
-Lifecycle: loading -> serving -> draining, with wedged overriding all.
-``begin_drain`` (SIGTERM in ``cli.py``) turns /ready to 503, refuses new
-requests with 503 and lets in-flight work finish, at most
+- Tenants and priority classes (``server/qos.py``): a completion's tenant
+  is the body's ``user``, else its ``model``, else the served model; its
+  class the ``X-LLMK-Priority`` header when valid, else the engine's
+  per-tenant config. The queue-full 429 carries ``code=overloaded`` and
+  counts ``llm_tenant_shed_total``; ``llm_tenant_admitted_total``,
+  ``llm_tenant_queue_wait_seconds`` and the ledger's
+  ``llm_tenant_chip_seconds_total`` follow the real tenant.
+- The host KV tier's series (``llm_kv_host_cache_*_total``,
+  ``llm_kv_upload_seconds``), and ``X-LLMK-Cache-Digests`` on every
+  completion: the digest chain of the prompt's full pages (at most
+  ``CACHE_DIGESTS_MAX``), what a returning prompt can adopt here.
+- The disaggregated handoff (``EngineConfig.role``, the ``role`` label of
+  ``llm_queue_depth``, ``llm_build_info`` and ``/debug/engine``), the JAX
+  server's two-hop protocol with the routers: a streamed single-choice
+  completion asked with ``X-LLMK-Handoff: ticket`` (and a host tier) runs
+  a one-token prefill and answers a JSON ticket (page digests, tenant,
+  the resolved seed); a request with ``X-LLMK-Handoff-Source`` pulls those
+  pages from the source's ``POST /internal/kv/fetch`` into its host tier
+  before admission (``LLMK_HANDOFF_PULL_TIMEOUT_S``, clamped to the
+  deadline; a ``kv_pull`` span with its own ``traceparent``) and answers
+  ``X-LLMK-Handoff-Adopted`` with the pages that landed. Any failure of
+  the pull lands fewer pages, which re-prefill: never a client error. The
+  pages travel as base64 raw bytes with shape, dtype and a truncated
+  sha256 (``encode_kv_payload``, the JAX wire form: a bf16 page says
+  "bfloat16"), written one page at a time. Faults: ``drop_handoff[:N]``
+  (a pull skipped) and ``kill_prefill_replica[:DELAY]`` (a prefill
+  replica dies: state "killed", /health and /ready 503, work refused).
+
+Lifecycle: loading -> serving -> draining, with wedged (and killed)
+overriding all. ``begin_drain`` (SIGTERM in ``cli.py``) turns /ready to
+503, refuses new requests with 503 and lets in-flight work finish, at most
 ``EngineLoop.drain_timeout_s``.
 
-Not ported yet: QoS and tenants, the cache digest header, the
-disaggregated handoff and its hop headers, LoRA routing, the manual
-``/debug/profile/start`` and ``/stop`` pair.
+Not ported yet: LoRA routing, the manual ``/debug/profile/start`` and
+``/stop`` pair.
 """
 
 from __future__ import annotations
 
+import base64
+import binascii
 import dataclasses
+import hashlib
+import http.client
 import json
 import logging
-import math
 import os
 import queue
 import random
@@ -121,6 +151,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+import numpy as np
 import torch
 
 from llms_on_kubernetes_tpu_torch import __version__, faults, kernels, resolve_device
@@ -139,6 +170,9 @@ from llms_on_kubernetes_tpu_torch.server.metrics import (
     Registry, build_info_metrics, engine_metrics, process_age_s,
 )
 from llms_on_kubernetes_tpu_torch.server.profiling import ProfileError, ProfileManager
+from llms_on_kubernetes_tpu_torch.server.qos import (
+    PRIORITIES, PRIORITY_HEADER, retry_after_s, tenant_of,
+)
 from llms_on_kubernetes_tpu_torch.server.runtime_telemetry import RuntimeTelemetry
 from llms_on_kubernetes_tpu_torch.server.tools import (
     ToolStreamParser, inject_tool_messages, validate_tool_choice, validate_tools,
@@ -163,6 +197,23 @@ REQUEST_ID_HEADER = tracing.REQUEST_ID_HEADER
 # request's engine requests consumed (all phases, waste included); the
 # phase split rides the body's usage.chip_ms
 CHIP_MS_HEADER = "X-LLMK-Chip-Ms"
+# the disaggregated two-hop protocol (the JAX server/router.py constants):
+# the router asks a prefill replica for a ticket, then sends the original
+# body to a decode replica with the ticket's source, digests, tenant and
+# seed; the decode replica answers how many pages it adopted
+HANDOFF_HEADER = "X-LLMK-Handoff"
+HANDOFF_SOURCE_HEADER = "X-LLMK-Handoff-Source"
+HANDOFF_DIGESTS_HEADER = "X-LLMK-Handoff-Digests"
+HANDOFF_TENANT_HEADER = "X-LLMK-Handoff-Tenant"
+HANDOFF_SEED_HEADER = "X-LLMK-Handoff-Seed"
+HANDOFF_TICKET_HEADER = "X-LLMK-Handoff-Ticket"
+HANDOFF_ADOPTED_HEADER = "X-LLMK-Handoff-Adopted"
+# cache-aware routing: the digest chain of the prompt's full pages on
+# every completion response, capped (~2 KiB of header)
+CACHE_DIGESTS_HEADER = "X-LLMK-Cache-Digests"
+CACHE_DIGESTS_MAX = 32
+# a kv fetch names at most this many pages
+KV_FETCH_MAX_DIGESTS = 4096
 
 
 def chip_ms_total(reqs) -> dict:
@@ -183,10 +234,53 @@ class BodyTooLarge(BadRequest):
     pass
 
 
-def retry_after_s(seconds: float) -> int:
-    """Retry-After in whole seconds, never below 1 (clients would hot-loop)
-    nor above 60 (the JAX ``server/qos.retry_after_s``)."""
-    return max(1, min(60, int(math.ceil(seconds))))
+def _wire_array(a: Optional[np.ndarray]) -> Optional[dict]:
+    """One payload array on the wire: base64 raw bytes, shape, dtype and a
+    truncated sha256. A ``BF16_VIEW`` (uint16) array is a bf16 page: its
+    dtype is sent as JAX's ``str(a.dtype)`` gives it, "bfloat16"."""
+    if a is None:
+        return None
+    a = np.ascontiguousarray(a)
+    raw = a.tobytes()
+    dtype = "bfloat16" if a.dtype == np.uint16 else str(a.dtype)
+    return {"b64": base64.b64encode(raw).decode("ascii"), "shape": list(a.shape),
+            "dtype": dtype, "sha": hashlib.sha256(raw).hexdigest()[:16]}
+
+
+def encode_kv_payload(pl: dict) -> dict:
+    """The wire form of one host-tier KV page for ``/internal/kv/fetch``
+    (the JAX ``_encode_kv_payload``, byte for byte): a truncated or flipped
+    transfer is caught at ingest and the page treated as missing."""
+    return {k: _wire_array(pl.get(k)) for k in ("k", "v", "ks", "vs")}
+
+
+def decode_kv_payload(doc) -> Optional[dict]:
+    """The inverse of ``encode_kv_payload`` (reads the JAX server's too);
+    None for anything malformed or failing its checksum (the page is then
+    missing). "bfloat16" arrays come back as ``BF16_VIEW``; the shapes and
+    dtypes are checked against the pools at ingest."""
+    if not isinstance(doc, dict):
+        return None
+
+    def arr(enc):
+        if enc is None:
+            return None
+        if not isinstance(enc, dict):
+            raise ValueError("bad array encoding")
+        raw = base64.b64decode(enc["b64"], validate=True)
+        if hashlib.sha256(raw).hexdigest()[:16] != enc.get("sha"):
+            raise ValueError("checksum mismatch")
+        name = str(enc["dtype"])
+        a = np.frombuffer(raw, dtype=np.uint16 if name == "bfloat16" else np.dtype(name))
+        return a.reshape([int(s) for s in enc["shape"]]).copy()
+
+    try:
+        out = {k: arr(doc.get(k)) for k in ("k", "v", "ks", "vs")}
+    except (KeyError, ValueError, TypeError, binascii.Error):
+        return None
+    if out["k"] is None or out["v"] is None:
+        return None
+    return out
 
 
 def deadline_from(headers, body: dict) -> Optional[float]:
@@ -410,11 +504,15 @@ class EngineLoop(threading.Thread):
         self._calls: "queue.SimpleQueue" = queue.SimpleQueue()
         self._ttft_seen: set[str] = set()
         self._preempt_seen = 0
+        self._tenant_admitted_seen: dict = {}
+        self._host_kv_seen = {"hits": 0, "misses": 0, "evictions": 0}
 
     def submit(self, prompt, params, on_event, deadline: Optional[float] = None,
-               request_id: Optional[str] = None):
+               request_id: Optional[str] = None, tenant: Optional[str] = None,
+               priority: Optional[str] = None, handoff: bool = False):
         req = self.engine.submit(prompt, params, request_id=request_id, on_event=on_event,
-                                 deadline=deadline)
+                                 deadline=deadline, tenant=tenant, priority=priority,
+                                 handoff=handoff)
         if self.metrics:
             self.metrics["requests_total"].inc()
             self.metrics["prompt_tokens"].inc(len(req.prompt))
@@ -523,8 +621,7 @@ class EngineLoop(threading.Thread):
             for (tenant, ph), ms in led_snap["tenant_ms"].items():
                 seen = self._led_tenant_seen.get((tenant, ph), 0.0)
                 if ms > seen:
-                    # one tenant until QoS is ported
-                    m["tenant_chip_seconds"].labels(tenant=tenant or "default", phase=ph).inc(
+                    m["tenant_chip_seconds"].labels(tenant=tenant, phase=ph).inc(
                         (ms - seen) / 1000.0)
                     self._led_tenant_seen[(tenant, ph)] = ms
             m["mfu"].set(led_util[0])
@@ -540,8 +637,25 @@ class EngineLoop(threading.Thread):
         m["batch_occupancy"].set(sum(r is not None for r in eng.slots))
         m["kv_pages_used"].set(eng.config.num_pages - 1 - eng.allocator.num_free_pages)
         m["waiting"].set(len(eng.waiting))
-        m["queue_depth"].labels(model=self.model_name, role="both").set(len(eng.waiting))
+        m["queue_depth"].labels(model=self.model_name, role=eng.config.role).set(
+            len(eng.waiting))
         m["prefix_hit_tokens"].set(eng.allocator.hit_tokens_total)
+        for key, v in list(eng.tenant_admitted.items()):
+            seen = self._tenant_admitted_seen.get(key, 0)
+            if v > seen:
+                m["tenant_admitted"].labels(tenant=key[0], priority=key[1]).inc(v - seen)
+                self._tenant_admitted_seen[key] = v
+        while eng.tenant_wait_obs:
+            tenant, wait, _prio = eng.tenant_wait_obs.popleft()
+            m["tenant_queue_wait"].labels(tenant=tenant).observe(wait)
+        if eng.host_kv is not None:
+            for k in ("hits", "misses", "evictions"):
+                v = getattr(eng.host_kv, k)
+                if v > self._host_kv_seen[k]:
+                    m["kv_host_cache_" + k].inc(v - self._host_kv_seen[k])
+                    self._host_kv_seen[k] = v
+        while eng.kv_upload_obs:
+            m["kv_upload"].observe(eng.kv_upload_obs.popleft())
         for ev in events:
             m["tokens_generated"].inc(len(ev.new_tokens))
             r = ev.request
@@ -589,7 +703,7 @@ class EngineLoop(threading.Thread):
 class OpenAIServer:
     """The HTTP front end of one engine serving one model."""
 
-    STATE_CODES = {"loading": 0, "serving": 1, "draining": 2, "wedged": 3}
+    STATE_CODES = {"loading": 0, "serving": 1, "draining": 2, "wedged": 3, "killed": 4}
 
     def __init__(self, engine: Engine, tokenizer, model_name: str,
                  cold_start: Optional[dict] = None):
@@ -599,7 +713,8 @@ class OpenAIServer:
         self.registry = Registry()
         self.metrics = engine_metrics(self.registry)
         build_info_metrics(self.registry,
-                           backend="gpu" if engine.device.type == "cuda" else "cpu")
+                           backend="gpu" if engine.device.type == "cuda" else "cpu",
+                           role=engine.config.role)
         self.metrics["kv_bytes_per_token"].set(engine.cache_config.bytes_per_token)
         for phase, seconds in (cold_start or {}).items():
             self.metrics["cold_start"].labels(phase=phase).observe(seconds)
@@ -708,7 +823,32 @@ class OpenAIServer:
             t = threading.Timer(max(notice, 0.0), self.begin_drain)
             t.daemon = True
             t.start()
+        # kill_prefill_replica: a prefill-role replica dies abruptly DELAY
+        # seconds from now; one-shot, armed on prefill-role servers only
+        crash = faults.get_float("kill_prefill_replica", 1.0)
+        if (crash is not None and self.engine.config.role == "prefill"
+                and faults.claim("kill_prefill_replica")):
+            t = threading.Timer(max(crash, 0.0), self.kill_abrupt)
+            t.daemon = True
+            t.start()
         self.maybe_claim_degraded()
+
+    def kill_abrupt(self) -> None:
+        """The ``kill_prefill_replica`` crash: no grace, unlike
+        ``begin_drain``. Every engine request is aborted, the state turns
+        "killed" (/health and /ready 503, every request refused, a kv
+        fetch too) and the engine loop stops. Idempotent."""
+        if self._state == "killed":
+            return
+        self._state = "killed"
+        self.metrics["engine_state"].set(self.STATE_CODES["killed"])
+        try:
+            for r in list(self.engine.waiting) + list(self.engine.slots):
+                if r is not None:
+                    self.loop.abort(r, "kill_prefill_replica")
+        except Exception:  # a fault hook must never take the process down itself
+            log.warning("kill_prefill_replica abort failed:\n%s", traceback.format_exc())
+        self.loop.stop()
 
     def maybe_claim_degraded(self) -> None:
         """Arm ``degraded_replica`` on this replica if the fault is active
@@ -741,7 +881,7 @@ class OpenAIServer:
         this replica, while the engine loop finishes the work in flight
         (at most ``EngineLoop.drain_timeout_s``). Callable from any thread
         or a signal handler; returns False when already draining."""
-        if self._state == "draining":
+        if self._state in ("draining", "killed"):
             return False
         self._state = "draining"
         self.metrics["engine_state"].set(self.STATE_CODES["draining"])
@@ -792,6 +932,88 @@ class OpenAIServer:
         self._pf_doc = f.serialize()
         self._pf_built = now
         return self._pf_doc
+
+    def cache_digest_header(self, reqs) -> Optional[str]:
+        """``X-LLMK-Cache-Digests``: the digest chain of the first request's
+        prompt (n > 1 shares one prompt), its full pages but the last when
+        the prompt ends on a boundary (the handoff ticket's chain), hex,
+        comma-joined, at most ``CACHE_DIGESTS_MAX``."""
+        if not reqs:
+            return None
+        prompt = reqs[0].prompt
+        n_pages = max(0, (len(prompt) - 1) // self.engine.allocator.page_size)
+        if n_pages <= 0:
+            return None
+        digests = self.engine.handoff_digests(
+            prompt[:n_pages * self.engine.allocator.page_size], salt=reqs[0].cache_salt)
+        return ",".join(d.hex() for d in digests[:CACHE_DIGESTS_MAX]) or None
+
+    def handoff_pull(self, headers, deadline: Optional[float], trace=None) -> int:
+        """The decode half of a handoff (the JAX ``_handoff_pull``): pull the
+        pages the router's digest header names from the prefill replica's
+        ``/internal/kv/fetch`` into this host tier, on the request's thread
+        (decoding, checksums and ingest never touch the engine thread), and
+        return how many landed. Every failure (the ``drop_handoff`` fault,
+        the network, a refusal, a corrupt page, a gap in the chain) lands
+        fewer and never raises: those pages re-prefill."""
+        src = headers.get(HANDOFF_SOURCE_HEADER, "").strip().rstrip("/")
+        try:
+            digests = [bytes.fromhex(x.strip())
+                       for x in headers.get(HANDOFF_DIGESTS_HEADER, "").split(",") if x.strip()]
+        except ValueError:
+            digests = []
+        if not src or not digests:
+            return 0
+        if faults.claim_n("drop_handoff"):
+            return 0            # injected: every handed-off page "missing"
+        if self.engine.host_kv is None:
+            return 0
+        budget = float(os.environ.get("LLMK_HANDOFF_PULL_TIMEOUT_S", "10"))
+        if deadline is not None:
+            budget = max(0.05, min(budget, deadline - time.monotonic()))
+        tenant = headers.get(HANDOFF_TENANT_HEADER, "")
+        # the pull is a hop of its own: a fresh traceparent (and the request
+        # id) so the source's fetch fragment stitches under it
+        hop = {"Content-Type": "application/json"}
+        pull_sid = ""
+        if trace is not None:
+            hop[REQUEST_ID_HEADER] = trace.request_id
+            pull_sid = tracing.new_span_id()
+            hop[tracing.TRACEPARENT_HEADER] = tracing.format_traceparent(
+                trace.trace_id, pull_sid, trace.sampled)
+        t0 = time.monotonic()
+        try:
+            url = urllib.parse.urlsplit(src)
+            if url.scheme != "http" or not url.hostname:
+                return 0
+            conn = http.client.HTTPConnection(url.hostname, url.port or 80, timeout=budget)
+            try:
+                conn.request("POST", "/internal/kv/fetch", body=json.dumps(
+                    {"tenant": tenant, "digests": [d.hex() for d in digests]}), headers=hop)
+                resp = conn.getresponse()
+                if resp.status != 200:
+                    return 0
+                raw = resp.read()
+            finally:
+                conn.close()
+            if time.monotonic() - t0 > budget:
+                return 0
+            doc = json.loads(raw)
+        except (OSError, http.client.HTTPException, ValueError):
+            return 0
+        if trace is not None:
+            trace.add_span("kv_pull", t0, time.monotonic(), span_id=pull_sid,
+                           parent_span_id=trace.span_id, source=src, bytes=len(raw))
+        encs = doc.get("payloads") if isinstance(doc, dict) else None
+        if not isinstance(encs, list):
+            return 0
+        landed = 0
+        for digest, enc in zip(digests, encs):
+            pl = decode_kv_payload(enc) if enc is not None else None
+            if pl is None or not self.engine.host_kv_ingest(tenant, digest, pl):
+                break           # a gap: the pages after it are unreachable
+            landed += 1
+        return landed
 
     # -- tracing -----------------------------------------------------------
 
@@ -1083,6 +1305,13 @@ class _HTTPServer(ThreadingHTTPServer):
     request_queue_size = 128
     daemon_threads = True
 
+    def handle_error(self, request, client_address):
+        # a client that hung up (a router's probe timing out, a stream
+        # closed early) is not the server's error: no traceback for it
+        if isinstance(sys.exc_info()[1], (BrokenPipeError, ConnectionResetError)):
+            return
+        super().handle_error(request, client_address)
+
 
 class _Handler(BaseHTTPRequestHandler):
     app: OpenAIServer
@@ -1193,8 +1422,8 @@ class _Handler(BaseHTTPRequestHandler):
                 return default
 
         if path == "/health":
-            if app.state == "wedged":
-                self._error(503, "engine wedged", "service_unavailable")
+            if app.state in ("wedged", "killed"):
+                self._error(503, f"engine {app.state}", "service_unavailable")
             else:
                 self._send(200, b"OK", "text/plain; charset=utf-8")
         elif path == "/ready":
@@ -1231,7 +1460,7 @@ class _Handler(BaseHTTPRequestHandler):
                 limit=arg_int("limit", 50))})
         elif path == "/debug/engine":
             snap = app.flight.snapshot(limit=arg_int("limit", 0) or None)
-            snap.update(state=app.state, model=app.model_name, role="both")
+            snap.update(state=app.state, model=app.model_name, role=app.engine.config.role)
             self._json(200, snap)
         elif path == "/debug/profile":
             self._json(200, {"dir": app.profiles.base_dir, "busy": app.profiles.busy,
@@ -1271,6 +1500,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(200, {"launches": kernels.launch_counts()})
         elif self.path == "/debug/profile":
             self._profile_capture()
+        elif self.path == "/internal/kv/fetch":
+            self._kv_fetch()
         elif self.path in ("/tokenize", "/detokenize"):
             try:
                 body = self._read_json()
@@ -1326,6 +1557,49 @@ class _Handler(BaseHTTPRequestHandler):
             return
         self._json(200, meta)
 
+    def _kv_fetch(self) -> None:
+        """POST /internal/kv/fetch (the JAX ``kv_fetch``): a decode replica
+        sends ``{"tenant", "digests": [hex, ...]}`` and gets ``{"payloads":
+        [...]}``, position-matched, null for a page this host tier does
+        not hold. The answer is written one page at a time (a page of
+        llama-3-8b is 8 MiB raw), not built whole in memory, and ends
+        with the connection. A killed or wedged replica refuses (503), so
+        the puller re-prefills instead of hanging."""
+        app = self.app
+        if app.state in ("killed", "wedged"):
+            self._error(503, f"replica {app.state}", "service_unavailable")
+            return
+        try:
+            body = self._read_json()
+        except BadRequest as e:
+            self._bad_request(e)
+            return
+        raw = body.get("digests")
+        if (not isinstance(raw, list) or len(raw) > KV_FETCH_MAX_DIGESTS
+                or not all(isinstance(d, str) for d in raw)):
+            self._error(400, f"digests must be a list of <= {KV_FETCH_MAX_DIGESTS} hex "
+                             f"strings")
+            return
+        try:
+            digests = [bytes.fromhex(d) for d in raw]
+        except ValueError:
+            self._error(400, "malformed digest hex")
+            return
+        payloads = app.engine.host_kv_export(str(body.get("tenant") or ""), digests)
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Connection", "close")
+        self.end_headers()
+        self.close_connection = True
+        try:
+            self.wfile.write(b'{"payloads": [')
+            for i, pl in enumerate(payloads):
+                piece = "null" if pl is None else json.dumps(encode_kv_payload(pl))
+                self.wfile.write(((", " if i else "") + piece).encode())
+            self.wfile.write(b"]}")
+        except (BrokenPipeError, ConnectionResetError):
+            pass                # the puller gave up: it re-prefills
+
     def _tokenize(self, body: dict) -> dict:
         """{"prompt": str} or {"messages": [...]} -> {"tokens", "count",
         "max_model_len"} (vllm-openai's surface)."""
@@ -1375,9 +1649,10 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _serve_completion(self, chat: bool, trace: tracing.Trace) -> None:
         app = self.app
-        if app.state == "draining":
-            # in-flight streams finish; new work goes to a live replica
-            self._error(503, "server is draining; not accepting new requests",
+        if app.state in ("draining", "killed"):
+            # draining: in-flight streams finish, new work goes to a live
+            # replica; killed (a fault-injected crash): everything refused
+            self._error(503, f"server is {app.state}; not accepting new requests",
                         "service_unavailable", "shutting_down", {"Retry-After": "5"})
             return
         try:
@@ -1445,6 +1720,33 @@ class _Handler(BaseHTTPRequestHandler):
             self._bad_request(e)
             return
         stops = _parse_stops(body)
+        # the QoS identity (the routers resolve it the same way and forward
+        # the class): the body's user, else its model; an invalid header
+        # falls through to the engine's per-tenant config
+        tenant = tenant_of(body, app.model_name)
+        raw_prio = self.headers.get(PRIORITY_HEADER)
+        priority = (raw_prio.strip().lower() if raw_prio is not None
+                    and raw_prio.strip().lower() in PRIORITIES else None)
+        # the decode hop of a handoff: the prefill replica's resolved seed,
+        # so the stream samples as a colocated one would
+        raw_hseed = self.headers.get(HANDOFF_SEED_HEADER)
+        if raw_hseed is not None and params.seed is None:
+            try:
+                params = dataclasses.replace(params, seed=int(raw_hseed) & 0x7FFFFFFF)
+            except ValueError:
+                pass            # malformed internal header: a new seed, still correct
+        # the prefill hop: a ticket instead of a stream; an ineligible shape
+        # declines by serving normally (the router relays that stream)
+        want_ticket = (self.headers.get(HANDOFF_HEADER, "").strip().lower() == "ticket"
+                       and raw_resume is None and len(prompts) == 1
+                       and n == 1 and best_of == 1 and app.engine.host_kv is not None)
+        adopted = None
+        if want_ticket:
+            # prompt ingestion only: one token proves the prefill ran, and
+            # submit(handoff=True) lands the spilled pages before its finish
+            params = dataclasses.replace(params, max_tokens=1)
+        elif self.headers.get(HANDOFF_SOURCE_HEADER):
+            adopted = app.handoff_pull(self.headers, deadline, trace)
         events: "queue.SimpleQueue" = queue.SimpleQueue()
         reqs: list = []
         try:
@@ -1462,7 +1764,8 @@ class _Handler(BaseHTTPRequestHandler):
                               else f"{self.request_id}/{idx}")
                     req = app.loop.submit(
                         prompt, p, lambda payload, idx=idx: events.put((idx, payload)),
-                        deadline=deadline, request_id=eng_id)
+                        deadline=deadline, request_id=eng_id, tenant=tenant,
+                        priority=priority, handoff=want_ticket)
                     req.trace = trace
                     trace.engine_reqs.append(req)
                     reqs.append(req)
@@ -1475,6 +1778,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._abort_all(reqs)
             # the backlog's drain time: queue depth x the step estimate
             est = len(app.engine.waiting) * max(app.engine._est_step, 1e-3)
+            cfg = app.engine.config
+            app.metrics["tenant_shed"].labels(
+                tenant=tenant, priority=priority or dict(cfg.qos_priorities).get(
+                    tenant, cfg.qos_default_priority), reason="overloaded").inc()
             self._error(429, str(e), "rate_limit_exceeded", "overloaded",
                         {"Retry-After": str(retry_after_s(est))})
             return
@@ -1482,6 +1789,17 @@ class _Handler(BaseHTTPRequestHandler):
             self._abort_all(reqs)
             self._error(400, str(e))
             return
+        if want_ticket:
+            self._handoff_ticket(reqs[0], events)
+            return
+        extra = {}
+        if adopted is not None:
+            # the decode hop: the pages that landed (0 with digests offered
+            # is the router's counted re-prefill, never a client error)
+            extra[HANDOFF_ADOPTED_HEADER] = str(adopted)
+        digests = app.cache_digest_header(reqs)
+        if digests:
+            extra[CACHE_DIGESTS_HEADER] = digests
         rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex
         created = int(time.time())
         if raw_resume is not None:
@@ -1504,7 +1822,7 @@ class _Handler(BaseHTTPRequestHandler):
                 self._stream(choices, events, rid, created, chat, prompts, params.logprobs,
                              include_usage, journal=JOURNAL_HEADER in self.headers
                              and len(reqs) == 1, resumed=raw_resume is not None,
-                             tools_on=tools_on)
+                             tools_on=tools_on, headers=extra)
                 return
             scores = None
             if want_scores:
@@ -1515,12 +1833,54 @@ class _Handler(BaseHTTPRequestHandler):
                     self._error(400, str(e))
                     return
             self._full(choices, events, rid, created, chat, prompts, params.logprobs, n,
-                       best_of, bool(body.get("echo")) and not chat, scores, tools_on)
+                       best_of, bool(body.get("echo")) and not chat, scores, tools_on,
+                       headers=extra)
         except (BrokenPipeError, ConnectionResetError):
             self._abort_all(reqs, "disconnect")
         except BaseException:
             self._abort_all(reqs)
             raise
+
+    def _handoff_ticket(self, req, events) -> None:
+        """The prefill hop's answer (the JAX ``_handoff_ticket_response``):
+        wait for the one-token prefill, then answer the ticket (the page
+        digests, the tenant and the resolved seed) instead of a stream. The
+        router sends the original body to a decode replica, which pulls the
+        pages and regenerates the stream from token zero."""
+        reason = None
+        try:
+            while True:
+                _i, (_toks, done, reason) = events.get()
+                if done:
+                    break
+        except BaseException:
+            self._abort_all([req])
+            raise
+        if reason == "timeout" and not req.output:
+            self.app.metrics["deadline_exceeded"].labels(phase="queue").inc()
+            self._error(504, "deadline expired during prefill", "timeout",
+                        "deadline_exceeded")
+            return
+        if reason not in ("length", "stop") and not req.output:
+            # stalled, aborted or killed mid-prefill: the router tries
+            # another prefill replica or serves colocated
+            self._error(503, f"prefill failed: {reason}", "service_unavailable",
+                        "handoff_prefill_failed", {"Retry-After": "1"})
+            return
+        page = self.app.engine.allocator.page_size
+        n_pages = max(0, (len(req.prompt) - 1) // page)
+        digests = (self.app.engine.handoff_digests(req.prompt[:n_pages * page],
+                                                   salt=req.cache_salt)
+                   if n_pages > 0 else [])
+        doc = {"object": "llmk.handoff_ticket", "model": self.app.model_name,
+               "prompt_tokens": len(req.prompt), "tenant": req.tenant, "seed": req.seed,
+               "digests": [d.hex() for d in digests]}
+        headers = {HANDOFF_TICKET_HEADER: "1"}
+        chip = chip_ms_total([req])
+        if chip:
+            doc["chip_ms"] = {ph: round(v, 3) for ph, v in chip.items()}
+            headers[CHIP_MS_HEADER] = str(round(sum(chip.values()), 3))
+        self._json(200, doc, headers)
 
     def _abort_all(self, reqs, reason: str = "abort") -> None:
         for r in reqs:
@@ -1548,7 +1908,7 @@ class _Handler(BaseHTTPRequestHandler):
                 yield (i, *choices[i].feed(toks, done, reason), toks)
 
     def _full(self, choices, events, rid, created, chat, prompts, nlp, n, best_of, echo,
-              scores, tools_on: bool = False) -> None:
+              scores, tools_on: bool = False, headers: Optional[dict] = None) -> None:
         app = self.app
         texts = [""] * len(choices)
         reasons: list = [None] * len(choices)
@@ -1618,17 +1978,18 @@ class _Handler(BaseHTTPRequestHandler):
         usage = {"prompt_tokens": n_prompt, "completion_tokens": n_out,
                  "total_tokens": n_prompt + n_out}
         chip = chip_ms_total([c.req for c in choices])
-        headers = None
+        headers = dict(headers or {})
         if chip:
             usage["chip_ms"] = {ph: round(v, 3) for ph, v in chip.items()}
-            headers = {CHIP_MS_HEADER: str(round(sum(chip.values()), 3))}
+            headers[CHIP_MS_HEADER] = str(round(sum(chip.values()), 3))
         self._json(200, {
             "id": rid, "object": "chat.completion" if chat else "text_completion",
             "created": created, "model": app.model_name, "choices": out,
             "usage": usage}, headers)
 
     def _stream(self, choices, events, rid, created, chat, prompts, nlp, include_usage,
-                journal: bool = False, resumed: bool = False, tools_on: bool = False) -> None:
+                journal: bool = False, resumed: bool = False, tools_on: bool = False,
+                headers: Optional[dict] = None) -> None:
         """Server-sent events. Writes hold one lock, shared with the
         keepalive thread (``: ping`` every ``keepalive_interval_s()``
         seconds, stopped before the final chunk). With ``journal`` each
@@ -1644,6 +2005,8 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Cache-Control", "no-cache")
         self.send_header("X-Accel-Buffering", "no")
         self.send_header("Connection", "close")
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
         self.close_connection = True
         obj = "chat.completion.chunk" if chat else "text_completion"

@@ -224,6 +224,13 @@ class ProfileManager:
             try:
                 self._run(prof.stop)
             except Exception as e:
+                # the runner failed (the engine loop stopped mid-capture: the
+                # server closed): stop the process-global session here, or it
+                # stays on and its teardown at interpreter exit can crash
+                try:
+                    prof.stop()
+                except Exception:
+                    pass
                 raise ProfileError(f"torch.profiler could not stop on {self.device}: "
                                    f"{type(e).__name__}: {e}") from e
         # written off the engine thread, by kineto's own writer: parsing the

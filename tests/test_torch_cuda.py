@@ -1493,3 +1493,73 @@ def test_seeded_resume_under_graphs_equals_the_uninterrupted_stream(cuda, cut):
     got = eng.generate(prompt, dataclasses.replace(sp, prefix_tokens=tuple(full[:cut])))
     assert got == full and len(full) == 16
     assert eng.graph_replays * eng.config.decode_steps == eng.decode_forwards > 0
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_spill_then_upload_round_trips_pool_bytes_on_the_card(cuda, kv_dtype):
+    """The host tier on the card: a seated slot's full pages spill (gather
+    on the stream, copy into the pinned ring, drained through the
+    harvester) and, wiped on the card, upload back through the admission
+    path: pool bytes (bf16 data, or int8 data and f32 scales) equal
+    exactly before and after, and each payload holds its page's bytes."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
+    from llms_on_kubernetes_tpu_torch.models.decoder import init_params
+
+    params = init_params(get_config("debug-tiny"), seed=0, dtype="bfloat16", device="cpu")
+    params = {k: ({n: w.to("cuda") for n, w in v.items()} if isinstance(v, dict)
+                  else v.to("cuda")) for k, v in params.items()}
+    eng = Engine(EngineConfig(model="debug-tiny", dtype="bfloat16", kv_cache_dtype=kv_dtype,
+                              max_decode_slots=4, page_size=4, num_pages=64, pages_per_slot=16,
+                              prefill_buckets=(16, 32), device="cuda", kv_host_cache_gb=0.1),
+                 params=params)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sides = [eng.k_pages.data, eng.v_pages.data]
+    for t in sides:
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device="cuda",
+                                  dtype=torch.int8))
+        else:
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype))
+    if eng.k_pages.scale is not None:
+        sides += [eng.k_pages.scale, eng.v_pages.scale]
+        for t in sides[2:]:
+            t.copy_(torch.rand(t.shape, generator=gen, device="cuda"))
+    req = eng.submit(list(range(1, 30)), SamplingParams(max_tokens=4, temperature=0.0))
+    with eng._lock:
+        slot = eng._seat_next([])[0]
+    eng.slot_len[slot] = 29                          # 7 full pages of 4
+    pages = list(eng.allocator.slot_pages[slot][:7])
+    L = eng.cache_config.num_layers
+    idx = torch.from_numpy(eng._flat_pages(pages)).to("cuda")
+
+    def raw(t):
+        g = t.index_select(1, idx).cpu()
+        return (g.view(torch.int16) if g.dtype == torch.bfloat16 else g).numpy()
+
+    before = [raw(t) for t in sides]
+    eng._spill_slot(req)
+    assert eng._spill_ring is not None and eng._spill_ring[0].is_pinned()
+    eng._drain_spills()
+    assert eng.host_kv.spilled_pages == 7
+    digests = eng.allocator._digests(req.prompt[:28])
+    matched, payloads = eng.host_kv.match_chain("", digests, 0)
+    assert matched == digests
+    # the tier holds pageable memory of its own, not pinned ring memory
+    assert not any(torch.from_numpy(pl[key]).is_pinned() for pl in payloads
+                   for key in ("k", "v"))
+    for j, pl in enumerate(payloads):
+        for b, key in zip(before, ("k", "v", "ks", "vs")):
+            assert pl[key].tobytes() == np.ascontiguousarray(
+                b[:, j * L:(j + 1) * L]).tobytes()
+    for t in sides:
+        t.index_fill_(1, idx, 0)
+    assert not any(np.array_equal(raw(t), b) for t, b in zip(sides, before))
+    eng._host_adopt[slot] = (0, matched, payloads)
+    eng._host_kv_commit(slot, req)
+    for t, b in zip(sides, before):
+        assert np.array_equal(raw(t), b)
+    assert eng.kv_uploaded_tokens == 28 and eng.host_kv.hits == 7
+    eng.abort(req)
+    while eng.has_work():
+        eng.step()

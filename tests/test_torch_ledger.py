@@ -477,7 +477,7 @@ def test_usage_header_spans_flight_and_metrics_carry_chip_time():
                        'llm_chip_seconds_total{phase="decode"}',
                        'llm_chip_seconds_total{phase="idle"}', "llm_mfu_ratio",
                        "llm_mbu_ratio",
-                       'llm_tenant_chip_seconds_total{tenant="default",phase="decode"}',
+                       'llm_tenant_chip_seconds_total{tenant="debug-tiny",phase="decode"}',
                        'llm_auto_profile_total{reason="step_anomaly"} 0'):
             assert series in text, series
         value = float(next(ln for ln in text.splitlines()

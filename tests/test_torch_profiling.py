@@ -127,6 +127,25 @@ def test_card_capture_starts_and_stops_through_the_runner(tmp_path, monkeypatch)
     assert {f["name"] for f in meta["files"]} == {"trace.json", "capture.json"}
 
 
+def test_a_capture_whose_loop_stops_still_stops_the_profiler(tmp_path, monkeypatch):
+    """The server closed mid-capture: the runner (the engine loop) refuses
+    the stop, and the capture stops the process-global session on its own
+    thread instead of leaving it on."""
+    monkeypatch.setattr(torch.profiler, "profile", _FakeProfile)
+
+    def runner(fn):
+        if fn.__name__ == "stop":
+            raise RuntimeError("the engine loop has stopped")
+        return fn()
+
+    pm = ProfileManager(base_dir=str(tmp_path), device="cuda", runner=runner)
+    with pytest.raises(ProfileError, match="engine loop has stopped"):
+        pm.capture(50)
+    prof = _FakeProfile.made[-1]
+    assert [e for e, _thread in prof.events] == ["start", "stop"]
+    assert not pm.busy
+
+
 def test_a_profiler_that_cannot_start_names_the_cause(tmp_path, monkeypatch):
     class Broken:
         def __init__(self, activities):
