@@ -266,7 +266,53 @@ Phases, each fatal on failure:
    the streams equal between pace 0 and 3 are counted, not held; each run's
    goodput ledger (reset before it): device-idle share, MFU and MBU. One
    int8-weight window replayed and one run eagerly from copies of one pool
-   and one count table: tokens, logprobs, pools and counts byte-equal.
+   and one count table: tokens, logprobs, pools and counts byte-equal;
+7. speculation and GGUF (``phase_spec_gguf``). A: llama-3-8b bf16 random
+   weights, the default EngineConfig, in process, an engine without and
+   one with ``speculation="ngram"`` on the same weights, each case in
+   turns (off, on, on, off; each on run held against the off run of its
+   temperature, cold against cold, warm against warm), the launch
+   counters zeroed before each run and read after. First one verify
+   replayed (the verify graph, captured there) against its eager run from
+   copies of one pool and one count table (8 seeded rows with penalties,
+   the even ones pinned +90 on their drafts, the odd ones drafted random
+   tokens): tokens, accept counts, logprobs, pools and counts byte-equal.
+   A1 full accept: 8 prompts of 32 tokens ending in their pin, +90 on it,
+   128 tokens: streams equal, accept ratio 1.0, at most 0.286 dispatches
+   a committed token, every verify a graph replay. A2: 8 prompts of one
+   40-token span repeated to 600 tokens, greedy; A3: 8 random 128-token
+   prompts; A4: A2's prompts sampled (temperature 0.9, top_k 8, seeds,
+   penalties): streams equal or first apart at a near-tie (``flip_margin``;
+   for sampled rows ``sampled_flip``, the Gumbel noise recomputed). A
+   guided batch: 4 pinned rows beside 4 under a JSON schema (byte grammar,
+   steered by logit_bias): every constrained answer walks its grammar,
+   parses and validates, the FSM verify graph replayed, and first held
+   against its eager run as above. Each window kernel launch of a verify
+   is a replay's, num_layers a verify. A5: A1 with int8 weights, int8 KV
+   and kv_write "fused" (kernels 5, 7 and 8 on the path), its verify held
+   against eager too. Printed per case: decode tok/s of each run, verify
+   dispatches, drafted and accepted tokens, the policy's attempts and the
+   attempt it demoted at, device ms a verify and a window (CUDA events).
+   B: the draft tier, 8 prompts of 16 tokens and 48 greedy tokens (inside
+   the draft's 64-token window): llama-3-8b drafting for itself (registry
+   name, the target's seed), then a Llama-3.2-1B-width Q8_0 GGUF draft
+   written by ``testing/synth_gguf.py``: streams equal the off run's or
+   first apart at a near-tie, every rollout one graph replay (device ms
+   printed), the self-draft's accept ratio at least 0.5 (printed: bf16
+   prefill and verify round differently, so near-ties can reject). C:
+   TinyLlama-1.1B Q8_0 and Phi-3-mini q4 (Q4_K, Q6_K output, phi3's fused
+   tensors) at their published widths, written by ``testing/synth_gguf.py``
+   (three writer processes started with phase 7, overlapping A), each
+   served behind nothing: in bf16 in this process by ``serve``'s own GGUF
+   branch (``_gguf_engine``: config, weights and embedded tokenizer from
+   the file; load and ready seconds and the host's resident-set peak
+   printed), its params' layers 0 and L - 1, embedding, norm and head
+   held bit for bit to the file's values cast to bf16; then as a user
+   runs it, ``serve --model <file>.gguf --quantization int8`` (/health
+   seconds printed). Each: a chat completion through the embedded
+   tokenizer and template (prompt_tokens the template's count), every
+   window a graph replay, W8A16 7 x num_layers a forward (int8) or never
+   (bf16).
 
 ``--profile`` stops after phase 2 and traces, under torch.profiler, one
 decode window of eight requests as the engine runs it (one CUDA graph
@@ -276,7 +322,8 @@ kernel's share of the device time, and one chunk call (the second chunk
 of a 1,500-token prompt, padded to its bucket and unpadded), with the pool
 of ``LLMK_KV_DTYPE`` (bf16 or int8); then the two windows again with int8
 weights;
-``--kernels-only`` stops after phase 2.
+``--kernels-only`` stops after phase 2; ``--spec-only`` runs phase 1 and
+phase 7 and stops (no result).
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; before it, one ``{"kernels": [...]}`` JSON line, whose
@@ -284,8 +331,9 @@ gives them; before it, one ``{"kernels": [...]}`` JSON line, whose
 4's fused engines (3, 5) and phase 6's first int8 run at pace 3 (the
 W8A16 kernel), and ``launches_by_path`` from every path (phase 3's request
 surface and phase 4b's tier sessions, prefill and decode replicas and
-drills among them). The last line
-is ``{"ok": true, "device": {...}}``, printed only when every phase passed.
+drills among them, phase 7's verify and draft paths and GGUF servers).
+The last line is ``{"ok": true, "device": {...}}``, printed only when
+every phase passed.
 Without a CUDA device, or outside a checkout, it exits non-zero first.
 
 Tolerances (kernel against plain version on the same inputs), held row by
@@ -5086,6 +5134,743 @@ def phase_checkpoint_int8(torch, cfg) -> None:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 7: speculative decoding and GGUF checkpoints
+# ---------------------------------------------------------------------------
+
+SPEC_PATH = f"{MODEL} speculation ngram bf16"
+SPEC_INT8_PATH = f"{MODEL} speculation ngram int8 weights int8 KV fused"
+DRAFT_PATH = f"{MODEL} speculation draft {MODEL}"
+GGUF_DRAFT_PATH = f"{MODEL} speculation draft Llama-3.2-1B Q8_0 GGUF"
+GGUF_DIR = os.path.join(OUT_DIR, "gguf")
+GGUF_SERVED = ("tinyllama-1.1b", "phi-3-mini")
+SPEC_NEW = 128               # tokens a phase 7 A request generates
+DRAFT_NEW = 48               # B: a 16-token prompt and 48 tokens stay in the draft's window
+# the dispatches a committed token may cost at full accept (JAX's bound)
+SPEC_DISPATCH_BOUND = 0.286
+BYTE_EOS = 257
+GUIDED_BYTE_STEER = ((BYTE_EOS, 100.0), (ord("}"), 60.0), (ord(","), 40.0),
+                     (ord('"'), 30.0), (ord(":"), 28.0), (ord("{"), 25.0), (ord("1"), 20.0))
+
+
+class SpecTimer:
+    """CUDA events around each window replay and each verify replay of one
+    engine's ``DecodeWindow``: the device time of a window and of a verify
+    (the copy of the rows in, then the replay)."""
+
+    def __init__(self, torch, win):
+        self.torch, self.win = torch, win
+        self.events = {"window": [], "verify": []}
+        for kind, name in (("window", "run"), ("verify", "run_verify")):
+            setattr(win, name, self._timed(kind, getattr(win, name)))
+
+    def _timed(self, kind, fn):
+        torch = self.torch
+
+        def call(*a, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            self.events[kind].append((e0, e1))
+            return out
+        return call
+
+    def close(self) -> dict:
+        self.torch.cuda.synchronize()
+        del self.win.run, self.win.run_verify
+        return {k: [a.elapsed_time(b) for a, b in v] for k, v in self.events.items()}
+
+
+class PolicyLog:
+    """The draft attempts ``SpecPolicy`` saw (spec dispatches and empty
+    drafts) and the attempt at which it first demoted drafting."""
+
+    def __init__(self, policy):
+        self.policy, self.attempts, self.demoted_at = policy, 0, None
+        for name in ("note", "note_empty"):
+            setattr(policy, name, self._logged(getattr(policy, name)))
+
+    def _logged(self, fn):
+        def call(*a):
+            fn(*a)
+            self.attempts += 1
+            if self.policy._demoted and self.demoted_at is None:
+                self.demoted_at = self.attempts
+        return call
+
+    def close(self) -> tuple:
+        del self.policy.note, self.policy.note_empty
+        return self.attempts, self.demoted_at
+
+
+def med(xs) -> float:
+    return float(np.median(xs)) if len(xs) else float("nan")
+
+
+def spec_run(torch, eng, prompts, sps) -> dict:
+    """Every prompt through ``eng`` at once (``sps``: one SamplingParams a
+    prompt), stepped until it drains, with a fresh ``SpecPolicy`` and the
+    launch counters zeroed just before and read just after. Returns the
+    streams and their logprobs, decode tokens/s (tokens after each first
+    one, over the time from the first first-token to the last finish), the
+    engine's speculation counters' deltas, the policy's attempts and
+    demotion, the window and verify device ms, and the launches."""
+    from llms_on_kubernetes_tpu_torch import kernels
+    from llms_on_kubernetes_tpu_torch.engine.speculation import SpecPolicy
+
+    c0 = (eng.spec_dispatches, eng.spec_drafted_tokens, eng.spec_accepted_tokens,
+          eng.verify_replays, eng.decode_dispatches)
+    eng.steps_obs.clear()
+    plog = None
+    if eng._spec is not None:
+        eng._spec.policy = SpecPolicy()
+        plog = PolicyLog(eng._spec.policy)
+    timer = SpecTimer(torch, eng._window)
+    kernels.reset_launches()
+    reqs = [eng.submit(p, sp) for p, sp in zip(prompts, sps)]
+    while eng.has_work():
+        eng.step()
+    torch.cuda.synchronize()
+    launches, replayed = kernels.launch_counts(), kernels.replayed_counts()
+    ev = timer.close()
+    attempts, demoted_at = plog.close() if plog is not None else (0, None)
+    for r in reqs:
+        if r.finish_reason not in ("length", "stop"):
+            fail(f"a phase 7 request finished {r.finish_reason}")
+    first = min(r.first_token_at for r in reqs)
+    last = max(r.finished_at for r in reqs)
+    d = [b - a for a, b in zip(c0, (eng.spec_dispatches, eng.spec_drafted_tokens,
+                                    eng.spec_accepted_tokens, eng.verify_replays,
+                                    eng.decode_dispatches))]
+    return {"outs": [(list(r.output), r.finish_reason) for r in reqs],
+            "lps": [list(r.output_logprobs) for r in reqs],
+            "tok_s": sum(len(r.output) - 1 for r in reqs) / max(last - first, 1e-9),
+            "spec": d[0], "drafted": d[1], "accepted": d[2], "verify_replays": d[3],
+            "dispatches": d[4], "steps": list(eng.steps_obs), "attempts": attempts,
+            "demoted_at": demoted_at, "verify_ms": ev["verify"], "window_ms": ev["window"],
+            "launches": launches, "replayed": replayed}
+
+
+def sampled_flip(ref, ref_lps, got, got_lps, temperature: float, noise_row):
+    """``flip_margin`` for a seeded sampled stream: None when ``got`` equals
+    ``ref``; else (position, nats, bound) at the first difference. The
+    sample is the argmax over the top candidates of logprob / temperature +
+    Gumbel noise keyed on the candidate's rank (``noise_row(position)``,
+    recomputed on the card); a flip between two rounding paths of the same
+    history is a near-tie either in that perturbed score (its gap x
+    temperature) or in the rank order itself (``got``'s logprob next to a
+    neighbouring rank's, which swaps their noise; a ``got`` outside the
+    reference's candidates crossed the top-k cut: its logprob, by ``got``'s
+    own run, next to the reference's last candidate's). The smaller gap is
+    held to the greedy bound, 2 x BF16_REL_TOL x |logprob|."""
+    if got == ref:
+        return None
+    i = next((k for k, (a, b) in enumerate(zip(ref, got)) if a != b), min(len(ref), len(got)))
+    if i >= len(ref) or i >= len(got) or ref_lps[i] is None:
+        return i, float("inf"), 0.0
+    lp, top_ids, top_lps = ref_lps[i]
+    ids = list(top_ids)
+    bound = round(2 * BF16_REL_TOL * abs(lp), 4)
+    if ref[i] not in ids:
+        return i, float("inf"), bound
+    if got[i] not in ids:
+        g_lp = got_lps[i][0] if got_lps[i] is not None else float("inf")
+        return i, round(float(abs(g_lp - top_lps[-1])), 4), bound
+    r_ref, r_got = ids.index(ref[i]), ids.index(got[i])
+    g = noise_row(i)
+    score = temperature * (top_lps[r_ref] / temperature + g[r_ref]
+                           - top_lps[r_got] / temperature - g[r_got])
+    swap = min(abs(top_lps[r_got] - top_lps[j]) for j in (r_got - 1, r_got + 1)
+               if 0 <= j < len(top_lps))
+    return i, round(float(min(abs(score), swap)), 4), bound
+
+
+def hold_streams(tag: str, ref_run: dict, got_run: dict, sampled=None) -> int:
+    """Each stream of ``got_run`` equals ``ref_run``'s, or first differs at
+    a near-tie (``flip_margin``, or ``sampled_flip`` for seeded rows:
+    ``sampled`` = (temperature, noise_row(stream, position))). Returns the
+    streams that differ."""
+    flips = []
+    for k, ((ref, _fr), lps, (got, _fg), g_lps) in enumerate(
+            zip(ref_run["outs"], ref_run["lps"], got_run["outs"], got_run["lps"])):
+        if sampled is None:
+            m = flip_margin(ref, lps, got)
+        else:
+            m = sampled_flip(ref, lps, got, g_lps, sampled[0],
+                             lambda i, k=k: sampled[1](k, i))
+        if m is not None:
+            if m[1] > m[2]:
+                fail(f"{tag}: stream {k} differs first at token {m[0]} by {m[1]} nats, past "
+                     f"the near-tie bound {m[2]}")
+            flips.append((k, *m))
+    if flips:
+        say(f"  {tag}: {len(flips)} of {len(ref_run['outs'])} streams differ, each first at "
+            f"a near-tie (stream, token, nats, bound): {flips}")
+    return len(flips)
+
+
+def verify_vs_eager(torch, eng, tag: str, grammar=None) -> None:
+    """One verify replayed (the engine's verify graph; with ``grammar`` on
+    every other row, the FSM verify graph) and one run eagerly
+    (``DecodeWindow._eager_verify``), from copies of one pool and one
+    penalty-count table (and FSM state): seeded sampled rows with
+    penalties, the even rows pinned by +90 on a token they are drafted
+    (accepted), the odd ones drafted random tokens (rejected). Tokens,
+    accept counts, logprobs, pools (outside each layer's trash page),
+    counts and FSM states byte-equal. The rows are aborted after."""
+    from llms_on_kubernetes_tpu_torch.engine.cache import KVPool
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+    from llms_on_kubernetes_tpu_torch.engine.graphs import unpack_accept, verify_rows
+
+    B, K = eng.config.max_decode_slots, eng.config.decode_steps
+    rng = np.random.default_rng(71)
+    pins = [int(t) for t in rng.integers(300, 120_000, B)]
+    reqs = []
+    for i in range(B):
+        sp = dict(max_tokens=64, temperature=0.7, seed=5 + i, presence_penalty=0.4,
+                  frequency_penalty=0.3)
+        if grammar is not None and i % 2:
+            sp.update(grammar=grammar, stop_token_ids=(BYTE_EOS,),
+                      logit_bias=GUIDED_BYTE_STEER)
+        elif i % 2 == 0:
+            sp["logit_bias"] = ((pins[i], 90.0),)
+        reqs.append(eng.submit([int(t) for t in rng.integers(1, 128_000, 40 + 3 * i)],
+                               SamplingParams(**sp)))
+    eng._admit()                   # sync admission: first tokens read
+    active = [(i, r) for i, r in enumerate(eng.slots) if r is not None]
+    base = {i: int(eng.slot_len[i]) + 1 for i, _r in active}
+    for i, _r in active:
+        eng.allocator.allocate(i, base[i] + K - 1)
+    packed = eng._window_rows(active, {i: K for i, _r in active}, base)
+    drafts = np.full((B, K - 1), -1, np.int32)
+    for i, r in active:
+        drafts[i] = pins[i] if i % 2 == 0 else rng.integers(300, 120_000, K - 1)
+    full = verify_rows(packed, drafts)
+    pools = [KVPool(p.data.clone(), None if p.scale is None else p.scale.clone())
+             for p in (eng.k_pages, eng.v_pages)]
+    counts = eng.token_counts.clone()
+    fsm = (eng._fsm_state.clone(), *eng._g_dev) if grammar is not None else None
+    eager_pack, eager_toks = eng._window._eager_verify(torch.from_numpy(full).cuda(), *pools,
+                                                       counts, fsm=fsm)
+    n0, f0 = eng._window.verify_replays, eng._window.fsm_verify_replays
+    pack, toks = eng._window.run_verify(full, use_fsm=grammar is not None)
+    torch.cuda.synchronize()
+    if (eng._window.verify_replays - n0, eng._window.fsm_verify_replays - f0) != \
+            (1, int(grammar is not None)):
+        fail(f"{tag}: the verify did not replay the graph it was asked for")
+    if not (torch.equal(pack, eager_pack) and torch.equal(toks, eager_toks)):
+        fail(f"{tag}: tokens, accept counts or logprobs differ between the verify replay and "
+             f"the eager verify")
+    if not torch.equal(eng.token_counts, counts):
+        fail(f"{tag}: penalty counts differ between the verify replay and the eager verify")
+    if fsm is not None and not torch.equal(eng._fsm_state, fsm[0]):
+        fail(f"{tag}: FSM states differ between the verify replay and the eager verify")
+    P = eng.config.num_pages
+    keep = torch.ones(eng.model_config.num_layers * P, dtype=torch.bool, device="cuda")
+    keep[::P] = False
+    for got, want in zip((eng.k_pages, eng.v_pages), pools):
+        if not torch.equal(got.data[:, keep], want.data[:, keep]) or (
+                want.scale is not None
+                and not torch.equal(got.scale[:, keep], want.scale[:, keep])):
+            fail(f"{tag}: pools differ between the verify replay and the eager verify")
+    accept = unpack_accept(pack.cpu().numpy(), B)[1]
+    if not (accept[0::2] == K).all() or accept[1::2].max() > (1 if grammar is None else K):
+        fail(f"{tag}: accept counts {accept.tolist()}: the pinned rows must take every "
+             f"draft")
+    say(f"  {tag}: one verify ({K} positions, {B} sampled rows with penalties"
+        f"{', every other one constrained' if grammar is not None else ''}; accept "
+        f"{accept.tolist()}) replayed equals the eager verify: tokens, accept, logprobs, "
+        f"pools and counts{', FSM states' if grammar is not None else ''} byte-equal")
+    for r in reqs:
+        eng.abort(r)
+    while eng.has_work():
+        eng.step()
+
+
+def verify_attention_ms(torch, eng) -> float:
+    """Device ms of one layer's plain ``chunk_attention`` at the verify's
+    shape (every slot, K positions, the full page table: the gather reads
+    each slot's ``pages_per_slot`` pages), ``Timer``'d on the engine's
+    pool."""
+    from llms_on_kubernetes_tpu_torch.ops.attention import dispatch_chunk_attention
+
+    cfg = eng.model_config
+    B, K, pps = eng.config.max_decode_slots, eng.config.decode_steps, eng.config.pages_per_slot
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((B, K, cfg.num_heads, cfg.head_dim), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    table = (1 + torch.arange(B * pps, dtype=torch.int32, device="cuda").view(B, pps)
+             % (eng.config.num_pages - 1))
+    hist = torch.full((B,), pps * eng.config.page_size - K, dtype=torch.int32, device="cuda")
+    w = torch.full((B,), K, dtype=torch.int32, device="cuda")
+    return Timer(torch)(lambda: dispatch_chunk_attention(
+        q, eng.k_pages, eng.v_pages, table, hist, w, scale=cfg.head_dim ** -0.5))
+
+
+def pinned_prompts(rng, n: int, length: int, pin_base: int = 1000) -> tuple:
+    """``n`` prompts of ``length`` random ids ending in four copies of a
+    per-prompt pin, and the pins."""
+    pins = [pin_base + 97 * i for i in range(n)]
+    return [[int(t) for t in rng.integers(1, 120_000, length - 4)] + [p] * 4
+            for p in pins], pins
+
+
+def spec_turns(torch, off, on, tag: str, prompts, sps, exact: bool,
+               sampled=None) -> tuple[list, list]:
+    """One case in turns: off, on, on, off (prefix caching makes a second
+    run warm: each on run is held against the off run of its temperature,
+    cold against cold, warm against warm). ``exact``: streams equal, else
+    equal or first apart at a near-tie. Returns (the on runs, the off
+    runs)."""
+    runs = [spec_run(torch, e, prompts, sps) for e in (off, on, on, off)]
+    for ref, got in ((runs[0], runs[1]), (runs[3], runs[2])):
+        if exact:
+            if got["outs"] != ref["outs"]:
+                fail(f"{tag}: the streams with speculation differ from those without")
+        else:
+            hold_streams(tag, ref, got, sampled)
+    for run in (runs[1], runs[2]):
+        if run["verify_replays"] != run["spec"]:
+            fail(f"{tag}: {run['spec']} verify dispatches, {run['verify_replays']} graph "
+                 f"replays")
+    say(f"  {tag}: decode tok/s off {runs[0]['tok_s']:.1f}, on {runs[1]['tok_s']:.1f}, on "
+        f"{runs[2]['tok_s']:.1f}, off {runs[3]['tok_s']:.1f}; verify dispatches "
+        f"{runs[1]['spec']}/{runs[2]['spec']} of {runs[1]['dispatches']}/"
+        f"{runs[2]['dispatches']}, drafted {runs[1]['drafted']}, accepted "
+        f"{runs[1]['accepted']} (ratio {runs[1]['accepted'] / max(1, runs[1]['drafted']):.3f});"
+        f" policy attempts {runs[1]['attempts']}, demoted at attempt "
+        f"{runs[1]['demoted_at']}; device ms a verify {med(runs[1]['verify_ms']):.2f} "
+        f"(median of {len(runs[1]['verify_ms'])}), a window on {med(runs[1]['window_ms']):.2f}"
+        f", off {med(runs[0]['window_ms']):.2f} ({card_line()})")
+    return [runs[1], runs[2]], [runs[0], runs[3]]
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def check_verify_launches(tag: str, runs: list, num_layers: int, window_kernel: str) -> dict:
+    """The verify path launched ``window_kernel`` num_layers times a verify,
+    every one of them a replay's (the chunk path's eager ones aside)."""
+    launches, replayed, verifies = {}, {}, 0
+    for run in runs:
+        add_counts(launches, run["launches"])
+        add_counts(replayed, run["replayed"])
+        verifies += run["verify_replays"]
+    if not verifies or replayed.get(window_kernel, 0) != num_layers * verifies:
+        fail(f"{tag}: {window_kernel} replayed {replayed.get(window_kernel, 0)} times over "
+             f"{verifies} verifies of {num_layers} layers")
+    say(f"  {tag}: launches {launches}, of them by graph replays {replayed} ({verifies} "
+        f"verifies)")
+    return launches
+
+
+def seeded_noise(torch, eng, prompts, run):
+    """noise_row(stream, position) for ``sampled_flip``: the Gumbel row the
+    engine drew for that stream's token (keyed on the engine seed, the
+    request's seed and the position prompt length + token index)."""
+    from llms_on_kubernetes_tpu_torch.engine.sampling import MAX_CANDIDATES, gumbel_noise
+
+    def row(k: int, i: int) -> list:
+        seed = torch.tensor([run["seeds"][k]], dtype=torch.int32, device="cuda")
+        pos = torch.tensor([len(prompts[k]) + i], dtype=torch.int32, device="cuda")
+        return gumbel_noise(eng.config.seed, seed, pos, MAX_CANDIDATES)[0].tolist()
+    return row
+
+
+def phase_spec_lookup(torch, params) -> dict:
+    """A. Prompt-lookup speculation on llama-3-8b bf16, the default
+    EngineConfig, in process: an engine without and one with speculation
+    on the same weights, each case in turns (off, on, on, off)."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
+    from llms_on_kubernetes_tpu_torch.engine.grammar import (
+        compile_response_format, token_bytes_of,
+    )
+    from llms_on_kubernetes_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llms_on_kubernetes_tpu_torch.ops.quant import quantize_params
+
+    L = get_config(MODEL).num_layers
+    rng = np.random.default_rng(77)
+    off = Engine(EngineConfig(model=MODEL), params=params)
+    on = Engine(EngineConfig(model=MODEL, speculation="ngram"), params=params)
+    verify_vs_eager(torch, on, "A verify graph against eager")
+    out = {}
+    # A1: full accept
+    p1, pins = pinned_prompts(rng, 8, 32)
+    sp1 = [SamplingParams(temperature=0.0, max_tokens=SPEC_NEW, logit_bias=((p, 90.0),))
+           for p in pins]
+    on_runs, off_runs = spec_turns(torch, off, on, "A1 full accept", p1, sp1, exact=True)
+    for run in on_runs:
+        ratio = len(run["steps"]) / max(1, sum(run["steps"]))
+        if not run["drafted"] or run["accepted"] != run["drafted"]:
+            fail(f"A1: accepted {run['accepted']} of {run['drafted']} drafted, not all")
+        if ratio > SPEC_DISPATCH_BOUND:
+            fail(f"A1: {ratio:.3f} dispatches a committed token, past {SPEC_DISPATCH_BOUND}")
+    say(f"  A1: {len(on_runs[0]['steps'])} dispatches for {sum(on_runs[0]['steps'])} row "
+        f"tokens: {len(on_runs[0]['steps']) / sum(on_runs[0]['steps']):.3f} a token")
+    att = verify_attention_ms(torch, on)
+    say(f"  A: the verify's plain chunk_attention (8 slots, 4 positions, 32 pages of 64 a "
+        f"slot): {att:.3f} ms a layer, x {L} layers = {att * L:.2f} ms of a verify's "
+        f"{med(on_runs[0]['verify_ms']):.2f} (Timer, L2 flushed; {card_line()})")
+    out["A1"] = on_runs + off_runs
+    # A2: lookup-friendly traffic: ~600 tokens of one repeated 40-token span
+    p2 = []
+    for _ in range(8):
+        span = [int(t) for t in rng.integers(1, 120_000, 40)]
+        p2.append(span * 15)
+    sp2 = [SamplingParams(temperature=0.0, max_tokens=SPEC_NEW, logprobs=1)] * 8
+    on_runs, off_runs = spec_turns(torch, off, on, "A2 lookup-friendly", p2, sp2, exact=False)
+    out["A2"] = on_runs + off_runs
+    # A3: adversarial: random prompts
+    p3 = [[int(t) for t in rng.integers(1, 120_000, 128)] for _ in range(8)]
+    on_runs, off_runs = spec_turns(torch, off, on, "A3 adversarial", p3, sp2, exact=False)
+    out["A3"] = on_runs + off_runs
+    # A4: seeded sampling with penalties on the lookup-friendly prompts
+    seeds = [100 + i for i in range(8)]
+    sp4 = [SamplingParams(temperature=0.9, top_k=8, seed=s, presence_penalty=0.3,
+                          frequency_penalty=0.2, max_tokens=SPEC_NEW) for s in seeds]
+    runs4 = {"seeds": seeds}
+    on_runs, off_runs = spec_turns(torch, off, on, "A4 seeded sampling", p2, sp4, exact=False,
+                                   sampled=(0.9, seeded_noise(torch, off, p2, runs4)))
+    out["A4"] = on_runs + off_runs
+    # guided: 4 pinned free rows beside 4 rows under a JSON schema (byte grammar)
+    g = compile_response_format({"type": "json_schema", "json_schema": {
+        "schema": GUIDED_SCHEMA}}, token_bytes_of(ByteTokenizer()), [BYTE_EOS])
+    verify_vs_eager(torch, on, "A FSM verify graph against eager", grammar=g)
+    f0 = on._window.fsm_verify_replays
+    sp_g = [SamplingParams(temperature=0.0, max_tokens=96, grammar=g,
+                           stop_token_ids=(BYTE_EOS,), logit_bias=GUIDED_BYTE_STEER)
+            if i % 2 else sp1[i] for i in range(8)]
+    run_g = spec_run(torch, on, p1, sp_g)
+    for k in range(1, 8, 2):
+        toks, reason = run_g["outs"][k]
+        st = g.start
+        for t in toks:
+            st = g.next_state(st, t) if st >= 0 else st
+        text = bytes(t for t in toks if t < 256).decode("utf-8", errors="replace")
+        try:
+            obj = json.loads(text)
+        except ValueError:
+            fail(f"A guided row {k}: {text!r} ({reason}) does not parse")
+        if st < 0 or reason != "stop":
+            fail(f"A guided row {k}: left its grammar or did not finish: {text!r}")
+        guided_answer(f"A guided row {k}", {"choices": [{"finish_reason": reason, "message": {
+            "content": json.dumps(obj)}}]}, "schema")
+    if on._window.fsm_verify_replays == f0:
+        fail("A guided: no verify replayed the FSM verify graph")
+    say(f"  A guided: 4 schema answers valid beside 4 pinned rows; FSM verify replays "
+        f"{on._window.fsm_verify_replays - f0}, verifies {run_g['spec']}")
+    launches = check_verify_launches("A (bf16)", out["A1"][:2] + out["A2"][:2] + out["A3"][:2]
+                                     + out["A4"][:2], L, "paged_write_window")
+    del off, on
+    gc.collect()
+    # A5: case 1 with int8 weights, int8 KV and kv_write fused
+    q = quantize_params(params)
+    kw = dict(model=MODEL, quantization="int8", kv_cache_dtype="int8", kv_write="fused")
+    off = Engine(EngineConfig(**kw), params=q)
+    on = Engine(EngineConfig(**kw, speculation="ngram"), params=q)
+    verify_vs_eager(torch, on, "A5 int8 verify graph against eager")
+    on_runs, off_runs = spec_turns(torch, off, on, "A5 full accept, int8", p1, sp1, exact=True)
+    for run in on_runs:
+        if not run["drafted"] or run["accepted"] != run["drafted"]:
+            fail(f"A5: accepted {run['accepted']} of {run['drafted']} drafted, not all")
+    launches8 = check_verify_launches("A5 (int8)", on_runs, L, "paged_write_window_int8")
+    for k in ("w8_matmul", "paged_decode_write_int8"):
+        if not launches8.get(k):
+            fail(f"A5: {k} never launched")
+    out["A5"] = on_runs + off_runs
+    del off, on, q
+    free_card(torch, "phase 7 A")
+    return {"runs": out, "launches": launches, "launches_int8": launches8}
+
+
+class TimedGraph:
+    """CUDA events around each replay of a captured graph (the draft
+    rollout's)."""
+
+    def __init__(self, torch, graph):
+        self.torch, self.graph, self.ms = torch, graph, []
+        self.events = []
+
+    def replay(self):
+        e0, e1 = self.torch.cuda.Event(enable_timing=True), self.torch.cuda.Event(
+            enable_timing=True)
+        e0.record()
+        self.graph.replay()
+        e1.record()
+        self.events.append((e0, e1))
+
+    def close(self) -> list:
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def draft_case(torch, off_run, eng, prompts, sps, tag: str) -> dict:
+    """One draft-tier run against the off run: streams equal or first
+    apart at a near-tie, every rollout one graph replay (timed) and every
+    verify one."""
+    drafter = eng._spec.drafter
+    drafter.propose(np.asarray(prompts[0], np.int32), 1)     # captures the rollout
+    timed = drafter.graph = TimedGraph(torch, drafter.graph)
+    r0 = drafter.replays
+    run = spec_run(torch, eng, prompts, sps)
+    rollout_ms = timed.close()
+    drafter.graph = timed.graph
+    hold_streams(tag, off_run, run)
+    if drafter.replays - r0 != len(rollout_ms) or run["verify_replays"] != run["spec"] or \
+            not run["spec"]:
+        fail(f"{tag}: {drafter.replays - r0} rollouts, {len(rollout_ms)} timed, "
+             f"{run['spec']} verifies, {run['verify_replays']} verify replays")
+    say(f"  {tag}: decode tok/s {run['tok_s']:.1f} (off {off_run['tok_s']:.1f}); verifies "
+        f"{run['spec']} of {run['dispatches']} dispatches, drafted {run['drafted']}, accepted "
+        f"{run['accepted']} (ratio {run['accepted'] / max(1, run['drafted']):.3f}); "
+        f"rollouts {len(rollout_ms)}, device ms a rollout {med(rollout_ms):.2f} (median), "
+        f"the rollout graph captured in {drafter.capture_s:.2f} s; policy attempts "
+        f"{run['attempts']}, demoted at attempt {run['demoted_at']}; device ms a verify "
+        f"{med(run['verify_ms']):.2f} ({card_line()})")
+    run["rollout_ms"] = rollout_ms
+    return run
+
+
+def phase_spec_draft(torch, params, path: str) -> dict:
+    """B. The draft tier: llama-3-8b drafting for itself (by registry name,
+    the target's seed: the same weights), then the Llama-3.2-1B-width Q8_0
+    GGUF draft at ``path``."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
+
+    rng = np.random.default_rng(78)
+    prompts = [[int(t) for t in rng.integers(1, 120_000, 16)] for _ in range(8)]
+    sps = [SamplingParams(temperature=0.0, max_tokens=DRAFT_NEW, logprobs=1)] * 8
+    off = Engine(EngineConfig(model=MODEL), params=params)
+    off_run = spec_run(torch, off, prompts, sps)
+    del off
+    gc.collect()
+    eng = Engine(EngineConfig(model=MODEL, speculation="draft", draft_model=MODEL),
+                 params=params)
+    same = draft_case(torch, off_run, eng, prompts, sps, f"B {MODEL} drafting for itself")
+    if same["accepted"] < 0.5 * same["drafted"]:
+        fail(f"B: the target drafting for itself accepted {same['accepted']} of "
+             f"{same['drafted']}")
+    del eng
+    free_card(torch, "phase 7 B self-draft")
+    t0 = time.perf_counter()
+    eng = Engine(EngineConfig(model=MODEL, speculation="draft", draft_model=path),
+                 params=params)
+    say(f"  B: engine with the GGUF draft built in {time.perf_counter() - t0:.1f} s")
+    small = draft_case(torch, off_run, eng, prompts, sps, "B Llama-3.2-1B Q8_0 GGUF draft")
+    del eng
+    os.remove(path)
+    free_card(torch, "phase 7 B GGUF draft")
+    return {"self": same, "gguf": small}
+
+
+class RssPeak:
+    """This process's resident set sampled every 20 ms on a thread
+    (``/proc/self/statm``): ``close()`` gives (GB at the start, the peak's
+    GB above it)."""
+
+    def __init__(self):
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._rss())
+
+    def close(self) -> tuple:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+        return self.start / 1e9, (self.peak - self.start) / 1e9
+
+
+def hold_gguf_params(torch, path: str, cfg, params) -> None:
+    """Layers 0 and L - 1, the embedding, the final norm and the head of
+    ``params`` (on the card) equal the file's dequantized values cast to
+    bf16, bit for bit."""
+    from llms_on_kubernetes_tpu_torch.engine.gguf import GGUFFile, gguf_layer
+
+    gf = GGUFFile(path)
+
+    def same(name: str, got, want: np.ndarray) -> None:
+        w = torch.from_numpy(np.ascontiguousarray(want)).to("cuda").to(torch.bfloat16)
+        if got.shape != w.shape or not torch.equal(got.view(torch.int16), w.view(torch.int16)):
+            fail(f"{path}: {name} differs from the file's values cast to bf16")
+    for i in (0, cfg.num_layers - 1):
+        for name, want in gguf_layer(gf, cfg, i).items():
+            same(f"layer {i} {name}", params["layers"][name][i], want)
+    same("embed", params["embed"], gf.tensor("token_embd.weight"))
+    same("final_norm", params["final_norm"], gf.tensor("output_norm.weight"))
+    if not cfg.tie_word_embeddings:
+        same("lm_head", params["lm_head"], gf.tensor("output.weight").T)
+    gf.close()
+
+
+def gguf_in_process(torch, path: str) -> dict:
+    """The bf16 server of a .gguf in this process, built by ``serve``'s own
+    GGUF branch (``_gguf_engine``: config, weights and the embedded
+    tokenizer from the file; timed, with the host's resident set sampled),
+    its params held to the file, then driven as ``_drive_gguf`` drives a
+    server."""
+    from llms_on_kubernetes_tpu_torch.cli import build_parser, engine_config_from_args
+    from llms_on_kubernetes_tpu_torch.server.openai_api import OpenAIServer, _gguf_engine
+
+    ecfg = engine_config_from_args(build_parser().parse_args(["serve", "--model", path]))
+    rss = RssPeak()
+    t0 = time.perf_counter()
+    eng, tok, load_s, _src = _gguf_engine(path, ecfg, torch.device("cuda"), False, None)
+    srv = OpenAIServer(eng, tok, eng.model_config.name, cold_start={"load": load_s})
+    base = f"http://127.0.0.1:{srv.start()}"
+    ready_s = time.perf_counter() - t0
+    rss_start, rss_peak = rss.close()
+    cfg = eng.model_config
+    try:
+        hold_gguf_params(torch, path, cfg, eng.params)
+        out = _drive_gguf(path, cfg, False)(base, None)
+        nbytes = param_bytes(eng.params)
+    finally:
+        srv.close()
+    del srv, eng
+    free_card(torch, f"{os.path.basename(path)} in process")
+    say(f"  {os.path.basename(path)}: {cfg.name} ({cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, vocab {cfg.vocab_size}) served in process through serve's GGUF "
+        f"branch: dequantized and uploaded in {load_s:.1f} s, serving after {ready_s:.1f} s, "
+        f"{nbytes / 1e9:.2f} GB on the card, the host's resident set peaking {rss_peak:.2f} GB "
+        f"above its {rss_start:.2f} GB at the start; layers 0 and {cfg.num_layers - 1}, the "
+        f"embedding, the norm and the head equal the file's values cast to bf16; chat "
+        f"{out['usage']}: {out['answer'][:60]!r}; launches {out['launches']} ({card_line()})")
+    return {**out, "cfg": cfg, "load_s": load_s, "ready_s": ready_s, "rss_peak_gb": rss_peak}
+
+
+def _drive_gguf(path: str, cfg, int8: bool):
+    """Drive a GGUF server: one chat completion through the embedded
+    tokenizer and template (its prompt_tokens the template's count), the
+    launch counters zeroed before and read after, every window a graph
+    replay; with int8 weights every projection one W8A16 launch."""
+    from llms_on_kubernetes_tpu_torch.engine.gguf import GGUFFile
+    from llms_on_kubernetes_tpu_torch.engine.tokenizer import GGUFTokenizer
+
+    gf = GGUFFile(path)
+    tok = GGUFTokenizer(gf.metadata)
+    gf.close()
+    msgs = [{"role": "user", "content": "Name three colours of the rainbow."}]
+    want_prompt = len(tok.apply_chat_template(msgs))
+
+    def drive(base: str, _proc) -> dict:
+        http("POST", base + "/debug/kernels/reset")
+        k0 = kernel_counts(base)
+        status, body = http("POST", base + "/v1/chat/completions",
+                            {"messages": msgs, "max_tokens": 16, "temperature": 0})
+        if status != 200:
+            fail(f"{path}: chat completion HTTP {status}: {body[:300]!r}")
+        d = json.loads(body)
+        usage = d["usage"]
+        if usage["prompt_tokens"] != want_prompt or usage["completion_tokens"] < 1:
+            fail(f"{path}: usage {usage}, the embedded template gives {want_prompt} prompt "
+                 f"tokens")
+        k1 = kernel_counts(base)
+        check_graphed(os.path.basename(path), k1, k0)
+        launches = k1["launches"]
+        forwards = (k1["prefill_calls"] + k1["chunk_calls"] + k1["decode_forwards"]
+                    - k0["prefill_calls"] - k0["chunk_calls"] - k0["decode_forwards"])
+        if int8 and launches.get("w8_matmul", 0) != 7 * cfg.num_layers * forwards:
+            fail(f"{path} int8: w8_matmul launched {launches.get('w8_matmul', 0)} times for "
+                 f"{forwards} forwards of {cfg.num_layers} layers")
+        if not int8 and launches.get("w8_matmul"):
+            fail(f"{path}: the bf16 server launched w8_matmul")
+        return {"launches": launches, "answer": d["choices"][0]["message"]["content"],
+                "usage": usage}
+    return drive
+
+
+def start_gguf_writes() -> dict:
+    """Write phase 7's GGUF files with ``testing/synth_gguf.py``, one
+    process each, started at once (they overlap phase 7 A): preset ->
+    (path, process)."""
+    os.makedirs(GGUF_DIR, exist_ok=True)
+    out = {}
+    for preset, seed in (("llama-3.2-1b", 3),) + tuple((p, 1) for p in GGUF_SERVED):
+        path = os.path.join(GGUF_DIR, f"{preset}.gguf")
+        cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch.testing.synth_gguf",
+               preset, path, "--seed", str(seed)]
+        out[preset] = (path, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True),
+                       time.perf_counter())
+    return out
+
+
+def gguf_written(writes: dict, preset: str) -> str:
+    """Wait for ``preset``'s file; its path."""
+    path, proc, t0 = writes[preset]
+    out, _ = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        fail(f"synth_gguf {preset} exited {proc.returncode}: {out}")
+    say(f"  wrote {path} ({os.path.getsize(path) / 1e9:.2f} GB), done "
+        f"{time.perf_counter() - t0:.1f} s after its start")
+    return path
+
+
+def phase_gguf_serve(torch, writes: dict) -> dict:
+    """C. TinyLlama-1.1B Q8_0 and Phi-3-mini q4 (``testing/synth_gguf.py``),
+    each served in bf16 in this process through serve's GGUF branch (its
+    params held to the file) and then with ``serve --model <file>.gguf
+    --quantization int8``, behind nothing."""
+    out = {}
+    for preset in GGUF_SERVED:
+        path = gguf_written(writes, preset)
+        res = {"bf16": gguf_in_process(torch, path)}
+        cfg = res["bf16"]["cfg"]
+        r = with_server(["--model", path, "--quantization", "int8"],
+                        f"chip_smoke_gguf_{preset}_int8.log", _drive_gguf(path, cfg, True))
+        say(f"  {preset} served int8 (serve --model {os.path.basename(path)} --quantization "
+            f"int8): /health after {r['health_s']:.1f} s; chat {r['usage']}: "
+            f"{r['answer'][:60]!r}; launches {r['launches']} ({card_line()})")
+        res["int8"] = r
+        os.remove(path)
+        out[preset] = res
+    return out
+
+
+def phase_spec_gguf(torch) -> dict:
+    """Phase 7: A (prompt-lookup speculation), B (the draft tier) on the
+    same llama-3-8b random weights, then C (GGUF serving)."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.models.decoder import init_params
+
+    t0 = time.perf_counter()
+    writes = start_gguf_writes()
+    try:
+        params = init_params(get_config(MODEL), seed=0, dtype="bfloat16", device="cuda")
+        a = phase_spec_lookup(torch, params)
+        t1 = time.perf_counter()
+        say(f"phase 7 A: {t1 - t0:.1f} s")
+        b = phase_spec_draft(torch, params, gguf_written(writes, "llama-3.2-1b"))
+        t2 = time.perf_counter()
+        say(f"phase 7 B: {t2 - t1:.1f} s")
+        del params
+        free_card(torch, "phase 7 A-B")
+        c = phase_gguf_serve(torch, writes)
+        say(f"phase 7 C: {time.perf_counter() - t2:.1f} s")
+    finally:
+        for _path, proc, _t in writes.values():     # a failed phase leaves no writer
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    say(f"phase 7 (speculation, draft tier, GGUF serve): {time.perf_counter() - t0:.1f} s")
+    return {"A": a, "B": b, "C": c}
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -5133,6 +5918,9 @@ def main(argv) -> int:
         if not funcs or not hmma:
             fail(f"the bf16 W8A16 body {body} has no tensor-core (HMMA) instruction")
 
+    if "--spec-only" in argv:
+        phase_spec_gguf(torch)
+        fail("--spec-only: phases 2 to 6 skipped, no result")
     t0 = time.perf_counter()
     entries = phase_kernels(torch)
     for name, shapes in wide_kernels(torch, np.random.default_rng(1), Timer(torch)).items():
@@ -5148,6 +5936,7 @@ def main(argv) -> int:
     if "--kernels-only" in argv:
         say(json.dumps({"kernels": list(entries.values())}))
         fail("--kernels-only: phases 3 to 5 skipped, no result")
+
     t0 = time.perf_counter()
     phase_reference(torch)
     phase_reference(torch, quantized=True)
@@ -5169,6 +5958,7 @@ def main(argv) -> int:
     ckpt = phase_checkpoint(torch)
     tok_llama3 = phase_tokenizer_llama3()
     headline = phase_headline(torch)
+    spec = phase_spec_gguf(torch)
     # launches on each path, counted from 0 just before it and read just
     # after; the line's "launches" is the checkpoint server's where the
     # kernel runs there, else phase 4's fused engines, and the W8A16
@@ -5189,7 +5979,13 @@ def main(argv) -> int:
              PREFILL_PATH: tier["disagg"]["prefill_launches"],
              DECODE_PATH: tier["disagg"]["launches"],
              f"{MODEL} {DRILL_LAYERS} layers handoff drills and QoS server":
-                 tier["drills"]["launches"]}
+                 tier["drills"]["launches"],
+             SPEC_PATH: spec["A"]["launches"], SPEC_INT8_PATH: spec["A"]["launches_int8"],
+             DRAFT_PATH: spec["B"]["self"]["launches"],
+             GGUF_DRAFT_PATH: spec["B"]["gguf"]["launches"]}
+    for preset, r in spec["C"].items():
+        for kind in ("bf16", "int8"):
+            paths[f"{preset} GGUF serve {kind} weights"] = r[kind]["launches"]
     main_path = {"flash_prefill": ckpt_bf16, "paged_decode": ckpt_bf16,
                  "paged_write_window": ckpt_bf16, "paged_decode_int8": ckpt_int8,
                  "paged_write_window_int8": ckpt_int8, "paged_decode_write": fused_bf16,

@@ -3,12 +3,14 @@
     python -m llms_on_kubernetes_tpu_torch serve --model MODEL [--random-weights] \\
         [--device cuda|cpu] [--port 8080] [--kv-cache-dtype int8] [--kv-write dus|fused] \\
         [--quantization int8|fp8|awq] [--no-prefix-caching] [--watchdog-stall-s S] \\
-        [--decode-steps K] [--kv-host-cache-gb GB]
+        [--decode-steps K] [--kv-host-cache-gb GB] [--speculation ngram|draft] \\
+        [--draft-model NAME_OR_GGUF]
 
-``--decode-steps``, ``--kv-write`` and ``--kv-host-cache-gb`` default to
-the environment (``LLMK_DECODE_STEPS``, ``LLMK_KV_WRITE``,
-``LLMK_KV_HOST_CACHE_GB``), as the JAX engine's config does; a flag wins
-over the environment. The serving role (prefill, decode or both) comes
+``--decode-steps``, ``--kv-write``, ``--kv-host-cache-gb``,
+``--speculation`` and ``--draft-model`` default to the environment
+(``LLMK_DECODE_STEPS``, ``LLMK_KV_WRITE``, ``LLMK_KV_HOST_CACHE_GB``,
+``LLMK_SPECULATION``, ``LLMK_DRAFT_MODEL``), as the JAX engine's config
+does; a flag wins over the environment. The serving role (prefill, decode or both) comes
 from ``LLMK_ROLE`` alone, and the engine's fair-queue config from
 ``LLMK_QOS``, JSON as the JAX CLI reads it: ``{"weights": {"alice": 4},
 "priorities": {"bulk": "batch"}, "default_priority": "normal",
@@ -17,7 +19,9 @@ hooks of ``faults.py``.
 
 ``MODEL`` is a registry name (``configs.py``), a local checkpoint directory
 (``config.json`` and ``*.safetensors``: the model config comes from the
-registry for a registry name, else from that ``config.json``), or a
+registry for a registry name, else from that ``config.json``), a llama.cpp
+``.gguf`` file (the model config from its metadata; tokenizer files beside
+it win, else the vocabulary and chat template it embeds), or a
 HuggingFace repo id or registry name whose snapshot is in the local HF
 cache. Nothing is downloaded. Missing weights are a startup failure: the
 process exits 1 and names ``--random-weights``, which serves seeded random
@@ -86,6 +90,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "their pages in host memory and a returning one uploads them "
                         "instead of prefilling (default: env LLMK_KV_HOST_CACHE_GB, else "
                         "off; needs prefix caching)")
+    p.add_argument("--speculation", choices=["ngram", "draft"], default=None,
+                   help="speculative decoding riding the decode window: ngram = "
+                        "model-free prompt lookup, draft = a small draft model via "
+                        "--draft-model (default: env LLMK_SPECULATION, else off; "
+                        "greedy outputs match speculation off up to the verify's "
+                        "rounding)")
+    p.add_argument("--draft-model", default=None,
+                   help="draft model for --speculation draft (registry name, random "
+                        "weights from --seed, or a .gguf path; default: env "
+                        "LLMK_DRAFT_MODEL; implies --speculation draft)")
     p.add_argument("--watchdog-stall-s", type=float, default=d.watchdog_stall_s,
                    help="seconds a device step may go without completing before the "
                         "engine sheds all work as 'stalled' and /health turns 503 "
@@ -123,8 +137,8 @@ def engine_config_from_args(args):
         decode_steps=args.decode_steps, kv_write=args.kv_write,
         kv_cache_dtype=args.kv_cache_dtype, quantization=args.quantization,
         prefix_caching=args.prefix_caching, watchdog_stall_s=args.watchdog_stall_s,
-        kv_host_cache_gb=args.kv_host_cache_gb, seed=args.seed, device=args.device,
-        **qos_from_env())
+        kv_host_cache_gb=args.kv_host_cache_gb, speculation=args.speculation,
+        draft_model=args.draft_model, seed=args.seed, device=args.device, **qos_from_env())
 
 
 def main(argv=None) -> int:
@@ -134,7 +148,11 @@ def main(argv=None) -> int:
         from llms_on_kubernetes_tpu_torch.server.openai_api import serve
 
         model_dir = None
-        if not args.random_weights:
+        if args.model.endswith(".gguf"):
+            if not os.path.isfile(args.model):
+                print(f"error: GGUF file not found: {args.model}", file=sys.stderr)
+                return 1
+        elif not args.random_weights:
             try:
                 model_dir = resolve_model_dir(args.model)
             except FileNotFoundError as e:

@@ -144,7 +144,24 @@ prefill whose spills land in the tier before its finish is delivered;
 ``handoff_digests``, ``host_kv_export`` and ``host_kv_ingest`` serve the
 server's ticket, ``/internal/kv/fetch`` and pull, from server threads.
 
-Not ported yet: LoRA, multimodal salts and speculation.
+Speculative decoding (``speculation``: "ngram" or "draft" with
+``draft_model``; env ``LLMK_SPECULATION`` / ``LLMK_DRAFT_MODEL``; as in the
+JAX engine, only with async scheduling and ``decode_steps`` > 1;
+``engine/speculation.py``): each decode launch first tries a verify
+dispatch (``_launch_decode_spec``). Verifies serialize: one launches only
+into an empty pipeline (no window in flight, no first token unread, no
+admission this step), so every row's input token and committed context are
+host-known, and while it is in flight admission waits. The drafter
+proposes up to ``decode_steps - 1`` tokens a row, one verify
+(``engine/graphs.verify_window``, a CUDA graph replay on a card) scores
+them, and the harvest takes each row's ``accept`` prefix of its plan,
+booking the rejected rest as ``spec_waste``. The ``SpecPolicy`` demotes
+drafting on traffic that rejects it (the pipelined plain window comes
+back) and probes again every 64 plain dispatches. Counters (JAX names):
+``spec_dispatches``, ``spec_drafted_tokens``, ``spec_accepted_tokens``,
+``decode_dispatches``, ``steps_obs``.
+
+Not ported yet: LoRA and multimodal salts.
 """
 
 from __future__ import annotations
@@ -173,7 +190,8 @@ from llms_on_kubernetes_tpu_torch.engine.cache import (
 from llms_on_kubernetes_tpu_torch.engine.graphs import (
     BIAS, BUD, DEC_COLS, FLOATS, FSM, LEN, LOGIT_BIAS_SLOTS, PRE_ROW, SEED, SRC, SRC_HOST,
     SRC_INFLIGHT, SRC_PREFILL, STOP, STOP_SLOTS, TOP_K, VAL, DecodeWindow, fsm_apply,
-    fsm_scatter, idle_rows, pack_bias, pack_results, unpack_bias, unpack_results, upload,
+    fsm_scatter, idle_rows, pack_bias, pack_results, unpack_accept, unpack_bias,
+    unpack_results, upload, verify_rows,
 )
 from llms_on_kubernetes_tpu_torch.engine.ledger import GoodputLedger, StepAnomalyDetector
 from llms_on_kubernetes_tpu_torch.engine.qos import (
@@ -300,6 +318,14 @@ class EngineConfig:
     prefix_caching: bool = True
     # tokens a decode window runs. None => env LLMK_DECODE_STEPS (default 4)
     decode_steps: Optional[int] = None
+    # speculative decoding on the window (engine/speculation.py): "ngram"
+    # drafts up to decode_steps - 1 tokens a row by prompt lookup over the
+    # request's own context, "draft" rolls out a small draft model
+    # (draft_model: a registry name or a .gguf path); one verify dispatch
+    # scores them. None/"off" disables; a draft model alone implies
+    # "draft". Env: LLMK_SPECULATION / LLMK_DRAFT_MODEL (the JAX fields)
+    speculation: Optional[str] = None
+    draft_model: Optional[str] = None
     seed: int = 0
     # "cuda" (the default) raises without a GPU; pass "cpu" for the CPU
     device: str = "cuda"
@@ -355,6 +381,20 @@ class EngineConfig:
         if self.kv_write not in KV_WRITE_STRATEGIES:
             raise ValueError(f"kv_write must be one of {KV_WRITE_STRATEGIES}, "
                              f"got {self.kv_write!r}")
+        if self.speculation is None:
+            self.speculation = os.environ.get("LLMK_SPECULATION") or None
+        if self.draft_model is None:
+            self.draft_model = os.environ.get("LLMK_DRAFT_MODEL") or None
+        if self.speculation in ("off", "none", ""):
+            self.speculation = None
+        if self.speculation is None and self.draft_model is not None:
+            self.speculation = "draft"  # a draft model implies the tier
+        if self.speculation not in (None, "ngram", "draft"):
+            raise ValueError(f"speculation must be one of None/'off'/'ngram'/'draft', "
+                             f"got {self.speculation!r}")
+        if self.speculation == "draft" and self.draft_model is None:
+            raise ValueError("speculation='draft' requires draft_model (registry name "
+                             "or .gguf path)")
         if self.watchdog_stall_s is None:
             self.watchdog_stall_s = float(os.environ.get("LLMK_WATCHDOG_S", "120"))
         if self.ledger is None:
@@ -522,6 +562,8 @@ class InflightStep:
     seq: int = -1                          # harvester sequence number
     planned: dict = dataclasses.field(default_factory=dict)  # slot -> tokens planned
     launched_at: float = 0.0               # dispatch time (goodput ledger)
+    spec: bool = False                     # a verify dispatch: accept rides the pack
+    drafted: Optional[dict] = None         # slot -> tokens drafted this window
 
 
 class _Harvester(threading.Thread):
@@ -790,6 +832,15 @@ class Engine:
         self.prefill_calls = 0       # forward_prefill calls (one per bucket batch)
         self.chunk_calls = 0         # forward_chunk calls (one per chunk)
         self.decode_forwards = 0     # forward_decode calls (K per window)
+        self.decode_dispatches = 0   # decode windows and verifies harvested
+        # speculative decoding (the JAX counters): drafted / accepted count
+        # DRAFT tokens only (the bonus token is ordinary decode output), so
+        # accepted / drafted is the pure draft hit rate
+        self.spec_dispatches = 0
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
+        # per-dispatch consumed window depth (the most tokens a row took)
+        self.steps_obs: "collections.deque[int]" = collections.deque(maxlen=4096)
         self.preemptions = 0         # KV-pressure preemptions
         # set by _shed_wedged() when a device step outlasted the watchdog
         # budget: submit() refuses from then on and the server turns /health
@@ -847,6 +898,14 @@ class Engine:
             self._harvester = _Harvester()
             self._harvester.start()
             self._close = weakref.finalize(self, self._harvester.close)
+        # speculative decoding (engine/speculation.py): only on the async
+        # path with room to draft (decode_steps > 1), as in the JAX engine
+        self._spec = None
+        if (engine_config.speculation is not None and self._async
+                and engine_config.decode_steps > 1):
+            from llms_on_kubernetes_tpu_torch.engine.speculation import build_speculator
+
+            self._spec = build_speculator(engine_config, cfg, self.device)
 
     @property
     def graph_replays(self) -> int:
@@ -857,6 +916,11 @@ class Engine:
     def fsm_graph_replays(self) -> int:
         """The part of ``graph_replays`` that replayed the FSM window."""
         return self._window.fsm_replays
+
+    @property
+    def verify_replays(self) -> int:
+        """Verify dispatches run as one CUDA graph replay (0 on the CPU)."""
+        return self._window.verify_replays
 
     def device_wait_s(self) -> float:
         """Cumulative seconds spent waiting on device reads: the
@@ -992,7 +1056,7 @@ class Engine:
         if self._async:
             try:
                 admitted = self._admit_async(events)
-                status = self._launch_decode_multi(admitted, events)
+                status = self._launch_decode(admitted, events)
                 events += self._harvest(drain=status == "idle")
             except EngineStallError as e:
                 events += self._shed_wedged(str(e))
@@ -1561,25 +1625,36 @@ class Engine:
         return infl, plan
 
     def _emit_window(self, active: list[tuple[int, Request]], planned: dict,
-                     out: tuple) -> tuple[list[StepEvent], list]:
+                     out: tuple, accept=None,
+                     drafted: Optional[dict] = None) -> tuple[list[StepEvent], list, int, int]:
         """Emit a window's tokens (``unpack_results`` of it), up to each
-        row's plan, in order, until the request finishes. A request that
-        finished, was aborted or preempted after the launch is skipped:
-        its row's tokens are wasted speculation. Returns (events, the
+        row's plan (a verify's rows: up to ``min(plan, accept)``, the
+        device-checked prefix), in order, until the request finishes. A
+        request that finished, was aborted or preempted after the launch
+        is skipped: its row's tokens are wasted. Returns (events, the
         window's ledger rows: each row's consumed tokens as "decode", its
-        planned-but-unconsumed ones as "early_exit")."""
+        planned-but-unconsumed ones as "early_exit", or as "spec_waste" for
+        a row a verify drafted for; the most tokens a row took; the drafts
+        accepted)."""
         B = self.config.max_decode_slots
+        drafted = drafted or {}
         events: list[StepEvent] = []
         led: list = []
+        most = accepted = 0
         for slot, req in active:
             p = planned.get(slot, 0)
             if p <= 0:
                 continue
+            waste = "spec_waste" if slot in drafted else "early_exit"
             if req.finished or req.slot != slot:
-                led.append((req, "early_exit", p))
+                led.append((req, waste, p))
                 continue
+            # a verify row's tokens after a rejected draft were sampled
+            # from logits conditioned on that draft: discarded like an
+            # early exit's
+            cap = p if accept is None else min(p, int(accept[slot]))
             consumed = 0
-            for j in range(p):
+            for j in range(cap):
                 self.slot_len[slot] += 1        # the pending token's KV is cached
                 tok = int(out[0][j * B + slot])
                 req.pending_token = tok
@@ -1589,8 +1664,13 @@ class Engine:
                     break                       # the device masked the row here too
             led.append((req, "decode", consumed))
             if p > consumed:
-                led.append((req, "early_exit", p - consumed))
-        return events, led
+                led.append((req, waste, p - consumed))
+            most = max(most, consumed)
+            if slot in drafted:
+                # accepted drafts: the tokens taken less the one the plain
+                # window would have given anyway
+                accepted += max(0, consumed - 1)
+        return events, led, most, accepted
 
     def _decode(self) -> list[StepEvent]:
         """Sync: one window of up to ``decode_steps`` tokens per slot, read
@@ -1608,8 +1688,10 @@ class Engine:
         t0 = time.perf_counter()
         out = unpack_results(pack.cpu().numpy())
         self._device_time_s += time.perf_counter() - t0
-        emitted, led = self._emit_window(active, plan, out)
+        emitted, led, most, _accepted = self._emit_window(active, plan, out)
         self._book(t_launch, time.monotonic(), led, window=self.config.decode_steps)
+        self.decode_dispatches += 1
+        self.steps_obs.append(most)
         return events + emitted
 
     # ------------------------------------------------------------------
@@ -1639,6 +1721,12 @@ class Engine:
         self._admit_wake.clear()
         if faults.is_active("queue_stall"):
             return None         # LLMK_FAULT=queue_stall (see _admit)
+        if any(s.spec for s in self._inflight):
+            # a verify is in flight: its consumed-vs-planned tokens are
+            # unknown until the harvest, and an admission's window must
+            # launch in the same step, so admission waits one step (the
+            # JAX rule; the harvest of the verify comes first)
+            return None
         picked: list[tuple] = []
 
         def accept(ptoks: list[int], hit: int) -> bool:
@@ -1705,6 +1793,80 @@ class Engine:
             merge["slots"][slot] = (False, 0, row)
             self._pending_first.append((req, key, row))
         return merge
+
+    def _launch_decode(self, admitted, events: list[StepEvent]) -> str:
+        """The step's decode launch: a verify dispatch when speculation is
+        on and it can go now (``_launch_decode_spec``), else the window."""
+        if self._spec is not None:
+            st = self._launch_decode_spec(admitted, events)
+            if st is not None:
+                return st
+        return self._launch_decode_multi(admitted, events)
+
+    def _launch_decode_spec(self, admitted, events: list[StepEvent]) -> Optional[str]:
+        """Try to launch a speculative verify dispatch (the JAX
+        ``_launch_decode_spec``); None falls through to the plain window.
+
+        Verifies SERIALIZE: a window that consumes fewer tokens than it
+        planned would break the slot_len + in-flight-tokens sum every
+        pipelined launch's positions rest on, so a verify launches only
+        into an empty pipeline (no window in flight, no first token unread,
+        no admission this step): every row's last token is then host-known
+        and ends the drafter's context. While it is in flight the engine
+        reports "paced" and admission waits. The policy demotes drafting on
+        traffic that rejects it, which restores the pipelined window."""
+        if any(s.spec for s in self._inflight):
+            return "paced"          # serialize: wait for the verify
+        if admitted is not None:
+            return None             # the admission's merge launches now
+        if not self._spec.policy.should_draft():
+            return None
+        if self._inflight or self._pending_first:
+            # drafting needs every row's committed tail on the host: pace
+            # until the pipeline drains
+            return "paced"
+        K = self.config.decode_steps
+        B = self.config.max_decode_slots
+        # with an empty pipeline the window's plan is the JAX spec plan
+        # (pages grown; exhaustion preempts the youngest of the lowest class)
+        _infl, plan = self._plan_window(events)
+        active = [(i, r) for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return None
+        # draft only rows with window room (p >= 2) and a committed tail
+        ctxs: list = [None] * B
+        for i, r in active:
+            if plan.get(i, 0) >= 2 and r.pending_token >= 0:
+                ctxs[i] = np.asarray(r.prompt + r.output, np.int32)
+        if not any(c is not None for c in ctxs):
+            return None               # no row has draft room: plain window
+        proposals = self._spec.propose_batch(ctxs)
+        drafted: dict[int, int] = {}
+        ext = np.full((B, K - 1), -1, np.int32)
+        for i, _r in active:
+            d = proposals[i][:max(0, plan.get(i, 0) - 1)]
+            if d.size:
+                ext[i, :d.size] = d
+                drafted[i] = int(d.size)
+        if not drafted:
+            # an empty draft pass is evidence against this traffic: feed
+            # the policy, so such streams demote to the pipelined window
+            self._spec.policy.note_empty()
+            return None
+        packed = self._window_rows(active, plan,
+                                   {i: int(self.slot_len[i]) + 1 for i, _r in active})
+        t_launch = time.monotonic()
+        pack, toks = self._window.run_verify(verify_rows(packed, ext),
+                                             use_fsm=self._fsm_any_active())
+        seq = next(self._seq_counter)
+        step = InflightStep(_HostCopy(pack), toks, active, seq,
+                            planned={i: plan.get(i, 0) for i, _r in active},
+                            launched_at=t_launch, spec=True, drafted=drafted)
+        self._inflight.append(step)
+        self._harvester.push(seq, step.pack)
+        now = time.monotonic()
+        self._busy_until = max(now, self._busy_until) + self._est_step
+        return "launched"
 
     def _launch_decode_multi(self, admitted, events: list[StepEvent]) -> str:
         """Launch one window whose input tokens are merged ON THE DEVICE
@@ -1852,11 +2014,24 @@ class Engine:
             step = self._inflight.popleft()
             processed = step.seq
             n_windows += 1
-            emitted, led = self._emit_window(step.active, step.planned,
-                                             unpack_results(self._harvester.get(step.seq)))
+            host, accept = self._harvester.get(step.seq), None
+            if step.spec:
+                host, accept = unpack_accept(host, self.config.max_decode_slots)
+            emitted, led, most, accepted = self._emit_window(
+                step.active, step.planned, unpack_results(host), accept, step.drafted)
             events += emitted
             self._book(step.launched_at, self._harvester.done_time(step.seq), led,
                        window=self.config.decode_steps)
+            self.decode_dispatches += 1
+            self.steps_obs.append(most)
+            if step.spec:
+                drafted_n = sum(step.drafted.values())
+                self.spec_dispatches += 1
+                self.spec_drafted_tokens += drafted_n
+                self.spec_accepted_tokens += accepted
+                self._spec.policy.note(drafted_n, accepted)
+            elif self._spec is not None:
+                self._spec.policy.tick()
         if processed >= 0:
             self._harvester.discard_upto(processed)
         return n_windows

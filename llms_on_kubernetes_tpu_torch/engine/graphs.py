@@ -36,6 +36,19 @@ hold the JAX engine against.
 There is no switch between the two: a CUDA engine always replays, and a
 capture or replay error raises.
 
+Speculative decoding: ``verify_window`` is the verify dispatch (the JAX
+``_decode_spec_packed_step``): one ``forward_verify`` over each row's
+committed token and up to K - 1 drafts (K - 1 columns after the page
+table, -1 = none), then K sampling iterations over those logits, each
+counting its input token before it samples; a row stays alive only while
+its sampled token equals the next draft. Its packed results carry each
+row's ``accept`` count (the tokens the harvest may consume) in extra rows
+(``pack_accept``), so a verify is still one device-to-host copy.
+``DecodeWindow`` captures it as a third graph (and with the FSM as a
+fourth), lazily at the first speculative dispatch (``run_verify``), in the
+first graph's pool over its own static buffers; the two window graphs
+are unchanged.
+
 Launch counts: a replay runs no Python, so the kernel wrappers' counts
 made while capturing are recorded apart (``kernels.counting_apart``) and
 added on every replay; the eager warm-up before the capture counts
@@ -54,7 +67,7 @@ from llms_on_kubernetes_tpu_torch import kernels
 from llms_on_kubernetes_tpu_torch.engine.sampling import (
     MAX_CANDIDATES, gumbel_noise, sample,
 )
-from llms_on_kubernetes_tpu_torch.models.decoder import forward_decode
+from llms_on_kubernetes_tpu_torch.models.decoder import forward_decode, forward_verify
 
 # stop ids a request may carry into the window's on-device mask
 STOP_SLOTS = 8
@@ -235,6 +248,111 @@ def decode_window(params: dict, cfg, K: int, packed: torch.Tensor,
     return pack_results(results), cur
 
 
+def pack_accept(pack: torch.Tensor, accept: torch.Tensor) -> torch.Tensor:
+    """A verify's packed results [K * B, W] with each row's accept count
+    [B] appended as ceil(B / W) more rows (zero padded): still one
+    device-to-host copy."""
+    B, W = accept.shape[0], pack.shape[1]
+    R = -(-B // W)
+    pad = torch.zeros((R * W - B,), dtype=torch.int32, device=accept.device)
+    return torch.cat([pack, torch.cat([accept.to(torch.int32), pad]).view(R, W)])
+
+
+def unpack_accept(packed: np.ndarray, B: int) -> tuple[np.ndarray, np.ndarray]:
+    """(the K steps' packed results, accept [B]) of a ``pack_accept``
+    array copied to the host."""
+    R = -(-B // packed.shape[1])
+    return packed[:-R], packed[-R:].reshape(-1)[:B]
+
+
+def verify_rows(packed: np.ndarray, drafts: np.ndarray) -> np.ndarray:
+    """A verify's host rows: the window columns (``DEC_COLS`` and the page
+    table) and the K - 1 draft columns after them (-1 = none)."""
+    return np.concatenate([packed, drafts.astype(np.int32)], axis=1)
+
+
+def verify_window(params: dict, cfg, K: int, packed: torch.Tensor, k_pages, v_pages,
+                  counts: torch.Tensor, *, seed: int,
+                  fsm=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One speculative verify dispatch (the JAX ``_decode_spec_packed_step``).
+
+    ``packed`` [B, DEC_COLS + pages_per_slot + K - 1]: a window's columns
+    with every input token a host value (``VAL``; a verify launches only
+    into an empty pipeline), then K - 1 draft columns, prefix-contiguous
+    (-1 = none). One ``forward_verify`` writes the committed token and the
+    row's drafts, ``w = min(budget, 1 + drafts)`` rows (0 for an idle
+    row), from position ``lengths0 - 1``, and returns the logits at every
+    window position; then K iterations sample from them as the window does
+    (the input token counted first, the noise keyed on the position, the
+    penalties, bias, FSM mask and stop ids), and a row stays alive after
+    iteration j < K - 1 only if its sample equals draft j: iteration j +
+    1's logits were conditioned on that draft. ``accept`` counts each
+    row's alive iterations. Rows written past the accepted length are
+    overwritten by the next dispatch. Returns (the K steps' packed results
+    with ``accept`` appended, ``pack_accept``; the tokens after the
+    window [B])."""
+    D = K - 1
+    B = packed.shape[0]
+    V = counts.shape[1]
+    lengths0, budget = packed[:, LEN], packed[:, BUD]
+    top_k, seeds = packed[:, TOP_K], packed[:, SEED]
+    stop_ids = packed[:, STOP:STOP + STOP_SLOTS]
+    fl = packed[:, FLOATS:FLOATS + 4].view(torch.float32)
+    bias = unpack_bias(packed, BIAS)
+    W = packed.shape[1]
+    page_table = packed[:, DEC_COLS:W - D]
+    drafts = packed[:, W - D:]
+    toks0 = packed[:, VAL]
+    alive0 = (lengths0 > 0) & (budget > 0)
+    if fsm is not None:
+        fsm_state, class_of, trans = fsm
+        g_rows = packed[:, FSM]
+        state = torch.where(packed[:, FSM + 1] == 1, packed[:, FSM + 2], fsm_state)
+    # the write covers the prefix-contiguous drafts, within the budget
+    has = torch.cumprod((drafts >= 0).to(torch.int32), dim=1)
+    n_drafts = has.sum(dim=1)
+    w = torch.where(alive0, torch.minimum(budget, 1 + n_drafts), 0).to(torch.int32)
+    window = torch.cat([toks0[:, None], drafts.clamp(min=0)], dim=1)
+    history = (lengths0 - 1).clamp(min=0)
+    logits_all, _, _ = forward_verify(params, cfg, window, history, w, k_pages, v_pages,
+                                      page_table)
+    row_base = torch.arange(B, device=packed.device) * V
+    flat_counts = counts.view(-1)
+    C = min(MAX_CANDIDATES, cfg.vocab_size)
+    cur, alive = toks0, alive0
+    accept = torch.zeros_like(lengths0)
+    results = []
+    for j in range(K):
+        lengths = torch.where(alive, lengths0 + j, 0)
+        # the input token is a committed OUTPUT token: count it first
+        flat_counts.scatter_add_(0, row_base + cur.long().clamp(0, V - 1),
+                                 alive.to(counts.dtype))
+        noise = gumbel_noise(seed, seeds, lengths, C)
+        allowed = None
+        if fsm is not None:
+            allowed, nxt_all, constrained = fsm_apply(class_of, trans, g_rows, state)
+        res = sample(logits_all[:, j], noise, fl[:, 0], top_k, fl[:, 1],
+                     penalties=(fl[:, 2], fl[:, 3], counts), bias=bias, allowed=allowed)
+        results.append(res)
+        if fsm is not None:
+            state = torch.where(constrained & alive, fsm_next(nxt_all, res.tokens), state)
+        accept = accept + alive.to(accept.dtype)
+        stopped = ((stop_ids >= 0) & (stop_ids == res.tokens[:, None])).any(dim=1)
+        nxt = torch.where(alive, res.tokens, cur)
+        alive = alive & ~stopped & (j + 1 < budget)
+        if j < D:
+            alive = alive & (res.tokens == drafts[:, j]) & (has[:, j] > 0)
+        cur = nxt
+    if fsm is not None:
+        fsm_state.copy_(state)
+    return pack_accept(pack_results(results), accept), cur
+
+
+def idle_verify_rows(B: int, pages_per_slot: int, K: int) -> np.ndarray:
+    """A packed verify whose rows are all idle (no drafts)."""
+    return verify_rows(idle_rows(B, pages_per_slot), np.full((B, K - 1), -1, np.int32))
+
+
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """``arr`` on ``device``. On a card: a non-blocking copy from pinned
     memory, so the host never waits for the work queued before it (a copy
@@ -256,7 +374,10 @@ class DecodeWindow:
     its FSM state and tables; none of these may be reassigned after the
     capture, only updated in place. ``replays`` counts the graph replays
     of either kind (0 on the CPU) and ``fsm_replays`` the FSM graph's;
-    ``launches`` / ``fsm_launches`` are one replay's kernel launches."""
+    ``launches`` / ``fsm_launches`` are one replay's kernel launches. The
+    verify graphs (``run_verify``) count apart: ``verify_replays`` (of
+    either kind), ``fsm_verify_replays``, ``verify_launches`` and
+    ``fsm_verify_launches``."""
 
     def __init__(self, params: dict, model_config, k_pages, v_pages, counts: torch.Tensor,
                  workspace, *, decode_steps: int, slots: int, pages_per_slot: int,
@@ -274,6 +395,12 @@ class DecodeWindow:
         self.fsm = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.fsm_graph: Optional[torch.cuda.CUDAGraph] = None
+        self.verify_replays = 0
+        self.fsm_verify_replays = 0
+        self.verify_launches: dict = {}
+        self.fsm_verify_launches: dict = {}
+        self.verify_graph: Optional[torch.cuda.CUDAGraph] = None
+        self.fsm_verify_graph: Optional[torch.cuda.CUDAGraph] = None
         if device.type == "cuda":
             self._pool = torch.cuda.graph_pool_handle()
             self._capture(admit_rows)
@@ -287,6 +414,13 @@ class DecodeWindow:
             self.counts if counts is None else counts,
             seed=self.seed, kv_write=self.kv_write,
             workspace=self.workspace if workspace is None else workspace, fsm=fsm)
+
+    def _vcall(self, packed, k_pages=None, v_pages=None, counts=None, fsm=None):
+        return verify_window(
+            self.params, self.model_config, self.K, packed,
+            self.k_pages if k_pages is None else k_pages,
+            self.v_pages if v_pages is None else v_pages,
+            self.counts if counts is None else counts, seed=self.seed, fsm=fsm)
 
     def _warm_up(self, fsm=None) -> None:
         """K eager steps with every row idle on a side stream (the
@@ -352,6 +486,76 @@ class DecodeWindow:
         self.fsm_launches = dict(counted)
         self.fsm_graph = graph
         kernels.note_compile("graph:window_fsm", time.perf_counter() - t0)
+
+    def _capture_verify(self, fsm=None) -> None:
+        """Warm the verify up (every row idle, on a side stream, counted
+        nowhere: idle rows write nothing, count nothing and keep every FSM
+        state), then capture it in the first graph's pool over its own
+        static rows; the FSM verify (``fsm`` given) writes the first verify
+        graph's outputs, so it is captured second."""
+        t0 = time.perf_counter()
+        dev = self.device
+        if self.verify_graph is None:
+            self.vpacked = upload(idle_verify_rows(self.B, self.pages_per_slot, self.K), dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with kernels.counting_apart(), torch.cuda.stream(side):
+            self._vcall(upload(idle_verify_rows(self.B, self.pages_per_slot, self.K), dev),
+                        fsm=fsm)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with kernels.counting_apart() as counted, \
+                torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            pack, toks = self._vcall(self.vpacked, fsm=fsm)
+            if fsm is None:
+                self.vpack, self.vtoks = pack, toks
+            else:
+                self.vpack.copy_(pack)
+                self.vtoks.copy_(toks)
+        graph.instantiate()
+        if fsm is None:
+            self.verify_launches, self.verify_graph = dict(counted), graph
+        else:
+            self.fsm_verify_launches, self.fsm_verify_graph = dict(counted), graph
+        kernels.note_compile("graph:verify" + ("_fsm" if fsm is not None else ""),
+                             time.perf_counter() - t0)
+
+    def run_verify(self, packed: np.ndarray,
+                   use_fsm: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """One verify dispatch over the host rows ``packed`` (``verify_rows``),
+        with the FSM when ``use_fsm``. On a card the verify graph is
+        captured at the first call (the FSM one at the first call with
+        ``use_fsm``) and each call is one replay; its static outputs are
+        overwritten by the next verify, so the caller copies them out
+        first. Returns (``pack_accept`` results, tokens after the window),
+        on the device."""
+        if use_fsm and self.fsm is None:
+            raise RuntimeError("a verify with constrained rows needs enable_fsm() first")
+        fsm = self.fsm if use_fsm else None
+        if self.graph is None:
+            return self._vcall(torch.from_numpy(packed), fsm=fsm)
+        if self.verify_graph is None:
+            self._capture_verify()
+        if use_fsm and self.fsm_verify_graph is None:
+            self._capture_verify(fsm)
+        self.vpacked.copy_(torch.from_numpy(packed).pin_memory(), non_blocking=True)
+        if use_fsm:
+            self.fsm_verify_graph.replay()
+            kernels.add_launches(self.fsm_verify_launches)
+            self.fsm_verify_replays += 1
+        else:
+            self.verify_graph.replay()
+            kernels.add_launches(self.verify_launches)
+        self.verify_replays += 1
+        return self.vpack, self.vtoks
+
+    def _eager_verify(self, packed: torch.Tensor, k_pages, v_pages, counts,
+                      fsm=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """The verify eagerly, on the given pools and counts (and FSM state
+        and tables): what ``chip_smoke.py`` and the card tests hold a
+        verify replay against. The engine never calls it."""
+        return self._vcall(packed, k_pages, v_pages, counts, fsm)
 
     def run(self, packed: np.ndarray, last_toks: Optional[torch.Tensor],
             prefill_toks: Optional[torch.Tensor],

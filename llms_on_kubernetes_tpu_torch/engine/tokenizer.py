@@ -32,8 +32,9 @@ serves, and raises for a component it does not implement:
 ``load_tokenizer`` gives the reader for any directory with
 ``tokenizer.json``, on both machines; a directory with only
 ``tokenizer.model`` keeps ``HFTokenizer``, which raises, naming the
-directory, where ``transformers`` is missing. The GGUF tokenizer is not
-ported yet.
+directory, where ``transformers`` is missing. ``GGUFTokenizer`` (a copy
+of the JAX class) reads the SentencePiece vocabulary and the chat template
+a ``.gguf`` file embeds; ``load_tokenizer`` gives it for such a file.
 """
 
 from __future__ import annotations
@@ -663,6 +664,206 @@ class JsonTokenizer:
         return ids
 
 
+class GGUFTokenizer:
+    """SentencePiece-style tokenizer from GGUF-embedded vocab metadata.
+
+    llama.cpp ships the tokenizer inside the model file
+    (``tokenizer.ggml.tokens`` / ``scores`` / ``token_type``); serving a
+    bare .gguf (the local solution's modelPath contract, reference
+    ramalama values.yaml) must therefore tokenize from the file itself:
+    no tokenizer.json exists on disk. Implements the SPM scheme
+    (``tokenizer.ggml.model == "llama"``): ▁-for-space normalization,
+    highest-score greedy bigram merging, <0xNN> byte fallback.
+    """
+
+    def __init__(self, metadata: dict):
+        if metadata.get("tokenizer.ggml.model", "llama") != "llama":
+            raise ValueError(
+                "only SentencePiece ('llama') GGUF tokenizers are supported; "
+                f"got {metadata.get('tokenizer.ggml.model')!r}"
+            )
+        self.tokens: list[str] = metadata["tokenizer.ggml.tokens"]
+        self.scores: list[float] = metadata.get(
+            "tokenizer.ggml.scores", [0.0] * len(self.tokens))
+        types = metadata.get("tokenizer.ggml.token_type", [1] * len(self.tokens))
+        self._rank = {t: i for i, t in enumerate(self.tokens)}
+        self._byte_ids = {}
+        self._control = set()
+        for i, (tok, tt) in enumerate(zip(self.tokens, types)):
+            if tt == 6 or (tok.startswith("<0x") and tok.endswith(">")):
+                try:
+                    self._byte_ids[int(tok[3:-1], 16)] = i
+                except ValueError:
+                    pass
+            if tt == 3:  # control
+                self._control.add(i)
+        self.bos_id = int(metadata.get("tokenizer.ggml.bos_token_id", 1))
+        self.eos_id = int(metadata.get("tokenizer.ggml.eos_token_id", 2))
+        self.add_bos = bool(metadata.get("tokenizer.ggml.add_bos_token", True))
+        self._prefix = " " if metadata.get(
+            "tokenizer.ggml.add_space_prefix", True) else ""
+        self._byte_id_set = set(self._byte_ids.values())
+        # GGUF files carry the model's own chat template
+        # (``tokenizer.chat_template``, same Jinja dialect as HF
+        # tokenizer_config.json); llama.cpp's server renders it. Without
+        # it a Phi-3 GGUF (the reference's documented local model,
+        # reference ramalama-models/README.md:102-107) would get the wrong
+        # [INST]-style format.
+        self.chat_template: Optional[str] = metadata.get(
+            "tokenizer.chat_template") or None
+
+    def _encode_piece(self, text: str) -> list[int]:
+        """SPM merge via a bigram heap (linear-log in text length): a
+        doubly-linked list of pieces; candidate merges pop best-score
+        first, are revalidated against the live list, and push the two new
+        neighbour bigrams. Identical output to the naive rescan-everything
+        greedy loop (ties broken by position, as SPM does)."""
+        import heapq
+
+        n = len(text)
+        pieces: list[Optional[str]] = list(text)
+        prev = list(range(-1, n - 1))
+        nxt = list(range(1, n + 1))
+        heap: list[tuple[float, int, int, str]] = []
+
+        def push(i: int) -> None:
+            j = nxt[i]
+            if j >= n or pieces[i] is None or pieces[j] is None:
+                return
+            merged = pieces[i] + pieces[j]
+            rank = self._rank.get(merged)
+            if rank is not None:
+                heapq.heappush(heap, (-self.scores[rank], i, j, merged))
+
+        for i in range(n - 1):
+            push(i)
+        while heap:
+            _, i, j, merged = heapq.heappop(heap)
+            # stale if either side changed since this candidate was pushed
+            if pieces[i] is None or pieces[j] is None or nxt[i] != j:
+                continue
+            if pieces[i] + pieces[j] != merged:
+                continue
+            pieces[i] = merged
+            pieces[j] = None
+            nxt[i] = nxt[j]
+            if nxt[j] < n:
+                prev[nxt[j]] = i
+            if prev[i] >= 0:
+                push(prev[i])
+            push(i)
+
+        out: list[int] = []
+        for p in pieces:
+            if p is None:
+                continue
+            rank = self._rank.get(p)
+            if rank is not None:
+                out.append(rank)
+            else:  # byte fallback
+                for b in p.encode("utf-8"):
+                    if b in self._byte_ids:
+                        out.append(self._byte_ids[b])
+        return out
+
+    def encode(self, text: str) -> list[int]:
+        norm = (self._prefix + text).replace(" ", "▁")
+        ids = self._encode_piece(norm)
+        return ([self.bos_id] + ids) if self.add_bos else ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        out = bytearray()
+        for i in ids:
+            if i in self._control or not (0 <= i < len(self.tokens)):
+                continue
+            if i in self._byte_id_set:
+                tok = self.tokens[i]
+                out.append(int(tok[3:-1], 16))
+            else:
+                out += self.tokens[i].replace("▁", " ").encode("utf-8")
+        return out.decode("utf-8", errors="replace")
+
+    def _encode_with_specials(self, text: str) -> list[int]:
+        """Tokenize text that may contain control-token literals (chat
+        template output like ``<|end|>``): split on the vocab's control
+        strings so each maps to its single id — the SPM merge loop cannot
+        assemble them (control pieces carry no merge scores)."""
+        import re
+
+        special_by_text = {self.tokens[i]: i for i in self._control
+                           if self.tokens[i]}
+        if not special_by_text:
+            return self._encode_piece(text.replace(" ", "▁"))
+        pattern = "(" + "|".join(
+            re.escape(s) for s in sorted(special_by_text, key=len,
+                                         reverse=True)) + ")"
+        ids: list[int] = []
+        for part in re.split(pattern, text):
+            if not part:
+                continue
+            if part in special_by_text:
+                ids.append(special_by_text[part])
+            else:
+                ids += self._encode_piece(part.replace(" ", "▁"))
+        return ids
+
+    def apply_chat_template(self, messages: list[dict],
+                            tools: Optional[list] = None) -> list[int]:
+        if self.chat_template:
+            try:
+                return self._render_chat_template(messages, tools=tools)
+            except Exception:
+                # malformed template / missing jinja2: fall back to the
+                # generic format — but say WHY, once, or every chat
+                # request silently degrades with no trace of the cause
+                if not getattr(self, "_template_warned", False):
+                    self._template_warned = True
+                    import logging
+                    logging.getLogger(__name__).warning(
+                        "chat template rendering failed; falling back to "
+                        "the generic [INST] format", exc_info=True)
+        # generic [INST]-style template (llama.cpp's default for SPM models)
+        text = ""
+        for m in messages:
+            role, content = m.get("role", "user"), m.get("content", "")
+            if role == "system":
+                text += f"<<SYS>>\n{content}\n<</SYS>>\n\n"
+            elif role == "user":
+                text += f"[INST] {content} [/INST]"
+            else:
+                text += f" {content} "
+        return self.encode(text)
+
+    def _render_chat_template(self, messages: list[dict],
+                              tools: Optional[list] = None) -> list[int]:
+        """Render ``tokenizer.chat_template`` the way HF/llama.cpp do:
+        sandboxed Jinja fed messages + bos/eos token strings +
+        add_generation_prompt=True, then tokenize with control-token
+        splitting. BOS is prepended per add_bos unless the template already
+        emitted it."""
+        from jinja2.sandbox import ImmutableSandboxedEnvironment
+
+        def raise_exception(msg):
+            raise ValueError(msg)
+
+        env = ImmutableSandboxedEnvironment(
+            trim_blocks=True, lstrip_blocks=True)
+        bos = self.tokens[self.bos_id] if 0 <= self.bos_id < len(self.tokens) else ""
+        eos = self.tokens[self.eos_id] if 0 <= self.eos_id < len(self.tokens) else ""
+        text = env.from_string(self.chat_template).render(
+            messages=messages, add_generation_prompt=True, tools=tools,
+            bos_token=bos, eos_token=eos, raise_exception=raise_exception,
+        )
+        ids = self._encode_with_specials(text)
+        if self.add_bos and (not ids or ids[0] != self.bos_id):
+            ids = [self.bos_id] + ids
+        return ids
+
+    @property
+    def eos_ids(self) -> set[int]:
+        return {self.eos_id}
+
+
 TOKENIZER_FILES = ("tokenizer.json", "tokenizer.model", "tokenizer_config.json")
 
 
@@ -670,11 +871,21 @@ def load_tokenizer(model_ref: Optional[str] = None):
     """The tokenizer for ``model_ref``: ``JsonTokenizer`` for a directory
     with ``tokenizer.json``; ``HFTokenizer`` for one with other tokenizer
     files only (``tokenizer.model``: it needs ``transformers`` and raises
-    without it); else the byte tokenizer (a registry name, or a checkpoint
-    directory with weights only)."""
+    without it); ``GGUFTokenizer`` for a ``.gguf`` file whose metadata
+    carries a vocabulary; else the byte tokenizer (a registry name, or a
+    checkpoint directory with weights only)."""
     if model_ref and os.path.isdir(model_ref):
         if os.path.exists(os.path.join(model_ref, "tokenizer.json")):
             return JsonTokenizer(model_ref)
         if any(os.path.exists(os.path.join(model_ref, f)) for f in TOKENIZER_FILES):
             return HFTokenizer(model_ref)
+    if model_ref and model_ref.endswith(".gguf") and os.path.isfile(model_ref):
+        from llms_on_kubernetes_tpu_torch.engine.gguf import GGUFFile
+
+        gf = GGUFFile(model_ref)
+        try:
+            if "tokenizer.ggml.tokens" in gf.metadata:
+                return GGUFTokenizer(gf.metadata)
+        finally:
+            gf.close()
     return ByteTokenizer()

@@ -21,9 +21,11 @@ pass (``forward_chunk``) appends with the window kernels
 (ops/paged_write.py) and attends to the pool, so it reads an int8 chunk's
 own keys back quantized, as the JAX chunk pass does. The score pass
 (``forward_score``) runs the prefill layers cache-free and reduces every
-position's logits to the next token's logprob and the top-k.
+position's logits to the next token's logprob and the top-k. The verify
+pass (``forward_verify``, speculative decoding) is the chunk pass with the
+logits of every window position.
 
-Not ported yet: LoRA, MoE, vision, the verify pass.
+Not ported yet: LoRA, MoE, vision.
 """
 
 from __future__ import annotations
@@ -385,3 +387,29 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     last = (lengths.long() - 1).clamp(0, T - 1)
     x_last = x[torch.arange(B, device=x.device), last]
     return _logits(params, cfg, x_last), k_pages, v_pages
+
+
+def forward_verify(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   history: torch.Tensor, lengths: torch.Tensor, k_pages, v_pages,
+                   page_table: torch.Tensor):
+    """The speculative-decoding verify pass (the JAX ``forward_verify``):
+    ``forward_chunk`` over a short candidate window, returning the logits
+    at EVERY window position. tokens [B, T] (the committed token, then the
+    drafts); history [B] int32, the tokens cached before the window;
+    lengths [B] int32, the valid tokens in the window (0 => idle row).
+    Each layer appends the window's rows at ``history + t`` with the
+    window kernel and attends through the page table (``chunk_attention``),
+    so position t's logits are the model's distribution for the token
+    after ``tokens[:, t]``. Rows past a row's length are garbage the caller
+    masks; a rejected suffix's KV is overwritten by the next dispatch,
+    which starts at the accepted length. Returns (logits [B, T, V]
+    float32, k_pages, v_pages)."""
+    B, T = tokens.shape
+    offs = torch.arange(T, device=tokens.device, dtype=torch.int32).expand(B, T)
+    positions = history[:, None] + offs
+    x = _embed(params, cfg, tokens)
+    x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions, None,
+                    lengths, "chunk")
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
+    logits = _logits(params, cfg, x.reshape(B * T, -1), normed=True)
+    return logits.reshape(B, T, -1), k_pages, v_pages

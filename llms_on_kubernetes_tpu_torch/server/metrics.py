@@ -4,8 +4,8 @@
 The registry, the metric kinds and the serving series keep the JAX
 module's names, help strings, label names and buckets, so the charts'
 scrape, alerts, dashboards and autoscalers read a port replica as they
-read a JAX one. Only the series the port feeds are here: the adapter and
-speculation families come with the slices that port those parts.
+read a JAX one. Only the series the port feeds are here: the adapter
+family comes with the slice that ports LoRA.
 """
 
 from __future__ import annotations
@@ -357,6 +357,22 @@ def engine_metrics(registry: Registry) -> dict:
             "phases bill the tenant whose speculation or early exit "
             "burned the window)",
             registry, label_names=("tenant", "phase")),
+        "spec_drafted": Counter(
+            "llm_spec_drafted_total",
+            "Draft tokens proposed into speculative verify windows "
+            "(prompt-lookup or draft-model tier; excludes the bonus "
+            "token every window commits regardless)", registry),
+        "spec_accepted": Counter(
+            "llm_spec_accepted_total",
+            "Draft tokens accepted by the target model's verify pass "
+            "(exact-match under greedy decoding)", registry),
+        "spec_accept_ratio": Gauge(
+            "llm_spec_accept_ratio",
+            "Lifetime accepted/drafted ratio of speculative decoding "
+            "(0 when speculation is off or no drafts were proposed; a "
+            "low ratio on steady traffic means the drafter does not fit "
+            "the workload — the engine demotes drafting adaptively)",
+            registry),
         "auto_profile": Counter(
             "llm_auto_profile_total",
             "Automatic bounded profiler captures triggered by the "

@@ -43,9 +43,13 @@ Endpoints, with the JAX server's shapes:
 - ``GET /debug/kernels`` / ``POST /debug/kernels/reset``: the kernel
   launch counters of ``kernels.LAUNCHES`` (and the part of them graph
   replays added), the engine's prefill, chunk and decode call counts, its
-  decode window length and graph replays, its preemptions, the prompt
-  tokens served from the prefix cache and the pool's free and evictable
-  pages, so launches can be held to calls and pages to their idle count.
+  decode window length and graph replays (the windows', and the verify
+  dispatches' and speculative dispatches' counts), its preemptions, the
+  prompt tokens served from the prefix cache and the pool's free and
+  evictable pages, so launches can be held to calls and pages to their
+  idle count. ``/metrics`` has the speculation series
+  (``llm_spec_drafted_total``, ``llm_spec_accepted_total``,
+  ``llm_spec_accept_ratio``), fed from the engine's counters by deltas.
 - ``GET /debug/traces`` (recent request traces, ``?id=``, ``?model=``,
   ``?limit=``) and ``GET /debug/engine`` (the flight recorder: the last
   engine steps, with the ledger's chip time and MFU a step); ``POST
@@ -506,6 +510,7 @@ class EngineLoop(threading.Thread):
         self._preempt_seen = 0
         self._tenant_admitted_seen: dict = {}
         self._host_kv_seen = {"hits": 0, "misses": 0, "evictions": 0}
+        self._spec_seen = {"drafted": 0, "accepted": 0}
 
     def submit(self, prompt, params, on_event, deadline: Optional[float] = None,
                request_id: Optional[str] = None, tenant: Optional[str] = None,
@@ -656,6 +661,16 @@ class EngineLoop(threading.Thread):
                     self._host_kv_seen[k] = v
         while eng.kv_upload_obs:
             m["kv_upload"].observe(eng.kv_upload_obs.popleft())
+        # speculation, by deltas of the engine's counters (the JAX loop's)
+        drafted, accepted = eng.spec_drafted_tokens, eng.spec_accepted_tokens
+        if drafted > self._spec_seen["drafted"]:
+            m["spec_drafted"].inc(drafted - self._spec_seen["drafted"])
+            self._spec_seen["drafted"] = drafted
+        if accepted > self._spec_seen["accepted"]:
+            m["spec_accepted"].inc(accepted - self._spec_seen["accepted"])
+            self._spec_seen["accepted"] = accepted
+        if drafted > 0:
+            m["spec_accept_ratio"].set(accepted / drafted)
         for ev in events:
             m["tokens_generated"].inc(len(ev.new_tokens))
             r = ev.request
@@ -1485,6 +1500,8 @@ class _Handler(BaseHTTPRequestHandler):
                              "decode_steps": eng.config.decode_steps,
                              "graph_replays": eng.graph_replays,
                              "fsm_graph_replays": eng.fsm_graph_replays,
+                             "verify_replays": eng.verify_replays,
+                             "spec_dispatches": eng.spec_dispatches,
                              "preemptions": eng.preemptions,
                              "prefix_hit_tokens": eng.allocator.hit_tokens_total,
                              "num_pages": eng.config.num_pages,
@@ -2128,24 +2145,36 @@ def serve(model: str = "debug-tiny", *, host: str = "0.0.0.0", port: int = 8080,
           engine_config: Optional[EngineConfig] = None,
           model_dir: Optional[str] = None) -> None:
     """Build the engine and serve until SIGTERM or SIGINT drains it.
-    ``model`` is a registry name, a checkpoint directory or a HF id found
-    in the local cache; the weights come from ``model_dir`` (default:
-    ``model`` resolved by ``engine/weights.resolve_model_dir``, which
-    raises FileNotFoundError on a miss), or are seeded random with
-    ``random_weights``. ``device`` "cuda" (the default) raises without a
-    GPU. The tokenizer is read first, then the CUDA kernels are built and
-    the weights loaded onto the device, all before the server binds, so
-    ``/health`` answers only once the model can serve.
+    ``model`` is a registry name, a checkpoint directory, a HF id found
+    in the local cache or a llama.cpp ``.gguf`` file (``_gguf_engine``:
+    its config, weights and embedded tokenizer); the weights come from
+    ``model_dir`` (default: ``model`` resolved by
+    ``engine/weights.resolve_model_dir``, which raises FileNotFoundError
+    on a miss), or are seeded random with ``random_weights``. ``device``
+    "cuda" (the default) raises without a GPU. The tokenizer is read
+    first, then the CUDA kernels are built and the weights loaded onto the
+    device, all before the server binds, so ``/health`` answers only once
+    the model can serve.
 
     SIGTERM (and SIGINT) begins the drain: /ready answers 503, new requests
     get 503, and the process returns once the work in flight is done (at
     most ``EngineLoop.drain_timeout_s``) and its last bytes are written."""
     dev = resolve_device(device)
+    cfg = engine_config or EngineConfig(model=model)
+    cfg.model, cfg.device = model, dev.type
+    if model.endswith(".gguf"):
+        engine, tokenizer, load_s, source = _gguf_engine(model, cfg, dev, random_weights,
+                                                         served_model_name)
+        model_config = engine.model_config
+        served_model_name = served_model_name or model_config.name
+        print(f"[serve] {model_config.name}: {source} on {dev.type} in {load_s:.1f} s",
+              file=sys.stderr, flush=True)
+        _serve_until_drained(OpenAIServer(engine, tokenizer, served_model_name,
+                                          cold_start={"load": load_s}), host, port)
+        return
     if not random_weights and model_dir is None:
         model_dir = resolve_model_dir(model)
     config_dir = model_dir or (model if os.path.isdir(model) else None)
-    cfg = engine_config or EngineConfig(model=model)
-    cfg.model, cfg.device = model, dev.type
     model_config = model_config_for(model, config_dir)
     tokenizer = load_tokenizer(config_dir or model)
     if dev.type == "cuda":
@@ -2159,8 +2188,51 @@ def serve(model: str = "debug-tiny", *, host: str = "0.0.0.0", port: int = 8080,
     source = "seeded random weights" if random_weights else f"weights from {model_dir}"
     print(f"[serve] {model_config.name}: {source} on {dev.type} in {load_s:.1f} s",
           file=sys.stderr, flush=True)
-    server = OpenAIServer(engine, tokenizer, served_model_name or model,
-                          cold_start={"load": load_s})
+    _serve_until_drained(OpenAIServer(engine, tokenizer, served_model_name or model,
+                                      cold_start={"load": load_s}), host, port)
+
+
+def _gguf_engine(path: str, cfg: EngineConfig, dev: torch.device, random_weights: bool,
+                 served_model_name: Optional[str]):
+    """The engine and tokenizer of a llama.cpp ``.gguf`` file (the JAX
+    ``serve``'s GGUF branch): the model config from the file's metadata
+    (named ``served_model_name`` when given), its weights dequantized a
+    layer at a time onto ``dev`` (``engine/gguf.load_gguf_params``, int8
+    with ``cfg.quantization``) or seeded random ones at its widths; the
+    tokenizer files beside the file win, else the vocabulary and chat
+    template it embeds, else the byte tokenizer. Returns (engine,
+    tokenizer, load seconds, what the weights are)."""
+    from llms_on_kubernetes_tpu_torch.engine.gguf import (
+        GGUFFile, config_from_gguf, load_gguf_params,
+    )
+    from llms_on_kubernetes_tpu_torch.engine.tokenizer import ByteTokenizer, GGUFTokenizer
+
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"GGUF file not found: {path}")
+    gf = GGUFFile(path)     # parsed once: config, weights and tokenizer
+    model_config = config_from_gguf(gf, name=served_model_name)
+    tokenizer = load_tokenizer(os.path.dirname(path) or ".")
+    if isinstance(tokenizer, ByteTokenizer) and "tokenizer.ggml.tokens" in gf.metadata:
+        tokenizer = GGUFTokenizer(gf.metadata)
+    if dev.type == "cuda":
+        kernels.build()
+    t0 = time.perf_counter()
+    params = None
+    if random_weights:
+        gf.close()
+        source = "seeded random weights"
+    else:
+        _, params = load_gguf_params(gf, cfg=model_config, dtype=cfg.dtype,
+                                     quantization=cfg.quantization, device=dev)
+        source = f"weights from {path}"
+    engine = Engine(cfg, model_config=model_config, params=params)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return engine, tokenizer, time.perf_counter() - t0, source
+
+
+def _serve_until_drained(server: "OpenAIServer", host: str, port: int) -> None:
+    """Serve until SIGTERM or SIGINT has drained the server."""
 
     def on_signal(signum, _frame):
         if server.begin_drain():

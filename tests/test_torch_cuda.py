@@ -1563,3 +1563,136 @@ def test_spill_then_upload_round_trips_pool_bytes_on_the_card(cuda, kv_dtype):
     eng.abort(req)
     while eng.has_work():
         eng.step()
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding (the verify graph, the draft rollout) and GGUF
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["f32_kv", "int8_kv"])
+def test_verify_graph_replay_equals_the_eager_verify(cuda, kv_dtype):
+    """One verify replayed (captured at its first call) and one run
+    eagerly from copies of one pool and one penalty-count table: the
+    drafts of even rows pinned (all accepted), of odd rows random (rejected
+    at once); packed results with the accept counts, pools (outside the
+    trash pages) and counts byte-equal, and the verify's launches num_layers
+    window-kernel launches, all by the replay."""
+    from llms_on_kubernetes_tpu_torch.engine.cache import KVPool
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+    from llms_on_kubernetes_tpu_torch.engine.graphs import unpack_accept, verify_rows
+
+    eng = _tiny_engine("cuda", kv_cache_dtype=kv_dtype, async_scheduling=False,
+                       speculation="ngram")
+    prompts = [[3, 17, 9], [40, 2] * 9, [7] * 30, [5, 6]]
+    pins = [11, 12, 13, 14]
+    for i, p in enumerate(prompts):
+        eng.submit(p, SamplingParams(max_tokens=64, temperature=0.7, seed=5 + i,
+                                     presence_penalty=0.4, frequency_penalty=0.3,
+                                     logit_bias=((pins[i], 90.0),) if i % 2 == 0 else ()))
+    eng._admit()
+    K = eng.config.decode_steps
+    active = [(i, r) for i, r in enumerate(eng.slots) if r is not None]
+    base = {i: int(eng.slot_len[i]) + 1 for i, _r in active}
+    for i, _r in active:
+        eng.allocator.allocate(i, base[i] + K - 1)
+    packed = eng._window_rows(active, {i: K for i, _r in active}, base)
+    drafts = np.array([[pins[i]] * (K - 1) if i % 2 == 0 else [200, 201, 202][:K - 1]
+                       for i in range(4)], np.int32)
+    full = verify_rows(packed, drafts)
+    pools = [KVPool(p.data.clone(), None if p.scale is None else p.scale.clone())
+             for p in (eng.k_pages, eng.v_pages)]
+    counts = eng.token_counts.clone()
+    eager_pack, eager_toks = eng._window._eager_verify(torch.from_numpy(full).cuda(), *pools,
+                                                       counts)
+    kernels.reset_launches()
+    pack, toks = eng._window.run_verify(full)
+    torch.cuda.synchronize()
+    assert eng.verify_replays == 1 and eng.graph_replays == 0
+    assert torch.equal(pack, eager_pack) and torch.equal(toks, eager_toks)
+    assert torch.equal(eng.token_counts, counts)
+    P = eng.config.num_pages
+    keep = torch.ones(eng.model_config.num_layers * P, dtype=torch.bool, device="cuda")
+    keep[::P] = False
+    for got, want in zip((eng.k_pages, eng.v_pages), pools):
+        assert torch.equal(got.data[:, keep], want.data[:, keep])
+        if want.scale is not None:
+            assert torch.equal(got.scale[:, keep], want.scale[:, keep])
+    accept = unpack_accept(pack.cpu().numpy(), 4)[1]
+    assert accept.tolist()[0::2] == [K, K] and max(accept.tolist()[1::2]) <= 1
+    window = "paged_write_window_int8" if kv_dtype else "paged_write_window"
+    L = eng.model_config.num_layers
+    assert kernels.launch_counts() == kernels.replayed_counts() == {window: L}
+
+
+def test_graphed_speculation_equals_the_cpu(cuda):
+    """The async engine with prompt-lookup speculation on the card (verify
+    graphs) gives the CPU engine's streams, pinned and free rows mixed."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    prompts = [[1, 2, 3, 42, 42, 42], [5, 6, 7, 5, 6, 7, 5, 6], [40, 2] * 9]
+    sps = [SamplingParams(max_tokens=20, temperature=0.0, logit_bias=((42, 90.0),)),
+           SamplingParams(max_tokens=20, temperature=0.0),
+           SamplingParams(max_tokens=20, temperature=0.0)]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        eng = _tiny_engine(dev, speculation="ngram")
+        reqs = [eng.submit(p, sp) for p, sp in zip(prompts, sps)]
+        while eng.has_work():
+            eng.step()
+        outs[dev] = [(r.output, r.finish_reason) for r in reqs]
+        assert eng.spec_dispatches > 0
+        if dev == "cuda":
+            assert eng.verify_replays == eng.spec_dispatches
+    assert outs["cuda"] == outs["cpu"]
+
+
+def test_draft_rollout_replays_equal_the_cpu_drafts(cuda):
+    """The draft model's rollout captured as one graph: its drafts on the
+    card equal the CPU's (float32, same weights), one replay a group."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.speculation import DraftModelDrafter
+    from llms_on_kubernetes_tpu_torch.models.decoder import init_params
+
+    cfg = get_config("debug-tiny")
+    host = init_params(cfg, seed=0, dtype="float32", device="cpu")
+    dev = {k: ({n: w.cuda() for n, w in v.items()} if isinstance(v, dict) else v.cuda())
+           for k, v in host.items()}
+    ctxs = [np.arange(1, 70, dtype=np.int32) % 251, None, np.array([5, 6, 7] * 4, np.int32)]
+    want = DraftModelDrafter(host, cfg, max_draft=3).propose_batch(ctxs, 3)
+    d = DraftModelDrafter(dev, cfg, max_draft=3)
+    for _ in range(2):
+        got = d.propose_batch(ctxs, 3)
+        assert [g.tolist() for g in got] == [w.tolist() for w in want]
+    assert d.replays == 2 and d.launches["flash_prefill"] == cfg.num_layers
+
+
+def test_gguf_upload_equals_the_host_values(cuda, tmp_path):
+    """load_gguf_params onto the card: every tensor equals the file's
+    dequantized host values cast to the dtype, bit for bit; int8 weights
+    equal the CPU quantization of those values."""
+    from llms_on_kubernetes_tpu_torch.engine.gguf import GGUFFile, gguf_layer, load_gguf_params
+    from llms_on_kubernetes_tpu_torch.testing import synth_gguf as S
+
+    spec = dict(S.PRESETS["phi-3-mini"], hidden=64, layers=2, heads=4, kv_heads=4,
+                head_dim=16, ffn=256, vocab=1024, tokenizer=None)
+    path = str(tmp_path / "m.gguf")
+    S.write_model(path, spec, seed=2)
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg, params = load_gguf_params(path, dtype=str(dtype).split(".")[1], device="cuda")
+        gf = GGUFFile(path)
+        for i in range(cfg.num_layers):
+            for name, want in gguf_layer(gf, cfg, i).items():
+                w = torch.from_numpy(np.ascontiguousarray(want)).to(dtype)
+                assert torch.equal(params["layers"][name][i].cpu(), w), name
+        for name, t in (("embed", "token_embd.weight"), ("final_norm", "output_norm.weight")):
+            assert torch.equal(params[name].cpu(), torch.from_numpy(gf.tensor(t)).to(dtype))
+        assert torch.equal(params["lm_head"].cpu(),
+                           torch.from_numpy(np.ascontiguousarray(
+                               gf.tensor("output.weight").T)).to(dtype))
+        gf.close()
+    _, q_card = load_gguf_params(path, dtype="float32", quantization="int8", device="cuda")
+    _, q_cpu = load_gguf_params(path, dtype="float32", quantization="int8", device="cpu")
+    for name, w in q_cpu["layers"].items():
+        if isinstance(w, tquant.QTensor):
+            assert torch.equal(q_card["layers"][name].data.cpu(), w.data)
+            assert torch.equal(q_card["layers"][name].scale.cpu(), w.scale)

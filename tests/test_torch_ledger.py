@@ -440,6 +440,17 @@ def _get(base, path):
         return r.read()
 
 
+def _trace(base, rid):
+    """The request's finished trace. The server records it after the
+    response's last byte, so a client can ask before it lands: poll."""
+    deadline = time.monotonic() + 10.0
+    while True:
+        traces = json.loads(_get(base, f"/debug/traces?id={rid}"))["traces"]
+        if traces or time.monotonic() > deadline:
+            return traces[0]
+        time.sleep(0.02)
+
+
 def _server(**kw):
     cfg = dict(ENGINE, page_size=4, num_pages=256, pages_per_slot=32, prefill_buckets=(32, 64))
     cfg.update(kw)
@@ -457,8 +468,7 @@ def test_usage_header_spans_flight_and_metrics_carry_chip_time():
         chip = json.loads(raw)["usage"]["chip_ms"]
         assert chip.get("prefill", 0.0) > 0.0 and chip.get("decode", 0.0) > 0.0
         assert float(headers["X-LLMK-Chip-Ms"]) == pytest.approx(sum(chip.values()), abs=0.01)
-        spans = {s["name"]: s for s in json.loads(_get(base, "/debug/traces?id=chip-trace-1"))
-                 ["traces"][0]["spans"]}
+        spans = {s["name"]: s for s in _trace(base, "chip-trace-1")["spans"]}
         assert spans["prefill"]["chip_ms"] == pytest.approx(chip["prefill"], abs=0.01)
         assert spans["decode"]["chip_ms"] == pytest.approx(chip["decode"], abs=0.01)
         steps = json.loads(_get(base, "/debug/engine"))["steps"]
