@@ -323,7 +323,7 @@ of a 1,500-token prompt, padded to its bucket and unpadded), with the pool
 of ``LLMK_KV_DTYPE`` (bf16 or int8); then the two windows again with int8
 weights;
 ``--kernels-only`` stops after phase 2; ``--spec-only`` runs phase 1 and
-phase 7 and stops (no result).
+phase 7 and stops, ``--awq-only`` phase 1 and phase 8 (no result).
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; before it, one ``{"kernels": [...]}`` JSON line, whose
@@ -1469,6 +1469,164 @@ def w8_kernels(torch, rng, timer, unsplit) -> dict:
                      "timed region: what bf16 serving pays for the same product",
         unsplit_note=f"unsplit_ms: the kernel before the K split ({W8_VARIANT}), timed in "
                      "turns with this one in the same run")}
+
+
+# ---------------------------------------------------------------------------
+# phase 2, the W4A16 kernel: AWQ's grouped int4 at Qwen3-8B's projections
+# ---------------------------------------------------------------------------
+
+# Qwen3-8B's seven projections, name -> (K, N); AWQ's published group, 128
+W4_PROJ = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024), "wo": (4096, 4096),
+           "w_gate": (4096, 12288), "w_up": (4096, 12288), "w_down": (12288, 4096)}
+W4_GROUP = 128
+# the timed shapes: label -> one projection of that shape, and how many a layer has
+W4_TIMED = {"wq/wo": ("wq", 2), "wk/wv": ("wk", 2), "w_gate/w_up": ("w_gate", 2),
+            "w_down": ("w_down", 1)}
+W4_ROWS = (1, 8, 64, 256, 4096)
+W4_SAME_ROWS = (0, 5, 37, 63)
+W4_SAME_CALLS = (8, 17, 64, 256, 4096)
+W4_MAIN = "w_gate/w_up 4096x12288 M8"
+
+
+def w4_work(M: int, K: int, N: int, gs: int = W4_GROUP) -> tuple[float, float]:
+    """FLOPs and bytes of one W4A16 call: the packed int4 weight (half a
+    byte a weight), f32 scale and zero_scaled ([G, N], 8 bytes a group and
+    column) read once, bf16 x read once and bf16 out written once."""
+    return 2.0 * M * K * N, K * N / 2 + 8 * (K // gs) * N + 2 * M * (K + N)
+
+
+def w4_inputs(torch, rng, K: int, N: int, gs: int = W4_GROUP, packed: bool = True):
+    """A random AWQ-like grouped int4 weight on the card: centered values
+    -8..7, scales ~ 1 / (4.6 sqrt(K)) and zero points 6..9, as
+    ``awq_group_tensors`` leaves them."""
+    from llms_on_kubernetes_tpu_torch.ops import quant as q
+
+    G = K // gs
+    vals = torch.from_numpy(rng.integers(-8, 8, size=(G, gs, N)).astype(np.int8))
+    data = (q.pack_int4_lanes(vals) if packed else vals).cuda()
+    s = (rng.uniform(0.8, 1.2, size=(G, N)) / (4.6 * np.sqrt(K))).astype(np.float32)
+    z = rng.integers(6, 10, size=(G, N)).astype(np.float32) - 8
+    return data, torch.from_numpy(s).cuda(), torch.from_numpy(s * z).cuda()
+
+
+def w4_kernels(torch, rng, timer) -> dict:
+    """Phase 2 for the W4A16 kernel: the K split against its Python mirror;
+    float32 at small shapes (1e-4), packed and int8 storage; bfloat16 at
+    Qwen3-8B's seven projections (group 128, packed) at M 1, 8, 64, 256 and
+    4,096 (the row tolerance) and one int8-storage case; rows alone
+    bit-equal to them in calls of 8, 17, 64, 256 and 4,096 rows (batch
+    invariance, across both row tilings); the refusals; then, in turns, the
+    kernel, the W8A16 kernel at the same shape, bf16 ``torch.matmul`` with a
+    bf16 copy of the dequantized weight made outside the timed region, the
+    kernel again; and the plain version, beside the bound."""
+    from llms_on_kubernetes_tpu_torch import kernels
+    from llms_on_kubernetes_tpu_torch.ops import quant as q
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    say("kernel w4_matmul (the port's own: the product JAX ops/quant.py::group_qeinsum "
+        "leaves to XLA)")
+    splits = kernels.function("w4_splits")
+    for K, N, gs in sorted({*((K, N, W4_GROUP) for K, N in W4_PROJ.values()), (64, 32, 16),
+                            (256, 64, 32), (4096, 128, 64), (512, 4096, 128),
+                            (28672, 8192, 128)}):
+        if splits(K, N, gs) != len(q.w4_splits(K, N, gs)):
+            fail(f"w4_splits({K}, {N}, {gs}): the kernel cuts {splits(K, N, gs)} slices, "
+                 f"ops/quant.py {len(q.w4_splits(K, N, gs))}")
+    say("  K slices (kernel = ops/quant.w4_splits): " + ", ".join(
+        f"{K}x{N}: {len(q.w4_splits(K, N, W4_GROUP))}" for K, N in sorted(set(W4_PROJ.values()))))
+    for M, K, N, gs in [(1, 64, 32, 16), (5, 256, 48, 32), (17, 256, 64, 128),
+                        (70, 384, 96, 128), (300, 512, 160, 256)]:
+        for packed in (True, False):
+            data, s, zs = w4_inputs(torch, rng, K, N, gs, packed)
+            x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).cuda()
+            check_close(f"f32 M{M} K{K} N{N} gs{gs} {'packed' if packed else 'int8'}",
+                        q.w4_matmul(x, data, s, zs, packed),
+                        q.group_qeinsum_plain(x, data, s, zs, packed), "float32")
+    xs = {K: torch.from_numpy(rng.normal(size=(max(W4_ROWS), K)).astype(np.float32)).to(
+        "cuda", bf16) for K in sorted({K for K, _ in W4_PROJ.values()})}
+    weights, err = {}, 0.0
+    for name, (K, N) in W4_PROJ.items():
+        data, s, zs = w4_inputs(torch, rng, K, N)
+        weights[name] = (data, s, zs)
+        outs = {}
+        for M in sorted({*W4_ROWS, *W4_SAME_CALLS}):
+            x = xs[K][:M]
+            outs[M] = q.w4_matmul(x, data, s, zs, True)
+            if M in W4_ROWS:
+                err = max(err, check_close(f"bf16 {name} {K}->{N} M{M}", outs[M],
+                                           q.group_qeinsum_plain(x, data, s, zs, True),
+                                           "bfloat16"))
+        for r in W4_SAME_ROWS:
+            one = q.w4_matmul(xs[K][r:r + 1], data, s, zs, True)[0]
+            for M in W4_SAME_CALLS:
+                if r < M and not torch.equal(one, outs[M][r]):
+                    fail(f"w4_matmul {name}: row {r} alone differs from row {r} of a call of "
+                         f"{M} rows (batch invariance)")
+        del outs
+    say(f"  batch invariance: rows {W4_SAME_ROWS} alone equal them in calls of "
+        f"{W4_SAME_CALLS} rows, bit for bit, at every projection (both row tilings)")
+    data8 = q.unpack_int4_lanes(weights["wk"][0]).contiguous()
+    for M in (8, 256):
+        x = xs[4096][:M]
+        got = q.w4_matmul(x, data8, weights["wk"][1], weights["wk"][2], False)
+        err = max(err, check_close(f"bf16 wk int8 storage M{M}", got, q.group_qeinsum_plain(
+            x, data8, weights["wk"][1], weights["wk"][2], False), "bfloat16"))
+        if not torch.equal(got, q.w4_matmul(x, *weights["wk"], True)):
+            fail("w4_matmul: int8 storage differs from packed storage of the same values")
+    say("  int8 storage equals packed storage of the same values, bit for bit")
+    data, s, zs = w4_inputs(torch, rng, 256, 64, 32)
+    x = torch.from_numpy(rng.normal(size=(8, 256)).astype(np.float32)).to("cuda", bf16)
+    d24, s24, z24 = w4_inputs(torch, rng, 240, 64, 24)
+    x24 = torch.from_numpy(rng.normal(size=(8, 240)).astype(np.float32)).to("cuda", bf16)
+    for label, args in (("a CPU weight", (x, data.cpu(), s, zs, True)),
+                        ("a strided view", (x[:, ::2], data, s, zs, True)),
+                        ("gs % 16 != 0", (x24, d24, s24, z24, True))):
+        try:
+            q.w4_matmul(*args)
+        except ValueError as e:
+            say(f"  refuses {label}: {e}")
+        else:
+            fail(f"w4_matmul took {label}")
+    torch.cuda.synchronize()
+
+    timings = {}
+    for label, (name, _per_layer) in W4_TIMED.items():
+        K, N = W4_PROJ[name]
+        data, s, zs = weights[name]
+        wb = q.GroupQTensor(data, s, zs, (N,), True).dequantize(bf16)   # outside the timing
+        w8 = torch.from_numpy(rng.integers(-127, 128, size=(K, N)).astype(np.int8)).cuda()
+        s8 = torch.from_numpy(rng.uniform(1e-3, 2e-2, size=N).astype(np.float32)).cuda()
+        for M in W4_ROWS:
+            x = xs[K][:M]
+            t1 = timer(lambda: q.w4_matmul(x, data, s, zs, True), reps=50)
+            b_ms, b_by = bound_ms(*w4_work(M, K, N), "bfloat16")
+            w8_ms = timer(lambda: q.w8_matmul(x, w8, s8), reps=50)
+            lib = timer(lambda: torch.matmul(x, wb), reps=50)
+            t2 = timer(lambda: q.w4_matmul(x, data, s, zs, True), reps=50)
+            plain = timer(lambda: q.group_qeinsum_plain(x, data, s, zs, True), reps=5)
+            key = f"{label} {K}x{N} M{M}"
+            timings[key] = dict(ms=(t1 + t2) / 2, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=lib, w8_ms=w8_ms)
+            say(f"  timing w4_matmul {key}: ms={t1:.4f},{t2:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                f"w8_matmul_ms={w8_ms:.4f} library_ms={lib:.4f} plain_ms={plain:.4f}")
+        del wb, w8
+    for M in (8, 64):
+        per = {k: 36 * sum(timings[f"{lbl} {W4_PROJ[W4_TIMED[lbl][0]][0]}x"
+                                   f"{W4_PROJ[W4_TIMED[lbl][0]][1]} M{M}"][k] * W4_TIMED[lbl][1]
+                           for lbl in W4_TIMED)
+               for k in ("ms", "bound_ms", "w8_ms", "library_ms")}
+        say(f"  w4_matmul, a Qwen3-8B forward's projections at M {M} (36 layers x 7): "
+            f"ms={per['ms']:.3f} bound_ms={per['bound_ms']:.3f} w8_matmul={per['w8_ms']:.3f} "
+            f"bf16 torch.matmul={per['library_ms']:.3f} [{card_line()}]")
+    main = timings[W4_MAIN]
+    return {"w4_matmul": dict(
+        name="w4_matmul", route="cuda", source="llms_on_kubernetes_tpu_torch/csrc/w4_matmul.cu",
+        replaces="none: llms_on_kubernetes_tpu/ops/quant.py:238 group_qeinsum, left to XLA",
+        max_abs_err=err, **main, shape=f"{W4_MAIN} bf16 x, packed int4 w, group {W4_GROUP}",
+        other_shapes={k: v for k, v in timings.items() if k != W4_MAIN},
+        library_note="torch.matmul of x with a bf16 copy of the dequantized weight made "
+                     "outside the timed region: what bf16 serving pays for the product",
+        w8_note="w8_ms: the W8A16 kernel at the same shape (int8 weight), in the same turns")}
 
 
 # ---------------------------------------------------------------------------
@@ -5871,6 +6029,404 @@ def phase_spec_gguf(torch) -> dict:
     return {"A": a, "B": b, "C": c}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: an AWQ checkpoint at Qwen3-8B's widths, and LoRA adapters on it
+# ---------------------------------------------------------------------------
+
+AWQ_MODEL = "qwen3-8b"
+AWQ_DIR = os.path.join(OUT_DIR, "qwen3-8b-awq")
+ADAPTER_DIR = os.path.join(OUT_DIR, "adapters")
+AWQ_PATH = f"{AWQ_MODEL} AWQ serve"
+LORA_PATH = f"{AWQ_MODEL} AWQ serve with 3 LoRA adapters on 2 slots behind llkt-router"
+AWQ_NEW = 64                 # greedy tokens a phase-8 stream generates
+AWQ_PREFIX = 256             # B: the prompt prefix a base and an adapter request share
+
+
+def start_awq_write():
+    """Write the Qwen3-8B AWQ checkpoint (``synth_checkpoint --awq``) in a
+    process of its own, started early so it overlaps earlier phases."""
+    cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch.testing.synth_checkpoint",
+           AWQ_MODEL, AWQ_DIR, "--awq"]
+    return (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            time.perf_counter())
+
+
+def awq_written(write) -> str:
+    proc, t0 = write
+    out, _ = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        fail(f"synth_checkpoint {AWQ_MODEL} --awq exited {proc.returncode}: {out}")
+    size = sum(os.path.getsize(os.path.join(AWQ_DIR, f)) for f in os.listdir(AWQ_DIR))
+    say(f"  wrote {AWQ_DIR} ({size / 1e9:.2f} GB), done {time.perf_counter() - t0:.1f} s "
+        f"after its start")
+    return AWQ_DIR
+
+
+def hold_awq_params(torch, path: str, cfg, params) -> None:
+    """Layers 0 and L - 1 of every grouped projection equal the file's
+    tensors unpacked on the CPU (``awq_group_tensors``), their norms, the
+    embedding, the final norm and the head the file's bf16 values, bit for
+    bit."""
+    from llms_on_kubernetes_tpu_torch.engine.safetensors import open_dir
+    from llms_on_kubernetes_tpu_torch.engine.weights import awq_sources
+    from llms_on_kubernetes_tpu_torch.ops import quant as q
+
+    loaders = open_dir(path)
+    L = cfg.num_layers
+    for i in (0, L - 1):
+        for name, (src, out_shape) in awq_sources(cfg).items():
+            base = f"model.layers.{i}.{src[:-len('weight')]}"
+            want = q.awq_group_tensors(*(loaders[base + p]() for p in ("qweight", "qzeros",
+                                                                          "scales")),
+                                       out_shape=out_shape)
+            got = params["layers"][name][i]
+            for part in ("data", "scale", "zero_scaled"):
+                if not torch.equal(getattr(got, part).cpu(), getattr(want, part)):
+                    fail(f"AWQ layer {i} {name}.{part} differs from the file's unpacked values")
+        for name, hf in (("attn_norm", "input_layernorm"), ("mlp_norm",
+                                                            "post_attention_layernorm"),
+                         ("q_norm", "self_attn.q_norm"), ("k_norm", "self_attn.k_norm")):
+            if not torch.equal(params["layers"][name][i].cpu(),
+                               loaders[f"model.layers.{i}.{hf}.weight"]()):
+                fail(f"AWQ layer {i} {name} differs from the file")
+    for name, hf, t in (("embed", "model.embed_tokens.weight", False),
+                        ("final_norm", "model.norm.weight", False),
+                        ("lm_head", "lm_head.weight", True)):
+        want = loaders[hf]()
+        if not torch.equal(params[name].cpu(), want.T if t else want):
+            fail(f"AWQ {name} differs from the file")
+
+
+def awq_prompts(n: int = 8) -> list:
+    """8 prompts of 40 byte tokens (the byte tokenizer's ids), distinct."""
+    return [[ord(c) for c in SERVE_TEXT[i:i + 40]] for i in range(n)]
+
+
+def awq_run(torch, eng, prompts, adapters, max_tokens: int = AWQ_NEW) -> dict:
+    """Submit every prompt at once (its adapter from ``adapters``) and step
+    the engine until all finish: outputs, logprobs, the decode rate
+    (tokens after each first one over the span from the first first token
+    to the last finish) and the launches and forwards in that time."""
+    from llms_on_kubernetes_tpu_torch import kernels
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    kernels.reset_launches()
+    f0 = eng.prefill_calls + eng.chunk_calls + eng.decode_forwards
+    r0, d0 = eng.graph_replays, eng.decode_forwards
+    sp = SamplingParams(temperature=0.0, max_tokens=max_tokens)
+    reqs = [eng.submit(p, sp, adapter=a) for p, a in zip(prompts, adapters)]
+    while eng.has_work():
+        eng.step()
+    if any(r.finish_reason != "length" or len(r.output) != max_tokens for r in reqs):
+        fail(f"AWQ run: finishes {[(r.finish_reason, len(r.output)) for r in reqs]}")
+    span = max(r.finished_at for r in reqs) - min(r.first_token_at for r in reqs)
+    return {"outs": [list(r.output) for r in reqs],
+            "lps": [list(r.output_logprobs) for r in reqs],
+            "tok_s": sum(len(r.output) - 1 for r in reqs) / span,
+            "launches": kernels.launch_counts(),
+            "forwards": eng.prefill_calls + eng.chunk_calls + eng.decode_forwards - f0,
+            "replays": eng.graph_replays - r0, "decode_forwards": eng.decode_forwards - d0}
+
+
+def check_w4_path(tag: str, run: dict, num_layers: int, steps: int) -> None:
+    """Every window a graph replay; every projection one W4A16 launch (7 x
+    num_layers a forward); W8A16 never."""
+    if run["replays"] < 1 or run["replays"] * steps != run["decode_forwards"]:
+        fail(f"{tag}: {run['replays']} replays x {steps} != {run['decode_forwards']} decode "
+             f"forwards: a window ran outside the graph")
+    w4 = run["launches"].get("w4_matmul", 0)
+    if w4 != 7 * num_layers * run["forwards"]:
+        fail(f"{tag}: w4_matmul launched {w4} times for {run['forwards']} forwards of "
+             f"{num_layers} layers (7 a layer expected)")
+    if run["launches"].get("w8_matmul"):
+        fail(f"{tag}: the AWQ engine launched w8_matmul")
+
+
+def awq_in_process(torch, path: str) -> dict:
+    """8 A, in process: load the checkpoint as ``serve`` would (timed, the
+    host's resident set sampled, the bytes on the card), hold layers 0 and
+    L - 1 to the file, then 8 concurrent greedy requests on the engine,
+    each window's device time taken by CUDA events."""
+    from llms_on_kubernetes_tpu_torch.cli import build_parser, engine_config_from_args
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, model_config_for
+    from llms_on_kubernetes_tpu_torch.engine.weights import load_hf_params
+
+    ecfg = engine_config_from_args(build_parser().parse_args(
+        ["serve", "--model", path, "--quantization", "awq"]))
+    cfg = model_config_for(path, path)
+    rss = RssPeak()
+    t0 = time.perf_counter()
+    params = load_hf_params(cfg, path, device="cuda", quantization="awq")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rss_start, rss_peak = rss.close()
+    nbytes = param_bytes(params)
+    grouped = sum(w.nbytes() for w in params["layers"].values() if hasattr(w, "zero_scaled"))
+    int4 = sum(w.data.numel() for w in params["layers"].values() if hasattr(w, "zero_scaled"))
+    hold_awq_params(torch, path, cfg, params)
+    eng = Engine(ecfg, model_config=cfg, params=params)
+    ready_s = time.perf_counter() - t0
+    timer = WindowTimer(torch, eng._window)
+    run = awq_run(torch, eng, awq_prompts(), [None] * 8)
+    win_ms = timer.close()["free"]
+    check_w4_path("AWQ in process", run, cfg.num_layers, eng.config.decode_steps)
+    say(f"  {AWQ_MODEL} AWQ ({cfg.num_layers} layers, group 128, packed int4) loaded in "
+        f"{load_s:.1f} s (engine serving after {ready_s:.1f} s), the host's resident set "
+        f"peaking {rss_peak:.2f} GB above its {rss_start:.2f} GB; {nbytes / 1e9:.2f} GB on the "
+        f"card: {int4 / 1e9:.2f} GB of int4, {(grouped - int4) / 1e9:.2f} GB of scales and "
+        f"zeros, {(params['embed'].numel() + params['lm_head'].numel()) * 2 / 1e9:.2f} GB "
+        f"embedding and head; layers 0 and {cfg.num_layers - 1}, the norms, the embedding "
+        f"and the head equal the file's values")
+    say(f"  AWQ in process, 8 greedy streams of {AWQ_NEW} ({len(set(map(tuple, run['outs'])))} "
+        f"distinct; the first's head {run['outs'][0][:8]}): {run['tok_s']:.1f} decode tok/s, "
+        f"{run['replays']} windows (each one graph replay), window device ms median "
+        f"{float(np.median(win_ms)):.3f} (min {min(win_ms):.3f}, max {max(win_ms):.3f}); "
+        f"w4_matmul {run['launches'].get('w4_matmul', 0)} launches = 7 x {cfg.num_layers} x "
+        f"{run['forwards']} forwards [{card_line()}]")
+    del eng, timer
+    return {"cfg": cfg, "ecfg": ecfg, "params": params, "base": run, "load_s": load_s,
+            "rss_peak_gb": rss_peak, "nbytes": nbytes, "window_ms": win_ms}
+
+
+def lora_delta_ms(torch, eng) -> float:
+    """Device ms of one layer's four q/k/v/o LoRA deltas at 8 decode rows
+    (``ops/lora.lora_delta_rows`` as ``decoder._proj`` calls it, every
+    row on a slot), timed by ``Timer``."""
+    from llms_on_kubernetes_tpu_torch.ops.lora import lora_delta_rows
+
+    cfg = eng.model_config
+    lp = {t: eng.params["layers"]["lora_" + t][0] for t in ("wq", "wk", "wv", "wo")}
+    x = torch.randn((8, cfg.hidden_size), device="cuda").to(torch.bfloat16)
+    idx = torch.tensor([0, 1] * 4, dtype=torch.int32, device="cuda")
+
+    def four():
+        for st in lp.values():
+            S, r = st.a.shape[0], st.rank
+            lora_delta_rows(x, st.a.reshape(S, -1, r), st.b.reshape(S, r, -1), idx)
+    return Timer(torch)(four)
+
+
+def write_adapters(cfg) -> dict:
+    """Three PEFT adapters at Qwen3-8B's widths (rank 16, q/k/v/o, alpha 32,
+    seeded), written by ``testing/synth_adapter.py``."""
+    from llms_on_kubernetes_tpu_torch.testing.synth_adapter import write_peft
+
+    return {f"ad{i}": write_peft(os.path.join(ADAPTER_DIR, f"ad{i}"), cfg, rank=16, alpha=32,
+                                 seed=20 + i, scale=0.02) for i in range(3)}
+
+
+def graph_captures() -> int:
+    from llms_on_kubernetes_tpu_torch import kernels
+
+    return sum(kind.startswith("graph:") for kind, _s in kernels.COMPILES)
+
+
+def lora_in_process(torch, awq: dict, dirs: dict) -> dict:
+    """8 B, in process, on the AWQ weights: engines with the three adapters
+    on two slots. A heterogeneous batch (base, ad0, ad1, ad2, twice) against
+    each request alone; an ad0 request after a base request sharing its
+    256-token prefix against ad0 cold (another engine); evict and reload;
+    no capture for an upload; adapter against base decode tok/s."""
+    import dataclasses as dc
+
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine
+
+    cfg, params = awq["cfg"], awq["params"]
+    ecfg = dc.replace(awq["ecfg"], adapters=dirs, adapter_slots=2)
+    prefix = [ord(c) for c in (PROMPT_900 * 2)[:AWQ_PREFIX]]
+    prompt_a = prefix + [ord(c) for c in "and then the adapter asked about the tail"]
+    prompt_b = prefix + [ord(c) for c in "while the base model answered otherwise"]
+    cold_eng = Engine(ecfg, model_config=cfg, params=params)
+    cold = awq_run(torch, cold_eng, [prompt_a], ["ad0"])["outs"][0]
+    del cold_eng
+    free_card(torch, "the cold-prefix engine freed")
+    eng = Engine(ecfg, model_config=cfg, params=params)
+    captured = graph_captures()
+    awq_run(torch, eng, [prompt_b], [None])
+    hits0 = eng.allocator.hit_tokens_total
+    warm = awq_run(torch, eng, [prompt_a], ["ad0"])["outs"][0]
+    if warm != cold or eng.allocator.hit_tokens_total != hits0:
+        fail(f"LoRA: ad0 after a base request with the same {AWQ_PREFIX}-token prefix differs "
+             f"from ad0 cold, or adopted the base model's pages")
+    say(f"  LoRA salt: ad0 after a base request sharing its {AWQ_PREFIX}-token prefix equals "
+        f"ad0 cold ({len(cold)} tokens), no page adopted")
+    prompts = awq_prompts()
+    names = [None, "ad0", "ad1", "ad2"] * 2
+    alone = [awq_run(torch, eng, [p], [a]) for p, a in zip(prompts, names)]
+    batch = awq_run(torch, eng, prompts, names)
+    flips = []
+    for i, ref in enumerate(alone):
+        m = flip_margin(ref["outs"][0], ref["lps"][0], batch["outs"][i])
+        if m is not None:
+            if not m[1] <= m[2]:
+                fail(f"LoRA batch row {i} ({names[i]}) first differs from its run alone at "
+                     f"{m[0]} by {m[1]} nats, past the near-tie bound {m[2]}")
+            flips.append((i, names[i], m))
+    # the adapters act: on one prompt, the base model's and each adapter's
+    # first token logprob differ (random weights may agree on the token)
+    probe = {a: awq_run(torch, eng, [prompts[0]], [a], max_tokens=2)
+             for a in (None, "ad0", "ad1", "ad2")}
+    firsts = {a: (r["outs"][0][0], round(r["lps"][0][0][0], 5)) for a, r in probe.items()}
+    if len(set(firsts.values())) != 4:
+        fail(f"LoRA: the base model and the adapters give the same first token and logprob "
+             f"on one prompt: {firsts}")
+    distinct = len({tuple(a["outs"][0]) for a in alone})
+    stack = eng.params["layers"]["lora_wq"]
+    ptrs = (stack.a.data_ptr(), stack.b.data_ptr())
+    mgr = eng.adapters
+    first = awq_run(torch, eng, [prompts[0]], ["ad0"])["outs"][0]
+    for a in ("ad1", "ad2"):
+        awq_run(torch, eng, [prompts[0]], [a], max_tokens=4)
+    if mgr.slot_of("ad0") is not None:
+        fail("LoRA: ad0 still resident after ad1 and ad2 ran on two slots")
+    ev = mgr.stats["evictions"]
+    again = awq_run(torch, eng, [prompts[0]], ["ad0"])["outs"][0]
+    slot = mgr.slot_of("ad0")
+    a_host, b_host = mgr._host_cache["ad0"].factors["wq"]
+    if (again != first or mgr.stats["evictions"] != ev + 1 or slot is None
+            or not torch.equal(stack.a[:, slot].cpu(), torch.from_numpy(a_host))
+            or not torch.equal(stack.b[:, slot].cpu(), torch.from_numpy(b_host))):
+        fail("LoRA: an evicted and reloaded ad0 differs from its first load")
+    if graph_captures() != captured or (stack.a.data_ptr(), stack.b.data_ptr()) != ptrs:
+        fail("LoRA: an upload recaptured a graph or moved a stack")
+    timer = WindowTimer(torch, eng._window)
+    base = awq_run(torch, eng, prompts, [None] * 8)
+    base_ms = timer.close()["free"]
+    timer = WindowTimer(torch, eng._window)
+    adapted = awq_run(torch, eng, prompts, ["ad0", "ad1"] * 4)
+    adapted_ms = timer.close()["free"]
+    delta_ms = lora_delta_ms(torch, eng)
+    check_w4_path("LoRA in process", adapted, cfg.num_layers, eng.config.decode_steps)
+    say(f"  LoRA first token and logprob on one prompt, base and each adapter: {firsts}")
+    say(f"  LoRA heterogeneous batch (base, ad0, ad1, ad2 x 2; 2 slots; {distinct} distinct "
+        f"streams of 8): {8 - len(flips)} of 8 streams equal their runs alone, the rest first "
+        f"apart at a "
+        f"near-tie {flips}; evict and reload of ad0: stream and slot bytes identical "
+        f"(evictions {mgr.stats['evictions']}); graph captures unchanged across "
+        f"{mgr.stats['misses']} uploads; decode tok/s 8 adapter rows (ad0/ad1) "
+        f"{adapted['tok_s']:.1f} against 8 base rows {base['tok_s']:.1f}; window device ms "
+        f"median {float(np.median(adapted_ms)):.3f} against {float(np.median(base_ms)):.3f} "
+        f"(the adapter-free engine's {float(np.median(awq['window_ms'])):.3f}); one layer's "
+        f"four deltas at 8 rows {delta_ms:.4f} ms [{card_line()}]")
+    del eng
+    free_card(torch, "the LoRA engine freed")
+    return {"base_tok_s": base["tok_s"], "adapter_tok_s": adapted["tok_s"], "flips": flips}
+
+
+def _drive_awq(cfg, tag: str):
+    """8 concurrent greedy journaled streams through ``serve``: every window
+    a graph replay, every projection one W4A16 launch; the decode rate
+    and the server process's peak resident set."""
+
+    def drive(base: str, proc) -> dict:
+        http("POST", base + "/debug/kernels/reset")
+        k0 = kernel_counts(base)
+        out: dict = {}
+
+        def one(i):
+            out[i] = journaled_stream(base, {"model": AWQ_MODEL, "prompt": SERVE_TEXT[i:i + 40],
+                                             "max_tokens": AWQ_NEW, "temperature": 0,
+                                             "stream": True})
+
+        ths = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=600)
+        if len(out) != 8 or any(len(o[0]) != AWQ_NEW for o in out.values()):
+            fail(f"{tag}: the 8 streams did not all finish with {AWQ_NEW} tokens")
+        tok_s = (sum(len(o[0]) - 1 for o in out.values())
+                 / (max(o[2] for o in out.values()) - min(o[1] for o in out.values())))
+        k1 = kernel_counts(base)
+        check_graphed(tag, k1, k0)
+        run = {"launches": k1["launches"], "replays": k1["graph_replays"] - k0["graph_replays"],
+               "decode_forwards": k1["decode_forwards"] - k0["decode_forwards"],
+               "forwards": sum(k1[k] - k0[k] for k in ("prefill_calls", "chunk_calls",
+                                                       "decode_forwards"))}
+        check_w4_path(tag, run, cfg.num_layers, k1["decode_steps"])
+        return {"launches": k1["launches"], "tok_s": tok_s, "forwards": run["forwards"]}
+    return drive
+
+
+def _drive_lora_router(cfg, proc_dirs: dict):
+    """Behind ``llkt-router --adapters``: /v1/models lists the adapters, an
+    adapter completion answers with its id, ``model=qwen3-8b:nope`` gets the
+    404 ``adapter_not_found``; every window a graph replay; the adapter
+    cache series count the loads."""
+
+    def drive(base: str, _proc) -> dict:
+        router_proc, router = start_router(
+            ["--models", f"{AWQ_MODEL}={base}", "--adapters",
+             f"{AWQ_MODEL}={'|'.join(sorted(proc_dirs))}", "--probe-interval", "0.5"],
+            "chip_smoke_lora_router.log", [base])
+        try:
+            http("POST", base + "/debug/kernels/reset")
+            k0 = kernel_counts(base)
+            status, body = http("GET", base + "/v1/models")
+            ids = [m["id"] for m in json.loads(body)["data"]]
+            if ids != [AWQ_MODEL] + [f"{AWQ_MODEL}:{a}" for a in sorted(proc_dirs)]:
+                fail(f"LoRA server /v1/models: {ids}")
+            texts = {}
+            for model in (AWQ_MODEL, f"{AWQ_MODEL}:ad0", f"{AWQ_MODEL}:ad1",
+                          f"{AWQ_MODEL}:ad2", f"{AWQ_MODEL}:ad0"):
+                status, body = http("POST", router + "/v1/completions", {
+                    "model": model, "prompt": SERVE_TEXT[:40], "max_tokens": 16,
+                    "temperature": 0})
+                d = json.loads(body)
+                if status != 200 or d.get("model") != model:
+                    fail(f"LoRA via llkt-router {model}: HTTP {status} {body[:200]!r}")
+                texts.setdefault(model, []).append(d["choices"][0]["text"])
+            if texts[f"{AWQ_MODEL}:ad0"][0] != texts[f"{AWQ_MODEL}:ad0"][1]:
+                fail("LoRA via llkt-router: ad0 reloaded answers differently")
+            status, body = http("POST", router + "/v1/completions", {
+                "model": f"{AWQ_MODEL}:nope", "prompt": "x", "max_tokens": 4})
+            err = json.loads(body).get("error", {})
+            if status != 404 or err.get("code") != "adapter_not_found":
+                fail(f"LoRA via llkt-router model {AWQ_MODEL}:nope: HTTP {status} {body!r}")
+            k1 = kernel_counts(base)
+            check_graphed("LoRA server", k1, k0)
+            misses = metric(base, "llm_adapter_cache_misses_total")
+            evictions = metric(base, "llm_adapter_cache_evictions_total")
+            if misses < 3 or evictions < 1:
+                fail(f"LoRA server: adapter cache misses {misses}, evictions {evictions}")
+            say(f"  LoRA behind llkt-router: /v1/models {ids}; base, ad0, ad1, ad2, ad0 "
+                f"answered with their ids (ad0 reloaded, same text); {AWQ_MODEL}:nope -> 404 "
+                f"adapter_not_found; llm_adapter_cache_misses_total {misses:g}, evictions "
+                f"{evictions:g}")
+            return {"launches": k1["launches"]}
+        finally:
+            stop_proc(router_proc)
+    return drive
+
+
+def phase_awq_lora(torch, write) -> dict:
+    """Phase 8: A (the AWQ checkpoint in process, then ``serve --model <dir>
+    --quantization awq``) and B (LoRA on it: in process, then ``serve
+    --adapter`` x 3 behind llkt-router)."""
+    t0 = time.perf_counter()
+    path = awq_written(write)
+    awq = awq_in_process(torch, path)
+    dirs = write_adapters(awq["cfg"])
+    lora = lora_in_process(torch, awq, dirs)
+    cfg = awq["cfg"]
+    del awq["params"]
+    free_card(torch, "phase 8 in process done")
+    args = ["--model", path, "--quantization", "awq", "--served-model-name", AWQ_MODEL]
+    served = with_server(args, "chip_smoke_awq.log", _drive_awq(cfg, AWQ_PATH))
+    say(f"  serve --model {path} --quantization awq: /health after {served['health_s']:.1f} s; "
+        f"8 greedy streams of {AWQ_NEW}: {served['tok_s']:.1f} decode tok/s; w4_matmul "
+        f"{served['launches'].get('w4_matmul', 0)} launches = 7 x {cfg.num_layers} x "
+        f"{served['forwards']} forwards, w8_matmul none [{card_line()}]")
+    ad_args = [x for a, d in sorted(dirs.items()) for x in ("--adapter", f"{a}={d}")]
+    routed = with_server(args + ad_args + ["--adapter-slots", "2"], "chip_smoke_lora.log",
+                         _drive_lora_router(cfg, dirs))
+    say(f"  the LoRA server: /health after {routed['health_s']:.1f} s")
+    shutil.rmtree(path, ignore_errors=True)
+    shutil.rmtree(ADAPTER_DIR, ignore_errors=True)
+    say(f"phase 8 (AWQ and LoRA): {time.perf_counter() - t0:.1f} s")
+    return {"A": {**awq, "served": served}, "B": {**lora, "routed": routed}}
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -5912,6 +6468,10 @@ def main(argv) -> int:
         f"(bf16) functions")
     if not funcs or not hmma:
         fail("the bf16 flash prefill body has no tensor-core (HMMA) instruction")
+    hmma, funcs = sass_mma_count(kernels.library_path("w4_matmul"), "w4_matmul_tc")
+    say(f"sass w4_matmul_tc: {hmma} HMMA instructions in {funcs} tensor-core (bf16) functions")
+    if not funcs or not hmma:
+        fail("the bf16 W4A16 body w4_matmul_tc has no tensor-core (HMMA) instruction")
     for body in ("w8_matmul_decode", "w8_matmul_prefill"):
         hmma, funcs = sass_mma_count(kernels.library_path("w8_matmul"), body)
         say(f"sass {body}: {hmma} HMMA instructions in {funcs} tensor-core (bf16) functions")
@@ -5921,11 +6481,17 @@ def main(argv) -> int:
     if "--spec-only" in argv:
         phase_spec_gguf(torch)
         fail("--spec-only: phases 2 to 6 skipped, no result")
+    if "--awq-only" in argv:
+        finish_router_build(router_build)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        phase_awq_lora(torch, start_awq_write())
+        fail("--awq-only: phases 2 to 7 skipped, no result")
     t0 = time.perf_counter()
     entries = phase_kernels(torch)
     for name, shapes in wide_kernels(torch, np.random.default_rng(1), Timer(torch)).items():
         entries[name]["other_shapes"].update(shapes)
     entries.update(w8_kernels(torch, np.random.default_rng(2), Timer(torch), unsplit))
+    entries.update(w4_kernels(torch, np.random.default_rng(3), Timer(torch)))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     say(f"phase 2 (kernels): {time.perf_counter() - t0:.1f} s")
@@ -5958,7 +6524,9 @@ def main(argv) -> int:
     ckpt = phase_checkpoint(torch)
     tok_llama3 = phase_tokenizer_llama3()
     headline = phase_headline(torch)
+    awq_write = start_awq_write()      # overlaps phase 7
     spec = phase_spec_gguf(torch)
+    awq = phase_awq_lora(torch, awq_write)
     # launches on each path, counted from 0 just before it and read just
     # after; the line's "launches" is the checkpoint server's where the
     # kernel runs there, else phase 4's fused engines, and the W8A16
@@ -5982,14 +6550,18 @@ def main(argv) -> int:
                  tier["drills"]["launches"],
              SPEC_PATH: spec["A"]["launches"], SPEC_INT8_PATH: spec["A"]["launches_int8"],
              DRAFT_PATH: spec["B"]["self"]["launches"],
-             GGUF_DRAFT_PATH: spec["B"]["gguf"]["launches"]}
+             GGUF_DRAFT_PATH: spec["B"]["gguf"]["launches"],
+             AWQ_PATH: awq["A"]["served"]["launches"],
+             f"{AWQ_MODEL} AWQ in process": awq["A"]["base"]["launches"],
+             LORA_PATH: awq["B"]["routed"]["launches"]}
     for preset, r in spec["C"].items():
         for kind in ("bf16", "int8"):
             paths[f"{preset} GGUF serve {kind} weights"] = r[kind]["launches"]
     main_path = {"flash_prefill": ckpt_bf16, "paged_decode": ckpt_bf16,
                  "paged_write_window": ckpt_bf16, "paged_decode_int8": ckpt_int8,
                  "paged_write_window_int8": ckpt_int8, "paged_decode_write": fused_bf16,
-                 "paged_decode_write_int8": fused_int8, "w8_matmul": HEADLINE_PATH}
+                 "paged_decode_write_int8": fused_int8, "w8_matmul": HEADLINE_PATH,
+                 "w4_matmul": AWQ_PATH}
     for name, e in entries.items():
         e["launches"] = paths[main_path[name]].get(name, 0)
         e["launches_path"] = main_path[name]

@@ -46,6 +46,13 @@ def _buckets(v: str) -> tuple[int, ...]:
     return tuple(int(b) for b in v.split(",") if b.strip())
 
 
+def _positive_int(v: str) -> int:
+    n = int(v)
+    if n < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {n}")
+    return n
+
+
 def build_parser() -> argparse.ArgumentParser:
     from llms_on_kubernetes_tpu_torch.engine.engine import EngineConfig
 
@@ -105,7 +112,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "engine sheds all work as 'stalled' and /health turns 503 "
                         "(the budget is max(this, 50 x the step estimate); <= 0 "
                         "disables; default: env LLMK_WATCHDOG_S, else 120)")
+    p.add_argument("--adapter", action="append", default=None, metavar="NAME=DIR",
+                   help="repeatable: serve the LoRA adapter NAME from the local PEFT "
+                        "directory DIR; requests address it as model=<served-name>:NAME")
+    p.add_argument("--adapter-slots", type=_positive_int, default=d.adapter_slots,
+                   help="on-device adapter slots (LRU-recycled)")
+    p.add_argument("--adapter-rank", type=_positive_int, default=d.adapter_rank,
+                   help="max LoRA rank the device stacks are sized for")
     return ap
+
+
+def adapters_from_args(args) -> dict:
+    """``--adapter NAME=DIR`` flags as {name: dir}; a malformed one exits."""
+    adapters = {}
+    for spec in args.adapter or ():
+        name, _, ref = spec.partition("=")
+        if not name or not ref:
+            raise SystemExit(f"[serve] --adapter must be NAME=DIR, got {spec!r}")
+        adapters[name] = ref
+    return adapters
 
 
 def qos_from_env() -> dict:
@@ -138,7 +163,9 @@ def engine_config_from_args(args):
         kv_cache_dtype=args.kv_cache_dtype, quantization=args.quantization,
         prefix_caching=args.prefix_caching, watchdog_stall_s=args.watchdog_stall_s,
         kv_host_cache_gb=args.kv_host_cache_gb, speculation=args.speculation,
-        draft_model=args.draft_model, seed=args.seed, device=args.device, **qos_from_env())
+        draft_model=args.draft_model, seed=args.seed, device=args.device,
+        adapters=adapters_from_args(args), adapter_slots=args.adapter_slots,
+        adapter_rank=args.adapter_rank, **qos_from_env())
 
 
 def main(argv=None) -> int:

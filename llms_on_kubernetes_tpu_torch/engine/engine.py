@@ -161,7 +161,25 @@ back) and probes again every 64 plain dispatches. Counters (JAX names):
 ``spec_dispatches``, ``spec_drafted_tokens``, ``spec_accepted_tokens``,
 ``decode_dispatches``, ``steps_obs``.
 
-Not ported yet: LoRA and multimodal salts.
+Multi-tenant LoRA (``adapters``: (name, local directory) pairs of PEFT
+adapters; ``engine/adapters.py``, ``ops/lora.py``; as in the JAX engine):
+one zeroed ``LoRAStack`` a target weight (``adapter_targets``) of
+``adapter_slots`` slots at ``adapter_rank`` joins the layer params before
+the windows are captured, and is only ever copied into. ``submit(adapter=)``
+names one (``UnknownAdapterError`` otherwise); admission pins it into a
+slot (loading and uploading it on a miss, recycling the least recently
+used unpinned slot) or waits, as under page pressure, and the pin goes at
+finish and at preemption. Each row's slot rides the packed prefill, chunk,
+decode and verify rows (-1: the base model), so a captured window applies
+any mix of adapters with no recapture. The upload copies from pinned
+memory on the compute stream, so the windows already launched read the
+slot's old factors. An adapter request's digest chain is salted with the
+adapter's name and directory (the device prefix cache, the host tier and
+the handoff digests): its K/V never meets the base model's. (The JAX
+engine salts text requests with ``b""`` whatever adapter they name, so
+there an adapter request adopts pages the base model wrote.)
+
+Not ported yet: multimodal salts.
 """
 
 from __future__ import annotations
@@ -188,7 +206,7 @@ from llms_on_kubernetes_tpu_torch.engine.cache import (
     CacheConfig, HostKVCache, PageAllocator, as_pool_view, init_pages, payload_shape_ok,
 )
 from llms_on_kubernetes_tpu_torch.engine.graphs import (
-    BIAS, BUD, DEC_COLS, FLOATS, FSM, LEN, LOGIT_BIAS_SLOTS, PRE_ROW, SEED, SRC, SRC_HOST,
+    ADP, BIAS, BUD, DEC_COLS, FLOATS, FSM, LEN, LOGIT_BIAS_SLOTS, PRE_ROW, SEED, SRC, SRC_HOST,
     SRC_INFLIGHT, SRC_PREFILL, STOP, STOP_SLOTS, TOP_K, VAL, DecodeWindow, fsm_apply,
     fsm_scatter, idle_rows, pack_bias, pack_results, unpack_accept, unpack_bias,
     unpack_results, upload, verify_rows,
@@ -203,6 +221,7 @@ from llms_on_kubernetes_tpu_torch.engine.sampling import (
 from llms_on_kubernetes_tpu_torch.models.decoder import (
     forward_chunk, forward_prefill, forward_score, init_params,
 )
+from llms_on_kubernetes_tpu_torch.ops.lora import LoRAStack, lora_zeros
 from llms_on_kubernetes_tpu_torch.ops.paged_attention import DecodeWorkspace
 from llms_on_kubernetes_tpu_torch.ops.quant import SUPPORTED_QUANTIZATIONS, quantize_params
 
@@ -230,11 +249,13 @@ log = logging.getLogger(__name__)
 # presence, frequency), the FSM columns (the row's grammar row, -1 =
 # unconstrained, and the absolute start state to assume before sampling:
 # set for a fresh constrained request, -1 for a resumed one, whose first
-# window sets its replayed state), the logit_bias ids and values, then the
-# page table and the tokens
+# window sets its replayed state), the logit_bias ids and values, the
+# row's LoRA adapter slot (-1: the base model), then the page table and the
+# tokens
 _FSM_PRE = 11
 _BIAS_PRE = 13
-_PRE_COLS = _BIAS_PRE + 2 * LOGIT_BIAS_SLOTS
+_ADP_PRE = _BIAS_PRE + 2 * LOGIT_BIAS_SLOTS
+_PRE_COLS = _ADP_PRE + 1
 _OFF = ("0", "false", "off", "no")
 ROLES = ("prefill", "decode", "both")
 # spills queued before a drain (the JAX engine's threshold), and the
@@ -248,6 +269,11 @@ class EngineStallError(RuntimeError):
     the engine thread; ``Engine.step`` turns it into a shed: every request
     finishes with reason "stalled", the engine is ``wedged`` and submit()
     refuses (HTTP 503 upstream)."""
+
+
+class UnknownAdapterError(LookupError):
+    """The request named a LoRA adapter this engine does not serve. The
+    server answers a structured 404 (adapter_not_found)."""
 
 
 class QueueFullError(RuntimeError):
@@ -372,6 +398,18 @@ class EngineConfig:
     qos_default_weight: float = 1.0
     qos_default_priority: str = "normal"
     qos_starvation_s: float = 5.0
+    # multi-tenant LoRA (engine/adapters.py, ops/lora.py): (name, local
+    # PEFT directory) pairs of servable adapters (a dict normalizes);
+    # requests pick one by name (model="base:adapter" upstream).
+    # adapter_slots bounds how many live on the device at once (LRU),
+    # adapter_rank is the stack rank every adapter is padded to (a larger
+    # rank is refused at load), adapter_targets the weights the stacks
+    # attach to. No adapters: no stacks, and every window is the
+    # adapter-free one
+    adapters: tuple = ()
+    adapter_slots: int = 4
+    adapter_rank: int = 16
+    adapter_targets: tuple = ("wq", "wk", "wv", "wo")
 
     def __post_init__(self):
         if self.kv_write is None:
@@ -464,6 +502,27 @@ class EngineConfig:
         if self.qos_default_weight < MIN_WEIGHT:
             raise ValueError(f"qos_default_weight must be >= {MIN_WEIGHT}, got "
                              f"{self.qos_default_weight}")
+        # adapters: sorted (name, ref) pairs; a name must fit inside an
+        # OpenAI model string ("base:adapter") and a metric label
+        if isinstance(self.adapters, dict):
+            self.adapters = tuple(sorted(self.adapters.items()))
+        else:
+            self.adapters = tuple((str(n), str(r)) for n, r in self.adapters)
+        seen = set()
+        for name, _ref in self.adapters:
+            if not name or any(c in name for c in ":,=") or any(c.isspace() for c in name):
+                raise ValueError(f"adapter name {name!r} is invalid (no ':', ',', '=', "
+                                 f"whitespace, or empty)")
+            if name in seen:
+                raise ValueError(f"duplicate adapter name {name!r}")
+            seen.add(name)
+        if self.adapters:
+            if self.adapter_slots < 1:
+                raise ValueError(f"adapter_slots must be >= 1 when adapters are configured, "
+                                 f"got {self.adapter_slots}")
+            if self.adapter_rank < 1:
+                raise ValueError(f"adapter_rank must be >= 1, got {self.adapter_rank}")
+        self.adapter_targets = tuple(self.adapter_targets)
 
     @property
     def max_model_len(self) -> int:
@@ -518,6 +577,10 @@ class Request:
     # the resolved priority class, fixed at submit
     tenant: str = ""
     priority: str = "normal"
+    # multi-tenant LoRA: the adapter this request decodes with (None: the
+    # base model) and its pinned device slot (-1: none pinned)
+    adapter: Optional[str] = None
+    adapter_slot: int = -1
     # a prefill-only handoff request (the server answers with a ticket):
     # its spilled pages land in the host tier before its finish event
     handoff: bool = False
@@ -846,6 +909,11 @@ class Engine:
         # budget: submit() refuses from then on and the server turns /health
         # and /ready to 503; a process restart is the only recovery
         self.wedged = False
+        # multi-tenant LoRA: zeroed stacks join the layer params BEFORE the
+        # window is captured (the graph holds their addresses)
+        self._adapters = None
+        if engine_config.adapters:
+            self._init_adapters()
         # the window, captured on a card before the harvester starts
         self._window = DecodeWindow(
             self.params, cfg, self.k_pages, self.v_pages, self.token_counts, self.workspace,
@@ -907,6 +975,82 @@ class Engine:
 
             self._spec = build_speculator(engine_config, cfg, self.device)
 
+    # ------------------------------------------------------------------
+    # multi-tenant LoRA (engine/adapters.py, ops/lora.py)
+    # ------------------------------------------------------------------
+
+    @property
+    def adapters(self):
+        """The AdapterManager, or None on an adapter-free engine."""
+        return self._adapters
+
+    def _init_adapters(self) -> None:
+        """One zeroed ``LoRAStack`` a target in ``params["layers"]``
+        (``lora_<target>``), made once, and the slot manager."""
+        from llms_on_kubernetes_tpu_torch.engine.adapters import AdapterManager, load_adapter
+
+        cfg, ec = self.model_config, self.config
+        D, F = cfg.hidden_size, cfg.intermediate_size
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        # (in_shape, out_shape) in the decoder's layouts
+        shapes = {"wq": ((D,), (H, hd)), "wk": ((D,), (KV, hd)), "wv": ((D,), (KV, hd)),
+                  "wo": ((H, hd), (D,)), "w_gate": ((D,), (F,)), "w_up": ((D,), (F,)),
+                  "w_down": ((F,), (D,))}
+        S, r = ec.adapter_slots, ec.adapter_rank
+        layers = dict(self.params["layers"])
+        for t in ec.adapter_targets:
+            if t not in shapes:
+                raise ValueError(f"unknown adapter target {t!r} (supported: {sorted(shapes)})")
+            layers["lora_" + t] = lora_zeros(cfg.num_layers, S, *shapes[t], r,
+                                             device=self.device)
+        self.params = {**self.params, "layers": layers}
+
+        def _load(name: str, ref: str):
+            if not os.path.isdir(ref):
+                from llms_on_kubernetes_tpu_torch.engine.adapters import AdapterError
+
+                raise AdapterError(f"adapter {name!r}: {ref!r} is not a local directory "
+                                   f"(the port loads adapters from disk only)")
+            return load_adapter(name, ref, cfg, r, targets=ec.adapter_targets)
+
+        self._adapters = AdapterManager(dict(ec.adapters), S, _load, self._upload_adapter)
+
+    def _upload_adapter(self, slot: int, loaded) -> None:
+        """Copy one adapter's factors into slot ``slot`` of every target
+        stack, zeroing the targets it does not train. In place (the
+        captured windows hold the stacks' addresses), from pinned memory on
+        the compute stream: windows already launched read the old factors,
+        later ones the new."""
+        layers = self.params["layers"]
+        for t in self.config.adapter_targets:
+            stack: LoRAStack = layers["lora_" + t]
+            fac = loaded.factors.get(t)
+            for dst, src in ((stack.a, None if fac is None else fac[0]),
+                             (stack.b, None if fac is None else fac[1])):
+                if src is None:
+                    dst[:, slot].zero_()
+                elif self.device.type == "cpu":
+                    dst[:, slot].copy_(torch.from_numpy(src))
+                else:
+                    dst[:, slot].copy_(torch.from_numpy(src).pin_memory(), non_blocking=True)
+
+    def _ensure_adapter(self, req: "Request") -> bool:
+        """Pin ``req``'s adapter into a device slot; False: every slot is
+        pinned by running requests, and the caller waits, as under page
+        pressure."""
+        if req.adapter is None or req.adapter_slot >= 0:
+            return True
+        slot = self._adapters.acquire(req.adapter)
+        if slot is None:
+            return False
+        req.adapter_slot = slot
+        return True
+
+    def _release_adapter(self, req: "Request") -> None:
+        if req.adapter_slot >= 0 and self._adapters is not None:
+            self._adapters.release(req.adapter_slot)
+            req.adapter_slot = -1
+
     @property
     def graph_replays(self) -> int:
         """Decode windows run as one CUDA graph replay (0 on the CPU)."""
@@ -936,7 +1080,8 @@ class Engine:
     def submit(self, prompt: list[int], params: Optional[SamplingParams] = None,
                request_id: Optional[str] = None, on_event=None,
                deadline: Optional[float] = None, tenant: Optional[str] = None,
-               priority: Optional[str] = None, handoff: bool = False) -> Request:
+               priority: Optional[str] = None, handoff: bool = False,
+               adapter: Optional[str] = None) -> Request:
         if self.wedged:
             raise EngineStallError("engine wedged: a device step stalled past the watchdog "
                                    "budget; restart the server to recover")
@@ -944,6 +1089,10 @@ class Engine:
         max_len = self.config.max_model_len
         if len(prompt) == 0:
             raise ValueError("empty prompt")
+        if adapter is not None and (self._adapters is None or not self._adapters.known(adapter)):
+            raise UnknownAdapterError(
+                f"adapter {adapter!r} is not served by this engine "
+                f"(configured: {self._adapters.names() if self._adapters else []})")
         if params.top_k > MAX_CANDIDATES:
             raise ValueError(f"top_k={params.top_k} exceeds the sampling candidate pool "
                              f"({MAX_CANDIDATES}); values above it are not supported")
@@ -1025,7 +1174,8 @@ class Engine:
                           submitted_at=time.monotonic(), deadline=deadline,
                           output=prefix, output_logprobs=[None] * len(prefix),
                           on_event=on_event, tenant=tenant, priority=priority,
-                          handoff=handoff)
+                          handoff=handoff, adapter=adapter,
+                          cache_salt=self._adapter_salt(adapter))
             if len(self.waiting) >= self.config.max_waiting:
                 raise QueueFullError(f"waiting queue is full ({self.config.max_waiting} "
                                      f"requests); retry later")
@@ -1034,6 +1184,14 @@ class Engine:
             self._admit_wake.set()
             self._harvester.poke()      # break any backpressure wait: admit now
         return req
+
+    def _adapter_salt(self, adapter: Optional[str]) -> bytes:
+        """The digest-chain salt of a request: ``b""`` for the base model
+        (the JAX engine's text salt), the adapter's name and directory for
+        an adapter request, so its pages never serve another model's."""
+        if adapter is None:
+            return b""
+        return b"lora\0" + adapter.encode() + b"\0" + self._adapters.registry[adapter].encode()
 
     def has_work(self) -> bool:
         return (bool(self.waiting) or any(r is not None for r in self.slots)
@@ -1191,10 +1349,10 @@ class Engine:
         return (nxt_lp[0, :n - 1].cpu().tolist(), top_ids[0, :n].cpu().tolist(),
                 top_lp[0, :n].cpu().tolist())
 
-    def generate(self, prompt: list[int],
-                 params: Optional[SamplingParams] = None) -> list[int]:
+    def generate(self, prompt: list[int], params: Optional[SamplingParams] = None,
+                 adapter: Optional[str] = None) -> list[int]:
         """Synchronous single-request generation (drives the scheduler)."""
-        req = self.submit(prompt, params)
+        req = self.submit(prompt, params, adapter=adapter)
         while not req.finished:
             self.step()
         return req.output
@@ -1263,6 +1421,7 @@ class Engine:
         if req.trace is not None:
             req.trace.event("finish", request=req.id, reason=reason, tokens=len(req.output))
         self._g_release(req)
+        self._release_adapter(req)
         if req.slot >= 0:
             # spill the full pages to the host tier BEFORE the allocator can
             # hand them on (not on a wedged card: the gather would never run)
@@ -1309,8 +1468,10 @@ class Engine:
         self.slots[slot] = None
         victim.slot = -1
         victim.pending_token = -1
-        # a resumed admission re-ensures residency and replays its state
+        # a resumed admission re-ensures residency and replays its state,
+        # and re-pins its adapter (a reload is a host-cached upload)
         self._g_release(victim)
+        self._release_adapter(victim)
         with self._lock:
             self.waiting.appendleft(victim)
 
@@ -1337,6 +1498,8 @@ class Engine:
             req = self.waiting[0]
             if req.params.grammar is not None and not self._ensure_grammar(req):
                 return None     # every grammar row pinned: wait, as for pages
+            if req.adapter is not None and not self._ensure_adapter(req):
+                return None     # every adapter slot pinned: wait, as for pages
             resumed = bool(req.output)
             ptoks = req.prompt + req.output[:-1] if resumed else req.prompt
             n = len(ptoks)
@@ -1450,6 +1613,7 @@ class Engine:
         else:
             host[r, _FSM_PRE:_FSM_PRE + 2] = -1
         pack_bias(host, r, _BIAS_PRE, p.logit_bias)
+        host[r, _ADP_PRE] = req.adapter_slot
         host[r, _PRE_COLS:_PRE_COLS + self.config.pages_per_slot] = \
             self.allocator.page_tables[req.slot]
 
@@ -1457,15 +1621,17 @@ class Engine:
         """One host-to-device copy of packed prefill rows: (lengths, history,
         top_k, seeds, slots, prompt_len, reset, floats [R, 4], bias (ids,
         values), page_table, tokens, FSM (rows, start states) or None when
-        no row is constrained)."""
+        no row is constrained, the rows' adapter slots or None on an
+        adapter-free engine)."""
         d = upload(host, self.device)
         pt_end = _PRE_COLS + self.config.pages_per_slot
         fsm = None
         if (host[:, _FSM_PRE] >= 0).any():
             fsm = (d[:, _FSM_PRE].contiguous(), d[:, _FSM_PRE + 1].contiguous())
+        adp = d[:, _ADP_PRE].contiguous() if self._adapters is not None else None
         return (*(d[:, c].contiguous() for c in range(7)), d[:, 7:11].view(torch.float32),
                 unpack_bias(d, _BIAS_PRE), d[:, _PRE_COLS:pt_end].contiguous(),
-                d[:, pt_end:].contiguous(), fsm)
+                d[:, pt_end:].contiguous(), fsm, adp)
 
     def _sample_first(self, logits, positions, top_k, seeds, fl, bias, slots, fsm=None,
                       lengths=None):
@@ -1510,12 +1676,13 @@ class Engine:
         host[n:, 4] = [s for s in range(B) if s not in used][:R - n]
         host[n:, 8] = np.float32(1.0).view(np.int32)      # top_p off
         host[n:, _FSM_PRE:_FSM_PRE + 2] = -1               # padded rows: none
+        host[n:, _ADP_PRE] = -1                            # padded rows: the base model
         (lengths, history, top_k, seeds, slots, prompt_len, reset, fl, bias, page_table,
-         tokens, fsm) = self._device_rows(host)
+         tokens, fsm, adp) = self._device_rows(host)
         _rebuild_count_rows(self.token_counts, tokens, slots, history, prompt_len, lengths,
                             reset)
         logits, _, _ = forward_prefill(self.params, self.model_config, tokens, lengths,
-                                       self.k_pages, self.v_pages, page_table)
+                                       self.k_pages, self.v_pages, page_table, adp)
         self.prefill_calls += 1
         return self._sample_first(logits, lengths, top_k, seeds, fl, bias, slots, fsm, lengths)
 
@@ -1537,11 +1704,11 @@ class Engine:
             self._pack_row(host, 0, req, m, pos, pos == start)
             host[0, _PRE_COLS + pps:_PRE_COLS + pps + m] = ptoks[pos:pos + m]
             (lengths, history, top_k, seeds, slots, prompt_len, reset, fl, bias,
-             page_table, tokens, fsm) = self._device_rows(host)
+             page_table, tokens, fsm, adp) = self._device_rows(host)
             _rebuild_count_rows(self.token_counts, tokens, slots, history, prompt_len,
                                 lengths, reset)
             logits, _, _ = forward_chunk(self.params, self.model_config, tokens, history,
-                                         lengths, self.k_pages, self.v_pages, page_table)
+                                         lengths, self.k_pages, self.v_pages, page_table, adp)
             self.chunk_calls += 1
             pos += m
         return self._sample_first(logits, history + lengths, top_k, seeds, fl, bias, slots,
@@ -1573,6 +1740,7 @@ class Engine:
                 [prm.temperature, prm.top_p, prm.presence_penalty, prm.frequency_penalty],
                 np.float32).view(np.int32)
             pack_bias(packed, i, BIAS, prm.logit_bias)
+            packed[i, ADP] = r.adapter_slot
             packed[i, FSM] = r.fsm_row
             if r.fsm_row >= 0 and r.pending_fsm_state is not None:
                 packed[i, FSM + 1], packed[i, FSM + 2] = 1, r.pending_fsm_state

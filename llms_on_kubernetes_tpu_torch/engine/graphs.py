@@ -84,13 +84,15 @@ LOGIT_BIAS_SLOTS = 32
 # top_p, presence, frequency), the logit_bias ids and values, the FSM
 # columns (the row's grammar row in class_of, -1: unconstrained; fsm_set
 # 1: start from fsm_val instead of the slot's device state, a resumed
-# request's host-replayed state), then the page table
+# request's host-replayed state), the row's LoRA adapter slot (-1: the
+# base model), then the page table
 LEN, BUD, SRC, VAL, PRE_ROW, TOP_K, SEED = range(7)
 STOP = 7
 FLOATS = STOP + STOP_SLOTS
 BIAS = FLOATS + 4
 FSM = BIAS + 2 * LOGIT_BIAS_SLOTS
-DEC_COLS = FSM + 3
+ADP = FSM + 3
+DEC_COLS = ADP + 1
 SRC_INFLIGHT, SRC_HOST, SRC_PREFILL = 0, 1, 2
 
 
@@ -118,6 +120,7 @@ def idle_rows(B: int, pages_per_slot: int) -> np.ndarray:
     packed[:, FLOATS + 1] = np.float32(1.0).view(np.int32)
     packed[:, BIAS:BIAS + LOGIT_BIAS_SLOTS] = -1
     packed[:, FSM] = -1
+    packed[:, ADP] = -1
     return packed
 
 
@@ -230,7 +233,8 @@ def decode_window(params: dict, cfg, K: int, packed: torch.Tensor,
         flat_counts.scatter_add_(0, row_base + cur.long().clamp(0, V - 1),
                                  alive.to(counts.dtype))
         logits, _, _ = forward_decode(params, cfg, cur, lengths, k_pages, v_pages, page_table,
-                                      kv_write=kv_write, workspace=workspace)
+                                      kv_write=kv_write, workspace=workspace,
+                                      adapter_idx=packed[:, ADP])
         noise = gumbel_noise(seed, seeds, lengths, C)
         allowed = None
         if fsm is not None:
@@ -315,7 +319,7 @@ def verify_window(params: dict, cfg, K: int, packed: torch.Tensor, k_pages, v_pa
     window = torch.cat([toks0[:, None], drafts.clamp(min=0)], dim=1)
     history = (lengths0 - 1).clamp(min=0)
     logits_all, _, _ = forward_verify(params, cfg, window, history, w, k_pages, v_pages,
-                                      page_table)
+                                      page_table, adapter_idx=packed[:, ADP])
     row_base = torch.arange(B, device=packed.device) * V
     flat_counts = counts.view(-1)
     C = min(MAX_CANDIDATES, cfg.vocab_size)

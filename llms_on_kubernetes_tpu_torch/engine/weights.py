@@ -18,10 +18,14 @@ each tensor's value as fetched, in float32, before any cast to the serving
 dtype; a compressed-tensors fp8 checkpoint (``checkpoint_quantization``)
 is dequantized with its ``weight_scale`` and requantized to the same int8
 QTensors whatever ``quantization`` says; ``quantization="fp8"|"awq"``
-asserts the checkpoint's format. An AWQ checkpoint raises
-NotImplementedError: the JAX package serves it natively as grouped int4
-(``GroupQTensor``, ``group_qeinsum``), which needs a grouped W4A16 kernel
-the port does not have yet.
+asserts the checkpoint's format. An AWQ checkpoint is served natively, as
+the JAX loader serves it: each linear stored 1:1 in AWQ packing
+(``qweight``/``qzeros``/``scales``) becomes a grouped int4 ``GroupQTensor``
+(``_Fetch.grouped``: the int32 tensors go to the device as stored and are
+unpacked there), fetched before the layer map so it is never dequantized;
+a tensor the layer map fuses or splits (phi-3's ``qkv_proj`` and
+``gate_up_proj``) is dequantized (``awq_dequantize``) and requantized to
+int8 ``QTensor``s, as JAX does.
 
 The load goes layer by layer: each stacked ``[L, ...]`` tensor is
 allocated once on the device, and each HF tensor goes to the device as it
@@ -55,8 +59,8 @@ from llms_on_kubernetes_tpu_torch.configs import ModelConfig, hf_repo_for
 from llms_on_kubernetes_tpu_torch.engine.cache import torch_dtype
 from llms_on_kubernetes_tpu_torch.engine.safetensors import open_dir
 from llms_on_kubernetes_tpu_torch.ops.quant import (
-    _LAYER_REDUCE_AXES, SUPPORTED_QUANTIZATIONS, QTensor, fp8_dequantize, quantize,
-    reduce_axes_for,
+    _LAYER_REDUCE_AXES, SUPPORTED_QUANTIZATIONS, GroupQTensor, QTensor, awq_dequantize,
+    awq_group_tensors, fp8_dequantize, quantize, reduce_axes_for,
 )
 
 Params = dict[str, Any]
@@ -91,9 +95,12 @@ def params_from_numpy(tree: Any, device="cuda", dtype: Optional[str] = None) -> 
 
 class _Fetch:
     """Reads HF tensors by name, onto ``device``, seeing through the
-    multimodal wrappers' nesting of the text model. In an fp8 checkpoint
-    (``quant``), a ``.weight`` stored with a ``.weight_scale`` comes back
-    dequantized to float32, as the JAX ``_Fetch`` returns it."""
+    multimodal wrappers' nesting of the text model and, in an AWQ
+    checkpoint, through quantized storage (a ``.weight`` that exists only as
+    ``.qweight``). In an fp8 checkpoint (``quant``), a ``.weight`` stored
+    with a ``.weight_scale`` comes back dequantized to float32, in an AWQ
+    one a ``.weight`` stored as ``.qweight`` too (``[out, in]``), as the JAX
+    ``_Fetch`` returns them."""
 
     def __init__(self, loaders: dict[str, Callable[[], torch.Tensor]], device: torch.device,
                  quant: Optional[dict] = None):
@@ -101,29 +108,45 @@ class _Fetch:
         self.device = device
         self.quant = quant
 
+    def _awq(self) -> bool:
+        return self.quant is not None and self.quant["method"] == "awq"
+
+    def _present(self, name: str) -> bool:
+        return name in self.loaders or (
+            self._awq() and name.endswith(".weight")
+            and name[:-len("weight")] + "qweight" in self.loaders)
+
     def _resolve(self, name: str) -> str:
         """A gemma-3 multimodal checkpoint stores ``model.language_model.*``
         (beside ``model.vision_tower.*``), an older wrapper
         ``language_model.model.*``; plain decoders ``model.*``."""
-        if name in self.loaders:
+        if self._present(name):
             return name
         if name.startswith("model."):
             for alt in ("model.language_model." + name[len("model."):],
                         "language_model." + name):
-                if alt in self.loaders:
+                if self._present(alt):
                     return alt
         alt = "model." + name
-        return alt if alt in self.loaders else name
+        return alt if self._present(alt) else name
 
     def has(self, name: str) -> bool:
-        return self._resolve(name) in self.loaders
+        return self._present(self._resolve(name))
+
+    def _awq_parts(self, base: str) -> tuple:
+        return tuple(self.loaders[base + part]().to(self.device)
+                     for part in ("qweight", "qzeros", "scales"))
 
     def __call__(self, name: str) -> torch.Tensor:
         key = self._resolve(name)
+        base = key[:-len("weight")]
+        if self._awq() and key.endswith(".weight") and base + "qweight" in self.loaders:
+            # HF orientation [out, in], as every other linear is fetched
+            return awq_dequantize(*self._awq_parts(base), bits=self.quant["bits"]).T
         if key not in self.loaders:
             raise KeyError(f"checkpoint is missing tensor {name!r} "
                            f"(have {len(self.loaders)} tensors)")
-        scale_key = key[:-len("weight")] + "weight_scale"
+        scale_key = base + "weight_scale"
         if (self.quant is not None and self.quant["method"] == "fp8"
                 and key.endswith(".weight") and scale_key in self.loaders):
             return fp8_dequantize(self.loaders[key]().to(self.device),
@@ -137,19 +160,40 @@ class _Fetch:
             w = w.reshape(w.shape[0], *out_reshape)
         return w
 
+    def grouped(self, name: str, out_shape: tuple) -> Optional[GroupQTensor]:
+        """The native grouped int4 tensor of an AWQ-packed linear (``name``
+        its HF ``.weight`` name, ``out_shape`` the logical output axes of
+        the decoder's layout; AWQ's input axis is the contraction), on the
+        device, or None when the checkpoint is not AWQ or the tensor is not
+        stored packed."""
+        if not self._awq():
+            return None
+        base = self._resolve(name)[:-len("weight")]
+        if base + "qweight" not in self.loaders:
+            return None
+        return awq_group_tensors(*self._awq_parts(base), bits=self.quant["bits"],
+                                 out_shape=out_shape)
 
-def hf_layer_maps(cfg: ModelConfig, fetch: _Fetch, i: int) -> Params:
+
+def hf_layer_maps(cfg: ModelConfig, fetch: _Fetch, i: int,
+                  preloaded: Optional[Params] = None) -> Params:
     """The decoder's per-layer parameters for HF layer ``i`` (dense
-    families), as the JAX ``hf_layer_maps`` makes them."""
+    families), as the JAX ``hf_layer_maps`` makes them. ``preloaded``
+    entries (the AWQ loader's grouped tensors) are taken as they are and
+    never fetched."""
     H, KV, hd, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
     p = f"model.layers.{i}."
-    out: Params = {}
+    pre = preloaded or {}
+    out: Params = dict(pre)
 
     # --- attention ------------------------------------------------------
-    if fetch.has(p + "self_attn.q_proj.weight"):
-        out["wq"] = fetch.linear(p + "self_attn.q_proj.weight", (H, hd))
-        out["wk"] = fetch.linear(p + "self_attn.k_proj.weight", (KV, hd))
-        out["wv"] = fetch.linear(p + "self_attn.v_proj.weight", (KV, hd))
+    if {"wq", "wk", "wv"} <= pre.keys():
+        pass
+    elif fetch.has(p + "self_attn.q_proj.weight"):
+        for name, proj, heads in (("wq", "q_proj", H), ("wk", "k_proj", KV),
+                                  ("wv", "v_proj", KV)):
+            if name not in pre:
+                out[name] = fetch.linear(p + f"self_attn.{proj}.weight", (heads, hd))
     else:
         # phi3 fused qkv: [(H + 2 KV) * hd, D]
         q, k, v = torch.split(fetch(p + "self_attn.qkv_proj.weight"),
@@ -157,7 +201,8 @@ def hf_layer_maps(cfg: ModelConfig, fetch: _Fetch, i: int) -> Params:
         out["wq"] = q.T.reshape(D, H, hd)
         out["wk"] = k.T.reshape(D, KV, hd)
         out["wv"] = v.T.reshape(D, KV, hd)
-    out["wo"] = fetch(p + "self_attn.o_proj.weight").T.reshape(H, hd, D)   # [D, H*hd]
+    if "wo" not in pre:
+        out["wo"] = fetch(p + "self_attn.o_proj.weight").T.reshape(H, hd, D)   # [D, H*hd]
     if cfg.attention_bias:
         out["bq"] = fetch(p + "self_attn.q_proj.bias").reshape(H, hd)
         out["bk"] = fetch(p + "self_attn.k_proj.bias").reshape(KV, hd)
@@ -176,15 +221,32 @@ def hf_layer_maps(cfg: ModelConfig, fetch: _Fetch, i: int) -> Params:
         out["mlp_norm"] = fetch(p + "post_attention_layernorm.weight")
 
     # --- mlp ------------------------------------------------------------
-    if fetch.has(p + "mlp.gate_proj.weight"):
-        out["w_gate"] = fetch.linear(p + "mlp.gate_proj.weight")
-        out["w_up"] = fetch.linear(p + "mlp.up_proj.weight")
+    if {"w_gate", "w_up"} <= pre.keys():
+        pass
+    elif fetch.has(p + "mlp.gate_proj.weight"):
+        for name, proj in (("w_gate", "gate_proj"), ("w_up", "up_proj")):
+            if name not in pre:
+                out[name] = fetch.linear(p + f"mlp.{proj}.weight")
     else:
         g, u = torch.chunk(fetch(p + "mlp.gate_up_proj.weight"), 2, dim=0)   # phi3 [2F, D]
         out["w_gate"] = g.T
         out["w_up"] = u.T
-    out["w_down"] = fetch.linear(p + "mlp.down_proj.weight")
+    if "w_down" not in pre:
+        out["w_down"] = fetch.linear(p + "mlp.down_proj.weight")
     return out
+
+
+def awq_sources(cfg: ModelConfig) -> dict:
+    """The decoder's weight name -> (HF linear in a layer, logical output
+    axes) of every tensor an AWQ checkpoint may store packed 1:1."""
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {"wq": ("self_attn.q_proj.weight", (H, hd)),
+            "wk": ("self_attn.k_proj.weight", (KV, hd)),
+            "wv": ("self_attn.v_proj.weight", (KV, hd)),
+            "wo": ("self_attn.o_proj.weight", (cfg.hidden_size,)),
+            "w_gate": ("mlp.gate_proj.weight", (cfg.intermediate_size,)),
+            "w_up": ("mlp.up_proj.weight", (cfg.intermediate_size,)),
+            "w_down": ("mlp.down_proj.weight", (cfg.hidden_size,))}
 
 
 def checkpoint_quantization(model_dir) -> Optional[dict]:
@@ -227,8 +289,11 @@ def load_hf_params(cfg: ModelConfig, model_dir, device="cuda", dtype: Optional[s
     layouts of ``params_from_numpy`` of the JAX ``init_params``, the values
     of the JAX ``load_hf_params`` bit for bit. With ``quantization="int8"``,
     or from an fp8 checkpoint, the matmul weights are int8 ``QTensor``s
-    with the JAX loader's bytes and scales. Raises NotImplementedError for
-    MoE, vision and AWQ checkpoints, ValueError for an unknown
+    with the JAX loader's bytes and scales; from an AWQ checkpoint, the
+    linears stored packed are ``GroupQTensor``s (stacked on the device a
+    layer at a time) and the rest int8 ``QTensor``s, with the JAX loader's
+    bytes. Raises NotImplementedError for MoE and vision checkpoints,
+    ValueError for an unknown
     ``quantization`` or one the checkpoint is not, FileNotFoundError for a
     directory without ``*.safetensors``, KeyError for a missing tensor."""
     if quantization not in SUPPORTED_QUANTIZATIONS:
@@ -246,20 +311,33 @@ def load_hf_params(cfg: ModelConfig, model_dir, device="cuda", dtype: Optional[s
         if found != quantization:
             raise ValueError(f"quantization={quantization!r} requested but the checkpoint at "
                              f"{model_dir} is {found or 'full-precision'}")
-    if quant is not None and quant["method"] == "awq":
-        raise NotImplementedError(
-            f"{model_dir}: pre-quantized AWQ checkpoints are served natively as grouped int4 "
-            f"(GroupQTensor, group_qeinsum), which needs a grouped W4A16 kernel the port "
-            f"does not have yet")
-    # an fp8 checkpoint always serves int8 (its weights are 8-bit already)
+    # a pre-quantized checkpoint always serves quantized weights (its
+    # weights are 8-bit or fewer already)
     quantize_now = quantization == "int8" or quant is not None
+    awq_native = quant is not None and quant["method"] == "awq"
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     fetch = _Fetch(open_dir(model_dir), dev, quant)
     L = cfg.num_layers
     layers: Params = {}
     for i in range(L):
-        for name, w in hf_layer_maps(cfg, fetch, i).items():
+        # grouped tensors FIRST, so the layer map never dequantizes them
+        pre: Params = {}
+        if awq_native:
+            for name, (src, out_shape) in awq_sources(cfg).items():
+                g = fetch.grouped(f"model.layers.{i}.{src}", out_shape)
+                if g is not None:
+                    pre[name] = g
+        for name, w in hf_layer_maps(cfg, fetch, i, preloaded=pre).items():
+            if isinstance(w, GroupQTensor):
+                if name not in layers:
+                    layers[name] = GroupQTensor(
+                        *(torch.empty((L, *t.shape), dtype=t.dtype, device=dev)
+                          for t in (w.data, w.scale, w.zero_scaled)), w.out_shape, w.packed)
+                for dst, src in ((layers[name].data, w.data), (layers[name].scale, w.scale),
+                                 (layers[name].zero_scaled, w.zero_scaled)):
+                    dst[i].copy_(src)
+                continue
             if quantize_now and name in _LAYER_REDUCE_AXES:
                 # from the value as fetched (f32 for fp8), before any cast
                 axes = tuple(a - 1 for a in reduce_axes_for(name, w.dim() + 1))

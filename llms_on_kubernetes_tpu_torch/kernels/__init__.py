@@ -45,7 +45,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_prefill", "paged_decode", "paged_decode_int8", "paged_write_window",
-           "w8_matmul")
+           "w8_matmul", "w4_matmul")
 # no --use_fast_math: the int8 kernels' quantization (csrc/quantize.cuh)
 # needs IEEE division to store the bytes engine/cache.quantize_kv stores
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -71,10 +71,12 @@ _SIGNATURES = {
                           [_P] * 12 + [_I] * 8 + [_F, _I, _F, _I, _I, _P]),
     "paged_write_window": ("llmk_paged_write_window", [_P] * 9 + [_I] * 9 + [_P]),
     "w8_matmul": ("llmk_w8_matmul", [_P] * 4 + [_I] * 4 + [_P]),
+    "w4_matmul": ("llmk_w4_matmul", [_P] * 6 + [_I] * 6 + [_P]),
 }
 # further C entries of a kernel library: name -> (library, symbol, argtypes)
 _EXTRA_ENTRIES = {
     "w8_splits": ("w8_matmul", "llmk_w8_splits", [_I, _I]),   # the K split's slice count
+    "w4_splits": ("w4_matmul", "llmk_w4_splits", [_I, _I, _I]),
 }
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()

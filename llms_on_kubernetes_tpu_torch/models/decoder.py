@@ -11,10 +11,16 @@ per-layer-local page table is offset by ``layer * P``.
 
 The projections are plain ``torch.matmul`` (the JAX package leaves them
 to XLA); an int8 ``QTensor`` weight (``ops/quant.py``) goes through the
-W8A16 kernel instead, and the embedding and LM head stay unquantized, as
-in the JAX decoder. Attention goes through ``ops/attention``'s dispatchers: the CUDA
-kernels for CUDA tensors, the plain versions for CPU tensors. The pools
-pass through as ``KVPool``s; an int8 pool carries its per-token scales,
+W8A16 kernel instead, a grouped int4 ``GroupQTensor`` (an AWQ checkpoint)
+through the W4A16 kernel, and the embedding and LM head stay unquantized,
+as in the JAX decoder. Multi-tenant LoRA (``ops/lora.py``): a layer whose
+params hold a ``lora_<name>`` stack adds each row's adapter delta to that
+projection (``adapter_idx [B]``, the row's slot, -1 = the base model),
+in float32, cast to the base's dtype, as the JAX ``lora_qeinsum``; without
+stacks the forward is exactly the adapter-free one. Attention goes
+through ``ops/attention``'s dispatchers: the CUDA kernels for CUDA
+tensors, the plain versions for CPU tensors. The pools pass through as
+``KVPool``s; an int8 pool carries its per-token scales,
 prefill attends over the fresh, unquantized K/V and stores them quantized
 (as the JAX decoder does), and decode goes to the int8 kernels. The chunk
 pass (``forward_chunk``) appends with the window kernels
@@ -25,7 +31,7 @@ position's logits to the next token's logprob and the top-k. The verify
 pass (``forward_verify``, speculative decoding) is the chunk pass with the
 logits of every window position.
 
-Not ported yet: LoRA, MoE, vision.
+Not ported yet: MoE, vision.
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ from llms_on_kubernetes_tpu_torch.ops.attention import (
 )
 from llms_on_kubernetes_tpu_torch.ops.norms import rms_norm
 from llms_on_kubernetes_tpu_torch.ops.paged_write import dispatch_write_window
-from llms_on_kubernetes_tpu_torch.ops.quant import QTensor, w8_matmul
+from llms_on_kubernetes_tpu_torch.ops.lora import lora_delta_flat
+from llms_on_kubernetes_tpu_torch.ops.quant import GroupQTensor, QTensor, w4_matmul, w8_matmul
 from llms_on_kubernetes_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 Params = dict[str, Any]
@@ -140,25 +147,42 @@ def _inv_freq(cfg: ModelConfig, device: torch.device, local: bool) -> torch.Tens
     return torch.from_numpy(freqs).to(device)
 
 
-def _proj(x: torch.Tensor, w, n_in: int) -> torch.Tensor:
-    """``x [..., in]`` times a weight whose first ``n_in`` axes are the
+def _proj(x: torch.Tensor, w, n_in: int, lora=None, adapter_idx=None) -> torch.Tensor:
+    """``x [B, ..., in]`` times a weight whose first ``n_in`` axes are the
     input (flattened) and the rest the output (kept). An int8 ``QTensor``
-    goes through ``ops/quant.w8_matmul`` (the W8A16 kernel on a card)."""
-    in_shape, out_shape = w.shape[:n_in], w.shape[n_in:]
-    K, N = math.prod(in_shape), math.prod(out_shape)
+    goes through ``ops/quant.w8_matmul`` (the W8A16 kernel on a card), a
+    ``GroupQTensor`` (its logical input axis is one, ``in`` flattened)
+    through ``ops/quant.w4_matmul`` (the W4A16 kernel). With a ``lora``
+    stack (one layer's) and ``adapter_idx [B]``, each row's adapter delta
+    is added in float32 and the sum cast to the base's dtype."""
     lead = x.shape[:x.dim() - n_in]
-    if isinstance(w, QTensor):
-        y = w8_matmul(x.reshape(-1, K), w.data.reshape(K, N), w.scale.reshape(N))
+    if isinstance(w, GroupQTensor):
+        out_shape = w.out_shape
+        K, N = x.shape[x.dim() - n_in:].numel(), math.prod(out_shape)
+        y = w4_matmul(x.reshape(-1, K), w.data, w.scale, w.zero_scaled, w.packed)
         y = y.reshape(*lead, N)
     else:
-        y = torch.matmul(x.reshape(*lead, K), w.reshape(K, N))
+        in_shape, out_shape = w.shape[:n_in], w.shape[n_in:]
+        K, N = math.prod(in_shape), math.prod(out_shape)
+        if isinstance(w, QTensor):
+            y = w8_matmul(x.reshape(-1, K), w.data.reshape(K, N), w.scale.reshape(N))
+            y = y.reshape(*lead, N)
+        else:
+            y = torch.matmul(x.reshape(*lead, K), w.reshape(K, N))
+    if lora is not None and adapter_idx is not None:
+        y = (y.float() + lora_delta_flat(x, lora, adapter_idx, n_in)).to(y.dtype)
     return y.reshape(*y.shape[:-1], *out_shape)
 
 
-def _qkv(lp: Params, cfg: ModelConfig, h: torch.Tensor):
-    q = _proj(h, lp["wq"], 1)            # [B, T, H, hd]
-    k = _proj(h, lp["wk"], 1)            # [B, T, KV, hd]
-    v = _proj(h, lp["wv"], 1)
+def _lproj(lp: Params, name: str, x: torch.Tensor, n_in: int, adapter_idx) -> torch.Tensor:
+    """``_proj`` of layer weight ``name`` with its LoRA stack, if any."""
+    return _proj(x, lp[name], n_in, lp.get("lora_" + name), adapter_idx)
+
+
+def _qkv(lp: Params, cfg: ModelConfig, h: torch.Tensor, adapter_idx=None):
+    q = _lproj(lp, "wq", h, 1, adapter_idx)            # [B, T, H, hd]
+    k = _lproj(lp, "wk", h, 1, adapter_idx)            # [B, T, KV, hd]
+    v = _lproj(lp, "wv", h, 1, adapter_idx)
     if cfg.attention_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -169,21 +193,22 @@ def _qkv(lp: Params, cfg: ModelConfig, h: torch.Tensor):
     return q, k, v
 
 
-def _mlp(lp: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    gate = _act(cfg)(_proj(h, lp["w_gate"], 1))
-    up = _proj(h, lp["w_up"], 1)
-    return _proj(gate * up, lp["w_down"], 1)
+def _mlp(lp: Params, cfg: ModelConfig, h: torch.Tensor, adapter_idx=None) -> torch.Tensor:
+    gate = _act(cfg)(_lproj(lp, "w_gate", h, 1, adapter_idx))
+    up = _lproj(lp, "w_up", h, 1, adapter_idx)
+    return _lproj(lp, "w_down", gate * up, 1, adapter_idx)
 
 
 def _layer_step(cfg: ModelConfig, inv_freq, page_table, positions, write_positions,
                 lengths, mode: str, x, lp: Params, k_pages, v_pages,
-                window: Optional[int], kv_write: str = "dus", workspace=None):
+                window: Optional[int], kv_write: str = "dus", workspace=None,
+                adapter_idx=None):
     """One transformer layer. ``page_table`` holds GLOBAL page ids (the
     caller added this layer's block offset); the pools are updated in
     place. Returns the new residual stream."""
     scale = (cfg.query_pre_attn_scalar or cfg.head_dim) ** -0.5
     h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
-    q, k, v = _qkv(lp, cfg, h)
+    q, k, v = _qkv(lp, cfg, h, adapter_idx)
     q, k = apply_rope(q, k, positions, inv_freq)
     if mode == "decode":
         attn = dispatch_paged_attention_write(
@@ -205,12 +230,12 @@ def _layer_step(cfg: ModelConfig, inv_freq, page_table, positions, write_positio
         attn = dispatch_prefill_attention(q, k, v, lengths, scale=scale,
                                           sliding_window=window,
                                           attn_softcap=cfg.attn_softcap)
-    out = _proj(attn, lp["wo"], 2)
+    out = _lproj(lp, "wo", attn, 2, adapter_idx)
     if cfg.post_norms:
         out = rms_norm(out, lp["attn_post_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
     x = x + out
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
-    m = _mlp(lp, cfg, h)
+    m = _mlp(lp, cfg, h, adapter_idx)
     if cfg.post_norms:
         m = rms_norm(m, lp["mlp_post_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
     return x + m
@@ -218,7 +243,7 @@ def _layer_step(cfg: ModelConfig, inv_freq, page_table, positions, write_positio
 
 def _run_layers(cfg: ModelConfig, params: Params, x, k_pages, v_pages, page_table,
                 positions, write_positions, lengths, mode: str, kv_write: str = "dus",
-                workspace=None):
+                workspace=None, adapter_idx=None):
     kd = getattr(k_pages, "data", k_pages)
     pages_per_layer = kd.shape[1] // cfg.num_layers
     inv_freq = _inv_freq(cfg, x.device, False)
@@ -236,7 +261,7 @@ def _run_layers(cfg: ModelConfig, params: Params, x, k_pages, v_pages, page_tabl
         lp = {name: w[idx] for name, w in layers.items()}
         x = _layer_step(cfg, freqs, page_table + idx * pages_per_layer, positions,
                         write_positions, lengths, mode, x, lp, k_pages, v_pages,
-                        window, kv_write, workspace)
+                        window, kv_write, workspace, adapter_idx)
     return x
 
 
@@ -274,17 +299,19 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                    lengths: torch.Tensor, k_pages, v_pages, page_table: torch.Tensor):
+                    lengths: torch.Tensor, k_pages, v_pages, page_table: torch.Tensor,
+                    adapter_idx: Optional[torch.Tensor] = None):
     """Process whole prompts: tokens [B, T] (a padded bucket), lengths [B]
     int32 (0 => inactive row), page_table [B, pages_per_seq] per-layer-local
-    ids. Writes the prompts' KV into the pools in place and returns
+    ids; adapter_idx [B] int32 each row's LoRA slot (-1: base; None: no
+    adapters). Writes the prompts' KV into the pools in place and returns
     (last-token logits [B, V] float32, k_pages, v_pages)."""
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device, dtype=torch.int32).expand(B, T)
     write_positions = torch.where(positions < lengths[:, None], positions, -1)
     x = _embed(params, cfg, tokens)
     x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions,
-                    write_positions, lengths, "prefill")
+                    write_positions, lengths, "prefill", adapter_idx=adapter_idx)
     last = (lengths.long() - 1).clamp(0, T - 1)
     x_last = x[torch.arange(B, device=x.device), last]
     return _logits(params, cfg, x_last), k_pages, v_pages
@@ -350,7 +377,8 @@ def forward_score(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    lengths: torch.Tensor, k_pages, v_pages, page_table: torch.Tensor,
-                   kv_write: str = "dus", workspace=None):
+                   kv_write: str = "dus", workspace=None,
+                   adapter_idx: Optional[torch.Tensor] = None):
     """One decode step for every slot: tokens [B], lengths [B] int32
     INCLUDING the new token (0 => idle slot). Appends each active slot's KV
     in place (``kv_write`` "dus": ``write_tokens`` then the decode kernel;
@@ -362,13 +390,13 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens[:, None])
     x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions,
                     write_positions, lengths, "decode", kv_write=kv_write,
-                    workspace=workspace)
+                    workspace=workspace, adapter_idx=adapter_idx)
     return _logits(params, cfg, x[:, 0]), k_pages, v_pages
 
 
 def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   history: torch.Tensor, lengths: torch.Tensor, k_pages, v_pages,
-                  page_table: torch.Tensor):
+                  page_table: torch.Tensor, adapter_idx: Optional[torch.Tensor] = None):
     """Chunked prefill: one chunk of a prompt whose earlier tokens are
     already in the paged cache (earlier chunks, or an adopted cached
     prefix). tokens [B, T] (a padded chunk); history [B] int32, the tokens
@@ -383,7 +411,7 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens)
     # the window write takes (history, lengths), not per-row write positions
     x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions, None,
-                    lengths, "chunk")
+                    lengths, "chunk", adapter_idx=adapter_idx)
     last = (lengths.long() - 1).clamp(0, T - 1)
     x_last = x[torch.arange(B, device=x.device), last]
     return _logits(params, cfg, x_last), k_pages, v_pages
@@ -391,7 +419,7 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def forward_verify(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    history: torch.Tensor, lengths: torch.Tensor, k_pages, v_pages,
-                   page_table: torch.Tensor):
+                   page_table: torch.Tensor, adapter_idx: Optional[torch.Tensor] = None):
     """The speculative-decoding verify pass (the JAX ``forward_verify``):
     ``forward_chunk`` over a short candidate window, returning the logits
     at EVERY window position. tokens [B, T] (the committed token, then the
@@ -409,7 +437,7 @@ def forward_verify(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = history[:, None] + offs
     x = _embed(params, cfg, tokens)
     x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions, None,
-                    lengths, "chunk")
+                    lengths, "chunk", adapter_idx=adapter_idx)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
     logits = _logits(params, cfg, x.reshape(B * T, -1), normed=True)
     return logits.reshape(B, T, -1), k_pages, v_pages

@@ -373,6 +373,25 @@ def engine_metrics(registry: Registry) -> dict:
             "low ratio on steady traffic means the drafter does not fit "
             "the workload — the engine demotes drafting adaptively)",
             registry),
+        "adapter_cache_hits": Counter(
+            "llm_adapter_cache_hits_total",
+            "LoRA adapter requests that found their adapter already "
+            "resident in a device slot", registry),
+        "adapter_cache_misses": Counter(
+            "llm_adapter_cache_misses_total",
+            "LoRA adapter requests that had to load/upload their adapter "
+            "into a device slot", registry),
+        "adapter_cache_evictions": Counter(
+            "llm_adapter_cache_evictions_total",
+            "Resident LoRA adapters evicted from a device slot to make "
+            "room (sustained high rate = cache thrash; add slots)",
+            registry),
+        "adapter_load": Histogram(
+            "llm_adapter_load_seconds",
+            "LoRA adapter load+upload latency on a cache miss "
+            "(host-cached reloads are upload-only)",
+            (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0, 60.0),
+            registry),
         "auto_profile": Counter(
             "llm_auto_profile_total",
             "Automatic bounded profiler captures triggered by the "

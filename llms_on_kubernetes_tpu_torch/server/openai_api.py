@@ -160,7 +160,8 @@ import torch
 
 from llms_on_kubernetes_tpu_torch import __version__, faults, kernels, resolve_device
 from llms_on_kubernetes_tpu_torch.engine.engine import (
-    Engine, EngineConfig, EngineStallError, QueueFullError, SamplingParams, model_config_for,
+    Engine, EngineConfig, EngineStallError, QueueFullError, SamplingParams, UnknownAdapterError,
+    model_config_for,
 )
 from llms_on_kubernetes_tpu_torch.engine.grammar import (
     GrammarError, compile_response_format, compile_tool_choice, token_bytes_of,
@@ -218,6 +219,16 @@ CACHE_DIGESTS_HEADER = "X-LLMK-Cache-Digests"
 CACHE_DIGESTS_MAX = 32
 # a kv fetch names at most this many pages
 KV_FETCH_MAX_DIGESTS = 4096
+
+
+def _adapter_from_model(model) -> Optional[str]:
+    """Multi-tenant naming (the JAX server's): ``model="base:adapter"``
+    addresses a LoRA adapter of the served base model; a name without a
+    colon is the base model. The adapter is everything after the FIRST
+    colon (adapter names cannot hold one)."""
+    if isinstance(model, str) and ":" in model:
+        return model.split(":", 1)[1]
+    return None
 
 
 def chip_ms_total(reqs) -> dict:
@@ -511,13 +522,20 @@ class EngineLoop(threading.Thread):
         self._tenant_admitted_seen: dict = {}
         self._host_kv_seen = {"hits": 0, "misses": 0, "evictions": 0}
         self._spec_seen = {"drafted": 0, "accepted": 0}
+        self._adapter_seen = {"hits": 0, "misses": 0, "evictions": 0}
+
+    def _mlabel(self, r) -> str:
+        """The per-request model label: ``base:adapter`` for a LoRA
+        request, so the latency series separate by tenant model."""
+        return f"{self.model_name}:{r.adapter}" if r.adapter else self.model_name
 
     def submit(self, prompt, params, on_event, deadline: Optional[float] = None,
                request_id: Optional[str] = None, tenant: Optional[str] = None,
-               priority: Optional[str] = None, handoff: bool = False):
+               priority: Optional[str] = None, handoff: bool = False,
+               adapter: Optional[str] = None):
         req = self.engine.submit(prompt, params, request_id=request_id, on_event=on_event,
                                  deadline=deadline, tenant=tenant, priority=priority,
-                                 handoff=handoff)
+                                 handoff=handoff, adapter=adapter)
         if self.metrics:
             self.metrics["requests_total"].inc()
             self.metrics["prompt_tokens"].inc(len(req.prompt))
@@ -671,12 +689,21 @@ class EngineLoop(threading.Thread):
             self._spec_seen["accepted"] = accepted
         if drafted > 0:
             m["spec_accept_ratio"].set(accepted / drafted)
+        adp = eng.adapters
+        if adp is not None:
+            for k, seen in self._adapter_seen.items():
+                v = adp.stats[k]
+                if v > seen:
+                    m["adapter_cache_" + k].inc(v - seen)
+                    self._adapter_seen[k] = v
+            while adp.load_times:
+                m["adapter_load"].observe(adp.load_times.pop(0))
         for ev in events:
             m["tokens_generated"].inc(len(ev.new_tokens))
             r = ev.request
             if ev.finished:
                 m["requests_finished"].inc()
-                m["e2e_latency"].labels(model=self.model_name).observe(
+                m["e2e_latency"].labels(model=self._mlabel(r)).observe(
                     (r.finished_at or time.monotonic()) - r.submitted_at)
             if ev.finished and ev.finish_reason == "timeout":
                 # queue: shed before it was ever seated; decode: aborted
@@ -684,7 +711,7 @@ class EngineLoop(threading.Thread):
                     phase="queue" if r.admitted_at is None else "decode").inc()
             if r.first_token_at and r.id not in self._ttft_seen:
                 self._ttft_seen.add(r.id)
-                m["ttft"].labels(model=self.model_name).observe(
+                m["ttft"].labels(model=self._mlabel(r)).observe(
                     r.first_token_at - r.submitted_at)
             if ev.finished:
                 self._ttft_seen.discard(r.id)
@@ -713,6 +740,11 @@ class EngineLoop(threading.Thread):
                 log.warning("auto profile failed:\n%s", traceback.format_exc())
 
         threading.Thread(target=cap, daemon=True, name="auto-profile").start()
+
+
+# the longest close() waits for a profile capture in progress to end (an
+# anomaly capture lasts LLMK_ANOMALY_CAPTURE_MS, 2 s by default)
+CLOSE_CAPTURE_WAIT_S = 30.0
 
 
 class OpenAIServer:
@@ -792,9 +824,10 @@ class OpenAIServer:
             elif isinstance(x, (list, tuple)):
                 for v in x:
                     add(v)
-            elif hasattr(x, "data") and hasattr(x, "scale"):     # an int8 QTensor
-                add(x.data)
-                add(x.scale)
+            elif hasattr(x, "data") and hasattr(x, "scale"):     # a QTensor or GroupQTensor
+                add((x.data, x.scale, getattr(x, "zero_scaled", None)))
+            elif hasattr(x, "a") and hasattr(x, "b"):             # a LoRAStack
+                add((x.a, x.b))
 
         add(eng.params)
         add((eng.k_pages, eng.v_pages, eng.token_counts))
@@ -926,11 +959,24 @@ class OpenAIServer:
                 self._thread.join(timeout=10)
             self.httpd.server_close()
             self.httpd = None
+        # a capture in progress (one asked for, or the anomaly detector's)
+        # stops the profiler through the engine loop: let it end first, else
+        # the stop runs off the engine thread, leaks the thread's profiler
+        # callbacks and the process can crash at exit
+        deadline = time.monotonic() + CLOSE_CAPTURE_WAIT_S
+        while self.profiles.busy and time.monotonic() < deadline:
+            time.sleep(0.01)
         self.loop.stop()
         if self.loop.is_alive():
             self.loop.join(timeout=10)
         if self.exporter is not None:
             self.exporter.close()
+
+    def resp_model(self, reqs) -> str:
+        """A response's ``model`` field: ``base:adapter`` for a LoRA
+        request (every choice of one HTTP request shares its adapter)."""
+        a = reqs[0].adapter if reqs else None
+        return f"{self.model_name}:{a}" if a else self.model_name
 
     def prefix_filter_doc(self) -> Optional[dict]:
         """The serialized bloom filter of the prefix cache's page digests
@@ -1464,10 +1510,14 @@ class _Handler(BaseHTTPRequestHandler):
         elif path == "/version":
             self._json(200, {"version": __version__})
         elif path == "/v1/models":
+            # each served LoRA adapter is addressable as its own model id
+            ids = [app.model_name]
+            if app.engine.adapters is not None:
+                ids += [f"{app.model_name}:{a}" for a in app.engine.adapters.names()]
+            created = int(time.time())
             self._json(200, {"object": "list", "data": [{
-                "id": app.model_name, "object": "model",
-                "created": int(time.time()),
-                "owned_by": "llms-on-kubernetes-tpu-torch"}]})
+                "id": mid, "object": "model", "created": created,
+                "owned_by": "llms-on-kubernetes-tpu-torch"} for mid in ids]})
         elif path == "/debug/traces":
             # newest first; span times in ms from the request's arrival
             self._json(200, {"traces": app.traces.snapshot(
@@ -1737,6 +1787,9 @@ class _Handler(BaseHTTPRequestHandler):
             self._bad_request(e)
             return
         stops = _parse_stops(body)
+        adapter = _adapter_from_model(body.get("model"))
+        if adapter:
+            trace.model = f"{app.model_name}:{adapter}"
         # the QoS identity (the routers resolve it the same way and forward
         # the class): the body's user, else its model; an invalid header
         # falls through to the engine's per-tenant config
@@ -1782,7 +1835,7 @@ class _Handler(BaseHTTPRequestHandler):
                     req = app.loop.submit(
                         prompt, p, lambda payload, idx=idx: events.put((idx, payload)),
                         deadline=deadline, request_id=eng_id, tenant=tenant,
-                        priority=priority, handoff=want_ticket)
+                        priority=priority, handoff=want_ticket, adapter=adapter)
                     req.trace = trace
                     trace.engine_reqs.append(req)
                     reqs.append(req)
@@ -1790,6 +1843,12 @@ class _Handler(BaseHTTPRequestHandler):
             self._abort_all(reqs)
             self._error(503, str(e), "service_unavailable", "engine_stalled",
                         {"Retry-After": "30"})
+            return
+        except UnknownAdapterError as e:
+            # a 404, never a silent fallback: a mistyped adapter name must
+            # not be served the base model's weights
+            self._abort_all(reqs)
+            self._error(404, str(e), "invalid_request_error", "adapter_not_found")
             return
         except QueueFullError as e:
             self._abort_all(reqs)
@@ -2001,7 +2060,8 @@ class _Handler(BaseHTTPRequestHandler):
             headers[CHIP_MS_HEADER] = str(round(sum(chip.values()), 3))
         self._json(200, {
             "id": rid, "object": "chat.completion" if chat else "text_completion",
-            "created": created, "model": app.model_name, "choices": out,
+            "created": created, "model": app.resp_model([c.req for c in choices]),
+            "choices": out,
             "usage": usage}, headers)
 
     def _stream(self, choices, events, rid, created, chat, prompts, nlp, include_usage,
@@ -2017,6 +2077,7 @@ class _Handler(BaseHTTPRequestHandler):
         id, name and arguments; a choice that made a call finishes
         "tool_calls"."""
         app = self.app
+        model = app.resp_model([c.req for c in choices])
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
         self.send_header("Cache-Control", "no-cache")
@@ -2056,7 +2117,7 @@ class _Handler(BaseHTTPRequestHandler):
                 if nlp and ents:
                     choice["logprobs"] = app.completion_logprobs(ents, nlp, base_offset)
             return {"id": rid, "object": obj, "created": created,
-                    "model": app.model_name, "choices": [choice]}
+                    "model": model, "choices": [choice]}
 
         ka_stop = threading.Event()
         keep_s = keepalive_interval_s()
@@ -2133,7 +2194,7 @@ class _Handler(BaseHTTPRequestHandler):
                     if chip:
                         usage["chip_ms"] = {ph: round(v, 3) for ph, v in chip.items()}
                     write({"id": rid, "object": obj, "created": created,
-                           "model": app.model_name, "choices": [], "usage": usage})
+                           "model": model, "choices": [], "usage": usage})
                 write("[DONE]")
         finally:
             ka_stop.set()

@@ -2,7 +2,7 @@
 model, at its full width, with cheap deterministic values.
 
     python -m llms_on_kubernetes_tpu_torch.testing.synth_checkpoint phi-3-mini OUT_DIR \
-        [--fp8] [--tokenizer llama3|phi3]
+        [--fp8 | --awq] [--tokenizer llama3|phi3]
 
 Neither machine this repository runs on can download the published
 weights, so the card's run serves a checkpoint this module writes: the
@@ -21,6 +21,16 @@ with a float32 ``weight_scale`` per output channel (``[out, 1]``, amax /
 checkpoint dtype, and a ``quantization_config`` in ``config.json``. The
 fp8 codes are PyTorch's float8_e4m3fn rounding of the pattern over its
 scale (``fp8_value``).
+
+``quantization="awq"`` writes an AWQ checkpoint as ``Qwen/Qwen3-8B-AWQ``
+ships one: each decoder-layer linear as ``qweight`` int32 ``[in, out/8]``
+(eight 4-bit values a word in AWQ's nibble interleave), ``qzeros`` int32
+``[G, out/8]`` and ``scales`` float16 ``[G, out]`` for G groups of
+``group_size`` input rows, with the ``quantization_config`` that
+checkpoint publishes (``awq_quantization_config``). The words are seeded
+random payloads (``awq_value``): every nibble 0..15, zero points 6..9,
+scales about ``1 / (4.6 sqrt(in))``, so a dequantized weight has the
+spread of a trained one.
 
 Values are a pattern, not draws: 65,536 normal values from ``seed``,
 rotated by a hash of the tensor's name, tiled over its shape and scaled by
@@ -220,6 +230,50 @@ def _fp8_linear(name: str, kind: str) -> bool:
     return kind == "linear" and name.startswith("model.layers.")
 
 
+def awq_quantization_config(group_size: int = 128) -> dict:
+    """The ``quantization_config`` of an AWQ "gemm" checkpoint (the one
+    ``Qwen/Qwen3-8B-AWQ`` publishes, at its group size 128)."""
+    return {"quant_method": "awq", "bits": 4, "group_size": group_size, "version": "gemm",
+            "zero_point": True}
+
+
+def awq_pack(nibbles: np.ndarray) -> np.ndarray:
+    """``[r, c]`` values 0..15 -> ``[r, c/8]`` int32 words in AWQ's
+    interleave (the inverse of ``ops/quant._awq_unpack``): bits [4k, 4k+4)
+    of word j hold column 8j + _AWQ_ORDER[k]."""
+    from llms_on_kubernetes_tpu_torch.ops.quant import _AWQ_ORDER
+
+    r, c = nibbles.shape
+    v = nibbles.astype(np.uint32).reshape(r, c // 8, 8)
+    out = np.zeros((r, c // 8), np.uint32)
+    for k, o in enumerate(_AWQ_ORDER):
+        out |= v[:, :, o] << np.uint32(4 * k)
+    return out.view(np.int32)
+
+
+def awq_value(cfg: ModelConfig, name: str, shape: tuple, seed: int = 0,
+              group_size: int = 128) -> tuple:
+    """(qweight int32 ``[in, out/8]``, qzeros int32 ``[G, out/8]``, scales
+    float16 ``[G, out]``) that an AWQ checkpoint holds for linear ``name``
+    of HF ``shape`` [out, in]: seeded random words (a rotated pattern of
+    65,536 of them, tiled), zero points 6..9 and scales near 1 / (4.6
+    sqrt(in))."""
+    out_f, in_f = shape
+    if in_f % group_size or out_f % 8:
+        raise ValueError(f"{name}: AWQ needs in % group_size == 0 and out % 8 == 0, got "
+                         f"{shape} with group {group_size}")
+    G = in_f // group_size
+    rng = np.random.default_rng(seed + 1)
+    words = rng.integers(0, 1 << 32, PATTERN, dtype=np.uint64).astype(np.uint32)
+    rot = zlib.crc32(name.encode()) % PATTERN
+    qweight = np.resize(np.roll(words, -rot), (in_f, out_f // 8)).view(np.int32)
+    small = np.roll(rng.integers(6, 10, PATTERN), -rot)
+    qzeros = awq_pack(np.resize(small, (G, out_f)))
+    u = np.roll(rng.uniform(0.8, 1.2, PATTERN), -rot)
+    scales = (np.resize(u, (G, out_f)) / (4.6 * np.sqrt(in_f))).astype(np.float16)
+    return qweight, qzeros, scales
+
+
 def _header(entries: list[tuple[str, tuple, str, int]]) -> bytes:
     """The file header over (name, shape, safetensors dtype, bytes an
     element) entries, in order."""
@@ -235,12 +289,15 @@ def _header(entries: list[tuple[str, tuple, str, int]]) -> bytes:
 
 def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16", seed: int = 0,
                      max_shard_bytes: int = 4 << 30, quantization: str = None,
-                     fp8_strategy: str = "channel", tokenizer: str = None) -> dict:
+                     fp8_strategy: str = "channel", tokenizer: str = None,
+                     group_size: int = 128) -> dict:
     """Write ``cfg`` as a HF checkpoint into ``out_dir`` (made if missing):
     ``config.json``, ``model-0000k-of-0000n.safetensors`` shards of at most
     ``max_shard_bytes`` (a tensor is never split) and
     ``model.safetensors.index.json``. ``quantization="fp8"``: the layers'
-    linears as fp8 with ``fp8_strategy`` scales (``fp8_value``).
+    linears as fp8 with ``fp8_strategy`` scales (``fp8_value``);
+    ``quantization="awq"``: as AWQ tensors in groups of ``group_size``
+    input rows (``awq_value``).
     ``tokenizer`` ("llama3" or "phi3"): also that family's tokenizer files
     (``write_tokenizer``), whose ids must fit ``cfg.vocab_size``. Returns
     the index."""
@@ -250,16 +307,23 @@ def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16",
             raise ValueError(f"the {tokenizer} tokenizer's ids reach {top}, past "
                              f"{cfg.name}'s vocabulary of {cfg.vocab_size}")
         write_tokenizer(out_dir, tokenizer)
-    if quantization not in (None, "fp8"):
-        raise ValueError(f"quantization must be None or 'fp8', got {quantization!r}")
+    if quantization not in (None, "fp8", "awq"):
+        raise ValueError(f"quantization must be None, 'fp8' or 'awq', got {quantization!r}")
     if fp8_strategy not in FP8_STRATEGIES:
         raise ValueError(f"fp8_strategy must be one of {FP8_STRATEGIES}, got {fp8_strategy!r}")
     st_dtype, elt = DTYPES[dtype]
     # (name, shape, kind, safetensors dtype, bytes an element); a linear of
-    # an fp8 checkpoint is its codes, then its scale
+    # an fp8 checkpoint is its codes, then its scale; of an AWQ checkpoint
+    # its qweight, qzeros and scales
     entries = []
     for name, shape, kind in tensor_specs(cfg):
-        if quantization == "fp8" and _fp8_linear(name, kind):
+        if quantization == "awq" and _fp8_linear(name, kind):
+            base_name = name[:-len("weight")]
+            G = shape[1] // group_size
+            entries += [(base_name + "qweight", (shape[1], shape[0] // 8), name, "I32", 4),
+                        (base_name + "qzeros", (G, shape[0] // 8), "awq_part", "I32", 4),
+                        (base_name + "scales", (G, shape[0]), "awq_part", "F16", 2)]
+        elif quantization == "fp8" and _fp8_linear(name, kind):
             sshape = (shape[0], 1) if fp8_strategy == "channel" else ()
             entries += [(name, shape, kind, "F8_E4M3", 1),
                         (name + "_scale", sshape, "fp8_scale", "F32", 4)]
@@ -268,7 +332,7 @@ def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16",
     shards, cur, size = [], [], 0
     for e in entries:
         n = int(np.prod(e[1])) * e[4]
-        if cur and size + n > max_shard_bytes and e[2] != "fp8_scale":
+        if cur and size + n > max_shard_bytes and e[2] not in ("fp8_scale", "awq_part"):
             shards.append(cur)
             cur, size = [], 0
         cur.append(e)
@@ -276,7 +340,7 @@ def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16",
     shards.append(cur)
     os.makedirs(out_dir, exist_ok=True)
     base = _base(seed)
-    weight_map, total, scale = {}, 0, None
+    weight_map, total, scale, awq_parts = {}, 0, None, []
     for k, shard in enumerate(shards):
         fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
         with open(os.path.join(out_dir, fname), "wb") as f:
@@ -284,6 +348,12 @@ def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16",
             for name, shape, kind, st, _n in shard:
                 if kind == "fp8_scale":
                     arr = scale                  # computed with its codes, just before
+                elif kind == "awq_part":
+                    arr = awq_parts.pop(0)       # computed with its qweight, just before
+                elif name.endswith(".qweight"):
+                    # the kind of a qweight entry is its HF .weight name
+                    out_f, in_f = shape[1] * 8, shape[0]
+                    arr, *awq_parts = awq_value(cfg, kind, (out_f, in_f), seed, group_size)
                 elif st == "F8_E4M3":
                     arr, scale = fp8_value(cfg, name, shape, kind, seed, base, fp8_strategy)
                 else:
@@ -297,6 +367,8 @@ def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16",
     hf = hf_config(cfg, dtype)
     if quantization == "fp8":
         hf["quantization_config"] = fp8_quantization_config(fp8_strategy)
+    elif quantization == "awq":
+        hf["quantization_config"] = awq_quantization_config(group_size)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(hf, f, indent=1)
     return index
@@ -587,11 +659,15 @@ def main(argv=None) -> int:
                                       "synth_checkpoint")
     ap.add_argument("model", help="a dense registry model")
     ap.add_argument("out_dir")
-    ap.add_argument("--fp8", action="store_true", help="a compressed-tensors fp8 checkpoint")
+    quant = ap.add_mutually_exclusive_group()
+    quant.add_argument("--fp8", action="store_true", help="a compressed-tensors fp8 checkpoint")
+    quant.add_argument("--awq", action="store_true",
+                       help="an AWQ checkpoint (4-bit, group 128, gemm packing)")
     ap.add_argument("--tokenizer", choices=TOKENIZER_FAMILIES, default=None,
                     help="also write this family's tokenizer.json and tokenizer_config.json")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
-    index = write_checkpoint(get_config(args.model), args.out_dir, quantization="fp8" if args.fp8 else None,
+    quantization = "fp8" if args.fp8 else "awq" if args.awq else None
+    index = write_checkpoint(get_config(args.model), args.out_dir, quantization=quantization,
                              tokenizer=args.tokenizer)
     print(f"{args.out_dir}: {len(index['weight_map'])} tensors, "
           f"{index['metadata']['total_size']} bytes")

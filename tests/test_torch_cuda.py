@@ -1696,3 +1696,137 @@ def test_gguf_upload_equals_the_host_values(cuda, tmp_path):
         if isinstance(w, tquant.QTensor):
             assert torch.equal(q_card["layers"][name].data.cpu(), w.data)
             assert torch.equal(q_card["layers"][name].scale.cpu(), w.scale)
+
+
+# ---------------------------------------------------------------------------
+# the W4A16 kernel (csrc/w4_matmul.cu), AWQ checkpoints and LoRA on the card
+# ---------------------------------------------------------------------------
+
+def _w4_inputs(rng, M, K, N, gs, dtype, packed=True):
+    x = _t(rng, M, K, dtype=dtype)
+    G = K // gs
+    vals = torch.from_numpy(rng.integers(-8, 8, size=(G, gs, N)).astype(np.int8))
+    data = (tquant.pack_int4_lanes(vals) if packed else vals).cuda()
+    s = (rng.uniform(0.8, 1.2, size=(G, N)) / (4.6 * np.sqrt(K))).astype(np.float32)
+    z = rng.integers(6, 10, size=(G, N)).astype(np.float32) - 8
+    return x, data, torch.from_numpy(s).cuda(), torch.from_numpy(s * z).cuda()
+
+
+# M on both row tilings (16-row blocks up to 16 rows, 64-row blocks above),
+# groups of 16 to 256 rows (past one 128-row chunk), N past a 64-column
+# tile; float32 at small K only (1e-4 is the summation order's error there)
+W4_SHAPES = [(dt, *shape, packed) for shape in [(1, 64, 32, 16), (5, 256, 48, 32),
+                                                (17, 256, 64, 128), (70, 384, 96, 128),
+                                                (300, 512, 160, 256)]
+             for dt in (torch.float32, torch.bfloat16) for packed in (True, False)]
+W4_SHAPES += [(torch.bfloat16, 8, 4096, 1024, 128, True),
+              (torch.bfloat16, 300, 4096, 12288, 128, True),
+              (torch.bfloat16, 64, 12288, 4096, 128, True)]
+
+
+@pytest.mark.parametrize("dtype,M,K,N,gs,packed", W4_SHAPES)
+def test_w4_matmul_matches_plain(cuda, dtype, M, K, N, gs, packed):
+    x, data, s, zs = _w4_inputs(cuda, M, K, N, gs, dtype, packed)
+    before = kernels.LAUNCHES["w4_matmul"]
+    out = tquant.w4_matmul(x, data, s, zs, packed)
+    ref = tquant.group_qeinsum_plain(x, data, s, zs, packed)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["w4_matmul"] == before + 1
+    assert out.dtype == dtype and tuple(out.shape) == (M, N)
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096)],
+                         ids=["wq/wo", "wk/wv", "w_gate/w_up", "w_down"])
+def test_w4_matmul_rows_do_not_depend_on_m(cuda, K, N):
+    """Batch invariance at Qwen3-8B's projections (group 128): rows alone
+    are bit for bit the rows of calls of 8, 17, 64, 256 and 4,096 rows
+    (both row tilings); packed and int8 storage give the same bits."""
+    x, data, s, zs = _w4_inputs(cuda, 4096, K, N, 128, torch.bfloat16)
+    calls = {M: tquant.w4_matmul(x[:M], data, s, zs, True) for M in (8, 17, 64, 256, 4096)}
+    for r in (0, 5, 37, 63):
+        one = tquant.w4_matmul(x[r:r + 1], data, s, zs, True)[0]
+        for M, out in calls.items():
+            if r < M:
+                assert torch.equal(one, out[r]), (r, M)
+    wide = tquant.unpack_int4_lanes(data).contiguous()
+    assert torch.equal(tquant.w4_matmul(x[:64], wide, s, zs, False), calls[64])
+
+
+def test_w4_splits_kernel_equals_the_mirror(cuda):
+    fn = kernels.function("w4_splits")
+    rng = np.random.default_rng(4)
+    shapes = [(4096, 4096, 128), (4096, 1024, 128), (4096, 12288, 128), (12288, 4096, 128)]
+    shapes += [(int(g) * gs, 16 * int(n), gs) for g, n, gs in zip(
+        rng.integers(1, 200, 200), rng.integers(1, 1000, 200),
+        rng.choice([16, 32, 64, 128, 256], 200))]
+    for K, N, gs in shapes:
+        assert fn(K, N, gs) == len(tquant.w4_splits(K, N, gs)), (K, N, gs)
+
+
+def test_w4_matmul_refuses_what_it_does_not_take(cuda):
+    x, data, s, zs = _w4_inputs(cuda, 8, 256, 64, 32, torch.bfloat16)
+    for args in ((x, data.cpu(), s, zs, True), (x[:, ::2], data, s, zs, True),
+                 (x.half(), data, s, zs, True), (x, data, s.double(), zs, True)):
+        with pytest.raises(ValueError):
+            tquant.w4_matmul(*args)
+    x24, d24, s24, z24 = _w4_inputs(cuda, 8, 240, 64, 24, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tquant.w4_matmul(x24, d24, s24, z24, True)
+
+
+def test_awq_checkpoint_loads_on_the_card_as_on_the_cpu(cuda, tmp_path):
+    """The loader's unpack on the card gives the CPU loader's bytes."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.weights import load_hf_params
+    from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import write_checkpoint
+
+    cfg = get_config("debug-tiny")
+    write_checkpoint(cfg, str(tmp_path), quantization="awq", group_size=32)
+    card = load_hf_params(cfg, str(tmp_path), device="cuda", quantization="awq")
+    host = load_hf_params(cfg, str(tmp_path), device="cpu", quantization="awq")
+    for name, w in host["layers"].items():
+        if isinstance(w, tquant.GroupQTensor):
+            for part in ("data", "scale", "zero_scaled"):
+                assert torch.equal(getattr(card["layers"][name], part).cpu(),
+                                   getattr(w, part)), (name, part)
+
+
+def test_lora_window_replays_equal_the_cpu_engine(cuda, tmp_path):
+    """A float32 debug-tiny engine with three adapters on two slots on the
+    card (every window a graph replay, uploads into the captured stacks)
+    gives the CPU engine's greedy streams, alone and in a mixed batch, and
+    captures no graph for an upload."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
+    from llms_on_kubernetes_tpu_torch.models.decoder import init_params
+    from llms_on_kubernetes_tpu_torch.testing.synth_adapter import write_peft
+
+    cfg = get_config("debug-tiny")
+    dirs = {f"ad{i}": write_peft(tmp_path / f"ad{i}", cfg, rank=2, alpha=16, seed=10 + i)
+            for i in range(3)}
+    kw = dict(model="debug-tiny", dtype="float32", max_decode_slots=4, page_size=16,
+              pages_per_slot=8, num_pages=33, prefill_buckets=(16,), adapters=dirs,
+              adapter_slots=2, adapter_rank=4)
+    host = init_params(cfg, seed=0, dtype="float32", device="cpu")
+    dev = {k: (v.cuda() if torch.is_tensor(v) else {n: t.cuda() for n, t in v.items()})
+           for k, v in host.items()}
+    cpu_eng = Engine(EngineConfig(**kw, device="cpu"), params=host)
+    card_eng = Engine(EngineConfig(**kw, device="cuda"), params=dev)
+
+    def captures():
+        return sum(kind.startswith("graph:") for kind, _s in kernels.COMPILES)
+
+    captured = captures()
+    sp = SamplingParams(temperature=0.0, max_tokens=8)
+    prompt = [3, 17, 9, 42, 7]
+    for a in (None, "ad0", "ad1", "ad2", "ad0"):
+        assert card_eng.generate(prompt, sp, adapter=a) == cpu_eng.generate(prompt, sp,
+                                                                             adapter=a), a
+    reqs = [card_eng.submit(prompt, sp, adapter=a) for a in ("ad1", None, "ad2")]
+    while any(not r.finished for r in reqs):
+        card_eng.step()
+    assert [r.output for r in reqs] == [cpu_eng.generate(prompt, sp, adapter=a)
+                                        for a in ("ad1", None, "ad2")]
+    assert card_eng.graph_replays > 0 and captures() == captured
+    assert card_eng.adapters.stats["evictions"] >= 2

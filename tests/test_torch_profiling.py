@@ -146,6 +146,40 @@ def test_a_capture_whose_loop_stops_still_stops_the_profiler(tmp_path, monkeypat
     assert not pm.busy
 
 
+def test_close_lets_a_running_capture_stop_on_the_engine_thread(tmp_path, monkeypatch):
+    """A server closed while a card capture runs (the anomaly detector's, on
+    its own thread) waits for it: the profiler starts and stops on the
+    engine loop's thread, and the capture completes."""
+    monkeypatch.setattr(torch.profiler, "profile", _FakeProfile)
+    monkeypatch.setenv("LLMK_PROFILE_DIR", str(tmp_path))
+    eng = Engine(EngineConfig(model="debug-tiny", dtype="float32", max_decode_slots=2,
+                              page_size=4, num_pages=32, pages_per_slot=8,
+                              prefill_buckets=(16,), device="cpu"))
+    server = OpenAIServer(eng, ByteTokenizer(), "debug-tiny")
+    server.start("127.0.0.1", 0)
+    server.profiles.device = "cuda"
+    out = {}
+
+    def capture():
+        try:
+            out["meta"] = server.profiles.capture(400)
+        except Exception as e:   # reported by the assertion below
+            out["error"] = e
+
+    th = threading.Thread(target=capture)
+    th.start()
+    deadline = time.monotonic() + 5
+    while not server.profiles.busy and time.monotonic() < deadline:
+        time.sleep(0.005)
+    server.close()
+    th.join(timeout=10)
+    assert "error" not in out and out["meta"]["source"] == "torch-profiler"
+    prof = _FakeProfile.made[-1]
+    assert [e for e, _t in prof.events] == ["start", "stop"]
+    assert {t for _e, t in prof.events} == {server.loop.name}
+    assert not server.loop.is_alive()
+
+
 def test_a_profiler_that_cannot_start_names_the_cause(tmp_path, monkeypatch):
     class Broken:
         def __init__(self, activities):

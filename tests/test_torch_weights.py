@@ -173,23 +173,12 @@ def test_moe_vision_and_quantized_checkpoints_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="MoE"):
         load_hf_params(cfg, str(tmp_path / "moe"), device="cpu")
 
-    from llms_on_kubernetes_tpu_torch.configs import get_config
-    from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import write_checkpoint
-
     vision_cfg = dict(model_type="gemma3", text_config=dict(COMMON, model_type="gemma3_text"),
                       vision_config=dict(hidden_size=16, intermediate_size=32,
                                          num_hidden_layers=1, num_attention_heads=2,
                                          image_size=16, patch_size=4))
     with pytest.raises(NotImplementedError, match="vision"):
         load_hf_params(from_hf_config(vision_cfg, name="mm"), str(tmp_path), device="cpu")
-
-    q_dir = tmp_path / "awq"
-    write_checkpoint(get_config("debug-tiny"), str(q_dir), dtype="float32")
-    hf_cfg = json.loads((q_dir / "config.json").read_text())
-    hf_cfg["quantization_config"] = {"quant_method": "awq", "bits": 4, "group_size": 128}
-    (q_dir / "config.json").write_text(json.dumps(hf_cfg))
-    with pytest.raises(NotImplementedError, match="pre-quantized"):
-        load_hf_params(get_config("debug-tiny"), str(q_dir), device="cpu")
 
 
 def test_missing_tensor_and_missing_files_raise(tmp_path):
