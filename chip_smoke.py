@@ -313,6 +313,30 @@ Phases, each fatal on failure:
    tokenizer and template (prompt_tokens the template's count), every
    window a graph replay, W8A16 7 x num_layers a forward (int8) or never
    (bf16).
+9. MoE (``phase_moe``): A, the expert kernel (``csrc/moe_experts.cu``)
+   against ``ops/moe.moe_experts_plain`` at qwen3-30b-a3b's widths (128
+   experts, D 2,048, F 768, bf16) at 1, 8, 64, 512 and 32,768 expert-major
+   rows routed by a random router (the bf16 row tolerance), three rows of
+   each alone equal to them bit for bit; timed (kernel, the same function
+   through ``torch._grouped_mm``, kernel) beside the plain version and the
+   bound of the bytes of the experts touched; kernels 1 and 2 at the
+   model's group of 8 (32 query on 4 KV heads) against their plain
+   versions, timed. B: qwen3-30b-a3b at full width and all 48 layers from
+   ``init_params`` on the card behind the default Engine (the card's free
+   memory before and what the process holds after the load): 8 greedy
+   streams of 64, every window a graph replay, the expert kernel 2 x 48
+   times a forward (decode launches all by replays), decode tok/s and
+   window device ms, then steady windows' device time split between the
+   experts, attention and the rest under torch.profiler. C: ``serve
+   --model qwen3-30b-a3b --random-weights`` with ``serve``'s own defaults
+   behind ``llkt-router``: a streamed chat through the router, 8 greedy
+   streams, the same launch checks, the two decode-window series of
+   ``/metrics``; ``/health`` seconds with the warm-up, then with
+   ``--no-warmup``. D: qwen3-30b-a3b cut to 2 layers at full width,
+   written as a Qwen3-MoE checkpoint (3.7 GB) by ``synth_checkpoint``
+   while A runs, loaded in process (layer 0's router and expert 5 held to
+   the file) and served from its directory: the server's 16 greedy ids
+   equal the in-process engine's, its logprobs within the bf16 tolerance.
 
 ``--profile`` stops after phase 2 and traces, under torch.profiler, one
 decode window of eight requests as the engine runs it (one CUDA graph
@@ -323,7 +347,8 @@ of a 1,500-token prompt, padded to its bucket and unpadded), with the pool
 of ``LLMK_KV_DTYPE`` (bf16 or int8); then the two windows again with int8
 weights;
 ``--kernels-only`` stops after phase 2; ``--spec-only`` runs phase 1 and
-phase 7 and stops, ``--awq-only`` phase 1 and phase 8 (no result).
+phase 7 and stops, ``--awq-only`` phase 1 and phase 8, ``--moe-only`` phase 1
+and phase 9 (no result).
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; before it, one ``{"kernels": [...]}`` JSON line, whose
@@ -331,7 +356,8 @@ gives them; before it, one ``{"kernels": [...]}`` JSON line, whose
 4's fused engines (3, 5) and phase 6's first int8 run at pace 3 (the
 W8A16 kernel), and ``launches_by_path`` from every path (phase 3's request
 surface and phase 4b's tier sessions, prefill and decode replicas and
-drills among them, phase 7's verify and draft paths and GGUF servers).
+drills among them, phase 7's verify and draft paths and GGUF servers); the
+expert kernel's ``launches`` come from phase 9 C's server.
 The last line is ``{"ok": true, "device": {...}}``, printed only when
 every phase passed.
 Without a CUDA device, or outside a checkout, it exits non-zero first.
@@ -372,6 +398,10 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 REPS = 20
 OUT_DIR = "smoke_out"      # logs: nvcc build report, the server's output
+# the pool and buckets every phase but 9 was written for (EngineConfig's
+# defaults); serve's own defaults are the JAX serve's (2,048 pages, 64 a
+# slot, buckets 256/1024/4096), which phase 9 runs
+POOL_ARGS = ("--num-pages", "512", "--pages-per-slot", "32", "--prefill-buckets", "64,256,1024")
 # phase 3's prompt texts (the byte tokenizer: one token a character)
 SERVE_TEXT = ("The quick brown fox jumps over the lazy dog while the engine serves "
               "requests on the card. ") * 12
@@ -1010,9 +1040,9 @@ def engine_chunk_shapes() -> list[tuple[int, int, int]]:
     calls = []
     real = em.forward_chunk
 
-    def spy(params, cfg, tokens, history, lengths, *rest):
+    def spy(params, cfg, tokens, history, lengths, *rest, **kw):
         calls.append((int(history[0]), int(lengths[0]), int(tokens.shape[1])))
-        return real(params, cfg, tokens, history, lengths, *rest)
+        return real(params, cfg, tokens, history, lengths, *rest, **kw)
 
     tok = load_tokenizer(MODEL)
     eng = em.Engine(em.EngineConfig(model="debug-tiny", dtype="float32", device="cpu"))
@@ -1772,13 +1802,13 @@ class Server:
     to its environment; started at once, waited for by ``wait_health``,
     stopped by ``stop`` (a failure prints the tail of its log)."""
 
-    def __init__(self, args: list, log_name: str, env=None):
+    def __init__(self, args: list, log_name: str, env=None, pool_args=POOL_ARGS):
         port = free_port()
         self.base = f"http://127.0.0.1:{port}"
         os.makedirs(OUT_DIR, exist_ok=True)
         self.log_path = os.path.join(OUT_DIR, log_name)
-        cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch", "serve", *args,
-               "--device", "cuda", "--host", "127.0.0.1", "--port", str(port)]
+        cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch", "serve", *pool_args,
+               *args, "--device", "cuda", "--host", "127.0.0.1", "--port", str(port)]
         say(f"serve: {' '.join(cmd[1:])}" + (f" ({env})" if env else ""))
         self.t_start = time.perf_counter()
         self.logf = open(self.log_path, "w")
@@ -1823,12 +1853,12 @@ class Server:
         self.logf.close()
 
 
-def with_server(args: list, log_name: str, drive, env=None) -> dict:
+def with_server(args: list, log_name: str, drive, env=None, pool_args=POOL_ARGS) -> dict:
     """Start a ``Server``, wait for /health (at most 420 s), then return
     ``drive(base URL, process)`` with ``health_s``, the seconds to
     /health, added. The server is stopped however this ends; a failure
     prints the tail of its log."""
-    srv = Server(args, log_name, env)
+    srv = Server(args, log_name, env, pool_args)
     try:
         srv.wait_health()
         return {**drive(srv.base, srv.proc), "health_s": srv.health_s}
@@ -1944,15 +1974,17 @@ def _drive_server(base: str, model: str, num_layers: int, kv_cache_dtype=None,
             say(f"  {name}: 200, {len(chunks)} chunks ending in [DONE], {n} tokens, "
                 f"finish_reason={reason}")
     launches = counts["launches"]
-    say(f"  kernel launches over the burst: {launches}; prefill calls "
-        f"{counts['prefill_calls']}, decode forwards {counts['decode_forwards']}, "
-        f"layers {num_layers}; burst wall {burst_s:.2f} s")
-    if counts["prefill_calls"] < 1 or counts["decode_forwards"] < 1:
+    # the burst's own calls: the server's warm-up ran before counts0
+    prefills = counts["prefill_calls"] - counts0["prefill_calls"]
+    forwards = counts["decode_forwards"] - counts0["decode_forwards"]
+    say(f"  kernel launches over the burst: {launches}; prefill calls {prefills}, decode "
+        f"forwards {forwards}, layers {num_layers}; burst wall {burst_s:.2f} s")
+    if prefills < 1 or forwards < 1:
         fail("the burst ran no prefill or no decode")
-    if launches.get("flash_prefill", 0) < num_layers * counts["prefill_calls"]:
+    if launches.get("flash_prefill", 0) < num_layers * prefills:
         fail("flash_prefill launched fewer than num_layers times per prefill call")
     decode_kernel = "paged_decode_int8" if kv_cache_dtype else "paged_decode"
-    if launches.get(decode_kernel, 0) < num_layers * counts["decode_forwards"]:
+    if launches.get(decode_kernel, 0) < num_layers * forwards:
         fail(f"{decode_kernel} launched fewer than num_layers times per decode step")
     if kv_cache_dtype and launches.get("paged_decode", 0):
         fail("the int8 KV server launched the float decode kernel")
@@ -4848,7 +4880,7 @@ def drill_server(torch, cfg, role: str, env_qos: bool = False):
     os.environ["LLMK_ROLE"] = role
     try:
         ecfg = engine_config_from_args(build_parser().parse_args(
-            ["serve", "--model", MODEL, "--kv-host-cache-gb", "1"]))
+            ["serve", *POOL_ARGS, "--model", MODEL, "--kv-host-cache-gb", "1"]))
     finally:
         os.environ.pop("LLMK_ROLE", None)
     if not env_qos and ecfg.qos_priorities:
@@ -5884,7 +5916,8 @@ def gguf_in_process(torch, path: str) -> dict:
     from llms_on_kubernetes_tpu_torch.cli import build_parser, engine_config_from_args
     from llms_on_kubernetes_tpu_torch.server.openai_api import OpenAIServer, _gguf_engine
 
-    ecfg = engine_config_from_args(build_parser().parse_args(["serve", "--model", path]))
+    ecfg = engine_config_from_args(build_parser().parse_args(["serve", *POOL_ARGS, "--model",
+                                                              path]))
     rss = RssPeak()
     t0 = time.perf_counter()
     eng, tok, load_s, _src = _gguf_engine(path, ecfg, torch.device("cuda"), False, None)
@@ -6152,7 +6185,7 @@ def awq_in_process(torch, path: str) -> dict:
     from llms_on_kubernetes_tpu_torch.engine.weights import load_hf_params
 
     ecfg = engine_config_from_args(build_parser().parse_args(
-        ["serve", "--model", path, "--quantization", "awq"]))
+        ["serve", *POOL_ARGS, "--model", path, "--quantization", "awq"]))
     cfg = model_config_for(path, path)
     rss = RssPeak()
     t0 = time.perf_counter()
@@ -6427,6 +6460,502 @@ def phase_awq_lora(torch, write) -> dict:
     return {"A": {**awq, "served": served}, "B": {**lora, "routed": routed}}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the MoE block (the expert kernel, qwen3-30b-a3b at full width and
+# depth in process and through serve behind llkt-router, a Qwen3-MoE
+# checkpoint served from its directory)
+# ---------------------------------------------------------------------------
+
+MOE_MODEL = "qwen3-30b-a3b"
+# expert-major rows the kernel is held at: one claim, then 1, 8 (the 8-slot
+# decode step), 64 and 4,096 tokens (a bucket-4,096 prefill) at top-8
+MOE_ROWS = (1, 8, 64, 512, 32768)
+MOE_MAIN = 64
+MOE_NEW = 64                 # greedy tokens a phase-9 stream generates
+MOE_CKPT_LAYERS = 2
+MOE_DIR = os.path.join(OUT_DIR, "qwen3-30b-a3b-2l")
+MOE_PATH = f"{MOE_MODEL} serve behind llkt-router"
+MOE_INPROC_PATH = f"{MOE_MODEL} in process"
+MOE_CKPT_PATH = f"{MOE_MODEL} {MOE_CKPT_LAYERS} layers checkpoint serve"
+
+
+def moe_weights(torch, cfg, seed: int = 16):
+    """One layer's router and expert stacks at ``cfg``'s widths, bf16, drawn
+    on the card with the ``init_params`` scales, and the generator."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    E, D, Fd = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+
+    def w(*shape, scale):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    return (w(D, E, scale=D ** -0.5), w(E, D, Fd, scale=D ** -0.5),
+            w(E, D, Fd, scale=D ** -0.5), w(E, Fd, D, scale=Fd ** -0.5), gen)
+
+
+def moe_inputs(torch, cfg, router, gen, R: int):
+    """(x, src, counts) for R expert-major rows: R / k random tokens routed
+    by ``router`` (near-uniform over the experts), or one token's single
+    claim on expert 37 when R is 1."""
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    D, E, k = cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_tok
+    N = max(1, R // k)
+    x = torch.randn((N, D), generator=gen, device="cuda").to(torch.bfloat16)
+    if R == 1:
+        counts = torch.zeros((E,), dtype=torch.int32, device="cuda")
+        counts[37] = 1
+        return x, torch.zeros((1,), dtype=torch.int32, device="cuda"), counts
+    r = moe.moe_route(x, router, top_k=k)
+    return x, r.src, r.counts
+
+
+def moe_work(cfg, x, counts, R: int) -> tuple[float, float, int]:
+    """FLOPs and bytes the routed expert FFN needs for these rows (x read
+    once, src and counts, each touched expert's three matrices read once, y
+    written once), and the experts touched."""
+    D, Fd, E = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    touched = int((counts > 0).sum())
+    rows = int(counts.sum())
+    flops = 6.0 * rows * D * Fd
+    nbytes = x.numel() * 2 + 4 * R + 4 * E + touched * 3 * D * Fd * 2 + rows * D * 2
+    return flops, nbytes, touched
+
+
+def moe_library(torch, x, src, counts, wg, wu, wd):
+    """The same function through ``torch._grouped_mm`` (the gather, three
+    grouped products and the SiLU product): (a function, None), or (None,
+    the reason there is none)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, f"torch {torch.__version__} has no torch._grouped_mm"
+    offs = torch.cumsum(counts, 0, dtype=torch.int32)
+
+    def run():
+        xs = x.index_select(0, src.long())
+        h = torch.nn.functional.silu(torch._grouped_mm(xs, wg, offs=offs)) \
+            * torch._grouped_mm(xs, wu, offs=offs)
+        return torch._grouped_mm(h, wd, offs=offs)
+    try:
+        run()
+        torch.cuda.synchronize()
+    except RuntimeError as e:       # the yardstick only: the port never calls it
+        return None, f"torch._grouped_mm refused these inputs: {e}"
+    return run, None
+
+
+def moe_kernel_checks(torch, timer) -> dict:
+    """A: the expert kernel against ``moe_experts_plain`` at every R of
+    MOE_ROWS at qwen3-30b-a3b's widths (the bf16 row tolerance), three rows
+    of each alone bit-equal to them (batch invariance), a refusal; timed in
+    turns with ``torch._grouped_mm`` (kernel, library, kernel) beside the
+    plain version and the bound of the experts touched."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    cfg = get_config(MOE_MODEL)
+    say("kernel moe_experts (the port's own: the routed expert FFN that JAX "
+        "ops/moe.py::moe_block writes as one-hot einsums, left to XLA)")
+    router, wg, wu, wd, gen = moe_weights(torch, cfg)
+    E = cfg.num_experts
+    err, timings, lib_note = 0.0, {}, None
+    for R in MOE_ROWS:
+        x, src, counts = moe_inputs(torch, cfg, router, gen, R)
+        got = moe.moe_experts(x, src, counts, wg, wu, wd)
+        want = moe.moe_experts_plain(x, src, counts, wg, wu, wd)
+        rows = int(counts.sum())
+        err = max(err, check_close(f"bf16 {MOE_MODEL} R{R}", got[:rows], want[:rows],
+                                   "bfloat16"))
+        expert_of = torch.repeat_interleave(torch.arange(E, device="cuda"), counts.long())
+        for r in sorted({0, rows // 3, rows - 1}):
+            one = torch.zeros((E,), dtype=torch.int32, device="cuda")
+            one[expert_of[r]] = 1
+            alone = moe.moe_experts(x, src[r:r + 1], one, wg, wu, wd)
+            if not torch.equal(alone[0], got[r]):
+                fail(f"moe_experts: row {r} alone differs from row {r} of {R} rows "
+                     f"(batch invariance)")
+        flops, nbytes, touched = moe_work(cfg, x, counts, R)
+        b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+        lib_fn, why = moe_library(torch, x, src, counts, wg, wu, wd)
+        lib_note = lib_note or why
+        t1 = timer(lambda: moe.moe_experts(x, src, counts, wg, wu, wd), reps=30)
+        lib = timer(lib_fn, reps=30) if lib_fn is not None else None
+        t2 = timer(lambda: moe.moe_experts(x, src, counts, wg, wu, wd), reps=30)
+        plain = timer(lambda: moe.moe_experts_plain(x, src, counts, wg, wu, wd), reps=3)
+        key = f"R{R} ({max(1, R // 8)} tokens x top-8) D2048 F768 E128 bf16"
+        timings[key] = dict(ms=(t1 + t2) / 2, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=lib, experts_touched=touched)
+        say(f"  timing moe_experts {key}: ms={t1:.4f},{t2:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+            f"{touched} experts touched) library_ms="
+            f"{'none' if lib is None else f'{lib:.4f}'} plain_ms={plain:.4f}")
+        del got, want
+    say(f"  batch invariance: rows alone equal them among {MOE_ROWS} rows, bit for bit")
+    if lib_note:
+        say(f"  library_ms none: {lib_note}")
+    x, src, counts = moe_inputs(torch, cfg, router, gen, 8)
+    try:
+        moe.moe_experts(x.float(), src, counts, wg, wu, wd)
+    except ValueError as e:
+        say(f"  refuses float32 x: {e}")
+    else:
+        fail("moe_experts took float32 x")
+    main_key = next(k for k in timings if k.startswith(f"R{MOE_MAIN} "))
+    del wg, wu, wd
+    return dict(
+        name="moe_experts", route="cuda",
+        source="llms_on_kubernetes_tpu_torch/csrc/moe_experts.cu",
+        replaces="none: llms_on_kubernetes_tpu/ops/moe.py:33 moe_block, left to XLA",
+        max_abs_err=err, **timings[main_key], shape=main_key,
+        other_shapes={k: v for k, v in timings.items() if k != main_key},
+        library_note=("the gather, torch._grouped_mm x 3 and the SiLU product (the routed "
+                      "function in library calls)" if lib_note is None
+                      else f"none: {lib_note}"))
+
+
+def moe_attention_checks(torch, rng, timer) -> tuple[dict, dict]:
+    """Kernels 1 and 2 at qwen3-30b-a3b's attention: 32 query heads on 4 KV
+    heads (group 8, the decode kernel's largest), d 128. Flash prefill at
+    buckets 256 and 1,024 against its plain version and sdpa; paged decode
+    at 8 slots (page 64, 32 pages a slot) at the serve shape and at lengths
+    over 1..2,048. Returns their other_shapes entries."""
+    from llms_on_kubernetes_tpu_torch.ops import flash_attention as fa
+    from llms_on_kubernetes_tpu_torch.ops import paged_attention as pa
+
+    bf16 = torch.bfloat16
+
+    def mk(*s):
+        return torch.from_numpy(rng.normal(size=s).astype(np.float32)).to("cuda", bf16)
+
+    flash = {}
+    for T, n in ((256, 200), (1024, 900)):
+        q, k, v = mk(1, T, 32, 128), mk(1, T, 4, 128), mk(1, T, 4, 128)
+        lengths = torch.tensor([n], dtype=torch.int32, device="cuda")
+        kw = dict(scale=128 ** -0.5)
+        err = check_close(f"flash_prefill group 8 (n_q32 n_kv4 d128) T{T} length {n}",
+                          fa.flash_prefill_attention(q, k, v, lengths, **kw)[0, :n],
+                          fa.prefill_attention_plain(q, k, v, lengths, **kw)[0, :n],
+                          "bfloat16")
+        ms = timer(lambda: fa.flash_prefill_attention(q, k, v, lengths, **kw))
+        plain = timer(lambda: fa.prefill_attention_plain(q, k, v, lengths, **kw))
+        qh, kh, vh = (t[:, :n].transpose(1, 2) for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = timer(lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True))
+        b_ms, b_by = bound_ms(*prefill_work([n], 32, 4, 128, 2), "bfloat16")
+        flash[f"{MOE_MODEL} group 8: B1 T{T} length {n} n_q32 n_kv4 d128 bf16"] = dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+            max_abs_err=err)
+        say(f"  timing flash_prefill group 8 T{T} length {n}: ms={ms:.4f} plain_ms={plain:.4f} "
+            f"bound_ms={b_ms:.4f} library_ms={lib:.4f}")
+    decode = {}
+    for label, lens in (("lengths 40..47", SERVE_LENS),
+                        ("lengths 1,63,64,65,700,1500,2048,0",
+                         np.array([1, 63, 64, 65, 700, 1500, 2048, 0]))):
+        kp, vp, table = paged_setup(torch, rng, 8, 4, 128, 64, 32, lens, bf16, pool_pages=512)
+        q = mk(8, 32, 128)
+        lengths = torch.from_numpy(lens.astype(np.int32)).cuda()
+        kw = dict(scale=128 ** -0.5)
+        err = check_close(f"paged_decode group 8 (n_q32 n_kv4 d128) B8 page64 {label}",
+                          pa.paged_decode_attention(q, kp, vp, table, lengths, **kw),
+                          pa.paged_decode_attention_plain(q, kp, vp, table, lengths, **kw),
+                          "bfloat16", rows=torch.from_numpy(lens > 0).cuda())
+        t = decode_timing(timer, lambda: pa.paged_decode_attention(
+            q, kp, vp, table, lengths, **kw), lambda: pa.paged_decode_attention_plain(
+            q, kp, vp, table, lengths, **kw), lens, write=False, widths=(32, 4, 128, 32))
+        decode[f"{MOE_MODEL} group 8: B8 n_q32 n_kv4 d128 page64 {label} bf16"] = dict(
+            **t, max_abs_err=err)
+        say(f"  timing paged_decode group 8 {label}: ms={t['ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} bound_ms={t['bound_ms']:.4f}")
+    return flash, decode
+
+
+def check_moe_path(tag: str, launches: dict, replayed: dict, num_layers: int, prefills: int,
+                   chunks: int, decode_forwards: int, replays: int, steps: int) -> None:
+    """Every window a graph replay; the expert kernel twice a layer a
+    forward, its decode launches all by replays; flash prefill once a layer
+    a prefill call, the decode kernel once a layer a decode step."""
+    if replays < 1 or replays * steps != decode_forwards:
+        fail(f"{tag}: {replays} replays x {steps} != {decode_forwards} decode forwards: a "
+             f"window ran outside the graph")
+    forwards = prefills + chunks + decode_forwards
+    want = {"moe_experts": 2 * num_layers * forwards, "flash_prefill": num_layers * prefills,
+            "paged_decode": num_layers * decode_forwards}
+    for name, n in want.items():
+        if launches.get(name, 0) != n:
+            fail(f"{tag}: {name} launched {launches.get(name, 0)} times, expected {n} "
+                 f"({prefills} prefill, {chunks} chunk, {decode_forwards} decode forwards of "
+                 f"{num_layers} layers)")
+    if replayed.get("moe_experts", 0) != 2 * num_layers * decode_forwards:
+        fail(f"{tag}: moe_experts launches by replays {replayed.get('moe_experts', 0)} != "
+             f"2 x {num_layers} x {decode_forwards} decode forwards")
+
+
+def moe_split(torch, eng, prompts, n_tokens: int) -> dict:
+    """The device time of steady decode windows by kernel, under
+    torch.profiler: from the step at which every stream has 8 tokens until
+    4 more windows were launched. Returns ms by part (experts: the expert
+    kernel; attention: flash prefill, paged decode and the window append;
+    rest) and the windows launched inside the trace."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+    from torch.profiler import ProfilerActivity, profile
+
+    sp = SamplingParams(temperature=0.0, max_tokens=n_tokens)
+    reqs = [eng.submit(p, sp) for p in prompts]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    state, r0, windows = "before", 0, 0
+    while eng.has_work():
+        if state == "before" and all(len(r.output) >= 8 for r in reqs):
+            torch.cuda.synchronize()
+            prof.start()
+            state, r0 = "on", eng.graph_replays
+        eng.step()
+        if state == "on" and eng.graph_replays - r0 >= 4:
+            torch.cuda.synchronize()
+            prof.stop()
+            state, windows = "done", eng.graph_replays - r0
+    if state != "done":
+        fail("phase 9: the profiled streams ended before 4 windows")
+    parts = {"experts": 0.0, "attention": 0.0, "rest": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
+            continue
+        ms = e.self_device_time_total / 1e3
+        if "moe_expert_gemm" in e.key:
+            parts["experts"] += ms
+        elif any(k in e.key for k in ("flash_prefill", "paged_decode", "write_window")):
+            parts["attention"] += ms
+        else:
+            parts["rest"] += ms
+    return {"parts": parts, "windows": windows}
+
+
+def moe_in_process(torch) -> dict:
+    """B: qwen3-30b-a3b at full width and depth from ``init_params`` on the
+    card behind the default Engine: the card's free memory before the load
+    and what the model and engine hold; 8 concurrent greedy streams of
+    MOE_NEW tokens, every window a graph replay (device ms each by CUDA
+    events), the expert kernel 2 x 48 times a forward; then the device time
+    of steady windows split between the experts, attention and the rest
+    (torch.profiler)."""
+    from llms_on_kubernetes_tpu_torch import kernels
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig
+    from llms_on_kubernetes_tpu_torch.models.decoder import init_params
+
+    cfg = get_config(MOE_MODEL)
+    free_card(torch, "before the MoE model")
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype="bfloat16", device="cuda")
+    eng = Engine(EngineConfig(model=MOE_MODEL), model_config=cfg, params=params)
+    torch.cuda.synchronize()
+    ready_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    say(f"  {MOE_MODEL} ({cfg.num_layers} layers, {cfg.num_experts} experts top-"
+        f"{cfg.num_experts_per_tok}): {param_bytes(params) / 1e9:.2f} GB of bf16 weights; the "
+        f"card had {free0 / 2**30:.2f} GiB free before the load, the process holds "
+        f"{held / 2**30:.2f} GiB with the engine (pool, MoE workspace of "
+        f"{eng.moe_workspace.rows} rows, window graph), ready after {ready_s:.1f} s")
+    timer = WindowTimer(torch, eng._window)
+    run = awq_run(torch, eng, awq_prompts(), [None] * 8, max_tokens=MOE_NEW)
+    win_ms = timer.close()["free"]
+    check_moe_path(MOE_INPROC_PATH, run["launches"], kernels.replayed_counts(),
+                   cfg.num_layers, run["forwards"] - run["decode_forwards"], 0,
+                   run["decode_forwards"], run["replays"], eng.config.decode_steps)
+    split = moe_split(torch, eng, awq_prompts(), 48)
+    parts, nwin = split["parts"], split["windows"]
+    total = sum(parts.values())
+    say(f"  {MOE_INPROC_PATH}, 8 greedy streams of {MOE_NEW} "
+        f"({len(set(map(tuple, run['outs'])))} distinct; the first's head {run['outs'][0][:8]}): "
+        f"{run['tok_s']:.1f} decode tok/s, {run['replays']} windows (each one graph replay), "
+        f"window device ms median {float(np.median(win_ms)):.3f} (min {min(win_ms):.3f}, max "
+        f"{max(win_ms):.3f}); moe_experts {run['launches'].get('moe_experts', 0)} launches = "
+        f"2 x {cfg.num_layers} x {run['forwards']} forwards [{card_line()}]")
+    say(f"  steady windows under torch.profiler ({nwin} windows launched in the trace): "
+        f"device ms a window: experts {parts['experts'] / nwin:.3f}, attention "
+        f"{parts['attention'] / nwin:.3f}, rest {parts['rest'] / nwin:.3f} (experts "
+        f"{100 * parts['experts'] / max(total, 1e-9):.1f}% of the kernels' time)")
+    del eng, params, timer
+    return {"launches": run["launches"], "tok_s": run["tok_s"], "window_ms": win_ms,
+            "split": split, "free_gib": free0 / 2**30, "held_gib": held / 2**30}
+
+
+def _drive_moe_router(cfg):
+    """C: behind ``llkt-router``: a streamed chat completion through the
+    router, then 8 concurrent greedy journaled streams to the replica;
+    every window a graph replay, the expert kernel 2 x 48 a forward; the
+    two decode-window series of /metrics read."""
+
+    def drive(base: str, _proc) -> dict:
+        router_proc, router = start_router(
+            ["--models", f"{MOE_MODEL}={base}", "--probe-interval", "0.5"],
+            "chip_smoke_moe_router.log", [base])
+        try:
+            http("POST", base + "/debug/kernels/reset")
+            k0 = kernel_counts(base)
+            chat = chat_stream(router, {
+                "model": MOE_MODEL, "messages": [{"role": "user", "content": SERVE_TEXT[:60]}],
+                "max_tokens": 24, "temperature": 0})
+            if chat["choices"][0]["finish_reason"] not in ("length", "stop"):
+                fail(f"{MOE_PATH}: the chat through the router ended {chat['choices'][0]}")
+            out: dict = {}
+
+            def one(i):
+                out[i] = journaled_stream(base, {"model": MOE_MODEL,
+                                                 "prompt": SERVE_TEXT[i:i + 40],
+                                                 "max_tokens": MOE_NEW, "temperature": 0,
+                                                 "stream": True})
+
+            ths = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(timeout=600)
+            if len(out) != 8 or any(len(o[0]) != MOE_NEW for o in out.values()):
+                fail(f"{MOE_PATH}: the 8 streams did not all finish with {MOE_NEW} tokens")
+            tok_s = (sum(len(o[0]) - 1 for o in out.values())
+                     / (max(o[2] for o in out.values()) - min(o[1] for o in out.values())))
+            k1 = kernel_counts(base)
+            replays = check_graphed(MOE_PATH, k1, k0)
+            d = {k: k1[k] - k0[k] for k in ("prefill_calls", "chunk_calls", "decode_forwards")}
+            replayed = {k: n - k0["replayed_launches"].get(k, 0)
+                        for k, n in k1["replayed_launches"].items()}
+            check_moe_path(MOE_PATH, k1["launches"], replayed, cfg.num_layers,
+                           d["prefill_calls"], d["chunk_calls"], d["decode_forwards"], replays,
+                           k1["decode_steps"])
+            _s, raw = http("GET", base + "/metrics")
+            names = {ln.split("{")[0].split(" ")[0] for ln in raw.decode().splitlines()
+                     if ln and not ln.startswith("#")}
+            for name in ("llm_decode_steps_per_dispatch_count", "llm_decode_early_exit_total"):
+                if name not in names:
+                    fail(f"{MOE_PATH}: /metrics has no {name}")
+            steps_n = metric(base, "llm_decode_steps_per_dispatch_count")
+            steps_sum = metric(base, "llm_decode_steps_per_dispatch_sum")
+            early = metric(base, "llm_decode_early_exit_total")
+            if steps_n < replays:
+                fail(f"{MOE_PATH}: llm_decode_steps_per_dispatch_count {steps_n} < {replays} "
+                     f"windows")
+            say(f"  {MOE_PATH}: a streamed chat through the router ended whole; 8 greedy "
+                f"streams of {MOE_NEW}: {tok_s:.1f} decode tok/s; moe_experts "
+                f"{k1['launches'].get('moe_experts', 0)} launches = 2 x {cfg.num_layers} x "
+                f"{sum(d.values())} forwards; /metrics llm_decode_steps_per_dispatch count "
+                f"{steps_n:g} sum {steps_sum:g}, llm_decode_early_exit_total {early:g} "
+                f"[{card_line()}]")
+            return {"launches": k1["launches"], "tok_s": tok_s, "steps": (steps_n, steps_sum),
+                    "early_exit": early}
+        finally:
+            stop_proc(router_proc)
+    return drive
+
+
+def start_moe_write():
+    """Write qwen3-30b-a3b cut to MOE_CKPT_LAYERS layers at full width (the
+    Qwen3-MoE tensor names) in a process of its own."""
+    cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch.testing.synth_checkpoint",
+           MOE_MODEL, MOE_DIR, "--layers", str(MOE_CKPT_LAYERS)]
+    return (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            time.perf_counter())
+
+
+def moe_checkpoint(torch, write) -> dict:
+    """D: the 2-layer checkpoint loaded in process (layer 0's router and
+    expert 5 held bit for bit to the file), its greedy stream and logprobs
+    from an Engine with ``serve``'s defaults, then ``serve --model <dir>``:
+    the same token ids, logprobs within the bf16 tolerance."""
+    from llms_on_kubernetes_tpu_torch.cli import build_parser, engine_config_from_args
+    from llms_on_kubernetes_tpu_torch.engine.engine import (
+        Engine, SamplingParams, model_config_for,
+    )
+    from llms_on_kubernetes_tpu_torch.engine.safetensors import open_dir
+    from llms_on_kubernetes_tpu_torch.engine.weights import load_hf_params
+
+    proc, t0 = write
+    out, _ = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        fail(f"synth_checkpoint {MOE_MODEL} --layers {MOE_CKPT_LAYERS} exited "
+             f"{proc.returncode}: {out}")
+    size = sum(os.path.getsize(os.path.join(MOE_DIR, f)) for f in os.listdir(MOE_DIR))
+    say(f"  wrote {MOE_DIR} ({size / 1e9:.2f} GB), done {time.perf_counter() - t0:.1f} s after "
+        f"its start")
+    cfg = model_config_for(MOE_DIR, MOE_DIR)
+    t1 = time.perf_counter()
+    params = load_hf_params(cfg, MOE_DIR, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    files = open_dir(MOE_DIR)
+    pre = "model.layers.0.mlp."
+    for got, name in ((params["layers"]["router"][0], pre + "gate.weight"),
+                      (params["layers"]["w_gate"][0, 5], pre + "experts.5.gate_proj.weight"),
+                      (params["layers"]["w_up"][0, 5], pre + "experts.5.up_proj.weight"),
+                      (params["layers"]["w_down"][0, 5], pre + "experts.5.down_proj.weight")):
+        if not torch.equal(got.cpu(), files[name]().T):
+            fail(f"MoE checkpoint: {name} differs from the loaded tensor")
+    ecfg = engine_config_from_args(build_parser().parse_args(["serve", "--model", MOE_DIR]))
+    eng = Engine(ecfg, model_config=cfg, params=params)
+    prompt = [ord(c) for c in SERVE_TEXT[:40]]
+    req = eng.submit(prompt, SamplingParams(temperature=0.0, max_tokens=16, logprobs=1))
+    while not req.finished:
+        eng.step()
+    ref_ids = list(req.output)
+    ref_lps = [float(lp[0] if isinstance(lp, (list, tuple)) else lp)
+               for lp in req.output_logprobs]
+    del eng, params
+    free_card(torch, "phase 9 D in process done")
+
+    def drive(base: str, _proc) -> dict:
+        http("POST", base + "/debug/kernels/reset")
+        ids, _a, _b, _t = journaled_stream(base, {"model": MOE_MODEL, "prompt": prompt,
+                                                  "max_tokens": 16, "temperature": 0,
+                                                  "stream": True})
+        status, body = http("POST", base + "/v1/completions", {
+            "model": MOE_MODEL, "prompt": prompt, "max_tokens": 16, "temperature": 0,
+            "logprobs": 1})
+        if status != 200:
+            fail(f"{MOE_CKPT_PATH}: HTTP {status} {body[:200]!r}")
+        lps = json.loads(body)["choices"][0]["logprobs"]["token_logprobs"]
+        return {"ids": ids, "lps": lps, "launches": kernel_counts(base)["launches"]}
+
+    served = with_server(["--model", MOE_DIR, "--served-model-name", MOE_MODEL],
+                         "chip_smoke_moe_ckpt.log", drive, pool_args=())
+    if served["ids"] != ref_ids:
+        fail(f"{MOE_CKPT_PATH}: greedy ids {served['ids']} != in process {ref_ids}")
+    gap = max(abs(a - b) for a, b in zip(served["lps"], ref_lps))
+    if not all(abs(a - b) <= BF16_REL_TOL * max(abs(b), 1.0)
+               for a, b in zip(served["lps"], ref_lps)):
+        fail(f"{MOE_CKPT_PATH}: logprobs {served['lps']} differ from in process {ref_lps}")
+    say(f"  {MOE_CKPT_PATH}: loaded in process in {load_s:.2f} s (layer 0's router and expert "
+        f"5 equal the file); serve --model {MOE_DIR}: /health after {served['health_s']:.1f} s, "
+        f"the 16 greedy ids equal the in-process engine's, logprobs within {gap:.2e}")
+    shutil.rmtree(MOE_DIR, ignore_errors=True)
+    return served
+
+
+def phase_moe(torch, entries: dict) -> dict:
+    """Phase 9: A (the expert kernel; kernels 1 and 2 at group 8), B
+    (qwen3-30b-a3b in process), C (``serve`` behind llkt-router, /health
+    with and without the warm-up), D (a 2-layer checkpoint served)."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    write = start_moe_write()
+    entries["moe_experts"] = moe_kernel_checks(torch, Timer(torch))
+    flash, decode = moe_attention_checks(torch, np.random.default_rng(9), Timer(torch))
+    entries["flash_prefill"]["other_shapes"].update(flash)
+    entries["paged_decode"]["other_shapes"].update(decode)
+    inproc = moe_in_process(torch)
+    free_card(torch, "phase 9 B done")
+    cfg = get_config(MOE_MODEL)
+    served = with_server(["--model", MOE_MODEL, "--random-weights"], "chip_smoke_moe.log",
+                         _drive_moe_router(cfg), pool_args=())
+    cold = with_server(["--model", MOE_MODEL, "--random-weights", "--no-warmup"],
+                       "chip_smoke_moe_nowarmup.log", lambda base, _p: {}, pool_args=())
+    say(f"  serve --model {MOE_MODEL} --random-weights (serve's defaults: 2,048 pages, 64 a "
+        f"slot, buckets 256/1024/4096): /health after {served['health_s']:.1f} s with the "
+        f"warm-up, {cold['health_s']:.1f} s with --no-warmup")
+    ckpt = moe_checkpoint(torch, write)
+    say(f"phase 9 (MoE): {time.perf_counter() - t0:.1f} s")
+    return {"inproc": inproc, "served": served, "cold": cold, "ckpt": ckpt}
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -6472,6 +7001,11 @@ def main(argv) -> int:
     say(f"sass w4_matmul_tc: {hmma} HMMA instructions in {funcs} tensor-core (bf16) functions")
     if not funcs or not hmma:
         fail("the bf16 W4A16 body w4_matmul_tc has no tensor-core (HMMA) instruction")
+    hmma, funcs = sass_mma_count(kernels.library_path("moe_experts"), "moe_expert_gemm")
+    say(f"sass moe_expert_gemm: {hmma} HMMA instructions in {funcs} tensor-core (bf16) "
+        f"functions")
+    if not funcs or not hmma:
+        fail("the MoE expert kernel moe_expert_gemm has no tensor-core (HMMA) instruction")
     for body in ("w8_matmul_decode", "w8_matmul_prefill"):
         hmma, funcs = sass_mma_count(kernels.library_path("w8_matmul"), body)
         say(f"sass {body}: {hmma} HMMA instructions in {funcs} tensor-core (bf16) functions")
@@ -6486,6 +7020,11 @@ def main(argv) -> int:
         os.makedirs(OUT_DIR, exist_ok=True)
         phase_awq_lora(torch, start_awq_write())
         fail("--awq-only: phases 2 to 7 skipped, no result")
+    if "--moe-only" in argv:
+        finish_router_build(router_build)
+        phase_moe(torch, {"flash_prefill": {"other_shapes": {}},
+                          "paged_decode": {"other_shapes": {}}})
+        fail("--moe-only: phases 2 to 8 skipped, no result")
     t0 = time.perf_counter()
     entries = phase_kernels(torch)
     for name, shapes in wide_kernels(torch, np.random.default_rng(1), Timer(torch)).items():
@@ -6527,6 +7066,8 @@ def main(argv) -> int:
     awq_write = start_awq_write()      # overlaps phase 7
     spec = phase_spec_gguf(torch)
     awq = phase_awq_lora(torch, awq_write)
+    free_card(torch, "phase 8 done")
+    moe = phase_moe(torch, entries)
     # launches on each path, counted from 0 just before it and read just
     # after; the line's "launches" is the checkpoint server's where the
     # kernel runs there, else phase 4's fused engines, and the W8A16
@@ -6553,7 +7094,9 @@ def main(argv) -> int:
              GGUF_DRAFT_PATH: spec["B"]["gguf"]["launches"],
              AWQ_PATH: awq["A"]["served"]["launches"],
              f"{AWQ_MODEL} AWQ in process": awq["A"]["base"]["launches"],
-             LORA_PATH: awq["B"]["routed"]["launches"]}
+             LORA_PATH: awq["B"]["routed"]["launches"],
+             MOE_INPROC_PATH: moe["inproc"]["launches"], MOE_PATH: moe["served"]["launches"],
+             MOE_CKPT_PATH: moe["ckpt"]["launches"]}
     for preset, r in spec["C"].items():
         for kind in ("bf16", "int8"):
             paths[f"{preset} GGUF serve {kind} weights"] = r[kind]["launches"]
@@ -6561,7 +7104,7 @@ def main(argv) -> int:
                  "paged_write_window": ckpt_bf16, "paged_decode_int8": ckpt_int8,
                  "paged_write_window_int8": ckpt_int8, "paged_decode_write": fused_bf16,
                  "paged_decode_write_int8": fused_int8, "w8_matmul": HEADLINE_PATH,
-                 "w4_matmul": AWQ_PATH}
+                 "w4_matmul": AWQ_PATH, "moe_experts": MOE_PATH}
     for name, e in entries.items():
         e["launches"] = paths[main_path[name]].get(name, 0)
         e["launches_path"] = main_path[name]

@@ -4,13 +4,23 @@
         [--device cuda|cpu] [--port 8080] [--kv-cache-dtype int8] [--kv-write dus|fused] \\
         [--quantization int8|fp8|awq] [--no-prefix-caching] [--watchdog-stall-s S] \\
         [--decode-steps K] [--kv-host-cache-gb GB] [--speculation ngram|draft] \\
-        [--draft-model NAME_OR_GGUF]
+        [--draft-model NAME_OR_GGUF] [--no-warmup] [--no-ledger] [--no-anomaly-profile] \\
+        [--anomaly-z Z] [--anomaly-cooldown-s S]
 
+``serve``'s defaults are the JAX ``serve``'s (``cli._add_serve``): 8
+slots, 2,048 pages of 64 tokens, 64 pages a slot (a 4,096-token context)
+and prefill buckets 256, 1,024 and 4,096; ``EngineConfig``'s own defaults
+are smaller and are what code that builds an engine directly gets.
 ``--decode-steps``, ``--kv-write``, ``--kv-host-cache-gb``,
-``--speculation`` and ``--draft-model`` default to the environment
-(``LLMK_DECODE_STEPS``, ``LLMK_KV_WRITE``, ``LLMK_KV_HOST_CACHE_GB``,
-``LLMK_SPECULATION``, ``LLMK_DRAFT_MODEL``), as the JAX engine's config
-does; a flag wins over the environment. The serving role (prefill, decode or both) comes
+``--speculation``, ``--draft-model``, ``--no-ledger``,
+``--no-anomaly-profile``, ``--anomaly-z`` and ``--anomaly-cooldown-s``
+default to the environment (``LLMK_DECODE_STEPS``, ``LLMK_KV_WRITE``,
+``LLMK_KV_HOST_CACHE_GB``, ``LLMK_SPECULATION``, ``LLMK_DRAFT_MODEL``,
+``LLMK_LEDGER``, ``LLMK_ANOMALY_PROFILE``, ``LLMK_ANOMALY_Z``,
+``LLMK_ANOMALY_COOLDOWN_S``), as the JAX engine's config does; a flag wins
+over the environment. Before ``/health`` answers, the server warms up as
+the JAX one does: a 4-token prompt generates 2 greedy tokens (the
+"compile" phase of ``llm_cold_start_seconds``); ``--no-warmup`` skips it. The serving role (prefill, decode or both) comes
 from ``LLMK_ROLE`` alone, and the engine's fair-queue config from
 ``LLMK_QOS``, JSON as the JAX CLI reads it: ``{"weights": {"alice": 4},
 "priorities": {"bulk": "batch"}, "default_priority": "normal",
@@ -25,8 +35,7 @@ it win, else the vocabulary and chat template it embeds), or a
 HuggingFace repo id or registry name whose snapshot is in the local HF
 cache. Nothing is downloaded. Missing weights are a startup failure: the
 process exits 1 and names ``--random-weights``, which serves seeded random
-weights at the model's full width instead. The engine defaults are
-``EngineConfig``'s.
+weights at the model's full width instead.
 
 SIGTERM drains the server: ``/ready`` answers 503 (routers eject the
 replica), new requests get 503, and the process exits 0 once the requests
@@ -72,12 +81,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--random-weights", action="store_true",
                    help="serve seeded random weights instead of a checkpoint")
     p.add_argument("--seed", type=int, default=d.seed)
-    p.add_argument("--max-decode-slots", type=int, default=d.max_decode_slots)
-    p.add_argument("--num-pages", type=int, default=d.num_pages)
-    p.add_argument("--page-size", type=int, default=d.page_size)
-    p.add_argument("--pages-per-slot", type=int, default=d.pages_per_slot)
-    p.add_argument("--prefill-buckets", type=_buckets,
-                   default=",".join(str(b) for b in d.prefill_buckets))
+    # the JAX serve's pool and buckets (cli._add_serve), not EngineConfig's
+    p.add_argument("--max-decode-slots", type=int, default=8)
+    p.add_argument("--num-pages", type=int, default=2048)
+    p.add_argument("--page-size", type=int, default=64)
+    p.add_argument("--pages-per-slot", type=int, default=64)
+    p.add_argument("--prefill-buckets", type=_buckets, default="256,1024,4096")
     p.add_argument("--decode-steps", type=int, default=None,
                    help="tokens a decode window runs (default: env LLMK_DECODE_STEPS, "
                         "else 4)")
@@ -119,6 +128,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="on-device adapter slots (LRU-recycled)")
     p.add_argument("--adapter-rank", type=_positive_int, default=d.adapter_rank,
                    help="max LoRA rank the device stacks are sized for")
+    p.add_argument("--no-ledger", dest="ledger", action="store_false", default=None,
+                   help="disable the goodput ledger (per-request chip-time attribution, "
+                        "MFU/MBU gauges, per-tenant chip-seconds; default: env "
+                        "LLMK_LEDGER, else on)")
+    p.add_argument("--no-anomaly-profile", dest="anomaly_profile", action="store_false",
+                   default=None,
+                   help="disable the step-time anomaly watchdog's automatic profiler "
+                        "captures (default: env LLMK_ANOMALY_PROFILE, else on)")
+    p.add_argument("--anomaly-z", type=float, default=None,
+                   help="z-score a dispatch's device time must exceed to count as "
+                        "anomalous (default: env LLMK_ANOMALY_Z, else 4.0)")
+    p.add_argument("--anomaly-cooldown-s", type=float, default=None,
+                   help="minimum seconds between automatic profiler captures (default: "
+                        "env LLMK_ANOMALY_COOLDOWN_S, else 600)")
+    p.add_argument("--no-warmup", dest="warmup", action="store_false", default=True,
+                   help="skip the warm-up generation before /health answers (the first "
+                        "request then pays the first prefill and window)")
     return ap
 
 
@@ -165,7 +191,9 @@ def engine_config_from_args(args):
         kv_host_cache_gb=args.kv_host_cache_gb, speculation=args.speculation,
         draft_model=args.draft_model, seed=args.seed, device=args.device,
         adapters=adapters_from_args(args), adapter_slots=args.adapter_slots,
-        adapter_rank=args.adapter_rank, **qos_from_env())
+        adapter_rank=args.adapter_rank, ledger=args.ledger,
+        anomaly_profile=args.anomaly_profile, anomaly_z=args.anomaly_z,
+        anomaly_cooldown_s=args.anomaly_cooldown_s, **qos_from_env())
 
 
 def main(argv=None) -> int:
@@ -190,5 +218,5 @@ def main(argv=None) -> int:
         cfg = engine_config_from_args(args)
         serve(args.model, host=args.host, port=args.port, device=args.device,
               random_weights=args.random_weights, served_model_name=args.served_model_name,
-              engine_config=cfg, model_dir=model_dir)
+              engine_config=cfg, model_dir=model_dir, warmup=args.warmup)
     return 0

@@ -3,9 +3,10 @@
 A framework-free copy of the JAX package's ``ModelConfig``, its registry
 and ``from_hf_config`` (a HuggingFace ``config.json`` to a ``ModelConfig``,
 with every guard the JAX one has), kept here so the port never imports the
-JAX package. The registry lists every dense text entry of the JAX one;
-the MoE entries (``mixtral-8x7b``, ``qwen3-30b-a3b``, ``debug-moe``) and
-the multimodal debug entries wait for the MoE block and the vision tower.
+JAX package. The registry lists every text entry of the JAX one, dense
+and MoE (``mixtral-8x7b``, ``qwen3-30b-a3b``, ``debug-moe``: the port's
+MoE block is ``ops/moe.py``); the multimodal debug entries wait for the
+vision tower.
 ``VisionConfig`` is a copy of the JAX dataclass's fields, so that
 ``from_hf_config`` describes a multimodal checkpoint as the JAX one does;
 the port loads no vision tower (``engine/weights.load_hf_params`` refuses
@@ -204,6 +205,16 @@ _register(
 )
 _register(
     ModelConfig(
+        "mixtral-8x7b",
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
+        rope_theta=1000000.0, max_position_embeddings=32768,
+        num_experts=8, num_experts_per_tok=2,
+    ),
+    "mistralai/Mixtral-8x7B-v0.1", "mistralai/Mixtral-8x7B-Instruct-v0.1",
+)
+_register(
+    ModelConfig(
         "phi-3-mini",
         vocab_size=32064, hidden_size=3072, intermediate_size=8192,
         num_layers=32, num_heads=32, num_kv_heads=32, head_dim=96,
@@ -231,6 +242,19 @@ _register(
         qk_norm=True, rms_norm_eps=1e-6,
     ),
     "Qwen/Qwen3-8B",
+)
+# Text backbone of the reference's second default model (Qwen3-VL-30B):
+# the Qwen3-MoE decoder, 128 experts, top-8, q/k norms.
+_register(
+    ModelConfig(
+        "qwen3-30b-a3b",
+        vocab_size=151936, hidden_size=2048, intermediate_size=768,
+        num_layers=48, num_heads=32, num_kv_heads=4, head_dim=128,
+        rope_theta=1000000.0, max_position_embeddings=40960,
+        qk_norm=True, rms_norm_eps=1e-6,
+        num_experts=128, num_experts_per_tok=8,
+    ),
+    "Qwen/Qwen3-30B-A3B",
 )
 _register(
     ModelConfig(
@@ -293,6 +317,15 @@ _register(
         qk_norm=True, embedding_multiplier=8.0, tie_word_embeddings=True,
         sliding_window=8, sliding_window_pattern=2, rope_local_theta=10000.0,
         rope_theta=1000000.0, query_pre_attn_scalar=24.0,
+    ),
+)
+
+_register(
+    ModelConfig(
+        "debug-moe",
+        vocab_size=256, hidden_size=64, intermediate_size=96,
+        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+        max_position_embeddings=512, num_experts=4, num_experts_per_tok=2,
     ),
 )
 

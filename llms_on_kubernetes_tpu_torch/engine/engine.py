@@ -204,6 +204,7 @@ from llms_on_kubernetes_tpu_torch.configs import (
 )
 from llms_on_kubernetes_tpu_torch.engine.cache import (
     CacheConfig, HostKVCache, PageAllocator, as_pool_view, init_pages, payload_shape_ok,
+    torch_dtype,
 )
 from llms_on_kubernetes_tpu_torch.engine.graphs import (
     ADP, BIAS, BUD, DEC_COLS, FLOATS, FSM, LEN, LOGIT_BIAS_SLOTS, PRE_ROW, SEED, SRC, SRC_HOST,
@@ -222,6 +223,7 @@ from llms_on_kubernetes_tpu_torch.models.decoder import (
     forward_chunk, forward_prefill, forward_score, init_params,
 )
 from llms_on_kubernetes_tpu_torch.ops.lora import LoRAStack, lora_zeros
+from llms_on_kubernetes_tpu_torch.ops.moe import MoEWorkspace
 from llms_on_kubernetes_tpu_torch.ops.paged_attention import DecodeWorkspace
 from llms_on_kubernetes_tpu_torch.ops.quant import SUPPORTED_QUANTIZATIONS, quantize_params
 
@@ -804,6 +806,12 @@ def _rebuild_count_rows(counts: torch.Tensor, tokens: torch.Tensor, slots: torch
     counts[rows] = torch.where((lengths > 0)[:, None], row, existing)
 
 
+def _wasted(led: list) -> int:
+    """A window's planned row-steps that no token came out of: the ledger
+    rows booked as anything but "decode" (early exit, speculative waste)."""
+    return sum(n for _req, phase, n in led if phase != "decode")
+
+
 def model_config_for(model: str, model_dir: Optional[str] = None) -> ModelConfig:
     """The model's config: the registry's entry for a registry name or HF
     alias, else (a checkpoint directory) ``from_hf_config`` of its
@@ -836,6 +844,11 @@ class Engine:
                                          dtype=engine_config.dtype,
                                          quantization=engine_config.quantization)
         else:   # random weights (tests, smoke runs)
+            if cfg.is_moe and engine_config.quantization is not None:
+                from llms_on_kubernetes_tpu_torch.engine.weights import moe_quantization_refusal
+
+                raise NotImplementedError(
+                    moe_quantization_refusal(cfg, engine_config.quantization))
             self.params = init_params(cfg, seed=engine_config.seed,
                                       dtype=engine_config.dtype, device=self.device)
             if engine_config.quantization is not None:
@@ -892,6 +905,14 @@ class Engine:
         # the decode kernels' scratch, this engine's own: its captured
         # window holds the buffers' addresses
         self.workspace = DecodeWorkspace()
+        # the expert kernel's scratch (MoE models on a card), sized once for
+        # the largest forward: admit_batch rows of the largest bucket
+        self.moe_workspace: Optional[MoEWorkspace] = None
+        if cfg.is_moe and self.device.type == "cuda":
+            rows = engine_config.admit_batch * max(engine_config.prefill_buckets)
+            rows = max(rows, B * engine_config.decode_steps) * cfg.num_experts_per_tok
+            self.moe_workspace = MoEWorkspace(rows, cfg.hidden_size, cfg.intermediate_size,
+                                              torch_dtype(engine_config.dtype), self.device)
         self.prefill_calls = 0       # forward_prefill calls (one per bucket batch)
         self.chunk_calls = 0         # forward_chunk calls (one per chunk)
         self.decode_forwards = 0     # forward_decode calls (K per window)
@@ -902,8 +923,11 @@ class Engine:
         self.spec_dispatches = 0
         self.spec_drafted_tokens = 0
         self.spec_accepted_tokens = 0
-        # per-dispatch consumed window depth (the most tokens a row took)
+        # per-dispatch consumed window depth (the most tokens a row took),
+        # and planned row-steps a window wasted (a row that finished,
+        # aborted or was rejected mid-window), as the JAX engine counts them
         self.steps_obs: "collections.deque[int]" = collections.deque(maxlen=4096)
+        self.early_exit_steps = 0
         self.preemptions = 0         # KV-pressure preemptions
         # set by _shed_wedged() when a device step outlasted the watchdog
         # budget: submit() refuses from then on and the server turns /health
@@ -917,7 +941,7 @@ class Engine:
         # the window, captured on a card before the harvester starts
         self._window = DecodeWindow(
             self.params, cfg, self.k_pages, self.v_pages, self.token_counts, self.workspace,
-            decode_steps=engine_config.decode_steps, slots=B,
+            moe_workspace=self.moe_workspace, decode_steps=engine_config.decode_steps, slots=B,
             pages_per_slot=engine_config.pages_per_slot,
             admit_rows=engine_config.admit_batch, seed=engine_config.seed,
             kv_write=engine_config.kv_write, device=self.device)
@@ -996,6 +1020,11 @@ class Engine:
         shapes = {"wq": ((D,), (H, hd)), "wk": ((D,), (KV, hd)), "wv": ((D,), (KV, hd)),
                   "wo": ((H, hd), (D,)), "w_gate": ((D,), (F,)), "w_up": ((D,), (F,)),
                   "w_down": ((F,), (D,))}
+        if cfg.is_moe and any(t.startswith("w_") for t in ec.adapter_targets):
+            raise ValueError(
+                f"adapter_targets {ec.adapter_targets} include MLP projections, but "
+                f"{cfg.name!r} is MoE (per-expert LoRA is not supported); use "
+                f"attention-only targets")
         S, r = ec.adapter_slots, ec.adapter_rank
         layers = dict(self.params["layers"])
         for t in ec.adapter_targets:
@@ -1345,7 +1374,8 @@ class Engine:
         tokens[0, :n] = prompt
         nxt_lp, top_ids, top_lp = forward_score(
             self.params, self.model_config, upload(tokens, self.device),
-            upload(np.array([n], np.int32), self.device), top_k=LOGPROB_TOPK)
+            upload(np.array([n], np.int32), self.device), top_k=LOGPROB_TOPK,
+            moe_workspace=self.moe_workspace)
         return (nxt_lp[0, :n - 1].cpu().tolist(), top_ids[0, :n].cpu().tolist(),
                 top_lp[0, :n].cpu().tolist())
 
@@ -1682,7 +1712,8 @@ class Engine:
         _rebuild_count_rows(self.token_counts, tokens, slots, history, prompt_len, lengths,
                             reset)
         logits, _, _ = forward_prefill(self.params, self.model_config, tokens, lengths,
-                                       self.k_pages, self.v_pages, page_table, adp)
+                                       self.k_pages, self.v_pages, page_table, adp,
+                                       moe_workspace=self.moe_workspace)
         self.prefill_calls += 1
         return self._sample_first(logits, lengths, top_k, seeds, fl, bias, slots, fsm, lengths)
 
@@ -1708,7 +1739,8 @@ class Engine:
             _rebuild_count_rows(self.token_counts, tokens, slots, history, prompt_len,
                                 lengths, reset)
             logits, _, _ = forward_chunk(self.params, self.model_config, tokens, history,
-                                         lengths, self.k_pages, self.v_pages, page_table, adp)
+                                         lengths, self.k_pages, self.v_pages, page_table, adp,
+                                         moe_workspace=self.moe_workspace)
             self.chunk_calls += 1
             pos += m
         return self._sample_first(logits, history + lengths, top_k, seeds, fl, bias, slots,
@@ -1860,6 +1892,7 @@ class Engine:
         self._book(t_launch, time.monotonic(), led, window=self.config.decode_steps)
         self.decode_dispatches += 1
         self.steps_obs.append(most)
+        self.early_exit_steps += _wasted(led)
         return events + emitted
 
     # ------------------------------------------------------------------
@@ -2192,6 +2225,7 @@ class Engine:
                        window=self.config.decode_steps)
             self.decode_dispatches += 1
             self.steps_obs.append(most)
+            self.early_exit_steps += _wasted(led)
             if step.spec:
                 drafted_n = sum(step.drafted.values())
                 self.spec_dispatches += 1

@@ -189,7 +189,8 @@ def unpack_results(packed: np.ndarray) -> tuple:
 def decode_window(params: dict, cfg, K: int, packed: torch.Tensor,
                   last_toks: torch.Tensor, prefill_toks: torch.Tensor, k_pages, v_pages,
                   counts: torch.Tensor, *, seed: int, kv_write: str = "dus",
-                  workspace=None, fsm=None) -> tuple[torch.Tensor, torch.Tensor]:
+                  workspace=None, fsm=None, moe_workspace=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """One fused window of up to K tokens per row.
 
     ``packed`` [B, DEC_COLS + pages_per_slot] int32 (see the columns
@@ -234,7 +235,7 @@ def decode_window(params: dict, cfg, K: int, packed: torch.Tensor,
                                  alive.to(counts.dtype))
         logits, _, _ = forward_decode(params, cfg, cur, lengths, k_pages, v_pages, page_table,
                                       kv_write=kv_write, workspace=workspace,
-                                      adapter_idx=packed[:, ADP])
+                                      adapter_idx=packed[:, ADP], moe_workspace=moe_workspace)
         noise = gumbel_noise(seed, seeds, lengths, C)
         allowed = None
         if fsm is not None:
@@ -277,7 +278,7 @@ def verify_rows(packed: np.ndarray, drafts: np.ndarray) -> np.ndarray:
 
 def verify_window(params: dict, cfg, K: int, packed: torch.Tensor, k_pages, v_pages,
                   counts: torch.Tensor, *, seed: int,
-                  fsm=None) -> tuple[torch.Tensor, torch.Tensor]:
+                  fsm=None, moe_workspace=None) -> tuple[torch.Tensor, torch.Tensor]:
     """One speculative verify dispatch (the JAX ``_decode_spec_packed_step``).
 
     ``packed`` [B, DEC_COLS + pages_per_slot + K - 1]: a window's columns
@@ -319,7 +320,8 @@ def verify_window(params: dict, cfg, K: int, packed: torch.Tensor, k_pages, v_pa
     window = torch.cat([toks0[:, None], drafts.clamp(min=0)], dim=1)
     history = (lengths0 - 1).clamp(min=0)
     logits_all, _, _ = forward_verify(params, cfg, window, history, w, k_pages, v_pages,
-                                      page_table, adapter_idx=packed[:, ADP])
+                                      page_table, adapter_idx=packed[:, ADP],
+                                      moe_workspace=moe_workspace)
     row_base = torch.arange(B, device=packed.device) * V
     flat_counts = counts.view(-1)
     C = min(MAX_CANDIDATES, cfg.vocab_size)
@@ -385,10 +387,12 @@ class DecodeWindow:
 
     def __init__(self, params: dict, model_config, k_pages, v_pages, counts: torch.Tensor,
                  workspace, *, decode_steps: int, slots: int, pages_per_slot: int,
-                 admit_rows: int, seed: int, kv_write: str, device: torch.device):
+                 admit_rows: int, seed: int, kv_write: str, device: torch.device,
+                 moe_workspace=None):
         self.params, self.model_config = params, model_config
         self.k_pages, self.v_pages, self.counts = k_pages, v_pages, counts
         self.workspace = workspace
+        self.moe_workspace = moe_workspace
         self.K, self.B, self.pages_per_slot = decode_steps, slots, pages_per_slot
         self.seed, self.kv_write, self.device = seed, kv_write, device
         self.admit_rows = admit_rows
@@ -417,14 +421,16 @@ class DecodeWindow:
             self.v_pages if v_pages is None else v_pages,
             self.counts if counts is None else counts,
             seed=self.seed, kv_write=self.kv_write,
-            workspace=self.workspace if workspace is None else workspace, fsm=fsm)
+            workspace=self.workspace if workspace is None else workspace, fsm=fsm,
+            moe_workspace=self.moe_workspace)
 
     def _vcall(self, packed, k_pages=None, v_pages=None, counts=None, fsm=None):
         return verify_window(
             self.params, self.model_config, self.K, packed,
             self.k_pages if k_pages is None else k_pages,
             self.v_pages if v_pages is None else v_pages,
-            self.counts if counts is None else counts, seed=self.seed, fsm=fsm)
+            self.counts if counts is None else counts, seed=self.seed, fsm=fsm,
+            moe_workspace=self.moe_workspace)
 
     def _warm_up(self, fsm=None) -> None:
         """K eager steps with every row idle on a side stream (the

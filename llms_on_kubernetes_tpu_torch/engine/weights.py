@@ -10,7 +10,13 @@ one's dense families: llama, mistral and tinyllama (one key schema), qwen2
 (attention biases), qwen3 (q/k norms), phi3 (fused ``qkv_proj`` and
 ``gate_up_proj``, split here) and gemma2/3 (four norms a layer), with the
 ``model.language_model.*`` nesting of gemma-3's multimodal checkpoints
-seen through. MoE and vision towers raise NotImplementedError.
+seen through, and both MoE namings (Mixtral's ``block_sparse_moe.{gate,
+experts.N.w1/w2/w3}``, Qwen3-MoE's ``mlp.{gate, experts.N.*_proj}``):
+each expert's tensors go to the device as stored and are transposed and
+stacked there into ``[E, D, F]`` / ``[E, F, D]``, a layer at a time. A
+vision tower raises NotImplementedError, and so does any quantization of
+an MoE checkpoint (int8 expert weights and AWQ MoE are ROADMAP queue 1
+items 3a and 3b).
 
 Quantized weights (``ops/quant.py``), as the JAX loader makes them:
 ``quantization="int8"`` quantizes the matmul weights layer by layer from
@@ -221,6 +227,20 @@ def hf_layer_maps(cfg: ModelConfig, fetch: _Fetch, i: int,
         out["mlp_norm"] = fetch(p + "post_attention_layernorm.weight")
 
     # --- mlp ------------------------------------------------------------
+    if cfg.is_moe:
+        if fetch.has(p + "block_sparse_moe.gate.weight"):
+            # Mixtral: block_sparse_moe.{gate, experts.N.w1 (gate) / w3 (up) / w2 (down)}
+            router, ep, names = "block_sparse_moe.gate.weight", "block_sparse_moe.experts.", \
+                ("w1", "w3", "w2")
+        else:
+            # Qwen3-MoE: mlp.{gate, experts.N.gate_proj / up_proj / down_proj}
+            router, ep, names = "mlp.gate.weight", "mlp.experts.", \
+                ("gate_proj", "up_proj", "down_proj")
+        out["router"] = fetch.linear(p + router)                       # [D, E]
+        for key, name in zip(("w_gate", "w_up", "w_down"), names):
+            out[key] = torch.stack([fetch.linear(p + f"{ep}{e}.{name}.weight")
+                                    for e in range(cfg.num_experts)])
+        return out
     if {"w_gate", "w_up"} <= pre.keys():
         pass
     elif fetch.has(p + "mlp.gate_proj.weight"):
@@ -282,6 +302,14 @@ def checkpoint_quantization(model_dir) -> Optional[dict]:
                      f"(supported: compressed-tensors fp8, awq)")
 
 
+def moe_quantization_refusal(cfg: ModelConfig, quantization: str) -> str:
+    """Why a quantized MoE model is refused: the port's expert kernel
+    takes bf16 weights only."""
+    return (f"{cfg.name}: {quantization} weights of an MoE model are not ported yet "
+            f"(ROADMAP queue 1 item 3a: int8 expert weights through a grouped W8A16; "
+            f"item 3b: AWQ MoE)")
+
+
 def load_hf_params(cfg: ModelConfig, model_dir, device="cuda", dtype: Optional[str] = None,
                    quantization: Optional[str] = None) -> Params:
     """Load a HF checkpoint directory into the decoder's parameters on
@@ -292,20 +320,21 @@ def load_hf_params(cfg: ModelConfig, model_dir, device="cuda", dtype: Optional[s
     with the JAX loader's bytes and scales; from an AWQ checkpoint, the
     linears stored packed are ``GroupQTensor``s (stacked on the device a
     layer at a time) and the rest int8 ``QTensor``s, with the JAX loader's
-    bytes. Raises NotImplementedError for MoE and vision checkpoints,
-    ValueError for an unknown
+    bytes. An MoE checkpoint's router and expert stacks are the JAX
+    loader's ``router`` [L, D, E], ``w_gate``/``w_up`` [L, E, D, F] and
+    ``w_down`` [L, E, F, D]. Raises NotImplementedError for vision
+    checkpoints and for a quantized MoE one, ValueError for an unknown
     ``quantization`` or one the checkpoint is not, FileNotFoundError for a
     directory without ``*.safetensors``, KeyError for a missing tensor."""
     if quantization not in SUPPORTED_QUANTIZATIONS:
         raise ValueError(f"unknown quantization {quantization!r} "
                          f"(supported: {[q for q in SUPPORTED_QUANTIZATIONS if q]})")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE checkpoints are not loaded yet (the port has no MoE block)")
     if cfg.vision is not None:
         raise NotImplementedError(
             f"{cfg.name}: the checkpoint has a vision tower, which the port does not load yet")
     quant = checkpoint_quantization(model_dir)
+    if cfg.is_moe and (quantization is not None or quant is not None):
+        raise NotImplementedError(moe_quantization_refusal(cfg, quantization or quant["method"]))
     if quantization in ("fp8", "awq"):
         found = quant["method"] if quant else None
         if found != quantization:

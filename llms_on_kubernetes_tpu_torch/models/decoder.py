@@ -31,7 +31,18 @@ position's logits to the next token's logprob and the top-k. The verify
 pass (``forward_verify``, speculative decoding) is the chunk pass with the
 logits of every window position.
 
-Not ported yet: MoE, vision.
+MoE layers (``cfg.is_moe``: Mixtral, Qwen3-MoE) replace the MLP with
+``ops/moe.moe_block``: the router, the routed expert FFN (the
+``csrc/moe_experts.cu`` kernel on a card) and the combine. Which tokens
+claim experts is ``token_valid`` [B, T], as in the JAX decoder: by default
+the rows that write KV (``write_positions >= 0``), for the chunk and verify
+passes the rows inside ``lengths``, and for the score pass (whose writes
+all go to the trash page) ``positions < lengths``; padding and idle rows
+claim no expert capacity and get a zero MLP. ``moe_workspace``: the
+engine's ``MoEWorkspace`` (the expert kernel's scratch), else allocated per
+call.
+
+Not ported yet: vision.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from llms_on_kubernetes_tpu_torch.ops.attention import (
 from llms_on_kubernetes_tpu_torch.ops.norms import rms_norm
 from llms_on_kubernetes_tpu_torch.ops.paged_write import dispatch_write_window
 from llms_on_kubernetes_tpu_torch.ops.lora import lora_delta_flat
+from llms_on_kubernetes_tpu_torch.ops.moe import moe_block
 from llms_on_kubernetes_tpu_torch.ops.quant import GroupQTensor, QTensor, w4_matmul, w8_matmul
 from llms_on_kubernetes_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -74,9 +86,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype: Optional[str] = None,
     """Random-init parameters with the JAX ``init_params`` shapes and scales
     (normal * scale, cast to ``dtype``), drawn from a ``torch.Generator``
     seeded with ``seed`` on the target device. Stacked tensors are drawn one
-    layer at a time, so the float32 draw never holds a whole stack."""
-    if cfg.is_moe or cfg.vision is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE and vision models are not ported yet")
+    layer at a time (an MoE stack one expert at a time), so the float32
+    draw never holds a whole stack."""
+    if cfg.vision is not None:
+        raise NotImplementedError(f"{cfg.name}: vision models are not ported yet")
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     gen = torch.Generator(device=dev)
@@ -84,11 +97,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype: Optional[str] = None,
     L, D, Fd = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     H, KV, hd, V = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size
 
-    def init(*shape, scale=None):
+    def init(*shape, scale=None, experts=False):
         s = scale if scale is not None else 1.0 / math.sqrt(
             shape[-2] if len(shape) > 1 else shape[-1])
         out = torch.empty(shape, dtype=dt, device=dev)
         parts = out if len(shape) > 2 else [out]
+        if experts:
+            parts = out.view(-1, *shape[-2:])
         for part in parts:
             x = torch.randn(part.shape, generator=gen, device=dev, dtype=torch.float32)
             part.copy_(x.mul_(s))
@@ -106,9 +121,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype: Optional[str] = None,
         "wv": init(L, D, KV, hd, scale=D ** -0.5),
         "wo": init(L, H, hd, D, scale=(H * hd) ** -0.5),
         "mlp_norm": norm(L, D),
-        "w_gate": init(L, D, Fd, scale=D ** -0.5),
-        "w_up": init(L, D, Fd, scale=D ** -0.5),
-        "w_down": init(L, Fd, D, scale=Fd ** -0.5),
     }
     if cfg.attention_bias:
         layers["bq"] = torch.zeros((L, H, hd), dtype=dt, device=dev)
@@ -120,6 +132,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype: Optional[str] = None,
     if cfg.post_norms:
         layers["attn_post_norm"] = norm(L, D)
         layers["mlp_post_norm"] = norm(L, D)
+    if cfg.is_moe:
+        E = cfg.num_experts
+        layers["router"] = init(L, D, E, scale=D ** -0.5)
+        layers["w_gate"] = init(L, E, D, Fd, scale=D ** -0.5, experts=True)
+        layers["w_up"] = init(L, E, D, Fd, scale=D ** -0.5, experts=True)
+        layers["w_down"] = init(L, E, Fd, D, scale=Fd ** -0.5, experts=True)
+    else:
+        layers["w_gate"] = init(L, D, Fd, scale=D ** -0.5)
+        layers["w_up"] = init(L, D, Fd, scale=D ** -0.5)
+        layers["w_down"] = init(L, Fd, D, scale=Fd ** -0.5)
     params: Params = {
         "embed": init(V, D, scale=1.0),
         "final_norm": norm(D),
@@ -193,7 +215,15 @@ def _qkv(lp: Params, cfg: ModelConfig, h: torch.Tensor, adapter_idx=None):
     return q, k, v
 
 
-def _mlp(lp: Params, cfg: ModelConfig, h: torch.Tensor, adapter_idx=None) -> torch.Tensor:
+def _mlp(lp: Params, cfg: ModelConfig, h: torch.Tensor, token_valid: torch.Tensor,
+         adapter_idx=None, moe_workspace=None) -> torch.Tensor:
+    if cfg.is_moe:
+        B, T, D = h.shape
+        out = moe_block(h.reshape(B * T, D), lp["router"], lp["w_gate"], lp["w_up"],
+                        lp["w_down"], top_k=cfg.num_experts_per_tok,
+                        capacity_factor=cfg.moe_capacity_factor, act=_act(cfg),
+                        valid=token_valid.reshape(B * T), workspace=moe_workspace)
+        return out.reshape(B, T, D)
     gate = _act(cfg)(_lproj(lp, "w_gate", h, 1, adapter_idx))
     up = _lproj(lp, "w_up", h, 1, adapter_idx)
     return _lproj(lp, "w_down", gate * up, 1, adapter_idx)
@@ -202,10 +232,11 @@ def _mlp(lp: Params, cfg: ModelConfig, h: torch.Tensor, adapter_idx=None) -> tor
 def _layer_step(cfg: ModelConfig, inv_freq, page_table, positions, write_positions,
                 lengths, mode: str, x, lp: Params, k_pages, v_pages,
                 window: Optional[int], kv_write: str = "dus", workspace=None,
-                adapter_idx=None):
+                adapter_idx=None, token_valid=None, moe_workspace=None):
     """One transformer layer. ``page_table`` holds GLOBAL page ids (the
     caller added this layer's block offset); the pools are updated in
-    place. Returns the new residual stream."""
+    place. ``token_valid`` [B, T]: the tokens an MoE layer routes. Returns
+    the new residual stream."""
     scale = (cfg.query_pre_attn_scalar or cfg.head_dim) ** -0.5
     h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
     q, k, v = _qkv(lp, cfg, h, adapter_idx)
@@ -235,7 +266,7 @@ def _layer_step(cfg: ModelConfig, inv_freq, page_table, positions, write_positio
         out = rms_norm(out, lp["attn_post_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
     x = x + out
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
-    m = _mlp(lp, cfg, h, adapter_idx)
+    m = _mlp(lp, cfg, h, token_valid, adapter_idx, moe_workspace)
     if cfg.post_norms:
         m = rms_norm(m, lp["mlp_post_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
     return x + m
@@ -243,10 +274,12 @@ def _layer_step(cfg: ModelConfig, inv_freq, page_table, positions, write_positio
 
 def _run_layers(cfg: ModelConfig, params: Params, x, k_pages, v_pages, page_table,
                 positions, write_positions, lengths, mode: str, kv_write: str = "dus",
-                workspace=None, adapter_idx=None):
+                workspace=None, adapter_idx=None, token_valid=None, moe_workspace=None):
     kd = getattr(k_pages, "data", k_pages)
     pages_per_layer = kd.shape[1] // cfg.num_layers
     inv_freq = _inv_freq(cfg, x.device, False)
+    if token_valid is None and cfg.is_moe:
+        token_valid = write_positions >= 0      # the rows that write KV route
     layers = params["layers"]
     for idx in range(cfg.num_layers):
         # Gemma-2/3 interleaved attention: layer idx is global iff
@@ -261,7 +294,8 @@ def _run_layers(cfg: ModelConfig, params: Params, x, k_pages, v_pages, page_tabl
         lp = {name: w[idx] for name, w in layers.items()}
         x = _layer_step(cfg, freqs, page_table + idx * pages_per_layer, positions,
                         write_positions, lengths, mode, x, lp, k_pages, v_pages,
-                        window, kv_write, workspace, adapter_idx)
+                        window, kv_write, workspace, adapter_idx, token_valid,
+                        moe_workspace)
     return x
 
 
@@ -300,7 +334,7 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     lengths: torch.Tensor, k_pages, v_pages, page_table: torch.Tensor,
-                    adapter_idx: Optional[torch.Tensor] = None):
+                    adapter_idx: Optional[torch.Tensor] = None, moe_workspace=None):
     """Process whole prompts: tokens [B, T] (a padded bucket), lengths [B]
     int32 (0 => inactive row), page_table [B, pages_per_seq] per-layer-local
     ids; adapter_idx [B] int32 each row's LoRA slot (-1: base; None: no
@@ -311,7 +345,8 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     write_positions = torch.where(positions < lengths[:, None], positions, -1)
     x = _embed(params, cfg, tokens)
     x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions,
-                    write_positions, lengths, "prefill", adapter_idx=adapter_idx)
+                    write_positions, lengths, "prefill", adapter_idx=adapter_idx,
+                    moe_workspace=moe_workspace)
     last = (lengths.long() - 1).clamp(0, T - 1)
     x_last = x[torch.arange(B, device=x.device), last]
     return _logits(params, cfg, x_last), k_pages, v_pages
@@ -322,7 +357,7 @@ SCORE_SLAB = 512
 
 
 def forward_score(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                  lengths: torch.Tensor, top_k: int = 8):
+                  lengths: torch.Tensor, top_k: int = 8, moe_workspace=None):
     """Score a prompt (the JAX ``forward_score``): per position, the logprob
     of the NEXT prompt token and the top-k alternatives, which the serving
     prefill cannot give (it keeps the last position's logits only).
@@ -348,8 +383,11 @@ def forward_score(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     v_pages = KVPool(torch.zeros(dummy, dtype=torch.float32, device=dev))
     page_table = torch.zeros((B, 1), dtype=torch.int32, device=dev)
     x = _embed(params, cfg, tokens)
+    # an MoE layer routes the tokens inside lengths: every write goes to
+    # the trash page, so write_positions >= 0 would zero the whole MLP
     x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions,
-                    write_positions, lengths, "prefill")
+                    write_positions, lengths, "prefill",
+                    token_valid=positions < lengths[:, None], moe_workspace=moe_workspace)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
     V = cfg.vocab_size
     nxt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
@@ -378,7 +416,7 @@ def forward_score(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    lengths: torch.Tensor, k_pages, v_pages, page_table: torch.Tensor,
                    kv_write: str = "dus", workspace=None,
-                   adapter_idx: Optional[torch.Tensor] = None):
+                   adapter_idx: Optional[torch.Tensor] = None, moe_workspace=None):
     """One decode step for every slot: tokens [B], lengths [B] int32
     INCLUDING the new token (0 => idle slot). Appends each active slot's KV
     in place (``kv_write`` "dus": ``write_tokens`` then the decode kernel;
@@ -390,13 +428,15 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens[:, None])
     x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions,
                     write_positions, lengths, "decode", kv_write=kv_write,
-                    workspace=workspace, adapter_idx=adapter_idx)
+                    workspace=workspace, adapter_idx=adapter_idx,
+                    moe_workspace=moe_workspace)
     return _logits(params, cfg, x[:, 0]), k_pages, v_pages
 
 
 def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   history: torch.Tensor, lengths: torch.Tensor, k_pages, v_pages,
-                  page_table: torch.Tensor, adapter_idx: Optional[torch.Tensor] = None):
+                  page_table: torch.Tensor, adapter_idx: Optional[torch.Tensor] = None,
+                  moe_workspace=None):
     """Chunked prefill: one chunk of a prompt whose earlier tokens are
     already in the paged cache (earlier chunks, or an adopted cached
     prefix). tokens [B, T] (a padded chunk); history [B] int32, the tokens
@@ -411,7 +451,8 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens)
     # the window write takes (history, lengths), not per-row write positions
     x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions, None,
-                    lengths, "chunk", adapter_idx=adapter_idx)
+                    lengths, "chunk", adapter_idx=adapter_idx,
+                    token_valid=offs < lengths[:, None], moe_workspace=moe_workspace)
     last = (lengths.long() - 1).clamp(0, T - 1)
     x_last = x[torch.arange(B, device=x.device), last]
     return _logits(params, cfg, x_last), k_pages, v_pages
@@ -419,7 +460,8 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def forward_verify(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    history: torch.Tensor, lengths: torch.Tensor, k_pages, v_pages,
-                   page_table: torch.Tensor, adapter_idx: Optional[torch.Tensor] = None):
+                   page_table: torch.Tensor, adapter_idx: Optional[torch.Tensor] = None,
+                   moe_workspace=None):
     """The speculative-decoding verify pass (the JAX ``forward_verify``):
     ``forward_chunk`` over a short candidate window, returning the logits
     at EVERY window position. tokens [B, T] (the committed token, then the
@@ -437,7 +479,8 @@ def forward_verify(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = history[:, None] + offs
     x = _embed(params, cfg, tokens)
     x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions, None,
-                    lengths, "chunk", adapter_idx=adapter_idx)
+                    lengths, "chunk", adapter_idx=adapter_idx,
+                    token_valid=offs < lengths[:, None], moe_workspace=moe_workspace)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
     logits = _logits(params, cfg, x.reshape(B * T, -1), normed=True)
     return logits.reshape(B, T, -1), k_pages, v_pages

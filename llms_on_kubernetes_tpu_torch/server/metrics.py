@@ -392,6 +392,18 @@ def engine_metrics(registry: Registry) -> dict:
             "(host-cached reloads are upload-only)",
             (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0, 60.0),
             registry),
+        "decode_steps_per_dispatch": Histogram(
+            "llm_decode_steps_per_dispatch",
+            "Decode steps consumed per device dispatch (fused multi-step "
+            "decode window depth; 1 = the single-step path)",
+            (1.0, 2.0, 4.0, 8.0, 16.0, 32.0), registry),
+        "decode_early_exit": Counter(
+            "llm_decode_early_exit_total",
+            "Planned decode row-steps wasted because a request finished "
+            "or aborted mid-window (fused multi-step decode early-exit "
+            "accounting; a high rate vs llm_tokens_generated_total means "
+            "decode_steps is oversized for typical generations)",
+            registry),
         "auto_profile": Counter(
             "llm_auto_profile_total",
             "Automatic bounded profiler captures triggered by the "

@@ -57,7 +57,11 @@ Endpoints, with the JAX server's shapes:
 - ``POST /debug/profile`` (``{"duration_ms"}``: one bounded capture of the
   live engine, ``server/profiling.py``; 409 while one runs), ``GET
   /debug/profile`` (the captures) and ``GET /debug/profile/{id}`` (one as
-  .tar.gz). When the ledger's anomaly detector fires, the loop takes one
+  .tar.gz); ``POST /debug/profile/start`` and ``/stop``, the JAX server's
+  manual session (started and stopped between engine steps, on the engine
+  thread; 409 for a start while a capture or session runs, a stop without
+  one, and a bounded capture during one; the stopped session is listed
+  and downloaded as a capture). When the ledger's anomaly detector fires, the loop takes one
   capture itself (``llm_auto_profile_total``, rate-limited by the
   detector's cooldown). ``/metrics`` adds the ledger's ``llm_mfu_ratio``,
   ``llm_mbu_ratio``, ``llm_chip_seconds_total{phase}`` and
@@ -126,9 +130,6 @@ Lifecycle: loading -> serving -> draining, with wedged (and killed)
 overriding all. ``begin_drain`` (SIGTERM in ``cli.py``) turns /ready to
 503, refuses new requests with 503 and lets in-flight work finish, at most
 ``EngineLoop.drain_timeout_s``.
-
-Not ported yet: LoRA routing, the manual ``/debug/profile/start`` and
-``/stop`` pair.
 """
 
 from __future__ import annotations
@@ -522,6 +523,7 @@ class EngineLoop(threading.Thread):
         self._tenant_admitted_seen: dict = {}
         self._host_kv_seen = {"hits": 0, "misses": 0, "evictions": 0}
         self._spec_seen = {"drafted": 0, "accepted": 0}
+        self._early_exit_seen = 0
         self._adapter_seen = {"hits": 0, "misses": 0, "evictions": 0}
 
     def _mlabel(self, r) -> str:
@@ -679,6 +681,12 @@ class EngineLoop(threading.Thread):
                     self._host_kv_seen[k] = v
         while eng.kv_upload_obs:
             m["kv_upload"].observe(eng.kv_upload_obs.popleft())
+        # window depth and early exit, as the JAX loop feeds them
+        while eng.steps_obs:
+            m["decode_steps_per_dispatch"].observe(eng.steps_obs.popleft())
+        if eng.early_exit_steps > self._early_exit_seen:
+            m["decode_early_exit"].inc(eng.early_exit_steps - self._early_exit_seen)
+            self._early_exit_seen = eng.early_exit_steps
         # speculation, by deltas of the engine's counters (the JAX loop's)
         drafted, accepted = eng.spec_drafted_tokens, eng.spec_accepted_tokens
         if drafted > self._spec_seen["drafted"]:
@@ -962,7 +970,14 @@ class OpenAIServer:
         # a capture in progress (one asked for, or the anomaly detector's)
         # stops the profiler through the engine loop: let it end first, else
         # the stop runs off the engine thread, leaks the thread's profiler
-        # callbacks and the process can crash at exit
+        # callbacks and the process can crash at exit. A manual session is
+        # stopped here, through the loop, while it still runs
+        if self.profiles.manual:
+            try:
+                self.profiles.stop_session()
+            except RuntimeError:
+                log.warning("manual profile session failed to stop:\n%s",
+                            traceback.format_exc())
         deadline = time.monotonic() + CLOSE_CAPTURE_WAIT_S
         while self.profiles.busy and time.monotonic() < deadline:
             time.sleep(0.01)
@@ -1567,6 +1582,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(200, {"launches": kernels.launch_counts()})
         elif self.path == "/debug/profile":
             self._profile_capture()
+        elif self.path == "/debug/profile/start":
+            self._profile_start()
+        elif self.path == "/debug/profile/stop":
+            self._profile_stop()
         elif self.path == "/internal/kv/fetch":
             self._kv_fetch()
         elif self.path in ("/tokenize", "/detokenize"):
@@ -1614,6 +1633,10 @@ class _Handler(BaseHTTPRequestHandler):
                 or duration_ms <= 0):
             self._json(400, {"error": {"message": "duration_ms must be a positive number"}})
             return
+        if self.app.profiles.manual:
+            self._json(409, {"error": {"message": "manual profiler session running "
+                                                  "(/debug/profile/stop first)"}})
+            return
         try:
             meta = self.app.profiles.capture(float(duration_ms))
         except ProfileError as e:
@@ -1623,6 +1646,39 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(409, {"error": {"message": "capture already in progress"}})
             return
         self._json(200, meta)
+
+    def _profile_start(self) -> None:
+        """POST /debug/profile/start (the JAX ``profile_start``): a manual
+        session until /debug/profile/stop; 409 while a capture or session
+        runs, 501 when the profiler cannot start."""
+        self._drain_body()
+        try:
+            self._json(200, self.app.profiles.start_session())
+        except ProfileError as e:
+            self._json(501, {"error": {"message": f"profiler unavailable: {e}"}})
+        except RuntimeError:
+            self._json(409, {"error": {"message": "profiler already running"}})
+
+    def _profile_stop(self) -> None:
+        """POST /debug/profile/stop (the JAX ``profile_stop``): ends the
+        manual session and answers with the capture's id and files; 409
+        without a session, 500 when the profiler cannot stop."""
+        self._drain_body()
+        try:
+            self._json(200, self.app.profiles.stop_session())
+        except ProfileError as e:
+            self._json(500, {"error": {"message": f"stop failed: {e}"}})
+        except RuntimeError:
+            self._json(409, {"error": {"message": "profiler not running"}})
+
+    def _drain_body(self) -> None:
+        """Read and drop a request body nobody needs."""
+        try:
+            n = self._body_length()
+        except BadRequest:
+            return
+        if n:
+            self.rfile.read(n)
 
     def _kv_fetch(self) -> None:
         """POST /internal/kv/fetch (the JAX ``kv_fetch``): a decode replica
@@ -2204,7 +2260,7 @@ def serve(model: str = "debug-tiny", *, host: str = "0.0.0.0", port: int = 8080,
           device: str = "cuda", random_weights: bool = False,
           served_model_name: Optional[str] = None,
           engine_config: Optional[EngineConfig] = None,
-          model_dir: Optional[str] = None) -> None:
+          model_dir: Optional[str] = None, warmup: bool = True) -> None:
     """Build the engine and serve until SIGTERM or SIGINT drains it.
     ``model`` is a registry name, a checkpoint directory, a HF id found
     in the local cache or a llama.cpp ``.gguf`` file (``_gguf_engine``:
@@ -2214,8 +2270,9 @@ def serve(model: str = "debug-tiny", *, host: str = "0.0.0.0", port: int = 8080,
     on a miss), or are seeded random with ``random_weights``. ``device``
     "cuda" (the default) raises without a GPU. The tokenizer is read
     first, then the CUDA kernels are built and the weights loaded onto the
-    device, all before the server binds, so ``/health`` answers only once
-    the model can serve.
+    device, and (``warmup``, as the JAX ``serve``) a 4-token prompt
+    generates 2 greedy tokens, all before the server binds, so ``/health``
+    answers only once the model has served.
 
     SIGTERM (and SIGINT) begins the drain: /ready answers 503, new requests
     get 503, and the process returns once the work in flight is done (at
@@ -2231,7 +2288,8 @@ def serve(model: str = "debug-tiny", *, host: str = "0.0.0.0", port: int = 8080,
         print(f"[serve] {model_config.name}: {source} on {dev.type} in {load_s:.1f} s",
               file=sys.stderr, flush=True)
         _serve_until_drained(OpenAIServer(engine, tokenizer, served_model_name,
-                                          cold_start={"load": load_s}), host, port)
+                                          cold_start=_warm_up(engine, load_s, warmup)),
+                             host, port)
         return
     if not random_weights and model_dir is None:
         model_dir = resolve_model_dir(model)
@@ -2250,7 +2308,25 @@ def serve(model: str = "debug-tiny", *, host: str = "0.0.0.0", port: int = 8080,
     print(f"[serve] {model_config.name}: {source} on {dev.type} in {load_s:.1f} s",
           file=sys.stderr, flush=True)
     _serve_until_drained(OpenAIServer(engine, tokenizer, served_model_name or model,
-                                      cold_start={"load": load_s}), host, port)
+                                      cold_start=_warm_up(engine, load_s, warmup)), host, port)
+
+
+def _warm_up(engine: Engine, load_s: float, warmup: bool) -> dict:
+    """The JAX ``serve``'s warm-up (cli.py ``--no-warmup``): a 4-token
+    prompt generates 2 greedy tokens through the engine before the server
+    takes traffic, so the first request does not pay for the first
+    prefill and window. Returns the cold-start phases: "load", and
+    "compile" (the warm-up's seconds) when it ran."""
+    phases = {"load": load_s}
+    if not warmup:
+        return phases
+    t0 = time.perf_counter()
+    req = engine.submit([1, 2, 3, 4], SamplingParams(temperature=0.0, max_tokens=2))
+    while not req.finished:
+        engine.step()
+    phases["compile"] = time.perf_counter() - t0
+    print(f"[serve] warmup complete in {phases['compile']:.1f} s", file=sys.stderr, flush=True)
+    return phases
 
 
 def _gguf_engine(path: str, cfg: EngineConfig, dev: torch.device, random_weights: bool,

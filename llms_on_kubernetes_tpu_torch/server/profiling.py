@@ -24,6 +24,11 @@ thin HTTP shim:
   card. A CPU engine is profiled by the JAX module's pure-Python sampling
   profiler over ``sys._current_frames()`` (``stacks.json``), which finds a
   host-side stall.
+- ``POST /debug/profile/start`` and ``/stop`` (``start_session``,
+  ``stop_session``) bound a manual session by hand, for a trace of exactly
+  the traffic in between. It holds the profiler as a capture does (a
+  bounded capture meanwhile gets 409, and a second start too), and its
+  files are catalogued as a capture when it stops.
 """
 
 from __future__ import annotations
@@ -128,7 +133,13 @@ class ProfileManager:
     ``device``: the engine's ("cuda" captures with ``torch.profiler``,
     "cpu" with the sampler); ``runner(fn)`` runs ``fn`` between engine
     steps on the engine thread (the serving loop's ``call``; None runs it
-    in place)."""
+    in place).
+
+    Besides the bounded capture, a manual session (the JAX server's
+    ``/debug/profile/start`` and ``/stop`` pair) spans exactly the traffic
+    between its two calls: ``start_session`` holds the profiler as a
+    capture does, ``stop_session`` stops it, on the engine thread too, and
+    catalogues the session as a capture."""
 
     def __init__(self, base_dir: str | None = None, device: str = "cpu",
                  runner: Optional[Callable] = None):
@@ -138,10 +149,73 @@ class ProfileManager:
         self._lock = threading.Lock()
         self._busy = False
         self._seq = 0
+        self._session: Optional[tuple] = None   # (id, dir, profiler, created)
 
     @property
     def busy(self) -> bool:
         return self._busy
+
+    @property
+    def manual(self) -> bool:
+        """A manual session is running."""
+        return self._session is not None
+
+    def _claim(self) -> int:
+        with self._lock:
+            if self._busy:
+                raise RuntimeError("busy")
+            self._busy = True
+            self._seq += 1
+            return self._seq
+
+    def _release(self) -> None:
+        with self._lock:
+            self._busy = False
+
+    def _new_dir(self, seq: int) -> tuple[str, str]:
+        cap_id = f"cap-{seq}-{int(time.time())}"
+        out_dir = os.path.join(self.base_dir, cap_id)
+        os.makedirs(out_dir, exist_ok=True)
+        return cap_id, out_dir
+
+    def _catalogue(self, cap_id: str, out_dir: str, source: str, duration_s: float,
+                   created: float) -> dict:
+        meta = {"id": cap_id, "source": source, "duration_s": duration_s,
+                "created": created}
+        with open(os.path.join(out_dir, "capture.json"), "w") as f:
+            json.dump(meta, f, indent=1)
+        return dict(meta, files=_dir_listing(out_dir))
+
+    def start_session(self) -> dict:
+        """Start a manual session: ``{"status": "profiling", "id", "dir"}``.
+        Raises RuntimeError("busy") while a capture or another session runs,
+        ProfileError when the profiler cannot start."""
+        seq = self._claim()
+        try:
+            cap_id, out_dir = self._new_dir(seq)
+            prof = self._begin()
+        except BaseException:
+            self._release()
+            raise
+        self._session = (cap_id, out_dir, prof, time.time())
+        return {"status": "profiling", "id": cap_id, "dir": out_dir}
+
+    def stop_session(self) -> dict:
+        """Stop the manual session and catalogue it: ``{"status":
+        "stopped", "id", "source", "duration_s", "created", "files"}``.
+        Raises RuntimeError("not running") without one, ProfileError when
+        the profiler cannot stop."""
+        with self._lock:
+            session, self._session = self._session, None
+        if session is None:
+            raise RuntimeError("not running")
+        cap_id, out_dir, prof, created = session
+        try:
+            source = self._end(prof, out_dir)
+            meta = self._catalogue(cap_id, out_dir, source, time.time() - created, created)
+        finally:
+            self._release()
+        return dict(meta, status="stopped")
 
     def capture(self, duration_ms: float) -> dict:
         """Run one bounded capture, blocking for its duration (the server
@@ -150,31 +224,19 @@ class ProfileManager:
 
         Raises RuntimeError("busy") if a capture is already running, and
         ProfileError when the profiler cannot capture."""
-        with self._lock:
-            if self._busy:
-                raise RuntimeError("busy")
-            self._busy = True
-            self._seq += 1
-            seq = self._seq
+        seq = self._claim()
         try:
             duration_s = max(0.05, min(duration_ms / 1000.0,
                                        _max_duration_s()))
-            cap_id = f"cap-{seq}-{int(time.time())}"
-            out_dir = os.path.join(self.base_dir, cap_id)
-            os.makedirs(out_dir, exist_ok=True)
-            source = self._run_capture(out_dir, duration_s)
-            meta = {
-                "id": cap_id,
-                "source": source,
-                "duration_s": duration_s,
-                "created": time.time(),
-            }
-            with open(os.path.join(out_dir, "capture.json"), "w") as f:
-                json.dump(meta, f, indent=1)
-            return dict(meta, files=_dir_listing(out_dir))
+            cap_id, out_dir = self._new_dir(seq)
+            prof = self._begin()
+            try:
+                time.sleep(duration_s)
+            finally:
+                source = self._end(prof, out_dir)
+            return self._catalogue(cap_id, out_dir, source, duration_s, time.time())
         finally:
-            with self._lock:
-                self._busy = False
+            self._release()
 
     @contextlib.contextmanager
     def reserve(self, timeout_s: float = 60.0):
@@ -201,15 +263,13 @@ class ProfileManager:
     def _run(self, fn):
         return fn() if self.runner is None else self.runner(fn)
 
-    def _run_capture(self, out_dir: str, duration_s: float) -> str:
-        """``torch.profiler`` on a card, the sampler on the CPU. Returns
-        the source tag recorded in capture.json."""
+    def _begin(self):
+        """Start ``torch.profiler`` on a card (between engine steps), the
+        sampler on the CPU; returns the running profiler."""
         if not self.device.startswith("cuda"):
             sampler = _SamplingProfiler()
             sampler.start()
-            time.sleep(duration_s)
-            sampler.stop_and_dump(out_dir)
-            return "py-sampler"
+            return sampler
         from torch.profiler import ProfilerActivity, profile
 
         try:
@@ -218,21 +278,26 @@ class ProfileManager:
         except Exception as e:
             raise ProfileError(f"torch.profiler could not start on {self.device}: "
                                f"{type(e).__name__}: {e}") from e
+        return prof
+
+    def _end(self, prof, out_dir: str) -> str:
+        """Stop what ``_begin`` started and write its files into
+        ``out_dir``. Returns the source tag recorded in capture.json."""
+        if isinstance(prof, _SamplingProfiler):
+            prof.stop_and_dump(out_dir)
+            return "py-sampler"
         try:
-            time.sleep(duration_s)
-        finally:
+            self._run(prof.stop)
+        except Exception as e:
+            # the runner failed (the engine loop stopped mid-capture: the
+            # server closed): stop the process-global session here, or it
+            # stays on and its teardown at interpreter exit can crash
             try:
-                self._run(prof.stop)
-            except Exception as e:
-                # the runner failed (the engine loop stopped mid-capture: the
-                # server closed): stop the process-global session here, or it
-                # stays on and its teardown at interpreter exit can crash
-                try:
-                    prof.stop()
-                except Exception:
-                    pass
-                raise ProfileError(f"torch.profiler could not stop on {self.device}: "
-                                   f"{type(e).__name__}: {e}") from e
+                prof.stop()
+            except Exception:
+                pass
+            raise ProfileError(f"torch.profiler could not stop on {self.device}: "
+                               f"{type(e).__name__}: {e}") from e
         # written off the engine thread, by kineto's own writer: parsing the
         # events in Python (key_averages) would hold the interpreter lock
         # for seconds and stall the engine thread

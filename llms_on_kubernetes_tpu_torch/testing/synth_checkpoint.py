@@ -1,15 +1,18 @@
-"""Write a HuggingFace-format safetensors checkpoint of a dense registry
-model, at its full width, with cheap deterministic values.
+"""Write a HuggingFace-format safetensors checkpoint of a text registry
+model (dense or MoE), at its full width, with cheap deterministic values.
 
     python -m llms_on_kubernetes_tpu_torch.testing.synth_checkpoint phi-3-mini OUT_DIR \
-        [--fp8 | --awq] [--tokenizer llama3|phi3]
+        [--fp8 | --awq] [--tokenizer llama3|phi3] [--layers N]
 
 Neither machine this repository runs on can download the published
 weights, so the card's run serves a checkpoint this module writes: the
 HF ``config.json`` of the family (which ``configs.from_hf_config`` reads
 back to the registry entry), the family's own tensor names and HF layouts
 (phi-3's fused ``qkv_proj`` and ``gate_up_proj``, gemma's four norms a
-layer, qwen2's attention biases, qwen3's q/k norms), sharded
+layer, qwen2's attention biases, qwen3's q/k norms; an MoE model's
+router and experts in Mixtral's ``block_sparse_moe.{gate,
+experts.N.w1/w2/w3}`` or, with q/k norms, Qwen3-MoE's ``mlp.{gate,
+experts.N.*_proj}``), sharded
 ``*.safetensors`` files with a ``model.safetensors.index.json``, in
 bfloat16 (or float32/float16). Each file is a JSON header and raw bytes,
 written tensor by tensor with numpy, so memory holds one tensor at a time.
@@ -52,6 +55,7 @@ ids ``transformers`` gives over those files for ``PROBE_TEXTS`` and
 from __future__ import annotations
 
 import collections
+import dataclasses
 import heapq
 import json
 import os
@@ -69,9 +73,11 @@ DTYPES = {"bfloat16": ("BF16", 2), "float16": ("F16", 2), "float32": ("F32", 4)}
 
 
 def family(cfg: ModelConfig) -> str:
-    """The HF ``model_type`` a dense config is written as."""
-    if cfg.is_moe or cfg.vision is not None:
-        raise NotImplementedError(f"{cfg.name}: only dense text models are written")
+    """The HF ``model_type`` a text config is written as."""
+    if cfg.vision is not None:
+        raise NotImplementedError(f"{cfg.name}: only text models are written")
+    if cfg.is_moe:
+        return "qwen3_moe" if cfg.qk_norm else "mixtral"
     if cfg.post_norms:
         return "gemma2" if cfg.attn_softcap else "gemma3_text"
     if cfg.name.startswith("phi-3"):
@@ -87,7 +93,8 @@ def family(cfg: ModelConfig) -> str:
 
 _ARCH = {"llama": "LlamaForCausalLM", "mistral": "MistralForCausalLM",
          "qwen2": "Qwen2ForCausalLM", "qwen3": "Qwen3ForCausalLM", "phi3": "Phi3ForCausalLM",
-         "gemma2": "Gemma2ForCausalLM", "gemma3_text": "Gemma3ForCausalLM"}
+         "gemma2": "Gemma2ForCausalLM", "gemma3_text": "Gemma3ForCausalLM",
+         "mixtral": "MixtralForCausalLM", "qwen3_moe": "Qwen3MoeForCausalLM"}
 
 
 def hf_config(cfg: ModelConfig, dtype: str = "bfloat16") -> dict:
@@ -115,6 +122,12 @@ def hf_config(cfg: ModelConfig, dtype: str = "bfloat16") -> dict:
     if fam == "gemma3_text":
         hf["sliding_window_pattern"] = cfg.sliding_window_pattern
         hf["rope_local_base_freq"] = cfg.rope_local_theta
+    if fam == "mixtral":
+        hf.update(num_local_experts=cfg.num_experts, num_experts_per_tok=cfg.num_experts_per_tok)
+    if fam == "qwen3_moe":
+        hf.update(num_experts=cfg.num_experts, num_experts_per_tok=cfg.num_experts_per_tok,
+                  moe_intermediate_size=cfg.intermediate_size, norm_topk_prob=True,
+                  decoder_sparse_step=1, mlp_only_layers=[])
     return hf
 
 
@@ -147,6 +160,22 @@ def tensor_specs(cfg: ModelConfig) -> list[tuple[str, tuple, str]]:
         if cfg.post_norms:
             specs += [(p + "pre_feedforward_layernorm.weight", (D,), "norm"),
                       (p + "post_feedforward_layernorm.weight", (D,), "norm")]
+        if fam == "mixtral":
+            specs.append((p + "block_sparse_moe.gate.weight", (cfg.num_experts, D), "linear"))
+            for e in range(cfg.num_experts):
+                ep = p + f"block_sparse_moe.experts.{e}."
+                specs += [(ep + "w1.weight", (F, D), "linear"),
+                          (ep + "w2.weight", (D, F), "linear"),
+                          (ep + "w3.weight", (F, D), "linear")]
+            continue
+        if fam == "qwen3_moe":
+            specs.append((p + "mlp.gate.weight", (cfg.num_experts, D), "linear"))
+            for e in range(cfg.num_experts):
+                ep = p + f"mlp.experts.{e}."
+                specs += [(ep + "gate_proj.weight", (F, D), "linear"),
+                          (ep + "up_proj.weight", (F, D), "linear"),
+                          (ep + "down_proj.weight", (D, F), "linear")]
+            continue
         if fam == "phi3":
             specs.append((p + "mlp.gate_up_proj.weight", (2 * F, D), "linear"))
         else:
@@ -309,6 +338,8 @@ def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16",
         write_tokenizer(out_dir, tokenizer)
     if quantization not in (None, "fp8", "awq"):
         raise ValueError(f"quantization must be None, 'fp8' or 'awq', got {quantization!r}")
+    if quantization is not None and cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: quantized MoE checkpoints are not written")
     if fp8_strategy not in FP8_STRATEGIES:
         raise ValueError(f"fp8_strategy must be one of {FP8_STRATEGIES}, got {fp8_strategy!r}")
     st_dtype, elt = DTYPES[dtype]
@@ -657,7 +688,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(prog="python -m llms_on_kubernetes_tpu_torch.testing."
                                       "synth_checkpoint")
-    ap.add_argument("model", help="a dense registry model")
+    ap.add_argument("model", help="a text registry model (dense or MoE)")
     ap.add_argument("out_dir")
     quant = ap.add_mutually_exclusive_group()
     quant.add_argument("--fp8", action="store_true", help="a compressed-tensors fp8 checkpoint")
@@ -665,9 +696,14 @@ def main(argv=None) -> int:
                        help="an AWQ checkpoint (4-bit, group 128, gemm packing)")
     ap.add_argument("--tokenizer", choices=TOKENIZER_FAMILIES, default=None,
                     help="also write this family's tokenizer.json and tokenizer_config.json")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model to this many layers (full width kept)")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     quantization = "fp8" if args.fp8 else "awq" if args.awq else None
-    index = write_checkpoint(get_config(args.model), args.out_dir, quantization=quantization,
+    cfg = get_config(args.model)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    index = write_checkpoint(cfg, args.out_dir, quantization=quantization,
                              tokenizer=args.tokenizer)
     print(f"{args.out_dir}: {len(index['weight_map'])} tensors, "
           f"{index['metadata']['total_size']} bytes")

@@ -85,7 +85,7 @@ def test_flash_prefill_matches_plain(cuda, dtype, window, softcap, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window,softcap", [(None, None), (7, None), (None, 50.0)])
-@pytest.mark.parametrize("group", [1, 4, 7])
+@pytest.mark.parametrize("group", [1, 4, 7, 8])
 def test_paged_decode_matches_plain(cuda, dtype, window, softcap, group):
     lengths = np.asarray([13, 64, 1, 0, 130])
     kp, vp, table = _paged(cuda, 5, 2, 64, 16, 9, lengths, dtype)
@@ -166,7 +166,7 @@ def test_quantize_kv_on_the_card_equals_the_cpu(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window,softcap", [(None, None), (7, None), (None, 50.0)])
-@pytest.mark.parametrize("group", [1, 4, 7])
+@pytest.mark.parametrize("group", [1, 4, 7, 8])
 def test_paged_decode_int8_matches_plain(cuda, dtype, window, softcap, group):
     lengths = np.asarray([13, 64, 1, 0, 130])
     pools, table = _paged_int8(cuda, 5, 2, 64, 16, 9, lengths)
@@ -213,7 +213,7 @@ def test_paged_decode_write_int8_matches_plain(cuda, dtype, d, lengths):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window,softcap", [(None, None), (7, None), (None, 50.0)])
-@pytest.mark.parametrize("group", [1, 4, 7])
+@pytest.mark.parametrize("group", [1, 4, 7, 8])
 def test_paged_decode_write_int8_groups_window_softcap(cuda, dtype, window, softcap, group):
     lengths = np.asarray([13, 64, 1, 0, 130])
     pools, table = _paged_int8(cuda, 5, 2, 64, 16, 9, lengths)
@@ -1830,3 +1830,95 @@ def test_lora_window_replays_equal_the_cpu_engine(cuda, tmp_path):
                                         for a in ("ad1", None, "ad2")]
     assert card_eng.graph_replays > 0 and captures() == captured
     assert card_eng.adapters.stats["evictions"] >= 2
+
+
+# ---------------------------------------------------------------------------
+# the MoE expert kernel (csrc/moe_experts.cu) at Qwen3-30B-A3B's widths
+# ---------------------------------------------------------------------------
+
+def _moe_weights(E=128, D=2048, F=768, seed=0):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def w(*shape, scale):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    return w(E, D, F, scale=D ** -0.5), w(E, D, F, scale=D ** -0.5), w(E, F, D, scale=F ** -0.5)
+
+
+def _moe_rows(rng, R, E, N):
+    """R expert-major rows: each names a random token of N and a random
+    expert, rows sorted by expert. Returns (src, counts, experts)."""
+    experts = np.sort(rng.integers(0, E, size=R))
+    counts = np.bincount(experts, minlength=E).astype(np.int32)
+    src = rng.integers(0, N, size=R).astype(np.int32)
+    return torch.from_numpy(src).cuda(), torch.from_numpy(counts).cuda(), experts
+
+
+@pytest.mark.parametrize("R", [1, 8, 64, 512, 32768])
+def test_moe_experts_kernel_matches_plain(cuda, R):
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    wg, wu, wd = _moe_weights()
+    N = max(1, R // 8)
+    x = _t(cuda, N, 2048, dtype=torch.bfloat16)
+    src, counts, _ = _moe_rows(cuda, R, 128, N)
+    got = moe.moe_experts(x, src, counts, wg, wu, wd)
+    want = moe.moe_experts_plain(x, src, counts, wg, wu, wd)
+    torch.cuda.synchronize()
+    _close(got, want, torch.bfloat16)
+
+
+def test_moe_experts_rows_bit_equal_across_R(cuda):
+    """A row's output is the same bits alone (R 1) and among 512 and
+    32,768 rows, wherever it falls in its tile."""
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    wg, wu, wd = _moe_weights()
+    N = 4096
+    x = _t(cuda, N, 2048, dtype=torch.bfloat16)
+    for R in (512, 32768):
+        src, counts, experts = _moe_rows(cuda, R, 128, N)
+        many = moe.moe_experts(x, src, counts, wg, wu, wd).clone()
+        for r in (0, 1, R // 3, R - 1):
+            one = torch.zeros(128, dtype=torch.int32, device="cuda")
+            one[int(experts[r])] = 1
+            alone = moe.moe_experts(x, src[r:r + 1].contiguous(), one, wg, wu, wd)
+            assert torch.equal(alone[0], many[r]), (R, r)
+
+
+def test_moe_block_on_the_card_equals_its_plain_parts(cuda):
+    """Routing, the kernel and the combine on the card against the same
+    route through moe_experts_plain, with padding rows (valid False)."""
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    wg, wu, wd = _moe_weights()
+    N = 96
+    x = _t(cuda, N, 2048, dtype=torch.bfloat16)
+    router = _t(cuda, 2048, 128, dtype=torch.bfloat16) * 2048 ** -0.5
+    valid = torch.arange(N, device="cuda") < 80
+    ws = moe.MoEWorkspace(N * 8, 2048, 768, torch.bfloat16, torch.device("cuda"))
+    got = moe.moe_block(x, router, wg, wu, wd, top_k=8, valid=valid, workspace=ws)
+    route = moe.moe_route(x, router, top_k=8, valid=valid)
+    want = moe.moe_combine(moe.moe_experts_plain(x, route.src, route.counts, wg, wu, wd), route)
+    torch.cuda.synchronize()
+    assert not got[80:].any()
+    _close(got[:80], want[:80], torch.bfloat16)
+
+
+def test_moe_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    wg, wu, wd = _moe_weights(E=4, D=64, F=96)
+    x = _t(cuda, 4, 64, dtype=torch.bfloat16)
+    src = torch.zeros(8, dtype=torch.int32, device="cuda")
+    counts = torch.tensor([8, 0, 0, 0], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        moe.moe_experts(x.float(), src, counts, wg, wu, wd)
+    with pytest.raises(ValueError):
+        moe.moe_experts(x, src, counts, wg, wu, wd, act=torch.nn.functional.gelu)
+    wg2, wu2, wd2 = _moe_weights(E=4, D=64, F=80)
+    with pytest.raises(ValueError):
+        moe.moe_experts(x, src, counts, wg2, wu2, wd2)
+    got = moe.moe_experts(x, src, counts, wg, wu, wd)        # F 96: a partial column tile
+    _close(got, moe.moe_experts_plain(x, src, counts, wg, wu, wd), torch.bfloat16)

@@ -162,3 +162,61 @@ def test_ready_advertises_the_filter_of_the_cache(scraped, monkeypatch):
     assert srv.prefix_filter_doc() == want.serialize()
     monkeypatch.setenv("LLMK_PREFIX_FILTER_BITS", "0")
     assert OpenAIServer(eng, ByteTokenizer(), "debug-tiny").prefix_filter_doc() is None
+
+
+def test_engine_series_names_equal_the_jax_replicas():
+    """Every replica series the JAX server defines, the port defines too
+    (llm_decode_steps_per_dispatch and llm_decode_early_exit_total were
+    missing), and no other."""
+    jreg, treg = jmetrics.Registry(), tmetrics.Registry()
+    jmetrics.engine_metrics(jreg)
+    tmetrics.engine_metrics(treg)
+    assert sorted(m.name for m in treg._metrics) == sorted(m.name for m in jreg._metrics)
+
+
+class _StopAt(ByteTokenizer):
+    """The byte tokenizer with one more EOS id, a token debug-tiny's JAX
+    weights emit mid-window (the server adds EOS ids to every request)."""
+
+    @property
+    def eos_ids(self) -> set[int]:
+        return super().eos_ids | {153}
+
+
+def test_window_series_equal_the_jax_engine_after_an_early_exit():
+    """Three requests one after another, the second stopping at its third
+    token, inside a 4-token window: the server's window-depth histogram and
+    early-exit counter equal the JAX engine's steps_obs and
+    early_exit_steps on the same traffic."""
+    jp = j_init_params(jget_config("debug-tiny"), jax.random.key(0), dtype="float32")
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    prompts = ([3, 17, 9], [40, 2] * 5, [7, 7, 7])
+    stops = tuple(sorted(_StopAt().eos_ids))
+    jeng = JEngine(JEngineConfig(**SMALL), params=jp)
+    for p in prompts:
+        req = jeng.submit(p, JSamplingParams(max_tokens=12, temperature=0.0,
+                                             stop_token_ids=stops))
+        while not req.finished:
+            jeng.step()
+    assert jeng.early_exit_steps > 0
+    eng = Engine(EngineConfig(**SMALL, device="cpu"), params=tp)
+    srv = OpenAIServer(eng, _StopAt(), "debug-tiny")
+    base = f"http://127.0.0.1:{srv.start()}"
+    try:
+        for p in prompts:
+            _post(base + "/v1/completions", {"prompt": p, "max_tokens": 12, "temperature": 0})
+        text = _get(base + "/metrics").decode()
+    finally:
+        srv.close()
+    values = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, v = line.rpartition(" ")
+            values[key] = float(v)
+    steps = list(jeng.steps_obs)
+    assert values["llm_decode_early_exit_total"] == jeng.early_exit_steps
+    assert values["llm_decode_steps_per_dispatch_count"] == len(steps)
+    assert values["llm_decode_steps_per_dispatch_sum"] == sum(steps)
+    for le in (1.0, 2.0, 4.0):
+        assert values[f'llm_decode_steps_per_dispatch_bucket{{le="{le}"}}'] == \
+            sum(s <= le for s in steps)

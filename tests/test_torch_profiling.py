@@ -14,6 +14,13 @@
   /debug/profile`` lists the capture, ``GET /debug/profile/{id}`` returns
   its archive, 404 for an unknown id, 400 for a bad duration, 409 while a
   capture runs, 500 naming the cause when the profiler cannot capture.
+- The manual pair (the JAX server's ``/debug/profile/start`` and
+  ``/stop``): start answers ``{"status": "profiling", ...}``, stop
+  ``{"status": "stopped", ...}`` with the session catalogued as a capture;
+  409 for a second start, for a stop without a session and for a bounded
+  capture during one, as the JAX server answers; on a card the profiler
+  starts and stops on the engine loop's thread, and a server closed
+  during a session stops it there.
 - ``RuntimeTelemetry``: the JAX module's metric definitions; on the CPU the
   engine's own tensors are the live bytes; on a card (``torch.cuda``
   stubbed) the allocator's statistics and the card's total memory; the
@@ -309,6 +316,75 @@ def test_the_profile_runner_is_the_engine_loop(server, monkeypatch):
     status, _h, raw = _req(base, "/debug/profile", {"duration_ms": 60})
     assert status == 200 and json.loads(raw)["source"] == "torch-profiler"
     assert _FakeProfile.made[-1].events == [("start", "engine-loop"), ("stop", "engine-loop")]
+
+
+def test_manual_session_round_trip_and_409s(server):
+    srv, base = server
+    status, _h, raw = _req(base, "/debug/profile/stop", {})
+    assert status == 409 and json.loads(raw)["error"]["message"] == "profiler not running"
+    status, _h, raw = _req(base, "/debug/profile/start", {})
+    started = json.loads(raw)
+    assert status == 200 and started["status"] == "profiling" and "dir" in started
+    status, _h, raw = _req(base, "/debug/profile/start", {})
+    assert status == 409 and json.loads(raw)["error"]["message"] == "profiler already running"
+    status, _h, raw = _req(base, "/debug/profile", {"duration_ms": 50})
+    assert status == 409 and "manual profiler session" in json.loads(raw)["error"]["message"]
+    assert json.loads(_req(base, "/debug/profile")[2])["busy"] is True
+    _req(base, "/v1/completions", {"prompt": "abc", "max_tokens": 3, "temperature": 0})
+    status, _h, raw = _req(base, "/debug/profile/stop", {})
+    stopped = json.loads(raw)
+    assert status == 200 and stopped["status"] == "stopped"
+    assert stopped["id"] == started["id"] and stopped["source"] == "py-sampler"
+    assert {f["name"] for f in stopped["files"]} == {"stacks.json", "capture.json"}
+    assert _req(base, "/debug/profile/stop", {})[0] == 409
+    listing = json.loads(_req(base, "/debug/profile")[2])
+    assert listing["busy"] is False and [c["id"] for c in listing["captures"]] == [stopped["id"]]
+    assert _req(base, "/debug/profile", {"duration_ms": 50})[0] == 200   # free again
+
+
+def test_manual_session_on_a_card_runs_on_the_engine_loop(server, monkeypatch):
+    srv, base = server
+    monkeypatch.setattr(srv.profiles, "device", "cuda")
+    _FakeProfile.made.clear()
+    monkeypatch.setattr(torch.profiler, "profile", _FakeProfile)
+    assert _req(base, "/debug/profile/start", {})[0] == 200
+    status, _h, raw = _req(base, "/debug/profile/stop", {})
+    meta = json.loads(raw)
+    assert status == 200 and meta["source"] == "torch-profiler"
+    assert {f["name"] for f in meta["files"]} == {"trace.json", "capture.json"}
+    assert _FakeProfile.made[-1].events == [("start", "engine-loop"), ("stop", "engine-loop")]
+
+
+def test_manual_session_start_failure_is_501(server, monkeypatch):
+    srv, base = server
+    monkeypatch.setattr(srv.profiles, "device", "cuda")
+
+    class Broken:
+        def __init__(self, activities):
+            pass
+
+        def start(self):
+            raise RuntimeError("no CUPTI on this box")
+
+    monkeypatch.setattr(torch.profiler, "profile", Broken)
+    status, _h, raw = _req(base, "/debug/profile/start", {})
+    assert status == 501 and "no CUPTI on this box" in json.loads(raw)["error"]["message"]
+    assert not srv.profiles.busy and not srv.profiles.manual
+
+
+def test_close_stops_a_manual_session_on_the_engine_thread(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.profiler, "profile", _FakeProfile)
+    monkeypatch.setenv("LLMK_PROFILE_DIR", str(tmp_path))
+    srv = OpenAIServer(Engine(EngineConfig(**SMALL)), ByteTokenizer(), "debug-tiny")
+    base = f"http://127.0.0.1:{srv.start()}"
+    srv.profiles.device = "cuda"
+    assert _req(base, "/debug/profile/start", {})[0] == 200
+    srv.close()
+    prof = _FakeProfile.made[-1]
+    assert [e for e, _t in prof.events] == ["start", "stop"]
+    assert {t for _e, t in prof.events} == {srv.loop.name}
+    assert not srv.profiles.busy and not srv.profiles.manual
+    assert len(srv.profiles.list_captures()) == 1
 
 
 # ---------------------------------------------------------------------------

@@ -197,5 +197,14 @@ def test_writer_names_phi3_fused_and_gemma_norms():
                  "post_feedforward_layernorm"):
         assert f"model.layers.41.{norm}.weight" in gemma
     assert "lm_head.weight" not in gemma         # tied
+    # MoE configs are written in Mixtral's naming (Qwen3-MoE's with q/k
+    # norms: tests/test_torch_moe.py); a vision tower is not written
+    import dataclasses
+
+    from llms_on_kubernetes_tpu_torch.configs import VisionConfig
+
+    assert sc.family(dataclasses.replace(get_config("debug-tiny"), num_experts=4)) == "mixtral"
     with pytest.raises(NotImplementedError):
-        sc.family(__import__("dataclasses").replace(get_config("debug-tiny"), num_experts=4))
+        sc.family(dataclasses.replace(get_config("debug-tiny"), vision=VisionConfig(
+            hidden_size=16, intermediate_size=32, num_layers=1, num_heads=2, image_size=16,
+            patch_size=4)))
