@@ -10,12 +10,15 @@ Phases, each fatal on failure:
    in parallel, beside g++ of ``native/router/router.cpp`` into
    ``llms_on_kubernetes_tpu_torch/_build/llkt-router``) and print the
    build seconds, ptxas's register report and the card's name and power
-   limit; count the HMMA/HGMMA (tensor-core)
-   instructions in the SASS of the bf16 flash prefill body and of the two
-   bf16 W8A16 bodies, w8_matmul_decode and w8_matmul_prefill (``cuobjdump
-   -sass``) and fail if any has none. The W8A16 kernel before its K split
-   (``scripts/w8_matmul_unsplit.cu``, a timing variant nothing else calls)
-   is built beside them;
+   limit (per kernel, demangled: registers and spills); count the
+   HMMA/HGMMA (tensor-core) instructions in the SASS of the bf16 flash
+   prefill body, of the two bf16 W8A16 bodies, w8_matmul_decode and
+   w8_matmul_prefill, and the HGMMA of the two bf16 W4A16 bodies,
+   w4_matmul_decode and w4_matmul_prefill (``cuobjdump -sass``), and fail
+   if any has none. Two timing variants nothing else calls are built beside
+   them: the W8A16 kernel before its K split
+   (``scripts/w8_matmul_unsplit.cu``) and the W4A16 kernel before its
+   Hopper redesign (``scripts/w4_matmul_simple.cu``);
 2. kernels: hold each kernel against its plain PyTorch version on the card
    -- the small shapes of tests/test_pallas.py and tests/test_kv_int8.py in
    float32 and full-width llama-3-8b shapes in bfloat16 (int8 pools for
@@ -49,7 +52,17 @@ Phases, each fatal on failure:
    (new, unsplit, unsplit, new), beside the bound and bf16
    ``torch.matmul`` with a bf16 copy of the weight made outside the timed
    region (the yardstick: what bf16 serving pays), and a forward's 224
-   projections of each model at M 8 and 64;
+   projections of each model at M 8 and 64. Then the W4A16 kernel
+   (``w4_kernels``): its K split against ``ops/quant.w4_splits``; float32
+   at small shapes (1e-4), packed and int8 storage; bfloat16 at Qwen3-8B's
+   seven projections (group 128) at M 1, 8, 64, 65, 256 and 4,096 and at
+   narrow shapes (N 16, 48, 144, 1,040; groups of 16 to 128; K of one
+   group), rows bit-equal across calls of 1 to 4,096 rows over both bf16
+   bodies, int8 storage bit-equal to packed, one kernel node in a captured
+   call and no allocation but the output, the refusals; timed at M 1, 8,
+   64, 256 and 4,096 in turns (kernel, the earlier simple body, W8A16, bf16
+   ``torch.matmul``, kernel) beside the bound and the plain version, and a
+   Qwen3-8B forward's 252 projections at M 8 and 64;
 3. serve: start ``python -m llms_on_kubernetes_tpu_torch serve --model
    llama-3-8b --random-weights --device cuda`` (the default EngineConfig:
    8 slots, decode_steps 4, kv_write "dus", bf16, prefix caching on, async
@@ -530,10 +543,14 @@ def decode_timing(timer, kernel, plain, lens, write: bool, int8: bool = False,
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def sass_mma_count(path, func: str = "flash_prefill_tc") -> tuple[int, int]:
+def sass_mma_count(path, func: str = "flash_prefill_tc",
+                   ops: tuple = ("HMMA", "HGMMA")) -> tuple[int, int]:
     """(mma instructions, functions) in the SASS of a built library's
     tensor-core body (kernel names containing ``func``), read with
-    cuobjdump from the CUDA toolkit or Triton's bundled copy."""
+    cuobjdump from the CUDA toolkit or Triton's bundled copy; ``ops`` the
+    instructions counted (a string: that one alone)."""
+    if isinstance(ops, str):
+        ops = (ops,)
     import shutil
     tools = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
     try:
@@ -552,7 +569,7 @@ def sass_mma_count(path, func: str = "flash_prefill_tc") -> tuple[int, int]:
         if "Function :" in line:
             inside = func in line
             funcs += inside
-        elif inside and ("HMMA" in line or "HGMMA" in line):
+        elif inside and any(op in line for op in ops):
             count += 1
     return count, funcs
 
@@ -1343,6 +1360,7 @@ W8_SAME_ROWS = (0, 5, 37, 63)
 W8_SAME_CALLS = (8, 64, 65, 256, 4096)
 W8_MAIN = "w_gate/w_up 4096x14336 M64"
 W8_VARIANT = os.path.join("scripts", "w8_matmul_unsplit.cu")
+W4_VARIANT = os.path.join("scripts", "w4_matmul_simple.cu")
 
 
 def w8_work(M: int, K: int, N: int) -> tuple[float, float]:
@@ -1351,32 +1369,80 @@ def w8_work(M: int, K: int, N: int) -> tuple[float, float]:
     return 2.0 * M * K * N, K * N + 4 * N + 2 * M * K + 2 * M * N
 
 
-def start_variant_build():
-    """Start nvcc on the unsplit W8A16 timing variant (scripts/), beside
-    the package's own builds; ``finish_variant_build`` loads it."""
+# the timing variants (scripts/): source -> {C entry: argtypes}, bound with
+# ctypes ("p" a pointer, "i" an int)
+VARIANT_ENTRIES = {W8_VARIANT: {"llmk_w8_matmul_unsplit": "ppppiiip"},
+                   W4_VARIANT: {"llmk_w4_matmul_simple": "ppppppiiiiiip",
+                                "llmk_w4_simple_splits": "iii"}}
+
+
+def start_variant_build(source: str = W8_VARIANT):
+    """Start nvcc on a timing variant (scripts/), beside the package's own
+    builds; ``finish_variant_build`` loads it."""
     from llms_on_kubernetes_tpu_torch import kernels
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = kernels.BUILD_DIR / "w8_matmul_unsplit.so"
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(path), W8_VARIANT]
+    path = kernels.BUILD_DIR / (os.path.splitext(os.path.basename(source))[0] + ".so")
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(path), source]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True), path
+                            text=True), path, source
 
 
-def finish_variant_build(proc_path):
+def finish_variant_build(proc_path) -> dict:
+    """The variant's C entries by name, once its nvcc has finished."""
     import ctypes
 
-    proc, path = proc_path
+    proc, path, source = proc_path
     out, _ = proc.communicate()
     if proc.returncode != 0:
-        fail(f"nvcc {W8_VARIANT} exited {proc.returncode}:\n{out}")
-    for line in out.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"  ptxas w8_matmul_unsplit (timing variant): {line.strip()}")
-    fn = ctypes.CDLL(str(path)).llmk_w8_matmul_unsplit
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+        fail(f"nvcc {source} exited {proc.returncode}:\n{out}")
+    for name, line in ptxas_report(out):
+        say(f"  ptxas {name} (timing variant): {line}")
+    lib = ctypes.CDLL(str(path))
+    fns = {}
+    for symbol, sig in VARIANT_ENTRIES[source].items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int for c in sig]
+        fn.restype = ctypes.c_int
+        fns[symbol] = fn
+    return fns
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, "R registers, S bytes spill stores, L bytes spill loads")
+    for each kernel in an nvcc -Xptxas -v log, its name demangled by the
+    toolkit's cu++filt (or c++filt) where one is found, without the
+    anonymous namespace and the parameter list."""
+    import re
+    import shutil
+
+    rows, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Performance Loss" in line or "warning" in line:
+            rows.append(["ptxas says", line.strip()[:400]])
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif name and re.search(r"Used \d+ registers", line):
+            rows.append([name, re.search(r"Used (\d+) registers", line).group(1)
+                         + f" registers, {spill}"])
+            name, spill = None, ""
+    tool = next((t for t in (shutil.which("cu++filt"), "/usr/local/cuda/bin/cu++filt",
+                             shutil.which("c++filt")) if t and os.path.exists(t)), None)
+    if tool and rows:
+        out = subprocess.run([tool], input="\n".join(r[0] for r in rows), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(rows):
+            for r, d in zip(rows, out):
+                if r[0] == "ptxas says":
+                    continue
+                d = re.sub(r"\((int|bool|unsigned int)\)|^void |<unnamed>::|"
+                           r"\(anonymous namespace\)::", "", d.strip())
+                r[0] = re.sub(r"\(.*\)$", "", d)
+    return [tuple(r) for r in rows]
 
 
 def w8_kernels(torch, rng, timer, unsplit) -> dict:
@@ -1513,9 +1579,25 @@ W4_GROUP = 128
 W4_TIMED = {"wq/wo": ("wq", 2), "wk/wv": ("wk", 2), "w_gate/w_up": ("w_gate", 2),
             "w_down": ("w_down", 1)}
 W4_ROWS = (1, 8, 64, 256, 4096)
+# rows checked against the plain version: the timed ones and 65, the first
+# of the prefill body
+W4_CHECK_ROWS = (1, 8, 64, 65, 256, 4096)
 W4_SAME_ROWS = (0, 5, 37, 63)
-W4_SAME_CALLS = (8, 17, 64, 256, 4096)
+W4_SAME_CALLS = (8, 17, 64, 65, 256, 4096)
+# narrow shapes: N off the 128-column slab (16, 48, 1,040), groups of 16 to
+# 128 rows, K of one group; (K, N, gs)
+W4_NARROW = ((64, 16, 64), (256, 48, 32), (128, 1040, 128), (16, 48, 16), (512, 1040, 16),
+             (384, 144, 64), (32, 16, 32))
 W4_MAIN = "w_gate/w_up 4096x12288 M8"
+# csrc/w4_matmul.cu kMinPrefillBlocks: M > 64 rows take the prefill body
+# where it has at least this many 128 x 128 blocks, else the decode body
+W4_MIN_PREFILL_BLOCKS = 256
+
+
+def w4_prefill_rows(N: int) -> int:
+    """The fewest rows (a multiple of 128) that put an N-column W4A16 call
+    on the prefill body."""
+    return 128 * -(-W4_MIN_PREFILL_BLOCKS // -(-N // 128))
 
 
 def w4_work(M: int, K: int, N: int, gs: int = W4_GROUP) -> tuple[float, float]:
@@ -1539,16 +1621,55 @@ def w4_inputs(torch, rng, K: int, N: int, gs: int = W4_GROUP, packed: bool = Tru
     return data, torch.from_numpy(s).cuda(), torch.from_numpy(s * z).cuda()
 
 
-def w4_kernels(torch, rng, timer) -> dict:
+def w4_one_call(torch, fn, label: str) -> None:
+    """One W4A16 call captured in a CUDA graph is one kernel node, its
+    replay gives the eager call's bits, and the wrapper allocates nothing
+    but the output (peak allocation over the call, eager)."""
+    want = fn()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = fn()
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - before
+    out_bytes = -(-got.numel() * got.element_size() // 512) * 512
+    if grown != out_bytes:
+        fail(f"w4_matmul {label}: the call allocated {grown} bytes, its output {out_bytes}")
+    del got
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)   # its nodes stay readable
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    nodes = graph_nodes(graph)
+    if nodes != {"kernel": 1}:
+        fail(f"w4_matmul {label}: a captured call holds {nodes}, not one kernel node")
+    if not torch.equal(out, want):
+        fail(f"w4_matmul {label}: the graph replay differs from the eager call")
+    say(f"  {label}: one kernel node in a captured call, replay bit-equal, "
+        f"{grown} bytes allocated (the output's)")
+    del graph, out
+
+
+def w4_kernels(torch, rng, timer, simple) -> dict:
     """Phase 2 for the W4A16 kernel: the K split against its Python mirror;
     float32 at small shapes (1e-4), packed and int8 storage; bfloat16 at
-    Qwen3-8B's seven projections (group 128, packed) at M 1, 8, 64, 256 and
-    4,096 (the row tolerance) and one int8-storage case; rows alone
-    bit-equal to them in calls of 8, 17, 64, 256 and 4,096 rows (batch
-    invariance, across both row tilings); the refusals; then, in turns, the
-    kernel, the W8A16 kernel at the same shape, bf16 ``torch.matmul`` with a
-    bf16 copy of the dequantized weight made outside the timed region, the
-    kernel again; and the plain version, beside the bound."""
+    Qwen3-8B's seven projections (group 128, packed) at M 1, 8, 64, 65, 256
+    and 4,096 (the row tolerance), at narrow shapes (N 16, 48, 144, 1,040;
+    gs 16 to 128; K of one group) and in int8 storage; rows alone bit-equal
+    to them in calls of 8, 17, 64, 65, 256 and 4,096 rows (batch
+    invariance, across the decode and prefill bodies); one kernel node in a
+    captured call and no workspace; the refusals; then, in turns, the
+    kernel, the earlier simple body (``simple``, scripts/w4_matmul_simple.cu), the
+    W8A16 kernel at the same shape, bf16 ``torch.matmul`` with a bf16 copy
+    of the dequantized weight made outside the timed region, the kernel
+    again; and the plain version, beside the bound."""
     from llms_on_kubernetes_tpu_torch import kernels
     from llms_on_kubernetes_tpu_torch.ops import quant as q
 
@@ -1556,33 +1677,51 @@ def w4_kernels(torch, rng, timer) -> dict:
     say("kernel w4_matmul (the port's own: the product JAX ops/quant.py::group_qeinsum "
         "leaves to XLA)")
     splits = kernels.function("w4_splits")
-    for K, N, gs in sorted({*((K, N, W4_GROUP) for K, N in W4_PROJ.values()), (64, 32, 16),
-                            (256, 64, 32), (4096, 128, 64), (512, 4096, 128),
-                            (28672, 8192, 128)}):
+    for K, N, gs in sorted({*((K, N, W4_GROUP) for K, N in W4_PROJ.values()), *W4_NARROW,
+                            (64, 32, 16), (256, 64, 32), (4096, 128, 64), (512, 4096, 128),
+                            (28672, 8192, 128), (12288, 4096, 64), (4096, 4096, 32)}):
         if splits(K, N, gs) != len(q.w4_splits(K, N, gs)):
             fail(f"w4_splits({K}, {N}, {gs}): the kernel cuts {splits(K, N, gs)} slices, "
                  f"ops/quant.py {len(q.w4_splits(K, N, gs))}")
     say("  K slices (kernel = ops/quant.w4_splits): " + ", ".join(
         f"{K}x{N}: {len(q.w4_splits(K, N, W4_GROUP))}" for K, N in sorted(set(W4_PROJ.values()))))
     for M, K, N, gs in [(1, 64, 32, 16), (5, 256, 48, 32), (17, 256, 64, 128),
-                        (70, 384, 96, 128), (300, 512, 160, 256)]:
+                        (70, 384, 96, 128), (300, 512, 160, 256), (3, 16, 1040, 16)]:
         for packed in (True, False):
             data, s, zs = w4_inputs(torch, rng, K, N, gs, packed)
             x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).cuda()
             check_close(f"f32 M{M} K{K} N{N} gs{gs} {'packed' if packed else 'int8'}",
                         q.w4_matmul(x, data, s, zs, packed),
                         q.group_qeinsum_plain(x, data, s, zs, packed), "float32")
+    err = 0.0
+    for K, N, gs in W4_NARROW:
+        Mp = w4_prefill_rows(N)   # a call on the prefill body
+        x = torch.from_numpy(rng.normal(size=(Mp, K)).astype(np.float32)).to("cuda", bf16)
+        for packed in (True, False):
+            data, s, zs = w4_inputs(torch, rng, K, N, gs, packed)
+            full = q.w4_matmul(x, data, s, zs, packed)
+            err = max(err, check_close(f"bf16 K{K} N{N} gs{gs} {'packed' if packed else 'int8'}"
+                                       f" M{Mp}", full,
+                                       q.group_qeinsum_plain(x, data, s, zs, packed),
+                                       "bfloat16"))
+            for M in (1, 8, 64, 65, 300):
+                if not torch.equal(q.w4_matmul(x[:M], data, s, zs, packed), full[:M]):
+                    fail(f"w4_matmul K{K} N{N} gs{gs}: a call of {M} rows differs from the "
+                         f"first {M} rows of a call of {Mp} (batch invariance)")
+    say(f"  narrow shapes {W4_NARROW} (K, N, gs): bf16 within the row tolerance, calls of 1, "
+        f"8, 64, 65 and 300 rows (the decode body) bit-equal to the rows of a call on the "
+        f"prefill body, packed and int8 storage")
     xs = {K: torch.from_numpy(rng.normal(size=(max(W4_ROWS), K)).astype(np.float32)).to(
         "cuda", bf16) for K in sorted({K for K, _ in W4_PROJ.values()})}
-    weights, err = {}, 0.0
+    weights = {}
     for name, (K, N) in W4_PROJ.items():
         data, s, zs = w4_inputs(torch, rng, K, N)
         weights[name] = (data, s, zs)
         outs = {}
-        for M in sorted({*W4_ROWS, *W4_SAME_CALLS}):
+        for M in sorted({*W4_CHECK_ROWS, *W4_SAME_CALLS}):
             x = xs[K][:M]
             outs[M] = q.w4_matmul(x, data, s, zs, True)
-            if M in W4_ROWS:
+            if M in W4_CHECK_ROWS:
                 err = max(err, check_close(f"bf16 {name} {K}->{N} M{M}", outs[M],
                                            q.group_qeinsum_plain(x, data, s, zs, True),
                                            "bfloat16"))
@@ -1592,11 +1731,15 @@ def w4_kernels(torch, rng, timer) -> dict:
                 if r < M and not torch.equal(one, outs[M][r]):
                     fail(f"w4_matmul {name}: row {r} alone differs from row {r} of a call of "
                          f"{M} rows (batch invariance)")
+        if not torch.equal(outs[64], outs[4096][:64]) or \
+                not torch.equal(outs[65], outs[4096][:65]):
+            fail(f"w4_matmul {name}: the first 64 or 65 rows differ from a call of 4,096")
         del outs
     say(f"  batch invariance: rows {W4_SAME_ROWS} alone equal them in calls of "
-        f"{W4_SAME_CALLS} rows, bit for bit, at every projection (both row tilings)")
+        f"{W4_SAME_CALLS} rows, and calls of 64 and 65 rows the first rows of 4,096, bit for "
+        f"bit, at every projection (the decode and prefill bodies)")
     data8 = q.unpack_int4_lanes(weights["wk"][0]).contiguous()
-    for M in (8, 256):
+    for M in (8, 65, 256):
         x = xs[4096][:M]
         got = q.w4_matmul(x, data8, weights["wk"][1], weights["wk"][2], False)
         err = max(err, check_close(f"bf16 wk int8 storage M{M}", got, q.group_qeinsum_plain(
@@ -1604,6 +1747,10 @@ def w4_kernels(torch, rng, timer) -> dict:
         if not torch.equal(got, q.w4_matmul(x, *weights["wk"], True)):
             fail("w4_matmul: int8 storage differs from packed storage of the same values")
     say("  int8 storage equals packed storage of the same values, bit for bit")
+    for M in (8, 256):
+        x = xs[4096][:M]
+        w_gate = weights["w_gate"]
+        w4_one_call(torch, lambda: q.w4_matmul(x, *w_gate, True), f"w_gate M{M}")
     data, s, zs = w4_inputs(torch, rng, 256, 64, 32)
     x = torch.from_numpy(rng.normal(size=(8, 256)).astype(np.float32)).to("cuda", bf16)
     d24, s24, z24 = w4_inputs(torch, rng, 240, 64, 24)
@@ -1619,6 +1766,18 @@ def w4_kernels(torch, rng, timer) -> dict:
             fail(f"w4_matmul took {label}")
     torch.cuda.synchronize()
 
+    run_simple, simple_splits = simple["llmk_w4_matmul_simple"], simple["llmk_w4_simple_splits"]
+
+    def old(x, data, s, zs, part):
+        M, K = x.shape
+        N = data.shape[2]
+        out = torch.empty((M, N), dtype=bf16, device="cuda")
+        kernels.check("w4_matmul_simple", run_simple(
+            x.data_ptr(), data.data_ptr(), s.data_ptr(), zs.data_ptr(), part.data_ptr(),
+            out.data_ptr(), M, K, N, W4_GROUP, 1, kernels.DTYPE_CODES[bf16],
+            torch.cuda.current_stream().cuda_stream))
+        return out
+
     timings = {}
     for label, (name, _per_layer) in W4_TIMED.items():
         K, N = W4_PROJ[name]
@@ -1628,26 +1787,34 @@ def w4_kernels(torch, rng, timer) -> dict:
         s8 = torch.from_numpy(rng.uniform(1e-3, 2e-2, size=N).astype(np.float32)).cuda()
         for M in W4_ROWS:
             x = xs[K][:M]
+            part = torch.empty((simple_splits(K, N, W4_GROUP), M, N), dtype=f32, device="cuda")
+            if M in (8, 4096):
+                check_close(f"bf16 {label} M{M} the simple body", old(x, data, s, zs, part),
+                            q.w4_matmul(x, data, s, zs, True), "bfloat16")
             t1 = timer(lambda: q.w4_matmul(x, data, s, zs, True), reps=50)
-            b_ms, b_by = bound_ms(*w4_work(M, K, N), "bfloat16")
+            o1 = timer(lambda: old(x, data, s, zs, part), reps=50)
             w8_ms = timer(lambda: q.w8_matmul(x, w8, s8), reps=50)
             lib = timer(lambda: torch.matmul(x, wb), reps=50)
             t2 = timer(lambda: q.w4_matmul(x, data, s, zs, True), reps=50)
             plain = timer(lambda: q.group_qeinsum_plain(x, data, s, zs, True), reps=5)
+            del part
+            b_ms, b_by = bound_ms(*w4_work(M, K, N), "bfloat16")
             key = f"{label} {K}x{N} M{M}"
             timings[key] = dict(ms=(t1 + t2) / 2, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                                library_ms=lib, w8_ms=w8_ms)
-            say(f"  timing w4_matmul {key}: ms={t1:.4f},{t2:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-                f"w8_matmul_ms={w8_ms:.4f} library_ms={lib:.4f} plain_ms={plain:.4f}")
+                                library_ms=lib, w8_ms=w8_ms, simple_ms=o1)
+            say(f"  timing w4_matmul {key}: ms={t1:.4f},{t2:.4f} simple_ms={o1:.4f} "
+                f"w8_matmul_ms={w8_ms:.4f} library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                f"plain_ms={plain:.4f}")
         del wb, w8
     for M in (8, 64):
         per = {k: 36 * sum(timings[f"{lbl} {W4_PROJ[W4_TIMED[lbl][0]][0]}x"
                                    f"{W4_PROJ[W4_TIMED[lbl][0]][1]} M{M}"][k] * W4_TIMED[lbl][1]
                            for lbl in W4_TIMED)
-               for k in ("ms", "bound_ms", "w8_ms", "library_ms")}
+               for k in ("ms", "simple_ms", "bound_ms", "w8_ms", "library_ms")}
         say(f"  w4_matmul, a Qwen3-8B forward's projections at M {M} (36 layers x 7): "
-            f"ms={per['ms']:.3f} bound_ms={per['bound_ms']:.3f} w8_matmul={per['w8_ms']:.3f} "
-            f"bf16 torch.matmul={per['library_ms']:.3f} [{card_line()}]")
+            f"ms={per['ms']:.3f} simple_ms={per['simple_ms']:.3f} bound_ms={per['bound_ms']:.3f} "
+            f"w8_matmul={per['w8_ms']:.3f} bf16 torch.matmul={per['library_ms']:.3f} "
+            f"[{card_line()}]")
     main = timings[W4_MAIN]
     return {"w4_matmul": dict(
         name="w4_matmul", route="cuda", source="llms_on_kubernetes_tpu_torch/csrc/w4_matmul.cu",
@@ -1656,7 +1823,9 @@ def w4_kernels(torch, rng, timer) -> dict:
         other_shapes={k: v for k, v in timings.items() if k != W4_MAIN},
         library_note="torch.matmul of x with a bf16 copy of the dequantized weight made "
                      "outside the timed region: what bf16 serving pays for the product",
-        w8_note="w8_ms: the W8A16 kernel at the same shape (int8 weight), in the same turns")}
+        w8_note="w8_ms: the W8A16 kernel at the same shape (int8 weight), in the same turns",
+        simple_note=f"simple_ms: the kernel before its Hopper redesign ({W4_VARIANT}: mma.sync, one stage, a second "
+                    "launch over an f32 workspace), timed in the same turns")}
 
 
 # ---------------------------------------------------------------------------
@@ -6976,11 +7145,12 @@ def main(argv) -> int:
 
     t0 = time.perf_counter()
     router_build = start_router_build()
-    variant = start_variant_build()
+    variant, variant4 = start_variant_build(), start_variant_build(W4_VARIANT)
     kernels.build()
-    unsplit = finish_variant_build(variant)
-    say(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(kernels.SOURCES)} and "
-        f"{W8_VARIANT}")
+    unsplit = finish_variant_build(variant)["llmk_w8_matmul_unsplit"]
+    simple = finish_variant_build(variant4)
+    say(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(kernels.SOURCES)}, "
+        f"{W8_VARIANT} and {W4_VARIANT}")
     os.makedirs(OUT_DIR, exist_ok=True)
     # every server this run starts (the CLI servers inherit it) captures
     # its profiles, the anomaly detector's too, inside the checkout
@@ -6989,18 +7159,18 @@ def main(argv) -> int:
         for name, out in kernels.build_log.items():
             f.write(f"== {name}\n{out}\n")
     for name, out in kernels.build_log.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  ptxas {name}: {line.strip()}")
+        for func, line in ptxas_report(out):
+            say(f"  ptxas {name} {func}: {line}")
     hmma, funcs = sass_mma_count(kernels.library_path("flash_prefill"))
     say(f"sass flash_prefill: {hmma} HMMA instructions in {funcs} tensor-core "
         f"(bf16) functions")
     if not funcs or not hmma:
         fail("the bf16 flash prefill body has no tensor-core (HMMA) instruction")
-    hmma, funcs = sass_mma_count(kernels.library_path("w4_matmul"), "w4_matmul_tc")
-    say(f"sass w4_matmul_tc: {hmma} HMMA instructions in {funcs} tensor-core (bf16) functions")
-    if not funcs or not hmma:
-        fail("the bf16 W4A16 body w4_matmul_tc has no tensor-core (HMMA) instruction")
+    for body in ("w4_matmul_decode", "w4_matmul_prefill"):
+        hmma, funcs = sass_mma_count(kernels.library_path("w4_matmul"), body, "HGMMA")
+        say(f"sass {body}: {hmma} HGMMA instructions in {funcs} tensor-core (bf16) functions")
+        if not funcs or not hmma:
+            fail(f"the bf16 W4A16 body {body} has no wgmma (HGMMA) instruction")
     hmma, funcs = sass_mma_count(kernels.library_path("moe_experts"), "moe_expert_gemm")
     say(f"sass moe_expert_gemm: {hmma} HMMA instructions in {funcs} tensor-core (bf16) "
         f"functions")
@@ -7030,7 +7200,7 @@ def main(argv) -> int:
     for name, shapes in wide_kernels(torch, np.random.default_rng(1), Timer(torch)).items():
         entries[name]["other_shapes"].update(shapes)
     entries.update(w8_kernels(torch, np.random.default_rng(2), Timer(torch), unsplit))
-    entries.update(w4_kernels(torch, np.random.default_rng(3), Timer(torch)))
+    entries.update(w4_kernels(torch, np.random.default_rng(3), Timer(torch), simple))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     say(f"phase 2 (kernels): {time.perf_counter() - t0:.1f} s")

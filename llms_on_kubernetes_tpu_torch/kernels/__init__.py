@@ -71,7 +71,7 @@ _SIGNATURES = {
                           [_P] * 12 + [_I] * 8 + [_F, _I, _F, _I, _I, _P]),
     "paged_write_window": ("llmk_paged_write_window", [_P] * 9 + [_I] * 9 + [_P]),
     "w8_matmul": ("llmk_w8_matmul", [_P] * 4 + [_I] * 4 + [_P]),
-    "w4_matmul": ("llmk_w4_matmul", [_P] * 6 + [_I] * 6 + [_P]),
+    "w4_matmul": ("llmk_w4_matmul", [_P] * 5 + [_I] * 6 + [_P]),
     "moe_experts": ("llmk_moe_experts", [_P] * 8 + [_I] * 4 + [_P]),
 }
 # further C entries of a kernel library: name -> (library, symbol, argtypes)

@@ -34,7 +34,7 @@ W4A16 kernel (``csrc/w4_matmul.cu``) on a CUDA tensor, which unpacks each
 nibble in registers on its way to the tensor cores, or
 ``group_qeinsum_plain`` (the JAX ``group_qeinsum`` scan, group after
 group) on a CPU tensor. ``w4_splits`` gives the kernel's K slices (whole
-groups, from K and N alone).
+groups, from K, N and the group size alone).
 """
 
 from __future__ import annotations
@@ -168,7 +168,7 @@ def fp8_dequantize(weight: torch.Tensor, weight_scale: torch.Tensor) -> torch.Te
 # The projection: the W8A16 kernel's wrapper and its plain version
 # ---------------------------------------------------------------------------
 
-# the K split of the kernel's bf16 bodies (csrc/w8_matmul.cu w8_split)
+# the K split of the weight-only kernels' bf16 bodies (csrc/hopper.cuh make_split)
 W8_SLAB = 128          # columns a decode block (kSlab)
 W8_MIN_BLOCKS = 128    # decode blocks to aim for (kMinBlocks)
 W8_MAX_CLUSTER = 8     # blocks a cluster at most (kMaxCluster)
@@ -185,7 +185,13 @@ def w8_splits(K: int, N: int) -> list[tuple[int, int]]:
     row's result never depends on M: each output is each slice's f32
     chain, the chains summed in slice order, then ``qeinsum``'s two
     roundings."""
-    unit = 64 if K % 64 == 0 else 16
+    return _cluster_splits(K, N, 64 if K % 64 == 0 else 16)
+
+
+def _cluster_splits(K: int, N: int, unit: int) -> list[tuple[int, int]]:
+    """The split both weight-only kernels' bf16 bodies share
+    (``csrc/hopper.cuh`` ``make_split``): S slices of whole ``unit``-row
+    units, S a power of two from K, N and the unit alone."""
     units = K // unit
     slabs = -(-N // W8_SLAB)
     kb = 1
@@ -387,24 +393,15 @@ def awq_group_tensors(qweight: torch.Tensor, qzeros: torch.Tensor, scales: torch
                         packed=storage == "packed4")
 
 
-# the K split of the W4A16 kernel (csrc/w4_matmul.cu w4_split)
-W4_BN = 64             # columns a block (kBN)
-W4_MIN_BLOCKS = 256    # blocks to aim for (kMinBlocks)
-
-
 def w4_splits(K: int, N: int, gs: int) -> list[tuple[int, int]]:
-    """The K slices ``[(k0, k1), ...]`` of the W4A16 kernel for a K x N
-    weight in groups of ``gs`` rows: contiguous, in order, each a whole
-    number of groups; their number S is a power of two chosen from K and N
-    alone (enough blocks for the card, at most one group a slice), so a
-    row's result never depends on M: each slice's groups run in order from
-    zero, then the slices are summed in order and rounded once."""
-    G = K // gs
-    tiles = -(-N // W4_BN)
-    s = 1
-    while tiles * s < W4_MIN_BLOCKS and 2 * s <= G:
-        s *= 2
-    return [(gs * (i * G // s), gs * ((i + 1) * G // s)) for i in range(s)]
+    """The K slices ``[(k0, k1), ...]`` of the W4A16 kernel's bf16 bodies
+    for a K x N weight in groups of ``gs`` rows (``csrc/w4_matmul.cu``
+    ``w4_split``): W8A16's split with whole groups as the unit, so the
+    slices are contiguous, in order, each a whole number of groups, and
+    their number S is a power of two chosen from K, N and gs alone (at most
+    one group a slice), never from M. Each slice's groups run in order, the
+    slice results are summed in order and rounded once."""
+    return _cluster_splits(K, N, gs)
 
 
 def group_qeinsum_plain(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
@@ -436,8 +433,9 @@ def w4_matmul(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
     ``group_qeinsum_plain``'s function, ``[M, N]`` in x's dtype. A CPU
     tensor takes the plain version; a CUDA tensor launches
     ``csrc/w4_matmul.cu`` (M >= 1, gs a multiple of 16, N a multiple of
-    16, all contiguous and 16-byte aligned) or raises. Rows come out bit
-    for bit the same at any M (the split of ``w4_splits``)."""
+    16, all contiguous and 16-byte aligned) or raises: one launch, and
+    nothing allocated but the output. Rows come out bit for bit the same at
+    any M (the split of ``w4_splits``)."""
     if x.device.type == "cpu":
         return group_qeinsum_plain(x, data, scale, zero_scaled, packed)
     if x.dtype not in kernels.DTYPE_CODES:
@@ -458,13 +456,11 @@ def w4_matmul(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
     if gs % 16 or N % 16:
         raise ValueError(f"w4_matmul kernel takes a group size and N that are multiples of "
                          f"16, got gs={gs} N={N}")
-    S = len(w4_splits(K, N, gs))
-    part = torch.empty((S, M, N), dtype=torch.float32, device=x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     fn = kernels.function(W4_KERNEL)
     err = fn(x.data_ptr(), data.data_ptr(), scale.data_ptr(), zero_scaled.data_ptr(),
-             part.data_ptr(), out.data_ptr(), M, K, N, gs, int(packed),
-             kernels.DTYPE_CODES[x.dtype], kernels.stream_ptr(x))
+             out.data_ptr(), M, K, N, gs, int(packed), kernels.DTYPE_CODES[x.dtype],
+             kernels.stream_ptr(x))
     kernels.check(W4_KERNEL, err)
     kernels.count(W4_KERNEL)
     return out

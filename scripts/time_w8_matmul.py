@@ -31,7 +31,7 @@ def main() -> int:
     t0 = time.perf_counter()
     variant = cs.start_variant_build()
     kernels.build(["w8_matmul"])
-    unsplit = cs.finish_variant_build(variant)
+    unsplit = cs.finish_variant_build(variant)["llmk_w8_matmul_unsplit"]
     cs.say(f"build: {time.perf_counter() - t0:.1f} s")
     for line in kernels.build_log.get("w8_matmul", "").splitlines():
         if "registers" in line or "spill" in line or "error" in line:

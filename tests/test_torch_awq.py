@@ -138,12 +138,18 @@ def test_pack_unpack_round_trip_equals_jax(rng):
                                     (12288, 4096, 128), (64, 32, 16), (96, 64, 32)])
 def test_w4_splits_cut_whole_groups(K, N, gs):
     """The kernel's K slices: contiguous, in order, over [0, K), each a
-    whole number of groups, a power of two of them; from K and N only."""
+    whole number of groups, balanced, a power of two of them and at most
+    16 (W8A16's cluster split with the group as its unit); from K, N and gs
+    only."""
     sl = tquant.w4_splits(K, N, gs)
     assert sl[0][0] == 0 and sl[-1][1] == K
     assert all(a[1] == b[0] for a, b in zip(sl, sl[1:]))
     assert all(k0 % gs == 0 and k1 > k0 for k0, k1 in sl)
     assert len(sl) & (len(sl) - 1) == 0
+    assert len(sl) <= tquant.W8_SLICE_GROUPS * tquant.W8_MAX_CLUSTER
+    groups = [(k1 - k0) // gs for k0, k1 in sl]
+    assert max(groups) - min(groups) <= 1
+    assert sl == tquant._cluster_splits(K, N, gs)
 
 
 # ---------------------------------------------------------------------------

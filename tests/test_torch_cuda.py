@@ -1712,16 +1712,21 @@ def _w4_inputs(rng, M, K, N, gs, dtype, packed=True):
     return x, data, torch.from_numpy(s).cuda(), torch.from_numpy(s * z).cuda()
 
 
-# M on both row tilings (16-row blocks up to 16 rows, 64-row blocks above),
-# groups of 16 to 256 rows (past one 128-row chunk), N past a 64-column
-# tile; float32 at small K only (1e-4 is the summation order's error there)
+# M on both bf16 bodies (decode up to 64 rows, prefill above: 64 and 65
+# straddle them), groups of 16 to 256 rows, N off the 128-column slab (16,
+# 48, 144, 1,040) and K of one group; float32 at small K only (1e-4 is the
+# summation order's error there)
 W4_SHAPES = [(dt, *shape, packed) for shape in [(1, 64, 32, 16), (5, 256, 48, 32),
                                                 (17, 256, 64, 128), (70, 384, 96, 128),
-                                                (300, 512, 160, 256)]
+                                                (300, 512, 160, 256), (64, 64, 16, 64),
+                                                (65, 128, 1040, 128), (3, 16, 48, 16)]
              for dt in (torch.float32, torch.bfloat16) for packed in (True, False)]
 W4_SHAPES += [(torch.bfloat16, 8, 4096, 1024, 128, True),
               (torch.bfloat16, 300, 4096, 12288, 128, True),
-              (torch.bfloat16, 64, 12288, 4096, 128, True)]
+              (torch.bfloat16, 64, 12288, 4096, 128, True),
+              (torch.bfloat16, 65, 12288, 4096, 128, True),
+              (torch.bfloat16, 64, 512, 1040, 16, True),
+              (torch.bfloat16, 65, 384, 144, 64, False)]
 
 
 @pytest.mark.parametrize("dtype,M,K,N,gs,packed", W4_SHAPES)
@@ -1740,17 +1745,70 @@ def test_w4_matmul_matches_plain(cuda, dtype, M, K, N, gs, packed):
                          ids=["wq/wo", "wk/wv", "w_gate/w_up", "w_down"])
 def test_w4_matmul_rows_do_not_depend_on_m(cuda, K, N):
     """Batch invariance at Qwen3-8B's projections (group 128): rows alone
-    are bit for bit the rows of calls of 8, 17, 64, 256 and 4,096 rows
-    (both row tilings); packed and int8 storage give the same bits."""
+    are bit for bit the rows of calls of 8, 17, 64, 65, 256 and 4,096 rows
+    (the decode and prefill bodies); packed and int8 storage give the same
+    bits."""
     x, data, s, zs = _w4_inputs(cuda, 4096, K, N, 128, torch.bfloat16)
-    calls = {M: tquant.w4_matmul(x[:M], data, s, zs, True) for M in (8, 17, 64, 256, 4096)}
+    calls = {M: tquant.w4_matmul(x[:M], data, s, zs, True) for M in (8, 17, 64, 65, 256, 4096)}
     for r in (0, 5, 37, 63):
         one = tquant.w4_matmul(x[r:r + 1], data, s, zs, True)[0]
         for M, out in calls.items():
             if r < M:
                 assert torch.equal(one, out[r]), (r, M)
+    for M in (64, 65, 256):
+        assert torch.equal(calls[M], calls[4096][:M]), M
     wide = tquant.unpack_int4_lanes(data).contiguous()
     assert torch.equal(tquant.w4_matmul(x[:64], wide, s, zs, False), calls[64])
+    assert torch.equal(tquant.w4_matmul(x[:65], wide, s, zs, False), calls[65])
+
+
+@pytest.mark.parametrize("K,N,gs", [(64, 16, 64), (256, 48, 32), (128, 1040, 128),
+                                    (512, 1040, 16), (16, 48, 16)])
+def test_w4_matmul_rows_bit_equal_across_bodies_at_narrow_shapes(cuda, K, N, gs):
+    """N off the slab, small groups, K of one group: calls of 1 to 300 rows
+    (the decode body) are the first rows of a call on the prefill body (at
+    least 256 blocks of 128 x 128: csrc/w4_matmul.cu kMinPrefillBlocks), bit
+    for bit."""
+    Mp = 128 * -(-256 // -(-N // 128))
+    x, data, s, zs = _w4_inputs(cuda, Mp, K, N, gs, torch.bfloat16)
+    full = tquant.w4_matmul(x, data, s, zs, True)
+    _close(full, tquant.group_qeinsum_plain(x, data, s, zs, True), torch.bfloat16)
+    for M in (1, 8, 16, 33, 64, 65, 300):
+        assert torch.equal(tquant.w4_matmul(x[:M], data, s, zs, True), full[:M]), M
+
+
+@pytest.mark.parametrize("M", [8, 256])
+def test_w4_matmul_is_one_kernel_node_and_no_workspace(cuda, M):
+    """A call captured in a CUDA graph is one kernel node whose replay
+    gives the eager call's bits, and the wrapper allocates nothing but the
+    output."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import graph_nodes
+
+    x, data, s, zs = _w4_inputs(cuda, M, 4096, 12288, 128, torch.bfloat16)
+    want = tquant.w4_matmul(x, data, s, zs, True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = tquant.w4_matmul(x, data, s, zs, True)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before == -(-got.numel() * 2 // 512) * 512
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tquant.w4_matmul(x, data, s, zs, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)   # its nodes stay readable
+    with torch.cuda.graph(graph):
+        out = tquant.w4_matmul(x, data, s, zs, True)
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert graph_nodes(graph) == {"kernel": 1}
+    assert torch.equal(out, want)
 
 
 def test_w4_splits_kernel_equals_the_mirror(cuda):
