@@ -14,11 +14,15 @@ Phases, each fatal on failure:
    HMMA/HGMMA (tensor-core) instructions in the SASS of the bf16 flash
    prefill body, of the two bf16 W8A16 bodies, w8_matmul_decode and
    w8_matmul_prefill, and the HGMMA of the two bf16 W4A16 bodies,
-   w4_matmul_decode and w4_matmul_prefill (``cuobjdump -sass``), and fail
-   if any has none. Two timing variants nothing else calls are built beside
+   w4_matmul_decode and w4_matmul_prefill, and of the MoE expert kernel's
+   moe_stream (``cuobjdump -sass``), and fail if any has none, or if the
+   expert kernel's ptxas report (read back from beside its library where
+   it was built before) is missing, serializes its wgmma (C7520) or shows
+   a spill store or load. Three timing variants nothing else calls are built beside
    them: the W8A16 kernel before its K split
-   (``scripts/w8_matmul_unsplit.cu``) and the W4A16 kernel before its
-   Hopper redesign (``scripts/w4_matmul_simple.cu``);
+   (``scripts/w8_matmul_unsplit.cu``), the W4A16 kernel and the MoE expert
+   kernel before their Hopper redesigns (``scripts/w4_matmul_simple.cu``,
+   ``scripts/moe_experts_simple.cu``);
 2. kernels: hold each kernel against its plain PyTorch version on the card
    -- the small shapes of tests/test_pallas.py and tests/test_kv_int8.py in
    float32 and full-width llama-3-8b shapes in bfloat16 (int8 pools for
@@ -329,10 +333,15 @@ Phases, each fatal on failure:
 9. MoE (``phase_moe``): A, the expert kernel (``csrc/moe_experts.cu``)
    against ``ops/moe.moe_experts_plain`` at qwen3-30b-a3b's widths (128
    experts, D 2,048, F 768, bf16) at 1, 8, 64, 512 and 32,768 expert-major
-   rows routed by a random router (the bf16 row tolerance), three rows of
-   each alone equal to them bit for bit; timed (kernel, the same function
-   through ``torch._grouped_mm``, kernel) beside the plain version and the
-   bound of the bytes of the experts touched; kernels 1 and 2 at the
+   rows and at mixtral-8x7b's (8 experts, D 4,096, F 14,336) at 16 and
+   8,192, routed by a random router (the bf16 row tolerance), with the
+   tile size each R runs on and the K split held to their Python mirrors,
+   three rows of each alone equal to them bit for bit (a row alone runs on
+   8-row tiles, so at larger R the tile sizes are held to each other);
+   timed in turns (kernel, the earlier mma.sync body from
+   ``scripts/moe_experts_simple.cu``, the same function through
+   ``torch._grouped_mm``, kernel) beside the plain version and the bound
+   of the experts touched; kernels 1 and 2 at the
    model's group of 8 (32 query on 4 KV heads) against their plain
    versions, timed. B: qwen3-30b-a3b at full width and all 48 layers from
    ``init_params`` on the card behind the default Engine (the card's free
@@ -340,16 +349,18 @@ Phases, each fatal on failure:
    streams of 64, every window a graph replay, the expert kernel 2 x 48
    times a forward (decode launches all by replays), decode tok/s and
    window device ms, then steady windows' device time split between the
-   experts, attention and the rest under torch.profiler. C: ``serve
+   experts, attention and the rest under torch.profiler, the rest by kind
+   of kernel and its top kernels. C: ``serve
    --model qwen3-30b-a3b --random-weights`` with ``serve``'s own defaults
    behind ``llkt-router``: a streamed chat through the router, 8 greedy
    streams, the same launch checks, the two decode-window series of
-   ``/metrics``; ``/health`` seconds with the warm-up, then with
-   ``--no-warmup``. D: qwen3-30b-a3b cut to 2 layers at full width,
-   written as a Qwen3-MoE checkpoint (3.7 GB) by ``synth_checkpoint``
-   while A runs, loaded in process (layer 0's router and expert 5 held to
-   the file) and served from its directory: the server's 16 greedy ids
-   equal the in-process engine's, its logprobs within the bf16 tolerance.
+   ``/metrics``, then a 4,000-token prompt's TTFT (bucket 4,096), twice;
+   ``/health`` seconds with the warm-up, then with ``--no-warmup``. D:
+   qwen3-30b-a3b cut to 2 layers at full width, written as a Qwen3-MoE
+   checkpoint (3.7 GB) by ``synth_checkpoint`` while A runs, loaded in
+   process (layer 0's router and expert 5 held to the file) and served from
+   its directory: the server's 16 greedy ids equal the in-process engine's,
+   its logprobs within the bf16 tolerance.
 
 ``--profile`` stops after phase 2 and traces, under torch.profiler, one
 decode window of eight requests as the engine runs it (one CUDA graph
@@ -1361,6 +1372,7 @@ W8_SAME_CALLS = (8, 64, 65, 256, 4096)
 W8_MAIN = "w_gate/w_up 4096x14336 M64"
 W8_VARIANT = os.path.join("scripts", "w8_matmul_unsplit.cu")
 W4_VARIANT = os.path.join("scripts", "w4_matmul_simple.cu")
+MOE_VARIANT = os.path.join("scripts", "moe_experts_simple.cu")
 
 
 def w8_work(M: int, K: int, N: int) -> tuple[float, float]:
@@ -1373,7 +1385,8 @@ def w8_work(M: int, K: int, N: int) -> tuple[float, float]:
 # ctypes ("p" a pointer, "i" an int)
 VARIANT_ENTRIES = {W8_VARIANT: {"llmk_w8_matmul_unsplit": "ppppiiip"},
                    W4_VARIANT: {"llmk_w4_matmul_simple": "ppppppiiiiiip",
-                                "llmk_w4_simple_splits": "iii"}}
+                                "llmk_w4_simple_splits": "iii"},
+                   MOE_VARIANT: {"llmk_moe_experts_simple": "ppppppppiiiip"}}
 
 
 def start_variant_build(source: str = W8_VARIANT):
@@ -1443,6 +1456,28 @@ def ptxas_report(log: str) -> list:
                            r"\(anonymous namespace\)::", "", d.strip())
                 r[0] = re.sub(r"\(.*\)$", "", d)
     return [tuple(r) for r in rows]
+
+
+def ptxas_faults(log, body: str) -> list:
+    """What a kernel's ptxas report says against it: no report at all, no
+    function named ``body``, ptxas's C7520 (wgmma serialized: a
+    "Performance Loss" warning), or a function with spill stores or spill
+    loads."""
+    import re
+
+    if not log:
+        return ["no ptxas report (nvcc's output is neither in this run nor beside the library)"]
+    rows = ptxas_report(log)
+    bad = [f"{f}: {line}" for f, line in rows if "Performance Loss" in line]
+    for f, line in rows:
+        if f == "ptxas says":
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if not m or int(m.group(1)) or int(m.group(2)):
+            bad.append(f"{f}: {line} (spills)")
+    if not any(body in f for f, _ in rows):
+        bad.append(f"no function {body} in the ptxas report")
+    return bad
 
 
 def w8_kernels(torch, rng, timer, unsplit) -> dict:
@@ -6641,6 +6676,7 @@ MOE_MODEL = "qwen3-30b-a3b"
 MOE_ROWS = (1, 8, 64, 512, 32768)
 MOE_MAIN = 64
 MOE_NEW = 64                 # greedy tokens a phase-9 stream generates
+MOE_LONG = 4000              # C: a long prompt's tokens (bucket 4,096)
 MOE_CKPT_LAYERS = 2
 MOE_DIR = os.path.join(OUT_DIR, "qwen3-30b-a3b-2l")
 MOE_PATH = f"{MOE_MODEL} serve behind llkt-router"
@@ -6665,7 +6701,7 @@ def moe_weights(torch, cfg, seed: int = 16):
 def moe_inputs(torch, cfg, router, gen, R: int):
     """(x, src, counts) for R expert-major rows: R / k random tokens routed
     by ``router`` (near-uniform over the experts), or one token's single
-    claim on expert 37 when R is 1."""
+    claim on expert 37 (the last where there are fewer) when R is 1."""
     from llms_on_kubernetes_tpu_torch.ops import moe
 
     D, E, k = cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_tok
@@ -6673,7 +6709,7 @@ def moe_inputs(torch, cfg, router, gen, R: int):
     x = torch.randn((N, D), generator=gen, device="cuda").to(torch.bfloat16)
     if R == 1:
         counts = torch.zeros((E,), dtype=torch.int32, device="cuda")
-        counts[37] = 1
+        counts[min(37, E - 1)] = 1
         return x, torch.zeros((1,), dtype=torch.int32, device="cuda"), counts
     r = moe.moe_route(x, router, top_k=k)
     return x, r.src, r.counts
@@ -6712,55 +6748,108 @@ def moe_library(torch, x, src, counts, wg, wu, wd):
     return run, None
 
 
-def moe_kernel_checks(torch, timer) -> dict:
+# Mixtral-8x7B's one layer (D 4,096, F 14,336, 8 experts top-2; 2.82 GB of
+# random bf16): a decode step of 8 tokens and a 4,096-token prefill
+MOE_MIXTRAL = "mixtral-8x7b"
+MOE_MIXTRAL_ROWS = (16, 8192)
+
+
+def moe_simple_call(torch, simple, x, src, counts, wg, wu, wd):
+    """The earlier mma.sync expert kernel (``scripts/moe_experts_simple.cu``) on the
+    same inputs, into buffers of its own."""
+    from llms_on_kubernetes_tpu_torch import kernels
+
+    R, (E, D, Fd) = src.shape[0], wg.shape
+    h = torch.empty((R, Fd), dtype=torch.bfloat16, device="cuda")
+    y = torch.empty((R, D), dtype=torch.bfloat16, device="cuda")
+    kernels.check("moe_experts_simple", simple(
+        x.data_ptr(), src.data_ptr(), counts.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+        wd.data_ptr(), h.data_ptr(), y.data_ptr(), R, E, D, Fd,
+        torch.cuda.current_stream().cuda_stream))
+    return y
+
+
+def moe_kernel_checks(torch, timer, simple) -> dict:
     """A: the expert kernel against ``moe_experts_plain`` at every R of
-    MOE_ROWS at qwen3-30b-a3b's widths (the bf16 row tolerance), three rows
-    of each alone bit-equal to them (batch invariance), a refusal; timed in
-    turns with ``torch._grouped_mm`` (kernel, library, kernel) beside the
+    MOE_ROWS at qwen3-30b-a3b's widths and at MOE_MIXTRAL_ROWS at
+    mixtral-8x7b's (the bf16 row tolerance), the tile size each R runs on
+    and the K split held to their Python mirrors, three rows of each alone
+    bit-equal to them (batch invariance; a row alone runs on 8-row tiles,
+    so at larger R this holds the tile sizes to each other), the earlier
+    mma.sync body within the same tolerance, a refusal; timed in turns
+    (kernel, the earlier body, ``torch._grouped_mm``, kernel) beside the
     plain version and the bound of the experts touched."""
+    from llms_on_kubernetes_tpu_torch import kernels
     from llms_on_kubernetes_tpu_torch.configs import get_config
     from llms_on_kubernetes_tpu_torch.ops import moe
 
-    cfg = get_config(MOE_MODEL)
     say("kernel moe_experts (the port's own: the routed expert FFN that JAX "
         "ops/moe.py::moe_block writes as one-hot einsums, left to XLA)")
-    router, wg, wu, wd, gen = moe_weights(torch, cfg)
-    E = cfg.num_experts
-    err, timings, lib_note = 0.0, {}, None
-    for R in MOE_ROWS:
-        x, src, counts = moe_inputs(torch, cfg, router, gen, R)
-        got = moe.moe_experts(x, src, counts, wg, wu, wd)
-        want = moe.moe_experts_plain(x, src, counts, wg, wu, wd)
-        rows = int(counts.sum())
-        err = max(err, check_close(f"bf16 {MOE_MODEL} R{R}", got[:rows], want[:rows],
-                                   "bfloat16"))
-        expert_of = torch.repeat_interleave(torch.arange(E, device="cuda"), counts.long())
-        for r in sorted({0, rows // 3, rows - 1}):
-            one = torch.zeros((E,), dtype=torch.int32, device="cuda")
-            one[expert_of[r]] = 1
-            alone = moe.moe_experts(x, src[r:r + 1], one, wg, wu, wd)
-            if not torch.equal(alone[0], got[r]):
-                fail(f"moe_experts: row {r} alone differs from row {r} of {R} rows "
-                     f"(batch invariance)")
-        flops, nbytes, touched = moe_work(cfg, x, counts, R)
-        b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
-        lib_fn, why = moe_library(torch, x, src, counts, wg, wu, wd)
-        lib_note = lib_note or why
-        t1 = timer(lambda: moe.moe_experts(x, src, counts, wg, wu, wd), reps=30)
-        lib = timer(lib_fn, reps=30) if lib_fn is not None else None
-        t2 = timer(lambda: moe.moe_experts(x, src, counts, wg, wu, wd), reps=30)
-        plain = timer(lambda: moe.moe_experts_plain(x, src, counts, wg, wu, wd), reps=3)
-        key = f"R{R} ({max(1, R // 8)} tokens x top-8) D2048 F768 E128 bf16"
-        timings[key] = dict(ms=(t1 + t2) / 2, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                            library_ms=lib, experts_touched=touched)
-        say(f"  timing moe_experts {key}: ms={t1:.4f},{t2:.4f} bound_ms={b_ms:.4f} ({b_by}, "
-            f"{touched} experts touched) library_ms="
-            f"{'none' if lib is None else f'{lib:.4f}'} plain_ms={plain:.4f}")
-        del got, want
-    say(f"  batch invariance: rows alone equal them among {MOE_ROWS} rows, bit for bit")
+    splits, tile = kernels.function("moe_splits"), kernels.function("moe_rows")
+    err, timings, lib_note, tiles_of = 0.0, {}, None, {}
+    for model, rows_list in ((MOE_MODEL, MOE_ROWS), (MOE_MIXTRAL, MOE_MIXTRAL_ROWS)):
+        cfg = get_config(model)
+        E, D, Fd, k = (cfg.num_experts, cfg.hidden_size, cfg.intermediate_size,
+                       cfg.num_experts_per_tok)
+        for K, Nw in ((D, 2 * Fd), (Fd, D)):
+            if splits(K, Nw) != len(moe.moe_splits(K, Nw)):
+                fail(f"moe_experts: the kernel cuts K {K} over {Nw} columns into "
+                     f"{splits(K, Nw)} slices, ops/moe.moe_splits into "
+                     f"{len(moe.moe_splits(K, Nw))}")
+        torch.cuda.empty_cache()
+        router, wg, wu, wd, gen = moe_weights(torch, cfg)
+        for R in rows_list:
+            x, src, counts = moe_inputs(torch, cfg, router, gen, R)
+            nx = tile(R, x.shape[0], E)
+            if nx != moe.moe_rows(R, x.shape[0], E):
+                fail(f"moe_experts: R {R} over {x.shape[0]} tokens runs {nx}-row tiles, "
+                     f"ops/moe.moe_rows says {moe.moe_rows(R, x.shape[0], E)}")
+            tiles_of[f"{model} R{R}"] = f"{nx}-row tiles"
+            got = moe.moe_experts(x, src, counts, wg, wu, wd)
+            want = moe.moe_experts_plain(x, src, counts, wg, wu, wd)
+            rows = int(counts.sum())
+            err = max(err, check_close(f"bf16 {model} R{R} ({tiles_of[f'{model} R{R}']})",
+                                       got[:rows], want[:rows], "bfloat16"))
+            check_close(f"bf16 {model} R{R} the earlier mma.sync body",
+                        moe_simple_call(torch, simple, x, src, counts, wg, wu, wd)[:rows],
+                        want[:rows], "bfloat16")
+            expert_of = torch.repeat_interleave(torch.arange(E, device="cuda"), counts.long())
+            for r in sorted({0, rows // 3, rows - 1}):
+                one = torch.zeros((E,), dtype=torch.int32, device="cuda")
+                one[expert_of[r]] = 1
+                alone = moe.moe_experts(x, src[r:r + 1], one, wg, wu, wd)
+                if not torch.equal(alone[0], got[r]):
+                    fail(f"moe_experts: {model} row {r} alone differs from row {r} of {R} "
+                         f"rows (batch invariance)")
+            flops, nbytes, touched = moe_work(cfg, x, counts, R)
+            b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+            lib_fn, why = moe_library(torch, x, src, counts, wg, wu, wd)
+            lib_note = lib_note or why
+            reps = 30 if R <= 512 else 10
+            t1 = timer(lambda: moe.moe_experts(x, src, counts, wg, wu, wd), reps=reps)
+            old = timer(lambda: moe_simple_call(torch, simple, x, src, counts, wg, wu, wd),
+                        reps=reps)
+            lib = timer(lib_fn, reps=reps) if lib_fn is not None else None
+            t2 = timer(lambda: moe.moe_experts(x, src, counts, wg, wu, wd), reps=reps)
+            plain = timer(lambda: moe.moe_experts_plain(x, src, counts, wg, wu, wd), reps=3)
+            key = (f"{'' if model == MOE_MODEL else model + ' '}R{R} ({max(1, R // k)} tokens x "
+                   f"top-{k}) D{D} F{Fd} E{E} bf16")
+            timings[key] = dict(ms=(t1 + t2) / 2, simple_ms=old, plain_ms=plain, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=lib, experts_touched=touched,
+                                tiles=tiles_of[f"{model} R{R}"])
+            say(f"  timing moe_experts {key}: ms={t1:.4f},{t2:.4f} simple_ms={old:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}, {touched} experts touched) library_ms="
+                f"{'none' if lib is None else f'{lib:.4f}'} plain_ms={plain:.4f} "
+                f"[{tiles_of[f'{model} R{R}']}]")
+            del got, want
+        del router, wg, wu, wd
+    say(f"  batch invariance: rows alone equal them among {MOE_ROWS} rows ({MOE_MODEL}) and "
+        f"{MOE_MIXTRAL_ROWS} ({MOE_MIXTRAL}), bit for bit")
+    say("  tiles: " + ", ".join(f"{k} {v}" for k, v in tiles_of.items()))
     if lib_note:
         say(f"  library_ms none: {lib_note}")
-    x, src, counts = moe_inputs(torch, cfg, router, gen, 8)
+    router, wg, wu, wd, gen = moe_weights(torch, get_config("debug-moe"))
+    x, src, counts = moe_inputs(torch, get_config("debug-moe"), router, gen, 8)
     try:
         moe.moe_experts(x.float(), src, counts, wg, wu, wd)
     except ValueError as e:
@@ -6768,13 +6857,14 @@ def moe_kernel_checks(torch, timer) -> dict:
     else:
         fail("moe_experts took float32 x")
     main_key = next(k for k in timings if k.startswith(f"R{MOE_MAIN} "))
-    del wg, wu, wd
     return dict(
         name="moe_experts", route="cuda",
         source="llms_on_kubernetes_tpu_torch/csrc/moe_experts.cu",
         replaces="none: llms_on_kubernetes_tpu/ops/moe.py:33 moe_block, left to XLA",
         max_abs_err=err, **timings[main_key], shape=main_key,
         other_shapes={k: v for k, v in timings.items() if k != main_key},
+        simple_note=(f"simple_ms: the kernel before its Hopper redesign ({MOE_VARIANT}: "
+                     f"mma.sync on 64 x 64 tiles, cp.async), in turns in this run"),
         library_note=("the gather, torch._grouped_mm x 3 and the SiLU product (the routed "
                       "function in library calls)" if lib_note is None
                       else f"none: {lib_note}"))
@@ -6883,18 +6973,50 @@ def moe_split(torch, eng, prompts, n_tokens: int) -> dict:
     if state != "done":
         fail("phase 9: the profiled streams ended before 4 windows")
     parts = {"experts": 0.0, "attention": 0.0, "rest": 0.0}
+    rest_kinds: dict = {}
+    rest_ops: dict = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA or getattr(
                 e, "is_user_annotation", False):
             continue
         ms = e.self_device_time_total / 1e3
-        if "moe_expert_gemm" in e.key:
+        if "moe_stream" in e.key:
             parts["experts"] += ms
         elif any(k in e.key for k in ("flash_prefill", "paged_decode", "write_window")):
             parts["attention"] += ms
         else:
             parts["rest"] += ms
-    return {"parts": parts, "windows": windows}
+            kind = rest_kind(e.key)
+            rest_kinds[kind] = rest_kinds.get(kind, 0.0) + ms
+            n, t = rest_ops.get(e.key, (0, 0.0))
+            rest_ops[e.key] = (n + e.count, t + ms)
+    return {"parts": parts, "windows": windows, "rest_kinds": rest_kinds,
+            "rest_top": sorted(rest_ops.items(), key=lambda kv: -kv[1][1])[:14]}
+
+
+# the device kernels of a MoE decode window outside the experts and
+# attention, by what they do (their names): the projections, the router
+# and the LM head are GEMMs; routing is softmax, top-k, cumsum and scatter;
+# the combine and the row picks are index and gather kernels; the
+# elementwise chain (norms, rope, residual adds, casts, the combine's
+# weighting) is elementwise and reduction kernels
+REST_KINDS = (("gemm (projections, router, head)", ("gemm", "xmma", "cutlass", "sm90", "gemv",
+                                                    "splitk", "cublas", "nvjet")),
+              ("routing: softmax, top-k, sort, scan", ("softmax", "topk", "sort", "scan",
+                                                       "radix", "bitonic", "cumsum")),
+              ("index, gather, scatter (route rows, combine)", ("index", "gather", "scatter")),
+              ("reductions (norms, sums)", ("reduce",)),
+              ("elementwise (chain, casts, combine arithmetic)", ("elementwise", "vectorized",
+                                                                  "unrolled")),
+              ("copies and cat", ("copy", "cat", "memcpy", "memset", "fill")))
+
+
+def rest_kind(name: str) -> str:
+    low = name.lower()
+    for kind, keys in REST_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other (sampling and the rest)"
 
 
 def moe_in_process(torch) -> dict:
@@ -6943,6 +7065,11 @@ def moe_in_process(torch) -> dict:
         f"device ms a window: experts {parts['experts'] / nwin:.3f}, attention "
         f"{parts['attention'] / nwin:.3f}, rest {parts['rest'] / nwin:.3f} (experts "
         f"{100 * parts['experts'] / max(total, 1e-9):.1f}% of the kernels' time)")
+    say("  the rest by kind, device ms a window: " + ", ".join(
+        f"{k} {v / nwin:.3f}" for k, v in sorted(split["rest_kinds"].items(),
+                                                 key=lambda kv: -kv[1])))
+    for name, (n, ms) in split["rest_top"]:
+        say(f"    {ms / nwin:8.3f} ms, {n / nwin:6.0f} launches a window: {name[:110]}")
     del eng, params, timer
     return {"launches": run["launches"], "tok_s": run["tok_s"], "window_ms": win_ms,
             "split": split, "free_gib": free0 / 2**30, "held_gib": held / 2**30}
@@ -7003,14 +7130,26 @@ def _drive_moe_router(cfg):
             if steps_n < replays:
                 fail(f"{MOE_PATH}: llm_decode_steps_per_dispatch_count {steps_n} < {replays} "
                      f"windows")
+            # a long prompt's TTFT (bucket 4,096), twice with other seeded
+            # ids (no prefix hit), after the counts above were read
+            long_ttft = []
+            for seed in (0, 1):
+                ids = np.random.default_rng(seed).integers(100, 50000, size=MOE_LONG).tolist()
+                status, events, t0 = stream(base + "/v1/completions", {
+                    "model": MOE_MODEL, "prompt": ids, "max_tokens": 4, "temperature": 0,
+                    "stream": True})
+                if status != 200 or not events:
+                    fail(f"{MOE_PATH}: the {MOE_LONG}-token prompt got HTTP {status}")
+                long_ttft.append(1e3 * (events[0][0] - t0))
             say(f"  {MOE_PATH}: a streamed chat through the router ended whole; 8 greedy "
                 f"streams of {MOE_NEW}: {tok_s:.1f} decode tok/s; moe_experts "
                 f"{k1['launches'].get('moe_experts', 0)} launches = 2 x {cfg.num_layers} x "
                 f"{sum(d.values())} forwards; /metrics llm_decode_steps_per_dispatch count "
-                f"{steps_n:g} sum {steps_sum:g}, llm_decode_early_exit_total {early:g} "
-                f"[{card_line()}]")
+                f"{steps_n:g} sum {steps_sum:g}, llm_decode_early_exit_total {early:g}; a "
+                f"{MOE_LONG}-token prompt's TTFT {long_ttft[0]:.1f} ms, then "
+                f"{long_ttft[1]:.1f} ms [{card_line()}]")
             return {"launches": k1["launches"], "tok_s": tok_s, "steps": (steps_n, steps_sum),
-                    "early_exit": early}
+                    "early_exit": early, "long_ttft_ms": long_ttft}
         finally:
             stop_proc(router_proc)
     return drive
@@ -7098,15 +7237,16 @@ def moe_checkpoint(torch, write) -> dict:
     return served
 
 
-def phase_moe(torch, entries: dict) -> dict:
-    """Phase 9: A (the expert kernel; kernels 1 and 2 at group 8), B
-    (qwen3-30b-a3b in process), C (``serve`` behind llkt-router, /health
-    with and without the warm-up), D (a 2-layer checkpoint served)."""
+def phase_moe(torch, entries: dict, simple) -> dict:
+    """Phase 9: A (the expert kernel, in turns with ``simple``, its body
+    before the redesign; kernels 1 and 2 at group 8), B (qwen3-30b-a3b in
+    process), C (``serve`` behind llkt-router, /health with and without the
+    warm-up, a long prompt's TTFT), D (a 2-layer checkpoint served)."""
     from llms_on_kubernetes_tpu_torch.configs import get_config
 
     t0 = time.perf_counter()
     write = start_moe_write()
-    entries["moe_experts"] = moe_kernel_checks(torch, Timer(torch))
+    entries["moe_experts"] = moe_kernel_checks(torch, Timer(torch), simple)
     flash, decode = moe_attention_checks(torch, np.random.default_rng(9), Timer(torch))
     entries["flash_prefill"]["other_shapes"].update(flash)
     entries["paged_decode"]["other_shapes"].update(decode)
@@ -7146,11 +7286,13 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     router_build = start_router_build()
     variant, variant4 = start_variant_build(), start_variant_build(W4_VARIANT)
+    variant_moe = start_variant_build(MOE_VARIANT)
     kernels.build()
     unsplit = finish_variant_build(variant)["llmk_w8_matmul_unsplit"]
     simple = finish_variant_build(variant4)
+    simple_moe = finish_variant_build(variant_moe)["llmk_moe_experts_simple"]
     say(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(kernels.SOURCES)}, "
-        f"{W8_VARIANT} and {W4_VARIANT}")
+        f"{W8_VARIANT}, {W4_VARIANT} and {MOE_VARIANT}")
     os.makedirs(OUT_DIR, exist_ok=True)
     # every server this run starts (the CLI servers inherit it) captures
     # its profiles, the anomaly detector's too, inside the checkout
@@ -7171,11 +7313,13 @@ def main(argv) -> int:
         say(f"sass {body}: {hmma} HGMMA instructions in {funcs} tensor-core (bf16) functions")
         if not funcs or not hmma:
             fail(f"the bf16 W4A16 body {body} has no wgmma (HGMMA) instruction")
-    hmma, funcs = sass_mma_count(kernels.library_path("moe_experts"), "moe_expert_gemm")
-    say(f"sass moe_expert_gemm: {hmma} HMMA instructions in {funcs} tensor-core (bf16) "
-        f"functions")
+    hmma, funcs = sass_mma_count(kernels.library_path("moe_experts"), "moe_stream", "HGMMA")
+    say(f"sass moe_stream: {hmma} HGMMA instructions in {funcs} tensor-core (bf16) functions")
     if not funcs or not hmma:
-        fail("the MoE expert kernel moe_expert_gemm has no tensor-core (HMMA) instruction")
+        fail("the MoE expert kernel's body moe_stream has no wgmma (HGMMA) instruction")
+    moe_faults = ptxas_faults(kernels.build_log.get("moe_experts"), "moe_stream")
+    if moe_faults:
+        fail("the MoE expert kernel: " + "; ".join(moe_faults))
     for body in ("w8_matmul_decode", "w8_matmul_prefill"):
         hmma, funcs = sass_mma_count(kernels.library_path("w8_matmul"), body)
         say(f"sass {body}: {hmma} HMMA instructions in {funcs} tensor-core (bf16) functions")
@@ -7193,7 +7337,7 @@ def main(argv) -> int:
     if "--moe-only" in argv:
         finish_router_build(router_build)
         phase_moe(torch, {"flash_prefill": {"other_shapes": {}},
-                          "paged_decode": {"other_shapes": {}}})
+                          "paged_decode": {"other_shapes": {}}}, simple_moe)
         fail("--moe-only: phases 2 to 8 skipped, no result")
     t0 = time.perf_counter()
     entries = phase_kernels(torch)
@@ -7237,7 +7381,7 @@ def main(argv) -> int:
     spec = phase_spec_gguf(torch)
     awq = phase_awq_lora(torch, awq_write)
     free_card(torch, "phase 8 done")
-    moe = phase_moe(torch, entries)
+    moe = phase_moe(torch, entries, simple_moe)
     # launches on each path, counted from 0 just before it and read just
     # after; the line's "launches" is the checkpoint server's where the
     # kernel runs there, else phase 4's fused engines, and the W8A16

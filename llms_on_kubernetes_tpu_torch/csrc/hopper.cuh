@@ -1,5 +1,7 @@
 // Hopper (sm_90a) pieces shared by the weight-only matrix products
-// (w8_matmul.cu, W8A16; w4_matmul.cu, grouped W4A16): the K split and its
+// (w8_matmul.cu, W8A16; w4_matmul.cu, grouped W4A16) and the MoE expert
+// kernel (moe_experts.cu, whose bf16 weights take ldmatrix.trans instead
+// of a conversion into the same A fragments): the K split and its
 // slice walk, TMA tiles into shared memory with completion on an mbarrier,
 // wgmma with the weight as the register A operand and x as the
 // shared-memory B operand (out^T = w^T x^T), and the integer -> bf16
@@ -153,6 +155,17 @@ inline int make_map(CUtensorMap* tm, const void* base, CUtensorMapDataType type,
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// a barrier that completes a phase after n arrivals
+__device__ __forceinline__ void mbar_init_n(uint64_t* bar, int n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(n)
+               : "memory");
+}
+
+// the named barrier `id` over `threads` threads of the block
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init_fence() {

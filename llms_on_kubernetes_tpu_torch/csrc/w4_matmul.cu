@@ -133,10 +133,6 @@ __device__ __forceinline__ float group_step(float acc, float part, float s, floa
   return __fsub_rn(__fadd_rn(acc, __fmul_rn(part, s)), __fmul_rn(xs, z));
 }
 
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // the tile of ones xsum's wgmma takes as B: 1024 bytes of bf16 1.0, written
 // by the block's threads, then handed to the async proxy
 __device__ __forceinline__ void fill_ones(uint8_t* ones) {
@@ -567,11 +563,6 @@ int launch_nx(const void* x, const void* w, const void* scale, const void* zs, v
 }
 
 // -- prefill body: M > 64 -----------------------------------------------------
-
-__device__ __forceinline__ void mbar_init_n(uint64_t* bar, int n) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(n)
-               : "memory");
-}
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");

@@ -72,12 +72,14 @@ _SIGNATURES = {
     "paged_write_window": ("llmk_paged_write_window", [_P] * 9 + [_I] * 9 + [_P]),
     "w8_matmul": ("llmk_w8_matmul", [_P] * 4 + [_I] * 4 + [_P]),
     "w4_matmul": ("llmk_w4_matmul", [_P] * 5 + [_I] * 6 + [_P]),
-    "moe_experts": ("llmk_moe_experts", [_P] * 8 + [_I] * 4 + [_P]),
+    "moe_experts": ("llmk_moe_experts", [_P] * 8 + [_I] * 5 + [_P]),
 }
 # further C entries of a kernel library: name -> (library, symbol, argtypes)
 _EXTRA_ENTRIES = {
     "w8_splits": ("w8_matmul", "llmk_w8_splits", [_I, _I]),   # the K split's slice count
     "w4_splits": ("w4_matmul", "llmk_w4_splits", [_I, _I, _I]),
+    "moe_splits": ("moe_experts", "llmk_moe_splits", [_I, _I]),  # the K split's slice count
+    "moe_rows": ("moe_experts", "llmk_moe_rows", [_I, _I, _I]),  # rows a tile
 }
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
@@ -166,14 +168,19 @@ def library_path(name: str) -> Path:
 
 def build(names=SOURCES) -> dict:
     """Compile every source in ``names`` whose library is missing, all in
-    parallel; return {name: library path}. Raises with nvcc's output when
-    a build fails."""
+    parallel; return {name: library path}. nvcc's output goes to
+    ``build_log`` and beside the library (``.log``), from where a library
+    already built fills ``build_log``. Raises with nvcc's output when a
+    build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n) for n in names}
     procs = {}
     t0 = time.perf_counter()
     for n, path in paths.items():
         if path.exists():
+            log = path.with_suffix(".log")
+            if n not in build_log and log.exists():
+                build_log[n] = log.read_text()
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
@@ -186,6 +193,7 @@ def build(names=SOURCES) -> dict:
         if proc.returncode != 0:
             failed.append(f"nvcc {n}.cu exited {proc.returncode}:\n{out}")
         else:
+            paths[n].with_suffix(".log").write_text(out)
             os.replace(tmp, paths[n])
     if procs:
         # one event for the parallel build: its wall time, not the sum of

@@ -15,9 +15,12 @@ bucket), so the port computes the same function with routed products:
   read, so a CUDA graph captures them.
 - ``moe_experts``: y[r] = (SiLU(x[src[r]] W_gate[e]) * (x[src[r]] W_up[e]))
   W_down[e] for every expert-major row r of expert e. A CUDA tensor
-  launches ``csrc/moe_experts.cu`` (two launches: gate/up with the SiLU
-  product, then down), a CPU tensor runs ``moe_experts_plain``, a loop over
-  the experts in torch that is the kernel's reference.
+  launches ``csrc/moe_experts.cu`` (two launches of persistent blocks:
+  gate/up with the SiLU product, then down), a CPU tensor runs
+  ``moe_experts_plain``, a loop over the experts in torch that is the
+  kernel's reference. ``moe_splits``, ``moe_rows``, ``moe_tiles`` and
+  ``moe_walk`` mirror the kernel's K split, its tile size and its walk
+  over the tiles.
 - ``moe_combine``: out[n] = sum_j w[n, j] y[row(n, j)], in choice order;
   a dropped or invalid claim adds 0, so padding rows come out 0.
 
@@ -36,8 +39,14 @@ import torch
 import torch.nn.functional as F
 
 from llms_on_kubernetes_tpu_torch import kernels
+from llms_on_kubernetes_tpu_torch.ops.quant import _cluster_splits
 
 MOE_KERNEL = "moe_experts"
+# the expert kernel's tiles (csrc/moe_experts.cu)
+MOE_POW2_ROWS = 64        # rows a tile for up to 64 rows an expert (kMaxPow2Rows)
+MOE_PREFILL_ROWS = 128    # rows a tile above (kPreRows)
+MOE_COLS = 64             # weight columns a wgmma tile (kCols)
+MOE_MAX_EXPERTS = 512     # experts the kernel's tile tables hold (kMaxExperts)
 
 
 @dataclasses.dataclass
@@ -135,6 +144,67 @@ def moe_experts_plain(x: torch.Tensor, src: torch.Tensor, counts: torch.Tensor,
     return y
 
 
+def moe_splits(K: int, Nw: int) -> list[tuple[int, int]]:
+    """The K slices ``[(k0, k1), ...]`` of the expert kernel's launch over
+    K rows that streams ``Nw`` weight columns an expert (2F for gate/up, D
+    for down; ``csrc/moe_experts.cu`` ``moe_split``): the weight-only
+    kernels' split (``ops/quant._cluster_splits``) in units of 64 rows, or
+    32 where 64 does not divide K. So S and the edges follow from D and F
+    alone, never from R. Each output is each slice's f32 chain of 16-deep
+    steps in increasing k, the chains summed in slice order, then the
+    epilogue's roundings."""
+    return _cluster_splits(K, Nw, 64 if K % 64 == 0 else 32)
+
+
+def moe_rows(R: int, N: int, E: int) -> int:
+    """Rows a tile of the expert kernel for R expert-major rows over N
+    tokens and E experts (``llmk_moe_rows``): an expert holds at most one
+    row a token, so at most min(R, N) rows, and a tile is sized for that
+    or, where fewer, for four times an expert's even share (4 R / E, at
+    least 8; an expert with more rows gets more tiles): the least of 8, 16,
+    32 and 64 that holds it, else ``MOE_PREFILL_ROWS``. Every tile size
+    gives the same bits."""
+    most = min(R, N)
+    share = 4 * R // E
+    if share < most:
+        most = max(share, 8)
+    if most > MOE_POW2_ROWS:
+        return MOE_PREFILL_ROWS
+    return 8 if most <= 8 else 1 << (most - 1).bit_length()
+
+
+def moe_col_tiles(N: int, gated: bool) -> int:
+    """Column tiles of a launch with N outputs: 64 outputs (the gate and up
+    columns, 128 weight columns) for gate/up, 128 for down."""
+    width = MOE_COLS if gated else 2 * MOE_COLS
+    return -(-N // width)
+
+
+def moe_tiles(counts, rows: int) -> list[tuple[int, int, int]]:
+    """The kernel's row tiles, in order: tiles of ``rows`` rows within each
+    expert, experts in order, as ``(expert, first row, rows)`` (the tables
+    ``tile_tables`` builds from the counts, read by ``lookup_tile``)."""
+    out, row = [], 0
+    for e, c in enumerate(int(c) for c in counts):
+        for r in range(0, c, rows):
+            out.append((e, row + r, min(rows, c - r)))
+        row += c
+    return out
+
+
+def moe_walk(counts, N: int, gated: bool, blocks: int,
+             rows: int = MOE_PREFILL_ROWS) -> list[list[tuple[int, int, int, int]]]:
+    """The kernel's persistent walk over tiles of ``rows`` rows: block
+    b takes work items b, b + blocks, ...; item w is row tile w // C and
+    column tile w % C (C column tiles), so the blocks running side by side
+    share a row tile. Returns each block's items as ``(expert, first row,
+    rows, column tile)``."""
+    tiles = moe_tiles(counts, rows)
+    C = moe_col_tiles(N, gated)
+    return [[(*tiles[w // C], w % C) for w in range(b, len(tiles) * C, blocks)]
+            for b in range(blocks)]
+
+
 class MoEWorkspace:
     """The expert kernel's scratch for one engine: ``src`` [rows + 1]
     int32, ``h`` [rows, F] and ``y`` [rows, D], made once (``rows`` = the
@@ -162,8 +232,9 @@ def moe_experts(x: torch.Tensor, src: torch.Tensor, counts: torch.Tensor,
     ``csrc/moe_experts.cu`` (bfloat16 x and weights, SiLU, D and F
     multiples of 32, all contiguous) or raises. Rows past the kept
     claims are left unwritten. A row's result is bit for bit the same
-    whatever the other rows are (the tile shape and the K order depend on
-    D and F only)."""
+    whatever the other rows are and whatever the tile size (``moe_rows``):
+    the K split and the order of sums depend on D and F
+    only (``moe_splits``)."""
     if x.device.type == "cpu":
         return moe_experts_plain(x, src, counts, w_gate, w_up, w_down, act)
     if act is not F.silu:
@@ -182,9 +253,9 @@ def moe_experts(x: torch.Tensor, src: torch.Tensor, counts: torch.Tensor,
         raise ValueError(f"moe_experts: x {tuple(x.shape)}, w_gate {tuple(w_gate.shape)}, "
                          f"w_up {tuple(w_up.shape)}, w_down {tuple(w_down.shape)} and counts "
                          f"{tuple(counts.shape)} do not chain")
-    if D % 32 or Fd % 32 or R < 1:
-        raise ValueError(f"moe_experts kernel takes D and F that are multiples of 32 and "
-                         f"R >= 1, got D={D} F={Fd} R={R}")
+    if D % 32 or Fd % 32 or R < 1 or E > MOE_MAX_EXPERTS:
+        raise ValueError(f"moe_experts kernel takes D and F that are multiples of 32, R >= 1 "
+                         f"and at most {MOE_MAX_EXPERTS} experts, got D={D} F={Fd} R={R} E={E}")
     if workspace is not None and workspace.fits(R, D, Fd, bf, x.device):
         h, y = workspace.h[:R], workspace.y[:R]
     else:
@@ -193,7 +264,7 @@ def moe_experts(x: torch.Tensor, src: torch.Tensor, counts: torch.Tensor,
     fn = kernels.function(MOE_KERNEL)
     err = fn(x.data_ptr(), src.data_ptr(), counts.data_ptr(), w_gate.data_ptr(),
              w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(), y.data_ptr(),
-             R, E, D, Fd, kernels.stream_ptr(x))
+             R, x.shape[0], E, D, Fd, kernels.stream_ptr(x))
     kernels.check(MOE_KERNEL, err)
     kernels.count(MOE_KERNEL)      # gate/up
     kernels.count(MOE_KERNEL)      # down

@@ -1945,6 +1945,62 @@ def test_moe_experts_rows_bit_equal_across_R(cuda):
             assert torch.equal(alone[0], many[r]), (R, r)
 
 
+@pytest.mark.parametrize("R,N", [(1, 1), (8, 4), (32, 16), (40, 20), (128, 64), (300, 150),
+                                 (2048, 1024)])
+def test_moe_experts_every_tile_size_at_debug_moe_widths(cuda, R, N):
+    """debug-moe's widths (D 64, F 96: a partial column tile, K slices of
+    32 rows) in 8- to 128-row tiles (R 1 to 2,048): within the bf16 row
+    tolerance, and rows alone (8-row tiles) bit-equal to them."""
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    wg, wu, wd = _moe_weights(E=4, D=64, F=96)
+    x = _t(cuda, N, 64, dtype=torch.bfloat16)
+    src, counts, experts = _moe_rows(cuda, R, 4, N)
+    got = moe.moe_experts(x, src, counts, wg, wu, wd).clone()
+    _close(got, moe.moe_experts_plain(x, src, counts, wg, wu, wd), torch.bfloat16)
+    for r in sorted({0, R // 2, R - 1}):
+        one = torch.zeros(4, dtype=torch.int32, device="cuda")
+        one[int(experts[r])] = 1
+        alone = moe.moe_experts(x, src[r:r + 1].contiguous(), one, wg, wu, wd)
+        assert torch.equal(alone[0], got[r]), (R, r)
+
+
+def test_moe_experts_rows_bit_equal_across_tiles_at_qwen3_widths(cuda):
+    """512 rows over 64 tokens and 128 experts run in 16-row tiles (four
+    times an expert's even share); a row alone (8-row tiles) gives the same
+    bits."""
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    wg, wu, wd = _moe_weights()
+    x = _t(cuda, 64, 2048, dtype=torch.bfloat16)
+    src, counts, experts = _moe_rows(cuda, 512, 128, 64)
+    assert moe.moe_rows(512, 64, 128) == 16 and moe.moe_rows(1, 64, 128) == 8
+    many = moe.moe_experts(x, src, counts, wg, wu, wd).clone()
+    _close(many, moe.moe_experts_plain(x, src, counts, wg, wu, wd), torch.bfloat16)
+    for r in (0, 1, 170, 511):
+        one = torch.zeros(128, dtype=torch.int32, device="cuda")
+        one[int(experts[r])] = 1
+        alone = moe.moe_experts(x, src[r:r + 1].contiguous(), one, wg, wu, wd)
+        assert torch.equal(alone[0], many[r]), r
+
+
+def test_moe_kernel_split_and_tile_equal_their_mirrors(cuda):
+    """The kernel's K split and tile size are ``ops/moe``'s mirrors, at
+    every registry MoE width and at R across the tile sizes."""
+    from llms_on_kubernetes_tpu_torch import configs
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    splits, rows = kernels.function("moe_splits"), kernels.function("moe_rows")
+    for c in configs.REGISTRY.values():
+        if c.num_experts:
+            D, F = c.hidden_size, c.intermediate_size
+            for K, Nw in ((D, 2 * F), (F, D)):
+                assert splits(K, Nw) == len(moe.moe_splits(K, Nw)), (c.name, K, Nw)
+    for R, N, E in [(1, 1, 128), (8, 1, 128), (64, 8, 128), (65, 65, 8), (512, 64, 128),
+                    (512, 4096, 128), (32768, 4096, 128), (16, 8, 8), (8192, 4096, 8)]:
+        assert rows(R, N, E) == moe.moe_rows(R, N, E), (R, N, E)
+
+
 def test_moe_block_on_the_card_equals_its_plain_parts(cuda):
     """Routing, the kernel and the combine on the card against the same
     route through moe_experts_plain, with padding rows (valid False)."""

@@ -18,6 +18,7 @@ the port wires, on the CPU.
 
 import json
 import os
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -222,18 +223,39 @@ def test_flappy_replica_flaps_ready_while_health_stays_green(tparams, monkeypatc
 
 
 def test_slow_cold_start_holds_the_replica_loading(tparams, monkeypatch):
+    """The replica answers /ready 503 "loading" (and /health 200) for the
+    fault's 0.5 s, then serves. The cold-start timer's call is held until
+    the test has read /ready once: whether that read lands inside the 0.5
+    s would otherwise measure the machine's load, not the port. The hold
+    itself is read from the timer: it calls no sooner than 0.5 s after the
+    server began to start, and the replica turns serving only then."""
     monkeypatch.setenv("LLMK_FAULT", "slow_cold_start:0.5")
+    read, serving, times = threading.Event(), threading.Event(), {}
+    go_serving = OpenAIServer._go_serving
+
+    def held(self):
+        times["called"] = time.monotonic()
+        assert read.wait(120)
+        go_serving(self)
+        times["serving"] = time.monotonic()
+        serving.set()
+
+    monkeypatch.setattr(OpenAIServer, "_go_serving", held)
+    started = time.monotonic()
     srv, base = _server(tparams)
     try:
         status, raw = _get(base, "/ready")
+        read_at = time.monotonic()
         assert (status, json.loads(raw)["state"]) == (503, "loading")
         assert _get(base, "/health")[0] == 200
-        t0 = time.monotonic()
-        while _get(base, "/ready")[0] != 200:
-            assert time.monotonic() - t0 < 10
-            time.sleep(0.05)
+        read.set()
+        assert serving.wait(120)
+        assert times["called"] - started >= 0.5
+        assert times["serving"] >= max(times["called"], read_at)
+        assert _get(base, "/ready")[0] == 200
         assert _complete(base, {"prompt": "a", "max_tokens": 2})[0] == 200
     finally:
+        read.set()
         srv.close()
 
 

@@ -447,6 +447,25 @@ def test_a_parallel_nvcc_build_is_one_compile_event_of_its_wall_time(tmp_path, m
     assert kernels.build(("a", "b", "c")) == paths and len(kernels.COMPILES) == n0 + 1
 
 
+def test_a_cached_library_brings_back_its_ptxas_report(tmp_path, monkeypatch):
+    # nvcc's output (ptxas's report, which chip_smoke.py reads for spills and
+    # serialized wgmma) is kept beside the library and read back when a later
+    # process finds the library built
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\necho "ptxas info    : Used 40 registers"\n'
+                    'while [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "build_log", {})
+    kernels.build(("a",))
+    assert "Used 40 registers" in kernels.build_log["a"]
+    monkeypatch.setattr(kernels, "build_log", {})
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "/nonexistent/nvcc")
+    kernels.build(("a",))
+    assert "Used 40 registers" in kernels.build_log["a"]
+
+
 def test_card_memory_comes_from_the_allocator(monkeypatch):
     stats = {"allocated_bytes.all.current": 7_000, "allocated_bytes.all.peak": 9_000,
              "reserved_bytes.all.current": 16_000, "allocation.all.allocated": 42}
