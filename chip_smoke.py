@@ -318,15 +318,18 @@ Phases, each fatal on failure:
    printed), the self-draft's accept ratio at least 0.5 (printed: bf16
    prefill and verify round differently, so near-ties can reject). C:
    TinyLlama-1.1B Q8_0 and Phi-3-mini q4 (Q4_K, Q6_K output, phi3's fused
-   tensors) at their published widths, written by ``testing/synth_gguf.py``
+   tensors) at their published widths, cut to ``GGUF_SERVED_LAYERS`` layers
+   for the run's time, written by ``testing/synth_gguf.py``
    (three writer processes started with phase 7, overlapping A), each
    served behind nothing: in bf16 in this process by ``serve``'s own GGUF
    branch (``_gguf_engine``: config, weights and embedded tokenizer from
    the file; load and ready seconds and the host's resident-set peak
    printed), its params' layers 0 and L - 1, embedding, norm and head
-   held bit for bit to the file's values cast to bf16; then as a user
-   runs it, ``serve --model <file>.gguf --quantization int8`` (/health
-   seconds printed). Each: a chat completion through the embedded
+   held bit for bit to the file's values cast to bf16; then TinyLlama as a
+   user runs it, ``serve --model <file>.gguf --quantization int8`` (/health
+   seconds printed; Phi-3-mini's int8 serve is cut for the run's time,
+   its GGUF tensors are held in process). Each: a chat completion
+   through the embedded
    tokenizer and template (prompt_tokens the template's count), every
    window a graph replay, W8A16 7 x num_layers a forward (int8) or never
    (bf16).
@@ -343,7 +346,9 @@ Phases, each fatal on failure:
    ``torch._grouped_mm``, kernel) beside the plain version and the bound
    of the experts touched; kernels 1 and 2 at the
    model's group of 8 (32 query on 4 KV heads) against their plain
-   versions, timed. B: qwen3-30b-a3b at full width and all 48 layers from
+   versions, timed. B: Qwen3-VL-30B-A3B (its published config.json: the
+   qwen3-30b-a3b backbone's widths, rope theta 5e6, interleaved mrope, the
+   27-layer tower) at full width and all 48 layers from
    ``init_params`` on the card behind the default Engine (the card's free
    memory before and what the process holds after the load): 8 greedy
    streams of 64, every window a graph replay, the expert kernel 2 x 48
@@ -361,6 +366,36 @@ Phases, each fatal on failure:
    process (layer 0's router and expert 5 held to the file) and served from
    its directory: the server's 16 greedy ids equal the in-process engine's,
    its logprobs within the bf16 tolerance.
+10. vision (``phase_vision``): A, kernel 1 with ``mm_groups`` (gemma-3's
+   image blocks) at gemma-3-27b's attention (32 query on 16 KV heads, d
+   128, bf16): bucket 1,024 with one image of 256 soft tokens and 4,096
+   with four, window 1,024 and global, against its plain version (the bf16
+   row tolerance), all-text groups bit-equal to none; timed in turns with
+   the kernel without groups, the plain version and sdpa with the same
+   boolean mask, beside the bound of the (query, key) pairs the mask
+   keeps. B:
+   gemma-3-27b-it from its published config.json at full width (62
+   layers, SigLIP 27 x 1,152 at 896 px) behind an Engine sized for it
+   (288 pages of 64, buckets 64/512/1,024): the bytes on the card, the
+   host's PNG decode and resize for an 896 px and a 1,600 x 1,200 image
+   (every row Paeth, the decoder's slowest path), the tower's device ms an
+   image, an image request's TTFT split into host decode, tower and
+   prefill (twice, cold, beside a text request of its length), 8 greedy
+   streams with 4 images (decode tok/s over the span and once all 8
+   decode; every image prefill 62 flash launches), one image request's
+   stream equal on a cold resubmission and, within ``flip_margin``,
+   through a prefix hit covering the image; then the engine behind the
+   port's HTTP server with a gemma-3 tokenizer: a streamed PNG
+   ``image_url`` chat whose ``usage`` counts the 256 soft tokens, 400 for
+   a JPEG, a ``video_url`` and a remote URL, and 4 text streams' gaps
+   between tokens alone and while the 1,600 x 1,200 PNG of an image chat
+   is decoded on its request thread. C (run inside phase 9 B, on
+   its engine): Qwen3-VL with images of two aspect ratios (two grids):
+   the tower ms, the TTFT split, 8 streams with 4 images. D: both models
+   cut to 2 layers at full width, written with their tokenizers by
+   ``synth_checkpoint`` while A and B run, each served by ``serve
+   --max-images-per-request 1`` behind ``llkt-router``: the streamed image
+   chat and its usage, the three 400s and a fourth for two images.
 
 ``--profile`` stops after phase 2 and traces, under torch.profiler, one
 decode window of eight requests as the engine runs it (one CUDA graph
@@ -372,7 +407,7 @@ of ``LLMK_KV_DTYPE`` (bf16 or int8); then the two windows again with int8
 weights;
 ``--kernels-only`` stops after phase 2; ``--spec-only`` runs phase 1 and
 phase 7 and stops, ``--awq-only`` phase 1 and phase 8, ``--moe-only`` phase 1
-and phase 9 (no result).
+and phase 9, ``--vision-only`` phase 1, phase 9 B and phase 10 (no result).
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; before it, one ``{"kernels": [...]}`` JSON line, whose
@@ -381,7 +416,8 @@ gives them; before it, one ``{"kernels": [...]}`` JSON line, whose
 W8A16 kernel), and ``launches_by_path`` from every path (phase 3's request
 surface and phase 4b's tier sessions, prefill and decode replicas and
 drills among them, phase 7's verify and draft paths and GGUF servers); the
-expert kernel's ``launches`` come from phase 9 C's server.
+expert kernel's ``launches`` come from phase 9 C's server; flash
+prefill's ``launches_by_path`` hold the multimodal paths of phase 10.
 The last line is ``{"ok": true, "device": {...}}``, printed only when
 every phase passed.
 Without a CUDA device, or outside a checkout, it exits non-zero first.
@@ -2789,7 +2825,9 @@ def check_echo_reference(torch, params, echo_logprobs) -> None:
     tokens = torch.zeros((1, 1024), dtype=torch.int32)
     tokens[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
     real = decoder.dispatch_prefill_attention
-    decoder.dispatch_prefill_attention = prefill_attention_plain
+    # the plain version takes the groups alone; their spans are the kernel's
+    decoder.dispatch_prefill_attention = (
+        lambda *a, group_spans=None, **kw: prefill_attention_plain(*a, **kw))
     try:
         nxt, _ids, _lps = decoder.forward_score(
             params, get_config(MODEL), tokens.cuda(),
@@ -5311,6 +5349,8 @@ def param_bytes(params) -> int:
     """Bytes of a parameter tree on its device (a QTensor's data and scale)."""
     if isinstance(params, dict):
         return sum(param_bytes(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(param_bytes(v) for v in params)
     if hasattr(params, "scale"):
         return params.nbytes()
     return params.numel() * params.element_size()
@@ -5538,6 +5578,7 @@ DRAFT_PATH = f"{MODEL} speculation draft {MODEL}"
 GGUF_DRAFT_PATH = f"{MODEL} speculation draft Llama-3.2-1B Q8_0 GGUF"
 GGUF_DIR = os.path.join(OUT_DIR, "gguf")
 GGUF_SERVED = ("tinyllama-1.1b", "phi-3-mini")
+GGUF_SERVED_LAYERS = 4       # the served files' depth, cut for the run's time (widths stay)
 SPEC_NEW = 128               # tokens a phase 7 A request generates
 DRAFT_NEW = 48               # B: a 16-token prompt and 48 tokens stay in the draft's window
 # the dispatches a committed token may cost at full accept (JAX's bound)
@@ -6199,6 +6240,8 @@ def start_gguf_writes() -> dict:
         path = os.path.join(GGUF_DIR, f"{preset}.gguf")
         cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch.testing.synth_gguf",
                preset, path, "--seed", str(seed)]
+        if preset in GGUF_SERVED:
+            cmd += ["--layers", str(GGUF_SERVED_LAYERS)]
         out[preset] = (path, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                               stderr=subprocess.STDOUT, text=True),
                        time.perf_counter())
@@ -6219,19 +6262,22 @@ def gguf_written(writes: dict, preset: str) -> str:
 def phase_gguf_serve(torch, writes: dict) -> dict:
     """C. TinyLlama-1.1B Q8_0 and Phi-3-mini q4 (``testing/synth_gguf.py``),
     each served in bf16 in this process through serve's GGUF branch (its
-    params held to the file) and then with ``serve --model <file>.gguf
-    --quantization int8``, behind nothing."""
+    params held to the file), then TinyLlama with ``serve --model
+    <file>.gguf --quantization int8``, behind nothing (Phi-3-mini's int8
+    serve is cut for the run's time)."""
     out = {}
     for preset in GGUF_SERVED:
         path = gguf_written(writes, preset)
         res = {"bf16": gguf_in_process(torch, path)}
         cfg = res["bf16"]["cfg"]
-        r = with_server(["--model", path, "--quantization", "int8"],
-                        f"chip_smoke_gguf_{preset}_int8.log", _drive_gguf(path, cfg, True))
-        say(f"  {preset} served int8 (serve --model {os.path.basename(path)} --quantization "
-            f"int8): /health after {r['health_s']:.1f} s; chat {r['usage']}: "
-            f"{r['answer'][:60]!r}; launches {r['launches']} ({card_line()})")
-        res["int8"] = r
+        if preset == GGUF_SERVED[0]:
+            r = with_server(["--model", path, "--quantization", "int8"],
+                            f"chip_smoke_gguf_{preset}_int8.log", _drive_gguf(path, cfg, True))
+            say(f"  {preset} served int8 (serve --model {os.path.basename(path)} "
+                f"--quantization int8): /health after {r['health_s']:.1f} s; chat "
+                f"{r['usage']}: {r['answer'][:60]!r}; launches {r['launches']} "
+                f"({card_line()})")
+            res["int8"] = r
         os.remove(path)
         out[preset] = res
     return out
@@ -6680,7 +6726,7 @@ MOE_LONG = 4000              # C: a long prompt's tokens (bucket 4,096)
 MOE_CKPT_LAYERS = 2
 MOE_DIR = os.path.join(OUT_DIR, "qwen3-30b-a3b-2l")
 MOE_PATH = f"{MOE_MODEL} serve behind llkt-router"
-MOE_INPROC_PATH = f"{MOE_MODEL} in process"
+MOE_INPROC_PATH = f"qwen3-vl-30b-a3b ({MOE_MODEL} backbone) text streams in process"
 MOE_CKPT_PATH = f"{MOE_MODEL} {MOE_CKPT_LAYERS} layers checkpoint serve"
 
 
@@ -7020,19 +7066,20 @@ def rest_kind(name: str) -> str:
 
 
 def moe_in_process(torch) -> dict:
-    """B: qwen3-30b-a3b at full width and depth from ``init_params`` on the
-    card behind the default Engine: the card's free memory before the load
-    and what the model and engine hold; 8 concurrent greedy streams of
-    MOE_NEW tokens, every window a graph replay (device ms each by CUDA
-    events), the expert kernel 2 x 48 times a forward; then the device time
-    of steady windows split between the experts, attention and the rest
-    (torch.profiler)."""
+    """B: Qwen3-VL-30B-A3B (its text backbone is qwen3-30b-a3b's widths;
+    the published config.json, rope theta 5e6 and interleaved mrope) at
+    full width and depth from ``init_params`` on the card behind the
+    default Engine: the card's free memory before the load and what the
+    model and engine hold; 8 concurrent greedy text streams of MOE_NEW
+    tokens, every window a graph replay (device ms each by CUDA events),
+    the expert kernel 2 x 48 times a forward; then the device time of
+    steady windows split between the experts, attention and the rest
+    (torch.profiler); then phase 10 C's image requests on the same engine."""
     from llms_on_kubernetes_tpu_torch import kernels
-    from llms_on_kubernetes_tpu_torch.configs import get_config
     from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig
     from llms_on_kubernetes_tpu_torch.models.decoder import init_params
 
-    cfg = get_config(MOE_MODEL)
+    cfg = vl_config(QWEN_VL)
     free_card(torch, "before the MoE model")
     free0 = torch.cuda.mem_get_info()[0]
     t0 = time.perf_counter()
@@ -7041,8 +7088,9 @@ def moe_in_process(torch) -> dict:
     torch.cuda.synchronize()
     ready_s = time.perf_counter() - t0
     held = torch.cuda.memory_allocated()
-    say(f"  {MOE_MODEL} ({cfg.num_layers} layers, {cfg.num_experts} experts top-"
-        f"{cfg.num_experts_per_tok}): {param_bytes(params) / 1e9:.2f} GB of bf16 weights; the "
+    say(f"  {QWEN_VL} (the {MOE_MODEL} backbone: {cfg.num_layers} layers, {cfg.num_experts} "
+        f"experts top-{cfg.num_experts_per_tok}): {param_bytes(params) / 1e9:.2f} GB of bf16 "
+        f"weights, the tower and mergers among them; the "
         f"card had {free0 / 2**30:.2f} GiB free before the load, the process holds "
         f"{held / 2**30:.2f} GiB with the engine (pool, MoE workspace of "
         f"{eng.moe_workspace.rows} rows, window graph), ready after {ready_s:.1f} s")
@@ -7070,9 +7118,11 @@ def moe_in_process(torch) -> dict:
                                                  key=lambda kv: -kv[1])))
     for name, (n, ms) in split["rest_top"]:
         say(f"    {ms / nwin:8.3f} ms, {n / nwin:6.0f} launches a window: {name[:110]}")
+    vision = vl_qwen_images(torch, eng, cfg)
     del eng, params, timer
     return {"launches": run["launches"], "tok_s": run["tok_s"], "window_ms": win_ms,
-            "split": split, "free_gib": free0 / 2**30, "held_gib": held / 2**30}
+            "split": split, "free_gib": free0 / 2**30, "held_gib": held / 2**30,
+            "vision": vision}
 
 
 def _drive_moe_router(cfg):
@@ -7237,6 +7287,683 @@ def moe_checkpoint(torch, write) -> dict:
     return served
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the vision path
+# ---------------------------------------------------------------------------
+
+GEMMA_VL = "google/gemma-3-27b-it"
+QWEN_VL = "Qwen/Qwen3-VL-30B-A3B-Instruct"
+GEMMA_VL_NAME = "gemma-3-27b-it"
+QWEN_VL_NAME = "qwen3-vl-30b-a3b"
+VL_NEW = 64                  # greedy tokens a phase-10 stream generates
+VL_CKPT_LAYERS = 2
+VL_GAP_TOKENS = 96           # tokens of each text stream that an image chat cuts across
+VL_DIRS = {GEMMA_VL: os.path.join(OUT_DIR, "gemma-3-27b-it-2l"),
+           QWEN_VL: os.path.join(OUT_DIR, "qwen3-vl-30b-a3b-2l")}
+VL_TOKENIZERS = {GEMMA_VL: "gemma3", QWEN_VL: "qwen3vl"}
+GEMMA_VL_PATH = f"{GEMMA_VL_NAME} image requests in process"
+GEMMA_VL_HTTP_PATH = f"{GEMMA_VL_NAME} image requests through the port's HTTP server"
+QWEN_VL_PATH = f"{QWEN_VL_NAME} image requests in process"
+VL_CKPT_PATHS = {m: f"{m.split('/')[1]} {VL_CKPT_LAYERS} layers checkpoint serve behind "
+                    f"llkt-router" for m in VL_DIRS}
+# A: gemma-3-27b's attention (32 query heads on 16 KV heads, d 128): bucket,
+# length, the image runs' first positions (256 soft tokens each)
+VL_MASK_CASES = ((1024, 900, (100,)), (4096, 4000, (200, 1200, 2200, 3200)))
+
+
+def vl_config(repo: str):
+    from llms_on_kubernetes_tpu_torch.configs import PUBLISHED_MM_CONFIGS, from_hf_config
+
+    return from_hf_config(PUBLISHED_MM_CONFIGS[repo], repo)
+
+
+def encode_png(rgb: np.ndarray) -> bytes:
+    """An RGB uint8 image as a PNG whose every row uses the Paeth filter
+    (the decoder's slowest path; the card's machine has no PIL)."""
+    import struct
+    import zlib
+
+    H, W, _ = rgb.shape
+    cur = rgb.reshape(H, W * 3).astype(np.int32)
+    up = np.vstack([np.zeros((1, W * 3), np.int32), cur[:-1]])
+    left = np.hstack([np.zeros((H, 3), np.int32), cur[:, :-3]])
+    ul = np.hstack([np.zeros((H, 3), np.int32), up[:, :-3]])
+    p = left + up - ul
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+    pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+    rows = np.hstack([np.full((H, 1), 4, np.int32), (cur - pred) & 255]).astype(np.uint8)
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def vl_picture(seed: int, h: int, w: int) -> np.ndarray:
+    """A photo-like RGB image: smooth gradients and a little noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    base = np.stack([(x * (1 + seed % 3) + y) % 256, (y * 2 + seed * 40) % 256,
+                     (x + y * 3 + seed * 90) % 256], axis=-1)
+    return np.clip(base + rng.integers(-8, 9, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def data_url(png: bytes, kind: str = "png") -> str:
+    import base64
+
+    return f"data:image/{kind};base64," + base64.b64encode(png).decode()
+
+
+def mm_mask_work(groups: np.ndarray, T: int, n: int, n_q: int, n_kv: int, d: int, window):
+    """FLOPs and bytes kernel 1 needs under the image-block mask, as
+    ``prefill_work`` counts them: the visible (query, key) pairs of the n
+    valid rows (causal and in the window, or in the query's own image),
+    q, k, v and out of n rows moved once, the groups and the length read
+    once. Also the 64 x 64 tiles that hold a visible pair, which the
+    kernel computes."""
+    q, k = np.arange(T)[:, None], np.arange(T)[None, :]
+    mask = k <= q
+    if window:
+        mask &= k > q - window
+    mask |= (groups[:, None] >= 0) & (groups[:, None] == groups[None, :])
+    mask &= (k < n) & (q < n)
+    pairs = int(mask.sum())
+    tiles = int(mask.reshape(T // 64, 64, T // 64, 64).any(axis=(1, 3)).sum())
+    nbytes = (2 * n * n_q * d + 2 * n * n_kv * d) * 2 + 4 * T + 4
+    return 4.0 * d * n_q * pairs, nbytes, pairs, tiles
+
+
+def vl_mask_checks(torch, timer) -> dict:
+    """A: kernel 1 with ``mm_groups`` at gemma-3-27b's attention against its
+    plain version (the bf16 row tolerance), window 1,024 and global, one
+    image at bucket 1,024 and four at 4,096; ms, plain and sdpa with the
+    same boolean mask in turns; bound_ms from the pairs the mask keeps.
+    All-text groups give the bits of mm_groups=None."""
+    from llms_on_kubernetes_tpu_torch import kernels
+    from llms_on_kubernetes_tpu_torch.ops import flash_attention as fa
+
+    cfg = vl_config(GEMMA_VL)
+    n_q, n_kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    t_img = cfg.vision.mm_tokens_per_image
+    scale = (cfg.query_pre_attn_scalar or d) ** -0.5
+    rng = np.random.default_rng(10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for T, n, starts in VL_MASK_CASES:
+        def mk(h):
+            return torch.from_numpy(rng.normal(size=(1, T, h, d)).astype(np.float32)).to(
+                "cuda", torch.bfloat16)
+        q, k, v = mk(n_q), mk(n_kv), mk(n_kv)
+        lengths = torch.tensor([n], dtype=torch.int32, device="cuda")
+        g = np.full((1, T), -1, np.int32)
+        for i, s in enumerate(starts):
+            g[0, s:s + t_img] = i
+        groups = torch.from_numpy(g).cuda()
+        text = torch.full_like(groups, -1)
+        # the decoder computes the spans once a forward: timed calls take them
+        spans = fa.mm_spans(groups)
+        for window in (cfg.sliding_window, None):
+            kw = dict(scale=scale, sliding_window=window)
+            tag = (f"flash_prefill {GEMMA_VL_NAME} mm_groups B1 T{T} length {n} "
+                   f"{len(starts)} image(s) of {t_img} window {window or 'global'}")
+            kernels.reset_launches()
+            got = fa.flash_prefill_attention(q, k, v, lengths, mm_groups=groups,
+                                             group_spans=spans, **kw)
+            if kernels.launch_counts().get("flash_prefill") != 1:
+                fail(f"{tag}: the wrapper did not launch the kernel")
+            if not torch.equal(got, fa.flash_prefill_attention(q, k, v, lengths,
+                                                               mm_groups=groups, **kw)):
+                fail(f"{tag}: the spans computed in the wrapper give other bits")
+            err = check_close(tag, got[0, :n], fa.prefill_attention_plain(
+                q, k, v, lengths, mm_groups=groups, **kw)[0, :n], "bfloat16")
+            if not torch.equal(fa.flash_prefill_attention(q, k, v, lengths, mm_groups=text, **kw),
+                               fa.flash_prefill_attention(q, k, v, lengths, **kw)):
+                fail(f"{tag}: all-text groups differ from mm_groups=None")
+            gm = torch.from_numpy(g[0, :n]).cuda()
+            kq = torch.arange(n, device="cuda")
+            mask = kq[None, :] <= kq[:, None]
+            if window:
+                mask &= kq[None, :] > kq[:, None] - window
+            mask |= (gm[:, None] >= 0) & (gm[:, None] == gm[None, :])
+            qh, kh, vh = (t[:, :n].transpose(1, 2) for t in (q, k, v))
+            ms, none, plain, lib, ms2 = (
+                timer(lambda: fa.flash_prefill_attention(q, k, v, lengths, mm_groups=groups,
+                                                         group_spans=spans, **kw)),
+                timer(lambda: fa.flash_prefill_attention(q, k, v, lengths, **kw)),
+                timer(lambda: fa.prefill_attention_plain(q, k, v, lengths, mm_groups=groups,
+                                                         **kw), reps=3),
+                timer(lambda: sdpa(qh, kh, vh, attn_mask=mask[None, None], scale=scale,
+                                   enable_gqa=True)),
+                timer(lambda: fa.flash_prefill_attention(q, k, v, lengths, mm_groups=groups,
+                                                         group_spans=spans, **kw)))
+            flops, nbytes, pairs, tiles = mm_mask_work(g[0], T, n, n_q, n_kv, d, window)
+            b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+            out[tag[len("flash_prefill "):] + " bf16"] = dict(
+                ms=ms, ms_again=ms2, ms_without_groups=none, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by,
+                library_ms=lib, max_abs_err=err, visible_pairs=pairs, kept_tiles=tiles)
+            say(f"  timing {tag}: ms={ms:.4f} (again {ms2:.4f}; causal without the groups "
+                f"{none:.4f}) plain_ms={plain:.4f} "
+                f"library_ms={lib:.4f} (sdpa, the same boolean mask) bound_ms={b_ms:.4f} "
+                f"({b_by}; {pairs} visible pairs, {tiles} of {(T // 64) ** 2} tiles kept) "
+                f"[{card_line()}]")
+    return out
+
+
+def start_vl_writes() -> dict:
+    """Write each reference default model cut to VL_CKPT_LAYERS layers at
+    full width, with its tokenizer, in processes of their own."""
+    writes = {}
+    for repo, path in VL_DIRS.items():
+        cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch.testing.synth_checkpoint",
+               repo, path, "--layers", str(VL_CKPT_LAYERS), "--tokenizer", VL_TOKENIZERS[repo]]
+        writes[repo] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                         text=True), time.perf_counter())
+    return writes
+
+
+class TowerTimer:
+    """Wraps an engine's ``encode_images``: the device ms of each call
+    (synchronized before and after, CUDA events around it)."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng, self.inner = torch, eng, eng.encode_images
+        self.ms: list = []
+        eng.encode_images = self
+
+    def __call__(self, images):
+        torch = self.torch
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = self.inner(images)
+        e.record()
+        torch.cuda.synchronize()
+        self.ms.append(s.elapsed_time(e))
+        return out
+
+    def close(self) -> None:
+        self.eng.encode_images = self.inner
+
+
+def vl_request(eng, cfg, pixels: list, text_ids: list, n_tokens: int, logprobs: int = 0):
+    """A prompt of image runs (one an image) and ``text_ids``, submitted."""
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    run = [cfg.boi_token_id] + [cfg.image_token_id] * cfg.vision.mm_tokens_per_image + [
+        cfg.eoi_token_id]
+    prompt = [2] + run * len(pixels) + list(text_ids)
+    return eng.submit(prompt, SamplingParams(temperature=0.0, max_tokens=n_tokens,
+                                             logprobs=logprobs), images=pixels)
+
+
+def vl_finish(eng, reqs) -> None:
+    while not all(r.finished for r in reqs):
+        eng.step()
+
+
+def vl_mixed_streams(torch, eng, cfg, pixels: list, tag: str) -> dict:
+    """8 greedy streams of VL_NEW, 4 carrying an image: decode tok/s (the
+    tokens after each first one over the span from the first first token
+    to the last finish), the image requests' TTFT, the launches."""
+    from llms_on_kubernetes_tpu_torch import kernels
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    kernels.reset_launches()
+    m0 = eng.mm_prefill_calls
+    sp = SamplingParams(temperature=0.0, max_tokens=VL_NEW)
+    reqs = []
+    for i in range(8):
+        if i % 2 == 0:
+            reqs.append(vl_request(eng, cfg, [pixels[i // 2 % len(pixels)]],
+                                   [ord(c) for c in SERVE_TEXT[i:i + 24]], VL_NEW))
+        else:
+            reqs.append(eng.submit([ord(c) for c in SERVE_TEXT[i:i + 40]], sp))
+    t_all = None
+    while not all(r.finished for r in reqs):
+        eng.step()
+        if t_all is None and all(r.output for r in reqs):
+            # every stream has its first token: all 8 decode from here on,
+            # the 4 images' K/V in the pool
+            t_all, base = time.monotonic(), sum(len(r.output) for r in reqs)
+    if any(len(r.output) != VL_NEW for r in reqs):
+        fail(f"{tag}: finishes {[(r.finish_reason, len(r.output)) for r in reqs]}")
+    span = max(r.finished_at for r in reqs) - min(r.first_token_at for r in reqs)
+    tok_s = sum(len(r.output) - 1 for r in reqs) / span
+    ttft = [(r.first_token_at - r.submitted_at) * 1e3 for r in reqs[::2]]
+    steady = (sum(len(r.output) for r in reqs) - base) / (
+        max(r.finished_at for r in reqs) - t_all)
+    launches = kernels.launch_counts()
+    mm = eng.mm_prefill_calls - m0
+    if mm != 4 or launches.get("flash_prefill", 0) < cfg.num_layers * mm:
+        fail(f"{tag}: {mm} multimodal prefills, flash_prefill launched "
+             f"{launches.get('flash_prefill', 0)} times (< {cfg.num_layers} x {mm})")
+    say(f"  {tag}: 8 greedy streams of {VL_NEW}, 4 with an image: {tok_s:.1f} decode tok/s "
+        f"over the whole span, {steady:.1f} once all 8 had their first token; the image "
+        f"requests' TTFT ms {[round(t, 1) for t in ttft]}; flash_prefill "
+        f"{launches.get('flash_prefill', 0)} launches ({mm} multimodal prefills of "
+        f"{cfg.num_layers} layers among them) [{card_line()}]")
+    return {"tok_s": tok_s, "steady_tok_s": steady, "ttft_ms": ttft, "launches": launches,
+            "outs": [list(r.output) for r in reqs]}
+
+
+def vl_ttft_split(torch, eng, cfg, png: bytes, tag: str) -> dict:
+    """One image request from PNG bytes, alone: the host's decode and
+    preprocessing, the tower, and the rest of its TTFT (the prefill and
+    the first token's read)."""
+    from llms_on_kubernetes_tpu_torch.engine import images
+    from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
+
+    t0 = time.perf_counter()
+    rgb = images.decode_png(png)
+    t1 = time.perf_counter()
+    if cfg.vision.family == "qwen3vl":
+        px = images.preprocess_image_qwen3vl(rgb, cfg.vision)
+    else:
+        px = images.preprocess_image(rgb, cfg.vision.image_size)
+    t2 = time.perf_counter()
+    tower = TowerTimer(torch, eng)
+    eng.allocator.prefix_caching = False        # both requests below run cold
+    try:
+        req = vl_request(eng, cfg, [px], [ord(c) for c in "Describe the image."], 4)
+        while not req.output:
+            eng.step()
+        t3 = time.perf_counter()
+        vl_finish(eng, [req])
+    finally:
+        tower.close()
+    dec, pre, tw = (t1 - t0) * 1e3, (t2 - t1) * 1e3, tower.ms[0]
+    total = (t3 - t0) * 1e3
+    # a text request of the same length, for the prefill's share
+    text = eng.submit([int(t) for t in np.random.default_rng(7).integers(300, 9000, len(
+        req.prompt))], SamplingParams(temperature=0.0, max_tokens=4))
+    while not text.output:
+        eng.step()
+    text_ms = (text.first_token_at - text.submitted_at) * 1e3
+    vl_finish(eng, [text])
+    eng.allocator.prefix_caching = True
+    out = {"decode_ms": dec, "resize_ms": pre, "tower_ms": tw,
+           "prefill_ms": total - dec - pre - tw, "ttft_ms": total, "image": rgb.shape[:2],
+           "grid": px.shape[:2], "text_ttft_ms": text_ms}
+    say(f"  {tag}: an image request from a {rgb.shape[1]}x{rgb.shape[0]} PNG ({len(png)} "
+        f"bytes), TTFT {total:.1f} ms = host PNG decode {dec:.1f} + resize and normalise "
+        f"{pre:.1f} (to {px.shape[1]}x{px.shape[0]}) + tower {tw:.1f} + prefill and first "
+        f"token {out['prefill_ms']:.1f}; a {len(req.prompt)}-token text request's TTFT "
+        f"{text_ms:.1f} [{card_line()}]")
+    return out
+
+
+def vl_host_ms(cfg, pngs: dict) -> dict:
+    """The host's PNG decode and resize ms of each image (3 runs each, the
+    least)."""
+    from llms_on_kubernetes_tpu_torch.engine import images
+
+    out = {}
+    for label, png in pngs.items():
+        dec, res = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            rgb = images.decode_png(png)
+            t1 = time.perf_counter()
+            if cfg.vision.family == "qwen3vl":
+                images.preprocess_image_qwen3vl(rgb, cfg.vision)
+            else:
+                images.preprocess_image(rgb, cfg.vision.image_size)
+            dec.append((t1 - t0) * 1e3)
+            res.append((time.perf_counter() - t1) * 1e3)
+        out[label] = {"decode_ms": min(dec), "resize_ms": min(res)}
+        say(f"  host {label} PNG ({len(png)} bytes, every row Paeth): decode "
+            f"{min(dec):.1f} ms, resize and normalise for {cfg.name} {min(res):.1f} ms "
+            f"(least of 3)")
+    return out
+
+
+def vl_tower_ms(torch, eng, cfg, pixels: list) -> list:
+    """Device ms of the tower an image (CUDA events, after a warm call)."""
+    eng.encode_images(pixels[:1])
+    out = []
+    for px in pixels:
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        eng.encode_images([px])
+        e.record()
+        torch.cuda.synchronize()
+        out.append(s.elapsed_time(e))
+    return out
+
+
+def vl_repeat_checks(eng, cfg, px, tag: str) -> dict:
+    """One image request's greedy stream: cold, cold again (the prefix
+    cache off), then twice through a prefix hit that covers the image (the
+    chunk path). The cold runs are equal, the hit runs are equal, and a
+    hit run equals the cold one or flips only at a near-tie
+    (``flip_margin``)."""
+    text = [ord(c) for c in SERVE_TEXT[:70]]
+    runs = []
+    alloc = eng.allocator
+    for caching in (True, False, True, True):
+        alloc.prefix_caching = caching
+        c0, h0 = eng.chunk_calls, alloc.hit_tokens_total
+        r = vl_request(eng, cfg, [px], text, 16, logprobs=1)
+        vl_finish(eng, [r])
+        runs.append((list(r.output), list(r.output_logprobs), eng.chunk_calls - c0,
+                     alloc.hit_tokens_total - h0))
+    alloc.prefix_caching = True
+    (cold, lps, _, _), (cold2, _, _, _), (hit, _, hc, hh), (hit2, _, _, _) = runs
+    if cold2 != cold:
+        fail(f"{tag}: the second cold run {cold2} != the first {cold}")
+    if hc < 1 or hh < cfg.vision.mm_tokens_per_image + 3:
+        fail(f"{tag}: the third run took {hc} chunk calls for a {hh}-token hit, which does "
+             f"not cover the image")
+    if hit2 != hit:
+        fail(f"{tag}: the two prefix-hit runs differ: {hit} != {hit2}")
+    flip = flip_margin(cold, lps, hit)
+    if flip is not None and not flip[1] <= flip[2]:
+        fail(f"{tag}: through the prefix hit the stream flips at {flip[0]} by {flip[1]} nats, "
+             f"past the bf16 near-tie bound {flip[2]}")
+    say(f"  {tag}: one image request's 16 greedy tokens equal on a second cold submission; "
+        f"through a {hh}-token prefix hit covering the image (the chunk path) equal twice, "
+        + ("and equal to the cold run" if flip is None else
+           f"and against the cold run a near-tie flip at {flip[0]} ({flip[1]} nats <= "
+           f"{flip[2]})"))
+    return {"ids": cold, "hit_tokens": hh, "flip": flip}
+
+
+def vl_http_checks(torch, eng, cfg, tok_dir: str, png: bytes, big_png: bytes) -> dict:
+    """D (in process): the engine behind the port's HTTP server with the
+    family's tokenizer: a streamed image chat whose usage counts the soft
+    tokens, and a JPEG, a video_url and a remote URL each answered 400;
+    then the text streams' inter-token gaps while ``big_png`` is decoded
+    on its request thread (``vl_decode_interference``)."""
+    from llms_on_kubernetes_tpu_torch import kernels
+    from llms_on_kubernetes_tpu_torch.engine.tokenizer import JsonTokenizer
+    from llms_on_kubernetes_tpu_torch.server.openai_api import OpenAIServer
+
+    tok = JsonTokenizer(tok_dir)
+    srv = OpenAIServer(eng, tok, cfg.name)
+    base = f"http://127.0.0.1:{srv.start('127.0.0.1', 0)}"
+    try:
+        kernels.reset_launches()
+        m0 = eng.mm_prefill_calls
+        usage = vl_chat_checks(base, cfg.name, png, tok, cfg, GEMMA_VL_HTTP_PATH)
+        launches = kernels.launch_counts()
+        if eng.mm_prefill_calls - m0 != 1 or not launches.get("flash_prefill"):
+            fail(f"{GEMMA_VL_HTTP_PATH}: {eng.mm_prefill_calls - m0} multimodal prefills")
+        interference = vl_decode_interference(base, cfg.name, big_png, srv)
+    finally:
+        srv.close()
+    return {"launches": launches, "usage": usage, "interference": interference}
+
+
+def vl_decode_interference(base: str, model: str, png: bytes, srv) -> dict:
+    """4 greedy text chats of VL_GAP_TOKENS streamed through the HTTP
+    server, alone and then with an image chat of ``png`` sent 0.4 s after
+    them: the text streams' gaps between token frames (client clock)
+    overall, and those that end while the image's PNG is decoded, resized
+    and normalised on its request thread (``preprocess_images``, timed in
+    place) against the gaps of the run without the image."""
+    import threading
+
+    window: list = []
+    inner = srv.preprocess_images
+
+    def timed(images):
+        t0 = time.perf_counter()
+        try:
+            return inner(images)
+        finally:
+            window.append((t0, time.perf_counter()))
+    srv.preprocess_images = timed
+
+    def run(with_image: bool) -> list:
+        frames: list = [None] * 4
+
+        def text(i):
+            body = {"model": model, "messages": [{"role": "user",
+                                                  "content": SERVE_TEXT[i:i + 40]}],
+                    "max_tokens": VL_GAP_TOKENS, "temperature": 0, "stream": True,
+                    "logit_bias": BYTE_BIAS}
+            status, _h, lines, _t0 = stream_lines(base + "/v1/chat/completions", body)
+            frames[i] = [t for t, ln in lines if ln.startswith("data: {")
+                         and '"content"' in ln] if status == 200 else None
+
+        ths = [threading.Thread(target=text, args=(i,)) for i in range(4)]
+        for t in ths:
+            t.start()
+        if with_image:
+            time.sleep(0.4)
+            status, _h, lines, _t0 = stream_lines(base + "/v1/chat/completions",
+                                                  vl_chat_body(model, data_url(png)))
+            if status != 200 or lines[-1][1] != "data: [DONE]":
+                fail(f"{GEMMA_VL_HTTP_PATH}: the image chat beside text streams: HTTP {status}")
+        for t in ths:
+            t.join(timeout=600)
+        if any(f is None or len(f) < VL_GAP_TOKENS // 2 for f in frames):
+            fail(f"{GEMMA_VL_HTTP_PATH}: text streams' token frames "
+                 f"{[None if f is None else len(f) for f in frames]}")
+        return frames
+
+    def gaps(frames):
+        return [(b, b - a) for f in frames for a, b in zip(f, f[1:])]
+
+    try:
+        alone = run(False)
+        beside = run(True)
+    finally:
+        srv.preprocess_images = inner
+    if len(window) != 1:
+        fail(f"{GEMMA_VL_HTTP_PATH}: {len(window)} image preprocessings, expected 1")
+    w0, w1 = window[0]
+    during = [g for t, g in gaps(beside) if w0 < t <= w1]
+    # token frames a second: alone once all 4 stream, beside inside the window
+    t_all = max(f[0] for f in alone)
+    rate_alone = sum(t > t_all for f in alone for t in f) / (max(f[-1] for f in alone) - t_all)
+    rate_during = sum(w0 < t <= w1 for f in beside for t in f) / (w1 - w0)
+    alone, beside = gaps(alone), gaps(beside)
+
+    def stats(gaps):
+        ms = np.array(gaps) * 1e3 if gaps else np.zeros(1)
+        return {"n": len(gaps), "median_ms": float(np.median(ms)),
+                "p90_ms": float(np.percentile(ms, 90)), "max_ms": float(ms.max())}
+    out = {"decode_window_ms": (w1 - w0) * 1e3, "alone": stats([g for _, g in alone]),
+           "during_decode": stats(during), "beside_all": stats([g for _, g in beside]),
+           "tok_s_alone": rate_alone, "tok_s_during_decode": rate_during}
+    say(f"  {GEMMA_VL_HTTP_PATH}: 4 text streams of {VL_GAP_TOKENS}, alone "
+        f"{rate_alone:.1f} tok/s, gaps between token frames median "
+        f"{out['alone']['median_ms']:.1f} ms, p90 {out['alone']['p90_ms']:.1f}, max "
+        f"{out['alone']['max_ms']:.1f}; while a {len(png)}-byte PNG is decoded and resized on "
+        f"its request thread ({out['decode_window_ms']:.1f} ms): {rate_during:.1f} tok/s, "
+        f"{len(during)} gaps, median {out['during_decode']['median_ms']:.1f}, p90 "
+        f"{out['during_decode']['p90_ms']:.1f}, max {out['during_decode']['max_ms']:.1f}; "
+        f"over the whole run with the image (its prefill included) max gap "
+        f"{out['beside_all']['max_ms']:.1f} [{card_line()}]")
+    return out
+
+
+def vl_chat_body(model: str, url: str, kind: str = "image_url", images: int = 1) -> dict:
+    parts = [{"type": "text", "text": "Look at this: "}]
+    parts += [{"type": kind, kind: {"url": url}}] * images
+    parts.append({"type": "text", "text": " What is in it?"})
+    return {"model": model, "messages": [{"role": "user", "content": parts}],
+            "max_tokens": 12, "temperature": 0, "stream": True,
+            "stream_options": {"include_usage": True}, "logit_bias": BYTE_BIAS}
+
+
+def vl_expected_prompt(tok, cfg, images: int = 1) -> int:
+    """The prompt tokens an image chat counts: the template's ids, each
+    image marker spliced into [boi, soft tokens, eoi]."""
+    msgs = [{"role": "user", "content": [{"type": "text", "text": "Look at this: "}]
+             + [{"type": "image"}] * images + [{"type": "text", "text": " What is in it?"}]}]
+    ids = tok.apply_chat_template(msgs)
+    extra = sum(1 for t in ids if t in (cfg.image_token_id, cfg.eoi_token_id))
+    return len(ids) - extra + images * (cfg.vision.mm_tokens_per_image + 1)
+
+
+def vl_chat_checks(base: str, model: str, png: bytes, tok, cfg, tag: str,
+                   cap: bool = False) -> dict:
+    status, _h, lines, _t0 = stream_lines(base + "/v1/chat/completions",
+                                          vl_chat_body(model, data_url(png)))
+    if status != 200 or lines[-1][1] != "data: [DONE]":
+        fail(f"{tag}: image chat HTTP {status}, last line {lines[-1:]!r}")
+    frames = [json.loads(ln[6:]) for _t, ln in lines[:-1] if ln.startswith("data: {")]
+    usage = next((f["usage"] for f in frames if f.get("usage")), None)
+    want = vl_expected_prompt(tok, cfg)
+    if not usage or usage["prompt_tokens"] != want:
+        fail(f"{tag}: usage {usage}, expected {want} prompt tokens with the soft tokens")
+    text = "".join(ch["delta"].get("content") or "" for f in frames for ch in f["choices"])
+    refused = {}
+    jpeg = b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + bytes(64)
+    cases = {"jpeg": vl_chat_body(model, data_url(jpeg, "jpeg")),
+             "video_url": vl_chat_body(model, "data:video/mp4;base64,AAAA", kind="video_url"),
+             "remote": vl_chat_body(model, "https://example.invalid/cat.png")}
+    if cap:
+        cases["2 images over --max-images-per-request 1"] = vl_chat_body(
+            model, data_url(png), images=2)
+    for name, body in cases.items():
+        st, raw = http("POST", base + "/v1/chat/completions", body)
+        if st != 400:
+            fail(f"{tag}: {name} answered HTTP {st}, not 400: {raw[:200]!r}")
+        refused[name] = json.loads(raw)["error"]["message"][:90]
+    say(f"  {tag}: a streamed image chat ({usage['prompt_tokens']} prompt tokens, "
+        f"{cfg.vision.mm_tokens_per_image} of them soft; {usage['completion_tokens']} "
+        f"completion tokens: {text[:40]!r}); 400 for " + "; ".join(
+            f"{k} ({v!r})" for k, v in refused.items()))
+    return usage
+
+
+def vl_gemma(torch, pixels_png: dict) -> dict:
+    """B (and D's in-process server): gemma-3-27b-it at full width."""
+    from llms_on_kubernetes_tpu_torch.engine import images
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig
+    from llms_on_kubernetes_tpu_torch.models.decoder import init_params
+    from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import write_tokenizer
+
+    cfg = vl_config(GEMMA_VL)
+    free_card(torch, "before gemma-3-27b-it")
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype="bfloat16", device="cuda")
+    # 62 layers x 16 KV heads x 128 x 2 x 2 bytes = 508 KB of KV a token:
+    # 288 pages of 64 tokens (9.4 GB) beside the 54 GB of weights
+    eng = Engine(EngineConfig(model=GEMMA_VL_NAME, num_pages=288, pages_per_slot=32,
+                              prefill_buckets=(64, 512, 1024)), model_config=cfg,
+                 params=params)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    text_b = param_bytes({k: v for k, v in params.items() if k != "vision"})
+    say(f"  {GEMMA_VL_NAME} (config.json of {GEMMA_VL}: {cfg.num_layers} layers of "
+        f"{cfg.hidden_size}, SigLIP {cfg.vision.num_layers} x {cfg.vision.hidden_size} at "
+        f"{cfg.vision.image_size} px, patch {cfg.vision.patch_size}, "
+        f"{cfg.vision.mm_tokens_per_image} soft tokens): {text_b / 1e9:.2f} GB of bf16 text "
+        f"weights, {param_bytes(params['vision']) / 1e9:.3f} GB of tower; the card had "
+        f"{free0 / 2**30:.2f} GiB free, the process holds {held / 2**30:.2f} GiB with the "
+        f"engine, ready after {time.perf_counter() - t0:.1f} s")
+    rgb = {k: images.decode_png(v) for k, v in pixels_png.items()}
+    pixels = [images.preprocess_image(rgb[k], cfg.vision.image_size) for k in rgb]
+    host = vl_host_ms(cfg, pixels_png)
+    tower = vl_tower_ms(torch, eng, cfg, pixels)
+    say(f"  {GEMMA_VL_NAME} tower, device ms an image: "
+        f"{', '.join(f'{t:.2f}' for t in tower)} [{card_line()}]")
+    split = [vl_ttft_split(torch, eng, cfg, pixels_png["896x896"], GEMMA_VL_PATH + f" ({k})")
+             for k in ("first", "again")]
+    mixed = vl_mixed_streams(torch, eng, cfg, pixels, GEMMA_VL_PATH)
+    repeat = vl_repeat_checks(eng, cfg, pixels[0], GEMMA_VL_PATH)
+    tok_dir = os.path.join(OUT_DIR, "gemma3-tokenizer")
+    write_tokenizer(tok_dir, "gemma3")
+    served = vl_http_checks(torch, eng, cfg, tok_dir, pixels_png["896x896"],
+                            pixels_png["1600x1200"])
+    shutil.rmtree(tok_dir, ignore_errors=True)
+    del eng, params
+    free_card(torch, "gemma-3-27b-it done")
+    return {"tower_ms": tower, "host": host, "split": split, "mixed": mixed, "repeat": repeat,
+            "served": served, "launches": mixed["launches"]}
+
+
+def vl_qwen_images(torch, eng, cfg) -> dict:
+    """C: the Qwen3-VL engine of phase 9 B with images of two aspect ratios
+    (two grids): the tower ms, an image request's TTFT split, 8 streams with
+    images in flight."""
+    from llms_on_kubernetes_tpu_torch.engine import images
+
+    pngs = {"1600x1200": encode_png(vl_picture(3, 1200, 1600)),
+            "600x1000": encode_png(vl_picture(4, 1000, 600))}
+    pixels = [images.preprocess_image_qwen3vl(images.decode_png(p), cfg.vision)
+              for p in pngs.values()]
+    grids = [px.shape[:2] for px in pixels]
+    if len(set(grids)) != 2:
+        fail(f"{QWEN_VL_PATH}: the two aspect ratios gave grids {grids}")
+    host = vl_host_ms(cfg, pngs)
+    tower = vl_tower_ms(torch, eng, cfg, pixels)
+    say(f"  {QWEN_VL_NAME} tower, device ms an image: " + ", ".join(
+        f"{t:.2f} ({g[1]}x{g[0]} px)" for t, g in zip(tower, grids)) + f" [{card_line()}]")
+    split = [vl_ttft_split(torch, eng, cfg, pngs["1600x1200"], QWEN_VL_PATH + f" ({k})")
+             for k in ("first", "again")]
+    mixed = vl_mixed_streams(torch, eng, cfg, pixels, QWEN_VL_PATH)
+    return {"tower_ms": tower, "grids": grids, "host": host, "split": split, "mixed": mixed,
+            "launches": mixed["launches"]}
+
+
+def vl_checkpoint_serve(torch, writes: dict) -> dict:
+    """D: each 2-layer checkpoint through ``serve`` behind ``llkt-router``
+    (``--max-images-per-request 1``): a streamed image chat, the usage
+    counting the soft tokens, and 400s for a JPEG, a video_url, a remote
+    URL and two images."""
+    from llms_on_kubernetes_tpu_torch.engine.tokenizer import JsonTokenizer
+
+    out = {}
+    for repo, (proc, t0) in writes.items():
+        msg, _ = proc.communicate(timeout=900)
+        path = VL_DIRS[repo]
+        if proc.returncode != 0:
+            fail(f"synth_checkpoint {repo} --layers {VL_CKPT_LAYERS} exited "
+                 f"{proc.returncode}: {msg}")
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        say(f"  wrote {path} ({size / 1e9:.2f} GB with its tokenizer), done "
+            f"{time.perf_counter() - t0:.1f} s after its start")
+        cfg = vl_config(repo)
+        tok = JsonTokenizer(path)
+        name = repo.split("/")[1]
+        png = encode_png(vl_picture(5, 480, 640))
+        tag = VL_CKPT_PATHS[repo]
+
+        def drive(base: str, _proc, cfg=cfg, tok=tok, name=name, png=png, tag=tag) -> dict:
+            router_proc, router = start_router(
+                ["--models", f"{name}={base}", "--probe-interval", "0.5"],
+                f"chip_smoke_vl_router_{name}.log", [base])
+            try:
+                http("POST", base + "/debug/kernels/reset")
+                usage = vl_chat_checks(router, name, png, tok, cfg, tag, cap=True)
+                return {"usage": usage, "launches": kernel_counts(base)["launches"]}
+            finally:
+                stop_proc(router_proc)
+
+        out[repo] = with_server(["--model", path, "--served-model-name", name,
+                                 "--max-images-per-request", "1"],
+                                f"chip_smoke_vl_{name}.log", drive, pool_args=())
+        if not out[repo]["launches"].get("flash_prefill"):
+            fail(f"{tag}: no flash_prefill launch")
+        shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def phase_vision(torch, entries: dict, qwen: dict) -> dict:
+    """Phase 10: A (kernel 1 with mm_groups), B (gemma-3-27b-it at full
+    width, its engine behind the port's HTTP server), C (Qwen3-VL-30B-A3B:
+    phase 9 B's engine, ``qwen``), D (2-layer checkpoints of both through
+    ``serve`` behind llkt-router)."""
+    t0 = time.perf_counter()
+    writes = start_vl_writes()
+    entries["flash_prefill"]["other_shapes"].update(vl_mask_checks(torch, Timer(torch)))
+    pngs = {"896x896": encode_png(vl_picture(1, 896, 896)),
+            "1600x1200": encode_png(vl_picture(2, 1200, 1600))}
+    gemma = vl_gemma(torch, pngs)
+    ckpt = vl_checkpoint_serve(torch, writes)
+    say(f"phase 10 (vision): {time.perf_counter() - t0:.1f} s")
+    return {"gemma": gemma, "qwen": qwen, "ckpt": ckpt}
+
+
 def phase_moe(torch, entries: dict, simple) -> dict:
     """Phase 9: A (the expert kernel, in turns with ``simple``, its body
     before the redesign; kernels 1 and 2 at group 8), B (qwen3-30b-a3b in
@@ -7339,6 +8066,12 @@ def main(argv) -> int:
         phase_moe(torch, {"flash_prefill": {"other_shapes": {}},
                           "paged_decode": {"other_shapes": {}}}, simple_moe)
         fail("--moe-only: phases 2 to 8 skipped, no result")
+    if "--vision-only" in argv:
+        finish_router_build(router_build)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        shapes = {"flash_prefill": {"other_shapes": {}}}
+        phase_vision(torch, shapes, moe_in_process(torch)["vision"])
+        fail("--vision-only: phases 2 to 9 skipped, no result")
     t0 = time.perf_counter()
     entries = phase_kernels(torch)
     for name, shapes in wide_kernels(torch, np.random.default_rng(1), Timer(torch)).items():
@@ -7382,6 +8115,7 @@ def main(argv) -> int:
     awq = phase_awq_lora(torch, awq_write)
     free_card(torch, "phase 8 done")
     moe = phase_moe(torch, entries, simple_moe)
+    vision = phase_vision(torch, entries, moe["inproc"]["vision"])
     # launches on each path, counted from 0 just before it and read just
     # after; the line's "launches" is the checkpoint server's where the
     # kernel runs there, else phase 4's fused engines, and the W8A16
@@ -7410,9 +8144,13 @@ def main(argv) -> int:
              f"{AWQ_MODEL} AWQ in process": awq["A"]["base"]["launches"],
              LORA_PATH: awq["B"]["routed"]["launches"],
              MOE_INPROC_PATH: moe["inproc"]["launches"], MOE_PATH: moe["served"]["launches"],
-             MOE_CKPT_PATH: moe["ckpt"]["launches"]}
+             MOE_CKPT_PATH: moe["ckpt"]["launches"],
+             GEMMA_VL_PATH: vision["gemma"]["launches"],
+             GEMMA_VL_HTTP_PATH: vision["gemma"]["served"]["launches"],
+             QWEN_VL_PATH: vision["qwen"]["launches"],
+             **{VL_CKPT_PATHS[m]: r["launches"] for m, r in vision["ckpt"].items()}}
     for preset, r in spec["C"].items():
-        for kind in ("bf16", "int8"):
+        for kind in r:
             paths[f"{preset} GGUF serve {kind} weights"] = r[kind]["launches"]
     main_path = {"flash_prefill": ckpt_bf16, "paged_decode": ckpt_bf16,
                  "paged_write_window": ckpt_bf16, "paged_decode_int8": ckpt_int8,

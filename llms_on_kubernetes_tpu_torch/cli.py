@@ -5,7 +5,7 @@
         [--quantization int8|fp8|awq] [--no-prefix-caching] [--watchdog-stall-s S] \\
         [--decode-steps K] [--kv-host-cache-gb GB] [--speculation ngram|draft] \\
         [--draft-model NAME_OR_GGUF] [--no-warmup] [--no-ledger] [--no-anomaly-profile] \\
-        [--anomaly-z Z] [--anomaly-cooldown-s S]
+        [--anomaly-z Z] [--anomaly-cooldown-s S] [--max-images-per-request N]
 
 ``serve``'s defaults are the JAX ``serve``'s (``cli._add_serve``): 8
 slots, 2,048 pages of 64 tokens, 64 pages a slot (a 4,096-token context)
@@ -121,6 +121,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "engine sheds all work as 'stalled' and /health turns 503 "
                         "(the budget is max(this, 50 x the step estimate); <= 0 "
                         "disables; default: env LLMK_WATCHDOG_S, else 120)")
+    p.add_argument("--max-images-per-request", type=_positive_int,
+                   default=d.max_images_per_request,
+                   help="images a request may carry (a vision model); requests beyond it "
+                        "get a 400")
     p.add_argument("--adapter", action="append", default=None, metavar="NAME=DIR",
                    help="repeatable: serve the LoRA adapter NAME from the local PEFT "
                         "directory DIR; requests address it as model=<served-name>:NAME")
@@ -193,7 +197,8 @@ def engine_config_from_args(args):
         adapters=adapters_from_args(args), adapter_slots=args.adapter_slots,
         adapter_rank=args.adapter_rank, ledger=args.ledger,
         anomaly_profile=args.anomaly_profile, anomaly_z=args.anomaly_z,
-        anomaly_cooldown_s=args.anomaly_cooldown_s, **qos_from_env())
+        anomaly_cooldown_s=args.anomaly_cooldown_s,
+        max_images_per_request=args.max_images_per_request, **qos_from_env())
 
 
 def main(argv=None) -> int:

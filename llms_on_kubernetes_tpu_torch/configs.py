@@ -3,14 +3,15 @@
 A framework-free copy of the JAX package's ``ModelConfig``, its registry
 and ``from_hf_config`` (a HuggingFace ``config.json`` to a ``ModelConfig``,
 with every guard the JAX one has), kept here so the port never imports the
-JAX package. The registry lists every text entry of the JAX one, dense
-and MoE (``mixtral-8x7b``, ``qwen3-30b-a3b``, ``debug-moe``: the port's
-MoE block is ``ops/moe.py``); the multimodal debug entries wait for the
-vision tower.
-``VisionConfig`` is a copy of the JAX dataclass's fields, so that
-``from_hf_config`` describes a multimodal checkpoint as the JAX one does;
-the port loads no vision tower (``engine/weights.load_hf_params`` refuses
-one).
+JAX package. The registry lists every entry of the JAX one: dense, MoE
+(``mixtral-8x7b``, ``qwen3-30b-a3b``, ``debug-moe``: the port's MoE block
+is ``ops/moe.py``) and the multimodal debug models ``debug-mm`` (a SigLIP
+tower, gemma-3's) and ``debug-qwen-mm`` (Qwen3-VL's tower with DeepStack
+and interleaved mrope). ``VisionConfig`` is the JAX
+``models/vision.VisionConfig`` (its fields and properties), kept here
+beside ``ModelConfig``; ``from_hf_config`` reads gemma-3's and Qwen3-VL's
+multimodal ``config.json`` wrappers into one as the JAX one does
+(``models/vision.py`` runs the towers).
 """
 
 from __future__ import annotations
@@ -39,6 +40,18 @@ class VisionConfig:
     out_hidden_size: int = 0
     num_grid_per_side: int = 48
     deepstack_indexes: tuple = ()
+
+    @property
+    def patches_per_side(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.patches_per_side ** 2
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,6 +341,82 @@ _register(
         max_position_embeddings=512, num_experts=4, num_experts_per_tok=2,
     ),
 )
+_register(
+    ModelConfig(
+        "debug-mm",
+        vocab_size=300, hidden_size=64, intermediate_size=128,
+        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+        max_position_embeddings=512,
+        vision=VisionConfig(hidden_size=16, intermediate_size=32,
+                            num_layers=1, num_heads=2, image_size=16,
+                            patch_size=4, mm_tokens_per_image=4),
+        image_token_id=260, boi_token_id=258, eoi_token_id=259,
+    ),
+)
+_register(
+    ModelConfig(
+        "debug-qwen-mm",
+        vocab_size=300, hidden_size=64, intermediate_size=128,
+        num_layers=3, num_heads=4, num_kv_heads=2, head_dim=16,
+        max_position_embeddings=512, qk_norm=True,
+        mrope_section=(3, 3, 2),
+        vision=VisionConfig(hidden_size=16, intermediate_size=32,
+                            num_layers=2, num_heads=2, image_size=16,
+                            patch_size=4, family="qwen3vl",
+                            temporal_patch_size=2, spatial_merge_size=2,
+                            out_hidden_size=64, num_grid_per_side=4,
+                            deepstack_indexes=(0,),
+                            mm_tokens_per_image=4),
+        image_token_id=260, boi_token_id=258, eoi_token_id=259,
+    ),
+)
+
+
+# The published config.json of the reference's two default models
+# (reference vllm-models/helm-chart/values.yaml:2-12), the fields
+# ``from_hf_config`` reads; where the published file leaves a field to its
+# HF config class, the class default is written out (gemma-3's text
+# vocabulary, rope and norm fields, the registry's ``gemma-3-27b`` widths).
+PUBLISHED_MM_CONFIGS: dict[str, dict] = {
+    "google/gemma-3-27b-it": {
+        "architectures": ["Gemma3ForConditionalGeneration"], "model_type": "gemma3",
+        "boi_token_index": 255999, "eoi_token_index": 256000,
+        "image_token_index": 262144, "mm_tokens_per_image": 256,
+        "text_config": {
+            "model_type": "gemma3_text", "vocab_size": 262208, "hidden_size": 5376,
+            "intermediate_size": 21504, "num_hidden_layers": 62, "num_attention_heads": 32,
+            "num_key_value_heads": 16, "head_dim": 128, "query_pre_attn_scalar": 168,
+            "rope_theta": 1000000.0, "rope_local_base_freq": 10000.0,
+            "rope_scaling": {"factor": 8.0, "rope_type": "linear"},
+            "rms_norm_eps": 1e-6, "max_position_embeddings": 131072,
+            "sliding_window": 1024, "sliding_window_pattern": 6,
+            "tie_word_embeddings": True},
+        "vision_config": {
+            "model_type": "siglip_vision_model", "hidden_size": 1152, "image_size": 896,
+            "intermediate_size": 4304, "num_attention_heads": 16, "num_hidden_layers": 27,
+            "patch_size": 14, "num_channels": 3, "layer_norm_eps": 1e-6},
+    },
+    "Qwen/Qwen3-VL-30B-A3B-Instruct": {
+        "architectures": ["Qwen3VLMoeForConditionalGeneration"], "model_type": "qwen3_vl_moe",
+        "image_token_id": 151655, "vision_start_token_id": 151652,
+        "vision_end_token_id": 151653, "tie_word_embeddings": False,
+        "text_config": {
+            "model_type": "qwen3_vl_moe_text", "vocab_size": 151936, "hidden_size": 2048,
+            "intermediate_size": 6144, "moe_intermediate_size": 768,
+            "num_hidden_layers": 48, "num_attention_heads": 32, "num_key_value_heads": 4,
+            "head_dim": 128, "num_experts": 128, "num_experts_per_tok": 8,
+            "norm_topk_prob": True, "decoder_sparse_step": 1, "mlp_only_layers": [],
+            "rms_norm_eps": 1e-6, "rope_theta": 5000000, "max_position_embeddings": 262144,
+            "rope_scaling": {"mrope_interleaved": True, "mrope_section": [24, 20, 20],
+                             "rope_type": "default"},
+            "attention_bias": False, "hidden_act": "silu"},
+        "vision_config": {
+            "depth": 27, "hidden_size": 1152, "intermediate_size": 4304, "num_heads": 16,
+            "patch_size": 16, "spatial_merge_size": 2, "temporal_patch_size": 2,
+            "in_channels": 3, "out_hidden_size": 2048, "num_position_embeddings": 2304,
+            "deepstack_visual_indexes": [8, 16, 24], "hidden_act": "gelu_pytorch_tanh"},
+    },
+}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -8,6 +8,15 @@
 // sliding window, optional tanh softcap applied before the mask, f32 softmax.
 // A masked logit is replaced by the finite -2e38, so every row stays finite.
 //
+// Image groups (gemma-3's bidirectional image blocks, ops/attention.py's
+// mm_groups): with mm_lo / mm_hi non-null, position t of row b also sees
+// the keys [mm_lo[b, t], mm_hi[b, t]) -- its image's own run, past the
+// causal and window tests (the length mask still applies; text positions
+// hold an empty span). A block widens its key range to the spans of its
+// rows, a warp keeps every tile that meets one of its rows' spans, and a
+// tile that is not wholly visible tests the span key by key. With null
+// spans the kernel computes exactly what it computes without them.
+//
 // What bounds it on the H100: at a 1024-token bucket of Llama-3-8B the work
 // is ~6.6 GFLOP per layer against ~10 MB of q/k/v/out, so the card's bound
 // is its bf16 tensor-core rate (989 TFLOP/s dense).
@@ -78,7 +87,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_prefill_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const int* __restrict__ lengths, T* __restrict__ out, int T_len, int n_q,
-                   int n_kv, float scale, int window, float cap) {
+                   int n_kv, float scale, int window, float cap, const int* __restrict__ mm_lo,
+                   const int* __restrict__ mm_hi) {
   constexpr int DPL = (D + 31) / 32;  // output columns per lane
   extern __shared__ __align__(16) unsigned char smem[];
   float (*sQ)[D] = reinterpret_cast<float (*)[D]>(smem);
@@ -112,10 +122,31 @@ flash_prefill_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __
     for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
   }
 
-  // keys any row of this block may attend to: [k_begin, k_end)
+  // keys any row of this block may attend to: [k_begin, k_end), widened
+  // to its rows' image spans
   const int q_last = min(q0 + kBQ, T_len) - 1;
-  const int k_end = min(q_last + 1, length);
+  int k_end = min(q_last + 1, length);
   int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  int span_lo[kRows], span_hi[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) span_lo[r] = span_hi[r] = 0;
+  if (mm_lo != nullptr) {
+    for (int t = q0; t <= q_last; ++t) {
+      const int lo = mm_lo[(size_t)b * T_len + t], hi = mm_hi[(size_t)b * T_len + t];
+      if (lo < hi) {
+        k_begin = min(k_begin, lo);
+        k_end = max(k_end, min(hi, length));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int t = q0 + warp * kRows + r;
+      if (t < T_len) {
+        span_lo[r] = mm_lo[(size_t)b * T_len + t];
+        span_hi[r] = mm_hi[(size_t)b * T_len + t];
+      }
+    }
+  }
   k_begin = (k_begin / kBK) * kBK;
   __syncthreads();
 
@@ -139,8 +170,9 @@ flash_prefill_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __
 #pragma unroll 16
       for (int i = 0; i < D; ++i) s = fmaf(sQ[row][i], sK[lane][i], s);
       s = apply_softcap(s * scale, cap);
-      const bool valid = exists && key <= t && key < length &&
-                         (window <= 0 || key > t - window);
+      const bool valid = exists && key < length &&
+                         ((key <= t && (window <= 0 || key > t - window)) ||
+                          (key >= span_lo[r] && key < span_hi[r]));
       if (!valid) s = LLMK_NEG_INF;
       const float m_new = fmaxf(m[r], warp_max(exists ? s : -INFINITY));
       const float alpha = expf(m[r] - m_new);
@@ -214,7 +246,8 @@ __global__ void __launch_bounds__(kTcWarps * 32)
 flash_prefill_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
                  __nv_bfloat16* __restrict__ out, int T_len, int n_q, int n_kv, float scale,
-                 int window, float cap) {
+                 int window, float cap, const int* __restrict__ mm_lo,
+                 const int* __restrict__ mm_hi) {
   using L = TcLayout<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -240,9 +273,48 @@ flash_prefill_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     return;
   }
 
-  // keys any row of this block may attend to: [k_begin, k_end)
-  const int k_end = min(min(q0 + kTcRows, T_len), length);
+  // this warp's rows: row0 + g and row0 + g + 8 (fragment row g = lane / 4)
+  const int row0 = q0 + warp * 16;
+  const int g = lane >> 2, tq = lane & 3;
+
+  // keys any row of this block may attend to: [k_begin, k_end), widened
+  // to its rows' image spans; [w_lo, w_hi) the union of this warp's spans
+  // and span_lo / span_hi those of this thread's rows g and g + 8
+  int k_end = min(min(q0 + kTcRows, T_len), length);
   int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  int w_lo = T_len, w_hi = 0;
+  int span_lo[2] = {0, 0}, span_hi[2] = {0, 0};
+  if (mm_lo != nullptr) {
+    __shared__ int s_lo, s_hi;
+    if (threadIdx.x == 0) s_lo = k_begin, s_hi = k_end;
+    __syncthreads();
+    if (threadIdx.x < kTcRows && q0 + threadIdx.x < T_len) {
+      const size_t i = (size_t)b * T_len + q0 + threadIdx.x;
+      if (mm_lo[i] < mm_hi[i]) {
+        atomicMin(&s_lo, mm_lo[i]);
+        atomicMax(&s_hi, min(mm_hi[i], length));
+      }
+    }
+    if (lane < 16 && row0 + lane < T_len) {
+      const size_t i = (size_t)b * T_len + row0 + lane;
+      if (mm_lo[i] < mm_hi[i]) w_lo = mm_lo[i], w_hi = mm_hi[i];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      w_lo = min(w_lo, __shfl_xor_sync(LLMK_FULL_MASK, w_lo, off));
+      w_hi = max(w_hi, __shfl_xor_sync(LLMK_FULL_MASK, w_hi, off));
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = row0 + g + hr * 8;
+      if (t < T_len) {
+        span_lo[hr] = mm_lo[(size_t)b * T_len + t];
+        span_hi[hr] = mm_hi[(size_t)b * T_len + t];
+      }
+    }
+    __syncthreads();
+    k_begin = s_lo, k_end = s_hi;
+  }
   k_begin -= k_begin % kTcKeys;
   const int n_tiles = (k_end - k_begin + kTcKeys - 1) / kTcKeys;
 
@@ -251,9 +323,6 @@ flash_prefill_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   load_tile<D>(sV, vh, kv_stride, k_begin, T_len);
   cp_async_commit();
 
-  // this warp's rows: row0 + g and row0 + g + 8 (fragment row g = lane / 4)
-  const int row0 = q0 + warp * 16;
-  const int g = lane >> 2, tq = lane & 3;
   // Q as mma A fragments, one per 16-deep step, kept in registers up to
   // head_dim 128; past it (256: 64 registers) they are re-read from sQ by
   // ldmatrix at each K tile, which leaves room for the 128 accumulators
@@ -288,8 +357,10 @@ flash_prefill_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     }
     const __nv_bfloat16* tK = sK + (j & 1) * L::kTile;
     const __nv_bfloat16* tV = sV + (j & 1) * L::kTile;
-    // a tile wholly above this warp's diagonal, or before its window, adds nothing
-    const bool seen = k0 <= row0 + 15 && (window <= 0 || k0 + kTcKeys - 1 > row0 - window);
+    // a tile wholly above this warp's diagonal, or before its window, adds
+    // nothing unless it meets one of the warp's image spans
+    const bool seen = (k0 <= row0 + 15 && (window <= 0 || k0 + kTcKeys - 1 > row0 - window)) ||
+                      (k0 < w_hi && k0 + kTcKeys > w_lo);
     if (seen) {
       float s[kTcKeys / 8][4];
 #pragma unroll
@@ -322,10 +393,13 @@ flash_prefill_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
                               : s[n][e] * scale_l2;
           if (!whole) {
             const int key = k0 + n * 8 + tq * 2 + (e & 1);
-            const int t = row0 + g + (e >> 1) * 8;
+            const int hr = e >> 1;
+            const int t = row0 + g + hr * 8;
             if (key >= T_len)
               x = -INFINITY;  // no such key: no weight at all
-            else if (key > t || key >= length || (window > 0 && key <= t - window))
+            else if (key >= length ||
+                     ((key > t || (window > 0 && key <= t - window)) &&
+                      !(key >= span_lo[hr] && key < span_hi[hr])))
               x = neg_l2;
           }
           s[n][e] = x;
@@ -407,7 +481,7 @@ flash_prefill_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 template <typename T, int D>
 int launch_simt(const void* q, const void* k, const void* v, const void* lengths, void* out,
                 int B, int T_len, int n_q, int n_kv, float scale, int window, float cap,
-                cudaStream_t stream) {
+                const int* mm_lo, const int* mm_hi, cudaStream_t stream) {
   constexpr size_t smem = simt_smem<D>();
   static bool smem_set = false;  // per instantiation; one card per process
   if (!smem_set) {
@@ -419,14 +493,14 @@ int launch_simt(const void* q, const void* k, const void* v, const void* lengths
   const dim3 grid((T_len + kBQ - 1) / kBQ, n_q, B);
   flash_prefill_simt<T, D><<<grid, kWarps * 32, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int*)lengths, (T*)out, T_len, n_q, n_kv,
-      scale, window, cap);
+      scale, window, cap, mm_lo, mm_hi);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, const void* lengths, void* out,
               int B, int T_len, int n_q, int n_kv, float scale, int window, float cap,
-              cudaStream_t stream) {
+              const int* mm_lo, const int* mm_hi, cudaStream_t stream) {
   constexpr size_t smem = TcLayout<D>::kSmem;
   static bool smem_set = false;  // per head dim; one card per process
   if (!smem_set) {
@@ -438,7 +512,8 @@ int launch_tc(const void* q, const void* k, const void* v, const void* lengths, 
   const dim3 grid(n_q, (T_len + kTcRows - 1) / kTcRows, B);
   flash_prefill_tc<D><<<grid, kTcWarps * 32, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const int*)lengths, (__nv_bfloat16*)out, T_len, n_q, n_kv, scale, window, cap);
+      (const int*)lengths, (__nv_bfloat16*)out, T_len, n_q, n_kv, scale, window, cap, mm_lo,
+      mm_hi);
   return (int)cudaGetLastError();
 }
 
@@ -446,31 +521,37 @@ int launch_tc(const void* q, const void* k, const void* v, const void* lengths, 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, const void* lengths, void* out,
                 int B, int T_len, int n_q, int n_kv, float scale, int window, float cap,
-                cudaStream_t stream) {
+                const int* mm_lo, const int* mm_hi, cudaStream_t stream) {
   if constexpr (D >= 16)
-    return launch_tc<D>(q, k, v, lengths, out, B, T_len, n_q, n_kv, scale, window, cap, stream);
+    return launch_tc<D>(q, k, v, lengths, out, B, T_len, n_q, n_kv, scale, window, cap, mm_lo,
+                        mm_hi, stream);
   else
     return launch_simt<__nv_bfloat16, D>(q, k, v, lengths, out, B, T_len, n_q, n_kv, scale,
-                                         window, cap, stream);
+                                         window, cap, mm_lo, mm_hi, stream);
 }
 
 }  // namespace
 
 // q [B, T, n_q, d], k/v [B, T, n_kv, d], lengths [B] int32, out [B, T, n_q, d];
 // all contiguous and 16-byte aligned. window <= 0 means none, cap <= 0 means
-// no softcap. Returns cudaGetLastError() after the launch.
+// no softcap. mm_lo / mm_hi [B, T] int32: each position's image span, or
+// both null for none. Returns cudaGetLastError() after the launch.
 extern "C" int llmk_flash_prefill(const void* q, const void* k, const void* v,
                                   const void* lengths, void* out, int B, int T_len,
                                   int n_q, int n_kv, int d, float scale, int window,
-                                  float cap, int dtype, void* stream) {
+                                  float cap, const void* mm_lo, const void* mm_hi, int dtype,
+                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const int* lo = (const int*)mm_lo;
+  const int* hi = (const int*)mm_hi;
+  if ((lo == nullptr) != (hi == nullptr)) return (int)cudaErrorInvalidValue;
   if (dtype == LLMK_F32) {
     LLMK_DISPATCH_D(d, return (launch_simt<float, D>(q, k, v, lengths, out, B, T_len, n_q,
-                                                     n_kv, scale, window, cap, s)));
+                                                     n_kv, scale, window, cap, lo, hi, s)));
   }
   if (dtype == LLMK_BF16) {
     LLMK_DISPATCH_D(d, return (launch_bf16<D>(q, k, v, lengths, out, B, T_len, n_q, n_kv,
-                                              scale, window, cap, s)));
+                                              scale, window, cap, lo, hi, s)));
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -179,7 +179,22 @@ the handoff digests): its K/V never meets the base model's. (The JAX
 engine salts text requests with ``b""`` whatever adapter they name, so
 there an adapter request adopts pages the base model wrote.)
 
-Not ported yet: multimodal salts.
+Images (``submit(images=...)``, as in the JAX engine; video is not ported
+yet): each image is a preprocessed float32 [H, W, C] array
+(``engine/images.py``) and the prompt holds a run of
+``mm_tokens_per_image`` image tokens for each (``_validate_images``, the
+JAX contract: the prompt fits the largest bucket and ``max_tokens`` is
+capped so a preempted resume still does). A fresh image request is
+admitted alone: ``_mm_prefill`` encodes its images through the tower
+(``models/vision.py``) and runs ``forward_prefill_mm``. Its digest chain
+is salted with a hash of the pixels and their shapes, joined to the
+adapter salt (the JAX engine salts with the pixels alone: there an adapter
+request with an image adopts the base model's pages), and a cached prefix
+is adopted only when it covers the last image token; the rest then runs
+the chunk path as text. Qwen3-VL's mrope delta (``Request.mrope_delta``,
+computed once at submit) rides every chunk row (``_DELTA_PRE``) and every
+window and verify row (``graphs.DELTA``), so the captured graphs rotate
+each slot's tokens by it.
 """
 
 from __future__ import annotations
@@ -207,7 +222,7 @@ from llms_on_kubernetes_tpu_torch.engine.cache import (
     torch_dtype,
 )
 from llms_on_kubernetes_tpu_torch.engine.graphs import (
-    ADP, BIAS, BUD, DEC_COLS, FLOATS, FSM, LEN, LOGIT_BIAS_SLOTS, PRE_ROW, SEED, SRC, SRC_HOST,
+    ADP, BIAS, BUD, DEC_COLS, DELTA, FLOATS, FSM, LEN, LOGIT_BIAS_SLOTS, PRE_ROW, SEED, SRC, SRC_HOST,
     SRC_INFLIGHT, SRC_PREFILL, STOP, STOP_SLOTS, TOP_K, VAL, DecodeWindow, fsm_apply,
     fsm_scatter, idle_rows, pack_bias, pack_results, unpack_accept, unpack_bias,
     unpack_results, upload, verify_rows,
@@ -220,7 +235,7 @@ from llms_on_kubernetes_tpu_torch.engine.sampling import (
     LOGPROB_TOPK, MAX_CANDIDATES, gumbel_noise, sample,
 )
 from llms_on_kubernetes_tpu_torch.models.decoder import (
-    forward_chunk, forward_prefill, forward_score, init_params,
+    forward_chunk, forward_prefill, forward_prefill_mm, forward_score, init_params,
 )
 from llms_on_kubernetes_tpu_torch.ops.lora import LoRAStack, lora_zeros
 from llms_on_kubernetes_tpu_torch.ops.moe import MoEWorkspace
@@ -252,12 +267,13 @@ log = logging.getLogger(__name__)
 # unconstrained, and the absolute start state to assume before sampling:
 # set for a fresh constrained request, -1 for a resumed one, whose first
 # window sets its replayed state), the logit_bias ids and values, the
-# row's LoRA adapter slot (-1: the base model), then the page table and the
-# tokens
+# row's LoRA adapter slot (-1: the base model), its mrope delta (Qwen3-VL;
+# 0 otherwise), then the page table and the tokens
 _FSM_PRE = 11
 _BIAS_PRE = 13
 _ADP_PRE = _BIAS_PRE + 2 * LOGIT_BIAS_SLOTS
-_PRE_COLS = _ADP_PRE + 1
+_DELTA_PRE = _ADP_PRE + 1
+_PRE_COLS = _DELTA_PRE + 1
 _OFF = ("0", "false", "off", "no")
 ROLES = ("prefill", "decode", "both")
 # spills queued before a drain (the JAX engine's threshold), and the
@@ -412,6 +428,8 @@ class EngineConfig:
     adapter_slots: int = 4
     adapter_rank: int = 16
     adapter_targets: tuple = ("wq", "wk", "wv", "wo")
+    # multimodal: images a request may carry (the JAX engine's field)
+    max_images_per_request: int = 4
 
     def __post_init__(self):
         if self.kv_write is None:
@@ -586,6 +604,12 @@ class Request:
     # a prefill-only handoff request (the server answers with a ticket):
     # its spilled pages land in the host tier before its finish event
     handoff: bool = False
+    # multimodal: preprocessed float32 pixels, one [H, W, C] array an
+    # image; the prompt holds a matching image-token run for each
+    images: Optional[list] = None
+    # mrope models (Qwen3-VL): a continuation's rotary position is its
+    # token index plus this delta (set at submit)
+    mrope_delta: int = 0
 
 
 @dataclasses.dataclass
@@ -914,6 +938,8 @@ class Engine:
             self.moe_workspace = MoEWorkspace(rows, cfg.hidden_size, cfg.intermediate_size,
                                               torch_dtype(engine_config.dtype), self.device)
         self.prefill_calls = 0       # forward_prefill calls (one per bucket batch)
+        self.mm_prefill_calls = 0    # forward_prefill_mm calls (one per image request)
+        self.images_encoded = 0      # images through the vision tower
         self.chunk_calls = 0         # forward_chunk calls (one per chunk)
         self.decode_forwards = 0     # forward_decode calls (K per window)
         self.decode_dispatches = 0   # decode windows and verifies harvested
@@ -1110,7 +1136,7 @@ class Engine:
                request_id: Optional[str] = None, on_event=None,
                deadline: Optional[float] = None, tenant: Optional[str] = None,
                priority: Optional[str] = None, handoff: bool = False,
-               adapter: Optional[str] = None) -> Request:
+               adapter: Optional[str] = None, images=None) -> Request:
         if self.wedged:
             raise EngineStallError("engine wedged: a device step stalled past the watchdog "
                                    "budget; restart the server to recover")
@@ -1122,6 +1148,9 @@ class Engine:
             raise UnknownAdapterError(
                 f"adapter {adapter!r} is not served by this engine "
                 f"(configured: {self._adapters.names() if self._adapters else []})")
+        if images is not None:
+            images = [np.asarray(im, np.float32) for im in images]
+            params = self._validate_images(prompt, params, images)
         if params.top_k > MAX_CANDIDATES:
             raise ValueError(f"top_k={params.top_k} exceeds the sampling candidate pool "
                              f"({MAX_CANDIDATES}); values above it are not supported")
@@ -1192,6 +1221,17 @@ class Engine:
             priority = dict(self.config.qos_priorities).get(
                 tenant, self.config.qos_default_priority)
         priority = normalize_priority(priority, self.config.qos_default_priority)
+        # the mrope delta is a function of the prompt: computed once here,
+        # so an admission that adopts the image region still decodes at
+        # the right rotary positions
+        mrope_delta = 0
+        if images is not None and self.model_config.mrope_section is not None:
+            from llms_on_kubernetes_tpu_torch.models.vision import qwen_mrope_positions
+
+            _, mrope_delta = qwen_mrope_positions(
+                list(prompt), self.model_config.image_token_id,
+                self.model_config.vision.mm_tokens_per_image, grids=self._mm_grids(images))
+        salt = self._adapter_salt(adapter) + self._image_salt(images)
         with self._lock:
             seed = (params.seed if params.seed is not None
                     else int(self._seed_rng.integers(0, 2 ** 31 - 1))) & 0x7FFFFFFF
@@ -1203,8 +1243,8 @@ class Engine:
                           submitted_at=time.monotonic(), deadline=deadline,
                           output=prefix, output_logprobs=[None] * len(prefix),
                           on_event=on_event, tenant=tenant, priority=priority,
-                          handoff=handoff, adapter=adapter,
-                          cache_salt=self._adapter_salt(adapter))
+                          handoff=handoff, adapter=adapter, images=images,
+                          mrope_delta=int(mrope_delta), cache_salt=salt)
             if len(self.waiting) >= self.config.max_waiting:
                 raise QueueFullError(f"waiting queue is full ({self.config.max_waiting} "
                                      f"requests); retry later")
@@ -1213,6 +1253,86 @@ class Engine:
             self._admit_wake.set()
             self._harvester.poke()      # break any backpressure wait: admit now
         return req
+
+    def _validate_images(self, prompt: list[int], params: SamplingParams,
+                         images: list) -> SamplingParams:
+        """The JAX engine's multimodal admission contract (images only):
+        the image-token runs match the images, each image has its
+        family's shape, the prompt fits the largest prefill bucket (the
+        chunk path substitutes no embeddings) and ``max_tokens`` is capped
+        so a preempted resume re-prefills within it. Raises ValueError."""
+        cfg = self.model_config
+        if cfg.vision is None:
+            raise ValueError(f"model {cfg.name!r} has no vision tower; images are not "
+                             f"supported")
+        v = cfg.vision
+        S2 = v.patches_per_side ** 2
+        for im in images:
+            if im.ndim != 3:
+                raise ValueError(f"each image must be [H, W, C]; got {tuple(im.shape)} "
+                                 f"(video is not served)")
+            if im.shape[-1] != v.num_channels:
+                raise ValueError(f"images need {v.num_channels} channels; got "
+                                 f"{tuple(im.shape)}")
+            sh, sw = im.shape[0] // v.patch_size, im.shape[1] // v.patch_size
+            if v.family == "qwen3vl":
+                m = v.spatial_merge_size
+                if (sh * v.patch_size != im.shape[0] or sw * v.patch_size != im.shape[1]
+                        or sh % m or sw % m or sh * sw != S2):
+                    raise ValueError(
+                        f"image {im.shape[0]}x{im.shape[1]} is not an allowed dynamic-"
+                        f"resolution grid ({S2} patches, sides divisible by "
+                        f"{m * v.patch_size})")
+            elif im.shape[:2] != (v.image_size, v.image_size):
+                raise ValueError(f"{cfg.name} images must be {v.image_size}x{v.image_size}; "
+                                 f"got {im.shape[0]}x{im.shape[1]}")
+        if not 1 <= len(images) <= self.config.max_images_per_request:
+            raise ValueError(f"{len(images)} images; this engine serves 1.."
+                             f"{self.config.max_images_per_request} per request")
+        t_img = v.mm_tokens_per_image
+        runs, i = [], 0
+        while i < len(prompt):
+            if prompt[i] == cfg.image_token_id:
+                j = i
+                while j < len(prompt) and prompt[j] == cfg.image_token_id:
+                    j += 1
+                runs.append(j - i)
+                i = j
+            else:
+                i += 1
+        if sum(runs) != len(images) * t_img:
+            raise ValueError(f"prompt has {sum(runs)} image soft tokens; {len(images)} "
+                             f"images need {len(images) * t_img}")
+        if any(r != t_img for r in runs):
+            raise ValueError(f"image soft tokens must form runs of exactly {t_img}")
+        bucket = max(self.config.prefill_buckets)
+        if len(prompt) > bucket:
+            raise ValueError(f"multimodal prompt of {len(prompt)} tokens exceeds the "
+                             f"largest prefill bucket ({bucket})")
+        if len(prompt) + params.max_tokens - 1 > bucket:
+            params = dataclasses.replace(params, max_tokens=max(1, bucket - len(prompt) + 1))
+        return params
+
+    def _image_salt(self, images) -> bytes:
+        """The digest-chain salt of a request's images (``b""`` without):
+        a hash of each image's shape and pixels, computed once at submit.
+        The image tokens share one id, so the tokens alone would alias
+        different images."""
+        if images is None:
+            return b""
+        import hashlib
+
+        h = hashlib.sha256()
+        for im in images:           # the shape first: the same bytes on another grid
+            h.update(np.asarray(im.shape, np.int64).tobytes())
+            h.update(im.tobytes())
+        return b"img\0" + h.digest()
+
+    def _mm_grids(self, images) -> list[tuple[int, int]]:
+        """Each image's merged grid (rows, cols), in prompt order."""
+        from llms_on_kubernetes_tpu_torch.models.vision import merged_grid
+
+        return [merged_grid(self.model_config.vision, im.shape) for im in images]
 
     def _adapter_salt(self, adapter: Optional[str]) -> bytes:
         """The digest-chain salt of a request: ``b""`` for the base model
@@ -1518,7 +1638,7 @@ class Engine:
         but the pending last one, and finishes with "length" here when that
         no longer fits a slot. Returns (slot, request, prefill tokens,
         adopted prefix tokens, resumed), or None to stop admitting: no free
-        slot, no pages yet (FIFO: no overtaking), or ``accept(tokens,
+        slot, no pages yet (FIFO: no overtaking), or ``accept(request, tokens,
         hit)`` false (the caller's batch cannot take it now)."""
         alloc = self.allocator
         while self.waiting:
@@ -1540,7 +1660,7 @@ class Engine:
             # adopt the cached prefix FIRST, so the page check counts only
             # the pages past it; roll back if the request is not taken now
             hit = self._adopt_cached_prefix(slot, req, ptoks)
-            if ((accept is not None and not accept(ptoks, hit))
+            if ((accept is not None and not accept(req, ptoks, hit))
                     or not alloc.can_allocate(slot, n + 1)):
                 if hit:
                     alloc.rollback_adopt(slot)
@@ -1560,10 +1680,12 @@ class Engine:
             return slot, req, ptoks, hit, resumed
         return None
 
-    def _runs_alone(self, ptoks: list[int], hit: int) -> bool:
+    def _runs_alone(self, req: Request, ptoks: list[int], hit: int) -> bool:
         """A cache hit or a prompt past the largest bucket takes the chunk
-        path, alone."""
-        return hit > 0 or len(ptoks) > max(self.config.prefill_buckets)
+        path, alone; an image request without a hit the multimodal
+        prefill, alone."""
+        return (hit > 0 or len(ptoks) > max(self.config.prefill_buckets)
+                or req.images is not None)
 
     def _admit(self) -> list[StepEvent]:
         """Sync admission: seat waiting requests in order while a slot and
@@ -1586,8 +1708,8 @@ class Engine:
         by_bucket: dict[int, list[tuple]] = {}
         chunked = []
         for seat in seats:
-            _slot, _req, ptoks, hit, _resumed = seat
-            if self._runs_alone(ptoks, hit):
+            _slot, req, ptoks, hit, _resumed = seat
+            if self._runs_alone(req, ptoks, hit):
                 chunked.append(seat)
             else:
                 by_bucket.setdefault(self._bucket_for(len(ptoks)), []).append(seat)
@@ -1599,7 +1721,7 @@ class Engine:
                        [(req, "prefill", max(1, len(ptoks))) for _s, req, ptoks, _h, _r in rows])
         for seat in chunked:
             t_launch = time.monotonic()
-            pack, _ = self._chunked_prefill(seat[1], seat[2], start=seat[3])
+            pack, _ = self._prefill_alone(seat[1], seat[2], seat[3])
             events += self._first_tokens([seat], pack)
             self._book(t_launch, time.monotonic(),
                        [(seat[1], "prefill", max(1, len(seat[2]) - seat[3]))])
@@ -1644,6 +1766,7 @@ class Engine:
             host[r, _FSM_PRE:_FSM_PRE + 2] = -1
         pack_bias(host, r, _BIAS_PRE, p.logit_bias)
         host[r, _ADP_PRE] = req.adapter_slot
+        host[r, _DELTA_PRE] = req.mrope_delta
         host[r, _PRE_COLS:_PRE_COLS + self.config.pages_per_slot] = \
             self.allocator.page_tables[req.slot]
 
@@ -1652,16 +1775,19 @@ class Engine:
         top_k, seeds, slots, prompt_len, reset, floats [R, 4], bias (ids,
         values), page_table, tokens, FSM (rows, start states) or None when
         no row is constrained, the rows' adapter slots or None on an
-        adapter-free engine)."""
+        adapter-free engine, the rows' mrope deltas or None on a model
+        without mrope)."""
         d = upload(host, self.device)
         pt_end = _PRE_COLS + self.config.pages_per_slot
         fsm = None
         if (host[:, _FSM_PRE] >= 0).any():
             fsm = (d[:, _FSM_PRE].contiguous(), d[:, _FSM_PRE + 1].contiguous())
         adp = d[:, _ADP_PRE].contiguous() if self._adapters is not None else None
+        delta = (d[:, _DELTA_PRE].contiguous() if self.model_config.mrope_section is not None
+                 else None)
         return (*(d[:, c].contiguous() for c in range(7)), d[:, 7:11].view(torch.float32),
                 unpack_bias(d, _BIAS_PRE), d[:, _PRE_COLS:pt_end].contiguous(),
-                d[:, pt_end:].contiguous(), fsm, adp)
+                d[:, pt_end:].contiguous(), fsm, adp, delta)
 
     def _sample_first(self, logits, positions, top_k, seeds, fl, bias, slots, fsm=None,
                       lengths=None):
@@ -1708,7 +1834,7 @@ class Engine:
         host[n:, _FSM_PRE:_FSM_PRE + 2] = -1               # padded rows: none
         host[n:, _ADP_PRE] = -1                            # padded rows: the base model
         (lengths, history, top_k, seeds, slots, prompt_len, reset, fl, bias, page_table,
-         tokens, fsm, adp) = self._device_rows(host)
+         tokens, fsm, adp, _delta) = self._device_rows(host)
         _rebuild_count_rows(self.token_counts, tokens, slots, history, prompt_len, lengths,
                             reset)
         logits, _, _ = forward_prefill(self.params, self.model_config, tokens, lengths,
@@ -1735,16 +1861,76 @@ class Engine:
             self._pack_row(host, 0, req, m, pos, pos == start)
             host[0, _PRE_COLS + pps:_PRE_COLS + pps + m] = ptoks[pos:pos + m]
             (lengths, history, top_k, seeds, slots, prompt_len, reset, fl, bias,
-             page_table, tokens, fsm, adp) = self._device_rows(host)
+             page_table, tokens, fsm, adp, delta) = self._device_rows(host)
             _rebuild_count_rows(self.token_counts, tokens, slots, history, prompt_len,
                                 lengths, reset)
             logits, _, _ = forward_chunk(self.params, self.model_config, tokens, history,
                                          lengths, self.k_pages, self.v_pages, page_table, adp,
-                                         moe_workspace=self.moe_workspace)
+                                         moe_workspace=self.moe_workspace, pos_delta=delta)
             self.chunk_calls += 1
             pos += m
         return self._sample_first(logits, history + lengths, top_k, seeds, fl, bias, slots,
                                   fsm, lengths)
+
+    def _prefill_alone(self, req: Request, ptoks: list[int], hit: int):
+        """A request that runs alone: the multimodal prefill for an image
+        request without a cache hit, else the chunk path from the hit."""
+        if req.images is not None and hit == 0:
+            return self._mm_prefill(req, ptoks)
+        return self._chunked_prefill(req, ptoks, start=hit)
+
+    def encode_images(self, images: list) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Each image through the vision tower, one call an image (grids
+        may differ): (soft tokens [n, t_img, D], DeepStack [n_taps, n,
+        t_img, D] or None), on the device."""
+        from llms_on_kubernetes_tpu_torch.models.vision import vision_encode
+
+        embeds, deep = [], []
+        for im in images:
+            e, d = vision_encode(self.params["vision"], self.model_config.vision,
+                                 upload(np.ascontiguousarray(im)[None], self.device))
+            embeds.append(e[0])
+            if d is not None:
+                deep.append(d[:, 0])
+            self.images_encoded += 1
+        return torch.stack(embeds), (torch.stack(deep, dim=1) if deep else None)
+
+    def _mm_prefill(self, req: Request, ptoks: list[int]):
+        """The multimodal prefill of one request (the JAX
+        ``_dispatch_mm_prefill``): its images encoded, then one
+        ``forward_prefill_mm`` call over its prompt (and, resumed, its
+        replayed output) padded to the smallest bucket that fits. Returns
+        (packed samples, sampled tokens), on the device."""
+        cfg = self.model_config
+        n, pps = len(ptoks), self.config.pages_per_slot
+        bucket = self._bucket_for(n)
+        host = np.zeros((1, _PRE_COLS + pps + bucket), np.int32)
+        self._pack_row(host, 0, req, n, 0, True)
+        host[0, _PRE_COLS + pps:_PRE_COLS + pps + n] = ptoks
+        (lengths, history, top_k, seeds, slots, prompt_len, reset, fl, bias, page_table,
+         tokens, fsm, adp, _delta) = self._device_rows(host)
+        _rebuild_count_rows(self.token_counts, tokens, slots, history, prompt_len, lengths,
+                            reset)
+        embeds, deep = self.encode_images(req.images)
+        pos3 = None
+        if cfg.vision.family == "qwen3vl":
+            from llms_on_kubernetes_tpu_torch.models.vision import qwen_mrope_positions
+
+            p3, _ = qwen_mrope_positions(ptoks, cfg.image_token_id,
+                                         cfg.vision.mm_tokens_per_image,
+                                         prompt_len=len(req.prompt),
+                                         grids=self._mm_grids(req.images))
+            pos3_host = np.zeros((1, 3, bucket), np.int32)
+            pos3_host[0, :, :n] = p3
+            pos3 = upload(pos3_host, self.device)
+        if deep is not None:
+            deep = deep.reshape(deep.shape[0], 1, -1, deep.shape[-1])
+        logits, _, _ = forward_prefill_mm(self.params, cfg, tokens, lengths, self.k_pages,
+                                          self.v_pages, page_table, embeds[None],
+                                          deepstack=deep, pos3=pos3, prompt_len=prompt_len,
+                                          adapter_idx=adp, moe_workspace=self.moe_workspace)
+        self.mm_prefill_calls += 1
+        return self._sample_first(logits, lengths, top_k, seeds, fl, bias, slots, fsm, lengths)
 
     # ------------------------------------------------------------------
     # decode windows
@@ -1773,6 +1959,7 @@ class Engine:
                 np.float32).view(np.int32)
             pack_bias(packed, i, BIAS, prm.logit_bias)
             packed[i, ADP] = r.adapter_slot
+            packed[i, DELTA] = r.mrope_delta
             packed[i, FSM] = r.fsm_row
             if r.fsm_row >= 0 and r.pending_fsm_state is not None:
                 packed[i, FSM + 1], packed[i, FSM + 2] = 1, r.pending_fsm_state
@@ -1930,10 +2117,10 @@ class Engine:
             return None
         picked: list[tuple] = []
 
-        def accept(ptoks: list[int], hit: int) -> bool:
+        def accept(req: Request, ptoks: list[int], hit: int) -> bool:
             # the first pick sets the batch: one that runs alone, or the
             # bucket every later pick must share
-            return not picked or (not self._runs_alone(ptoks, hit) and self._bucket_for(
+            return not picked or (not self._runs_alone(req, ptoks, hit) and self._bucket_for(
                 len(ptoks)) == self._bucket_for(len(picked[0][2])))
 
         long_pick = None
@@ -1942,7 +2129,7 @@ class Engine:
                 seat = self._seat_next(events, accept)
                 if seat is None:
                     break
-                if self._runs_alone(seat[2], seat[3]):
+                if self._runs_alone(seat[1], seat[2], seat[3]):
                     long_pick = seat
                     break
                 picked.append(seat)
@@ -1955,8 +2142,10 @@ class Engine:
         t_launch = time.monotonic()
         if long_pick is not None:
             _slot, req, ptoks, hit, _resumed = long_pick
-            pack, merge["toks"] = self._chunked_prefill(req, ptoks, start=hit)
-            n_chunks = -(-(len(ptoks) - hit) // max(self.config.prefill_buckets))
+            pack, merge["toks"] = self._prefill_alone(req, ptoks, hit)
+            # an image request's encode and prefill count as two chunks
+            n_chunks = (2 if req.images is not None and hit == 0 else
+                        -(-(len(ptoks) - hit) // max(self.config.prefill_buckets)))
             self._busy_until = (max(time.monotonic(), self._busy_until)
                                 + 2.0 * n_chunks * self._est_step)
             rows = [long_pick]
@@ -2259,7 +2448,7 @@ class Engine:
         ``_host_kv_commit`` uploads and counts."""
         hit = self.allocator.adopt_prefix(slot, req.prompt, salt=req.cache_salt)
         if self.host_kv is None:
-            return hit
+            return self._mm_hit(slot, req, hit, hit)
         self._drain_spills()
         page = self.allocator.page_size
         cap_pages = (len(ptoks) - 1) // page
@@ -2275,7 +2464,22 @@ class Engine:
                 matched, payloads = matched[:i], payloads[:i]
                 break
         self._host_adopt[slot] = (start, matched, payloads)
-        return hit + len(matched) * page
+        return self._mm_hit(slot, req, hit, hit + len(matched) * page)
+
+    def _mm_hit(self, slot: int, req: Request, hit: int, combined: int) -> int:
+        """An image request's hit must cover its last image token (the rest
+        runs the chunk path, which substitutes no embeddings); a shorter one
+        is rolled back (the JAX rule). Returns the usable hit."""
+        if not combined or req.images is None:
+            return combined
+        image = self.model_config.image_token_id
+        last_img = max(i for i, t in enumerate(req.prompt) if t == image)
+        if combined > last_img:
+            return combined
+        if hit:
+            self.allocator.rollback_adopt(slot)
+        self._host_adopt.pop(slot, None)
+        return 0
 
     def _host_kv_commit(self, slot: int, req: Request) -> None:
         """An admission with a staged host-tier probe landed: count the hit

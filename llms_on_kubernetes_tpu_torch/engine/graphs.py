@@ -85,14 +85,16 @@ LOGIT_BIAS_SLOTS = 32
 # columns (the row's grammar row in class_of, -1: unconstrained; fsm_set
 # 1: start from fsm_val instead of the slot's device state, a resumed
 # request's host-replayed state), the row's LoRA adapter slot (-1: the
-# base model), then the page table
+# base model), the row's mrope delta (Qwen3-VL: its rotary position is
+# the token index plus it; 0 otherwise), then the page table
 LEN, BUD, SRC, VAL, PRE_ROW, TOP_K, SEED = range(7)
 STOP = 7
 FLOATS = STOP + STOP_SLOTS
 BIAS = FLOATS + 4
 FSM = BIAS + 2 * LOGIT_BIAS_SLOTS
 ADP = FSM + 3
-DEC_COLS = ADP + 1
+DELTA = ADP + 1
+DEC_COLS = DELTA + 1
 SRC_INFLIGHT, SRC_HOST, SRC_PREFILL = 0, 1, 2
 
 
@@ -186,6 +188,13 @@ def unpack_results(packed: np.ndarray) -> tuple:
             np.ascontiguousarray(packed[:, 2 + k:]).view(np.float32))
 
 
+def _pos_delta(cfg, packed: torch.Tensor) -> Optional[torch.Tensor]:
+    """The rows' mrope deltas, read from the packed rows (the captured
+    graphs' static input) on an mrope model, else None: a model without
+    mrope captures the windows it captured before the column existed."""
+    return packed[:, DELTA] if cfg.mrope_section is not None else None
+
+
 def decode_window(params: dict, cfg, K: int, packed: torch.Tensor,
                   last_toks: torch.Tensor, prefill_toks: torch.Tensor, k_pages, v_pages,
                   counts: torch.Tensor, *, seed: int, kv_write: str = "dus",
@@ -235,7 +244,8 @@ def decode_window(params: dict, cfg, K: int, packed: torch.Tensor,
                                  alive.to(counts.dtype))
         logits, _, _ = forward_decode(params, cfg, cur, lengths, k_pages, v_pages, page_table,
                                       kv_write=kv_write, workspace=workspace,
-                                      adapter_idx=packed[:, ADP], moe_workspace=moe_workspace)
+                                      adapter_idx=packed[:, ADP], moe_workspace=moe_workspace,
+                                      pos_delta=_pos_delta(cfg, packed))
         noise = gumbel_noise(seed, seeds, lengths, C)
         allowed = None
         if fsm is not None:
@@ -321,7 +331,8 @@ def verify_window(params: dict, cfg, K: int, packed: torch.Tensor, k_pages, v_pa
     history = (lengths0 - 1).clamp(min=0)
     logits_all, _, _ = forward_verify(params, cfg, window, history, w, k_pages, v_pages,
                                       page_table, adapter_idx=packed[:, ADP],
-                                      moe_workspace=moe_workspace)
+                                      moe_workspace=moe_workspace,
+                                      pos_delta=_pos_delta(cfg, packed))
     row_base = torch.arange(B, device=packed.device) * V
     flat_counts = counts.view(-1)
     C = min(MAX_CANDIDATES, cfg.vocab_size)

@@ -14,9 +14,12 @@ seen through, and both MoE namings (Mixtral's ``block_sparse_moe.{gate,
 experts.N.w1/w2/w3}``, Qwen3-MoE's ``mlp.{gate, experts.N.*_proj}``):
 each expert's tensors go to the device as stored and are transposed and
 stacked there into ``[E, D, F]`` / ``[E, F, D]``, a layer at a time. A
-vision tower raises NotImplementedError, and so does any quantization of
-an MoE checkpoint (int8 expert weights and AWQ MoE are ROADMAP queue 1
-items 3a and 3b).
+multimodal checkpoint's tower (gemma-3's SigLIP and projector, Qwen3-VL's
+tower and mergers) goes to ``params["vision"]`` through
+``models/vision.py``'s loaders, under either naming (``_Fetch`` sees
+``vision_tower.*`` through ``model.vision_tower.*``). Any quantization of
+an MoE checkpoint raises NotImplementedError (int8 expert weights and AWQ
+MoE are ROADMAP queue 1 items 3a and 3b).
 
 Quantized weights (``ops/quant.py``), as the JAX loader makes them:
 ``quantization="int8"`` quantizes the matmul weights layer by layer from
@@ -91,6 +94,8 @@ def params_from_numpy(tree: Any, device="cuda", dtype: Optional[str] = None) -> 
     if isinstance(tree, tuple):
         data, scale = tree
         return QTensor(_tensor(data).to(dev), _tensor(scale).to(dev))
+    if isinstance(tree, list):          # Qwen3-VL's DeepStack mergers
+        return [params_from_numpy(v, dev, dtype) for v in tree]
     t = _tensor(tree)
     return t.to(device=dev, dtype=dt) if dt is not None else t.to(dev)
 
@@ -322,16 +327,14 @@ def load_hf_params(cfg: ModelConfig, model_dir, device="cuda", dtype: Optional[s
     layer at a time) and the rest int8 ``QTensor``s, with the JAX loader's
     bytes. An MoE checkpoint's router and expert stacks are the JAX
     loader's ``router`` [L, D, E], ``w_gate``/``w_up`` [L, E, D, F] and
-    ``w_down`` [L, E, F, D]. Raises NotImplementedError for vision
-    checkpoints and for a quantized MoE one, ValueError for an unknown
+    ``w_down`` [L, E, F, D]; a vision checkpoint's tower is
+    ``params["vision"]``, the JAX loader's tree. Raises NotImplementedError
+    for a quantized MoE checkpoint, ValueError for an unknown
     ``quantization`` or one the checkpoint is not, FileNotFoundError for a
     directory without ``*.safetensors``, KeyError for a missing tensor."""
     if quantization not in SUPPORTED_QUANTIZATIONS:
         raise ValueError(f"unknown quantization {quantization!r} "
                          f"(supported: {[q for q in SUPPORTED_QUANTIZATIONS if q]})")
-    if cfg.vision is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the checkpoint has a vision tower, which the port does not load yet")
     quant = checkpoint_quantization(model_dir)
     if cfg.is_moe and (quantization is not None or quant is not None):
         raise NotImplementedError(moe_quantization_refusal(cfg, quantization or quant["method"]))
@@ -390,6 +393,14 @@ def load_hf_params(cfg: ModelConfig, model_dir, device="cuda", dtype: Optional[s
     if not cfg.tie_word_embeddings:
         params["lm_head"] = fetch.linear("lm_head.weight").to(dtype=dt, copy=True,
                                                              memory_format=torch.contiguous_format)
+    if cfg.vision is not None:
+        from llms_on_kubernetes_tpu_torch.models.vision import (
+            load_qwen3vl_vision_params, load_vision_params,
+        )
+
+        loader = (load_qwen3vl_vision_params if cfg.vision.family == "qwen3vl"
+                  else load_vision_params)
+        params["vision"] = loader(cfg.vision, fetch, dtype=dtype or cfg.dtype)
     return params
 
 

@@ -64,7 +64,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "flash_prefill": ("llmk_flash_prefill",
-                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P]),
+                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F, _P, _P, _I, _P]),
     "paged_decode": ("llmk_paged_decode",
                      [_P] * 10 + [_I] * 8 + [_F, _I, _F, _I, _I, _P]),
     "paged_decode_int8": ("llmk_paged_decode_int8",

@@ -42,7 +42,16 @@ claim no expert capacity and get a zero MLP. ``moe_workspace``: the
 engine's ``MoEWorkspace`` (the expert kernel's scratch), else allocated per
 call.
 
-Not ported yet: vision.
+Multimodal prefill (``forward_prefill_mm``, the JAX function): the
+towers' soft tokens (``models/vision.py``) replace the embeddings at
+``image_token_id`` positions within the prompt; gemma-3's image blocks
+attend bidirectionally (``mm_groups`` through the flash kernel), Qwen3-VL
+keeps causal attention, rotates with the 3-axis interleaved mrope
+(``mm_pos3``) and adds the DeepStack features to its first layers'
+outputs at image positions. ``pos_delta`` [B] (Qwen3-VL's mrope delta)
+shifts the rotary position of the chunk, verify and decode passes, never
+their cache positions. ``init_params`` draws the tower of a vision config
+too (``params["vision"]``).
 """
 
 from __future__ import annotations
@@ -61,12 +70,13 @@ from llms_on_kubernetes_tpu_torch.ops.attention import (
     dispatch_chunk_attention, dispatch_paged_attention_write, dispatch_prefill_attention,
     softcap,
 )
+from llms_on_kubernetes_tpu_torch.ops.flash_attention import mm_spans
 from llms_on_kubernetes_tpu_torch.ops.norms import rms_norm
 from llms_on_kubernetes_tpu_torch.ops.paged_write import dispatch_write_window
 from llms_on_kubernetes_tpu_torch.ops.lora import lora_delta_flat
 from llms_on_kubernetes_tpu_torch.ops.moe import moe_block
 from llms_on_kubernetes_tpu_torch.ops.quant import GroupQTensor, QTensor, w4_matmul, w8_matmul
-from llms_on_kubernetes_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from llms_on_kubernetes_tpu_torch.ops.rope import apply_mrope, apply_rope, rope_frequencies
 
 Params = dict[str, Any]
 
@@ -88,8 +98,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype: Optional[str] = None,
     seeded with ``seed`` on the target device. Stacked tensors are drawn one
     layer at a time (an MoE stack one expert at a time), so the float32
     draw never holds a whole stack."""
-    if cfg.vision is not None:
-        raise NotImplementedError(f"{cfg.name}: vision models are not ported yet")
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     gen = torch.Generator(device=dev)
@@ -149,6 +157,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype: Optional[str] = None,
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = init(D, V, scale=D ** -0.5)
+    if cfg.vision is not None:
+        from llms_on_kubernetes_tpu_torch.models.vision import (
+            init_qwen3vl_vision_params, init_vision_params,
+        )
+
+        if cfg.vision.family == "qwen3vl":
+            params["vision"] = init_qwen3vl_vision_params(cfg.vision, gen, dev, dtype or cfg.dtype)
+        else:
+            params["vision"] = init_vision_params(cfg.vision, D, gen, dev, dtype or cfg.dtype)
     return params
 
 
@@ -232,15 +249,24 @@ def _mlp(lp: Params, cfg: ModelConfig, h: torch.Tensor, token_valid: torch.Tenso
 def _layer_step(cfg: ModelConfig, inv_freq, page_table, positions, write_positions,
                 lengths, mode: str, x, lp: Params, k_pages, v_pages,
                 window: Optional[int], kv_write: str = "dus", workspace=None,
-                adapter_idx=None, token_valid=None, moe_workspace=None):
+                adapter_idx=None, token_valid=None, moe_workspace=None, mm_groups=None,
+                mm_pos3=None, rope_positions=None, group_spans=None):
     """One transformer layer. ``page_table`` holds GLOBAL page ids (the
     caller added this layer's block offset); the pools are updated in
-    place. ``token_valid`` [B, T]: the tokens an MoE layer routes. Returns
-    the new residual stream."""
+    place. ``token_valid`` [B, T]: the tokens an MoE layer routes;
+    ``mm_groups`` [B, T]: the prefill's image groups (gemma-3), with their
+    ``group_spans`` (``flash_attention.mm_spans``); ``mm_pos3``
+    [B, 3, T]: Qwen3-VL's mrope positions, else ``rope_positions`` (the
+    mrope-shifted positions; default ``positions``) rotate. Returns the new
+    residual stream."""
     scale = (cfg.query_pre_attn_scalar or cfg.head_dim) ** -0.5
     h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
     q, k, v = _qkv(lp, cfg, h, adapter_idx)
-    q, k = apply_rope(q, k, positions, inv_freq)
+    if mm_pos3 is not None:
+        q, k = apply_mrope(q, k, mm_pos3, inv_freq, cfg.mrope_section)
+    else:
+        q, k = apply_rope(q, k, positions if rope_positions is None else rope_positions,
+                          inv_freq)
     if mode == "decode":
         attn = dispatch_paged_attention_write(
             q[:, 0], k_pages, v_pages, page_table, lengths, k[:, 0], v[:, 0],
@@ -260,7 +286,8 @@ def _layer_step(cfg: ModelConfig, inv_freq, page_table, positions, write_positio
         write_tokens(k_pages, v_pages, k, v, page_table, write_positions)
         attn = dispatch_prefill_attention(q, k, v, lengths, scale=scale,
                                           sliding_window=window,
-                                          attn_softcap=cfg.attn_softcap)
+                                          attn_softcap=cfg.attn_softcap, mm_groups=mm_groups,
+                                          group_spans=group_spans)
     out = _lproj(lp, "wo", attn, 2, adapter_idx)
     if cfg.post_norms:
         out = rms_norm(out, lp["attn_post_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
@@ -274,10 +301,17 @@ def _layer_step(cfg: ModelConfig, inv_freq, page_table, positions, write_positio
 
 def _run_layers(cfg: ModelConfig, params: Params, x, k_pages, v_pages, page_table,
                 positions, write_positions, lengths, mode: str, kv_write: str = "dus",
-                workspace=None, adapter_idx=None, token_valid=None, moe_workspace=None):
+                workspace=None, adapter_idx=None, token_valid=None, moe_workspace=None,
+                mm_groups=None, mm_pos3=None, deepstack=None, mm_idx=None, mm_is_img=None,
+                rope_positions=None):
+    """The layer loop. ``deepstack`` [n_taps, B, n_img * t_img, D]: layer
+    i < n_taps adds tap i's feature of each image token (``mm_idx`` [B, T]
+    its soft-token index, ``mm_is_img`` [B, T]) to its output (Qwen3-VL)."""
     kd = getattr(k_pages, "data", k_pages)
     pages_per_layer = kd.shape[1] // cfg.num_layers
     inv_freq = _inv_freq(cfg, x.device, False)
+    # the groups are the same in every layer: their spans, once
+    spans = mm_spans(mm_groups) if mm_groups is not None else None
     if token_valid is None and cfg.is_moe:
         token_valid = write_positions >= 0      # the rows that write KV route
     layers = params["layers"]
@@ -295,7 +329,11 @@ def _run_layers(cfg: ModelConfig, params: Params, x, k_pages, v_pages, page_tabl
         x = _layer_step(cfg, freqs, page_table + idx * pages_per_layer, positions,
                         write_positions, lengths, mode, x, lp, k_pages, v_pages,
                         window, kv_write, workspace, adapter_idx, token_valid,
-                        moe_workspace)
+                        moe_workspace, mm_groups, mm_pos3, rope_positions, spans)
+        if deepstack is not None and idx < deepstack.shape[0]:
+            gathered = deepstack[idx].gather(
+                1, mm_idx.long()[:, :, None].expand(-1, -1, deepstack.shape[-1]))
+            x = x + torch.where(mm_is_img[:, :, None], gathered.to(x.dtype), 0)
     return x
 
 
@@ -347,6 +385,45 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions,
                     write_positions, lengths, "prefill", adapter_idx=adapter_idx,
                     moe_workspace=moe_workspace)
+    last = (lengths.long() - 1).clamp(0, T - 1)
+    x_last = x[torch.arange(B, device=x.device), last]
+    return _logits(params, cfg, x_last), k_pages, v_pages
+
+
+def forward_prefill_mm(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                       lengths: torch.Tensor, k_pages, v_pages, page_table: torch.Tensor,
+                       img_embeds: torch.Tensor, deepstack: Optional[torch.Tensor] = None,
+                       pos3: Optional[torch.Tensor] = None,
+                       prompt_len: Optional[torch.Tensor] = None,
+                       adapter_idx: Optional[torch.Tensor] = None, moe_workspace=None):
+    """Multimodal prefill (the JAX ``forward_prefill_mm``): tokens [B, T]
+    whose image runs hold ``cfg.image_token_id``; img_embeds [B, n_img,
+    t_img, D] the projected soft tokens, substituted row-major across a
+    row's images at its image positions below ``prompt_len`` [B] (a
+    resumed request's generated tokens stay text whatever their id). The
+    soft tokens are not scaled by the embedding multiplier. gemma-3: a
+    soft token attends to its whole image (``mm_groups``). Qwen3-VL:
+    causal, ``pos3`` [B, 3, T] its mrope positions, ``deepstack`` [n_taps,
+    B, n_img * t_img, D] added to the first layers' outputs at image
+    positions. Everything else is ``forward_prefill``'s."""
+    B, T = tokens.shape
+    n_img, t_img = img_embeds.shape[1], img_embeds.shape[2]
+    positions = torch.arange(T, device=tokens.device, dtype=torch.int32).expand(B, T)
+    write_positions = torch.where(positions < lengths[:, None], positions, -1)
+    x = _embed(params, cfg, tokens)
+    is_img = tokens == cfg.image_token_id
+    if prompt_len is not None:
+        is_img = is_img & (positions < prompt_len[:, None])
+    idx = (torch.cumsum(is_img.to(torch.int32), dim=1) - 1).clamp(0, n_img * t_img - 1)
+    flat = img_embeds.reshape(B, n_img * t_img, -1)
+    gathered = flat.gather(1, idx.long()[:, :, None].expand(-1, -1, flat.shape[-1]))
+    x = torch.where(is_img[:, :, None], gathered.to(x.dtype), x)
+    groups = torch.where(is_img, torch.div(idx, t_img, rounding_mode="floor"), -1)
+    bidir = groups.to(torch.int32).contiguous() if cfg.vision.family == "siglip" else None
+    x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions,
+                    write_positions, lengths, "prefill", adapter_idx=adapter_idx,
+                    moe_workspace=moe_workspace, mm_groups=bidir, mm_pos3=pos3,
+                    deepstack=deepstack, mm_idx=idx, mm_is_img=is_img)
     last = (lengths.long() - 1).clamp(0, T - 1)
     x_last = x[torch.arange(B, device=x.device), last]
     return _logits(params, cfg, x_last), k_pages, v_pages
@@ -416,15 +493,19 @@ def forward_score(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    lengths: torch.Tensor, k_pages, v_pages, page_table: torch.Tensor,
                    kv_write: str = "dus", workspace=None,
-                   adapter_idx: Optional[torch.Tensor] = None, moe_workspace=None):
+                   adapter_idx: Optional[torch.Tensor] = None, moe_workspace=None,
+                   pos_delta: Optional[torch.Tensor] = None):
     """One decode step for every slot: tokens [B], lengths [B] int32
     INCLUDING the new token (0 => idle slot). Appends each active slot's KV
     in place (``kv_write`` "dus": ``write_tokens`` then the decode kernel;
     "fused": the kernel that appends as it attends; ``workspace``: the
     decode kernels' scratch, None => the process-wide one) and returns
-    (logits [B, V] float32, k_pages, v_pages)."""
+    (logits [B, V] float32, k_pages, v_pages). ``pos_delta`` [B] shifts
+    the rotary position only (Qwen3-VL's mrope delta)."""
     positions = (lengths - 1).clamp(min=0)[:, None]
     write_positions = torch.where(lengths[:, None] > 0, positions, -1)
+    if pos_delta is not None:
+        positions = positions + pos_delta[:, None]     # a decode layer rotates by it only
     x = _embed(params, cfg, tokens[:, None])
     x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions,
                     write_positions, lengths, "decode", kv_write=kv_write,
@@ -436,15 +517,17 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   history: torch.Tensor, lengths: torch.Tensor, k_pages, v_pages,
                   page_table: torch.Tensor, adapter_idx: Optional[torch.Tensor] = None,
-                  moe_workspace=None):
+                  moe_workspace=None, pos_delta: Optional[torch.Tensor] = None):
     """Chunked prefill: one chunk of a prompt whose earlier tokens are
     already in the paged cache (earlier chunks, or an adopted cached
     prefix). tokens [B, T] (a padded chunk); history [B] int32, the tokens
     cached before this chunk; lengths [B] int32, the valid tokens in THIS
     chunk (0 => idle row). Each layer appends the chunk's rows at
     ``history + t`` with the window kernels and attends through the page
-    table (``chunk_attention``). Returns (the chunk's last-token logits
-    [B, V] float32, k_pages, v_pages)."""
+    table (``chunk_attention``). ``pos_delta`` [B] shifts the rotary
+    position only (a Qwen3-VL prompt's text after an adopted image
+    region). Returns (the chunk's last-token logits [B, V] float32,
+    k_pages, v_pages)."""
     B, T = tokens.shape
     offs = torch.arange(T, device=tokens.device, dtype=torch.int32).expand(B, T)
     positions = history[:, None] + offs
@@ -452,7 +535,8 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     # the window write takes (history, lengths), not per-row write positions
     x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions, None,
                     lengths, "chunk", adapter_idx=adapter_idx,
-                    token_valid=offs < lengths[:, None], moe_workspace=moe_workspace)
+                    token_valid=offs < lengths[:, None], moe_workspace=moe_workspace,
+                    rope_positions=None if pos_delta is None else positions + pos_delta[:, None])
     last = (lengths.long() - 1).clamp(0, T - 1)
     x_last = x[torch.arange(B, device=x.device), last]
     return _logits(params, cfg, x_last), k_pages, v_pages
@@ -461,7 +545,7 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def forward_verify(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    history: torch.Tensor, lengths: torch.Tensor, k_pages, v_pages,
                    page_table: torch.Tensor, adapter_idx: Optional[torch.Tensor] = None,
-                   moe_workspace=None):
+                   moe_workspace=None, pos_delta: Optional[torch.Tensor] = None):
     """The speculative-decoding verify pass (the JAX ``forward_verify``):
     ``forward_chunk`` over a short candidate window, returning the logits
     at EVERY window position. tokens [B, T] (the committed token, then the
@@ -480,7 +564,8 @@ def forward_verify(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens)
     x = _run_layers(cfg, params, x, k_pages, v_pages, page_table, positions, None,
                     lengths, "chunk", adapter_idx=adapter_idx,
-                    token_valid=offs < lengths[:, None], moe_workspace=moe_workspace)
+                    token_valid=offs < lengths[:, None], moe_workspace=moe_workspace,
+                    rope_positions=None if pos_delta is None else positions + pos_delta[:, None])
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, style=cfg.norm_style)
     logits = _logits(params, cfg, x.reshape(B * T, -1), normed=True)
     return logits.reshape(B, T, -1), k_pages, v_pages

@@ -52,11 +52,16 @@ def _gather_pool(pool, page_table: torch.Tensor, B: int, S: int, d: int) -> torc
 
 def prefill_attention(q, k, v, lengths, *, scale: float,
                       sliding_window: Optional[int] = None,
-                      attn_softcap: Optional[float] = None) -> torch.Tensor:
+                      attn_softcap: Optional[float] = None,
+                      mm_groups: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal self-attention over a (padded) prompt chunk.
 
     q [B, T, n_q, d]; k, v [B, T, n_kv, d]; lengths [B] int32 (keys at or
-    beyond a row's length are masked). Returns [B, T, n_q, d]."""
+    beyond a row's length are masked). ``mm_groups`` [B, T] int32, each
+    position's image group (-1 for text): a key in the query's own group
+    is visible whatever the causal and window tests say (gemma-3's
+    bidirectional image blocks); the length mask still applies. Returns
+    [B, T, n_q, d]."""
     B, T, n_q, d = q.shape
     n_kv = k.shape[2]
     group = n_q // n_kv
@@ -68,7 +73,11 @@ def prefill_attention(q, k, v, lengths, *, scale: float,
     mask = k_pos <= q_pos
     if sliding_window is not None:
         mask = mask & (k_pos > q_pos - sliding_window)
-    mask = mask[None] & (k_pos[None] < lengths.long()[:, None, None])   # [B, T, T]
+    mask = mask[None].expand(B, T, T)
+    if mm_groups is not None:
+        g = mm_groups.long()
+        mask = mask | ((g[:, :, None] >= 0) & (g[:, :, None] == g[:, None, :]))
+    mask = mask & (k_pos[None] < lengths.long()[:, None, None])         # [B, T, T]
     probs = _softmax_masked(logits, mask[:, None, None])
     out = torch.einsum("bkgts,bskd->btkgd", probs, v.float())
     return out.reshape(B, T, n_q, d).to(q.dtype)
@@ -144,12 +153,17 @@ def chunk_attention(q, k_pages, v_pages, page_table, history, chunk_lengths, *,
 # ---------------------------------------------------------------------------
 
 def dispatch_prefill_attention(q, k, v, lengths, *, scale, sliding_window=None,
-                               attn_softcap=None):
+                               attn_softcap=None, mm_groups=None, group_spans=None):
+    """The prefill's attention: the flash kernel on a card, image groups
+    included (the JAX dispatcher sends ``mm_groups`` to XLA's plain path;
+    here the kernel takes them, with their ``group_spans``), the plain
+    version on the CPU."""
     from llms_on_kubernetes_tpu_torch.ops.flash_attention import flash_prefill_attention
 
     return flash_prefill_attention(q, k, v, lengths, scale=scale,
                                    sliding_window=sliding_window,
-                                   attn_softcap=attn_softcap)
+                                   attn_softcap=attn_softcap, mm_groups=mm_groups,
+                                   group_spans=group_spans)
 
 
 def dispatch_chunk_attention(q, k_pages, v_pages, page_table, history, chunk_lengths, *,

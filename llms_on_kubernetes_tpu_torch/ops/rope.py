@@ -1,6 +1,6 @@
 """Rotary position embeddings, HF "rotate_half" convention (counterpart of
-``llms_on_kubernetes_tpu/ops/rope.py``: ``rope_frequencies`` and
-``apply_rope``). Multimodal mrope waits for the vision slice."""
+``llms_on_kubernetes_tpu/ops/rope.py``: ``rope_frequencies``,
+``apply_rope`` and Qwen3-VL's interleaved ``apply_mrope``)."""
 
 from __future__ import annotations
 
@@ -50,5 +50,34 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
         x2 = x[..., half:].float()
         out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
         return out.to(x.dtype)
+
+    return rot(q), rot(k)
+
+
+def apply_mrope(q: torch.Tensor, k: torch.Tensor, pos3: torch.Tensor, inv_freq: torch.Tensor,
+                mrope_section: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """Interleaved multimodal rope (Qwen3-VL's text decoder): ``pos3``
+    [..., 3, T] the (temporal, height, width) position of each token, all
+    three equal for text, where this is exactly ``apply_rope``. The
+    frequency channels take the axes interleaved T, H, W, T, H, W, ... up to
+    3 * section[axis], then the temporal axis."""
+    angles3 = pos3[..., :, :, None].float() * inv_freq                # [..., 3, T, d/2]
+    half = inv_freq.shape[-1]
+    axis_sel = np.zeros((half,), np.int64)
+    for dim, offset in ((1, 1), (2, 2)):
+        idx = np.arange(offset, 3 * mrope_section[dim], 3)
+        axis_sel[idx[idx < half]] = dim
+    sel = torch.from_numpy(axis_sel).to(pos3.device)
+    angles = angles3[..., 0, :, :]
+    for dim in (1, 2):
+        angles = torch.where(sel == dim, angles3[..., dim, :, :], angles)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+
+    def rot(x: torch.Tensor) -> torch.Tensor:
+        half = x.shape[-1] // 2
+        x1 = x[..., :half].float()
+        x2 = x[..., half:].float()
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
     return rot(q), rot(k)

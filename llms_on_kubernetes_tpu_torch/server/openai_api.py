@@ -28,7 +28,14 @@ Endpoints, with the JAX server's shapes:
   (``engine/grammar.py``) is compiled on the request's own thread, off the
   engine thread, and cached; a ``GrammarError`` answers 400, and so does a
   forced tool choice with a JSON ``response_format``. ``suffix`` is
-  refused with 400, as by the JAX server.
+  refused with 400, as by the JAX server. Images (a vision model): chat
+  content parts ``image_url`` with a ``data:`` URL (base64) are decoded
+  and preprocessed on the request's thread (``engine/images.py``: PNG
+  only), rendered by the chat template as the model's begin-of-image
+  marker and spliced into a run of soft tokens (``splice_image_tokens``),
+  which ``usage.prompt_tokens`` counts. A remote URL, bytes the port does
+  not read (JPEG, GIF, WebP, 16-bit or interlaced PNG), an image on a
+  text model and a ``video_url`` part (not ported yet) answer 400.
 - Chip time (the goodput ledger, ``engine/ledger.py``): a response's
   ``usage.chip_ms`` holds the device milliseconds its requests were
   attributed by phase and ``X-LLMK-Chip-Ms`` their total (non-streaming);
@@ -534,10 +541,10 @@ class EngineLoop(threading.Thread):
     def submit(self, prompt, params, on_event, deadline: Optional[float] = None,
                request_id: Optional[str] = None, tenant: Optional[str] = None,
                priority: Optional[str] = None, handoff: bool = False,
-               adapter: Optional[str] = None):
+               adapter: Optional[str] = None, images=None):
         req = self.engine.submit(prompt, params, request_id=request_id, on_event=on_event,
                                  deadline=deadline, tenant=tenant, priority=priority,
-                                 handoff=handoff, adapter=adapter)
+                                 handoff=handoff, adapter=adapter, images=images)
         if self.metrics:
             self.metrics["requests_total"].inc()
             self.metrics["prompt_tokens"].inc(len(req.prompt))
@@ -1217,19 +1224,113 @@ class OpenAIServer:
         except (TypeError, ValueError) as e:
             raise BadRequest(f"bad sampling parameter: {e}")
 
-    def chat_prompt(self, body: dict) -> tuple[list[int], bool, Optional[tuple]]:
+    def extract_images(self, messages: list) -> tuple[list, list]:
+        """OpenAI content parts -> (template-ready messages, each image's
+        encoded bytes): each ``image_url`` part (a ``data:`` URL) becomes
+        ``{"type": "image"}``, which the chat template renders as the
+        model's begin-of-image marker (the JAX ``_extract_images``, without
+        its video branch). Nothing is decoded here: ``preprocess_images``
+        decodes once the images are counted. Raises BadRequest."""
+        import base64
+        import binascii
+
+        out, images = [], []
+        for m in messages:
+            if not isinstance(m, dict):
+                raise BadRequest("each message must be an object")
+            content = m.get("content", "")
+            if isinstance(content, (str, type(None))):
+                out.append(m)
+                continue
+            if not isinstance(content, list):
+                raise BadRequest("each message must be an object with string content")
+            parts = []
+            for part in content:
+                ptype = part.get("type") if isinstance(part, dict) else None
+                if ptype == "image_url":
+                    url = (part.get("image_url") or {}).get("url", "")
+                    if not isinstance(url, str) or not url.startswith("data:"):
+                        raise BadRequest("image_url must be a data: URL (base64); the server "
+                                         "does not fetch remote media")
+                    try:
+                        images.append(base64.b64decode(url.split(",", 1)[-1], validate=True))
+                    except binascii.Error as e:
+                        raise BadRequest(f"undecodable image_url data: {e}")
+                    parts.append({"type": "image"})
+                elif ptype == "video_url":
+                    raise BadRequest("video_url is not ported yet: this server takes images "
+                                     "(image_url) only")
+                else:
+                    parts.append(part)          # text, for the chat template
+            out.append({**m, "content": parts})
+        return out, images
+
+    def splice_image_tokens(self, ids: list[int], n_images: int) -> list[int]:
+        """Each begin-of-image marker -> [boi, soft * N, eoi], the run the
+        engine substitutes the tower's tokens at; soft tokens or an eoi
+        the template already put after the marker are consumed (Qwen's
+        template renders start, pad and end; gemma's the start alone). The
+        JAX ``_splice_image_tokens``."""
+        cfg = self.engine.model_config
+        t_img = cfg.vision.mm_tokens_per_image
+        out, found, i = [], 0, 0
+        while i < len(ids):
+            t = ids[i]
+            out.append(t)
+            i += 1
+            if t == cfg.boi_token_id:
+                found += 1
+                out += [cfg.image_token_id] * t_img
+                while i < len(ids) and ids[i] == cfg.image_token_id:
+                    i += 1
+                if i < len(ids) and ids[i] == cfg.eoi_token_id:
+                    i += 1
+                if cfg.eoi_token_id is not None:
+                    out.append(cfg.eoi_token_id)
+        if found != n_images:
+            raise BadRequest(f"chat template produced {found} image markers for "
+                             f"{n_images} images")
+        return out
+
+    def preprocess_images(self, images: list) -> list:
+        """Encoded images -> the tower's float32 pixels: each decoded
+        (``engine/images.py``, PNG) and at once resized and normalised as
+        the family wants, so one full-size image is held at a time.
+        Raises BadRequest for bytes the server cannot read."""
+        from llms_on_kubernetes_tpu_torch.engine.images import (
+            decode_png, preprocess_image, preprocess_image_qwen3vl,
+        )
+
+        vis = self.engine.model_config.vision
+        out = []
+        for raw in images:
+            try:
+                rgb = decode_png(raw)
+            except ValueError as e:
+                raise BadRequest(f"undecodable image_url data: {e}")
+            out.append(preprocess_image_qwen3vl(rgb, vis) if vis.family == "qwen3vl"
+                       else preprocess_image(rgb, vis.image_size))
+        return out
+
+    def chat_prompt(self, body: dict) -> tuple[list[int], bool, Optional[tuple], Optional[list]]:
         """A chat request's prompt, as the JAX server builds it: ``tools``
         and ``tool_choice`` validated, the tool instruction injected into
         the last user message for a "required" or named choice, the tools
-        rendered by the chat template. Returns (prompt ids, whether tool
-        calls are parsed from the output, the tool grammar (tools, forced
-        name or None) for a "required" or named choice, else None)."""
+        rendered by the chat template, image parts decoded and their
+        markers spliced into soft-token runs. Returns (prompt ids, whether
+        tool calls are parsed from the output, the tool grammar (tools,
+        forced name or None) for a "required" or named choice, else None,
+        the images' pixels or None)."""
         messages = body.get("messages")
         if not isinstance(messages, list) or not messages:
             raise BadRequest("messages must be a non-empty list")
-        if any(not isinstance(m, dict) or not isinstance(m.get("content", ""), (str, type(None)))
-               for m in messages):
-            raise BadRequest("each message must be an object with string content")
+        messages, images = self.extract_images(messages)
+        if images and self.engine.model_config.vision is None:
+            raise BadRequest(f"model {self.model_name!r} does not accept images")
+        cap = self.engine.config.max_images_per_request
+        if len(images) > cap:
+            raise BadRequest(f"{len(images)} images; this server takes at most {cap} per "
+                             f"request")
         tools = body.get("tools")
         try:
             if tools is not None:
@@ -1247,6 +1348,10 @@ class OpenAIServer:
                 ids = self.tokenizer.apply_chat_template(messages)
         except Exception as e:  # bad roles or content: the client's input
             raise BadRequest(f"bad messages: {e}")
+        pixels = None
+        if images:
+            ids = self.splice_image_tokens(list(ids), len(images))
+            pixels = self.preprocess_images(images)
         # a "required" or named choice is grammar-guaranteed; "auto" is
         # parsed only. A named function is told by the body's shape, so a
         # tool literally called "required" is not taken for the mode
@@ -1254,7 +1359,7 @@ class OpenAIServer:
         named = isinstance(body.get("tool_choice"), dict)
         if tool_mode is not None and (named or tool_mode == "required"):
             tool_grammar = (tools, tool_mode if named else None)
-        return list(ids), tool_mode is not None, tool_grammar
+        return list(ids), tool_mode is not None, tool_grammar, pixels
 
     def grammar_for_request(self, body: dict, tool_grammar):
         """The request's decoding constraint (an engine/grammar
@@ -1791,10 +1896,10 @@ class _Handler(BaseHTTPRequestHandler):
                         "deadline_exceeded")
             return
         raw_resume = self.headers.get(RESUME_TOKENS_HEADER)
-        tools_on, tool_grammar = False, None
+        tools_on, tool_grammar, pixels = False, None, None
         try:
             if chat:
-                prompt, tools_on, tool_grammar = app.chat_prompt(body)
+                prompt, tools_on, tool_grammar, pixels = app.chat_prompt(body)
                 prompts = [prompt]
             params = app.sampling_from_body(body, chat)
             if not chat:
@@ -1891,7 +1996,8 @@ class _Handler(BaseHTTPRequestHandler):
                     req = app.loop.submit(
                         prompt, p, lambda payload, idx=idx: events.put((idx, payload)),
                         deadline=deadline, request_id=eng_id, tenant=tenant,
-                        priority=priority, handoff=want_ticket, adapter=adapter)
+                        priority=priority, handoff=want_ticket, adapter=adapter,
+                        images=pixels)
                     req.trace = trace
                     trace.engine_reqs.append(req)
                     reqs.append(req)

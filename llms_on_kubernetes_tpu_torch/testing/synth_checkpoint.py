@@ -1,8 +1,10 @@
-"""Write a HuggingFace-format safetensors checkpoint of a text registry
-model (dense or MoE), at its full width, with cheap deterministic values.
+"""Write a HuggingFace-format safetensors checkpoint of a registry model
+(dense, MoE or multimodal), at its full width, with cheap deterministic
+values.
 
     python -m llms_on_kubernetes_tpu_torch.testing.synth_checkpoint phi-3-mini OUT_DIR \
-        [--fp8 | --awq] [--tokenizer llama3|phi3] [--layers N]
+        [--fp8 | --awq] [--tokenizer llama3|phi3|gemma3|qwen3vl] [--layers N] \
+        [--legacy-naming]
 
 Neither machine this repository runs on can download the published
 weights, so the card's run serves a checkpoint this module writes: the
@@ -42,6 +44,18 @@ norms; biases small). Billions of random draws would cost minutes and
 change nothing a load or a serve measures. ``tensor_value`` recomputes any
 tensor, so a reader can be held to exactly what was written.
 
+A multimodal config (``cfg.vision``) is written as its wrapper checkpoint:
+gemma-3's (``Gemma3ForConditionalGeneration``: ``text_config``,
+``vision_config``, the image token ids; the text model under
+``model.language_model.*``, the SigLIP tower under
+``model.vision_tower.vision_model.*`` and the projector under
+``model.multi_modal_projector.*``, or with ``naming="legacy"`` the older
+``language_model.model.*``, ``vision_tower.*`` and
+``multi_modal_projector.*``) or Qwen3-VL's (``qwen3_vl`` /
+``qwen3_vl_moe``: interleaved ``mrope_section`` in the text config's
+``rope_scaling``, the tower, merger and DeepStack mergers under
+``model.visual.*``). ``from_hf_config`` reads either back to the config.
+
 ``tokenizer="llama3"`` or ``"phi3"`` also writes ``tokenizer.json`` and
 ``tokenizer_config.json`` in that family's published format (see
 ``tokenizer_files``): a byte vocabulary and a few thousand merges that a
@@ -65,7 +79,9 @@ import zlib
 
 import numpy as np
 
-from llms_on_kubernetes_tpu_torch.configs import ModelConfig, get_config
+from llms_on_kubernetes_tpu_torch.configs import (
+    PUBLISHED_MM_CONFIGS, ModelConfig, from_hf_config, get_config,
+)
 
 PATTERN = 65536
 # checkpoint dtype -> (safetensors dtype, bytes an element)
@@ -73,9 +89,12 @@ DTYPES = {"bfloat16": ("BF16", 2), "float16": ("F16", 2), "float32": ("F32", 4)}
 
 
 def family(cfg: ModelConfig) -> str:
-    """The HF ``model_type`` a text config is written as."""
+    """The HF ``model_type`` a config is written as (a multimodal one: its
+    wrapper's)."""
     if cfg.vision is not None:
-        raise NotImplementedError(f"{cfg.name}: only text models are written")
+        if cfg.vision.family == "qwen3vl":
+            return "qwen3_vl_moe" if cfg.is_moe else "qwen3_vl"
+        return "gemma3"
     if cfg.is_moe:
         return "qwen3_moe" if cfg.qk_norm else "mixtral"
     if cfg.post_norms:
@@ -97,9 +116,60 @@ _ARCH = {"llama": "LlamaForCausalLM", "mistral": "MistralForCausalLM",
          "mixtral": "MixtralForCausalLM", "qwen3_moe": "Qwen3MoeForCausalLM"}
 
 
+def _text_family(cfg: ModelConfig) -> str:
+    """The family of a config's text model (its tensor layout)."""
+    return family(dataclasses.replace(cfg, vision=None))
+
+
+def _vision_hf_config(cfg: ModelConfig, dtype: str) -> dict:
+    """A multimodal config's wrapper ``config.json``."""
+    v = cfg.vision
+    text = hf_config(dataclasses.replace(cfg, vision=None), dtype)
+    fam = family(cfg)
+    if fam == "gemma3":
+        if text["model_type"] != "gemma3_text":
+            raise ValueError(f"{cfg.name}: a SigLIP tower is written beside a gemma-3 text "
+                             f"model, not {text['model_type']}")
+        return {"architectures": ["Gemma3ForConditionalGeneration"], "model_type": "gemma3",
+                "text_config": text, "torch_dtype": dtype,
+                "vision_config": {"model_type": "siglip_vision_model",
+                                  "hidden_size": v.hidden_size,
+                                  "intermediate_size": v.intermediate_size,
+                                  "num_hidden_layers": v.num_layers,
+                                  "num_attention_heads": v.num_heads,
+                                  "image_size": v.image_size, "patch_size": v.patch_size,
+                                  "num_channels": v.num_channels,
+                                  "layer_norm_eps": v.layer_norm_eps},
+                "mm_tokens_per_image": v.mm_tokens_per_image,
+                "image_token_index": cfg.image_token_id, "boi_token_index": cfg.boi_token_id,
+                "eoi_token_index": cfg.eoi_token_id}
+    text["model_type"] = fam + "_text"
+    text["rope_scaling"] = {"rope_type": "default", "mrope_section": list(cfg.mrope_section),
+                            "mrope_interleaved": True}
+    m = v.spatial_merge_size
+    return {"architectures": ["Qwen3VLMoeForConditionalGeneration" if cfg.is_moe
+                              else "Qwen3VLForConditionalGeneration"],
+            "model_type": fam, "text_config": text, "torch_dtype": dtype,
+            "vision_config": {"depth": v.num_layers, "hidden_size": v.hidden_size,
+                              "intermediate_size": v.intermediate_size,
+                              "num_heads": v.num_heads, "patch_size": v.patch_size,
+                              "spatial_merge_size": m,
+                              "temporal_patch_size": v.temporal_patch_size,
+                              "in_channels": v.num_channels,
+                              "out_hidden_size": v.out_hidden_size,
+                              "num_position_embeddings": v.num_grid_per_side ** 2,
+                              "deepstack_visual_indexes": list(v.deepstack_indexes),
+                              "image_size": v.image_size},
+            "image_token_id": cfg.image_token_id,
+            "vision_start_token_id": cfg.boi_token_id,
+            "vision_end_token_id": cfg.eoi_token_id}
+
+
 def hf_config(cfg: ModelConfig, dtype: str = "bfloat16") -> dict:
     """The family's ``config.json``: the fields ``from_hf_config`` reads,
     so that it gives back ``cfg`` (but for its name)."""
+    if cfg.vision is not None:
+        return _vision_hf_config(cfg, dtype)
     fam = family(cfg)
     hf = {
         "architectures": [_ARCH[fam]], "model_type": fam,
@@ -131,10 +201,80 @@ def hf_config(cfg: ModelConfig, dtype: str = "bfloat16") -> dict:
     return hf
 
 
-def tensor_specs(cfg: ModelConfig) -> list[tuple[str, tuple, str]]:
+def _vision_specs(cfg: ModelConfig, naming: str) -> list[tuple[str, tuple, str]]:
+    """The tower's tensors (and gemma-3's projector)."""
+    v = cfg.vision
+    D, I, C, P = v.hidden_size, v.intermediate_size, v.num_channels, v.patch_size
+    if v.family == "qwen3vl":
+        pre = "model.visual."
+        m2D = v.spatial_merge_size ** 2 * D
+        specs = [(pre + "patch_embed.proj.weight", (D, C, v.temporal_patch_size, P, P),
+                  "linear"),
+                 (pre + "patch_embed.proj.bias", (D,), "bias"),
+                 (pre + "pos_embed.weight", (v.num_grid_per_side ** 2, D), "bias")]
+        for i in range(v.num_layers):
+            b = pre + f"blocks.{i}."
+            specs += [(b + "norm1.weight", (D,), "ln"), (b + "norm1.bias", (D,), "bias"),
+                      (b + "attn.qkv.weight", (3 * D, D), "linear"),
+                      (b + "attn.qkv.bias", (3 * D,), "bias"),
+                      (b + "attn.proj.weight", (D, D), "linear"),
+                      (b + "attn.proj.bias", (D,), "bias"),
+                      (b + "norm2.weight", (D,), "ln"), (b + "norm2.bias", (D,), "bias"),
+                      (b + "mlp.linear_fc1.weight", (I, D), "linear"),
+                      (b + "mlp.linear_fc1.bias", (I,), "bias"),
+                      (b + "mlp.linear_fc2.weight", (D, I), "linear"),
+                      (b + "mlp.linear_fc2.bias", (D,), "bias")]
+        mergers = [("merger.", D)] + [(f"deepstack_merger_list.{i}.", m2D)
+                                      for i in range(len(v.deepstack_indexes))]
+        for name, norm_dim in mergers:
+            b = pre + name
+            specs += [(b + "norm.weight", (norm_dim,), "ln"), (b + "norm.bias", (norm_dim,), "bias"),
+                      (b + "linear_fc1.weight", (m2D, m2D), "linear"),
+                      (b + "linear_fc1.bias", (m2D,), "bias"),
+                      (b + "linear_fc2.weight", (v.out_hidden_size, m2D), "linear"),
+                      (b + "linear_fc2.bias", (v.out_hidden_size,), "bias")]
+        return specs
+    top = "model." if naming == "nested" else ""
+    pre = top + "vision_tower.vision_model."
+    specs = [(pre + "embeddings.patch_embedding.weight", (D, C, P, P), "linear"),
+             (pre + "embeddings.patch_embedding.bias", (D,), "bias"),
+             (pre + "embeddings.position_embedding.weight", (v.num_patches, D), "bias")]
+    for i in range(v.num_layers):
+        b = pre + f"encoder.layers.{i}."
+        specs += [(b + "layer_norm1.weight", (D,), "ln"), (b + "layer_norm1.bias", (D,), "bias")]
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            specs += [(b + f"self_attn.{proj}.weight", (D, D), "linear"),
+                      (b + f"self_attn.{proj}.bias", (D,), "bias")]
+        specs += [(b + "layer_norm2.weight", (D,), "ln"), (b + "layer_norm2.bias", (D,), "bias"),
+                  (b + "mlp.fc1.weight", (I, D), "linear"), (b + "mlp.fc1.bias", (I,), "bias"),
+                  (b + "mlp.fc2.weight", (D, I), "linear"), (b + "mlp.fc2.bias", (D,), "bias")]
+    specs += [(pre + "post_layernorm.weight", (D,), "ln"),
+              (pre + "post_layernorm.bias", (D,), "bias"),
+              (top + "multi_modal_projector.mm_soft_emb_norm.weight", (D,), "norm"),
+              (top + "multi_modal_projector.mm_input_projection_weight", (D, cfg.hidden_size),
+               "linear")]
+    return specs
+
+
+VISION_NAMINGS = ("nested", "legacy")
+
+
+def tensor_specs(cfg: ModelConfig, naming: str = "nested") -> list[tuple[str, tuple, str]]:
     """(HF name, HF shape, kind) of every tensor, in file order; kind is
-    "linear" (scaled by 1/sqrt of its last axis), "embed", "norm" or
-    "bias"."""
+    "linear" (scaled by 1/sqrt of its last axis), "embed", "norm" (the
+    text model's RMSNorm weights), "ln" (a LayerNorm weight, near 1) or
+    "bias". A multimodal config's text tensors are nested as its wrapper
+    nests them (``naming``: "nested", or gemma-3's "legacy"), and its
+    tower's follow."""
+    if cfg.vision is not None:
+        if naming not in VISION_NAMINGS:
+            raise ValueError(f"naming must be one of {VISION_NAMINGS}, got {naming!r}")
+        if naming == "legacy" and cfg.vision.family == "qwen3vl":
+            raise ValueError("Qwen3-VL checkpoints have one naming (model.visual.*)")
+        prefix = "model.language_model." if naming == "nested" else "language_model.model."
+        text = [(prefix + name[len("model."):] if name.startswith("model.") else name, shape, k)
+                for name, shape, k in tensor_specs(dataclasses.replace(cfg, vision=None))]
+        return text + _vision_specs(cfg, naming)
     fam = family(cfg)
     D, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -205,7 +345,9 @@ def _base(seed: int) -> np.ndarray:
 
 def _pattern(cfg: ModelConfig, name: str, shape: tuple, kind: str, base: np.ndarray):
     pat = np.roll(base, -(zlib.crc32(name.encode()) % PATTERN))
-    if kind == "norm":
+    if kind == "ln":
+        pat = 0.05 * pat + 1.0
+    elif kind == "norm":
         pat = 0.05 * pat + (0.0 if cfg.norm_style == "gemma" else 1.0)
     elif kind == "bias":
         pat = 0.02 * pat
@@ -319,7 +461,7 @@ def _header(entries: list[tuple[str, tuple, str, int]]) -> bytes:
 def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16", seed: int = 0,
                      max_shard_bytes: int = 4 << 30, quantization: str = None,
                      fp8_strategy: str = "channel", tokenizer: str = None,
-                     group_size: int = 128) -> dict:
+                     group_size: int = 128, naming: str = "nested") -> dict:
     """Write ``cfg`` as a HF checkpoint into ``out_dir`` (made if missing):
     ``config.json``, ``model-0000k-of-0000n.safetensors`` shards of at most
     ``max_shard_bytes`` (a tensor is never split) and
@@ -327,19 +469,21 @@ def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16",
     linears as fp8 with ``fp8_strategy`` scales (``fp8_value``);
     ``quantization="awq"``: as AWQ tensors in groups of ``group_size``
     input rows (``awq_value``).
-    ``tokenizer`` ("llama3" or "phi3"): also that family's tokenizer files
-    (``write_tokenizer``), whose ids must fit ``cfg.vocab_size``. Returns
-    the index."""
+    ``tokenizer`` (``TOKENIZER_FAMILIES``): also that family's tokenizer
+    files (``write_tokenizer``), whose ids must fit ``cfg.vocab_size``;
+    ``naming``: a multimodal checkpoint's tensor names (``tensor_specs``).
+    Returns the index."""
     if tokenizer is not None:
-        top = max((LLAMA3_SPECIAL if tokenizer == "llama3" else PHI3_SPECIAL))
+        top = max(special_tokens(tokenizer))
         if top >= cfg.vocab_size:
             raise ValueError(f"the {tokenizer} tokenizer's ids reach {top}, past "
                              f"{cfg.name}'s vocabulary of {cfg.vocab_size}")
         write_tokenizer(out_dir, tokenizer)
     if quantization not in (None, "fp8", "awq"):
         raise ValueError(f"quantization must be None, 'fp8' or 'awq', got {quantization!r}")
-    if quantization is not None and cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: quantized MoE checkpoints are not written")
+    if quantization is not None and (cfg.is_moe or cfg.vision is not None):
+        raise NotImplementedError(f"{cfg.name}: quantized MoE and multimodal checkpoints "
+                                  f"are not written")
     if fp8_strategy not in FP8_STRATEGIES:
         raise ValueError(f"fp8_strategy must be one of {FP8_STRATEGIES}, got {fp8_strategy!r}")
     st_dtype, elt = DTYPES[dtype]
@@ -347,7 +491,7 @@ def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16",
     # an fp8 checkpoint is its codes, then its scale; of an AWQ checkpoint
     # its qweight, qzeros and scales
     entries = []
-    for name, shape, kind in tensor_specs(cfg):
+    for name, shape, kind in tensor_specs(cfg, naming):
         if quantization == "awq" and _fp8_linear(name, kind):
             base_name = name[:-len("weight")]
             G = shape[1] // group_size
@@ -410,7 +554,7 @@ def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16",
 # llama-3 and phi-3 formats, over a vocabulary trained here
 # ---------------------------------------------------------------------------
 
-TOKENIZER_FAMILIES = ("llama3", "phi3")
+TOKENIZER_FAMILIES = ("llama3", "phi3", "gemma3", "qwen3vl")
 # the training text: the repository's SURVEY.md, pinned, so the files (and
 # TOKENIZER_PROBES) are the same on every machine
 CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "SURVEY.md")
@@ -433,6 +577,38 @@ PHI3_SPECIAL = {0: "<unk>", 1: "<s>", 2: "</s>", 32000: "<|endoftext|>",
                 32009: "<|placeholder6|>", 32010: "<|user|>"}
 # phi-3's chat-role tokens strip the whitespace after them
 PHI3_RSTRIP = {32001, 32006, 32007, 32010}
+# the multimodal families: llama-3's vocabulary and turn markers, plus each
+# model's image markers at its published ids (gemma-3-27b-it's begin and end
+# of image and its soft token; Qwen3-VL's vision start and end and image pad)
+GEMMA3_IMAGE_SPECIAL = {255999: "<start_of_image>", 256000: "<end_of_image>",
+                        262144: "<image_soft_token>"}
+QWEN3VL_IMAGE_SPECIAL = {151652: "<|vision_start|>", 151653: "<|vision_end|>",
+                         151655: "<|image_pad|>"}
+# what each family's chat template renders for an image part
+IMAGE_MARKUP = {"gemma3": "<start_of_image>",
+                "qwen3vl": "<|vision_start|><|image_pad|><|vision_end|>"}
+
+
+def special_tokens(family_name: str) -> dict:
+    """id -> text of a tokenizer family's special tokens."""
+    return {"llama3": LLAMA3_SPECIAL, "phi3": PHI3_SPECIAL,
+            "gemma3": {**LLAMA3_SPECIAL, **GEMMA3_IMAGE_SPECIAL},
+            "qwen3vl": {**LLAMA3_SPECIAL, **QWEN3VL_IMAGE_SPECIAL}}[family_name]
+
+
+def mm_chat_template(family_name: str) -> str:
+    """llama-3's chat template over content that may be a list of parts:
+    text parts as text, image parts as the family's image markers."""
+    return (
+        "{{ bos_token }}{% for message in messages %}"
+        "{{ '<|start_header_id|>' + message['role'] + '<|end_header_id|>\n\n' }}"
+        "{% if message['content'] is string %}{{ message['content'] | trim }}"
+        "{% else %}{% for part in message['content'] %}"
+        "{% if part['type'] == 'image' %}{{ '" + IMAGE_MARKUP[family_name] + "' }}"
+        "{% elif part['type'] == 'text' %}{{ part['text'] }}{% endif %}"
+        "{% endfor %}{% endif %}{{ '<|eot_id|>' }}{% endfor %}"
+        "{% if add_generation_prompt %}{{ '<|start_header_id|>assistant<|end_header_id|>\n\n' }}"
+        "{% endif %}")
 LLAMA3_CHAT_TEMPLATE = (
     "{% set loop_messages = messages %}{% for message in loop_messages %}"
     "{% set content = '<|start_header_id|>' + message['role'] + '<|end_header_id|>\n\n'"
@@ -591,6 +767,13 @@ def tokenizer_files(family_name: str) -> tuple[dict, dict]:
         BYTE_ENCODER, LLAMA3_SPLIT, _split_llama3,
     )
 
+    if family_name in ("gemma3", "qwen3vl"):
+        tok, cfg = tokenizer_files("llama3")
+        tok["added_tokens"] = _added(special_tokens(family_name))
+        cfg["chat_template"] = mm_chat_template(family_name)
+        cfg["added_tokens_decoder"] = {str(a["id"]): {k: v for k, v in a.items() if k != "id"}
+                                       for a in tok["added_tokens"]}
+        return tok, cfg
     text = _corpus()
     if family_name == "llama3":
         counts = collections.Counter(
@@ -688,7 +871,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(prog="python -m llms_on_kubernetes_tpu_torch.testing."
                                       "synth_checkpoint")
-    ap.add_argument("model", help="a text registry model (dense or MoE)")
+    ap.add_argument("model", help="a registry model (dense, MoE or multimodal), or the HF id "
+                                  "of a reference default model (configs.PUBLISHED_MM_CONFIGS)")
     ap.add_argument("out_dir")
     quant = ap.add_mutually_exclusive_group()
     quant.add_argument("--fp8", action="store_true", help="a compressed-tensors fp8 checkpoint")
@@ -698,13 +882,19 @@ def main(argv=None) -> int:
                     help="also write this family's tokenizer.json and tokenizer_config.json")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the model to this many layers (full width kept)")
+    ap.add_argument("--legacy-naming", action="store_true",
+                    help="gemma-3: the older language_model.model.* / vision_tower.* names")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     quantization = "fp8" if args.fp8 else "awq" if args.awq else None
-    cfg = get_config(args.model)
+    if args.model in PUBLISHED_MM_CONFIGS:      # a reference default model's config.json
+        cfg = from_hf_config(PUBLISHED_MM_CONFIGS[args.model], args.model)
+    else:
+        cfg = get_config(args.model)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     index = write_checkpoint(cfg, args.out_dir, quantization=quantization,
-                             tokenizer=args.tokenizer)
+                             tokenizer=args.tokenizer,
+                             naming="legacy" if args.legacy_naming else "nested")
     print(f"{args.out_dir}: {len(index['weight_map'])} tensors, "
           f"{index['metadata']['total_size']} bytes")
     return 0

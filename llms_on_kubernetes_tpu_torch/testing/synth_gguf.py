@@ -4,6 +4,9 @@ reads, and optionally an embedded SentencePiece vocabulary and chat
 template, so a ``.gguf`` can be served without downloading one.
 
     python -m llms_on_kubernetes_tpu_torch.testing.synth_gguf PRESET OUT.gguf [--seed N]
+        [--layers L]
+
+``--layers`` cuts a preset's depth (its widths stay the published ones).
 
 Presets, at their published widths (the models' HF ``config.json``):
 
@@ -295,8 +298,12 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("preset", choices=sorted(PRESETS))
     ap.add_argument("out")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None, help="the preset's own by default")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
-    n = write_model(args.out, PRESETS[args.preset], seed=args.seed)
+    spec = dict(PRESETS[args.preset])
+    if args.layers is not None:
+        spec["layers"] = args.layers
+    n = write_model(args.out, spec, seed=args.seed)
     print(f"{args.out}: {n} bytes")
     return 0
 

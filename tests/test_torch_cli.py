@@ -4,9 +4,9 @@
   both have: 2,048 pages of 64 tokens, 64 pages a slot and buckets
   256/1024/4096, so a replica rendered from a spec gets the JAX context
   length (4,096 tokens).
-- Every JAX ``serve`` option is the port's too, but for the vision and
-  parallelism ones the port does not have yet; the five that were
-  missing reach ``EngineConfig``.
+- Every JAX ``serve`` option is the port's too, but for the parallelism
+  ones the port does not have yet; the five that were missing, and
+  ``--max-images-per-request``, reach ``EngineConfig``.
 - The warm-up (JAX ``cli.py``: a 4-token prompt for 2 tokens) runs before
   ``/health`` answers, and ``--no-warmup`` skips it: a CPU server's
   ``/debug/kernels`` counts one prefill at its first ``/health``, or none.
@@ -28,9 +28,9 @@ from llms_on_kubernetes_tpu import cli as jcli
 from llms_on_kubernetes_tpu_torch import cli
 
 REPO = Path(__file__).resolve().parent.parent
-# JAX serve options the port does not have yet (ROADMAP queue 1 items 4-5)
+# JAX serve options the port does not have yet (ROADMAP queue 1 item 4)
 NOT_PORTED = {"--tensor-parallel-size", "--tp", "--expert-parallel-size", "--ep",
-              "--sequence-parallel-size", "--sp", "--max-images-per-request"}
+              "--sequence-parallel-size", "--sp"}
 
 
 def _serve_parsers():
@@ -64,6 +64,10 @@ def test_serve_options_cover_the_jax_ones():
     jopts = {o for a in jserve._actions for o in a.option_strings}
     topts = {o for a in tserve._actions for o in a.option_strings}
     assert jopts - NOT_PORTED <= topts, sorted(jopts - NOT_PORTED - topts)
+    cfg = cli.engine_config_from_args(cli.build_parser().parse_args(
+        ["serve", "--model", "debug-mm", "--random-weights", "--device", "cpu",
+         "--max-images-per-request", "2"]))
+    assert cfg.max_images_per_request == 2
 
 
 def test_ledger_and_anomaly_flags_reach_the_engine_config(monkeypatch):

@@ -2036,3 +2036,58 @@ def test_moe_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         moe.moe_experts(x, src, counts, wg2, wu2, wd2)
     got = moe.moe_experts(x, src, counts, wg, wu, wd)        # F 96: a partial column tile
     _close(got, moe.moe_experts_plain(x, src, counts, wg, wu, wd), torch.bfloat16)
+
+
+def _image_groups(T, runs):
+    g = torch.full((2, T), -1, dtype=torch.int32)
+    for b, row in enumerate(runs):
+        for i, (s, n) in enumerate(row):
+            g[b, s:s + n] = i
+    return g.cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("runs", [[[(5, 16)], [(70, 40)]],
+                                  [[(3, 20), (60, 64), (140, 16)], [(0, 64), (64, 64)]]])
+def test_flash_prefill_image_groups_match_plain(cuda, dtype, window, d, runs):
+    """Kernel 1 with gemma-3's image blocks: keys of the query's own image
+    are visible past the causal and window tests (runs that start before a
+    tile, end past one, sit back to back and fill whole tiles), both
+    bodies, against the plain mask; all-text groups give the bits of
+    mm_groups=None."""
+    T = 192
+    q, k, v = (_t(cuda, 2, T, h, d, dtype=dtype) for h in (8, 2, 2))
+    lengths = torch.tensor([180, 150], dtype=torch.int32, device="cuda")
+    groups = _image_groups(T, runs)
+    kw = dict(scale=d ** -0.5, sliding_window=window)
+    before = kernels.LAUNCHES["flash_prefill"]
+    out = fa.flash_prefill_attention(q, k, v, lengths, mm_groups=groups, **kw)
+    ref = fa.prefill_attention_plain(q, k, v, lengths, mm_groups=groups, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_prefill"] == before + 1
+    _close(out[0, :180], ref[0, :180], dtype)
+    _close(out[1, :150], ref[1, :150], dtype)
+    text = torch.full_like(groups, -1)
+    assert torch.equal(fa.flash_prefill_attention(q, k, v, lengths, mm_groups=text, **kw),
+                       fa.flash_prefill_attention(q, k, v, lengths, **kw))
+    # spans the caller computed once give the same bits
+    assert torch.equal(out, fa.flash_prefill_attention(
+        q, k, v, lengths, mm_groups=groups, group_spans=fa.mm_spans(groups), **kw))
+
+
+def test_flash_prefill_image_groups_refused_shapes(cuda):
+    q, k, v = (_t(cuda, 1, 64, h, 16, dtype=torch.bfloat16) for h in (4, 2, 2))
+    lengths = torch.tensor([64], dtype=torch.int32, device="cuda")
+    for bad in (torch.zeros((1, 32), dtype=torch.int32, device="cuda"),
+                torch.zeros((1, 64), dtype=torch.int64, device="cuda"),
+                torch.zeros((1, 64), dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            fa.flash_prefill_attention(q, k, v, lengths, scale=0.25, mm_groups=bad)
+    groups = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
+    lo, hi = fa.mm_spans(groups)
+    for spans in ((lo[:, :32], hi[:, :32]), (lo.long(), hi), (lo.cpu(), hi)):
+        with pytest.raises(ValueError):
+            fa.flash_prefill_attention(q, k, v, lengths, scale=0.25, mm_groups=groups,
+                                       group_spans=spans)

@@ -143,8 +143,9 @@ def test_init_params_shapes_match_jax():
 
 
 def test_init_params_rejects_unported_families():
-    """A vision tower is not ported: refused. MoE is (tests/test_torch_moe.py):
-    an MoE config now gets the expert stacks."""
+    """Vision towers and MoE are ported now (tests/test_torch_vision.py,
+    tests/test_torch_moe.py): a vision config gets its tower, an MoE
+    config the expert stacks."""
     import dataclasses
 
     from llms_on_kubernetes_tpu_torch.configs import VisionConfig
@@ -152,7 +153,8 @@ def test_init_params_rejects_unported_families():
     mm = dataclasses.replace(get_config("debug-tiny"), vision=VisionConfig(
         hidden_size=16, intermediate_size=32, num_layers=1, num_heads=2, image_size=16,
         patch_size=4))
-    with pytest.raises(NotImplementedError, match="vision"):
-        tdec.init_params(mm, device="cpu")
+    tower = tdec.init_params(mm, device="cpu")["vision"]
+    assert tuple(tower["patch_w"].shape) == (4, 4, 3, 16)
+    assert tuple(tower["mm_proj"].shape) == (16, 64)
     moe = dataclasses.replace(get_config("debug-tiny"), num_experts=4)
     assert tuple(tdec.init_params(moe, device="cpu")["layers"]["w_gate"].shape) == (2, 4, 64, 128)

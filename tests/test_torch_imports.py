@@ -1,11 +1,12 @@
 """The port stands apart from the JAX package and from the CPU.
 
 - Importing every module of ``llms_on_kubernetes_tpu_torch`` (and
-  ``chip_smoke.py``) imports no JAX, and neither ``transformers`` nor
-  ``tokenizers``. This runs in a subprocess: this test process has JAX
-  loaded by tests/conftest.py.
-- No source file of the port imports ``jax`` or the JAX package, and every
-  CUDA source under ``csrc/`` is one the port builds and binds.
+  ``chip_smoke.py``) imports no JAX, and neither ``transformers``,
+  ``tokenizers`` nor PIL (the card's machine has no PIL: the vision path
+  reads images with ``engine/images.py``). This runs in a subprocess: this
+  test process has JAX loaded by tests/conftest.py.
+- No source file of the port imports ``jax``, the JAX package or PIL, and
+  every CUDA source under ``csrc/`` is one the port builds and binds.
 - Without a GPU, every entry point that defaults to ``device="cuda"``
   raises instead of carrying on on the CPU.
 """
@@ -23,7 +24,8 @@ REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "llms_on_kubernetes_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = re.compile(
-    r"^\s*(?:from|import)\s+(?:jax\b|jaxlib\b|llms_on_kubernetes_tpu(?!_torch)\b)", re.M)
+    r"^\s*(?:from|import)\s+(?:jax\b|jaxlib\b|llms_on_kubernetes_tpu(?!_torch)\b|PIL\b)",
+    re.M)
 
 
 def test_import_everything_without_jax():
@@ -56,12 +58,17 @@ def test_import_everything_without_jax():
         "from llms_on_kubernetes_tpu_torch.server.runtime_telemetry import RuntimeTelemetry\n"
         "from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import (\n"
         "    TOKENIZER_PROBES, write_tokenizer)\n"
+        "from llms_on_kubernetes_tpu_torch.engine.images import decode_png, resize_bicubic\n"
+        "from llms_on_kubernetes_tpu_torch.models.vision import (\n"
+        "    encode_images, encode_images_qwen3vl, qwen_mrope_positions)\n"
+        "from llms_on_kubernetes_tpu_torch.models.decoder import forward_prefill_mm\n"
+        "from llms_on_kubernetes_tpu_torch.ops.rope import apply_mrope\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'llms_on_kubernetes_tpu'\n"
         "             or m.startswith('llms_on_kubernetes_tpu.'))\n"
         "assert not bad, bad\n"
-        "heavy = sorted(m for m in ('transformers', 'tokenizers') if m in sys.modules)\n"
+        "heavy = sorted(m for m in ('transformers', 'tokenizers', 'PIL') if m in sys.modules)\n"
         "assert not heavy, heavy\n"
         "assert len(mods) >= 15, mods\n"
         "print(len(mods))\n")
@@ -80,7 +87,8 @@ def test_the_framework_free_copies_are_scanned():
             PKG / "server" / "tracing.py", PKG / "faults.py", PKG / "server" / "tools.py",
             PKG / "engine" / "ledger.py", PKG / "engine" / "grammar.py",
             PKG / "server" / "profiling.py",
-            PKG / "server" / "runtime_telemetry.py"} <= set(SOURCES)
+            PKG / "server" / "runtime_telemetry.py", PKG / "engine" / "images.py",
+            PKG / "models" / "vision.py"} <= set(SOURCES)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
@@ -132,7 +140,7 @@ def test_ctypes_signatures_match_the_c_entries():
 def test_forbidden_pattern_catches_what_it_should():
     for bad in ("import jax", "from jax import numpy", "import jax.numpy as jnp",
                 "from llms_on_kubernetes_tpu.ops import attention",
-                "    import llms_on_kubernetes_tpu"):
+                "    import llms_on_kubernetes_tpu", "from PIL import Image", "import PIL"):
         assert FORBIDDEN.search(bad), bad
     for ok in ("from llms_on_kubernetes_tpu_torch import kernels",
                "import llms_on_kubernetes_tpu_torch.ops", "import jaxtyping"):

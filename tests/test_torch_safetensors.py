@@ -198,13 +198,19 @@ def test_writer_names_phi3_fused_and_gemma_norms():
         assert f"model.layers.41.{norm}.weight" in gemma
     assert "lm_head.weight" not in gemma         # tied
     # MoE configs are written in Mixtral's naming (Qwen3-MoE's with q/k
-    # norms: tests/test_torch_moe.py); a vision tower is not written
+    # norms: tests/test_torch_moe.py); a vision config as its wrapper, the
+    # SigLIP tower nested under model.vision_tower (both namings:
+    # tests/test_torch_multimodal.py)
     import dataclasses
 
     from llms_on_kubernetes_tpu_torch.configs import VisionConfig
 
     assert sc.family(dataclasses.replace(get_config("debug-tiny"), num_experts=4)) == "mixtral"
-    with pytest.raises(NotImplementedError):
-        sc.family(dataclasses.replace(get_config("debug-tiny"), vision=VisionConfig(
-            hidden_size=16, intermediate_size=32, num_layers=1, num_heads=2, image_size=16,
-            patch_size=4)))
+    mm = dataclasses.replace(get_config("debug-gemma"), vision=VisionConfig(
+        hidden_size=16, intermediate_size=32, num_layers=1, num_heads=2, image_size=16,
+        patch_size=4))
+    assert sc.family(mm) == "gemma3"
+    names = [n for n, _, _ in sc.tensor_specs(mm)]
+    assert "model.language_model.layers.3.post_feedforward_layernorm.weight" in names
+    assert "model.vision_tower.vision_model.encoder.layers.0.mlp.fc2.weight" in names
+    assert "model.multi_modal_projector.mm_input_projection_weight" in names
