@@ -14,12 +14,13 @@ Phases, each fatal on failure:
    HMMA/HGMMA (tensor-core) instructions in the SASS of the bf16 flash
    prefill body, of the two bf16 W8A16 bodies, w8_matmul_decode and
    w8_matmul_prefill, and the HGMMA of the two bf16 W4A16 bodies,
-   w4_matmul_decode and w4_matmul_prefill, and of the MoE expert kernel's
-   moe_stream (``cuobjdump -sass``), and fail if any has none, or if the
-   expert kernel's ptxas report (read back from beside its library where
-   it was built before) is missing, serializes its wgmma (C7520) or shows
-   a spill store or load. Three timing variants nothing else calls are built beside
-   them: the W8A16 kernel before its K split
+   w4_matmul_decode and w4_matmul_prefill, and of the MoE expert kernels'
+   moe_stream (bf16 and int8 weights; ``cuobjdump -sass``), and fail if
+   any has none, or if either expert kernel's ptxas report (read back from
+   beside its library where it was built before) is missing, serializes
+   its wgmma (C7520) or shows a spill store or load. Three timing variants
+   nothing else calls are built after them, while phases 1 and 2 run, and
+   loaded where they are first timed: the W8A16 kernel before its K split
    (``scripts/w8_matmul_unsplit.cu``), the W4A16 kernel and the MoE expert
    kernel before their Hopper redesigns (``scripts/w4_matmul_simple.cu``,
    ``scripts/moe_experts_simple.cu``);
@@ -344,14 +345,20 @@ Phases, each fatal on failure:
    timed in turns (kernel, the earlier mma.sync body from
    ``scripts/moe_experts_simple.cu``, the same function through
    ``torch._grouped_mm``, kernel) beside the plain version and the bound
-   of the experts touched; kernels 1 and 2 at the
+   of the experts touched; the int8 expert kernel
+   (``csrc/moe_experts_w8.cu``) against ``moe_experts_plain`` on the same
+   QTensor stacks at the same shapes, rows alone bit-equal to them, timed
+   in turns with the bf16 kernel and ``torch._grouped_mm`` on bf16 stacks
+   of the shape beside the bound of the int8 bytes touched, and its
+   refusals; kernels 1 and 2 at the
    model's group of 8 (32 query on 4 KV heads) against their plain
    versions, timed. B: Qwen3-VL-30B-A3B (its published config.json: the
    qwen3-30b-a3b backbone's widths, rope theta 5e6, interleaved mrope, the
-   27-layer tower) at full width and all 48 layers from
+   27-layer tower) at full width, cut to 24 of its 48 layers for the
+   run's time, from
    ``init_params`` on the card behind the default Engine (the card's free
    memory before and what the process holds after the load): 8 greedy
-   streams of 64, every window a graph replay, the expert kernel 2 x 48
+   streams of 64, every window a graph replay, the expert kernel 2 x 24
    times a forward (decode launches all by replays), decode tok/s and
    window device ms, then steady windows' device time split between the
    experts, attention and the rest under torch.profiler, the rest by kind
@@ -361,11 +368,27 @@ Phases, each fatal on failure:
    streams, the same launch checks, the two decode-window series of
    ``/metrics``, then a 4,000-token prompt's TTFT (bucket 4,096), twice;
    ``/health`` seconds with the warm-up, then with ``--no-warmup``. D:
-   qwen3-30b-a3b cut to 2 layers at full width, written as a Qwen3-MoE
-   checkpoint (3.7 GB) by ``synth_checkpoint`` while A runs, loaded in
-   process (layer 0's router and expert 5 held to the file) and served from
-   its directory: the server's 16 greedy ids equal the in-process engine's,
-   its logprobs within the bf16 tolerance.
+   qwen3-30b-a3b cut to 2 layers at full width, written as a bf16, an fp8
+   and an AWQ Qwen3-MoE checkpoint (3.74, 2.50 and 1.89 GB, routers in
+   bf16) by ``synth_checkpoint`` while phase 8 and A to C run, each loaded
+   in process (layer 0's router held to the file; expert 5 to the file,
+   bit for bit in bf16, and for fp8 and AWQ its int8 bytes and scales to
+   the file's tensors dequantized and quantized as the JAX loader does)
+   and served from its directory: the server's 16 greedy ids equal the
+   in-process engine's, its logprobs within the bf16 tolerance; the bf16
+   checkpoint through the bf16 expert kernel, the fp8 and AWQ ones through
+   the int8 expert and W8A16 kernels, never the other expert kernel. E: Mixtral-8x7B
+   (46.70 B parameters) with int8 weights drawn by ``init_params(quantize=
+   True)`` at full width and depth behind the Engine with serve's pool and
+   buckets: the card's free memory and what the model and the engine hold,
+   8 greedy streams of 64, every window a graph replay, the int8 expert
+   kernel 2 x 32 and W8A16 4 x 32 times a forward (decode launches all by
+   replays), decode tok/s and window device ms, the steady windows' split
+   (experts beside their byte floor, attention, the rest), a 4,000-token
+   prompt's TTFT, twice. F: ``serve --model mixtral-8x7b --random-weights
+   --quantization int8`` behind ``llkt-router``: C's drive (a chat through
+   the router, 8 streams, the launch checks, /metrics, the long prompt's
+   TTFT).
 10. vision (``phase_vision``): A, kernel 1 with ``mm_groups`` (gemma-3's
    image blocks) at gemma-3-27b's attention (32 query on 16 KV heads, d
    128, bf16): bucket 1,024 with one image of 256 soft tokens and 4,096
@@ -393,9 +416,13 @@ Phases, each fatal on failure:
    its engine): Qwen3-VL with images of two aspect ratios (two grids):
    the tower ms, the TTFT split, 8 streams with 4 images. D: both models
    cut to 2 layers at full width, written with their tokenizers by
-   ``synth_checkpoint`` while A and B run, each served by ``serve
+   ``synth_checkpoint`` while phase 9 and A and B run, pre-quantized as the
+   reference deploys them (gemma-3 fp8, Qwen3-VL AWQ; towers and routers in
+   bf16) and Qwen3-VL in bf16 too, each served by ``serve
    --max-images-per-request 1`` behind ``llkt-router``: the streamed image
-   chat and its usage, the three 400s and a fourth for two images.
+   chat and its usage, the three 400s and a fourth for two images; W8A16
+   launched for the pre-quantized ones; Qwen3-VL's experts through the
+   int8 expert kernel (AWQ) or the bf16 one (bf16), never the other.
 
 ``--profile`` stops after phase 2 and traces, under torch.profiler, one
 decode window of eight requests as the engine runs it (one CUDA graph
@@ -416,7 +443,8 @@ gives them; before it, one ``{"kernels": [...]}`` JSON line, whose
 W8A16 kernel), and ``launches_by_path`` from every path (phase 3's request
 surface and phase 4b's tier sessions, prefill and decode replicas and
 drills among them, phase 7's verify and draft paths and GGUF servers); the
-expert kernel's ``launches`` come from phase 9 C's server; flash
+expert kernel's ``launches`` come from phase 9 C's server, the int8
+expert kernel's from phase 9 F's; flash
 prefill's ``launches_by_path`` hold the multimodal paths of phase 10.
 The last line is ``{"ok": true, "device": {...}}``, printed only when
 every phase passed.
@@ -434,6 +462,7 @@ engine/cache.quantize_kv does).
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -1435,6 +1464,14 @@ def start_variant_build(source: str = W8_VARIANT):
     cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(path), source]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True), path, source
+
+
+def stop_variant_builds(builds: dict) -> None:
+    """Stop every variant build still running (a run that ended early)."""
+    for proc, _path, _source in builds.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 def finish_variant_build(proc_path) -> dict:
@@ -6317,6 +6354,9 @@ def phase_spec_gguf(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 AWQ_MODEL = "qwen3-8b"
+# the checkpoint cut to half its 36 layers for the run's time (every path
+# of the full-depth run but the layer count)
+AWQ_LAYERS = 18
 AWQ_DIR = os.path.join(OUT_DIR, "qwen3-8b-awq")
 ADAPTER_DIR = os.path.join(OUT_DIR, "adapters")
 AWQ_PATH = f"{AWQ_MODEL} AWQ serve"
@@ -6326,10 +6366,11 @@ AWQ_PREFIX = 256             # B: the prompt prefix a base and an adapter reques
 
 
 def start_awq_write():
-    """Write the Qwen3-8B AWQ checkpoint (``synth_checkpoint --awq``) in a
+    """Write the Qwen3-8B AWQ checkpoint at full width and AWQ_LAYERS layers
+    (``synth_checkpoint --awq``) in a
     process of its own, started early so it overlaps earlier phases."""
     cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch.testing.synth_checkpoint",
-           AWQ_MODEL, AWQ_DIR, "--awq"]
+           AWQ_MODEL, AWQ_DIR, "--awq", "--layers", str(AWQ_LAYERS)]
     return (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             time.perf_counter())
 
@@ -6724,10 +6765,25 @@ MOE_MAIN = 64
 MOE_NEW = 64                 # greedy tokens a phase-9 stream generates
 MOE_LONG = 4000              # C: a long prompt's tokens (bucket 4,096)
 MOE_CKPT_LAYERS = 2
-MOE_DIR = os.path.join(OUT_DIR, "qwen3-30b-a3b-2l")
+# D: the 2-layer checkpoints: bf16 as Qwen3-30B-A3B is published, and each
+# pre-quantized format of a published Qwen3-MoE checkpoint (Qwen3-30B-A3B-FP8's
+# compressed-tensors fp8, an AWQ one), served int8 as the JAX loader serves them
+MOE_CKPT_QUANTS = ("bf16", "fp8", "awq")
+MOE_DIRS = {q: os.path.join(OUT_DIR, f"qwen3-30b-a3b-2l-{q}") for q in MOE_CKPT_QUANTS}
 MOE_PATH = f"{MOE_MODEL} serve behind llkt-router"
-MOE_INPROC_PATH = f"qwen3-vl-30b-a3b ({MOE_MODEL} backbone) text streams in process"
-MOE_CKPT_PATH = f"{MOE_MODEL} {MOE_CKPT_LAYERS} layers checkpoint serve"
+# B (and phase 10 C on its engine) at half depth, cut for the run's time:
+# every path of a full-depth build but the layer count
+MOE_INPROC_LAYERS = 24
+MOE_INPROC_PATH = (f"qwen3-vl-30b-a3b ({MOE_MODEL} backbone, {MOE_INPROC_LAYERS} of 48 layers) "
+                   f"text streams in process")
+MOE_CKPT_PATHS = {q: f"{MOE_MODEL} {MOE_CKPT_LAYERS} layers "
+                     f"{'' if q == 'bf16' else q + ' '}checkpoint serve" for q in MOE_CKPT_QUANTS}
+# E, F: Mixtral-8x7B with int8 weights (46.70 B parameters, 93.4 GB in bf16:
+# only int8 fits one card) in process and through serve behind llkt-router,
+# with serve's pool and buckets
+MIXTRAL_INPROC_PATH = "mixtral-8x7b int8 weights in process"
+MIXTRAL_PATH = "mixtral-8x7b int8 weights serve behind llkt-router"
+MIXTRAL_SERVE = ["--model", "mixtral-8x7b", "--random-weights", "--quantization", "int8"]
 
 
 def moe_weights(torch, cfg, seed: int = 16):
@@ -6916,6 +6972,117 @@ def moe_kernel_checks(torch, timer, simple) -> dict:
                       else f"none: {lib_note}"))
 
 
+def moe_w8_work(cfg, x, counts, R: int) -> tuple[float, float, int]:
+    """FLOPs and bytes the routed expert FFN on int8 stacks needs for these
+    rows: ``moe_work``'s, with each touched expert's three matrices at one
+    byte a weight plus their f32 column scales (2F + D a expert)."""
+    D, Fd, E = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    touched = int((counts > 0).sum())
+    rows = int(counts.sum())
+    flops = 6.0 * rows * D * Fd
+    nbytes = (x.numel() * 2 + 4 * R + 4 * E + touched * (3 * D * Fd + 4 * (2 * Fd + D))
+              + rows * D * 2)
+    return flops, nbytes, touched
+
+
+def moe_w8_stacks(wg, wu, wd):
+    """int8 QTensor stacks of bf16 [E, D, F] / [E, F, D] stacks, quantized
+    per (expert, output column) as JAX ``quantize_params`` quantizes them."""
+    from llms_on_kubernetes_tpu_torch.ops.quant import quantize
+
+    return tuple(quantize(w, (1,)) for w in (wg, wu, wd))
+
+
+def moe_w8_kernel_checks(torch, timer) -> dict:
+    """A, int8: the int8 expert kernel against ``moe_experts_plain`` on the
+    same QTensor stacks at every R of MOE_ROWS (qwen3-30b-a3b) and
+    MOE_MIXTRAL_ROWS (mixtral-8x7b), the bf16 row tolerance; three rows of
+    each alone bit-equal to them among R rows (a row alone runs on 8-row
+    tiles); refusals of mixed stacks and float32 x; timed in turns
+    (kernel, the bf16 expert kernel and ``torch._grouped_mm`` on bf16
+    stacks of the same shape, kernel) beside the plain version and the
+    bound of the int8 bytes of the experts touched."""
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    say("kernel moe_experts_w8 (the port's own: the routed expert FFN on int8 expert stacks, "
+        "which JAX ops/moe.py::moe_block runs as qeinsum, left to XLA)")
+    err, timings, lib_note = 0.0, {}, None
+    for model, rows_list in ((MOE_MODEL, MOE_ROWS), (MOE_MIXTRAL, MOE_MIXTRAL_ROWS)):
+        cfg = get_config(model)
+        E, D, Fd, k = (cfg.num_experts, cfg.hidden_size, cfg.intermediate_size,
+                       cfg.num_experts_per_tok)
+        torch.cuda.empty_cache()
+        router, wg, wu, wd, gen = moe_weights(torch, cfg, seed=18)
+        qg, qu, qd = moe_w8_stacks(wg, wu, wd)
+        for R in rows_list:
+            x, src, counts = moe_inputs(torch, cfg, router, gen, R)
+            tiles = f"{moe.moe_rows(R, x.shape[0], E)}-row tiles"
+            got = moe.moe_experts(x, src, counts, qg, qu, qd)
+            want = moe.moe_experts_plain(x, src, counts, qg, qu, qd)
+            rows = int(counts.sum())
+            err = max(err, check_close(f"int8 {model} R{R} ({tiles})", got[:rows], want[:rows],
+                                       "bfloat16"))
+            expert_of = torch.repeat_interleave(torch.arange(E, device="cuda"), counts.long())
+            for r in sorted({0, rows // 3, rows - 1}):
+                one = torch.zeros((E,), dtype=torch.int32, device="cuda")
+                one[expert_of[r]] = 1
+                alone = moe.moe_experts(x, src[r:r + 1], one, qg, qu, qd)
+                if not torch.equal(alone[0], got[r]):
+                    fail(f"moe_experts_w8: {model} row {r} alone differs from row {r} of {R} "
+                         f"rows (batch invariance)")
+            flops, nbytes, touched = moe_w8_work(cfg, x, counts, R)
+            b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+            lib_fn, why = moe_library(torch, x, src, counts, wg, wu, wd)
+            lib_note = lib_note or why
+            reps = 30 if R <= 512 else 10
+            t1 = timer(lambda: moe.moe_experts(x, src, counts, qg, qu, qd), reps=reps)
+            bf16 = timer(lambda: moe.moe_experts(x, src, counts, wg, wu, wd), reps=reps)
+            lib = timer(lib_fn, reps=reps) if lib_fn is not None else None
+            t2 = timer(lambda: moe.moe_experts(x, src, counts, qg, qu, qd), reps=reps)
+            plain = timer(lambda: moe.moe_experts_plain(x, src, counts, qg, qu, qd), reps=3)
+            key = (f"{'' if model == MOE_MODEL else model + ' '}R{R} ({max(1, R // k)} tokens x "
+                   f"top-{k}) D{D} F{Fd} E{E} int8 weights")
+            timings[key] = dict(ms=(t1 + t2) / 2, bf16_kernel_ms=bf16, plain_ms=plain,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                                experts_touched=touched, tiles=tiles)
+            say(f"  timing moe_experts_w8 {key}: ms={t1:.4f},{t2:.4f} bf16_kernel_ms={bf16:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}, {touched} experts touched) library_ms="
+                f"{'none' if lib is None else f'{lib:.4f}'} plain_ms={plain:.4f} [{tiles}]")
+            del got, want
+        del router, wg, wu, wd, qg, qu, qd
+    say(f"  batch invariance: rows alone equal them among {MOE_ROWS} rows ({MOE_MODEL}) and "
+        f"{MOE_MIXTRAL_ROWS} ({MOE_MIXTRAL}), bit for bit")
+    if lib_note:
+        say(f"  library_ms none: {lib_note}")
+    cfg = get_config("debug-moe")
+    router, wg, wu, wd, gen = moe_weights(torch, cfg)
+    qg, qu, qd = moe_w8_stacks(wg, wu, wd)
+    x, src, counts = moe_inputs(torch, cfg, router, gen, 8)
+    for what, call in (("float32 x", lambda: moe.moe_experts(x.float(), src, counts, qg, qu, qd)),
+                       ("an int8 gate stack beside bf16 ones",
+                        lambda: moe.moe_experts(x, src, counts, qg, wu, wd))):
+        try:
+            call()
+        except ValueError as e:
+            say(f"  refuses {what}: {e}")
+        else:
+            fail(f"moe_experts_w8 took {what}")
+    main_key = next(k for k in timings if k.startswith(f"R{MOE_MAIN} "))
+    return dict(
+        name="moe_experts_w8", route="cuda",
+        source="llms_on_kubernetes_tpu_torch/csrc/moe_experts_w8.cu",
+        replaces=("none: llms_on_kubernetes_tpu/ops/moe.py:81-82 moe_block's qeinsum on int8 "
+                  "expert stacks, left to XLA"),
+        max_abs_err=err, **timings[main_key], shape=main_key,
+        other_shapes={k: v for k, v in timings.items() if k != main_key},
+        bf16_note=("bf16_kernel_ms: the bf16 expert kernel (csrc/moe_experts.cu) on bf16 stacks "
+                   "of the same shape, in turns in this run"),
+        library_note=("no one PyTorch call computes the int8 product with its scales: the "
+                      "gather, torch._grouped_mm x 3 and the SiLU product on bf16 stacks of the "
+                      "same shape" if lib_note is None else f"none: {lib_note}"))
+
+
 def moe_attention_checks(torch, rng, timer) -> tuple[dict, dict]:
     """Kernels 1 and 2 at qwen3-30b-a3b's attention: 32 query heads on 4 KV
     heads (group 8, the decode kernel's largest), d 128. Flash prefill at
@@ -6973,23 +7140,29 @@ def moe_attention_checks(torch, rng, timer) -> tuple[dict, dict]:
 
 
 def check_moe_path(tag: str, launches: dict, replayed: dict, num_layers: int, prefills: int,
-                   chunks: int, decode_forwards: int, replays: int, steps: int) -> None:
-    """Every window a graph replay; the expert kernel twice a layer a
-    forward, its decode launches all by replays; flash prefill once a layer
-    a prefill call, the decode kernel once a layer a decode step."""
+                   chunks: int, decode_forwards: int, replays: int, steps: int,
+                   kernel: str = "moe_experts") -> None:
+    """Every window a graph replay; the expert kernel (``kernel``: the bf16
+    one, or ``moe_experts_w8`` for int8 stacks, the other never) twice a
+    layer a forward, its decode launches all by replays; flash prefill once
+    a layer a prefill call, the decode kernel once a layer a decode step;
+    with int8 weights the W8A16 kernel four times a layer a forward (wq,
+    wk, wv, wo; an MoE layer's MLP is the expert kernel's)."""
     if replays < 1 or replays * steps != decode_forwards:
         fail(f"{tag}: {replays} replays x {steps} != {decode_forwards} decode forwards: a "
              f"window ran outside the graph")
     forwards = prefills + chunks + decode_forwards
-    want = {"moe_experts": 2 * num_layers * forwards, "flash_prefill": num_layers * prefills,
-            "paged_decode": num_layers * decode_forwards}
+    other = "moe_experts" if kernel == "moe_experts_w8" else "moe_experts_w8"
+    want = {kernel: 2 * num_layers * forwards, other: 0,
+            "flash_prefill": num_layers * prefills, "paged_decode": num_layers * decode_forwards,
+            "w8_matmul": 4 * num_layers * forwards if kernel == "moe_experts_w8" else 0}
     for name, n in want.items():
         if launches.get(name, 0) != n:
             fail(f"{tag}: {name} launched {launches.get(name, 0)} times, expected {n} "
                  f"({prefills} prefill, {chunks} chunk, {decode_forwards} decode forwards of "
                  f"{num_layers} layers)")
-    if replayed.get("moe_experts", 0) != 2 * num_layers * decode_forwards:
-        fail(f"{tag}: moe_experts launches by replays {replayed.get('moe_experts', 0)} != "
+    if replayed.get(kernel, 0) != 2 * num_layers * decode_forwards:
+        fail(f"{tag}: {kernel} launches by replays {replayed.get(kernel, 0)} != "
              f"2 x {num_layers} x {decode_forwards} decode forwards")
 
 
@@ -7068,18 +7241,18 @@ def rest_kind(name: str) -> str:
 def moe_in_process(torch) -> dict:
     """B: Qwen3-VL-30B-A3B (its text backbone is qwen3-30b-a3b's widths;
     the published config.json, rope theta 5e6 and interleaved mrope) at
-    full width and depth from ``init_params`` on the card behind the
-    default Engine: the card's free memory before the load and what the
-    model and engine hold; 8 concurrent greedy text streams of MOE_NEW
-    tokens, every window a graph replay (device ms each by CUDA events),
-    the expert kernel 2 x 48 times a forward; then the device time of
+    full width and MOE_INPROC_LAYERS of its 48 layers from ``init_params``
+    on the card behind the default Engine: the card's free memory before
+    the load and what the model and engine hold; 8 concurrent greedy text
+    streams of MOE_NEW tokens, every window a graph replay (device ms each
+    by CUDA events), the expert kernel 2 x L times a forward; then the device time of
     steady windows split between the experts, attention and the rest
     (torch.profiler); then phase 10 C's image requests on the same engine."""
     from llms_on_kubernetes_tpu_torch import kernels
     from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig
     from llms_on_kubernetes_tpu_torch.models.decoder import init_params
 
-    cfg = vl_config(QWEN_VL)
+    cfg = dataclasses.replace(vl_config(QWEN_VL), num_layers=MOE_INPROC_LAYERS)
     free_card(torch, "before the MoE model")
     free0 = torch.cuda.mem_get_info()[0]
     t0 = time.perf_counter()
@@ -7125,28 +7298,30 @@ def moe_in_process(torch) -> dict:
             "vision": vision}
 
 
-def _drive_moe_router(cfg):
-    """C: behind ``llkt-router``: a streamed chat completion through the
-    router, then 8 concurrent greedy journaled streams to the replica;
-    every window a graph replay, the expert kernel 2 x 48 a forward; the
-    two decode-window series of /metrics read."""
+def _drive_moe_router(cfg, model: str = MOE_MODEL, tag: str = MOE_PATH,
+                      kernel: str = "moe_experts"):
+    """C (F: Mixtral-8x7B's int8 replica): behind ``llkt-router``: a
+    streamed chat completion through the router, then 8 concurrent greedy
+    journaled streams to the replica; every window a graph replay, the
+    expert kernel (``kernel``) 2 x L a forward; the two decode-window series
+    of /metrics read; a 4,000-token prompt's TTFT."""
 
     def drive(base: str, _proc) -> dict:
         router_proc, router = start_router(
-            ["--models", f"{MOE_MODEL}={base}", "--probe-interval", "0.5"],
-            "chip_smoke_moe_router.log", [base])
+            ["--models", f"{model}={base}", "--probe-interval", "0.5"],
+            f"chip_smoke_moe_router_{model}.log", [base])
         try:
             http("POST", base + "/debug/kernels/reset")
             k0 = kernel_counts(base)
             chat = chat_stream(router, {
-                "model": MOE_MODEL, "messages": [{"role": "user", "content": SERVE_TEXT[:60]}],
+                "model": model, "messages": [{"role": "user", "content": SERVE_TEXT[:60]}],
                 "max_tokens": 24, "temperature": 0})
             if chat["choices"][0]["finish_reason"] not in ("length", "stop"):
-                fail(f"{MOE_PATH}: the chat through the router ended {chat['choices'][0]}")
+                fail(f"{tag}: the chat through the router ended {chat['choices'][0]}")
             out: dict = {}
 
             def one(i):
-                out[i] = journaled_stream(base, {"model": MOE_MODEL,
+                out[i] = journaled_stream(base, {"model": model,
                                                  "prompt": SERVE_TEXT[i:i + 40],
                                                  "max_tokens": MOE_NEW, "temperature": 0,
                                                  "stream": True})
@@ -7157,43 +7332,44 @@ def _drive_moe_router(cfg):
             for t in ths:
                 t.join(timeout=600)
             if len(out) != 8 or any(len(o[0]) != MOE_NEW for o in out.values()):
-                fail(f"{MOE_PATH}: the 8 streams did not all finish with {MOE_NEW} tokens")
+                fail(f"{tag}: the 8 streams did not all finish with {MOE_NEW} tokens")
             tok_s = (sum(len(o[0]) - 1 for o in out.values())
                      / (max(o[2] for o in out.values()) - min(o[1] for o in out.values())))
             k1 = kernel_counts(base)
-            replays = check_graphed(MOE_PATH, k1, k0)
+            replays = check_graphed(tag, k1, k0)
             d = {k: k1[k] - k0[k] for k in ("prefill_calls", "chunk_calls", "decode_forwards")}
             replayed = {k: n - k0["replayed_launches"].get(k, 0)
                         for k, n in k1["replayed_launches"].items()}
-            check_moe_path(MOE_PATH, k1["launches"], replayed, cfg.num_layers,
+            check_moe_path(tag, k1["launches"], replayed, cfg.num_layers,
                            d["prefill_calls"], d["chunk_calls"], d["decode_forwards"], replays,
-                           k1["decode_steps"])
+                           k1["decode_steps"], kernel)
             _s, raw = http("GET", base + "/metrics")
             names = {ln.split("{")[0].split(" ")[0] for ln in raw.decode().splitlines()
                      if ln and not ln.startswith("#")}
             for name in ("llm_decode_steps_per_dispatch_count", "llm_decode_early_exit_total"):
                 if name not in names:
-                    fail(f"{MOE_PATH}: /metrics has no {name}")
+                    fail(f"{tag}: /metrics has no {name}")
             steps_n = metric(base, "llm_decode_steps_per_dispatch_count")
             steps_sum = metric(base, "llm_decode_steps_per_dispatch_sum")
             early = metric(base, "llm_decode_early_exit_total")
             if steps_n < replays:
-                fail(f"{MOE_PATH}: llm_decode_steps_per_dispatch_count {steps_n} < {replays} "
+                fail(f"{tag}: llm_decode_steps_per_dispatch_count {steps_n} < {replays} "
                      f"windows")
             # a long prompt's TTFT (bucket 4,096), twice with other seeded
             # ids (no prefix hit), after the counts above were read
             long_ttft = []
             for seed in (0, 1):
-                ids = np.random.default_rng(seed).integers(100, 50000, size=MOE_LONG).tolist()
+                ids = np.random.default_rng(seed).integers(
+                    100, min(50000, cfg.vocab_size), size=MOE_LONG).tolist()
                 status, events, t0 = stream(base + "/v1/completions", {
-                    "model": MOE_MODEL, "prompt": ids, "max_tokens": 4, "temperature": 0,
+                    "model": model, "prompt": ids, "max_tokens": 4, "temperature": 0,
                     "stream": True})
                 if status != 200 or not events:
-                    fail(f"{MOE_PATH}: the {MOE_LONG}-token prompt got HTTP {status}")
+                    fail(f"{tag}: the {MOE_LONG}-token prompt got HTTP {status}")
                 long_ttft.append(1e3 * (events[0][0] - t0))
-            say(f"  {MOE_PATH}: a streamed chat through the router ended whole; 8 greedy "
-                f"streams of {MOE_NEW}: {tok_s:.1f} decode tok/s; moe_experts "
-                f"{k1['launches'].get('moe_experts', 0)} launches = 2 x {cfg.num_layers} x "
+            say(f"  {tag}: a streamed chat through the router ended whole; 8 greedy "
+                f"streams of {MOE_NEW}: {tok_s:.1f} decode tok/s; {kernel} "
+                f"{k1['launches'].get(kernel, 0)} launches = 2 x {cfg.num_layers} x "
                 f"{sum(d.values())} forwards; /metrics llm_decode_steps_per_dispatch count "
                 f"{steps_n:g} sum {steps_sum:g}, llm_decode_early_exit_total {early:g}; a "
                 f"{MOE_LONG}-token prompt's TTFT {long_ttft[0]:.1f} ms, then "
@@ -7205,20 +7381,46 @@ def _drive_moe_router(cfg):
     return drive
 
 
-def start_moe_write():
+def start_moe_writes() -> dict:
     """Write qwen3-30b-a3b cut to MOE_CKPT_LAYERS layers at full width (the
-    Qwen3-MoE tensor names) in a process of its own."""
-    cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch.testing.synth_checkpoint",
-           MOE_MODEL, MOE_DIR, "--layers", str(MOE_CKPT_LAYERS)]
-    return (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            time.perf_counter())
+    Qwen3-MoE tensor names), in bf16, as an fp8 and as an AWQ checkpoint
+    (the routers kept in bf16, as published), each in a process of its
+    own."""
+    writes = {}
+    for q in MOE_CKPT_QUANTS:
+        cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch.testing.synth_checkpoint",
+               MOE_MODEL, MOE_DIRS[q], "--layers", str(MOE_CKPT_LAYERS),
+               *([] if q == "bf16" else [f"--{q}"])]
+        writes[q] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True), time.perf_counter())
+    return writes
 
 
-def moe_checkpoint(torch, write) -> dict:
-    """D: the 2-layer checkpoint loaded in process (layer 0's router and
-    expert 5 held bit for bit to the file), its greedy stream and logprobs
-    from an Engine with ``serve``'s defaults, then ``serve --model <dir>``:
-    the same token ids, logprobs within the bf16 tolerance."""
+def expert_from_file(files, q: str, name: str):
+    """The int8 QTensor the JAX loader makes of one expert linear of a
+    pre-quantized checkpoint (``name`` its HF ``.weight`` name): the
+    file's tensor dequantized on the card, transposed to [in, out] and
+    quantized over its input axis."""
+    from llms_on_kubernetes_tpu_torch.ops.quant import awq_dequantize, fp8_dequantize, quantize
+
+    base = name[:-len("weight")]
+    if q == "fp8":
+        w = fp8_dequantize(files[name]().cuda(), files[base + "weight_scale"]().cuda()).T
+    else:
+        w = awq_dequantize(*(files[base + part]().cuda()
+                             for part in ("qweight", "qzeros", "scales")))
+    return quantize(w, (0,))
+
+
+def moe_checkpoint(torch, writes: dict) -> dict:
+    """D: each 2-layer checkpoint (bf16, fp8, AWQ) loaded in process (layer
+    0's router held bit for bit to the file; expert 5's three linears: bf16
+    ones to the file, int8 ones to the file's tensors dequantized and
+    quantized as the JAX loader does), its greedy stream and logprobs from
+    an Engine with ``serve``'s defaults, then ``serve --model <dir>``: the
+    same token ids, logprobs within the bf16 tolerance, the bf16 expert
+    kernel (bf16) or the int8 expert and W8A16 kernels (fp8, AWQ) launched,
+    never the other expert kernel."""
     from llms_on_kubernetes_tpu_torch.cli import build_parser, engine_config_from_args
     from llms_on_kubernetes_tpu_torch.engine.engine import (
         Engine, SamplingParams, model_config_for,
@@ -7226,65 +7428,168 @@ def moe_checkpoint(torch, write) -> dict:
     from llms_on_kubernetes_tpu_torch.engine.safetensors import open_dir
     from llms_on_kubernetes_tpu_torch.engine.weights import load_hf_params
 
-    proc, t0 = write
-    out, _ = proc.communicate(timeout=900)
-    if proc.returncode != 0:
-        fail(f"synth_checkpoint {MOE_MODEL} --layers {MOE_CKPT_LAYERS} exited "
-             f"{proc.returncode}: {out}")
-    size = sum(os.path.getsize(os.path.join(MOE_DIR, f)) for f in os.listdir(MOE_DIR))
-    say(f"  wrote {MOE_DIR} ({size / 1e9:.2f} GB), done {time.perf_counter() - t0:.1f} s after "
-        f"its start")
-    cfg = model_config_for(MOE_DIR, MOE_DIR)
-    t1 = time.perf_counter()
-    params = load_hf_params(cfg, MOE_DIR, device="cuda")
+    out = {}
+    for q, (proc, t0) in writes.items():
+        path, tag = MOE_DIRS[q], MOE_CKPT_PATHS[q]
+        msg, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            fail(f"synth_checkpoint {MOE_MODEL} --layers {MOE_CKPT_LAYERS} ({q}) exited "
+                 f"{proc.returncode}: {msg}")
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        say(f"  wrote {path} ({size / 1e9:.2f} GB), done {time.perf_counter() - t0:.1f} s after "
+            f"its start")
+        cfg = model_config_for(path, path)
+        t1 = time.perf_counter()
+        params = load_hf_params(cfg, path, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        files = open_dir(path)
+        pre = "model.layers.0.mlp."
+        if not torch.equal(params["layers"]["router"][0].cpu(), files[pre + "gate.weight"]().T):
+            fail(f"{tag}: the router differs from the file's")
+        for key, proj in (("w_gate", "gate_proj"), ("w_up", "up_proj"), ("w_down", "down_proj")):
+            got, name = params["layers"][key][0, 5], pre + f"experts.5.{proj}.weight"
+            if q == "bf16":
+                if not torch.equal(got.cpu(), files[name]().T):
+                    fail(f"{tag}: expert 5's {proj} differs from the file's")
+                continue
+            want = expert_from_file(files, q, name)
+            if not (got.data.dtype == torch.int8 and torch.equal(got.data, want.data)
+                    and torch.equal(got.scale, want.scale)):
+                fail(f"{tag}: expert 5's {proj} is not the file's tensor quantized to int8")
+        ecfg = engine_config_from_args(build_parser().parse_args(["serve", "--model", path]))
+        eng = Engine(ecfg, model_config=cfg, params=params)
+        prompt = [ord(c) for c in SERVE_TEXT[:40]]
+        req = eng.submit(prompt, SamplingParams(temperature=0.0, max_tokens=16, logprobs=1))
+        while not req.finished:
+            eng.step()
+        ref_ids = list(req.output)
+        ref_lps = [float(lp[0] if isinstance(lp, (list, tuple)) else lp)
+                   for lp in req.output_logprobs]
+        del eng, params
+        free_card(torch, f"phase 9 D {q} in process done")
+
+        def drive(base: str, _proc, prompt=prompt) -> dict:
+            http("POST", base + "/debug/kernels/reset")
+            ids, _a, _b, _t = journaled_stream(base, {"model": MOE_MODEL, "prompt": prompt,
+                                                      "max_tokens": 16, "temperature": 0,
+                                                      "stream": True})
+            status, body = http("POST", base + "/v1/completions", {
+                "model": MOE_MODEL, "prompt": prompt, "max_tokens": 16, "temperature": 0,
+                "logprobs": 1})
+            if status != 200:
+                fail(f"{tag}: HTTP {status} {body[:200]!r}")
+            lps = json.loads(body)["choices"][0]["logprobs"]["token_logprobs"]
+            return {"ids": ids, "lps": lps, "launches": kernel_counts(base)["launches"]}
+
+        served = with_server(["--model", path, "--served-model-name", MOE_MODEL],
+                             f"chip_smoke_moe_ckpt_{q}.log", drive, pool_args=())
+        if served["ids"] != ref_ids:
+            fail(f"{tag}: greedy ids {served['ids']} != in process {ref_ids}")
+        gap = max(abs(a - b) for a, b in zip(served["lps"], ref_lps))
+        if not all(abs(a - b) <= BF16_REL_TOL * max(abs(b), 1.0)
+                   for a, b in zip(served["lps"], ref_lps)):
+            fail(f"{tag}: logprobs {served['lps']} differ from in process {ref_lps}")
+        n = served["launches"]
+        want, never = (("moe_experts",), ("moe_experts_w8", "w8_matmul")) if q == "bf16" else \
+            (("moe_experts_w8", "w8_matmul"), ("moe_experts",))
+        if not all(n.get(k) for k in want) or any(n.get(k) for k in never):
+            fail(f"{tag}: launches {n}: {' and '.join(want)} expected, never {never}")
+        held = "linears equal the file's" if q == "bf16" else \
+            "int8 bytes and scales equal the file's, as the JAX loader makes them"
+        say(f"  {tag}: loaded in process in {load_s:.2f} s (layer 0's router and expert 5's "
+            f"{held}); serve --model {path}: /health after {served['health_s']:.1f} s, the 16 "
+            f"greedy ids equal the in-process engine's, logprobs within {gap:.2e}; " + ", ".join(
+                f"{k} {n[k]}" for k in want) + " launches")
+        shutil.rmtree(path, ignore_errors=True)
+        out[q] = served
+    return out
+
+
+def mixtral_in_process(torch) -> dict:
+    """E: Mixtral-8x7B with int8 weights drawn by ``init_params(quantize=
+    True)`` (each expert slice quantized as it is drawn: the bf16 model
+    never exists) at full width and depth behind the default Engine with
+    serve's pool and buckets: the card's free memory and what the model and
+    engine hold; 8 concurrent greedy streams of MOE_NEW, every window a
+    graph replay (device ms each), the int8 expert kernel 2 x 32 a forward;
+    the device time of steady windows split between the experts, attention
+    and the rest beside the experts' byte floor; a 4,000-token prompt's
+    TTFT, twice."""
+    from llms_on_kubernetes_tpu_torch import kernels
+    from llms_on_kubernetes_tpu_torch.cli import build_parser, engine_config_from_args
+    from llms_on_kubernetes_tpu_torch.configs import get_config
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, SamplingParams
+    from llms_on_kubernetes_tpu_torch.models.decoder import init_params
+
+    cfg = get_config(MOE_MIXTRAL)
+    free_card(torch, "before Mixtral-8x7B int8")
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype="bfloat16", device="cuda", quantize=True)
     torch.cuda.synchronize()
-    load_s = time.perf_counter() - t1
-    files = open_dir(MOE_DIR)
-    pre = "model.layers.0.mlp."
-    for got, name in ((params["layers"]["router"][0], pre + "gate.weight"),
-                      (params["layers"]["w_gate"][0, 5], pre + "experts.5.gate_proj.weight"),
-                      (params["layers"]["w_up"][0, 5], pre + "experts.5.up_proj.weight"),
-                      (params["layers"]["w_down"][0, 5], pre + "experts.5.down_proj.weight")):
-        if not torch.equal(got.cpu(), files[name]().T):
-            fail(f"MoE checkpoint: {name} differs from the loaded tensor")
-    ecfg = engine_config_from_args(build_parser().parse_args(["serve", "--model", MOE_DIR]))
+    init_s = time.perf_counter() - t0
+    held_params = torch.cuda.memory_allocated()
+    if params["layers"]["w_gate"].data.dtype != torch.int8:
+        fail(f"{MIXTRAL_INPROC_PATH}: the expert stacks are not int8")
+    ecfg = engine_config_from_args(build_parser().parse_args(["serve", *MIXTRAL_SERVE]))
     eng = Engine(ecfg, model_config=cfg, params=params)
-    prompt = [ord(c) for c in SERVE_TEXT[:40]]
-    req = eng.submit(prompt, SamplingParams(temperature=0.0, max_tokens=16, logprobs=1))
-    while not req.finished:
-        eng.step()
-    ref_ids = list(req.output)
-    ref_lps = [float(lp[0] if isinstance(lp, (list, tuple)) else lp)
-               for lp in req.output_logprobs]
-    del eng, params
-    free_card(torch, "phase 9 D in process done")
-
-    def drive(base: str, _proc) -> dict:
-        http("POST", base + "/debug/kernels/reset")
-        ids, _a, _b, _t = journaled_stream(base, {"model": MOE_MODEL, "prompt": prompt,
-                                                  "max_tokens": 16, "temperature": 0,
-                                                  "stream": True})
-        status, body = http("POST", base + "/v1/completions", {
-            "model": MOE_MODEL, "prompt": prompt, "max_tokens": 16, "temperature": 0,
-            "logprobs": 1})
-        if status != 200:
-            fail(f"{MOE_CKPT_PATH}: HTTP {status} {body[:200]!r}")
-        lps = json.loads(body)["choices"][0]["logprobs"]["token_logprobs"]
-        return {"ids": ids, "lps": lps, "launches": kernel_counts(base)["launches"]}
-
-    served = with_server(["--model", MOE_DIR, "--served-model-name", MOE_MODEL],
-                         "chip_smoke_moe_ckpt.log", drive, pool_args=())
-    if served["ids"] != ref_ids:
-        fail(f"{MOE_CKPT_PATH}: greedy ids {served['ids']} != in process {ref_ids}")
-    gap = max(abs(a - b) for a, b in zip(served["lps"], ref_lps))
-    if not all(abs(a - b) <= BF16_REL_TOL * max(abs(b), 1.0)
-               for a, b in zip(served["lps"], ref_lps)):
-        fail(f"{MOE_CKPT_PATH}: logprobs {served['lps']} differ from in process {ref_lps}")
-    say(f"  {MOE_CKPT_PATH}: loaded in process in {load_s:.2f} s (layer 0's router and expert "
-        f"5 equal the file); serve --model {MOE_DIR}: /health after {served['health_s']:.1f} s, "
-        f"the 16 greedy ids equal the in-process engine's, logprobs within {gap:.2e}")
-    shutil.rmtree(MOE_DIR, ignore_errors=True)
-    return served
+    torch.cuda.synchronize()
+    ready_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    say(f"  {MOE_MIXTRAL} ({cfg.num_layers} layers, {cfg.num_experts} experts top-"
+        f"{cfg.num_experts_per_tok}, D {cfg.hidden_size}, F {cfg.intermediate_size}): "
+        f"{param_bytes(params) / 1e9:.2f} GB of int8 weights, scales and bf16 embedding and "
+        f"head (drawn quantized in {init_s:.1f} s; the process held {held_params / 2**30:.2f} "
+        f"GiB then); the card had {free0 / 2**30:.2f} GiB free before, the process holds "
+        f"{held / 2**30:.2f} GiB with the engine (pool of {ecfg.num_pages} pages, MoE "
+        f"workspace of {eng.moe_workspace.rows} rows, window graph), ready after {ready_s:.1f} s")
+    timer = WindowTimer(torch, eng._window)
+    run = awq_run(torch, eng, awq_prompts(), [None] * 8, max_tokens=MOE_NEW)
+    win_ms = timer.close()["free"]
+    check_moe_path(MIXTRAL_INPROC_PATH, run["launches"], kernels.replayed_counts(),
+                   cfg.num_layers, run["forwards"] - run["decode_forwards"], 0,
+                   run["decode_forwards"], run["replays"], eng.config.decode_steps,
+                   kernel="moe_experts_w8")
+    split = moe_split(torch, eng, awq_prompts(), 48)
+    parts, nwin = split["parts"], split["windows"]
+    total = sum(parts.values())
+    # the experts' floor a window: each decode step reads every touched
+    # expert's int8 matrices (8 tokens x top-2 touch about all 8) a layer
+    D, Fd = cfg.hidden_size, cfg.intermediate_size
+    floor = (eng.config.decode_steps * cfg.num_layers * cfg.num_experts
+             * (3 * D * Fd + 4 * (2 * Fd + D)) / PEAK_BYTES * 1e3)
+    say(f"  {MIXTRAL_INPROC_PATH}, 8 greedy streams of {MOE_NEW} "
+        f"({len(set(map(tuple, run['outs'])))} distinct; the first's head {run['outs'][0][:8]}): "
+        f"{run['tok_s']:.1f} decode tok/s, {run['replays']} windows (each one graph replay), "
+        f"window device ms median {float(np.median(win_ms)):.3f} (min {min(win_ms):.3f}, max "
+        f"{max(win_ms):.3f}); moe_experts_w8 {run['launches'].get('moe_experts_w8', 0)} "
+        f"launches = 2 x {cfg.num_layers} x {run['forwards']} forwards, w8_matmul "
+        f"{run['launches'].get('w8_matmul', 0)} = 4 x {cfg.num_layers} x {run['forwards']} "
+        f"[{card_line()}]")
+    say(f"  steady windows under torch.profiler ({nwin} windows launched in the trace): "
+        f"device ms a window: experts {parts['experts'] / nwin:.3f} (their byte floor with all "
+        f"{cfg.num_experts} experts touched: {floor:.3f}, {eng.config.decode_steps} steps), "
+        f"attention {parts['attention'] / nwin:.3f}, rest {parts['rest'] / nwin:.3f} (experts "
+        f"{100 * parts['experts'] / max(total, 1e-9):.1f}% of the kernels' time)")
+    say("  the rest by kind, device ms a window: " + ", ".join(
+        f"{k} {v / nwin:.3f}" for k, v in sorted(split["rest_kinds"].items(),
+                                                 key=lambda kv: -kv[1])))
+    for name, (n, ms) in split["rest_top"]:
+        say(f"    {ms / nwin:8.3f} ms, {n / nwin:6.0f} launches a window: {name[:110]}")
+    ttft = []
+    for seed in (0, 1):
+        ids = np.random.default_rng(seed).integers(100, cfg.vocab_size, size=MOE_LONG).tolist()
+        req = eng.submit(ids, SamplingParams(temperature=0.0, max_tokens=2))
+        while not req.finished:
+            eng.step()
+        ttft.append(1e3 * (req.first_token_at - req.submitted_at))
+    say(f"  {MIXTRAL_INPROC_PATH}: a {MOE_LONG}-token prompt's TTFT {ttft[0]:.1f} ms, then "
+        f"{ttft[1]:.1f} ms (bucket 4,096, one prefill)")
+    del eng, params, timer
+    return {"launches": run["launches"], "tok_s": run["tok_s"], "window_ms": win_ms,
+            "split": split, "floor_ms": floor, "free_gib": free0 / 2**30,
+            "held_gib": held / 2**30, "long_ttft_ms": ttft}
 
 
 # ---------------------------------------------------------------------------
@@ -7298,14 +7603,20 @@ QWEN_VL_NAME = "qwen3-vl-30b-a3b"
 VL_NEW = 64                  # greedy tokens a phase-10 stream generates
 VL_CKPT_LAYERS = 2
 VL_GAP_TOKENS = 96           # tokens of each text stream that an image chat cuts across
-VL_DIRS = {GEMMA_VL: os.path.join(OUT_DIR, "gemma-3-27b-it-2l"),
-           QWEN_VL: os.path.join(OUT_DIR, "qwen3-vl-30b-a3b-2l")}
 VL_TOKENIZERS = {GEMMA_VL: "gemma3", QWEN_VL: "qwen3vl"}
+# D's checkpoints, (model, format): pre-quantized as the reference deploys
+# the two models (gemma-3-27b-it-FP8-Dynamic, a Qwen3-VL-30B-A3B AWQ
+# checkpoint) and served int8 as the JAX loader serves them, and Qwen3-VL
+# in bf16 as it is published
+VL_CKPTS = ((GEMMA_VL, "fp8"), (QWEN_VL, "bf16"), (QWEN_VL, "awq"))
+VL_DIRS = {(m, q): os.path.join(OUT_DIR, f"{m.split('/')[1].lower()}-2l-{q}")
+           for m, q in VL_CKPTS}
 GEMMA_VL_PATH = f"{GEMMA_VL_NAME} image requests in process"
 GEMMA_VL_HTTP_PATH = f"{GEMMA_VL_NAME} image requests through the port's HTTP server"
 QWEN_VL_PATH = f"{QWEN_VL_NAME} image requests in process"
-VL_CKPT_PATHS = {m: f"{m.split('/')[1]} {VL_CKPT_LAYERS} layers checkpoint serve behind "
-                    f"llkt-router" for m in VL_DIRS}
+VL_CKPT_PATHS = {(m, q): f"{m.split('/')[1]} {VL_CKPT_LAYERS} layers "
+                         f"{'' if q == 'bf16' else q + ' '}checkpoint serve behind llkt-router"
+                 for m, q in VL_CKPTS}
 # A: gemma-3-27b's attention (32 query heads on 16 KV heads, d 128): bucket,
 # length, the image runs' first positions (256 soft tokens each)
 VL_MASK_CASES = ((1024, 900, (100,)), (4096, 4000, (200, 1200, 2200, 3200)))
@@ -7453,13 +7764,17 @@ def vl_mask_checks(torch, timer) -> dict:
 
 def start_vl_writes() -> dict:
     """Write each reference default model cut to VL_CKPT_LAYERS layers at
-    full width, with its tokenizer, in processes of their own."""
+    full width, with its tokenizer, in each format of VL_CKPTS (fp8 and AWQ:
+    the text model's linears; routers and tower kept in bf16), in
+    processes of their own."""
     writes = {}
-    for repo, path in VL_DIRS.items():
+    for (repo, q), path in VL_DIRS.items():
         cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch.testing.synth_checkpoint",
-               repo, path, "--layers", str(VL_CKPT_LAYERS), "--tokenizer", VL_TOKENIZERS[repo]]
-        writes[repo] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                         text=True), time.perf_counter())
+               repo, path, "--layers", str(VL_CKPT_LAYERS), "--tokenizer", VL_TOKENIZERS[repo],
+               *([] if q == "bf16" else [f"--{q}"])]
+        writes[repo, q] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True),
+                           time.perf_counter())
     return writes
 
 
@@ -7906,18 +8221,20 @@ def vl_qwen_images(torch, eng, cfg) -> dict:
 
 
 def vl_checkpoint_serve(torch, writes: dict) -> dict:
-    """D: each 2-layer checkpoint through ``serve`` behind ``llkt-router``
-    (``--max-images-per-request 1``): a streamed image chat, the usage
-    counting the soft tokens, and 400s for a JPEG, a video_url, a remote
-    URL and two images."""
+    """D: each 2-layer checkpoint (gemma-3 fp8, Qwen3-VL bf16 and AWQ)
+    through ``serve`` behind ``llkt-router`` (``--max-images-per-request
+    1``): a streamed image chat, the usage counting the soft tokens, and
+    400s for a JPEG, a video_url, a remote URL and two images; a
+    pre-quantized text model's int8 weights through the W8A16 kernel;
+    Qwen3-VL's experts through the expert kernel of their kind."""
     from llms_on_kubernetes_tpu_torch.engine.tokenizer import JsonTokenizer
 
     out = {}
-    for repo, (proc, t0) in writes.items():
+    for (repo, q), (proc, t0) in writes.items():
         msg, _ = proc.communicate(timeout=900)
-        path = VL_DIRS[repo]
+        path = VL_DIRS[repo, q]
         if proc.returncode != 0:
-            fail(f"synth_checkpoint {repo} --layers {VL_CKPT_LAYERS} exited "
+            fail(f"synth_checkpoint {repo} --layers {VL_CKPT_LAYERS} ({q}) exited "
                  f"{proc.returncode}: {msg}")
         size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
         say(f"  wrote {path} ({size / 1e9:.2f} GB with its tokenizer), done "
@@ -7926,12 +8243,13 @@ def vl_checkpoint_serve(torch, writes: dict) -> dict:
         tok = JsonTokenizer(path)
         name = repo.split("/")[1]
         png = encode_png(vl_picture(5, 480, 640))
-        tag = VL_CKPT_PATHS[repo]
+        tag = VL_CKPT_PATHS[repo, q]
 
-        def drive(base: str, _proc, cfg=cfg, tok=tok, name=name, png=png, tag=tag) -> dict:
+        def drive(base: str, _proc, cfg=cfg, tok=tok, name=name, png=png, tag=tag,
+                  q=q) -> dict:
             router_proc, router = start_router(
                 ["--models", f"{name}={base}", "--probe-interval", "0.5"],
-                f"chip_smoke_vl_router_{name}.log", [base])
+                f"chip_smoke_vl_router_{name}_{q}.log", [base])
             try:
                 http("POST", base + "/debug/kernels/reset")
                 usage = vl_chat_checks(router, name, png, tok, cfg, tag, cap=True)
@@ -7939,46 +8257,61 @@ def vl_checkpoint_serve(torch, writes: dict) -> dict:
             finally:
                 stop_proc(router_proc)
 
-        out[repo] = with_server(["--model", path, "--served-model-name", name,
-                                 "--max-images-per-request", "1"],
-                                f"chip_smoke_vl_{name}.log", drive, pool_args=())
-        if not out[repo]["launches"].get("flash_prefill"):
-            fail(f"{tag}: no flash_prefill launch")
+        out[repo, q] = with_server(["--model", path, "--served-model-name", name,
+                                    "--max-images-per-request", "1"],
+                                   f"chip_smoke_vl_{name}_{q}.log", drive, pool_args=())
+        n = out[repo, q]["launches"]
+        want = ["flash_prefill"] + ([] if q == "bf16" else ["w8_matmul"])
+        never = ["w8_matmul"] if q == "bf16" else []
+        if cfg.is_moe:
+            want.append("moe_experts" if q == "bf16" else "moe_experts_w8")
+            never.append("moe_experts_w8" if q == "bf16" else "moe_experts")
+        if not all(n.get(k) for k in want) or any(n.get(k) for k in never):
+            fail(f"{tag}: launches {n}: {', '.join(want)} expected, never {never}")
         shutil.rmtree(path, ignore_errors=True)
     return out
 
 
-def phase_vision(torch, entries: dict, qwen: dict) -> dict:
+def phase_vision(torch, entries: dict, qwen: dict, writes=None) -> dict:
     """Phase 10: A (kernel 1 with mm_groups), B (gemma-3-27b-it at full
     width, its engine behind the port's HTTP server), C (Qwen3-VL-30B-A3B:
     phase 9 B's engine, ``qwen``), D (2-layer checkpoints of both through
     ``serve`` behind llkt-router)."""
     t0 = time.perf_counter()
-    writes = start_vl_writes()
+    writes = writes or start_vl_writes()       # D's checkpoints, started early by main()
     entries["flash_prefill"]["other_shapes"].update(vl_mask_checks(torch, Timer(torch)))
     pngs = {"896x896": encode_png(vl_picture(1, 896, 896)),
             "1600x1200": encode_png(vl_picture(2, 1200, 1600))}
     gemma = vl_gemma(torch, pngs)
+    t1 = time.perf_counter()
     ckpt = vl_checkpoint_serve(torch, writes)
+    say(f"phase 10 D: {time.perf_counter() - t1:.1f} s")
     say(f"phase 10 (vision): {time.perf_counter() - t0:.1f} s")
     return {"gemma": gemma, "qwen": qwen, "ckpt": ckpt}
 
 
-def phase_moe(torch, entries: dict, simple) -> dict:
-    """Phase 9: A (the expert kernel, in turns with ``simple``, its body
-    before the redesign; kernels 1 and 2 at group 8), B (qwen3-30b-a3b in
-    process), C (``serve`` behind llkt-router, /health with and without the
-    warm-up, a long prompt's TTFT), D (a 2-layer checkpoint served)."""
+def phase_moe(torch, entries: dict, simple, writes=None) -> dict:
+    """Phase 9: A (the expert kernels: bf16 in turns with ``simple``, its
+    body before the redesign, and int8; kernels 1 and 2 at group 8), B
+    (qwen3-30b-a3b in process), C (``serve`` behind llkt-router, /health
+    with and without the warm-up, a long prompt's TTFT), D (2-layer bf16,
+    fp8 and AWQ checkpoints served), E (Mixtral-8x7B int8 in process), F
+    (its ``serve --quantization int8`` behind llkt-router)."""
     from llms_on_kubernetes_tpu_torch.configs import get_config
 
     t0 = time.perf_counter()
-    write = start_moe_write()
+    writes = writes or start_moe_writes()      # D's checkpoints, started early by main()
     entries["moe_experts"] = moe_kernel_checks(torch, Timer(torch), simple)
+    entries["moe_experts_w8"] = moe_w8_kernel_checks(torch, Timer(torch))
     flash, decode = moe_attention_checks(torch, np.random.default_rng(9), Timer(torch))
     entries["flash_prefill"]["other_shapes"].update(flash)
     entries["paged_decode"]["other_shapes"].update(decode)
+    say(f"phase 9 A: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
     inproc = moe_in_process(torch)
     free_card(torch, "phase 9 B done")
+    say(f"phase 9 B: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
     cfg = get_config(MOE_MODEL)
     served = with_server(["--model", MOE_MODEL, "--random-weights"], "chip_smoke_moe.log",
                          _drive_moe_router(cfg), pool_args=())
@@ -7986,10 +8319,23 @@ def phase_moe(torch, entries: dict, simple) -> dict:
                        "chip_smoke_moe_nowarmup.log", lambda base, _p: {}, pool_args=())
     say(f"  serve --model {MOE_MODEL} --random-weights (serve's defaults: 2,048 pages, 64 a "
         f"slot, buckets 256/1024/4096): /health after {served['health_s']:.1f} s with the "
-        f"warm-up, {cold['health_s']:.1f} s with --no-warmup")
-    ckpt = moe_checkpoint(torch, write)
+        f"warm-up, {cold['health_s']:.1f} s with --no-warmup; phase 9 C "
+        f"{time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    ckpt = moe_checkpoint(torch, writes)
+    say(f"phase 9 D: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    mixtral = mixtral_in_process(torch)
+    free_card(torch, "phase 9 E done")
+    mcfg = get_config(MOE_MIXTRAL)
+    mixtral_served = with_server(
+        MIXTRAL_SERVE, "chip_smoke_mixtral.log",
+        _drive_moe_router(mcfg, MOE_MIXTRAL, MIXTRAL_PATH, "moe_experts_w8"), pool_args=())
+    say(f"  serve --model {MOE_MIXTRAL} --random-weights --quantization int8: /health after "
+        f"{mixtral_served['health_s']:.1f} s; phase 9 E and F {time.perf_counter() - t1:.1f} s")
     say(f"phase 9 (MoE): {time.perf_counter() - t0:.1f} s")
-    return {"inproc": inproc, "served": served, "cold": cold, "ckpt": ckpt}
+    return {"inproc": inproc, "served": served, "cold": cold, "ckpt": ckpt,
+            "mixtral": mixtral, "mixtral_served": mixtral_served}
 
 
 def main(argv) -> int:
@@ -8012,14 +8358,13 @@ def main(argv) -> int:
 
     t0 = time.perf_counter()
     router_build = start_router_build()
-    variant, variant4 = start_variant_build(), start_variant_build(W4_VARIANT)
-    variant_moe = start_variant_build(MOE_VARIANT)
     kernels.build()
-    unsplit = finish_variant_build(variant)["llmk_w8_matmul_unsplit"]
-    simple = finish_variant_build(variant4)
-    simple_moe = finish_variant_build(variant_moe)["llmk_moe_experts_simple"]
-    say(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(kernels.SOURCES)}, "
-        f"{W8_VARIANT}, {W4_VARIANT} and {MOE_VARIANT}")
+    say(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(kernels.SOURCES)}")
+    # the timing variants (scripts/) build while phases 1 and 2 run, apart
+    # from the port's own build; each is loaded where it is first timed,
+    # and one still building when the run ends is stopped
+    variants = {v: start_variant_build(v) for v in (W8_VARIANT, W4_VARIANT, MOE_VARIANT)}
+    atexit.register(stop_variant_builds, variants)
     os.makedirs(OUT_DIR, exist_ok=True)
     # every server this run starts (the CLI servers inherit it) captures
     # its profiles, the anomaly detector's too, inside the checkout
@@ -8044,9 +8389,15 @@ def main(argv) -> int:
     say(f"sass moe_stream: {hmma} HGMMA instructions in {funcs} tensor-core (bf16) functions")
     if not funcs or not hmma:
         fail("the MoE expert kernel's body moe_stream has no wgmma (HGMMA) instruction")
-    moe_faults = ptxas_faults(kernels.build_log.get("moe_experts"), "moe_stream")
-    if moe_faults:
-        fail("the MoE expert kernel: " + "; ".join(moe_faults))
+    hmma, funcs = sass_mma_count(kernels.library_path("moe_experts_w8"), "moe_stream", "HGMMA")
+    say(f"sass moe_stream (int8 weights): {hmma} HGMMA instructions in {funcs} tensor-core "
+        f"(bf16) functions")
+    if not funcs or not hmma:
+        fail("the int8 expert kernel's body moe_stream has no wgmma (HGMMA) instruction")
+    for lib in ("moe_experts", "moe_experts_w8"):
+        moe_faults = ptxas_faults(kernels.build_log.get(lib), "moe_stream")
+        if moe_faults:
+            fail(f"the MoE expert kernel ({lib}): " + "; ".join(moe_faults))
     for body in ("w8_matmul_decode", "w8_matmul_prefill"):
         hmma, funcs = sass_mma_count(kernels.library_path("w8_matmul"), body)
         say(f"sass {body}: {hmma} HMMA instructions in {funcs} tensor-core (bf16) functions")
@@ -8063,6 +8414,7 @@ def main(argv) -> int:
         fail("--awq-only: phases 2 to 7 skipped, no result")
     if "--moe-only" in argv:
         finish_router_build(router_build)
+        simple_moe = finish_variant_build(variants[MOE_VARIANT])["llmk_moe_experts_simple"]
         phase_moe(torch, {"flash_prefill": {"other_shapes": {}},
                           "paged_decode": {"other_shapes": {}}}, simple_moe)
         fail("--moe-only: phases 2 to 8 skipped, no result")
@@ -8076,7 +8428,9 @@ def main(argv) -> int:
     entries = phase_kernels(torch)
     for name, shapes in wide_kernels(torch, np.random.default_rng(1), Timer(torch)).items():
         entries[name]["other_shapes"].update(shapes)
+    unsplit = finish_variant_build(variants[W8_VARIANT])["llmk_w8_matmul_unsplit"]
     entries.update(w8_kernels(torch, np.random.default_rng(2), Timer(torch), unsplit))
+    simple = finish_variant_build(variants[W4_VARIANT])
     entries.update(w4_kernels(torch, np.random.default_rng(3), Timer(torch), simple))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -8112,10 +8466,13 @@ def main(argv) -> int:
     headline = phase_headline(torch)
     awq_write = start_awq_write()      # overlaps phase 7
     spec = phase_spec_gguf(torch)
+    moe_writes = start_moe_writes()    # overlaps phase 8
     awq = phase_awq_lora(torch, awq_write)
     free_card(torch, "phase 8 done")
-    moe = phase_moe(torch, entries, simple_moe)
-    vision = phase_vision(torch, entries, moe["inproc"]["vision"])
+    vl_writes = start_vl_writes()      # overlaps phase 9
+    simple_moe = finish_variant_build(variants[MOE_VARIANT])["llmk_moe_experts_simple"]
+    moe = phase_moe(torch, entries, simple_moe, moe_writes)
+    vision = phase_vision(torch, entries, moe["inproc"]["vision"], vl_writes)
     # launches on each path, counted from 0 just before it and read just
     # after; the line's "launches" is the checkpoint server's where the
     # kernel runs there, else phase 4's fused engines, and the W8A16
@@ -8144,11 +8501,13 @@ def main(argv) -> int:
              f"{AWQ_MODEL} AWQ in process": awq["A"]["base"]["launches"],
              LORA_PATH: awq["B"]["routed"]["launches"],
              MOE_INPROC_PATH: moe["inproc"]["launches"], MOE_PATH: moe["served"]["launches"],
-             MOE_CKPT_PATH: moe["ckpt"]["launches"],
+             **{MOE_CKPT_PATHS[q]: r["launches"] for q, r in moe["ckpt"].items()},
+             MIXTRAL_INPROC_PATH: moe["mixtral"]["launches"],
+             MIXTRAL_PATH: moe["mixtral_served"]["launches"],
              GEMMA_VL_PATH: vision["gemma"]["launches"],
              GEMMA_VL_HTTP_PATH: vision["gemma"]["served"]["launches"],
              QWEN_VL_PATH: vision["qwen"]["launches"],
-             **{VL_CKPT_PATHS[m]: r["launches"] for m, r in vision["ckpt"].items()}}
+             **{VL_CKPT_PATHS[k]: r["launches"] for k, r in vision["ckpt"].items()}}
     for preset, r in spec["C"].items():
         for kind in r:
             paths[f"{preset} GGUF serve {kind} weights"] = r[kind]["launches"]
@@ -8156,7 +8515,8 @@ def main(argv) -> int:
                  "paged_write_window": ckpt_bf16, "paged_decode_int8": ckpt_int8,
                  "paged_write_window_int8": ckpt_int8, "paged_decode_write": fused_bf16,
                  "paged_decode_write_int8": fused_int8, "w8_matmul": HEADLINE_PATH,
-                 "w4_matmul": AWQ_PATH, "moe_experts": MOE_PATH}
+                 "w4_matmul": AWQ_PATH, "moe_experts": MOE_PATH,
+                 "moe_experts_w8": MIXTRAL_PATH}
     for name, e in entries.items():
         e["launches"] = paths[main_path[name]].get(name, 0)
         e["launches_path"] = main_path[name]

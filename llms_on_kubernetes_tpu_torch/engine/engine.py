@@ -240,7 +240,7 @@ from llms_on_kubernetes_tpu_torch.models.decoder import (
 from llms_on_kubernetes_tpu_torch.ops.lora import LoRAStack, lora_zeros
 from llms_on_kubernetes_tpu_torch.ops.moe import MoEWorkspace
 from llms_on_kubernetes_tpu_torch.ops.paged_attention import DecodeWorkspace
-from llms_on_kubernetes_tpu_torch.ops.quant import SUPPORTED_QUANTIZATIONS, quantize_params
+from llms_on_kubernetes_tpu_torch.ops.quant import SUPPORTED_QUANTIZATIONS
 
 Params = dict[str, Any]
 
@@ -868,17 +868,11 @@ class Engine:
                                          dtype=engine_config.dtype,
                                          quantization=engine_config.quantization)
         else:   # random weights (tests, smoke runs)
-            if cfg.is_moe and engine_config.quantization is not None:
-                from llms_on_kubernetes_tpu_torch.engine.weights import moe_quantization_refusal
-
-                raise NotImplementedError(
-                    moe_quantization_refusal(cfg, engine_config.quantization))
+            # random weights have no checkpoint format: every mode serves
+            # weight-only int8, as in the JAX engine (quantized as drawn)
             self.params = init_params(cfg, seed=engine_config.seed,
-                                      dtype=engine_config.dtype, device=self.device)
-            if engine_config.quantization is not None:
-                # random weights have no checkpoint format: every mode
-                # serves weight-only int8, as in the JAX engine
-                self.params = quantize_params(self.params)
+                                      dtype=engine_config.dtype, device=self.device,
+                                      quantize=engine_config.quantization is not None)
         self.cache_config = CacheConfig(
             num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, num_pages=engine_config.num_pages,

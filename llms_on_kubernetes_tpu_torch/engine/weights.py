@@ -17,9 +17,7 @@ stacked there into ``[E, D, F]`` / ``[E, F, D]``, a layer at a time. A
 multimodal checkpoint's tower (gemma-3's SigLIP and projector, Qwen3-VL's
 tower and mergers) goes to ``params["vision"]`` through
 ``models/vision.py``'s loaders, under either naming (``_Fetch`` sees
-``vision_tower.*`` through ``model.vision_tower.*``). Any quantization of
-an MoE checkpoint raises NotImplementedError (int8 expert weights and AWQ
-MoE are ROADMAP queue 1 items 3a and 3b).
+``vision_tower.*`` through ``model.vision_tower.*``).
 
 Quantized weights (``ops/quant.py``), as the JAX loader makes them:
 ``quantization="int8"`` quantizes the matmul weights layer by layer from
@@ -34,7 +32,12 @@ the JAX loader serves it: each linear stored 1:1 in AWQ packing
 unpacked there), fetched before the layer map so it is never dequantized;
 a tensor the layer map fuses or splits (phi-3's ``qkv_proj`` and
 ``gate_up_proj``) is dequantized (``awq_dequantize``) and requantized to
-int8 ``QTensor``s, as JAX does.
+int8 ``QTensor``s, as JAX does. An MoE model (either naming) quantizes as
+the JAX loader quantizes it: every linear, the attention projections and
+each layer's ``[E, D, F]`` / ``[E, F, D]`` expert stacks included, is
+fetched (an fp8 or AWQ one dequantized) and quantized to int8 a layer at a
+time, the stacks per (expert, output column); an AWQ MoE checkpoint gets no
+``GroupQTensor``, and the router stays in the serving dtype.
 
 The load goes layer by layer: each stacked ``[L, ...]`` tensor is
 allocated once on the device, and each HF tensor goes to the device as it
@@ -307,14 +310,6 @@ def checkpoint_quantization(model_dir) -> Optional[dict]:
                      f"(supported: compressed-tensors fp8, awq)")
 
 
-def moe_quantization_refusal(cfg: ModelConfig, quantization: str) -> str:
-    """Why a quantized MoE model is refused: the port's expert kernel
-    takes bf16 weights only."""
-    return (f"{cfg.name}: {quantization} weights of an MoE model are not ported yet "
-            f"(ROADMAP queue 1 item 3a: int8 expert weights through a grouped W8A16; "
-            f"item 3b: AWQ MoE)")
-
-
 def load_hf_params(cfg: ModelConfig, model_dir, device="cuda", dtype: Optional[str] = None,
                    quantization: Optional[str] = None) -> Params:
     """Load a HF checkpoint directory into the decoder's parameters on
@@ -327,17 +322,16 @@ def load_hf_params(cfg: ModelConfig, model_dir, device="cuda", dtype: Optional[s
     layer at a time) and the rest int8 ``QTensor``s, with the JAX loader's
     bytes. An MoE checkpoint's router and expert stacks are the JAX
     loader's ``router`` [L, D, E], ``w_gate``/``w_up`` [L, E, D, F] and
-    ``w_down`` [L, E, F, D]; a vision checkpoint's tower is
-    ``params["vision"]``, the JAX loader's tree. Raises NotImplementedError
-    for a quantized MoE checkpoint, ValueError for an unknown
-    ``quantization`` or one the checkpoint is not, FileNotFoundError for a
-    directory without ``*.safetensors``, KeyError for a missing tensor."""
+    ``w_down`` [L, E, F, D] (quantized: int8 ``QTensor``s with ``[L, E, 1,
+    F]`` / ``[L, E, 1, D]`` scales, every linear of an AWQ MoE checkpoint
+    too); a vision checkpoint's tower is ``params["vision"]``, the JAX
+    loader's tree. Raises ValueError for an unknown ``quantization`` or
+    one the checkpoint is not, FileNotFoundError for a directory without
+    ``*.safetensors``, KeyError for a missing tensor."""
     if quantization not in SUPPORTED_QUANTIZATIONS:
         raise ValueError(f"unknown quantization {quantization!r} "
                          f"(supported: {[q for q in SUPPORTED_QUANTIZATIONS if q]})")
     quant = checkpoint_quantization(model_dir)
-    if cfg.is_moe and (quantization is not None or quant is not None):
-        raise NotImplementedError(moe_quantization_refusal(cfg, quantization or quant["method"]))
     if quantization in ("fp8", "awq"):
         found = quant["method"] if quant else None
         if found != quantization:
@@ -346,7 +340,9 @@ def load_hf_params(cfg: ModelConfig, model_dir, device="cuda", dtype: Optional[s
     # a pre-quantized checkpoint always serves quantized weights (its
     # weights are 8-bit or fewer already)
     quantize_now = quantization == "int8" or quant is not None
-    awq_native = quant is not None and quant["method"] == "awq"
+    # JAX serves only a dense model's AWQ tensors natively; an MoE model's
+    # (the expert stacks are stacked by the layer map) go the dequant path
+    awq_native = quant is not None and quant["method"] == "awq" and not cfg.is_moe
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     fetch = _Fetch(open_dir(model_dir), dev, quant)

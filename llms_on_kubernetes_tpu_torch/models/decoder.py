@@ -33,7 +33,10 @@ logits of every window position.
 
 MoE layers (``cfg.is_moe``: Mixtral, Qwen3-MoE) replace the MLP with
 ``ops/moe.moe_block``: the router, the routed expert FFN (the
-``csrc/moe_experts.cu`` kernel on a card) and the combine. Which tokens
+``csrc/moe_experts.cu`` kernel on a card, or ``csrc/moe_experts_w8.cu``
+for int8 ``QTensor`` stacks, whose ``[E, 1, F]`` scales the kernel reads
+as ``[E, F]``: the same bytes, so nothing is reshaped a forward) and the
+combine; the router stays in the serving dtype. Which tokens
 claim experts is ``token_valid`` [B, T], as in the JAX decoder: by default
 the rows that write KV (``write_positions >= 0``), for the chunk and verify
 passes the rows inside ``lengths``, and for the score pass (whose writes
@@ -75,7 +78,9 @@ from llms_on_kubernetes_tpu_torch.ops.norms import rms_norm
 from llms_on_kubernetes_tpu_torch.ops.paged_write import dispatch_write_window
 from llms_on_kubernetes_tpu_torch.ops.lora import lora_delta_flat
 from llms_on_kubernetes_tpu_torch.ops.moe import moe_block
-from llms_on_kubernetes_tpu_torch.ops.quant import GroupQTensor, QTensor, w4_matmul, w8_matmul
+from llms_on_kubernetes_tpu_torch.ops.quant import (
+    GroupQTensor, QTensor, quantize_drawn, quantizes, reduce_axes_for, w4_matmul, w8_matmul,
+)
 from llms_on_kubernetes_tpu_torch.ops.rope import apply_mrope, apply_rope, rope_frequencies
 
 Params = dict[str, Any]
@@ -92,12 +97,16 @@ def _act(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype: Optional[str] = None,
-                device="cuda") -> Params:
+                device="cuda", quantize: bool = False) -> Params:
     """Random-init parameters with the JAX ``init_params`` shapes and scales
     (normal * scale, cast to ``dtype``), drawn from a ``torch.Generator``
     seeded with ``seed`` on the target device. Stacked tensors are drawn one
     layer at a time (an MoE stack one expert at a time), so the float32
-    draw never holds a whole stack."""
+    draw never holds a whole stack. ``quantize``: the matmul weights come
+    back as int8 ``QTensor``s, bit for bit ``quantize_params`` of the
+    unquantized draw; an expert stack is quantized one (layer, expert)
+    slice at a time as it is drawn, so its bf16 values never exist whole
+    (Mixtral-8x7B's would take 93 GB)."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     gen = torch.Generator(device=dev)
@@ -105,16 +114,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype: Optional[str] = None,
     L, D, Fd = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     H, KV, hd, V = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size
 
-    def init(*shape, scale=None, experts=False):
+    def draw(shape, s):
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return x.mul_(s).to(dt)
+
+    def init(*shape, scale=None, experts=False, name=None):
         s = scale if scale is not None else 1.0 / math.sqrt(
             shape[-2] if len(shape) > 1 else shape[-1])
+        if quantize and quantizes(name):
+            # drawn a layer (an expert stack: a (layer, expert)) at a time,
+            # as below, and quantized as each slice is drawn
+            return quantize_drawn(shape, reduce_axes_for(name, len(shape)),
+                                  lambda part: draw(part, s))
         out = torch.empty(shape, dtype=dt, device=dev)
         parts = out if len(shape) > 2 else [out]
         if experts:
             parts = out.view(-1, *shape[-2:])
         for part in parts:
-            x = torch.randn(part.shape, generator=gen, device=dev, dtype=torch.float32)
-            part.copy_(x.mul_(s))
+            part.copy_(draw(part.shape, s))
         return out
 
     def norm(*shape):
@@ -124,10 +141,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype: Optional[str] = None,
 
     layers: Params = {
         "attn_norm": norm(L, D),
-        "wq": init(L, D, H, hd, scale=D ** -0.5),
-        "wk": init(L, D, KV, hd, scale=D ** -0.5),
-        "wv": init(L, D, KV, hd, scale=D ** -0.5),
-        "wo": init(L, H, hd, D, scale=(H * hd) ** -0.5),
+        "wq": init(L, D, H, hd, scale=D ** -0.5, name="wq"),
+        "wk": init(L, D, KV, hd, scale=D ** -0.5, name="wk"),
+        "wv": init(L, D, KV, hd, scale=D ** -0.5, name="wv"),
+        "wo": init(L, H, hd, D, scale=(H * hd) ** -0.5, name="wo"),
         "mlp_norm": norm(L, D),
     }
     if cfg.attention_bias:
@@ -143,13 +160,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype: Optional[str] = None,
     if cfg.is_moe:
         E = cfg.num_experts
         layers["router"] = init(L, D, E, scale=D ** -0.5)
-        layers["w_gate"] = init(L, E, D, Fd, scale=D ** -0.5, experts=True)
-        layers["w_up"] = init(L, E, D, Fd, scale=D ** -0.5, experts=True)
-        layers["w_down"] = init(L, E, Fd, D, scale=Fd ** -0.5, experts=True)
+        layers["w_gate"] = init(L, E, D, Fd, scale=D ** -0.5, experts=True, name="w_gate")
+        layers["w_up"] = init(L, E, D, Fd, scale=D ** -0.5, experts=True, name="w_up")
+        layers["w_down"] = init(L, E, Fd, D, scale=Fd ** -0.5, experts=True, name="w_down")
     else:
-        layers["w_gate"] = init(L, D, Fd, scale=D ** -0.5)
-        layers["w_up"] = init(L, D, Fd, scale=D ** -0.5)
-        layers["w_down"] = init(L, Fd, D, scale=Fd ** -0.5)
+        layers["w_gate"] = init(L, D, Fd, scale=D ** -0.5, name="w_gate")
+        layers["w_up"] = init(L, D, Fd, scale=D ** -0.5, name="w_up")
+        layers["w_down"] = init(L, Fd, D, scale=Fd ** -0.5, name="w_down")
     params: Params = {
         "embed": init(V, D, scale=1.0),
         "final_norm": norm(D),

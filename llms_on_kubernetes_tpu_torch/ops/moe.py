@@ -16,11 +16,15 @@ bucket), so the port computes the same function with routed products:
 - ``moe_experts``: y[r] = (SiLU(x[src[r]] W_gate[e]) * (x[src[r]] W_up[e]))
   W_down[e] for every expert-major row r of expert e. A CUDA tensor
   launches ``csrc/moe_experts.cu`` (two launches of persistent blocks:
-  gate/up with the SiLU product, then down), a CPU tensor runs
-  ``moe_experts_plain``, a loop over the experts in torch that is the
-  kernel's reference. ``moe_splits``, ``moe_rows``, ``moe_tiles`` and
-  ``moe_walk`` mirror the kernel's K split, its tile size and its walk
-  over the tiles.
+  gate/up with the SiLU product, then down), or with int8 ``QTensor``
+  stacks (the JAX ``quantize_params`` layout: data ``[E, D, F]`` /
+  ``[E, F, D]``, scales ``[E, 1, F]`` / ``[E, 1, D]``) ``csrc/
+  moe_experts_w8.cu``, the same body on int8 weight tiles converted in
+  registers, each product with ``qeinsum``'s two roundings; a CPU tensor
+  runs ``moe_experts_plain``, a loop over the experts in torch that is
+  both kernels' reference. ``moe_splits``, ``moe_rows``, ``moe_tiles``
+  and ``moe_walk`` mirror the kernels' K split, tile size and walk over
+  the tiles.
 - ``moe_combine``: out[n] = sum_j w[n, j] y[row(n, j)], in choice order;
   a dropped or invalid claim adds 0, so padding rows come out 0.
 
@@ -39,9 +43,10 @@ import torch
 import torch.nn.functional as F
 
 from llms_on_kubernetes_tpu_torch import kernels
-from llms_on_kubernetes_tpu_torch.ops.quant import _cluster_splits
+from llms_on_kubernetes_tpu_torch.ops.quant import QTensor, _cluster_splits, w8_matmul_plain
 
 MOE_KERNEL = "moe_experts"
+MOE_W8_KERNEL = "moe_experts_w8"     # int8 expert stacks (csrc/moe_experts_w8.cu)
 # the expert kernel's tiles (csrc/moe_experts.cu)
 MOE_POW2_ROWS = 64        # rows a tile for up to 64 rows an expert (kMaxPow2Rows)
 MOE_PREFILL_ROWS = 128    # rows a tile above (kPreRows)
@@ -126,20 +131,30 @@ def moe_route(x: torch.Tensor, router_w: torch.Tensor, *, top_k: int,
                     offsets, src[:R])
 
 
+def _expert_product(x: torch.Tensor, w, e: int) -> torch.Tensor:
+    """x times expert e's weight: a plain matmul, or for a ``QTensor``
+    stack ``w8_matmul_plain`` (the JAX ``qeinsum`` roundings) with the
+    expert's column scales."""
+    if isinstance(w, QTensor):
+        return w8_matmul_plain(x, w.data[e], w.scale[e].reshape(-1))
+    return x @ w[e]
+
+
 def moe_experts_plain(x: torch.Tensor, src: torch.Tensor, counts: torch.Tensor,
-                      w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
-                      act=F.silu) -> torch.Tensor:
+                      w_gate, w_up, w_down, act=F.silu) -> torch.Tensor:
     """The routed expert FFN, expert by expert: y [N k, D] in x's dtype,
-    rows [offset_e, offset_e + count_e) for expert e, in torch matmuls;
-    rows past the kept claims are 0. Reads ``counts`` on the host."""
+    rows [offset_e, offset_e + count_e) for expert e, in torch matmuls (an
+    int8 ``QTensor`` stack: each product rounded, times its rounded scale,
+    rounded again, as ``qeinsum``); rows past the kept claims are 0. Reads
+    ``counts`` on the host."""
     R = src.shape[0]
     y = torch.zeros((R, w_down.shape[2]), dtype=x.dtype, device=x.device)
     start = 0
     for e, c in enumerate(counts.tolist()):
         if c:
             xs = x[src[start:start + c].long()]
-            h = act(xs @ w_gate[e]) * (xs @ w_up[e])
-            y[start:start + c] = h @ w_down[e]
+            h = act(_expert_product(xs, w_gate, e)) * _expert_product(xs, w_up, e)
+            y[start:start + c] = _expert_product(h, w_down, e)
         start += c
     return y
 
@@ -225,26 +240,44 @@ class MoEWorkspace:
 
 
 def moe_experts(x: torch.Tensor, src: torch.Tensor, counts: torch.Tensor,
-                w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
-                act=F.silu, workspace: Optional[MoEWorkspace] = None) -> torch.Tensor:
+                w_gate, w_up, w_down, act=F.silu,
+                workspace: Optional[MoEWorkspace] = None) -> torch.Tensor:
     """``moe_experts_plain``'s function, y [R, D] with R = len(src): a CPU
     tensor runs the plain version; a CUDA tensor launches
-    ``csrc/moe_experts.cu`` (bfloat16 x and weights, SiLU, D and F
-    multiples of 32, all contiguous) or raises. Rows past the kept
+    ``csrc/moe_experts.cu`` (bfloat16 weights) or, when all three stacks
+    are int8 ``QTensor``s, ``csrc/moe_experts_w8.cu`` (bfloat16 x, SiLU, D
+    and F multiples of 32, all contiguous), or raises. Rows past the kept
     claims are left unwritten. A row's result is bit for bit the same
     whatever the other rows are and whatever the tile size (``moe_rows``):
     the K split and the order of sums depend on D and F
     only (``moe_splits``)."""
     if x.device.type == "cpu":
         return moe_experts_plain(x, src, counts, w_gate, w_up, w_down, act)
+    quant = [isinstance(w, QTensor) for w in (w_gate, w_up, w_down)]
+    if any(quant) and not all(quant):
+        raise ValueError("moe_experts takes three bf16 stacks or three int8 QTensor stacks")
+    int8 = all(quant)
+    name = MOE_W8_KERNEL if int8 else MOE_KERNEL
     if act is not F.silu:
-        raise ValueError("the moe_experts kernel computes SiLU(gate) * up only")
+        raise ValueError(f"the {name} kernel computes SiLU(gate) * up only")
     bf = torch.bfloat16
     kernels.check_tensor("x", x, dtype=bf, ndim=2, align=16)
     kernels.check_tensor("src", src, dtype=torch.int32, ndim=1, device=x.device)
     kernels.check_tensor("counts", counts, dtype=torch.int32, ndim=1, device=x.device)
-    for name, w in (("w_gate", w_gate), ("w_up", w_up), ("w_down", w_down)):
-        kernels.check_tensor(name, w, dtype=bf, ndim=3, device=x.device, align=16)
+    weights, scales = [], []
+    for wname, w in (("w_gate", w_gate), ("w_up", w_up), ("w_down", w_down)):
+        data = w.data if int8 else w
+        kernels.check_tensor(wname, data, dtype=torch.int8 if int8 else bf, ndim=3,
+                             device=x.device, align=16)
+        weights.append(data.data_ptr())
+        if int8:
+            # [E, 1, N] keepdims: the kernel reads it as [E, N], no copy
+            kernels.check_tensor(wname + ".scale", w.scale, dtype=torch.float32, ndim=3,
+                                 device=x.device, align=16)
+            if tuple(w.scale.shape) != (data.shape[0], 1, data.shape[2]):
+                raise ValueError(f"{wname}.scale {tuple(w.scale.shape)} is not the "
+                                 f"[E, 1, N] scale of {tuple(data.shape)}")
+            scales.append(w.scale.data_ptr())
     D = x.shape[1]
     E, _, Fd = w_gate.shape
     R = src.shape[0]
@@ -261,13 +294,12 @@ def moe_experts(x: torch.Tensor, src: torch.Tensor, counts: torch.Tensor,
     else:
         h = torch.empty((R, Fd), dtype=bf, device=x.device)
         y = torch.empty((R, D), dtype=bf, device=x.device)
-    fn = kernels.function(MOE_KERNEL)
-    err = fn(x.data_ptr(), src.data_ptr(), counts.data_ptr(), w_gate.data_ptr(),
-             w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(), y.data_ptr(),
-             R, x.shape[0], E, D, Fd, kernels.stream_ptr(x))
-    kernels.check(MOE_KERNEL, err)
-    kernels.count(MOE_KERNEL)      # gate/up
-    kernels.count(MOE_KERNEL)      # down
+    fn = kernels.function(name)
+    err = fn(x.data_ptr(), src.data_ptr(), counts.data_ptr(), *weights, *scales,
+             h.data_ptr(), y.data_ptr(), R, x.shape[0], E, D, Fd, kernels.stream_ptr(x))
+    kernels.check(name, err)
+    kernels.count(name)      # gate/up
+    kernels.count(name)      # down
     return y
 
 
@@ -284,13 +316,14 @@ def moe_combine(y: torch.Tensor, route: MoERoute) -> torch.Tensor:
     return acc.to(y.dtype)
 
 
-def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
-              w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int,
+def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate, w_up, w_down, *, top_k: int,
               capacity_factor: Optional[float] = None, act=F.silu,
               valid: Optional[torch.Tensor] = None,
               workspace: Optional[MoEWorkspace] = None) -> torch.Tensor:
     """x [N, D]; router_w [D, E]; w_gate / w_up [E, D, F]; w_down [E, F, D]
-    (the JAX ``moe_block``'s signature and layouts). ``valid`` [N] bool
+    (the JAX ``moe_block``'s signature and layouts), bf16 tensors or int8
+    ``QTensor`` stacks with their ``[E, 1, F]`` / ``[E, 1, D]`` scales (the
+    router stays in its dtype, as in JAX). ``valid`` [N] bool
     excludes padding and idle tokens from routing: they claim no expert
     capacity and their output rows are 0. ``workspace``: an engine's
     ``MoEWorkspace`` (a card's scratch), else allocated per call."""

@@ -3,9 +3,11 @@
 ``quantize_params``, ``fp8_dequantize`` and ``qeinsum``'s int8 path).
 
 A ``QTensor`` holds int8 ``data`` in the JAX layout (layer-stacked, head
-axes explicit: ``wq [L, D, H, hd]``, ``wo [L, H, hd, D]``) and a float32
-``scale`` with keepdims over the contraction axes (``wq``'s scale is
-``[L, 1, H, hd]``): one symmetric scale per output channel and layer.
+axes explicit: ``wq [L, D, H, hd]``, ``wo [L, H, hd, D]``; an MoE model's
+expert stacks ``[L, E, D, F]`` / ``[L, E, F, D]``) and a float32 ``scale``
+with keepdims over the contraction axes (``wq``'s scale is ``[L, 1, H,
+hd]``, ``w_gate``'s ``[L, E, 1, F]``): one symmetric scale per output
+channel, layer and expert.
 Indexing it (``w[layer]``) gives a QTensor of views, so the decoder's
 layer loop and a captured CUDA graph read the same addresses every time.
 
@@ -39,6 +41,7 @@ groups, from K, N and the group size alone).
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Any, Optional
 
@@ -121,19 +124,38 @@ def quantize(w: torch.Tensor, reduce_axes: tuple[int, ...]) -> QTensor:
 
 
 def quantize_stack(w: torch.Tensor, reduce_axes: tuple[int, ...]) -> QTensor:
-    """``quantize`` of a layer-stacked weight one layer at a time (the
-    axes exclude the layer axis 0, so the bytes are the same), so the
-    float32 temporaries never hold more than one layer."""
-    axes = tuple(a - 1 for a in reduce_axes)
+    """``quantize`` of a layer-stacked weight a slice at a time
+    (``quantize_drawn``; the axes exclude the layer axis 0, so the bytes
+    are the same), so the float32 temporaries never hold more than one
+    layer."""
+    slices = iter(w.reshape(-1, *w.shape[min(reduce_axes):]))
+    return quantize_drawn(tuple(w.shape), reduce_axes, lambda _shape: next(slices))
+
+
+def quantizes(name: str) -> bool:
+    """Whether int8 weights quantize stacked weight ``name``: the matmul
+    weights do; the embedding, the LM head, the norms and the router stay
+    in their dtype."""
+    return name in _LAYER_REDUCE_AXES
+
+
+def quantize_drawn(shape: tuple[int, ...], reduce_axes: tuple[int, ...], draw) -> QTensor:
+    """``quantize`` over ``reduce_axes`` of a stacked weight of ``shape``,
+    built from ``draw(slice_shape)``: called in order once for each slice
+    over the axes before the contraction axes (a layer; an expert stack's
+    (layer, expert)), each slice quantized as it comes, so the unquantized
+    stack never exists whole."""
+    axes = tuple(reduce_axes)
+    lead = min(axes)
+    scale_shape = tuple(1 if i in axes else n for i, n in enumerate(shape))
     out: Optional[QTensor] = None
-    for i in range(w.shape[0]):
-        q = quantize(w[i], axes)
+    for i in range(math.prod(shape[:lead])):
+        q = quantize(draw(shape[lead:]), tuple(a - lead for a in axes))
         if out is None:
-            out = QTensor(torch.empty(w.shape, dtype=torch.int8, device=w.device),
-                          torch.empty((w.shape[0], *q.scale.shape), dtype=torch.float32,
-                                      device=w.device))
-        out.data[i].copy_(q.data)
-        out.scale[i].copy_(q.scale)
+            out = QTensor(torch.empty(shape, dtype=torch.int8, device=q.data.device),
+                          torch.empty(scale_shape, dtype=torch.float32, device=q.data.device))
+        out.data.view(-1, *shape[lead:])[i].copy_(q.data)
+        out.scale.view(-1, *scale_shape[lead:])[i].copy_(q.scale)
     return out
 
 

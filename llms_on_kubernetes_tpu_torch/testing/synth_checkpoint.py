@@ -20,7 +20,8 @@ bfloat16 (or float32/float16). Each file is a JSON header and raw bytes,
 written tensor by tensor with numpy, so memory holds one tensor at a time.
 
 ``quantization="fp8"`` writes a compressed-tensors FP8 checkpoint, as
-FP8-Dynamic models ship: each decoder-layer linear as ``F8_E4M3`` codes
+FP8-Dynamic models ship: each decoder-layer linear (an MoE model's experts
+too; not its router, nor a multimodal model's tower) as ``F8_E4M3`` codes
 with a float32 ``weight_scale`` per output channel (``[out, 1]``, amax /
 448) or per tensor (a scalar), the embedding, norms and LM head in the
 checkpoint dtype, and a ``quantization_config`` in ``config.json``. The
@@ -28,7 +29,7 @@ fp8 codes are PyTorch's float8_e4m3fn rounding of the pattern over its
 scale (``fp8_value``).
 
 ``quantization="awq"`` writes an AWQ checkpoint as ``Qwen/Qwen3-8B-AWQ``
-ships one: each decoder-layer linear as ``qweight`` int32 ``[in, out/8]``
+ships one: each decoder-layer linear (as for fp8) as ``qweight`` int32 ``[in, out/8]``
 (eight 4-bit values a word in AWQ's nibble interleave), ``qzeros`` int32
 ``[G, out/8]`` and ``scales`` float16 ``[G, out]`` for G groups of
 ``group_size`` input rows, with the ``quantization_config`` that
@@ -396,9 +397,19 @@ def fp8_quantization_config(strategy: str = "channel") -> dict:
             "ignore": ["lm_head"]}
 
 
+# the text model's layers under each naming (plain, gemma-3 nested and
+# legacy, Qwen3-VL)
+_LAYER_PREFIXES = ("model.layers.", "model.language_model.layers.", "language_model.model.layers.")
+# an MoE router: published fp8 and AWQ MoE checkpoints keep it unquantized
+_ROUTERS = (".block_sparse_moe.gate.weight", ".mlp.gate.weight")
+
+
 def _fp8_linear(name: str, kind: str) -> bool:
-    """A tensor an fp8 checkpoint stores as fp8: the decoder layers' linears."""
-    return kind == "linear" and name.startswith("model.layers.")
+    """A tensor a quantized checkpoint stores as fp8 or AWQ: the text
+    model's layers' linears, MoE experts included, routers and the vision
+    tower not."""
+    return (kind == "linear" and name.startswith(_LAYER_PREFIXES)
+            and not name.endswith(_ROUTERS))
 
 
 def awq_quantization_config(group_size: int = 128) -> dict:
@@ -481,9 +492,6 @@ def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16",
         write_tokenizer(out_dir, tokenizer)
     if quantization not in (None, "fp8", "awq"):
         raise ValueError(f"quantization must be None, 'fp8' or 'awq', got {quantization!r}")
-    if quantization is not None and (cfg.is_moe or cfg.vision is not None):
-        raise NotImplementedError(f"{cfg.name}: quantized MoE and multimodal checkpoints "
-                                  f"are not written")
     if fp8_strategy not in FP8_STRATEGIES:
         raise ValueError(f"fp8_strategy must be one of {FP8_STRATEGIES}, got {fp8_strategy!r}")
     st_dtype, elt = DTYPES[dtype]
@@ -540,10 +548,17 @@ def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16",
     with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
         json.dump(index, f, indent=1)
     hf = hf_config(cfg, dtype)
+    # the modules left unquantized (routers, the tower), as the published
+    # checkpoints name them
+    kept = (["mlp.gate", "block_sparse_moe.gate"] if cfg.is_moe else []) \
+        + (["visual", "vision_tower", "multi_modal_projector"] if cfg.vision is not None else [])
     if quantization == "fp8":
         hf["quantization_config"] = fp8_quantization_config(fp8_strategy)
+        hf["quantization_config"]["ignore"] += [f"re:.*{k}.*" for k in kept]
     elif quantization == "awq":
         hf["quantization_config"] = awq_quantization_config(group_size)
+        if kept:
+            hf["quantization_config"]["modules_to_not_convert"] = kept
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(hf, f, indent=1)
     return index

@@ -3,9 +3,12 @@
 
     python scripts/time_moe_variants.py            # check, then time every copy
     python scripts/time_moe_variants.py --check    # build and check the kernel only
+    python scripts/time_moe_variants.py --w8       # the same copies of the int8 kernel
+    python scripts/time_moe_variants.py --check --old DIR   # the kernel bit for bit
+                                                            # DIR/moe_experts.cu's
 
-Builds copies of ``llms_on_kubernetes_tpu_torch/csrc/moe_experts.cu`` side
-by side (into ``_variants/build_moe/``, git-ignored; each with
+Builds copies of ``llms_on_kubernetes_tpu_torch/csrc/moe_experts.cu`` (its
+body ``moe_stream.cuh`` patched) side by side (into ``_variants/build_moe/``, git-ignored; each with
 ``-Xcompiler -fno-gnu-unique`` so that two builds of one template in one
 process do not share its static locals), and the body before the Hopper
 redesign (``scripts/moe_experts_simple.cu``):
@@ -31,8 +34,15 @@ redesign (``scripts/moe_experts_simple.cu``):
   expert in one tile), not for four times an expert's even share;
 - ``simple``: the earlier body (``mma.sync``, 64 x 64 tiles, cp.async).
 
-The copies other than ``kernel`` and ``simple`` compute nothing useful and
-are timed only. Each is timed with ``chip_smoke.Timer`` (L2 flushed before
+With ``--w8`` every copy is built from ``moe_experts_w8.cu`` (the same
+body on int8 weight tiles) and run on int8 QTensor stacks quantized from
+the bf16 ones (no ``simple``; the bound counts the int8 bytes,
+``chip_smoke.moe_w8_work``; ``_grouped_mm`` still runs on the bf16
+stacks). With ``--old DIR`` (the ``csrc`` directory of an earlier tree,
+e.g. unpacked from ``git archive``) DIR's ``moe_experts.cu`` is built too
+and the bf16 kernel's output is held bit for bit to its output at every
+shape checked. The copies other than ``kernel`` and ``simple`` compute nothing
+useful and are timed only. Each is timed with ``chip_smoke.Timer`` (L2 flushed before
 each launch) at Qwen3-30B-A3B's widths (D 2,048, F 768, 128 experts top-8)
 at every R of ``chip_smoke.MOE_ROWS`` and at Mixtral-8x7B's (D 4,096, F
 14,336, 8 experts top-2) at R 16 and 8,192, in turns A B C ... C B A within
@@ -56,20 +66,20 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 CSRC = ROOT / "llms_on_kubernetes_tpu_torch" / "csrc"
-SOURCE = CSRC / "moe_experts.cu"
+SOURCE = CSRC / "moe_stream.cuh"       # the body the copies patch
 SIMPLE = ROOT / "scripts" / "moe_experts_simple.cu"
 MMA = [("      wgmma_rs<NX>(chain, af[P][kk], desc_b(st + kk * 32), !(first && kk == 0));",
         "      (void)st, (void)first;")]
-STREAM_EXPECT = "          mbar_expect(&full[s], 2 * kWTile + (GATED ? 0 : C::kXTile));"
+STREAM_EXPECT = "          mbar_expect(&full[s], 2 * C::kWT + (GATED ? 0 : C::kXTile));"
 GATHER = [("    cp16_if(q < kChunks, dst + swz(r, 16 * c),",
            "    cp16_if(false, dst + swz(r, 16 * c),")]
 SLICE_SUM = [("      for (int i = 0; i < NX / 2; ++i) tot[i] = s0 ? chain[i] : tot[i] + chain[i];",
               "      for (int i = 0; i < NX / 2; ++i) tot[i] = s0 ? chain[i] : tot[i];")]
 WLOAD = [(STREAM_EXPECT, "          mbar_expect(&full[s], GATED ? 0 : C::kXTile);"),
          ("          tma_load(st + C::kXTile, &tw0, c0, wrow + ld.k0, &full[s]);\n"
-          "          tma_load(st + C::kXTile + kWTile, &tw1, GATED ? c0 : c0 + kCols, "
+          "          tma_load(st + C::kXTile + C::kWT, &tw1, GATED ? c0 : c0 + kCols, "
           "wrow + ld.k0,\n                   &full[s]);\n", "")]
-XLOAD = [GATHER[0], (STREAM_EXPECT, "          mbar_expect(&full[s], 2 * kWTile);"),
+XLOAD = [GATHER[0], (STREAM_EXPECT, "          mbar_expect(&full[s], 2 * C::kWT);"),
          ("          if (!GATED) tma_load(st, &ta, ld.k0, tl.y, &full[s]);\n", "")]
 VARIANTS = {
     "kernel": [],
@@ -81,10 +91,10 @@ VARIANTS = {
                    "  sp.S = 1;\n  return sp;")],
     "no-wload": WLOAD,
     "no-xload": XLOAD,
-    "gateup-only": [("  if (e) return e;\n  return launch<false>(",
-                     "  if (e || R > 0) return e;\n  return launch<false>(")],
-    "down-only": [("  const int e = launch<true>(",
-                   "  const int e = 0 * R;\n  if (0) launch<true>(")],
+    "gateup-only": [("  if (e) return e;\n  return launch<false, W8>(",
+                     "  if (e || R > 0) return e;\n  return launch<false, W8>(")],
+    "down-only": [("  const int e = launch<true, W8>(",
+                   "  const int e = 0 * R;\n  if (0) launch<true, W8>(")],
     "stages-4": [("  static constexpr int kStages = kFit < 8 ? kFit : 8;",
                   "  static constexpr int kStages = kFit < 4 ? kFit : 4;")],
     "no-epilogue": [("        *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * N + nc + 8 * ch)"
@@ -97,11 +107,14 @@ SHAPES = [("qwen3-30b-a3b", R) for R in cs.MOE_ROWS] + [("mixtral-8x7b", 16),
                                                        ("mixtral-8x7b", 8192)]
 
 
-def build(check_only: bool) -> dict:
-    """{label: ctypes entry}, every nvcc started together."""
+def build(check_only: bool, w8: bool = False, old=None) -> dict:
+    """{label: ctypes entry}, every nvcc started together (``w8``: the
+    int8 kernel's copies; ``old``: a csrc directory whose moe_experts.cu is
+    built as ``old``)."""
     from llms_on_kubernetes_tpu_torch import kernels
 
-    out = ROOT / "_variants" / "build_moe"
+    entry = "moe_experts_w8.cu" if w8 else "moe_experts.cu"
+    out = ROOT / "_variants" / ("build_moe_w8" if w8 else "build_moe")
     out.mkdir(parents=True, exist_ok=True)
     text = SOURCE.read_text()
     procs = {}
@@ -115,14 +128,15 @@ def build(check_only: bool) -> dict:
             src = src.replace(old, new, 1)
         d = out / label
         d.mkdir(exist_ok=True)
-        (d / "moe_experts.cu").write_text(src)
-        for header in ("common.cuh", "hopper.cuh"):
+        (d / SOURCE.name).write_text(src)
+        for header in (entry, "common.cuh", "hopper.cuh"):
             (d / header).write_text((CSRC / header).read_text())
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-o",
-               str(d / "lib.so"), str(d / "moe_experts.cu")]
+               str(d / "lib.so"), str(d / entry)]
         procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                         text=True), d / "lib.so", "llmk_moe_experts")
-    if not check_only:
+                                         text=True), d / "lib.so",
+                        "llmk_moe_experts_w8" if w8 else "llmk_moe_experts")
+    if not check_only and not w8:
         d = out / "simple"
         d.mkdir(exist_ok=True)
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-o",
@@ -130,6 +144,13 @@ def build(check_only: bool) -> dict:
         procs["simple"] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True),
                            d / "lib.so", "llmk_moe_experts_simple")
+    if old is not None:
+        d = out / "old"
+        d.mkdir(exist_ok=True)
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-o",
+               str(d / "lib.so"), str(Path(old) / "moe_experts.cu")]
+        procs["old"] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                         text=True), d / "lib.so", "llmk_moe_experts")
     fns = {}
     for label, (proc, lib, symbol) in procs.items():
         log, _ = proc.communicate()
@@ -150,6 +171,8 @@ def build(check_only: bool) -> dict:
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
         if symbol == "llmk_moe_experts":
             fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        elif symbol == "llmk_moe_experts_w8":
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         else:
             fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -163,16 +186,20 @@ def call(torch, label: str, fn, x, src, counts, wg, wu, wd):
     R, E, D, Fd = src.shape[0], wg.shape[0], wg.shape[1], wg.shape[2]
     h = torch.empty((R, Fd), dtype=torch.bfloat16, device="cuda")
     y = torch.empty((R, D), dtype=torch.bfloat16, device="cuda")
-    args = [x.data_ptr(), src.data_ptr(), counts.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-            wd.data_ptr(), h.data_ptr(), y.data_ptr(), R]
+    w8 = hasattr(wg, "scale")           # int8 QTensor stacks: their data, then scales
+    args = [x.data_ptr(), src.data_ptr(), counts.data_ptr()]
+    args += [w.data.data_ptr() if w8 else w.data_ptr() for w in (wg, wu, wd)]
+    args += [w.scale.data_ptr() for w in (wg, wu, wd)] if w8 else []
+    args += [h.data_ptr(), y.data_ptr(), R]
     args += [E, D, Fd] if label == "simple" else [x.shape[0], E, D, Fd]
     kernels.check(f"moe_experts {label}", fn(*args, torch.cuda.current_stream().cuda_stream))
     return y
 
 
-def check(torch, fn, cfg, x, src, counts, wg, wu, wd, tag: str) -> None:
+def check(torch, fn, cfg, x, src, counts, wg, wu, wd, tag: str, old=None) -> None:
     """The kernel against the plain version (the bf16 row tolerance), and
-    rows alone (each an R-1 call, on 8-row tiles) bit-equal to them."""
+    rows alone (each an R-1 call, on 8-row tiles) bit-equal to them;
+    ``old``: every row bit-equal to that build's too."""
     from llms_on_kubernetes_tpu_torch.ops import moe
 
     E, rows = counts.shape[0], int(counts.sum())
@@ -180,6 +207,12 @@ def check(torch, fn, cfg, x, src, counts, wg, wu, wd, tag: str) -> None:
     want = moe.moe_experts_plain(x, src, counts, wg, wu, wd)
     cs.check_close(f"{tag} ({moe.moe_rows(src.shape[0], x.shape[0], E)}-row tiles)",
                    got[:rows], want[:rows], "bfloat16")
+    if old is not None:
+        prev = call(torch, "old", old, x, src, counts, wg, wu, wd)
+        if not torch.equal(got[:rows], prev[:rows]):
+            bad = int((got[:rows] != prev[:rows]).any(dim=1).sum())
+            cs.fail(f"{tag}: {bad} of {rows} rows differ from the earlier source's")
+        cs.say(f"  {tag}: every row bit for bit the earlier source's")
     expert_of = torch.repeat_interleave(torch.arange(E, device="cuda"), counts.long())
     for r in sorted({0, rows // 3, rows - 1}):
         one = torch.zeros((E,), dtype=torch.int32, device="cuda")
@@ -200,30 +233,40 @@ def main(argv) -> int:
 
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
-    check_only = "--check" in argv
+    check_only, w8 = "--check" in argv, "--w8" in argv
+    old_dir = argv[argv.index("--old") + 1] if "--old" in argv else None
+    if old_dir is not None and w8:
+        cs.fail("--old holds the bf16 kernel: not with --w8")
     card = cs.card_line()
-    fns = build(check_only)
+    fns = build(check_only, w8, old_dir)
+    old = fns.pop("old", None)
     timer = cs.Timer(torch)
+
+    def kernel_stacks(wg, wu, wd):      # what the copies run on
+        return cs.moe_w8_stacks(wg, wu, wd) if w8 else (wg, wu, wd)
+
     # debug-moe widths (D 64, F 96: a partial column tile and K slices of 32
     # rows) and a few R, checked only
     small = get_config("debug-moe")
     router, wg, wu, wd, gen = cs.moe_weights(torch, small)
+    ks = kernel_stacks(wg, wu, wd)
     for R in (1, 8, 32, 40, 128, 300):
         x, src, counts = cs.moe_inputs(torch, small, router, gen, R)
-        check(torch, fns["kernel"], small, x, src, counts, wg, wu, wd, f"debug-moe R{R}")
+        check(torch, fns["kernel"], small, x, src, counts, *ks, f"debug-moe R{R}", old)
     result = {}
     model = None
     for name, R in SHAPES:
         if name != model:
             model, cfg = name, get_config(name)
-            wg = wu = wd = None
+            wg = wu = wd = ks = None
             torch.cuda.empty_cache()
             router, wg, wu, wd, gen = cs.moe_weights(torch, cfg)
+            ks = kernel_stacks(wg, wu, wd)
         x, src, counts = cs.moe_inputs(torch, cfg, router, gen, R)
-        check(torch, fns["kernel"], cfg, x, src, counts, wg, wu, wd, f"{name} R{R}")
+        check(torch, fns["kernel"], cfg, x, src, counts, *ks, f"{name} R{R}", old)
         if check_only:
             continue
-        flops, nbytes, touched = cs.moe_work(cfg, x, counts, R)
+        flops, nbytes, touched = (cs.moe_w8_work if w8 else cs.moe_work)(cfg, x, counts, R)
         b_ms, b_by = cs.bound_ms(flops, nbytes, "bfloat16")
         lib_fn, why = cs.moe_library(torch, x, src, counts, wg, wu, wd)
         order = list(fns) + ["_grouped_mm"] + list(fns)[::-1]
@@ -235,7 +278,7 @@ def main(argv) -> int:
                     ms[label].append(timer(lib_fn, reps=reps))
                 continue
             fn = fns[label]
-            ms[label].append(timer(lambda: call(torch, label, fn, x, src, counts, wg, wu, wd),
+            ms[label].append(timer(lambda: call(torch, label, fn, x, src, counts, *ks),
                                    reps=reps))
         key = f"{name} R{R}"
         result[key] = {k: float(np.mean(v)) for k, v in ms.items() if v}
@@ -248,7 +291,7 @@ def main(argv) -> int:
         return 0
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     (ROOT / "chiprun_out" / "moe_variants.json").write_text(
-        json.dumps({"card": card, "ms": result}, indent=1))
+        json.dumps({"card": card, "weights": "int8" if w8 else "bf16", "ms": result}, indent=1))
     cs.say(f"[{card}]")
     return 0
 

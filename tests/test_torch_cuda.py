@@ -2038,6 +2038,104 @@ def test_moe_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     _close(got, moe.moe_experts_plain(x, src, counts, wg, wu, wd), torch.bfloat16)
 
 
+# ---------------------------------------------------------------------------
+# the int8 expert kernel (csrc/moe_experts_w8.cu): QTensor stacks quantized
+# per (expert, output column), as the JAX quantize_params quantizes them
+# ---------------------------------------------------------------------------
+
+def _moe_w8(E=128, D=2048, F=768, seed=0):
+    return tuple(tquant.quantize(w, (1,)) for w in _moe_weights(E, D, F, seed))
+
+
+@pytest.mark.parametrize("R", [1, 8, 64, 512])
+def test_moe_experts_w8_kernel_matches_plain(cuda, R):
+    """The int8 kernel against moe_experts_plain on the same stacks (each
+    product with qeinsum's two roundings), one launch a gate/up and one a
+    down pass."""
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    qg, qu, qd = _moe_w8()
+    N = max(1, R // 8)
+    x = _t(cuda, N, 2048, dtype=torch.bfloat16)
+    src, counts, _ = _moe_rows(cuda, R, 128, N)
+    before = kernels.LAUNCHES["moe_experts_w8"]
+    got = moe.moe_experts(x, src, counts, qg, qu, qd)
+    want = moe.moe_experts_plain(x, src, counts, qg, qu, qd)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["moe_experts_w8"] == before + 2
+    _close(got, want, torch.bfloat16)
+
+
+def test_moe_experts_w8_rows_bit_equal_across_R(cuda):
+    """A row's output is the same bits alone (R 1, 8-row tiles) and among
+    64 and 512 rows (tiles of up to 128 rows), wherever it falls in its
+    tile."""
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    qg, qu, qd = _moe_w8()
+    x = _t(cuda, 512, 2048, dtype=torch.bfloat16)
+    for R, N in ((64, 8), (512, 64), (512, 512)):
+        src, counts, experts = _moe_rows(cuda, R, 128, N)
+        many = moe.moe_experts(x[:N], src, counts, qg, qu, qd).clone()
+        for r in (0, 1, R // 3, R - 1):
+            one = torch.zeros(128, dtype=torch.int32, device="cuda")
+            one[int(experts[r])] = 1
+            alone = moe.moe_experts(x[:N], src[r:r + 1].contiguous(), one, qg, qu, qd)
+            assert torch.equal(alone[0], many[r]), (R, N, r)
+
+
+@pytest.mark.parametrize("R,N", [(1, 1), (40, 20), (300, 150)])
+def test_moe_experts_w8_at_debug_moe_widths(cuda, R, N):
+    """debug-moe's widths (D 64, F 96: a partial column tile, so scales past
+    N are never read into a stored row; K slices of 32 rows)."""
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    qg, qu, qd = _moe_w8(E=4, D=64, F=96)
+    x = _t(cuda, N, 64, dtype=torch.bfloat16)
+    src, counts, experts = _moe_rows(cuda, R, 4, N)
+    got = moe.moe_experts(x, src, counts, qg, qu, qd).clone()
+    _close(got, moe.moe_experts_plain(x, src, counts, qg, qu, qd), torch.bfloat16)
+    for r in sorted({0, R // 2, R - 1}):
+        one = torch.zeros(4, dtype=torch.int32, device="cuda")
+        one[int(experts[r])] = 1
+        alone = moe.moe_experts(x, src[r:r + 1].contiguous(), one, qg, qu, qd)
+        assert torch.equal(alone[0], got[r]), (R, r)
+
+
+def test_moe_block_int8_on_the_card_equals_its_plain_parts(cuda):
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    qg, qu, qd = _moe_w8()
+    N = 96
+    x = _t(cuda, N, 2048, dtype=torch.bfloat16)
+    router = _t(cuda, 2048, 128, dtype=torch.bfloat16) * 2048 ** -0.5
+    valid = torch.arange(N, device="cuda") < 80
+    ws = moe.MoEWorkspace(N * 8, 2048, 768, torch.bfloat16, torch.device("cuda"))
+    got = moe.moe_block(x, router, qg, qu, qd, top_k=8, valid=valid, workspace=ws)
+    route = moe.moe_route(x, router, top_k=8, valid=valid)
+    want = moe.moe_combine(moe.moe_experts_plain(x, route.src, route.counts, qg, qu, qd), route)
+    torch.cuda.synchronize()
+    assert not got[80:].any()
+    _close(got[:80], want[:80], torch.bfloat16)
+
+
+def test_moe_experts_w8_refuses_what_the_kernel_does_not_take(cuda):
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    wg, wu, wd = _moe_weights(E=4, D=64, F=96)
+    qg, qu, qd = (tquant.quantize(w, (1,)) for w in (wg, wu, wd))
+    x = _t(cuda, 4, 64, dtype=torch.bfloat16)
+    src = torch.zeros(8, dtype=torch.int32, device="cuda")
+    counts = torch.tensor([8, 0, 0, 0], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        moe.moe_experts(x.float(), src, counts, qg, qu, qd)
+    with pytest.raises(ValueError):
+        moe.moe_experts(x, src, counts, qg, wu, wd)          # mixed stacks
+    with pytest.raises(ValueError):
+        moe.moe_experts(x, src, counts, qg, qu,
+                        tquant.QTensor(qd.data, qd.scale.reshape(4, 64, 1)))
+
+
 def _image_groups(T, runs):
     g = torch.full((2, T), -1, dtype=torch.int32)
     for b, row in enumerate(runs):

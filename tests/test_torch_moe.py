@@ -16,8 +16,7 @@
   tensor as the JAX loader loads them; the registry's MoE entries equal
   the JAX ones.
 - What stays refused: LoRA on the MLP of an MoE model (the JAX
-  ValueError) and quantized MoE weights (NotImplementedError naming the
-  ROADMAP item).
+  ValueError). Quantized MoE weights are tests/test_torch_moe_quant.py's.
 """
 
 import dataclasses
@@ -262,7 +261,7 @@ def test_greedy_streams_equal_jax_engine(prompts):
 
 
 # ---------------------------------------------------------------------------
-# checkpoints, registry, refusals
+# checkpoints, registry, refusal
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("naming", ["mixtral", "qwen3_moe"])
@@ -307,13 +306,3 @@ def test_lora_on_moe_mlp_is_refused_as_jax():
         JEngine(JEngineConfig(**{k: v for k, v in kw.items() if k != "device"},
                               adapters={"a": "/nonexistent"}))
 
-
-def test_quantized_moe_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3a"):
-        Engine(EngineConfig(**SMALL, device="cpu", quantization="int8"))
-    sc.write_checkpoint(get_config("debug-moe"), str(tmp_path), dtype="float32")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        load_hf_params(get_config("debug-moe"), str(tmp_path), device="cpu",
-                       quantization="int8")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        sc.write_checkpoint(get_config("debug-moe"), str(tmp_path / "q"), quantization="awq")

@@ -44,6 +44,8 @@ from llms_on_kubernetes_tpu_torch import kernels
 from llms_on_kubernetes_tpu_torch.ops import moe
 
 SOURCE = Path(kernels.CSRC) / "moe_experts.cu"
+BODY = Path(kernels.CSRC) / "moe_stream.cuh"      # the body both expert kernels share
+W8_SOURCE = Path(kernels.CSRC) / "moe_experts_w8.cu"
 MOE_MODELS = sorted(n for n, c in tconfigs.REGISTRY.items() if c.num_experts)
 
 
@@ -160,8 +162,8 @@ def test_the_tile_follows_rows_an_expert_can_hold(R, N, E):
 
 
 def test_the_mirrors_name_the_kernels_constants():
-    """The tile sizes the mirrors assume are the ones the source sets."""
-    text = SOURCE.read_text()
+    """The tile sizes the mirrors assume are the ones the body sets."""
+    text = BODY.read_text()
     for name, want in (("kCols", moe.MOE_COLS), ("kMaxPow2Rows", moe.MOE_POW2_ROWS),
                        ("kPreRows", moe.MOE_PREFILL_ROWS), ("kMaxExperts", moe.MOE_MAX_EXPERTS)):
         m = re.search(rf"constexpr int {name} = (\d+);", text)
@@ -188,6 +190,11 @@ def test_c_entries_match_their_bindings():
         lib, symbol, argtypes = kernels._EXTRA_ENTRIES[name]
         assert lib == "moe_experts"
         assert _params(text, symbol) == [a.__name__ for a in argtypes]
+    # the int8 kernel's entry: the three scale pointers after the weights
+    symbol, argtypes = kernels._SIGNATURES["moe_experts_w8"]
+    assert symbol == "llmk_moe_experts_w8"
+    assert _params(W8_SOURCE.read_text(), symbol) == [a.__name__ for a in argtypes]
+    assert len(argtypes) == 17
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,8 @@ HuggingFace ``transformers``, on tiny random checkpoints written by
 - The port's ``forward_prefill`` over those weights gives HF's last-token
   logits within rtol = atol = 4e-3 (the JAX test's tolerance: float32,
   two implementations' summation orders and activation forms).
-- quantized MoE, vision and pre-quantized checkpoints raise NotImplementedError;
-  ``resolve_model_dir`` finds what the JAX one finds.
+- a Mixtral checkpoint loads under ``quantization="int8"`` with the JAX
+  loader's int8 stacks; ``resolve_model_dir`` finds what the JAX one finds.
 """
 
 import json
@@ -163,17 +163,34 @@ def test_prefill_logits_match_transformers(checkpoint):
 
 
 def test_moe_vision_and_quantized_checkpoints_raise(tmp_path):
-    """What the port does not load is refused with its reason, before any
-    tensor is read."""
+    """What the port loads now that it once refused: a transformers-written
+    Mixtral checkpoint under ``quantization="int8"`` gives the JAX
+    loader's int8 expert stacks and scales (the router in the dtype), and
+    a vision config goes on to the directory (which raises here for
+    holding no weights)."""
+    from llms_on_kubernetes_tpu.ops.quant import QTensor as JQTensor
+    from llms_on_kubernetes_tpu_torch.ops.quant import QTensor
+
     torch.manual_seed(0)
     moe = transformers.MixtralForCausalLM(transformers.MixtralConfig(
         num_local_experts=4, num_experts_per_tok=2, **COMMON))
     moe.save_pretrained(tmp_path / "moe", safe_serialization=True)
-    cfg = from_hf_config(str(tmp_path / "moe" / "config.json"), name="moe")
-    # MoE checkpoints load (tests/test_torch_moe.py); quantized MoE weights
-    # are not ported
-    with pytest.raises(NotImplementedError, match="MoE"):
-        load_hf_params(cfg, str(tmp_path / "moe"), device="cpu", quantization="int8")
+    hf = str(tmp_path / "moe" / "config.json")
+    got = load_hf_params(from_hf_config(hf, name="moe"), str(tmp_path / "moe"), device="cpu",
+                         quantization="int8")
+    want = j_load_hf_params(j_from_hf_config(hf, name="moe"), str(tmp_path / "moe"),
+                            quantization="int8")
+    for name, w in want["layers"].items():
+        g = got["layers"][name]
+        assert isinstance(g, QTensor) == isinstance(w, JQTensor), name
+        if isinstance(w, JQTensor):
+            np.testing.assert_array_equal(g.data.numpy(), np.asarray(w.data), err_msg=name)
+            np.testing.assert_array_equal(g.scale.numpy(), np.asarray(w.scale), err_msg=name)
+        else:
+            np.testing.assert_array_equal(g.float().numpy(), np.asarray(w).astype(np.float32),
+                                          err_msg=name)
+    assert isinstance(got["layers"]["w_gate"], QTensor)
+    assert not isinstance(got["layers"]["router"], QTensor)
 
     # a vision tower is loaded now (both loaders on synthetic multimodal
     # checkpoints: tests/test_torch_multimodal.py): no refusal, the loader
