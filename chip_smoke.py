@@ -15,7 +15,8 @@ Phases, each fatal on failure:
    prefill body, of the two bf16 W8A16 bodies, w8_matmul_decode and
    w8_matmul_prefill, and the HGMMA of the two bf16 W4A16 bodies,
    w4_matmul_decode and w4_matmul_prefill, and of the MoE expert kernels'
-   moe_stream (bf16 and int8 weights; ``cuobjdump -sass``), and fail if
+   moe_stream (bf16 and int8 weights) and the int8 decode body moe_spread
+   (``cuobjdump -sass``), and fail if
    any has none, or if either expert kernel's ptxas report (read back from
    beside its library where it was built before) is missing, serializes
    its wgmma (C7520) or shows a spill store or load. Three timing variants
@@ -347,7 +348,10 @@ Phases, each fatal on failure:
    ``torch._grouped_mm``, kernel) beside the plain version and the bound
    of the experts touched; the int8 expert kernel
    (``csrc/moe_experts_w8.cu``) against ``moe_experts_plain`` on the same
-   QTensor stacks at the same shapes, rows alone bit-equal to them, timed
+   QTensor stacks at the same shapes and at Mixtral's R 16 over 6 experts
+   (the down launch's imbalance case, spread over clusters of 8 blocks),
+   its decode body's cluster size held to ``ops/moe.moe_spread_blocks``,
+   rows alone bit-equal to them, timed
    in turns with the bf16 kernel and ``torch._grouped_mm`` on bf16 stacks
    of the shape beside the bound of the int8 bytes touched, and its
    refusals; kernels 1 and 2 at the
@@ -370,12 +374,15 @@ Phases, each fatal on failure:
    ``/health`` seconds with the warm-up, then with ``--no-warmup``. D:
    qwen3-30b-a3b cut to 2 layers at full width, written as a bf16, an fp8
    and an AWQ Qwen3-MoE checkpoint (3.74, 2.50 and 1.89 GB, routers in
-   bf16) by ``synth_checkpoint`` while phase 8 and A to C run, each loaded
+   bf16; the bf16 one with Qwen3's tokenizer files, the ``"qwen3"``
+   layout) by ``synth_checkpoint`` while phase 8 and A to C run, each loaded
    in process (layer 0's router held to the file; expert 5 to the file,
    bit for bit in bf16, and for fp8 and AWQ its int8 bytes and scales to
    the file's tensors dequantized and quantized as the JAX loader does)
    and served from its directory: the server's 16 greedy ids equal the
-   in-process engine's, its logprobs within the bf16 tolerance; the bf16
+   in-process engine's, its logprobs within the bf16 tolerance, and the
+   bf16 one's ``/tokenize`` of the probes equal to ``TOKENIZER_PROBES["qwen3"]``
+   (its eos stop too); the bf16
    checkpoint through the bf16 expert kernel, the fp8 and AWQ ones through
    the int8 expert and W8A16 kernels, never the other expert kernel. E: Mixtral-8x7B
    (46.70 B parameters) with int8 weights drawn by ``init_params(quantize=
@@ -3871,7 +3878,7 @@ def _drive_tokenizer(base: str, model: str, family: str) -> dict:
     if d["usage"]["prompt_tokens"] != len(want["chat"]):
         fail(f"{family} chat prompt_tokens {d['usage']['prompt_tokens']} != "
              f"{len(want['chat'])}")
-    eos = {"llama3": 128009, "phi3": 32007}[family]
+    eos = {"llama3": 128009, "phi3": 32007, "qwen3": 151645}[family]
     d = _post_ok(base + "/v1/chat/completions", {"model": model, "messages": chat,
                                                   "max_tokens": 8, "temperature": 0,
                                                   "logit_bias": {str(eos): 100}})
@@ -6800,15 +6807,24 @@ def moe_weights(torch, cfg, seed: int = 16):
             w(E, D, Fd, scale=D ** -0.5), w(E, Fd, D, scale=Fd ** -0.5), gen)
 
 
-def moe_inputs(torch, cfg, router, gen, R: int):
+def moe_inputs(torch, cfg, router, gen, R: int, touched: int = 0):
     """(x, src, counts) for R expert-major rows: R / k random tokens routed
     by ``router`` (near-uniform over the experts), or one token's single
-    claim on expert 37 (the last where there are fewer) when R is 1."""
+    claim on expert 37 (the last where there are fewer) when R is 1.
+    ``touched`` > 0: the R rows split as evenly as they go over that many
+    experts drawn from ``gen`` instead (each row a random token)."""
     from llms_on_kubernetes_tpu_torch.ops import moe
 
     D, E, k = cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_tok
     N = max(1, R // k)
     x = torch.randn((N, D), generator=gen, device="cuda").to(torch.bfloat16)
+    if touched:
+        chosen = torch.randperm(E, generator=gen, device="cuda")[:touched].sort().values
+        counts = torch.zeros((E,), dtype=torch.int32, device="cuda")
+        counts[chosen] = torch.tensor([R // touched + (i < R % touched) for i in range(touched)],
+                                      dtype=torch.int32, device="cuda")
+        src = torch.randint(0, N, (R,), generator=gen, device="cuda", dtype=torch.int32)
+        return x, src, counts
     if R == 1:
         counts = torch.zeros((E,), dtype=torch.int32, device="cuda")
         counts[min(37, E - 1)] = 1
@@ -7005,18 +7021,35 @@ def moe_w8_kernel_checks(torch, timer) -> dict:
     from llms_on_kubernetes_tpu_torch.configs import get_config
     from llms_on_kubernetes_tpu_torch.ops import moe
 
+    from llms_on_kubernetes_tpu_torch import kernels
+
     say("kernel moe_experts_w8 (the port's own: the routed expert FFN on int8 expert stacks, "
         "which JAX ops/moe.py::moe_block runs as qeinsum, left to XLA)")
     err, timings, lib_note = 0.0, {}, None
-    for model, rows_list in ((MOE_MODEL, MOE_ROWS), (MOE_MIXTRAL, MOE_MIXTRAL_ROWS)):
+    spread = kernels.function("moe_spread")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # Mixtral R 16 over 6 experts: the down launch's imbalance case (192
+    # items for the SMs), its slices spread over clusters of 8 blocks
+    cases = ((MOE_MODEL, [(R, 0) for R in MOE_ROWS]),
+             (MOE_MIXTRAL, [(R, 0) for R in MOE_MIXTRAL_ROWS] + [(16, 6)]))
+    for model, rows_list in cases:
         cfg = get_config(model)
         E, D, Fd, k = (cfg.num_experts, cfg.hidden_size, cfg.intermediate_size,
                        cfg.num_experts_per_tok)
+        blocks = []
+        for K, N, gated in ((D, Fd, True), (Fd, D, False)):
+            kc = spread(K, N, int(gated), E, sms)
+            if kc != moe.moe_spread_blocks(K, N, gated, E, sms):
+                fail(f"moe_experts_w8: the decode body spreads K {K}, N {N} over {kc} blocks, "
+                     f"ops/moe.moe_spread_blocks says {moe.moe_spread_blocks(K, N, gated, E, sms)}")
+            blocks.append(kc)
+        say(f"  {model}: the decode body's cluster (gate/up, down) {tuple(blocks)} "
+            f"(0: the shared body; {sms} SMs), as ops/moe.moe_spread_blocks")
         torch.cuda.empty_cache()
         router, wg, wu, wd, gen = moe_weights(torch, cfg, seed=18)
         qg, qu, qd = moe_w8_stacks(wg, wu, wd)
-        for R in rows_list:
-            x, src, counts = moe_inputs(torch, cfg, router, gen, R)
+        for R, over in rows_list:
+            x, src, counts = moe_inputs(torch, cfg, router, gen, R, over)
             tiles = f"{moe.moe_rows(R, x.shape[0], E)}-row tiles"
             got = moe.moe_experts(x, src, counts, qg, qu, qd)
             want = moe.moe_experts_plain(x, src, counts, qg, qu, qd)
@@ -7042,7 +7075,8 @@ def moe_w8_kernel_checks(torch, timer) -> dict:
             t2 = timer(lambda: moe.moe_experts(x, src, counts, qg, qu, qd), reps=reps)
             plain = timer(lambda: moe.moe_experts_plain(x, src, counts, qg, qu, qd), reps=3)
             key = (f"{'' if model == MOE_MODEL else model + ' '}R{R} ({max(1, R // k)} tokens x "
-                   f"top-{k}) D{D} F{Fd} E{E} int8 weights")
+                   f"top-{k}{f', rows over {over} experts' if over else ''}) D{D} F{Fd} "
+                   f"E{E} int8 weights")
             timings[key] = dict(ms=(t1 + t2) / 2, bf16_kernel_ms=bf16, plain_ms=plain,
                                 bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                                 experts_touched=touched, tiles=tiles)
@@ -7052,7 +7086,7 @@ def moe_w8_kernel_checks(torch, timer) -> dict:
             del got, want
         del router, wg, wu, wd, qg, qu, qd
     say(f"  batch invariance: rows alone equal them among {MOE_ROWS} rows ({MOE_MODEL}) and "
-        f"{MOE_MIXTRAL_ROWS} ({MOE_MIXTRAL}), bit for bit")
+        f"{MOE_MIXTRAL_ROWS} and 16 over 6 experts ({MOE_MIXTRAL}), bit for bit")
     if lib_note:
         say(f"  library_ms none: {lib_note}")
     cfg = get_config("debug-moe")
@@ -7199,7 +7233,7 @@ def moe_split(torch, eng, prompts, n_tokens: int) -> dict:
                 e, "is_user_annotation", False):
             continue
         ms = e.self_device_time_total / 1e3
-        if "moe_stream" in e.key:
+        if "moe_stream" in e.key or "moe_spread" in e.key:    # the expert kernels' bodies
             parts["experts"] += ms
         elif any(k in e.key for k in ("flash_prefill", "paged_decode", "write_window")):
             parts["attention"] += ms
@@ -7383,14 +7417,14 @@ def _drive_moe_router(cfg, model: str = MOE_MODEL, tag: str = MOE_PATH,
 
 def start_moe_writes() -> dict:
     """Write qwen3-30b-a3b cut to MOE_CKPT_LAYERS layers at full width (the
-    Qwen3-MoE tensor names), in bf16, as an fp8 and as an AWQ checkpoint
-    (the routers kept in bf16, as published), each in a process of its
-    own."""
+    Qwen3-MoE tensor names), in bf16 with Qwen3's tokenizer files (the
+    ``"qwen3"`` layout), as an fp8 and as an AWQ checkpoint (the routers
+    kept in bf16, as published), each in a process of its own."""
     writes = {}
     for q in MOE_CKPT_QUANTS:
         cmd = [sys.executable, "-m", "llms_on_kubernetes_tpu_torch.testing.synth_checkpoint",
                MOE_MODEL, MOE_DIRS[q], "--layers", str(MOE_CKPT_LAYERS),
-               *([] if q == "bf16" else [f"--{q}"])]
+               *(["--tokenizer", "qwen3"] if q == "bf16" else [f"--{q}"])]
         writes[q] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True), time.perf_counter())
     return writes
@@ -7480,7 +7514,10 @@ def moe_checkpoint(torch, writes: dict) -> dict:
             if status != 200:
                 fail(f"{tag}: HTTP {status} {body[:200]!r}")
             lps = json.loads(body)["choices"][0]["logprobs"]["token_logprobs"]
-            return {"ids": ids, "lps": lps, "launches": kernel_counts(base)["launches"]}
+            out = {"ids": ids, "lps": lps, "launches": kernel_counts(base)["launches"]}
+            if q == "bf16":     # the directory's own Qwen3 tokenizer.json, read by the port
+                _drive_tokenizer(base, MOE_MODEL, "qwen3")
+            return out
 
         served = with_server(["--model", path, "--served-model-name", MOE_MODEL],
                              f"chip_smoke_moe_ckpt_{q}.log", drive, pool_args=())
@@ -8394,6 +8431,11 @@ def main(argv) -> int:
         f"(bf16) functions")
     if not funcs or not hmma:
         fail("the int8 expert kernel's body moe_stream has no wgmma (HGMMA) instruction")
+    hmma, funcs = sass_mma_count(kernels.library_path("moe_experts_w8"), "moe_spread", "HGMMA")
+    say(f"sass moe_spread (the int8 decode body): {hmma} HGMMA instructions in {funcs} "
+        f"tensor-core (bf16) functions")
+    if not funcs or not hmma:
+        fail("the int8 expert kernel's decode body moe_spread has no wgmma (HGMMA) instruction")
     for lib in ("moe_experts", "moe_experts_w8"):
         moe_faults = ptxas_faults(kernels.build_log.get(lib), "moe_stream")
         if moe_faults:

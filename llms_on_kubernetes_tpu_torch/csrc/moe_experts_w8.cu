@@ -30,8 +30,22 @@
 // What bounds it on the H100: at decode (8 tokens x top-2 of Mixtral-8x7B)
 // the int8 bytes of the experts the step touches (176 MB an expert at D
 // 4,096, F 14,336), half the bf16 kernel's; at prefill the bf16
-// tensor-core rate, with the conversion's integer work beside wgmma.
+// tensor-core rate, with the conversion's integer work beside wgmma. One
+// chain of small wgmma steps a consumer held the shared body to 2.2x the
+// byte bound at decode, so the int8 tiles of 8 to 32 rows take their own
+// body where the K split allows (moe_stream.cuh moe_spread): two slices
+// side by side in each consumer warpgroup, 128 k rows a stage, and where
+// the launch makes few items, an item's slices spread over a cluster and
+// folded in order through distributed shared memory. Every int8 tile is
+// read by ldmatrix.trans.
 #include "moe_stream.cuh"
+
+// the int8 decode body's cluster size for a launch over K rows with N
+// outputs (gated: the gate/up launch) and E experts on a card of `sms` SMs
+// (ops/moe.py::moe_spread_blocks mirrors it)
+extern "C" int llmk_moe_spread(int K, int N, int gated, int E, int sms) {
+  return spread_blocks(K, N, gated != 0, E, sms);
+}
 
 // x [Nx, D] bf16; src [R] int32; counts [E] int32 (as llmk_moe_experts);
 // w_gate, w_up [E, D, F] and w_down [E, F, D] int8; s_gate, s_up [E, F] and

@@ -1,7 +1,9 @@
 // The routed expert FFN's body for Hopper (sm_90a), shared by the bf16
 // expert kernel (moe_experts.cu) and the int8 one (moe_experts_w8.cu): the
 // template argument W8 picks the weight tiles and the epilogue, nothing
-// else, so both kernels run one walk, one K split and one order of sums.
+// else, so both kernels run one walk, one K split and one order of sums
+// (the int8 kernel's decode tiles run moe_spread, below: the same split and
+// order of sums, reached another way).
 //
 // For every expert-major row r of expert e (ops/moe.py::moe_route puts
 // each kept (token, choice) claim at a row of rows [offset_e, offset_e +
@@ -41,10 +43,12 @@
 // the shared-memory B operand, so the rows are wgmma's N and a tile pads at
 // most to 8 rows. A bf16 tile ([64 k, 64 columns], 128-byte rows, 128-byte
 // swizzle) is read by ldmatrix.trans; an int8 tile ([64 k, 64 columns],
-// 64-byte rows, 64-byte swizzle, half the bytes) by four 16-bit shared
-// loads a step, converted to bf16 in registers (s8_pair, exact: no bf16
-// copy of a weight is ever written). Column 16 wn + 2c + h of an int8
-// tile is A row c + 8h of warp wn (column 16 wn + c + 8h for bf16). Hopper's
+// 64-byte rows, 64-byte swizzle, half the bytes) by ldmatrix.trans too, as
+// b16 words (one x4 for two steps; 16-bit shared loads measured 5% slower
+// at Mixtral's decode shape), converted to bf16 in registers (s8_word,
+// exact: no bf16 copy of a weight is ever written). Column 16 wn + 2c + h
+// of an int8 tile is A row c + 8h of warp wn (column 16 wn + c + 8h for
+// bf16). Hopper's
 // TMA has no row gather: the gate/up launch copies its rows x[src[r]] 16
 // bytes at a time with cp.async into the swizzle the descriptor reads
 // (completion counted on the stage's mbarrier: cp.async.mbarrier.arrive
@@ -69,7 +73,9 @@
 // registers, and the epilogue stages the tile in shared memory for 16-byte
 // row stores while the producer already loads the next item. The grid is
 // one block an SM and the work is found on the card with no host read, so
-// a captured CUDA graph holds the two launches as they are.
+// a captured CUDA graph holds the two launches as they are. The int8
+// kernel runs its tiles of 8 to 32 rows on a body of its own, moe_spread
+// (below), where its K split allows.
 //
 // ptxas serializes every wgmma of a function (C7520, printed by
 // chip_smoke.py's ptxas report) that touches an accumulator while a wgmma
@@ -196,25 +202,50 @@ __device__ __forceinline__ int swz64(int r, int b) {
   return r * 64 + ((((b >> 4) ^ (r >> 1)) & 3) << 4) + (b & 15);
 }
 
-// A fragments of step kk for warp wn. bf16: the staged weight tile's
-// columns 16 wn .. + 15 as wgmma rows, k rows 16 kk .. + 15, by
+// bytes J and 2 + J of w (k rows 2tq and 2tq + 1 of one column, as
+// ldmatrix.trans gives them) as one bf16 pair, exactly: s8_pair on one word
+template <int J>
+__device__ __forceinline__ uint32_t s8_word(uint32_t w) {
+  constexpr uint32_t kSel = J | (J << 4) | ((2 + J) << 8) | ((2 + J) << 12);
+  const uint32_t p = __byte_perm(w, 0u, kSel);
+  const uint32_t v = (p & 0x007F007Fu) | 0x43004300u;  // 128 + l
+  const uint32_t s = (p & 0x00800080u) | 0x43004300u;  // 128 + 128 h
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(s), "r"(0xBF80BF80u), "r"(v));
+  return r;  // v - s
+}
+
+// A fragments of the four steps of a staged 64-deep tile for warp wn. bf16:
+// the tile's columns 16 wn .. + 15 as wgmma rows, k rows 16 kk .. + 15, by
 // ldmatrix.trans (matrix j of four: columns + 8 (j & 1), k rows + 8 (j >>
-// 1)). int8: the two bytes at columns 16 wn + 2g, + 1 (A rows g and g + 8)
-// of k rows 16 kk + 2tq, + 1, + 8, + 9, converted exactly
+// 1)). int8: the tile read as b16 words (two columns a word), the warp's
+// 16-byte chunk of 32 k rows by one ldmatrix.x4.trans (matrix j: k rows 8j
+// .. 8j + 7, its 8 rows 64 bytes apart in 4 distinct chunks of the 64-byte
+// swizzle, so no bank conflict), which gives lane (g, tq) the words of
+// columns 16 wn + 2g, + 1 (A rows g and g + 8) at k rows 2tq and 2tq + 1 in
+// one register: k rows 16 kk + 2tq, + 1, + 8, + 9 of two steps; converted
+// exactly
 template <bool W8>
-__device__ __forceinline__ void w_frags(uint32_t (&f)[4], const uint8_t* w, int kk, int wn,
+__device__ __forceinline__ void w_frags(uint32_t (&f)[kBK / 16][4], const uint8_t* w, int wn,
                                         int lane) {
   if constexpr (W8) {
-    const int r = kk * 16 + 2 * (lane & 3), b = wn * 16 + 2 * (lane >> 2);
-    const uint32_t w0 = *reinterpret_cast<const uint16_t*>(w + swz64(r, b));
-    const uint32_t w1 = *reinterpret_cast<const uint16_t*>(w + swz64(r + 1, b));
-    const uint32_t w2 = *reinterpret_cast<const uint16_t*>(w + swz64(r + 8, b));
-    const uint32_t w3 = *reinterpret_cast<const uint16_t*>(w + swz64(r + 9, b));
-    f[0] = s8_pair<0>(w0, w1), f[1] = s8_pair<1>(w0, w1);
-    f[2] = s8_pair<0>(w2, w3), f[3] = s8_pair<1>(w2, w3);
+#pragma unroll
+    for (int h = 0; h < kBK / 32; ++h) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, w + swz64(32 * h + lane, wn * 16));
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t(&fk)[4] = f[2 * h + j];
+        fk[0] = s8_word<0>(r[2 * j]), fk[1] = s8_word<1>(r[2 * j]);
+        fk[2] = s8_word<0>(r[2 * j + 1]), fk[3] = s8_word<1>(r[2 * j + 1]);
+      }
+    }
   } else {
-    const int k = kk * 16 + ((lane >> 4) & 1) * 8 + (lane & 7);
-    ldmatrix_x4_trans(f, w + swz(k, wn * 32 + ((lane >> 3) & 1) * 16));
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const int k = kk * 16 + ((lane >> 4) & 1) * 8 + (lane & 7);
+      ldmatrix_x4_trans(f[kk], w + swz(k, wn * 32 + ((lane >> 3) & 1) * 16));
+    }
   }
 }
 
@@ -228,13 +259,12 @@ __device__ __forceinline__ int acc_col(int i, int wn, int g) {
 // the gate/up launch's rows of one stage, by one warpgroup: NROWS rows of
 // x [*, K] at k0 through the row indices `arow` (-1: zeros), 16-byte chunks
 // into a tile of 128-byte rows (128-byte swizzle); thread i copies chunks
-// i, i + 128, ..., then arrives on the stage's barrier (gathering with
-// fewer threads measured slower: the copies' issue, not their arrivals, is
-// what costs)
+// i, i + 128, ...; the caller then arrives on the stage's barrier
+// (cp_arrive; gathering with fewer threads measured slower: the copies'
+// issue, not their arrivals, is what costs)
 template <int NROWS>
 __device__ __forceinline__ void gather_rows(uint8_t* dst, const __nv_bfloat16* x,
-                                            const int* arow, int k0, int K, int tid,
-                                            uint64_t* bar) {
+                                            const int* arow, int k0, int K, int tid) {
   constexpr int kChunks = NROWS * 8;
 #pragma unroll 2
   for (int j = 0; j < (kChunks + 127) / 128; ++j) {
@@ -244,7 +274,6 @@ __device__ __forceinline__ void gather_rows(uint8_t* dst, const __nv_bfloat16* x
     cp16_if(q < kChunks, dst + swz(r, 16 * c),
             x + (in ? (size_t)ar * K + k0 + 8 * c : 0), in);
   }
-  cp_arrive(bar);
 }
 
 // -- the body: persistent blocks, a producer and two consumers ----------------
@@ -338,7 +367,10 @@ moe_stream(const __grid_constant__ CUtensorMap tw0, const __grid_constant__ CUte
                    &full[s]);
           if (!GATED) tma_load(st, &ta, ld.k0, tl.y, &full[s]);
         }
-        if constexpr (GATED) gather_rows<NX>(st, x, arow, ld.k0, K, p, &full[s]);
+        if constexpr (GATED) {
+          gather_rows<NX>(st, x, arow, ld.k0, K, p);
+          cp_arrive(&full[s]);
+        }
         ld.next(sp);
       }
     }
@@ -363,9 +395,7 @@ moe_stream(const __grid_constant__ CUtensorMap tw0, const __grid_constant__ CUte
   auto arrive_frags = [&](uint32_t(&f)[kBK / 16][4], int t) {
     mbar_wait(&full[t % C::kStages], (t / C::kStages) & 1);
     if constexpr (GATED) fence_async_smem();
-    const uint8_t* w = ring + (t % C::kStages) * C::kStage + C::kXTile + T * C::kWT;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) w_frags<W8>(f[kk], w, kk, wn, lane);
+    w_frags<W8>(f, ring + (t % C::kStages) * C::kStage + C::kXTile + T * C::kWT, wn, lane);
   };
   // the item's epilogue, with no wgmma in flight: gate/up, the up
   // warpgroup's rounded sums pass through shared memory to the gate
@@ -472,6 +502,389 @@ moe_stream(const __grid_constant__ CUtensorMap tw0, const __grid_constant__ CUte
   }
 }
 
+// -- the int8 decode body: slices side by side, spread over a cluster ---------------
+//
+// moe_spread, the int8 kernel's tiles of 8 to 32 rows (decode). The same
+// walk, split, fragments and order of sums as moe_stream, so a row's bits
+// are the same, reached another way: a consumer warpgroup runs kChains
+// slices side by side, one chain each (a stage holds a 64-deep tile of
+// each, 128 k rows: one barrier round trip and one wait_group for two
+// independent chains), and where a launch makes few items for the card (the
+// Mixtral down launch: 32 column tiles x 6-8 experts over 132 SMs), an
+// item's S slices spread over a thread-block cluster of S / kChains blocks,
+// each running one group of kChains slices (make_split's slice groups). Items
+// go to clusters as they went to blocks. At an item's end each block puts
+// its chains (spread) or, alone, the sum of its slices in order (local) in
+// a partial buffer in shared memory (two, by item parity), one lane
+// arrives on each cluster block's `ready` barrier, all wait on their own,
+// and fold their block's share of the item's outputs over all the
+// cluster's partials in slice order,
+// ((c0 + c1) + c2) + ..., reading them through distributed shared memory,
+// then the epilogue's roundings, from registers to 8-byte row stores. A
+// block waits for every block's arrival for item i + 1 before writing item
+// i + 2's partials into the buffer item i used: every block has read item
+// i's by then. The grid (clusters that fit the card, at most one block an
+// SM) follows from the widths and the tile size alone, so a captured graph
+// replays it as it is. Measured on one H100 (scripts/time_moe_variants.py
+// --w8): Mixtral-8x7B R 16 about 0.47 ms against moe_stream's 0.71 (bound
+// 0.316); one chain a warpgroup 15% slower, never spread 2% slower (its
+// down launch 8%), no wgmma at all 3% faster, no weight loads 13% faster,
+// no fold 8% faster. The fold's partials are loaded 8 at a time before
+// they are summed: one at a time, each remote load's latency in turn,
+// cost the spread its gain.
+constexpr int kChains = 2;        // slices a consumer warpgroup runs side by side
+constexpr int kSpreadItems = 4;   // spread where column tiles x experts < this x SMs
+
+template <int NX>
+struct SpreadCfg {
+  static constexpr int kConsumers = 256;             // warpgroup T: weight tile T
+  static constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+  static constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
+  static constexpr int kConsumerRegs = 232, kProducerRegs = 40;
+  static_assert(kConsumers * kConsumerRegs + 128 * kProducerRegs <= kThreads * kLaunchRegs,
+                "registers");
+  static_assert(NX % 8 == 0 && NX <= 32, "tiles of 8 to 32 rows");
+  static constexpr int kWT = kBK * kCols;            // an int8 [64 k, 64 columns] tile
+  static constexpr int kXTile = NX * 128;            // NX rows of 64 bf16
+  static constexpr int kSub = kXTile + 2 * kWT;      // one slice's tiles in a stage
+  static constexpr int kStage = kChains * kSub;
+  static constexpr int kPStride = kCols + 4;         // floats a partial row
+  static constexpr int kEntry = 2 * NX * kPStride;   // floats: a chain of both tiles
+  static constexpr int kPart = kChains * kEntry;     // floats a partial buffer
+  static constexpr int kFit = (232448 - 1024 - 512 - 8 * (kMaxExperts + 1) - 4 * NX -
+                               2 * kPart * 4) / kStage;
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static constexpr int kSmem = 1024 + kStages * kStage + 2 * kPart * 4;
+  static_assert(kStages >= 4, "a ring of at least 4 stages");
+  static_assert(kXTile % 1024 == 0 && kWT % 1024 == 0, "swizzled tiles 1024-aligned");
+};
+
+// the launches this body takes: K cut into at least kChains slices of one
+// whole number of 64-row tiles each, so every stage is kChains whole tiles
+// (a branch around a short tile's steps beside the fold made ptxas
+// serialize the wgmma of the 8-row instantiations, C7520)
+__host__ __device__ inline bool spread_split(int K, int Nw) {
+  const Split sp = moe_split(K, Nw);
+  return K % kBK == 0 && sp.S >= kChains && (K / kBK) % sp.S == 0;
+}
+
+__device__ __forceinline__ uint32_t cluster_reg(int which) {
+  uint32_t v;
+  if (which == 0) asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(v));
+  else if (which == 1) asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(v));
+  else if (which == 2) asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(v));
+  else asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(v));
+  return v;
+}
+
+// every thread of every block of the cluster (not aligned: the producer and
+// the consumers reach it from different code)
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// one arrival on cluster block `rank`'s copy of the barrier at `bar`
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, int rank) {
+  asm volatile(
+      "{\n .reg .b32 ra;\n mapa.shared::cluster.u32 ra, %0, %1;\n"
+      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_addr(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// four floats at `p` (16-byte aligned, this block's shared memory) of
+// cluster block `rank`'s copy
+__device__ __forceinline__ float4 ld_dsmem4(const float* p, int rank) {
+  float4 v;
+  asm volatile(
+      "{\n .reg .b32 ra;\n mapa.shared::cluster.u32 ra, %4, %5;\n"
+      " ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [ra];\n}\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "r"(smem_addr(p)), "r"(rank)
+      : "memory");
+  return v;
+}
+
+template <int NX, bool GATED>
+__global__ void __launch_bounds__(SpreadCfg<NX>::kThreads, 1)
+moe_spread(const __grid_constant__ CUtensorMap tw0, const __grid_constant__ CUtensorMap tw1,
+           const __grid_constant__ CUtensorMap ta, const __nv_bfloat16* __restrict__ x,
+           const int* __restrict__ src, const int* __restrict__ counts,
+           const float* __restrict__ scale0, const float* __restrict__ scale1,
+           __nv_bfloat16* __restrict__ out, int E, int K, int N) {
+  using C = SpreadCfg<NX>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[C::kStages], empty[C::kStages], ready[2];
+  __shared__ int tstart[kMaxExperts + 1], rstart[kMaxExperts + 1];
+  __shared__ int arow[NX];  // gate/up: the x row of each row of the producer's item
+  uint8_t* ring = align1024(smem_raw);
+  float* part = reinterpret_cast<float*>(ring + C::kStages * C::kStage);
+  const Split sp = moe_split(K, GATED ? 2 * N : N);
+  const int warp = __shfl_sync(LLMK_FULL_MASK, (int)threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+  const int ncol = col_tiles(N, GATED);
+  // the cluster: KC blocks (1: local), this block's rank, the cluster's
+  // index and the clusters of the grid
+  const int KC = __shfl_sync(LLMK_FULL_MASK, (int)cluster_reg(1), 0);
+  const int rank = __shfl_sync(LLMK_FULL_MASK, (int)cluster_reg(0), 0);
+  const int cl = __shfl_sync(LLMK_FULL_MASK, (int)cluster_reg(2), 0);
+  const int ncl = __shfl_sync(LLMK_FULL_MASK, (int)cluster_reg(3), 0);
+  // this block's slice groups: its own (spread), or every group (local);
+  // every slice is `rounds` whole 64-row tiles (spread_split), L rows
+  const int g_lo = KC > 1 ? rank : 0;
+  const int g_hi = KC > 1 ? rank + 1 : sp.S / kChains;
+  const int L = K / sp.S, rounds = L / kBK;
+  const int per_item = (g_hi - g_lo) * rounds;  // stages an item
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s)
+      mbar_init_n(&full[s], GATED ? 129 : 1), mbar_init_n(&empty[s], C::kConsumers / 32);
+    for (int b = 0; b < 2; ++b) mbar_init_n(&ready[b], KC);  // one arrival a block
+    mbar_init_fence();
+  }
+  if (warp == 0) tile_tables(counts, E, NX, tstart, rstart);
+  cluster_sync_all();  // every block's barriers are set up before any remote arrival
+  const int total = __shfl_sync(LLMK_FULL_MASK, ncol * tstart[E], 0);
+
+  if (warp >= C::kConsumers / 32) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs));
+    const int p = threadIdx.x - C::kConsumers;
+    int it = 0;
+    for (int w = cl; w < total; w += ncl) {
+      const int3 tl = lookup_tile(tstart, rstart, E, w / ncol, NX);
+      const int c0 = (w % ncol) * (GATED ? kCols : 2 * kCols), wrow = tl.x * K;
+      if constexpr (GATED) {  // the item's x rows, once every thread is past the last item's
+        named_sync(3, 128);
+        if (p < NX) arow[p] = p < tl.z ? src[tl.y + p] : -1;
+        named_sync(3, 128);
+      }
+      for (int g = g_lo; g < g_hi; ++g) {
+        for (int j = 0; j < rounds; ++j, ++it) {
+          const int s = it % C::kStages;
+          if (it >= C::kStages) mbar_wait(&empty[s], (it / C::kStages - 1) & 1);
+          uint8_t* st = ring + s * C::kStage;
+          if (p == 0) {
+            mbar_expect(&full[s], kChains * (2 * C::kWT + (GATED ? 0 : C::kXTile)));
+#pragma unroll
+            for (int i = 0; i < kChains; ++i) {
+              uint8_t* sub = st + i * C::kSub;
+              const int k0 = (g * kChains + i) * L + j * kBK;
+              tma_load(sub + C::kXTile, &tw0, c0, wrow + k0, &full[s]);
+              tma_load(sub + C::kXTile + C::kWT, &tw1, GATED ? c0 : c0 + kCols, wrow + k0,
+                       &full[s]);
+              if (!GATED) tma_load(sub, &ta, k0, tl.y, &full[s]);
+            }
+          }
+          if constexpr (GATED) {
+#pragma unroll
+            for (int i = 0; i < kChains; ++i)
+              gather_rows<NX>(st + i * C::kSub, x, arow, (g * kChains + i) * L + j * kBK, K, p);
+            cp_arrive(&full[s]);
+          }
+        }
+      }
+    }
+    if constexpr (GATED) cp_async_wait<0>();
+    cluster_sync_all();  // no block leaves while another may read its partials
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
+
+  const int T = warp / 4, wn = warp % 4, g = lane >> 2, tq = lane & 3;
+  const int my_items = total > cl ? (total - cl + ncl - 1) / ncl : 0;
+  const int my_stages = my_items * per_item;
+
+  // chain[i]: slice g_cur kChains + i's chain of the current item (element
+  // e: tile row 8 (e >> 2) + 2tq + (e & 1), weight column acc_col(e) of
+  // tile T); tot (local): the item's finished slices summed in order
+  float chain[kChains][NX / 2], tot[NX / 2];
+#pragma unroll
+  for (int i = 0; i < kChains; ++i)
+#pragma unroll
+    for (int e = 0; e < NX / 2; ++e) chain[i][e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < NX / 2; ++e) tot[e] = 0.f;
+  uint32_t af[2][kChains][kBK / 16][4];
+  auto arrive_frags = [&](uint32_t(&f)[kChains][kBK / 16][4], int t) {
+    mbar_wait(&full[t % C::kStages], (t / C::kStages) & 1);
+    if constexpr (GATED) fence_async_smem();
+    const uint8_t* st = ring + (t % C::kStages) * C::kStage + C::kXTile + T * C::kWT;
+#pragma unroll
+    for (int i = 0; i < kChains; ++i) w_frags<true>(f[i], st + i * C::kSub, wn, lane);
+  };
+
+  // item w's end, with no wgmma in flight: this block's partials (spread:
+  // its chains; local: tot) into buffer n & 1; this thread's share of the
+  // item's outputs (its tile, columns and scales, the scales' loads in
+  // flight across the barrier); the consumers' named barrier, then one
+  // lane's release arrival on each cluster block's `ready` (it covers the
+  // other threads' partials: they are ordered before it by the barrier),
+  // the wait for every block's; then the share summed over the S slices
+  // in order and rounded as the epilogue of moe_stream rounds it
+  constexpr int kQuads = (GATED ? kCols : 2 * kCols) / 4;  // 4-column groups a row
+  constexpr int kIters = (NX * kQuads + C::kConsumers - 1) / C::kConsumers;
+  auto fold = [&](int w, int n) {
+    float* buf = part + (n & 1) * C::kPart;
+    float* mine = buf + T * NX * C::kPStride + 16 * wn + 2 * g;
+#pragma unroll
+    for (int q = 0; q < NX / 8; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 8 * q + 2 * tq + h, e0 = 4 * q + h;
+        if (KC > 1) {
+#pragma unroll
+          for (int i = 0; i < kChains; ++i)
+            *reinterpret_cast<float2*>(mine + i * C::kEntry + row * C::kPStride) =
+                make_float2(chain[i][e0], chain[i][e0 + 2]);
+        } else {
+          *reinterpret_cast<float2*>(mine + row * C::kPStride) = make_float2(tot[e0], tot[e0 + 2]);
+        }
+      }
+    const int3 tl = lookup_tile(tstart, rstart, E, w / ncol, NX);
+    const int nc = (w % ncol) * (GATED ? kCols : 2 * kCols);
+    float4 sa[kIters], sb[kIters];
+    bool on[kIters];
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int q = (rank + it * KC) * C::kConsumers + (int)threadIdx.x;
+      const int m = q / kQuads, col = nc + (q % kQuads) * 4;
+      on[it] = q < NX * kQuads && m < tl.z && col < N;
+      if (on[it]) {
+        sa[it] = *reinterpret_cast<const float4*>(scale0 + (size_t)tl.x * N + col);
+        if constexpr (GATED) sb[it] = *reinterpret_cast<const float4*>(scale1 + (size_t)tl.x * N + col);
+      }
+    }
+    named_sync(1, C::kConsumers);
+    if (threadIdx.x < KC) {  // one lane a cluster block, side by side
+      asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+      mbar_arrive_remote(&ready[n & 1], threadIdx.x);
+    }
+    mbar_wait_cluster(&ready[n & 1], (n >> 1) & 1);
+
+    const int entries = KC > 1 ? sp.S : 1;
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      if (!on[it]) continue;
+      const int q = (rank + it * KC) * C::kConsumers + (int)threadIdx.x;
+      const int m = q / kQuads, c4 = (q % kQuads) * 4, col = nc + c4;
+      // gate/up: the gate tile (0) and the up tile (1) at c4; down: tile c4 / 64
+      const int t0 = GATED ? 0 : c4 / kCols, tc = GATED ? c4 : c4 % kCols;
+      const int off = m * C::kPStride + tc;
+      // the partials kLoads at a time: their loads first (in flight side by
+      // side), then their sums in slice order
+      constexpr int kLoads = 8;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+      for (int s0 = 0; s0 < entries; s0 += kLoads) {
+        float4 va[kLoads], vb[kLoads];
+#pragma unroll
+        for (int j = 0; j < kLoads; ++j) {
+          const int s = s0 + j;
+          if (s >= entries) break;
+          const int blk = KC > 1 ? s / kChains : rank, slot = KC > 1 ? s % kChains : 0;
+          const float* base = buf + slot * C::kEntry + off;
+          va[j] = ld_dsmem4(base + t0 * NX * C::kPStride, blk);
+          if constexpr (GATED) vb[j] = ld_dsmem4(base + NX * C::kPStride, blk);
+        }
+#pragma unroll
+        for (int j = 0; j < kLoads; ++j) {
+          const int s = s0 + j;
+          if (s >= entries) break;
+          if (s == 0) {
+            a = va[j];
+            if constexpr (GATED) b = vb[j];
+            continue;
+          }
+          a.x = a.x + va[j].x, a.y = a.y + va[j].y, a.z = a.z + va[j].z, a.w = a.w + va[j].w;
+          if constexpr (GATED)
+            b.x = b.x + vb[j].x, b.y = b.y + vb[j].y, b.z = b.z + vb[j].z, b.w = b.w + vb[j].w;
+        }
+      }
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+      const float s0v[4] = {sa[it].x, sa[it].y, sa[it].z, sa[it].w};
+      float r[4];
+      if constexpr (GATED) {
+        const float s1v[4] = {sb[it].x, sb[it].y, sb[it].z, sb[it].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float u = __bfloat162float(__float2bfloat16_rn(round_bf16(bv[j]) * round_bf16(s1v[j])));
+          r[j] = silu_mul(round_bf16(av[j]) * round_bf16(s0v[j]), u);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) r[j] = round_bf16(av[j]) * round_bf16(s0v[j]);
+      }
+      *reinterpret_cast<uint2*>(out + (size_t)(tl.y + m) * N + col) =
+          make_uint2(pack_bf16(r[0], r[1]), pack_bf16(r[2], r[3]));
+    }
+  };
+
+  int w = cl, n = 0;           // the item, and its index in this cluster's walk
+  int gc = g_lo, j = 0;        // the stage's slice group and round
+  // stage t of this block's walk: its steps on af[P]; while they run, stage
+  // t - 1's are waited for, its stage released and stage t + 1's fragments
+  // read; where a group ends (wait_group 0 first) its chains join tot in
+  // slice order (local), and where the item ends, the fold
+  auto run = [&](auto parity, int t) {
+    constexpr int P = decltype(parity)::value;
+    const uint8_t* st = ring + (t % C::kStages) * C::kStage;
+    const bool first = j == 0;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < kChains; ++i) {
+        const uint8_t* xs = st + i * C::kSub;
+        wgmma_rs<NX>(chain[i], af[P][i][kk], desc_b(xs + kk * 32), !(first && kk == 0));
+      }
+    wg_commit();
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // stage t - 1's done
+#pragma unroll
+    for (int i = 0; i < kChains; ++i)
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) pin(af[1 - P][i][kk]);
+    mbar_arrive_if(t > 0 && lane == 0, &empty[(t - 1 + C::kStages) % C::kStages]);
+    if (t + 1 < my_stages) arrive_frags(af[1 - P], t + 1);
+    if (j == rounds - 1) {  // the group's chains are whole
+      wg_wait();
+#pragma unroll
+      for (int i = 0; i < kChains; ++i) pin(chain[i]);
+      if (KC == 1) {
+        const bool s0 = gc == 0;
+#pragma unroll
+        for (int i = 0; i < kChains; ++i)
+#pragma unroll
+          for (int e = 0; e < NX / 2; ++e)
+            tot[e] = s0 && i == 0 ? chain[i][e] : tot[e] + chain[i][e];
+      }
+      if (gc == g_hi - 1) {
+        fold(w, n);
+        w += ncl, ++n;
+      }
+      j = 0;
+      gc = gc == g_hi - 1 ? g_lo : gc + 1;
+    } else {
+      ++j;
+    }
+  };
+  if (my_stages) arrive_frags(af[0], 0);
+  for (int t = 0; t < my_stages; t += 2) {
+    run(std::integral_constant<int, 0>(), t);
+    if (t + 1 < my_stages) run(std::integral_constant<int, 1>(), t + 1);
+  }
+  cluster_sync_all();  // no block leaves while another may read its partials
+}
+
 // -- launches -------------------------------------------------------------------
 
 // the tensor maps of one launch: the two weight tiles' maps over [E K, N]
@@ -496,6 +909,17 @@ int make_maps(Maps& m, bool gated, const void* w0, const void* w1, const void* a
   return make_map(&m.a, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, R, K, arows, kBK);
 }
 
+// the card's SMs into `sms`, asked once
+inline int sm_count(int& sms) {
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
 template <int NX, bool GATED, bool W8>
 int launch_stream(const Maps& m, const void* x, const int* src, const int* counts,
                   const float* s0, const float* s1, void* out, int E, int K, int N,
@@ -505,12 +929,7 @@ int launch_stream(const Maps& m, const void* x, const int* src, const int* count
   static bool smem_set = false;
   static int sms = 0;
   if (int e = set_smem(kernel, C::kSmem, smem_set)) return e;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return (int)cudaErrorInvalidValue;
-  }
+  if (int e = sm_count(sms)) return e;
   moe_stream<NX, GATED, W8><<<sms, C::kThreads, C::kSmem, stream>>>(
       m.w0, m.w1, m.a, (const __nv_bfloat16*)x, src, counts, s0, s1, (__nv_bfloat16*)out, E, K,
       N);
@@ -529,6 +948,57 @@ inline int tile_rows(int R, int Nx, int E) {
   return most > kMaxPow2Rows ? kPreRows : most <= 8 ? 8 : pow2_ceil(most);
 }
 
+// blocks an item's slices spread over in the int8 decode body: S / kChains
+// where the launch makes few items for the card (its column tiles times the
+// experts under kSpreadItems times the SMs), else 1 (each block runs every
+// slice of its items), or 0 where the body does not take the launch
+// (spread_split: moe_stream runs it); from the widths alone
+inline int spread_blocks(int K, int N, bool gated, int E, int sms) {
+  if (!spread_split(K, gated ? 2 * N : N)) return 0;  // moe_stream's launch
+  const int S = moe_split(K, gated ? 2 * N : N).S;
+  if (S <= kChains || col_tiles(N, gated) * E >= kSpreadItems * sms) return 1;
+  return S / kChains;
+}
+
+// the int8 decode body on clusters of KC blocks, as many clusters as fit
+// the card at once (asked once an instantiation and cluster size)
+template <int NX, bool GATED>
+int launch_spread(const Maps& m, const void* x, const int* src, const int* counts,
+                  const float* s0, const float* s1, void* out, int E, int K, int N,
+                  cudaStream_t stream) {
+  using C = SpreadCfg<NX>;
+  constexpr auto kernel = moe_spread<NX, GATED>;
+  static bool smem_set = false;
+  static int sms = 0, clusters[kMaxCluster + 1] = {};
+  if (int e = set_smem(kernel, C::kSmem, smem_set)) return e;
+  if (int e = sm_count(sms)) return e;
+  const int KC = spread_blocks(K, N, GATED, E, sms);
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(C::kThreads);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = KC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters[KC] == 0) {
+    cfg.gridDim = dim3(KC);
+    int n = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (n < 1) return (int)cudaErrorInvalidConfiguration;
+    clusters[KC] = n;
+  }
+  cfg.gridDim = dim3(clusters[KC] * KC);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, m.w0, m.w1, m.a,
+                                           (const __nv_bfloat16*)x, src, counts, s0, s1,
+                                           (__nv_bfloat16*)out, E, K, N);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
 template <bool GATED, bool W8>
 int launch(const void* x, const int* src, const int* counts, const void* w0, const void* w1,
            const float* s0, const float* s1, void* out, int R, int Nx, int E, int K, int N,
@@ -536,6 +1006,14 @@ int launch(const void* x, const int* src, const int* counts, const void* w0, con
   const int nx = tile_rows(R, Nx, E);
   Maps m;
   if (int e = make_maps<W8>(m, GATED, w0, w1, x, R, E, K, N, nx)) return e;
+  if constexpr (W8) {  // tiles of 8 to 32 rows, slices of whole tiles: the decode body
+    if (spread_split(K, GATED ? 2 * N : N)) switch (nx) {
+      case 8: return launch_spread<8, GATED>(m, x, src, counts, s0, s1, out, E, K, N, stream);
+      case 16: return launch_spread<16, GATED>(m, x, src, counts, s0, s1, out, E, K, N, stream);
+      case 32: return launch_spread<32, GATED>(m, x, src, counts, s0, s1, out, E, K, N, stream);
+      default: break;
+    }
+  }
   switch (nx) {
     case 8: return launch_stream<8, GATED, W8>(m, x, src, counts, s0, s1, out, E, K, N, stream);
     case 16: return launch_stream<16, GATED, W8>(m, x, src, counts, s0, s1, out, E, K, N, stream);

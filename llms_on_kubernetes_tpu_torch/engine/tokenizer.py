@@ -12,10 +12,12 @@ text on a machine without ``transformers`` or ``tokenizers``. It does what
 ``transformers``' fast tokenizer does for the two families the port
 serves, and raises for a component it does not implement:
 
-- byte-level BPE (llama-3): the ``Split`` pre-tokenizer's regex as a
-  scanner over ``unicodedata`` categories (Python's ``re`` has no
-  ``\\p{L}``), the GPT-2 byte table, ``ignore_merges`` and the
-  ``TemplateProcessing`` post-processor;
+- byte-level BPE (llama-3; Qwen2/Qwen3): the ``Split`` pre-tokenizer's
+  regex as a scanner over ``unicodedata`` categories (Python's ``re`` has
+  no ``\\p{L}``; Qwen's takes one digit a piece where llama-3's takes up
+  to three), the ``NFC`` normalizer, the GPT-2 byte table,
+  ``ignore_merges`` (or not) and the ``TemplateProcessing`` (or bare
+  ``ByteLevel``: no BOS) post-processor;
 - SentencePiece BPE (phi-3): the ``Prepend`` / ``Replace`` normalizer,
   ``byte_fallback`` to ``<0xNN>`` tokens, the ``Replace`` / ``ByteFallback``
   / ``Fuse`` / ``Strip`` decoder, and ``add_bos_token`` /
@@ -118,10 +120,12 @@ class HFTokenizer:
 # tokenizer.json, read in pure Python
 # ---------------------------------------------------------------------------
 
-# llama-3's pre-tokenizer (its tokenizer.json ``Split`` pattern), the one
+# llama-3's pre-tokenizer (its tokenizer.json ``Split`` pattern), the
 # regex ``_split_llama3`` implements
 LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}|"
                 r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+# Qwen2's and Qwen3's (``_split_qwen``): llama-3's with one digit a piece
+QWEN_SPLIT = LLAMA3_SPLIT.replace(r"\p{N}{1,3}", r"\p{N}")
 # the contractions of its first alternative, case-insensitive (U+017F,
 # LONG S, folds to "s")
 _CONTRACTIONS = ("s", "t", "re", "ve", "m", "ll", "d")
@@ -156,9 +160,10 @@ def _is_word(c: str) -> bool:
     return cat == "So" and any(a <= ord(c) <= b for a, b in _ALPHABETIC_SYMBOLS)
 
 
-def _match_llama3(t: str, i: int) -> int:
+def _match_llama3(t: str, i: int, digits: int = 3) -> int:
     """The end of ``LLAMA3_SPLIT``'s match at ``i`` (its alternatives in
-    order, each with the backtracking a regex engine would do)."""
+    order, each with the backtracking a regex engine would do); ``digits``
+    1: ``QWEN_SPLIT``'s."""
     n = len(t)
     c = t[i]
     if c == "'":
@@ -175,10 +180,10 @@ def _match_llama3(t: str, i: int) -> int:
         while j < n and _is_letter(t[j]):
             j += 1
         return j
-    # \p{N}{1,3}
+    # \p{N}{1,3} (Qwen: \p{N})
     if _is_number(c):
         j = i
-        while j < n and j - i < 3 and _is_number(t[j]):
+        while j < n and j - i < digits and _is_number(t[j]):
             j += 1
         return j
 
@@ -207,13 +212,21 @@ def _match_llama3(t: str, i: int) -> int:
     return e - 1
 
 
-def _split_llama3(text: str) -> list[str]:
+def _split_llama3(text: str, digits: int = 3) -> list[str]:
     pieces, i = [], 0
     while i < len(text):
-        j = _match_llama3(text, i)
+        j = _match_llama3(text, i, digits)
         pieces.append(text[i:j])
         i = j
     return pieces
+
+
+def _split_qwen(text: str) -> list[str]:
+    return _split_llama3(text, digits=1)
+
+
+# the Split patterns the reader implements, and their scanners
+_SPLITS = {LLAMA3_SPLIT: _split_llama3, QWEN_SPLIT: _split_qwen}
 
 
 def _split_whitespace(text: str) -> list[str]:
@@ -317,15 +330,15 @@ class JsonTokenizer:
         self._added_re = (re.compile("|".join(re.escape(t) for t in sorted(
             self.added, key=len, reverse=True))) if self.added else None)
         self.normalizers = self._flatten(doc.get("normalizer"), "normalizers",
-                                         ("Prepend", "Replace"), "normalizer")
+                                         ("Prepend", "Replace", "NFC"), "normalizer")
         self.pre_tokenizers = self._flatten(doc.get("pre_tokenizer"), "pretokenizers",
                                             ("Split", "ByteLevel", "Whitespace"), "pre_tokenizer")
         for p in self.pre_tokenizers:
-            if p["type"] == "Split" and (p.get("pattern", {}).get("Regex") != LLAMA3_SPLIT
+            if p["type"] == "Split" and (p.get("pattern", {}).get("Regex") not in _SPLITS
                                          or p.get("behavior") != "Isolated"
                                          or p.get("invert")):
-                raise NotImplementedError(f"{path}/tokenizer.json: only llama-3's Split "
-                                          f"pre-tokenizer is implemented")
+                raise NotImplementedError(f"{path}/tokenizer.json: only llama-3's and Qwen's "
+                                          f"Split pre-tokenizers are implemented")
             if p["type"] == "ByteLevel" and (p.get("use_regex", True)
                                              or p.get("add_prefix_space", True)):
                 raise NotImplementedError(f"{path}/tokenizer.json: a ByteLevel pre-tokenizer "
@@ -441,6 +454,8 @@ class JsonTokenizer:
         for nm in self.normalizers:
             if nm["type"] == "Prepend":
                 text = nm["prepend"] + text if text else text
+            elif nm["type"] == "NFC":
+                text = unicodedata.normalize("NFC", text)
             else:
                 text = text.replace(nm["pattern"]["String"], nm["content"])
         return text
@@ -449,7 +464,8 @@ class JsonTokenizer:
         pieces = [text]
         for p in self.pre_tokenizers:
             if p["type"] == "Split":
-                pieces = [x for piece in pieces for x in _split_llama3(piece)]
+                scan = _SPLITS[p["pattern"]["Regex"]]
+                pieces = [x for piece in pieces for x in scan(piece)]
             elif p["type"] == "Whitespace":
                 pieces = [x for piece in pieces for x in _split_whitespace(piece)]
             else:       # ByteLevel, on the pieces as they are

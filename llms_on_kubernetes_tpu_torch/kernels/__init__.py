@@ -81,6 +81,8 @@ _EXTRA_ENTRIES = {
     "w4_splits": ("w4_matmul", "llmk_w4_splits", [_I, _I, _I]),
     "moe_splits": ("moe_experts", "llmk_moe_splits", [_I, _I]),  # the K split's slice count
     "moe_rows": ("moe_experts", "llmk_moe_rows", [_I, _I, _I]),  # rows a tile
+    # the int8 decode body's cluster size
+    "moe_spread": ("moe_experts_w8", "llmk_moe_spread", [_I, _I, _I, _I, _I]),
 }
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()

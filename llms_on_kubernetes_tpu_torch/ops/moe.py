@@ -24,7 +24,8 @@ bucket), so the port computes the same function with routed products:
   runs ``moe_experts_plain``, a loop over the experts in torch that is
   both kernels' reference. ``moe_splits``, ``moe_rows``, ``moe_tiles``
   and ``moe_walk`` mirror the kernels' K split, tile size and walk over
-  the tiles.
+  the tiles; ``moe_spread_blocks`` and ``moe_spread_schedule`` the int8
+  kernel's decode body (slices side by side, spread over a cluster).
 - ``moe_combine``: out[n] = sum_j w[n, j] y[row(n, j)], in choice order;
   a dropped or invalid claim adds 0, so padding rows come out 0.
 
@@ -52,6 +53,9 @@ MOE_POW2_ROWS = 64        # rows a tile for up to 64 rows an expert (kMaxPow2Row
 MOE_PREFILL_ROWS = 128    # rows a tile above (kPreRows)
 MOE_COLS = 64             # weight columns a wgmma tile (kCols)
 MOE_MAX_EXPERTS = 512     # experts the kernel's tile tables hold (kMaxExperts)
+# the int8 kernel's decode body (csrc/moe_stream.cuh moe_spread)
+MOE_CHAINS = 2            # slices a consumer warpgroup runs side by side (kChains)
+MOE_SPREAD_ITEMS = 4      # spread where column tiles x experts < this x SMs (kSpreadItems)
 
 
 @dataclasses.dataclass
@@ -218,6 +222,53 @@ def moe_walk(counts, N: int, gated: bool, blocks: int,
     C = moe_col_tiles(N, gated)
     return [[(*tiles[w // C], w % C) for w in range(b, len(tiles) * C, blocks)]
             for b in range(blocks)]
+
+
+def moe_spread_split(K: int, Nw: int) -> bool:
+    """Whether the int8 kernel's decode body takes a launch over K rows
+    streaming Nw weight columns (``spread_split``): its K split is at least
+    ``MOE_CHAINS`` slices of one whole number of 64-row tiles each."""
+    S = len(moe_splits(K, Nw))
+    return K % 64 == 0 and S >= MOE_CHAINS and (K // 64) % S == 0
+
+
+def moe_spread_blocks(K: int, N: int, gated: bool, E: int, sms: int) -> int:
+    """The cluster size of the int8 kernel's decode body (tiles of 8 to 32
+    rows; ``spread_blocks``): S / ``MOE_CHAINS`` blocks
+    share an item's S slices where the launch makes few items for the card
+    (column tiles x E under ``MOE_SPREAD_ITEMS`` x SMs), else 1; 0 where the
+    body does not take the launch (``moe_spread_split``; the shared body
+    runs it). From the widths alone: R never enters."""
+    Nw = 2 * N if gated else N
+    if not moe_spread_split(K, Nw):
+        return 0
+    S = len(moe_splits(K, Nw))
+    if S <= MOE_CHAINS or moe_col_tiles(N, gated) * E >= MOE_SPREAD_ITEMS * sms:
+        return 1
+    return S // MOE_CHAINS
+
+
+def moe_spread_schedule(S: int, items: int, kc: int, clusters: int) -> list:
+    """Who computes what in the int8 decode body, and in which order the
+    slices are summed. Cluster c takes items c, c + clusters, ...; with kc
+    > 1 its block r runs slices r ``MOE_CHAINS`` .. + ``MOE_CHAINS`` - 1
+    of each (one chain each, side by side) and with kc = 1 the block runs
+    every slice, ``MOE_CHAINS`` at a time. Returns, for every block
+    (cluster, rank), its list of ``(item, [slices])``, and for every item
+    the fold: the list of ``(block, entry)`` partials, each a slice's chain
+    (kc > 1) or the block's own in-order sum (kc = 1), in the order they
+    are added."""
+    assert kc == 1 or kc * MOE_CHAINS == S
+    blocks, folds = {}, {}
+    for c in range(clusters):
+        for r in range(kc):
+            mine = (list(range(r * MOE_CHAINS, (r + 1) * MOE_CHAINS)) if kc > 1
+                    else list(range(S)))
+            blocks[(c, r)] = [(w, mine) for w in range(c, items, clusters)]
+        for w in range(c, items, clusters):
+            folds[w] = ([((c, s // MOE_CHAINS), s % MOE_CHAINS) for s in range(S)] if kc > 1
+                        else [((c, 0), 0)])
+    return blocks, folds
 
 
 class MoEWorkspace:

@@ -569,7 +569,7 @@ def write_checkpoint(cfg: ModelConfig, out_dir: str, *, dtype: str = "bfloat16",
 # llama-3 and phi-3 formats, over a vocabulary trained here
 # ---------------------------------------------------------------------------
 
-TOKENIZER_FAMILIES = ("llama3", "phi3", "gemma3", "qwen3vl")
+TOKENIZER_FAMILIES = ("llama3", "phi3", "qwen3", "gemma3", "qwen3vl")
 # the training text: the repository's SURVEY.md, pinned, so the files (and
 # TOKENIZER_PROBES) are the same on every machine
 CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "SURVEY.md")
@@ -592,13 +592,25 @@ PHI3_SPECIAL = {0: "<unk>", 1: "<s>", 2: "</s>", 32000: "<|endoftext|>",
                 32009: "<|placeholder6|>", 32010: "<|user|>"}
 # phi-3's chat-role tokens strip the whitespace after them
 PHI3_RSTRIP = {32001, 32006, 32007, 32010}
-# the multimodal families: llama-3's vocabulary and turn markers, plus each
-# model's image markers at its published ids (gemma-3-27b-it's begin and end
-# of image and its soft token; Qwen3-VL's vision start and end and image pad)
+# Qwen2's and Qwen3's added tokens (Qwen3-30B-A3B, Qwen3-8B, Qwen3-VL share
+# them): the special ones, then ones that are split out of the text but are
+# not special (decode keeps them)
+QWEN3_BASE_VOCAB = 151643
+QWEN3_SPECIAL = dict(enumerate(
+    ["<|endoftext|>", "<|im_start|>", "<|im_end|>", "<|object_ref_start|>",
+     "<|object_ref_end|>", "<|box_start|>", "<|box_end|>", "<|quad_start|>", "<|quad_end|>",
+     "<|vision_start|>", "<|vision_end|>", "<|vision_pad|>", "<|image_pad|>", "<|video_pad|>"],
+    start=151643))
+QWEN3_ADDED = {**QWEN3_SPECIAL, **dict(enumerate(
+    ["<tool_call>", "</tool_call>", "<|fim_prefix|>", "<|fim_middle|>", "<|fim_suffix|>",
+     "<|fim_pad|>", "<|repo_name|>", "<|file_sep|>", "<tool_response>", "</tool_response>",
+     "<think>", "</think>"], start=151657))}
+# the multimodal families: gemma-3-27b-it's, llama-3's vocabulary and turn
+# markers plus its begin and end of image and its soft token at their
+# published ids; Qwen3-VL's, Qwen3's files (its vision start and end and
+# image pad among the added tokens) with an image-aware ChatML template
 GEMMA3_IMAGE_SPECIAL = {255999: "<start_of_image>", 256000: "<end_of_image>",
                         262144: "<image_soft_token>"}
-QWEN3VL_IMAGE_SPECIAL = {151652: "<|vision_start|>", 151653: "<|vision_end|>",
-                         151655: "<|image_pad|>"}
 # what each family's chat template renders for an image part
 IMAGE_MARKUP = {"gemma3": "<start_of_image>",
                 "qwen3vl": "<|vision_start|><|image_pad|><|vision_end|>"}
@@ -606,14 +618,24 @@ IMAGE_MARKUP = {"gemma3": "<start_of_image>",
 
 def special_tokens(family_name: str) -> dict:
     """id -> text of a tokenizer family's special tokens."""
-    return {"llama3": LLAMA3_SPECIAL, "phi3": PHI3_SPECIAL,
+    return {"llama3": LLAMA3_SPECIAL, "phi3": PHI3_SPECIAL, "qwen3": QWEN3_ADDED,
             "gemma3": {**LLAMA3_SPECIAL, **GEMMA3_IMAGE_SPECIAL},
-            "qwen3vl": {**LLAMA3_SPECIAL, **QWEN3VL_IMAGE_SPECIAL}}[family_name]
+            "qwen3vl": QWEN3_ADDED}[family_name]
 
 
 def mm_chat_template(family_name: str) -> str:
-    """llama-3's chat template over content that may be a list of parts:
-    text parts as text, image parts as the family's image markers."""
+    """The family's chat template (llama-3's for gemma3, ChatML for
+    qwen3vl) over content that may be a list of parts: text parts as text,
+    image parts as the family's image markers."""
+    if family_name == "qwen3vl":
+        return (
+            "{% for message in messages %}{{ '<|im_start|>' + message['role'] + '\n' }}"
+            "{% if message['content'] is string %}{{ message['content'] }}"
+            "{% else %}{% for part in message['content'] %}"
+            "{% if part['type'] == 'image' %}{{ '" + IMAGE_MARKUP[family_name] + "' }}"
+            "{% elif part['type'] == 'text' %}{{ part['text'] }}{% endif %}"
+            "{% endfor %}{% endif %}{{ '<|im_end|>\n' }}{% endfor %}"
+            "{% if add_generation_prompt %}{{ '<|im_start|>assistant\n' }}{% endif %}")
     return (
         "{{ bos_token }}{% for message in messages %}"
         "{{ '<|start_header_id|>' + message['role'] + '<|end_header_id|>\n\n' }}"
@@ -631,6 +653,11 @@ LLAMA3_CHAT_TEMPLATE = (
     "{% set content = bos_token + content %}{% endif %}{{ content }}{% endfor %}"
     "{% if add_generation_prompt %}{{ '<|start_header_id|>assistant<|end_header_id|>\n\n' }}"
     "{% endif %}")
+# ChatML, the turn layout of Qwen2's and Qwen3's templates
+QWEN3_CHAT_TEMPLATE = (
+    "{% for message in messages %}{{ '<|im_start|>' + message['role'] + '\n' + "
+    "message['content'] + '<|im_end|>' + '\n' }}{% endfor %}"
+    "{% if add_generation_prompt %}{{ '<|im_start|>assistant\n' }}{% endif %}")
 PHI3_CHAT_TEMPLATE = (
     "{% for message in messages %}{% if message['role'] == 'system' %}"
     "{{'<|system|>\n' + message['content'] + '<|end|>\n'}}"
@@ -676,6 +703,19 @@ TOKENIZER_PROBES = {
         "chat": [32006, 259, 341, 264, 274, 1015, 380, 407, 361, 634, 380, 805, 656, 869,
                  279, 32007, 32010, 1609, 522, 636, 435, 636, 66, 466, 1577, 291, 361,
                  420, 893, 416, 384, 271, 279, 32007, 32001],
+    },
+    "qwen3": {
+        "texts": [
+            [72, 284, 328, 44, 317, 279, 559, 33, 749, 658, 475, 276, 32, 49, 44, 50, 51, 52,
+             44, 53, 54, 55, 1066, 360, 297, 280, 537, 46],
+            [110, 97, 195, 175, 1580, 280, 1260, 195, 169, 371, 32, 230, 157, 177, 228, 186,
+             172, 32, 240, 159, 154, 128, 340, 32, 318, 258, 1008, 296, 13, 10, 841, 635, 1646],
+            [60, 124, 101, 471, 95, 647, 124, 62, 461, 745, 124, 554, 124, 62, 792, 306, 773],
+        ],
+        "chat": [151644, 2069, 10, 89, 111, 117, 858, 277, 306, 257, 516, 277, 678, 541, 732,
+                 46, 151645, 10, 151644, 604, 257, 10, 1100, 424, 32, 50, 332, 32, 50, 63, 368,
+                 1308, 1584, 318, 752, 317, 279, 100, 46, 151645, 10, 151644, 390, 115, 541,
+                 732, 10],
     },
 }
 
@@ -755,10 +795,13 @@ def _vocab_with_merges(vocab: dict, merges: list, size: int) -> dict:
     return vocab
 
 
-def _added(special: dict, rstrip=frozenset()) -> list[dict]:
+def _added(added: dict, rstrip=frozenset(), special=None) -> list[dict]:
+    """Added-token entries for id -> text: special unless ``special`` (a set
+    of ids) leaves them out."""
     return [{"id": i, "content": t, "single_word": False, "lstrip": False,
-             "rstrip": i in rstrip, "normalized": False, "special": True}
-            for i, t in sorted(special.items())]
+             "rstrip": i in rstrip, "normalized": False,
+             "special": special is None or i in special}
+            for i, t in sorted(added.items())]
 
 
 def _template_processing(token: str, tid: int) -> dict:
@@ -773,18 +816,20 @@ def _template_processing(token: str, tid: int) -> dict:
 
 def tokenizer_files(family_name: str) -> tuple[dict, dict]:
     """(tokenizer.json, tokenizer_config.json) of ``family_name``: llama-3's
-    byte-level BPE or phi-3's SentencePiece BPE with byte fallback, in the
-    published layouts (pre-tokenizer, normalizer, decoder, post-processor,
-    special tokens at their published ids, the chat template), over a
-    vocabulary of the 256 bytes and ``TOKENIZER_MERGES`` merges learned
-    from the corpus. No ``tokenizers`` needed."""
+    byte-level BPE, Qwen3's (NFC, Qwen's split, no BOS, non-special added
+    tokens beside the special ones) or phi-3's SentencePiece BPE with byte
+    fallback, in the published layouts (pre-tokenizer, normalizer, decoder,
+    post-processor, special tokens at their published ids, the chat
+    template), over a vocabulary of the 256 bytes and ``TOKENIZER_MERGES``
+    merges learned from the corpus. No ``tokenizers`` needed."""
     from llms_on_kubernetes_tpu_torch.engine.tokenizer import (
-        BYTE_ENCODER, LLAMA3_SPLIT, _split_llama3,
+        BYTE_ENCODER, LLAMA3_SPLIT, QWEN_SPLIT, _split_llama3, _split_qwen,
     )
 
     if family_name in ("gemma3", "qwen3vl"):
-        tok, cfg = tokenizer_files("llama3")
-        tok["added_tokens"] = _added(special_tokens(family_name))
+        tok, cfg = tokenizer_files("llama3" if family_name == "gemma3" else "qwen3")
+        tok["added_tokens"] = _added(special_tokens(family_name), special=set(
+            QWEN3_SPECIAL) if family_name == "qwen3vl" else None)
         cfg["chat_template"] = mm_chat_template(family_name)
         cfg["added_tokens_decoder"] = {str(a["id"]): {k: v for k, v in a.items() if k != "id"}
                                        for a in tok["added_tokens"]}
@@ -820,7 +865,36 @@ def tokenizer_files(family_name: str) -> tuple[dict, dict]:
                "model_input_names": ["input_ids", "attention_mask"],
                "model_max_length": 1000000000000000019884624838656,
                "tokenizer_class": "PreTrainedTokenizerFast"}
-        special, rstrip = LLAMA3_SPECIAL, frozenset()
+        special, rstrip, marked = LLAMA3_SPECIAL, frozenset(), None
+    elif family_name == "qwen3":
+        counts = collections.Counter(
+            tuple(BYTE_ENCODER[b] for b in piece.encode("utf-8"))
+            for piece in _split_qwen(unicodedata.normalize("NFC", text)))
+        merges = train_bpe(counts, TOKENIZER_MERGES)
+        vocab = _vocab_with_merges({BYTE_ENCODER[b]: b for b in range(256)}, merges,
+                                   QWEN3_BASE_VOCAB)
+        byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+                      "use_regex": False}
+        tok = {
+            "version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": _added(QWEN3_ADDED, special=set(QWEN3_SPECIAL)),
+            "normalizer": {"type": "NFC"},
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": QWEN_SPLIT}, "behavior": "Isolated",
+                 "invert": False}, byte_level]},
+            "post_processor": byte_level, "decoder": byte_level,
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                      "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": [f"{a} {b}" for a, b in merges]}}
+        cfg = {"add_bos_token": False, "add_prefix_space": False,
+               "additional_special_tokens": [QWEN3_SPECIAL[i] for i in range(151644, 151657)],
+               "bos_token": None, "chat_template": QWEN3_CHAT_TEMPLATE,
+               "clean_up_tokenization_spaces": False, "eos_token": "<|im_end|>",
+               "errors": "replace", "model_max_length": 131072, "pad_token": "<|endoftext|>",
+               "split_special_tokens": False, "tokenizer_class": "Qwen2Tokenizer",
+               "unk_token": None}
+        special, rstrip, marked = QWEN3_ADDED, frozenset(), set(QWEN3_SPECIAL)
     elif family_name == "phi3":
         words: dict = collections.Counter()
         for line in text.split("\n"):
@@ -863,11 +937,11 @@ def tokenizer_files(family_name: str) -> tuple[dict, dict]:
                "pad_token": "<|endoftext|>", "padding_side": "left", "sp_model_kwargs": {},
                "tokenizer_class": "LlamaTokenizer", "unk_token": "<unk>",
                "use_default_system_prompt": False}
-        special, rstrip = PHI3_SPECIAL, PHI3_RSTRIP
+        special, rstrip, marked = PHI3_SPECIAL, PHI3_RSTRIP, None
     else:
         raise ValueError(f"tokenizer must be one of {TOKENIZER_FAMILIES}, got {family_name!r}")
     cfg["added_tokens_decoder"] = {str(a["id"]): {k: v for k, v in a.items() if k != "id"}
-                                   for a in _added(special, rstrip)}
+                                   for a in _added(special, rstrip, marked)}
     return tok, cfg
 
 

@@ -2047,7 +2047,7 @@ def _moe_w8(E=128, D=2048, F=768, seed=0):
     return tuple(tquant.quantize(w, (1,)) for w in _moe_weights(E, D, F, seed))
 
 
-@pytest.mark.parametrize("R", [1, 8, 64, 512])
+@pytest.mark.parametrize("R", [1, 8, 64, 512, 32768])
 def test_moe_experts_w8_kernel_matches_plain(cuda, R):
     """The int8 kernel against moe_experts_plain on the same stacks (each
     product with qeinsum's two roundings), one launch a gate/up and one a
@@ -2082,6 +2082,73 @@ def test_moe_experts_w8_rows_bit_equal_across_R(cuda):
             one[int(experts[r])] = 1
             alone = moe.moe_experts(x[:N], src[r:r + 1].contiguous(), one, qg, qu, qd)
             assert torch.equal(alone[0], many[r]), (R, N, r)
+
+
+def _rows_alone_equal(moe, x, src, counts, experts, stacks, many, rows):
+    E = counts.shape[0]
+    for r in rows:
+        one = torch.zeros(E, dtype=torch.int32, device="cuda")
+        one[int(experts[r])] = 1
+        alone = moe.moe_experts(x, src[r:r + 1].contiguous(), one, *stacks)
+        assert torch.equal(alone[0], many[r]), r
+
+
+@pytest.mark.parametrize("R,touched", [(16, 0), (16, 6), (8192, 0)])
+def test_moe_experts_w8_at_mixtral_widths(cuda, R, touched):
+    """Mixtral-8x7B's widths (D 4,096, F 14,336, 8 experts): decode (R 16,
+    8 tokens x top-2; over 6 experts, the down launch's imbalance case, its
+    slices spread over clusters of 8 blocks) and prefill (R 8,192): within
+    the bf16 row tolerance of moe_experts_plain, rows alone bit-equal."""
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    stacks = _moe_w8(E=8, D=4096, F=14336)
+    assert moe.moe_spread_blocks(14336, 4096, False, 8, 132) == 8
+    N = R // 2
+    x = _t(cuda, N, 4096, dtype=torch.bfloat16)
+    if touched:
+        experts = np.sort(np.repeat(cuda.choice(8, touched, replace=False),
+                                    [R // touched + (i < R % touched) for i in range(touched)]))
+        counts = torch.from_numpy(np.bincount(experts, minlength=8).astype(np.int32)).cuda()
+        src = torch.from_numpy(cuda.integers(0, N, size=R).astype(np.int32)).cuda()
+    else:
+        src, counts, experts = _moe_rows(cuda, R, 8, N)
+    many = moe.moe_experts(x, src, counts, *stacks).clone()
+    _close(many, moe.moe_experts_plain(x, src, counts, *stacks), torch.bfloat16)
+    _rows_alone_equal(moe, x, src, counts, experts, stacks, many, sorted({0, R // 3, R - 1}))
+
+
+def test_moe_experts_w8_qwen3_down_slices_of_64_and_128_rows(cuda):
+    """qwen3-30b-a3b's down launch cuts F 768 into 8 slices of 64 and 128
+    rows (the shared body runs it, ending each 64-row slice mid-stage),
+    its gate/up launch 16 slices of 128 rows (the decode body, two side by
+    side): R 64 (8-row tiles) within the bf16 row tolerance, rows alone
+    bit-equal."""
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    assert [b - a for a, b in moe.moe_splits(768, 2048)] == [64, 128] * 4
+    assert not moe.moe_spread_split(768, 2048) and moe.moe_spread_split(2048, 1536)
+    stacks = _moe_w8()
+    x = _t(cuda, 8, 2048, dtype=torch.bfloat16)
+    src, counts, experts = _moe_rows(cuda, 64, 128, 8)
+    many = moe.moe_experts(x, src, counts, *stacks).clone()
+    _close(many, moe.moe_experts_plain(x, src, counts, *stacks), torch.bfloat16)
+    _rows_alone_equal(moe, x, src, counts, experts, stacks, many, (0, 21, 63))
+
+
+def test_moe_spread_equals_its_mirror(cuda):
+    """The int8 decode body's cluster size is ``ops/moe.moe_spread_blocks``
+    at every registry MoE width and at this card's SM count."""
+    from llms_on_kubernetes_tpu_torch import configs
+    from llms_on_kubernetes_tpu_torch.ops import moe
+
+    fn = kernels.function("moe_spread")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for c in configs.REGISTRY.values():
+        if c.num_experts:
+            D, F, E = c.hidden_size, c.intermediate_size, c.num_experts
+            for K, N, gated in ((D, F, True), (F, D, False)):
+                assert fn(K, N, int(gated), E, sms) == \
+                    moe.moe_spread_blocks(K, N, gated, E, sms), (c.name, K, N)
 
 
 @pytest.mark.parametrize("R,N", [(1, 1), (40, 20), (300, 150)])

@@ -26,6 +26,7 @@ own max |reference| (the order of the f32 sums only). Against JAX
 tests/test_torch_moe.py holds the port's block.
 """
 
+import inspect
 import re
 from pathlib import Path
 
@@ -165,10 +166,144 @@ def test_the_mirrors_name_the_kernels_constants():
     """The tile sizes the mirrors assume are the ones the body sets."""
     text = BODY.read_text()
     for name, want in (("kCols", moe.MOE_COLS), ("kMaxPow2Rows", moe.MOE_POW2_ROWS),
-                       ("kPreRows", moe.MOE_PREFILL_ROWS), ("kMaxExperts", moe.MOE_MAX_EXPERTS)):
+                       ("kPreRows", moe.MOE_PREFILL_ROWS), ("kMaxExperts", moe.MOE_MAX_EXPERTS),
+                       ("kChains", moe.MOE_CHAINS), ("kSpreadItems", moe.MOE_SPREAD_ITEMS)):
         m = re.search(rf"constexpr int {name} = (\d+);", text)
         assert m and int(m.group(1)) == want, name
     assert "make_split(K, Nw, K % kBK == 0 ? kBK : 32)" in text
+    # the decode body takes whole-tile splits of at least kChains slices
+    assert "return K % kBK == 0 && sp.S >= kChains && (K / kBK) % sp.S == 0;" in text
+    assert "if (S <= kChains || col_tiles(N, gated) * E >= kSpreadItems * sms) return 1;" in text
+
+
+# ---------------------------------------------------------------------------
+# the int8 kernel's decode body: slices side by side, spread over a cluster
+# ---------------------------------------------------------------------------
+
+def _launches():
+    """(model, K, N, gated) of every registry MoE model's two launches."""
+    for m in MOE_MODELS:
+        c = tconfigs.get_config(m)
+        D, Fd = c.hidden_size, c.intermediate_size
+        yield m, c.num_experts, D, Fd, True
+        yield m, c.num_experts, Fd, D, False
+
+
+def test_the_decode_body_takes_the_served_widths_it_should():
+    """Which launches the decode body takes (whole-tile slices, at least two)
+    and over how many blocks an item spreads, on 132 SMs: Mixtral's down
+    launch (32 column tiles x 8 experts) spreads its 16 slices over 8
+    blocks; qwen3's 64/128-row down slices and debug-moe's 32-row units
+    stay on the shared body."""
+    got = {(m, gated): moe.moe_spread_blocks(K, N, gated, E, 132)
+           for m, E, K, N, gated in _launches()}
+    assert got[("mixtral-8x7b", True)] == 1 and got[("mixtral-8x7b", False)] == 8
+    assert got[("qwen3-30b-a3b", True)] == 1 and got[("qwen3-30b-a3b", False)] == 0
+    assert got[("debug-moe", True)] == 0 and got[("debug-moe", False)] == 0
+
+
+@pytest.mark.parametrize("kc,S", [(1, 2), (1, 4), (1, 16), (2, 4), (4, 8), (8, 16)])
+@pytest.mark.parametrize("items", [1, 7, 192, 1568])
+def test_every_item_slice_is_computed_once(kc, S, items):
+    """Every (item, slice) is one block's, every item's fold names each
+    slice once, and the blocks of a cluster walk the same items."""
+    clusters = max(1, 132 // kc)
+    blocks, folds = moe.moe_spread_schedule(S, items, kc, clusters)
+    assert len(blocks) == clusters * kc
+    seen = {}
+    for (c, r), work in blocks.items():
+        assert [w for w, _ in work] == list(range(c, items, clusters))
+        for w, slices in work:
+            for s in slices:
+                seen[(w, s)] = seen.get((w, s), 0) + 1
+    assert seen == {(w, s): 1 for w in range(items) for s in range(S)}
+    assert sorted(folds) == list(range(items))
+    for w, parts in folds.items():
+        assert all(b[0] == w % clusters for b, _ in parts)     # the item's own cluster
+
+
+def _simulate_fold(chains: np.ndarray, kc: int) -> np.ndarray:
+    """The kernel's sums of one item, literally, in float32: each block's
+    chains (kc > 1) or in-order sum (kc = 1) as partial entries, then the
+    fold over ``moe_spread_schedule``'s entries in its order."""
+    S = chains.shape[0]
+    blocks, folds = moe.moe_spread_schedule(S, 1, kc, 1)
+    entries = {}
+    for (c, r), work in blocks.items():
+        for _w, slices in work:
+            if kc > 1:
+                for i, s in enumerate(slices):
+                    entries[((c, r), i)] = chains[s]
+            else:
+                tot = None
+                for s in slices:                      # groups of MOE_CHAINS, in order
+                    tot = chains[s] if tot is None else (tot + chains[s]).astype(np.float32)
+                entries[((c, r), 0)] = tot
+    out = None
+    for key in folds[0]:
+        v = entries[key]
+        out = v if out is None else (out + v).astype(np.float32)
+    return out
+
+
+def _fold_cases():
+    for m, E, K, N, gated in _launches():
+        Nw = 2 * N if gated else N
+        kc = moe.moe_spread_blocks(K, N, gated, E, 132)
+        yield m, K, Nw, kc
+    # debug-moe's down launch (K 96: 32-row units) on the shared body, and
+    # its decode-body forms at any cluster size the split allows
+    yield "debug-moe unit 32", 96, 64, 0
+
+
+@pytest.mark.parametrize("m,K,Nw,kc", list(_fold_cases()))
+def test_the_fold_sums_slices_in_slice_order(m, K, Nw, kc):
+    """A numpy float32 simulation of the fold equals the sequential slice
+    sum ((c0 + c1) + c2) + ... bit for bit, in both of the decode body's
+    forms (local: kc 1; spread: S / 2 blocks) and the shared body's (kc 0:
+    one block, every slice in order), at every registry MoE width and at
+    debug-moe's 32-row unit split."""
+    S = len(moe.moe_splits(K, Nw))
+    rng = np.random.default_rng(K * 7 + Nw)
+    # chains of very different sizes, so that a change of order shows
+    chains = (rng.standard_normal((S, 8, 64)) * 10.0 ** rng.integers(-3, 4, (S, 1, 1))
+              ).astype(np.float32)
+    want = chains[0]
+    for s in range(1, S):
+        want = (want + chains[s]).astype(np.float32)
+    forms = {max(kc, 1)} | ({1, S // moe.MOE_CHAINS} if S >= moe.MOE_CHAINS else {1})
+    for form in sorted(forms):
+        got = _simulate_fold(chains, form)
+        assert got.dtype == np.float32 and np.array_equal(got.view(np.uint32),
+                                                          want.view(np.uint32)), form
+    # another order (pairs first) is not the kernel's: the chains' sizes show it
+    if S >= 4:
+        pairs = [(chains[2 * i] + chains[2 * i + 1]).astype(np.float32) for i in range(S // 2)]
+        other = pairs[0]
+        for v in pairs[1:]:
+            other = (other + v).astype(np.float32)
+        assert not np.array_equal(other, want)
+
+
+@pytest.mark.parametrize("launch", list(_launches()), ids=lambda v: str(v))
+def test_the_spread_grid_does_not_depend_on_r(launch):
+    """The decode body's grid (its cluster size and the blocks of the
+    clusters that fit 132 SMs) is the same at every R: R changes only the
+    items the tile tables make, which the same blocks walk."""
+    _m, E, K, N, gated = launch
+    assert "R" not in inspect.signature(moe.moe_spread_blocks).parameters
+    kc = max(1, moe.moe_spread_blocks(K, N, gated, E, 132))
+    S = len(moe.moe_splits(K, 2 * N if gated else N))
+    assert kc == 1 or kc * moe.MOE_CHAINS == S
+    grids = set()
+    for R in (1, 16, 64, 512, 8192, 70000):
+        counts = [R // E + (e < R % E) for e in range(E)]
+        rows = moe.moe_rows(R, max(1, R // 2), E)
+        items = len(moe.moe_tiles(counts, rows)) * moe.moe_col_tiles(N, gated)
+        blocks, folds = moe.moe_spread_schedule(S, items, kc, 132 // kc)
+        assert len(folds) == items
+        grids.add(tuple(sorted(blocks)))
+    assert len(grids) == 1
 
 
 def _params(text: str, symbol: str) -> list:
