@@ -419,7 +419,8 @@ Phases, each fatal on failure:
    ``image_url`` chat whose ``usage`` counts the 256 soft tokens, 400 for
    a JPEG, a ``video_url`` and a remote URL, and 4 text streams' gaps
    between tokens alone and while the 1,600 x 1,200 PNG of an image chat
-   is decoded on its request thread. C (run inside phase 9 B, on
+   is decoded on its request thread (E adds the JPEG's). C (run inside
+   phase 9 B, on
    its engine): Qwen3-VL with images of two aspect ratios (two grids):
    the tower ms, the TTFT split, 8 streams with 4 images. D: both models
    cut to 2 layers at full width, written with their tokenizers by
@@ -429,7 +430,23 @@ Phases, each fatal on failure:
    --max-images-per-request 1`` behind ``llkt-router``: the streamed image
    chat and its usage, the three 400s and a fourth for two images; W8A16
    launched for the pre-quantized ones; Qwen3-VL's experts through the
-   int8 expert kernel (AWQ) or the bf16 one (bf16), never the other.
+   int8 expert kernel (AWQ) or the bf16 one (bf16), never the other. E
+   (the media a chat request carries; files written on the
+   card's host by ``testing/synth_media``, which needs no PIL): the host
+   C library's build seconds, then the host decode ms of an 896 px and a
+   1,600 x 1,200 4:2:0 JPEG and of an 8-frame 640 x 480 GIF and APNG; on
+   B's gemma-3-27b-it engine a JPEG image request's TTFT split (in
+   process) and a streamed JPEG ``image_url`` chat through the port's
+   HTTP server, 400 for a ``video_url`` on gemma-3 and for a JPEG whose
+   header is over the pixel cap, and the 4 text streams' rate while the
+   1,600 x 1,200 JPEG decodes beside the PNG figure; on C's Qwen3-VL
+   (phase 9 B's weights, an engine with a 4,096 bucket) a ``video_url``
+   chat of the GIF and one of the APNG: the sampled frames, the blocks,
+   the TTFT split into host decode, preprocess, tower and prefill, the
+   expert kernel and flash prefill launched; and through D's 2-layer
+   Qwen3-VL bf16 checkpoint (``--max-images-per-request 4``) behind
+   ``llkt-router`` both video chats, their usage counting 4 blocks of
+   soft tokens.
 
 ``--profile`` stops after phase 2 and traces, under torch.profiler, one
 decode window of eight requests as the engine runs it (one CUDA graph
@@ -7281,7 +7298,8 @@ def moe_in_process(torch) -> dict:
     streams of MOE_NEW tokens, every window a graph replay (device ms each
     by CUDA events), the expert kernel 2 x L times a forward; then the device time of
     steady windows split between the experts, attention and the rest
-    (torch.profiler); then phase 10 C's image requests on the same engine."""
+    (torch.profiler); then phase 10 C's image requests on the same engine,
+    and E's host decode and video chats on the same weights."""
     from llms_on_kubernetes_tpu_torch import kernels
     from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig
     from llms_on_kubernetes_tpu_torch.models.decoder import init_params
@@ -7326,7 +7344,13 @@ def moe_in_process(torch) -> dict:
     for name, (n, ms) in split["rest_top"]:
         say(f"    {ms / nwin:8.3f} ms, {n / nwin:6.0f} launches a window: {name[:110]}")
     vision = vl_qwen_images(torch, eng, cfg)
-    del eng, params, timer
+    del eng, timer
+    free_card(torch, "phase 10 C done")
+    t1 = time.perf_counter()
+    vision["video"] = vl_qwen_video(torch, params, cfg)
+    say(f"phase 10 E on Qwen3-VL (host decode, video chats in process): "
+        f"{time.perf_counter() - t1:.1f} s")
+    del params
     return {"launches": run["launches"], "tok_s": run["tok_s"], "window_ms": win_ms,
             "split": split, "free_gib": free0 / 2**30, "held_gib": held / 2**30,
             "vision": vision}
@@ -7650,10 +7674,16 @@ VL_DIRS = {(m, q): os.path.join(OUT_DIR, f"{m.split('/')[1].lower()}-2l-{q}")
            for m, q in VL_CKPTS}
 GEMMA_VL_PATH = f"{GEMMA_VL_NAME} image requests in process"
 GEMMA_VL_HTTP_PATH = f"{GEMMA_VL_NAME} image requests through the port's HTTP server"
+GEMMA_JPEG_PATH = f"{GEMMA_VL_NAME} JPEG image request in process"
 QWEN_VL_PATH = f"{QWEN_VL_NAME} image requests in process"
 VL_CKPT_PATHS = {(m, q): f"{m.split('/')[1]} {VL_CKPT_LAYERS} layers "
                          f"{'' if q == 'bf16' else q + ' '}checkpoint serve behind llkt-router"
                  for m, q in VL_CKPTS}
+# E: the media, written by testing/synth_media on the card's host
+VL_VIDEO = (8, 480, 640)     # frames, height, width of the GIF and the APNG
+QWEN_VL_VIDEO_PATH = f"{QWEN_VL_NAME} video_url chats in process"
+# the Qwen3-VL bf16 checkpoint's server takes a video's 4 blocks
+VL_MAX_IMAGES = {(QWEN_VL, "bf16"): 4}
 # A: gemma-3-27b's attention (32 query heads on 16 KV heads, d 128): bucket,
 # length, the image runs' first positions (256 soft tokens each)
 VL_MASK_CASES = ((1024, 900, (100,)), (4096, 4000, (200, 1200, 2200, 3200)))
@@ -7701,6 +7731,60 @@ def data_url(png: bytes, kind: str = "png") -> str:
     import base64
 
     return f"data:image/{kind};base64," + base64.b64encode(png).decode()
+
+
+def vl_media() -> dict:
+    """E's files, written by ``testing/synth_media`` (numpy; no PIL on this
+    machine): 896 px and 1,600 x 1,200 4:2:0 JPEGs at quality 90 of
+    ``vl_picture``s, and an 8-frame 640 x 480 GIF (each frame's picture on
+    a 3-3-2 palette, 40 ms a frame) and APNG (RGB, 40 ms a frame)."""
+    from llms_on_kubernetes_tpu_torch.testing import synth_media
+
+    t0 = time.perf_counter()
+    out = {"jpeg 896x896": synth_media.encode_jpeg(vl_picture(1, 896, 896), 90, "420"),
+           "jpeg 1600x1200": synth_media.encode_jpeg(vl_picture(2, 1200, 1600), 90, "420")}
+    n, h, w = VL_VIDEO
+    i = np.arange(256)
+    palette = np.stack([i & 0xE0, (i << 3) & 0xE0, (i << 6) & 0xC0], axis=1).astype(np.uint8)
+    pics = [vl_picture(10 + k, h, w) for k in range(n)]
+    idx = [(p[..., 0] & 0xE0) | ((p[..., 1] & 0xE0) >> 3) | (p[..., 2] >> 6) for p in pics]
+    out["gif 8x640x480"] = synth_media.encode_gif(idx, palette, delays=40)
+    out["apng 8x640x480"] = synth_media.encode_apng(pics, delays=40)
+    say(f"  E: wrote {', '.join(f'{k} ({len(v)} bytes)' for k, v in out.items())} in "
+        f"{time.perf_counter() - t0:.1f} s (testing/synth_media, numpy)")
+    return out
+
+
+def vl_host_decode(media: dict) -> dict:
+    """E: the host C library's build (``kernels.build_host``, its seconds
+    from ``kernels.COMPILES``), then each file's decode ms on this host
+    (least of 3): a JPEG through ``decode_image``, a GIF or APNG's every
+    frame composited (``decode_video_frames``)."""
+    from llms_on_kubernetes_tpu_torch import kernels
+    from llms_on_kubernetes_tpu_torch.engine import images
+
+    n0 = len(kernels.COMPILES)
+    path = kernels.build_host("media")
+    built = [sec for kind, sec in kernels.COMPILES[n0:] if kind == "cc:media"]
+    out = {"build_s": built[0] if built else None}
+    say(f"  E: host library {path.name}: "
+        + (f"built in {built[0]:.2f} s" if built else "already built in this run"))
+    for label, data in media.items():
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            if label.startswith("jpeg"):
+                got = {0: images.decode_image(data)}
+            else:
+                got = images.decode_video_frames(data, range(VL_VIDEO[0]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        shapes = {tuple(f.shape) for f in got.values()}
+        if len(got) != (1 if label.startswith("jpeg") else VL_VIDEO[0]) or len(shapes) != 1:
+            fail(f"E: {label} decoded to {len(got)} frames of shapes {shapes}")
+        out[label] = min(ms)
+        say(f"  E: host decode {label} ({len(data)} bytes): {min(ms):.1f} ms (least of 3; "
+            f"{len(got)} frame(s) of {shapes.pop()}) [{card_line()}]")
+    return out
 
 
 def mm_mask_work(groups: np.ndarray, T: int, n: int, n_q: int, n_kv: int, d: int, window):
@@ -7901,14 +7985,14 @@ def vl_mixed_streams(torch, eng, cfg, pixels: list, tag: str) -> dict:
 
 
 def vl_ttft_split(torch, eng, cfg, png: bytes, tag: str) -> dict:
-    """One image request from PNG bytes, alone: the host's decode and
-    preprocessing, the tower, and the rest of its TTFT (the prefill and
-    the first token's read)."""
+    """One image request from PNG (or JPEG) bytes, alone: the host's
+    decode and preprocessing, the tower, and the rest of its TTFT (the
+    prefill and the first token's read)."""
     from llms_on_kubernetes_tpu_torch.engine import images
     from llms_on_kubernetes_tpu_torch.engine.engine import SamplingParams
 
     t0 = time.perf_counter()
-    rgb = images.decode_png(png)
+    rgb = images.decode_image(png)
     t1 = time.perf_counter()
     if cfg.vision.family == "qwen3vl":
         px = images.preprocess_image_qwen3vl(rgb, cfg.vision)
@@ -7938,8 +8022,9 @@ def vl_ttft_split(torch, eng, cfg, png: bytes, tag: str) -> dict:
     out = {"decode_ms": dec, "resize_ms": pre, "tower_ms": tw,
            "prefill_ms": total - dec - pre - tw, "ttft_ms": total, "image": rgb.shape[:2],
            "grid": px.shape[:2], "text_ttft_ms": text_ms}
-    say(f"  {tag}: an image request from a {rgb.shape[1]}x{rgb.shape[0]} PNG ({len(png)} "
-        f"bytes), TTFT {total:.1f} ms = host PNG decode {dec:.1f} + resize and normalise "
+    kind = "JPEG" if png[:2] == b"\xff\xd8" else "PNG"
+    say(f"  {tag}: an image request from a {rgb.shape[1]}x{rgb.shape[0]} {kind} ({len(png)} "
+        f"bytes), TTFT {total:.1f} ms = host {kind} decode {dec:.1f} + resize and normalise "
         f"{pre:.1f} (to {px.shape[1]}x{px.shape[0]}) + tower {tw:.1f} + prefill and first "
         f"token {out['prefill_ms']:.1f}; a {len(req.prompt)}-token text request's TTFT "
         f"{text_ms:.1f} [{card_line()}]")
@@ -8023,12 +8108,16 @@ def vl_repeat_checks(eng, cfg, px, tag: str) -> dict:
     return {"ids": cold, "hit_tokens": hh, "flip": flip}
 
 
-def vl_http_checks(torch, eng, cfg, tok_dir: str, png: bytes, big_png: bytes) -> dict:
+def vl_http_checks(torch, eng, cfg, tok_dir: str, png: bytes, big_png: bytes,
+                   media: dict) -> dict:
     """D (in process): the engine behind the port's HTTP server with the
     family's tokenizer: a streamed image chat whose usage counts the soft
-    tokens, and a JPEG, a video_url and a remote URL each answered 400;
-    then the text streams' inter-token gaps while ``big_png`` is decoded
-    on its request thread (``vl_decode_interference``)."""
+    tokens, and a corrupt JPEG, a video_url and a remote URL each answered
+    400; E: the same chat from a JPEG, and 400 for a GIF ``video_url`` (not
+    Qwen3-VL's tower) and a JPEG whose header is over the pixel cap; then
+    the text streams' inter-token gaps while ``big_png``, and then E's
+    1,600 x 1,200 JPEG, is decoded on its request thread
+    (``vl_decode_interference``)."""
     from llms_on_kubernetes_tpu_torch import kernels
     from llms_on_kubernetes_tpu_torch.engine.tokenizer import JsonTokenizer
     from llms_on_kubernetes_tpu_torch.server.openai_api import OpenAIServer
@@ -8040,22 +8129,45 @@ def vl_http_checks(torch, eng, cfg, tok_dir: str, png: bytes, big_png: bytes) ->
         kernels.reset_launches()
         m0 = eng.mm_prefill_calls
         usage = vl_chat_checks(base, cfg.name, png, tok, cfg, GEMMA_VL_HTTP_PATH)
+        jpeg = media["jpeg 896x896"]
+        usage_jpeg = vl_chat_checks(base, cfg.name, jpeg, tok, cfg,
+                                    GEMMA_VL_HTTP_PATH + " (E, JPEG)", kind="jpeg")
         launches = kernels.launch_counts()
-        if eng.mm_prefill_calls - m0 != 1 or not launches.get("flash_prefill"):
+        if eng.mm_prefill_calls - m0 != 2 or not launches.get("flash_prefill"):
             fail(f"{GEMMA_VL_HTTP_PATH}: {eng.mm_prefill_calls - m0} multimodal prefills")
-        interference = vl_decode_interference(base, cfg.name, big_png, srv)
+        # E's refusals: video on SigLIP's tower; a JPEG frame over the cap
+        sof = next(i for i in range(len(jpeg) - 1) if jpeg[i:i + 2] == b"\xff\xc0")
+        huge = jpeg[:sof + 5] + (20_000).to_bytes(2, "big") * 2 + jpeg[sof + 9:]
+        refused = {}
+        for name, body, want in (
+                ("video_url on gemma-3", vl_chat_body(
+                    cfg.name, data_url(media["gif 8x640x480"], "gif"), kind="video_url"),
+                 "does not accept video input"),
+                ("20,000 x 20,000 JPEG", vl_chat_body(cfg.name, data_url(huge, "jpeg")),
+                 "larger than")):
+            st, raw = http("POST", base + "/v1/chat/completions", body)
+            msg = json.loads(raw)["error"]["message"] if st == 400 else raw[:200]
+            if st != 400 or want not in msg:
+                fail(f"{GEMMA_VL_HTTP_PATH}: {name} answered HTTP {st}: {msg!r}")
+            refused[name] = msg[:80]
+        say(f"  {GEMMA_VL_HTTP_PATH} (E): 400 for " + "; ".join(
+            f"{k} ({v!r})" for k, v in refused.items()))
+        interference = vl_decode_interference(
+            base, cfg.name, {"PNG": big_png, "JPEG": media["jpeg 1600x1200"]}, srv)
     finally:
         srv.close()
-    return {"launches": launches, "usage": usage, "interference": interference}
+    return {"launches": launches, "usage": usage, "usage_jpeg": usage_jpeg,
+            "interference": interference}
 
 
-def vl_decode_interference(base: str, model: str, png: bytes, srv) -> dict:
+def vl_decode_interference(base: str, model: str, files: dict, srv) -> dict:
     """4 greedy text chats of VL_GAP_TOKENS streamed through the HTTP
-    server, alone and then with an image chat of ``png`` sent 0.4 s after
-    them: the text streams' gaps between token frames (client clock)
-    overall, and those that end while the image's PNG is decoded, resized
-    and normalised on its request thread (``preprocess_images``, timed in
-    place) against the gaps of the run without the image."""
+    server, alone and then, for each of ``files`` (kind -> image bytes),
+    with an image chat of it sent 0.4 s after them: the text streams' gaps
+    between token frames (client clock) overall, and those that end while
+    the image is decoded, resized and normalised on its request thread
+    (``preprocess_images``, timed in place) against the gaps of the run
+    without the image."""
     import threading
 
     window: list = []
@@ -8069,7 +8181,7 @@ def vl_decode_interference(base: str, model: str, png: bytes, srv) -> dict:
             window.append((t0, time.perf_counter()))
     srv.preprocess_images = timed
 
-    def run(with_image: bool) -> list:
+    def run(png) -> list:
         frames: list = [None] * 4
 
         def text(i):
@@ -8084,10 +8196,11 @@ def vl_decode_interference(base: str, model: str, png: bytes, srv) -> dict:
         ths = [threading.Thread(target=text, args=(i,)) for i in range(4)]
         for t in ths:
             t.start()
-        if with_image:
+        if png is not None:
             time.sleep(0.4)
+            kind = "jpeg" if png[:2] == b"\xff\xd8" else "png"
             status, _h, lines, _t0 = stream_lines(base + "/v1/chat/completions",
-                                                  vl_chat_body(model, data_url(png)))
+                                                  vl_chat_body(model, data_url(png, kind)))
             if status != 200 or lines[-1][1] != "data: [DONE]":
                 fail(f"{GEMMA_VL_HTTP_PATH}: the image chat beside text streams: HTTP {status}")
         for t in ths:
@@ -8100,37 +8213,39 @@ def vl_decode_interference(base: str, model: str, png: bytes, srv) -> dict:
     def gaps(frames):
         return [(b, b - a) for f in frames for a, b in zip(f, f[1:])]
 
-    try:
-        alone = run(False)
-        beside = run(True)
-    finally:
-        srv.preprocess_images = inner
-    if len(window) != 1:
-        fail(f"{GEMMA_VL_HTTP_PATH}: {len(window)} image preprocessings, expected 1")
-    w0, w1 = window[0]
-    during = [g for t, g in gaps(beside) if w0 < t <= w1]
-    # token frames a second: alone once all 4 stream, beside inside the window
-    t_all = max(f[0] for f in alone)
-    rate_alone = sum(t > t_all for f in alone for t in f) / (max(f[-1] for f in alone) - t_all)
-    rate_during = sum(w0 < t <= w1 for f in beside for t in f) / (w1 - w0)
-    alone, beside = gaps(alone), gaps(beside)
-
     def stats(gaps):
         ms = np.array(gaps) * 1e3 if gaps else np.zeros(1)
         return {"n": len(gaps), "median_ms": float(np.median(ms)),
                 "p90_ms": float(np.percentile(ms, 90)), "max_ms": float(ms.max())}
-    out = {"decode_window_ms": (w1 - w0) * 1e3, "alone": stats([g for _, g in alone]),
-           "during_decode": stats(during), "beside_all": stats([g for _, g in beside]),
-           "tok_s_alone": rate_alone, "tok_s_during_decode": rate_during}
-    say(f"  {GEMMA_VL_HTTP_PATH}: 4 text streams of {VL_GAP_TOKENS}, alone "
-        f"{rate_alone:.1f} tok/s, gaps between token frames median "
-        f"{out['alone']['median_ms']:.1f} ms, p90 {out['alone']['p90_ms']:.1f}, max "
-        f"{out['alone']['max_ms']:.1f}; while a {len(png)}-byte PNG is decoded and resized on "
-        f"its request thread ({out['decode_window_ms']:.1f} ms): {rate_during:.1f} tok/s, "
-        f"{len(during)} gaps, median {out['during_decode']['median_ms']:.1f}, p90 "
-        f"{out['during_decode']['p90_ms']:.1f}, max {out['during_decode']['max_ms']:.1f}; "
-        f"over the whole run with the image (its prefill included) max gap "
-        f"{out['beside_all']['max_ms']:.1f} [{card_line()}]")
+
+    try:
+        alone = run(None)
+        besides = {kind: run(png) for kind, png in files.items()}
+    finally:
+        srv.preprocess_images = inner
+    if len(window) != len(files):
+        fail(f"{GEMMA_VL_HTTP_PATH}: {len(window)} image preprocessings, expected "
+             f"{len(files)}")
+    # token frames a second: alone once all 4 stream, beside inside the window
+    t_all = max(f[0] for f in alone)
+    rate_alone = sum(t > t_all for f in alone for t in f) / (max(f[-1] for f in alone) - t_all)
+    out = {"alone": stats([g for _, g in gaps(alone)]), "tok_s_alone": rate_alone}
+    for (kind, png), (w0, w1) in zip(files.items(), window):
+        beside = besides[kind]
+        during = [g for t, g in gaps(beside) if w0 < t <= w1]
+        rate_during = sum(w0 < t <= w1 for f in beside for t in f) / (w1 - w0)
+        r = {"decode_window_ms": (w1 - w0) * 1e3, "during_decode": stats(during),
+             "beside_all": stats([g for _, g in gaps(beside)]), "tok_s_during_decode": rate_during}
+        out[kind] = r
+        say(f"  {GEMMA_VL_HTTP_PATH}: 4 text streams of {VL_GAP_TOKENS}, alone "
+            f"{rate_alone:.1f} tok/s, gaps between token frames median "
+            f"{out['alone']['median_ms']:.1f} ms, p90 {out['alone']['p90_ms']:.1f}, max "
+            f"{out['alone']['max_ms']:.1f}; while a {len(png)}-byte {kind} is decoded and "
+            f"resized on its request thread ({r['decode_window_ms']:.1f} ms): "
+            f"{rate_during:.1f} tok/s, {len(during)} gaps, median "
+            f"{r['during_decode']['median_ms']:.1f}, p90 {r['during_decode']['p90_ms']:.1f}, "
+            f"max {r['during_decode']['max_ms']:.1f}; over the whole run with the image (its "
+            f"prefill included) max gap {r['beside_all']['max_ms']:.1f} [{card_line()}]")
     return out
 
 
@@ -8154,9 +8269,9 @@ def vl_expected_prompt(tok, cfg, images: int = 1) -> int:
 
 
 def vl_chat_checks(base: str, model: str, png: bytes, tok, cfg, tag: str,
-                   cap: bool = False) -> dict:
+                   cap: int = 0, kind: str = "png") -> dict:
     status, _h, lines, _t0 = stream_lines(base + "/v1/chat/completions",
-                                          vl_chat_body(model, data_url(png)))
+                                          vl_chat_body(model, data_url(png, kind)))
     if status != 200 or lines[-1][1] != "data: [DONE]":
         fail(f"{tag}: image chat HTTP {status}, last line {lines[-1:]!r}")
     frames = [json.loads(ln[6:]) for _t, ln in lines[:-1] if ln.startswith("data: {")]
@@ -8167,12 +8282,12 @@ def vl_chat_checks(base: str, model: str, png: bytes, tok, cfg, tag: str,
     text = "".join(ch["delta"].get("content") or "" for f in frames for ch in f["choices"])
     refused = {}
     jpeg = b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + bytes(64)
-    cases = {"jpeg": vl_chat_body(model, data_url(jpeg, "jpeg")),
+    cases = {"corrupt jpeg": vl_chat_body(model, data_url(jpeg, "jpeg")),
              "video_url": vl_chat_body(model, "data:video/mp4;base64,AAAA", kind="video_url"),
              "remote": vl_chat_body(model, "https://example.invalid/cat.png")}
     if cap:
-        cases["2 images over --max-images-per-request 1"] = vl_chat_body(
-            model, data_url(png), images=2)
+        cases[f"{cap + 1} images over --max-images-per-request {cap}"] = vl_chat_body(
+            model, data_url(png, kind), images=cap + 1)
     for name, body in cases.items():
         st, raw = http("POST", base + "/v1/chat/completions", body)
         if st != 400:
@@ -8185,8 +8300,10 @@ def vl_chat_checks(base: str, model: str, png: bytes, tok, cfg, tag: str,
     return usage
 
 
-def vl_gemma(torch, pixels_png: dict) -> dict:
-    """B (and D's in-process server): gemma-3-27b-it at full width."""
+def vl_gemma(torch, pixels_png: dict, media: dict) -> dict:
+    """B (and D's in-process server, and E's JPEG): gemma-3-27b-it at full
+    width."""
+    from llms_on_kubernetes_tpu_torch import kernels
     from llms_on_kubernetes_tpu_torch.engine import images
     from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig
     from llms_on_kubernetes_tpu_torch.models.decoder import init_params
@@ -8222,15 +8339,26 @@ def vl_gemma(torch, pixels_png: dict) -> dict:
              for k in ("first", "again")]
     mixed = vl_mixed_streams(torch, eng, cfg, pixels, GEMMA_VL_PATH)
     repeat = vl_repeat_checks(eng, cfg, pixels[0], GEMMA_VL_PATH)
+    kernels.reset_launches()
+    split_jpeg = vl_ttft_split(torch, eng, cfg, media["jpeg 896x896"], GEMMA_JPEG_PATH)
+    jpeg_launches = kernels.launch_counts()
+    if (jpeg_launches.get("flash_prefill", 0) < cfg.num_layers
+            or not jpeg_launches.get("paged_decode")):
+        fail(f"{GEMMA_JPEG_PATH}: launches {jpeg_launches}: flash_prefill at least "
+             f"{cfg.num_layers} times and paged_decode expected")
+    say(f"  {GEMMA_JPEG_PATH}: flash_prefill {jpeg_launches['flash_prefill']} launches (the "
+        f"image prefill's {cfg.num_layers} with image groups, and the text request's), "
+        f"paged_decode {jpeg_launches['paged_decode']} (graph replays)")
     tok_dir = os.path.join(OUT_DIR, "gemma3-tokenizer")
     write_tokenizer(tok_dir, "gemma3")
     served = vl_http_checks(torch, eng, cfg, tok_dir, pixels_png["896x896"],
-                            pixels_png["1600x1200"])
+                            pixels_png["1600x1200"], media)
     shutil.rmtree(tok_dir, ignore_errors=True)
     del eng, params
     free_card(torch, "gemma-3-27b-it done")
     return {"tower_ms": tower, "host": host, "split": split, "mixed": mixed, "repeat": repeat,
-            "served": served, "launches": mixed["launches"]}
+            "served": served, "launches": mixed["launches"], "split_jpeg": split_jpeg,
+            "jpeg_launches": jpeg_launches}
 
 
 def vl_qwen_images(torch, eng, cfg) -> dict:
@@ -8257,13 +8385,127 @@ def vl_qwen_images(torch, eng, cfg) -> dict:
             "launches": mixed["launches"]}
 
 
-def vl_checkpoint_serve(torch, writes: dict) -> dict:
+def vl_qwen_video(torch, params, cfg) -> dict:
+    """E on Qwen3-VL (phase 9 B's weights, cut as B cuts them): first E's
+    files and their host decode (the first use of the host library, so its
+    build is timed here), then an Engine with a 4,096 bucket (a video of 8
+    frames is 4 blocks of 576 soft tokens) behind an unstarted
+    ``OpenAIServer`` with the qwen3vl tokenizer: for the GIF and the APNG,
+    a ``video_url`` chat's prompt and pixels through ``chat_prompt``, and
+    the request's TTFT split into the host's decode (``extract_video``'s
+    walk and ``decode_video_frames``), preprocessing (each kept frame on the
+    Qwen grid), the tower (CUDA events) and the prefill with the first
+    token's read; 8 greedy tokens; one multimodal prefill, flash prefill L
+    times and the expert kernel 2 x L times."""
+    from llms_on_kubernetes_tpu_torch import kernels
+    from llms_on_kubernetes_tpu_torch.engine import images
+    from llms_on_kubernetes_tpu_torch.engine.engine import Engine, EngineConfig, SamplingParams
+    from llms_on_kubernetes_tpu_torch.engine.tokenizer import JsonTokenizer
+    from llms_on_kubernetes_tpu_torch.server.openai_api import OpenAIServer, extract_video
+    from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import write_tokenizer
+
+    media = vl_media()
+    host = vl_host_decode(media)
+    eng = Engine(EngineConfig(model=MOE_MODEL, num_pages=256, pages_per_slot=64,
+                              prefill_buckets=(1024, 4096)), model_config=cfg, params=params)
+    tok_dir = os.path.join(OUT_DIR, "qwen3vl-tokenizer")
+    write_tokenizer(tok_dir, "qwen3vl")
+    srv = OpenAIServer(eng, JsonTokenizer(tok_dir), QWEN_VL_NAME)
+    tp = cfg.vision.temporal_patch_size
+    out = {"media": media, "host": host}
+    total_launches: dict = {}
+    for label, kind in (("gif 8x640x480", "gif"), ("apng 8x640x480", "png")):
+        body = vl_chat_body(QWEN_VL_NAME, data_url(media[label], kind), kind="video_url")
+        part = body["messages"][0]["content"][1]
+        t0 = time.perf_counter()
+        raw, idx, ts = extract_video(part, cfg.vision, QWEN_VL_NAME)
+        frames = images.decode_video_frames(raw, idx)
+        t1 = time.perf_counter()
+        px = np.stack([images.preprocess_image_qwen3vl(frames[i], cfg.vision) for i in idx])
+        t2 = time.perf_counter()
+        ids, _tools, _grammar, pixels = srv.chat_prompt(body)
+        if len(pixels) != 1 or not np.array_equal(pixels[0], px):
+            fail(f"{QWEN_VL_VIDEO_PATH}: chat_prompt's pixels differ from the timed ones")
+        kernels.reset_launches()
+        m0 = eng.mm_prefill_calls
+        tower = TowerTimer(torch, eng)
+        eng.allocator.prefix_caching = False
+        try:
+            t3 = time.perf_counter()
+            req = eng.submit(ids, SamplingParams(temperature=0.0, max_tokens=8), images=[px])
+            while not req.output:
+                eng.step()
+            t4 = time.perf_counter()
+            vl_finish(eng, [req])
+        finally:
+            tower.close()
+            eng.allocator.prefix_caching = True
+        launches = kernels.launch_counts()
+        total_launches = add_counts(total_launches, launches)
+        blocks = len(idx) // tp
+        L = cfg.num_layers
+        if (eng.mm_prefill_calls - m0 != 1 or len(tower.ms) != 1
+                or launches.get("flash_prefill", 0) < L
+                or launches.get("moe_experts", 0) < 2 * L or len(req.output) != 8):
+            fail(f"{QWEN_VL_VIDEO_PATH} ({label}): {eng.mm_prefill_calls - m0} multimodal "
+                 f"prefills, {len(tower.ms)} tower calls, launches {launches}, "
+                 f"{len(req.output)} tokens")
+        dec, pre, tw = (t1 - t0) * 1e3, (t2 - t1) * 1e3, tower.ms[0]
+        pf = (t4 - t3) * 1e3 - tw
+        r = {"frames": idx, "timestamps": ts, "blocks": blocks, "prompt_tokens": len(ids),
+             "decode_ms": dec, "preprocess_ms": pre, "tower_ms": tw, "prefill_ms": pf,
+             "ttft_ms": dec + pre + tw + pf, "launches": launches}
+        out[label] = r
+        say(f"  {QWEN_VL_VIDEO_PATH} ({label}, {len(media[label])} bytes): frames {idx} "
+            f"sampled, {blocks} blocks of {cfg.vision.mm_tokens_per_image} soft tokens at "
+            f"{[f'{t:.1f}' for t in ts]} s, a {len(ids)}-token prompt on a "
+            f"{px.shape[2]}x{px.shape[1]} grid; TTFT {r['ttft_ms']:.1f} ms = host decode "
+            f"{dec:.1f} + preprocess {pre:.1f} + tower {tw:.1f} + prefill and first token "
+            f"{pf:.1f}; moe_experts {launches.get('moe_experts', 0)} and flash_prefill "
+            f"{launches.get('flash_prefill', 0)} launches; 8 greedy tokens "
+            f"{list(req.output)} [{card_line()}]")
+    shutil.rmtree(tok_dir, ignore_errors=True)
+    del eng, srv
+    out["launches"] = total_launches
+    return out
+
+
+def vl_video_chats(base: str, model: str, video: dict, tag: str) -> dict:
+    """E through a server: a streamed ``video_url`` chat of the GIF and one
+    of the APNG; each usage counts the prompt that ``chat_prompt`` built
+    for the same body in process (``video``, C's run: the same tokenizer
+    layout and vision config, 4 blocks of soft tokens, each after its
+    ``<t seconds>`` text)."""
+    out = {}
+    for label, kind in (("gif 8x640x480", "gif"), ("apng 8x640x480", "png")):
+        body = vl_chat_body(model, data_url(video["media"][label], kind), kind="video_url")
+        status, _h, lines, t0 = stream_lines(base + "/v1/chat/completions", body)
+        if status != 200 or lines[-1][1] != "data: [DONE]":
+            fail(f"{tag}: the {label} video chat: HTTP {status}, last line {lines[-1:]!r}")
+        frames = [json.loads(ln[6:]) for _t, ln in lines[:-1] if ln.startswith("data: {")]
+        usage = next((f["usage"] for f in frames if f.get("usage")), None)
+        want, blocks = video[label]["prompt_tokens"], video[label]["blocks"]
+        if not usage or usage["prompt_tokens"] != want:
+            fail(f"{tag}: the {label} video chat's usage {usage}, expected the {want} prompt "
+                 f"tokens of chat_prompt in process")
+        first = next(t for t, ln in lines if ln.startswith("data: {") and '"content"' in ln)
+        out[label] = {"prompt_tokens": want, "blocks": blocks,
+                      "ttft_ms": (first - t0) * 1e3}
+        say(f"  {tag}: a streamed {label} video_url chat: {blocks} blocks, "
+            f"{usage['prompt_tokens']} prompt tokens, TTFT {out[label]['ttft_ms']:.1f} ms "
+            f"(client clock) [{card_line()}]")
+    return out
+
+
+def vl_checkpoint_serve(torch, writes: dict, video: dict) -> dict:
     """D: each 2-layer checkpoint (gemma-3 fp8, Qwen3-VL bf16 and AWQ)
     through ``serve`` behind ``llkt-router`` (``--max-images-per-request
-    1``): a streamed image chat, the usage counting the soft tokens, and
-    400s for a JPEG, a video_url, a remote URL and two images; a
-    pre-quantized text model's int8 weights through the W8A16 kernel;
-    Qwen3-VL's experts through the expert kernel of their kind."""
+    1``, the Qwen3-VL bf16 one 4): a streamed image chat, the usage
+    counting the soft tokens, and 400s for a corrupt JPEG, a video_url, a
+    remote URL and one image over the cap; a pre-quantized text model's
+    int8 weights through the W8A16 kernel; Qwen3-VL's experts through the
+    expert kernel of their kind; E: through the Qwen3-VL bf16 one, the GIF
+    and APNG video chats (``vl_video_chats``)."""
     from llms_on_kubernetes_tpu_torch.engine.tokenizer import JsonTokenizer
 
     out = {}
@@ -8282,20 +8524,24 @@ def vl_checkpoint_serve(torch, writes: dict) -> dict:
         png = encode_png(vl_picture(5, 480, 640))
         tag = VL_CKPT_PATHS[repo, q]
 
+        cap = VL_MAX_IMAGES.get((repo, q), 1)
+
         def drive(base: str, _proc, cfg=cfg, tok=tok, name=name, png=png, tag=tag,
-                  q=q) -> dict:
+                  q=q, cap=cap, with_video=(repo, q) == (QWEN_VL, "bf16")) -> dict:
             router_proc, router = start_router(
                 ["--models", f"{name}={base}", "--probe-interval", "0.5"],
                 f"chip_smoke_vl_router_{name}_{q}.log", [base])
             try:
                 http("POST", base + "/debug/kernels/reset")
-                usage = vl_chat_checks(router, name, png, tok, cfg, tag, cap=True)
-                return {"usage": usage, "launches": kernel_counts(base)["launches"]}
+                usage = vl_chat_checks(router, name, png, tok, cfg, tag, cap=cap)
+                videos = vl_video_chats(router, name, video, tag) if with_video else {}
+                return {"usage": usage, "videos": videos,
+                        "launches": kernel_counts(base)["launches"]}
             finally:
                 stop_proc(router_proc)
 
         out[repo, q] = with_server(["--model", path, "--served-model-name", name,
-                                    "--max-images-per-request", "1"],
+                                    "--max-images-per-request", str(cap)],
                                    f"chip_smoke_vl_{name}_{q}.log", drive, pool_args=())
         n = out[repo, q]["launches"]
         want = ["flash_prefill"] + ([] if q == "bf16" else ["w8_matmul"])
@@ -8313,16 +8559,18 @@ def phase_vision(torch, entries: dict, qwen: dict, writes=None) -> dict:
     """Phase 10: A (kernel 1 with mm_groups), B (gemma-3-27b-it at full
     width, its engine behind the port's HTTP server), C (Qwen3-VL-30B-A3B:
     phase 9 B's engine, ``qwen``), D (2-layer checkpoints of both through
-    ``serve`` behind llkt-router)."""
+    ``serve`` behind llkt-router), E (JPEG on B's engine and server, video
+    on C's weights (``qwen["video"]``) and through D's Qwen3-VL server)."""
     t0 = time.perf_counter()
     writes = writes or start_vl_writes()       # D's checkpoints, started early by main()
     entries["flash_prefill"]["other_shapes"].update(vl_mask_checks(torch, Timer(torch)))
     pngs = {"896x896": encode_png(vl_picture(1, 896, 896)),
             "1600x1200": encode_png(vl_picture(2, 1200, 1600))}
-    gemma = vl_gemma(torch, pngs)
+    media = qwen["video"]["media"]              # E's files, written in phase 9 B
+    gemma = vl_gemma(torch, pngs, media)
     t1 = time.perf_counter()
-    ckpt = vl_checkpoint_serve(torch, writes)
-    say(f"phase 10 D: {time.perf_counter() - t1:.1f} s")
+    ckpt = vl_checkpoint_serve(torch, writes, qwen["video"])
+    say(f"phase 10 D (and E's served video chats): {time.perf_counter() - t1:.1f} s")
     say(f"phase 10 (vision): {time.perf_counter() - t0:.1f} s")
     return {"gemma": gemma, "qwen": qwen, "ckpt": ckpt}
 
@@ -8549,6 +8797,8 @@ def main(argv) -> int:
              GEMMA_VL_PATH: vision["gemma"]["launches"],
              GEMMA_VL_HTTP_PATH: vision["gemma"]["served"]["launches"],
              QWEN_VL_PATH: vision["qwen"]["launches"],
+             GEMMA_JPEG_PATH: vision["gemma"]["jpeg_launches"],
+             QWEN_VL_VIDEO_PATH: vision["qwen"]["video"]["launches"],
              **{VL_CKPT_PATHS[k]: r["launches"] for k, r in vision["ckpt"].items()}}
     for preset, r in spec["C"].items():
         for kind in r:

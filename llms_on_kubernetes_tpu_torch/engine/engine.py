@@ -179,10 +179,11 @@ the handoff digests): its K/V never meets the base model's. (The JAX
 engine salts text requests with ``b""`` whatever adapter they name, so
 there an adapter request adopts pages the base model wrote.)
 
-Images (``submit(images=...)``, as in the JAX engine; video is not ported
-yet): each image is a preprocessed float32 [H, W, C] array
-(``engine/images.py``) and the prompt holds a run of
-``mm_tokens_per_image`` image tokens for each (``_validate_images``, the
+Images and videos (``submit(images=...)``, as in the JAX engine): each
+entry is a preprocessed float32 image [H, W, C] or, on Qwen3-VL, a video
+[F, H, W, C] whose F / temporal_patch_size temporal patches are blocks of
+their own (``engine/images.py``), and the prompt holds a run of
+``mm_tokens_per_image`` image tokens for each block (``_validate_images``, the
 JAX contract: the prompt fits the largest bucket and ``max_tokens`` is
 capped so a preempted resume still does). A fresh image request is
 admitted alone: ``_mm_prefill`` encodes its images through the tower
@@ -1250,39 +1251,55 @@ class Engine:
 
     def _validate_images(self, prompt: list[int], params: SamplingParams,
                          images: list) -> SamplingParams:
-        """The JAX engine's multimodal admission contract (images only):
-        the image-token runs match the images, each image has its
-        family's shape, the prompt fits the largest prefill bucket (the
-        chunk path substitutes no embeddings) and ``max_tokens`` is capped
-        so a preempted resume re-prefills within it. Raises ValueError."""
+        """The JAX engine's multimodal admission contract: each entry an
+        image [H, W, C] or (Qwen3-VL) a video [F, H, W, C] with F a positive
+        multiple of ``temporal_patch_size``, its first frame on its family's
+        grid; the blocks (an image one, a video F / temporal_patch_size)
+        within ``max_images_per_request`` and matching the prompt's
+        image-token runs; the prompt within the largest prefill bucket (the
+        chunk path substitutes no embeddings), ``max_tokens`` capped so a
+        preempted resume re-prefills within it. Raises ValueError."""
         cfg = self.model_config
         if cfg.vision is None:
             raise ValueError(f"model {cfg.name!r} has no vision tower; images are not "
                              f"supported")
         v = cfg.vision
         S2 = v.patches_per_side ** 2
+        blocks = 0
         for im in images:
-            if im.ndim != 3:
-                raise ValueError(f"each image must be [H, W, C]; got {tuple(im.shape)} "
-                                 f"(video is not served)")
-            if im.shape[-1] != v.num_channels:
+            if im.ndim == 4:
+                if v.family != "qwen3vl":
+                    raise ValueError(f"model {cfg.name!r} does not accept video input")
+                F = im.shape[0]
+                if F < v.temporal_patch_size or F % v.temporal_patch_size:
+                    raise ValueError(f"video frame count {F} must be a positive multiple "
+                                     f"of {v.temporal_patch_size}")
+                frame, n = im[0], F // v.temporal_patch_size
+            elif im.ndim == 3:
+                frame, n = im, 1
+            else:
+                raise ValueError(f"each entry must be an [H, W, C] image or an [F, H, W, C] "
+                                 f"video; got {tuple(im.shape)}")
+            blocks += n
+            if frame.shape[-1] != v.num_channels:
                 raise ValueError(f"images need {v.num_channels} channels; got "
                                  f"{tuple(im.shape)}")
-            sh, sw = im.shape[0] // v.patch_size, im.shape[1] // v.patch_size
+            sh, sw = frame.shape[0] // v.patch_size, frame.shape[1] // v.patch_size
             if v.family == "qwen3vl":
                 m = v.spatial_merge_size
-                if (sh * v.patch_size != im.shape[0] or sw * v.patch_size != im.shape[1]
+                if (sh * v.patch_size != frame.shape[0] or sw * v.patch_size != frame.shape[1]
                         or sh % m or sw % m or sh * sw != S2):
                     raise ValueError(
-                        f"image {im.shape[0]}x{im.shape[1]} is not an allowed dynamic-"
+                        f"image {frame.shape[0]}x{frame.shape[1]} is not an allowed dynamic-"
                         f"resolution grid ({S2} patches, sides divisible by "
                         f"{m * v.patch_size})")
-            elif im.shape[:2] != (v.image_size, v.image_size):
+            elif frame.shape[:2] != (v.image_size, v.image_size):
                 raise ValueError(f"{cfg.name} images must be {v.image_size}x{v.image_size}; "
-                                 f"got {im.shape[0]}x{im.shape[1]}")
-        if not 1 <= len(images) <= self.config.max_images_per_request:
-            raise ValueError(f"{len(images)} images; this engine serves 1.."
-                             f"{self.config.max_images_per_request} per request")
+                                 f"got {frame.shape[0]}x{frame.shape[1]}")
+        if not 1 <= blocks <= self.config.max_images_per_request:
+            raise ValueError(f"{blocks} image/frame blocks; this engine serves 1.."
+                             f"{self.config.max_images_per_request} per request (a video "
+                             f"counts one block per {v.temporal_patch_size} frames)")
         t_img = v.mm_tokens_per_image
         runs, i = [], 0
         while i < len(prompt):
@@ -1294,9 +1311,9 @@ class Engine:
                 i = j
             else:
                 i += 1
-        if sum(runs) != len(images) * t_img:
-            raise ValueError(f"prompt has {sum(runs)} image soft tokens; {len(images)} "
-                             f"images need {len(images) * t_img}")
+        if sum(runs) != blocks * t_img:
+            raise ValueError(f"prompt has {sum(runs)} image soft tokens; {blocks} "
+                             f"image/frame blocks need {blocks * t_img}")
         if any(r != t_img for r in runs):
             raise ValueError(f"image soft tokens must form runs of exactly {t_img}")
         bucket = max(self.config.prefill_buckets)
@@ -1323,10 +1340,19 @@ class Engine:
         return b"img\0" + h.digest()
 
     def _mm_grids(self, images) -> list[tuple[int, int]]:
-        """Each image's merged grid (rows, cols), in prompt order."""
+        """Each block's merged grid (rows, cols), in prompt order: one an
+        image, one per temporal patch of a video, all on its grid (the JAX
+        ``_mm_grids``)."""
         from llms_on_kubernetes_tpu_torch.models.vision import merged_grid
 
-        return [merged_grid(self.model_config.vision, im.shape) for im in images]
+        v = self.model_config.vision
+        out = []
+        for im in images:
+            if im.ndim == 4:
+                out += [merged_grid(v, im.shape[1:])] * (im.shape[0] // v.temporal_patch_size)
+            else:
+                out.append(merged_grid(v, im.shape))
+        return out
 
     def _adapter_salt(self, adapter: Optional[str]) -> bytes:
         """The digest-chain salt of a request: ``b""`` for the base model
@@ -1874,18 +1900,22 @@ class Engine:
         return self._chunked_prefill(req, ptoks, start=hit)
 
     def encode_images(self, images: list) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Each image through the vision tower, one call an image (grids
-        may differ): (soft tokens [n, t_img, D], DeepStack [n_taps, n,
-        t_img, D] or None), on the device."""
+        """Each entry through the vision tower, one call an entry (grids
+        may differ; a video gives its F / temporal_patch_size blocks in one
+        call, the JAX ``_encode_request_images``): (soft tokens [n_blocks,
+        t_img, D], DeepStack [n_taps, n_blocks, t_img, D] or None), on the
+        device."""
         from llms_on_kubernetes_tpu_torch.models.vision import vision_encode
 
         embeds, deep = [], []
         for im in images:
+            px = upload(np.ascontiguousarray(im), self.device)
+            video = im.ndim == 4
             e, d = vision_encode(self.params["vision"], self.model_config.vision,
-                                 upload(np.ascontiguousarray(im)[None], self.device))
-            embeds.append(e[0])
+                                 px if video else px[None], video=video)
+            embeds += list(e)
             if d is not None:
-                deep.append(d[:, 0])
+                deep += [d[:, t] for t in range(d.shape[1])]
             self.images_encoded += 1
         return torch.stack(embeds), (torch.stack(deep, dim=1) if deep else None)
 

@@ -4,13 +4,26 @@
 
 The card's machine has no PIL, so the port reads images itself:
 
+- ``decode_image``: the one entry point for an ``image_url``; it sniffs
+  the magic bytes and sends PNG to ``decode_png``, JPEG to
+  ``engine/jpeg.py`` and GIF (frame 0) to ``engine/gif.py``. Anything
+  else (WebP among them) raises ``ValueError`` naming what the port
+  reads (``FORMATS``).
 - ``decode_png``: PNG with ``zlib`` and numpy, 8 bits a sample, not
   interlaced, colour types greyscale, greyscale + alpha, RGB, RGBA and
-  palette, all five row filters. A chunk whose CRC does not match, or any
-  other input (JPEG, GIF, WebP, 16-bit or interlaced PNG), raises
-  ``ValueError`` naming what the port reads (``FORMATS``). The result is
-  converted to RGB as PIL's ``convert("RGB")`` does: alpha dropped, grey
-  repeated, the palette looked up.
+  palette, all five row filters; an APNG's default image (its IDAT), as
+  PIL's ``open`` gives it. A chunk whose CRC does not match, 16-bit or
+  interlaced data raise ``ValueError``. The result is converted to RGB as
+  PIL's ``convert("RGB")`` does: alpha dropped, grey repeated, the palette
+  looked up.
+- ``decode_apng_frames``: every frame of an 8-bit RGB or RGBA APNG
+  (acTL, fcTL, fdAT) composited as PIL 12 composites it: dispose ops
+  none, background (zeros) and previous, blend ops source and over, the
+  latter libImaging's integer alpha mix (``_div255``) on all four
+  channels; each frame's duration as PIL's ``info["duration"]``.
+- ``video_frames`` / ``decode_video_frames``: a ``video_url``'s frame
+  count and durations without decoding (GIF, APNG; a still image is one
+  frame), then only the wanted frames, every earlier one composited.
 - Size: a header of more than ``MAX_IMAGE_PIXELS`` pixels (PIL's
   ``Image.MAX_IMAGE_PIXELS``, above which PIL warns of a decompression
   bomb) is refused before anything is inflated, and the image data is
@@ -47,8 +60,9 @@ import zlib
 
 import numpy as np
 
-FORMATS = ("PNG: 8-bit greyscale, greyscale+alpha, RGB, RGBA or palette, "
-           "not interlaced")
+FORMATS = ("PNG: 8-bit greyscale, greyscale+alpha, RGB, RGBA or palette, not interlaced "
+           "(APNG: RGB or RGBA); JPEG: baseline, extended sequential or progressive "
+           "Huffman, 8-bit, greyscale or 3-component, sampling factors 1 or 2; GIF")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # samples a pixel of each colour type at 8 bits
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -156,25 +170,13 @@ def _inflate(data: bytes, size: int) -> bytes:
     return raw
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> uint8 [H, W, 3] RGB (``convert("RGB")``'s bytes).
-    Raises ValueError for anything outside ``FORMATS``."""
-    if not data.startswith(PNG_SIGNATURE):
-        kind = ("JPEG" if data[:3] == b"\xff\xd8\xff" else
-                "GIF" if data[:4] == b"GIF8" else
-                "WebP" if data[:4] == b"RIFF" and data[8:12] == b"WEBP" else "not a PNG")
-        raise _unsupported(kind)
-    header, palette, idat = None, None, []
-    for kind, payload in _chunks(data):
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", payload)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
-        elif kind == b"IDAT":
-            idat.append(payload)
-    if header is None:
+def _png_header(chunks) -> tuple:
+    """(W, H, depth, colour type, interlace) from the IHDR, checked and
+    refused as ``FORMATS`` says."""
+    header = next((p for k, p in chunks if k == b"IHDR"), None)
+    if header is None or len(header) != 13:
         raise ValueError("PNG has no IHDR chunk")
-    W, H, depth, ctype, _comp, _filt, interlace = header
+    W, H, depth, ctype, _comp, _filt, interlace = struct.unpack(">IIBBBBB", header)
     if ctype not in _CHANNELS:
         raise ValueError(f"PNG colour type {ctype} is invalid")
     if depth != 8:
@@ -186,18 +188,35 @@ def decode_png(data: bytes) -> np.ndarray:
     if W * H > MAX_IMAGE_PIXELS:
         raise ValueError(f"PNG of {W}x{H} pixels is larger than the {MAX_IMAGE_PIXELS} "
                          f"pixels the server decodes")
+    return W, H, depth, ctype, interlace
+
+
+def _png_pixels(zdata: bytes, W: int, H: int, ctype: int) -> np.ndarray:
+    """A zlib stream of filtered rows -> the samples [H, W, bpp]."""
     bpp = _CHANNELS[ctype]
     stride = W * bpp + 1
-    raw = _inflate(b"".join(idat), H * stride)
+    raw = _inflate(zdata, H * stride)
     rows = np.frombuffer(raw, np.uint8).reshape(H, stride)
     types = rows[:, 0].astype(np.int32)
     if (types > 4).any():
         raise ValueError("PNG row filter type is invalid")
     rows = rows[:, 1:]
     if (types >= 3).any():
-        px = _unfilter_diagonals(rows, types, bpp)
-    else:
-        px = _unfilter_rows(rows, types, bpp)
+        return _unfilter_diagonals(rows, types, bpp)
+    return _unfilter_rows(rows, types, bpp)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> uint8 [H, W, 3] RGB (``convert("RGB")``'s bytes); an
+    APNG gives its default image (the IDAT), as PIL's ``open`` does.
+    Raises ValueError for anything outside ``FORMATS``."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise _unsupported(_kind(data))
+    chunks = list(_chunks(data))
+    W, H, _depth, ctype, _i = _png_header(chunks)
+    palette = next((np.frombuffer(p, np.uint8)[:len(p) // 3 * 3].reshape(-1, 3)
+                    for k, p in chunks if k == b"PLTE"), None)
+    px = _png_pixels(b"".join(p for k, p in chunks if k == b"IDAT"), W, H, ctype)
     if ctype == 3:
         if palette is None:
             raise ValueError("palette PNG has no PLTE chunk")
@@ -205,6 +224,175 @@ def decode_png(data: bytes) -> np.ndarray:
         lut[:len(palette)] = palette[:256]
         return lut[px[..., 0]]
     return to_rgb(px)
+
+
+# ---------------------------------------------------------------------------
+# APNG
+# ---------------------------------------------------------------------------
+
+def _div255(x: np.ndarray) -> np.ndarray:
+    """libImaging's DIV255: (x + 128 + ((x + 128) >> 8)) >> 8."""
+    t = x + 128
+    return ((t >> 8) + t) >> 8
+
+
+def _apng(data: bytes):
+    """(W, H, colour type, frames): each frame (duration ms or None,
+    dispose op, blend op, (x0, y0, w, h), zlib data), frame 0 the default
+    image, in PIL's numbering (the IDAT is frame 0 whether or not an fcTL
+    puts it in the animation)."""
+    chunks = list(_chunks(data))
+    W, H, _depth, ctype, _i = _png_header(chunks)
+    actl = next((p for k, p in chunks if k == b"acTL"), None)
+    if actl is None:
+        return W, H, ctype, None, 1
+    if len(actl) != 8:
+        raise ValueError("APNG acTL chunk is malformed")
+    if ctype not in (2, 6) or any(k == b"tRNS" for k, _ in chunks):
+        raise _unsupported("an APNG other than 8-bit RGB or RGBA without tRNS")
+    frames, cur, seen_idat = [], None, False
+    for kind, p in chunks:
+        if kind == b"fcTL":
+            if len(p) != 26:
+                raise ValueError("APNG fcTL chunk is malformed")
+            _seq, w, h, x0, y0, num, den, dop, bop = struct.unpack(">IIIIIHHBB", p)
+            if w == 0 or h == 0 or x0 + w > W or y0 + h > H:
+                raise ValueError("APNG contains invalid frames")
+            if seen_idat and cur is not None and not cur[4]:
+                raise ValueError("APNG missing frame data")
+            cur = [float(num) / float(den or 100) * 1000, dop, bop, (x0, y0, w, h), []]
+            frames.append(cur)
+        elif kind == b"IDAT":
+            if not seen_idat:
+                if cur is None:         # the default image is not an animation frame
+                    cur = [None, None, None, (0, 0, W, H), []]
+                    frames.append(cur)
+                seen_idat = True
+            cur[4].append(p)
+        elif kind == b"fdAT" and seen_idat and cur is not None:
+            cur[4].append(p[4:])
+    if not frames or not frames[0][4]:
+        raise ValueError("PNG has no IDAT chunk")
+    if frames[0][3] != (0, 0, W, H):
+        raise ValueError("APNG's first frame does not cover the canvas")
+    declared = struct.unpack(">I", actl[:4])[0] + (frames[0][0] is None)
+    frames = [f for f in frames if f[4]]
+    return W, H, ctype, [(f[0], f[1], f[2], f[3], b"".join(f[4])) for f in frames], declared
+
+
+def apng_frames(data: bytes) -> tuple[int, int, int, list]:
+    """(width, height, frame count as PIL's ``n_frames`` gives it (acTL's,
+    plus a default image outside the animation), each frame's duration in
+    ms or None) of a PNG or APNG (a still PNG: one frame, no duration), no
+    pixel decoded. The durations list the frames the file holds, which may
+    be fewer than it declares."""
+    W, H, _c, frames, n = _apng(data)
+    return W, H, n, [None] if frames is None else [f[0] for f in frames]
+
+
+def decode_apng_frames(data: bytes, want) -> tuple[int, dict, list]:
+    """(frame count, {i: uint8 [H, W, 3]} for each i in ``want``, every
+    frame's duration), compositing as PIL's ``PngImagePlugin`` does: before
+    a frame, the last one's disposal is pasted (op 1 zeros its rectangle, op
+    2 restores the rectangle as it was before that frame; op 2 on frame 0
+    is op 1); the frame's pixels then replace its rectangle (blend op 0),
+    or, blend op 1 (RGBA), are mixed into what was there by their alpha,
+    every channel alpha included: DIV255(old * (255 - a) + new * a)."""
+    W, H, ctype, frames, _n = _apng(data)
+    if frames is None:
+        return 1, ({0: decode_png(data)} if 0 in set(want) else {}), [None]
+    want = set(want)
+    last = max(want) if want else -1
+    c = _CHANNELS[ctype]
+    out: dict = {}
+    canvas = None
+    dispose = None
+    for i, (_dur, dop, bop, (x0, y0, w, h), z) in enumerate(frames[:last + 1]):
+        px = _png_pixels(z, w, h, ctype)
+        ys, xs = slice(y0, y0 + h), slice(x0, x0 + w)
+        if i == 0:
+            canvas = px.copy()
+            prev = None
+        else:
+            if dispose is not None:
+                canvas[dispose[0]] = dispose[1]
+            prev = canvas.copy()
+            if bop == 1 and c == 4:
+                a = px[..., 3:].astype(np.int32)
+                old = canvas[ys, xs].astype(np.int32)
+                canvas[ys, xs] = _div255(old * (255 - a) + px.astype(np.int32) * a)
+            else:
+                canvas[ys, xs] = px
+        if dop == 2 and prev is None:
+            dop = 1
+        dispose = None
+        if dop == 2:
+            dispose = ((ys, xs), prev[ys, xs])
+        elif dop == 1:
+            dispose = ((ys, xs), 0)
+        if i in want:
+            out[i] = canvas[..., :3].copy()
+    return len(frames), out, [f[0] for f in frames]
+
+
+def _kind(data: bytes) -> str:
+    return ("JPEG" if data[:3] == b"\xff\xd8\xff" else
+            "GIF" if data[:4] == b"GIF8" else
+            "WebP" if data[:4] == b"RIFF" and data[8:12] == b"WEBP" else
+            "PNG" if data.startswith(PNG_SIGNATURE) else "an unknown format")
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """Image bytes -> uint8 [H, W, 3], as PIL's ``open`` then
+    ``convert("RGB")``: PNG (an APNG's default image), JPEG and GIF (frame
+    0), told apart by their magic bytes. Raises ValueError for anything
+    outside ``FORMATS``."""
+    kind = _kind(data)
+    if kind == "PNG":
+        return decode_png(data)
+    if kind == "JPEG":
+        from llms_on_kubernetes_tpu_torch.engine.jpeg import decode_jpeg
+
+        return to_rgb(decode_jpeg(data))
+    if kind == "GIF":
+        from llms_on_kubernetes_tpu_torch.engine.gif import decode_gif
+
+        return decode_gif(data)
+    raise _unsupported(kind)
+
+
+def video_frames(data: bytes) -> tuple[int, int, int, list]:
+    """(width, height, frame count, the durations in ms (or None) of the
+    frames the file holds) of a video's bytes (an animated GIF or APNG; a
+    still PNG, JPEG or GIF is one frame), no pixel decoded: what the server
+    checks before decoding."""
+    kind = _kind(data)
+    if kind == "GIF":
+        from llms_on_kubernetes_tpu_torch.engine.gif import gif_frames
+
+        W, H, durations = gif_frames(data)
+        return W, H, len(durations), durations
+    if kind == "PNG":
+        return apng_frames(data)
+    if kind == "JPEG":
+        from llms_on_kubernetes_tpu_torch.engine.jpeg import jpeg_size
+
+        return (*jpeg_size(data), 1, [None])
+    raise _unsupported(kind)
+
+
+def decode_video_frames(data: bytes, want) -> dict:
+    """{i: uint8 [H, W, 3]} for each frame index in ``want``, every frame
+    before the last one wanted composited as PIL composites it."""
+    kind = _kind(data)
+    if kind == "GIF":
+        from llms_on_kubernetes_tpu_torch.engine.gif import decode_gif_frames
+
+        return decode_gif_frames(data, want)[1]
+    if kind == "PNG":
+        return decode_apng_frames(data, want)[1]
+    img = decode_image(data)
+    return {0: img} if 0 in set(want) else {}
 
 
 def to_rgb(img: np.ndarray) -> np.ndarray:

@@ -18,11 +18,14 @@ serves, and raises for a component it does not implement:
   to three), the ``NFC`` normalizer, the GPT-2 byte table,
   ``ignore_merges`` (or not) and the ``TemplateProcessing`` (or bare
   ``ByteLevel``: no BOS) post-processor;
-- SentencePiece BPE (phi-3): the ``Prepend`` / ``Replace`` normalizer,
+- SentencePiece BPE (phi-3; gemma-3's layout: ``Replace`` alone and a
+  ``Split`` on a string): the ``Prepend`` / ``Replace`` normalizer, a
+  ``Split`` on a literal string with any ``behavior`` and ``invert``,
   ``byte_fallback`` to ``<0xNN>`` tokens, the ``Replace`` / ``ByteFallback``
   / ``Fuse`` / ``Strip`` decoder, and ``add_bos_token`` /
   ``add_eos_token`` from ``tokenizer_config.json`` (a ``LlamaTokenizer``
-  class rebuilds its post-processor from them, as ``transformers`` does);
+  or ``GemmaTokenizer`` class rebuilds its post-processor from them, as
+  ``transformers`` does);
 - in both: added tokens split out of the text before normalization (with
   their ``lstrip`` / ``rstrip`` flags), the merge order
   of ``tokenizers``' BPE (lowest rank, then leftmost), ``decode`` with
@@ -229,6 +232,65 @@ def _split_qwen(text: str) -> list[str]:
 _SPLITS = {LLAMA3_SPLIT: _split_llama3, QWEN_SPLIT: _split_qwen}
 
 
+SPLIT_BEHAVIORS = ("Removed", "Isolated", "MergedWithPrevious", "MergedWithNext", "Contiguous")
+
+
+def _split_string(text: str, delim: str, behavior: str, invert: bool = False) -> list[str]:
+    """``tokenizers``' ``Split`` on a literal string: the text cut into
+    (piece, is a match) runs (leftmost matches, no overlap; ``invert``
+    swaps which runs are matches), then joined by ``behavior``: a match is
+    dropped (Removed), kept alone (Isolated), joined to the run before it
+    or after it unless that run is a match too (MergedWithPrevious,
+    MergedWithNext), or joined with the matches next to it (Contiguous).
+    Empty pieces are dropped."""
+    runs: list[list] = []
+    if delim:
+        prev, i = 0, text.find(delim)
+        while i >= 0:
+            if i != prev:
+                runs.append([text[prev:i], invert])
+            runs.append([delim, not invert])
+            prev = i + len(delim)
+            i = text.find(delim, prev)
+        if prev != len(text):
+            runs.append([text[prev:], invert])
+    elif text:
+        runs.append([text, invert])
+    out: list[list] = []
+    if behavior == "Removed":
+        out = [r for r in runs if not r[1]]
+    elif behavior == "Isolated":
+        out = runs
+    elif behavior == "Contiguous":
+        last = False
+        for r in runs:
+            if r[1] == last and out:
+                out[-1][0] += r[0]
+            else:
+                out.append(list(r))
+            last = r[1]
+    elif behavior == "MergedWithPrevious":
+        last = False
+        for r in runs:
+            if r[1] and not last and out:
+                out[-1][0] += r[0]
+            else:
+                out.append(list(r))
+            last = r[1]
+    elif behavior == "MergedWithNext":
+        last = False
+        for r in reversed(runs):
+            if r[1] and not last and out:
+                out[-1][0] = r[0] + out[-1][0]
+            else:
+                out.append(list(r))
+            last = r[1]
+        out.reverse()
+    else:
+        raise NotImplementedError(f"Split behavior {behavior!r}")
+    return [r[0] for r in out if r[0]]
+
+
 def _split_whitespace(text: str) -> list[str]:
     """The ``Whitespace`` pre-tokenizer: ``\\w+|[^\\w\\s]+``."""
     pieces, i, n = [], 0, len(text)
@@ -334,11 +396,14 @@ class JsonTokenizer:
         self.pre_tokenizers = self._flatten(doc.get("pre_tokenizer"), "pretokenizers",
                                             ("Split", "ByteLevel", "Whitespace"), "pre_tokenizer")
         for p in self.pre_tokenizers:
-            if p["type"] == "Split" and (p.get("pattern", {}).get("Regex") not in _SPLITS
-                                         or p.get("behavior") != "Isolated"
-                                         or p.get("invert")):
-                raise NotImplementedError(f"{path}/tokenizer.json: only llama-3's and Qwen's "
-                                          f"Split pre-tokenizers are implemented")
+            pattern = p.get("pattern", {})
+            if p["type"] == "Split" and not (
+                    ("String" in pattern and p.get("behavior") in SPLIT_BEHAVIORS)
+                    or (pattern.get("Regex") in _SPLITS and p.get("behavior") == "Isolated"
+                        and not p.get("invert"))):
+                raise NotImplementedError(f"{path}/tokenizer.json: only a Split on a string "
+                                          f"and llama-3's and Qwen's Split regexes are "
+                                          f"implemented")
             if p["type"] == "ByteLevel" and (p.get("use_regex", True)
                                              or p.get("add_prefix_space", True)):
                 raise NotImplementedError(f"{path}/tokenizer.json: a ByteLevel pre-tokenizer "
@@ -361,8 +426,9 @@ class JsonTokenizer:
             self.special_tokens_map["additional_special_tokens"] = [
                 _token_content(v) for v in extra]
         # the ids a sequence gets around it (add_special_tokens=True)
-        if str(cfg.get("tokenizer_class", "")).startswith("LlamaTokenizer"):
-            # LlamaTokenizerFast rebuilds its post-processor from these
+        if str(cfg.get("tokenizer_class", "")).startswith(("LlamaTokenizer", "GemmaTokenizer")):
+            # LlamaTokenizerFast and GemmaTokenizerFast rebuild their
+            # post-processor from these
             bos = self.special_tokens_map.get("bos_token", "<s>")
             eos = self.special_tokens_map.get("eos_token", "</s>")
             self.prefix_ids = ([self.token_to_id(bos)]
@@ -463,7 +529,10 @@ class JsonTokenizer:
     def _pre_tokenize(self, text: str) -> list[str]:
         pieces = [text]
         for p in self.pre_tokenizers:
-            if p["type"] == "Split":
+            if p["type"] == "Split" and "String" in p["pattern"]:
+                pieces = [x for piece in pieces for x in _split_string(
+                    piece, p["pattern"]["String"], p["behavior"], bool(p.get("invert")))]
+            elif p["type"] == "Split":
                 scan = _SPLITS[p["pattern"]["Regex"]]
                 pieces = [x for piece in pieces for x in scan(piece)]
             elif p["type"] == "Whitespace":

@@ -20,10 +20,18 @@ replay (``add_launches``), in ``LAUNCHES`` and in ``REPLAYED``: a kernel's
 launches less its replayed ones are the launches it made eagerly.
 
 ``COMPILES`` records the port's compile events, (kind, seconds): each
-parallel ``nvcc`` build ("nvcc:<source>,...", its wall time) and each CUDA
-graph capture
+parallel ``nvcc`` build ("nvcc:<source>,...", its wall time), each host
+library build ("cc:<source>") and each CUDA graph capture
 ("graph:<name>", ``note_compile`` from ``engine/graphs.py``). The server's
 runtime telemetry counts them under the JAX server's compile series.
+
+``build_host`` builds the host-side C sources in ``csrc/host/`` (the
+media decoders' entropy stages, ``engine/jpeg.py`` and ``engine/gif.py``)
+the same way, with the host's C compiler (``$CC``, ``cc``, ``gcc``, else
+``$CXX``, ``c++``, ``g++``), into ``_build/`` under a name keyed by the
+source, the compiler and the flags; ``host_function`` loads one entry.
+There is no fallback: no compiler, or a failed build, raises with the
+compiler's output.
 """
 
 from __future__ import annotations
@@ -205,6 +213,75 @@ def build(names=SOURCES) -> dict:
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
+
+
+HOST_CSRC = CSRC / "host"
+HOST_FLAGS = ("-O2", "-shared", "-fPIC")
+# (library, symbol) -> ctypes argument types of the host entries
+_HOST_SIGNATURES = {
+    "llmk_jpeg_scan": ("media", (
+        ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64), ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32)),
+    "llmk_gif_lzw": ("media", (
+        ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64), ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64))),
+}
+_host_funcs: dict = {}
+
+
+def _host_compiler() -> list[str]:
+    """The host C compiler's command: ``$CC`` or cc/gcc, else ``$CXX`` or
+    c++/g++ (compiling the source as C++)."""
+    for env, names, extra in (("CC", ("cc", "gcc"), []), ("CXX", ("c++", "g++"), ["-x", "c++"])):
+        cmd = os.environ.get(env)
+        if cmd:
+            return [*cmd.split(), *extra]
+        for n in names:
+            found = shutil.which(n)
+            if found:
+                return [found, *extra]
+    raise RuntimeError("no host C compiler found ($CC, cc, gcc, $CXX, c++, g++): the JPEG "
+                       "and GIF decoders are built on first use from csrc/host/")
+
+
+def build_host(name: str = "media") -> Path:
+    """Compile ``csrc/host/<name>.c`` into ``_build/`` if it is not built
+    yet; return the library's path. Raises with the compiler's output when
+    no compiler is found or the build fails."""
+    cc = _host_compiler()
+    src = HOST_CSRC / f"{name}.c"
+    h = hashlib.sha256(" ".join([*cc, *HOST_FLAGS]).encode())
+    h.update(src.read_bytes())
+    path = BUILD_DIR / f"host-{name}-{h.hexdigest()[:16]}.so"
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([*cc, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cc)} {src.name} exited {proc.returncode}:\n"
+                           f"{proc.stdout}")
+    os.replace(tmp, path)
+    note_compile(f"cc:{name}", time.perf_counter() - t0)
+    return path
+
+
+def host_function(symbol: str):
+    """The host library entry ``symbol`` (``_HOST_SIGNATURES``), built on
+    first use. ctypes releases the interpreter lock for its calls."""
+    with _lock:
+        fn = _host_funcs.get(symbol)
+        if fn is None:
+            lib, argtypes = _HOST_SIGNATURES[symbol]
+            fn = getattr(ctypes.CDLL(str(build_host(lib))), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _host_funcs[symbol] = fn
+        return fn
 
 
 def function(name: str):

@@ -1,5 +1,5 @@
 """Vision towers and multimodal projectors (counterpart of
-``llms_on_kubernetes_tpu/models/vision.py``; video is not ported yet).
+``llms_on_kubernetes_tpu/models/vision.py``).
 
 Two families, as in the JAX package, over its parameter trees (the keys
 and layouts of its ``init_vision_params`` / ``init_qwen3vl_vision_params``
@@ -16,7 +16,9 @@ and loaders, so weights carry over one to one):
   grid, pre-LN blocks with 2D rotary attention, the spatial-merge merger
   and the DeepStack mergers, which tap the outputs of the layers
   ``deepstack_indexes`` (the decoder adds them to its first layers'
-  outputs at image positions).
+  outputs at image positions). A video (``encode_video_qwen3vl``) fills
+  the conv3d's temporal patch with consecutive frames, and each temporal
+  patch is one attention span, as each image is.
 
 The towers run no kernel of their own: projections are ``torch.matmul``,
 attention is the JAX einsums (QK^T in float32, softmax, PV), which the JAX
@@ -317,10 +319,42 @@ def _qwen_encode_patches(params: Params, vcfg: VisionConfig, feats: torch.Tensor
     return soft, deep
 
 
-def vision_encode(params: Params, vcfg: VisionConfig,
-                  pixels: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The family's tower on pixels [N, H, W, 3]: (soft tokens [N, t_img,
-    D], DeepStack [n_taps, N, t_img, D] or None)."""
+def _qwen_patchify_video(frames: torch.Tensor, vcfg: VisionConfig) -> torch.Tensor:
+    """frames [F, H, W, C] (F a multiple of temporal_patch_size) -> patch
+    features [F / tp, sh * sw, C * tp * p * p]: the Qwen processor's video
+    layout, consecutive frames filling the temporal patch (an image
+    repeats one frame there), each temporal patch's tokens in block-merge
+    order with per-patch features (channel, temporal, ph, pw)."""
+    F, H, W, C = frames.shape
+    p, m, tp = vcfg.patch_size, vcfg.spatial_merge_size, vcfg.temporal_patch_size
+    sh, sw = H // p, W // p
+    x = frames.reshape(F // tp, tp, H, W, C).permute(0, 4, 1, 2, 3)     # [T', C, tp, H, W]
+    x = x.reshape(F // tp, C, tp, sh // m, m, p, sw // m, m, p)
+    x = x.permute(0, 3, 6, 4, 7, 1, 2, 5, 8)                           # [T', hb, wb, i, j, C, tp, p, p]
+    return x.reshape(F // tp, sh * sw, C * tp * p * p)
+
+
+def encode_video_qwen3vl(params: Params, vcfg: VisionConfig, frames: torch.Tensor):
+    """Qwen3-VL video encode (the JAX ``encode_video_qwen3vl``): frames
+    [F, H, W, C] (normalised, F a multiple of temporal_patch_size) -> (soft
+    tokens [F / tp, t_img, out_hidden], DeepStack [n_taps, F / tp, t_img,
+    out_hidden] or None). Each temporal patch is its own attention span."""
+    _F, H, W, _C = frames.shape
+    sh, sw = H // vcfg.patch_size, W // vcfg.patch_size
+    dt = _compute_dtype(frames, params)
+    return _qwen_encode_patches(params, vcfg, _qwen_patchify_video(frames.to(dt), vcfg), sh, sw)
+
+
+def vision_encode(params: Params, vcfg: VisionConfig, pixels: torch.Tensor,
+                  video: bool = False) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The family's tower on pixels [N, H, W, 3], or with ``video`` on one
+    Qwen3-VL video's frames [F, H, W, 3]: (soft tokens [N, t_img, D],
+    DeepStack [n_taps, N, t_img, D] or None; N a video's temporal
+    patches)."""
+    if video:
+        if vcfg.family != "qwen3vl":
+            raise ValueError("only Qwen3-VL's tower encodes video")
+        return encode_video_qwen3vl(params, vcfg, pixels)
     if vcfg.family == "qwen3vl":
         return encode_images_qwen3vl(params, vcfg, pixels)
     return encode_images(params, vcfg, pixels), None

@@ -30,12 +30,19 @@ Endpoints, with the JAX server's shapes:
   forced tool choice with a JSON ``response_format``. ``suffix`` is
   refused with 400, as by the JAX server. Images (a vision model): chat
   content parts ``image_url`` with a ``data:`` URL (base64) are decoded
-  and preprocessed on the request's thread (``engine/images.py``: PNG
-  only), rendered by the chat template as the model's begin-of-image
+  and preprocessed on the request's thread (``engine/images.py``: PNG,
+  JPEG, GIF), rendered by the chat template as the model's begin-of-image
   marker and spliced into a run of soft tokens (``splice_image_tokens``),
-  which ``usage.prompt_tokens`` counts. A remote URL, bytes the port does
-  not read (JPEG, GIF, WebP, 16-bit or interlaced PNG), an image on a
-  text model and a ``video_url`` part (not ported yet) answer 400.
+  which ``usage.prompt_tokens`` counts. On Qwen3-VL a ``video_url`` part
+  (an animated GIF or APNG) becomes one ``<t seconds>`` text and one
+  image run per temporal patch of its sampled frames (``extract_video``,
+  the JAX ``_extract_video``'s decisions under ``LLMK_MAX_VIDEO_FRAMES``,
+  ``LLMK_MAX_VIDEO_INPUT_FRAMES`` and ``LLMK_MAX_VIDEO_PIXELS``); the
+  blocks (an image one, a video one per temporal patch) are counted
+  against ``max_images_per_request`` before anything is decoded. A remote
+  URL, bytes the port does not read (WebP, 16-bit or interlaced PNG,
+  CMYK, arithmetic or 12-bit JPEG), media on a text model and video on a
+  tower other than Qwen3-VL's answer 400.
 - Chip time (the goodput ledger, ``engine/ledger.py``): a response's
   ``usage.chip_ms`` holds the device milliseconds its requests were
   attributed by phase and ``X-LLMK-Chip-Ms`` their total (non-streaming);
@@ -255,6 +262,19 @@ class BadRequest(ValueError):
 
 class BodyTooLarge(BadRequest):
     pass
+
+
+def _data_url(part: dict, what: str) -> bytes:
+    """The bytes of an ``image_url`` / ``video_url`` part's ``data:`` URL
+    (base64); a remote URL or bad base64 is a BadRequest."""
+    url = (part.get(what) or {}).get("url", "")
+    if not isinstance(url, str) or not url.startswith("data:"):
+        raise BadRequest(f"{what} must be a data: URL (base64); the server does not fetch "
+                         f"remote media")
+    try:
+        return base64.b64decode(url.split(",", 1)[-1], validate=True)
+    except binascii.Error as e:
+        raise BadRequest(f"undecodable {what} data: {e}")
 
 
 def _wire_array(a: Optional[np.ndarray]) -> Optional[dict]:
@@ -762,6 +782,57 @@ class EngineLoop(threading.Thread):
 CLOSE_CAPTURE_WAIT_S = 30.0
 
 
+def extract_video(part: dict, vision, model_name: str) -> tuple[bytes, list, list]:
+    """A ``video_url`` part (an animated GIF or APNG; a still image is
+    one frame) for a model of the vision config ``vision`` (None for a
+    text model) served as ``model_name`` -> (its bytes, the frame indices
+    to keep, padded to a multiple of temporal_patch_size, and each
+    temporal patch's time in seconds), deciding what the JAX
+    ``_extract_video`` decides, before any frame is decoded: the frame
+    count within ``LLMK_MAX_VIDEO_INPUT_FRAMES`` and the frames' pixels
+    within ``LLMK_MAX_VIDEO_PIXELS``; ``LLMK_MAX_VIDEO_FRAMES`` frames
+    sampled uniformly (``np.linspace(...).round()``); durations clamped to
+    [1 ms, 10 s], 1000 / 24 ms where a frame has none; each temporal
+    patch's time the mean of its first and last frames'. Raises
+    BadRequest."""
+    from llms_on_kubernetes_tpu_torch.engine.images import video_frames
+
+    if vision is None:
+        raise BadRequest(f"model {model_name!r} does not accept video input")
+    tp = vision.temporal_patch_size
+    raw = _data_url(part, "video_url")
+    try:
+        w, h, n, durations = video_frames(raw)
+    except ValueError as e:
+        raise BadRequest(f"undecodable video_url data: {e}")
+    max_frames = int(os.environ.get("LLMK_MAX_VIDEO_INPUT_FRAMES", "4096"))
+    if n > max_frames:
+        raise BadRequest(f"video has {n} frames; at most {max_frames} are accepted "
+                         f"(frames are subsampled anyway — send fewer)")
+    budget = int(os.environ.get("LLMK_MAX_VIDEO_PIXELS", str(1 << 28)))
+    if n * w * h > budget:
+        raise BadRequest(f"video of {n} frames at {w}x{h} exceeds the decoded-pixel "
+                         f"budget ({budget}); send fewer/smaller frames")
+    cap = max(tp, int(os.environ.get("LLMK_MAX_VIDEO_FRAMES", "8")))
+    idx = np.linspace(0, n - 1, min(n, cap)).round().astype(int)
+    times_all, t = [], 0.0
+    for dur in durations:
+        times_all.append(t)
+        try:
+            dur = float(dur) if dur else 1000.0 / 24.0
+        except (TypeError, ValueError):
+            dur = 1000.0 / 24.0
+        t += min(max(dur, 1.0), 10_000.0) / 1000.0
+    idx = [int(i) for i in idx[idx < len(times_all)]]
+    times = [times_all[i] for i in idx]
+    if not idx:
+        raise BadRequest("video contains no decodable frames")
+    while len(idx) % tp:           # pad to a temporal-patch multiple
+        idx.append(idx[-1])
+        times.append(times[-1])
+    return raw, idx, [(times[i] + times[i + tp - 1]) / 2 for i in range(0, len(idx), tp)]
+
+
 class OpenAIServer:
     """The HTTP front end of one engine serving one model."""
 
@@ -1226,14 +1297,13 @@ class OpenAIServer:
 
     def extract_images(self, messages: list) -> tuple[list, list]:
         """OpenAI content parts -> (template-ready messages, each image's
-        encoded bytes): each ``image_url`` part (a ``data:`` URL) becomes
-        ``{"type": "image"}``, which the chat template renders as the
-        model's begin-of-image marker (the JAX ``_extract_images``, without
-        its video branch). Nothing is decoded here: ``preprocess_images``
-        decodes once the images are counted. Raises BadRequest."""
-        import base64
-        import binascii
-
+        encoded bytes or a video's ("video", bytes, frame indices)): each
+        ``image_url`` part (a ``data:`` URL) becomes ``{"type": "image"}``,
+        which the chat template renders as the model's begin-of-image
+        marker, and a ``video_url`` part one ``<t seconds>`` text and image
+        placeholder per temporal patch (the JAX ``_extract_images``).
+        Nothing is decoded here: ``preprocess_images`` decodes once the
+        blocks are counted. Raises BadRequest."""
         out, images = [], []
         for m in messages:
             if not isinstance(m, dict):
@@ -1248,18 +1318,15 @@ class OpenAIServer:
             for part in content:
                 ptype = part.get("type") if isinstance(part, dict) else None
                 if ptype == "image_url":
-                    url = (part.get("image_url") or {}).get("url", "")
-                    if not isinstance(url, str) or not url.startswith("data:"):
-                        raise BadRequest("image_url must be a data: URL (base64); the server "
-                                         "does not fetch remote media")
-                    try:
-                        images.append(base64.b64decode(url.split(",", 1)[-1], validate=True))
-                    except binascii.Error as e:
-                        raise BadRequest(f"undecodable image_url data: {e}")
+                    images.append(_data_url(part, "image_url"))
                     parts.append({"type": "image"})
                 elif ptype == "video_url":
-                    raise BadRequest("video_url is not ported yet: this server takes images "
-                                     "(image_url) only")
+                    raw, idx, ts = extract_video(part, self.engine.model_config.vision,
+                                                self.model_name)
+                    for t in ts:
+                        parts.append({"type": "text", "text": f"<{t:.1f} seconds>"})
+                        parts.append({"type": "image"})
+                    images.append(("video", raw, idx))
                 else:
                     parts.append(part)          # text, for the chat template
             out.append({**m, "content": parts})
@@ -1293,19 +1360,35 @@ class OpenAIServer:
         return out
 
     def preprocess_images(self, images: list) -> list:
-        """Encoded images -> the tower's float32 pixels: each decoded
-        (``engine/images.py``, PNG) and at once resized and normalised as
-        the family wants, so one full-size image is held at a time.
-        Raises BadRequest for bytes the server cannot read."""
+        """Encoded images and videos -> the tower's float32 pixels: each
+        image decoded (``engine/images.py``: PNG, JPEG, GIF) and at once
+        resized and normalised as the family wants, so one full-size image
+        is held at a time; a video's kept frames decoded (every frame
+        before the last kept one composited, only the kept ones held) and
+        each preprocessed on the Qwen grid, stacked [F, H, W, C]. Raises
+        BadRequest for bytes the server cannot read and for video on a
+        tower other than Qwen3-VL's."""
         from llms_on_kubernetes_tpu_torch.engine.images import (
-            decode_png, preprocess_image, preprocess_image_qwen3vl,
+            decode_image, decode_video_frames, preprocess_image, preprocess_image_qwen3vl,
         )
 
         vis = self.engine.model_config.vision
         out = []
-        for raw in images:
+        for entry in images:
+            if isinstance(entry, tuple):
+                _video, raw, idx = entry
+                if vis.family != "qwen3vl":
+                    raise BadRequest(f"model {self.model_name!r} does not accept video input")
+                try:
+                    frames = decode_video_frames(raw, idx)
+                except ValueError as e:
+                    raise BadRequest(f"undecodable video_url data: {e}")
+                if any(i not in frames for i in idx):
+                    raise BadRequest("video contains no decodable frames")
+                out.append(np.stack([preprocess_image_qwen3vl(frames[i], vis) for i in idx]))
+                continue
             try:
-                rgb = decode_png(raw)
+                rgb = decode_image(entry)
             except ValueError as e:
                 raise BadRequest(f"undecodable image_url data: {e}")
             out.append(preprocess_image_qwen3vl(rgb, vis) if vis.family == "qwen3vl"
@@ -1328,9 +1411,12 @@ class OpenAIServer:
         if images and self.engine.model_config.vision is None:
             raise BadRequest(f"model {self.model_name!r} does not accept images")
         cap = self.engine.config.max_images_per_request
-        if len(images) > cap:
-            raise BadRequest(f"{len(images)} images; this server takes at most {cap} per "
-                             f"request")
+        blocks = sum(len(e[2]) // self.engine.model_config.vision.temporal_patch_size
+                     if isinstance(e, tuple) else 1 for e in images)
+        if blocks > cap:
+            raise BadRequest(f"{blocks} image/frame blocks; this server takes at most {cap} "
+                             f"per request (a video counts one block per "
+                             f"{self.engine.model_config.vision.temporal_patch_size} frames)")
         tools = body.get("tools")
         try:
             if tools is not None:
@@ -1350,7 +1436,7 @@ class OpenAIServer:
             raise BadRequest(f"bad messages: {e}")
         pixels = None
         if images:
-            ids = self.splice_image_tokens(list(ids), len(images))
+            ids = self.splice_image_tokens(list(ids), blocks)
             pixels = self.preprocess_images(images)
         # a "required" or named choice is grammar-guaranteed; "auto" is
         # parsed only. A named function is told by the body's shape, so a

@@ -8,8 +8,9 @@
   growing, square and not.
 - ``preprocess_image`` / ``preprocess_image_qwen3vl`` (and the grid
   choice) equal the JAX functions, which use PIL, exactly.
-- Everything the port does not read (JPEG, GIF, WebP, 16-bit, interlaced,
-  a bad CRC) raises ValueError naming the formats it reads.
+- Everything the port does not read (CMYK JPEG, a GIF whose frame grows
+  its screen past ``MAX_IMAGE_PIXELS``, WebP, 16-bit, interlaced, a bad
+  CRC) raises ValueError from ``decode_image`` naming it.
 - A header over ``MAX_IMAGE_PIXELS`` and image data that inflates past
   what its header declares (a zlib bomb) raise ValueError having
   allocated under 4 MB (``tracemalloc``, which sees numpy's buffers).
@@ -31,6 +32,7 @@ from llms_on_kubernetes_tpu.configs import get_config as jget_config
 from llms_on_kubernetes_tpu.models import vision as jvision
 from llms_on_kubernetes_tpu_torch.configs import get_config
 from llms_on_kubernetes_tpu_torch.engine import images
+from llms_on_kubernetes_tpu_torch.testing import synth_media
 
 MODES = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}
 
@@ -157,16 +159,25 @@ def _other(kind: str) -> bytes:
         data[40] ^= 0xFF
         return bytes(data)
     buf = io.BytesIO()
-    img.save(buf, {"jpeg": "JPEG", "gif": "GIF", "webp": "WEBP"}[kind])
+    if kind == "jpeg":          # CMYK: JPEG the port does not read
+        img.convert("CMYK").save(buf, "JPEG")
+        return buf.getvalue()
+    if kind == "gif":           # a frame that grows the screen past MAX_IMAGE_PIXELS
+        return synth_media.encode_gif([a[..., 0] % 16], a[:16, 0], rects=[(60_000, 60_000)])
+    img.save(buf, "WEBP")
     return buf.getvalue()
 
 
 @pytest.mark.parametrize("kind", ["jpeg", "gif", "webp", "png16", "interlaced", "bad_crc"])
 def test_unsupported_input_raises_value_error(kind):
+    """What ``decode_image`` does not read raises ValueError naming it (and,
+    but for a GIF too large and a bad CRC, the formats the port reads)."""
     with pytest.raises(ValueError) as e:
-        images.decode_png(_other(kind))
-    if kind not in ("bad_crc",):
-        assert "PNG" in str(e.value)
+        images.decode_image(_other(kind))
+    assert {"jpeg": "4-component", "gif": str(images.MAX_IMAGE_PIXELS), "webp": "WebP",
+            "png16": "16-bit", "interlaced": "interlaced", "bad_crc": "CRC"}[kind] in str(e.value)
+    if kind not in ("bad_crc", "gif"):
+        assert "PNG" in str(e.value) and "JPEG" in str(e.value)
 
 
 

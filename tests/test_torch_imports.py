@@ -11,6 +11,7 @@
   raises instead of carrying on on the CPU.
 """
 
+import ctypes
 import os
 import re
 import subprocess
@@ -59,6 +60,13 @@ def test_import_everything_without_jax():
         "from llms_on_kubernetes_tpu_torch.testing.synth_checkpoint import (\n"
         "    TOKENIZER_PROBES, write_tokenizer)\n"
         "from llms_on_kubernetes_tpu_torch.engine.images import decode_png, resize_bicubic\n"
+        "from llms_on_kubernetes_tpu_torch.engine.images import (\n"
+        "    decode_apng_frames, decode_image, decode_video_frames, video_frames)\n"
+        "from llms_on_kubernetes_tpu_torch.engine.jpeg import decode_jpeg, idct_islow\n"
+        "from llms_on_kubernetes_tpu_torch.engine.gif import decode_gif, decode_gif_frames\n"
+        "from llms_on_kubernetes_tpu_torch.testing.synth_media import (\n"
+        "    encode_apng, encode_gif, encode_jpeg)\n"
+        "from llms_on_kubernetes_tpu_torch.models.vision import encode_video_qwen3vl\n"
         "from llms_on_kubernetes_tpu_torch.models.vision import (\n"
         "    encode_images, encode_images_qwen3vl, qwen_mrope_positions)\n"
         "from llms_on_kubernetes_tpu_torch.models.decoder import forward_prefill_mm\n"
@@ -88,7 +96,8 @@ def test_the_framework_free_copies_are_scanned():
             PKG / "engine" / "ledger.py", PKG / "engine" / "grammar.py",
             PKG / "server" / "profiling.py",
             PKG / "server" / "runtime_telemetry.py", PKG / "engine" / "images.py",
-            PKG / "models" / "vision.py"} <= set(SOURCES)
+            PKG / "models" / "vision.py", PKG / "engine" / "jpeg.py", PKG / "engine" / "gif.py",
+            PKG / "testing" / "synth_media.py"} <= set(SOURCES)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
@@ -135,6 +144,36 @@ def test_ctypes_signatures_match_the_c_entries():
         assert m, symbol
         params = [re.sub(r"\s+\w+$", "", p.strip()) for p in m.group(1).split(",")]
         assert [_C_TYPES[p] for p in params] == [a.__name__ for a in argtypes], symbol
+
+
+def _host_kind(c_type: str) -> str:
+    """A C parameter type as what ctypes must pass: a pointer, an int64 or
+    an int32."""
+    if "*" in c_type:
+        return "pointer"
+    return {"int64_t": "int64", "int32_t": "int32"}[c_type]
+
+
+def _ctypes_kind(t) -> str:
+    if t in (ctypes.c_char_p, ctypes.c_void_p) or hasattr(t, "contents"):
+        return "pointer"
+    return {ctypes.sizeof(ctypes.c_int64): "int64", 4: "int32"}[ctypes.sizeof(t)]
+
+
+def test_host_ctypes_signatures_match_the_c_entries():
+    """Each entry of the host library (``csrc/host/media.c``, the media
+    decoders' entropy stages) is bound with the ctypes signature its C
+    parameter list asks for, and every host source is one the port binds."""
+    from llms_on_kubernetes_tpu_torch import kernels
+
+    assert sorted(p.stem for p in kernels.HOST_CSRC.glob("*.c")) == sorted(
+        {lib for lib, _ in kernels._HOST_SIGNATURES.values()})
+    for symbol, (lib, argtypes) in kernels._HOST_SIGNATURES.items():
+        text = (kernels.HOST_CSRC / f"{lib}.c").read_text()
+        m = re.search(r"LLMK_API int " + symbol + r"\(([^)]*)\)", text)
+        assert m, symbol
+        params = [re.sub(r"\s*\w+$", "", p.strip()) for p in m.group(1).split(",")]
+        assert [_host_kind(p) for p in params] == [_ctypes_kind(a) for a in argtypes], symbol
 
 
 def test_forbidden_pattern_catches_what_it_should():

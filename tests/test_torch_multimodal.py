@@ -14,9 +14,10 @@
   load to equal parameters through both loaders, tower included, and
   their ``config.json`` reads back to the config.
 - The server: a PNG ``image_url`` answers with the soft tokens counted in
-  ``usage.prompt_tokens``; a JPEG, a remote URL, a ``video_url``, an image
-  on a text model and more images than ``max_images_per_request`` answer
-  400; the engine refuses malformed image prompts.
+  ``usage.prompt_tokens``; a CMYK JPEG, a remote URL, an undecodable
+  ``video_url``, an image on a text model and more images than
+  ``max_images_per_request`` answer 400; the engine refuses malformed
+  image prompts.
 """
 
 import base64
@@ -316,11 +317,11 @@ class MMTokenizer:
         return {256}
 
 
-def _data_url(fmt="PNG"):
+def _data_url(fmt="PNG", mode="RGB"):
     from PIL import Image
 
     buf = io.BytesIO()
-    Image.new("RGB", (20, 12), (120, 30, 200)).save(buf, fmt)
+    Image.new(mode, (20, 12), (120, 30, 200)).save(buf, fmt)
     return f"data:image/{fmt.lower()};base64," + base64.b64encode(buf.getvalue()).decode()
 
 
@@ -364,8 +365,8 @@ def test_server_answers_png_image_url(mm_server):
 @pytest.mark.parametrize("case", ["jpeg", "remote", "video", "two_images", "bad_base64",
                                   "two_jpegs"])
 def test_server_answers_400(mm_server, case):
-    if case == "jpeg":
-        body = _image_msg(_data_url("JPEG"))
+    if case == "jpeg":          # a CMYK JPEG: JPEG the port does not read
+        body = _image_msg(_data_url("JPEG", "CMYK"))
     elif case == "remote":
         body = _image_msg("http://example.invalid/x.png")
     elif case == "video":
@@ -379,7 +380,7 @@ def test_server_answers_400(mm_server, case):
     status, raw = _post(mm_server, body)
     assert status == 400, raw
     msg = json.loads(raw)["error"]["message"]
-    expect = {"jpeg": "PNG", "remote": "data: URL", "video": "not ported",
+    expect = {"jpeg": "4-component", "remote": "data: URL", "video": "undecodable",
               "two_images": "per request", "bad_base64": "undecodable",
               "two_jpegs": "per request"}[case]
     assert expect in msg

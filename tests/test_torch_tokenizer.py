@@ -20,6 +20,13 @@ the CPU.
   ids, decoded text and chat ids equal ``transformers``' for digits, mixed
   scripts, input NFC changes, newlines and every added token; a checkpoint
   directory carrying the files serves its chat on the CPU.
+- Gemma-3's layout, as recalled (no published gemma-3 file is in the
+  repository): the phi-3 files with the ``Replace(" " -> "▁")``
+  normalizer alone, a ``Split`` on the string " " with
+  ``MergedWithPrevious``, byte fallback and ``tokenizer_class``
+  ``GemmaTokenizer``: ids, decoded text and chat ids equal
+  ``transformers``'; ``_split_string`` gives ``tokenizers``' pieces for
+  every ``behavior`` and ``invert``.
 - ``load_tokenizer`` gives the reader for a ``tokenizer.json`` directory;
   the reader and the writer import neither ``transformers`` nor
   ``tokenizers``.
@@ -38,8 +45,8 @@ from hypothesis import strategies as st
 
 from llms_on_kubernetes_tpu.engine.tokenizer import HFTokenizer as JHFTokenizer
 from llms_on_kubernetes_tpu_torch.engine.tokenizer import (
-    LLAMA3_SPLIT, QWEN_SPLIT, JsonTokenizer, _split_llama3, _split_qwen, _split_whitespace,
-    load_tokenizer,
+    LLAMA3_SPLIT, QWEN_SPLIT, SPLIT_BEHAVIORS, JsonTokenizer, _split_llama3, _split_qwen,
+    _split_string, _split_whitespace, load_tokenizer,
 )
 from llms_on_kubernetes_tpu_torch.testing import synth_checkpoint as synth
 
@@ -144,6 +151,24 @@ def test_qwen_split_equals_tokenizers_for_every_character(qwen_split):
     "$100.00", " !!!\n\n", "\t\tindented", "end.\n", "　　x", "a b"])
 def test_llama3_split_edge_cases(split, text):
     assert _split_llama3(text) == [p for p, _ in split.pre_tokenize_str(text)]
+
+
+SPLIT_TEXT = st.lists(st.sampled_from(["a", "b", " ", "  ", "▁", "ab", "é", "\n", "x y"]),
+                      max_size=12).map("".join)
+
+
+@pytest.mark.parametrize("behavior", SPLIT_BEHAVIORS)
+@pytest.mark.parametrize("invert", [False, True])
+@settings(max_examples=300, deadline=None, suppress_health_check=[HealthCheck.too_slow])
+@given(text=SPLIT_TEXT, delim=st.sampled_from([" ", "  ", "ab", "▁", "b", "x y"]))
+def test_string_split_equals_tokenizers(behavior, invert, text, delim):
+    """A ``Split`` on a literal string, every behaviour, inverted or not."""
+    from tokenizers import pre_tokenizers
+
+    ref = pre_tokenizers.Split(delim, behavior=behavior.lower().replace(
+        "mergedwith", "merged_with_"), invert=invert)
+    assert _split_string(text, delim, behavior, invert) == [
+        p for p, _ in ref.pre_tokenize_str(text)]
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +299,56 @@ def test_qwen3vl_files_are_qwen3s_with_its_image_markers(written, tmp_path):
     user, assistant = reader.encode("user"), reader.encode("assistant")
     assert ids[:len(user) + 5] == [151644, *user, 10, 151652, 151655, 151653]
     assert ids[-len(assistant) - 2:] == [151644, *assistant, 10]
+
+
+def gemma3_as_recalled(out_dir, add_bos: bool = True) -> None:
+    """Gemma-3's tokenizer.json layout as recalled (no published file is in
+    the repository): the phi-3 files with the ``Replace(" " -> "▁")``
+    normalizer alone, the pre-tokenizer ``Split({"String": " "},
+    "MergedWithPrevious")``, the decoder without its ``Strip`` and
+    ``tokenizer_class`` ``GemmaTokenizer``."""
+    tok, cfg = synth.tokenizer_files("phi3")
+    tok["normalizer"] = {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}
+    tok["pre_tokenizer"] = {"type": "Split", "pattern": {"String": " "},
+                            "behavior": "MergedWithPrevious", "invert": False}
+    tok["decoder"]["decoders"] = tok["decoder"]["decoders"][:3]
+    cfg.update(tokenizer_class="GemmaTokenizer", add_bos_token=add_bos)
+    (out_dir / "tokenizer.json").write_text(json.dumps(tok, ensure_ascii=False))
+    (out_dir / "tokenizer_config.json").write_text(json.dumps(cfg, ensure_ascii=False))
+
+
+@pytest.fixture(scope="module", params=[True, False], ids=["bos", "no_bos"])
+def gemma3(request, tmp_path_factory):
+    path = tmp_path_factory.mktemp("tok-gemma3")
+    gemma3_as_recalled(path, add_bos=request.param)
+    return JsonTokenizer(str(path)), _quiet(JHFTokenizer, str(path))
+
+
+GEMMA3_CASES = ["Hello world  x", "  leading and trailing  ", "line one\n\nline two\r\n\tx",
+                "東京 🚀 é ſ ½", "<|user|>hi<|end|>", "", " ", "a▁b ▁ c"]
+
+
+@pytest.mark.parametrize("text", GEMMA3_CASES)
+def test_gemma3_layout_as_recalled_as_transformers(gemma3, text):
+    """The layout loads, and its ids, decoded text and chat ids equal
+    ``transformers``'."""
+    reader, hf = gemma3
+    ids = hf.encode(text)
+    assert reader.encode(text) == ids
+    assert reader.decode(ids) == hf.decode(ids)
+    chat = [{"role": "system", "content": text}, {"role": "user", "content": text}]
+    assert reader.apply_chat_template(chat) == hf.apply_chat_template(chat)
+    assert reader.eos_ids == hf.eos_ids
+
+
+@settings(max_examples=200, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow, HealthCheck.function_scoped_fixture])
+@given(text=TEXT)
+def test_gemma3_layout_as_recalled_encodes_any_text_as_transformers(gemma3, text):
+    reader, hf = gemma3
+    ids = hf.encode(text)
+    assert reader.encode(text) == ids
+    assert reader.decode(ids) == hf.decode(ids)
 
 
 def _free_port() -> int:
@@ -495,7 +570,14 @@ print("ok", type(tok).__name__)
                         "behavior": "Isolated"}}, "Split"),
     ({"model": {"type": "BPE", "vocab": {}, "merges": []},
       "normalizer": {"type": "NFKC"}}, "NFKC"),
-], ids=["unigram", "single_word", "add_prefix_space", "other_split", "nfkc"])
+    ({"model": {"type": "BPE", "vocab": {}, "merges": []},
+      "pre_tokenizer": {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT},
+                        "behavior": "MergedWithPrevious"}}, "Split"),
+    ({"model": {"type": "BPE", "vocab": {}, "merges": []},
+      "pre_tokenizer": {"type": "Split", "pattern": {"String": " "},
+                        "behavior": "Sideways"}}, "Split"),
+], ids=["unigram", "single_word", "add_prefix_space", "other_split", "nfkc",
+        "regex_split_merged", "string_split_unknown_behavior"])
 def test_the_reader_refuses_what_it_does_not_implement(tmp_path, doc, what):
     (tmp_path / "tokenizer.json").write_text(json.dumps(doc))
     with pytest.raises(NotImplementedError, match=what):
